@@ -7,21 +7,38 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU. It
 imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
 
 1. prints the card (`nvidia-smi` name and power limit) and the versions;
-2. builds every kernel of the serving path from `deeplearning4j_tpu_torch/
-   csrc/` with nvcc (sm_90a);
-3. holds each kernel against its plain PyTorch version on the card, at the
-   serving shape (contiguous inputs, and the strided views of one fused qkv
-   projection that the serving path passes) and at a ragged shape, and
-   times the kernel, the plain version and the one PyTorch call that
-   computes the same function by CUDA-graph replay (device time, no host
-   launch cost), the wrapper's eager call (`call_ms`), and the bound (the
-   least time the card could take);
-4. serves the full-width charTransformer (vocab 256, d_model 2048, 8 blocks,
+2. builds every kernel of the serving and training paths from
+   `deeplearning4j_tpu_torch/csrc/` with nvcc (sm_90a), one nvcc per source,
+   all started together;
+3. holds the flash-attention forward kernel against its plain PyTorch
+   version on the card, at the serving shape (contiguous inputs, and the
+   strided views of one fused qkv projection that the serving path passes),
+   at the train step's shape with lse on those views, and at a ragged
+   shape, and times the kernel, the plain version and the
+   one PyTorch call that computes the same function by CUDA-graph replay
+   (device time, no host launch cost), the wrapper's eager call
+   (`call_ms`), and the bound (the least time the card could take);
+4. does the same for the three kernels of the fused attention backward
+   (delta, dK/dV, dQ): bf16 causal at the training shape on qkv views, f32
+   causal and not, and a ragged S; checks `FlashAttentionFunction`'s
+   gradients against autograd through the plain forward, both taken with
+   respect to the fused qkv projection whose views they read; the yardstick is
+   the backward of `scaled_dot_product_attention` (its forward plus
+   backward, less its forward);
+5. serves the full-width charTransformer (vocab 256, d_model 2048, 8 blocks,
    16 heads, seq 512, bf16 compute, random weights from a seed) through
    `MultiLayerNetwork.serve` to 4 concurrent POST /v1/predict requests,
    checks each answer against a direct `net.output`, checks the flash path
    against the plain attention path in f32, and checks that every forward
-   pass launched the flash kernel once per attention layer.
+   pass launched the flash kernel once per attention layer;
+6. trains the same network with `MultiLayerNetwork.fit` (the JAX package's
+   flagship training conf, bench.py:558-567: Adam, sparse labels, fused
+   updater, fused attention backward, bf16 compute over f32 weights) for
+   TRAIN_STEPS one-step calls on one batch of 32 x 512 tokens, checks that
+   the scores are finite and fall and that each step launched the forward
+   kernel and each backward kernel once per attention layer, traces one
+   more step with `torch.profiler` (device time by kernel, idle share), and
+   checks the fused backward's gradients against the recompute path in f32.
 
 Each phase prints one JSON line; then a line with every kernel's numbers,
 the card's line, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -47,6 +64,14 @@ PEAK_BYTES = 3.35e12
 
 SLICE = dict(vocab=256, d_model=2048, n_blocks=8, n_heads=16, seq=512)
 REQUESTS, REQUEST_ROWS = 4, 2
+TRAIN_ROWS, TRAIN_STEPS = 32, 5
+# The zoo's lr is 1e-3. `fit` restarts Adam from zero moments on every call,
+# as the JAX package does, so each one-iteration call moves every weight by
+# about lr (Adam's first step is lr * g / (|g| + eps)). At d_model 2048 on
+# this batch the score rises with TRAIN_LR at 1e-4 and 1e-3 and falls at
+# 1e-5 (on an H100; PERF.md). The JAX package's `fit` rises alike at the
+# zoo's lr (tests/test_torch_training.py, at d_model 512 and 8 blocks).
+TRAIN_LR = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -130,10 +155,203 @@ def attention_bound_ms(b, s, h, d, dtype_name, causal, with_lse):
                                        else "bytes")
 
 
+def bwd_bound_ms(name, b, s, h, d, dtype_name, causal):
+    """max(operations / peak rate, bytes / HBM rate) for one backward
+    kernel: each input read once, each output written once. dK/dV: four
+    products of [S, S, D] per head (QK^T, dO V^T, P^T dO, dS^T Q); dQ: three
+    (QK^T, dO V^T, dS K); both halved when causal. Delta: o and dO read,
+    one f32 per row written."""
+    size = 2 if dtype_name == "bfloat16" else 4
+    elems = float(b * s * h * d)
+    rows = 4.0 * b * h * s                     # one f32 per (b, h, row)
+    half = 0.5 if causal else 1.0
+    if name == "flash_bwd_delta":
+        flops, nbytes = 2.0 * elems, 2 * elems * size + rows
+    elif name == "flash_bwd_dkv":
+        flops = 8.0 * b * h * s * s * d * half
+        nbytes = 6 * elems * size + 2 * rows
+    else:
+        flops = 6.0 * b * h * s * s * d * half
+        nbytes = 5 * elems * size + 2 * rows
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def qkv_views(qkv, h, d):
+    """q, k, v as nn/layers/attention.py builds them from one fused
+    [B, S, 3 * H * D] projection: views with sequence stride 3 * H * D."""
+    b, s = qkv.shape[:2]
+    q, k, v = (t.view(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    check(q.stride(1) == 3 * h * d, f"q strides {q.stride()}")
+    return q, k, v
+
+
+def bwd_inputs(torch, kernels, gen, b, s, h, d, dt, causal, view):
+    """The fused qkv projection (None unless `view`), q, k, v (its strided
+    views when `view`, as the attention layer passes them), dO, and the
+    forward kernel's o and lse on them."""
+    qkv = None
+    if view:
+        qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").to(dt)
+        q, k, v = qkv_views(qkv, h, d)
+    else:
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                   .to(dt) for _ in range(3))
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
+    o, lse = kernels.flash_attn_fwd(q, k, v, causal, with_lse=True)
+    return qkv, q, k, v, do, o, lse
+
+
+def bwd_close(torch, got, want):
+    """(max |got - want|, ok) at the stated tolerance: f32 outputs atol =
+    rtol = 1e-4; bf16 outputs max |got - want| <= 2e-2 * max |want| (both
+    are rounded to bf16 once, from f32 sums taken in different orders)."""
+    err = (got.float() - want.float()).abs().max().item()
+    if want.dtype == torch.float32:
+        ok = bool(torch.allclose(got, want, atol=1e-4, rtol=1e-4))
+    else:
+        ok = err <= 2e-2 * want.float().abs().max().item()
+    return err, ok
+
+
+def bwd_check(torch, kernels, q, k, v, do, o, lse, causal):
+    """Each backward kernel against its plain version on the same inputs
+    (dK/dV and dQ both take the plain delta); returns {kernel:
+    (max_abs_err, ok)}."""
+    out = {}
+    delta = kernels.flash_bwd_delta_reference(o, do)
+    out["flash_bwd_delta"] = bwd_close(torch,
+                                       kernels.flash_bwd_delta(o, do), delta)
+    dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    wk, wv = kernels.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    ek, okk = bwd_close(torch, dk, wk)
+    ev, okv = bwd_close(torch, dv, wv)
+    out["flash_bwd_dkv"] = (max(ek, ev), okk and okv)
+    out["flash_bwd_dq"] = bwd_close(
+        torch, kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+        kernels.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal))
+    torch.cuda.synchronize()
+    return out
+
+
+def grad_function_check(torch, kernels, qkv, h, d, do, causal):
+    """`FlashAttentionFunction` (forward kernel with lse, then delta, dK/dV
+    and dQ) against autograd through `flash_attention_reference`, both on
+    q, k, v views of one fused projection as the train step passes them,
+    with gradients taken with respect to the projection; (max_abs_err over
+    its dq, dk and dv parts, ok) at the bf16 tolerance, per part."""
+    def grad(fn):
+        leaf = qkv.detach().clone().requires_grad_()
+        (g,) = torch.autograd.grad(fn(*qkv_views(leaf, h, d), causal), leaf,
+                                   do)
+        return g.split(h * d, dim=-1)
+
+    got = grad(lambda q, k, v, c: kernels.flash_attention(q, k, v, c,
+                                                          fused_bwd=True))
+    want = grad(kernels.flash_attention_reference)
+    torch.cuda.synchronize()
+    errs = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, want)]
+    ok = all(e <= 2e-2 * w.float().abs().max().item()
+             for e, w in zip(errs, want))
+    return max(errs), ok
+
+
+def sdpa_backward_ms(torch, q, k, v, do, causal):
+    """The library yardstick for the whole fused backward: one
+    `scaled_dot_product_attention` forward plus its backward, less the
+    forward alone, each by CUDA-graph replay, at the same inputs."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    gt = do.transpose(1, 2)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        return torch.autograd.grad(out, (qt, kt, vt), gt)
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+
+    return graph_ms(fwd_bwd) - graph_ms(fwd)
+
+
+BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def phase_bwd_kernels(torch, kernels):
+    """The three backward kernels against their plain versions on the card,
+    at the train path's shape and layout (bf16, causal, q/k/v views of one
+    fused qkv projection, B=32 S=512 H=16 D=128), in f32 causal and not,
+    and at a ragged S; timed at every case. Returns {kernel: row} of the
+    train-path case."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [(32, 512, 16, 128, torch.bfloat16, True, True),
+             (8, 512, 16, 128, torch.float32, True, False),
+             (8, 512, 16, 128, torch.float32, False, False),
+             (8, 200, 16, 64, torch.bfloat16, True, False)]
+    main_rows = {}
+    for b, s, h, d, dt, causal, view in cases:
+        qkv, q, k, v, do, o, lse = bwd_inputs(torch, kernels, gen, b, s, h,
+                                              d, dt, causal, view)
+        results = bwd_check(torch, kernels, q, k, v, do, o, lse, causal)
+        dname = str(dt).replace("torch.", "")
+        grad_err = grad_ok = None
+        if view:
+            grad_err, grad_ok = grad_function_check(torch, kernels, qkv, h, d,
+                                                    do, causal)
+        library_ms = sdpa_backward_ms(torch, q, k, v, do, causal)
+        delta = kernels.flash_bwd_delta(o, do)
+        calls = {
+            "flash_bwd_delta": (lambda: kernels.flash_bwd_delta(o, do),
+                                lambda: kernels.flash_bwd_delta_reference(
+                                    o, do)),
+            "flash_bwd_dkv": (lambda: kernels.flash_bwd_dkv(
+                q, k, v, do, lse, delta, causal),
+                lambda: kernels.flash_bwd_dkv_reference(
+                    q, k, v, do, lse, delta, causal)),
+            "flash_bwd_dq": (lambda: kernels.flash_bwd_dq(
+                q, k, v, do, lse, delta, causal),
+                lambda: kernels.flash_bwd_dq_reference(
+                    q, k, v, do, lse, delta, causal)),
+        }
+        for name in BWD_KERNELS:
+            err, ok = results[name]
+            kernel_fn, plain_fn = calls[name]
+            bound_ms, bound_by = bwd_bound_ms(name, b, s, h, d, dname,
+                                              causal)
+            row = {"phase": "bwd_kernel", "name": name, "shape": [b, s, h, d],
+                   "dtype": dname, "causal": causal, "view": view,
+                   "max_abs_err": err, "ok": ok,
+                   "kernel_ms": graph_ms(kernel_fn),
+                   "call_ms": cuda_ms(kernel_fn),
+                   "plain_ms": graph_ms(plain_fn, iters=3, replays=1),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "sdpa_backward_ms": library_ms}
+            if view:
+                row["grad_fn_max_abs_err"] = grad_err
+                row["grad_fn_ok"] = grad_ok
+            emit(row)
+            check(ok, f"{name} disagrees with its plain version: {row}")
+            if view:
+                check(grad_ok, f"FlashAttentionFunction grads disagree with "
+                               f"autograd of the plain forward: {row}")
+                main_rows[name] = row
+        del qkv, q, k, v, do, o, lse, delta, calls
+        torch.cuda.empty_cache()
+    return main_rows
+
+
 def phase_kernels(torch, kernels):
-    """Kernel vs plain version on the card; returns the row of the case the
-    serving path runs: bf16, causal, no lse, q, k, v strided views of one
-    fused [B, S, 3 * H * D] projection."""
+    """Kernel vs plain version on the card; returns the rows of the two
+    cases the main paths run, both bf16 and causal on q, k, v strided views
+    of one fused [B, S, 3 * H * D] projection: serving (B=8, no lse) and
+    the train step's forward (B=32, with lse)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -143,16 +361,15 @@ def phase_kernels(torch, kernels):
             for with_lse in (False, True):
                 cases.append((8, 512, 16, 128, dt, causal, with_lse, False))
     cases += [(8, 512, 16, 128, torch.bfloat16, True, False, True),
+              (32, 512, 16, 128, torch.bfloat16, True, True, True),
               (8, 200, 16, 64, torch.bfloat16, True, True, False),
               (8, 200, 16, 64, torch.float32, False, True, False)]
-    main_row = None
+    path_rows = {}
     for b, s, h, d, dt, causal, with_lse, view in cases:
         if view:
-            # as nn/layers/attention.py builds them: sequence stride 3*H*D
             qkv = torch.randn(b, s, 3 * h * d, generator=gen,
                               device="cuda").to(dt)
-            q, k, v = (t.view(b, s, h, d) for t in qkv.split(h * d, dim=-1))
-            check(q.stride(1) == 3 * h * d, f"q strides {q.stride()}")
+            q, k, v = qkv_views(qkv, h, d)
         else:
             q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda")
                        .to(dt) for _ in range(3))
@@ -194,10 +411,10 @@ def phase_kernels(torch, kernels):
         emit(row)
         check(ok, f"flash_attn_fwd disagrees with its plain version: {row}")
         if view:
-            main_row = row
+            path_rows["train" if with_lse else "serve"] = row
         del q, k, v, qt, kt, vt, got, want
         torch.cuda.empty_cache()
-    return main_row
+    return path_rows["serve"], path_rows["train"]
 
 
 def post(url, body, timeout=300.0):
@@ -342,6 +559,139 @@ def phase_serve(torch, kernels):
     return serve_launches
 
 
+def profile_step(torch, kernels, net, x, y) -> None:
+    """One more training step under `torch.profiler`: prints the device
+    time by kernel name (the 15 largest), the device time of the port's
+    kernels, the sum over every kernel, and the step's wall time, from
+    which the device's idle share follows. Launches made here are not
+    counted as the main path's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels.LAUNCHES.update(saved)
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    events.sort(key=lambda e: -e.device_time_total)
+    total_us = sum(e.device_time_total for e in events)
+    ours = [e for e in events if "flash_" in e.key]
+    emit({"phase": "train_profile", "wall_ms": wall_ms,
+          "device_ms": total_us / 1e3,
+          "idle_share": 1.0 - total_us / 1e3 / wall_ms,
+          "port_kernels_ms": sum(e.device_time_total for e in ours) / 1e3,
+          "top": [{"name": e.key[:90], "calls": e.count,
+                   "ms": e.device_time_total / 1e3} for e in events[:15]]})
+
+
+def train_conf(compute_dtype: str, fused_bwd: bool = True):
+    """The JAX package's flagship training configuration (bench.py:558-567
+    with `_mixed`): the full-width charTransformer with sparse labels, the
+    fused updater, block skip and the fused attention backward, flash
+    attention on every layer, in `compute_dtype` over f32 weights, at
+    learning rate TRAIN_LR."""
+    from deeplearning4j_tpu_torch.models.zoo import char_transformer
+
+    conf = char_transformer(SLICE["vocab"], d_model=SLICE["d_model"],
+                            n_blocks=SLICE["n_blocks"],
+                            n_heads=SLICE["n_heads"],
+                            max_seq_len=SLICE["seq"], sparse_labels=True,
+                            fused_updater=True, attention_block_skip=True,
+                            attention_fused_bwd=fused_bwd)
+    conf = conf.with_compute_dtype(compute_dtype)
+    return conf.replace(confs=tuple(c.replace(attention_impl="flash",
+                                              lr=TRAIN_LR)
+                                    for c in conf.confs))
+
+
+def phase_train(torch, kernels):
+    """`MultiLayerNetwork.fit` on the full-width charTransformer in bf16
+    compute, one batch of TRAIN_ROWS x 512 tokens made as bench.py:571-574
+    makes it, TRAIN_STEPS calls of one Adam step each; then the fused
+    attention backward against the recompute path on the same weights in
+    f32. Returns the launches of every kernel over the training steps."""
+    from deeplearning4j_tpu_torch.nn.multilayer import (MultiLayerNetwork,
+                                                        network_loss)
+    from deeplearning4j_tpu_torch.optimize.solver import from_loss
+    from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+
+    vocab, seq = SLICE["vocab"], SLICE["seq"]
+    net = MultiLayerNetwork(train_conf("bfloat16"), device="cuda",
+                            seed=0).init()
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, vocab, (TRAIN_ROWS, seq + 1))
+    x = ids[:, :-1].astype(np.int32)
+    y = ids[:, 1:].reshape(TRAIN_ROWS * seq).astype(np.int32)
+    scores = [net.score(x, y)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_launches = [], []
+    total = {name: 0 for name in kernels.LAUNCHES}
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        kernels.reset_launches()
+        start.record()
+        net.fit(x, y)
+        stop.record()
+        torch.cuda.synchronize()
+        step_launches.append(dict(kernels.LAUNCHES))
+        for name, n in kernels.LAUNCHES.items():
+            total[name] += n
+        step_ms.append(start.elapsed_time(stop))
+        scores.append(net.score(x, y))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile_step(torch, kernels, net, x, y)
+    n_attn = SLICE["n_blocks"]
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+
+    # the fused backward against the recompute path, f32 compute, 2 rows
+    xs = torch.as_tensor(x[:2], device="cuda")
+    ys = torch.as_tensor(y[:2 * seq], device="cuda")
+    grads = {}
+    for fused in (True, False):
+        conf = train_conf("", fused_bwd=fused)
+        objective = from_loss(lambda p, c=conf: network_loss(c, p, xs, ys))
+        g, _ = objective.grad_and_score(net.params)
+        grads[fused] = tree_leaves(g)
+    ratios = []
+    for a, b in zip(grads[True], grads[False]):
+        gmax = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        ratios.append(err / gmax if gmax > 0 else (0.0 if err == 0 else
+                                                   float("inf")))
+    del grads
+    torch.cuda.empty_cache()
+
+    row = {"phase": "train", "config": SLICE, "compute_dtype": "bfloat16",
+           "rows": TRAIN_ROWS, "tokens_per_step": TRAIN_ROWS * seq,
+           "updater": "adam", "lr": TRAIN_LR, "fused_updater": True,
+           "fused_bwd": True,
+           "params": sum(t.numel() for t in tree_leaves(net.params)),
+           "scores": scores, "step_ms": step_ms, "step_ms_median_2_on": steady,
+           "tokens_per_s": TRAIN_ROWS * seq / (steady / 1e3),
+           "launches_per_step": step_launches, "peak_mem_gb": peak_gb,
+           "grad_check_rows": 2, "grad_check_dtype": "float32",
+           "grad_fused_vs_recompute_max_rel": max(ratios)}
+    emit(row)
+    check(all(np.isfinite(s) for s in scores), f"non-finite score: {scores}")
+    check(scores[-1] < scores[0], f"the score did not fall: {scores}")
+    for launches in step_launches:
+        for name in ("flash_attn_fwd",) + BWD_KERNELS:
+            check(launches[name] == n_attn,
+                  f"a step launched {name} {launches[name]} times, want "
+                  f"{n_attn}: {launches}")
+    check(max(ratios) <= 1e-3,
+          f"fused and recompute gradients differ: {max(ratios)} of max|g|")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -365,19 +715,57 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(kernels.SOURCES), "ptxas": ptxas})
 
-    main_row = phase_kernels(torch, kernels)
-    launches = phase_serve(torch, kernels)
-    check(launches["flash_attn_fwd"] > 0, "the flash kernel never ran")
+    fwd_row, fwd_train_row = phase_kernels(torch, kernels)
+    bwd_rows = phase_bwd_kernels(torch, kernels)
+    serve_launches = phase_serve(torch, kernels)
+    train_launches = phase_train(torch, kernels)
+    check(serve_launches["flash_attn_fwd"] > 0, "the flash kernel never ran")
+    for name in ("flash_attn_fwd",) + BWD_KERNELS:
+        check(train_launches[name] > 0, f"{name} never ran in training")
 
-    emit({"kernels": [{
+    bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
+    replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,
+                "flash_bwd_dq": 311}
+    rows = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "deeplearning4j_tpu/nd/pallas_kernels.py:106",
-        "launches": launches["flash_attn_fwd"],
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]})
+        "launches": (serve_launches["flash_attn_fwd"]
+                     + train_launches["flash_attn_fwd"]),
+        "launches_by_path": {"serve": serve_launches["flash_attn_fwd"],
+                             "train": train_launches["flash_attn_fwd"]},
+        "max_abs_err": fwd_row["max_abs_err"],
+        "ms": fwd_row["kernel_ms"], "plain_ms": fwd_row["plain_ms"],
+        "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
+        "library_ms": fwd_row["library_ms"],
+        # the numbers above are at the serving shape; the train step's
+        # forward (B=32, with lse) gets its own
+        "at_train_shape": {
+            "max_abs_err": fwd_train_row["max_abs_err"],
+            "max_abs_err_lse": fwd_train_row["max_abs_err_lse"],
+            "ms": fwd_train_row["kernel_ms"],
+            "plain_ms": fwd_train_row["plain_ms"],
+            "bound_ms": fwd_train_row["bound_ms"],
+            "bound_by": fwd_train_row["bound_by"],
+            "library_ms": fwd_train_row["library_ms"]}}]
+    for name in BWD_KERNELS:
+        r = bwd_rows[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": bwd_src,
+            "replaces": ("deeplearning4j_tpu/nd/pallas_kernels.py:"
+                         f"{replaces[name]}"),
+            "launches": train_launches[name],
+            "launches_by_path": {"train": train_launches[name]},
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            # delta has no one-call counterpart; SDPA's backward computes
+            # what delta, dK/dV and dQ compute together
+            "library_ms": (None if name == "flash_bwd_delta"
+                           else r["sdpa_backward_ms"]),
+            "library_covers": (None if name == "flash_bwd_delta"
+                               else "delta + dkv + dq")})
+    emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,937 @@
+// Flash-attention backward for Hopper (sm_90a), plain C interface for ctypes.
+//
+// Replaces the three TPU kernels of `_flash_fused_bwd_impl` in
+// deeplearning4j_tpu/nd/pallas_kernels.py (:229-436):
+//   - flash_bwd_delta  <- `_flash_bwd_delta_kernel` (:229):
+//       delta = rowsum(f32(dO) * f32(O)), one f32 per (batch*head, row);
+//   - flash_bwd_dkv    <- `_flash_bwd_dkv_kernel` (:241): one block per
+//       (batch*head, 64-key tile) loops over the query tiles and
+//       accumulates dV += P^T dO and dK += dS^T Q;
+//   - flash_bwd_dq     <- `_flash_bwd_dq_kernel` (:311): one block per
+//       (batch*head, 64-query tile) loops over the key tiles up to the
+//       forward's causal bound and accumulates dQ += dS K.
+// The probabilities are rebuilt from the forward's logsumexp residual, so
+// there is no forward re-run and no [S, S] matrix in device memory.
+//
+// Numerics kept from the TPU kernels where they decide the answer (they
+// differ from the forward's: q is not pre-rounded here):
+//   - s = (f32(q) . f32(k)^T) * scale, in f32, the scale applied after the
+//     product;
+//   - causal-masked scores are -1e30, so p = exp(s - lse) is exactly 0;
+//   - p = exp(s - lse), dp = f32(dO) . f32(v)^T, ds = p * (dp - delta) *
+//     scale and every accumulator are f32;
+//   - dQ, dK, dV are rounded once, to the input type, when stored.
+// Rows and keys past a ragged end of the sequence get p = 0 and are never
+// stored, so any S runs here (the TPU path recomputed instead).
+// `attention_block_skip` changes no value on the TPU (the diagonal split
+// only skips a select that is the identity below the diagonal), so these
+// kernels mask every visited tile and skip only the tiles that are fully
+// masked, whatever the flag says.
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 67 TFLOP/s f32, 3.35 TB/s):
+//   dkv: max(8*B*H*S^2*D*(1/2 if causal) / peak,
+//            (6*B*S*H*D*bytes + 8*B*H*S) / 3.35e12)
+//   dq:  max(6*B*H*S^2*D*(1/2 if causal) / peak,
+//            (5*B*S*H*D*bytes + 8*B*H*S) / 3.35e12)
+//   delta: (2*B*S*H*D*bytes + 4*B*H*S) / 3.35e12
+// At the training shape (B=32, S=512, H=16, D=128, bf16, causal) all three
+// are bound by bytes against the bf16 peak.
+//
+// Design (right first; not yet fast). One block of 256 threads per
+// (batch*head, 64-row tile); the TPU grid's sequential axis becomes a loop
+// over the other side's 64-row tiles, staged through shared memory. There
+// is no cp.async/TMA pipeline: loads and products take turns.
+//   - bf16 (the training path): flash_bwd_dkv_mma_kernel and
+//     flash_bwd_dq_mma_kernel. s = Q.K^T and dp = dO.V^T, whose operands
+//     are the exact bf16 inputs, run as mma.sync m16n8k16 with f32
+//     accumulators; p and ds are formed in f32 from the fragments and go
+//     through shared memory as f32; the products that take them (P^T dO,
+//     dS^T Q, dS K) are scalar f32 FMAs, since the tensor cores would round
+//     p and ds. See the section below for the tiling.
+//   - f32: flash_bwd_dkv_kernel and flash_bwd_dq_kernel do every product
+//     with scalar f32 FMAs (the tensor cores would round f32 operands to
+//     tf32). Tiles are widened to f32 in shared memory; each thread owns
+//     4 query rows x 4 key columns of the score tile and 4 rows x DMAX/16
+//     columns of its accumulators. Rows are padded to an odd length
+//     (DMAX + 1 floats), so column reads across a warp are free of bank
+//     conflicts; one 150-170 KB block fits on an SM at head_dim 128.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kMaxDevices = 64;
+constexpr int kTile = 64;             // query rows and keys per tile
+constexpr int kThreads = 256;
+constexpr int kLdp = kTile + 1;       // padded row of a score tile
+constexpr float kNegBig = -1e30f;
+
+// Raise a kernel's dynamic shared-memory limit to `bytes` once per device:
+// cudaFuncSetAttribute costs too much to repeat on every launch.
+template <typename Kernel>
+cudaError_t set_smem_once(Kernel kernel, size_t bytes,
+                          std::atomic<bool> (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// Stage up to kTile rows of a [*, D] f32 head slice (row stride `ss`
+// elements) into a [kTile][LD] shared tile; rows at or past `valid` are 0.
+template <int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long ss, int valid, int D) {
+  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+    const int r = i / D;
+    const int d = i - r * D;
+    dst[r * LD + d] = r < valid ? src[r * ss + d] : 0.f;
+  }
+}
+
+// The per-row lse and delta of one query tile, 0 past the sequence.
+__device__ __forceinline__ void load_rows(float* lse_t, float* delta_t,
+                                          const float* lse,
+                                          const float* delta,
+                                          long long row0, int valid) {
+  if (threadIdx.x < kTile) {
+    const bool in = (int)threadIdx.x < valid;
+    lse_t[threadIdx.x] = in ? lse[row0 + threadIdx.x] : 0.f;
+    delta_t[threadIdx.x] = in ? delta[row0 + threadIdx.x] : 0.f;
+  }
+}
+
+// p and ds of one thread's 4 x 4 part of a 64 x 64 score tile: query rows
+// ty + 16 i of the tile at q0, key columns tx + 16 c of the tile at k0.
+// Both tiles are staged; s and dp are their f32 dot products over D.
+template <int LD>
+__device__ __forceinline__ void scores(
+    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
+    const float* lse_t, const float* delta_t, int q0, int k0, int S, int D,
+    float scale, int causal, int tx, int ty, float (&p)[4][4],
+    float (&ds)[4][4]) {
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      s[i][c] = 0.f;
+      dp[i][c] = 0.f;
+    }
+  for (int d = 0; d < D; ++d) {
+    float qr[4], dor[4], kr[4], vr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qr[i] = Qs[(ty + 16 * i) * LD + d];
+      dor[i] = dOs[(ty + 16 * i) * LD + d];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      kr[c] = Ks[(tx + 16 * c) * LD + d];
+      vr[c] = Vs[(tx + 16 * c) * LD + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[i][c] = fmaf(qr[i], kr[c], s[i][c]);
+        dp[i][c] = fmaf(dor[i], vr[c], dp[i][c]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const int qpos = q0 + r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int kpos = k0 + tx + 16 * c;
+      float sv = s[i][c] * scale;
+      if (causal && kpos > qpos) sv = kNegBig;
+      const float pv =
+          (qpos < S && kpos < S) ? expf(sv - lse_t[r]) : 0.f;
+      p[i][c] = pv;
+      ds[i][c] = pv * (dp[i][c] - delta_t[r]) * scale;
+    }
+  }
+}
+
+// ------------------------------------------------------------------ delta
+
+constexpr int kDeltaRows = kThreads / 32;  // one warp per row
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int H, int S, int D,
+                       long long o_sb, long long o_ss, long long do_sb,
+                       long long do_ss, long long rows) {
+  const long long row =
+      (long long)blockIdx.x * kDeltaRows + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const long long bh = row / S;
+  const int s = (int)(row - bh * S);
+  const long long b = bh / H;
+  const int h = (int)(bh - b * H);
+  const T* orow = o + b * o_sb + s * o_ss + (long long)h * D;
+  const T* drow = dout + b * do_sb + s * do_ss + (long long)h * D;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32)
+    acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// ------------------------------------------------------------- f32: dkv
+
+template <int DMAX>
+constexpr size_t dkv_smem() {
+  return sizeof(float) * (4 * kTile * (DMAX + 1) + 2 * kTile * kLdp +
+                          2 * kTile);
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int S, int D, long long q_sb,
+                     long long q_ss, long long k_sb, long long k_ss,
+                     long long v_sb, long long v_ss, long long do_sb,
+                     long long do_ss, float scale, int causal) {
+  constexpr int LD = DMAX + 1;
+  constexpr int kOut = DMAX / 16;  // accumulator columns per thread
+  extern __shared__ float smem[];
+  float* Ks = smem;                  // [kTile][LD]
+  float* Vs = Ks + kTile * LD;
+  float* Qs = Vs + kTile * LD;
+  float* dOs = Qs + kTile * LD;
+  float* Ps = dOs + kTile * LD;      // [query][key], kLdp
+  float* dSs = Ps + kTile * kLdp;
+  float* lse_t = dSs + kTile * kLdp;
+  float* delta_t = lse_t + kTile;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * kTile;
+  const int tx = threadIdx.x & 15;  // key column group; output column group
+  const int ty = threadIdx.x >> 4;  // query row group; key row group
+
+  const float* qb = q + b * q_sb + (long long)h * D;
+  const float* kb = k + b * k_sb + (long long)h * D;
+  const float* vb = v + b * v_sb + (long long)h * D;
+  const float* db = dout + b * do_sb + (long long)h * D;
+
+  load_tile<LD>(Ks, kb + k0 * k_ss, k_ss, S - k0, D);
+  load_tile<LD>(Vs, vb + k0 * v_ss, v_ss, S - k0, D);
+
+  float acc_k[4][kOut], acc_v[4][kOut];  // key rows ty + 16 i, cols tx + 16 c
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < kOut; ++c) {
+      acc_k[i][c] = 0.f;
+      acc_v[i][c] = 0.f;
+    }
+
+  const int nq = (S + kTile - 1) / kTile;
+  // query tiles that end before this tile's first key are fully masked
+  const int first = causal ? blockIdx.y : 0;
+  for (int qt = first; qt < nq; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // the last tile's P and dS are consumed
+    load_tile<LD>(Qs, qb + q0 * q_ss, q_ss, S - q0, D);
+    load_tile<LD>(dOs, db + q0 * do_ss, do_ss, S - q0, D);
+    load_rows(lse_t, delta_t, lse, delta, (long long)bh * S + q0, S - q0);
+    __syncthreads();
+
+    float p[4][4], ds[4][4];
+    scores<LD>(Qs, dOs, Ks, Vs, lse_t, delta_t, q0, k0, S, D, scale, causal,
+               tx, ty, p, ds);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        Ps[(ty + 16 * i) * kLdp + tx + 16 * c] = p[i][c];
+        dSs[(ty + 16 * i) * kLdp + tx + 16 * c] = ds[i][c];
+      }
+    __syncthreads();
+
+    // dV[key][d] += sum_q P[q][key] dO[q][d];  dK[key][d] += dS[q][key] Q[q][d]
+    for (int r = 0; r < kTile; ++r) {
+      float pr[4], dsr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pr[i] = Ps[r * kLdp + ty + 16 * i];
+        dsr[i] = dSs[r * kLdp + ty + 16 * i];
+      }
+#pragma unroll
+      for (int c = 0; c < kOut; ++c) {
+        const int d = tx + 16 * c;
+        if (d < D) {
+          const float dov = dOs[r * LD + d];
+          const float qv = Qs[r * LD + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc_v[i][c] = fmaf(pr[i], dov, acc_v[i][c]);
+            acc_k[i][c] = fmaf(dsr[i], qv, acc_k[i][c]);
+          }
+        }
+      }
+    }
+  }
+
+  const long long ss = (long long)H * D;  // outputs: contiguous [B, S, H, D]
+  float* dkb = dk + (long long)b * S * ss + (long long)h * D;
+  float* dvb = dv + (long long)b * S * ss + (long long)h * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kpos = k0 + ty + 16 * i;
+    if (kpos >= S) continue;
+#pragma unroll
+    for (int c = 0; c < kOut; ++c) {
+      const int d = tx + 16 * c;
+      if (d < D) {
+        dkb[kpos * ss + d] = acc_k[i][c];
+        dvb[kpos * ss + d] = acc_v[i][c];
+      }
+    }
+  }
+}
+
+// -------------------------------------------------------------- f32: dq
+
+template <int DMAX>
+constexpr size_t dq_smem() {
+  return sizeof(float) * (4 * kTile * (DMAX + 1) + kTile * kLdp + 2 * kTile);
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int H, int S, int D, long long q_sb, long long q_ss,
+                    long long k_sb, long long k_ss, long long v_sb,
+                    long long v_ss, long long do_sb, long long do_ss,
+                    float scale, int causal) {
+  constexpr int LD = DMAX + 1;
+  constexpr int kOut = DMAX / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;                  // [kTile][LD]
+  float* dOs = Qs + kTile * LD;
+  float* Ks = dOs + kTile * LD;
+  float* Vs = Ks + kTile * LD;
+  float* dSs = Vs + kTile * LD;      // [query][key], kLdp
+  float* lse_t = dSs + kTile * kLdp;
+  float* delta_t = lse_t + kTile;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.y * kTile;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  const float* qb = q + b * q_sb + (long long)h * D;
+  const float* kb = k + b * k_sb + (long long)h * D;
+  const float* vb = v + b * v_sb + (long long)h * D;
+  const float* db = dout + b * do_sb + (long long)h * D;
+
+  load_tile<LD>(Qs, qb + q0 * q_ss, q_ss, S - q0, D);
+  load_tile<LD>(dOs, db + q0 * do_ss, do_ss, S - q0, D);
+  load_rows(lse_t, delta_t, lse, delta, (long long)bh * S + q0, S - q0);
+
+  float acc[4][kOut];  // query rows ty + 16 i, columns tx + 16 c
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < kOut; ++c) acc[i][c] = 0.f;
+
+  int nk = (S + kTile - 1) / kTile;
+  // the forward's bound: key tiles past this tile's last query add nothing
+  if (causal) nk = nk < (int)blockIdx.y + 1 ? nk : (int)blockIdx.y + 1;
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kTile;
+    __syncthreads();  // the last tile's K and dS are consumed
+    load_tile<LD>(Ks, kb + k0 * k_ss, k_ss, S - k0, D);
+    load_tile<LD>(Vs, vb + k0 * v_ss, v_ss, S - k0, D);
+    __syncthreads();
+
+    float p[4][4], ds[4][4];
+    scores<LD>(Qs, dOs, Ks, Vs, lse_t, delta_t, q0, k0, S, D, scale, causal,
+               tx, ty, p, ds);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        dSs[(ty + 16 * i) * kLdp + tx + 16 * c] = ds[i][c];
+    __syncthreads();
+
+    // dQ[q][d] += sum_key dS[q][key] K[key][d]
+    for (int r = 0; r < kTile; ++r) {
+      float dsr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsr[i] = dSs[(ty + 16 * i) * kLdp + r];
+#pragma unroll
+      for (int c = 0; c < kOut; ++c) {
+        const int d = tx + 16 * c;
+        if (d < D) {
+          const float kv = Ks[r * LD + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(dsr[i], kv, acc[i][c]);
+        }
+      }
+    }
+  }
+
+  const long long ss = (long long)H * D;
+  float* dqb = dq + (long long)b * S * ss + (long long)h * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos >= S) continue;
+#pragma unroll
+    for (int c = 0; c < kOut; ++c) {
+      const int d = tx + 16 * c;
+      if (d < D) dqb[qpos * ss + d] = acc[i][c];
+    }
+  }
+}
+
+// ------------------------------------------------------------ bf16, mma.sync
+//
+// The bf16 kernels run the two products whose operands are the exact bf16
+// inputs, s = Q.K^T and dp = dO.V^T, on the tensor cores (mma.sync m16n8k16,
+// f32 accumulators), so they equal the f32 products up to summation order.
+// p and ds are formed in f32 from the accumulator fragments, and the three
+// products that take them (dV += P^T dO, dK += dS^T Q, dQ += dS K) stay f32
+// FMAs: rounding p or ds for the tensor cores would change the numerics.
+// Eight warps; for the scores, warp w owns query rows 16 (w & 3) .. +15 and
+// key columns 32 (w >> 2) .. +31 of the 64 x 64 tile. For the FMA products,
+// warp w owns 8 output rows (w * 8 ..) and lane l the columns l + 32 c, so
+// one float4 pair brings a warp's 8 values of p or ds per step. The tiles
+// stay bf16 in shared memory (about 100 KB a block at head_dim 128, so two
+// blocks fit on an SM) and are widened as they are read.
+
+constexpr int kLdS = kTile + 4;  // f32 row of p / ds: 16-byte aligned rows
+
+union Pack8 {  // 8 bf16 = one 16-byte load or store
+  uint4 u;
+  bf16 h[8];
+};
+
+// d (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Stage rows [0, valid) of a [*, D] head slice (row stride `ss` elements)
+// into a [kTile][LD] bf16 tile, zero past `valid` and past column D; one
+// 16-byte load per 8 elements where `vec` says strides and pointers allow.
+template <int DMAX, int LD>
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src,
+                                           long long ss, int valid, int D,
+                                           bool vec) {
+  constexpr int kChunks = DMAX / 8;
+  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int d = (i - r * kChunks) * 8;
+    Pack8 p;
+    p.u = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) {
+      const bf16* row = src + r * ss;
+      if (vec && d + 8 <= D) {
+        p.u = *reinterpret_cast<const uint4*>(row + d);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (d + e < D) p.h[e] = row[d + e];
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * LD + d) = p.u;
+  }
+}
+
+// s = Q.K^T and dp = dO.V^T for one warp's 16 x 32 part of the 64 x 64
+// tile (query rows R.., key columns KB..), into accumulator fragments.
+template <int DMAX, int LD>
+__device__ __forceinline__ void mma_scores(const bf16* Qh, const bf16* dOh,
+                                           const bf16* Kh, const bf16* Vh,
+                                           int R, int KB, int D, int g, int t,
+                                           float (&s)[4][4],
+                                           float (&dp)[4][4]) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = 0.f;
+      dp[n][e] = 0.f;
+    }
+#pragma unroll
+  for (int ks = 0; ks < DMAX / 16; ++ks) {
+    if (ks * 16 >= D) break;  // zero padding past D adds nothing
+    const bf16* qa = Qh + (R + g) * LD + ks * 16 + 2 * t;
+    const bf16* da = dOh + (R + g) * LD + ks * 16 + 2 * t;
+    const uint32_t aq[4] = {ld32(qa), ld32(qa + 8 * LD), ld32(qa + 8),
+                            ld32(qa + 8 * LD + 8)};
+    const uint32_t ad[4] = {ld32(da), ld32(da + 8 * LD), ld32(da + 8),
+                            ld32(da + 8 * LD + 8)};
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const bf16* kb = Kh + (KB + n * 8 + g) * LD + ks * 16 + 2 * t;
+      const bf16* vb = Vh + (KB + n * 8 + g) * LD + ks * 16 + 2 * t;
+      mma_bf16(s[n], aq, ld32(kb), ld32(kb + 8));
+      mma_bf16(dp[n], ad, ld32(vb), ld32(vb + 8));
+    }
+  }
+}
+
+// p and ds of one accumulator element: tile row rl (query), column kl
+// (key), with the TPU kernels' masking and f32 arithmetic.
+struct Probs {
+  float p, ds;
+};
+__device__ __forceinline__ Probs probs(float s, float dp, int qpos, int kpos,
+                                       int S, float lse, float delta,
+                                       float scale, int causal) {
+  float sv = s * scale;
+  if (causal && kpos > qpos) sv = kNegBig;
+  const float p = (qpos < S && kpos < S) ? expf(sv - lse) : 0.f;
+  return {p, p * (dp - delta) * scale};
+}
+
+template <int DMAX>
+constexpr size_t dkv_mma_smem() {
+  return sizeof(float) * (2 * kTile * kLdS + 2 * kTile) +
+         sizeof(bf16) * 4 * kTile * (DMAX + 8);
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int H, int S, int D,
+                         long long q_sb, long long q_ss, long long k_sb,
+                         long long k_ss, long long v_sb, long long v_ss,
+                         long long do_sb, long long do_ss, float scale,
+                         int causal, int vec) {
+  constexpr int LD = DMAX + 8;   // conflict-free fragment loads
+  constexpr int kCols = DMAX / 32;
+  extern __shared__ uint4 smem_raw[];
+  float* Ps = reinterpret_cast<float*>(smem_raw);  // [query][key], kLdS
+  float* dSs = Ps + kTile * kLdS;
+  float* lse_t = dSs + kTile * kLdS;
+  float* delta_t = lse_t + kTile;
+  bf16* Kh = reinterpret_cast<bf16*>(delta_t + kTile);  // [kTile][LD]
+  bf16* Vh = Kh + kTile * LD;
+  bf16* Qh = Vh + kTile * LD;
+  bf16* dOh = Qh + kTile * LD;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int R = 16 * (warp & 3), KB = 32 * (warp >> 2);
+
+  const bf16* qb = q + b * q_sb + (long long)h * D;
+  const bf16* db = dout + b * do_sb + (long long)h * D;
+  stage_bf16<DMAX, LD>(Kh, k + b * k_sb + (long long)h * D + k0 * k_ss, k_ss,
+                       S - k0, D, vec);
+  stage_bf16<DMAX, LD>(Vh, v + b * v_sb + (long long)h * D + k0 * v_ss, v_ss,
+                       S - k0, D, vec);
+
+  float acc_k[8][kCols], acc_v[8][kCols];  // key rows warp*8 + i, cols lane+32c
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      acc_k[i][c] = 0.f;
+      acc_v[i][c] = 0.f;
+    }
+
+  const int nq = (S + kTile - 1) / kTile;
+  // query tiles that end before this tile's first key are fully masked
+  for (int qt = causal ? (int)blockIdx.y : 0; qt < nq; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // the last tile's Q, dO, P and dS are consumed
+    stage_bf16<DMAX, LD>(Qh, qb + q0 * q_ss, q_ss, S - q0, D, vec);
+    stage_bf16<DMAX, LD>(dOh, db + q0 * do_ss, do_ss, S - q0, D, vec);
+    load_rows(lse_t, delta_t, lse, delta, (long long)bh * S + q0, S - q0);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    mma_scores<DMAX, LD>(Qh, dOh, Kh, Vh, R, KB, D, g, t, s, dp);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = R + g + 8 * (e >> 1);
+        const int kl = KB + n * 8 + 2 * t + (e & 1);
+        const Probs pr = probs(s[n][e], dp[n][e], q0 + rl, k0 + kl, S,
+                               lse_t[rl], delta_t[rl], scale, causal);
+        Ps[rl * kLdS + kl] = pr.p;
+        dSs[rl * kLdS + kl] = pr.ds;
+      }
+    __syncthreads();
+
+    // dV[key][d] += sum_q P[q][key] dO[q][d];  dK[key][d] += dS[q][key] Q[q][d]
+    for (int r = 0; r < kTile; ++r) {
+      const float4* pp = reinterpret_cast<const float4*>(Ps + r * kLdS + warp * 8);
+      const float4* dd = reinterpret_cast<const float4*>(dSs + r * kLdS + warp * 8);
+      const float4 p0 = pp[0], p1 = pp[1], d0 = dd[0], d1 = dd[1];
+      const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      const float dsr[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float dov = __bfloat162float(dOh[r * LD + lane + 32 * c]);
+        const float qv = __bfloat162float(Qh[r * LD + lane + 32 * c]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc_v[i][c] = fmaf(pr[i], dov, acc_v[i][c]);
+          acc_k[i][c] = fmaf(dsr[i], qv, acc_k[i][c]);
+        }
+      }
+    }
+  }
+
+  const long long ss = (long long)H * D;  // outputs: contiguous [B, S, H, D]
+  bf16* dkb = dk + (long long)b * S * ss + (long long)h * D;
+  bf16* dvb = dv + (long long)b * S * ss + (long long)h * D;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int kpos = k0 + warp * 8 + i;
+    if (kpos >= S) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D) {
+        dkb[kpos * ss + d] = __float2bfloat16_rn(acc_k[i][c]);
+        dvb[kpos * ss + d] = __float2bfloat16_rn(acc_v[i][c]);
+      }
+    }
+  }
+}
+
+template <int DMAX>
+constexpr size_t dq_mma_smem() {
+  return sizeof(float) * (kTile * kLdS + 2 * kTile) +
+         sizeof(bf16) * 4 * kTile * (DMAX + 8);
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq,
+                        int H, int S, int D, long long q_sb, long long q_ss,
+                        long long k_sb, long long k_ss, long long v_sb,
+                        long long v_ss, long long do_sb, long long do_ss,
+                        float scale, int causal, int vec) {
+  constexpr int LD = DMAX + 8;
+  constexpr int kCols = DMAX / 32;
+  extern __shared__ uint4 smem_raw[];
+  float* dSt = reinterpret_cast<float*>(smem_raw);  // [key][query], kLdS
+  float* lse_t = dSt + kTile * kLdS;
+  float* delta_t = lse_t + kTile;
+  bf16* Qh = reinterpret_cast<bf16*>(delta_t + kTile);  // [kTile][LD]
+  bf16* dOh = Qh + kTile * LD;
+  bf16* Kh = dOh + kTile * LD;
+  bf16* Vh = Kh + kTile * LD;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int R = 16 * (warp & 3), KB = 32 * (warp >> 2);
+
+  const bf16* kb = k + b * k_sb + (long long)h * D;
+  const bf16* vb = v + b * v_sb + (long long)h * D;
+  stage_bf16<DMAX, LD>(Qh, q + b * q_sb + (long long)h * D + q0 * q_ss, q_ss,
+                       S - q0, D, vec);
+  stage_bf16<DMAX, LD>(dOh, dout + b * do_sb + (long long)h * D + q0 * do_ss,
+                       do_ss, S - q0, D, vec);
+  load_rows(lse_t, delta_t, lse, delta, (long long)bh * S + q0, S - q0);
+
+  float acc[8][kCols];  // query rows warp*8 + i, columns lane + 32c
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+
+  int nk = (S + kTile - 1) / kTile;
+  // the forward's bound: key tiles past this tile's last query add nothing
+  if (causal) nk = nk < (int)blockIdx.y + 1 ? nk : (int)blockIdx.y + 1;
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kTile;
+    __syncthreads();  // Q, dO staged (j == 0); the last tile's K, dS consumed
+    stage_bf16<DMAX, LD>(Kh, kb + k0 * k_ss, k_ss, S - k0, D, vec);
+    stage_bf16<DMAX, LD>(Vh, vb + k0 * v_ss, v_ss, S - k0, D, vec);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    mma_scores<DMAX, LD>(Qh, dOh, Kh, Vh, R, KB, D, g, t, s, dp);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = R + g + 8 * (e >> 1);
+        const int kl = KB + n * 8 + 2 * t + (e & 1);
+        dSt[kl * kLdS + rl] = probs(s[n][e], dp[n][e], q0 + rl, k0 + kl, S,
+                                    lse_t[rl], delta_t[rl], scale, causal).ds;
+      }
+    __syncthreads();
+
+    // dQ[q][d] += sum_key dS[q][key] K[key][d]
+    for (int r = 0; r < kTile; ++r) {
+      const float4* dd = reinterpret_cast<const float4*>(dSt + r * kLdS + warp * 8);
+      const float4 d0 = dd[0], d1 = dd[1];
+      const float dsr[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float kv = __bfloat162float(Kh[r * LD + lane + 32 * c]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][c] = fmaf(dsr[i], kv, acc[i][c]);
+      }
+    }
+  }
+
+  const long long ss = (long long)H * D;
+  bf16* dqb = dq + (long long)b * S * ss + (long long)h * D;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int qpos = q0 + warp * 8 + i;
+    if (qpos >= S) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D) dqb[qpos * ss + d] = __float2bfloat16_rn(acc[i][c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launchers
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *dq, *dk, *dv;
+  int B, H, S, D;
+  long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+// 16-byte loads need 8-element aligned rows and 16-byte aligned bases
+bool can_vectorize(const Args& a) {
+  return a.D % 8 == 0 && a.q_ss % 8 == 0 && a.k_ss % 8 == 0 &&
+         a.v_ss % 8 == 0 && a.do_ss % 8 == 0 && a.q_sb % 8 == 0 &&
+         a.k_sb % 8 == 0 && a.v_sb % 8 == 0 && a.do_sb % 8 == 0 &&
+         ((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
+          (uintptr_t)a.dout) % 16 == 0;
+}
+
+template <int DMAX>
+cudaError_t launch_dkv_f32(const Args& a) {
+  auto kernel = flash_bwd_dkv_kernel<DMAX>;
+  constexpr size_t smem = dkv_smem<DMAX>();
+  static std::atomic<bool> smem_set[kMaxDevices];
+  cudaError_t err = set_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.H, a.S, a.D, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb,
+      a.do_ss, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t launch_dq_f32(const Args& a) {
+  auto kernel = flash_bwd_dq_kernel<DMAX>;
+  constexpr size_t smem = dq_smem<DMAX>();
+  static std::atomic<bool> smem_set[kMaxDevices];
+  cudaError_t err = set_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dq), a.H, a.S, a.D, a.q_sb,
+      a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.scale,
+      a.causal);
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t launch_dkv_bf16(const Args& a) {
+  auto kernel = flash_bwd_dkv_mma_kernel<DMAX>;
+  constexpr size_t smem = dkv_mma_smem<DMAX>();
+  static std::atomic<bool> smem_set[kMaxDevices];
+  cudaError_t err = set_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.S,
+      a.D, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss,
+      a.scale, a.causal, (int)can_vectorize(a));
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t launch_dq_bf16(const Args& a) {
+  auto kernel = flash_bwd_dq_mma_kernel<DMAX>;
+  constexpr size_t smem = dq_mma_smem<DMAX>();
+  static std::atomic<bool> smem_set[kMaxDevices];
+  cudaError_t err = set_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, static_cast<bf16*>(a.dq), a.H, a.S, a.D, a.q_sb, a.q_ss,
+      a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.scale, a.causal,
+      (int)can_vectorize(a));
+  return cudaGetLastError();
+}
+
+// dispatch on the input type (0 = f32: scalar kernels, 1 = bf16: mma.sync
+// kernels) and the head_dim bucket
+struct DkvLaunch {
+  template <int DMAX>
+  static cudaError_t f32(const Args& a) { return launch_dkv_f32<DMAX>(a); }
+  template <int DMAX>
+  static cudaError_t bf16x(const Args& a) { return launch_dkv_bf16<DMAX>(a); }
+};
+struct DqLaunch {
+  template <int DMAX>
+  static cudaError_t f32(const Args& a) { return launch_dq_f32<DMAX>(a); }
+  template <int DMAX>
+  static cudaError_t bf16x(const Args& a) { return launch_dq_bf16<DMAX>(a); }
+};
+
+template <typename L>
+int dispatch(const Args& a, int dtype) {
+  if (a.D < 1 || a.D > 128 || a.S < 1 || a.B < 1 || a.H < 1)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (a.D <= 32) return (int)L::template f32<32>(a);
+    if (a.D <= 64) return (int)L::template f32<64>(a);
+    return (int)L::template f32<128>(a);
+  }
+  if (dtype == 1) {
+    if (a.D <= 32) return (int)L::template bf16x<32>(a);
+    if (a.D <= 64) return (int)L::template bf16x<64>(a);
+    return (int)L::template bf16x<128>(a);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Layouts, shared by the three entry points:
+//   q, k, v, dout: [B, S, H, D] with unit stride over D and stride D over
+//     H; their batch and sequence strides (in elements) are passed;
+//   lse, delta: contiguous [B*H, S] f32 (the forward's [B*H, S, 1]);
+//   dq, dk, dv: contiguous [B, S, H, D] in the input type.
+// dtype: 0 = f32, 1 = bf16. Each returns cudaGetLastError() after its launch
+// (0 on success).
+
+// delta[bh * S + s] = sum_d f32(o[b, s, h, d]) * f32(dout[b, s, h, d])
+extern "C" int flash_bwd_delta(const void* o, const void* dout, void* delta,
+                               int B, int H, int S, int D, long long o_sb,
+                               long long o_ss, long long do_sb,
+                               long long do_ss, int dtype, void* stream) {
+  if (D < 1 || S < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)B * H * S;
+  const unsigned blocks = (unsigned)((rows + kDeltaRows - 1) / kDeltaRows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    flash_bwd_delta_kernel<float><<<blocks, kThreads, 0, st>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout),
+        static_cast<float*>(delta), H, S, D, o_sb, o_ss, do_sb, do_ss, rows);
+  } else if (dtype == 1) {
+    flash_bwd_delta_kernel<bf16><<<blocks, kThreads, 0, st>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+        static_cast<float*>(delta), H, S, D, o_sb, o_ss, do_sb, do_ss, rows);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv, int B,
+                             int H, int S, int D, long long q_sb,
+                             long long q_ss, long long k_sb, long long k_ss,
+                             long long v_sb, long long v_ss, long long do_sb,
+                             long long do_ss, float scale, int causal,
+                             int dtype, void* stream) {
+  Args a{q, k, v, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), nullptr, dk, dv, B, H, S, D,
+         q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss, scale, causal,
+         static_cast<cudaStream_t>(stream)};
+  return dispatch<DkvLaunch>(a, dtype);
+}
+
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int B, int H, int S,
+                            int D, long long q_sb, long long q_ss,
+                            long long k_sb, long long k_ss, long long v_sb,
+                            long long v_ss, long long do_sb, long long do_ss,
+                            float scale, int causal, int dtype,
+                            void* stream) {
+  Args a{q, k, v, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), dq, nullptr, nullptr, B, H, S, D,
+         q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss, scale, causal,
+         static_cast<cudaStream_t>(stream)};
+  return dispatch<DqLaunch>(a, dtype);
+}

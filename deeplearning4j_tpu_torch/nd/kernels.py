@@ -18,7 +18,11 @@ Each kernel has, beside it here:
 
 Kernels ported so far (see ROADMAP.md queue B for the rest):
 - `flash_attention`: `_flash_attn_kernel` forward, with the optional
-  logsumexp residual.
+  logsumexp residual (`csrc/flash_attn_fwd.cu`);
+- `flash_bwd_delta`, `flash_bwd_dkv`, `flash_bwd_dq`: the three kernels of
+  the fused backward, `_flash_bwd_delta_kernel`, `_flash_bwd_dkv_kernel`
+  and `_flash_bwd_dq_kernel` (`csrc/flash_attn_bwd.cu`), wired to the
+  forward by `FlashAttentionFunction`.
 """
 
 from __future__ import annotations
@@ -42,10 +46,17 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                          "_build")
 
 #: kernel library name -> its source under csrc/
-SOURCES: Dict[str, str] = {"flash_attn_fwd": "flash_attn_fwd.cu"}
+SOURCES: Dict[str, str] = {"flash_attn_fwd": "flash_attn_fwd.cu",
+                           "flash_attn_bwd": "flash_attn_bwd.cu"}
+
+#: kernel (the C entry point) -> the library that holds it
+KERNELS: Dict[str, str] = {"flash_attn_fwd": "flash_attn_fwd",
+                           "flash_bwd_delta": "flash_attn_bwd",
+                           "flash_bwd_dkv": "flash_attn_bwd",
+                           "flash_bwd_dq": "flash_attn_bwd"}
 
 #: kernel name -> launches since the last `reset_launches()`
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -129,6 +140,15 @@ def _library(name: str) -> ctypes.CDLL:
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    elif name == "flash_attn_bwd":
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_bwd_delta.argtypes = ([ptr] * 3 + [i32] * 4 + [i64] * 4
+                                        + [i32, ptr])
+        strides = [i64] * 8 + [ctypes.c_float, i32, i32, ptr]
+        lib.flash_bwd_dkv.argtypes = [ptr] * 8 + [i32] * 4 + strides
+        lib.flash_bwd_dq.argtypes = [ptr] * 7 + [i32] * 4 + strides
+        for fn in (lib.flash_bwd_delta, lib.flash_bwd_dkv, lib.flash_bwd_dq):
+            fn.restype = ctypes.c_int
     with _lock:
         _libs.setdefault(name, lib)
         return _libs[name]
@@ -172,54 +192,285 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return o, (m + torch.log(l)).reshape(b * h, s, 1)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = False, with_lse: bool = False):
-    """Flash-attention forward over [B, S, H, D] inputs (any S, head_dim up
-    to 128, float32 or bfloat16). Returns o [B, S, H, D] and, with
-    `with_lse`, the logsumexp residual [B*H, S, 1] float32 that the fused
-    backward consumes.
+def _all_cpu(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _check_heads(what: str, **ts: torch.Tensor) -> None:
+    """Raise unless every tensor is a CUDA [B, S, H, D] tensor of one shape,
+    device and dtype (float32 or bfloat16), with unit stride over D and
+    stride D over H (the heads of a fused projection qualify)."""
+    names = ", ".join(ts)
+    first = next(iter(ts.values()))
+    if not all(t.is_cuda for t in ts.values()):
+        raise ValueError(f"{what}: {names} must all be CUDA tensors (or all "
+                         f"CPU tensors)")
+    if any(t.device != first.device for t in ts.values()):
+        raise ValueError(f"{what}: {names} are on different devices")
+    if first.dim() != 4 or any(t.shape != first.shape for t in ts.values()):
+        raise ValueError(f"{what}: {names} must share one [B, S, H, D] "
+                         f"shape; got "
+                         f"{[tuple(t.shape) for t in ts.values()]}")
+    if first.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != first.dtype for t in ts.values()):
+        raise ValueError(f"{what}: dtype must be float32 or bfloat16 for "
+                         f"all of {names}; got "
+                         f"{[t.dtype for t in ts.values()]}")
+    d = first.shape[3]
+    if not 1 <= d <= 128:
+        raise ValueError(f"{what}: head_dim {d} not in [1, 128]")
+    for name, t in ts.items():
+        if t.stride(3) != 1 or t.stride(2) != d:
+            raise ValueError(f"{what}: {name} needs unit stride over D and "
+                             f"stride D over H; got strides {t.stride()}")
+
+
+def _check_rows(what: str, like: torch.Tensor, **ts: torch.Tensor) -> None:
+    """Raise unless each tensor is a contiguous [B*H, S, 1] float32 tensor
+    beside `like` ([B, S, H, D]): the lse and delta layout."""
+    b, s, h, _ = like.shape
+    for name, t in ts.items():
+        if (t.device != like.device or t.dtype != torch.float32
+                or tuple(t.shape) != (b * h, s, 1) or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous float32 "
+                             f"[{b * h}, {s}, 1] tensor on {like.device}; "
+                             f"got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+
+
+def _dtype_code(t: torch.Tensor) -> int:
+    return 0 if t.dtype == torch.float32 else 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = False, with_lse: bool = False):
+    """Wrapper of the flash-attention forward kernel over [B, S, H, D]
+    inputs (any S, head_dim up to 128, float32 or bfloat16). Returns o
+    [B, S, H, D] and, with `with_lse`, the logsumexp residual [B*H, S, 1]
+    float32 that the fused backward consumes. No autograd: see
+    `flash_attention`.
 
     CUDA tensors launch `csrc/flash_attn_fwd.cu`; CPU tensors take
     `flash_attention_reference`. Inputs may be views (the heads of a fused
     qkv projection) as long as D has unit stride and H stride D."""
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
+    if _all_cpu(q, k, v):
         return flash_attention_reference(q, k, v, causal, with_lse)
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention: q, k and v must all be CUDA "
-                         "tensors (or all CPU tensors)")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention: q, k and v are on different "
-                         "devices")
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"flash_attention: q, k, v must share one "
-                         f"[B, S, H, D] shape; got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
-            torch.float32, torch.bfloat16):
-        raise ValueError(f"flash_attention: dtype must be float32 or "
-                         f"bfloat16 for all of q, k, v; got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}")
+    _check_heads("flash_attention", q=q, k=k, v=v)
     b, s, h, d = q.shape
-    if not 1 <= d <= 128:
-        raise ValueError(f"flash_attention: head_dim {d} not in [1, 128]")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or t.stride(2) != d:
-            raise ValueError(f"flash_attention: {name} needs unit stride "
-                             f"over D and stride D over H; got strides "
-                             f"{t.stride()}")
     lib = _library("flash_attn_fwd")
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b * h, s, 1), dtype=torch.float32, device=q.device)
            if with_lse else None)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(), b, h, s, d,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), 1.0 / (d ** 0.5), int(bool(causal)),
-            0 if q.dtype == torch.float32 else 1, stream)
+            _dtype_code(q), _stream(q))
     _check(err, "flash_attn_fwd")
     _count("flash_attn_fwd")
     return (o, lse) if with_lse else o
+
+
+# ------------------------------------------------------- fused flash bwd
+
+def _to_bhsd(t: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, D] -> [B, H, S, D] float32."""
+    return t.permute(0, 2, 1, 3).float()
+
+
+def _rows(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A [B*H, S, 1] lse or delta as [B, H, S, 1] beside `like`."""
+    b, s, h, _ = like.shape
+    return t.reshape(b, h, s, 1)
+
+
+def _bwd_probs(q, k, v, do, lse, delta, causal):
+    """What the dK/dV and dQ kernels share: f32 q, k and dO in [B, H, S, D]
+    and, over the whole [S, S], p = exp(s * scale - lse) with -1e30 causal
+    masking and ds = p * (dO V^T - delta) * scale, in f32. q is not
+    pre-rounded, unlike the forward."""
+    s_len, d = q.shape[1], q.shape[3]
+    scale = 1.0 / (d ** 0.5)
+    qf, kf, vf, dof = (_to_bhsd(t) for t in (q, k, v, do))
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    if causal:
+        pos = torch.arange(s_len, device=q.device)
+        s = s.masked_fill(pos[None, :] > pos[:, None], _NEG_BIG)
+    p = torch.exp(s - _rows(lse, q))
+    dp = dof @ vf.transpose(-1, -2)
+    ds = p * (dp - _rows(delta, q)) * scale
+    return qf, kf, dof, p, ds
+
+
+def _from_bhsd(t: torch.Tensor, dtype) -> torch.Tensor:
+    """[B, H, S, D] f32 -> contiguous [B, S, H, D] in `dtype`."""
+    return t.to(dtype).permute(0, 2, 1, 3).contiguous()
+
+
+def flash_bwd_delta_reference(o: torch.Tensor,
+                              do: torch.Tensor) -> torch.Tensor:
+    """Plain version of the delta kernel: rowsum(f32(dO) * f32(O)) per
+    (batch*head, row), as [B*H, S, 1] float32."""
+    b, s, h, _ = o.shape
+    rows = (o.float() * do.float()).sum(dim=-1)            # [B, S, H]
+    return rows.permute(0, 2, 1).reshape(b * h, s, 1).contiguous()
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = False):
+    """Plain version of the dK/dV kernel, its arithmetic over the whole
+    [S, S] at once: dV = P^T dO and dK = dS^T Q in f32, cast to k's and
+    v's dtype. Inputs [B, S, H, D], lse and delta [B*H, S, 1]; returns
+    (dk, dv) as contiguous [B, S, H, D]."""
+    qf, _, dof, p, ds = _bwd_probs(q, k, v, do, lse, delta, causal)
+    dv = p.transpose(-1, -2) @ dof
+    dk = ds.transpose(-1, -2) @ qf
+    return _from_bhsd(dk, k.dtype), _from_bhsd(dv, v.dtype)
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool = False):
+    """Plain version of the dQ kernel: dQ = dS K in f32, cast to q's
+    dtype, as a contiguous [B, S, H, D]."""
+    _, kf, _, _, ds = _bwd_probs(q, k, v, do, lse, delta, causal)
+    return _from_bhsd(ds @ kf, q.dtype)
+
+
+def _unit_stride(do: torch.Tensor) -> torch.Tensor:
+    """dO as autograd hands it over may have any strides; the kernels take
+    unit stride over D and stride D over H (else one copy is made)."""
+    d = do.shape[3]
+    return do if do.stride(3) == 1 and do.stride(2) == d else \
+        do.contiguous()
+
+
+def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Wrapper of the delta kernel: o and dO [B, S, H, D] -> delta
+    [B*H, S, 1] float32. CUDA tensors launch `csrc/flash_attn_bwd.cu`; CPU
+    tensors take `flash_bwd_delta_reference`."""
+    if _all_cpu(o, do):
+        return flash_bwd_delta_reference(o, do)
+    do = _unit_stride(do)
+    _check_heads("flash_bwd_delta", o=o, do=do)
+    b, s, h, d = o.shape
+    lib = _library("flash_attn_bwd")
+    delta = torch.empty((b * h, s, 1), dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        err = lib.flash_bwd_delta(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, h, s, d,
+            o.stride(0), o.stride(1), do.stride(0), do.stride(1),
+            _dtype_code(o), _stream(o))
+    _check(err, "flash_bwd_delta")
+    _count("flash_bwd_delta")
+    return delta
+
+
+def _bwd_launch(name, q, k, v, do, lse, delta, outs, causal):
+    """Launch the dK/dV or dQ kernel: inputs checked, outputs allocated by
+    the caller (contiguous [B, S, H, D])."""
+    _check_heads(name, q=q, k=k, v=v, do=do)
+    _check_rows(name, q, lse=lse, delta=delta)
+    b, s, h, d = q.shape
+    lib = _library("flash_attn_bwd")
+    with torch.cuda.device(q.device):
+        err = getattr(lib, name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            b, h, s, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), do.stride(0), do.stride(1),
+            1.0 / (d ** 0.5), int(bool(causal)), _dtype_code(q), _stream(q))
+    _check(err, name)
+    _count(name)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
+    """Wrapper of the dK/dV kernel. q, k, v, dO [B, S, H, D] (views with
+    unit stride over D and stride D over H), lse and delta [B*H, S, 1]
+    float32; returns (dk, dv), contiguous [B, S, H, D] in the inputs'
+    dtype. CUDA tensors launch `csrc/flash_attn_bwd.cu`; CPU tensors take
+    `flash_bwd_dkv_reference`."""
+    if _all_cpu(q, k, v, do, lse, delta):
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    do = _unit_stride(do)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal)
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
+    """Wrapper of the dQ kernel; arguments as `flash_bwd_dkv`. Returns dq,
+    contiguous [B, S, H, D] in q's dtype."""
+    if _all_cpu(q, k, v, do, lse, delta):
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    do = _unit_stride(do)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal)
+    return dq
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with a backward, mirroring the JAX package's
+    `flash_attention` custom_vjp (pallas_kernels.py:439-524).
+
+    `fused_bwd=True`: the forward also emits the logsumexp residual and
+    saves (q, k, v, o, lse); the backward runs delta -> dK/dV -> dQ, the
+    three kernels (their plain versions on CPU tensors). Unlike the JAX
+    package, a ragged S takes this path too: the kernels mask the tail.
+    `fused_bwd=False`: the backward recomputes attention through autograd
+    of `nd/attention.blockwise_attention`, as the JAX package's flag-off
+    path does (:518-521). The flag chooses the path; nothing falls back."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, fused_bwd: bool):
+        ctx.causal, ctx.fused_bwd = bool(causal), bool(fused_bwd)
+        if ctx.fused_bwd:
+            o, lse = flash_attn_fwd(q, k, v, causal, with_lse=True)
+            ctx.save_for_backward(q, k, v, o, lse)
+        else:
+            o = flash_attn_fwd(q, k, v, causal)
+            ctx.save_for_backward(q, k, v)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.fused_bwd:
+            q, k, v, o, lse = ctx.saved_tensors
+            delta = flash_bwd_delta(o, g)
+            dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, ctx.causal)
+            dq = flash_bwd_dq(q, k, v, g, lse, delta, ctx.causal)
+            return dq, dk, dv, None, None
+        from deeplearning4j_tpu_torch.nd.attention import blockwise_attention
+
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = blockwise_attention(q, k, v, block_size=512,
+                                      causal=ctx.causal)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False, with_lse: bool = False,
+                    fused_bwd: bool = False):
+    """Flash attention over [B, S, H, D] inputs: o [B, S, H, D] and, with
+    `with_lse`, the logsumexp residual [B*H, S, 1] float32.
+
+    Without grad (inference, `inference_mode`) this is the forward kernel's
+    wrapper `flash_attn_fwd` alone, which launches without the lse unless
+    asked. When autograd needs a gradient of q, k or v it goes through
+    `FlashAttentionFunction`, whose backward is the fused kernels
+    (`fused_bwd=True`) or a blockwise recompute; `with_lse` has no
+    gradient and raises there."""
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if not needs_grad:
+        return flash_attn_fwd(q, k, v, causal, with_lse)
+    if with_lse:
+        raise ValueError("flash_attention: with_lse=True has no gradient; "
+                         "call it without grad")
+    return FlashAttentionFunction.apply(q, k, v, causal, fused_bwd)

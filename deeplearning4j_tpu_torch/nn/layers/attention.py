@@ -81,7 +81,13 @@ class MultiHeadAttentionLayer:
         TPU v5e measurement and is not carried over; an H100 crossover is
         open work (ROADMAP.md queue B). On the CPU, "auto" keeps the JAX
         rule: "blockwise" when a block size is set, else "full". The conf's
-        block size does not reach the kernel, whose tiles are its own."""
+        block size does not reach the kernel, whose tiles are its own.
+
+        Under autograd, "flash" takes the fused backward kernels when
+        `conf.attention_fused_bwd` is set, else a blockwise recompute (JAX
+        :117-125). `conf.attention_block_skip` changes no value in the JAX
+        package (pallas_kernels.py:120-124), so the port's kernels skip
+        fully-masked tiles whatever it says, and it is not passed on."""
         blk = conf.attention_block_size
         impl = conf.attention_impl
         if impl == "auto":
@@ -90,7 +96,8 @@ class MultiHeadAttentionLayer:
             else:
                 impl = "blockwise" if blk else "full"
         if impl == "flash":
-            return kernels.flash_attention(q, k, v, conf.causal)
+            return kernels.flash_attention(
+                q, k, v, conf.causal, fused_bwd=conf.attention_fused_bwd)
         if impl == "blockwise":
             return blockwise_attention(q, k, v, block_size=blk or 512,
                                        causal=conf.causal)

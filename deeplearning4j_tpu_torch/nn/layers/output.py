@@ -1,11 +1,15 @@
 """Output layer: a dense head whose activation follows the loss.
 
-Counterpart of `deeplearning4j_tpu/nn/layers/output.py` (the forward pass;
-the loss and its scoring come with training).
+Counterpart of `deeplearning4j_tpu/nn/layers/output.py`: the forward pass,
+the scored loss (`loss`, with the L2/L1 terms of the layer's own weights)
+and the per-row loss without them (`rowwise_loss`).
 """
 
 from __future__ import annotations
 
+import torch
+
+from deeplearning4j_tpu_torch.nd import losses as L
 from deeplearning4j_tpu_torch.nd.ops import activate
 from deeplearning4j_tpu_torch.nn.layers.base import DenseLayer
 
@@ -22,3 +26,20 @@ class OutputLayer(DenseLayer):
         if loss in ("xent", "rmse_xent", "reconstruction_crossentropy"):
             return activate("sigmoid", z)
         return activate(conf.activation, z)
+
+    @staticmethod
+    def loss(params, conf, x, labels):
+        out = OutputLayer.forward(params, conf, x)
+        w = params["W"].float()
+        l2 = conf.l2 if conf.use_regularization else 0.0
+        s = L.score(labels, conf.loss_function, out, l2, torch.sum(w ** 2))
+        if conf.use_regularization and conf.l1:
+            s = s + conf.l1 * torch.sum(torch.abs(w))
+        return s
+
+    @staticmethod
+    def rowwise_loss(params, conf, x, labels):
+        """Per-example loss vector without the regularization terms, which
+        the caller counts once per step."""
+        out = OutputLayer.forward(params, conf, x)
+        return L.get_rowwise(conf.loss_function)(labels, out)

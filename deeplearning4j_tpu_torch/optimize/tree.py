@@ -1,0 +1,43 @@
+"""Parameter trees: nested tuples, lists and dicts of tensors.
+
+The port's stand-in for JAX pytrees, for the params tuple (one dict per
+layer) and for the updater's flat-buffer tuples. Leaves are visited in JAX's
+order: containers in sequence, dict keys sorted.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterator, List
+
+
+def tree_leaves(tree) -> List:
+    if isinstance(tree, (tuple, list)):
+        return [leaf for x in tree for leaf in tree_leaves(x)]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """`fn` over the leaves of `tree` and the matching leaves of `rest`,
+    which share its structure."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return fn(tree, *rest)
+
+
+def _unflatten(like, it: Iterator):
+    if isinstance(like, (tuple, list)):
+        return type(like)(_unflatten(x, it) for x in like)
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], it) for k in sorted(like)}
+    return next(it)
+
+
+def tree_unflatten(like, leaves):
+    """A tree of `like`'s structure holding `leaves` in `tree_leaves`
+    order."""
+    return _unflatten(like, iter(leaves))
