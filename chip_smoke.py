@@ -38,7 +38,21 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    the scores are finite and fall and that each step launched the forward
    kernel and each backward kernel once per attention layer, traces one
    more step with `torch.profiler` (device time by kernel, idle share), and
-   checks the fused backward's gradients against the recompute path in f32.
+   checks the fused backward's gradients against the recompute path in f32;
+7. holds the fused LSTM cell kernel against its plain version at the
+   char-LSTM bench shape (f32; on the row-block views of one W; bf16), at
+   the CLI's ragged shape and at a tiny ragged one, timed beside its plain
+   version, `torch.lstm_cell` and its bound, and one [256, 64, 256] layer
+   (64 launches) beside cuDNN's `nn.LSTM`;
+8. trains the bench's 4-layer char-LSTM (bench.py:252-261: vocab 50, embed
+   and hidden 256, seq 64, batch 256, bf16 output layer, SGD with momentum)
+   for LSTM_STEPS one-step `fit` calls on the word corpus of bench.py:1706,
+   checks that the scores fall and that every forward launched the cell
+   kernel 4 * 64 times, profiles one more step, and holds the kernel path
+   to the hoisted scan in f32 (outputs, gradients) and times both;
+9. runs the CLI north star in process (bench.py:1716-1719: `train --zoo
+   char_lstm:layers=4,hidden=128` over the corpus as text windows of 32),
+   then `predict` and `test` on its checkpoint.
 
 Each phase prints one JSON line; then a line with every kernel's numbers,
 the card's line, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -559,12 +573,13 @@ def phase_serve(torch, kernels):
     return serve_launches
 
 
-def profile_step(torch, kernels, net, x, y) -> None:
+def profile_step(torch, kernels, net, x, y, phase="train_profile",
+                 ours_key="flash_") -> dict:
     """One more training step under `torch.profiler`: prints the device
     time by kernel name (the 15 largest), the device time of the port's
-    kernels, the sum over every kernel, and the step's wall time, from
-    which the device's idle share follows. Launches made here are not
-    counted as the main path's."""
+    kernels (names holding `ours_key`), the sum over every kernel, and the
+    step's wall time, from which the device's idle share follows. Launches
+    made here are not counted as the main path's. Returns the row."""
     from torch.profiler import ProfilerActivity, profile
 
     saved = dict(kernels.LAUNCHES)
@@ -581,13 +596,16 @@ def profile_step(torch, kernels, net, x, y) -> None:
               and e.device_type.name == "CUDA"]
     events.sort(key=lambda e: -e.device_time_total)
     total_us = sum(e.device_time_total for e in events)
-    ours = [e for e in events if "flash_" in e.key]
-    emit({"phase": "train_profile", "wall_ms": wall_ms,
-          "device_ms": total_us / 1e3,
-          "idle_share": 1.0 - total_us / 1e3 / wall_ms,
-          "port_kernels_ms": sum(e.device_time_total for e in ours) / 1e3,
-          "top": [{"name": e.key[:90], "calls": e.count,
-                   "ms": e.device_time_total / 1e3} for e in events[:15]]})
+    ours = [e for e in events if ours_key in e.key]
+    row = {"phase": phase, "wall_ms": wall_ms,
+           "device_ms": total_us / 1e3,
+           "idle_share": 1.0 - total_us / 1e3 / wall_ms,
+           "port_kernels_ms": sum(e.device_time_total for e in ours) / 1e3,
+           "kernel_count": sum(e.count for e in events),
+           "top": [{"name": e.key[:90], "calls": e.count,
+                    "ms": e.device_time_total / 1e3} for e in events[:15]]}
+    emit(row)
+    return row
 
 
 def train_conf(compute_dtype: str, fused_bwd: bool = True):
@@ -692,6 +710,378 @@ def phase_train(torch, kernels):
     return total
 
 
+# -------------------------------------------------------------------- LSTM
+
+#: the bench's 4-layer char-LSTM (bench.py:252-261 with n_layers=4, the
+#: north star of BASELINE configs[1]): _mixed(char_lstm(50, hidden=256,
+#: n_layers=4, sparse_labels=True, embed=256)), seq 64, batch 256
+LSTM = dict(vocab=50, hidden=256, n_layers=4, embed=256, seq=64, rows=256)
+LSTM_STEPS = 5
+#: the CLI north star (bench.py:1704-1721): a 65,536-character word corpus
+#: from RandomState(0), text scheme windows of 32
+CLI_SEQ, CLI_CHARS = 32, 65_536
+CORPUS_WORDS = ["the", "quick", "brown", "fox", "jumps", "over", "lazy",
+                "dogs", "and", "cats", "read", "write", "code", "tpu"]
+
+
+def word_corpus(chars: int = CLI_CHARS) -> str:
+    """The CLI north star's corpus, built as bench.py:1706-1712 builds it
+    (65,527 characters, 27 distinct)."""
+    rng = np.random.RandomState(0)
+    return " ".join(rng.choice(CORPUS_WORDS)
+                    for _ in range(chars // 5))[:chars]
+
+
+def lstm_bound_ms(b, i, h, dtype_name):
+    """max(operations / peak rate, bytes / HBM rate) for one cell: the
+    [B, I + H] x [I + H, 4H] product; x, h, c, Wx, Wh, b read once, h' and
+    c' written once."""
+    size = 2 if dtype_name == "bfloat16" else 4
+    flops = 2.0 * b * (i + h) * 4 * h
+    nbytes = size * (b * i + 2 * b * h + (i + h) * 4 * h + 4 * h + 2 * b * h)
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def lstm_cell_inputs(torch, gen, b, i, h, dt, view):
+    """x, h, c, wx, wh, bias on the card; wx and wh are the two row blocks
+    of one [I + H, 4H] W (views, as the layer passes them) or copies."""
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen,
+                                    device="cuda")).to(dt)
+
+    x, h0, c0 = randn(b, i), randn(b, h), randn(b, h)
+    w = randn(i + h, 4 * h, scale=0.1)
+    wx, wh = (w[:i], w[i:]) if view else (w[:i].clone(), w[i:].clone())
+    return x, h0, c0, wx, wh, randn(4 * h, scale=0.1)
+
+
+def torch_cell_weights(torch, wx, wh, bias):
+    """The same cell's weights in `torch.lstm_cell`'s layout: gate rows
+    [i | f | g | o] (ours are columns [i | f | o | g]), transposed."""
+    h = wh.shape[0]
+    perm = torch.cat([torch.arange(0, 2 * h), torch.arange(3 * h, 4 * h),
+                      torch.arange(2 * h, 3 * h)]).to(wx.device)
+    return (wx[:, perm].t().contiguous(), wh[:, perm].t().contiguous(),
+            bias[perm].contiguous(), torch.zeros_like(bias))
+
+
+def lstm_layer_ms(torch, kernels):
+    """Layer level, one [256, 64, 256] f32 sequence: the port's LSTM layer
+    (fused: 64 kernel launches; scan) against cuDNN's `nn.LSTM` on the same
+    weights. The layer paths by graph replay, cuDNN by eager events (one
+    call); outputs compared for the record."""
+    from deeplearning4j_tpu_torch.nn.conf import (LayerType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers.lstm import LSTMLayer
+
+    b, t, n = 256, 64, 256
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xs = torch.randn(b, t, n, generator=gen, device="cuda")
+    _, _, _, wx, wh, bias = lstm_cell_inputs(torch, gen, 1, n, n,
+                                             torch.float32, False)
+    params = {"W": torch.cat([wx, wh]), "b": bias}
+    out = {}
+    for impl in ("fused", "scan"):
+        conf = NeuralNetConfiguration(layer_type=LayerType.LSTM, n_in=n,
+                                      n_out=n, lstm_impl=impl)
+
+        def fwd(conf=conf):
+            with torch.inference_mode():
+                return LSTMLayer.forward(params, conf, xs)
+
+        out[impl] = fwd()
+        out[impl + "_ms"] = graph_ms(fwd, iters=3, replays=2)
+    cudnn = torch.nn.LSTM(n, n, batch_first=True).to("cuda")
+    w_ih, w_hh, b_ih, b_hh = torch_cell_weights(torch, wx, wh, bias)
+    with torch.no_grad():
+        for name, val in (("weight_ih_l0", w_ih), ("weight_hh_l0", w_hh),
+                          ("bias_ih_l0", b_ih), ("bias_hh_l0", b_hh)):
+            getattr(cudnn, name).copy_(val)
+
+    def lib():
+        with torch.no_grad():
+            return cudnn(xs)[0]
+
+    want = lib()
+    torch.cuda.synchronize()
+    return {"shape": [b, t, n], "fused_ms": out["fused_ms"],
+            "scan_ms": out["scan_ms"], "cudnn_lstm_call_ms": cuda_ms(lib),
+            "fused_vs_cudnn_max_abs_err":
+                (out["fused"] - want).abs().max().item(),
+            "fused_vs_scan_max_abs_err":
+                (out["fused"] - out["scan"]).abs().max().item()}
+
+
+def phase_lstm_kernel(torch, kernels):
+    """The fused cell against its plain version on the card in five cases
+    (f32 at the bench shape, on W's row-block views, at the CLI's ragged
+    shape, at a tiny ragged shape; bf16 at the bench shape), timed with the
+    plain version and `torch.lstm_cell`; then the layer-level note. Returns
+    the bench case's row."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("bench", 256, 256, 256, f32, False),
+             ("bench_views", 256, 256, 256, f32, True),
+             ("cli", 2047, 27, 128, f32, False),
+             ("ragged", 3, 7, 20, f32, False),
+             ("bench_bf16", 256, 256, 256, bf16, False)]
+    ptxas = [line.strip() for line in
+             kernels.BUILD_LOGS.get("lstm_cell", "").splitlines()
+             if "registers" in line or "spill" in line]
+    rows = {}
+    for name, b, i, h, dt, view in cases:
+        args = lstm_cell_inputs(torch, gen, b, i, h, dt, view)
+        got = kernels.lstm_cell(*args)
+        want = kernels.lstm_cell_reference(*args)
+        torch.cuda.synchronize()
+        errs = [(g.float() - w.float()).abs().max().item()
+                for g, w in zip(got, want)]
+        if dt == f32:
+            ok = all(bool(torch.allclose(g, w, atol=1e-5, rtol=1e-5))
+                     for g, w in zip(got, want))
+        else:
+            ok = all(e <= 2e-2 * w.float().abs().max().item()
+                     for e, w in zip(errs, want))
+        x, h0, c0, wx, wh, bias = args
+        w_ih, w_hh, b_ih, b_hh = torch_cell_weights(torch, wx, wh, bias)
+
+        def lib():
+            return torch.lstm_cell(x, (h0, c0), w_ih, w_hh, b_ih, b_hh)
+
+        lib_h = lib()[0]
+        dname = str(dt).replace("torch.", "")
+        bound_ms, bound_by = lstm_bound_ms(b, i, h, dname)
+        row = {"phase": "lstm_kernel", "case": name, "shape_bih": [b, i, h],
+               "dtype": dname, "w_views": view, "max_abs_err": max(errs),
+               "ok": ok,
+               "kernel_ms": graph_ms(lambda: kernels.lstm_cell(*args)),
+               "call_ms": cuda_ms(lambda: kernels.lstm_cell(*args)),
+               "plain_ms": graph_ms(
+                   lambda: kernels.lstm_cell_reference(*args)),
+               "library_ms": graph_ms(lib),
+               "library_h_max_abs_err":
+                   (lib_h.float() - want[0].float()).abs().max().item(),
+               "bound_ms": bound_ms, "bound_by": bound_by, "ptxas": ptxas}
+        emit(row)
+        check(ok, f"lstm_cell disagrees with its plain version: {row}")
+        rows[name] = row
+        del args, got, want, x, h0, c0, wx, wh, bias
+    layer = lstm_layer_ms(torch, kernels)
+    emit({"phase": "lstm_layer", **layer})
+    check(layer["fused_vs_scan_max_abs_err"] < 1e-4,
+          f"the fused and scan layers differ: {layer}")
+    torch.cuda.empty_cache()
+    return rows["bench"], layer
+
+
+def lstm_conf(impl: str = "auto", compute_dtype: str = "bfloat16"):
+    """The bench's char-LSTM configuration, with `lstm_impl` set on every
+    layer ("auto" is the kernel on the card)."""
+    from deeplearning4j_tpu_torch.models.zoo import char_lstm
+
+    conf = char_lstm(LSTM["vocab"], hidden=LSTM["hidden"],
+                     n_layers=LSTM["n_layers"], sparse_labels=True,
+                     embed=LSTM["embed"])
+    conf = conf.replace(confs=tuple(c.replace(lstm_impl=impl)
+                                    for c in conf.confs))
+    return conf.with_compute_dtype(compute_dtype) if compute_dtype else conf
+
+
+def lstm_batch():
+    """The first LSTM["rows"] windows of seq + 1 characters of the word
+    corpus as ids (sorted character order): x [rows, seq], y [rows * seq]."""
+    text = word_corpus()
+    index = {c: k for k, c in enumerate(sorted(set(text)))}
+    rows, seq = LSTM["rows"], LSTM["seq"]
+    ids = np.asarray([index[c] for c in text[:rows * (seq + 1)]],
+                     np.int32).reshape(rows, seq + 1)
+    return ids[:, :-1].copy(), ids[:, 1:].reshape(-1).copy()
+
+
+def event_ms(torch, fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def phase_lstm_train(torch, kernels):
+    """`MultiLayerNetwork.fit` on the bench's 4-layer char-LSTM: LSTM_STEPS
+    one-step calls (SGD with momentum, lr 0.1), a score after each, and one
+    `output`; every forward must launch the cell kernel n_layers * seq
+    times. Then one profiled step, the fused path against the scan path in
+    f32 (outputs and gradients), and both paths' step and forward times in
+    turns. Returns the main path's launches."""
+    from deeplearning4j_tpu_torch.nn.multilayer import (MultiLayerNetwork,
+                                                        network_loss,
+                                                        network_output)
+    from deeplearning4j_tpu_torch.optimize.solver import from_loss
+    from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+
+    net = MultiLayerNetwork(lstm_conf(), device="cuda", seed=0).init()
+    x, y = lstm_batch()
+    per_fwd = LSTM["n_layers"] * LSTM["seq"]
+    chars = LSTM["rows"] * LSTM["seq"]
+    scores = [net.score(x, y)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    step_ms, fwd_launches = [], []
+    for _ in range(LSTM_STEPS):
+        before = kernels.LAUNCHES["lstm_cell"]
+        step_ms.append(event_ms(torch, lambda: net.fit(x, y)))
+        mid = kernels.LAUNCHES["lstm_cell"]
+        scores.append(net.score(x, y))
+        fwd_launches += [mid - before, kernels.LAUNCHES["lstm_cell"] - mid]
+    before = kernels.LAUNCHES["lstm_cell"]
+    out = net.output(x)
+    torch.cuda.synchronize()
+    fwd_launches.append(kernels.LAUNCHES["lstm_cell"] - before)
+    launches = kernels.LAUNCHES["lstm_cell"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(tuple(out.shape) == (chars, LSTM["vocab"]),
+          f"output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "output has non-finite values")
+    profile = profile_step(torch, kernels, net, x, y,
+                           phase="lstm_train_profile", ours_key="lstm_cell")
+
+    # the kernel path against the hoisted scan in f32, on these weights
+    xs = torch.as_tensor(x, device="cuda")
+    ys = torch.as_tensor(y, device="cuda")
+    outs, grads = {}, {}
+    for impl in ("fused", "scan"):
+        conf = lstm_conf(impl, compute_dtype="")
+        with torch.inference_mode():
+            outs[impl] = network_output(conf, net.params, xs)
+        objective = from_loss(lambda p, c=conf: network_loss(c, p, xs, ys))
+        grads[impl] = tree_leaves(objective.grad_and_score(net.params)[0])
+    out_err = (outs["fused"] - outs["scan"]).abs().max().item()
+    out_max = outs["scan"].abs().max().item()
+    ratios = []
+    for a, b in zip(grads["fused"], grads["scan"]):
+        gmax = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        ratios.append(err / gmax if gmax > 0 else (0.0 if err == 0 else
+                                                   float("inf")))
+    del outs, grads
+
+    # both paths' train step and forward, in turns (fused, scan, scan,
+    # fused), each on a copy of the weights: two warm calls, two timed
+    turns = {"fused": {"step_ms": [], "output_ms": []},
+             "scan": {"step_ms": [], "output_ms": []}}
+    for impl in ("fused", "scan", "scan", "fused"):
+        other = MultiLayerNetwork(lstm_conf(impl), device="cuda", seed=0)
+        other.params = tuple({k: v.clone() for k, v in layer.items()}
+                             for layer in net.params)
+        for k in range(4):
+            ms = event_ms(torch, lambda: other.fit(x, y))
+            if k >= 2:
+                turns[impl]["step_ms"].append(ms)
+        turns[impl]["output_ms"].append(
+            cuda_ms(lambda: other.output(x), iters=3, warmup=1))
+        del other
+    torch.cuda.empty_cache()
+
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    row = {"phase": "lstm_train", "config": LSTM, "compute_dtype": "bfloat16",
+           "updater": "sgd+momentum", "lr": 0.1,
+           "params": sum(t.numel() for t in tree_leaves(net.params)),
+           "scores": scores, "step_ms": step_ms,
+           "step_ms_median_2_on": steady,
+           "chars_per_s": chars / (steady / 1e3),
+           "launches_per_forward": fwd_launches, "launches": launches,
+           "peak_mem_gb": peak_gb, "idle_share": profile["idle_share"],
+           "f32_fused_vs_scan_output_max_abs_err": out_err,
+           "f32_fused_vs_scan_output_max": out_max,
+           "f32_fused_vs_scan_grad_max_rel": max(ratios),
+           "turns": turns}
+    emit(row)
+    check(all(np.isfinite(s) for s in scores), f"non-finite score: {scores}")
+    check(scores[-1] < scores[0], f"the score did not fall: {scores}")
+    check(all(n == per_fwd for n in fwd_launches),
+          f"a forward launched lstm_cell {fwd_launches}, want {per_fwd} each")
+    check(out_err <= 1e-5 * out_max,
+          f"fused and scan outputs differ by {out_err} (max {out_max})")
+    check(max(ratios) <= 1e-3,
+          f"fused and scan gradients differ: {max(ratios)} of max|g|")
+    return launches
+
+
+def phase_lstm_cli(torch, kernels):
+    """The CLI north star in process: `train` over the word corpus with
+    bench.py:1716-1719's arguments, then `predict` and `test` on the
+    checkpoint. Checks the JSON lines, that each command launched the cell
+    kernel, and that predict's probabilities equal a direct `net.output`
+    on the loaded checkpoint. Returns the launches of the three commands."""
+    import contextlib
+    import io
+    import tempfile
+
+    from deeplearning4j_tpu_torch.cli.driver import main as cli_main
+    from deeplearning4j_tpu_torch.cli.schemes import load_input
+    from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
+
+    def run(argv):
+        buf = io.StringIO()
+        before = kernels.LAUNCHES["lstm_cell"]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check(rc == 0, f"cli {argv[0]} exited {rc}")
+        last = json.loads(buf.getvalue().strip().splitlines()[-1])
+        return last, kernels.LAUNCHES["lstm_cell"] - before, wall
+
+    with tempfile.TemporaryDirectory() as td:
+        with open(f"{td}/corpus.txt", "w") as f:
+            f.write(word_corpus())
+        uri = f"text:{td}/corpus.txt:{CLI_SEQ}"
+        ckpt, csv_path = f"{td}/lstm4", f"{td}/pred.csv"
+        kernels.reset_launches()
+        train, l_train, w_train = run(
+            ["train", "--input", uri, "--zoo",
+             "char_lstm:layers=4,hidden=128", "--output", ckpt,
+             "--properties", "epochs=1"])
+        pred, l_pred, w_pred = run(["predict", "--input", uri, "--model",
+                                    ckpt, "--output", csv_path])
+        test, l_test, w_test = run(["test", "--input", uri, "--model",
+                                    ckpt])
+        launches = kernels.LAUNCHES["lstm_cell"]
+        data = load_input(uri)
+        net = load_network(ckpt)
+        direct = net.output(data.features).float().cpu().numpy()
+        probs = np.loadtxt(csv_path, delimiter=",", skiprows=1,
+                           dtype=np.float64)[:, 1:]
+    err = float(np.abs(probs - direct).max())
+    n_win = data.num_examples()
+    row = {"phase": "lstm_cli", "windows": n_win, "seq": CLI_SEQ,
+           "vocab": int(data.vocab_size), "train": train,
+           "chars_per_s": train["examples_per_sec"] * CLI_SEQ,
+           "predict": pred, "test": test,
+           "launches": {"train": l_train, "predict": l_pred, "test": l_test},
+           "wall_s": {"train": w_train, "predict": w_pred, "test": w_test},
+           "predict_vs_direct_max_abs_err": err}
+    emit(row)
+    check(set(train) == {"saved", "score", "train_seconds",
+                         "examples_per_sec"} and np.isfinite(train["score"]),
+          f"train line {train}")
+    check(pred["n"] == n_win * CLI_SEQ, f"predict line {pred}")
+    check(set(test) == {"accuracy", "f1"}
+          and 0.0 <= test["accuracy"] <= 1.0, f"test line {test}")
+    check(min(l_train, l_pred, l_test) > 0,
+          f"a command never launched the cell kernel: {row['launches']}")
+    check(probs.shape == direct.shape and err <= 2e-6,
+          f"predict differs from net.output by {err}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -722,6 +1112,12 @@ def main() -> int:
     check(serve_launches["flash_attn_fwd"] > 0, "the flash kernel never ran")
     for name in ("flash_attn_fwd",) + BWD_KERNELS:
         check(train_launches[name] > 0, f"{name} never ran in training")
+    torch.cuda.empty_cache()
+    lstm_row, lstm_layer = phase_lstm_kernel(torch, kernels)
+    lstm_train_launches = phase_lstm_train(torch, kernels)
+    lstm_cli_launches = phase_lstm_cli(torch, kernels)
+    check(lstm_train_launches > 0 and lstm_cli_launches > 0,
+          "the LSTM cell kernel never ran")
 
     bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
     replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,
@@ -765,6 +1161,21 @@ def main() -> int:
                            else r["sdpa_backward_ms"]),
             "library_covers": (None if name == "flash_bwd_delta"
                                else "delta + dkv + dq")})
+    rows.append({
+        "name": "lstm_cell", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/lstm_cell.cu",
+        "replaces": "deeplearning4j_tpu/nd/pallas_kernels.py:529",
+        "launches": lstm_train_launches + lstm_cli_launches,
+        "launches_by_path": {"lstm_train": lstm_train_launches,
+                             "lstm_cli": lstm_cli_launches},
+        "max_abs_err": lstm_row["max_abs_err"], "ms": lstm_row["kernel_ms"],
+        "plain_ms": lstm_row["plain_ms"], "bound_ms": lstm_row["bound_ms"],
+        "bound_by": lstm_row["bound_by"],
+        # torch.lstm_cell: the same cell, in PyTorch's gate order
+        "library_ms": lstm_row["library_ms"],
+        # one [256, 64, 256] f32 layer: 64 launches, and cuDNN's nn.LSTM
+        "layer_fused_ms": lstm_layer["fused_ms"],
+        "layer_cudnn_lstm_call_ms": lstm_layer["cudnn_lstm_call_ms"]})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,1 +1,2 @@
-"""Command line: `python -m deeplearning4j_tpu_torch.cli serve --model DIR`."""
+"""Command line:
+`python -m deeplearning4j_tpu_torch.cli {train,test,predict,serve} ...`."""

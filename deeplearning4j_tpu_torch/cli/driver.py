@@ -1,18 +1,219 @@
-"""CLI driver: the `serve` subcommand.
+"""CLI driver: the `train`, `test`, `predict` and `serve` subcommands.
 
-Counterpart of `serve` in `deeplearning4j_tpu/cli/driver.py`: load a
-checkpoint written by either package (`conf.json` + `arrays.npz`), start the
-micro-batching HTTP gateway, print a startup JSON line, and on SIGTERM or
-SIGINT drain and print a final JSON line. The other subcommands are not
-ported yet (ROADMAP.md queue A).
+Counterpart of `deeplearning4j_tpu/cli/driver.py`, on one device (CUDA
+unless `--device cpu`):
+- `train` loads `--input` (csv: or text:), builds the net from `--zoo`
+  (char_lstm, char_transformer) or `--model conf.json`, trains it
+  `epochs` times over the data (whole, or in `batch`-example batches
+  through the prefetcher) with `--properties epochs=N,batch=M`, and saves a
+  checkpoint that either package reads;
+- `test` evaluates a checkpoint (accuracy, precision, recall, F1) and
+  `predict` writes its argmax and class probabilities as CSV;
+- `serve` loads a checkpoint, starts the micro-batching HTTP gateway,
+  prints a startup JSON line, and on SIGTERM or SIGINT drains and prints a
+  final JSON line.
+Checkpoints are `conf.json` + `arrays.npz`, written by either package.
+
+The final JSON lines keep the JAX package's keys that the port can fill
+(`saved`, `score`, `train_seconds`, `examples_per_sec`; `accuracy`, `f1`;
+`written`, `n`). The compile-cache keys are left out: the port has no
+compiled step or serve cache yet (ROADMAP.md queue A item 7). Options that
+are not ported exit naming their ROADMAP.md item: `--runtime mesh`,
+`--mesh` and `--zero1` (item 10), `--checkpoint-dir` (item 6),
+`--compile-cache` (item 7), pretraining recipes (item 9).
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import signal
+import time
 from typing import List, Optional
+
+
+def _parse_properties(props: Optional[str]) -> dict:
+    """`--properties k=v,k2=v2` -> dict."""
+    out = {}
+    for pair in (props or "").split(","):
+        if pair:
+            k, _, v = pair.partition("=")
+            out[k.strip()] = v.strip()
+    return out
+
+
+def _refuse_unported(args) -> None:
+    if getattr(args, "compile_cache", None):
+        raise SystemExit("--compile-cache is not ported to "
+                         "deeplearning4j_tpu_torch yet (no compiled step or "
+                         "serve cache); see ROADMAP.md queue A item 7")
+    if (getattr(args, "runtime", "local") == "mesh"
+            or getattr(args, "mesh", None) is not None
+            or getattr(args, "zero1", False)):
+        raise SystemExit("--runtime mesh, --mesh and --zero1 (data and "
+                         "tensor parallel training) are not ported to "
+                         "deeplearning4j_tpu_torch yet; see ROADMAP.md queue "
+                         "A item 10")
+    if getattr(args, "checkpoint_dir", None):
+        raise SystemExit("--checkpoint-dir (crash-safe resumable training) "
+                         "is not ported to deeplearning4j_tpu_torch yet; see "
+                         "ROADMAP.md queue A item 6")
+
+
+def _load_data(args):
+    from deeplearning4j_tpu_torch.cli.schemes import load_input
+
+    return load_input(args.input, label_column=args.label_column,
+                      num_examples=args.num_examples)
+
+
+def _scaled(data, args):
+    if args.normalize:
+        data = data.normalize_zero_mean_unit_variance()
+    if args.scale_01:
+        data = data.scale_to_unit()
+    return data
+
+
+def _zoo_conf(spec: str, data):
+    """--zoo 'name[:k=v,...]' -> MultiLayerConfiguration, sized from the
+    loaded data (the vocabulary of the char models)."""
+    from deeplearning4j_tpu_torch.models import zoo
+
+    name, _, props = spec.partition(":")
+    kw = dict(kv.split("=", 1) for kv in props.split(",") if kv)
+    lr = float(kw.get("lr", 0.05))
+    iters = int(kw.get("iterations", kw.get("iters", 1)))
+    vocab = getattr(data, "vocab_size", data.features.shape[-1])
+    if name == "char_lstm":
+        return zoo.char_lstm(vocab, hidden=int(kw.get("hidden", 128)),
+                             n_layers=int(kw.get("layers", 1)), lr=lr,
+                             iterations=iters)
+    if name == "char_transformer":
+        seq = getattr(data, "seq_len", 0) or int(kw.get("seq_len", 256))
+        return zoo.char_transformer(
+            vocab, d_model=int(kw.get("d_model", 128)),
+            n_blocks=int(kw.get("blocks", 2)),
+            n_heads=int(kw.get("heads", 4)), max_seq_len=seq,
+            lr=float(kw.get("lr", 1e-3)), iterations=iters)
+    if name in ("lenet5", "mlp", "vgg_cifar10", "dbn", "deep_autoencoder"):
+        raise SystemExit(f"--zoo {name} is not ported to "
+                         f"deeplearning4j_tpu_torch yet; see ROADMAP.md "
+                         f"queue A item 9")
+    raise SystemExit(f"unknown --zoo model '{name}' (choose char_lstm or "
+                     f"char_transformer)")
+
+
+def cmd_train(args) -> int:
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import PrefetchIterator
+    from deeplearning4j_tpu_torch.nd.losses import LossFunction
+    from deeplearning4j_tpu_torch.nn.conf import (LayerType,
+                                                  MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import checkpoint
+
+    _refuse_unported(args)
+    data = _load_data(args)
+    if args.zoo:
+        conf = _zoo_conf(args.zoo, data)
+    elif args.model:
+        with open(args.model) as f:
+            conf = MultiLayerConfiguration.from_json(f.read())
+    else:
+        raise SystemExit("train needs --model <conf.json> or --zoo <name>")
+    if conf.pretrain:
+        raise SystemExit("pretraining recipes (dbn, deep_autoencoder) are "
+                         "not ported to deeplearning4j_tpu_torch yet; see "
+                         "ROADMAP.md queue A item 9")
+    if (LayerType(str(conf.confs[0].layer_type)) == LayerType.EMBEDDING
+            and data.features.ndim == 3):
+        # an embedding takes int ids [B, T]; the text scheme gives one-hot
+        # [B, T, V]
+        ds = DataSet(data.features.argmax(-1).astype("int32"), data.labels)
+        for attr in ("vocab_size", "seq_len", "char_index"):
+            if hasattr(data, attr):
+                setattr(ds, attr, getattr(data, attr))
+        data = ds
+    data = _scaled(data, args)
+
+    props = _parse_properties(args.properties)
+    epochs = int(props.get("epochs", "1"))
+    batch = int(props.get("batch", "0"))
+    # a reconstruction head is trained and scored against its inputs
+    out_lf = conf.conf(conf.n_layers - 1).loss_function
+    reconstruction = (LossFunction(str(out_lf))
+                      == LossFunction.RECONSTRUCTION_CROSSENTROPY)
+    net = MultiLayerNetwork(conf, device=args.device).init()
+    t_train = time.perf_counter()
+    for _ in range(epochs):
+        if batch > 0:
+            for b in PrefetchIterator(data.batch_by(batch),
+                                      device=net.device):
+                net.fit(b.features,
+                        b.features if reconstruction else b.labels)
+        else:
+            net.fit(data.features,
+                    data.features if reconstruction else data.labels)
+    # each fit ends in the solver's read-back of its score: the work is done
+    train_seconds = time.perf_counter() - t_train
+    score = net.score(data.features,
+                      data.features if reconstruction else data.labels)
+    checkpoint.save(args.output, net.params, conf=conf,
+                    metadata={"score": score, "input": args.input})
+    n_trained = data.num_examples() * epochs
+    print(json.dumps({"saved": args.output, "score": score,
+                      "train_seconds": round(train_seconds, 3),
+                      "examples_per_sec": round(
+                          n_trained / max(train_seconds, 1e-9), 2)}),
+          flush=True)
+    return 0
+
+
+def cmd_test(args) -> int:
+    from deeplearning4j_tpu_torch.evaluation import evaluate
+    from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
+
+    _refuse_unported(args)
+    net = load_network(args.model, device=args.device)
+    data = _scaled(_load_data(args), args)
+    ev = evaluate(net, data, batch_size=args.batch)
+    print(ev.stats())
+    print(json.dumps({"accuracy": ev.accuracy(), "f1": ev.f1()}), flush=True)
+    return 0
+
+
+def cmd_predict(args) -> int:
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator, PrefetchIterator)
+    from deeplearning4j_tpu_torch.evaluation.evaluation import _host
+    from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
+
+    _refuse_unported(args)
+    net = load_network(args.model, device=args.device)
+    data = _scaled(_load_data(args), args)
+    if 0 < args.batch < data.num_examples():
+        probs = np.concatenate(
+            [_host(net.output(b.features)) for b in PrefetchIterator(
+                ListDataSetIterator(data, args.batch), device=net.device)])
+    else:
+        probs = _host(net.output(data.features))
+    preds = probs.argmax(axis=-1)
+    if args.output:
+        with open(args.output, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["prediction"] +
+                       [f"p{i}" for i in range(probs.shape[1])])
+            for p, row in zip(preds, probs):
+                w.writerow([int(p)] + [f"{v:.6f}" for v in row])
+        print(json.dumps({"written": args.output, "n": len(preds)}),
+              flush=True)
+    else:
+        print(" ".join(str(int(p)) for p in preds))
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -51,15 +252,71 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' must be asked "
+                        "for explicitly)")
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--input", required=True,
+                   help="csv:<path>[:label_col] | text:<path>[:seq_len] | "
+                        "*.csv")
+    p.add_argument("--model", default=None,
+                   help="conf JSON (train) or checkpoint dir (test/predict)")
+    p.add_argument("--label-column", dest="label_column", type=int,
+                   default=-1)
+    p.add_argument("--num-examples", dest="num_examples", type=int,
+                   default=None)
+    p.add_argument("--scale-01", dest="scale_01", action="store_true",
+                   help="scale features into [-1, 1] by their max |value|")
+    p.add_argument("--normalize", action="store_true",
+                   help="zero-mean/unit-variance features")
+    p.add_argument("--compile-cache", dest="compile_cache", default=None,
+                   metavar="DIR", help="not ported yet (exits)")
+    _add_device(p)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="deeplearning4j_tpu_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
+
+    t = sub.add_parser("train", help="train a model and save a checkpoint")
+    _add_common(t)
+    t.add_argument("--output", required=True, help="checkpoint output dir")
+    t.add_argument("--zoo", default=None,
+                   help="train a zoo model instead of a conf JSON: "
+                        "char_lstm|char_transformer[:k=v,...] (e.g. "
+                        "char_lstm:layers=4,hidden=128)")
+    t.add_argument("--runtime", choices=["local", "mesh"], default="local",
+                   help="mesh is not ported yet (exits)")
+    t.add_argument("--mesh", nargs="?", const="all", default=None,
+                   metavar="SPEC", help="not ported yet (exits)")
+    t.add_argument("--zero1", action="store_true",
+                   help="not ported yet (exits)")
+    t.add_argument("--properties", default=None,
+                   help="k=v[,k=v...]: epochs (default 1), batch (examples "
+                        "per fit call; 0, the default, is the whole data)")
+    t.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None,
+                   metavar="DIR", help="not ported yet (exits)")
+    t.set_defaults(fn=cmd_train)
+
+    te = sub.add_parser("test", help="evaluate a checkpoint")
+    _add_common(te)
+    te.add_argument("--batch", type=int, default=1024,
+                    help="examples per forward (0 = one call)")
+    te.set_defaults(fn=cmd_test)
+
+    pr = sub.add_parser("predict", help="write predictions for a dataset")
+    _add_common(pr)
+    pr.add_argument("--output", default=None, help="predictions CSV path")
+    pr.add_argument("--batch", type=int, default=1024,
+                    help="examples per forward (0 = one call)")
+    pr.set_defaults(fn=cmd_predict)
     s = sub.add_parser("serve", help="micro-batching HTTP gateway: POST "
                                      "/v1/predict + GET /v1/stats")
     s.add_argument("--model", required=True, help="checkpoint dir to serve")
-    s.add_argument("--device", default=None,
-                   help="torch device (default cuda; 'cpu' must be asked "
-                        "for explicitly)")
+    _add_device(s)
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=0,
                    help="0 picks an ephemeral port (printed in the startup "

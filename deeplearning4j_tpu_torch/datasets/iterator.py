@@ -1,0 +1,211 @@
+"""Batch iterators and the host-to-device prefetcher.
+
+Counterpart of `deeplearning4j_tpu/datasets/iterator.py` (its own copy):
+`DataSetIterator`, `ListDataSetIterator`, `MultipleEpochsIterator`, and
+`PrefetchIterator`, which moves batches to the device ahead of the
+consumer. The sampling, reconstruction, moving-window and test iterators
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Iterator, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.nd.platform import resolve_device
+
+
+class DataSetIterator:
+    """Abstract batch iterator over a dataset."""
+
+    def __init__(self, batch_size: int, total_examples: int):
+        self.batch_size = batch_size
+        self._total = total_examples
+        self.cursor = 0
+
+    def total_examples(self) -> int:
+        return self._total
+
+    def batch(self) -> int:
+        return self.batch_size
+
+    def input_columns(self) -> int:
+        raise NotImplementedError
+
+    def total_outcomes(self) -> int:
+        raise NotImplementedError
+
+    def reset(self) -> None:
+        self.cursor = 0
+
+    def has_next(self) -> bool:
+        return self.cursor < self._total
+
+    def next(self, num: Optional[int] = None) -> DataSet:
+        raise NotImplementedError
+
+    def __iter__(self) -> Iterator[DataSet]:
+        self.reset()
+        while self.has_next():
+            yield self.next()
+
+    def __next__(self) -> DataSet:
+        if not self.has_next():
+            raise StopIteration
+        return self.next()
+
+
+class ListDataSetIterator(DataSetIterator):
+    """Batches over an in-memory DataSet."""
+
+    def __init__(self, data: DataSet, batch_size: int = 10):
+        super().__init__(batch_size, data.num_examples())
+        self.data = data
+
+    def input_columns(self) -> int:
+        return self.data.num_inputs()
+
+    def total_outcomes(self) -> int:
+        return self.data.num_outcomes()
+
+    def next(self, num: Optional[int] = None) -> DataSet:
+        # num=0 is an empty batch, not the default size
+        n = self.batch_size if num is None else num
+        out = self.data.get(slice(self.cursor, self.cursor + n))
+        # advance by the rows served: a ragged last batch counts its own
+        self.cursor += out.num_examples()
+        return out
+
+
+class MultipleEpochsIterator(DataSetIterator):
+    """Replays an underlying iterator for `epochs` epochs."""
+
+    def __init__(self, epochs: int, base: DataSetIterator):
+        super().__init__(base.batch_size, base.total_examples() * epochs)
+        self.epochs = epochs
+        self.base = base
+        self._epoch = 0
+
+    def input_columns(self) -> int:
+        return self.base.input_columns()
+
+    def total_outcomes(self) -> int:
+        return self.base.total_outcomes()
+
+    def reset(self) -> None:
+        super().reset()
+        self._epoch = 0
+        self.base.reset()
+
+    def has_next(self) -> bool:
+        if self.base.has_next():
+            return self._epoch < self.epochs
+        return self._epoch + 1 < self.epochs
+
+    def next(self, num: Optional[int] = None) -> DataSet:
+        if not self.base.has_next():
+            self.base.reset()
+            self._epoch += 1
+        out = self.base.next(num)
+        self.cursor += out.num_examples()
+        return out
+
+
+class DeviceBatch(NamedTuple):
+    """A (features, labels) pair of tensors already on (or on their way to)
+    the device; every consumer of a DataSet's two fields takes it."""
+
+    features: torch.Tensor
+    labels: torch.Tensor
+
+    def num_examples(self) -> int:
+        return int(self.features.shape[0])
+
+
+#: batches a PrefetchIterator keeps in flight beyond the one being consumed
+PREFETCH_DEPTH = 2
+
+
+class PrefetchIterator:
+    """Batches moved to the device ahead of the consumer.
+
+    Wraps any iterable of batches (a `DataSetIterator`, a list of
+    `DataSet`s, (features, labels) tuples or arrays) and keeps up to
+    PREFETCH_DEPTH batches in flight beyond the one the consumer holds.
+    A DataSet becomes a `DeviceBatch`, a tuple a tuple of tensors, an array
+    a tensor; float64 becomes float32, as the JAX package's transfer gives.
+
+    On a CUDA device each array is staged in pinned host memory and copied
+    with `non_blocking=True` on a side stream, and an event is recorded
+    after the copies; the consumer's stream waits on that event when the
+    batch is handed over, so the copy of the next batches overlaps the
+    device work on this one. On the CPU it is a plain lookahead. The host
+    staging runs in the consumer's thread (the JAX package uses a worker
+    thread for its device_put; here the copy engine gives the overlap).
+
+    `device=None` is CUDA and raises without a GPU, as every entry point of
+    the port does. Iterating again restarts from the base (its `reset()`
+    first, where it has one)."""
+
+    def __init__(self, base, device=None):
+        self.base = base
+        self.device = resolve_device(device)
+        self._stream: Optional[torch.cuda.Stream] = None
+
+    def _tensor(self, a) -> torch.Tensor:
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(a))
+        if t.dtype == torch.float64:
+            t = t.float()
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _convert(self, item):
+        if hasattr(item, "features") and hasattr(item, "labels"):
+            return DeviceBatch(self._tensor(item.features),
+                               self._tensor(item.labels))
+        if isinstance(item, tuple):
+            return tuple(self._tensor(a) for a in item)
+        return self._tensor(item)
+
+    def _stage(self, item):
+        """Start one batch's copy: (the batch, its copy event or None)."""
+        if self.device.type != "cuda":
+            return self._convert(item), None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._stream):
+            out = self._convert(item)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return out, event
+
+    def _hand_over(self, out, event):
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            # made on the side stream, used on this one: the allocator must
+            # not reuse the memory before this stream is done with it
+            for t in (out if isinstance(out, tuple) else (out,)):
+                t.record_stream(stream)
+        return out
+
+    def __iter__(self):
+        if hasattr(self.base, "reset"):
+            self.base.reset()
+        pending = collections.deque()
+        for item in self.base:
+            pending.append(self._stage(item))
+            if len(pending) > PREFETCH_DEPTH:
+                yield self._hand_over(*pending.popleft())
+        while pending:
+            yield self._hand_over(*pending.popleft())
+
+    def reset(self) -> None:
+        """DataSetIterator-style reset: nothing is held between
+        iterations, each of which restarts from the base."""

@@ -1,8 +1,9 @@
 """Canonical model configurations.
 
-Counterpart of `deeplearning4j_tpu/models/zoo.py`; this slice ports the
-flagship `char_transformer`. The configuration is the JAX package's, field
-for field, so both packages build the same network from it.
+Counterpart of `deeplearning4j_tpu/models/zoo.py`; ported so far: the
+flagship `char_transformer` and `char_lstm` (BASELINE configs[1]). Each
+configuration is the JAX package's, field for field, so both packages
+build the same network from it.
 """
 
 from __future__ import annotations
@@ -55,3 +56,32 @@ def char_transformer(vocab: int, d_model: int = 128, n_blocks: int = 2,
     return MultiLayerConfiguration(
         confs=tuple(confs), backprop=True,
         input_preprocessors=((2 * n_blocks + 1, "rnn_to_ff"),))
+
+
+def char_lstm(vocab: int, hidden: int = 256, n_layers: int = 1,
+              lr: float = 0.1, iterations: int = 1,
+              sparse_labels: bool = False,
+              embed: int = 0) -> MultiLayerConfiguration:
+    """char-LSTM: n_layers LSTMs of width `hidden` -> per-step softmax over
+    `vocab`, SGD with momentum 0.9. Input one-hot [rows, S, vocab], or int
+    ids [rows, S] with `embed > 0` (an embedding vocab -> embed, no
+    positional table, in front); output [rows * S, vocab].
+    `sparse_labels=True` trains on int class-id targets [rows * S]."""
+    b = _base(lr=lr, iters=iterations)
+    confs = []
+    if embed > 0:
+        confs.append(b.replace(layer_type=LayerType.EMBEDDING, n_in=vocab,
+                               n_out=embed))
+    for i in range(n_layers):
+        confs.append(b.replace(layer_type=LayerType.LSTM,
+                               n_in=(embed if embed > 0 else vocab)
+                               if i == 0 else hidden,
+                               n_out=hidden,
+                               activation=Activation.TANH))
+    confs.append(b.replace(layer_type=LayerType.OUTPUT, n_in=hidden,
+                           n_out=vocab, activation=Activation.SOFTMAX,
+                           loss_function=LossFunction.MCXENT,
+                           sparse_labels=sparse_labels))
+    return MultiLayerConfiguration(
+        confs=tuple(confs), backprop=True,
+        input_preprocessors=((len(confs) - 1, "rnn_to_ff"),))

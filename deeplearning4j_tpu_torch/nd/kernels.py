@@ -22,7 +22,9 @@ Kernels ported so far (see ROADMAP.md queue B for the rest):
 - `flash_bwd_delta`, `flash_bwd_dkv`, `flash_bwd_dq`: the three kernels of
   the fused backward, `_flash_bwd_delta_kernel`, `_flash_bwd_dkv_kernel`
   and `_flash_bwd_dq_kernel` (`csrc/flash_attn_bwd.cu`), wired to the
-  forward by `FlashAttentionFunction`.
+  forward by `FlashAttentionFunction`;
+- `lstm_cell`: `_lstm_cell_kernel`, one fused LSTM cell update
+  (`csrc/lstm_cell.cu`), with `LSTMCellFunction` for its gradient.
 """
 
 from __future__ import annotations
@@ -47,13 +49,15 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
 
 #: kernel library name -> its source under csrc/
 SOURCES: Dict[str, str] = {"flash_attn_fwd": "flash_attn_fwd.cu",
-                           "flash_attn_bwd": "flash_attn_bwd.cu"}
+                           "flash_attn_bwd": "flash_attn_bwd.cu",
+                           "lstm_cell": "lstm_cell.cu"}
 
 #: kernel (the C entry point) -> the library that holds it
 KERNELS: Dict[str, str] = {"flash_attn_fwd": "flash_attn_fwd",
                            "flash_bwd_delta": "flash_attn_bwd",
                            "flash_bwd_dkv": "flash_attn_bwd",
-                           "flash_bwd_dq": "flash_attn_bwd"}
+                           "flash_bwd_dq": "flash_attn_bwd",
+                           "lstm_cell": "lstm_cell"}
 
 #: kernel name -> launches since the last `reset_launches()`
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -149,6 +153,11 @@ def _library(name: str) -> ctypes.CDLL:
         lib.flash_bwd_dq.argtypes = [ptr] * 7 + [i32] * 4 + strides
         for fn in (lib.flash_bwd_delta, lib.flash_bwd_dkv, lib.flash_bwd_dq):
             fn.restype = ctypes.c_int
+    elif name == "lstm_cell":
+        lib.lstm_cell.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                                  + [ctypes.c_longlong] * 5
+                                  + [ctypes.c_int, ctypes.c_void_p])
+        lib.lstm_cell.restype = ctypes.c_int
     with _lock:
         _libs.setdefault(name, lib)
         return _libs[name]
@@ -474,3 +483,122 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: with_lse=True has no gradient; "
                          "call it without grad")
     return FlashAttentionFunction.apply(q, k, v, causal, fused_bwd)
+
+
+# ---------------------------------------------------------------- LSTM cell
+
+def lstm_cell_reference(x, h, c, wx, wh, b):
+    """Plain PyTorch version of the fused LSTM cell, the twin of the JAX
+    package's `_lstm_reference` with the kernel's numerics: z = (x.Wx +
+    h.Wh) + b in f32 (bf16 operands widened first, as the kernel sums them
+    in f32), gates [i | f | o | g], c' = sigmoid(f) * c + sigmoid(i) *
+    tanh(g) and h' = sigmoid(o) * tanh(c') in f32, h' and c' rounded once
+    to h's and c's dtype.
+
+    x [B, I], h and c [B, H], wx [I, 4H], wh [H, 4H], b [4H] -> (h', c')."""
+    hdim = h.shape[1]
+    z = (x.float() @ wx.float() + h.float() @ wh.float()) + b.float()
+    i = torch.sigmoid(z[:, :hdim])
+    f = torch.sigmoid(z[:, hdim:2 * hdim])
+    o = torch.sigmoid(z[:, 2 * hdim:3 * hdim])
+    g = torch.tanh(z[:, 3 * hdim:])
+    c_new = f * c.float() + i * g
+    return (o * torch.tanh(c_new)).to(h.dtype), c_new.to(c.dtype)
+
+
+def _check_cell(x, h, c, wx, wh, b) -> None:
+    """Raise unless the six operands are CUDA tensors of one device and one
+    dtype (float32 or bfloat16) with the cell's shapes, unit stride over
+    their last dimension (row-strided views are taken) and b contiguous."""
+    ts = {"x": x, "h": h, "c": c, "wx": wx, "wh": wh, "b": b}
+    if not all(t.is_cuda for t in ts.values()):
+        raise ValueError("lstm_cell: x, h, c, wx, wh, b must all be CUDA "
+                         "tensors (or all CPU tensors)")
+    if any(t.device != x.device for t in ts.values()):
+        raise ValueError("lstm_cell: the operands are on different devices")
+    if x.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != x.dtype for t in ts.values()):
+        raise ValueError(f"lstm_cell: dtype must be float32 or bfloat16 for "
+                         f"all operands; got "
+                         f"{[str(t.dtype) for t in ts.values()]}")
+    if x.dim() != 2 or h.dim() != 2:
+        raise ValueError(f"lstm_cell: x and h must be 2-D; got "
+                         f"{tuple(x.shape)} and {tuple(h.shape)}")
+    bsz, n_in = x.shape
+    n_h = h.shape[1]
+    want = {"x": (bsz, n_in), "h": (bsz, n_h), "c": (bsz, n_h),
+            "wx": (n_in, 4 * n_h), "wh": (n_h, 4 * n_h), "b": (4 * n_h,)}
+    for name, t in ts.items():
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"lstm_cell: {name} must have shape "
+                             f"{want[name]}; got {tuple(t.shape)}")
+        if t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError(f"lstm_cell: {name} needs unit stride over its "
+                             f"last dimension; got strides {t.stride()}")
+
+
+def lstm_cell(x, h, c, wx, wh, b):
+    """Wrapper of the fused LSTM cell kernel: (h', c') from x [B, I], h and
+    c [B, H], wx [I, 4H], wh [H, 4H] and b [4H], in h's and c's dtype
+    (contiguous [B, H]). No autograd: see `fused_lstm_step`.
+
+    CUDA tensors launch `csrc/lstm_cell.cu`; CPU tensors take
+    `lstm_cell_reference`. x, h, c, wx and wh may be row-strided views (a
+    time step of [B, T, I]; the two row blocks of one fused W)."""
+    if _all_cpu(x, h, c, wx, wh, b):
+        return lstm_cell_reference(x, h, c, wx, wh, b)
+    _check_cell(x, h, c, wx, wh, b)
+    bsz, n_in = x.shape
+    n_h = h.shape[1]
+    h_out = torch.empty((bsz, n_h), dtype=h.dtype, device=h.device)
+    c_out = torch.empty((bsz, n_h), dtype=c.dtype, device=c.device)
+    lib = _library("lstm_cell")
+    with torch.cuda.device(x.device):
+        err = lib.lstm_cell(
+            x.data_ptr(), h.data_ptr(), c.data_ptr(), wx.data_ptr(),
+            wh.data_ptr(), b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+            bsz, n_in, n_h, x.stride(0), h.stride(0), c.stride(0),
+            wx.stride(0), wh.stride(0), _dtype_code(x), _stream(x))
+    _check(err, "lstm_cell")
+    _count("lstm_cell")
+    return h_out, c_out
+
+
+class LSTMCellFunction(torch.autograd.Function):
+    """The fused LSTM cell with a backward, mirroring the JAX package's
+    `fused_lstm_step` custom_vjp (pallas_kernels.py:573-592): the forward
+    is the kernel (`lstm_cell`) and saves its six operands; the backward
+    recomputes the cell through `lstm_cell_reference` and returns its
+    gradients, as `_lstm_bwd` takes the VJP of `_lstm_reference`. Those are
+    plain matmuls outside any TPU kernel; the JAX package has no backward
+    kernel for the cell."""
+
+    @staticmethod
+    def forward(ctx, x, h, c, wx, wh, b):
+        ctx.save_for_backward(x, h, c, wx, wh, b)
+        return lstm_cell(x, h, c, wx, wh, b)
+
+    @staticmethod
+    def backward(ctx, gh, gc):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = lstm_cell_reference(*inputs)
+        grads = iter(torch.autograd.grad(out, wanted, (gh, gc)))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs)
+
+
+def fused_lstm_step(x, h, c, wx, wh, b):
+    """One fused LSTM cell update, x [B, I], h and c [B, H], wx [I, 4H],
+    wh [H, 4H], b [4H] -> (h', c'); the port of the JAX package's
+    `fused_lstm_step`. Without grad (inference, `inference_mode`) this is
+    the kernel's wrapper `lstm_cell` alone; when autograd needs a gradient
+    of any operand it goes through `LSTMCellFunction`."""
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, h, c, wx, wh, b))
+    if not needs_grad:
+        return lstm_cell(x, h, c, wx, wh, b)
+    return LSTMCellFunction.apply(x, h, c, wx, wh, b)

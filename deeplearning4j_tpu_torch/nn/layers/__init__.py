@@ -6,7 +6,7 @@ ports them.
 """
 
 from deeplearning4j_tpu_torch.nn.conf import LayerType
-from deeplearning4j_tpu_torch.nn.layers import attention, base, output
+from deeplearning4j_tpu_torch.nn.layers import attention, base, lstm, output
 
 _REGISTRY = {
     LayerType.DENSE: base.DenseLayer,
@@ -14,12 +14,12 @@ _REGISTRY = {
     LayerType.EMBEDDING: base.EmbeddingLayer,
     LayerType.ATTENTION: attention.MultiHeadAttentionLayer,
     LayerType.TRANSFORMER_FFN: attention.TransformerFFNLayer,
+    LayerType.LSTM: lstm.LSTMLayer,
+    LayerType.GRAVES_LSTM: lstm.GravesLSTMLayer,
 }
 
 #: where each layer type not ported yet stands in ROADMAP.md
 _PLANNED = {
-    LayerType.LSTM: "queue A item 3 (char-LSTM slice)",
-    LayerType.GRAVES_LSTM: "queue A item 3 (char-LSTM slice)",
     LayerType.BATCH_NORM: "queue A item 3",
     LayerType.CONVOLUTION: "queue A item 9",
     LayerType.SUBSAMPLING: "queue A item 9",

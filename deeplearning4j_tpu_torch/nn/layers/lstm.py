@@ -1,0 +1,164 @@
+"""LSTM layers: one fused gate matrix, a time loop, and the fused cell kernel.
+
+Counterpart of `deeplearning4j_tpu/nn/layers/lstm.py`. The four gates stay
+fused in one [(n_in + n_out), 4 * n_out] matrix `W` with gate order
+[i | f | o | g] and one bias `b` (forget-gate bias 1 at init), so a step is
+one product. Inputs are [batch, time, n_in] (or one [time, n_in] sequence);
+outputs the hidden states [batch, time, n_out].
+
+Two forward paths, chosen by `conf.lstm_impl`:
+- "fused": one launch of the hand-written cell kernel per time step
+  (`nd/kernels.fused_lstm_step`; both products, the gates and the state
+  update in one kernel), with `Wx` and `Wh` the two row blocks of `W` as
+  views, so autograd returns their gradients to `W`;
+- "scan": the hoisted scan, the input half of the product taken for every
+  step at once up front and only h.Wh left in the loop.
+BPTT is autograd through the loop. Decoding (`step`) is the concat form
+`[x, h].W + b`, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deeplearning4j_tpu_torch.nd.kernels import fused_lstm_step
+from deeplearning4j_tpu_torch.nn.layers.base import _sampler, param_dtype
+from deeplearning4j_tpu_torch.nn.weights import init_weights
+
+
+class LSTMLayer:
+    @staticmethod
+    def init(gen, conf):
+        n_in, n_h = conf.n_in, conf.n_out
+        W = init_weights(gen, (n_in + n_h, 4 * n_h), conf.weight_init,
+                         _sampler(conf), param_dtype(conf))
+        b = torch.zeros((4 * n_h,), dtype=param_dtype(conf),
+                        device=gen.device)
+        b[n_h:2 * n_h] = 1.0  # forget-gate bias 1
+        return {"W": W, "b": b}
+
+    @staticmethod
+    def _step(params, n_h, carry, x_t):
+        h, _ = carry
+        z = torch.cat([x_t, h], dim=-1) @ params["W"] + params["b"]
+        return LSTMLayer._gates(n_h, carry, z)
+
+    @staticmethod
+    def _gates(n_h, carry, z):
+        """Gate math given the pre-activation z = x.Wx + h.Wh + b."""
+        _, c = carry
+        i = torch.sigmoid(z[..., :n_h])
+        f = torch.sigmoid(z[..., n_h:2 * n_h])
+        o = torch.sigmoid(z[..., 2 * n_h:3 * n_h])
+        g = torch.tanh(z[..., 3 * n_h:])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        return (h, c), h
+
+    @staticmethod
+    def _use_fused(conf, x) -> bool:
+        # "auto" is the kernel on a CUDA tensor, as the port's attention
+        # "auto" is flash, and the hoisted scan on the CPU, as the JAX
+        # package's is off the TPU. The JAX package's TPU measurement
+        # (lstm.py:57-63, Pallas cell vs scan on v5e) does not carry over:
+        # chip_smoke.py times both paths on the H100 for a later decision.
+        impl = getattr(conf, "lstm_impl", "auto")
+        if impl == "auto":
+            return x.is_cuda
+        return impl == "fused"
+
+    @staticmethod
+    def forward(params, conf, x):
+        """x: [batch, time, n_in] -> hidden states [batch, time, n_out]."""
+        if x.dim() == 2:  # one sequence [time, n_in]
+            return LSTMLayer.forward(params, conf, x[None])[0]
+        bsz, steps, _ = x.shape
+        n_h, n_in = conf.n_out, conf.n_in
+        h = x.new_zeros((bsz, n_h))
+        c = x.new_zeros((bsz, n_h))
+        if LSTMLayer._use_fused(conf, x):
+            wx, wh = params["W"][:n_in], params["W"][n_in:]
+            hs = []
+            for t in range(steps):
+                h, c = fused_lstm_step(x[:, t], h, c, wx, wh, params["b"])
+                hs.append(h)
+            return torch.stack(hs, dim=1)
+        return LSTMLayer._hoisted_scan(
+            params, n_in, x, h, c,
+            lambda carry, z: LSTMLayer._gates(n_h, carry, z))
+
+    @staticmethod
+    def _hoisted_scan(params, n_in, x, h0, c0, gates):
+        """The scan path of LSTM and GravesLSTM: the input half of the gate
+        product for every step in one [B*T, n_in].[n_in, 4H] matmul up front
+        (plus the bias), leaving h.Wh in the loop. The concat form's math,
+        reassociated. `gates`: (carry, z) -> ((h, c), h)."""
+        wh = params["W"][n_in:]
+        z_x = x @ params["W"][:n_in] + params["b"]  # [B, T, 4H]
+        carry, hs = (h0, c0), []
+        for t in range(x.shape[1]):
+            carry, h = gates(carry, z_x[:, t] + carry[0] @ wh)
+            hs.append(h)
+        return torch.stack(hs, dim=1)
+
+    @staticmethod
+    def step(params, conf, x_t, h, c):
+        """One decode step (sampling, beam search)."""
+        (h, c), _ = LSTMLayer._step(params, conf.n_out, (h, c), x_t)
+        return h, c
+
+    @classmethod
+    def prefill(cls, params, conf, x, h0, c0, length):
+        raise NotImplementedError(
+            "LSTM prefill (cached generation) is not ported to "
+            "deeplearning4j_tpu_torch yet; see ROADMAP.md queue A item 8")
+
+
+class GravesLSTMLayer(LSTMLayer):
+    """LSTM with diagonal peepholes (Graves 2013, eq. 7-11): the input and
+    forget gates see the previous cell state, the output gate the new one.
+    The kernel has no peephole terms, so this layer always takes the hoisted
+    scan."""
+
+    @staticmethod
+    def init(gen, conf):
+        params = LSTMLayer.init(gen, conf)
+        n_h = conf.n_out
+        for name in ("p_i", "p_f", "p_o"):
+            # zero at init: the layer starts as the plain LSTM
+            params[name] = torch.zeros((n_h,), dtype=param_dtype(conf),
+                                       device=gen.device)
+        return params
+
+    @staticmethod
+    def _step(params, n_h, carry, x_t):
+        h, _ = carry
+        z = torch.cat([x_t, h], dim=-1) @ params["W"] + params["b"]
+        return GravesLSTMLayer._gates(params, n_h, carry, z)
+
+    @staticmethod
+    def _gates(params, n_h, carry, z):
+        _, c = carry
+        i = torch.sigmoid(z[..., :n_h] + params["p_i"] * c)
+        f = torch.sigmoid(z[..., n_h:2 * n_h] + params["p_f"] * c)
+        g = torch.tanh(z[..., 3 * n_h:])
+        c_new = f * c + i * g
+        o = torch.sigmoid(z[..., 2 * n_h:3 * n_h] + params["p_o"] * c_new)
+        h = o * torch.tanh(c_new)
+        return (h, c_new), h
+
+    @staticmethod
+    def forward(params, conf, x):
+        if x.dim() == 2:
+            return GravesLSTMLayer.forward(params, conf, x[None])[0]
+        bsz = x.shape[0]
+        n_h = conf.n_out
+        return LSTMLayer._hoisted_scan(
+            params, conf.n_in, x, x.new_zeros((bsz, n_h)),
+            x.new_zeros((bsz, n_h)),
+            lambda carry, z: GravesLSTMLayer._gates(params, n_h, carry, z))
+
+    @staticmethod
+    def step(params, conf, x_t, h, c):
+        (h, c), _ = GravesLSTMLayer._step(params, conf.n_out, (h, c), x_t)
+        return h, c

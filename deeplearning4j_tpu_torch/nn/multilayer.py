@@ -4,7 +4,7 @@ Counterpart of `deeplearning4j_tpu/nn/multilayer.py`: `init_params`,
 `feed_forward`, `network_output`, the losses (`network_loss`,
 `network_rowwise_loss`, `make_finetune_loss`, `network_regularization`),
 and `MultiLayerNetwork` with `init` / `output` / `predict` / `score` /
-`fit` / `serve`. Params are a tuple of dicts of tensors with the JAX
+`evaluate` / `fit` / `serve`. Params are a tuple of dicts of tensors with the JAX
 package's key names, so `parallel/checkpoint.py` carries weights both ways.
 Gradients come from autograd through the plain forward.
 
@@ -191,6 +191,18 @@ class MultiLayerNetwork:
         with torch.inference_mode():
             return float(network_loss(self.conf, self.params, self._input(x),
                                       self._input(labels), training=False))
+
+    def evaluate(self, data, labels=None, batch_size: int = 0,
+                 prefetch: bool = True):
+        """Classifier metrics over `data` (or the pair data, labels), batch
+        by batch; see `evaluation.evaluate`."""
+        from deeplearning4j_tpu_torch.evaluation import evaluate
+
+        if labels is not None:
+            from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+            data = DataSet(np.asarray(data), np.asarray(labels))
+        return evaluate(self, data, batch_size=batch_size, prefetch=prefetch)
 
     # -- training ------------------------------------------------------------
     def finetune(self, x, labels) -> None:

@@ -88,11 +88,11 @@ def _atomic_swap(tmp: str, directory: str) -> None:
 
 
 def save(directory: str, params, *, conf: MultiLayerConfiguration = None,
-         step: int = 0) -> str:
+         step: int = 0, metadata: Dict[str, Any] = None) -> str:
     """Write `params` (and `conf` as conf.json) as a gathered-layout
     checkpoint that the JAX package's `checkpoint.load` reads: arrays.npz
-    keyed `params/{layer}/{name}`, meta.json with `format_version` 1.
-    Returns the directory."""
+    keyed `params/{layer}/{name}`, meta.json with `format_version` 1 and
+    `metadata` (a JSON-able dict). Returns the directory."""
     directory = os.fspath(directory)
     parent = os.path.dirname(os.path.abspath(directory)) or "."
     os.makedirs(parent, exist_ok=True)
@@ -102,7 +102,8 @@ def save(directory: str, params, *, conf: MultiLayerConfiguration = None,
                   for i, layer in enumerate(params_to_numpy(params))
                   for name, a in layer.items()}
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
-        meta = {"step": int(step), "data_cursor": {}, "metadata": {},
+        meta = {"step": int(step), "data_cursor": {},
+                "metadata": dict(metadata or {}),
                 "format_version": FORMAT_VERSION, "mesh": None}
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump(meta, f, indent=1)

@@ -1,0 +1,225 @@
+"""The port's CLI (`train`, `test`, `predict`) vs the JAX package's.
+
+Inputs are a small word corpus built from a numpy seed, as bench.py builds
+its CLI corpus, and a CSV drawn from a seed. Checkpoints cross both ways:
+the port's `train --device cpu` writes what JAX `checkpoint.load` reads, and
+the port's `predict` and `test` read what JAX `cli train` wrote and answer
+as JAX `cli predict` and `cli test` do (probabilities to the CSV's 6
+decimals, accuracy and F1 exactly).
+"""
+
+import csv
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from deeplearning4j_tpu.cli.driver import main as jax_main  # noqa: E402
+from deeplearning4j_tpu.cli.schemes import load_input as jax_load_input  # noqa: E402,E501
+from deeplearning4j_tpu.nn import conf as jax_conf  # noqa: E402
+from deeplearning4j_tpu.nn import multilayer as jax_ml  # noqa: E402
+from deeplearning4j_tpu.parallel import checkpoint as jax_checkpoint  # noqa: E402,E501
+from deeplearning4j_tpu_torch.cli.driver import main  # noqa: E402
+from deeplearning4j_tpu_torch.cli.schemes import load_input  # noqa: E402
+from deeplearning4j_tpu_torch.nn.conf import (  # noqa: E402
+    LayerType, MultiLayerConfiguration, NeuralNetConfiguration)
+from deeplearning4j_tpu_torch.parallel.checkpoint import load_network  # noqa: E402,E501
+
+WORDS = ["the", "quick", "brown", "fox", "jumps", "over", "lazy", "dogs",
+         "and", "cats", "read", "write", "code", "tpu"]
+
+
+def _corpus(tmp_path, chars=400, seed=0):
+    rng = np.random.RandomState(seed)
+    text = " ".join(rng.choice(WORDS) for _ in range(chars // 5))[:chars]
+    path = tmp_path / "corpus.txt"
+    path.write_text(text)
+    return f"text:{path}:8"
+
+
+def _csv(tmp_path, rows=30, seed=1):
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((rows, 4))
+    y = (x[:, 0] + x[:, 1] > 0).astype(int) + (x[:, 2] > 1).astype(int)
+    path = tmp_path / "data.csv"
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        for row, label in zip(x, y):
+            w.writerow([f"{v:.5f}" for v in row] + [label])
+    return str(path)
+
+
+def _last_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _read_csv(path):
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    header = rows[0]
+    preds = np.asarray([int(r[0]) for r in rows[1:]])
+    probs = np.asarray([[float(v) for v in r[1:]] for r in rows[1:]])
+    return header, preds, probs
+
+
+def test_text_and_csv_inputs_equal_jax(tmp_path):
+    for uri in (_corpus(tmp_path), "csv:" + _csv(tmp_path), _csv(tmp_path)):
+        got, want = load_input(uri), jax_load_input(uri)
+        np.testing.assert_array_equal(got.features, want.features)
+        np.testing.assert_array_equal(got.labels, want.labels)
+    got, want = load_input(_corpus(tmp_path)), jax_load_input(
+        _corpus(tmp_path))
+    assert got.vocab_size == want.vocab_size
+    assert got.char_index == want.char_index
+    short = load_input(_corpus(tmp_path), num_examples=3)
+    assert short.features.shape[0] == 3 and short.labels.shape[0] == 24
+
+
+def test_train_on_cpu_writes_a_checkpoint_jax_reads(tmp_path, capsys):
+    uri = _corpus(tmp_path)
+    out = str(tmp_path / "lstm")
+    assert main(["train", "--input", uri, "--zoo",
+                 "char_lstm:layers=2,hidden=16", "--properties", "epochs=2",
+                 "--output", out, "--device", "cpu"]) == 0
+    info = _last_json(capsys.readouterr().out)
+    assert info["saved"] == out and np.isfinite(info["score"])
+    assert info["train_seconds"] > 0 and info["examples_per_sec"] > 0
+    jconf = jax_conf.MultiLayerConfiguration.from_json(
+        open(f"{out}/conf.json").read())
+    assert [str(c.layer_type) for c in jconf.confs] == \
+        ["lstm", "lstm", "output"]
+    jparams, _, meta = jax_checkpoint.load(
+        out, like_params=jax_ml.init_params(jconf, jax.random.PRNGKey(0)))
+    assert meta["metadata"]["score"] == info["score"]
+    x = load_input(uri).features
+    net = load_network(out, device="cpu")
+    want = jax_ml.network_output(jconf, jparams, jnp.asarray(x))
+    np.testing.assert_allclose(net.output(x).numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(net.score(x, load_input(uri).labels),
+                               info["score"], rtol=1e-6)
+
+
+def test_train_in_batches_and_embedding_nets_take_ids(tmp_path, capsys):
+    uri = _corpus(tmp_path)
+    out = str(tmp_path / "tf")
+    # a char transformer starts with an embedding: one-hot windows become
+    # ids; batch=5 goes through the prefetcher with the label rows of
+    # each window
+    assert main(["train", "--input", uri, "--zoo",
+                 "char_transformer:d_model=16,blocks=1,heads=2,seq_len=8",
+                 "--properties", "epochs=1,batch=5", "--output", out,
+                 "--device", "cpu"]) == 0
+    info = _last_json(capsys.readouterr().out)
+    assert np.isfinite(info["score"])
+    net = load_network(out, device="cpu")
+    assert LayerType(str(net.conf.conf(0).layer_type)) == \
+        LayerType.EMBEDDING
+
+
+def _jax_trained(tmp_path, capsys, uri, argv_extra):
+    out = str(tmp_path / "jax_ckpt")
+    assert jax_main(["train", "--input", uri, "--output", out,
+                     *argv_extra]) == 0
+    capsys.readouterr()
+    return out
+
+
+def _run(fn, argv, capsys):
+    assert fn(argv) == 0
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize("kind", ["text", "csv"])
+def test_predict_and_test_match_jax_cli(tmp_path, capsys, kind):
+    if kind == "text":
+        uri = _corpus(tmp_path)
+        ckpt = _jax_trained(tmp_path, capsys, uri,
+                            ["--zoo", "char_lstm:layers=2,hidden=16"])
+    else:
+        uri = "csv:" + _csv(tmp_path)
+        conf = MultiLayerConfiguration(confs=(
+            NeuralNetConfiguration(layer_type=LayerType.DENSE, n_in=4,
+                                   n_out=8, activation="tanh", lr=0.1),
+            NeuralNetConfiguration(layer_type=LayerType.OUTPUT, n_in=8,
+                                   n_out=3, activation="softmax",
+                                   loss_function="mcxent", lr=0.1)))
+        conf_path = tmp_path / "conf.json"
+        conf_path.write_text(conf.to_json())
+        ckpt = _jax_trained(tmp_path, capsys, uri,
+                            ["--model", str(conf_path), "--normalize"])
+    norm = ["--normalize"] if kind == "csv" else []
+    for batch in ("0", "5"):
+        common = ["--input", uri, "--model", ckpt, "--batch", batch, *norm]
+        _run(jax_main, ["predict", *common, "--output",
+                        str(tmp_path / "jax.csv")], capsys)
+        info = _last_json(_run(main, ["predict", *common, "--output",
+                                      str(tmp_path / "port.csv"),
+                                      "--device", "cpu"], capsys))
+        jh, jpred, jprob = _read_csv(tmp_path / "jax.csv")
+        th, tpred, tprob = _read_csv(tmp_path / "port.csv")
+        assert th == jh and info["n"] == len(jpred)
+        assert info["written"] == str(tmp_path / "port.csv")
+        np.testing.assert_array_equal(tpred, jpred)
+        np.testing.assert_allclose(tprob, jprob, atol=2e-6, rtol=0)
+    plain = ["predict", "--input", uri, "--model", ckpt, *norm]
+    assert _run(main, plain + ["--device", "cpu"], capsys).split() == \
+        _run(jax_main, plain, capsys).split()
+    # test: one batch (the JAX package's batching pairs text windows with
+    # the wrong label rows, ROADMAP.md queue C)
+    test = ["test", "--input", uri, "--model", ckpt, *norm]
+    want = _last_json(_run(jax_main, test + ["--batch", "0"], capsys))
+    got_out = _run(main, test + ["--batch", "0", "--device", "cpu"], capsys)
+    got = _last_json(got_out)
+    assert (got["accuracy"], got["f1"]) == (want["accuracy"], want["f1"])
+    assert "Accuracy:" in got_out
+    # and the port's batched evaluation counts the same
+    batched = _last_json(_run(main, test + ["--batch", "3", "--device",
+                                            "cpu"], capsys))
+    assert batched == got
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--runtime", "mesh"], "item 10"), (["--mesh"], "item 10"),
+    (["--mesh", "batch=2"], "item 10"), (["--zero1"], "item 10"),
+    (["--checkpoint-dir", "ck"], "item 6"),
+    (["--compile-cache", "cc"], "item 7")])
+def test_unported_train_options_name_their_roadmap_item(tmp_path, extra,
+                                                        item):
+    argv = ["train", "--input", _corpus(tmp_path), "--zoo", "char_lstm",
+            "--output", str(tmp_path / "o"), "--device", "cpu", *extra]
+    with pytest.raises(SystemExit, match=f"ROADMAP.md queue A {item}"):
+        main(argv)
+
+
+@pytest.mark.parametrize("zoo_name", ["lenet5", "mlp", "vgg_cifar10", "dbn",
+                                      "deep_autoencoder"])
+def test_unported_zoo_models_name_their_roadmap_item(tmp_path, zoo_name):
+    with pytest.raises(SystemExit, match="queue A item 9"):
+        main(["train", "--input", _corpus(tmp_path), "--zoo", zoo_name,
+              "--output", str(tmp_path / "o"), "--device", "cpu"])
+
+
+def test_pretraining_and_builtin_datasets_name_their_roadmap_item(tmp_path):
+    conf = MultiLayerConfiguration(confs=(
+        NeuralNetConfiguration(layer_type=LayerType.OUTPUT, n_in=4, n_out=3),
+    ), pretrain=True)
+    conf_path = tmp_path / "conf.json"
+    conf_path.write_text(conf.to_json())
+    with pytest.raises(SystemExit, match="queue A item 9"):
+        main(["train", "--input", "csv:" + _csv(tmp_path), "--model",
+              str(conf_path), "--output", str(tmp_path / "o"), "--device",
+              "cpu"])
+    for name in ("mnist", "iris:20", "cifar10"):
+        with pytest.raises(NotImplementedError, match="queue A item 6"):
+            load_input(name)
+    with pytest.raises(SystemExit, match="--model"):
+        main(["train", "--input", _corpus(tmp_path), "--output",
+              str(tmp_path / "o"), "--device", "cpu"])
+    with pytest.raises(ValueError, match="unrecognized"):
+        load_input("parquet:x")

@@ -217,7 +217,15 @@ def test_embedding_rejects_ids_outside_the_vocabulary(bad_id):
 
 def test_unported_layer_types_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_layer(LayerType.LSTM)
+        get_layer(LayerType.CONVOLUTION)
+
+
+def test_lstm_layer_types_are_registered():
+    from deeplearning4j_tpu_torch.nn.layers.lstm import (GravesLSTMLayer,
+                                                         LSTMLayer)
+
+    assert get_layer(LayerType.LSTM) is LSTMLayer
+    assert get_layer("graves_lstm") is GravesLSTMLayer
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch,
@@ -235,6 +243,19 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch,
         load_network(str(tmp_path / "ckpt"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli_main(["serve", "--model", str(tmp_path / "ckpt")])
+    text = tmp_path / "corpus.txt"
+    text.write_text("the lazy dog reads code " * 4)
+    data = ["--input", f"text:{text}:8"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["train", *data, "--zoo", "char_lstm:hidden=8",
+                  "--output", str(tmp_path / "lstm")])
+    cli_main(["train", *data, "--zoo", "char_lstm:hidden=8", "--output",
+              str(tmp_path / "lstm"), "--device", "cpu"])
+    for cmd in ("predict", "test"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli_main([cmd, *data, "--model", str(tmp_path / "lstm")])
+        cli_main([cmd, *data, "--model", str(tmp_path / "lstm"), "--device",
+                  "cpu"])
     assert ml.MultiLayerNetwork(tconf, device="cpu").device.type == "cpu"
 
 
