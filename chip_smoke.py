@@ -52,7 +52,23 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    to the hoisted scan in f32 (outputs, gradients) and times both;
 9. runs the CLI north star in process (bench.py:1716-1719: `train --zoo
    char_lstm:layers=4,hidden=128` over the corpus as text windows of 32),
-   then `predict` and `test` on its checkpoint.
+   then `predict` and `test` on its checkpoint;
+10. holds the embedding-row scatter-add kernel against its plain version at
+   the word2vec step's shapes (syn1 from the bench vocabulary's Huffman
+   points, syn0, syn1neg), a GloVe bias (D = 1), a tiny ragged case with
+   out-of-range indices and bf16: exact on integer-valued inputs, within
+   the any-order summation bound on random ones, timed beside its plain
+   version, `index_add_` and its bound;
+11. trains the bench's Word2Vec at full size (bench.py:368-385: vocab
+   10,000, 1.2M zipf tokens, vector 128, window 5, negative 5, HS, batch
+   32,768, 6 epochs) through `Word2Vec.fit`: words/s as bench.py:391
+   computes it, step time, 3 scatter launches a step and profiled steps;
+   then one epoch of the same with per-word AdaGrad, whose tables stay
+   finite and whose loss on a fixed batch falls (the bench's SGD diverges,
+   in the JAX package too);
+12. trains Word2Vec, ParagraphVectors and GloVe on the two-cluster corpus of
+   tests/test_embeddings.py and passes its similarity assertions, each
+   launching the scatter kernel once per gather of every step.
 
 Each phase prints one JSON line; then a line with every kernel's numbers,
 the card's line, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -1082,6 +1098,433 @@ def phase_lstm_cli(torch, kernels):
     return launches
 
 
+
+# ---------------------------------------------------------------- word2vec
+
+#: the bench's Word2Vec (bench.py:368-385, nothing cut): vocab 10,000, 1.2M
+#: zipf tokens in sentences of 20, vector 128, window 5, negative 5,
+#: hierarchical softmax on, batch 32,768, 6 epochs, seed 0
+W2V = dict(vocab=10_000, tokens=1_200_000, sent_len=20, vector=128, window=5,
+           negative=5, batch=32_768, epochs=6, seed=0)
+#: gathers (so scatter-add launches) per step: syn0, syn1 and syn1neg (the
+#: contexts and negatives in one gather); GloVe: w, wt, b, bt
+W2V_GATHERS, GLOVE_GATHERS = 3, 4
+
+
+def bench_sentences():
+    """The bench's corpus, made as bench.py:368-381 makes it: 60,000
+    sentences of 20 zipf-drawn words w0..w9999."""
+    rng = np.random.RandomState(0)
+    v, n, sl = W2V["vocab"], W2V["tokens"], W2V["sent_len"]
+    freq = 1.0 / np.arange(1, v + 1)
+    tokens = rng.choice(v, size=n, p=freq / freq.sum())
+    words = np.array([f"w{i}" for i in range(v)])
+    return [list(words[tokens[i:i + sl]]) for i in range(0, n, sl)]
+
+
+def bench_word2vec(**overrides):
+    """The bench's Word2Vec (bench.py:383-385) on the card, with
+    `overrides` of its keyword arguments."""
+    from deeplearning4j_tpu_torch.models.word2vec import Word2Vec
+
+    kw = dict(vector_length=W2V["vector"], window=W2V["window"],
+              negative=W2V["negative"], min_word_frequency=1,
+              epochs=W2V["epochs"], seed=W2V["seed"],
+              batch_size=W2V["batch"], device="cuda")
+    return Word2Vec(**{**kw, **overrides})
+
+
+def w2v_fixed_batch(torch, sents):
+    """A model with the bench's vocabulary (built as `fit` builds it, so its
+    fresh tables equal the tables `fit` starts from) and one fixed batch of
+    the bench's shape on the card: the first W2V["batch"] pairs of a pair
+    draw from another seed, and negatives from the unigram table. Returns
+    (model, centers, contexts, neg, vocab arrays)."""
+    from deeplearning4j_tpu_torch.text.corpus import TokenCorpus
+
+    model = bench_word2vec()
+    toks = TokenCorpus(sents, model.tokenize)
+    model.build_vocab(toks)
+    model._rng = np.random.RandomState(1)
+    ids = [np.asarray([model.cache.index_of(t) for t in s], np.int32)
+           for s in toks]
+    centers, contexts = model._pairs(ids)
+    pick = np.random.RandomState(2).permutation(len(centers))[:W2V["batch"]]
+    vocab = model._vocab_arrays()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    slots = torch.randint(0, vocab[3].shape[0],
+                          (W2V["batch"], W2V["negative"]), generator=gen,
+                          device="cuda")
+    c = torch.as_tensor(centers[pick], device="cuda")
+    x = torch.as_tensor(contexts[pick], device="cuda")
+    return model, c, x, vocab[3][slots], vocab
+
+
+def w2v_batch_loss(torch, tables, centers, contexts, neg, vocab) -> float:
+    """The port's loss function on the fixed batch, per pair."""
+    from deeplearning4j_tpu_torch.models.word2vec import w2v_loss
+
+    codes, points, mask, _ = vocab
+    with torch.no_grad():
+        loss = w2v_loss(tables["syn0"], tables["syn1"], tables["syn1neg"],
+                        centers, contexts, codes[contexts], points[contexts],
+                        mask[contexts], neg)
+    return loss.item() / centers.shape[0]
+
+
+def scatter_bound_ms(torch, table, idx, upd):
+    """max(bytes / HBM rate, adds / f32 rate) for one scatter-add: the
+    updates and indices read once, each table row this input touches read
+    and written once; one add per update element. Returns (ms, bound_by,
+    touched rows)."""
+    rows = table.shape[0]
+    touched = torch.unique(idx[(idx >= 0) & (idx < rows)]).numel()
+    width = upd.numel() // max(1, upd.shape[0])
+    size = table.element_size()
+    nbytes = (upd.numel() * size + idx.numel() * idx.element_size()
+              + 2 * touched * width * size)
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = upd.numel() / PEAK_FLOPS["float32"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes", touched)
+
+
+def scatter_close(torch, kernels, table, idx, upd, got, want):
+    """(max |got - want|, ok) where ok holds |got - want| <= 2 n u S element
+    by element: S = |table| + the sum of |upd| over the row's updates, n the
+    row's adds plus one, u the dtype's unit roundoff. That is the error
+    bound of a sum taken in any order, for the kernel (whose atomics add in
+    an order that changes from run to run) and its plain version together."""
+    u = 2.0 ** -24 if table.dtype == torch.float32 else 2.0 ** -8
+    rows = table.shape[0]
+    s = kernels.scatter_add_rows_reference(table.abs().float(), idx,
+                                           upd.abs().float())
+    n = torch.bincount(idx[(idx >= 0) & (idx < rows)].long(),
+                       minlength=rows).float() + 1
+    if table.dim() == 2:
+        n = n[:, None]
+    diff = (got.float() - want.float()).abs()
+    return diff.max().item(), bool((diff <= 2 * n * u * s).all())
+
+
+def phase_scatter_kernel(torch, kernels, centers, contexts, neg, points):
+    """The scatter-add kernel against its plain version on the card at the
+    word2vec step's shapes (indices from the bench's vocabulary and a batch
+    of its pairs): syn1 (the pairs' Huffman points, 622,592 rows into 9,999,
+    the root on every path), syn0 (32,768 centers), syn1neg (contexts and
+    negatives, 196,608 rows); a GloVe bias (D = 1), a tiny ragged case with
+    duplicates and out-of-range indices, and bf16. Each twice: integer-valued
+    inputs, where any order of adds is exact, must give equal tables; random
+    inputs are held to `scatter_close` and timed (graph replay) beside the
+    plain version, `index_add_` and the bound. Returns {case: row}."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    vocab_n = W2V["vocab"]
+    d = W2V["vector"]
+    ragged_idx = torch.tensor([3, 0, 3, -1, 7, 6, 3, 99, 0, 2, 3, 6, 1],
+                              device="cuda")
+    cases = [
+        ("syn1", vocab_n - 1, d, points[contexts].reshape(-1), torch.float32),
+        ("syn0", vocab_n, d, centers, torch.float32),
+        ("syn1neg", vocab_n, d,
+         torch.cat([contexts[:, None], neg], 1).reshape(-1), torch.float32),
+        ("glove_bias", vocab_n, 0, centers, torch.float32),
+        ("ragged", 7, 5, ragged_idx, torch.float32),
+        ("bf16", vocab_n, d,
+         torch.randint(0, vocab_n, (W2V["batch"],), generator=gen,
+                       device="cuda", dtype=torch.int32), torch.bfloat16)]
+    ptxas = [line.strip() for line in
+             kernels.BUILD_LOGS.get("scatter_add", "").splitlines()
+             if "registers" in line or "spill" in line]
+    rows = {}
+    for name, r, width, idx, dt in cases:
+        shape = (r, width) if width else (r,)
+        ushape = (idx.shape[0], width) if width else (idx.shape[0],)
+
+        def draw(shape, integer):
+            if integer:
+                return torch.randint(-4, 5, shape, generator=gen,
+                                     device="cuda").to(dt)
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+        ti, ui = draw(shape, True), draw(ushape, True)
+        exact = torch.equal(kernels.scatter_add_rows(ti, idx, ui),
+                            kernels.scatter_add_rows_reference(ti, idx, ui))
+        table, upd = draw(shape, False), draw(ushape, False)
+        got = kernels.scatter_add_rows(table, idx, upd)
+        want = kernels.scatter_add_rows_reference(table, idx, upd)
+        torch.cuda.synchronize()
+        err, close = scatter_close(torch, kernels, table, idx, upd, got, want)
+        in_range = bool(((idx >= 0) & (idx < r)).all())
+        scratch = table.clone()
+        bound_ms, bound_by, touched = scatter_bound_ms(torch, table, idx, upd)
+        row = {"phase": "scatter_kernel", "case": name, "rows": r,
+               "width": width or 1, "n": int(idx.shape[0]),
+               "index_dtype": str(idx.dtype).replace("torch.", ""),
+               "dtype": str(dt).replace("torch.", ""),
+               "touched_rows": touched,
+               "max_dup": int(torch.bincount(
+                   idx[(idx >= 0) & (idx < r)].long()).max().item()),
+               "exact_on_integers": exact, "max_abs_err": err,
+               "max_abs_want": want.float().abs().max().item(),
+               "within_sum_bound": close, "ok": exact and close,
+               "kernel_ms": graph_ms(lambda: kernels.scatter_add_rows_(
+                   scratch, idx, upd)),
+               "call_ms": cuda_ms(lambda: kernels.scatter_add_rows_(
+                   scratch, idx, upd)),
+               "plain_ms": graph_ms(lambda: kernels.scatter_add_rows_reference(
+                   table, idx, upd), iters=5, replays=1),
+               # index_add_ asserts on the device at an out-of-range index
+               "library_ms": (graph_ms(lambda: scratch.index_add_(0, idx, upd))
+                              if in_range else None),
+               "bound_ms": bound_ms, "bound_by": bound_by, "ptxas": ptxas}
+        emit(row)
+        check(row["ok"], f"scatter_add_rows disagrees with its plain "
+                         f"version: {row}")
+        rows[name] = row
+        del ti, ui, table, upd, got, want, scratch
+    torch.cuda.empty_cache()
+    return rows
+
+
+def count_calls(module, name, events=None):
+    """Wrap module.name so that each call is counted (and, with `events`, is
+    bracketed by CUDA events appended there); returns (counter, restore)."""
+    import torch
+
+    real = getattr(module, name)
+    counter = {"calls": 0}
+
+    def wrapped(*a, **kw):
+        counter["calls"] += 1
+        if events is None:
+            return real(*a, **kw)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a, **kw)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    setattr(module, name, wrapped)
+    return counter, lambda: setattr(module, name, real)
+
+
+def profile_w2v_steps(torch, kernels, model, batch, steps=3):
+    """`steps` more word2vec steps on the fixed batch under `torch.profiler`
+    (alpha at min_alpha): device time by kernel, the scatter kernel's share,
+    idle share. Launches made here are not counted as the main path's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.models.word2vec import SYN_KEYS
+
+    centers, contexts, neg, vocab = batch
+    tables = {k: getattr(model.table, k) for k in SYN_KEYS}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    saved = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            model._batch_step(tables, gen, centers, contexts, vocab,
+                              model.min_alpha)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels.LAUNCHES.update(saved)
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    events.sort(key=lambda e: -e.device_time_total)
+    total_us = sum(e.device_time_total for e in events)
+    ours = [e for e in events if "scatter_add" in e.key]
+    row = {"phase": "w2v_train_profile", "steps": steps,
+           "wall_ms_per_step": wall_ms / steps,
+           "device_ms_per_step": total_us / 1e3 / steps,
+           "idle_share": 1.0 - total_us / 1e3 / wall_ms,
+           "scatter_kernel_ms_per_step":
+               sum(e.device_time_total for e in ours) / 1e3 / steps,
+           "kernels_per_step": sum(e.count for e in events) / steps,
+           "top": [{"name": e.key[:90], "calls": e.count,
+                    "ms": e.device_time_total / 1e3} for e in events[:15]]}
+    emit(row)
+    return row
+
+
+def w2v_fit_run(torch, kernels, sents, fixed, phase, **overrides):
+    """One timed `Word2Vec.fit` of the bench's configuration (with
+    `overrides`): words/s as bench.py:391 computes it (tokens x epochs /
+    wall, the vocab build included, a device sync at the end), the step
+    time (CUDA events around each step, median), the host's pair draws, the
+    scatter launches (W2V_GATHERS a step), the fixed batch's loss per pair
+    before and after, and whether the tables are finite. Emits and returns
+    the row and the trained model."""
+    import deeplearning4j_tpu_torch.models.word2vec as w2v_mod
+
+    probe, centers, contexts, neg, vocab = fixed
+    before = w2v_batch_loss(torch, {k: getattr(probe.table, k)
+                                    for k in w2v_mod.SYN_KEYS},
+                            centers, contexts, neg, vocab)
+    model = bench_word2vec(**overrides)
+    pair_s = []
+    real_pairs = model._pairs
+
+    def timed_pairs(ids):
+        t = time.perf_counter()
+        out = real_pairs(ids)
+        pair_s.append(time.perf_counter() - t)
+        return out
+
+    model._pairs = timed_pairs
+    events = []
+    counter, restore = count_calls(w2v_mod, "w2v_step", events)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        model.fit(sents)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = kernels.LAUNCHES["scatter_add_rows"]
+    steps = counter["calls"]
+    step_ms = sorted(a.elapsed_time(b) for a, b in events)
+    tables = {k: getattr(model.table, k) for k in w2v_mod.SYN_KEYS}
+    after = w2v_batch_loss(torch, tables, centers, contexts, neg, vocab)
+    row = {"phase": phase, "config": {**W2V, "epochs": model.epochs},
+           "use_adagrad": model.use_adagrad, "steps": steps,
+           "fit_wall_s": wall,
+           "words_per_s": W2V["tokens"] * model.epochs / wall,
+           "step_ms_median": step_ms[len(step_ms) // 2],
+           "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+           "steps_wall_s": sum(step_ms) / 1e3,
+           "pairs_host_s": pair_s,
+           "launches": launches, "launches_per_step": launches / max(1, steps),
+           "fixed_batch_loss_per_pair": [before, after],
+           "tables_finite": all(bool(torch.isfinite(t).all())
+                                for t in tables.values()),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(row)
+    check(steps >= model.epochs, f"fit took {steps} steps")
+    check(launches == W2V_GATHERS * steps,
+          f"scatter_add_rows launched {launches} times in {steps} steps, "
+          f"want {W2V_GATHERS} a step")
+    return row, model
+
+
+def phase_w2v_train(torch, kernels, sents, fixed):
+    """The bench's Word2Vec trained at full size, nothing cut: SGD with
+    alpha 0.025 decaying, 6 epochs (`w2v_fit_run`), then profiled steps.
+    That configuration's summed-batch SGD diverges in the JAX package too
+    (ROADMAP queue C): its tables are recorded, and must be finite with a
+    falling loss only if they stay finite. Then the same widths, batch and
+    corpus with the reference's per-word AdaGrad (alpha 0.025 fixed) for one
+    epoch, whose tables must stay finite and whose fixed-batch loss must
+    fall. Returns the launches of both fits and the first row."""
+    _, centers, contexts, neg, vocab = fixed
+    row, model = w2v_fit_run(torch, kernels, sents, fixed, "w2v_train")
+    if row["tables_finite"]:
+        before, after = row["fixed_batch_loss_per_pair"]
+        check(after < before, f"the fixed batch's loss did not fall: "
+                              f"{before} -> {after}")
+    row["profile"] = profile_w2v_steps(torch, kernels, model,
+                                       (centers, contexts, neg, vocab))
+    del model
+    torch.cuda.empty_cache()
+    ada, model = w2v_fit_run(torch, kernels, sents, fixed,
+                             "w2v_train_adagrad", use_adagrad=True, epochs=1)
+    before, after = ada["fixed_batch_loss_per_pair"]
+    check(ada["tables_finite"], "an AdaGrad word2vec table is not finite")
+    check(after < before, f"the fixed batch's loss did not fall under "
+                          f"AdaGrad: {before} -> {after}")
+    del model
+    torch.cuda.empty_cache()
+    return row["launches"] + ada["launches"], row
+
+
+def cluster_corpus(n=200, seed=0):
+    """tests/test_embeddings.py:18-28: sentences of 8 words from one of two
+    topic clusters, {cat, dog, pet, fur, paw} or {car, truck, road, wheel,
+    engine}."""
+    rng = np.random.RandomState(seed)
+    animals = ["cat", "dog", "pet", "fur", "paw"]
+    vehicles = ["car", "truck", "road", "wheel", "engine"]
+    out = []
+    for _ in range(n):
+        pool = animals if rng.rand() < 0.5 else vehicles
+        out.append(" ".join(rng.choice(pool, size=8)))
+    return out
+
+
+def phase_embed_quality(torch, kernels):
+    """Word2Vec, ParagraphVectors and GloVe trained on the card on the
+    two-cluster corpus with the settings of tests/test_embeddings.py, held
+    to its similarity assertions; each must launch the scatter kernel once
+    per gather of every step. Returns {model: launches}."""
+    import deeplearning4j_tpu_torch.models.glove as glove_mod
+    import deeplearning4j_tpu_torch.models.word2vec as w2v_mod
+    from deeplearning4j_tpu_torch.models import (Glove, ParagraphVectors,
+                                                 Word2Vec)
+
+    def run(make, module, name, gathers):
+        counter, restore = count_calls(module, name)
+        kernels.reset_launches()
+        try:
+            t = time.perf_counter()
+            model = make()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            restore()
+        launches = kernels.LAUNCHES["scatter_add_rows"]
+        check(counter["calls"] > 0 and launches == gathers * counter["calls"],
+              f"{name}: {launches} scatter launches in {counter['calls']} "
+              f"steps, want {gathers} a step")
+        return model, {"steps": counter["calls"], "launches": launches,
+                       "wall_s": wall}
+
+    w2v, w2v_info = run(lambda: Word2Vec(
+        vector_length=24, window=4, min_word_frequency=1, negative=4,
+        epochs=4, batch_size=256, seed=1).fit(cluster_corpus()),
+        w2v_mod, "w2v_step", W2V_GATHERS)
+    same, cross = w2v.similarity("cat", "dog"), w2v.similarity("cat", "truck")
+    near = [w for w, _ in w2v.words_nearest("cat", top=4)]
+    docs = ["cat dog pet fur paw cat dog", "car truck road wheel engine",
+            "dog pet paw fur cat pet", "truck car engine wheel road"]
+    pv, pv_info = run(lambda: ParagraphVectors(
+        vector_length=16, window=3, min_word_frequency=1, negative=3,
+        epochs=8, batch_size=64, seed=4,
+        labels=["an1", "ve1", "an2", "ve2"]).fit(docs),
+        w2v_mod, "w2v_step", W2V_GATHERS)
+    glove, glove_info = run(lambda: Glove(
+        vector_length=16, window=5, min_word_frequency=1, epochs=20,
+        seed=1).fit(cluster_corpus(150)), glove_mod, "glove_step",
+        GLOVE_GATHERS)
+    checks = {
+        "w2v_same_gt_cross": [same, cross],
+        "w2v_nearest_cat": near,
+        "pv_an1_an2_gt_an1_ve1": [pv.doc_similarity("an1", "an2"),
+                                  pv.doc_similarity("an1", "ve1")],
+        "glove_cat_dog_gt_cat_engine": [glove.similarity("cat", "dog"),
+                                        glove.similarity("cat", "engine")]}
+    row = {"phase": "embed_quality", "word2vec": w2v_info,
+           "paragraph_vectors": pv_info, "glove": glove_info,
+           "checks": checks}
+    emit(row)
+    check(same > cross, f"word2vec: cat~dog {same} <= cat~truck {cross}")
+    check(any(w in ("dog", "pet", "fur", "paw") for w in near),
+          f"word2vec: nearest to cat {near}")
+    a, b = checks["pv_an1_an2_gt_an1_ve1"]
+    check(a > b, f"paragraph vectors: an1~an2 {a} <= an1~ve1 {b}")
+    a, b = checks["glove_cat_dog_gt_cat_engine"]
+    check(a > b, f"glove: cat~dog {a} <= cat~engine {b}")
+    return {"word2vec": w2v_info["launches"],
+            "paragraph_vectors": pv_info["launches"],
+            "glove": glove_info["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -1118,6 +1561,17 @@ def main() -> int:
     lstm_cli_launches = phase_lstm_cli(torch, kernels)
     check(lstm_train_launches > 0 and lstm_cli_launches > 0,
           "the LSTM cell kernel never ran")
+    torch.cuda.empty_cache()
+    sents = bench_sentences()
+    fixed = w2v_fixed_batch(torch, sents)
+    _, centers, contexts, neg, vocab = fixed
+    scatter_rows = phase_scatter_kernel(torch, kernels, centers, contexts,
+                                        neg, vocab[1])
+    w2v_launches, w2v_row = phase_w2v_train(torch, kernels, sents, fixed)
+    del fixed, centers, contexts, neg, vocab
+    quality_launches = phase_embed_quality(torch, kernels)
+    check(w2v_launches > 0 and all(quality_launches.values()),
+          "the scatter-add kernel never ran")
 
     bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
     replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,
@@ -1176,6 +1630,28 @@ def main() -> int:
         # one [256, 64, 256] f32 layer: 64 launches, and cuDNN's nn.LSTM
         "layer_fused_ms": lstm_layer["fused_ms"],
         "layer_cudnn_lstm_call_ms": lstm_layer["cudnn_lstm_call_ms"]})
+    syn1 = scatter_rows["syn1"]
+    rows.append({
+        "name": "scatter_add_rows", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/scatter_add.cu",
+        "replaces": "deeplearning4j_tpu/nd/pallas_kernels.py:600",
+        "launches": w2v_launches + sum(quality_launches.values()),
+        "launches_by_path": {"w2v_train": w2v_launches,
+                             "embed_quality": quality_launches},
+        "launches_per_w2v_step": W2V_GATHERS,
+        # the numbers below are at the syn1 shape of the bench's step
+        "max_abs_err": syn1["max_abs_err"], "ms": syn1["kernel_ms"],
+        "plain_ms": syn1["plain_ms"], "bound_ms": syn1["bound_ms"],
+        "bound_by": syn1["bound_by"],
+        # Tensor.index_add_: the same function in one PyTorch call
+        "library_ms": syn1["library_ms"],
+        "cases": {name: {k: r[k] for k in ("n", "width", "dtype",
+                                           "max_abs_err", "kernel_ms",
+                                           "plain_ms", "bound_ms",
+                                           "library_ms")}
+                  for name, r in scatter_rows.items()},
+        "w2v_step_ms_median": w2v_row["step_ms_median"],
+        "w2v_words_per_s": w2v_row["words_per_s"]})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

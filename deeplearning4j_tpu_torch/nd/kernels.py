@@ -24,7 +24,9 @@ Kernels ported so far (see ROADMAP.md queue B for the rest):
   and `_flash_bwd_dq_kernel` (`csrc/flash_attn_bwd.cu`), wired to the
   forward by `FlashAttentionFunction`;
 - `lstm_cell`: `_lstm_cell_kernel`, one fused LSTM cell update
-  (`csrc/lstm_cell.cu`), with `LSTMCellFunction` for its gradient.
+  (`csrc/lstm_cell.cu`), with `LSTMCellFunction` for its gradient;
+- `scatter_add_rows`: `_scatter_add_kernel`, the embedding-row scatter-add
+  (`csrc/scatter_add.cu`), the backward of `gather_rows`.
 """
 
 from __future__ import annotations
@@ -50,14 +52,16 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
 #: kernel library name -> its source under csrc/
 SOURCES: Dict[str, str] = {"flash_attn_fwd": "flash_attn_fwd.cu",
                            "flash_attn_bwd": "flash_attn_bwd.cu",
-                           "lstm_cell": "lstm_cell.cu"}
+                           "lstm_cell": "lstm_cell.cu",
+                           "scatter_add": "scatter_add.cu"}
 
 #: kernel (the C entry point) -> the library that holds it
 KERNELS: Dict[str, str] = {"flash_attn_fwd": "flash_attn_fwd",
                            "flash_bwd_delta": "flash_attn_bwd",
                            "flash_bwd_dkv": "flash_attn_bwd",
                            "flash_bwd_dq": "flash_attn_bwd",
-                           "lstm_cell": "lstm_cell"}
+                           "lstm_cell": "lstm_cell",
+                           "scatter_add_rows": "scatter_add"}
 
 #: kernel name -> launches since the last `reset_launches()`
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -158,6 +162,11 @@ def _library(name: str) -> ctypes.CDLL:
                                   + [ctypes.c_longlong] * 5
                                   + [ctypes.c_int, ctypes.c_void_p])
         lib.lstm_cell.restype = ctypes.c_int
+    elif name == "scatter_add":
+        lib.scatter_add_rows.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.scatter_add_rows.restype = ctypes.c_int
     with _lock:
         _libs.setdefault(name, lib)
         return _libs[name]
@@ -602,3 +611,148 @@ def fused_lstm_step(x, h, c, wx, wh, b):
     if not needs_grad:
         return lstm_cell(x, h, c, wx, wh, b)
     return LSTMCellFunction.apply(x, h, c, wx, wh, b)
+
+
+# -------------------------------------------------------------- scatter-add
+
+def _check_scatter(table: torch.Tensor, indices: torch.Tensor,
+                   updates: torch.Tensor) -> None:
+    """Raise TypeError unless the table is float32 or bfloat16 (bfloat16
+    with an even row width), the indices int32 or int64 and the updates of
+    the table's dtype; ValueError unless table [R, D] or [R], indices [N]
+    and updates [N, D] or [N] agree."""
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"scatter_add_rows: the table must be float32 or "
+                        f"bfloat16; got {table.dtype}")
+    if indices.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"scatter_add_rows: indices must be int32 or int64; "
+                        f"got {indices.dtype}")
+    if updates.dtype != table.dtype:
+        raise TypeError(f"scatter_add_rows: updates must have the table's "
+                        f"dtype {table.dtype}; got {updates.dtype}")
+    if table.dim() not in (1, 2) or indices.dim() != 1 or tuple(
+            updates.shape) != (indices.shape[0],) + tuple(table.shape[1:]):
+        raise ValueError(f"scatter_add_rows: want table [R, D] or [R], "
+                         f"indices [N] and updates [N, D] or [N]; got "
+                         f"{tuple(table.shape)}, {tuple(indices.shape)} and "
+                         f"{tuple(updates.shape)}")
+    width = table.shape[1] if table.dim() == 2 else 1
+    if table.dtype == torch.bfloat16 and width % 2:
+        raise TypeError(f"scatter_add_rows: bfloat16 tables add column "
+                        f"pairs and need an even row width; got {width}")
+
+
+def _as_rows(t: torch.Tensor) -> torch.Tensor:
+    """A 1-D table or update vector (a bias) as an [n, 1] view."""
+    return t.unsqueeze(1) if t.dim() == 1 else t
+
+
+def scatter_add_rows_reference(table: torch.Tensor, indices: torch.Tensor,
+                               updates: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the scatter-add kernel: a new tensor, the
+    table with updates[n] added to row indices[n] for every n, duplicates
+    accumulating in the table's dtype. Rows outside [0, R) are skipped, as
+    the kernel skips them: they are sent to a spare row that is dropped, so
+    the function holds no host sync and can be graph-captured.
+
+    table [R, D] or [R] (float32 or bfloat16), indices [N] (int32 or
+    int64), updates [N, D] or [N] in the table's dtype."""
+    _check_scatter(table, indices, updates)
+    rows = _as_rows(table)
+    r = rows.shape[0]
+    idx = indices.long()
+    idx = torch.where((idx >= 0) & (idx < r), idx, r)
+    ext = torch.cat([rows, rows.new_zeros(1, rows.shape[1])])
+    ext.index_put_((idx,), _as_rows(updates), accumulate=True)
+    return ext[:r].reshape(table.shape)
+
+
+def scatter_add_rows_(table: torch.Tensor, indices: torch.Tensor,
+                      updates: torch.Tensor) -> torch.Tensor:
+    """In place: table[indices[n]] += updates[n] for every n, duplicates
+    accumulating, rows outside [0, R) skipped; returns the table. Shapes
+    and dtypes as `scatter_add_rows_reference` (TypeError for any other
+    dtype, or bfloat16 with an odd row width).
+
+    CUDA tensors launch `csrc/scatter_add.cu` (no launch when N is 0);
+    CPU tensors take the plain version. The table needs unit column stride
+    (and, in bfloat16, an even row stride); updates may be row-strided."""
+    _check_scatter(table, indices, updates)
+    if _all_cpu(table, indices, updates):
+        return table.copy_(scatter_add_rows_reference(table, indices,
+                                                      updates))
+    if not (table.is_cuda and indices.is_cuda and updates.is_cuda):
+        raise ValueError("scatter_add_rows: table, indices and updates must "
+                         "all be CUDA tensors (or all CPU tensors)")
+    if indices.device != table.device or updates.device != table.device:
+        raise ValueError("scatter_add_rows: the operands are on different "
+                         "devices")
+    rows, upd = _as_rows(table), _as_rows(updates)
+    r, d = rows.shape
+    if rows.stride(1) != 1 and d > 1:
+        raise ValueError(f"scatter_add_rows: the table needs unit column "
+                         f"stride; got strides {rows.stride()}")
+    if table.dtype == torch.bfloat16 and (rows.stride(0) % 2
+                                          or rows.data_ptr() % 4):
+        raise ValueError("scatter_add_rows: a bfloat16 table needs an even "
+                         "row stride and 4-byte alignment")
+    if upd.stride(1) != 1 and d > 1:
+        upd = upd.contiguous()
+    idx = indices.contiguous()
+    n = idx.shape[0]
+    if n == 0 or r == 0:
+        return table
+    lib = _library("scatter_add")
+    with torch.cuda.device(table.device):
+        err = lib.scatter_add_rows(
+            rows.data_ptr(), idx.data_ptr(), upd.data_ptr(), r, n, d,
+            rows.stride(0), upd.stride(0), int(idx.dtype == torch.int64),
+            _dtype_code(rows), _stream(rows))
+    _check(err, "scatter_add_rows")
+    _count("scatter_add_rows")
+    return table
+
+
+def scatter_add_rows(table: torch.Tensor, indices: torch.Tensor,
+                     updates: torch.Tensor) -> torch.Tensor:
+    """table[indices[n]] += updates[n] with duplicate indices accumulating,
+    as a new tensor (the table is not changed), like the JAX package's
+    `scatter_add_rows`. CUDA tensors launch `csrc/scatter_add.cu` on a
+    contiguous copy of the table; CPU tensors take
+    `scatter_add_rows_reference`."""
+    if _all_cpu(table, indices, updates):
+        return scatter_add_rows_reference(table, indices, updates)
+    return scatter_add_rows_(table.clone(memory_format=torch.contiguous_format),
+                             indices, updates)
+
+
+class GatherRowsFunction(torch.autograd.Function):
+    """table[idx] for a table [R, D] or [R] and integer idx of any shape
+    (result idx.shape + table.shape[1:]), whose backward is the scatter-add
+    kernel. The forward is plain indexing (the JAX package's gather is no
+    Pallas kernel) and needs indices in [0, R); the gradient of the table
+    is a fresh zero table of its shape and dtype with the output's gradient
+    rows added at idx (`scatter_add_rows_`: the kernel on CUDA tensors, its
+    plain version on CPU tensors), the `zeros_like(table).at[idx].add(g)`
+    that `jax.grad` takes of a gather."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (idx,) = ctx.saved_tensors
+        shape = ctx.table_shape
+        grad = g.new_zeros(shape)
+        scatter_add_rows_(grad, idx.reshape(-1), g.reshape(-1, *shape[1:]))
+        return grad, None
+
+
+#: gather_rows(table, idx): table[idx] with the scatter-add kernel as its
+#: backward (`GatherRowsFunction`)
+gather_rows = GatherRowsFunction.apply

@@ -323,3 +323,158 @@ def test_cuda_bwd_kernels_match_plain_versions(dtype):
                    if dt == torch.float32
                    else 2e-2 * want.float().abs().max().item())
             assert err <= tol
+
+
+# -------------------------------------------------------------- scatter-add
+#
+# The plain version (what `scatter_add_rows` runs on CPU tensors) against
+# the JAX package's `scatter_add_rows` in Pallas interpret mode, as
+# tests/test_pallas_kernels.py:71-90 runs it: exact on integer-valued f32
+# (every partial sum is an exact integer, so the order of the adds cannot
+# matter), allclose 1e-6 on random values (sums in another order).
+
+from deeplearning4j_tpu.nd.pallas_kernels import (  # noqa: E402
+    scatter_add_rows as jax_scatter_add_rows)
+
+
+def _scatter_case(seed, r, d, n, integer, index_dtype=np.int32):
+    rng = np.random.RandomState(seed)
+    shape = (r, d) if d else (r,)
+    ushape = (n, d) if d else (n,)
+    if integer:
+        table = rng.randint(-4, 5, shape).astype(np.float32)
+        upd = rng.randint(-4, 5, ushape).astype(np.float32)
+    else:
+        table = rng.standard_normal(shape).astype(np.float32)
+        upd = rng.standard_normal(ushape).astype(np.float32)
+    # few distinct rows, so duplicates are many
+    idx = rng.randint(0, min(r, 5), n).astype(index_dtype)
+    return table, idx, upd
+
+
+def _jax_scatter(table, idx, upd):
+    t2, u2 = (a.reshape(a.shape[0], -1) for a in (table, upd))
+    out = jax_scatter_add_rows(jnp.asarray(t2), jnp.asarray(idx),
+                               jnp.asarray(u2), interpret=True)
+    return np.asarray(out).reshape(table.shape)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("case", [
+    "duplicates", "ragged", "d1_bias", "int64", "one_row"])
+def test_scatter_plain_version_matches_pallas_kernel(case, integer):
+    r, d, n, itype = {"duplicates": (10, 4, 16, np.int32),
+                      "ragged": (7, 8, 13, np.int32),   # JAX pads N to 16
+                      "d1_bias": (9, 0, 11, np.int32),  # a 1-D bias table
+                      "int64": (6, 4, 8, np.int64),
+                      "one_row": (3, 5, 1, np.int32)}[case]
+    table, idx, upd = _scatter_case(21, r, d, n, integer, itype)
+    want = _jax_scatter(table, idx, upd)
+    tt = torch.from_numpy(table)
+    got = kernels.scatter_add_rows(tt, torch.from_numpy(idx),
+                                   torch.from_numpy(upd))
+    assert got.shape == tt.shape and got.dtype == torch.float32
+    np.testing.assert_array_equal(tt.numpy(), table)   # a new tensor
+    if integer:
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_scatter_skips_rows_outside_the_table_like_jax_scatter():
+    # jax.grad's scatter (`.at[idx].add`) drops indices >= R; the Pallas
+    # kernel is undefined there. Negative indices, which `.at` would wrap,
+    # are skipped too: no path produces them.
+    table, _, upd = _scatter_case(22, 6, 4, 7, True)
+    idx = np.array([0, 6, 2, 99, 2, 5, 6], np.int32)
+    want = np.asarray(jnp.asarray(table).at[jnp.asarray(idx)].add(
+        jnp.asarray(upd)))
+    got = kernels.scatter_add_rows(torch.from_numpy(table),
+                                   torch.from_numpy(idx),
+                                   torch.from_numpy(upd))
+    np.testing.assert_array_equal(got.numpy(), want)
+    neg = torch.tensor([-1, -6, 3], dtype=torch.int64)
+    got = kernels.scatter_add_rows(torch.zeros(6, 2), neg, torch.ones(3, 2))
+    want = np.zeros((6, 2), np.float32)
+    want[3] = 1.0
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_scatter_in_place_and_empty_and_strided_updates():
+    table = torch.zeros(5, 3)
+    upd = torch.arange(24, dtype=torch.float32).reshape(4, 6)[:, ::2]
+    assert not upd.is_contiguous()
+    out = kernels.scatter_add_rows_(table, torch.tensor([4, 0, 4, 1]), upd)
+    assert out is table
+    want = np.zeros((5, 3), np.float32)
+    for i, row in zip([4, 0, 4, 1], upd.numpy()):
+        want[i] += row
+    np.testing.assert_array_equal(table.numpy(), want)
+    empty = kernels.scatter_add_rows(table, torch.zeros(0, dtype=torch.int32),
+                                     torch.zeros(0, 3))
+    np.testing.assert_array_equal(empty.numpy(), want)
+
+
+def test_scatter_bf16_plain_version_and_refused_types():
+    idx = torch.tensor([1, 1, 0], dtype=torch.int32)
+    got = kernels.scatter_add_rows(torch.zeros(3, 4, dtype=torch.bfloat16),
+                                   idx, torch.ones(3, 4, dtype=torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy()[:, 0], [1.0, 2.0, 0.0])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernels.scatter_add_rows(torch.zeros(3, 4, dtype=torch.float64), idx,
+                                 torch.ones(3, 4, dtype=torch.float64))
+    with pytest.raises(TypeError, match="even row width"):
+        kernels.scatter_add_rows(torch.zeros(3, 3, dtype=torch.bfloat16),
+                                 idx, torch.ones(3, 3, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="int32 or int64"):
+        kernels.scatter_add_rows(torch.zeros(3, 4), idx.to(torch.int16),
+                                 torch.ones(3, 4))
+    with pytest.raises(TypeError, match="dtype"):
+        kernels.scatter_add_rows(torch.zeros(3, 4), idx,
+                                 torch.ones(3, 4, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="want table"):
+        kernels.scatter_add_rows(torch.zeros(3, 4), idx, torch.ones(2, 4))
+
+
+@pytest.mark.parametrize("table_shape", [(11, 6), (11,)])
+def test_gather_rows_grad_matches_autograd_of_plain_indexing(table_shape):
+    rng = np.random.RandomState(23)
+    table = rng.standard_normal(table_shape).astype(np.float32)
+    idx = torch.from_numpy(rng.randint(0, 11, (7, 5)).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal(
+        (7, 5) + table_shape[1:]).astype(np.float32))
+    grads = []
+    kernels.reset_launches()
+    for gather in (kernels.gather_rows, lambda t, i: t[i]):
+        leaf = torch.from_numpy(table).requires_grad_()
+        out = gather(leaf, idx)
+        assert out.shape == (7, 5) + table_shape[1:]
+        (grad,) = torch.autograd.grad(out, leaf, g)
+        grads.append(grad.numpy())
+    np.testing.assert_allclose(grads[0], grads[1], rtol=1e-6, atol=1e-6)
+    assert kernels.LAUNCHES["scatter_add_rows"] == 0   # CPU: plain version
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_scatter_kernel_matches_plain_version(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    for r, d, n in ((1000, 128, 20000), (50, 1, 777), (7, 2, 5)):
+        if dt == torch.bfloat16 and d % 2:
+            continue
+        table = torch.randn(r, d, generator=gen, device="cuda").to(dt)
+        upd = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        idx = torch.randint(-2, r + 2, (n,), generator=gen, device="cuda")
+        before = kernels.LAUNCHES["scatter_add_rows"]
+        got = kernels.scatter_add_rows(table, idx, upd)
+        want = kernels.scatter_add_rows_reference(table, idx, upd)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["scatter_add_rows"] == before + 1
+        # atomics add in an order that changes from run to run
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), atol=tol * (
+            1 + want.float().abs().max().item()), rtol=tol)
