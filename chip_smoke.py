@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / H100 port on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase (what the checks run)
+    python3 chip_smoke.py --quick    # build, ptxas, one check per kernel
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU. It
 imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
@@ -266,6 +267,25 @@ def bwd_check(torch, kernels, q, k, v, do, o, lse, causal):
     return out
 
 
+def bwd_rel_errors(torch, kernels, q, k, v, do, o, lse, causal):
+    """{kernel: max |got - want| / max |want|} of each backward kernel
+    against its plain version (dK/dV: the larger of its two outputs)."""
+    delta = kernels.flash_bwd_delta_reference(o, do)
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    wk, wv = kernels.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    return {"flash_bwd_delta": rel(kernels.flash_bwd_delta(o, do), delta),
+            "flash_bwd_dkv": max(rel(dk, wk), rel(dv, wv)),
+            "flash_bwd_dq": rel(
+                kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+                kernels.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                               causal))}
+
+
 def grad_function_check(torch, kernels, qkv, h, d, do, causal):
     """`FlashAttentionFunction` (forward kernel with lse, then delta, dK/dV
     and dQ) against autograd through `flash_attention_reference`, both on
@@ -324,12 +344,15 @@ def phase_bwd_kernels(torch, kernels):
     cases = [(32, 512, 16, 128, torch.bfloat16, True, True),
              (8, 512, 16, 128, torch.float32, True, False),
              (8, 512, 16, 128, torch.float32, False, False),
-             (8, 200, 16, 64, torch.bfloat16, True, False)]
+             (8, 200, 16, 64, torch.bfloat16, True, False),
+             # a head dim that takes the padding route (D 100 -> 128)
+             (8, 200, 16, 100, torch.bfloat16, True, False)]
     main_rows = {}
     for b, s, h, d, dt, causal, view in cases:
         qkv, q, k, v, do, o, lse = bwd_inputs(torch, kernels, gen, b, s, h,
                                               d, dt, causal, view)
         results = bwd_check(torch, kernels, q, k, v, do, o, lse, causal)
+        rel = bwd_rel_errors(torch, kernels, q, k, v, do, o, lse, causal)
         dname = str(dt).replace("torch.", "")
         grad_err = grad_ok = None
         if view:
@@ -355,10 +378,15 @@ def phase_bwd_kernels(torch, kernels):
             kernel_fn, plain_fn = calls[name]
             bound_ms, bound_by = bwd_bound_ms(name, b, s, h, d, dname,
                                               causal)
+            kernel_ms = graph_ms(kernel_fn)
+            half = 0.5 if causal else 1.0
+            flops = {"flash_bwd_delta": 2.0 * b * s * h * d,
+                     "flash_bwd_dkv": 8.0 * b * h * s * s * d * half,
+                     "flash_bwd_dq": 6.0 * b * h * s * s * d * half}[name]
             row = {"phase": "bwd_kernel", "name": name, "shape": [b, s, h, d],
                    "dtype": dname, "causal": causal, "view": view,
-                   "max_abs_err": err, "ok": ok,
-                   "kernel_ms": graph_ms(kernel_fn),
+                   "max_abs_err": err, "max_rel_err": rel[name], "ok": ok,
+                   "kernel_ms": kernel_ms, "tflops": flops / kernel_ms / 1e9,
                    "call_ms": cuda_ms(kernel_fn),
                    "plain_ms": graph_ms(plain_fn, iters=3, replays=1),
                    "bound_ms": bound_ms, "bound_by": bound_by,
@@ -377,6 +405,77 @@ def phase_bwd_kernels(torch, kernels):
     return main_rows
 
 
+def ptxas_info(log: str, kernel: str) -> dict:
+    """Registers and spill bytes of each compiled instance of `kernel` in an
+    nvcc -Xptxas -v log: {template args: {"registers", "spill_stores",
+    "spill_loads"}} (`ILi128EE...` -> "128")."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else ""
+            cur = None
+            if kernel in name:
+                rest = name.split(kernel, 1)[1]
+                cur = rest[3:rest.index("E")] if rest.startswith("ILi") \
+                    else rest
+                out[cur] = {}
+        elif cur is not None and "spill stores" in line:
+            words = line.replace(",", " ").split()
+            out[cur]["spill_stores"] = int(words[words.index("spill") - 2])
+            out[cur]["spill_loads"] = int(words[words.index("loads") - 3])
+        elif cur is not None and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            out[cur]["registers"] = int(words[words.index("registers") - 1])
+    return out
+
+
+#: the bf16 bodies this slice redesigned (TMA, wgmma, warp specialisation)
+TMA_BODIES = {"flash_attn_fwd": ("flash_attn_fwd", "flash_fwd_tma_kernel"),
+              "flash_bwd_dkv": ("flash_attn_bwd", "flash_bwd_dkv_tma_kernel")}
+
+
+def tma_ptxas(kernels) -> dict:
+    """{kernel: ptxas_info of its TMA body} from the last build's logs."""
+    return {name: ptxas_info(kernels.BUILD_LOGS.get(lib, ""), body)
+            for name, (lib, body) in TMA_BODIES.items()}
+
+
+def phase_quick(torch, kernels):
+    """The first check of new kernel bodies: the bf16 forward (o, lse) and
+    the three backward kernels against their plain versions once each, at
+    the serving and training shapes on qkv views, contiguous and not
+    causal, at a ragged S and at a head dim that takes the padding route;
+    no timing. Returns whether every case passed."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [(8, 512, 16, 128, True, True), (32, 512, 16, 128, True, True),
+             (8, 512, 16, 128, False, False), (8, 200, 16, 64, True, False),
+             (2, 200, 4, 100, True, False), (2, 96, 4, 64, False, True)]
+    all_ok = True
+    for b, s, h, d, causal, view in cases:
+        copies = kernels.PAD_COPIES
+        qkv, q, k, v, do, o, lse = bwd_inputs(torch, kernels, gen, b, s, h,
+                                              d, torch.bfloat16, causal,
+                                              view)
+        want_o, want_lse = kernels.flash_attention_reference(
+            q, k, v, causal, with_lse=True)
+        torch.cuda.synchronize()
+        err_o = (o.float() - want_o.float()).abs().max().item()
+        err_lse = (lse - want_lse).abs().max().item()
+        ok_fwd = err_o <= 2e-2 * want_o.float().abs().max().item() and \
+            err_lse <= 1e-3
+        results = bwd_check(torch, kernels, q, k, v, do, o, lse, causal)
+        row = {"phase": "quick", "shape": [b, s, h, d], "causal": causal,
+               "view": view, "fwd_max_abs_err": err_o,
+               "fwd_max_abs_err_lse": err_lse, "fwd_ok": ok_fwd,
+               "pad_copies": kernels.PAD_COPIES - copies}
+        for name, (err, ok) in results.items():
+            row[name] = {"max_abs_err": err, "ok": ok}
+        emit(row)
+        all_ok = all_ok and ok_fwd and all(ok for _, ok in results.values())
+        del qkv, q, k, v, do, o, lse
+    return all_ok
+
+
 def phase_kernels(torch, kernels):
     """Kernel vs plain version on the card; returns the rows of the two
     cases the main paths run, both bf16 and causal on q, k, v strided views
@@ -393,7 +492,9 @@ def phase_kernels(torch, kernels):
     cases += [(8, 512, 16, 128, torch.bfloat16, True, False, True),
               (32, 512, 16, 128, torch.bfloat16, True, True, True),
               (8, 200, 16, 64, torch.bfloat16, True, True, False),
-              (8, 200, 16, 64, torch.float32, False, True, False)]
+              (8, 200, 16, 64, torch.float32, False, True, False),
+              # a head dim that takes the padding route (D 100 -> 128)
+              (8, 200, 16, 100, torch.bfloat16, True, True, False)]
     path_rows = {}
     for b, s, h, d, dt, causal, with_lse, view in cases:
         if view:
@@ -431,13 +532,15 @@ def phase_kernels(torch, kernels):
             qt, kt, vt, is_causal=causal))
         bound_ms, bound_by = attention_bound_ms(b, s, h, d, dname, causal,
                                                 with_lse)
+        flops = 4.0 * b * h * s * s * d * (0.5 if causal else 1.0)
         row = {"phase": "kernel", "name": "flash_attn_fwd",
                "shape": [b, s, h, d], "dtype": dname, "causal": causal,
                "with_lse": with_lse, "view": view, "max_abs_err": err_o,
                "max_abs_err_lse": err_lse, "ok": bool(ok),
                "kernel_ms": kernel_ms, "call_ms": call_ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "tflops": flops / kernel_ms / 1e9}
         emit(row)
         check(ok, f"flash_attn_fwd disagrees with its plain version: {row}")
         if view:
@@ -479,6 +582,7 @@ def phase_serve(torch, kernels):
     torch.cuda.synchronize()
 
     kernels.reset_launches()
+    kernels.PAD_COPIES = 0
     server = net.serve(port=0, max_delay_ms=200.0,
                        max_batch_rows=REQUESTS * REQUEST_ROWS)
     answers = [None] * REQUESTS
@@ -506,6 +610,7 @@ def phase_serve(torch, kernels):
     wall_s = time.perf_counter() - t_all
     stats = server.stats()
     serve_launches = dict(kernels.LAUNCHES)
+    serve_pad_copies = kernels.PAD_COPIES
     # an id outside the vocabulary is refused on the host with a 400; on
     # the card it would be a device-side assert that ends the process's
     # CUDA context (the direct checks below then show the card still works)
@@ -524,6 +629,8 @@ def phase_serve(torch, kernels):
     n_attn = SLICE["n_blocks"]
     check(serve_launches["flash_attn_fwd"] == n_attn * flushes,
           f"flash launches {serve_launches} != {n_attn} x {flushes} flushes")
+    check(serve_pad_copies == 0,
+          f"the serve path made {serve_pad_copies} padding copies")
 
     errs_direct = []
     kernels.reset_launches()
@@ -581,6 +688,7 @@ def phase_serve(torch, kernels):
           "tokens_per_s": rows * SLICE["seq"] / wall_s,
           "batch_rows_hist": stats["batch_rows_hist"],
           "flash_launches_serve": serve_launches["flash_attn_fwd"],
+          "pad_copies_serve": serve_pad_copies,
           "out_of_vocab_status": bad_status,
           "flash_launches_direct": direct_launches,
           "max_abs_err_vs_direct": max(errs_direct),
@@ -667,6 +775,7 @@ def phase_train(torch, kernels):
     torch.cuda.reset_peak_memory_stats()
     step_ms, step_launches = [], []
     total = {name: 0 for name in kernels.LAUNCHES}
+    kernels.PAD_COPIES = 0
     for _ in range(TRAIN_STEPS):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -681,6 +790,7 @@ def phase_train(torch, kernels):
         step_ms.append(start.elapsed_time(stop))
         scores.append(net.score(x, y))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    train_pad_copies = kernels.PAD_COPIES
     profile_step(torch, kernels, net, x, y)
     n_attn = SLICE["n_blocks"]
     steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
@@ -711,6 +821,7 @@ def phase_train(torch, kernels):
            "scores": scores, "step_ms": step_ms, "step_ms_median_2_on": steady,
            "tokens_per_s": TRAIN_ROWS * seq / (steady / 1e3),
            "launches_per_step": step_launches, "peak_mem_gb": peak_gb,
+           "pad_copies_train": train_pad_copies,
            "grad_check_rows": 2, "grad_check_dtype": "float32",
            "grad_fused_vs_recompute_max_rel": max(ratios)}
     emit(row)
@@ -723,6 +834,8 @@ def phase_train(torch, kernels):
                   f"{n_attn}: {launches}")
     check(max(ratios) <= 1e-3,
           f"fused and recompute gradients differ: {max(ratios)} of max|g|")
+    check(train_pad_copies == 0,
+          f"the train path made {train_pad_copies} padding copies")
     return total
 
 
@@ -1525,9 +1638,10 @@ def phase_embed_quality(torch, kernels):
             "glove": glove_info["launches"]}
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
+    quick = "--quick" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to test", file=sys.stderr)
         return 2
@@ -1545,8 +1659,18 @@ def main() -> int:
     kernels.build()
     ptxas = [line.strip() for log in kernels.BUILD_LOGS.values()
              for line in log.splitlines() if "registers" in line]
+    # warnings, and ptxas's notes that it serialised wgmma instructions
+    notes = [line.strip() for log in kernels.BUILD_LOGS.values()
+             for line in log.splitlines()
+             if "warning" in line.lower() or "Performance Loss" in line]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": sorted(kernels.SOURCES), "ptxas": ptxas})
+          "libraries": sorted(kernels.SOURCES), "ptxas": ptxas,
+          "ptxas_notes": notes, "tma_bodies": tma_ptxas(kernels)})
+    if quick:
+        # a new kernel's first call on the card: build, registers and
+        # spills, one check at the path's widths, stop
+        return 0 if phase_quick(torch, kernels) else 1
+    bodies = tma_ptxas(kernels)
 
     fwd_row, fwd_train_row = phase_kernels(torch, kernels)
     bwd_rows = phase_bwd_kernels(torch, kernels)
@@ -1588,6 +1712,8 @@ def main() -> int:
         "ms": fwd_row["kernel_ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
         "library_ms": fwd_row["library_ms"],
+        "design": "tma+wgmma", "ptxas": bodies["flash_attn_fwd"],
+        "tflops": fwd_row["tflops"],
         # the numbers above are at the serving shape; the train step's
         # forward (B=32, with lse) gets its own
         "at_train_shape": {
@@ -1597,7 +1723,8 @@ def main() -> int:
             "plain_ms": fwd_train_row["plain_ms"],
             "bound_ms": fwd_train_row["bound_ms"],
             "bound_by": fwd_train_row["bound_by"],
-            "library_ms": fwd_train_row["library_ms"]}}]
+            "library_ms": fwd_train_row["library_ms"],
+            "tflops": fwd_train_row["tflops"]}}]
     for name in BWD_KERNELS:
         r = bwd_rows[name]
         rows.append({
@@ -1614,7 +1741,10 @@ def main() -> int:
             "library_ms": (None if name == "flash_bwd_delta"
                            else r["sdpa_backward_ms"]),
             "library_covers": (None if name == "flash_bwd_delta"
-                               else "delta + dkv + dq")})
+                               else "delta + dkv + dq"),
+            "max_rel_err": r["max_rel_err"], "tflops": r["tflops"]})
+        if name in bodies:
+            rows[-1].update({"design": "tma+wgmma", "ptxas": bodies[name]})
     rows.append({
         "name": "lstm_cell", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/lstm_cell.cu",
@@ -1653,6 +1783,10 @@ def main() -> int:
         "w2v_step_ms_median": w2v_row["step_ms_median"],
         "w2v_words_per_s": w2v_row["words_per_s"]})
     emit({"kernels": rows})
+    for name, info in bodies.items():
+        at128 = info.get("128", {})
+        check(at128.get("spill_stores") == 0 and at128.get("spill_loads") == 0,
+              f"{name}'s TMA body spills at D = 128: {info}")
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -1661,4 +1795,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -5,8 +5,8 @@
 //   - flash_bwd_delta  <- `_flash_bwd_delta_kernel` (:229):
 //       delta = rowsum(f32(dO) * f32(O)), one f32 per (batch*head, row);
 //   - flash_bwd_dkv    <- `_flash_bwd_dkv_kernel` (:241): one block per
-//       (batch*head, 64-key tile) loops over the query tiles and
-//       accumulates dV += P^T dO and dK += dS^T Q;
+//       (batch*head, key tile) loops over the query tiles and accumulates
+//       dV += P^T dO and dK += dS^T Q;
 //   - flash_bwd_dq     <- `_flash_bwd_dq_kernel` (:311): one block per
 //       (batch*head, 64-query tile) loops over the key tiles up to the
 //       forward's causal bound and accumulates dQ += dS K.
@@ -24,9 +24,10 @@
 // Rows and keys past a ragged end of the sequence get p = 0 and are never
 // stored, so any S runs here (the TPU path recomputed instead).
 // `attention_block_skip` changes no value on the TPU (the diagonal split
-// only skips a select that is the identity below the diagonal), so these
-// kernels mask every visited tile and skip only the tiles that are fully
-// masked, whatever the flag says.
+// only skips a select that is the identity below the diagonal), so the
+// kernels skip fully masked tiles and mask (every visited tile in the f32
+// and dQ bodies, only tiles that cross the diagonal or the ragged end in
+// the bf16 dK/dV body) whatever the flag says.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 67 TFLOP/s f32, 3.35 TB/s):
 //   dkv: max(8*B*H*S^2*D*(1/2 if causal) / peak,
@@ -37,17 +38,19 @@
 // At the training shape (B=32, S=512, H=16, D=128, bf16, causal) all three
 // are bound by bytes against the bf16 peak.
 //
-// Design (right first; not yet fast). One block of 256 threads per
-// (batch*head, 64-row tile); the TPU grid's sequential axis becomes a loop
-// over the other side's 64-row tiles, staged through shared memory. There
-// is no cp.async/TMA pipeline: loads and products take turns.
-//   - bf16 (the training path): flash_bwd_dkv_mma_kernel and
-//     flash_bwd_dq_mma_kernel. s = Q.K^T and dp = dO.V^T, whose operands
-//     are the exact bf16 inputs, run as mma.sync m16n8k16 with f32
-//     accumulators; p and ds are formed in f32 from the fragments and go
-//     through shared memory as f32; the products that take them (P^T dO,
-//     dS^T Q, dS K) are scalar f32 FMAs, since the tensor cores would round
-//     p and ds. See the section below for the tiling.
+// Design. The TPU grid's sequential axis becomes a loop over the other
+// side's tiles inside a block.
+//   - bf16 dK/dV (the training path): flash_bwd_dkv_tma_kernel, TMA ring,
+//     wgmma, warp specialisation, and p and ds at f32 fidelity through a
+//     hi/lo bf16 split; D of 64 or 128 (the wrapper zero-pads other head
+//     dims). See its section below.
+//   - bf16 dQ (the training path): flash_bwd_dq_mma_kernel, one block of
+//     256 threads per (batch*head, 64-query tile), key tiles staged through
+//     shared memory with no copy pipeline. s = Q.K^T and dp = dO.V^T, whose
+//     operands are the exact bf16 inputs, run as mma.sync m16n8k16 with f32
+//     accumulators; ds is formed in f32 from the fragments and goes through
+//     shared memory as f32; dQ += dS K is scalar f32 FMAs, since the tensor
+//     cores would round ds. See the section below for the tiling.
 //   - f32: flash_bwd_dkv_kernel and flash_bwd_dq_kernel do every product
 //     with scalar f32 FMAs (the tensor cores would round f32 operands to
 //     tf32). Tiles are widened to f32 in shared memory; each thread owns
@@ -63,32 +66,19 @@
 
 #include <atomic>
 
+#include "hopper.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using hopper::bf16;
 
-constexpr int kMaxDevices = 64;
+using hopper::kMaxDevices;
+using hopper::set_smem_once;
+
 constexpr int kTile = 64;             // query rows and keys per tile
 constexpr int kThreads = 256;
 constexpr int kLdp = kTile + 1;       // padded row of a score tile
 constexpr float kNegBig = -1e30f;
-
-// Raise a kernel's dynamic shared-memory limit to `bytes` once per device:
-// cudaFuncSetAttribute costs too much to repeat on every launch.
-template <typename Kernel>
-cudaError_t set_smem_once(Kernel kernel, size_t bytes,
-                          std::atomic<bool> (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
-  return err;
-}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -420,19 +410,18 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------ bf16, mma.sync
+// ------------------------------------------------------- bf16 dQ, mma.sync
 //
-// The bf16 kernels run the two products whose operands are the exact bf16
+// The dQ kernel runs the two products whose operands are the exact bf16
 // inputs, s = Q.K^T and dp = dO.V^T, on the tensor cores (mma.sync m16n8k16,
 // f32 accumulators), so they equal the f32 products up to summation order.
-// p and ds are formed in f32 from the accumulator fragments, and the three
-// products that take them (dV += P^T dO, dK += dS^T Q, dQ += dS K) stay f32
-// FMAs: rounding p or ds for the tensor cores would change the numerics.
+// ds is formed in f32 from the accumulator fragments, and dQ += dS K stays
+// f32 FMAs: rounding ds for the tensor cores would change the numerics.
 // Eight warps; for the scores, warp w owns query rows 16 (w & 3) .. +15 and
-// key columns 32 (w >> 2) .. +31 of the 64 x 64 tile. For the FMA products,
+// key columns 32 (w >> 2) .. +31 of the 64 x 64 tile. For the FMA product,
 // warp w owns 8 output rows (w * 8 ..) and lane l the columns l + 32 c, so
-// one float4 pair brings a warp's 8 values of p or ds per step. The tiles
-// stay bf16 in shared memory (about 100 KB a block at head_dim 128, so two
+// one float4 pair brings a warp's 8 values of ds per step. The tiles stay
+// bf16 in shared memory (about 100 KB a block at head_dim 128, so two
 // blocks fit on an SM) and are widened as they are read.
 
 constexpr int kLdS = kTile + 4;  // f32 row of p / ds: 16-byte aligned rows
@@ -529,124 +518,6 @@ __device__ __forceinline__ Probs probs(float s, float dp, int qpos, int kpos,
   if (causal && kpos > qpos) sv = kNegBig;
   const float p = (qpos < S && kpos < S) ? expf(sv - lse) : 0.f;
   return {p, p * (dp - delta) * scale};
-}
-
-template <int DMAX>
-constexpr size_t dkv_mma_smem() {
-  return sizeof(float) * (2 * kTile * kLdS + 2 * kTile) +
-         sizeof(bf16) * 4 * kTile * (DMAX + 8);
-}
-
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int H, int S, int D,
-                         long long q_sb, long long q_ss, long long k_sb,
-                         long long k_ss, long long v_sb, long long v_ss,
-                         long long do_sb, long long do_ss, float scale,
-                         int causal, int vec) {
-  constexpr int LD = DMAX + 8;   // conflict-free fragment loads
-  constexpr int kCols = DMAX / 32;
-  extern __shared__ uint4 smem_raw[];
-  float* Ps = reinterpret_cast<float*>(smem_raw);  // [query][key], kLdS
-  float* dSs = Ps + kTile * kLdS;
-  float* lse_t = dSs + kTile * kLdS;
-  float* delta_t = lse_t + kTile;
-  bf16* Kh = reinterpret_cast<bf16*>(delta_t + kTile);  // [kTile][LD]
-  bf16* Vh = Kh + kTile * LD;
-  bf16* Qh = Vh + kTile * LD;
-  bf16* dOh = Qh + kTile * LD;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int k0 = blockIdx.y * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int R = 16 * (warp & 3), KB = 32 * (warp >> 2);
-
-  const bf16* qb = q + b * q_sb + (long long)h * D;
-  const bf16* db = dout + b * do_sb + (long long)h * D;
-  stage_bf16<DMAX, LD>(Kh, k + b * k_sb + (long long)h * D + k0 * k_ss, k_ss,
-                       S - k0, D, vec);
-  stage_bf16<DMAX, LD>(Vh, v + b * v_sb + (long long)h * D + k0 * v_ss, v_ss,
-                       S - k0, D, vec);
-
-  float acc_k[8][kCols], acc_v[8][kCols];  // key rows warp*8 + i, cols lane+32c
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      acc_k[i][c] = 0.f;
-      acc_v[i][c] = 0.f;
-    }
-
-  const int nq = (S + kTile - 1) / kTile;
-  // query tiles that end before this tile's first key are fully masked
-  for (int qt = causal ? (int)blockIdx.y : 0; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the last tile's Q, dO, P and dS are consumed
-    stage_bf16<DMAX, LD>(Qh, qb + q0 * q_ss, q_ss, S - q0, D, vec);
-    stage_bf16<DMAX, LD>(dOh, db + q0 * do_ss, do_ss, S - q0, D, vec);
-    load_rows(lse_t, delta_t, lse, delta, (long long)bh * S + q0, S - q0);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    mma_scores<DMAX, LD>(Qh, dOh, Kh, Vh, R, KB, D, g, t, s, dp);
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rl = R + g + 8 * (e >> 1);
-        const int kl = KB + n * 8 + 2 * t + (e & 1);
-        const Probs pr = probs(s[n][e], dp[n][e], q0 + rl, k0 + kl, S,
-                               lse_t[rl], delta_t[rl], scale, causal);
-        Ps[rl * kLdS + kl] = pr.p;
-        dSs[rl * kLdS + kl] = pr.ds;
-      }
-    __syncthreads();
-
-    // dV[key][d] += sum_q P[q][key] dO[q][d];  dK[key][d] += dS[q][key] Q[q][d]
-    for (int r = 0; r < kTile; ++r) {
-      const float4* pp = reinterpret_cast<const float4*>(Ps + r * kLdS + warp * 8);
-      const float4* dd = reinterpret_cast<const float4*>(dSs + r * kLdS + warp * 8);
-      const float4 p0 = pp[0], p1 = pp[1], d0 = dd[0], d1 = dd[1];
-      const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      const float dsr[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float dov = __bfloat162float(dOh[r * LD + lane + 32 * c]);
-        const float qv = __bfloat162float(Qh[r * LD + lane + 32 * c]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          acc_v[i][c] = fmaf(pr[i], dov, acc_v[i][c]);
-          acc_k[i][c] = fmaf(dsr[i], qv, acc_k[i][c]);
-        }
-      }
-    }
-  }
-
-  const long long ss = (long long)H * D;  // outputs: contiguous [B, S, H, D]
-  bf16* dkb = dk + (long long)b * S * ss + (long long)h * D;
-  bf16* dvb = dv + (long long)b * S * ss + (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int kpos = k0 + warp * 8 + i;
-    if (kpos >= S) continue;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) {
-        dkb[kpos * ss + d] = __float2bfloat16_rn(acc_k[i][c]);
-        dvb[kpos * ss + d] = __float2bfloat16_rn(acc_v[i][c]);
-      }
-    }
-  }
 }
 
 template <int DMAX>
@@ -751,6 +622,267 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ------------------------------------------------ bf16 dK/dV, TMA + wgmma
+//
+// One block of three warpgroups per (batch*head, 128-key tile). Warpgroup 2
+// produces: `setmaxnreg` gives its registers to the consumers; one thread
+// loads K and V once and streams 64-query tiles of Q and dO by TMA, with
+// their lse and delta rows (a rank-1 map), into a three-stage ring (full /
+// empty mbarriers), twice. Warpgroups 0 and 1 each own 64 keys and make
+// two passes over the query tiles, one accumulator each: dV, then dK.
+// For each tile, in halves of 32 queries:
+//   S^T = K.Q^T (and in the dK pass dP^T = V.dO^T): wgmma m64n32k16, both
+//     operands K-major in shared memory (no transpose);
+//   P^T = exp(S^T scale - lse) (and dS^T = P^T (dP^T - delta) scale) in
+//     f32, on the accumulators, which are already laid out as the next
+//     product's A operand: nothing goes through shared memory;
+//   dV += P^T.dO or dK += dS^T.Q: wgmma with A from registers and dO or Q
+//     read from the ring as the MN-major (transposed) B operand.
+// One 64 x D accumulator at a time leaves room beside it for each
+// product's contiguous register block: with both, ptxas spills at D = 128.
+// The second pass recomputes S. (ptxas still serialises the D = 128 wgmma;
+// PERF.md.)
+// p and ds keep f32 fidelity on the bf16 tensor cores: each value x is
+// split into hi = bf16(x) and lo = bf16(x - hi), and both halves go into
+// the same f32 accumulator as two wgmma; the other operand (dO, Q) is an
+// exact bf16 input. The error per term is about 2^-17 relative, against
+// 2^-9 for one rounding. With the split and the second S, a head takes
+// seven [S, S, D] products of tensor work where the TPU kernel takes four:
+// about 0.12 ms at the training shape at 989 TFLOP/s, level with the
+// 0.12 ms byte bound.
+
+constexpr int kDkvBK = 128;       // keys per block: 2 consumer warpgroups
+constexpr int kDkvBQ = 64;        // queries per streamed tile
+constexpr int kDkvStages = 3;     // depth of the Q / dO ring
+constexpr int kDkvThreads = 384;  // warpgroups 0, 1 consume; 2 produces
+
+// Every box is [rows][64] bf16 with the 128-byte swizzle; the bf16 arrays
+// are multiples of 1024 bytes, so each box stays 1024-byte aligned.
+template <int D>
+struct DkvSmem {
+  bf16 k[D / 64][kDkvBK * 64];
+  bf16 v[D / 64][kDkvBK * 64];
+  bf16 q[kDkvStages][D / 64][kDkvBQ * 64];
+  bf16 dout[kDkvStages][D / 64][kDkvBQ * 64];
+  float lse[kDkvStages][kDkvBQ];
+  float delta[kDkvStages][kDkvBQ];
+  uint64_t kv_full;
+  uint64_t full[kDkvStages], empty[kDkvStages];
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+flash_bwd_dkv_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_lse,
+                         const __grid_constant__ CUtensorMap tm_delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                         int S, float scale, int causal) {
+  using namespace hopper;
+  constexpr int kBoxes = D / 64;
+  constexpr uint32_t kKBox = kDkvBK * 128, kQBox = kDkvBQ * 128;  // bytes
+  constexpr uint32_t kTileBytes = 2 * kBoxes * kQBox + 2 * kDkvBQ * 4;
+  extern __shared__ char tma_smem[];
+  DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(align_1024(tma_smem));
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  // blocks start in the order of blockIdx.y, and under causal masking the
+  // first key tiles meet the most query tiles: the heaviest go first
+  const int k0 = blockIdx.y * kDkvBK;
+  const int nq = (S + kDkvBQ - 1) / kDkvBQ;
+  // query tiles that end before this tile's first key are fully masked
+  const int first = causal ? k0 / kDkvBQ : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int st = 0; st < kDkvStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], 8);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread loads K and V once and keeps the ring full
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      prefetch_map(&tm_do);
+      mbar_expect_tx(&sm.kv_full, 2 * kBoxes * kKBox);
+      for (int c = 0; c < kBoxes; ++c) {
+        tma_load_4d(sm.k[c], &tm_k, &sm.kv_full, 64 * c, h, k0, b);
+        tma_load_4d(sm.v[c], &tm_v, &sm.kv_full, 64 * c, h, k0, b);
+      }
+      // the query tiles twice: the dV pass, then the dK pass
+      for (int i = 0; i < 2 * (nq - first); ++i) {
+        const int st = i % kDkvStages;
+        const int q0 = (first + i % (nq - first)) * kDkvBQ;
+        mbar_wait(&sm.empty[st], ((i / kDkvStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[st], kTileBytes);
+        for (int c = 0; c < kBoxes; ++c) {
+          tma_load_4d(sm.q[st][c], &tm_q, &sm.full[st], 64 * c, h, q0, b);
+          tma_load_4d(sm.dout[st][c], &tm_do, &sm.full[st], 64 * c, h, q0,
+                      b);
+        }
+        // rows past S read the next head's values (or zeros past the
+        // end); their p is masked to 0
+        tma_load_1d(sm.lse[st], &tm_lse, &sm.full[st], bh * S + q0);
+        tma_load_1d(sm.delta[st], &tm_delta, &sm.full[st], bh * S + q0);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns keys kw0 .. kw0 + 63, the accumulators'
+    // rows; the query tile is their columns
+    regs_inc<240>();
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32;
+    const int kw0 = k0 + 64 * wg;
+    const int key_lo = kw0 + 16 * warp + lane / 4;  // keys key_lo, key_lo + 8
+    const int t2 = 2 * (lane % 4);
+    const float scale_l2 = scale * kLog2e;
+
+    const uint64_t k_desc = desc_sw128(sm.k[0] + 64 * 64 * wg, 16, 1024);
+    const uint64_t v_desc = desc_sw128(sm.v[0] + 64 * 64 * wg, 16, 1024);
+    const long long ss = (long long)H * D;  // outputs: contiguous [B,S,H,D]
+    const long long out0 = (long long)b * S * ss + (long long)h * D;
+    mbar_wait(&sm.kv_full, 0);
+
+    // two passes over the query tiles, one accumulator each (see above):
+    // dV, which needs only S, then dK, which needs S and dP
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      float acc[D / 2];
+#pragma unroll
+      for (int a = 0; a < D / 2; ++a) acc[a] = 0.f;
+      for (int t = 0; t < nq - first; ++t) {
+        const int i = pass * (nq - first) + t;
+        const int st = i % kDkvStages;
+        const int q0 = (first + t) * kDkvBQ;
+        mbar_wait(&sm.full[st], (i / kDkvStages) & 1);
+        // a tile whose every query comes before every key here adds nothing
+        if (!(causal && q0 + kDkvBQ - 1 < kw0)) {
+          const bool masked = (causal && kw0 + 63 > q0) ||
+                              q0 + kDkvBQ > S || kw0 + 64 > S;
+          const uint64_t qd = desc_sw128(sm.q[st][0], 16, 1024);
+          const uint64_t dod = desc_sw128(sm.dout[st][0], 16, 1024);
+          // dO (dV pass) or Q (dK pass) as the MN-major B operand
+          const uint64_t bd = desc_sw128(pass == 0 ? sm.dout[st][0]
+                                                   : sm.q[st][0],
+                                         kQBox, 1024);
+          // two halves of 32 queries, one half's scores and fragments live
+          // at a time
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            // S^T = K.Q^T (and, in the dK pass, dP^T = V.dO^T) for queries
+            // 32 hf .. 32 hf + 31; each descriptor is rebuilt just before
+            // its wgmma (`fresh`): computed at once they overflow the
+            // uniform registers
+            float s[16], dp[16];
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+              // columns 16 kk ..: box kk / 4, 32 bytes a k-step in its
+              // rows; the half's 32 query rows start 4096 bytes in the box
+              const uint32_t off = (kk % 4) * 32;
+              wgmma_ss_n32(s, desc_at(fresh(k_desc), (kk / 4) * kKBox + off),
+                           desc_at(fresh(qd),
+                                   (kk / 4) * kQBox + hf * 4096 + off),
+                           kk);
+            }
+            if (pass == 1) {
+#pragma unroll
+              for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t off = (kk % 4) * 32;
+                wgmma_ss_n32(dp,
+                             desc_at(fresh(v_desc), (kk / 4) * kKBox + off),
+                             desc_at(fresh(dod),
+                                     (kk / 4) * kQBox + hf * 4096 + off),
+                             kk);
+              }
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(s);
+            if (pass == 1) fence_regs(dp);
+
+            // p (and ds) in f32, with the TPU kernel's masking where a tile
+            // crosses the diagonal or a ragged end (p = 0 there): element
+            // 8 kl + 2 x + c is key key_lo + 8 (x & 1) and query 32 hf +
+            // 16 kl + 8 (x >> 1) + t2 + c of the tile
+#pragma unroll
+            for (int kl = 0; kl < 2; ++kl)
+#pragma unroll
+              for (int x = 0; x < 4; ++x)
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                  const int e = 8 * kl + 2 * x + c;
+                  const int ql = 32 * hf + 16 * kl + 8 * (x >> 1) + t2 + c;
+                  float pv = exp2f(fmaf(s[e], scale_l2,
+                                        -sm.lse[st][ql] * kLog2e));
+                  if (masked) {
+                    const int qpos = q0 + ql, kpos = key_lo + 8 * (x & 1);
+                    if ((causal && kpos > qpos) || qpos >= S || kpos >= S)
+                      pv = 0.f;
+                  }
+                  s[e] = pass == 0
+                             ? pv
+                             : pv * (dp[e] - sm.delta[st][ql]) * scale;
+                }
+
+            // acc += P^T.dO or dS^T.Q over this half's 32 queries, each
+            // value split into hi and lo A fragments of k-step kl
+            uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+            for (int kl = 0; kl < 2; ++kl)
+#pragma unroll
+              for (int x = 0; x < 4; ++x)
+                split_bf16x2(s[8 * kl + 2 * x], s[8 * kl + 2 * x + 1],
+                             hi[kl][x], lo[kl][x]);
+            wgmma_fence();
+#pragma unroll
+            for (int kl = 0; kl < 2; ++kl) {
+              const uint64_t bb = desc_at(bd, (2 * hf + kl) * 2048);
+              if constexpr (D == 128) {
+                wgmma_rs_n128(acc, hi[kl], bb);
+                wgmma_rs_n128(acc, lo[kl], bb);
+              } else {
+                wgmma_rs_n64(acc, hi[kl], bb);
+                wgmma_rs_n64(acc, lo[kl], bb);
+              }
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(acc);
+            fence_regs(hi);
+            fence_regs(lo);
+          }
+        }
+        if (lane == 0) mbar_arrive(&sm.empty[st]);
+      }
+
+      // dV, then dK, rounded once to bf16; keys past S are never stored
+      bf16* out = (pass == 0 ? dv : dk) + out0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key_lo + 8 * r;
+        if (key >= S) continue;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<uint32_t*>(out + key * ss + 8 * n + t2) =
+              pack_bf16x2(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launchers
 
 struct Args {
@@ -807,21 +939,44 @@ cudaError_t launch_dq_f32(const Args& a) {
   return cudaGetLastError();
 }
 
+// bf16 dK/dV takes D of 64 or 128 on 16-byte aligned rows (the wrapper
+// pads other shapes); DMAX is the head_dim bucket
 template <int DMAX>
 cudaError_t launch_dkv_bf16(const Args& a) {
-  auto kernel = flash_bwd_dkv_mma_kernel<DMAX>;
-  constexpr size_t smem = dkv_mma_smem<DMAX>();
-  static std::atomic<bool> smem_set[kMaxDevices];
-  cudaError_t err = set_smem_once(kernel, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.S,
-      a.D, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss,
-      a.scale, a.causal, (int)can_vectorize(a));
-  return cudaGetLastError();
+  using namespace hopper;
+  if constexpr (DMAX != 64 && DMAX != 128) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (a.D != DMAX || !tma_heads_ok(a.q, DMAX, a.q_ss, a.q_sb) ||
+        !tma_heads_ok(a.k, DMAX, a.k_ss, a.k_sb) ||
+        !tma_heads_ok(a.v, DMAX, a.v_ss, a.v_sb) ||
+        !tma_heads_ok(a.dout, DMAX, a.do_ss, a.do_sb))
+      return cudaErrorInvalidValue;
+    CUtensorMap mq, mk, mv, mdo, mlse, mdelta;
+    cudaError_t err =
+        heads_map(&mq, a.q, a.B, a.S, a.H, DMAX, a.q_ss, a.q_sb, kDkvBQ);
+    if (err == cudaSuccess)
+      err = heads_map(&mk, a.k, a.B, a.S, a.H, DMAX, a.k_ss, a.k_sb, kDkvBK);
+    if (err == cudaSuccess)
+      err = heads_map(&mv, a.v, a.B, a.S, a.H, DMAX, a.v_ss, a.v_sb, kDkvBK);
+    if (err == cudaSuccess)
+      err = heads_map(&mdo, a.dout, a.B, a.S, a.H, DMAX, a.do_ss, a.do_sb,
+                      kDkvBQ);
+    const long long rows = (long long)a.B * a.H * a.S;
+    if (err == cudaSuccess) err = rows_map(&mlse, a.lse, rows, kDkvBQ);
+    if (err == cudaSuccess) err = rows_map(&mdelta, a.delta, rows, kDkvBQ);
+    if (err != cudaSuccess) return err;
+    const size_t smem = sizeof(DkvSmem<DMAX>) + 1024;  // + alignment slack
+    auto kernel = flash_bwd_dkv_tma_kernel<DMAX>;
+    static std::atomic<bool> smem_set[kMaxDevices];
+    err = set_smem_once(kernel, smem, smem_set);
+    if (err != cudaSuccess) return err;
+    dim3 grid(a.B * a.H, (a.S + kDkvBK - 1) / kDkvBK);
+    kernel<<<grid, kDkvThreads, smem, a.stream>>>(
+        mq, mk, mv, mdo, mlse, mdelta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.H, a.S, a.scale, a.causal);
+    return cudaGetLastError();
+  }
 }
 
 template <int DMAX>

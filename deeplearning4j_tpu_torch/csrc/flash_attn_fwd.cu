@@ -22,18 +22,27 @@
 // At the serving shape (B=8, S=512, H=16, D=128, bf16, causal) the byte
 // term is larger: about 67 MB, about 20 us.
 //
-// Design. Both kernels give one block one (batch*head, 64-row query tile)
-// and turn the TPU grid's sequential kv axis into a loop over key tiles
-// staged through shared memory; causal tiles past the diagonal are never
-// visited.
-//   - bf16 (the serving path): flash_fwd_mma_kernel. Four warps, 16 query
-//     rows each, 64-key tiles. Q.K^T and P.V run on the tensor cores as
-//     mma.sync m16n8k16 (bf16 operands, f32 accumulators). The query
-//     fragments stay in registers for the whole loop; the score fragments
-//     become the A operand of P.V in registers (rounded to bf16), so P never
-//     goes through shared memory; V's B fragments come from ldmatrix.trans.
-//     Row max and row sum reduce over the 4 threads of a quad. There is no
-//     cp.async/TMA pipeline and no wgmma yet: loads and products take turns.
+// Design. The TPU grid's sequential kv axis becomes a loop over key tiles
+// inside a block; causal tiles past the diagonal are never visited.
+//   - bf16 (the serving and training paths): flash_fwd_tma_kernel, one
+//     block of three warpgroups per (batch*head, 128-query tile), D of 64
+//     or 128 (the wrapper zero-pads other head dims). Warpgroup 2 is the
+//     producer: `setmaxnreg` gives its registers to the consumers, and one
+//     of its threads loads Q once and streams 128-key K and V tiles by TMA
+//     (rank-4 tensor maps over the strided [B, S, H, D] views, [rows][64]
+//     boxes, 128-byte swizzle, zeros past S) into a two-stage ring with
+//     full / empty mbarriers, so loads overlap the products. Warpgroups 0
+//     and 1 each own 64 query rows: S = (q*scale).K^T is wgmma m64n128k16
+//     with both operands K-major in shared memory; the online softmax runs
+//     on the f32 accumulators in base 2 (exp2f, log2(e) folded into the
+//     scores); P, rounded to bf16 in registers, is the A operand of
+//     O += P.V (wgmma, V the MN-major B operand read in place). Masks run
+//     only on tiles that cross the diagonal or the ragged end (elsewhere
+//     the select is the identity, the TPU kernel's block_skip), and the
+//     heaviest causal query tiles launch first. The bound at the path's
+//     shapes is bytes; what is left between the kernel and it is the
+//     softmax between the two products (no ping-pong of the two warpgroups
+//     yet) and the unstaged output stores: PERF.md.
 //   - f32: flash_fwd_kernel, scalar f32 FMAs on the CUDA cores (the tensor
 //     cores would round f32 operands to tf32). 256 threads, 32-key tiles;
 //     each thread owns 4 query rows x 2 key columns of the score tile and
@@ -46,27 +55,12 @@
 
 #include <atomic>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kMaxDevices = 64;
-
-// Raise a kernel's dynamic shared-memory limit to `bytes` once per device:
-// cudaFuncSetAttribute is a driver call, too costly for every launch.
-// `done` is one flag per device, owned by the caller's kernel instance.
-template <typename Kernel>
-cudaError_t set_smem_once(Kernel kernel, size_t bytes,
-                          std::atomic<bool> (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
-  return err;
-}
+using hopper::kMaxDevices;
+using hopper::set_smem_once;
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 32;
@@ -233,256 +227,259 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------ bf16, mma.sync
+// -------------------------------------------------------- bf16, TMA + wgmma
 
-typedef __nv_bfloat16 bf16;
+using hopper::bf16;
 
-constexpr int kMmaBlockQ = 64;   // 4 warps x 16 query rows
-constexpr int kMmaBlockK = 64;   // keys per tile: 8 n-tiles of the scores
-constexpr int kMmaThreads = 128;
+constexpr int kTmaBM = 128;       // queries per block: 2 consumer warpgroups
+constexpr int kTmaBN = 128;       // keys per tile
+constexpr int kTmaStages = 2;     // depth of the K/V ring
+constexpr int kTmaThreads = 384;  // warpgroups 0, 1 consume; 2 produces
+
+// Every box is [rows][64] bf16 with the 128-byte swizzle; every array size
+// is a multiple of 1024 bytes, so each box stays 1024-byte aligned.
+template <int D>
+struct FwdSmem {
+  bf16 q[D / 64][kTmaBM * 64];
+  bf16 k[kTmaStages][D / 64][kTmaBN * 64];
+  bf16 v[kTmaStages][D / 64][kTmaBN * 64];
+  uint64_t q_full;
+  uint64_t k_full[kTmaStages], v_full[kTmaStages], empty[kTmaStages];
+};
 
 union Pack8 {  // 8 bf16 = one 16-byte load or store
   uint4 u;
   bf16 h[8];
 };
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// d (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stage `rows` rows of a [*, D] head slice (row stride `ss` elements) into a
-// [kMmaBlockQ][LD] shared tile, zero past row `valid` and past column D.
-// Each row is 8-element chunks: one 16-byte load where `vec` says the
-// strides and pointers allow it, else one element at a time.
-template <int DMAX, int LD>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
-                                           long long ss, int valid, int D,
-                                           bool vec, float scale, bool scaled) {
-  constexpr int kChunks = DMAX / 8;
-  for (int i = threadIdx.x; i < kMmaBlockK * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks;
-    const int d = (i - r * kChunks) * 8;
-    Pack8 p;
-    p.u = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) {
-      const bf16* row = src + r * ss;
-      if (vec && d + 8 <= D) {
-        p.u = *reinterpret_cast<const uint4*>(row + d);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (d + e < D) p.h[e] = row[d + e];
-      }
-      if (scaled) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          p.h[e] = __float2bfloat16_rn(__bfloat162float(p.h[e]) * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + d) = p.u;
-  }
-}
-
-template <int DMAX>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int H, int S, int D,
-                     long long q_sb, long long q_ss, long long k_sb,
-                     long long k_ss, long long v_sb, long long v_ss,
-                     float scale, int causal, int vec) {
-  // row stride DMAX + 8 elements: the 8 rows a fragment load touches start
-  // 4 banks apart, so 32-bit fragment loads and ldmatrix are conflict-free
-  constexpr int LD = DMAX + 8;
-  constexpr int kSteps = DMAX / 16;  // k-steps of Q.K^T, n-tile pairs of P.V
-  extern __shared__ uint4 smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [64][LD], Q first
-  bf16* Vs = Ks + kMmaBlockK * LD;                // [64][LD]
+template <int D>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     bf16* __restrict__ o, float* __restrict__ lse, int H,
+                     int S, float scale, int causal) {
+  using namespace hopper;
+  constexpr int kBoxes = D / 64;
+  constexpr uint32_t kQBox = kTmaBM * 128, kKBox = kTmaBN * 128;  // bytes
+  extern __shared__ char smem_raw[];
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(align_1024(smem_raw));
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.y * kMmaBlockQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row (and row + 8)
-  const int t = lane & 3;   // fragment column pair
-  const int r0 = warp * 16;
-
-  const bf16* qb = q + b * q_sb + (long long)h * D + q0 * q_ss;
-  const bf16* kb = k + b * k_sb + (long long)h * D;
-  const bf16* vb = v + b * v_sb + (long long)h * D;
-
-  // q * scale rounded to bf16, staged through the K buffer into registers
-  const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
-  stage_tile<DMAX, LD>(Ks, qb, q_ss, S - q0, D, vec, scale_t, true);
-  __syncthreads();
-  uint32_t qf[kSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const bf16* base = Ks + (r0 + g) * LD + ks * 16 + 2 * t;
-    qf[ks][0] = *reinterpret_cast<const uint32_t*>(base);
-    qf[ks][1] = *reinterpret_cast<const uint32_t*>(base + 8 * LD);
-    qf[ks][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    qf[ks][3] = *reinterpret_cast<const uint32_t*>(base + 8 * LD + 8);
-  }
-
-  float acc[2 * kSteps][4];  // 16 rows x DMAX: n-tiles of 8 columns
-#pragma unroll
-  for (int n = 0; n < 2 * kSteps; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {kNegBig, kNegBig};  // rows g and g + 8
-  float l[2] = {0.f, 0.f};          // this thread's part of the row sums
-
-  int nk = (S + kMmaBlockK - 1) / kMmaBlockK;
+  // the causal work of a query tile grows with its index, and blocks start
+  // in the order of blockIdx.y: the heaviest tiles go first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTmaBM;
+  int nk = (S + kTmaBN - 1) / kTmaBN;
   if (causal) {
-    const int needed = (q0 + kMmaBlockQ + kMmaBlockK - 1) / kMmaBlockK;
+    // tiles whose first key lies past this tile's last query add nothing
+    const int needed = (q0 + kTmaBM + kTmaBN - 1) / kTmaBN;
     nk = nk < needed ? nk : needed;
   }
-  const int qrow[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  const uint32_t vs_addr = (uint32_t)__cvta_generic_to_shared(Vs);
+  const int wg = threadIdx.x / 128;
 
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kMmaBlockK;
-    __syncthreads();  // Q fragments loaded (j == 0); last tile consumed
-    stage_tile<DMAX, LD>(Ks, kb + k0 * k_ss, k_ss, S - k0, D, vec, 0.f,
-                         false);
-    stage_tile<DMAX, LD>(Vs, vb + k0 * v_ss, v_ss, S - k0, D, vec, 0.f,
-                         false);
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int st = 0; st < kTmaStages; ++st) {
+      mbar_init(&sm.k_full[st], 1);
+      mbar_init(&sm.v_full[st], 1);
+      mbar_init(&sm.empty[st], 8);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-      if (ks * 16 < D) {  // zero padding past D adds nothing
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const bf16* base = Ks + (n * 8 + g) * LD + ks * 16 + 2 * t;
-          mma_bf16(s[n], qf[ks], *reinterpret_cast<const uint32_t*>(base),
-                   *reinterpret_cast<const uint32_t*>(base + 8));
-        }
+  if (wg == 2) {
+    // producer: one thread keeps the ring full
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      mbar_expect_tx(&sm.q_full, kBoxes * kQBox);
+      for (int c = 0; c < kBoxes; ++c)
+        tma_load_4d(sm.q[c], &tm_q, &sm.q_full, 64 * c, h, q0, b);
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % kTmaStages;
+        mbar_wait(&sm.empty[st], ((j / kTmaStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.k_full[st], kBoxes * kKBox);
+        for (int c = 0; c < kBoxes; ++c)
+          tma_load_4d(sm.k[st][c], &tm_k, &sm.k_full[st], 64 * c, h,
+                      j * kTmaBN, b);
+        mbar_expect_tx(&sm.v_full[st], kBoxes * kKBox);
+        for (int c = 0; c < kBoxes; ++c)
+          tma_load_4d(sm.v[st][c], &tm_v, &sm.v_full[st], 64 * c, h,
+                      j * kTmaBN, b);
       }
     }
+  } else {
+    // consumers: warpgroup wg owns query rows qw0 .. qw0 + 63
+    regs_inc<240>();
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32;
+    const int qw0 = q0 + 64 * wg;
+    const int r_lo = qw0 + 16 * warp + lane / 4;  // rows r_lo and r_lo + 8
+    const int t2 = 2 * (lane % 4);
 
-    // mask, then the online softmax update of rows g (e = 0, 1) and g + 8
-    float mx[2] = {kNegBig, kNegBig};
+    // q * scale rounded to bf16 (the scale rounded first, as a weakly typed
+    // scalar is in JAX), in place on this warpgroup's rows of each box; the
+    // swizzle moves whole 16-byte chunks, so the rows are contiguous bytes
+    mbar_wait(&sm.q_full, 0);
+    const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
+    for (int c = 0; c < kBoxes; ++c) {
+      uint4* rows = reinterpret_cast<uint4*>(sm.q[c] + 64 * 64 * wg);
+      for (int i = tid; i < 64 * 64 / 8; i += 128) {
+        Pack8 p;
+        p.u = rows[i];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + n * 8 + 2 * t + (e & 1);
-        if (kpos >= S) {
-          s[n][e] = -INFINITY;
-        } else if (causal && kpos > qrow[e >> 1]) {
-          s[n][e] = kNegBig;
-        }
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        for (int e = 0; e < 8; ++e)
+          p.h[e] = __float2bfloat16_rn(__bfloat162float(p.h[e]) * scale_t);
+        rows[i] = p.u;
       }
-    float alpha[2];
+    }
+    fence_proxy_async();
+    bar_sync(1 + wg, 128);
+
+    const uint64_t q_desc = desc_sw128(sm.q[0] + 64 * 64 * wg, 16, 1024);
+    float acc[D / 2];
+#pragma unroll
+    for (int a = 0; a < D / 2; ++a) acc[a] = 0.f;
+    float m[2] = {kNegBig, kNegBig};  // rows r_lo and r_lo + 8
+    float l[2] = {0.f, 0.f};          // this thread's part of the row sums
+
+    for (int j = 0; j < nk; ++j) {
+      const int st = j % kTmaStages;
+      const uint32_t par = (j / kTmaStages) & 1;
+      const int k0 = j * kTmaBN;
+
+      // s = (q * scale) . k^T: 64 x kTmaBN, K-major operands
+      float s[kTmaBN / 2];
+      const uint64_t qd = fresh(q_desc);
+      const uint64_t kd = desc_sw128(sm.k[st][0], 16, 1024);
+      mbar_wait(&sm.k_full[st], par);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // columns 16 kk ..: box kk / 4, 32 bytes a k-step within its rows
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss_n128(s, desc_at(qd, (kk / 4) * kQBox + off),
+                      desc_at(kd, (kk / 4) * kKBox + off), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // masks only where a tile crosses the diagonal or the ragged end:
+      // elsewhere they select every score unchanged
+      if (k0 + kTmaBN > S || (causal && k0 + kTmaBN - 1 > qw0)) {
+#pragma unroll
+        for (int n = 0; n < kTmaBN / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * n + t2 + (e & 1);
+            if (kpos >= S) {
+              s[4 * n + e] = -INFINITY;
+            } else if (causal && kpos > r_lo + 8 * (e >> 1)) {
+              s[4 * n + e] = kNegBig;
+            }
+          }
+      }
+
+      // online softmax in base 2: log2(e) folded into the f32 scores
+      float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+      for (int a = 0; a < kTmaBN / 2; ++a)
+        mx[(a >> 1) & 1] = fmaxf(mx[(a >> 1) & 1], s[a]);
+      float alpha[2], ms[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        alpha[i] = exp2f((m[i] - m_new) * kLog2e);
+        m[i] = m_new;
+        ms[i] = m_new * kLog2e;
+        l[i] *= alpha[i];
+      }
+      // p rounded to bf16 as the A operand of P.V; l sums the unrounded p
+      uint32_t pa[kTmaBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kTmaBN / 16; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int i = x & 1;
+          const float p0 = exp2f(fmaf(s[8 * kk + 2 * x], kLog2e, -ms[i]));
+          const float p1 = exp2f(fmaf(s[8 * kk + 2 * x + 1], kLog2e, -ms[i]));
+          l[i] += p0 + p1;
+          pa[kk][x] = pack_bf16x2(p0, p1);
+        }
+#pragma unroll
+      for (int a = 0; a < D / 2; ++a) acc[a] *= alpha[(a >> 1) & 1];
+
+      // acc += p . v: V is [keys][D], D contiguous, the MN-major B operand
+      const uint64_t v_desc = desc_sw128(sm.v[st][0], kKBox, 1024);
+      mbar_wait(&sm.v_full[st], par);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTmaBN / 16; ++kk) {
+        if constexpr (D == 128)
+          wgmma_rs_n128(acc, pa[kk], desc_at(v_desc, kk * 2048));
+        else
+          wgmma_rs_n64(acc, pa[kk], desc_at(v_desc, kk * 2048));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      if (lane == 0) mbar_arrive(&sm.empty[st]);
+    }
+
+    const long long o_ss = (long long)H * D;
+    bf16* ob = o + (long long)b * S * o_ss + (long long)h * D;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha[i];
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const float lc = fmaxf(l[i], 1e-30f);
+      const int row = r_lo + 8 * i;
+      if (row >= S) continue;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(ob + row * o_ss + 8 * n + t2) =
+            pack_bf16x2(acc[4 * n + 2 * i] / lc, acc[4 * n + 2 * i + 1] / lc);
+      if (lse != nullptr && t2 == 0)
+        lse[(long long)bh * S + row] = m[i] + logf(lc);
     }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
-        l[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int n = 0; n < 2 * kSteps; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-
-    // P.V: the score fragments of keys 16kk..16kk+15 are the A fragment
-#pragma unroll
-    for (int kk = 0; kk < kMmaBlockK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int dn = 0; dn < kSteps; ++dn) {
-        if (dn * 16 >= D) continue;
-        const uint32_t addr = vs_addr + (uint32_t)(
-            (vrow * LD + dn * 16 + (lane >> 4) * 8) * sizeof(bf16));
-        uint32_t b0, b1, b2, b3;
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-            "{%0,%1,%2,%3}, [%4];\n"
-            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-            : "r"(addr));
-        mma_bf16(acc[2 * dn], a, b0, b1);
-        mma_bf16(acc[2 * dn + 1], a, b2, b3);
-      }
-    }
-  }
-
-  const long long o_ss = (long long)H * D;
-  bf16* ob = o + (long long)b * S * o_ss + (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const float lc = fmaxf(l[i], 1e-30f);
-    if (qrow[i] >= S) continue;
-#pragma unroll
-    for (int n = 0; n < 2 * kSteps; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + 2 * t + e;
-        if (d < D)
-          ob[qrow[i] * o_ss + d] = __float2bfloat16_rn(acc[n][2 * i + e] / lc);
-      }
-    if (lse != nullptr && t == 0) lse[(long long)bh * S + qrow[i]] = m[i] + logf(lc);
   }
 }
 
-template <int DMAX>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int B, int H, int S, int D, long long q_sb,
+template <int D>
+cudaError_t launch_tma(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int B, int H, int S, long long q_sb,
                        long long q_ss, long long k_sb, long long k_ss,
                        long long v_sb, long long v_ss, float scale, int causal,
                        cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * 2 * kMmaBlockK * (DMAX + 8);
-  // 16-byte loads need 8-element aligned rows and 16-byte aligned bases
-  const bool vec = D % 8 == 0 && q_ss % 8 == 0 && k_ss % 8 == 0 &&
-                   v_ss % 8 == 0 && q_sb % 8 == 0 && k_sb % 8 == 0 &&
-                   v_sb % 8 == 0 && ((uintptr_t)q | (uintptr_t)k |
-                                     (uintptr_t)v) % 16 == 0;
-  auto kernel = flash_fwd_mma_kernel<DMAX>;
-  static std::atomic<bool> smem_set[kMaxDevices];
-  cudaError_t err = set_smem_once(kernel, smem, smem_set);
+  using namespace hopper;
+  if (!tma_heads_ok(q, D, q_ss, q_sb) || !tma_heads_ok(k, D, k_ss, k_sb) ||
+      !tma_heads_ok(v, D, v_ss, v_sb))
+    return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = heads_map(&mq, q, B, S, H, D, q_ss, q_sb, kTmaBM);
+  if (err == cudaSuccess)
+    err = heads_map(&mk, k, B, S, H, D, k_ss, k_sb, kTmaBN);
+  if (err == cudaSuccess)
+    err = heads_map(&mv, v, B, S, H, D, v_ss, v_sb, kTmaBN);
   if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (S + kMmaBlockQ - 1) / kMmaBlockQ);
-  kernel<<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, S, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-      scale, causal, (int)vec);
+  const size_t smem = sizeof(FwdSmem<D>) + 1024;  // + alignment slack
+  auto kernel = flash_fwd_tma_kernel<D>;
+  static std::atomic<bool> smem_set[kMaxDevices];
+  err = set_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(B * H, (S + kTmaBM - 1) / kTmaBM);
+  kernel<<<grid, kTmaThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(o), static_cast<float*>(lse), H, S,
+      scale, causal);
   return cudaGetLastError();
 }
 
@@ -536,9 +533,15 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     return (int)launch_f32<128>(DL4J_FLASH_ARGS);
   }
   if (dtype == 1) {
-    if (D <= 32) return (int)launch_mma<32>(DL4J_FLASH_ARGS);
-    if (D <= 64) return (int)launch_mma<64>(DL4J_FLASH_ARGS);
-    return (int)launch_mma<128>(DL4J_FLASH_ARGS);
+    // bf16 takes D of 64 or 128 on 16-byte aligned rows (the wrapper pads
+    // other shapes)
+    if (D == 64)
+      return (int)launch_tma<64>(q, k, v, o, lse, B, H, S, q_sb, q_ss, k_sb,
+                                 k_ss, v_sb, v_ss, scale, causal, st);
+    if (D == 128)
+      return (int)launch_tma<128>(q, k, v, o, lse, B, H, S, q_sb, q_ss,
+                                  k_sb, k_ss, v_sb, v_ss, scale, causal, st);
+    return (int)cudaErrorInvalidValue;
   }
 #undef DL4J_FLASH_ARGS
   return (int)cudaErrorInvalidValue;

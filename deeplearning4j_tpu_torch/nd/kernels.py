@@ -18,15 +18,20 @@ Each kernel has, beside it here:
 
 Kernels ported so far (see ROADMAP.md queue B for the rest):
 - `flash_attention`: `_flash_attn_kernel` forward, with the optional
-  logsumexp residual (`csrc/flash_attn_fwd.cu`);
+  logsumexp residual (`csrc/flash_attn_fwd.cu`; bf16 on TMA and `wgmma`);
 - `flash_bwd_delta`, `flash_bwd_dkv`, `flash_bwd_dq`: the three kernels of
   the fused backward, `_flash_bwd_delta_kernel`, `_flash_bwd_dkv_kernel`
-  and `_flash_bwd_dq_kernel` (`csrc/flash_attn_bwd.cu`), wired to the
-  forward by `FlashAttentionFunction`;
+  and `_flash_bwd_dq_kernel` (`csrc/flash_attn_bwd.cu`; bf16 dK/dV on TMA
+  and `wgmma`), wired to the forward by `FlashAttentionFunction`;
 - `lstm_cell`: `_lstm_cell_kernel`, one fused LSTM cell update
   (`csrc/lstm_cell.cu`), with `LSTMCellFunction` for its gradient;
 - `scatter_add_rows`: `_scatter_add_kernel`, the embedding-row scatter-add
   (`csrc/scatter_add.cu`), the backward of `gather_rows`.
+
+The bf16 flash forward and dK/dV kernels read their inputs by TMA, which
+takes a head dim of 64 or 128 on 16-byte aligned rows; `tma_heads` is the
+rule for other inputs (zero-padded contiguous copies, counted in
+`PAD_COPIES`). `csrc/hopper.cuh` holds what those two kernels share.
 """
 
 from __future__ import annotations
@@ -34,10 +39,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
@@ -68,7 +74,8 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-#: library name -> the compiler's output of its last build (ptxas -v)
+#: library name -> the compiler's output of its build (ptxas -v), also kept
+#: beside the library as `<library>.log`
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -94,10 +101,38 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
-def _lib_path(name: str) -> str:
-    with open(os.path.join(_CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_files(path: str, csrc: str) -> List[str]:
+    """`path` and every header under `csrc` that it includes with quotes,
+    directly or through another header, each once, in include order."""
+    seen: List[str] = []
+    todo = [path]
+    while todo:
+        cur = todo.pop(0)
+        if cur in seen:
+            continue
+        seen.append(cur)
+        with open(cur, encoding="utf-8") as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            hdr = os.path.join(csrc, inc)
+            if os.path.exists(hdr):
+                todo.append(hdr)
+    return seen
+
+
+def _lib_path(name: str, csrc: str = _CSRC,
+              build_dir: str = BUILD_DIR) -> str:
+    """Where the library `name` is built: named by a hash of its source and
+    of every header under `csrc` the source includes, so that a changed
+    header builds a new library."""
+    digest = hashlib.sha256()
+    for path in _source_files(os.path.join(csrc, SOURCES[name]), csrc):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(build_dir, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
@@ -113,6 +148,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     for name in names:
         out = _lib_path(name)
         if os.path.exists(out):
+            if os.path.exists(out + ".log"):
+                with open(out + ".log", encoding="utf-8") as f:
+                    BUILD_LOGS[name] = f.read()
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
@@ -128,6 +166,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         if proc.returncode != 0:
             errors.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        with open(out + ".log", "w", encoding="utf-8") as f:
+            f.write(log)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
@@ -181,7 +221,8 @@ def _check(err: int, what: str) -> None:
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = False,
-                              with_lse: bool = False):
+                              with_lse: bool = False,
+                              scale: Optional[float] = None):
     """Plain PyTorch version of the flash-attention forward kernel, with the
     kernel's numerics: q * scale rounded in the input dtype, f32 scores,
     -1e30 causal masking, p rounded to v's dtype before P.V, and
@@ -189,11 +230,13 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     once (the kernel's online rescaling changes only f32 rounding).
 
     q, k, v: [B, S, H, D]. Returns o [B, S, H, D] in q's dtype and, with
-    `with_lse`, the logsumexp residual [B*H, S, 1] f32."""
+    `with_lse`, the logsumexp residual [B*H, S, 1] f32. `scale` defaults to
+    1 / sqrt(D) (a zero-padded D keeps the original one)."""
     b, s, h, d = q.shape
     # the scale rounded to q's dtype on the host, as the kernel rounds it;
     # a Python float keeps the function free of host-to-device copies
-    scale = float(torch.tensor(1.0 / (d ** 0.5), dtype=q.dtype))
+    scale = float(torch.tensor(1.0 / (d ** 0.5) if scale is None else scale,
+                               dtype=q.dtype))
     qs = (q * scale).permute(0, 2, 1, 3).float()          # [B, H, S, D]
     kf = k.permute(0, 2, 1, 3).float()
     scores = qs @ kf.transpose(-1, -2)                     # [B, H, S, S]
@@ -264,6 +307,63 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+#: plain PyTorch copies made around the bf16 TMA kernels for inputs that a
+#: tensor map cannot describe (`tma_heads`, `tma_slice`); the serving and
+#: training paths make none
+PAD_COPIES = 0
+
+
+def tma_width(d: int) -> int:
+    """The head dim the bf16 TMA kernels run a head dim d at: 64 or 128."""
+    return 64 if d <= 64 else 128
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether a tensor map reads t ([B, S, H, D], unit stride over D and
+    stride D over H) in place: D of 64 or 128, the sequence and batch
+    strides and the base 16-byte aligned in bf16."""
+    return (t.shape[3] in (64, 128) and t.stride(1) % 8 == 0
+            and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0)
+
+
+def _count_copy() -> None:
+    global PAD_COPIES
+    with _lock:
+        PAD_COPIES += 1
+
+
+def tma_heads(*ts: torch.Tensor) -> List[torch.Tensor]:
+    """The rule for [B, S, H, D] inputs of one D that the bf16 TMA kernels
+    cannot read in place: each comes back as it is where a tensor map can
+    describe it, else as a contiguous copy zero-padded along D to
+    `tma_width(D)`. Zero columns change neither Q.K^T nor the first D
+    columns of P.V, dK or dV; the caller keeps the original D's scale and
+    cuts the outputs back with `tma_slice`. Plain copies around the kernel,
+    not a fallback: the kernel still runs. Each copy counts in
+    PAD_COPIES."""
+    d = ts[0].shape[3]
+    width = tma_width(d)
+    out = []
+    for t in ts:
+        if d == width and _tma_ready(t):
+            out.append(t)
+            continue
+        padded = t.new_zeros(tuple(t.shape[:3]) + (width,))
+        padded[..., :d] = t
+        out.append(padded)
+        _count_copy()
+    return out
+
+
+def tma_slice(t: torch.Tensor, d: int) -> torch.Tensor:
+    """An output of a padded launch cut back to head dim d, contiguous (a
+    counted copy); t itself when it already has d."""
+    if t.shape[3] == d:
+        return t
+    _count_copy()
+    return t[..., :d].contiguous()
+
+
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = False, with_lse: bool = False):
     """Wrapper of the flash-attention forward kernel over [B, S, H, D]
@@ -279,19 +379,24 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_reference(q, k, v, causal, with_lse)
     _check_heads("flash_attention", q=q, k=k, v=v)
     b, s, h, d = q.shape
+    scale = 1.0 / (d ** 0.5)
+    if q.dtype == torch.bfloat16:
+        q, k, v = tma_heads(q, k, v)
+    width = q.shape[3]
     lib = _library("flash_attn_fwd")
-    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    o = torch.empty((b, s, h, width), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b * h, s, 1), dtype=torch.float32, device=q.device)
            if with_lse else None)
     with torch.cuda.device(q.device):
         err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, h, s, d,
+            None if lse is None else lse.data_ptr(), b, h, s, width,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), 1.0 / (d ** 0.5), int(bool(causal)),
+            v.stride(0), v.stride(1), scale, int(bool(causal)),
             _dtype_code(q), _stream(q))
     _check(err, "flash_attn_fwd")
     _count("flash_attn_fwd")
+    o = tma_slice(o, d)
     return (o, lse) if with_lse else o
 
 
@@ -308,13 +413,13 @@ def _rows(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return t.reshape(b, h, s, 1)
 
 
-def _bwd_probs(q, k, v, do, lse, delta, causal):
+def _bwd_probs(q, k, v, do, lse, delta, causal, scale=None):
     """What the dK/dV and dQ kernels share: f32 q, k and dO in [B, H, S, D]
     and, over the whole [S, S], p = exp(s * scale - lse) with -1e30 causal
-    masking and ds = p * (dO V^T - delta) * scale, in f32. q is not
-    pre-rounded, unlike the forward."""
+    masking and ds = p * (dO V^T - delta) * scale, in f32 (scale 1 /
+    sqrt(D) unless given). q is not pre-rounded, unlike the forward."""
     s_len, d = q.shape[1], q.shape[3]
-    scale = 1.0 / (d ** 0.5)
+    scale = 1.0 / (d ** 0.5) if scale is None else scale
     qf, kf, vf, dof = (_to_bhsd(t) for t in (q, k, v, do))
     s = (qf @ kf.transpose(-1, -2)) * scale
     if causal:
@@ -340,12 +445,13 @@ def flash_bwd_delta_reference(o: torch.Tensor,
     return rows.permute(0, 2, 1).reshape(b * h, s, 1).contiguous()
 
 
-def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = False):
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = False,
+                            scale: Optional[float] = None):
     """Plain version of the dK/dV kernel, its arithmetic over the whole
     [S, S] at once: dV = P^T dO and dK = dS^T Q in f32, cast to k's and
     v's dtype. Inputs [B, S, H, D], lse and delta [B*H, S, 1]; returns
-    (dk, dv) as contiguous [B, S, H, D]."""
-    qf, _, dof, p, ds = _bwd_probs(q, k, v, do, lse, delta, causal)
+    (dk, dv) as contiguous [B, S, H, D]. `scale` defaults to 1 / sqrt(D)."""
+    qf, _, dof, p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
     dv = p.transpose(-1, -2) @ dof
     dk = ds.transpose(-1, -2) @ qf
     return _from_bhsd(dk, k.dtype), _from_bhsd(dv, v.dtype)
@@ -387,7 +493,7 @@ def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return delta
 
 
-def _bwd_launch(name, q, k, v, do, lse, delta, outs, causal):
+def _bwd_launch(name, q, k, v, do, lse, delta, outs, causal, scale):
     """Launch the dK/dV or dQ kernel: inputs checked, outputs allocated by
     the caller (contiguous [B, S, H, D])."""
     _check_heads(name, q=q, k=k, v=v, do=do)
@@ -400,7 +506,7 @@ def _bwd_launch(name, q, k, v, do, lse, delta, outs, causal):
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
             b, h, s, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), do.stride(0), do.stride(1),
-            1.0 / (d ** 0.5), int(bool(causal)), _dtype_code(q), _stream(q))
+            scale, int(bool(causal)), _dtype_code(q), _stream(q))
     _check(err, name)
     _count(name)
 
@@ -409,15 +515,21 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
     """Wrapper of the dK/dV kernel. q, k, v, dO [B, S, H, D] (views with
     unit stride over D and stride D over H), lse and delta [B*H, S, 1]
     float32; returns (dk, dv), contiguous [B, S, H, D] in the inputs'
-    dtype. CUDA tensors launch `csrc/flash_attn_bwd.cu`; CPU tensors take
-    `flash_bwd_dkv_reference`."""
+    dtype. CUDA tensors launch `csrc/flash_attn_bwd.cu` (bf16 through
+    `tma_heads`); CPU tensors take `flash_bwd_dkv_reference`."""
     if _all_cpu(q, k, v, do, lse, delta):
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
     do = _unit_stride(do)
+    _check_heads("flash_bwd_dkv", q=q, k=k, v=v, do=do)
+    d = q.shape[3]
+    scale = 1.0 / (d ** 0.5)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = tma_heads(q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal)
-    return dk, dv
+    _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal,
+                scale)
+    return tma_slice(dk, d), tma_slice(dv, d)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
@@ -427,7 +539,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
     do = _unit_stride(do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal)
+    _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal,
+                1.0 / (q.shape[3] ** 0.5))
     return dq
 
 

@@ -137,6 +137,105 @@ def test_every_kernel_has_a_source_and_a_count():
     assert set(kernels.KERNELS.values()) == set(kernels.SOURCES)
 
 
+def test_library_path_follows_the_headers_a_source_includes(tmp_path):
+    # a changed header under csrc/ must build a new library, not load the
+    # stale one
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels._CSRC, csrc)
+    paths = {name: kernels._lib_path(name, str(csrc), str(tmp_path))
+             for name in kernels.SOURCES}
+    assert paths == {name: kernels._lib_path(name, str(csrc), str(tmp_path))
+                     for name in kernels.SOURCES}
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("\n// changed\n")
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        assert kernels._lib_path(name, str(csrc), str(tmp_path)) != \
+            paths[name]
+    # sources that include no header of csrc/ keep their library
+    for name in ("lstm_cell", "scatter_add"):
+        assert kernels._lib_path(name, str(csrc), str(tmp_path)) == \
+            paths[name]
+
+
+def _padded_case(seed, d, view):
+    """q, k, v, dO [2, 24, 3, d] float32 on the CPU, q/k/v as views of one
+    fused projection (with a sequence stride that no tensor map takes)
+    when `view`."""
+    rng = np.random.RandomState(seed)
+    b, s, h = 2, 24, 3
+    if view:
+        qkv = torch.from_numpy(rng.standard_normal(
+            (b, s, 3 * h * d + 1)).astype(np.float32))
+        q, k, v = (t.view(b, s, h, d)
+                   for t in qkv[..., :3 * h * d].split(h * d, dim=-1))
+    else:
+        q, k, v = _torch(*_qkv(seed, b, s, h, d))
+    do = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,view", [(20, False), (32, False), (100, False),
+                                    (64, True), (20, True)])
+def test_tma_padding_route_equals_the_unpadded_computation(d, view, causal):
+    # the wrapper's rule for inputs a tensor map cannot describe: zero-pad
+    # D to 64 or 128 in contiguous copies, keep the original D's scale, cut
+    # the outputs back; through the plain versions it changes nothing
+    q, k, v, do = _padded_case(21, d, view)
+    scale = 1.0 / d ** 0.5
+    before = kernels.PAD_COPIES
+    pq, pk, pv, pdo = kernels.tma_heads(q, k, v, do)
+    # every input is copied, but a contiguous dO that needs no padding
+    padded = d != kernels.tma_width(d)
+    assert kernels.PAD_COPIES == before + (4 if padded else 3)
+    for t in (pq, pk, pv, pdo):
+        assert t.shape[3] == kernels.tma_width(d) and t.is_contiguous()
+        assert kernels._tma_ready(t)
+        assert not t[..., d:].any()
+    want_o, want_lse = kernels.flash_attention_reference(q, k, v, causal,
+                                                         with_lse=True)
+    got_o, got_lse = kernels.flash_attention_reference(
+        pq, pk, pv, causal, with_lse=True, scale=scale)
+    got_o = kernels.tma_slice(got_o, d)
+    assert got_o.shape == q.shape
+    np.testing.assert_allclose(got_o.numpy(), want_o.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    delta = kernels.flash_bwd_delta_reference(want_o, do)
+    want_dk, want_dv = kernels.flash_bwd_dkv_reference(q, k, v, do, want_lse,
+                                                       delta, causal)
+    got_dk, got_dv = kernels.flash_bwd_dkv_reference(
+        pq, pk, pv, pdo, want_lse, delta, causal, scale=scale)
+    for got, want in ((got_dk, want_dk), (got_dv, want_dv)):
+        got = kernels.tma_slice(got, d)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    # o, dk and dv are cut back where D was padded
+    assert kernels.PAD_COPIES == before + (7 if padded else 3)
+
+
+def test_tma_route_keeps_readable_inputs_in_place():
+    # the serving and training paths' layout (qkv views, D = 128) and
+    # contiguous D = 64 need no copy
+    rng = np.random.RandomState(22)
+    qkv = torch.from_numpy(rng.standard_normal((2, 16, 3 * 2 * 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    views = [t.view(2, 16, 2, 128) for t in qkv.split(256, dim=-1)]
+    flat = _torch(*_qkv(23, 2, 16, 2, 64), dtype=torch.bfloat16)
+    before = kernels.PAD_COPIES
+    for ts in (views, flat):
+        out = kernels.tma_heads(*ts)
+        assert all(a is b for a, b in zip(out, ts))
+        assert kernels.tma_slice(out[0], ts[0].shape[3]) is out[0]
+    assert kernels.PAD_COPIES == before
+    assert [kernels.tma_width(d) for d in (1, 63, 64, 65, 128)] == \
+        [64, 64, 64, 128, 128]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(dtype):
@@ -323,6 +422,38 @@ def test_cuda_bwd_kernels_match_plain_versions(dtype):
                    if dt == torch.float32
                    else 2e-2 * want.float().abs().max().item())
             assert err <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [100, 128])
+def test_cuda_tma_kernels_match_plain_versions_through_the_padding_route(d):
+    # bf16 forward and dK/dV on qkv views: D = 128 reads them in place,
+    # D = 100 goes through zero-padded copies of 128
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    rng = np.random.RandomState(25)
+    b, s, h = 2, 200, 4
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    q, k, v = (t.view(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    g = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    before = kernels.PAD_COPIES
+    o, lse = kernels.flash_attention(q, k, v, True, with_lse=True)
+    want_o, want_lse = kernels.flash_attention_reference(q, k, v, True,
+                                                         with_lse=True)
+    delta = kernels.flash_bwd_delta_reference(o, g)
+    dk, dv = kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True)
+    want_dk, want_dv = kernels.flash_bwd_dkv_reference(q, k, v, g, lse,
+                                                       delta, True)
+    torch.cuda.synchronize()
+    # forward: q, k, v in and o out; dK/dV: q, k, v, dO in and dk, dv out
+    assert kernels.PAD_COPIES - before == (0 if d == 128 else 3 + 1 + 4 + 2)
+    for got, want in ((o, want_o), (dk, want_dk), (dv, want_dv)):
+        assert got.shape == q.shape and got.is_contiguous()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * want.float().abs().max().item()
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
 
 
 # -------------------------------------------------------------- scatter-add
