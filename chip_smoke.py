@@ -339,7 +339,8 @@ def phase_bwd_kernels(torch, kernels):
     at the train path's shape and layout (bf16, causal, q/k/v views of one
     fused qkv projection, B=32 S=512 H=16 D=128), in f32 causal and not,
     and at a ragged S; timed at every case. Returns {kernel: row} of the
-    train-path case."""
+    train-path case, and under "f32_causal" and "f32_not_causal" {kernel:
+    row} of the f32 cases."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(32, 512, 16, 128, torch.bfloat16, True, True),
              (8, 512, 16, 128, torch.float32, True, False),
@@ -400,6 +401,9 @@ def phase_bwd_kernels(torch, kernels):
                 check(grad_ok, f"FlashAttentionFunction grads disagree with "
                                f"autograd of the plain forward: {row}")
                 main_rows[name] = row
+            elif dt == torch.float32:
+                key = "f32_causal" if causal else "f32_not_causal"
+                main_rows.setdefault(key, {})[name] = row
         del qkv, q, k, v, do, o, lse, delta, calls
         torch.cuda.empty_cache()
     return main_rows
@@ -429,9 +433,10 @@ def ptxas_info(log: str, kernel: str) -> dict:
     return out
 
 
-#: the bf16 bodies this slice redesigned (TMA, wgmma, warp specialisation)
+#: the bf16 bodies on TMA, wgmma and warp specialisation
 TMA_BODIES = {"flash_attn_fwd": ("flash_attn_fwd", "flash_fwd_tma_kernel"),
-              "flash_bwd_dkv": ("flash_attn_bwd", "flash_bwd_dkv_tma_kernel")}
+              "flash_bwd_dkv": ("flash_attn_bwd", "flash_bwd_dkv_tma_kernel"),
+              "flash_bwd_dq": ("flash_attn_bwd", "flash_bwd_dq_tma_kernel")}
 
 
 def tma_ptxas(kernels) -> dict:
@@ -440,16 +445,54 @@ def tma_ptxas(kernels) -> dict:
             for name, (lib, body) in TMA_BODIES.items()}
 
 
+def check_no_spills(bodies) -> None:
+    """Every TMA body is compiled for D = 64 and 128, without spills."""
+    for name, info in bodies.items():
+        for d in ("64", "128"):
+            at = info.get(d, {})
+            check(at.get("spill_stores") == 0 and at.get("spill_loads") == 0,
+                  f"{name}'s TMA body spills (or is missing) at D = {d}: "
+                  f"{info}")
+
+
+#: the fused LSTM cell's cases: (name, B, I, H, dtype name, W as views)
+LSTM_CASES = [("bench", 256, 256, 256, "float32", False),
+              ("bench_views", 256, 256, 256, "float32", True),
+              ("cli", 2047, 27, 128, "float32", False),
+              ("ragged", 3, 7, 20, "float32", False),
+              ("bench_bf16", 256, 256, 256, "bfloat16", False)]
+
+
+def lstm_check(torch, kernels, args):
+    """The cell kernel against its plain version on `args`: (max_abs_err
+    over h' and c', ok): f32 atol = rtol = 1e-5, bf16 2e-2 * max."""
+    got = kernels.lstm_cell(*args)
+    want = kernels.lstm_cell_reference(*args)
+    torch.cuda.synchronize()
+    errs = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, want)]
+    if args[0].dtype == torch.float32:
+        ok = all(bool(torch.allclose(g, w, atol=1e-5, rtol=1e-5))
+                 for g, w in zip(got, want))
+    else:
+        ok = all(e <= 2e-2 * w.float().abs().max().item()
+                 for e, w in zip(errs, want))
+    return max(errs), ok, want
+
+
 def phase_quick(torch, kernels):
     """The first check of new kernel bodies: the bf16 forward (o, lse) and
     the three backward kernels against their plain versions once each, at
     the serving and training shapes on qkv views, contiguous and not
-    causal, at a ragged S and at a head dim that takes the padding route;
+    causal, at ragged S (200, and 96: less than one block) and at a head
+    dim that takes the padding route; then the LSTM cell in its five cases;
     no timing. Returns whether every case passed."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [(8, 512, 16, 128, True, True), (32, 512, 16, 128, True, True),
              (8, 512, 16, 128, False, False), (8, 200, 16, 64, True, False),
-             (2, 200, 4, 100, True, False), (2, 96, 4, 64, False, True)]
+             (2, 200, 4, 100, True, False), (2, 96, 4, 64, False, True),
+             (2, 96, 4, 128, True, True), (2, 200, 4, 128, False, True),
+             (2, 96, 4, 100, False, True)]
     all_ok = True
     for b, s, h, d, causal, view in cases:
         copies = kernels.PAD_COPIES
@@ -473,14 +516,24 @@ def phase_quick(torch, kernels):
         emit(row)
         all_ok = all_ok and ok_fwd and all(ok for _, ok in results.values())
         del qkv, q, k, v, do, o, lse
+    for name, b, i, h, dname, view in LSTM_CASES:
+        args = lstm_cell_inputs(torch, gen, b, i, h, getattr(torch, dname),
+                                view)
+        err, ok, _ = lstm_check(torch, kernels, args)
+        emit({"phase": "quick", "name": "lstm_cell", "case": name,
+              "shape_bih": [b, i, h], "dtype": dname, "max_abs_err": err,
+              "ok": ok})
+        all_ok = all_ok and ok
     return all_ok
 
 
 def phase_kernels(torch, kernels):
-    """Kernel vs plain version on the card; returns the rows of the two
+    """Kernel vs plain version on the card; returns {case: row} of the two
     cases the main paths run, both bf16 and causal on q, k, v strided views
-    of one fused [B, S, 3 * H * D] projection: serving (B=8, no lse) and
-    the train step's forward (B=32, with lse)."""
+    of one fused [B, S, 3 * H * D] projection: "serve" (B=8, no lse) and
+    "train" (the train step's forward, B=32, with lse); and of the f32
+    forward with lse at [8, 512, 16, 128], "f32_causal" and
+    "f32_not_causal"."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -545,9 +598,12 @@ def phase_kernels(torch, kernels):
         check(ok, f"flash_attn_fwd disagrees with its plain version: {row}")
         if view:
             path_rows["train" if with_lse else "serve"] = row
+        elif dt == torch.float32 and s == 512 and with_lse:
+            # what an f32 conf's train step runs (the forward with lse)
+            path_rows["f32_causal" if causal else "f32_not_causal"] = row
         del q, k, v, qt, kt, vt, got, want
         torch.cuda.empty_cache()
-    return path_rows["serve"], path_rows["train"]
+    return path_rows
 
 
 def post(url, body, timeout=300.0):
@@ -701,9 +757,10 @@ def profile_step(torch, kernels, net, x, y, phase="train_profile",
                  ours_key="flash_") -> dict:
     """One more training step under `torch.profiler`: prints the device
     time by kernel name (the 15 largest), the device time of the port's
-    kernels (names holding `ours_key`), the sum over every kernel, and the
-    step's wall time, from which the device's idle share follows. Launches
-    made here are not counted as the main path's. Returns the row."""
+    kernels (names holding `ours_key`), in all and by kernel, the sum over
+    every kernel, and the step's wall time, from which the device's idle
+    share follows. Launches made here are not counted as the main path's.
+    Returns the row."""
     from torch.profiler import ProfilerActivity, profile
 
     saved = dict(kernels.LAUNCHES)
@@ -725,6 +782,8 @@ def profile_step(torch, kernels, net, x, y, phase="train_profile",
            "device_ms": total_us / 1e3,
            "idle_share": 1.0 - total_us / 1e3 / wall_ms,
            "port_kernels_ms": sum(e.device_time_total for e in ours) / 1e3,
+           "port_kernels": [{"name": e.key[:90], "calls": e.count,
+                             "ms": e.device_time_total / 1e3} for e in ours],
            "kernel_count": sum(e.count for e in events),
            "top": [{"name": e.key[:90], "calls": e.count,
                     "ms": e.device_time_total / 1e3} for e in events[:15]]}
@@ -951,29 +1010,14 @@ def phase_lstm_kernel(torch, kernels):
     plain version and `torch.lstm_cell`; then the layer-level note. Returns
     the bench case's row."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [("bench", 256, 256, 256, f32, False),
-             ("bench_views", 256, 256, 256, f32, True),
-             ("cli", 2047, 27, 128, f32, False),
-             ("ragged", 3, 7, 20, f32, False),
-             ("bench_bf16", 256, 256, 256, bf16, False)]
     ptxas = [line.strip() for line in
              kernels.BUILD_LOGS.get("lstm_cell", "").splitlines()
              if "registers" in line or "spill" in line]
     rows = {}
-    for name, b, i, h, dt, view in cases:
+    for name, b, i, h, dname, view in LSTM_CASES:
+        dt = getattr(torch, dname)
         args = lstm_cell_inputs(torch, gen, b, i, h, dt, view)
-        got = kernels.lstm_cell(*args)
-        want = kernels.lstm_cell_reference(*args)
-        torch.cuda.synchronize()
-        errs = [(g.float() - w.float()).abs().max().item()
-                for g, w in zip(got, want)]
-        if dt == f32:
-            ok = all(bool(torch.allclose(g, w, atol=1e-5, rtol=1e-5))
-                     for g, w in zip(got, want))
-        else:
-            ok = all(e <= 2e-2 * w.float().abs().max().item()
-                     for e, w in zip(errs, want))
+        err, ok, want = lstm_check(torch, kernels, args)
         x, h0, c0, wx, wh, bias = args
         w_ih, w_hh, b_ih, b_hh = torch_cell_weights(torch, wx, wh, bias)
 
@@ -981,10 +1025,9 @@ def phase_lstm_kernel(torch, kernels):
             return torch.lstm_cell(x, (h0, c0), w_ih, w_hh, b_ih, b_hh)
 
         lib_h = lib()[0]
-        dname = str(dt).replace("torch.", "")
         bound_ms, bound_by = lstm_bound_ms(b, i, h, dname)
         row = {"phase": "lstm_kernel", "case": name, "shape_bih": [b, i, h],
-               "dtype": dname, "w_views": view, "max_abs_err": max(errs),
+               "dtype": dname, "w_views": view, "max_abs_err": err,
                "ok": ok,
                "kernel_ms": graph_ms(lambda: kernels.lstm_cell(*args)),
                "call_ms": cuda_ms(lambda: kernels.lstm_cell(*args)),
@@ -997,7 +1040,7 @@ def phase_lstm_kernel(torch, kernels):
         emit(row)
         check(ok, f"lstm_cell disagrees with its plain version: {row}")
         rows[name] = row
-        del args, got, want, x, h0, c0, wx, wh, bias
+        del args, want, x, h0, c0, wx, wh, bias
     layer = lstm_layer_ms(torch, kernels)
     emit({"phase": "lstm_layer", **layer})
     check(layer["fused_vs_scan_max_abs_err"] < 1e-4,
@@ -1638,6 +1681,24 @@ def phase_embed_quality(torch, kernels):
             "glove": glove_info["launches"]}
 
 
+def f32_entry(case_rows, name):
+    """The f32 body's numbers for the kernels line, causal and not, at
+    [8, 512, 16, 128]: from phase_kernels' rows (name None) or from
+    phase_bwd_kernels' rows of kernel `name`. Its library yardstick is SDPA
+    in f32 (forward; for dK/dV and dQ its whole backward)."""
+    out = {}
+    for key in ("f32_causal", "f32_not_causal"):
+        r = case_rows[key] if name is None else case_rows[key][name]
+        out[key[4:]] = {
+            "shape": r["shape"], "max_abs_err": r["max_abs_err"],
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": (r["library_ms"] if name is None
+                           else r["sdpa_backward_ms"]),
+            "tflops": r["tflops"]}
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -1663,16 +1724,19 @@ def main(argv) -> int:
     notes = [line.strip() for log in kernels.BUILD_LOGS.values()
              for line in log.splitlines()
              if "warning" in line.lower() or "Performance Loss" in line]
+    bodies = tma_ptxas(kernels)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(kernels.SOURCES), "ptxas": ptxas,
-          "ptxas_notes": notes, "tma_bodies": tma_ptxas(kernels)})
+          "ptxas_notes": notes, "tma_bodies": bodies})
     if quick:
         # a new kernel's first call on the card: build, registers and
         # spills, one check at the path's widths, stop
-        return 0 if phase_quick(torch, kernels) else 1
-    bodies = tma_ptxas(kernels)
+        ok = phase_quick(torch, kernels)
+        check_no_spills(bodies)
+        return 0 if ok else 1
 
-    fwd_row, fwd_train_row = phase_kernels(torch, kernels)
+    fwd_rows = phase_kernels(torch, kernels)
+    fwd_row, fwd_train_row = fwd_rows["serve"], fwd_rows["train"]
     bwd_rows = phase_bwd_kernels(torch, kernels)
     serve_launches = phase_serve(torch, kernels)
     train_launches = phase_train(torch, kernels)
@@ -1724,7 +1788,8 @@ def main(argv) -> int:
             "bound_ms": fwd_train_row["bound_ms"],
             "bound_by": fwd_train_row["bound_by"],
             "library_ms": fwd_train_row["library_ms"],
-            "tflops": fwd_train_row["tflops"]}}]
+            "tflops": fwd_train_row["tflops"]},
+        "f32": f32_entry(fwd_rows, None)}]
     for name in BWD_KERNELS:
         r = bwd_rows[name]
         rows.append({
@@ -1743,6 +1808,8 @@ def main(argv) -> int:
             "library_covers": (None if name == "flash_bwd_delta"
                                else "delta + dkv + dq"),
             "max_rel_err": r["max_rel_err"], "tflops": r["tflops"]})
+        if name != "flash_bwd_delta":
+            rows[-1]["f32"] = f32_entry(bwd_rows, name)
         if name in bodies:
             rows[-1].update({"design": "tma+wgmma", "ptxas": bodies[name]})
     rows.append({
@@ -1783,10 +1850,7 @@ def main(argv) -> int:
         "w2v_step_ms_median": w2v_row["step_ms_median"],
         "w2v_words_per_s": w2v_row["words_per_s"]})
     emit({"kernels": rows})
-    for name, info in bodies.items():
-        at128 = info.get("128", {})
-        check(at128.get("spill_stores") == 0 and at128.get("spill_loads") == 0,
-              f"{name}'s TMA body spills at D = 128: {info}")
+    check_no_spills(bodies)
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

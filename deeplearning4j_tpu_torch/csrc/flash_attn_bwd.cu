@@ -8,7 +8,7 @@
 //       (batch*head, key tile) loops over the query tiles and accumulates
 //       dV += P^T dO and dK += dS^T Q;
 //   - flash_bwd_dq     <- `_flash_bwd_dq_kernel` (:311): one block per
-//       (batch*head, 64-query tile) loops over the key tiles up to the
+//       (batch*head, query tile) loops over the key tiles up to the
 //       forward's causal bound and accumulates dQ += dS K.
 // The probabilities are rebuilt from the forward's logsumexp residual, so
 // there is no forward re-run and no [S, S] matrix in device memory.
@@ -26,8 +26,8 @@
 // `attention_block_skip` changes no value on the TPU (the diagonal split
 // only skips a select that is the identity below the diagonal), so the
 // kernels skip fully masked tiles and mask (every visited tile in the f32
-// and dQ bodies, only tiles that cross the diagonal or the ragged end in
-// the bf16 dK/dV body) whatever the flag says.
+// bodies, only tiles that cross the diagonal or the ragged end in the bf16
+// bodies) whatever the flag says.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 67 TFLOP/s f32, 3.35 TB/s):
 //   dkv: max(8*B*H*S^2*D*(1/2 if causal) / peak,
@@ -44,13 +44,10 @@
 //     wgmma, warp specialisation, and p and ds at f32 fidelity through a
 //     hi/lo bf16 split; D of 64 or 128 (the wrapper zero-pads other head
 //     dims). See its section below.
-//   - bf16 dQ (the training path): flash_bwd_dq_mma_kernel, one block of
-//     256 threads per (batch*head, 64-query tile), key tiles staged through
-//     shared memory with no copy pipeline. s = Q.K^T and dp = dO.V^T, whose
-//     operands are the exact bf16 inputs, run as mma.sync m16n8k16 with f32
-//     accumulators; ds is formed in f32 from the fragments and goes through
-//     shared memory as f32; dQ += dS K is scalar f32 FMAs, since the tensor
-//     cores would round ds. See the section below for the tiling.
+//   - bf16 dQ (the training path): flash_bwd_dq_tma_kernel, the same design
+//     mirrored for queries: a ring of K and V tiles, S and dP on wgmma, ds
+//     split into hi/lo bf16 for dQ += dS.K on wgmma with K read in place;
+//     D of 64 or 128. See its section below.
 //   - f32: flash_bwd_dkv_kernel and flash_bwd_dq_kernel do every product
 //     with scalar f32 FMAs (the tensor cores would round f32 operands to
 //     tf32). Tiles are widened to f32 in shared memory; each thread owns
@@ -410,218 +407,6 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------- bf16 dQ, mma.sync
-//
-// The dQ kernel runs the two products whose operands are the exact bf16
-// inputs, s = Q.K^T and dp = dO.V^T, on the tensor cores (mma.sync m16n8k16,
-// f32 accumulators), so they equal the f32 products up to summation order.
-// ds is formed in f32 from the accumulator fragments, and dQ += dS K stays
-// f32 FMAs: rounding ds for the tensor cores would change the numerics.
-// Eight warps; for the scores, warp w owns query rows 16 (w & 3) .. +15 and
-// key columns 32 (w >> 2) .. +31 of the 64 x 64 tile. For the FMA product,
-// warp w owns 8 output rows (w * 8 ..) and lane l the columns l + 32 c, so
-// one float4 pair brings a warp's 8 values of ds per step. The tiles stay
-// bf16 in shared memory (about 100 KB a block at head_dim 128, so two
-// blocks fit on an SM) and are widened as they are read.
-
-constexpr int kLdS = kTile + 4;  // f32 row of p / ds: 16-byte aligned rows
-
-union Pack8 {  // 8 bf16 = one 16-byte load or store
-  uint4 u;
-  bf16 h[8];
-};
-
-// d (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage rows [0, valid) of a [*, D] head slice (row stride `ss` elements)
-// into a [kTile][LD] bf16 tile, zero past `valid` and past column D; one
-// 16-byte load per 8 elements where `vec` says strides and pointers allow.
-template <int DMAX, int LD>
-__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src,
-                                           long long ss, int valid, int D,
-                                           bool vec) {
-  constexpr int kChunks = DMAX / 8;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int d = (i - r * kChunks) * 8;
-    Pack8 p;
-    p.u = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) {
-      const bf16* row = src + r * ss;
-      if (vec && d + 8 <= D) {
-        p.u = *reinterpret_cast<const uint4*>(row + d);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (d + e < D) p.h[e] = row[d + e];
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + d) = p.u;
-  }
-}
-
-// s = Q.K^T and dp = dO.V^T for one warp's 16 x 32 part of the 64 x 64
-// tile (query rows R.., key columns KB..), into accumulator fragments.
-template <int DMAX, int LD>
-__device__ __forceinline__ void mma_scores(const bf16* Qh, const bf16* dOh,
-                                           const bf16* Kh, const bf16* Vh,
-                                           int R, int KB, int D, int g, int t,
-                                           float (&s)[4][4],
-                                           float (&dp)[4][4]) {
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[n][e] = 0.f;
-      dp[n][e] = 0.f;
-    }
-#pragma unroll
-  for (int ks = 0; ks < DMAX / 16; ++ks) {
-    if (ks * 16 >= D) break;  // zero padding past D adds nothing
-    const bf16* qa = Qh + (R + g) * LD + ks * 16 + 2 * t;
-    const bf16* da = dOh + (R + g) * LD + ks * 16 + 2 * t;
-    const uint32_t aq[4] = {ld32(qa), ld32(qa + 8 * LD), ld32(qa + 8),
-                            ld32(qa + 8 * LD + 8)};
-    const uint32_t ad[4] = {ld32(da), ld32(da + 8 * LD), ld32(da + 8),
-                            ld32(da + 8 * LD + 8)};
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const bf16* kb = Kh + (KB + n * 8 + g) * LD + ks * 16 + 2 * t;
-      const bf16* vb = Vh + (KB + n * 8 + g) * LD + ks * 16 + 2 * t;
-      mma_bf16(s[n], aq, ld32(kb), ld32(kb + 8));
-      mma_bf16(dp[n], ad, ld32(vb), ld32(vb + 8));
-    }
-  }
-}
-
-// p and ds of one accumulator element: tile row rl (query), column kl
-// (key), with the TPU kernels' masking and f32 arithmetic.
-struct Probs {
-  float p, ds;
-};
-__device__ __forceinline__ Probs probs(float s, float dp, int qpos, int kpos,
-                                       int S, float lse, float delta,
-                                       float scale, int causal) {
-  float sv = s * scale;
-  if (causal && kpos > qpos) sv = kNegBig;
-  const float p = (qpos < S && kpos < S) ? expf(sv - lse) : 0.f;
-  return {p, p * (dp - delta) * scale};
-}
-
-template <int DMAX>
-constexpr size_t dq_mma_smem() {
-  return sizeof(float) * (kTile * kLdS + 2 * kTile) +
-         sizeof(bf16) * 4 * kTile * (DMAX + 8);
-}
-
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, bf16* __restrict__ dq,
-                        int H, int S, int D, long long q_sb, long long q_ss,
-                        long long k_sb, long long k_ss, long long v_sb,
-                        long long v_ss, long long do_sb, long long do_ss,
-                        float scale, int causal, int vec) {
-  constexpr int LD = DMAX + 8;
-  constexpr int kCols = DMAX / 32;
-  extern __shared__ uint4 smem_raw[];
-  float* dSt = reinterpret_cast<float*>(smem_raw);  // [key][query], kLdS
-  float* lse_t = dSt + kTile * kLdS;
-  float* delta_t = lse_t + kTile;
-  bf16* Qh = reinterpret_cast<bf16*>(delta_t + kTile);  // [kTile][LD]
-  bf16* dOh = Qh + kTile * LD;
-  bf16* Kh = dOh + kTile * LD;
-  bf16* Vh = Kh + kTile * LD;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.y * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int R = 16 * (warp & 3), KB = 32 * (warp >> 2);
-
-  const bf16* kb = k + b * k_sb + (long long)h * D;
-  const bf16* vb = v + b * v_sb + (long long)h * D;
-  stage_bf16<DMAX, LD>(Qh, q + b * q_sb + (long long)h * D + q0 * q_ss, q_ss,
-                       S - q0, D, vec);
-  stage_bf16<DMAX, LD>(dOh, dout + b * do_sb + (long long)h * D + q0 * do_ss,
-                       do_ss, S - q0, D, vec);
-  load_rows(lse_t, delta_t, lse, delta, (long long)bh * S + q0, S - q0);
-
-  float acc[8][kCols];  // query rows warp*8 + i, columns lane + 32c
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-
-  int nk = (S + kTile - 1) / kTile;
-  // the forward's bound: key tiles past this tile's last query add nothing
-  if (causal) nk = nk < (int)blockIdx.y + 1 ? nk : (int)blockIdx.y + 1;
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();  // Q, dO staged (j == 0); the last tile's K, dS consumed
-    stage_bf16<DMAX, LD>(Kh, kb + k0 * k_ss, k_ss, S - k0, D, vec);
-    stage_bf16<DMAX, LD>(Vh, vb + k0 * v_ss, v_ss, S - k0, D, vec);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    mma_scores<DMAX, LD>(Qh, dOh, Kh, Vh, R, KB, D, g, t, s, dp);
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rl = R + g + 8 * (e >> 1);
-        const int kl = KB + n * 8 + 2 * t + (e & 1);
-        dSt[kl * kLdS + rl] = probs(s[n][e], dp[n][e], q0 + rl, k0 + kl, S,
-                                    lse_t[rl], delta_t[rl], scale, causal).ds;
-      }
-    __syncthreads();
-
-    // dQ[q][d] += sum_key dS[q][key] K[key][d]
-    for (int r = 0; r < kTile; ++r) {
-      const float4* dd = reinterpret_cast<const float4*>(dSt + r * kLdS + warp * 8);
-      const float4 d0 = dd[0], d1 = dd[1];
-      const float dsr[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float kv = __bfloat162float(Kh[r * LD + lane + 32 * c]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[i][c] = fmaf(dsr[i], kv, acc[i][c]);
-      }
-    }
-  }
-
-  const long long ss = (long long)H * D;
-  bf16* dqb = dq + (long long)b * S * ss + (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int qpos = q0 + warp * 8 + i;
-    if (qpos >= S) continue;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) dqb[qpos * ss + d] = __float2bfloat16_rn(acc[i][c]);
-    }
-  }
-}
-
 // ------------------------------------------------ bf16 dK/dV, TMA + wgmma
 //
 // One block of three warpgroups per (batch*head, 128-key tile). Warpgroup 2
@@ -883,6 +668,243 @@ flash_bwd_dkv_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// --------------------------------------------------- bf16 dQ, TMA + wgmma
+//
+// The dK/dV body mirrored for queries. One block of three warpgroups per
+// (batch*head, 128-query tile). Warpgroup 2 produces: `setmaxnreg` gives its
+// registers to the consumers; one thread loads the block's Q and dO once,
+// with their lse and delta rows (a rank-1 map), and streams 64-key tiles of
+// K and V by TMA into a three-stage ring (full / empty mbarriers), up to
+// the forward's causal bound (`nk_needed`). Warpgroups 0 and 1 each own 64
+// queries, the rows of every accumulator. For each key tile:
+//   S = Q.K^T and dP = dO.V^T: wgmma m64n64k16, both operands K-major in
+//     shared memory (no transpose);
+//   p = exp(S scale - lse) and dS = p (dP - delta) scale in f32 on the
+//     accumulators; the masks run only on tiles that cross the diagonal or
+//     a ragged end (the TPU kernel's `nk_full` split);
+//   dQ += dS.K: wgmma with A from registers (the accumulator of S is laid
+//     out as an A operand already) and K read from the ring as the MN-major
+//     B operand, as V is for P.V in the forward. Nothing goes through
+//     shared memory.
+// dS keeps f32 fidelity as in dK/dV: hi = bf16(ds) and lo = bf16(ds - hi)
+// both go into the f32 accumulator, two wgmma per k-step. Registers: the
+// 64 x D accumulator (D / 2 a thread) beside S and dP (32 each); the
+// 64-key tile keeps that under the consumers' 240 without spills. A head
+// then issues four [S, S, D] products of tensor work where the TPU kernel
+// issues three.
+
+constexpr int kDqBQ = 128;       // queries per block: 2 consumer warpgroups
+constexpr int kDqBK = 64;        // keys per streamed tile
+constexpr int kDqStages = 3;     // depth of the K / V ring
+constexpr int kDqThreads = 384;  // warpgroups 0, 1 consume; 2 produces
+
+// Every box is [rows][64] bf16 with the 128-byte swizzle; the bf16 arrays
+// are multiples of 1024 bytes, so each box stays 1024-byte aligned.
+template <int D>
+struct DqSmem {
+  bf16 q[D / 64][kDqBQ * 64];
+  bf16 dout[D / 64][kDqBQ * 64];
+  bf16 k[kDqStages][D / 64][kDqBK * 64];
+  bf16 v[kDqStages][D / 64][kDqBK * 64];
+  float lse[kDqBQ];
+  float delta[kDqBQ];
+  uint64_t q_full;
+  uint64_t full[kDqStages], empty[kDqStages];
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_lse,
+                        const __grid_constant__ CUtensorMap tm_delta,
+                        bf16* __restrict__ dq, int H, int S, float scale,
+                        int causal) {
+  using namespace hopper;
+  constexpr int kBoxes = D / 64;
+  constexpr uint32_t kQBox = kDqBQ * 128, kKBox = kDqBK * 128;  // bytes
+  extern __shared__ char tma_smem[];
+  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(align_1024(tma_smem));
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  // the causal work of a query tile grows with its index, and blocks start
+  // in the order of blockIdx.y: the heaviest tiles go first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqBQ;
+  int nk = (S + kDqBK - 1) / kDqBK;
+  if (causal) {
+    // the forward's bound: key tiles past this tile's last query add nothing
+    const int needed = (q0 + kDqBQ + kDqBK - 1) / kDqBK;
+    nk = nk < needed ? nk : needed;
+  }
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int st = 0; st < kDqStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], 8);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread loads Q, dO, lse, delta once and keeps the ring
+    // of K and V tiles full
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      prefetch_map(&tm_do);
+      mbar_expect_tx(&sm.q_full, 2 * kBoxes * kQBox + 2 * kDqBQ * 4);
+      for (int c = 0; c < kBoxes; ++c) {
+        tma_load_4d(sm.q[c], &tm_q, &sm.q_full, 64 * c, h, q0, b);
+        tma_load_4d(sm.dout[c], &tm_do, &sm.q_full, 64 * c, h, q0, b);
+      }
+      // rows past S read the next head's values (or zeros past the end);
+      // their p is masked to 0 and they are never stored
+      tma_load_1d(sm.lse, &tm_lse, &sm.q_full, bh * S + q0);
+      tma_load_1d(sm.delta, &tm_delta, &sm.q_full, bh * S + q0);
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % kDqStages;
+        mbar_wait(&sm.empty[st], ((j / kDqStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[st], 2 * kBoxes * kKBox);
+        for (int c = 0; c < kBoxes; ++c) {
+          tma_load_4d(sm.k[st][c], &tm_k, &sm.full[st], 64 * c, h,
+                      j * kDqBK, b);
+          tma_load_4d(sm.v[st][c], &tm_v, &sm.full[st], 64 * c, h,
+                      j * kDqBK, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns queries qw0 .. qw0 + 63
+    regs_inc<240>();
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32;
+    const int rl = 64 * wg + 16 * warp + lane / 4;  // block rows rl, rl + 8
+    const int qw0 = q0 + 64 * wg;
+    const int r_lo = q0 + rl;                       // queries r_lo, r_lo + 8
+    const int t2 = 2 * (lane % 4);
+    const float scale_l2 = scale * kLog2e;
+
+    mbar_wait(&sm.q_full, 0);
+    float lse_l2[2], dlt[2];  // this thread's two rows
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      lse_l2[i] = sm.lse[rl + 8 * i] * kLog2e;
+      dlt[i] = sm.delta[rl + 8 * i];
+    }
+    const uint64_t q_desc = desc_sw128(sm.q[0] + 64 * 64 * wg, 16, 1024);
+    const uint64_t do_desc = desc_sw128(sm.dout[0] + 64 * 64 * wg, 16, 1024);
+    float acc[D / 2];
+#pragma unroll
+    for (int a = 0; a < D / 2; ++a) acc[a] = 0.f;
+
+    for (int j = 0; j < nk; ++j) {
+      const int st = j % kDqStages;
+      const int k0 = j * kDqBK;
+      mbar_wait(&sm.full[st], (j / kDqStages) & 1);
+      // a tile whose every key comes after every query here adds nothing,
+      // nor does a warpgroup whose every query lies past S
+      if (!(causal && k0 > qw0 + 63) && qw0 < S) {
+        const bool masked = (causal && k0 + kDqBK - 1 > qw0) ||
+                            k0 + kDqBK > S || qw0 + 64 > S;
+        // S = Q.K^T and dP = dO.V^T, 64 x 64; each descriptor is rebuilt
+        // just before its wgmma (`fresh`), as in dK/dV
+        const uint64_t kd = desc_sw128(sm.k[st][0], 16, 1024);
+        const uint64_t vd = desc_sw128(sm.v[st][0], 16, 1024);
+        float s[kDqBK / 2], dp[kDqBK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          // columns 16 kk ..: box kk / 4, 32 bytes a k-step in its rows
+          const uint32_t off = (kk % 4) * 32;
+          wgmma_ss_n64(s, desc_at(fresh(q_desc), (kk / 4) * kQBox + off),
+                       desc_at(fresh(kd), (kk / 4) * kKBox + off), kk);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          wgmma_ss_n64(dp, desc_at(fresh(do_desc), (kk / 4) * kQBox + off),
+                       desc_at(fresh(vd), (kk / 4) * kKBox + off), kk);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // p and ds in f32, with the TPU kernel's masking where the tile
+        // crosses the diagonal or a ragged end (p = 0 there): element
+        // 4 n + 2 i + c is query r_lo + 8 i and key k0 + 8 n + t2 + c
+#pragma unroll
+        for (int n = 0; n < kDqBK / 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * n + 2 * i + c;
+              float pv = exp2f(fmaf(s[e], scale_l2, -lse_l2[i]));
+              if (masked) {
+                const int qpos = r_lo + 8 * i, kpos = k0 + 8 * n + t2 + c;
+                if ((causal && kpos > qpos) || qpos >= S || kpos >= S)
+                  pv = 0.f;
+              }
+              s[e] = pv * (dp[e] - dlt[i]) * scale;
+            }
+
+        // dQ += dS.K over the tile's 64 keys, k-step kk = keys 16 kk ..,
+        // each value split into hi and lo A fragments
+        uint32_t hi[kDqBK / 16][4], lo[kDqBK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kDqBK / 16; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            split_bf16x2(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1], hi[kk][x],
+                         lo[kk][x]);
+        // K is [keys][D], D contiguous: the MN-major B operand
+        const uint64_t kb = desc_sw128(sm.k[st][0], kKBox, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDqBK / 16; ++kk) {
+          const uint64_t bb = desc_at(kb, kk * 2048);
+          if constexpr (D == 128) {
+            wgmma_rs_n128(acc, hi[kk], bb);
+            wgmma_rs_n128(acc, lo[kk], bb);
+          } else {
+            wgmma_rs_n64(acc, hi[kk], bb);
+            wgmma_rs_n64(acc, lo[kk], bb);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(hi);
+        fence_regs(lo);
+      }
+      if (lane == 0) mbar_arrive(&sm.empty[st]);
+    }
+
+    // dQ rounded once to bf16; queries past S are never stored
+    const long long ss = (long long)H * D;  // output: contiguous [B,S,H,D]
+    bf16* dqb = dq + (long long)b * S * ss + (long long)h * D;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r_lo + 8 * i;
+      if (row >= S) continue;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dqb + row * ss + 8 * n + t2) =
+            pack_bf16x2(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launchers
 
 struct Args {
@@ -895,15 +917,6 @@ struct Args {
   int causal;
   cudaStream_t stream;
 };
-
-// 16-byte loads need 8-element aligned rows and 16-byte aligned bases
-bool can_vectorize(const Args& a) {
-  return a.D % 8 == 0 && a.q_ss % 8 == 0 && a.k_ss % 8 == 0 &&
-         a.v_ss % 8 == 0 && a.do_ss % 8 == 0 && a.q_sb % 8 == 0 &&
-         a.k_sb % 8 == 0 && a.v_sb % 8 == 0 && a.do_sb % 8 == 0 &&
-         ((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
-          (uintptr_t)a.dout) % 16 == 0;
-}
 
 template <int DMAX>
 cudaError_t launch_dkv_f32(const Args& a) {
@@ -939,32 +952,45 @@ cudaError_t launch_dq_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-// bf16 dK/dV takes D of 64 or 128 on 16-byte aligned rows (the wrapper
-// pads other shapes); DMAX is the head_dim bucket
+// The six tensor maps of the bf16 TMA bodies: q and dO in boxes of `q_rows`
+// rows, k and v in boxes of `k_rows`, lse and delta (rank 1) in boxes of
+// `row_box` values. They take D of 64 or 128 on 16-byte aligned rows (the
+// wrapper pads other shapes).
+struct BwdMaps {
+  CUtensorMap q, k, v, dout, lse, delta;
+};
+
+cudaError_t bwd_maps(const Args& a, int D, int q_rows, int k_rows,
+                     int row_box, BwdMaps* m) {
+  using namespace hopper;
+  if (a.D != D || !tma_heads_ok(a.q, D, a.q_ss, a.q_sb) ||
+      !tma_heads_ok(a.k, D, a.k_ss, a.k_sb) ||
+      !tma_heads_ok(a.v, D, a.v_ss, a.v_sb) ||
+      !tma_heads_ok(a.dout, D, a.do_ss, a.do_sb))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      heads_map(&m->q, a.q, a.B, a.S, a.H, D, a.q_ss, a.q_sb, q_rows);
+  if (err == cudaSuccess)
+    err = heads_map(&m->k, a.k, a.B, a.S, a.H, D, a.k_ss, a.k_sb, k_rows);
+  if (err == cudaSuccess)
+    err = heads_map(&m->v, a.v, a.B, a.S, a.H, D, a.v_ss, a.v_sb, k_rows);
+  if (err == cudaSuccess)
+    err = heads_map(&m->dout, a.dout, a.B, a.S, a.H, D, a.do_ss, a.do_sb,
+                    q_rows);
+  const long long rows = (long long)a.B * a.H * a.S;
+  if (err == cudaSuccess) err = rows_map(&m->lse, a.lse, rows, row_box);
+  if (err == cudaSuccess) err = rows_map(&m->delta, a.delta, rows, row_box);
+  return err;
+}
+
+// DMAX is the head_dim bucket; the bf16 bodies exist for 64 and 128 only
 template <int DMAX>
 cudaError_t launch_dkv_bf16(const Args& a) {
-  using namespace hopper;
   if constexpr (DMAX != 64 && DMAX != 128) {
     return cudaErrorInvalidValue;
   } else {
-    if (a.D != DMAX || !tma_heads_ok(a.q, DMAX, a.q_ss, a.q_sb) ||
-        !tma_heads_ok(a.k, DMAX, a.k_ss, a.k_sb) ||
-        !tma_heads_ok(a.v, DMAX, a.v_ss, a.v_sb) ||
-        !tma_heads_ok(a.dout, DMAX, a.do_ss, a.do_sb))
-      return cudaErrorInvalidValue;
-    CUtensorMap mq, mk, mv, mdo, mlse, mdelta;
-    cudaError_t err =
-        heads_map(&mq, a.q, a.B, a.S, a.H, DMAX, a.q_ss, a.q_sb, kDkvBQ);
-    if (err == cudaSuccess)
-      err = heads_map(&mk, a.k, a.B, a.S, a.H, DMAX, a.k_ss, a.k_sb, kDkvBK);
-    if (err == cudaSuccess)
-      err = heads_map(&mv, a.v, a.B, a.S, a.H, DMAX, a.v_ss, a.v_sb, kDkvBK);
-    if (err == cudaSuccess)
-      err = heads_map(&mdo, a.dout, a.B, a.S, a.H, DMAX, a.do_ss, a.do_sb,
-                      kDkvBQ);
-    const long long rows = (long long)a.B * a.H * a.S;
-    if (err == cudaSuccess) err = rows_map(&mlse, a.lse, rows, kDkvBQ);
-    if (err == cudaSuccess) err = rows_map(&mdelta, a.delta, rows, kDkvBQ);
+    BwdMaps m;
+    cudaError_t err = bwd_maps(a, DMAX, kDkvBQ, kDkvBK, kDkvBQ, &m);
     if (err != cudaSuccess) return err;
     const size_t smem = sizeof(DkvSmem<DMAX>) + 1024;  // + alignment slack
     auto kernel = flash_bwd_dkv_tma_kernel<DMAX>;
@@ -973,7 +999,7 @@ cudaError_t launch_dkv_bf16(const Args& a) {
     if (err != cudaSuccess) return err;
     dim3 grid(a.B * a.H, (a.S + kDkvBK - 1) / kDkvBK);
     kernel<<<grid, kDkvThreads, smem, a.stream>>>(
-        mq, mk, mv, mdo, mlse, mdelta, static_cast<bf16*>(a.dk),
+        m.q, m.k, m.v, m.dout, m.lse, m.delta, static_cast<bf16*>(a.dk),
         static_cast<bf16*>(a.dv), a.H, a.S, a.scale, a.causal);
     return cudaGetLastError();
   }
@@ -981,23 +1007,27 @@ cudaError_t launch_dkv_bf16(const Args& a) {
 
 template <int DMAX>
 cudaError_t launch_dq_bf16(const Args& a) {
-  auto kernel = flash_bwd_dq_mma_kernel<DMAX>;
-  constexpr size_t smem = dq_mma_smem<DMAX>();
-  static std::atomic<bool> smem_set[kMaxDevices];
-  cudaError_t err = set_smem_once(kernel, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.delta, static_cast<bf16*>(a.dq), a.H, a.S, a.D, a.q_sb, a.q_ss,
-      a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.scale, a.causal,
-      (int)can_vectorize(a));
-  return cudaGetLastError();
+  if constexpr (DMAX != 64 && DMAX != 128) {
+    return cudaErrorInvalidValue;
+  } else {
+    BwdMaps m;
+    cudaError_t err = bwd_maps(a, DMAX, kDqBQ, kDqBK, kDqBQ, &m);
+    if (err != cudaSuccess) return err;
+    const size_t smem = sizeof(DqSmem<DMAX>) + 1024;  // + alignment slack
+    auto kernel = flash_bwd_dq_tma_kernel<DMAX>;
+    static std::atomic<bool> smem_set[kMaxDevices];
+    err = set_smem_once(kernel, smem, smem_set);
+    if (err != cudaSuccess) return err;
+    dim3 grid(a.B * a.H, (a.S + kDqBQ - 1) / kDqBQ);
+    kernel<<<grid, kDqThreads, smem, a.stream>>>(
+        m.q, m.k, m.v, m.dout, m.lse, m.delta, static_cast<bf16*>(a.dq),
+        a.H, a.S, a.scale, a.causal);
+    return cudaGetLastError();
+  }
 }
 
-// dispatch on the input type (0 = f32: scalar kernels, 1 = bf16: mma.sync
-// kernels) and the head_dim bucket
+// dispatch on the input type (0 = f32: scalar kernels, 1 = bf16: TMA +
+// wgmma kernels) and the head_dim bucket
 struct DkvLaunch {
   template <int DMAX>
   static cudaError_t f32(const Args& a) { return launch_dkv_f32<DMAX>(a); }

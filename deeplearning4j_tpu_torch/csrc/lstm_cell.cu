@@ -27,38 +27,51 @@
 //
 // Design. One block owns a tile of batch rows and a tile of hidden columns
 // j, and computes the four gate columns j, H + j, 2H + j, 3H + j of z for
-// it, so every thread ends with all four gates of its (row, column) pairs
-// in registers and applies the cell there. The K loop runs over the I
-// inputs (x, Wx) and then the H recurrent inputs (h, Wh) through shared
-// tiles of x or h and of the four column slices of Wx or Wh. Ragged B, I
-// and H are zero-filled on load and masked on store: there is no fallback.
-// Operands may be row-strided views (a time step of [B, T, I], the two row
-// blocks of one fused W); the last dimension must have unit stride.
-//   - f32: lstm_cell_f32_kernel. 8 warps; a lane owns one hidden column, a
-//     warp two batch rows, so a block is 16 rows x 32 columns x 4 gates. At
-//     the bench shape that is 16 x 8 = 128 blocks of 256 threads for the
-//     132 SMs: one wave. x is staged transposed so that one 8-byte load
-//     brings a warp's two rows (a broadcast); the W tile is read by lanes on
-//     consecutive addresses.
+// it, so the four gates of every (row, column) meet in one block and the
+// cell is applied there. Ragged B, I and H are zero-filled on load and
+// masked on store: there is no fallback. Operands may be row-strided views
+// (a time step of [B, T, I], the two row blocks of one fused W); the last
+// dimension must have unit stride.
+//   - f32: lstm_cell_f32_kernel. A block is 32 rows x 16 columns x 4 gates
+//     (at the bench shape 8 x 16 = 128 blocks for the 132 SMs: one wave)
+//     and runs K slices of 64 threads: eight where the grid is under one
+//     block an SM (the bench shape), four where it fills the card (the
+//     CLI's). The first slices take x.Wx, the others h.Wh, split so that
+//     the largest slice has the fewest tiles. A thread keeps 2 rows x 4
+//     columns x 4 gates (32 sums) in registers: per k one float of each
+//     row and one float4 per gate, so 36 shared loads feed 256 FMAs of an
+//     8-deep tile. Each slice streams its x (or h) and W tiles with
+//     cp.async (16-byte chunks where rows and gate slices are 4-float
+//     aligned, single floats otherwise) into its own 3-stage ring, synced
+//     by a named barrier of its 64 threads, so the copy of the next tiles
+//     runs while this one is multiplied; the bias and the previous c are
+//     fetched before the products. The slices' partial sums meet in shared
+//     memory: z = ((x.Wx slices, in order) + (h.Wh slices, in order)) + b,
+//     and each thread applies the cell to its (row, column) pairs. A block
+//     reads 128 KB of W and 64 KB of x and h (24.6 MB from L2 a launch at
+//     the bench shape, against 36 MB for 16 x 32 tiles).
 //   - bf16: lstm_cell_mma_kernel. 4 warps, one m16 tile of 16 rows; warp w
 //     takes hidden columns 8w..8w+7 of the block's 32 and runs one m16n8k16
 //     product per gate, so each thread's accumulator fragments hold the
 //     same (row, column) positions for all four gates. W is staged
 //     transposed so that a B fragment is one 32-bit load.
-// No cp.async/TMA pipeline, no wgmma, and Wh is read from device memory
-// (L2) at every step: a persistent kernel that keeps Wh on chip across time
-// steps is later work.
+// No TMA and no wgmma (f32 stays off the tensor cores), and Wh is read from
+// device memory (L2) at every step: a persistent kernel that keeps Wh on
+// chip across time steps is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <atomic>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) {
@@ -72,106 +85,313 @@ __device__ __forceinline__ float sigmoid(float v) {
 // The cell for one (row, column): z of the four gates, the previous c.
 template <typename T>
 __device__ __forceinline__ void apply_cell(float zi, float zf, float zo,
-                                           float zg, const T* c, T* h_out,
+                                           float zg, float c, T* h_out,
                                            T* c_out) {
   const float i = sigmoid(zi);
   const float f = sigmoid(zf);
   const float o = sigmoid(zo);
   const float g = tanhf(zg);
-  const float cn = __fadd_rn(__fmul_rn(f, to_f32(*c)), __fmul_rn(i, g));
+  const float cn = __fadd_rn(__fmul_rn(f, c), __fmul_rn(i, g));
   store(c_out, cn);
   store(h_out, __fmul_rn(o, tanhf(cn)));
 }
 
 // ------------------------------------------------------------------- f32
 
-constexpr int kBN = 32;             // hidden columns per block: one a lane
-constexpr int kWarps = 8;
-constexpr int kTM = 2;              // batch rows per warp
-constexpr int kBM = kWarps * kTM;   // 16 batch rows per block
-constexpr int kBK = 32;             // K depth of one shared tile
-constexpr int kThreads = kWarps * 32;
-constexpr int kXLd = kBM + 2;       // even (8-byte loads), 16 banks apart
+constexpr int kBM = 32;             // batch rows per block
+constexpr int kBN = 16;             // hidden columns per block (x 4 gates)
+constexpr int kBK = 8;              // K depth of one staged tile
+constexpr int kStages = 3;          // depth of each slice's cp.async ring
+constexpr int kTR = 2;              // rows of a thread, kBM / kTR apart
+constexpr int kSliceThreads = kBM / kTR * 4;  // row groups x column quads
+// K slices of a block: many where the grid is under one block an SM, few
+// where it fills the card
+constexpr int kSlicesFew = 4, kSlicesMany = 8;
+constexpr int kXLd = kBK + 4;       // x tile row: 16-byte aligned, and the
+                                    // float4 reads of 8 rows hit 8 bank quads
+constexpr int kXTile = kBM * kXLd;  // floats of one staged x (or h) tile
+constexpr int kWTile = kBK * 4 * kBN;  // floats of one staged W tile
+constexpr int kStage = kXTile + kWTile;
+constexpr int kRing = kStages * kStage;  // floats of one slice's ring
 
-// acc[r][g] += src[row0 + 2w + r, :K] . w[:K, g*H + col0 + lane]
-__device__ __forceinline__ void accumulate_f32(
-    const float* __restrict__ src, long long s_src, int K,
-    const float* __restrict__ w, long long s_w, int B, int H, int row0,
-    int col0, float* xs, float* ws, float (&acc)[kTM][4]) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < kBM * kBK; idx += kThreads) {
-      const int r = idx / kBK;
-      const int kk = idx - r * kBK;
-      const int row = row0 + r;
-      const int k = k0 + kk;
-      xs[kk * kXLd + r] =
-          (row < B && k < K) ? src[(long long)row * s_src + k] : 0.f;
-    }
-    for (int idx = tid; idx < kBK * 4 * kBN; idx += kThreads) {
-      const int jj = idx % kBN;
-      const int g = (idx / kBN) & 3;
-      const int kk = idx / (4 * kBN);
-      const int k = k0 + kk;
-      const int col = col0 + jj;
-      ws[idx] = (k < K && col < H)
-                    ? w[(long long)k * s_w + (long long)g * H + col]
-                    : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float2 xv =
-          *reinterpret_cast<const float2*>(xs + kk * kXLd + warp * kTM);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy kVec floats (4: one 16-byte chunk; 1: one float) from global to
+// shared memory asynchronously; floats at or past `valid` are written as 0.
+template <int kVec>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  if constexpr (kVec == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(4 * valid)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(4 * valid)
+                 : "memory");
+}
+
+// Start the copy of one K tile of a slice: src rows [row0, row0 + kBM) x
+// k [k, k + kBK) into xs ([row][kXLd]), and the four gate column slices
+// w[k .. k + kBK, g*H + col0 .. + kBN] into ws ([k][gate][kBN]); zeros past
+// B, past the slice's end k_end and past H. The 64 threads of the slice
+// take the chunks in turn (`lt`: the thread's index in the slice).
+template <int kVec>
+__device__ __forceinline__ void load_stage(float* xs, float* ws,
+                                           const float* __restrict__ src,
+                                           long long s_src,
+                                           const float* __restrict__ w,
+                                           long long s_w, int B, int H,
+                                           int row0, int col0, int k,
+                                           int k_end, int lt) {
+  constexpr int kXRow = kBK / kVec;  // chunks per staged row of x
+  static_assert(kBM * kXRow % kSliceThreads == 0, "whole rounds of chunks");
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float wv = ws[(kk * 4 + g) * kBN + lane];
-        acc[0][g] = fmaf(xv.x, wv, acc[0][g]);
-        acc[1][g] = fmaf(xv.y, wv, acc[1][g]);
+  for (int n = 0; n < kBM * kXRow / kSliceThreads; ++n) {
+    const int i = lt + n * kSliceThreads;
+    const int r = i / kXRow;
+    const int kk = (i % kXRow) * kVec;
+    const int row = row0 + r;
+    const int left = k_end - (k + kk);
+    const int valid = row < B && left > 0 ? (left < kVec ? left : kVec) : 0;
+    cp_async<kVec>(xs + r * kXLd + kk,
+                   valid ? src + (long long)row * s_src + k + kk : src,
+                   valid);
+  }
+  constexpr int kWRow = kBN / kVec;  // chunks per gate slice of a W row
+  static_assert(kBK * 4 * kWRow % kSliceThreads == 0, "whole rounds");
+#pragma unroll
+  for (int n = 0; n < kBK * 4 * kWRow / kSliceThreads; ++n) {
+    const int i = lt + n * kSliceThreads;
+    const int jj = (i % kWRow) * kVec;
+    const int g = (i / kWRow) % 4;
+    const int kk = i / (4 * kWRow);
+    const int left = H - (col0 + jj);
+    const int valid =
+        k + kk < k_end && left > 0 ? (left < kVec ? left : kVec) : 0;
+    cp_async<kVec>(ws + (kk * 4 + g) * kBN + jj,
+                   valid ? w + (long long)(k + kk) * s_w + (long long)g * H +
+                               col0 + jj
+                         : w,
+                   valid);
+  }
+}
+
+// acc[r][g][c] += src[row0 + rg + r kBM / kTR, k_begin:k_end] .
+//                 w[k_begin:k_end, g*H + col0 + 4 q + c]
+// over one slice's K range, through its ring of kStages tiles: the copy of
+// tile t + kStages - 1 runs while tile t is multiplied. Named barrier
+// 1 + slice syncs the slice's threads.
+template <int kVec>
+__device__ __forceinline__ void accumulate_slice(
+    const float* __restrict__ src, long long s_src,
+    const float* __restrict__ w, long long s_w, int B, int H, int row0,
+    int col0, int k_begin, int k_end, int slice, float* ring,
+    float (&acc)[kTR][4][4]) {
+  const int lt = threadIdx.x % kSliceThreads;
+  const int q = lt % 4, rg = lt / 4;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < ntiles)
+      load_stage<kVec>(ring + t * kStage, ring + t * kStage + kXTile, src,
+                       s_src, w, s_w, B, H, row0, col0, k_begin + t * kBK,
+                       k_end, lt);
+    cp_async_commit();
+  }
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile t landed
+    // every thread's copies of tile t landed, and tile t - 1 is consumed:
+    // its stage takes tile t + kStages - 1
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + slice), "n"(kSliceThreads)
+                 : "memory");
+    const int next = t + kStages - 1;
+    if (next < ntiles) {
+      float* st = ring + (next % kStages) * kStage;
+      load_stage<kVec>(st, st + kXTile, src, s_src, w, s_w, B, H, row0,
+                       col0, k_begin + next * kBK, k_end, lt);
+    }
+    cp_async_commit();
+    const float* xs = ring + (t % kStages) * kStage;
+    const float* ws = xs + kXTile;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float xv[kTR][4];  // 4 k of each of the thread's rows
+#pragma unroll
+      for (int r = 0; r < kTR; ++r) {
+        const float4 xa = *reinterpret_cast<const float4*>(
+            xs + (rg + r * (kBM / kTR)) * kXLd + kk);
+        xv[r][0] = xa.x, xv[r][1] = xa.y, xv[r][2] = xa.z, xv[r][3] = xa.w;
       }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float4 wv = *reinterpret_cast<const float4*>(
+              ws + ((kk + j) * 4 + g) * kBN + 4 * q);
+          const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+          for (int r = 0; r < kTR; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc[r][g][c] = fmaf(xv[r][j], wc[c], acc[r][g][c]);
+        }
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// z over the K slices of one block: x.Wx is cut into the first nx slices
+// and h.Wh into the other kSlices - nx, each part's kBK-deep tiles dealt
+// out evenly; each slice copies 16-byte chunks where its operands' rows and
+// gate slices are 4-float aligned (vec_x, vec_h), single floats otherwise.
+template <int kSlices>
+__global__ void __launch_bounds__(kSlices * kSliceThreads)
 lstm_cell_f32_kernel(const float* __restrict__ x, const float* __restrict__ h,
                      const float* __restrict__ c, const float* __restrict__ wx,
                      const float* __restrict__ wh, const float* __restrict__ b,
                      float* __restrict__ h_out, float* __restrict__ c_out,
                      int B, int I, int H, long long x_s, long long h_s,
-                     long long c_s, long long wx_s, long long wh_s) {
-  __shared__ __align__(16) float xs[kBK * kXLd];
-  __shared__ __align__(16) float ws[kBK * 4 * kBN];
+                     long long c_s, long long wx_s, long long wh_s, int nx,
+                     int vec_x, int vec_h) {
+  // each slice's ring; after the products, the slices' partial z
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  static_assert(4 * kBM * kBN <= kRing, "the partial sums reuse the rings");
   const int row0 = blockIdx.x * kBM;
   const int col0 = blockIdx.y * kBN;
-  float zx[kTM][4], zh[kTM][4];
-#pragma unroll
-  for (int r = 0; r < kTM; ++r)
-#pragma unroll
-    for (int g = 0; g < 4; ++g) zx[r][g] = zh[r][g] = 0.f;
-  accumulate_f32(x, x_s, I, wx, wx_s, B, H, row0, col0, xs, ws, zx);
-  accumulate_f32(h, h_s, H, wh, wh_s, B, H, row0, col0, xs, ws, zh);
+  const int slice = threadIdx.x / kSliceThreads;
+  const int lt = threadIdx.x % kSliceThreads;
+  const int q = lt % 4, rg = lt / 4;
 
-  const int warp = threadIdx.x >> 5;
-  const int col = col0 + (threadIdx.x & 31);
-  if (col >= H) return;
-  float bias[4];
+  float acc[kTR][4][4];
 #pragma unroll
-  for (int g = 0; g < 4; ++g) bias[g] = b[g * H + col];
+  for (int r = 0; r < kTR; ++r)
 #pragma unroll
-  for (int r = 0; r < kTM; ++r) {
-    const int row = row0 + warp * kTM + r;
-    if (row >= B) continue;
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][g][e] = 0.f;
+  const bool on_x = slice < nx;
+  const int K = on_x ? I : H;
+  const int n = on_x ? nx : kSlices - nx;  // slices of this part
+  const int j = on_x ? slice : slice - nx;  // this slice's place in it
+  const int tiles = (K + kBK - 1) / kBK;
+  const int k_begin = j * tiles / n * kBK;
+  int k_end = (j + 1) * tiles / n * kBK;
+  k_end = k_end < K ? k_end : K;
+  // the cells this thread finishes: their bias and previous c are fetched
+  // now, so that the loads' latency hides under the products
+  constexpr int kThreads = kSlices * kSliceThreads;
+  static_assert(kBM * kBN % kThreads == 0, "whole cells a thread");
+  constexpr int kCells = kBM * kBN / kThreads;
+  float bias[kCells][4], c_prev[kCells];
+#pragma unroll
+  for (int m = 0; m < kCells; ++m) {
+    const int cell = threadIdx.x + m * kThreads;
+    const int row = row0 + cell / kBN, col = col0 + cell % kBN;
+    const bool in = row < B && col < H;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) bias[m][g] = in ? b[g * H + col] : 0.f;
+    c_prev[m] = in ? c[(long long)row * c_s + col] : 0.f;
+  }
+  float* ring = smem + slice * kRing;
+  if (on_x ? vec_x : vec_h)
+    accumulate_slice<4>(on_x ? x : h, on_x ? x_s : h_s, on_x ? wx : wh,
+                        on_x ? wx_s : wh_s, B, H, row0, col0, k_begin, k_end,
+                        slice, ring, acc);
+  else
+    accumulate_slice<1>(on_x ? x : h, on_x ? x_s : h_s, on_x ? wx : wh,
+                        on_x ? wx_s : wh_s, B, H, row0, col0, k_begin, k_end,
+                        slice, ring, acc);
+
+  // partial z of each slice, [slice][gate][row][column], in the rings
+  cp_async_wait<0>();
+  __syncthreads();
+  float* part = smem;
+#pragma unroll
+  for (int r = 0; r < kTR; ++r)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      *reinterpret_cast<float4*>(
+          part + ((slice * 4 + g) * kBM + rg + r * (kBM / kTR)) * kBN +
+          4 * q) =
+          make_float4(acc[r][g][0], acc[r][g][1], acc[r][g][2],
+                      acc[r][g][3]);
+  __syncthreads();
+
+  // z = (x.Wx + h.Wh) + b, each product the sum of its slices in order, and
+  // the cell
+  constexpr int kPart = 4 * kBM * kBN;  // floats of one slice's partial z
+#pragma unroll
+  for (int m = 0; m < kCells; ++m) {
+    const int cell = threadIdx.x + m * kThreads;
+    const int r = cell / kBN, jj = cell % kBN;
+    const int row = row0 + r, col = col0 + jj;
+    if (row >= B || col >= H) continue;
     float z[4];
 #pragma unroll
-    for (int g = 0; g < 4; ++g) z[g] = (zx[r][g] + zh[r][g]) + bias[g];
-    apply_cell(z[0], z[1], z[2], z[3], c + (long long)row * c_s + col,
+    for (int g = 0; g < 4; ++g) {
+      const float* p = part + (g * kBM + r) * kBN + jj;
+      float zx = p[0], zh = p[nx * kPart];
+      for (int t = 1; t < nx; ++t) zx += p[t * kPart];
+      for (int t = nx + 1; t < kSlices; ++t) zh += p[t * kPart];
+      z[g] = (zx + zh) + bias[m][g];
+    }
+    apply_cell(z[0], z[1], z[2], z[3], c_prev[m],
                h_out + (long long)row * H + col,
                c_out + (long long)row * H + col);
   }
+}
+
+constexpr int kMaxDevices = 64;
+
+// The launch of the f32 body with kSlices K slices: the dynamic shared
+// memory limit raised once per device, and the split of the slices between
+// x.Wx and h.Wh that leaves the largest slice the fewest tiles.
+template <int kSlices>
+cudaError_t launch_f32(const float* x, const float* h, const float* c,
+                       const float* wx, const float* wh, const float* b,
+                       float* h_out, float* c_out, int B, int I, int H,
+                       long long x_s, long long h_s, long long c_s,
+                       long long wx_s, long long wh_s, cudaStream_t st) {
+  auto kernel = lstm_cell_f32_kernel<kSlices>;
+  const size_t smem = sizeof(float) * kSlices * kRing;
+  static std::atomic<bool> smem_set[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_set[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set[dev].store(true, std::memory_order_release);
+  }
+  const int tx = (I + kBK - 1) / kBK, th = (H + kBK - 1) / kBK;
+  int nx = 1, best = INT_MAX;
+  for (int cand = 1; cand < kSlices; ++cand) {
+    const int hs = kSlices - cand;
+    const int most = std::max((tx + cand - 1) / cand, (th + hs - 1) / hs);
+    if (most < best) best = most, nx = cand;
+  }
+  // 16-byte copies need 4-float aligned rows, gate slices and bases
+  const bool vec_w = H % 4 == 0;
+  const int vec_x = vec_w && x_s % 4 == 0 && wx_s % 4 == 0 &&
+                    ((uintptr_t)x | (uintptr_t)wx) % 16 == 0;
+  const int vec_h = vec_w && h_s % 4 == 0 && wh_s % 4 == 0 &&
+                    ((uintptr_t)h | (uintptr_t)wh) % 16 == 0;
+  dim3 grid((B + kBM - 1) / kBM, (H + kBN - 1) / kBN);
+  kernel<<<grid, kSlices * kSliceThreads, smem, st>>>(
+      x, h, c, wx, wh, b, h_out, c_out, B, I, H, x_s, h_s, c_s, wx_s, wh_s,
+      nx, vec_x, vec_h);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ bf16, mma.sync
@@ -279,7 +499,8 @@ lstm_cell_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
 #pragma unroll
     for (int g = 0; g < 4; ++g)
       z[g] = (zx[g][e] + zh[g][e]) + __bfloat162float(b[g * H + col]);
-    apply_cell(z[0], z[1], z[2], z[3], c + (long long)row * c_s + col,
+    apply_cell(z[0], z[1], z[2], z[3],
+               to_f32(c[(long long)row * c_s + col]),
                h_out + (long long)row * H + col,
                c_out + (long long)row * H + col);
   }
@@ -300,14 +521,30 @@ extern "C" int lstm_cell(const void* x, const void* h, const void* c,
   if (B < 1 || I < 1 || H < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    dim3 grid((B + kBM - 1) / kBM, (H + kBN - 1) / kBN);
-    lstm_cell_f32_kernel<<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(h),
-        static_cast<const float*>(c), static_cast<const float*>(wx),
-        static_cast<const float*>(wh), static_cast<const float*>(b),
-        static_cast<float*>(h_out), static_cast<float*>(c_out), B, I, H, x_s,
-        h_s, c_s, wx_s, wh_s);
-    return (int)cudaGetLastError();
+    // eight K slices (512 threads) where the grid is under one block an SM
+    // (the bench shape: 128 blocks), four where it fills the card
+    static std::atomic<int> sms{0};
+    if (sms.load() == 0) {
+      int dev = 0, n = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return (int)err;
+      sms.store(n);
+    }
+    const long long blocks =
+        (long long)((B + kBM - 1) / kBM) * ((H + kBN - 1) / kBN);
+#define DL4J_LSTM_ARGS                                                      \
+  static_cast<const float*>(x), static_cast<const float*>(h),               \
+      static_cast<const float*>(c), static_cast<const float*>(wx),          \
+      static_cast<const float*>(wh), static_cast<const float*>(b),          \
+      static_cast<float*>(h_out), static_cast<float*>(c_out), B, I, H, x_s, \
+      h_s, c_s, wx_s, wh_s, st
+    const cudaError_t err = blocks <= sms.load()
+                                ? launch_f32<kSlicesMany>(DL4J_LSTM_ARGS)
+                                : launch_f32<kSlicesFew>(DL4J_LSTM_ARGS);
+#undef DL4J_LSTM_ARGS
+    return (int)err;
   }
   if (dtype == 1) {
     dim3 grid((B + kMmaBM - 1) / kMmaBM, (H + kMmaBN - 1) / kMmaBN);

@@ -21,17 +21,17 @@ Kernels ported so far (see ROADMAP.md queue B for the rest):
   logsumexp residual (`csrc/flash_attn_fwd.cu`; bf16 on TMA and `wgmma`);
 - `flash_bwd_delta`, `flash_bwd_dkv`, `flash_bwd_dq`: the three kernels of
   the fused backward, `_flash_bwd_delta_kernel`, `_flash_bwd_dkv_kernel`
-  and `_flash_bwd_dq_kernel` (`csrc/flash_attn_bwd.cu`; bf16 dK/dV on TMA
-  and `wgmma`), wired to the forward by `FlashAttentionFunction`;
+  and `_flash_bwd_dq_kernel` (`csrc/flash_attn_bwd.cu`; bf16 dK/dV and dQ
+  on TMA and `wgmma`), wired to the forward by `FlashAttentionFunction`;
 - `lstm_cell`: `_lstm_cell_kernel`, one fused LSTM cell update
   (`csrc/lstm_cell.cu`), with `LSTMCellFunction` for its gradient;
 - `scatter_add_rows`: `_scatter_add_kernel`, the embedding-row scatter-add
   (`csrc/scatter_add.cu`), the backward of `gather_rows`.
 
-The bf16 flash forward and dK/dV kernels read their inputs by TMA, which
-takes a head dim of 64 or 128 on 16-byte aligned rows; `tma_heads` is the
-rule for other inputs (zero-padded contiguous copies, counted in
-`PAD_COPIES`). `csrc/hopper.cuh` holds what those two kernels share.
+The bf16 flash forward, dK/dV and dQ kernels read their inputs by TMA,
+which takes a head dim of 64 or 128 on 16-byte aligned rows; `tma_heads` is
+the rule for other inputs (zero-padded contiguous copies, counted in
+`PAD_COPIES`). `csrc/hopper.cuh` holds what those kernels share.
 """
 
 from __future__ import annotations
@@ -457,10 +457,12 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = False,
     return _from_bhsd(dk, k.dtype), _from_bhsd(dv, v.dtype)
 
 
-def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool = False):
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool = False,
+                           scale: Optional[float] = None):
     """Plain version of the dQ kernel: dQ = dS K in f32, cast to q's
-    dtype, as a contiguous [B, S, H, D]."""
-    _, kf, _, _, ds = _bwd_probs(q, k, v, do, lse, delta, causal)
+    dtype, as a contiguous [B, S, H, D]. `scale` defaults to
+    1 / sqrt(D)."""
+    _, kf, _, _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
     return _from_bhsd(ds @ kf, q.dtype)
 
 
@@ -493,22 +495,32 @@ def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return delta
 
 
-def _bwd_launch(name, q, k, v, do, lse, delta, outs, causal, scale):
-    """Launch the dK/dV or dQ kernel: inputs checked, outputs allocated by
-    the caller (contiguous [B, S, H, D])."""
+def _bwd_launch(name, q, k, v, do, lse, delta, causal, n_out):
+    """Launch the dK/dV (`n_out` 2) or dQ (1) kernel on CUDA tensors: the
+    inputs checked, bf16 inputs through `tma_heads` at the original head
+    dim's scale, the outputs allocated as contiguous [B, S, H, D] in the
+    inputs' dtype and cut back with `tma_slice`."""
+    do = _unit_stride(do)
     _check_heads(name, q=q, k=k, v=v, do=do)
     _check_rows(name, q, lse=lse, delta=delta)
     b, s, h, d = q.shape
+    scale = 1.0 / (d ** 0.5)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = tma_heads(q, k, v, do)
+    outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
+            for _ in range(n_out)]
     lib = _library("flash_attn_bwd")
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
-            b, h, s, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), do.stride(0), do.stride(1),
-            scale, int(bool(causal)), _dtype_code(q), _stream(q))
+            b, h, s, q.shape[3], q.stride(0), q.stride(1), k.stride(0),
+            k.stride(1), v.stride(0), v.stride(1), do.stride(0),
+            do.stride(1), scale, int(bool(causal)), _dtype_code(q),
+            _stream(q))
     _check(err, name)
     _count(name)
+    return [tma_slice(t, d) for t in outs]
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
@@ -519,28 +531,18 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
     `tma_heads`); CPU tensors take `flash_bwd_dkv_reference`."""
     if _all_cpu(q, k, v, do, lse, delta):
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
-    do = _unit_stride(do)
-    _check_heads("flash_bwd_dkv", q=q, k=k, v=v, do=do)
-    d = q.shape[3]
-    scale = 1.0 / (d ** 0.5)
-    if q.dtype == torch.bfloat16:
-        q, k, v, do = tma_heads(q, k, v, do)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal,
-                scale)
-    return tma_slice(dk, d), tma_slice(dv, d)
+    dk, dv = _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, causal, 2)
+    return dk, dv
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
     """Wrapper of the dQ kernel; arguments as `flash_bwd_dkv`. Returns dq,
-    contiguous [B, S, H, D] in q's dtype."""
+    contiguous [B, S, H, D] in q's dtype. CUDA tensors launch
+    `csrc/flash_attn_bwd.cu` (bf16 through `tma_heads`); CPU tensors take
+    `flash_bwd_dq_reference`."""
     if _all_cpu(q, k, v, do, lse, delta):
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
-    do = _unit_stride(do)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal,
-                1.0 / (q.shape[3] ** 0.5))
+    (dq,) = _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, causal, 1)
     return dq
 
 

@@ -218,6 +218,30 @@ def test_tma_padding_route_equals_the_unpadded_computation(d, view, causal):
     assert kernels.PAD_COPIES == before + (7 if padded else 3)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,view", [(20, False), (100, False), (64, True),
+                                    (100, True)])
+def test_tma_padding_route_keeps_dq_of_the_unpadded_computation(d, view,
+                                                                 causal):
+    # the dQ wrapper's route for bf16 inputs no tensor map takes: zero-padded
+    # q, k, v, dO at the original D's scale give dQ's first D columns
+    q, k, v, do = _padded_case(24, d, view)
+    scale = 1.0 / d ** 0.5
+    pq, pk, pv, pdo = kernels.tma_heads(q, k, v, do)
+    o, lse = kernels.flash_attention_reference(q, k, v, causal,
+                                               with_lse=True)
+    delta = kernels.flash_bwd_delta_reference(o, do)
+    want = kernels.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    got = kernels.flash_bwd_dq_reference(pq, pk, pv, pdo, lse, delta, causal,
+                                         scale=scale)
+    assert got.shape[3] == kernels.tma_width(d)
+    assert not got[..., d:].any()
+    got = kernels.tma_slice(got, d)
+    assert got.shape == q.shape and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
 def test_tma_route_keeps_readable_inputs_in_place():
     # the serving and training paths' layout (qkv views, D = 128) and
     # contiguous D = 64 need no copy
@@ -271,7 +295,9 @@ def _jax_fwd_and_g(seed, b, s, h, d, causal, block):
     return q, k, v, np.array(o), np.array(lse), g
 
 
-BWD_SHAPES = [(2, 64, 2, 8), (1, 128, 2, 16)]
+# the last: S = 96 (under one 128-query block of the bf16 dQ kernel) at a
+# head dim (100) that the bf16 kernels take through the padding route
+BWD_SHAPES = [(2, 64, 2, 8), (1, 128, 2, 16), (1, 96, 2, 100)]
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -454,6 +480,38 @@ def test_cuda_tma_kernels_match_plain_versions_through_the_padding_route(d):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= 2e-2 * want.float().abs().max().item()
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [96, 200])
+@pytest.mark.parametrize("d", [64, 100, 128])
+def test_cuda_dq_kernel_matches_plain_version_on_qkv_views(d, s, causal):
+    # the bf16 TMA + wgmma dQ body on views of one fused projection: S = 96
+    # is less than one 128-query block, S = 200 ends in a ragged block and a
+    # ragged key tile, D = 100 goes through zero-padded copies of 128
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    rng = np.random.RandomState(26)
+    b, h = 2, 4
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    q, k, v = (t.view(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    g = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    o, lse = kernels.flash_attention(q, k, v, causal, with_lse=True)
+    delta = kernels.flash_bwd_delta_reference(o, g)
+    before, copies = kernels.LAUNCHES["flash_bwd_dq"], kernels.PAD_COPIES
+    got = kernels.flash_bwd_dq(q, k, v, g, lse, delta, causal)
+    want = kernels.flash_bwd_dq_reference(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd_dq"] == before + 1
+    # q, k, v, dO in and dq out where D is padded; none on qkv views of 128
+    assert kernels.PAD_COPIES - copies == (5 if d == 100 else 0)
+    assert got.shape == q.shape and got.is_contiguous()
+    assert got.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item()
 
 
 # -------------------------------------------------------------- scatter-add

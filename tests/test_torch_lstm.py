@@ -68,7 +68,10 @@ def _cell_inputs(seed, b, i, h):
 
 # -------------------------------------------------------------------- cell
 
-@pytest.mark.parametrize("shape", [(4, 8, 16), (3, 7, 20), (5, 27, 12)])
+# the last is the CLI north star's cell (2047 windows, 27 characters, 128
+# hidden): B and K = I + H are multiples of no tile of the kernel
+@pytest.mark.parametrize("shape", [(4, 8, 16), (3, 7, 20), (5, 27, 12),
+                                   (2047, 27, 128)])
 def test_fused_lstm_step_matches_jax(shape):
     arrs = _cell_inputs(0, *shape)
     want = jax_fused_lstm_step(*(jnp.asarray(a) for a in arrs),
@@ -600,3 +603,35 @@ def test_cuda_lstm_kernel_matches_plain_version_and_trains():
     assert kernels.LAUNCHES["lstm_cell"] == LAYERS * SEQ
     assert np.isfinite(net.score(x, y)) and np.isfinite(before)
     assert LayerType(str(tconf.conf(1).layer_type)) == LayerType.LSTM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,i,h,views", [
+    (37, 27, 40, False),    # K = 27 + 40: no multiple of the K tile
+    (2047, 27, 128, False),  # B: no multiple of the block's 32 rows
+    (3, 7, 20, False),      # every dimension under one tile
+    (50, 36, 44, True),     # W as row blocks of one [I + H, 4H] tensor
+    (64, 256, 256, True)])  # the bench widths, x a time step of [B, T, I]
+def test_cuda_f32_lstm_kernel_edge_shapes(b, i, h, views):
+    # the f32 body (cp.async ring, K slices) against its plain version at
+    # 1e-5; shapes with 4-float aligned rows take 16-byte copies, the others
+    # single-float copies
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x, h0, c0, wx, wh, bias = (torch.from_numpy(a).cuda()
+                               for a in _cell_inputs(23, b, i, h))
+    if views:
+        w = torch.cat([wx, wh])
+        wx, wh = w[:i], w[i:]
+        seq = torch.from_numpy(np.random.RandomState(24).standard_normal(
+            (b, 3, i)).astype(np.float32)).cuda()
+        x = seq[:, 1]
+        assert x.stride(0) == 3 * i and wh.stride(0) == 4 * h
+    before = kernels.LAUNCHES["lstm_cell"]
+    got = kernels.lstm_cell(x, h0, c0, wx, wh, bias)
+    want = kernels.lstm_cell_reference(x, h0, c0, wx, wh, bias)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lstm_cell"] == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == (b, h) and g.is_contiguous()
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
