@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch / H100 port on one GPU.
 
     python3 chip_smoke.py            # every phase (what the checks run)
-    python3 chip_smoke.py --quick    # build, ptxas, one check per kernel
+    python3 chip_smoke.py --quick    # build, ptxas, one check per case
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU. It
 imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
@@ -10,12 +10,17 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
 1. prints the card (`nvidia-smi` name and power limit) and the versions;
 2. builds every kernel of the serving and training paths from
    `deeplearning4j_tpu_torch/csrc/` with nvcc (sm_90a), one nvcc per source,
-   all started together;
+   all started together, and reports the registers and spills of each TMA
+   body (D = 64, 128) and of the f32 forward body (D = 32, 64, 128); a
+   spill fails the run;
 3. holds the flash-attention forward kernel against its plain PyTorch
    version on the card, at the serving shape (contiguous inputs, and the
    strided views of one fused qkv projection that the serving path passes),
    at the train step's shape with lse on those views, and at a ragged
-   shape, and times the kernel, the plain version and the
+   shape; in f32 (the 3xTF32 body, atol = rtol = 1e-4 on o and lse) at
+   [8, 512, 16, 128] contiguous and on qkv views, at the CLI
+   char_transformer's [32, 256, 4, 32] and at ragged S with D = 64 and 100;
+   and times the kernel, the plain version and the
    one PyTorch call that computes the same function by CUDA-graph replay
    (device time, no host launch cost), the wrapper's eager call
    (`call_ms`), and the bound (the least time the card could take);
@@ -30,8 +35,9 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    16 heads, seq 512, bf16 compute, random weights from a seed) through
    `MultiLayerNetwork.serve` to 4 concurrent POST /v1/predict requests,
    checks each answer against a direct `net.output`, checks the flash path
-   against the plain attention path in f32, and checks that every forward
-   pass launched the flash kernel once per attention layer;
+   against the plain attention path in f32 and times both f32 network
+   outputs, and checks that every forward pass launched the flash kernel
+   once per attention layer;
 6. trains the same network with `MultiLayerNetwork.fit` (the JAX package's
    flagship training conf, bench.py:558-567: Adam, sparse labels, fused
    updater, fused attention backward, bf16 compute over f32 weights) for
@@ -92,6 +98,10 @@ import numpy as np
 #: H100 SXM peaks (NVIDIA data sheet, dense): FLOP/s by operand type, HBM B/s
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+#: f32 attention products on the tensor cores as 3xTF32 (three TF32
+#: products of 495 TFLOP/s each): the least time for an f32 product, where
+#: PEAK_FLOPS["float32"] (FMAs on the CUDA cores) is kept as `fma_bound_ms`
+F32_3XTF32_FLOPS = 495e12 / 3
 
 SLICE = dict(vocab=256, d_model=2048, n_blocks=8, n_heads=16, seq=512)
 REQUESTS, REQUEST_ROWS = 4, 2
@@ -173,41 +183,57 @@ def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
     return ms
 
 
-def attention_bound_ms(b, s, h, d, dtype_name, causal, with_lse):
-    """max(operations / peak rate, bytes / HBM rate) for one forward: the
-    scores and P.V products (halved when causal), q, k, v read once, o (and
-    lse) written once."""
-    size = 2 if dtype_name == "bfloat16" else 4
-    flops = 4.0 * b * h * s * s * d * (0.5 if causal else 1.0)
-    nbytes = 4.0 * b * s * h * d * size + (4.0 * b * h * s if with_lse else 0)
-    t_ops = flops / PEAK_FLOPS[dtype_name]
+def roofline_ms(flops, nbytes, rate):
+    """(max(operations / rate, bytes / HBM rate) in ms, which of the two
+    bounds it)."""
+    t_ops = flops / rate
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
 
+def product_bounds(flops, nbytes, dtype_name):
+    """(bound_ms, bound_by, fma_bound_ms) of attention products: bf16 at
+    the bf16 tensor-core rate; f32 at the 3xTF32 rate, with the bound at
+    the rate of f32 FMAs beside it (None for bf16)."""
+    if dtype_name == "bfloat16":
+        return roofline_ms(flops, nbytes, PEAK_FLOPS["bfloat16"]) + (None,)
+    fma_ms, _ = roofline_ms(flops, nbytes, PEAK_FLOPS["float32"])
+    return roofline_ms(flops, nbytes, F32_3XTF32_FLOPS) + (fma_ms,)
+
+
+def attention_bound_ms(b, s, h, d, dtype_name, causal, with_lse):
+    """(bound_ms, bound_by, fma_bound_ms) of one forward: the scores and
+    P.V products (halved when causal), q, k, v read once, o (and lse)
+    written once."""
+    size = 2 if dtype_name == "bfloat16" else 4
+    flops = 4.0 * b * h * s * s * d * (0.5 if causal else 1.0)
+    nbytes = 4.0 * b * s * h * d * size + (4.0 * b * h * s if with_lse else 0)
+    return product_bounds(flops, nbytes, dtype_name)
+
+
 def bwd_bound_ms(name, b, s, h, d, dtype_name, causal):
-    """max(operations / peak rate, bytes / HBM rate) for one backward
-    kernel: each input read once, each output written once. dK/dV: four
-    products of [S, S, D] per head (QK^T, dO V^T, P^T dO, dS^T Q); dQ: three
-    (QK^T, dO V^T, dS K); both halved when causal. Delta: o and dO read,
-    one f32 per row written."""
+    """(bound_ms, bound_by, fma_bound_ms) of one backward kernel: each input
+    read once, each output written once. dK/dV: four products of [S, S, D]
+    per head (QK^T, dO V^T, P^T dO, dS^T Q); dQ: three (QK^T, dO V^T,
+    dS K); both halved when causal. Delta: o and dO read, one f32 per row
+    written; it multiplies no matrices, so its operations stay at the rate
+    of its dtype's FMAs."""
     size = 2 if dtype_name == "bfloat16" else 4
     elems = float(b * s * h * d)
     rows = 4.0 * b * h * s                     # one f32 per (b, h, row)
     half = 0.5 if causal else 1.0
     if name == "flash_bwd_delta":
         flops, nbytes = 2.0 * elems, 2 * elems * size + rows
-    elif name == "flash_bwd_dkv":
+        bound = roofline_ms(flops, nbytes, PEAK_FLOPS[dtype_name])
+        return bound + (bound[0] if dtype_name == "float32" else None,)
+    if name == "flash_bwd_dkv":
         flops = 8.0 * b * h * s * s * d * half
         nbytes = 6 * elems * size + 2 * rows
     else:
         flops = 6.0 * b * h * s * s * d * half
         nbytes = 5 * elems * size + 2 * rows
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
-                                       else "bytes")
+    return product_bounds(flops, nbytes, dtype_name)
 
 
 def qkv_views(qkv, h, d):
@@ -377,8 +403,8 @@ def phase_bwd_kernels(torch, kernels):
         for name in BWD_KERNELS:
             err, ok = results[name]
             kernel_fn, plain_fn = calls[name]
-            bound_ms, bound_by = bwd_bound_ms(name, b, s, h, d, dname,
-                                              causal)
+            bound_ms, bound_by, fma_bound_ms = bwd_bound_ms(
+                name, b, s, h, d, dname, causal)
             kernel_ms = graph_ms(kernel_fn)
             half = 0.5 if causal else 1.0
             flops = {"flash_bwd_delta": 2.0 * b * s * h * d,
@@ -391,6 +417,7 @@ def phase_bwd_kernels(torch, kernels):
                    "call_ms": cuda_ms(kernel_fn),
                    "plain_ms": graph_ms(plain_fn, iters=3, replays=1),
                    "bound_ms": bound_ms, "bound_by": bound_by,
+                   "fma_bound_ms": fma_bound_ms,
                    "sdpa_backward_ms": library_ms}
             if view:
                 row["grad_fn_max_abs_err"] = grad_err
@@ -445,14 +472,30 @@ def tma_ptxas(kernels) -> dict:
             for name, (lib, body) in TMA_BODIES.items()}
 
 
-def check_no_spills(bodies) -> None:
-    """Every TMA body is compiled for D = 64 and 128, without spills."""
+#: the f32 bodies on 3xTF32 mma.sync, one instance per head-dim bucket
+F32_BODIES = {"flash_attn_fwd": ("flash_attn_fwd", "flash_fwd_3xtf32_kernel")}
+
+
+def f32_ptxas(kernels) -> dict:
+    """{kernel: ptxas_info of its f32 body} from the last build's logs."""
+    return {name: ptxas_info(kernels.BUILD_LOGS.get(lib, ""), body)
+            for name, (lib, body) in F32_BODIES.items()}
+
+
+def check_no_spills(bodies, dims=("64", "128"), what="TMA") -> None:
+    """Every body is compiled for each head dim of `dims`, without
+    spills."""
     for name, info in bodies.items():
-        for d in ("64", "128"):
+        for d in dims:
             at = info.get(d, {})
             check(at.get("spill_stores") == 0 and at.get("spill_loads") == 0,
-                  f"{name}'s TMA body spills (or is missing) at D = {d}: "
+                  f"{name}'s {what} body spills (or is missing) at D = {d}: "
                   f"{info}")
+
+
+def check_bodies(bodies, f32_bodies) -> None:
+    check_no_spills(bodies)
+    check_no_spills(f32_bodies, ("32", "64", "128"), "f32")
 
 
 #: the fused LSTM cell's cases: (name, B, I, H, dtype name, W as views)
@@ -480,13 +523,57 @@ def lstm_check(torch, kernels, args):
     return max(errs), ok, want
 
 
+#: the f32 forward's first checks: (B, S, H, D, causal, qkv views); every
+#: head-dim bucket, D = 100 (zero-filled to 128) and D = 30 (single-float
+#: copies), ragged S, the f32 train shape and the CLI char_transformer's
+F32_QUICK_CASES = [(8, 512, 16, 128, True, True),
+                   (8, 512, 16, 128, False, False),
+                   (32, 256, 4, 32, True, True),
+                   (2, 200, 4, 64, False, True),
+                   (2, 96, 4, 100, True, True),
+                   (2, 200, 4, 100, False, False),
+                   (2, 200, 4, 30, True, True),
+                   (2, 96, 4, 128, False, True)]
+
+
+def fwd_inputs(torch, gen, b, s, h, d, dt, view):
+    """q, k, v [B, S, H, D] on the card: strided views of one fused
+    [B, S, 3 * H * D] projection (as the attention layer passes them) when
+    `view`, else contiguous."""
+    if view:
+        qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").to(dt)
+        return qkv_views(qkv, h, d)
+    return tuple(torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
+                 for _ in range(3))
+
+
+def f32_fwd_check(torch, kernels, q, k, v, causal, with_lse):
+    """The f32 forward against its plain version: (max_abs_err of o, of lse
+    or None, ok) at atol = rtol = 1e-4 on both."""
+    got = kernels.flash_attention(q, k, v, causal, with_lse=with_lse)
+    want = kernels.flash_attention_reference(q, k, v, causal,
+                                             with_lse=with_lse)
+    torch.cuda.synchronize()
+    if not with_lse:
+        got, want = (got, None), (want, None)
+    err_o = (got[0] - want[0]).abs().max().item()
+    ok = bool(torch.allclose(got[0], want[0], atol=1e-4, rtol=1e-4))
+    err_lse = None
+    if with_lse:
+        err_lse = (got[1] - want[1]).abs().max().item()
+        ok = ok and bool(torch.allclose(got[1], want[1], atol=1e-4,
+                                        rtol=1e-4))
+    return err_o, err_lse, ok
+
+
 def phase_quick(torch, kernels):
     """The first check of new kernel bodies: the bf16 forward (o, lse) and
     the three backward kernels against their plain versions once each, at
     the serving and training shapes on qkv views, contiguous and not
     causal, at ragged S (200, and 96: less than one block) and at a head
-    dim that takes the padding route; then the LSTM cell in its five cases;
-    no timing. Returns whether every case passed."""
+    dim that takes the padding route; the f32 forward in F32_QUICK_CASES;
+    then the LSTM cell in its five cases; no timing. Returns whether every
+    case passed."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [(8, 512, 16, 128, True, True), (32, 512, 16, 128, True, True),
              (8, 512, 16, 128, False, False), (8, 200, 16, 64, True, False),
@@ -516,6 +603,15 @@ def phase_quick(torch, kernels):
         emit(row)
         all_ok = all_ok and ok_fwd and all(ok for _, ok in results.values())
         del qkv, q, k, v, do, o, lse
+    for b, s, h, d, causal, view in F32_QUICK_CASES:
+        q, k, v = fwd_inputs(torch, gen, b, s, h, d, torch.float32, view)
+        err_o, err_lse, ok = f32_fwd_check(torch, kernels, q, k, v, causal,
+                                           True)
+        emit({"phase": "quick", "name": "flash_attn_fwd", "dtype": "float32",
+              "shape": [b, s, h, d], "causal": causal, "view": view,
+              "max_abs_err": err_o, "max_abs_err_lse": err_lse, "ok": ok})
+        all_ok = all_ok and ok
+        del q, k, v
     for name, b, i, h, dname, view in LSTM_CASES:
         args = lstm_cell_inputs(torch, gen, b, i, h, getattr(torch, dname),
                                 view)
@@ -529,11 +625,13 @@ def phase_quick(torch, kernels):
 
 def phase_kernels(torch, kernels):
     """Kernel vs plain version on the card; returns {case: row} of the two
-    cases the main paths run, both bf16 and causal on q, k, v strided views
-    of one fused [B, S, 3 * H * D] projection: "serve" (B=8, no lse) and
-    "train" (the train step's forward, B=32, with lse); and of the f32
-    forward with lse at [8, 512, 16, 128], "f32_causal" and
-    "f32_not_causal"."""
+    bf16 cases the main paths run, both causal on q, k, v strided views of
+    one fused [B, S, 3 * H * D] projection: "serve" (B=8, no lse) and
+    "train" (the train step's forward, B=32, with lse); of the f32 forward
+    with lse at [8, 512, 16, 128], "f32_causal" and "f32_not_causal"
+    (contiguous), "f32_causal_view" (qkv views); and "f32_cli": the CLI's
+    default char_transformer (d_model 128, 4 heads: D = 32) at
+    [32, 256, 4, 32], causal on views, without lse, as its forward runs."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -547,32 +645,31 @@ def phase_kernels(torch, kernels):
               (8, 200, 16, 64, torch.bfloat16, True, True, False),
               (8, 200, 16, 64, torch.float32, False, True, False),
               # a head dim that takes the padding route (D 100 -> 128)
-              (8, 200, 16, 100, torch.bfloat16, True, True, False)]
+              (8, 200, 16, 100, torch.bfloat16, True, True, False),
+              (8, 200, 16, 100, torch.float32, True, True, False),
+              (8, 512, 16, 128, torch.float32, True, True, True),
+              (32, 256, 4, 32, torch.float32, True, False, True)]
     path_rows = {}
     for b, s, h, d, dt, causal, with_lse, view in cases:
-        if view:
-            qkv = torch.randn(b, s, 3 * h * d, generator=gen,
-                              device="cuda").to(dt)
-            q, k, v = qkv_views(qkv, h, d)
-        else:
-            q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda")
-                       .to(dt) for _ in range(3))
-        got = kernels.flash_attention(q, k, v, causal, with_lse=with_lse)
-        want = kernels.flash_attention_reference(q, k, v, causal,
-                                                 with_lse=with_lse)
-        torch.cuda.synchronize()
-        if not with_lse:
-            got, want = (got, None), (want, None)
-        err_o = (got[0].float() - want[0].float()).abs().max().item()
+        q, k, v = fwd_inputs(torch, gen, b, s, h, d, dt, view)
         if dt == torch.float32:
-            ok = torch.allclose(got[0], want[0], atol=1e-4, rtol=1e-4)
+            err_o, err_lse, ok = f32_fwd_check(torch, kernels, q, k, v,
+                                               causal, with_lse)
         else:
+            got = kernels.flash_attention(q, k, v, causal, with_lse=with_lse)
+            want = kernels.flash_attention_reference(q, k, v, causal,
+                                                     with_lse=with_lse)
+            torch.cuda.synchronize()
+            if not with_lse:
+                got, want = (got, None), (want, None)
+            err_o = (got[0].float() - want[0].float()).abs().max().item()
             ok = torch.allclose(got[0].float(), want[0].float(), atol=2e-2)
-        err_lse = None
-        if with_lse:
-            err_lse = (got[1] - want[1]).abs().max().item()
-            tol = 1e-4 if dt == torch.float32 else 1e-3
-            ok = ok and torch.allclose(got[1], want[1], atol=tol, rtol=tol)
+            err_lse = None
+            if with_lse:
+                err_lse = (got[1] - want[1]).abs().max().item()
+                ok = ok and torch.allclose(got[1], want[1], atol=1e-3,
+                                           rtol=1e-3)
+            del got, want
         dname = str(dt).replace("torch.", "")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         kernel_ms = graph_ms(lambda: kernels.flash_attention(
@@ -583,8 +680,8 @@ def phase_kernels(torch, kernels):
             q, k, v, causal, with_lse=with_lse), iters=5, replays=1)
         library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
-        bound_ms, bound_by = attention_bound_ms(b, s, h, d, dname, causal,
-                                                with_lse)
+        bound_ms, bound_by, fma_bound_ms = attention_bound_ms(
+            b, s, h, d, dname, causal, with_lse)
         flops = 4.0 * b * h * s * s * d * (0.5 if causal else 1.0)
         row = {"phase": "kernel", "name": "flash_attn_fwd",
                "shape": [b, s, h, d], "dtype": dname, "causal": causal,
@@ -593,15 +690,19 @@ def phase_kernels(torch, kernels):
                "kernel_ms": kernel_ms, "call_ms": call_ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
+               "fma_bound_ms": fma_bound_ms,
                "tflops": flops / kernel_ms / 1e9}
         emit(row)
         check(ok, f"flash_attn_fwd disagrees with its plain version: {row}")
-        if view:
+        if dt == torch.bfloat16 and view:
             path_rows["train" if with_lse else "serve"] = row
+        elif dt == torch.float32 and d == 32:
+            path_rows["f32_cli"] = row
         elif dt == torch.float32 and s == 512 and with_lse:
             # what an f32 conf's train step runs (the forward with lse)
-            path_rows["f32_causal" if causal else "f32_not_causal"] = row
-        del q, k, v, qt, kt, vt, got, want
+            key = "f32_causal" if causal else "f32_not_causal"
+            path_rows[key + ("_view" if view else "")] = row
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return path_rows
 
@@ -719,6 +820,13 @@ def phase_serve(torch, kernels):
     check(err_plain < 1e-4,
           f"f32 flash path differs from the plain attention path: "
           f"{err_plain}")
+    # the f32 network output at these widths (8 f32 flash forwards of
+    # [2, 512, 16, 128] among the f32 GEMMs), and the same on the plain
+    # attention path: eager calls, CUDA events, median of 5
+    with torch.inference_mode():
+        f32_ms = {name: [event_ms(torch, lambda c=c: network_output(
+            c, net.params, x0)) for _ in range(5)]
+            for name, c in (("flash", f32_conf), ("plain", plain_conf))}
     # where a request's time goes: one eager forward over the coalesced
     # batch (CUDA events; host launch work included), and the host's JSON
     # work on one answer
@@ -749,6 +857,9 @@ def phase_serve(torch, kernels):
           "flash_launches_direct": direct_launches,
           "max_abs_err_vs_direct": max(errs_direct),
           "max_abs_err_f32_flash_vs_plain_attention": err_plain,
+          "f32_forward_ms": sorted(f32_ms["flash"])[2],
+          "f32_forward_ms_all": f32_ms["flash"],
+          "f32_forward_plain_attention_ms": sorted(f32_ms["plain"])[2],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return serve_launches
 
@@ -1681,22 +1792,27 @@ def phase_embed_quality(torch, kernels):
             "glove": glove_info["launches"]}
 
 
+def f32_case(r, library_key):
+    """One f32 row's numbers for the kernels line."""
+    return {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "fma_bound_ms": r["fma_bound_ms"],
+            "library_ms": r[library_key] if library_key else None,
+            "tflops": r["tflops"]}
+
+
 def f32_entry(case_rows, name):
     """The f32 body's numbers for the kernels line, causal and not, at
     [8, 512, 16, 128]: from phase_kernels' rows (name None) or from
     phase_bwd_kernels' rows of kernel `name`. Its library yardstick is SDPA
-    in f32 (forward; for dK/dV and dQ its whole backward)."""
-    out = {}
-    for key in ("f32_causal", "f32_not_causal"):
-        r = case_rows[key] if name is None else case_rows[key][name]
-        out[key[4:]] = {
-            "shape": r["shape"], "max_abs_err": r["max_abs_err"],
-            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": (r["library_ms"] if name is None
-                           else r["sdpa_backward_ms"]),
-            "tflops": r["tflops"]}
-    return out
+    in f32 (forward; for dK/dV and dQ its whole backward; delta has
+    none)."""
+    library_key = ("library_ms" if name is None else
+                   None if name == "flash_bwd_delta" else "sdpa_backward_ms")
+    return {key[4:]: f32_case(case_rows[key] if name is None
+                              else case_rows[key][name], library_key)
+            for key in ("f32_causal", "f32_not_causal")}
 
 
 def main(argv) -> int:
@@ -1725,14 +1841,16 @@ def main(argv) -> int:
              for line in log.splitlines()
              if "warning" in line.lower() or "Performance Loss" in line]
     bodies = tma_ptxas(kernels)
+    f32_bodies = f32_ptxas(kernels)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(kernels.SOURCES), "ptxas": ptxas,
-          "ptxas_notes": notes, "tma_bodies": bodies})
+          "ptxas_notes": notes, "tma_bodies": bodies,
+          "f32_bodies": f32_bodies})
     if quick:
         # a new kernel's first call on the card: build, registers and
         # spills, one check at the path's widths, stop
         ok = phase_quick(torch, kernels)
-        check_no_spills(bodies)
+        check_bodies(bodies, f32_bodies)
         return 0 if ok else 1
 
     fwd_rows = phase_kernels(torch, kernels)
@@ -1789,7 +1907,13 @@ def main(argv) -> int:
             "bound_by": fwd_train_row["bound_by"],
             "library_ms": fwd_train_row["library_ms"],
             "tflops": fwd_train_row["tflops"]},
-        "f32": f32_entry(fwd_rows, None)}]
+        "f32": dict(
+            f32_entry(fwd_rows, None), design="3xtf32 mma.sync + cp.async",
+            ptxas=f32_bodies["flash_attn_fwd"],
+            # causal with lse on qkv views, and the CLI char_transformer's
+            # forward (D = 32, no lse)
+            causal_view=f32_case(fwd_rows["f32_causal_view"], "library_ms"),
+            cli=f32_case(fwd_rows["f32_cli"], "library_ms"))}]
     for name in BWD_KERNELS:
         r = bwd_rows[name]
         rows.append({
@@ -1808,8 +1932,7 @@ def main(argv) -> int:
             "library_covers": (None if name == "flash_bwd_delta"
                                else "delta + dkv + dq"),
             "max_rel_err": r["max_rel_err"], "tflops": r["tflops"]})
-        if name != "flash_bwd_delta":
-            rows[-1]["f32"] = f32_entry(bwd_rows, name)
+        rows[-1]["f32"] = f32_entry(bwd_rows, name)
         if name in bodies:
             rows[-1].update({"design": "tma+wgmma", "ptxas": bodies[name]})
     rows.append({
@@ -1850,7 +1973,7 @@ def main(argv) -> int:
         "w2v_step_ms_median": w2v_row["step_ms_median"],
         "w2v_words_per_s": w2v_row["words_per_s"]})
     emit({"kernels": rows})
-    check_no_spills(bodies)
+    check_bodies(bodies, f32_bodies)
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

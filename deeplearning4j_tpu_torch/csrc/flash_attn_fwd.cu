@@ -13,14 +13,19 @@
 //   - causal masking writes -1e30 (not -inf); p is rounded to the input
 //     type before the P.V product, while l sums the unrounded p;
 //   - o = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
+// f32 products go through the tensor cores as 3xTF32 (warp_mma.cuh): about
+// 2^-20 a term against the TPU's f32 products, within the 1e-4 that f32
+// attention is held to; a single TF32 product (2^-11) would miss it.
 // Keys past a ragged end of the sequence are masked in the kernel with -inf
 // (p is exactly 0 there), so any S runs here: the TPU path fell back to a
 // jax-level blockwise loop for ragged S, this one has no fallback.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM):
-//   max(4*B*H*S^2*D*(1/2 if causal) / 989e12, 4*B*S*H*D*bytes / 3.35e12) s.
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 495 TF32, 3.35 TB/s HBM):
+//   max(4*B*H*S^2*D*(1/2 if causal) / rate, 4*B*S*H*D*bytes / 3.35e12) s,
+// rate 989e12 for bf16 and 495e12 / 3 for f32 (three TF32 products each).
 // At the serving shape (B=8, S=512, H=16, D=128, bf16, causal) the byte
-// term is larger: about 67 MB, about 20 us.
+// term is larger: about 67 MB, about 20 us. In f32 at the same shape the
+// products bound it: 8.6 GFLOP, about 52 us causal.
 //
 // Design. The TPU grid's sequential kv axis becomes a loop over key tiles
 // inside a block; causal tiles past the diagonal are never visited.
@@ -43,10 +48,28 @@
 //     shapes is bytes; what is left between the kernel and it is the
 //     softmax between the two products (no ping-pong of the two warpgroups
 //     yet) and the unstaged output stores: PERF.md.
-//   - f32: flash_fwd_kernel, scalar f32 FMAs on the CUDA cores (the tensor
-//     cores would round f32 operands to tf32). 256 threads, 32-key tiles;
-//     each thread owns 4 query rows x 2 key columns of the score tile and
-//     4 rows x DMAX/16 output columns.
+//   - f32: flash_fwd_3xtf32_kernel, any D up to 128 (zero-filled to the
+//     width of its bucket, 32, 64 or 128), on the tensor cores through
+//     mma.sync m16n8k8 TF32 with each operand split into hi + lo
+//     (3xTF32). One block of 4 warps per (batch*head, 64-query tile),
+//     each warp 16 query rows; K and V tiles (64 keys at D = 64, else 32:
+//     at D = 128 for two blocks an SM, at D = 32 because ptxas spills
+//     with 64) stream through a two-stage cp.async ring (16-byte chunks
+//     where D, the strides and the bases are 4-float aligned, as the
+//     fused qkv views are; single floats otherwise) behind one barrier a
+//     tile, so the copy of tile j + 1 runs while tile j is multiplied; Q
+//     stays in shared memory and is scaled and split at each fragment
+//     load (in registers its hi and lo would take 128 registers at
+//     D = 128 beside the 64 of the accumulator). The order of k inside a k-step is free, so one float4 of a Q or K row
+//     feeds two k-steps, and S's accumulator fragment is P.V's A fragment
+//     as it stands (keys 2t, 2t + 1 of an 8-key slice are k = t, t + 4;
+//     V's B fragment takes the same two rows, one float2 each for two
+//     output tiles): P never leaves registers. The online softmax runs on
+//     the fragments with quad shuffles; masks only on diagonal or ragged
+//     tiles, a warp skips key tiles past its last row, and the heaviest
+//     causal query tiles launch first. What bounds it on this card is the
+//     instruction rate: per TF32 product about three other instructions
+//     (the splits of K and V, fragment loads, the softmax), PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,157 +79,251 @@
 #include <atomic>
 
 #include "hopper.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
 using hopper::kMaxDevices;
 using hopper::set_smem_once;
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 32;
-constexpr int kThreads = 256;
-constexpr int kRows = kBlockQ / 16;  // query rows per thread
-constexpr int kCols = kBlockK / 16;  // key columns per thread
 constexpr float kNegBig = -1e30f;
 
+// ---------------------------------------------- f32, 3xTF32 on mma.sync
+
+using hopper::kLog2e;
+using warp_mma::cp_async;
+using warp_mma::cp_async_commit;
+using warp_mma::cp_async_wait;
+using warp_mma::mma_3xtf32;
+using warp_mma::split_tf32;
+
+constexpr int kF32BM = 64;  // queries per block: 4 warps of 16 rows
+constexpr int kF32Threads = 128;
+
+// The f32 body's shared memory for head dims up to DMAX: the block's Q tile
+// and a two-stage ring of K and V tiles of kBN keys (107,520 bytes at
+// DMAX = 128: two blocks an SM). The row strides make the fragment loads
+// conflict-free: a quarter warp's float4 loads of Q or K (2 rows x 4 column
+// quads) meet 8 distinct 16-byte bank groups when the stride is 16 mod 32
+// floats; a half warp's float2 loads of V (4 rows x 4 column pairs) meet 16
+// distinct 8-byte bank pairs when it is 4 mod 16.
 template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int H, int S, int D,
-                 long long q_sb, long long q_ss, long long k_sb,
-                 long long k_ss, long long v_sb, long long v_ss,
-                 float scale, int causal) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;  // padded row: conflict-free column reads
-  float* Qs = smem;                     // [kBlockQ][D + 1]
-  float* Ks = Qs + kBlockQ * ld;        // [kBlockK][D + 1]
-  float* Vs = Ks + kBlockK * ld;        // [kBlockK][D]
-  float* Ps = Vs + kBlockK * D;         // [kBlockQ][kBlockK + 1]
-  const int ldp = kBlockK + 1;
+struct F32Tiles {
+  static constexpr int kBN = DMAX == 64 ? 64 : 32;  // keys a tile
+  static constexpr int kStages = 2;
+  static constexpr int kLdQK = DMAX + 16;
+  static constexpr int kLdV = DMAX + 4;
+  static constexpr int kQ = kF32BM * kLdQK;  // floats
+  static constexpr int kK = kBN * kLdQK;
+  static constexpr int kV = kBN * kLdV;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kQ + kStages * (kK + kV));
+};
+
+// Start copying rows [row0, row0 + kRows) of one head (src: its row 0, ss:
+// the row stride) into dst ([kRows][kLd]), columns [0, DMAX): zeros past D
+// and past S. 16-byte chunks where `vec4` (D, the strides and the base
+// 4-float aligned), single floats otherwise.
+template <int kRows, int DMAX, int kLd>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           long long ss, int row0, int S,
+                                           int D, int vec4) {
+  if (vec4) {
+    constexpr int kChunks = DMAX / 4;
+    for (int i = threadIdx.x; i < kRows * kChunks; i += kF32Threads) {
+      const int r = i / kChunks;
+      const int c = 4 * (i - r * kChunks);
+      const int row = row0 + r;
+      const int valid = row < S && c < D ? 4 : 0;  // D is a multiple of 4
+      cp_async<4>(dst + r * kLd + c, valid ? src + row * ss + c : src, valid);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * DMAX; i += kF32Threads) {
+      const int r = i / DMAX;
+      const int c = i - r * DMAX;
+      const int row = row0 + r;
+      const int valid = row < S && c < D ? 1 : 0;
+      cp_async<1>(dst + r * kLd + c, valid ? src + row * ss + c : src, valid);
+    }
+  }
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kF32Threads)
+flash_fwd_3xtf32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int H, int S, int D,
+                        long long q_sb, long long q_ss, long long k_sb,
+                        long long k_ss, long long v_sb, long long v_ss,
+                        float scale, int causal, int vec4) {
+  using T = F32Tiles<DMAX>;
+  constexpr int kBN = T::kBN;
+  constexpr int kLdQK = T::kLdQK;
+  constexpr int kLdV = T::kLdV;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                     // [kF32BM][kLdQK]
+  float* Ks = Qs + T::kQ;               // [stage][kBN][kLdQK]
+  float* Vs = Ks + T::kStages * T::kK;  // [stage][kBN][kLdV]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;   // key / output column group
-  const int ty = tid >> 4;   // query row group
+  // the causal work of a query tile grows with its index, and blocks start
+  // in the order of blockIdx.y: the heaviest tiles go first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int w0 = q0 + 16 * warp;  // this warp's rows: w0 .. w0 + 15
 
   const float* qb = q + b * q_sb + (long long)h * D;
   const float* kb = k + b * k_sb + (long long)h * D;
   const float* vb = v + b * v_sb + (long long)h * D;
 
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
-    const int qp = q0 + r;
-    float val = 0.f;
-    if (qp < S) val = qb[qp * q_ss + d] * scale;
-    Qs[r * ld + d] = val;
-  }
-
-  constexpr int kOut = DMAX / 16;  // output columns per thread
-  float acc[kRows][kOut];
-  float m[kRows];
-  float l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegBig;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kOut; ++c) acc[i][c] = 0.f;
-  }
-
-  int nk = (S + kBlockK - 1) / kBlockK;
+  int nk = (S + kBN - 1) / kBN;
   if (causal) {
     // tiles whose first key lies past this tile's last query add nothing
-    const int needed = (q0 + kBlockQ + kBlockK - 1) / kBlockK;
+    const int needed = (q0 + kF32BM + kBN - 1) / kBN;
     nk = nk < needed ? nk : needed;
   }
 
+  stage_rows<kF32BM, DMAX, kLdQK>(Qs, qb, q_ss, q0, S, D, vec4);
+  stage_rows<kBN, DMAX, kLdQK>(Ks, kb, k_ss, 0, S, D, vec4);
+  stage_rows<kBN, DMAX, kLdV>(Vs, vb, v_ss, 0, S, D, vec4);
+  cp_async_commit();
+
+  // acc[n][e]: output tile n = 2 mm + x holds column 16 mm + 2 c + x at
+  // fragment column c, so e = 0, 1 are row g at columns 16 mm + 4 t + x and
+  // + 2 + x, e = 2, 3 the same of row g + 8
+  float acc[DMAX / 8][4];
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegBig, kNegBig};  // rows w0 + g and w0 + g + 8
+  float l[2] = {0.f, 0.f};          // this thread's part of the row sums
+
+  const float* q_lo = Qs + (16 * warp + g) * kLdQK + 4 * t;
+  const float* q_hi = q_lo + 8 * kLdQK;
   for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kBlockK;
-    __syncthreads();  // Q staged (j == 0); last tile's K/V/P consumed
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int r = i / D;
-      const int d = i - r * D;
-      const int kp = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (kp < S) {
-        kv = kb[kp * k_ss + d];
-        vv = vb[kp * v_ss + d];
+    cp_async_wait<0>();
+    __syncthreads();  // tile j landed for every thread; j - 1's stage free
+    if (j + 1 < nk) {
+      const int st = (j + 1) % T::kStages;
+      stage_rows<kBN, DMAX, kLdQK>(Ks + st * T::kK, kb, k_ss, (j + 1) * kBN,
+                                   S, D, vec4);
+      stage_rows<kBN, DMAX, kLdV>(Vs + st * T::kV, vb, v_ss, (j + 1) * kBN,
+                                  S, D, vec4);
+    }
+    cp_async_commit();
+    const int k0 = j * kBN;
+    // a warp whose rows all lie past S, or (causal) before the tile's first
+    // key, would add p = 0 exactly: it skips the tile
+    if (w0 >= S || (causal && k0 > w0 + 15)) continue;
+    const float* Kt = Ks + (j % T::kStages) * T::kK;
+    const float* Vt = Vs + (j % T::kStages) * T::kV;
+
+    // s = (q * scale) . k^T. A float4 at column 16 kp + 4 t of a row feeds
+    // two k-steps: k = t, t + 4 are columns + 0, + 1 in the first and
+    // + 2, + 3 in the second, in Q's A fragments and K's B fragments alike
+    float s[kBN / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kp = 0; kp < DMAX / 16; ++kp) {
+      const float4 x = *reinterpret_cast<const float4*>(q_lo + 16 * kp);
+      const float4 y = *reinterpret_cast<const float4*>(q_hi + 16 * kp);
+      // q * scale in f32, as the TPU kernel scales q in its input type
+      const float a0[4] = {x.x * scale, y.x * scale, x.y * scale, y.y * scale};
+      const float a1[4] = {x.z * scale, y.z * scale, x.w * scale, y.w * scale};
+      uint32_t a0h[4], a0l[4], a1h[4], a1l[4];
+      split_tf32(a0, a0h, a0l);
+      split_tf32(a1, a1h, a1l);
+#pragma unroll
+      for (int n = 0; n < kBN / 8; ++n) {
+        const float4 z = *reinterpret_cast<const float4*>(
+            Kt + (8 * n + g) * kLdQK + 16 * kp + 4 * t);
+        const float b0[2] = {z.x, z.y}, b1[2] = {z.z, z.w};
+        uint32_t b0h[2], b0l[2], b1h[2], b1l[2];
+        split_tf32(b0, b0h, b0l);
+        split_tf32(b1, b1h, b1l);
+        mma_3xtf32(s[n], a0h, a0l, b0h, b0l);
+        mma_3xtf32(s[n], a1h, a1l, b1h, b1l);
       }
-      Ks[r * ld + d] = kv;
-      Vs[r * D + d] = vv;
-    }
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) s[i][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qr[kRows], kr[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qr[i] = Qs[(ty + 16 * i) * ld + d];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) kr[c] = Ks[(tx + 16 * c) * ld + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) s[i][c] = fmaf(qr[i], kr[c], s[i][c]);
     }
 
+    // masks only where a tile crosses the diagonal or the ragged end:
+    // elsewhere they select every score unchanged. s[n][e] is row
+    // w0 + g + 8 (e >> 1), key k0 + 8 n + 2 t + (e & 1)
+    if (k0 + kBN > S || (causal && k0 + kBN - 1 > w0)) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = kNegBig;
+      for (int n = 0; n < kBN / 8; ++n)
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int kpos = k0 + tx + 16 * c;
-        if (kpos >= S) {
-          s[i][c] = -INFINITY;
-        } else if (causal && kpos > qpos) {
-          s[i][c] = kNegBig;
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * n + 2 * t + (e & 1);
+          if (kpos >= S) {
+            s[n][e] = -INFINITY;
+          } else if (causal && kpos > w0 + g + 8 * (e >> 1)) {
+            s[n][e] = kNegBig;
+          }
         }
-        mx = fmaxf(mx, s[i][c]);
-      }
+    }
+
+    // online softmax on the fragments, in base 2: the quad of a row's four
+    // threads shares the max
+    float mx[2] = {kNegBig, kNegBig};
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
+    for (int n = 0; n < kBN / 8; ++n)
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float p = expf(s[i][c] - m_new);
-        rs += p;
-        Ps[(ty + 16 * i) * ldp + tx + 16 * c] = p;
-      }
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    float alpha[2], ms[2];
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2f((m[i] - m_new) * kLog2e);
       m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kOut; ++c) acc[i][c] *= alpha;
+      ms[i] = m_new * kLog2e;
+      l[i] *= alpha[i];
     }
-    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[n][e], kLog2e, -ms[e >> 1]));
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < DMAX / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
 
-    for (int c = 0; c < kBlockK; ++c) {
-      float pr[kRows];
+    // acc += p . v with p from registers: the keys 8 kn + 2 t and
+    // 8 kn + 2 t + 1 that the S fragment holds are k = t and k = t + 4 of
+    // the A fragment, so V's B fragment takes the same two rows; a float2
+    // of each row feeds output tiles 2 mm and 2 mm + 1
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) pr[i] = Ps[(ty + 16 * i) * ldp + c];
+    for (int kn = 0; kn < kBN / 8; ++kn) {
+      const float pa[4] = {s[kn][0], s[kn][2], s[kn][1], s[kn][3]};
+      uint32_t ph[4], pl[4];
+      split_tf32(pa, ph, pl);
+      const float* v0 = Vt + (8 * kn + 2 * t) * kLdV + 2 * g;
 #pragma unroll
-      for (int oc = 0; oc < kOut; ++oc) {
-        const int d = tx + 16 * oc;
-        if (d < D) {
-          const float vv = Vs[c * D + d];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][oc] = fmaf(pr[i], vv, acc[i][oc]);
-        }
+      for (int mm = 0; mm < DMAX / 16; ++mm) {
+        const float2 x0 = *reinterpret_cast<const float2*>(v0 + 16 * mm);
+        const float2 x1 =
+            *reinterpret_cast<const float2*>(v0 + kLdV + 16 * mm);
+        const float b0[2] = {x0.x, x1.x}, b1[2] = {x0.y, x1.y};
+        uint32_t b0h[2], b0l[2], b1h[2], b1l[2];
+        split_tf32(b0, b0h, b0l);
+        split_tf32(b1, b1h, b1l);
+        mma_3xtf32(acc[2 * mm], ph, pl, b0h, b0l);
+        mma_3xtf32(acc[2 * mm + 1], ph, pl, b1h, b1l);
       }
     }
   }
@@ -214,16 +331,32 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long o_ss = (long long)H * D;
   float* ob = o + (long long)b * S * o_ss + (long long)h * D;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    if (qpos >= S) continue;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const float lc = fmaxf(l[i], 1e-30f);
+    const int row = w0 + g + 8 * i;
+    if (row >= S) continue;
+    float* orow = ob + row * o_ss;
 #pragma unroll
-    for (int oc = 0; oc < kOut; ++oc) {
-      const int d = tx + 16 * oc;
-      if (d < D) ob[qpos * o_ss + d] = acc[i][oc] / lc;
+    for (int mm = 0; mm < DMAX / 16; ++mm) {
+      const int d = 16 * mm + 4 * t;  // columns d .. d + 3
+      if (d >= D) break;
+      const float out[4] = {acc[2 * mm][2 * i] / lc,
+                            acc[2 * mm + 1][2 * i] / lc,
+                            acc[2 * mm][2 * i + 1] / lc,
+                            acc[2 * mm + 1][2 * i + 1] / lc};
+      if (D % 4 == 0) {
+        *reinterpret_cast<float4*>(orow + d) =
+            make_float4(out[0], out[1], out[2], out[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (d + e < D) orow[d + e] = out[e];
+      }
     }
-    if (lse != nullptr && tx == 0) lse[(long long)bh * S + qpos] = m[i] + logf(lc);
+    if (lse != nullptr && t == 0)
+      lse[(long long)bh * S + row] = m[i] + logf(lc);
   }
 }
 
@@ -489,23 +622,23 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        long long q_ss, long long k_sb, long long k_ss,
                        long long v_sb, long long v_ss, float scale, int causal,
                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      ((size_t)kBlockQ * (D + 1) + (size_t)kBlockK * (D + 1) +
-       (size_t)kBlockK * D + (size_t)kBlockQ * (kBlockK + 1));
-  // the limit is set once for the largest D this instance takes
-  const size_t smem_max = sizeof(float) *
-      ((size_t)kBlockQ * (DMAX + 1) + (size_t)kBlockK * (DMAX + 1) +
-       (size_t)kBlockK * DMAX + (size_t)kBlockQ * (kBlockK + 1));
-  auto kernel = flash_fwd_kernel<DMAX>;
+  auto aligned = [](const void* p, long long sb, long long ss) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 &&
+           ss % 4 == 0;
+  };
+  const int vec4 = D % 4 == 0 && aligned(q, q_sb, q_ss) &&
+                   aligned(k, k_sb, k_ss) && aligned(v, v_sb, v_ss);
+  const size_t smem = F32Tiles<DMAX>::kBytes;
+  auto kernel = flash_fwd_3xtf32_kernel<DMAX>;
   static std::atomic<bool> smem_set[kMaxDevices];
-  cudaError_t err = set_smem_once(kernel, smem_max, smem_set);
+  cudaError_t err = set_smem_once(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (S + kBlockQ - 1) / kBlockQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  dim3 grid(B * H, (S + kF32BM - 1) / kF32BM);
+  kernel<<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), H, S, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-      scale, causal);
+      scale, causal, vec4);
   return cudaGetLastError();
 }
 

@@ -68,6 +68,8 @@
 #include <algorithm>
 #include <atomic>
 
+#include "warp_mma.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -114,30 +116,9 @@ constexpr int kWTile = kBK * 4 * kBN;  // floats of one staged W tile
 constexpr int kStage = kXTile + kWTile;
 constexpr int kRing = kStages * kStage;  // floats of one slice's ring
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copy kVec floats (4: one 16-byte chunk; 1: one float) from global to
-// shared memory asynchronously; floats at or past `valid` are written as 0.
-template <int kVec>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         int valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  if constexpr (kVec == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(4 * valid)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(4 * valid)
-                 : "memory");
-}
+using warp_mma::cp_async;
+using warp_mma::cp_async_commit;
+using warp_mma::cp_async_wait;
 
 // Start the copy of one K tile of a slice: src rows [row0, row0 + kBM) x
 // k [k, k + kBK) into xs ([row][kXLd]), and the four gate column slices

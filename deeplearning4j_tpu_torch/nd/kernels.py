@@ -18,7 +18,8 @@ Each kernel has, beside it here:
 
 Kernels ported so far (see ROADMAP.md queue B for the rest):
 - `flash_attention`: `_flash_attn_kernel` forward, with the optional
-  logsumexp residual (`csrc/flash_attn_fwd.cu`; bf16 on TMA and `wgmma`);
+  logsumexp residual (`csrc/flash_attn_fwd.cu`; bf16 on TMA and `wgmma`,
+  f32 on the tensor cores as 3xTF32 `mma.sync` with a `cp.async` ring);
 - `flash_bwd_delta`, `flash_bwd_dkv`, `flash_bwd_dq`: the three kernels of
   the fused backward, `_flash_bwd_delta_kernel`, `_flash_bwd_dkv_kernel`
   and `_flash_bwd_dq_kernel` (`csrc/flash_attn_bwd.cu`; bf16 dK/dV and dQ
@@ -31,7 +32,10 @@ Kernels ported so far (see ROADMAP.md queue B for the rest):
 The bf16 flash forward, dK/dV and dQ kernels read their inputs by TMA,
 which takes a head dim of 64 or 128 on 16-byte aligned rows; `tma_heads` is
 the rule for other inputs (zero-padded contiguous copies, counted in
-`PAD_COPIES`). `csrc/hopper.cuh` holds what those kernels share.
+`PAD_COPIES`). `csrc/hopper.cuh` holds what those kernels share;
+`csrc/warp_mma.cuh` the `cp.async` copies and the 3xTF32 split and
+`mma.sync` products of the f32 forward (its copies serve the LSTM cell
+too). The f32 forward takes any head dim up to 128 in place.
 """
 
 from __future__ import annotations

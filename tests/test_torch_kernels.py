@@ -153,10 +153,20 @@ def test_library_path_follows_the_headers_a_source_includes(tmp_path):
     for name in ("flash_attn_fwd", "flash_attn_bwd"):
         assert kernels._lib_path(name, str(csrc), str(tmp_path)) != \
             paths[name]
-    # sources that include no header of csrc/ keep their library
+    # sources that do not include the changed header keep their library
     for name in ("lstm_cell", "scatter_add"):
         assert kernels._lib_path(name, str(csrc), str(tmp_path)) == \
             paths[name]
+    changed = {name: kernels._lib_path(name, str(csrc), str(tmp_path))
+               for name in kernels.SOURCES}
+    with open(csrc / "warp_mma.cuh", "a") as f:
+        f.write("\n// changed\n")
+    for name in kernels.SOURCES:
+        now = kernels._lib_path(name, str(csrc), str(tmp_path))
+        if name in ("flash_attn_fwd", "lstm_cell"):
+            assert now != changed[name]
+        else:
+            assert now == changed[name]
 
 
 def _padded_case(seed, d, view):
@@ -279,6 +289,151 @@ def test_cuda_kernel_matches_plain_version(dtype):
         torch.testing.assert_close(got_o.float(), want_o.float(), atol=atol,
                                    rtol=1e-4)
         torch.testing.assert_close(got_lse, want_lse, atol=1e-3, rtol=1e-4)
+
+
+# ------------------------------------------- 3xTF32 numerics of the f32 body
+#
+# A torch model of what `flash_fwd_3xtf32_kernel` computes: every f32
+# operand of both products split into TF32 hi + lo (cvt.rna.tf32.f32 on the
+# f32 bits: add half of the 13 dropped bits, clear them) and each product
+# taken as lo.hi + hi.lo + hi.hi, small terms first; the online softmax over
+# the kernel's key tiles in base 2; P.V with the keys of every 8-key slice
+# in the order the S fragment hands them to the A fragment (2t as k = t,
+# 2t + 1 as k = t + 4). Held to the plain version and to the JAX forward at
+# 1e-4, the tolerance the card's check uses for f32 attention; one TF32
+# product a term is shown to miss it on the same inputs.
+
+_LOG2E = 1.4426950408889634
+#: the key order inside an 8-key slice as P.V's A fragment takes it
+_PV_KEY_ORDER = [0, 2, 4, 6, 1, 3, 5, 7]
+
+
+def _tf32_rna(x):
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, terms):
+    """a @ b with TF32 operands: 3 terms (3xTF32) or 1 (plain TF32)."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    if terms == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _f32_body_model(q, k, v, causal, terms=3):
+    """o [B, S, H, D] and lse [B*H, S, 1] as the f32 body computes them."""
+    b, s, h, d = q.shape
+    bn = 32 if d > 64 else 64          # keys a tile, as F32Tiles<DMAX>
+    scale = float(torch.tensor(1.0 / d ** 0.5, dtype=torch.float32))
+    qs, kf, vf = (t.permute(0, 2, 1, 3) for t in (q * scale, k, v))
+    pad = -s % bn                      # K and V zero-filled past S
+    kf = torch.nn.functional.pad(kf, (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, pad))
+    acc = torch.zeros(b, h, s, d)
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros(b, h, s, 1)
+    rows = torch.arange(s)[:, None]
+    order = torch.tensor([8 * (n // 8) + _PV_KEY_ORDER[n % 8]
+                          for n in range(bn)])
+    for k0 in range(0, s, bn):
+        kt, vt = kf[:, :, k0:k0 + bn], vf[:, :, k0:k0 + bn]
+        sc = _mm_tf32(qs, kt.transpose(-1, -2), terms)
+        keys = k0 + torch.arange(bn)[None, :]
+        if causal:
+            sc = sc.masked_fill(keys > rows, -1e30)
+        sc = sc.masked_fill(keys >= s, float("-inf"))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * _LOG2E)
+        p = torch.exp2(sc * _LOG2E - m_new * _LOG2E)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _mm_tf32(p[..., order], vt[:, :, order], terms)
+        m = m_new
+    lc = l.clamp_min(1e-30)
+    o = (acc / lc).permute(0, 2, 1, 3)
+    return o, (m + torch.log(lc)).reshape(b * h, s, 1)
+
+
+def test_tf32_rounding_model_is_round_to_nearest_away():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10,
+                      1.0 + 3 * 2.0 ** -11, -(1.0 + 2.0 ** -11), 0.0, -3.5])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         1.0 + 2.0 ** -9, -(1.0 + 2.0 ** -10), 0.0, -3.5])
+    assert torch.equal(_tf32_rna(x), want)
+    # hi + lo keeps about 2^-22 of x, hi alone about 2^-11
+    y = torch.from_numpy(np.random.RandomState(30).standard_normal(
+        10_000).astype(np.float32))
+    hi = _tf32_rna(y)
+    lo = _tf32_rna(y - hi)
+    assert ((hi - y).abs() / y.abs()).max() <= 2.0 ** -11
+    assert ((hi + lo - y).abs() / y.abs()).max() <= 2.0 ** -21
+
+
+F32_MODEL_CASES = [(d, s, causal) for d in (32, 100, 128) for s in (96, 200)
+                   for causal in (False, True)]
+
+
+@pytest.mark.parametrize("d,s,causal", F32_MODEL_CASES)
+def test_3xtf32_model_holds_plain_version_and_jax_forward(d, s, causal):
+    q, k, v = _qkv(31, 1, s, 2, d)
+    got_o, got_lse = _f32_body_model(*_torch(q, k, v), causal)
+    want_o, want_lse = kernels.flash_attention_reference(
+        *_torch(q, k, v), causal, with_lse=True)
+    torch.testing.assert_close(got_o, want_o, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_lse, want_lse, atol=1e-4, rtol=1e-4)
+    # the JAX forward in interpret mode, at blocks that divide S (a ragged
+    # block would take its blockwise fallback, which has no lse)
+    block = 32 if s == 96 else 40
+    jax_o, jax_lse = _flash_attention_fwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, block, block,
+        True, with_lse=True)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(jax_o), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(jax_lse),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d,s,causal", F32_MODEL_CASES)
+def test_one_tf32_product_a_term_misses_the_f32_tolerance(d, s, causal):
+    q, k, v = _qkv(31, 1, s, 2, d)
+    got_o, _ = _f32_body_model(*_torch(q, k, v), causal, terms=1)
+    want_o = kernels.flash_attention_reference(*_torch(q, k, v), causal)
+    # o misses (the check holds o and lse both to 1e-4); lse, a log of a
+    # sum of many rounded terms, may stay inside it
+    assert not torch.allclose(got_o, want_o, atol=1e-4, rtol=1e-4)
+
+
+F32_CUDA_CASES = [(d, s, causal, with_lse) for d in (30, 32, 64, 100, 128)
+                  for s in (96, 200) for causal in (False, True)
+                  for with_lse in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,s,causal,with_lse", F32_CUDA_CASES)
+def test_cuda_f32_kernel_matches_plain_version_on_qkv_views(d, s, causal,
+                                                            with_lse):
+    # the 3xTF32 body on views of one fused projection at ragged S (both
+    # end inside a 64-query block and a key tile); D = 100 is zero-filled
+    # to 128, D = 30 takes the single-float copies (its rows are not
+    # 16-byte aligned)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    rng = np.random.RandomState(32)
+    b, h = 2, 4
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(
+        np.float32)).cuda()
+    q, k, v = (t.view(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    before = kernels.LAUNCHES["flash_attn_fwd"]
+    got = kernels.flash_attention(q, k, v, causal, with_lse=with_lse)
+    want = kernels.flash_attention_reference(q, k, v, causal,
+                                             with_lse=with_lse)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attn_fwd"] == before + 1
+    got, want = (got, want) if with_lse else ((got,), (want,))
+    assert got[0].shape == q.shape and got[0].is_contiguous()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
 
 
 # ------------------------------------------------------ fused flash backward
