@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""The f32 flash-attention forward of one checkout, timed on the card, for
+"""The f32 flash-attention kernels of one checkout, timed on the card, for
 comparing checkouts in one run.
 
-    python3 ab_attention_f32.py [--root DIR]
+    python3 ab_attention_f32.py [--root DIR] [--kernels-only]
 
 Imports `deeplearning4j_tpu_torch` from DIR (default: this script's own
-checkout), builds its flash forward and prints one JSON line: the forward
-kernel's device time by CUDA-graph replay at [8, 512, 16, 128] f32 with
-lse, causal and not (contiguous) and causal on the qkv views of one fused
-projection, and at the CLI char_transformer's [32, 256, 4, 32] (causal, no
-lse), each beside its error against the plain version; and the f32 network
-output of the full-width charTransformer (`chip_smoke.SLICE`, flash
-attention) on 2 x 512 tokens, eager, CUDA events, median of 5. To compare
-two checkouts, run it on each in turns on one card (parent, change, change,
-parent). Needs a CUDA device; exits 2 without one.
+checkout), builds its flash forward and backward and prints one JSON line:
+the forward kernel's device time by CUDA-graph replay at [8, 512, 16, 128]
+f32 with lse, causal and not (contiguous) and causal on the qkv views of
+one fused projection, and at the CLI char_transformer's [32, 256, 4, 32]
+(causal, no lse); the f32 dK/dV kernel's at [8, 512, 16, 128] causal and
+not (contiguous), causal on qkv views and causal at a ragged [8, 200, 16,
+100], with the forward kernel's o and lse and the plain delta as inputs;
+each beside its error against the plain version; and, unless
+`--kernels-only`, the f32 network output of the full-width charTransformer
+(`chip_smoke.SLICE`, flash attention) on 2 x 512 tokens, eager, CUDA
+events, median of 5. To compare two checkouts, run it on each in turns on
+one card (parent, change, change, parent). Needs a CUDA device; exits 2
+without one.
 """
 
 from __future__ import annotations
@@ -29,6 +33,11 @@ CASES = [(8, 512, 16, 128, True, True, False),
          (8, 512, 16, 128, False, True, False),
          (8, 512, 16, 128, True, True, True),
          (32, 256, 4, 32, True, False, True)]
+#: the f32 dK/dV cases: (B, S, H, D, causal, qkv views)
+BWD_CASES = [(8, 512, 16, 128, True, False),
+             (8, 512, 16, 128, False, False),
+             (8, 512, 16, 128, True, True),
+             (8, 200, 16, 100, True, False)]
 
 
 def main(argv) -> int:
@@ -47,7 +56,7 @@ def main(argv) -> int:
                                                         network_output)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    kernels.build(["flash_attn_fwd"])
+    kernels.build(["flash_attn_fwd", "flash_attn_bwd"])
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for b, s, h, d, causal, with_lse, view in CASES:
@@ -61,6 +70,30 @@ def main(argv) -> int:
                      "kernel_ms": smoke.graph_ms(
                          lambda: kernels.flash_attention(
                              q, k, v, causal, with_lse=with_lse))})
+
+    dkv_rows = []
+    for b, s, h, d, causal, view in BWD_CASES:
+        _, q, k, v, do, o, lse = smoke.bwd_inputs(
+            torch, kernels, gen, b, s, h, d, torch.float32, causal, view)
+        delta = kernels.flash_bwd_delta_reference(o, do)
+        got = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        want = kernels.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                               causal)
+        (err_k, ok_k), (err_v, ok_v) = (smoke.bwd_close(torch, g, w)
+                                        for g, w in zip(got, want))
+        dkv_rows.append({"shape": [b, s, h, d], "causal": causal,
+                         "view": view, "ok": ok_k and ok_v,
+                         "max_abs_err": max(err_k, err_v),
+                         "kernel_ms": smoke.graph_ms(
+                             lambda: kernels.flash_bwd_dkv(
+                                 q, k, v, do, lse, delta, causal))})
+        del q, k, v, do, o, lse, delta, got, want
+    result = {"root": root, "gpu": smoke.gpu_line(), "cases": rows,
+              "dkv_cases": dkv_rows}
+    ok = all(r["ok"] for r in rows + dkv_rows)
+    if "--kernels-only" in argv:
+        smoke.emit(result)
+        return 0 if ok else 1
 
     conf = char_transformer(smoke.SLICE["vocab"],
                             d_model=smoke.SLICE["d_model"],
@@ -78,10 +111,9 @@ def main(argv) -> int:
         network_output(conf, net.params, x)
         times = [smoke.event_ms(torch, lambda: network_output(
             conf, net.params, x)) for _ in range(5)]
-    smoke.emit({"root": root, "gpu": smoke.gpu_line(), "cases": rows,
-                "f32_forward_ms": sorted(times)[2],
-                "f32_forward_ms_all": times})
-    return 0 if all(r["ok"] for r in rows) else 1
+    smoke.emit(dict(result, f32_forward_ms=sorted(times)[2],
+                    f32_forward_ms_all=times))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

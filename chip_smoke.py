@@ -11,8 +11,8 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
 2. builds every kernel of the serving and training paths from
    `deeplearning4j_tpu_torch/csrc/` with nvcc (sm_90a), one nvcc per source,
    all started together, and reports the registers and spills of each TMA
-   body (D = 64, 128) and of the f32 forward body (D = 32, 64, 128); a
-   spill fails the run;
+   body (D = 64, 128) and of the f32 3xTF32 bodies, forward and dK/dV
+   (D = 32, 64, 128); a spill fails the run;
 3. holds the flash-attention forward kernel against its plain PyTorch
    version on the card, at the serving shape (contiguous inputs, and the
    strided views of one fused qkv projection that the serving path passes),
@@ -26,7 +26,9 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    (`call_ms`), and the bound (the least time the card could take);
 4. does the same for the three kernels of the fused attention backward
    (delta, dK/dV, dQ): bf16 causal at the training shape on qkv views, f32
-   causal and not, and a ragged S; checks `FlashAttentionFunction`'s
+   at [8, 512, 16, 128] causal and not (contiguous) and causal on qkv views,
+   f32 at a ragged S with D = 100, and bf16 at ragged S; checks
+   `FlashAttentionFunction`'s
    gradients against autograd through the plain forward, both taken with
    respect to the fused qkv projection whose views they read; the yardstick is
    the backward of `scaled_dot_product_attention` (its forward plus
@@ -45,7 +47,8 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    the scores are finite and fall and that each step launched the forward
    kernel and each backward kernel once per attention layer, traces one
    more step with `torch.profiler` (device time by kernel, idle share), and
-   checks the fused backward's gradients against the recompute path in f32;
+   checks the fused backward's gradients against the recompute path in f32
+   (the f32 backward kernels, once per attention layer);
 7. holds the fused LSTM cell kernel against its plain version at the
    char-LSTM bench shape (f32; on the row-block views of one W; bf16), at
    the CLI's ragged shape and at a tiny ragged one, timed beside its plain
@@ -363,14 +366,19 @@ BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq")
 def phase_bwd_kernels(torch, kernels):
     """The three backward kernels against their plain versions on the card,
     at the train path's shape and layout (bf16, causal, q/k/v views of one
-    fused qkv projection, B=32 S=512 H=16 D=128), in f32 causal and not,
-    and at a ragged S; timed at every case. Returns {kernel: row} of the
-    train-path case, and under "f32_causal" and "f32_not_causal" {kernel:
-    row} of the f32 cases."""
+    fused qkv projection, B=32 S=512 H=16 D=128), in f32 at [8, 512, 16,
+    128] causal and not (contiguous) and causal on qkv views, in f32 at a
+    ragged S with D = 100, and in bf16 at a ragged S; timed at every case.
+    Returns {kernel: row} of the train-path case, and under "f32_causal",
+    "f32_not_causal", "f32_causal_view" and "f32_ragged" {kernel: row} of
+    the f32 cases."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(32, 512, 16, 128, torch.bfloat16, True, True),
              (8, 512, 16, 128, torch.float32, True, False),
              (8, 512, 16, 128, torch.float32, False, False),
+             (8, 512, 16, 128, torch.float32, True, True),
+             # ragged S at a head dim zero-filled to 128 in f32
+             (8, 200, 16, 100, torch.float32, True, False),
              (8, 200, 16, 64, torch.bfloat16, True, False),
              # a head dim that takes the padding route (D 100 -> 128)
              (8, 200, 16, 100, torch.bfloat16, True, False)]
@@ -427,10 +435,13 @@ def phase_bwd_kernels(torch, kernels):
             if view:
                 check(grad_ok, f"FlashAttentionFunction grads disagree with "
                                f"autograd of the plain forward: {row}")
+            if dt == torch.bfloat16 and view:
                 main_rows[name] = row
             elif dt == torch.float32:
-                key = "f32_causal" if causal else "f32_not_causal"
-                main_rows.setdefault(key, {})[name] = row
+                key = ("f32_ragged" if s != 512 else
+                       "f32_causal" if causal else "f32_not_causal")
+                main_rows.setdefault(key + ("_view" if view else ""),
+                                     {})[name] = row
         del qkv, q, k, v, do, o, lse, delta, calls
         torch.cuda.empty_cache()
     return main_rows
@@ -473,7 +484,9 @@ def tma_ptxas(kernels) -> dict:
 
 
 #: the f32 bodies on 3xTF32 mma.sync, one instance per head-dim bucket
-F32_BODIES = {"flash_attn_fwd": ("flash_attn_fwd", "flash_fwd_3xtf32_kernel")}
+F32_BODIES = {"flash_attn_fwd": ("flash_attn_fwd", "flash_fwd_3xtf32_kernel"),
+              "flash_bwd_dkv": ("flash_attn_bwd",
+                                "flash_bwd_dkv_3xtf32_kernel")}
 
 
 def f32_ptxas(kernels) -> dict:
@@ -536,6 +549,20 @@ F32_QUICK_CASES = [(8, 512, 16, 128, True, True),
                    (2, 96, 4, 128, False, True)]
 
 
+#: the f32 backward's first checks: (B, S, H, D, causal, qkv views); the
+#: bench shape contiguous and on views, every head-dim bucket, D = 100
+#: (zero-filled to 128) and D = 30 (single-float copies), ragged S
+F32_BWD_QUICK_CASES = [(8, 512, 16, 128, True, True),
+                       (8, 512, 16, 128, False, False),
+                       (8, 200, 16, 100, True, False),
+                       (2, 200, 4, 30, True, True),
+                       (2, 96, 4, 32, False, True),
+                       (2, 200, 4, 64, True, True),
+                       (2, 96, 4, 64, False, False),
+                       (2, 96, 4, 100, False, True),
+                       (2, 200, 4, 128, False, True)]
+
+
 def fwd_inputs(torch, gen, b, s, h, d, dt, view):
     """q, k, v [B, S, H, D] on the card: strided views of one fused
     [B, S, 3 * H * D] projection (as the attention layer passes them) when
@@ -571,9 +598,9 @@ def phase_quick(torch, kernels):
     the three backward kernels against their plain versions once each, at
     the serving and training shapes on qkv views, contiguous and not
     causal, at ragged S (200, and 96: less than one block) and at a head
-    dim that takes the padding route; the f32 forward in F32_QUICK_CASES;
-    then the LSTM cell in its five cases; no timing. Returns whether every
-    case passed."""
+    dim that takes the padding route; the f32 forward in F32_QUICK_CASES
+    and the f32 backward kernels in F32_BWD_QUICK_CASES; then the LSTM cell
+    in its five cases; no timing. Returns whether every case passed."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [(8, 512, 16, 128, True, True), (32, 512, 16, 128, True, True),
              (8, 512, 16, 128, False, False), (8, 200, 16, 64, True, False),
@@ -612,6 +639,18 @@ def phase_quick(torch, kernels):
               "max_abs_err": err_o, "max_abs_err_lse": err_lse, "ok": ok})
         all_ok = all_ok and ok
         del q, k, v
+    for b, s, h, d, causal, view in F32_BWD_QUICK_CASES:
+        qkv, q, k, v, do, o, lse = bwd_inputs(torch, kernels, gen, b, s, h,
+                                              d, torch.float32, causal,
+                                              view)
+        results = bwd_check(torch, kernels, q, k, v, do, o, lse, causal)
+        row = {"phase": "quick", "dtype": "float32", "shape": [b, s, h, d],
+               "causal": causal, "view": view}
+        for name, (err, ok) in results.items():
+            row[name] = {"max_abs_err": err, "ok": ok}
+        emit(row)
+        all_ok = all_ok and all(ok for _, ok in results.values())
+        del qkv, q, k, v, do, o, lse
     for name, b, i, h, dname, view in LSTM_CASES:
         args = lstm_cell_inputs(torch, gen, b, i, h, getattr(torch, dname),
                                 view)
@@ -927,7 +966,8 @@ def phase_train(torch, kernels):
     compute, one batch of TRAIN_ROWS x 512 tokens made as bench.py:571-574
     makes it, TRAIN_STEPS calls of one Adam step each; then the fused
     attention backward against the recompute path on the same weights in
-    f32. Returns the launches of every kernel over the training steps."""
+    f32. Returns the launches of every kernel over the training steps, and
+    those of the f32 fused gradient."""
     from deeplearning4j_tpu_torch.nn.multilayer import (MultiLayerNetwork,
                                                         network_loss)
     from deeplearning4j_tpu_torch.optimize.solver import from_loss
@@ -972,8 +1012,12 @@ def phase_train(torch, kernels):
     for fused in (True, False):
         conf = train_conf("", fused_bwd=fused)
         objective = from_loss(lambda p, c=conf: network_loss(c, p, xs, ys))
+        kernels.reset_launches()
         g, _ = objective.grad_and_score(net.params)
         grads[fused] = tree_leaves(g)
+        if fused:
+            # the f32 backward kernels of one fused gradient
+            f32_launches = dict(kernels.LAUNCHES)
     ratios = []
     for a, b in zip(grads[True], grads[False]):
         gmax = b.abs().max().item()
@@ -993,6 +1037,7 @@ def phase_train(torch, kernels):
            "launches_per_step": step_launches, "peak_mem_gb": peak_gb,
            "pad_copies_train": train_pad_copies,
            "grad_check_rows": 2, "grad_check_dtype": "float32",
+           "grad_check_launches": f32_launches,
            "grad_fused_vs_recompute_max_rel": max(ratios)}
     emit(row)
     check(all(np.isfinite(s) for s in scores), f"non-finite score: {scores}")
@@ -1002,11 +1047,15 @@ def phase_train(torch, kernels):
             check(launches[name] == n_attn,
                   f"a step launched {name} {launches[name]} times, want "
                   f"{n_attn}: {launches}")
+    for name in BWD_KERNELS:
+        check(f32_launches[name] == n_attn,
+              f"the f32 fused gradient launched {name} "
+              f"{f32_launches[name]} times, want {n_attn}")
     check(max(ratios) <= 1e-3,
           f"fused and recompute gradients differ: {max(ratios)} of max|g|")
     check(train_pad_copies == 0,
           f"the train path made {train_pad_copies} padding copies")
-    return total
+    return total, f32_launches
 
 
 # -------------------------------------------------------------------- LSTM
@@ -1857,7 +1906,7 @@ def main(argv) -> int:
     fwd_row, fwd_train_row = fwd_rows["serve"], fwd_rows["train"]
     bwd_rows = phase_bwd_kernels(torch, kernels)
     serve_launches = phase_serve(torch, kernels)
-    train_launches = phase_train(torch, kernels)
+    train_launches, f32_train_launches = phase_train(torch, kernels)
     check(serve_launches["flash_attn_fwd"] > 0, "the flash kernel never ran")
     for name in ("flash_attn_fwd",) + BWD_KERNELS:
         check(train_launches[name] > 0, f"{name} never ran in training")
@@ -1933,6 +1982,17 @@ def main(argv) -> int:
                                else "delta + dkv + dq"),
             "max_rel_err": r["max_rel_err"], "tflops": r["tflops"]})
         rows[-1]["f32"] = f32_entry(bwd_rows, name)
+        # launched by the train phase's f32 fused gradient check
+        rows[-1]["f32"]["launches"] = f32_train_launches[name]
+        if name in f32_bodies:
+            rows[-1]["f32"].update(
+                design="3xtf32 mma.sync + cp.async",
+                ptxas=f32_bodies[name],
+                # causal on qkv views, and causal at ragged S with D = 100
+                causal_view=f32_case(bwd_rows["f32_causal_view"][name],
+                                     "sdpa_backward_ms"),
+                ragged=f32_case(bwd_rows["f32_ragged"][name],
+                                "sdpa_backward_ms"))
         if name in bodies:
             rows[-1].update({"design": "tma+wgmma", "ptxas": bodies[name]})
     rows.append({

@@ -26,17 +26,20 @@
 // `attention_block_skip` changes no value on the TPU (the diagonal split
 // only skips a select that is the identity below the diagonal), so the
 // kernels skip fully masked tiles and mask (every visited tile in the f32
-// bodies, only tiles that cross the diagonal or the ragged end in the bf16
-// bodies) whatever the flag says.
+// dQ body, only tiles that cross the diagonal or the ragged end in the
+// others) whatever the flag says.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 67 TFLOP/s f32, 3.35 TB/s):
-//   dkv: max(8*B*H*S^2*D*(1/2 if causal) / peak,
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 495 TF32, 3.35 TB/s):
+//   dkv: max(8*B*H*S^2*D*(1/2 if causal) / rate,
 //            (6*B*S*H*D*bytes + 8*B*H*S) / 3.35e12)
-//   dq:  max(6*B*H*S^2*D*(1/2 if causal) / peak,
+//   dq:  max(6*B*H*S^2*D*(1/2 if causal) / rate,
 //            (5*B*S*H*D*bytes + 8*B*H*S) / 3.35e12)
 //   delta: (2*B*S*H*D*bytes + 4*B*H*S) / 3.35e12
-// At the training shape (B=32, S=512, H=16, D=128, bf16, causal) all three
-// are bound by bytes against the bf16 peak.
+// rate 989e12 for bf16 and 495e12 / 3 for f32 (three TF32 products each;
+// the f32 dQ body, still on f32 FMAs, has 67e12 as its own peak). At the
+// training shape (B=32, S=512, H=16, D=128, bf16, causal) all three are
+// bound by bytes. In f32 at [8, 512, 16, 128] the products bound dK/dV:
+// 17.2 GFLOP, about 104 us causal.
 //
 // Design. The TPU grid's sequential axis becomes a loop over the other
 // side's tiles inside a block.
@@ -48,13 +51,20 @@
 //     mirrored for queries: a ring of K and V tiles, S and dP on wgmma, ds
 //     split into hi/lo bf16 for dQ += dS.K on wgmma with K read in place;
 //     D of 64 or 128. See its section below.
-//   - f32: flash_bwd_dkv_kernel and flash_bwd_dq_kernel do every product
-//     with scalar f32 FMAs (the tensor cores would round f32 operands to
-//     tf32). Tiles are widened to f32 in shared memory; each thread owns
-//     4 query rows x 4 key columns of the score tile and 4 rows x DMAX/16
-//     columns of its accumulators. Rows are padded to an odd length
-//     (DMAX + 1 floats), so column reads across a warp are free of bank
-//     conflicts; one 150-170 KB block fits on an SM at head_dim 128.
+//   - f32 dK/dV: flash_bwd_dkv_3xtf32_kernel, all four products on the
+//     tensor cores as 3xTF32 mma.sync (warp_mma.cuh), any D up to 128
+//     zero-filled to its bucket: K and V stay in shared memory, Q and dO
+//     arrive by cp.async a tile at a time and are split into TF32 hi and
+//     lo once for the block, and S^T's and dP^T's C fragments are the A
+//     fragments of dV and dK as they stand. See its section below. It
+//     issues TF32 mma.sync at about a quarter of the tensor cores' TF32
+//     rate, and what holds it there is not the instruction count: halving
+//     the split's instructions moved it 2 % (PERF.md).
+//   - f32 dQ: flash_bwd_dq_kernel does every product with scalar f32 FMAs.
+//     Tiles are widened to f32 in shared memory; each thread owns 4 query
+//     rows x 4 key columns of the score tile and 4 rows x DMAX/16 columns
+//     of its accumulator. Rows are padded to an odd length (DMAX + 1
+//     floats), so column reads across a warp are free of bank conflicts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,10 +74,17 @@
 #include <atomic>
 
 #include "hopper.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
 using hopper::bf16;
+using hopper::kLog2e;
+using warp_mma::cp_async;
+using warp_mma::cp_async_commit;
+using warp_mma::cp_async_wait;
+using warp_mma::mma_3xtf32;
+using warp_mma::split_tf32;
 
 using hopper::kMaxDevices;
 using hopper::set_smem_once;
@@ -187,122 +204,344 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[row] = acc;
 }
 
-// ------------------------------------------------------------- f32: dkv
+// ------------------------------------------------- f32 dK/dV, 3xTF32 mma.sync
+//
+// One block of 4 warps per (batch*head, 64-key tile); warp w owns keys
+// kw0 = k0 + 16 w .. kw0 + 15, the M rows of every product it issues, so
+// the TPU kernel's four products per query tile become
+//   S^T = K.Q^T and dP^T = V.dO^T   (M = keys, N = queries, k = D),
+//   dV += P^T.dO and dK += dS^T.Q   (M = keys, k = queries, N = D),
+// each on the tensor cores as 3xTF32 through mma.sync m16n8k8
+// (warp_mma.cuh). K and V stay in shared memory for the whole loop. Q, dO
+// and their lse and delta rows arrive a kBQ-query tile at a time by
+// cp.async (16-byte chunks where D, the strides and the bases are 4-float
+// aligned, single floats otherwise) in one landing stage; after a barrier
+// the block splits the tile's Q and dO into TF32 hi and lo arrays once, so
+// the four warps and both products that read each value load its halves
+// instead of splitting it again at every fragment load; a second barrier
+// hands the split tile to the warps and frees the landing stage, and the
+// next tile's copy runs while the warps multiply. K and V, private to
+// their warp, are split at each fragment load.
+// Layouts (g = lane / 4, t = lane % 4):
+//   - S^T, dP^T: a float4 at columns 16 kp + 4 t of a row feeds two
+//     k-steps (k = t, t + 4 are columns + 0, + 1, then + 2, + 3), in K's
+//     and V's A fragments (rows g, g + 8) and Q's and dO's B fragments (row
+//     8 n + g) alike, as in the forward's Q.K^T;
+//   - their C fragments are the A fragments of dV and dK as they stand:
+//     queries 2t and 2t + 1 of an 8-query slice are k = t and t + 4, so the
+//     B fragment takes rows 2t and 2t + 1 of dO or Q, a float4 each for four
+//     output tiles (tile 4 mm + x holds column 32 mm + 4 c + x at fragment
+//     column c). P and dS never leave registers.
+// Every tile is [rows][DMAX] with its 16-byte chunks XOR-swizzled by
+// swz(row) (the split arrays keep the landing stage's layout): both
+// fragment loads of Q and dO (rows 8 n + g at one chunk; rows 2t, 2t + 1
+// at chunk 8 mm + g) and K's and V's meet 8 distinct chunks of the 32
+// banks in every quarter warp.
+// D is zero-filled to its bucket DMAX (32, 64 or 128) and the loops run
+// over DMAX. Causal query tiles that end before the block's first key are
+// never loaded; a warp skips tiles that end before its first key; masks run
+// only on tiles that cross the diagonal or a ragged end, where p is forced
+// to 0 (rows past S arrive with lse = delta = 0). p = exp2(s scale log2(e)
+// - lse log2(e)), the base-2 form of exp(s scale - lse).
+// Shared memory at DMAX = 128 with 16-query tiles: 114,944 bytes, two
+// blocks an SM (32-query tiles there would leave one, and ptxas spills);
+// 32-query tiles below (kBQ). Registers: dK and dV take 128 of the 242 at
+// DMAX = 128.
+
+constexpr int kF32BK = 64;  // keys per block: 4 warps of 16
+constexpr int kF32Threads = 128;
 
 template <int DMAX>
-constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * kTile * (DMAX + 1) + 2 * kTile * kLdp +
-                          2 * kTile);
+struct DkvF32Tiles {
+  static constexpr int kBQ = DMAX == 128 ? 16 : 32;  // queries a tile
+  static constexpr int kKV = kF32BK * DMAX;  // floats of K (or V)
+  static constexpr int kQ = kBQ * DMAX;      // floats of one Q (or dO) tile
+  // K, V; the landing stage (Q, dO, lse, delta); the split tile (hi and lo
+  // of Q and of dO, lse, delta)
+  static constexpr size_t kBytes =
+      sizeof(float) * (2 * kKV + (2 * kQ + 2 * kBQ) + (4 * kQ + 2 * kBQ));
+};
+
+// The 16-byte chunk c of tile row r lives at chunk c ^ swz(r) (the XOR
+// stays inside c's aligned group of 8 chunks).
+__device__ __forceinline__ int swz(int r) { return (r & 6) ^ ((r & 1) << 2); }
+
+// Start copying rows [row0, row0 + kRows) of one head (src: its row 0, ss:
+// the row stride) into the swizzled tile dst ([kRows][DMAX]): zeros past D
+// and past S. 16-byte chunks where `vec4`, single floats otherwise.
+template <int kRows, int DMAX>
+__device__ __forceinline__ void stage_swizzled(float* dst,
+                                               const float* __restrict__ src,
+                                               long long ss, int row0, int S,
+                                               int D, int vec4) {
+  if (vec4) {
+    constexpr int kChunks = DMAX / 4;
+    for (int i = threadIdx.x; i < kRows * kChunks; i += kF32Threads) {
+      const int r = i / kChunks;
+      const int c = i - r * kChunks;
+      const int row = row0 + r;
+      const int valid = row < S && 4 * c < D ? 4 : 0;  // D is a multiple of 4
+      cp_async<4>(dst + r * DMAX + 4 * (c ^ swz(r)),
+                  valid ? src + row * ss + 4 * c : src, valid);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * DMAX; i += kF32Threads) {
+      const int r = i / DMAX;
+      const int c = i - r * DMAX;
+      const int row = row0 + r;
+      const int valid = row < S && c < D ? 1 : 0;
+      cp_async<1>(dst + r * DMAX + 4 * ((c >> 2) ^ swz(r)) + (c & 3),
+                  valid ? src + row * ss + c : src, valid);
+    }
+  }
 }
 
 template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int H, int S, int D, long long q_sb,
-                     long long q_ss, long long k_sb, long long k_ss,
-                     long long v_sb, long long v_ss, long long do_sb,
-                     long long do_ss, float scale, int causal) {
-  constexpr int LD = DMAX + 1;
-  constexpr int kOut = DMAX / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* Ks = smem;                  // [kTile][LD]
-  float* Vs = Ks + kTile * LD;
-  float* Qs = Vs + kTile * LD;
-  float* dOs = Qs + kTile * LD;
-  float* Ps = dOs + kTile * LD;      // [query][key], kLdp
-  float* dSs = Ps + kTile * kLdp;
-  float* lse_t = dSs + kTile * kLdp;
-  float* delta_t = lse_t + kTile;
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_dkv_3xtf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int H, int S, int D,
+    long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+    long long v_sb, long long v_ss, long long do_sb, long long do_ss,
+    float scale, int causal, int vec4) {
+  using T = DkvF32Tiles<DMAX>;
+  constexpr int kBQ = T::kBQ;
+  extern __shared__ __align__(16) float dkv_smem[];
+  float* Ks = dkv_smem;                // [kF32BK][DMAX]
+  float* Vs = Ks + T::kKV;             // [kF32BK][DMAX]
+  float* Qs = Vs + T::kKV;             // landing stage: [kBQ][DMAX]
+  float* dOs = Qs + T::kQ;             // [kBQ][DMAX]
+  float* rows = dOs + T::kQ;           // [lse kBQ, delta kBQ]
+  uint32_t* Qh = reinterpret_cast<uint32_t*>(rows + 2 * kBQ);  // split tile
+  uint32_t* Ql = Qh + T::kQ;
+  uint32_t* dOh = Ql + T::kQ;
+  uint32_t* dOl = dOh + T::kQ;
+  float* lse_t = reinterpret_cast<float*>(dOl + T::kQ);  // [kBQ]
+  float* delta_t = lse_t + kBQ;                           // [kBQ]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int k0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x & 15;  // key column group; output column group
-  const int ty = threadIdx.x >> 4;  // query row group; key row group
+  // blocks start in the order of blockIdx.y, and under causal masking the
+  // first key tiles meet the most query tiles: the heaviest go first
+  const int k0 = blockIdx.y * kF32BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kw0 = k0 + 16 * warp;  // this warp's keys: kw0 .. kw0 + 15
+  const int sw = swz(g);           // of key rows 16 warp + g (+ 8), and of
+                                   // query rows 8 n + g
 
   const float* qb = q + b * q_sb + (long long)h * D;
   const float* kb = k + b * k_sb + (long long)h * D;
   const float* vb = v + b * v_sb + (long long)h * D;
   const float* db = dout + b * do_sb + (long long)h * D;
+  const float* lse_bh = lse + (long long)bh * S;
+  const float* delta_bh = delta + (long long)bh * S;
 
-  load_tile<LD>(Ks, kb + k0 * k_ss, k_ss, S - k0, D);
-  load_tile<LD>(Vs, vb + k0 * v_ss, v_ss, S - k0, D);
+  // start copying Q, dO and their lse, delta rows of the query tile at q0
+  // into the landing stage; rows past S are zeros
+  auto stage_queries = [&](int q0) {
+    stage_swizzled<kBQ, DMAX>(Qs, qb, q_ss, q0, S, D, vec4);
+    stage_swizzled<kBQ, DMAX>(dOs, db, do_ss, q0, S, D, vec4);
+    if (threadIdx.x < 2 * kBQ) {
+      const int r = threadIdx.x % kBQ;
+      const float* src = threadIdx.x < kBQ ? lse_bh : delta_bh;
+      const int valid = q0 + r < S ? 1 : 0;
+      cp_async<1>(rows + threadIdx.x, valid ? src + q0 + r : src, valid);
+    }
+  };
 
-  float acc_k[4][kOut], acc_v[4][kOut];  // key rows ty + 16 i, cols tx + 16 c
+  const int nq = (S + kBQ - 1) / kBQ;
+  // query tiles that end before this tile's first key are fully masked
+  const int first = causal ? k0 / kBQ : 0;
+  stage_swizzled<kF32BK, DMAX>(Ks, kb, k_ss, k0, S, D, vec4);
+  stage_swizzled<kF32BK, DMAX>(Vs, vb, v_ss, k0, S, D, vec4);
+  stage_queries(first * kBQ);
+  cp_async_commit();
+
+  // acc_k, acc_v [n][e]: output tile n = 4 mm + x holds column
+  // 32 mm + 4 c + x at fragment column c, so e = 0, 1 are key g at columns
+  // 32 mm + 8 t + x and + 4 + x, e = 2, 3 the same of key g + 8
+  float acc_k[DMAX / 8][4], acc_v[DMAX / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < DMAX / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < kOut; ++c) {
-      acc_k[i][c] = 0.f;
-      acc_v[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      acc_k[n][e] = 0.f;
+      acc_v[n][e] = 0.f;
+    }
+  const float scale_l2 = scale * kLog2e;
+  const float* k_lo = Ks + (16 * warp + g) * DMAX;  // key rows g and g + 8
+  const float* v_lo = Vs + (16 * warp + g) * DMAX;
+
+  for (int qt = first; qt < nq; ++qt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile qt landed; the split tile qt - 1 is consumed
+    // split Q and dO once for the block, in the landing stage's layout
+    for (int j = threadIdx.x; j < 2 * T::kQ / 4; j += kF32Threads) {
+      const bool is_q = j < T::kQ / 4;
+      const int off = 4 * (is_q ? j : j - T::kQ / 4);
+      const float4 x =
+          *reinterpret_cast<const float4*>((is_q ? Qs : dOs) + off);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+      uint32_t hi[4], lo[4];
+      split_tf32(xs, hi, lo);
+      *reinterpret_cast<uint4*>((is_q ? Qh : dOh) + off) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>((is_q ? Ql : dOl) + off) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    if (threadIdx.x < 2 * kBQ) lse_t[threadIdx.x] = rows[threadIdx.x];
+    __syncthreads();  // the split tile is ready; the landing stage is free
+    if (qt + 1 < nq) stage_queries((qt + 1) * kBQ);
+    cp_async_commit();
+    const int q0 = qt * kBQ;
+    // a warp whose keys all lie past S, or (causal) past the tile's last
+    // query, would add p = 0 exactly: it skips the tile
+    if (kw0 >= S || (causal && kw0 > q0 + kBQ - 1)) continue;
+
+    // s = K.Q^T and dp = V.dO^T on this warp's 16 keys: s[n][e] is key
+    // kw0 + g + 8 (e >> 1), query q0 + 8 n + 2 t + (e & 1)
+    float s[kBQ / 8][4], dp[kBQ / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBQ / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = 0.f;
+        dp[n][e] = 0.f;
+      }
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      const float* a_lo = pass == 0 ? k_lo : v_lo;
+      const uint32_t* b_hi = pass == 0 ? Qh : dOh;
+      const uint32_t* b_lo = pass == 0 ? Ql : dOl;
+#pragma unroll
+      for (int kp = 0; kp < DMAX / 16; ++kp) {
+        const int c = 4 * ((4 * kp + t) ^ sw);
+        const float4 x = *reinterpret_cast<const float4*>(a_lo + c);
+        const float4 y = *reinterpret_cast<const float4*>(a_lo + 8 * DMAX + c);
+        const float a0[4] = {x.x, y.x, x.y, y.y};
+        const float a1[4] = {x.z, y.z, x.w, y.w};
+        uint32_t a0h[4], a0l[4], a1h[4], a1l[4];
+        split_tf32(a0, a0h, a0l);
+        split_tf32(a1, a1h, a1l);
+#pragma unroll
+        for (int n = 0; n < kBQ / 8; ++n) {
+          const uint4 zh =
+              *reinterpret_cast<const uint4*>(b_hi + (8 * n + g) * DMAX + c);
+          const uint4 zl =
+              *reinterpret_cast<const uint4*>(b_lo + (8 * n + g) * DMAX + c);
+          const uint32_t b0h[2] = {zh.x, zh.y}, b1h[2] = {zh.z, zh.w};
+          const uint32_t b0l[2] = {zl.x, zl.y}, b1l[2] = {zl.z, zl.w};
+          if (pass == 0) {
+            mma_3xtf32(s[n], a0h, a0l, b0h, b0l);
+            mma_3xtf32(s[n], a1h, a1l, b1h, b1l);
+          } else {
+            mma_3xtf32(dp[n], a0h, a0l, b0h, b0l);
+            mma_3xtf32(dp[n], a1h, a1l, b1h, b1l);
+          }
+        }
+      }
     }
 
-  const int nq = (S + kTile - 1) / kTile;
-  // query tiles that end before this tile's first key are fully masked
-  const int first = causal ? blockIdx.y : 0;
-  for (int qt = first; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the last tile's P and dS are consumed
-    load_tile<LD>(Qs, qb + q0 * q_ss, q_ss, S - q0, D);
-    load_tile<LD>(dOs, db + q0 * do_ss, do_ss, S - q0, D);
-    load_rows(lse_t, delta_t, lse, delta, (long long)bh * S + q0, S - q0);
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    scores<LD>(Qs, dOs, Ks, Vs, lse_t, delta_t, q0, k0, S, D, scale, causal,
-               tx, ty, p, ds);
+    // p = exp(s scale - lse) and ds = p (dp - delta) scale in f32; masks
+    // only where the tile crosses the diagonal or a ragged end
+    const bool masked = (causal && kw0 + 15 > q0) || q0 + kBQ > S ||
+                        kw0 + 16 > S;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < kBQ / 8; ++n) {
+      const int ql = 8 * n + 2 * t;  // this thread's queries ql, ql + 1
+      const float2 ls = *reinterpret_cast<const float2*>(lse_t + ql);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_t + ql);
+      const float lse_l2[2] = {ls.x * kLog2e, ls.y * kLog2e};
+      const float dlt[2] = {dl.x, dl.y};
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        Ps[(ty + 16 * i) * kLdp + tx + 16 * c] = p[i][c];
-        dSs[(ty + 16 * i) * kLdp + tx + 16 * c] = ds[i][c];
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[n][e], scale_l2, -lse_l2[e & 1]));
+        if (masked) {
+          const int qpos = q0 + ql + (e & 1), kpos = kw0 + g + 8 * (e >> 1);
+          if ((causal && kpos > qpos) || qpos >= S || kpos >= S) p = 0.f;
+        }
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - dlt[e & 1]) * scale;
       }
-    __syncthreads();
+    }
 
-    // dV[key][d] += sum_q P[q][key] dO[q][d];  dK[key][d] += dS[q][key] Q[q][d]
-    for (int r = 0; r < kTile; ++r) {
-      float pr[4], dsr[4];
+    // dV += P^T.dO and dK += dS^T.Q from registers: queries 2t and 2t + 1
+    // of slice kn are k = t and t + 4 of the A fragment, so the B fragment
+    // takes rows 8 kn + 2 t and + 1 of dO or Q; four values of each row
+    // (a 16-byte load of hi, one of lo) feed output tiles 4 mm .. 4 mm + 3
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pr[i] = Ps[r * kLdp + ty + 16 * i];
-        dsr[i] = dSs[r * kLdp + ty + 16 * i];
-      }
+    for (int kn = 0; kn < kBQ / 8; ++kn) {
+      const float pa[4] = {s[kn][0], s[kn][2], s[kn][1], s[kn][3]};
+      const float da[4] = {dp[kn][0], dp[kn][2], dp[kn][1], dp[kn][3]};
+      uint32_t ph[4], pl[4], dh[4], dl[4];
+      split_tf32(pa, ph, pl);
+      split_tf32(da, dh, dl);
+      const int r0 = 8 * kn + 2 * t;
+      const int sw0 = swz(r0), sw1 = swz(r0 + 1);
 #pragma unroll
-      for (int c = 0; c < kOut; ++c) {
-        const int d = tx + 16 * c;
-        if (d < D) {
-          const float dov = dOs[r * LD + d];
-          const float qv = Qs[r * LD + d];
+      for (int mm = 0; mm < DMAX / 32; ++mm) {
+        const int c0 = 4 * ((8 * mm + g) ^ sw0);
+        const int c1 = 4 * ((8 * mm + g) ^ sw1);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc_v[i][c] = fmaf(pr[i], dov, acc_v[i][c]);
-            acc_k[i][c] = fmaf(dsr[i], qv, acc_k[i][c]);
+        for (int pass = 0; pass < 2; ++pass) {
+          const uint32_t* b_hi = (pass == 0 ? dOh : Qh) + r0 * DMAX;
+          const uint32_t* b_lo = (pass == 0 ? dOl : Ql) + r0 * DMAX;
+          const uint4 h0 = *reinterpret_cast<const uint4*>(b_hi + c0);
+          const uint4 h1 = *reinterpret_cast<const uint4*>(b_hi + DMAX + c1);
+          const uint4 l0 = *reinterpret_cast<const uint4*>(b_lo + c0);
+          const uint4 l1 = *reinterpret_cast<const uint4*>(b_lo + DMAX + c1);
+          const uint32_t bhx[4][2] = {{h0.x, h1.x}, {h0.y, h1.y},
+                                      {h0.z, h1.z}, {h0.w, h1.w}};
+          const uint32_t blx[4][2] = {{l0.x, l1.x}, {l0.y, l1.y},
+                                      {l0.z, l1.z}, {l0.w, l1.w}};
+#pragma unroll
+          for (int xx = 0; xx < 4; ++xx) {
+            if (pass == 0)
+              mma_3xtf32(acc_v[4 * mm + xx], ph, pl, bhx[xx], blx[xx]);
+            else
+              mma_3xtf32(acc_k[4 * mm + xx], dh, dl, bhx[xx], blx[xx]);
           }
         }
       }
     }
   }
 
+  // dK and dV; keys past S are never stored
   const long long ss = (long long)H * D;  // outputs: contiguous [B, S, H, D]
   float* dkb = dk + (long long)b * S * ss + (long long)h * D;
   float* dvb = dv + (long long)b * S * ss + (long long)h * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kpos = k0 + ty + 16 * i;
-    if (kpos >= S) continue;
+  for (int i = 0; i < 2; ++i) {
+    const int key = kw0 + g + 8 * i;
+    if (key >= S) continue;
 #pragma unroll
-    for (int c = 0; c < kOut; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D) {
-        dkb[kpos * ss + d] = acc_k[i][c];
-        dvb[kpos * ss + d] = acc_v[i][c];
+    for (int mm = 0; mm < DMAX / 32; ++mm)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int d = 32 * mm + 8 * t + 4 * hf;  // columns d .. d + 3
+        if (d >= D) continue;
+        const int e = 2 * i + hf;
+#pragma unroll
+        for (int pass = 0; pass < 2; ++pass) {
+          float* out = (pass == 0 ? dkb : dvb) + key * ss + d;
+          float o4[4];
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            o4[x] = pass == 0 ? acc_k[4 * mm + x][e] : acc_v[4 * mm + x][e];
+          if (D % 4 == 0) {
+            *reinterpret_cast<float4*>(out) =
+                make_float4(o4[0], o4[1], o4[2], o4[3]);
+          } else {
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+              if (d + x < D) out[x] = o4[x];
+          }
+        }
       }
-    }
   }
 }
 
@@ -920,18 +1159,23 @@ struct Args {
 
 template <int DMAX>
 cudaError_t launch_dkv_f32(const Args& a) {
-  auto kernel = flash_bwd_dkv_kernel<DMAX>;
-  constexpr size_t smem = dkv_smem<DMAX>();
+  using warp_mma::rows_vec4;
+  const int vec4 = a.D % 4 == 0 && rows_vec4(a.q, a.q_sb, a.q_ss) &&
+                   rows_vec4(a.k, a.k_sb, a.k_ss) &&
+                   rows_vec4(a.v, a.v_sb, a.v_ss) &&
+                   rows_vec4(a.dout, a.do_sb, a.do_ss);
+  auto kernel = flash_bwd_dkv_3xtf32_kernel<DMAX>;
+  constexpr size_t smem = DkvF32Tiles<DMAX>::kBytes;
   static std::atomic<bool> smem_set[kMaxDevices];
   cudaError_t err = set_smem_once(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
+  dim3 grid(a.B * a.H, (a.S + kF32BK - 1) / kF32BK);
+  kernel<<<grid, kF32Threads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       a.H, a.S, a.D, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb,
-      a.do_ss, a.scale, a.causal);
+      a.do_ss, a.scale, a.causal, vec4);
   return cudaGetLastError();
 }
 
@@ -1026,8 +1270,8 @@ cudaError_t launch_dq_bf16(const Args& a) {
   }
 }
 
-// dispatch on the input type (0 = f32: scalar kernels, 1 = bf16: TMA +
-// wgmma kernels) and the head_dim bucket
+// dispatch on the input type (0 = f32: the 3xTF32 dK/dV body and the scalar
+// dQ body, 1 = bf16: TMA + wgmma kernels) and the head_dim bucket
 struct DkvLaunch {
   template <int DMAX>
   static cudaError_t f32(const Args& a) { return launch_dkv_f32<DMAX>(a); }

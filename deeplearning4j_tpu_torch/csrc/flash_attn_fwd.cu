@@ -622,12 +622,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        long long q_ss, long long k_sb, long long k_ss,
                        long long v_sb, long long v_ss, float scale, int causal,
                        cudaStream_t stream) {
-  auto aligned = [](const void* p, long long sb, long long ss) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 &&
-           ss % 4 == 0;
-  };
-  const int vec4 = D % 4 == 0 && aligned(q, q_sb, q_ss) &&
-                   aligned(k, k_sb, k_ss) && aligned(v, v_sb, v_ss);
+  using warp_mma::rows_vec4;
+  const int vec4 = D % 4 == 0 && rows_vec4(q, q_sb, q_ss) &&
+                   rows_vec4(k, k_sb, k_ss) && rows_vec4(v, v_sb, v_ss);
   const size_t smem = F32Tiles<DMAX>::kBytes;
   auto kernel = flash_fwd_3xtf32_kernel<DMAX>;
   static std::atomic<bool> smem_set[kMaxDevices];

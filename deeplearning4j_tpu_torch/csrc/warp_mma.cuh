@@ -50,6 +50,15 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src,
                  : "memory");
 }
 
+// Whether the rows of a [B, S, H, D] f32 tensor at p, with batch and
+// sequence strides sb and ss (in floats), can be read in 16-byte cp.async
+// chunks: the base and both strides 4-float aligned (D % 4 is the
+// caller's to check).
+inline bool rows_vec4(const void* p, long long sb, long long ss) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 &&
+         ss % 4 == 0;
+}
+
 // x = hi + lo + (about 2^-22 |x|), both TF32 rounded to nearest with ties
 // away from zero: what cvt.rna.tf32.f32 gives for finite x, in integer
 // operations on the f32 bits (add half of the 13 dropped bits, clear them).

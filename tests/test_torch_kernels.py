@@ -163,7 +163,7 @@ def test_library_path_follows_the_headers_a_source_includes(tmp_path):
         f.write("\n// changed\n")
     for name in kernels.SOURCES:
         now = kernels._lib_path(name, str(csrc), str(tmp_path))
-        if name in ("flash_attn_fwd", "lstm_cell"):
+        if name in ("flash_attn_fwd", "flash_attn_bwd", "lstm_cell"):
             assert now != changed[name]
         else:
             assert now == changed[name]
@@ -448,6 +448,130 @@ def _jax_fwd_and_g(seed, b, s, h, d, causal, block):
                                        jnp.asarray(v), causal, block, block,
                                        True, with_lse=True)
     return q, k, v, np.array(o), np.array(lse), g
+
+
+# -------------------------------------- 3xTF32 numerics of the f32 dK/dV body
+#
+# A torch model of what `flash_bwd_dkv_3xtf32_kernel` computes: the four
+# products S^T = K.Q^T, dP^T = V.dO^T, dV += P^T.dO and dK += dS^T.Q, each
+# with its f32 operands split into TF32 hi + lo and taken as lo.hi + hi.lo +
+# hi.hi (small terms first); the query tiles in the body's order (16
+# queries a tile at head dims above 64, else 32), queries 2t and 2t + 1 of
+# every 8-query slice as k = t and t + 4 of dV's and dK's products (the
+# order in which S^T's C fragment hands them to the A fragment); p in base
+# 2, exp2(s * scale * log2(e) - lse * log2(e)), forced to 0 above the
+# diagonal and on the query rows past S that a ragged last tile holds.
+# The model sums in f32 with round-to-nearest; the tensor cores' own f32
+# accumulation adds error that only the card shows (PERF.md). Held to the
+# plain version and to the JAX fused backward at 1e-4, the tolerance the
+# card's check uses for f32 attention; one TF32 product a term is shown to
+# miss it on the same inputs.
+
+def _f32(x):
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def _dkv_body_model(q, k, v, do, lse, delta, causal, terms=3):
+    """(dk, dv) [B, S, H, D] as the f32 dK/dV body computes them."""
+    b, s, h, d = q.shape
+    bq = 16 if d > 64 else 32          # queries a tile, as DkvF32Tiles
+    scale = _f32(1.0 / d ** 0.5)
+    scale_l2 = scale * _f32(_LOG2E)
+    pad = -s % bq                      # Q, dO, lse, delta zero-filled past S
+    qf, kf, vf, dof = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
+    qf, dof = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (qf, dof))
+    lse_l2 = torch.nn.functional.pad(lse.reshape(b, h, 1, s),
+                                     (0, pad)) * _f32(_LOG2E)
+    dlt = torch.nn.functional.pad(delta.reshape(b, h, 1, s), (0, pad))
+    dk = torch.zeros(b, h, s, d)
+    dv = torch.zeros(b, h, s, d)
+    keys = torch.arange(s)[:, None]
+    order = torch.tensor([8 * (n // 8) + _PV_KEY_ORDER[n % 8]
+                          for n in range(bq)])
+    for q0 in range(0, s + pad, bq):
+        qt, dot = qf[:, :, q0:q0 + bq], dof[:, :, q0:q0 + bq]
+        st = _mm_tf32(kf, qt.transpose(-1, -2), terms)     # [B, H, keys, bq]
+        dpt = _mm_tf32(vf, dot.transpose(-1, -2), terms)
+        p = torch.exp2(st * scale_l2 - lse_l2[..., q0:q0 + bq])
+        queries = q0 + torch.arange(bq)[None, :]
+        dead = (queries >= s) | (keys > queries) if causal else queries >= s
+        p = p.masked_fill(dead, 0.0)
+        ds = p * (dpt - dlt[..., q0:q0 + bq]) * scale
+        dv = dv + _mm_tf32(p[..., order], dot[:, :, order], terms)
+        dk = dk + _mm_tf32(ds[..., order], qt[:, :, order], terms)
+    return tuple(t.permute(0, 2, 1, 3).contiguous() for t in (dk, dv))
+
+
+def _dkv_model_case(d, s, causal):
+    """Numpy q, k, v, o, lse, g (o and lse from the JAX forward in interpret
+    mode, at blocks that divide S), and the torch inputs of the dK/dV body:
+    q, k, v, g, lse and the plain delta."""
+    q, k, v, o, lse, g = _jax_fwd_and_g(33, 1, s, 2, d, causal,
+                                        32 if s == 96 else 40)
+    tq, tk, tv, to, tlse, tg = _torch(q, k, v, o, lse, g)
+    delta = kernels.flash_bwd_delta_reference(to, tg)
+    return (q, k, v, o, lse, g), (tq, tk, tv, tg, tlse, delta)
+
+
+@pytest.mark.parametrize("d,s,causal", F32_MODEL_CASES)
+def test_3xtf32_dkv_model_holds_plain_version_and_jax_bwd(d, s, causal):
+    arrays, args = _dkv_model_case(d, s, causal)
+    got_dk, got_dv = _dkv_body_model(*args, causal)
+    want_dk, want_dv = kernels.flash_bwd_dkv_reference(*args, causal)
+    torch.testing.assert_close(got_dk, want_dk, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_dv, want_dv, atol=1e-4, rtol=1e-4)
+    # the JAX fused backward in interpret mode, at blocks that divide S
+    block = 32 if s == 96 else 40
+    _, jax_dk, jax_dv = _flash_fused_bwd_impl(
+        *(jnp.asarray(a) for a in arrays), causal, block, block, True, False)
+    np.testing.assert_allclose(got_dk.numpy(), np.asarray(jax_dk), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(got_dv.numpy(), np.asarray(jax_dv), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("d,s,causal", F32_MODEL_CASES)
+def test_one_tf32_product_a_term_misses_the_f32_tolerance_in_dkv(d, s,
+                                                                 causal):
+    _, args = _dkv_model_case(d, s, causal)
+    got = _dkv_body_model(*args, causal, terms=1)
+    want = kernels.flash_bwd_dkv_reference(*args, causal)
+    assert not all(torch.allclose(g, w, atol=1e-4, rtol=1e-4)
+                   for g, w in zip(got, want))
+
+
+F32_DKV_CUDA_CASES = [(d, s, causal) for d in (30, 64, 100, 128)
+                      for s in (96, 200) for causal in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,s,causal", F32_DKV_CUDA_CASES)
+def test_cuda_f32_dkv_kernel_matches_plain_version_on_qkv_views(d, s,
+                                                                causal):
+    # the 3xTF32 dK/dV body on views of one fused projection at ragged S
+    # (both end inside a 64-key block and a query tile); D = 100 is
+    # zero-filled to 128, D = 30 takes the single-float copies (its rows
+    # are not 16-byte aligned)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    rng = np.random.RandomState(34)
+    b, h = 2, 4
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(
+        np.float32)).cuda()
+    q, k, v = (t.view(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    g = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32)).cuda()
+    o, lse = kernels.flash_attention_reference(q, k, v, causal,
+                                               with_lse=True)
+    delta = kernels.flash_bwd_delta_reference(o, g)
+    before = kernels.LAUNCHES["flash_bwd_dkv"]
+    got = kernels.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+    want = kernels.flash_bwd_dkv_reference(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd_dkv"] == before + 1
+    for gt, w in zip(got, want):
+        assert gt.shape == q.shape and gt.is_contiguous()
+        torch.testing.assert_close(gt, w, atol=1e-4, rtol=1e-4)
 
 
 # the last: S = 96 (under one 128-query block of the bf16 dQ kernel) at a
