@@ -9,10 +9,10 @@ checkout), builds its flash forward and backward and prints one JSON line:
 the forward kernel's device time by CUDA-graph replay at [8, 512, 16, 128]
 f32 with lse, causal and not (contiguous) and causal on the qkv views of
 one fused projection, and at the CLI char_transformer's [32, 256, 4, 32]
-(causal, no lse); the f32 dK/dV kernel's at [8, 512, 16, 128] causal and
-not (contiguous), causal on qkv views and causal at a ragged [8, 200, 16,
-100], with the forward kernel's o and lse and the plain delta as inputs;
-each beside its error against the plain version; and, unless
+(causal, no lse); the f32 dK/dV and dQ kernels' at [8, 512, 16, 128]
+causal and not (contiguous), causal on qkv views and causal at a ragged
+[8, 200, 16, 100], with the forward kernel's o and lse and the plain delta
+as inputs; each beside its error against the plain version; and, unless
 `--kernels-only`, the f32 network output of the full-width charTransformer
 (`chip_smoke.SLICE`, flash attention) on 2 x 512 tokens, eager, CUDA
 events, median of 5. To compare two checkouts, run it on each in turns on
@@ -33,7 +33,7 @@ CASES = [(8, 512, 16, 128, True, True, False),
          (8, 512, 16, 128, False, True, False),
          (8, 512, 16, 128, True, True, True),
          (32, 256, 4, 32, True, False, True)]
-#: the f32 dK/dV cases: (B, S, H, D, causal, qkv views)
+#: the f32 dK/dV and dQ cases: (B, S, H, D, causal, qkv views)
 BWD_CASES = [(8, 512, 16, 128, True, False),
              (8, 512, 16, 128, False, False),
              (8, 512, 16, 128, True, True),
@@ -71,26 +71,30 @@ def main(argv) -> int:
                          lambda: kernels.flash_attention(
                              q, k, v, causal, with_lse=with_lse))})
 
-    dkv_rows = []
+    dkv_rows, dq_rows = [], []
     for b, s, h, d, causal, view in BWD_CASES:
         _, q, k, v, do, o, lse = smoke.bwd_inputs(
             torch, kernels, gen, b, s, h, d, torch.float32, causal, view)
         delta = kernels.flash_bwd_delta_reference(o, do)
-        got = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
-        want = kernels.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                               causal)
+        args = (q, k, v, do, lse, delta, causal)
+        got = kernels.flash_bwd_dkv(*args)
+        want = kernels.flash_bwd_dkv_reference(*args)
         (err_k, ok_k), (err_v, ok_v) = (smoke.bwd_close(torch, g, w)
                                         for g, w in zip(got, want))
-        dkv_rows.append({"shape": [b, s, h, d], "causal": causal,
-                         "view": view, "ok": ok_k and ok_v,
-                         "max_abs_err": max(err_k, err_v),
-                         "kernel_ms": smoke.graph_ms(
-                             lambda: kernels.flash_bwd_dkv(
-                                 q, k, v, do, lse, delta, causal))})
-        del q, k, v, do, o, lse, delta, got, want
+        case = {"shape": [b, s, h, d], "causal": causal, "view": view}
+        dkv_rows.append(dict(case, ok=ok_k and ok_v,
+                             max_abs_err=max(err_k, err_v),
+                             kernel_ms=smoke.graph_ms(
+                                 lambda: kernels.flash_bwd_dkv(*args))))
+        err_q, ok_q = smoke.bwd_close(torch, kernels.flash_bwd_dq(*args),
+                                      kernels.flash_bwd_dq_reference(*args))
+        dq_rows.append(dict(case, ok=ok_q, max_abs_err=err_q,
+                            kernel_ms=smoke.graph_ms(
+                                lambda: kernels.flash_bwd_dq(*args))))
+        del q, k, v, do, o, lse, delta, args, got, want
     result = {"root": root, "gpu": smoke.gpu_line(), "cases": rows,
-              "dkv_cases": dkv_rows}
-    ok = all(r["ok"] for r in rows + dkv_rows)
+              "dkv_cases": dkv_rows, "dq_cases": dq_rows}
+    ok = all(r["ok"] for r in rows + dkv_rows + dq_rows)
     if "--kernels-only" in argv:
         smoke.emit(result)
         return 0 if ok else 1

@@ -11,7 +11,7 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
 2. builds every kernel of the serving and training paths from
    `deeplearning4j_tpu_torch/csrc/` with nvcc (sm_90a), one nvcc per source,
    all started together, and reports the registers and spills of each TMA
-   body (D = 64, 128) and of the f32 3xTF32 bodies, forward and dK/dV
+   body (D = 64, 128) and of the f32 3xTF32 bodies, forward, dK/dV and dQ
    (D = 32, 64, 128); a spill fails the run;
 3. holds the flash-attention forward kernel against its plain PyTorch
    version on the card, at the serving shape (contiguous inputs, and the
@@ -32,7 +32,7 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    gradients against autograd through the plain forward, both taken with
    respect to the fused qkv projection whose views they read; the yardstick is
    the backward of `scaled_dot_product_attention` (its forward plus
-   backward, less its forward);
+   backward, less its forward), beside the sum of the three f32 kernels;
 5. serves the full-width charTransformer (vocab 256, d_model 2048, 8 blocks,
    16 heads, seq 512, bf16 compute, random weights from a seed) through
    `MultiLayerNetwork.serve` to 4 concurrent POST /v1/predict requests,
@@ -65,8 +65,9 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    then `predict` and `test` on its checkpoint;
 10. holds the embedding-row scatter-add kernel against its plain version at
    the word2vec step's shapes (syn1 from the bench vocabulary's Huffman
-   points, syn0, syn1neg), a GloVe bias (D = 1), a tiny ragged case with
-   out-of-range indices and bf16: exact on integer-valued inputs, within
+   points, syn0, syn1neg), a GloVe bias (D = 1), tiny ragged cases with
+   duplicate and out-of-range indices at D = 5 and D = 1, and bf16: exact
+   on integer-valued inputs, within
    the any-order summation bound on random ones, timed beside its plain
    version, `index_add_` and its bound;
 11. trains the bench's Word2Vec at full size (bench.py:368-385: vocab
@@ -369,9 +370,10 @@ def phase_bwd_kernels(torch, kernels):
     fused qkv projection, B=32 S=512 H=16 D=128), in f32 at [8, 512, 16,
     128] causal and not (contiguous) and causal on qkv views, in f32 at a
     ragged S with D = 100, and in bf16 at a ragged S; timed at every case.
-    Returns {kernel: row} of the train-path case, and under "f32_causal",
-    "f32_not_causal", "f32_causal_view" and "f32_ragged" {kernel: row} of
-    the f32 cases."""
+    Each f32 case also emits the sum of its three kernels' times beside
+    SDPA's whole backward (`f32_backward_sum`). Returns {kernel: row} of the
+    train-path case, and under "f32_causal", "f32_not_causal",
+    "f32_causal_view" and "f32_ragged" {kernel: row} of the f32 cases."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(32, 512, 16, 128, torch.bfloat16, True, True),
              (8, 512, 16, 128, torch.float32, True, False),
@@ -408,6 +410,7 @@ def phase_bwd_kernels(torch, kernels):
                 lambda: kernels.flash_bwd_dq_reference(
                     q, k, v, do, lse, delta, causal)),
         }
+        case_rows = {}
         for name in BWD_KERNELS:
             err, ok = results[name]
             kernel_fn, plain_fn = calls[name]
@@ -435,16 +438,30 @@ def phase_bwd_kernels(torch, kernels):
             if view:
                 check(grad_ok, f"FlashAttentionFunction grads disagree with "
                                f"autograd of the plain forward: {row}")
-            if dt == torch.bfloat16 and view:
-                main_rows[name] = row
-            elif dt == torch.float32:
-                key = ("f32_ragged" if s != 512 else
-                       "f32_causal" if causal else "f32_not_causal")
-                main_rows.setdefault(key + ("_view" if view else ""),
-                                     {})[name] = row
+            case_rows[name] = row
+        if dt == torch.bfloat16 and view:
+            main_rows.update(case_rows)
+        elif dt == torch.float32:
+            key = ("f32_ragged" if s != 512 else
+                   "f32_causal" if causal else "f32_not_causal")
+            main_rows[key + ("_view" if view else "")] = case_rows
+            emit(f32_backward_sum(case_rows))
         del qkv, q, k, v, do, o, lse, delta, calls
         torch.cuda.empty_cache()
     return main_rows
+
+
+def f32_backward_sum(case_rows):
+    """The f32 backward of one case as the train step runs it (delta, dK/dV
+    and dQ, graph-replay times summed) beside SDPA's whole backward."""
+    r = case_rows["flash_bwd_dq"]
+    return {"phase": "f32_backward", "shape": r["shape"],
+            "causal": r["causal"], "view": r["view"],
+            "kernels_ms": {name: case_rows[name]["kernel_ms"]
+                           for name in BWD_KERNELS},
+            "sum_ms": sum(case_rows[name]["kernel_ms"]
+                          for name in BWD_KERNELS),
+            "sdpa_backward_ms": r["sdpa_backward_ms"]}
 
 
 def ptxas_info(log: str, kernel: str) -> dict:
@@ -486,7 +503,8 @@ def tma_ptxas(kernels) -> dict:
 #: the f32 bodies on 3xTF32 mma.sync, one instance per head-dim bucket
 F32_BODIES = {"flash_attn_fwd": ("flash_attn_fwd", "flash_fwd_3xtf32_kernel"),
               "flash_bwd_dkv": ("flash_attn_bwd",
-                                "flash_bwd_dkv_3xtf32_kernel")}
+                                "flash_bwd_dkv_3xtf32_kernel"),
+              "flash_bwd_dq": ("flash_attn_bwd", "flash_bwd_dq_3xtf32_kernel")}
 
 
 def f32_ptxas(kernels) -> dict:
@@ -600,7 +618,8 @@ def phase_quick(torch, kernels):
     causal, at ragged S (200, and 96: less than one block) and at a head
     dim that takes the padding route; the f32 forward in F32_QUICK_CASES
     and the f32 backward kernels in F32_BWD_QUICK_CASES; then the LSTM cell
-    in its five cases; no timing. Returns whether every case passed."""
+    in its five cases and the scatter-add's D = 1 body in `d1_ragged_cases`;
+    no timing. Returns whether every case passed."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [(8, 512, 16, 128, True, True), (32, 512, 16, 128, True, True),
              (8, 512, 16, 128, False, False), (8, 200, 16, 64, True, False),
@@ -659,6 +678,13 @@ def phase_quick(torch, kernels):
               "shape_bih": [b, i, h], "dtype": dname, "max_abs_err": err,
               "ok": ok})
         all_ok = all_ok and ok
+    for name, r, width, idx, dt in d1_ragged_cases(torch):
+        exact, err, close, *_ = scatter_check(torch, kernels, gen, r, width,
+                                              idx, dt)
+        emit({"phase": "quick", "name": "scatter_add_rows", "case": name,
+              "exact_on_integers": exact, "max_abs_err": err,
+              "within_sum_bound": close, "ok": exact and close})
+        all_ok = all_ok and exact and close
     return all_ok
 
 
@@ -1523,13 +1549,53 @@ def scatter_close(torch, kernels, table, idx, upd, got, want):
     return diff.max().item(), bool((diff <= 2 * n * u * s).all())
 
 
+def d1_ragged_cases(torch):
+    """Scatter cases for the one-thread-per-update body (D = 1): 1,001
+    updates (not a whole number of warps) into 7 rows from indices in
+    [-2, 9), so each warp holds several updates of every row and indices
+    outside the table on both sides; as a 1-D bias and as an [R, 1] table."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    idx = torch.randint(-2, 9, (1001,), generator=gen, device="cuda")
+    return [("ragged_d1", 7, 0, idx, torch.float32),
+            ("ragged_d1_2d", 7, 1, idx.to(torch.int32), torch.float32)]
+
+
+def scatter_check(torch, kernels, gen, r, width, idx, dt):
+    """The scatter kernel against its plain version on a table [r, width]
+    ([r] when width is 0) and updates at idx: integer-valued inputs (any
+    order of adds is exact) must give equal tables; random ones are held to
+    `scatter_close`. Returns (exact, max |got - want|, close, tensors):
+    the integer table and updates, the random ones, the kernel's and the
+    plain version's results on them (kept alive by the caller while it
+    times, so that the timed tables land where they always have)."""
+    shape = (r, width) if width else (r,)
+    ushape = (idx.shape[0], width) if width else (idx.shape[0],)
+
+    def draw(shape, integer):
+        if integer:
+            return torch.randint(-4, 5, shape, generator=gen,
+                                 device="cuda").to(dt)
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    ti, ui = draw(shape, True), draw(ushape, True)
+    exact = torch.equal(kernels.scatter_add_rows(ti, idx, ui),
+                        kernels.scatter_add_rows_reference(ti, idx, ui))
+    table, upd = draw(shape, False), draw(ushape, False)
+    got = kernels.scatter_add_rows(table, idx, upd)
+    want = kernels.scatter_add_rows_reference(table, idx, upd)
+    torch.cuda.synchronize()
+    err, close = scatter_close(torch, kernels, table, idx, upd, got, want)
+    return exact, err, close, (ti, ui, table, upd, got, want)
+
+
 def phase_scatter_kernel(torch, kernels, centers, contexts, neg, points):
     """The scatter-add kernel against its plain version on the card at the
     word2vec step's shapes (indices from the bench's vocabulary and a batch
     of its pairs): syn1 (the pairs' Huffman points, 622,592 rows into 9,999,
     the root on every path), syn0 (32,768 centers), syn1neg (contexts and
     negatives, 196,608 rows); a GloVe bias (D = 1), a tiny ragged case with
-    duplicates and out-of-range indices, and bf16. Each twice: integer-valued
+    duplicates and out-of-range indices, bf16, and the ragged D = 1 cases
+    of `d1_ragged_cases`. Each twice: integer-valued
     inputs, where any order of adds is exact, must give equal tables; random
     inputs are held to `scatter_close` and timed (graph replay) beside the
     plain version, `index_add_` and the bound. Returns {case: row}."""
@@ -1548,28 +1614,14 @@ def phase_scatter_kernel(torch, kernels, centers, contexts, neg, points):
         ("bf16", vocab_n, d,
          torch.randint(0, vocab_n, (W2V["batch"],), generator=gen,
                        device="cuda", dtype=torch.int32), torch.bfloat16)]
+    cases += d1_ragged_cases(torch)
     ptxas = [line.strip() for line in
              kernels.BUILD_LOGS.get("scatter_add", "").splitlines()
              if "registers" in line or "spill" in line]
     rows = {}
     for name, r, width, idx, dt in cases:
-        shape = (r, width) if width else (r,)
-        ushape = (idx.shape[0], width) if width else (idx.shape[0],)
-
-        def draw(shape, integer):
-            if integer:
-                return torch.randint(-4, 5, shape, generator=gen,
-                                     device="cuda").to(dt)
-            return torch.randn(shape, generator=gen, device="cuda").to(dt)
-
-        ti, ui = draw(shape, True), draw(ushape, True)
-        exact = torch.equal(kernels.scatter_add_rows(ti, idx, ui),
-                            kernels.scatter_add_rows_reference(ti, idx, ui))
-        table, upd = draw(shape, False), draw(ushape, False)
-        got = kernels.scatter_add_rows(table, idx, upd)
-        want = kernels.scatter_add_rows_reference(table, idx, upd)
-        torch.cuda.synchronize()
-        err, close = scatter_close(torch, kernels, table, idx, upd, got, want)
+        exact, err, close, (ti, ui, table, upd, got, want) = scatter_check(
+            torch, kernels, gen, r, width, idx, dt)
         in_range = bool(((idx >= 0) & (idx < r)).all())
         scratch = table.clone()
         bound_ms, bound_by, touched = scatter_bound_ms(torch, table, idx, upd)
@@ -1993,6 +2045,12 @@ def main(argv) -> int:
                                      "sdpa_backward_ms"),
                 ragged=f32_case(bwd_rows["f32_ragged"][name],
                                 "sdpa_backward_ms"))
+        if name == "flash_bwd_dq":
+            # delta + dK/dV + dQ beside SDPA's whole f32 backward
+            rows[-1]["f32"]["backward"] = {
+                key[4:]: {k: f32_backward_sum(bwd_rows[key])[k]
+                          for k in ("sum_ms", "sdpa_backward_ms")}
+                for key in ("f32_causal", "f32_not_causal")}
         if name in bodies:
             rows[-1].update({"design": "tma+wgmma", "ptxas": bodies[name]})
     rows.append({

@@ -25,9 +25,8 @@
 // stored, so any S runs here (the TPU path recomputed instead).
 // `attention_block_skip` changes no value on the TPU (the diagonal split
 // only skips a select that is the identity below the diagonal), so the
-// kernels skip fully masked tiles and mask (every visited tile in the f32
-// dQ body, only tiles that cross the diagonal or the ragged end in the
-// others) whatever the flag says.
+// kernels skip fully masked tiles and mask only tiles that cross the
+// diagonal or the ragged end, whatever the flag says.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 495 TF32, 3.35 TB/s):
 //   dkv: max(8*B*H*S^2*D*(1/2 if causal) / rate,
@@ -35,11 +34,10 @@
 //   dq:  max(6*B*H*S^2*D*(1/2 if causal) / rate,
 //            (5*B*S*H*D*bytes + 8*B*H*S) / 3.35e12)
 //   delta: (2*B*S*H*D*bytes + 4*B*H*S) / 3.35e12
-// rate 989e12 for bf16 and 495e12 / 3 for f32 (three TF32 products each;
-// the f32 dQ body, still on f32 FMAs, has 67e12 as its own peak). At the
-// training shape (B=32, S=512, H=16, D=128, bf16, causal) all three are
-// bound by bytes. In f32 at [8, 512, 16, 128] the products bound dK/dV:
-// 17.2 GFLOP, about 104 us causal.
+// rate 989e12 for bf16 and 495e12 / 3 for f32 (three TF32 products each).
+// At the training shape (B=32, S=512, H=16, D=128, bf16, causal) all three
+// are bound by bytes. In f32 at [8, 512, 16, 128] the products bound dK/dV
+// (17.2 GFLOP, about 104 us causal) and dQ (12.9 GFLOP, about 78 us).
 //
 // Design. The TPU grid's sequential axis becomes a loop over the other
 // side's tiles inside a block.
@@ -60,11 +58,11 @@
 //     issues TF32 mma.sync at about a quarter of the tensor cores' TF32
 //     rate, and what holds it there is not the instruction count: halving
 //     the split's instructions moved it 2 % (PERF.md).
-//   - f32 dQ: flash_bwd_dq_kernel does every product with scalar f32 FMAs.
-//     Tiles are widened to f32 in shared memory; each thread owns 4 query
-//     rows x 4 key columns of the score tile and 4 rows x DMAX/16 columns
-//     of its accumulator. Rows are padded to an odd length (DMAX + 1
-//     floats), so column reads across a warp are free of bank conflicts.
+//   - f32 dQ: flash_bwd_dq_3xtf32_kernel, the f32 dK/dV design mirrored
+//     for queries: S, dP and dQ += dS.K on 3xTF32 mma.sync, Q and dO in
+//     shared memory for the block's life, K and V streamed by cp.async in
+//     key tiles and split into TF32 hi and lo once a tile; S's and dP's C
+//     fragments are dQ's A fragments as they stand. See its section below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,91 +87,10 @@ using warp_mma::split_tf32;
 using hopper::kMaxDevices;
 using hopper::set_smem_once;
 
-constexpr int kTile = 64;             // query rows and keys per tile
-constexpr int kThreads = 256;
-constexpr int kLdp = kTile + 1;       // padded row of a score tile
-constexpr float kNegBig = -1e30f;
+constexpr int kThreads = 256;  // the delta kernel's block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-// Stage up to kTile rows of a [*, D] f32 head slice (row stride `ss`
-// elements) into a [kTile][LD] shared tile; rows at or past `valid` are 0.
-template <int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long ss, int valid, int D) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
-    dst[r * LD + d] = r < valid ? src[r * ss + d] : 0.f;
-  }
-}
-
-// The per-row lse and delta of one query tile, 0 past the sequence.
-__device__ __forceinline__ void load_rows(float* lse_t, float* delta_t,
-                                          const float* lse,
-                                          const float* delta,
-                                          long long row0, int valid) {
-  if (threadIdx.x < kTile) {
-    const bool in = (int)threadIdx.x < valid;
-    lse_t[threadIdx.x] = in ? lse[row0 + threadIdx.x] : 0.f;
-    delta_t[threadIdx.x] = in ? delta[row0 + threadIdx.x] : 0.f;
-  }
-}
-
-// p and ds of one thread's 4 x 4 part of a 64 x 64 score tile: query rows
-// ty + 16 i of the tile at q0, key columns tx + 16 c of the tile at k0.
-// Both tiles are staged; s and dp are their f32 dot products over D.
-template <int LD>
-__device__ __forceinline__ void scores(
-    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
-    const float* lse_t, const float* delta_t, int q0, int k0, int S, int D,
-    float scale, int causal, int tx, int ty, float (&p)[4][4],
-    float (&ds)[4][4]) {
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      s[i][c] = 0.f;
-      dp[i][c] = 0.f;
-    }
-  for (int d = 0; d < D; ++d) {
-    float qr[4], dor[4], kr[4], vr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qr[i] = Qs[(ty + 16 * i) * LD + d];
-      dor[i] = dOs[(ty + 16 * i) * LD + d];
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      kr[c] = Ks[(tx + 16 * c) * LD + d];
-      vr[c] = Vs[(tx + 16 * c) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[i][c] = fmaf(qr[i], kr[c], s[i][c]);
-        dp[i][c] = fmaf(dor[i], vr[c], dp[i][c]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int qpos = q0 + r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int kpos = k0 + tx + 16 * c;
-      float sv = s[i][c] * scale;
-      if (causal && kpos > qpos) sv = kNegBig;
-      const float pv =
-          (qpos < S && kpos < S) ? expf(sv - lse_t[r]) : 0.f;
-      p[i][c] = pv;
-      ds[i][c] = pv * (dp[i][c] - delta_t[r]) * scale;
-    }
-  }
-}
 
 // ------------------------------------------------------------------ delta
 
@@ -245,7 +162,7 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // - lse log2(e)), the base-2 form of exp(s scale - lse).
 // Shared memory at DMAX = 128 with 16-query tiles: 114,944 bytes, two
 // blocks an SM (32-query tiles there would leave one, and ptxas spills);
-// 32-query tiles below (kBQ). Registers: dK and dV take 128 of the 242 at
+// 32-query tiles below (kBQ). Registers: dK and dV take 128 of the 248 at
 // DMAX = 128.
 
 constexpr int kF32BK = 64;  // keys per block: 4 warps of 16
@@ -293,6 +210,58 @@ __device__ __forceinline__ void stage_swizzled(float* dst,
       cp_async<1>(dst + r * DMAX + 4 * ((c >> 2) ^ swz(r)) + (c & 3),
                   valid ? src + row * ss + c : src, valid);
     }
+  }
+}
+
+// Split a staged tile of kFloats f32 values into TF32 hi and lo arrays at
+// the same offsets, so they keep its swizzled layout: one float4 a thread at
+// a time.
+template <int kFloats>
+__device__ __forceinline__ void split_tile(const float* src, uint32_t* hi,
+                                           uint32_t* lo) {
+  for (int j = threadIdx.x; j < kFloats / 4; j += kF32Threads) {
+    const float4 x = *reinterpret_cast<const float4*>(src + 4 * j);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    uint32_t h[4], l[4];
+    split_tf32(xs, h, l);
+    *reinterpret_cast<uint4*>(hi + 4 * j) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + 4 * j) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// Store a warp's 16 x DMAX accumulator, rows row0 + g and row0 + g + 8, to
+// `out` (row stride ss, columns below D); rows at or past S are not stored.
+// acc[n][e]: output tile n = 4 mm + x holds column 32 mm + 4 c + x at
+// fragment column c, so e = 0, 1 are row g at columns 32 mm + 8 t + x and
+// + 4 + x, e = 2, 3 the same of row g + 8.
+template <int DMAX>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&acc)[DMAX / 8][4],
+                                           int row0, int S, int D,
+                                           long long ss) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int mm = 0; mm < DMAX / 32; ++mm)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int d = 32 * mm + 8 * t + 4 * hf;  // columns d .. d + 3
+        if (d >= D) continue;
+        const int e = 2 * i + hf;
+        float* o = out + row * ss + d;
+        if (D % 4 == 0) {
+          *reinterpret_cast<float4*>(o) =
+              make_float4(acc[4 * mm][e], acc[4 * mm + 1][e],
+                          acc[4 * mm + 2][e], acc[4 * mm + 3][e]);
+        } else {
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            if (d + x < D) o[x] = acc[4 * mm + x][e];
+        }
+      }
   }
 }
 
@@ -361,9 +330,7 @@ flash_bwd_dkv_3xtf32_kernel(
   stage_queries(first * kBQ);
   cp_async_commit();
 
-  // acc_k, acc_v [n][e]: output tile n = 4 mm + x holds column
-  // 32 mm + 4 c + x at fragment column c, so e = 0, 1 are key g at columns
-  // 32 mm + 8 t + x and + 4 + x, e = 2, 3 the same of key g + 8
+  // acc_k, acc_v: keys kw0 + g (+ 8) in store_rows' layout
   float acc_k[DMAX / 8][4], acc_v[DMAX / 8][4];
 #pragma unroll
   for (int n = 0; n < DMAX / 8; ++n)
@@ -380,19 +347,8 @@ flash_bwd_dkv_3xtf32_kernel(
     cp_async_wait<0>();
     __syncthreads();  // tile qt landed; the split tile qt - 1 is consumed
     // split Q and dO once for the block, in the landing stage's layout
-    for (int j = threadIdx.x; j < 2 * T::kQ / 4; j += kF32Threads) {
-      const bool is_q = j < T::kQ / 4;
-      const int off = 4 * (is_q ? j : j - T::kQ / 4);
-      const float4 x =
-          *reinterpret_cast<const float4*>((is_q ? Qs : dOs) + off);
-      const float xs[4] = {x.x, x.y, x.z, x.w};
-      uint32_t hi[4], lo[4];
-      split_tf32(xs, hi, lo);
-      *reinterpret_cast<uint4*>((is_q ? Qh : dOh) + off) =
-          make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>((is_q ? Ql : dOl) + off) =
-          make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    }
+    split_tile<T::kQ>(Qs, Qh, Ql);
+    split_tile<T::kQ>(dOs, dOh, dOl);
     if (threadIdx.x < 2 * kBQ) lse_t[threadIdx.x] = rows[threadIdx.x];
     __syncthreads();  // the split tile is ready; the landing stage is free
     if (qt + 1 < nq) stage_queries((qt + 1) * kBQ);
@@ -512,138 +468,246 @@ flash_bwd_dkv_3xtf32_kernel(
 
   // dK and dV; keys past S are never stored
   const long long ss = (long long)H * D;  // outputs: contiguous [B, S, H, D]
-  float* dkb = dk + (long long)b * S * ss + (long long)h * D;
-  float* dvb = dv + (long long)b * S * ss + (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = kw0 + g + 8 * i;
-    if (key >= S) continue;
-#pragma unroll
-    for (int mm = 0; mm < DMAX / 32; ++mm)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int d = 32 * mm + 8 * t + 4 * hf;  // columns d .. d + 3
-        if (d >= D) continue;
-        const int e = 2 * i + hf;
-#pragma unroll
-        for (int pass = 0; pass < 2; ++pass) {
-          float* out = (pass == 0 ? dkb : dvb) + key * ss + d;
-          float o4[4];
-#pragma unroll
-          for (int x = 0; x < 4; ++x)
-            o4[x] = pass == 0 ? acc_k[4 * mm + x][e] : acc_v[4 * mm + x][e];
-          if (D % 4 == 0) {
-            *reinterpret_cast<float4*>(out) =
-                make_float4(o4[0], o4[1], o4[2], o4[3]);
-          } else {
-#pragma unroll
-            for (int x = 0; x < 4; ++x)
-              if (d + x < D) out[x] = o4[x];
-          }
-        }
-      }
-  }
+  const long long out0 = (long long)b * S * ss + (long long)h * D;
+  store_rows<DMAX>(dk + out0, acc_k, kw0, S, D, ss);
+  store_rows<DMAX>(dv + out0, acc_v, kw0, S, D, ss);
 }
 
-// -------------------------------------------------------------- f32: dq
+// ---------------------------------------------------- f32 dQ, 3xTF32 mma.sync
+//
+// The dK/dV body mirrored for queries. One block of 4 warps per
+// (batch*head, 64-query tile); warp w owns queries qw0 = q0 + 16 w ..
+// qw0 + 15, the M rows of the three products it issues per key tile:
+//   S = Q.K^T and dP = dO.V^T   (M = queries, N = keys, k = D),
+//   dQ += dS.K                  (M = queries, k = keys, N = D),
+// each on the tensor cores as 3xTF32 through mma.sync m16n8k8
+// (warp_mma.cuh). Q and dO are staged once by cp.async and stay in shared
+// memory as f32 for the whole loop; each warp splits its rows at each
+// fragment load, as the forward does with Q (their hi and lo arrays take
+// 128 KB at DMAX = 128, leave one block an SM and ran 1.7x slower:
+// PERF.md). K and V arrive a
+// kBK-key tile at a time in one landing stage; after a barrier the block
+// splits them into TF32 hi and lo arrays once, so the four warps, and for K
+// both products, load each value's halves; a second barrier hands the split
+// tile to the warps and frees the landing stage, and the next tile's copy
+// runs while the warps multiply.
+// Layouts (g = lane / 4, t = lane % 4), the dK/dV body's with the roles of
+// queries and keys swapped:
+//   - S, dP: a float4 at columns 16 kp + 4 t of a row feeds two k-steps, in
+//     Q's and dO's A fragments (rows g, g + 8) and K's and V's B fragments
+//     (row 8 n + g) alike, as in the forward's Q.K^T;
+//   - their C fragments are the A fragments of dQ += dS.K as they stand:
+//     keys 2t and 2t + 1 of an 8-key slice are k = t and t + 4, so the B
+//     fragment takes rows 2t and 2t + 1 of K, a float4 each (chunk
+//     8 mm + g) for four output tiles. P and dS never leave registers.
+// K is read in both layouts; the XOR swizzle of 16-byte chunks (swz) keeps
+// both loads, and the A loads of Q and dO, free of bank conflicts.
+// D is zero-filled to its bucket DMAX and the loops run over DMAX. The
+// heaviest causal query tiles launch first; key tiles past the block's last
+// query are never loaded (the forward's bound); a warp skips tiles whose
+// first key lies past its last query; masks run only on tiles that cross
+// the diagonal or the ragged end of the keys. Rows past S arrive with
+// q = dO = lse = delta = 0 (finite p, ds = 0) and are never stored, so they
+// need no mask. p = exp2(s scale log2(e) - lse log2(e)).
+// Shared memory at DMAX = 128 with 16-key tiles: 114,688 bytes, two blocks
+// an SM (32-key tiles there leave one and ran 1.25x slower); 32-key tiles
+// below (kBK). Registers: dQ takes 64 of the 180 at DMAX = 128; a zeroed
+// accumulator a tile, added into dQ in f32, cut the error against the plain
+// version by up to 1.65x, cost 5 % and spilled at DMAX = 64 (PERF.md).
+
+constexpr int kF32BQ = 64;  // queries per dQ block: 4 warps of 16
 
 template <int DMAX>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * kTile * (DMAX + 1) + kTile * kLdp + 2 * kTile);
-}
+struct DqF32Tiles {
+  static constexpr int kBK = DMAX == 128 ? 16 : 32;  // keys a tile
+  static constexpr int kQ = kF32BQ * DMAX;   // floats of Q (or dO)
+  static constexpr int kKV = kBK * DMAX;     // floats of one K (or V) tile
+  // Q, dO; the landing stage (K, V); the split tile (hi and lo of K and V)
+  static constexpr size_t kBytes = sizeof(float) * (2 * kQ + 6 * kKV);
+};
 
 template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int H, int S, int D, long long q_sb, long long q_ss,
-                    long long k_sb, long long k_ss, long long v_sb,
-                    long long v_ss, long long do_sb, long long do_ss,
-                    float scale, int causal) {
-  constexpr int LD = DMAX + 1;
-  constexpr int kOut = DMAX / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // [kTile][LD]
-  float* dOs = Qs + kTile * LD;
-  float* Ks = dOs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* dSs = Vs + kTile * LD;      // [query][key], kLdp
-  float* lse_t = dSs + kTile * kLdp;
-  float* delta_t = lse_t + kTile;
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_dq_3xtf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int H, int S, int D, long long q_sb,
+    long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+    long long v_ss, long long do_sb, long long do_ss, float scale,
+    int causal, int vec4) {
+  using T = DqF32Tiles<DMAX>;
+  constexpr int kBK = T::kBK;
+  extern __shared__ __align__(16) float dq_smem[];
+  float* Qs = dq_smem;       // [kF32BQ][DMAX]
+  float* dOs = Qs + T::kQ;   // [kF32BQ][DMAX]
+  float* Ks = dOs + T::kQ;   // landing stage: [kBK][DMAX]
+  float* Vs = Ks + T::kKV;   // [kBK][DMAX]
+  uint32_t* Kh = reinterpret_cast<uint32_t*>(Vs + T::kKV);  // split tile
+  uint32_t* Kl = Kh + T::kKV;
+  uint32_t* Vh = Kl + T::kKV;
+  uint32_t* Vl = Vh + T::kKV;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  // the causal work of a query tile grows with its index, and blocks start
+  // in the order of blockIdx.y: the heaviest tiles go first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qw0 = q0 + 16 * warp;  // this warp's queries: qw0 .. qw0 + 15
+  const int sw = swz(g);           // of query rows 16 warp + g (+ 8), and of
+                                   // key rows 8 n + g
 
   const float* qb = q + b * q_sb + (long long)h * D;
   const float* kb = k + b * k_sb + (long long)h * D;
   const float* vb = v + b * v_sb + (long long)h * D;
   const float* db = dout + b * do_sb + (long long)h * D;
 
-  load_tile<LD>(Qs, qb + q0 * q_ss, q_ss, S - q0, D);
-  load_tile<LD>(dOs, db + q0 * do_ss, do_ss, S - q0, D);
-  load_rows(lse_t, delta_t, lse, delta, (long long)bh * S + q0, S - q0);
+  int nk = (S + kBK - 1) / kBK;
+  if (causal) {
+    // the forward's bound: key tiles past this tile's last query add nothing
+    const int needed = (q0 + kF32BQ + kBK - 1) / kBK;
+    nk = nk < needed ? nk : needed;
+  }
+  stage_swizzled<kF32BQ, DMAX>(Qs, qb, q_ss, q0, S, D, vec4);
+  stage_swizzled<kF32BQ, DMAX>(dOs, db, do_ss, q0, S, D, vec4);
+  stage_swizzled<kBK, DMAX>(Ks, kb, k_ss, 0, S, D, vec4);
+  stage_swizzled<kBK, DMAX>(Vs, vb, v_ss, 0, S, D, vec4);
+  cp_async_commit();
 
-  float acc[4][kOut];  // query rows ty + 16 i, columns tx + 16 c
+  // lse (times log2(e)) and delta of rows qw0 + g and qw0 + g + 8; 0 past S
+  float lse_l2[2], dlt[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kOut; ++c) acc[i][c] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw0 + g + 8 * i;
+    const bool in = row < S;
+    lse_l2[i] = in ? __ldg(lse + (long long)bh * S + row) * kLog2e : 0.f;
+    dlt[i] = in ? __ldg(delta + (long long)bh * S + row) : 0.f;
+  }
 
-  int nk = (S + kTile - 1) / kTile;
-  // the forward's bound: key tiles past this tile's last query add nothing
-  if (causal) nk = nk < (int)blockIdx.y + 1 ? nk : (int)blockIdx.y + 1;
+  float acc[DMAX / 8][4];  // in store_rows' layout
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float scale_l2 = scale * kLog2e;
+  const float* q_lo = Qs + (16 * warp + g) * DMAX;  // query rows g and g + 8
+  const float* do_lo = dOs + (16 * warp + g) * DMAX;
+
   for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();  // the last tile's K and dS are consumed
-    load_tile<LD>(Ks, kb + k0 * k_ss, k_ss, S - k0, D);
-    load_tile<LD>(Vs, vb + k0 * v_ss, v_ss, S - k0, D);
-    __syncthreads();
+    cp_async_wait<0>();
+    __syncthreads();  // tile j landed; the split tile j - 1 is consumed
+    split_tile<T::kKV>(Ks, Kh, Kl);
+    split_tile<T::kKV>(Vs, Vh, Vl);
+    __syncthreads();  // the split tile is ready; the landing stage is free
+    if (j + 1 < nk) {
+      stage_swizzled<kBK, DMAX>(Ks, kb, k_ss, (j + 1) * kBK, S, D, vec4);
+      stage_swizzled<kBK, DMAX>(Vs, vb, v_ss, (j + 1) * kBK, S, D, vec4);
+    }
+    cp_async_commit();
+    const int k0 = j * kBK;
+    // a warp whose queries all lie past S, or (causal) before the tile's
+    // first key, would add nothing to a stored row: it skips the tile
+    if (qw0 >= S || (causal && k0 > qw0 + 15)) continue;
 
-    float p[4][4], ds[4][4];
-    scores<LD>(Qs, dOs, Ks, Vs, lse_t, delta_t, q0, k0, S, D, scale, causal,
-               tx, ty, p, ds);
+    // s = Q.K^T and dp = dO.V^T on this warp's 16 queries: s[n][e] is query
+    // qw0 + g + 8 (e >> 1), key k0 + 8 n + 2 t + (e & 1)
+    float s[kBK / 8][4], dp[kBK / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < kBK / 8; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        dSs[(ty + 16 * i) * kLdp + tx + 16 * c] = ds[i][c];
-    __syncthreads();
-
-    // dQ[q][d] += sum_key dS[q][key] K[key][d]
-    for (int r = 0; r < kTile; ++r) {
-      float dsr[4];
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = 0.f;
+        dp[n][e] = 0.f;
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsr[i] = dSs[(ty + 16 * i) * kLdp + r];
+    for (int pass = 0; pass < 2; ++pass) {
+      const float* a_lo = pass == 0 ? q_lo : do_lo;
+      const uint32_t* b_hi = pass == 0 ? Kh : Vh;
+      const uint32_t* b_lo = pass == 0 ? Kl : Vl;
 #pragma unroll
-      for (int c = 0; c < kOut; ++c) {
-        const int d = tx + 16 * c;
-        if (d < D) {
-          const float kv = Ks[r * LD + d];
+      for (int kp = 0; kp < DMAX / 16; ++kp) {
+        const int c = 4 * ((4 * kp + t) ^ sw);
+        const float4 x = *reinterpret_cast<const float4*>(a_lo + c);
+        const float4 y = *reinterpret_cast<const float4*>(a_lo + 8 * DMAX + c);
+        const float a0[4] = {x.x, y.x, x.y, y.y};
+        const float a1[4] = {x.z, y.z, x.w, y.w};
+        uint32_t a0h[4], a0l[4], a1h[4], a1l[4];
+        split_tf32(a0, a0h, a0l);
+        split_tf32(a1, a1h, a1l);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(dsr[i], kv, acc[i][c]);
+        for (int n = 0; n < kBK / 8; ++n) {
+          const uint4 zh =
+              *reinterpret_cast<const uint4*>(b_hi + (8 * n + g) * DMAX + c);
+          const uint4 zl =
+              *reinterpret_cast<const uint4*>(b_lo + (8 * n + g) * DMAX + c);
+          const uint32_t b0h[2] = {zh.x, zh.y}, b1h[2] = {zh.z, zh.w};
+          const uint32_t b0l[2] = {zl.x, zl.y}, b1l[2] = {zl.z, zl.w};
+          if (pass == 0) {
+            mma_3xtf32(s[n], a0h, a0l, b0h, b0l);
+            mma_3xtf32(s[n], a1h, a1l, b1h, b1l);
+          } else {
+            mma_3xtf32(dp[n], a0h, a0l, b0h, b0l);
+            mma_3xtf32(dp[n], a1h, a1l, b1h, b1l);
+          }
         }
+      }
+    }
+
+    // ds = p (dp - delta) scale with p = exp(s scale - lse), in f32; masks
+    // only where the tile crosses the diagonal or the ragged end of the keys
+    const bool masked = (causal && k0 + kBK - 1 > qw0) || k0 + kBK > S;
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[n][e], scale_l2, -lse_l2[e >> 1]));
+        if (masked) {
+          const int qpos = qw0 + g + 8 * (e >> 1);
+          const int kpos = k0 + 8 * n + 2 * t + (e & 1);
+          if ((causal && kpos > qpos) || kpos >= S) p = 0.f;
+        }
+        s[n][e] = p * (dp[n][e] - dlt[e >> 1]) * scale;
+      }
+
+    // dQ += dS.K from registers: keys 2t and 2t + 1 of slice kn are k = t
+    // and t + 4 of the A fragment, so the B fragment takes rows 8 kn + 2 t
+    // and + 1 of K; four values of each row (a 16-byte load of hi, one of
+    // lo) feed output tiles 4 mm .. 4 mm + 3
+#pragma unroll
+    for (int kn = 0; kn < kBK / 8; ++kn) {
+      const float da[4] = {s[kn][0], s[kn][2], s[kn][1], s[kn][3]};
+      uint32_t dh[4], dl[4];
+      split_tf32(da, dh, dl);
+      const int r0 = 8 * kn + 2 * t;
+      const int sw0 = swz(r0), sw1 = swz(r0 + 1);
+      const uint32_t* h_row = Kh + r0 * DMAX;
+      const uint32_t* l_row = Kl + r0 * DMAX;
+#pragma unroll
+      for (int mm = 0; mm < DMAX / 32; ++mm) {
+        const int c0 = 4 * ((8 * mm + g) ^ sw0);
+        const int c1 = 4 * ((8 * mm + g) ^ sw1);
+        const uint4 h0 = *reinterpret_cast<const uint4*>(h_row + c0);
+        const uint4 h1 = *reinterpret_cast<const uint4*>(h_row + DMAX + c1);
+        const uint4 l0 = *reinterpret_cast<const uint4*>(l_row + c0);
+        const uint4 l1 = *reinterpret_cast<const uint4*>(l_row + DMAX + c1);
+        const uint32_t bhx[4][2] = {{h0.x, h1.x}, {h0.y, h1.y},
+                                    {h0.z, h1.z}, {h0.w, h1.w}};
+        const uint32_t blx[4][2] = {{l0.x, l1.x}, {l0.y, l1.y},
+                                    {l0.z, l1.z}, {l0.w, l1.w}};
+#pragma unroll
+        for (int xx = 0; xx < 4; ++xx)
+          mma_3xtf32(acc[4 * mm + xx], dh, dl, bhx[xx], blx[xx]);
       }
     }
   }
 
-  const long long ss = (long long)H * D;
-  float* dqb = dq + (long long)b * S * ss + (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    if (qpos >= S) continue;
-#pragma unroll
-    for (int c = 0; c < kOut; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D) dqb[qpos * ss + d] = acc[i][c];
-    }
-  }
+  // dQ; queries past S are never stored
+  const long long ss = (long long)H * D;  // output: contiguous [B, S, H, D]
+  store_rows<DMAX>(dq + (long long)b * S * ss + (long long)h * D, acc, qw0,
+                   S, D, ss);
 }
 
 // ------------------------------------------------ bf16 dK/dV, TMA + wgmma
@@ -1157,13 +1221,16 @@ struct Args {
   cudaStream_t stream;
 };
 
+// whether the f32 bodies may copy q, k, v and dO in 16-byte chunks
+int f32_vec4(const Args& a) {
+  using warp_mma::rows_vec4;
+  return a.D % 4 == 0 && rows_vec4(a.q, a.q_sb, a.q_ss) &&
+         rows_vec4(a.k, a.k_sb, a.k_ss) && rows_vec4(a.v, a.v_sb, a.v_ss) &&
+         rows_vec4(a.dout, a.do_sb, a.do_ss);
+}
+
 template <int DMAX>
 cudaError_t launch_dkv_f32(const Args& a) {
-  using warp_mma::rows_vec4;
-  const int vec4 = a.D % 4 == 0 && rows_vec4(a.q, a.q_sb, a.q_ss) &&
-                   rows_vec4(a.k, a.k_sb, a.k_ss) &&
-                   rows_vec4(a.v, a.v_sb, a.v_ss) &&
-                   rows_vec4(a.dout, a.do_sb, a.do_ss);
   auto kernel = flash_bwd_dkv_3xtf32_kernel<DMAX>;
   constexpr size_t smem = DkvF32Tiles<DMAX>::kBytes;
   static std::atomic<bool> smem_set[kMaxDevices];
@@ -1175,24 +1242,24 @@ cudaError_t launch_dkv_f32(const Args& a) {
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       a.H, a.S, a.D, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb,
-      a.do_ss, a.scale, a.causal, vec4);
+      a.do_ss, a.scale, a.causal, f32_vec4(a));
   return cudaGetLastError();
 }
 
 template <int DMAX>
 cudaError_t launch_dq_f32(const Args& a) {
-  auto kernel = flash_bwd_dq_kernel<DMAX>;
-  constexpr size_t smem = dq_smem<DMAX>();
+  auto kernel = flash_bwd_dq_3xtf32_kernel<DMAX>;
+  constexpr size_t smem = DqF32Tiles<DMAX>::kBytes;
   static std::atomic<bool> smem_set[kMaxDevices];
   cudaError_t err = set_smem_once(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
+  dim3 grid(a.B * a.H, (a.S + kF32BQ - 1) / kF32BQ);
+  kernel<<<grid, kF32Threads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.dq), a.H, a.S, a.D, a.q_sb,
       a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.scale,
-      a.causal);
+      a.causal, f32_vec4(a));
   return cudaGetLastError();
 }
 
@@ -1270,8 +1337,8 @@ cudaError_t launch_dq_bf16(const Args& a) {
   }
 }
 
-// dispatch on the input type (0 = f32: the 3xTF32 dK/dV body and the scalar
-// dQ body, 1 = bf16: TMA + wgmma kernels) and the head_dim bucket
+// dispatch on the input type (0 = f32: the 3xTF32 mma.sync bodies, 1 = bf16:
+// the TMA + wgmma bodies) and the head_dim bucket
 struct DkvLaunch {
   template <int DMAX>
   static cudaError_t f32(const Args& a) { return launch_dkv_f32<DMAX>(a); }

@@ -35,9 +35,17 @@
 // atomic each (f32), or one paired __nv_bfloat162 atomic per two columns
 // (bf16, D even, the table row 4-byte aligned). Updates may come with a row
 // stride; columns must be unit-stride in both tensors.
+// At D = 1 (f32; the GloVe biases) a warp a row would leave 31 lanes idle:
+// scatter_add_f32_d1_kernel gives each thread one update instead, and a
+// warp first sums the updates that share an index (`__match_any_sync`
+// groups them, a tree of shuffles sums each group) so that it issues one
+// RED per distinct index. The order of the adds changes as the atomics'
+// does: integer-valued sums stay exact, others stay within the any-order
+// bound.
 // What it does not do yet: rows that many updates share (the Huffman root
-// takes every pair of a word2vec step) serialise their atomics in L2; a warp
-// pre-aggregating equal indices, or a sort-and-segment pass, is later work.
+// takes every pair of a word2vec step) serialise their atomics in L2 at
+// D > 1; pre-aggregating equal indices there, or a sort-and-segment pass, is
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,6 +75,49 @@ scatter_add_f32_kernel(float* __restrict__ table,
     float* dst = table + r * table_s;
     const float* src = upd + n * upd_s;
     for (int c = lane; c < D; c += 32) atomicAdd(dst + c, __ldg(src + c));
+  }
+}
+
+// The sum of x over the lanes whose `peers` mask (from __match_any_sync)
+// holds this lane, in the group's lowest lane (other lanes: partial sums).
+// Each round, every lane adds the value of the next peer still in play,
+// and the peers at odd positions drop out: log2 of the largest group
+// rounds, all in uniform control flow. Every lane of the warp calls it.
+__device__ __forceinline__ float sum_peers(unsigned peers, float x) {
+  const int lane = threadIdx.x & 31;
+  int pos = __popc(peers & ((1u << lane) - 1u));  // rank in the group
+  peers &= ~((2u << lane) - 1u);                  // peers above this lane
+  while (__any_sync(0xffffffffu, peers != 0)) {
+    const int next = __ffs(peers);  // 1 + the next peer's lane, or 0
+    const float y = __shfl_sync(0xffffffffu, x, next ? next - 1 : lane);
+    if (next) x += y;
+    peers &= ~__ballot_sync(0xffffffffu, pos & 1);
+    pos >>= 1;
+  }
+  return x;
+}
+
+// D = 1: one thread per update, equal indices summed in the warp first.
+template <typename Index>
+__global__ void __launch_bounds__(kThreads)
+scatter_add_f32_d1_kernel(float* __restrict__ table,
+                          const Index* __restrict__ idx,
+                          const float* __restrict__ upd, long long R,
+                          long long N, long long table_s, long long upd_s) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * kThreads;
+  // a warp's lanes take updates base .. base + 31 and loop together
+  for (long long base = (long long)blockIdx.x * kThreads + threadIdx.x - lane;
+       base < N; base += stride) {
+    const long long n = base + lane;
+    long long r = n < N ? (long long)__ldg(idx + n) : -1;
+    if (r >= R) r = -1;  // out of range: skipped, like r < 0
+    const float x = r >= 0 ? __ldg(upd + n * upd_s) : 0.f;
+    const unsigned peers =
+        __match_any_sync(0xffffffffu, (unsigned long long)r);
+    const float sum = sum_peers(peers, x);
+    if (r >= 0 && lane == __ffs(peers) - 1)
+      atomicAdd(table + r * table_s, sum);
   }
 }
 
@@ -103,6 +154,14 @@ int launch(void* table, const void* idx, const void* upd, long long R,
   long long blocks = (N + kWarps - 1) / kWarps;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   const Index* ix = static_cast<const Index*>(idx);
+  if (dtype == 0 && D == 1) {
+    long long d1_blocks = (N + kThreads - 1) / kThreads;
+    if (d1_blocks > kMaxBlocks) d1_blocks = kMaxBlocks;
+    scatter_add_f32_d1_kernel<Index><<<(unsigned)d1_blocks, kThreads, 0, st>>>(
+        static_cast<float*>(table), ix, static_cast<const float*>(upd), R, N,
+        table_s, upd_s);
+    return (int)cudaGetLastError();
+  }
   if (dtype == 0) {
     scatter_add_f32_kernel<Index><<<(unsigned)blocks, kThreads, 0, st>>>(
         static_cast<float*>(table), ix, static_cast<const float*>(upd), R, N,

@@ -23,20 +23,21 @@ Kernels ported so far (see ROADMAP.md queue B for the rest):
 - `flash_bwd_delta`, `flash_bwd_dkv`, `flash_bwd_dq`: the three kernels of
   the fused backward, `_flash_bwd_delta_kernel`, `_flash_bwd_dkv_kernel`
   and `_flash_bwd_dq_kernel` (`csrc/flash_attn_bwd.cu`; bf16 dK/dV and dQ
-  on TMA and `wgmma`, f32 dK/dV as 3xTF32 `mma.sync` with a `cp.async`
-  ring), wired to the forward by `FlashAttentionFunction`;
+  on TMA and `wgmma`, f32 dK/dV and dQ as 3xTF32 `mma.sync` with
+  `cp.async` staging), wired to the forward by `FlashAttentionFunction`;
 - `lstm_cell`: `_lstm_cell_kernel`, one fused LSTM cell update
   (`csrc/lstm_cell.cu`), with `LSTMCellFunction` for its gradient;
 - `scatter_add_rows`: `_scatter_add_kernel`, the embedding-row scatter-add
-  (`csrc/scatter_add.cu`), the backward of `gather_rows`.
+  (`csrc/scatter_add.cu`; at D = 1 a thread an update), the backward of
+  `gather_rows`.
 
 The bf16 flash forward, dK/dV and dQ kernels read their inputs by TMA,
 which takes a head dim of 64 or 128 on 16-byte aligned rows; `tma_heads` is
 the rule for other inputs (zero-padded contiguous copies, counted in
 `PAD_COPIES`). `csrc/hopper.cuh` holds what those kernels share;
 `csrc/warp_mma.cuh` the `cp.async` copies and the 3xTF32 split and
-`mma.sync` products of the f32 forward and dK/dV (its copies serve the
-LSTM cell too). The f32 kernels take any head dim up to 128 in place.
+`mma.sync` products of the f32 forward, dK/dV and dQ (its copies serve
+the LSTM cell too). The f32 kernels take any head dim up to 128 in place.
 """
 
 from __future__ import annotations

@@ -574,6 +574,115 @@ def test_cuda_f32_dkv_kernel_matches_plain_version_on_qkv_views(d, s,
         torch.testing.assert_close(gt, w, atol=1e-4, rtol=1e-4)
 
 
+# ----------------------------------------- 3xTF32 numerics of the f32 dQ body
+#
+# A torch model of what `flash_bwd_dq_3xtf32_kernel` computes: S = Q.K^T and
+# dP = dO.V^T with their f32 operands split into TF32 hi + lo, the key
+# tiles in the body's order (16 keys a tile at head dims above 64, else
+# 32), p in base 2, exp2(s * scale * log2(e) - lse * log2(e)), forced to 0
+# above the diagonal and on the keys past S that a ragged last tile holds,
+# and dQ += dS.K one 8-key k-step at a time straight into the f32 sum,
+# lo.hi, then hi.lo, then hi.hi (the body keeps no zeroed accumulator a
+# tile: PERF.md), keys 2t and 2t + 1 of each slice as k = t and t + 4 (the
+# order in which S's C fragment hands them to the A fragment). Held to the
+# plain version and to the JAX fused backward at 1e-4; one TF32 product a
+# term is shown to miss it on the same inputs.
+
+def _acc_tf32(acc, a, b, terms):
+    """acc + a @ b with TF32 operands, each term added into acc in the
+    order mma_3xtf32 issues it (3 terms), or one plain TF32 product."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    if terms == 1:
+        return acc + a_hi @ b_hi
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    return ((acc + a_lo @ b_hi) + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _dq_body_model(q, k, v, do, lse, delta, causal, terms=3):
+    """dq [B, S, H, D] as the f32 dQ body computes it."""
+    b, s, h, d = q.shape
+    bk = 16 if d > 64 else 32          # keys a tile, as DqF32Tiles
+    scale = _f32(1.0 / d ** 0.5)
+    scale_l2 = scale * _f32(_LOG2E)
+    pad = -s % bk                      # K and V zero-filled past S
+    qf, kf, vf, dof = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
+    kf, vf = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (kf, vf))
+    lse_l2 = lse.reshape(b, h, s, 1) * _f32(_LOG2E)
+    dlt = delta.reshape(b, h, s, 1)
+    dq = torch.zeros(b, h, s, d)
+    rows = torch.arange(s)[:, None]
+    order = torch.tensor(_PV_KEY_ORDER)
+    for k0 in range(0, s + pad, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        st = _mm_tf32(qf, kt.transpose(-1, -2), terms)     # [B, H, S, bk]
+        dpt = _mm_tf32(dof, vt.transpose(-1, -2), terms)
+        p = torch.exp2(st * scale_l2 - lse_l2)
+        keys = k0 + torch.arange(bk)[None, :]
+        dead = (keys >= s) | (keys > rows) if causal else keys >= s
+        p = p.masked_fill(dead, 0.0)
+        ds = p * (dpt - dlt) * scale
+        for kn in range(0, bk, 8):
+            dq = _acc_tf32(dq, ds[..., kn:kn + 8][..., order],
+                           kt[:, :, kn:kn + 8][:, :, order], terms)
+    return dq.permute(0, 2, 1, 3).contiguous()
+
+
+@pytest.mark.parametrize("d,s,causal", F32_MODEL_CASES)
+def test_3xtf32_dq_model_holds_plain_version_and_jax_bwd(d, s, causal):
+    arrays, args = _dkv_model_case(d, s, causal)
+    got = _dq_body_model(*args, causal)
+    want = kernels.flash_bwd_dq_reference(*args, causal)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    # the JAX fused backward in interpret mode, at blocks that divide S
+    block = 32 if s == 96 else 40
+    jax_dq, _, _ = _flash_fused_bwd_impl(
+        *(jnp.asarray(a) for a in arrays), causal, block, block, True, False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_dq), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("d,s,causal", F32_MODEL_CASES)
+def test_one_tf32_product_a_term_misses_the_f32_tolerance_in_dq(d, s,
+                                                                causal):
+    _, args = _dkv_model_case(d, s, causal)
+    got = _dq_body_model(*args, causal, terms=1)
+    want = kernels.flash_bwd_dq_reference(*args, causal)
+    assert not torch.allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+F32_DQ_CUDA_CASES = [(d, s, causal) for d in (30, 64, 100, 128)
+                     for s in (96, 200) for causal in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,s,causal", F32_DQ_CUDA_CASES)
+def test_cuda_f32_dq_kernel_matches_plain_version_on_qkv_views(d, s,
+                                                              causal):
+    # the 3xTF32 dQ body on views of one fused projection at ragged S (both
+    # end inside a 64-query block and a key tile); D = 100 is zero-filled to
+    # 128, D = 30 takes the single-float copies (its rows are not 16-byte
+    # aligned)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    rng = np.random.RandomState(35)
+    b, h = 2, 4
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(
+        np.float32)).cuda()
+    q, k, v = (t.view(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    g = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32)).cuda()
+    o, lse = kernels.flash_attention_reference(q, k, v, causal,
+                                               with_lse=True)
+    delta = kernels.flash_bwd_delta_reference(o, g)
+    before = kernels.LAUNCHES["flash_bwd_dq"]
+    got = kernels.flash_bwd_dq(q, k, v, g, lse, delta, causal)
+    want = kernels.flash_bwd_dq_reference(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd_dq"] == before + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
 # the last: S = 96 (under one 128-query block of the bf16 dQ kernel) at a
 # head dim (100) that the bf16 kernels take through the padding route
 BWD_SHAPES = [(2, 64, 2, 8), (1, 128, 2, 16), (1, 96, 2, 100)]
@@ -946,3 +1055,153 @@ def test_cuda_scatter_kernel_matches_plain_version(dtype):
         tol = 1e-4 if dt == torch.float32 else 2e-2
         torch.testing.assert_close(got.float(), want.float(), atol=tol * (
             1 + want.float().abs().max().item()), rtol=tol)
+
+
+# ------------------------------------------------- scatter-add at D = 1
+#
+# At D = 1 (the GloVe biases) the f32 kernel gives each thread one update,
+# and each warp first sums the updates that share an index: groups from
+# `__match_any_sync`, a tree of shuffles per group (`sum_peers` in
+# csrc/scatter_add.cu), one atomic add per distinct index from the group's
+# lowest lane. `_d1_body_model` replays that lane by lane in f32.
+
+def _sum_peers(keys, x):
+    """sum_peers over one warp: keys and f32 values of its 32 lanes; returns
+    each lane's value after the tree (the group's lowest lane holds the
+    group's sum)."""
+    lanes = range(32)
+    group = [sum(1 << m for m in lanes if keys[m] == keys[lane])
+             for lane in lanes]
+    pos = [bin(group[lane] & ((1 << lane) - 1)).count("1") for lane in lanes]
+    peers = [group[lane] & ~((2 << lane) - 1) & 0xFFFFFFFF for lane in lanes]
+    x = [np.float32(v) for v in x]
+    while any(peers):
+        nxt = [(p & -p).bit_length() - 1 for p in peers]   # -1: none left
+        x = [x[lane] + x[nxt[lane]] if nxt[lane] >= 0 else x[lane]
+             for lane in lanes]
+        done = sum(1 << lane for lane in lanes if pos[lane] & 1)
+        peers = [p & ~done for p in peers]
+        pos = [p >> 1 for p in pos]
+    return x
+
+
+def _d1_body_model(table, idx, upd):
+    """(table with the updates added as the D = 1 body adds them, the
+    number of atomic adds it issues): warps of 32 updates in order, indices
+    outside [0, R) skipped, one add per distinct index a warp."""
+    out = table.astype(np.float32).copy()
+    r, n = table.shape[0], idx.shape[0]
+    atomics = 0
+    for base in range(0, n, 32):
+        keys = [int(idx[i]) if i < n and 0 <= idx[i] < r else -1
+                for i in range(base, base + 32)]
+        x = [upd[i] if keys[i - base] >= 0 else 0.0
+             for i in range(base, base + 32)]
+        sums = _sum_peers(keys, x)
+        for lane, key in enumerate(keys):
+            if key >= 0 and keys.index(key) == lane:
+                out[key] = out[key] + sums[lane]
+                atomics += 1
+    return out, atomics
+
+
+def _d1_case(seed, case, integer):
+    """table [R], indices [N] and updates [N] for the D = 1 tests: zipf
+    indices (the GloVe step's centers), indices with duplicates and
+    outside the table on both sides at a ragged N, or one index."""
+    rng = np.random.RandomState(seed)
+    r, n = {"zipf": (50, 1000), "out_of_range": (9, 77),
+            "one_index": (5, 64)}[case]
+    if case == "zipf":
+        idx = np.minimum(rng.zipf(1.3, n) - 1, r - 1)
+    elif case == "out_of_range":
+        idx = rng.randint(-3, r + 3, n)
+    else:
+        idx = np.full(n, 3)
+    draw = ((lambda *shape: rng.randint(-4, 5, shape)) if integer
+            else rng.standard_normal)
+    return (draw(r).astype(np.float32), idx.astype(np.int32),
+            draw(n).astype(np.float32))
+
+
+def _any_order_bound(table, idx, upd):
+    """2 n u S per row: the error bound of the row's sum taken in any
+    order (n its adds plus one, S the sum of |table| and |updates|)."""
+    r = table.shape[0]
+    ok = (idx >= 0) & (idx < r)
+    n = np.bincount(idx[ok], minlength=r) + 1
+    s = np.abs(table).astype(np.float64)
+    np.add.at(s, idx[ok], np.abs(upd[ok]))
+    return 2 * n * 2.0 ** -24 * s
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("case", ["zipf", "out_of_range", "one_index"])
+def test_d1_warp_aggregation_model_holds_the_plain_version(case, integer):
+    table, idx, upd = _d1_case(36, case, integer)
+    got, atomics = _d1_body_model(table, idx, upd)
+    want = kernels.scatter_add_rows_reference(
+        torch.from_numpy(table), torch.from_numpy(idx),
+        torch.from_numpy(upd)).numpy()
+    if integer:
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert (np.abs(got - want) <= _any_order_bound(table, idx, upd)).all()
+    # one atomic per distinct in-range index of each warp
+    distinct = sum(len({i for i in idx[b:b + 32] if 0 <= i < len(table)})
+                   for b in range(0, len(idx), 32))
+    assert atomics == distinct
+    if case != "out_of_range":
+        assert atomics < len(idx) // 2
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("bias", [True, False])
+def test_scatter_d1_skips_out_of_range_like_the_jax_kernel_in_range(bias,
+                                                                    integer):
+    # a bias [R] (or an [R, 1] table) with duplicates and indices outside
+    # [0, R) on both sides: the port skips them, which is the JAX kernel
+    # (undefined outside the table) given only the in-range updates
+    table, idx, upd = _d1_case(37, "out_of_range", integer)
+    if not bias:
+        table, upd = table[:, None], upd[:, None]
+    keep = (idx >= 0) & (idx < table.shape[0])
+    want = _jax_scatter(table, idx[keep], upd[keep])
+    got = kernels.scatter_add_rows(torch.from_numpy(table),
+                                   torch.from_numpy(idx),
+                                   torch.from_numpy(upd))
+    assert got.shape == table.shape
+    if integer:
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("bias", [True, False])
+def test_cuda_scatter_d1_body_matches_plain_version(bias, index_dtype):
+    # the one-thread-per-update body: exact on integers, within the
+    # any-order bound on random values, out-of-range indices skipped
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    for case in ("zipf", "out_of_range", "one_index"):
+        for integer in (True, False):
+            table, idx, upd = _d1_case(38, case, integer)
+            tt, tu = torch.from_numpy(table), torch.from_numpy(upd)
+            if not bias:
+                tt, tu = tt[:, None], tu[:, None]
+            ti = torch.from_numpy(idx).to(getattr(torch, index_dtype))
+            tt, ti, tu = tt.cuda(), ti.cuda(), tu.cuda()
+            before = kernels.LAUNCHES["scatter_add_rows"]
+            got = kernels.scatter_add_rows(tt, ti, tu)
+            want = kernels.scatter_add_rows_reference(tt, ti, tu)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["scatter_add_rows"] == before + 1
+            got, want = got.cpu().numpy().reshape(-1), \
+                want.cpu().numpy().reshape(-1)
+            if integer:
+                np.testing.assert_array_equal(got, want)
+            else:
+                assert (np.abs(got - want)
+                        <= _any_order_bound(table, idx, upd)).all()
