@@ -33,6 +33,11 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    respect to the fused qkv projection whose views they read; the yardstick is
    the backward of `scaled_dot_product_attention` (its forward plus
    backward, less its forward), beside the sum of the three f32 kernels;
+   then holds the f32 forward (o, lse), delta, dK/dV and dQ to their plain
+   versions at the JAX package's own f32 shapes and tolerances ((2, 64, 2,
+   8) and (1, 128, 2, 16), causal and not; 2e-5 forward, 1e-5 backward)
+   and reports each max error (`f32_reference_shapes` lines; a miss fails
+   the run);
 5. serves the full-width charTransformer (vocab 256, d_model 2048, 8 blocks,
    16 heads, seq 512, bf16 compute, random weights from a seed) through
    `MultiLayerNetwork.serve` to 4 concurrent POST /v1/predict requests,
@@ -51,9 +56,9 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    (the f32 backward kernels, once per attention layer);
 7. holds the fused LSTM cell kernel against its plain version at the
    char-LSTM bench shape (f32; on the row-block views of one W; bf16), at
-   the CLI's ragged shape and at a tiny ragged one, timed beside its plain
-   version, `torch.lstm_cell` and its bound, and one [256, 64, 256] layer
-   (64 launches) beside cuDNN's `nn.LSTM`;
+   the CLI's ragged shape and at a tiny ragged one (each in f32 and bf16),
+   timed beside its plain version, `torch.lstm_cell` and its bound, and
+   one [256, 64, 256] layer (64 launches) beside cuDNN's `nn.LSTM`;
 8. trains the bench's 4-layer char-LSTM (bench.py:252-261: vocab 50, embed
    and hidden 256, seq 64, batch 256, bf16 output layer, SGD with momentum)
    for LSTM_STEPS one-step `fit` calls on the word corpus of bench.py:1706,
@@ -66,9 +71,10 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
 10. holds the embedding-row scatter-add kernel against its plain version at
    the word2vec step's shapes (syn1 from the bench vocabulary's Huffman
    points, syn0, syn1neg), a GloVe bias (D = 1), tiny ragged cases with
-   duplicate and out-of-range indices at D = 5 and D = 1, and bf16: exact
-   on integer-valued inputs, within
-   the any-order summation bound on random ones, timed beside its plain
+   duplicate and out-of-range indices at D = 5 and D = 1, bf16, every
+   update of syn1's shape into one row, syn1's shape with uniform indices
+   and a ragged D = 30: exact on integer-valued inputs, within the
+   any-order summation bound on random ones, timed beside its plain
    version, `index_add_` and its bound;
 11. trains the bench's Word2Vec at full size (bench.py:368-385: vocab
    10,000, 1.2M zipf tokens, vector 128, window 5, negative 5, HS, batch
@@ -433,6 +439,13 @@ def phase_bwd_kernels(torch, kernels):
             if view:
                 row["grad_fn_max_abs_err"] = grad_err
                 row["grad_fn_ok"] = grad_ok
+            if name == "flash_bwd_delta" and dt == torch.float32:
+                # one PyTorch call computes f32 delta: rowsum(dO * O) in
+                # f32 ([B, S, H] where the kernel writes [B*H, S]). In bf16
+                # vecdot returns bf16, rounded, where delta is f32: not the
+                # same function
+                row["vecdot_ms"] = graph_ms(
+                    lambda: torch.linalg.vecdot(do, o, dim=-1))
             emit(row)
             check(ok, f"{name} disagrees with its plain version: {row}")
             if view:
@@ -534,7 +547,9 @@ LSTM_CASES = [("bench", 256, 256, 256, "float32", False),
               ("bench_views", 256, 256, 256, "float32", True),
               ("cli", 2047, 27, 128, "float32", False),
               ("ragged", 3, 7, 20, "float32", False),
-              ("bench_bf16", 256, 256, 256, "bfloat16", False)]
+              ("bench_bf16", 256, 256, 256, "bfloat16", False),
+              ("cli_bf16", 2047, 27, 128, "bfloat16", False),
+              ("ragged_bf16", 3, 7, 20, "bfloat16", False)]
 
 
 def lstm_check(torch, kernels, args):
@@ -611,6 +626,65 @@ def f32_fwd_check(torch, kernels, q, k, v, causal, with_lse):
     return err_o, err_lse, ok
 
 
+#: the reference's own f32 attention shapes and tolerances (atol = rtol):
+#: the JAX package holds its fused f32 gradients to full attention at 1e-5
+#: at (2, 64, 2, 8) and (1, 128, 2, 16) (tests/test_mfu_paths.py:276-279,
+#: 303) and its f32 forward at 2e-5 (tests/test_pallas_kernels.py:25)
+F32_REFERENCE_SHAPES = [(2, 64, 2, 8), (1, 128, 2, 16)]
+F32_REFERENCE_TOL = {"o": 2e-5, "lse": 2e-5, "delta": 1e-5, "dk": 1e-5,
+                     "dv": 1e-5, "dq": 1e-5}
+
+
+def f32_reference_check(torch, kernels):
+    """The f32 forward (o, lse), delta, dK/dV and dQ kernels against their
+    plain versions at the reference's shapes, causal and not, each at the
+    reference's tolerance (F32_REFERENCE_TOL); one `f32_reference_shapes`
+    line a case with every output's max |got - want| and whether it meets
+    its tolerance. Returns the rows."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for b, s, h, d in F32_REFERENCE_SHAPES:
+        for causal in (False, True):
+            q, k, v, do = (torch.randn(b, s, h, d, generator=gen,
+                                       device="cuda") for _ in range(4))
+            o, lse = kernels.flash_attention(q, k, v, causal, with_lse=True)
+            pairs = dict(zip(("o", "lse"), zip(
+                (o, lse), kernels.flash_attention_reference(
+                    q, k, v, causal, with_lse=True))))
+            delta = kernels.flash_bwd_delta_reference(o, do)
+            pairs["delta"] = (kernels.flash_bwd_delta(o, do), delta)
+            args = (q, k, v, do, lse, delta, causal)
+            pairs.update(zip(("dk", "dv"), zip(
+                kernels.flash_bwd_dkv(*args),
+                kernels.flash_bwd_dkv_reference(*args))))
+            pairs["dq"] = (kernels.flash_bwd_dq(*args),
+                           kernels.flash_bwd_dq_reference(*args))
+            torch.cuda.synchronize()
+            row = {"phase": "f32_reference_shapes", "shape": [b, s, h, d],
+                   "causal": causal}
+            for name, (got, want) in pairs.items():
+                tol = F32_REFERENCE_TOL[name]
+                row[name] = {
+                    "max_abs_err": (got - want).abs().max().item(),
+                    "tol": tol,
+                    "ok": bool(torch.allclose(got, want, atol=tol,
+                                              rtol=tol))}
+            row["ok"] = all(row[name]["ok"] for name in pairs)
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def phase_f32_reference(torch, kernels):
+    """`f32_reference_check`, held: the run fails if an output misses the
+    reference's tolerance."""
+    rows = f32_reference_check(torch, kernels)
+    for row in rows:
+        check(row["ok"], f"an f32 attention kernel misses the reference's "
+                         f"tolerance at its shape: {row}")
+    return rows
+
+
 def phase_quick(torch, kernels):
     """The first check of new kernel bodies: the bf16 forward (o, lse) and
     the three backward kernels against their plain versions once each, at
@@ -618,8 +692,10 @@ def phase_quick(torch, kernels):
     causal, at ragged S (200, and 96: less than one block) and at a head
     dim that takes the padding route; the f32 forward in F32_QUICK_CASES
     and the f32 backward kernels in F32_BWD_QUICK_CASES; then the LSTM cell
-    in its five cases and the scatter-add's D = 1 body in `d1_ragged_cases`;
-    no timing. Returns whether every case passed."""
+    in its seven cases, the f32 attention kernels at the reference's shapes
+    and tolerances (`f32_reference_check`), the scatter-add's D = 1 body in
+    `d1_ragged_cases` and its f32 D > 1 body in `sorted_body_cases`; no
+    timing. Returns whether every case passed."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [(8, 512, 16, 128, True, True), (32, 512, 16, 128, True, True),
              (8, 512, 16, 128, False, False), (8, 200, 16, 64, True, False),
@@ -685,7 +761,16 @@ def phase_quick(torch, kernels):
               "exact_on_integers": exact, "max_abs_err": err,
               "within_sum_bound": close, "ok": exact and close})
         all_ok = all_ok and exact and close
-    return all_ok
+    for name, r, width, idx in sorted_body_cases(torch):
+        exact, err, close, _ = scatter_check(torch, kernels, gen, r, width,
+                                             idx, torch.float32)
+        emit({"phase": "quick", "name": "scatter_add_rows", "case": name,
+              "width": width, "n": int(idx.shape[0]),
+              "exact_on_integers": exact, "max_abs_err": err,
+              "within_sum_bound": close, "ok": exact and close})
+        all_ok = all_ok and exact and close
+    return all_ok and all(r["ok"] for r in f32_reference_check(torch,
+                                                               kernels))
 
 
 def phase_kernels(torch, kernels):
@@ -1190,11 +1275,12 @@ def lstm_layer_ms(torch, kernels):
 
 
 def phase_lstm_kernel(torch, kernels):
-    """The fused cell against its plain version on the card in five cases
-    (f32 at the bench shape, on W's row-block views, at the CLI's ragged
-    shape, at a tiny ragged shape; bf16 at the bench shape), timed with the
-    plain version and `torch.lstm_cell`; then the layer-level note. Returns
-    the bench case's row."""
+    """The fused cell against its plain version on the card in the seven
+    cases of LSTM_CASES (f32 at the bench shape, on W's row-block views, at
+    the CLI's ragged shape, at a tiny ragged shape; bf16 at the bench
+    shape, the CLI's and the tiny ragged one), timed with the plain version
+    and `torch.lstm_cell`; then the layer-level note. Returns {case: row}
+    and the layer's numbers."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     ptxas = [line.strip() for line in
              kernels.BUILD_LOGS.get("lstm_cell", "").splitlines()
@@ -1232,7 +1318,7 @@ def phase_lstm_kernel(torch, kernels):
     check(layer["fused_vs_scan_max_abs_err"] < 1e-4,
           f"the fused and scan layers differ: {layer}")
     torch.cuda.empty_cache()
-    return rows["bench"], layer
+    return rows, layer
 
 
 def lstm_conf(impl: str = "auto", compute_dtype: str = "bfloat16"):
@@ -1560,6 +1646,16 @@ def d1_ragged_cases(torch):
             ("ragged_d1_2d", 7, 1, idx.to(torch.int32), torch.float32)]
 
 
+def draw_table(torch, gen, shape, integer, dt=None):
+    """A table or updates on the card (float32, or `dt`): integers in
+    [-4, 4] (any order of adds is exact) or standard normal values."""
+    if integer:
+        out = torch.randint(-4, 5, shape, generator=gen, device="cuda")
+    else:
+        out = torch.randn(shape, generator=gen, device="cuda")
+    return out.to(dt or torch.float32)
+
+
 def scatter_check(torch, kernels, gen, r, width, idx, dt):
     """The scatter kernel against its plain version on a table [r, width]
     ([r] when width is 0) and updates at idx: integer-valued inputs (any
@@ -1570,17 +1666,11 @@ def scatter_check(torch, kernels, gen, r, width, idx, dt):
     times, so that the timed tables land where they always have)."""
     shape = (r, width) if width else (r,)
     ushape = (idx.shape[0], width) if width else (idx.shape[0],)
-
-    def draw(shape, integer):
-        if integer:
-            return torch.randint(-4, 5, shape, generator=gen,
-                                 device="cuda").to(dt)
-        return torch.randn(shape, generator=gen, device="cuda").to(dt)
-
-    ti, ui = draw(shape, True), draw(ushape, True)
+    ti, ui = (draw_table(torch, gen, sh, True, dt) for sh in (shape, ushape))
     exact = torch.equal(kernels.scatter_add_rows(ti, idx, ui),
                         kernels.scatter_add_rows_reference(ti, idx, ui))
-    table, upd = draw(shape, False), draw(ushape, False)
+    table, upd = (draw_table(torch, gen, sh, False, dt)
+                  for sh in (shape, ushape))
     got = kernels.scatter_add_rows(table, idx, upd)
     want = kernels.scatter_add_rows_reference(table, idx, upd)
     torch.cuda.synchronize()
@@ -1594,8 +1684,10 @@ def phase_scatter_kernel(torch, kernels, centers, contexts, neg, points):
     of its pairs): syn1 (the pairs' Huffman points, 622,592 rows into 9,999,
     the root on every path), syn0 (32,768 centers), syn1neg (contexts and
     negatives, 196,608 rows); a GloVe bias (D = 1), a tiny ragged case with
-    duplicates and out-of-range indices, bf16, and the ragged D = 1 cases
-    of `d1_ragged_cases`. Each twice: integer-valued
+    duplicates and out-of-range indices, bf16, the ragged D = 1 cases
+    of `d1_ragged_cases`, every update of syn1's shape into one row
+    ("hot_row"), syn1's shape with uniform indices, and a ragged D = 30
+    with indices outside the table. Each twice: integer-valued
     inputs, where any order of adds is exact, must give equal tables; random
     inputs are held to `scatter_close` and timed (graph replay) beside the
     plain version, `index_add_` and the bound. Returns {case: row}."""
@@ -1615,6 +1707,20 @@ def phase_scatter_kernel(torch, kernels, centers, contexts, neg, points):
          torch.randint(0, vocab_n, (W2V["batch"],), generator=gen,
                        device="cuda", dtype=torch.int32), torch.bfloat16)]
     cases += d1_ragged_cases(torch)
+    syn1_n = cases[0][3].shape[0]
+    cases += [
+        # every update of syn1's shape into one row: the hottest index
+        ("hot_row", vocab_n - 1, d,
+         torch.zeros(syn1_n, dtype=torch.int64, device="cuda"),
+         torch.float32),
+        # syn1's shape with indices drawn uniformly: few duplicates
+        ("uniform", vocab_n - 1, d,
+         torch.randint(0, vocab_n - 1, (syn1_n,), generator=gen,
+                       device="cuda"), torch.float32),
+        # a D that takes single-float columns, indices outside the table
+        ("ragged_d", 1000, 30,
+         torch.randint(-2, 1002, (50_000,), generator=gen, device="cuda"),
+         torch.float32)]
     ptxas = [line.strip() for line in
              kernels.BUILD_LOGS.get("scatter_add", "").splitlines()
              if "registers" in line or "spill" in line]
@@ -1640,7 +1746,8 @@ def phase_scatter_kernel(torch, kernels, centers, contexts, neg, points):
                "call_ms": cuda_ms(lambda: kernels.scatter_add_rows_(
                    scratch, idx, upd)),
                "plain_ms": graph_ms(lambda: kernels.scatter_add_rows_reference(
-                   table, idx, upd), iters=5, replays=1),
+                   table, idx, upd), iters=5 if touched > 1 else 1,
+                   replays=1),
                # index_add_ asserts on the device at an out-of-range index
                "library_ms": (graph_ms(lambda: scratch.index_add_(0, idx, upd))
                               if in_range else None),
@@ -1652,6 +1759,36 @@ def phase_scatter_kernel(torch, kernels, centers, contexts, neg, points):
         del ti, ui, table, upd, got, want, scratch
     torch.cuda.empty_cache()
     return rows
+
+
+def sorted_body_cases(torch):
+    """Scatter cases for the f32 D > 1 body's first check: (name, R, D,
+    indices) with zipf indices (the head takes most updates, as in the
+    word2vec tables) at 32,768, 196,608 and 622,592 updates (on an H100 the
+    launch rule gives them chunks of 256, 512 and 1,024), every update in
+    one row, uniform indices, D = 30 (single-float columns) with indices
+    outside the table on both sides, D = 100 with int64 indices, and 13
+    updates (less than one chunk)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n = 100_000
+    cases = []
+    for zn in (32_768, 196_608, 622_592):
+        zipf = np.minimum(np.random.RandomState(7).zipf(1.2, zn) - 1, 9998)
+        cases.append((f"zipf_{zn}", 9999, 128,
+                      torch.as_tensor(zipf.astype(np.int32), device="cuda")))
+    return cases + [
+        ("hot_row", 9999, 128,
+         torch.full((n,), 3, dtype=torch.int32, device="cuda")),
+        ("uniform", 9999, 128,
+         torch.randint(0, 9999, (n,), generator=gen, device="cuda",
+                       dtype=torch.int32)),
+        ("ragged_d", 1000, 30,
+         torch.randint(-2, 1002, (n // 2,), generator=gen, device="cuda")),
+        ("d100_int64", 500, 100,
+         torch.randint(0, 500, (n // 4,), generator=gen, device="cuda")),
+        ("tiny", 7, 6,
+         torch.tensor([3, 0, 3, -1, 7, 6, 3, 99, 0, 2, 3, 6, 1],
+                      device="cuda"))]
 
 
 def count_calls(module, name, events=None):
@@ -1907,13 +2044,22 @@ def f32_entry(case_rows, name):
     """The f32 body's numbers for the kernels line, causal and not, at
     [8, 512, 16, 128]: from phase_kernels' rows (name None) or from
     phase_bwd_kernels' rows of kernel `name`. Its library yardstick is SDPA
-    in f32 (forward; for dK/dV and dQ its whole backward; delta has
-    none)."""
+    in f32 (forward; for dK/dV and dQ its whole backward), for delta
+    `torch.linalg.vecdot(dO, O, dim=-1)`."""
     library_key = ("library_ms" if name is None else
-                   None if name == "flash_bwd_delta" else "sdpa_backward_ms")
+                   "vecdot_ms" if name == "flash_bwd_delta"
+                   else "sdpa_backward_ms")
     return {key[4:]: f32_case(case_rows[key] if name is None
                               else case_rows[key][name], library_key)
             for key in ("f32_causal", "f32_not_causal")}
+
+
+def reference_errors(rows, outputs):
+    """The max errors of `outputs` in each `f32_reference_check` row, and
+    whether all of them meet the reference's tolerance."""
+    return [{"shape": r["shape"], "causal": r["causal"],
+             **{name: r[name]["max_abs_err"] for name in outputs},
+             "ok": all(r[name]["ok"] for name in outputs)} for r in rows]
 
 
 def main(argv) -> int:
@@ -1957,13 +2103,15 @@ def main(argv) -> int:
     fwd_rows = phase_kernels(torch, kernels)
     fwd_row, fwd_train_row = fwd_rows["serve"], fwd_rows["train"]
     bwd_rows = phase_bwd_kernels(torch, kernels)
+    reference_rows = phase_f32_reference(torch, kernels)
     serve_launches = phase_serve(torch, kernels)
     train_launches, f32_train_launches = phase_train(torch, kernels)
     check(serve_launches["flash_attn_fwd"] > 0, "the flash kernel never ran")
     for name in ("flash_attn_fwd",) + BWD_KERNELS:
         check(train_launches[name] > 0, f"{name} never ran in training")
     torch.cuda.empty_cache()
-    lstm_row, lstm_layer = phase_lstm_kernel(torch, kernels)
+    lstm_rows, lstm_layer = phase_lstm_kernel(torch, kernels)
+    lstm_row = lstm_rows["bench"]
     lstm_train_launches = phase_lstm_train(torch, kernels)
     lstm_cli_launches = phase_lstm_cli(torch, kernels)
     check(lstm_train_launches > 0 and lstm_cli_launches > 0,
@@ -1972,8 +2120,8 @@ def main(argv) -> int:
     sents = bench_sentences()
     fixed = w2v_fixed_batch(torch, sents)
     _, centers, contexts, neg, vocab = fixed
-    scatter_rows = phase_scatter_kernel(torch, kernels, centers, contexts,
-                                        neg, vocab[1])
+    scatter_rows = phase_scatter_kernel(
+        torch, kernels, centers, contexts, neg, vocab[1])
     w2v_launches, w2v_row = phase_w2v_train(torch, kernels, sents, fixed)
     del fixed, centers, contexts, neg, vocab
     quality_launches = phase_embed_quality(torch, kernels)
@@ -2014,7 +2162,8 @@ def main(argv) -> int:
             # causal with lse on qkv views, and the CLI char_transformer's
             # forward (D = 32, no lse)
             causal_view=f32_case(fwd_rows["f32_causal_view"], "library_ms"),
-            cli=f32_case(fwd_rows["f32_cli"], "library_ms"))}]
+            cli=f32_case(fwd_rows["f32_cli"], "library_ms"),
+            reference_shapes=reference_errors(reference_rows, ("o", "lse")))}]
     for name in BWD_KERNELS:
         r = bwd_rows[name]
         rows.append({
@@ -2026,7 +2175,8 @@ def main(argv) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
-            # delta has no one-call counterpart; SDPA's backward computes
+            # bf16 delta has no one-call counterpart (vecdot's bf16 result
+            # is rounded to bf16; delta is f32); SDPA's backward computes
             # what delta, dK/dV and dQ compute together
             "library_ms": (None if name == "flash_bwd_delta"
                            else r["sdpa_backward_ms"]),
@@ -2036,6 +2186,10 @@ def main(argv) -> int:
         rows[-1]["f32"] = f32_entry(bwd_rows, name)
         # launched by the train phase's f32 fused gradient check
         rows[-1]["f32"]["launches"] = f32_train_launches[name]
+        rows[-1]["f32"]["reference_shapes"] = reference_errors(
+            reference_rows, {"flash_bwd_delta": ("delta",),
+                             "flash_bwd_dkv": ("dk", "dv"),
+                             "flash_bwd_dq": ("dq",)}[name])
         if name in f32_bodies:
             rows[-1]["f32"].update(
                 design="3xtf32 mma.sync + cp.async",
@@ -2065,6 +2219,11 @@ def main(argv) -> int:
         "bound_by": lstm_row["bound_by"],
         # torch.lstm_cell: the same cell, in PyTorch's gate order
         "library_ms": lstm_row["library_ms"],
+        # the bf16 body at the bench shape, the CLI's and a tiny ragged one
+        "bf16": {name: {k: lstm_rows[name][k] for k in (
+            "shape_bih", "max_abs_err", "kernel_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")}
+            for name in ("bench_bf16", "cli_bf16", "ragged_bf16")},
         # one [256, 64, 256] f32 layer: 64 launches, and cuDNN's nn.LSTM
         "layer_fused_ms": lstm_layer["fused_ms"],
         "layer_cudnn_lstm_call_ms": lstm_layer["cudnn_lstm_call_ms"]})

@@ -13,8 +13,9 @@
 // h.Wh) + b, as the TPU kernel's two dots are. f32 operands go through
 // scalar f32 FMAs (the tensor cores would round them to tf32, which misses
 // the 1e-5 tolerance of the JAX package's own test); bf16 operands through
-// mma.sync m16n8k16 with f32 sums. sigmoid is 1 / (1 + exp(-x)), with the
-// full-precision expf and tanhf, and c' is f*c + i*g without contraction.
+// mma.sync m16n8k16 with f32 sums, each K slice summed apart. sigmoid is
+// 1 / (1 + exp(-x)), with the full-precision expf and tanhf, and c' is
+// f*c + i*g without contraction.
 //
 // Bound on an H100 SXM (67 TFLOP/s f32 outside the tensor cores, 989 bf16,
 // 3.35 TB/s HBM), for x [B, I], h and c [B, H], W [(I + H), 4H]:
@@ -23,7 +24,9 @@
 // At the bench shape (f32, B = 256, I = H = 256) that is 2.68e8 FLOP, about
 // 4.0 us at 67 TFLOP/s, against about 3.4 MB, about 1.0 us: bound by
 // operations. A 64-step, 4-layer forward launches this kernel 256 times, so
-// it cannot take less than about 1 ms.
+// it cannot take less than about 1 ms. In bf16 the same shape is about
+// 0.27 us of operations at 989 TFLOP/s against 1.7 MB, about 0.51 us:
+// bound by bytes, and in practice by the latency of one pass of loads.
 //
 // Design. One block owns a tile of batch rows and a tile of hidden columns
 // j, and computes the four gate columns j, H + j, 2H + j, 3H + j of z for
@@ -50,14 +53,28 @@
 //     and each thread applies the cell to its (row, column) pairs. A block
 //     reads 128 KB of W and 64 KB of x and h (24.6 MB from L2 a launch at
 //     the bench shape, against 36 MB for 16 x 32 tiles).
-//   - bf16: lstm_cell_mma_kernel. 4 warps, one m16 tile of 16 rows; warp w
-//     takes hidden columns 8w..8w+7 of the block's 32 and runs one m16n8k16
-//     product per gate, so each thread's accumulator fragments hold the
-//     same (row, column) positions for all four gates. W is staged
-//     transposed so that a B fragment is one 32-bit load.
-// No TMA and no wgmma (f32 stays off the tensor cores), and Wh is read from
-// device memory (L2) at every step: a persistent kernel that keeps Wh on
-// chip across time steps is later work.
+//   - bf16: lstm_cell_bf16_kernel. The f32 body's block (32 rows x 16
+//     columns x 4 gates: 128 blocks at the bench shape) on the bf16 tensor
+//     cores: each warp is one K slice (eight where the grid is under one
+//     block an SM, four where it fills the card, x.Wx and h.Wh split as in
+//     f32) and computes the block's whole 32 x 64 z over its slice, two
+//     m16 row tiles by eight n8 gate-column tiles of m16n8k16 mma.sync (64
+//     f32 sums a thread). It streams its x (or h) and W tiles in their own
+//     layouts with 16-byte cp.async chunks (element by element where rows
+//     or gate slices are not 8-element aligned) into a 2-stage ring of its
+//     own, synced by __syncwarp alone, so the copy of tile t + 1 runs while
+//     tile t is multiplied; A fragments come from the [row][k] tile by
+//     ldmatrix and B fragments from the [k][n] tile by ldmatrix.trans,
+//     rows padded by 16 bytes so that no ldmatrix meets a bank conflict.
+//     The warps' partial sums meet in shared memory over the rings and are
+//     added in a fixed order, z = ((x.Wx slices) + (h.Wh slices)) + b, as
+//     in f32. (The first bf16 body staged W transposed one element a
+//     thread by scalar loads between two __syncthreads, in 4-warp blocks
+//     that each ran the whole K: 0.054 ms at the bench shape.)
+// No TMA and no wgmma (f32 stays off the tensor cores; bf16 tiles of 32
+// rows are below wgmma's 64), and Wh is read from device memory (L2) at
+// every step: a persistent kernel that keeps Wh on chip across time steps
+// is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -333,9 +350,37 @@ lstm_cell_f32_kernel(const float* __restrict__ x, const float* __restrict__ h,
 
 constexpr int kMaxDevices = 64;
 
-// The launch of the f32 body with kSlices K slices: the dynamic shared
-// memory limit raised once per device, and the split of the slices between
-// x.Wx and h.Wh that leaves the largest slice the fewest tiles.
+// The dynamic shared memory limit of `kernel` raised to `bytes` once per
+// device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes,
+                       std::atomic<bool> (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    done[dev].store(true, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
+// The split of kSlices K slices between x.Wx (tx tiles) and h.Wh (th
+// tiles) that leaves the largest slice the fewest tiles: the x slices.
+inline int split_slices(int slices, int tx, int th) {
+  int nx = 1, best = INT_MAX;
+  for (int cand = 1; cand < slices; ++cand) {
+    const int hs = slices - cand;
+    const int most = std::max((tx + cand - 1) / cand, (th + hs - 1) / hs);
+    if (most < best) best = most, nx = cand;
+  }
+  return nx;
+}
+
+// The launch of the f32 body with kSlices K slices.
 template <int kSlices>
 cudaError_t launch_f32(const float* x, const float* h, const float* c,
                        const float* wx, const float* wh, const float* b,
@@ -345,23 +390,10 @@ cudaError_t launch_f32(const float* x, const float* h, const float* c,
   auto kernel = lstm_cell_f32_kernel<kSlices>;
   const size_t smem = sizeof(float) * kSlices * kRing;
   static std::atomic<bool> smem_set[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!smem_set[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    smem_set[dev].store(true, std::memory_order_release);
-  }
-  const int tx = (I + kBK - 1) / kBK, th = (H + kBK - 1) / kBK;
-  int nx = 1, best = INT_MAX;
-  for (int cand = 1; cand < kSlices; ++cand) {
-    const int hs = kSlices - cand;
-    const int most = std::max((tx + cand - 1) / cand, (th + hs - 1) / hs);
-    if (most < best) best = most, nx = cand;
-  }
+  const int nx = split_slices(kSlices, (I + kBK - 1) / kBK,
+                              (H + kBK - 1) / kBK);
   // 16-byte copies need 4-float aligned rows, gate slices and bases
   const bool vec_w = H % 4 == 0;
   const int vec_x = vec_w && x_s % 4 == 0 && wx_s % 4 == 0 &&
@@ -377,13 +409,27 @@ cudaError_t launch_f32(const float* x, const float* h, const float* c,
 
 // ------------------------------------------------------------ bf16, mma.sync
 
-constexpr int kMmaBM = 16;                  // one m16 tile of batch rows
-constexpr int kMmaWarps = 4;
-constexpr int kMmaBN = kMmaWarps * 8;       // 32 hidden columns per block
-constexpr int kMmaBK = 32;                  // two k16 steps per tile
-constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kLdK = kMmaBK + 8;  // bf16 row stride: fragment loads of the 8
-                                  // rows a quad group touches hit 32 banks
+constexpr int kHBM = 32;            // batch rows per block (two m16 tiles)
+constexpr int kHBN = 16;            // hidden columns per block
+constexpr int kHN = 4 * kHBN;       // gate columns per block (eight n8 tiles)
+constexpr int kHBK = 32;            // K depth of one staged tile (two k16)
+constexpr int kHStages = 2;         // depth of each warp's cp.async ring
+constexpr int kALd = kHBK + 8;      // bf16 row of a staged x (or h) tile:
+constexpr int kBLd = kHN + 8;       // and of a W tile: the 8 rows that one
+                                    // ldmatrix matrix reads hit 8 distinct
+                                    // 16-byte bank groups
+constexpr int kATile = kHBM * kALd;
+constexpr int kBTile = kHBK * kBLd;
+constexpr int kHStage = kATile + kBTile;   // bf16 of one stage
+constexpr int kHRing = kHStages * kHStage;  // bf16 of one warp's ring
+constexpr int kPLd = kHN + 8;       // f32 row of a warp's partial z: the
+                                    // float2 stores of a half warp hit 32
+                                    // banks
+// K slices (warps) of a block: many where the grid is under one block an
+// SM (the bench shape), few where it fills the card
+constexpr int kHSlicesFew = 4, kHSlicesMany = 8;
+static_assert(kHBM * kPLd * 4 <= kHRing * 2,
+              "a warp's partial z fits in its ring");
 
 // d (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -395,96 +441,271 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Four 8x8 bf16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8; .trans hands each thread a column pair instead
+// of a row pair (the B fragment of a [k][n] tile).
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
 }
 
-// acc[g] (the m16n8 fragment of gate g, this warp's 8 columns) +=
-//   src[row0 : row0 + 16, :K] . w[:K, g*H + col0 + 8w : ... + 8]
-__device__ __forceinline__ void accumulate_mma(
-    const bf16* __restrict__ src, long long s_src, int K,
+// Copy `bytes` (at most 16) of a 16-byte chunk from global to shared
+// memory asynchronously, zero-filling the rest of the chunk.
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
+                                           int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Stage one K tile of a warp's slice: src rows [row0, row0 + kHBM) x k
+// [k, k + kHBK) into as ([row][kALd]), and the four gate column slices
+// w[k .. k + kHBK, g*H + col0 .. + kHBN] into bs ([k][gate*kHBN + j]);
+// zeros past B, past the slice's end k_end and past H. Each operand goes
+// in 16-byte cp.async chunks where its rows (and, for W, the gate slices)
+// are 8-element aligned (vec_src, vec_w), else element by element.
+__device__ __forceinline__ void load_stage_bf16(
+    bf16* as, bf16* bs, const bf16* __restrict__ src, long long s_src,
     const bf16* __restrict__ w, long long s_w, int B, int H, int row0,
-    int col0, bf16* xs, bf16* ws, float (&acc)[4][4]) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int gq = lane >> 2;  // fragment row (and row + 8) / B column
-  const int tq = lane & 3;   // fragment k pair
+    int col0, int k, int k_end, bool vec_src, bool vec_w, int lane) {
   const bf16 zero = __float2bfloat16_rn(0.f);
-  for (int k0 = 0; k0 < K; k0 += kMmaBK) {
-    __syncthreads();
-    // x or h tile, row-major [16][kLdK]
-    for (int idx = tid; idx < kMmaBM * kMmaBK; idx += kMmaThreads) {
-      const int r = idx / kMmaBK;
-      const int kk = idx - r * kMmaBK;
+  if (vec_src) {
+#pragma unroll
+    for (int n = 0; n < kHBM * kHBK / 8 / 32; ++n) {
+      const int i = lane + 32 * n;
+      const int r = i / (kHBK / 8), kk = (i % (kHBK / 8)) * 8;
+      const int row = row0 + r, left = k_end - (k + kk);
+      const int valid = row < B && left > 0 ? (left < 8 ? left : 8) : 0;
+      cp_async16(as + r * kALd + kk,
+                 valid ? src + (long long)row * s_src + k + kk : src,
+                 2 * valid);
+    }
+  } else {
+    for (int i = lane; i < kHBM * kHBK; i += 32) {
+      const int r = i / kHBK, kk = i % kHBK;
       const int row = row0 + r;
-      const int k = k0 + kk;
-      xs[r * kLdK + kk] =
-          (row < B && k < K) ? src[(long long)row * s_src + k] : zero;
+      as[r * kALd + kk] = row < B && k + kk < k_end
+                              ? src[(long long)row * s_src + k + kk]
+                              : zero;
     }
-    // W tile transposed, [4 gates * 32 columns][kLdK]
-    for (int idx = tid; idx < kMmaBK * 4 * kMmaBN; idx += kMmaThreads) {
-      const int jj = idx % kMmaBN;
-      const int g = (idx / kMmaBN) & 3;
-      const int kk = idx / (4 * kMmaBN);
-      const int k = k0 + kk;
-      const int col = col0 + jj;
-      ws[(g * kMmaBN + jj) * kLdK + kk] =
-          (k < K && col < H) ? w[(long long)k * s_w + (long long)g * H + col]
-                             : zero;
+  }
+  if (vec_w) {
+#pragma unroll
+    for (int n = 0; n < kHBK * kHN / 8 / 32; ++n) {
+      const int i = lane + 32 * n;
+      const int kk = i / (kHN / 8), c = (i % (kHN / 8)) * 8;
+      const int g = c / kHBN, jj = c % kHBN;
+      const int left = H - (col0 + jj);
+      const int valid =
+          k + kk < k_end && left > 0 ? (left < 8 ? left : 8) : 0;
+      cp_async16(bs + kk * kBLd + c,
+                 valid ? w + (long long)(k + kk) * s_w + (long long)g * H +
+                             col0 + jj
+                       : w,
+                 2 * valid);
     }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kMmaBK / 16; ++ks) {
-      const bf16* ab = xs + gq * kLdK + ks * 16 + 2 * tq;
-      const uint32_t a[4] = {ld32(ab), ld32(ab + 8 * kLdK), ld32(ab + 8),
-                             ld32(ab + 8 * kLdK + 8)};
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const bf16* bb =
-            ws + (g * kMmaBN + warp * 8 + gq) * kLdK + ks * 16 + 2 * tq;
-        mma_bf16(acc[g], a, ld32(bb), ld32(bb + 8));
-      }
+  } else {
+    for (int i = lane; i < kHBK * kHN; i += 32) {
+      const int kk = i / kHN, c = i % kHN;
+      const int col = col0 + c % kHBN;
+      bs[kk * kBLd + c] =
+          k + kk < k_end && col < H
+              ? w[(long long)(k + kk) * s_w + (long long)(c / kHBN) * H + col]
+              : zero;
     }
   }
 }
 
-__global__ void __launch_bounds__(kMmaThreads)
-lstm_cell_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
-                     const bf16* __restrict__ c, const bf16* __restrict__ wx,
-                     const bf16* __restrict__ wh, const bf16* __restrict__ b,
-                     bf16* __restrict__ h_out, bf16* __restrict__ c_out, int B,
-                     int I, int H, long long x_s, long long h_s, long long c_s,
-                     long long wx_s, long long wh_s) {
-  __shared__ __align__(16) bf16 xs[kMmaBM * kLdK];
-  __shared__ __align__(16) bf16 ws[4 * kMmaBN * kLdK];
-  const int row0 = blockIdx.x * kMmaBM;
-  const int col0 = blockIdx.y * kMmaBN;
-  float zx[4][4], zh[4][4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) zx[g][e] = zh[g][e] = 0.f;
-  accumulate_mma(x, x_s, I, wx, wx_s, B, H, row0, col0, xs, ws, zx);
-  accumulate_mma(h, h_s, H, wh, wh_s, B, H, row0, col0, xs, ws, zh);
-
-  const int warp = threadIdx.x >> 5;
+// acc[mt][nt] (the m16n8 fragment of rows 16 mt.., gate columns 8 nt..) +=
+//   src[row0 .., k_begin:k_end] . w[k_begin:k_end, the block's 4 x kHBN]
+// over one warp's K slice, through the warp's own ring of kHStages tiles:
+// the copy of tile t + 1 runs while tile t is multiplied. A fragments come
+// from the [row][k] tile by ldmatrix, B fragments from the [k][n] tile by
+// ldmatrix.trans; only the warp syncs (__syncwarp).
+__device__ __forceinline__ void accumulate_slice_bf16(
+    const bf16* __restrict__ src, long long s_src,
+    const bf16* __restrict__ w, long long s_w, int B, int H, int row0,
+    int col0, int k_begin, int k_end, bool vec_src, bool vec_w, bf16* ring,
+    float (&acc)[2][8][4]) {
   const int lane = threadIdx.x & 31;
-  // fragment element e sits at row gq + 8 * (e >> 1), column 2 tq + (e & 1)
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + kHBK - 1) / kHBK : 0;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int row = row0 + (lane >> 2) + 8 * (e >> 1);
-    const int col = col0 + warp * 8 + 2 * (lane & 3) + (e & 1);
+  for (int t = 0; t < kHStages - 1; ++t) {
+    if (t < ntiles)
+      load_stage_bf16(ring + t * kHStage, ring + t * kHStage + kATile, src,
+                      s_src, w, s_w, B, H, row0, col0, k_begin + t * kHBK,
+                      k_end, vec_src, vec_w, lane);
+    warp_mma::cp_async_commit();
+  }
+  for (int t = 0; t < ntiles; ++t) {
+    // the stage of tile t + kHStages - 1 was read in iteration t - 1, which
+    // ended with a __syncwarp
+    const int next = t + kHStages - 1;
+    if (next < ntiles) {
+      bf16* st = ring + (next % kHStages) * kHStage;
+      load_stage_bf16(st, st + kATile, src, s_src, w, s_w, B, H, row0, col0,
+                      k_begin + next * kHBK, k_end, vec_src, vec_w, lane);
+    }
+    warp_mma::cp_async_commit();
+    warp_mma::cp_async_wait<kHStages - 1>();  // this lane's tile t landed
+    __syncwarp();                             // every lane's did
+    const bf16* as = ring + (t % kHStages) * kHStage;
+    const bf16* bs = as + kATile;
+#pragma unroll
+    for (int ks = 0; ks < kHBK / 16; ++ks) {
+      uint32_t a[2][4], b[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldmatrix_x4<false>(a[mt], as + (mt * 16 + (lane & 15)) * kALd +
+                                      ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np)
+        ldmatrix_x4<true>(b[np], bs + (ks * 16 + (lane & 15)) * kBLd +
+                                     np * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          mma_bf16(acc[mt][nt], a[mt], b[nt / 2][2 * (nt % 2)],
+                   b[nt / 2][2 * (nt % 2) + 1]);
+    }
+    __syncwarp();  // the stage is read before it takes tile t + kHStages
+  }
+}
+
+// z over the K slices of one block: one warp a slice, x.Wx cut into the
+// first nx slices and h.Wh into the other kSlices - nx, each part's
+// kHBK-deep tiles dealt out evenly.
+template <int kSlices>
+__global__ void __launch_bounds__(kSlices * 32)
+lstm_cell_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
+                      const bf16* __restrict__ c, const bf16* __restrict__ wx,
+                      const bf16* __restrict__ wh, const bf16* __restrict__ b,
+                      bf16* __restrict__ h_out, bf16* __restrict__ c_out,
+                      int B, int I, int H, long long x_s, long long h_s,
+                      long long c_s, long long wx_s, long long wh_s, int nx,
+                      int vec_x, int vec_wx, int vec_h, int vec_wh) {
+  // each warp's ring; after the products, the warps' partial z
+  extern __shared__ float4 smem4[];
+  bf16* smem = reinterpret_cast<bf16*>(smem4);
+  const int row0 = blockIdx.x * kHBM;
+  const int col0 = blockIdx.y * kHBN;
+  const int slice = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  const bool on_x = slice < nx;
+  const int K = on_x ? I : H;
+  const int n = on_x ? nx : kSlices - nx;   // slices of this part
+  const int j = on_x ? slice : slice - nx;  // this slice's place in it
+  const int tiles = (K + kHBK - 1) / kHBK;
+  const int k_begin = j * tiles / n * kHBK;
+  int k_end = (j + 1) * tiles / n * kHBK;
+  k_end = k_end < K ? k_end : K;
+  // the cells this thread finishes: their bias and previous c are fetched
+  // now, so that the loads' latency hides under the products
+  constexpr int kThreads = kSlices * 32;
+  static_assert(kHBM * kHBN % kThreads == 0, "whole cells a thread");
+  constexpr int kCells = kHBM * kHBN / kThreads;
+  float bias[kCells][4], c_prev[kCells];
+#pragma unroll
+  for (int m = 0; m < kCells; ++m) {
+    const int cell = threadIdx.x + m * kThreads;
+    const int row = row0 + cell / kHBN, col = col0 + cell % kHBN;
+    const bool in = row < B && col < H;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) bias[m][g] = in ? to_f32(b[g * H + col]) : 0.f;
+    c_prev[m] = in ? to_f32(c[(long long)row * c_s + col]) : 0.f;
+  }
+  accumulate_slice_bf16(on_x ? x : h, on_x ? x_s : h_s, on_x ? wx : wh,
+                        on_x ? wx_s : wh_s, B, H, row0, col0, k_begin, k_end,
+                        on_x ? vec_x : vec_h, on_x ? vec_wx : vec_wh,
+                        smem + slice * kHRing, acc);
+
+  // partial z of each slice, [slice][row][gate column], over the rings
+  warp_mma::cp_async_wait<0>();
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem) + slice * kHBM * kPLd;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(
+            part + (mt * 16 + (lane >> 2) + 8 * hf) * kPLd + nt * 8 +
+            2 * (lane & 3)) =
+            make_float2(acc[mt][nt][2 * hf], acc[mt][nt][2 * hf + 1]);
+  __syncthreads();
+
+  // z = (x.Wx + h.Wh) + b, each product the sum of its slices in order, and
+  // the cell
+  const float* parts = reinterpret_cast<const float*>(smem);
+  constexpr int kPart = kHBM * kPLd;  // floats of one slice's partial z
+#pragma unroll
+  for (int m = 0; m < kCells; ++m) {
+    const int cell = threadIdx.x + m * kThreads;
+    const int r = cell / kHBN, jj = cell % kHBN;
+    const int row = row0 + r, col = col0 + jj;
     if (row >= B || col >= H) continue;
     float z[4];
 #pragma unroll
-    for (int g = 0; g < 4; ++g)
-      z[g] = (zx[g][e] + zh[g][e]) + __bfloat162float(b[g * H + col]);
-    apply_cell(z[0], z[1], z[2], z[3],
-               to_f32(c[(long long)row * c_s + col]),
+    for (int g = 0; g < 4; ++g) {
+      const float* p = parts + r * kPLd + g * kHBN + jj;
+      float zx = p[0], zh = p[nx * kPart];
+      for (int t = 1; t < nx; ++t) zx += p[t * kPart];
+      for (int t = nx + 1; t < kSlices; ++t) zh += p[t * kPart];
+      z[g] = (zx + zh) + bias[m][g];
+    }
+    apply_cell(z[0], z[1], z[2], z[3], c_prev[m],
                h_out + (long long)row * H + col,
                c_out + (long long)row * H + col);
   }
+}
+
+// The launch of the bf16 body with kSlices warps.
+template <int kSlices>
+cudaError_t launch_bf16(const bf16* x, const bf16* h, const bf16* c,
+                        const bf16* wx, const bf16* wh, const bf16* b,
+                        bf16* h_out, bf16* c_out, int B, int I, int H,
+                        long long x_s, long long h_s, long long c_s,
+                        long long wx_s, long long wh_s, cudaStream_t st) {
+  auto kernel = lstm_cell_bf16_kernel<kSlices>;
+  const size_t smem = sizeof(bf16) * kSlices * kHRing;
+  static std::atomic<bool> smem_set[kMaxDevices];
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const int nx = split_slices(kSlices, (I + kHBK - 1) / kHBK,
+                              (H + kHBK - 1) / kHBK);
+  // 16-byte copies need 8-element aligned rows and bases; W's gate slices
+  // start at multiples of H
+  auto vec = [](const bf16* p, long long s) {
+    return (int)(s % 8 == 0 && (uintptr_t)p % 16 == 0);
+  };
+  const int wvec = H % 8 == 0;
+  dim3 grid((B + kHBM - 1) / kHBM, (H + kHBN - 1) / kHBN);
+  kernel<<<grid, kSlices * 32, smem, st>>>(
+      x, h, c, wx, wh, b, h_out, c_out, B, I, H, x_s, h_s, c_s, wx_s, wh_s,
+      nx, vec(x, x_s), wvec && vec(wx, wx_s), vec(h, h_s),
+      wvec && vec(wh, wh_s));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -501,18 +722,19 @@ extern "C" int lstm_cell(const void* x, const void* h, const void* c,
                          void* stream) {
   if (B < 1 || I < 1 || H < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // both bodies take eight K slices where the grid is under one block an
+  // SM (the bench shape: 128 blocks), four where it fills the card
+  static std::atomic<int> sms_seen{0};
+  int sms = sms_seen.load();
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    sms_seen.store(sms);
+  }
   if (dtype == 0) {
-    // eight K slices (512 threads) where the grid is under one block an SM
-    // (the bench shape: 128 blocks), four where it fills the card
-    static std::atomic<int> sms{0};
-    if (sms.load() == 0) {
-      int dev = 0, n = 0;
-      cudaError_t err = cudaGetDevice(&dev);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-      if (err != cudaSuccess) return (int)err;
-      sms.store(n);
-    }
     const long long blocks =
         (long long)((B + kBM - 1) / kBM) * ((H + kBN - 1) / kBN);
 #define DL4J_LSTM_ARGS                                                      \
@@ -521,21 +743,26 @@ extern "C" int lstm_cell(const void* x, const void* h, const void* c,
       static_cast<const float*>(wh), static_cast<const float*>(b),          \
       static_cast<float*>(h_out), static_cast<float*>(c_out), B, I, H, x_s, \
       h_s, c_s, wx_s, wh_s, st
-    const cudaError_t err = blocks <= sms.load()
+    const cudaError_t err = blocks <= sms
                                 ? launch_f32<kSlicesMany>(DL4J_LSTM_ARGS)
                                 : launch_f32<kSlicesFew>(DL4J_LSTM_ARGS);
 #undef DL4J_LSTM_ARGS
     return (int)err;
   }
   if (dtype == 1) {
-    dim3 grid((B + kMmaBM - 1) / kMmaBM, (H + kMmaBN - 1) / kMmaBN);
-    lstm_cell_mma_kernel<<<grid, kMmaThreads, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(h),
-        static_cast<const bf16*>(c), static_cast<const bf16*>(wx),
-        static_cast<const bf16*>(wh), static_cast<const bf16*>(b),
-        static_cast<bf16*>(h_out), static_cast<bf16*>(c_out), B, I, H, x_s,
-        h_s, c_s, wx_s, wh_s);
-    return (int)cudaGetLastError();
+#define DL4J_LSTM_ARGS                                                     \
+  static_cast<const bf16*>(x), static_cast<const bf16*>(h),                \
+      static_cast<const bf16*>(c), static_cast<const bf16*>(wx),           \
+      static_cast<const bf16*>(wh), static_cast<const bf16*>(b),           \
+      static_cast<bf16*>(h_out), static_cast<bf16*>(c_out), B, I, H, x_s,  \
+      h_s, c_s, wx_s, wh_s, st
+    const long long blocks =
+        (long long)((B + kHBM - 1) / kHBM) * ((H + kHBN - 1) / kHBN);
+    const cudaError_t err = blocks <= sms
+                                ? launch_bf16<kHSlicesMany>(DL4J_LSTM_ARGS)
+                                : launch_bf16<kHSlicesFew>(DL4J_LSTM_ARGS);
+#undef DL4J_LSTM_ARGS
+    return (int)err;
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -28,28 +28,59 @@
 // 9,999 rows) that is about 324 MB, 0.097 ms. The work is a handful of adds
 // per byte, far below the card's operations-to-bytes ratio.
 //
-// Design. One warp per update row, 8 warps a block, a grid-stride loop over
-// the rows. The warp's lanes load the row's index once (one broadcast), skip
-// the row if it is out of range, and stride over the columns: lane l adds
-// columns l, l + 32, ... with coalesced loads of the update row and one
-// atomic each (f32), or one paired __nv_bfloat162 atomic per two columns
-// (bf16, D even, the table row 4-byte aligned). Updates may come with a row
-// stride; columns must be unit-stride in both tensors.
+// Design. f32 at D > 1 (the word2vec and GloVe tables): equal indices are
+// summed on chip before anything reaches L2. scatter_add_f32_sorted_kernel
+// gives a block of 256 threads a contiguous chunk of 256 kItems
+// updates. The block loads the chunk's indices (an index outside [0, R)
+// becomes the key R, which sorts last and is dropped), sorts the (index,
+// position) pairs in shared memory (cub::BlockRadixSort over the bits of
+// R, stable, so each index's updates stay in the order of n), and cuts the
+// sorted chunk into 8 equal ranges, one a warp. A warp walks its range in
+// order with its lanes across the columns (a float4 a lane where D, the
+// strides and the bases are 16-byte aligned, else a float), adds each
+// update row into registers (kUnroll rows loaded ahead, coalesced), and
+// when the index changes issues one RED per column group: atomicAdd of a
+// float4, which sm_90 carries out as one vector RED (REDG.E.ADD.F32x4), or
+// of a float. So a chunk costs one RED per column group for each distinct
+// index of each warp's range, where the first version (one warp per update
+// row) issued one scalar RED per element: at syn1 the Huffman root, which
+// every pair's path passes, took half of the 622,592 rows' REDs on the
+// same 128 addresses, one after another in L2.
+//
+// The order of the adds: within a warp's range in the order of n, then
+// the REDs in any order. Integer-valued sums stay exact, others stay
+// within the any-order bound 2 n u S.
+//
+// The chunk is the largest of 1,024, 512 and 256 updates that still gives
+// the grid two blocks an SM (measured on the H100 at the word2vec step's
+// shapes: chunks of 1,024 at syn1, 512 at syn1neg, 256 at syn0; PERF.md).
+// The first version (one warp per update row, one scalar RED per element)
+// is gone: it ran syn1 11.7x slower (PERF.md).
+// The sort's keys are 32-bit: tables of 2^32 - 1 rows or more are refused.
+//
 // At D = 1 (f32; the GloVe biases) a warp a row would leave 31 lanes idle:
 // scatter_add_f32_d1_kernel gives each thread one update instead, and a
 // warp first sums the updates that share an index (`__match_any_sync`
 // groups them, a tree of shuffles sums each group) so that it issues one
-// RED per distinct index. The order of the adds changes as the atomics'
-// does: integer-valued sums stay exact, others stay within the any-order
-// bound.
-// What it does not do yet: rows that many updates share (the Huffman root
-// takes every pair of a word2vec step) serialise their atomics in L2 at
-// D > 1; pre-aggregating equal indices there, or a sort-and-segment pass, is
-// later work.
+// RED per distinct index.
+//
+// bf16 (scatter_add_bf16_kernel): one warp per update row, lane l adds the
+// column pairs l, l + 32, ... with one __nv_bfloat162 atomic each (D even,
+// the table row 4-byte aligned). Updates may come with a row stride;
+// columns must be unit-stride in both tensors.
+//
+// What it does not do yet: a group that spans several warps' ranges costs
+// one RED a warp (merging them in shared memory first is later work), and
+// at D < 128 a warp's lanes past the row's last column group idle.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include <cub/block/block_radix_sort.cuh>
 
 namespace {
 
@@ -59,22 +90,123 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr long long kMaxBlocks = 1 << 20;
 
-template <typename Index>
+// ------------------------------------------------ f32, D > 1: sorted chunks
+
+constexpr int kUnroll = 4;  // update rows a lane loads ahead
+
+__device__ __forceinline__ float4 zero_of(float4) {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ float zero_of(float) { return 0.f; }
+__device__ __forceinline__ void add_to(float4& a, float4 b) {
+  a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+}
+__device__ __forceinline__ void add_to(float& a, float b) { a += b; }
+// one RED: a float4 is one vector RED on sm_90
+__device__ __forceinline__ void red(float* p, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(p), v);
+}
+__device__ __forceinline__ void red(float* p, float v) { atomicAdd(p, v); }
+__device__ __forceinline__ float4 load(const float* p, float4) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float load(const float* p, float) {
+  return __ldg(p);
+}
+
+// One warp's range [begin, end) of the sorted chunk, at the columns
+// (col, col + 1, ... of V) of this lane: the update rows of each index run
+// summed in order, one RED a run.
+template <typename V>
+__device__ __forceinline__ void walk_range(float* __restrict__ table,
+                                           const float* __restrict__ upd,
+                                           const unsigned* keys,
+                                           const int* pos, int begin,
+                                           int end, int col, long long base,
+                                           long long table_s,
+                                           long long upd_s) {
+  unsigned cur = keys[begin];
+  V acc = zero_of(V());
+  for (int rk = begin; rk < end; rk += kUnroll) {
+    V v[kUnroll];
+    unsigned k[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = rk + u < end ? rk + u : begin;
+      k[u] = keys[q];
+      v[u] = load(upd + (base + pos[q]) * upd_s + col, V());
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (rk + u >= end) break;
+      if (k[u] != cur) {
+        red(table + (long long)cur * table_s + col, acc);
+        acc = zero_of(V());
+        cur = k[u];
+      }
+      add_to(acc, v[u]);
+    }
+  }
+  red(table + (long long)cur * table_s + col, acc);
+}
+
+// A chunk of kThreads * kItems updates a block: sort the chunk's
+// (index, position) pairs by index, then each warp sums its range of the
+// sorted chunk (walk_range). key_bits: the bits of R (the key of an
+// out-of-range update). vec4: D, both row strides and both bases allow
+// float4 columns.
+template <typename Index, int kItems>
 __global__ void __launch_bounds__(kThreads)
-scatter_add_f32_kernel(float* __restrict__ table,
-                       const Index* __restrict__ idx,
-                       const float* __restrict__ upd, long long R,
-                       long long N, int D, long long table_s,
-                       long long upd_s) {
-  const int lane = threadIdx.x & 31;
-  const long long stride = (long long)gridDim.x * kWarps;
-  for (long long n = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       n < N; n += stride) {
-    const long long r = (long long)__ldg(idx + n);
-    if (r < 0 || r >= R) continue;
-    float* dst = table + r * table_s;
-    const float* src = upd + n * upd_s;
-    for (int c = lane; c < D; c += 32) atomicAdd(dst + c, __ldg(src + c));
+scatter_add_f32_sorted_kernel(float* __restrict__ table,
+                              const Index* __restrict__ idx,
+                              const float* __restrict__ upd, long long R,
+                              long long N, int D, long long table_s,
+                              long long upd_s, int key_bits, int vec4) {
+  constexpr int kChunk = kThreads * kItems;
+  typedef cub::BlockRadixSort<unsigned, kThreads, kItems, int> Sort;
+  __shared__ typename Sort::TempStorage sort_tmp;
+  __shared__ unsigned keys[kChunk];
+  __shared__ int pos[kChunk];
+  __shared__ int n_valid;
+  if (threadIdx.x == 0) n_valid = 0;
+  const long long base = (long long)blockIdx.x * kChunk;
+  unsigned key[kItems];
+  int at[kItems];
+  int valid = 0;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    // blocked: thread t holds positions t * kItems + i, so the stable sort
+    // keeps each index's positions in the order of n
+    at[i] = threadIdx.x * kItems + i;
+    const long long n = base + at[i];
+    const long long r = n < N ? (long long)__ldg(idx + n) : -1;
+    const bool in = r >= 0 && r < R;
+    key[i] = in ? (unsigned)r : (unsigned)R;
+    valid += in;
+  }
+  __syncthreads();  // n_valid is 0
+  if (valid) atomicAdd(&n_valid, valid);
+  Sort(sort_tmp).Sort(key, at, 0, key_bits);
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    keys[threadIdx.x * kItems + i] = key[i];
+    pos[threadIdx.x * kItems + i] = at[i];
+  }
+  __syncthreads();
+  // the in-range updates sort first: ranks [0, n_valid)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int kPer = kChunk / kWarps;
+  const int begin = warp * kPer;
+  const int end = begin + kPer < n_valid ? begin + kPer : n_valid;
+  if (begin >= end) return;
+  if (vec4) {
+    for (int c = 4 * lane; c < D; c += 128)
+      walk_range<float4>(table, upd, keys, pos, begin, end, c, base, table_s,
+                         upd_s);
+  } else {
+    for (int c = lane; c < D; c += 32)
+      walk_range<float>(table, upd, keys, pos, begin, end, c, base, table_s,
+                        upd_s);
   }
 }
 
@@ -147,29 +279,71 @@ scatter_add_bf16_kernel(bf16* __restrict__ table,
   }
 }
 
+// The sorted body with kItems updates a thread (chunks of 256 kItems).
+template <typename Index, int kItems>
+int launch_sorted(float* table, const Index* idx, const float* upd,
+                  long long R, long long N, int D, long long table_s,
+                  long long upd_s, cudaStream_t st) {
+  constexpr long long kChunk = kThreads * kItems;
+  int key_bits = 1;  // R itself (the out-of-range key) must fit
+  while (key_bits < 32 && (1LL << key_bits) <= R) ++key_bits;
+  const int vec4 = D % 4 == 0 && table_s % 4 == 0 && upd_s % 4 == 0 &&
+                   ((uintptr_t)table | (uintptr_t)upd) % 16 == 0;
+  scatter_add_f32_sorted_kernel<Index, kItems>
+      <<<(unsigned)((N + kChunk - 1) / kChunk), kThreads, 0, st>>>(
+          table, idx, upd, R, N, D, table_s, upd_s, key_bits, vec4);
+  return (int)cudaGetLastError();
+}
+
+// The f32 D > 1 launch: the most updates a thread (4, 2 or 1) that still
+// gives the grid two blocks an SM.
+template <typename Index>
+int launch_f32(float* table, const Index* idx, const float* upd, long long R,
+               long long N, int D, long long table_s, long long upd_s,
+               cudaStream_t st) {
+  if (R >= 0xffffffffLL || (N + kThreads - 1) / kThreads >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  static std::atomic<int> sms_seen{0};
+  int sms = sms_seen.load();
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    sms_seen.store(sms);
+  }
+  if (N >= 2LL * sms * kThreads * 4)
+    return launch_sorted<Index, 4>(table, idx, upd, R, N, D, table_s, upd_s,
+                                   st);
+  if (N >= 2LL * sms * kThreads * 2)
+    return launch_sorted<Index, 2>(table, idx, upd, R, N, D, table_s, upd_s,
+                                   st);
+  return launch_sorted<Index, 1>(table, idx, upd, R, N, D, table_s, upd_s,
+                                 st);
+}
+
 template <typename Index>
 int launch(void* table, const void* idx, const void* upd, long long R,
            long long N, int D, long long table_s, long long upd_s, int dtype,
            cudaStream_t st) {
-  long long blocks = (N + kWarps - 1) / kWarps;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   const Index* ix = static_cast<const Index*>(idx);
   if (dtype == 0 && D == 1) {
-    long long d1_blocks = (N + kThreads - 1) / kThreads;
-    if (d1_blocks > kMaxBlocks) d1_blocks = kMaxBlocks;
-    scatter_add_f32_d1_kernel<Index><<<(unsigned)d1_blocks, kThreads, 0, st>>>(
+    long long blocks = (N + kThreads - 1) / kThreads;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    scatter_add_f32_d1_kernel<Index><<<(unsigned)blocks, kThreads, 0, st>>>(
         static_cast<float*>(table), ix, static_cast<const float*>(upd), R, N,
         table_s, upd_s);
     return (int)cudaGetLastError();
   }
-  if (dtype == 0) {
-    scatter_add_f32_kernel<Index><<<(unsigned)blocks, kThreads, 0, st>>>(
-        static_cast<float*>(table), ix, static_cast<const float*>(upd), R, N,
-        D, table_s, upd_s);
-    return (int)cudaGetLastError();
-  }
+  if (dtype == 0)
+    return launch_f32<Index>(static_cast<float*>(table), ix,
+                             static_cast<const float*>(upd), R, N, D, table_s,
+                             upd_s, st);
   if (dtype == 1) {
     if (D % 2 != 0 || table_s % 2 != 0) return (int)cudaErrorInvalidValue;
+    long long blocks = (N + kWarps - 1) / kWarps;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
     scatter_add_bf16_kernel<Index><<<(unsigned)blocks, kThreads, 0, st>>>(
         static_cast<bf16*>(table), ix, static_cast<const bf16*>(upd), R, N, D,
         table_s, upd_s);

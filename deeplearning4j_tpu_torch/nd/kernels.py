@@ -28,7 +28,8 @@ Kernels ported so far (see ROADMAP.md queue B for the rest):
 - `lstm_cell`: `_lstm_cell_kernel`, one fused LSTM cell update
   (`csrc/lstm_cell.cu`), with `LSTMCellFunction` for its gradient;
 - `scatter_add_rows`: `_scatter_add_kernel`, the embedding-row scatter-add
-  (`csrc/scatter_add.cu`; at D = 1 a thread an update), the backward of
+  (`csrc/scatter_add.cu`; f32 at D > 1 sums equal indices of a sorted
+  chunk before its atomics, at D = 1 a thread an update), the backward of
   `gather_rows`.
 
 The bf16 flash forward, dK/dV and dQ kernels read their inputs by TMA,
@@ -776,6 +777,16 @@ def scatter_add_rows_reference(table: torch.Tensor, indices: torch.Tensor,
     the kernel skips them: they are sent to a spare row that is dropped, so
     the function holds no host sync and can be graph-captured.
 
+    On the CPU the sums are the JAX kernel's: each row adds its updates
+    one at a time in the order of n, rounding to the table's dtype after
+    every add, the same on every run whatever the thread count. float32
+    goes through `index_add_`, which walks n serially there (`index_put_`
+    with accumulate adds float32 with parallel atomics from 32,768
+    elements up); bfloat16 through `index_put_`, which is serial for every
+    dtype but float32 (`index_add_` would sum bfloat16 in float32). On
+    CUDA `index_put_` sorts the indices and adds each row's updates in
+    order.
+
     table [R, D] or [R] (float32 or bfloat16), indices [N] (int32 or
     int64), updates [N, D] or [N] in the table's dtype."""
     _check_scatter(table, indices, updates)
@@ -784,7 +795,12 @@ def scatter_add_rows_reference(table: torch.Tensor, indices: torch.Tensor,
     idx = indices.long()
     idx = torch.where((idx >= 0) & (idx < r), idx, r)
     ext = torch.cat([rows, rows.new_zeros(1, rows.shape[1])])
-    ext.index_put_((idx,), _as_rows(updates), accumulate=True)
+    upd = _as_rows(updates)
+    if ext.is_cuda or ext.dtype != torch.float32:
+        ext.index_put_((idx,), upd, accumulate=True)
+    else:
+        # unit column stride keeps index_add_ on its serial row loop
+        ext.index_add_(0, idx, upd.contiguous())
     return ext[:r].reshape(table.shape)
 
 

@@ -330,6 +330,33 @@ def test_summed_batch_sgd_blows_up_alike_in_both_packages(monkeypatch):
                              1e-2, k)
 
 
+def test_two_cpu_fits_give_bitwise_equal_tables():
+    # the plain scatter adds each row's updates in the order of n on every
+    # run, so a CPU fit repeats bit for bit on four threads, at a batch
+    # whose scatters pass 32,768 float32 elements (where index_put_ with
+    # accumulate would add with parallel atomics): the summed-batch test
+    # above compares two such fits with JAX
+    rng = np.random.RandomState(0)
+    freq = 1.0 / np.arange(1, 301)
+    tokens = rng.choice(300, size=8000, p=freq / freq.sum())
+    words = np.array([f"w{i}" for i in range(300)])
+    sentences = [list(words[tokens[i:i + 20]]) for i in range(0, 8000, 20)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        tables = []
+        for _ in range(2):
+            model = Word2Vec(vector_length=32, window=5, negative=5,
+                             min_word_frequency=1, epochs=1, seed=0,
+                             batch_size=2048, device="cpu")
+            model.fit(sentences)
+            tables.append({k: getattr(model.table, k).clone() for k in SYN})
+    finally:
+        torch.set_num_threads(threads)
+    for k in SYN:
+        assert torch.equal(tables[0][k], tables[1][k]), k
+
+
 def test_glove_cooccurrences_and_one_step_match_jax():
     import deeplearning4j_tpu.models.glove as jax_glove_mod
 

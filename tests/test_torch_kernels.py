@@ -291,6 +291,39 @@ def test_cuda_kernel_matches_plain_version(dtype):
         torch.testing.assert_close(got_lse, want_lse, atol=1e-3, rtol=1e-4)
 
 
+# The reference's own f32 shapes and tolerances (atol = rtol): it holds its
+# fused f32 gradients to full attention at 1e-5 at (2, 64, 2, 8) and
+# (1, 128, 2, 16) (tests/test_mfu_paths.py:276-279,303) and its f32
+# forward at 2e-5 (tests/test_pallas_kernels.py:25). The f32 kernels (3xTF32
+# on the tensor cores) are held to their plain versions there at those
+# tolerances; the 1e-4 cases above and below stay as they are.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 64, 2, 8), (1, 128, 2, 16)])
+def test_cuda_f32_kernels_meet_the_reference_tolerances_at_its_shapes(
+        shape, causal):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    q, k, v = (t.cuda() for t in _torch(*_qkv(45, *shape)))
+    do = torch.from_numpy(np.random.RandomState(46).standard_normal(
+        shape).astype(np.float32)).cuda()
+    o, lse = kernels.flash_attention(q, k, v, causal, with_lse=True)
+    want_o, want_lse = kernels.flash_attention_reference(q, k, v, causal,
+                                                         with_lse=True)
+    delta = kernels.flash_bwd_delta_reference(o, do)
+    args = (q, k, v, do, lse, delta, causal)
+    pairs = [(o, want_o, 2e-5), (lse, want_lse, 2e-5),
+             (kernels.flash_bwd_delta(o, do), delta, 1e-5)]
+    pairs += [(g, w, 1e-5) for g, w in zip(
+        kernels.flash_bwd_dkv(*args), kernels.flash_bwd_dkv_reference(*args))]
+    pairs.append((kernels.flash_bwd_dq(*args),
+                  kernels.flash_bwd_dq_reference(*args), 1e-5))
+    torch.cuda.synchronize()
+    for got, want, tol in pairs:
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
 # ------------------------------------------- 3xTF32 numerics of the f32 body
 #
 # A torch model of what `flash_fwd_3xtf32_kernel` computes: every f32

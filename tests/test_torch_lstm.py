@@ -87,6 +87,74 @@ def test_fused_lstm_step_matches_jax(shape):
     assert kernels.LAUNCHES["lstm_cell"] == 0
 
 
+# The bf16 kernel body's order of sums (csrc/lstm_cell.cu,
+# lstm_cell_bf16_kernel): each of its K slices (4 or 8 warps) sums its
+# 32-deep tiles of x.Wx or h.Wh in f32 apart, the first nx slices taking
+# x.Wx and the others h.Wh (nx as the launch splits them), and the slices
+# meet in a fixed order, z = ((x.Wx slices) + (h.Wh slices)) + b, before
+# the cell in f32 and one rounding of h' and c' to bf16. Held to the JAX
+# package's Pallas cell in bf16 (interpret mode) at 2e-2 * max, the
+# tolerance the card's check uses for the bf16 cell.
+
+def _split_slices(slices, tx, th):
+    """The launch's split of `slices` between x.Wx (tx tiles) and h.Wh (th
+    tiles): the x slices that leave the largest slice the fewest tiles."""
+    best, nx = None, 1
+    for cand in range(1, slices):
+        most = max(-(-tx // cand), -(-th // (slices - cand)))
+        if best is None or most < best:
+            best, nx = most, cand
+    return nx
+
+
+def _bf16_cell_model(x, h, c, wx, wh, b, slices, tile=32):
+    n_in, n_h = x.shape[1], h.shape[1]
+    tx, th = -(-n_in // tile), -(-n_h // tile)
+    nx = _split_slices(slices, tx, th)
+    parts = []
+    for src, w, k, tiles, n in ((x, wx, n_in, tx, nx),
+                                (h, wh, n_h, th, slices - nx)):
+        part = []
+        for j in range(n):
+            lo = j * tiles // n * tile
+            hi = min((j + 1) * tiles // n * tile, k)
+            part.append(src[:, lo:hi].float() @ w[lo:hi].float()
+                        if hi > lo else
+                        torch.zeros(x.shape[0], 4 * n_h))
+        parts.append(part)
+    zx, zh = parts[0][0], parts[1][0]
+    for p in parts[0][1:]:
+        zx = zx + p
+    for p in parts[1][1:]:
+        zh = zh + p
+    z = (zx + zh) + b.float()
+    i, f, o = (torch.sigmoid(z[:, g * n_h:(g + 1) * n_h]) for g in range(3))
+    g = torch.tanh(z[:, 3 * n_h:])
+    c_new = f * c.float() + i * g
+    return (o * torch.tanh(c_new)).to(h.dtype), c_new.to(c.dtype)
+
+
+@pytest.mark.parametrize("slices", [4, 8])
+@pytest.mark.parametrize("shape", [(256, 256, 256), (2047, 27, 128),
+                                   (3, 7, 20)])
+def test_bf16_cell_slice_model_holds_the_jax_cell(shape, slices):
+    arrs = [torch.from_numpy(a).to(torch.bfloat16)
+            for a in _cell_inputs(25, *shape)]
+    got = _bf16_cell_model(*arrs, slices)
+    want = jax_fused_lstm_step(
+        *(jnp.asarray(a.float().numpy()).astype(jnp.bfloat16) for a in arrs),
+        interpret=True)
+    for g, w in zip(got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        assert g.dtype == torch.bfloat16
+        err = float(np.abs(g.float().numpy() - w).max())
+        assert err <= 2e-2 * float(np.abs(w).max())
+    # and the plain version the card's check holds the kernel to
+    for g, w in zip(got, kernels.lstm_cell_reference(*arrs)):
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 2e-2 * w.float().abs().max().item()
+
+
 @pytest.mark.parametrize("views", [False, True])
 def test_lstm_cell_function_grads_match_jax(views):
     b, i, h = 3, 7, 20
@@ -635,3 +703,34 @@ def test_cuda_f32_lstm_kernel_edge_shapes(b, i, h, views):
     for g, w in zip(got, want):
         assert g.shape == (b, h) and g.is_contiguous()
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,i,h,views", [
+    (256, 256, 256, False),   # the char-LSTM bench shape: 8 K slices
+    (256, 256, 256, True),    # W as row blocks, x a time step of [B, T, I]
+    (3, 7, 20, False),        # every dimension under one tile, no row
+                              # 16-byte aligned: element-by-element copies
+    (2047, 27, 128, False)])  # the CLI's cell: 4 K slices, x unaligned
+def test_cuda_bf16_lstm_kernel_edge_shapes(b, i, h, views):
+    # the bf16 body (K slices a warp, cp.async ring, ldmatrix) against its
+    # plain version at 2e-2 * max
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x, h0, c0, wx, wh, bias = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+                               for a in _cell_inputs(26, b, i, h))
+    if views:
+        w = torch.cat([wx, wh])
+        wx, wh = w[:i], w[i:]
+        seq = torch.from_numpy(np.random.RandomState(27).standard_normal(
+            (b, 3, i)).astype(np.float32)).cuda().to(torch.bfloat16)
+        x = seq[:, 1]
+    before = kernels.LAUNCHES["lstm_cell"]
+    got = kernels.lstm_cell(x, h0, c0, wx, wh, bias)
+    want = kernels.lstm_cell_reference(x, h0, c0, wx, wh, bias)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lstm_cell"] == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == (b, h) and g.dtype == torch.bfloat16
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 2e-2 * w.float().abs().max().item()
