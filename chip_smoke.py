@@ -41,19 +41,27 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
 5. serves the full-width charTransformer (vocab 256, d_model 2048, 8 blocks,
    16 heads, seq 512, bf16 compute, random weights from a seed) through
    `MultiLayerNetwork.serve` to 4 concurrent POST /v1/predict requests,
-   checks each answer against a direct `net.output`, checks the flash path
-   against the plain attention path in f32 and times both f32 network
-   outputs, and checks that every forward pass launched the flash kernel
-   once per attention layer;
+   answered by replays of the infer cache's CUDA graphs (captured by
+   `net.warmup` before the run), checks each answer against a direct
+   `net.output`, checks the flash path against the plain attention path in
+   f32 and times both f32 network outputs, times the coalesced batch's
+   forward through the cache and eagerly in turns, and checks that every
+   forward pass launched the flash kernel once per attention layer (a
+   replay counts what its capture launched);
 6. trains the same network with `MultiLayerNetwork.fit` (the JAX package's
    flagship training conf, bench.py:558-567: Adam, sparse labels, fused
    updater, fused attention backward, bf16 compute over f32 weights) for
-   TRAIN_STEPS one-step calls on one batch of 32 x 512 tokens, checks that
-   the scores are finite and fall and that each step launched the forward
-   kernel and each backward kernel once per attention layer, traces one
-   more step with `torch.profiler` (device time by kernel, idle share), and
-   checks the fused backward's gradients against the recompute path in f32
-   (the f32 backward kernels, once per attention layer);
+   TRAIN_STEPS one-step calls on one batch of 32 x 512 tokens, on two
+   networks from the same weights in turns: the default path (one captured
+   CUDA graph a step, replayed) and the eager one (`use_step_cache` and
+   `use_infer_cache` off); checks that the scores are finite and fall, that
+   each step launched the forward kernel and each backward kernel once per
+   attention layer on both paths, that the step was captured once, and
+   that the two paths' params agree within bf16 (2e-2 of max|param|);
+   traces one more step of each with `torch.profiler` (device time by
+   kernel, idle share), and checks the fused backward's gradients against
+   the recompute path in f32 (the f32 backward kernels, once per attention
+   layer);
 7. holds the fused LSTM cell kernel against its plain version at the
    char-LSTM bench shape (f32; on the row-block views of one W; bf16), at
    the CLI's ragged shape and at a tiny ragged one (each in f32 and bf16),
@@ -62,13 +70,19 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
 8. trains the bench's 4-layer char-LSTM (bench.py:252-261: vocab 50, embed
    and hidden 256, seq 64, batch 256, bf16 output layer, SGD with momentum)
    for LSTM_STEPS one-step `fit` calls on the word corpus of bench.py:1706,
-   checks that the scores fall and that every forward launched the cell
-   kernel 4 * 64 times, profiles one more step, and holds the kernel path
-   to the hoisted scan in f32 (outputs, gradients) and times both;
-9. runs the CLI north star in process (bench.py:1716-1719: `train --zoo
+   captured and eager in turns as in 6, checks that the scores fall, that
+   every forward launched the cell kernel 4 * 64 times and that the two
+   paths agree within bf16, profiles one more step of each, holds the
+   kernel path to the hoisted scan in f32 (outputs, gradients), and times
+   the fused and scan paths' step and `output`, each captured and eager;
+9. stops a checkpointed char-LSTM `fit` (the bench's widths, six batches)
+   by SIGTERM after three batches, reruns it from its checkpoint, and holds
+   it to two uninterrupted runs (`checkpoint` line);
+10. runs the CLI north star in process (bench.py:1716-1719: `train --zoo
    char_lstm:layers=4,hidden=128` over the corpus as text windows of 32),
-   then `predict` and `test` on its checkpoint;
-10. holds the embedding-row scatter-add kernel against its plain version at
+   the same with `--checkpoint-dir` in batches of 256, then `predict` and
+   `test` on its checkpoint;
+11. holds the embedding-row scatter-add kernel against its plain version at
    the word2vec step's shapes (syn1 from the bench vocabulary's Huffman
    points, syn0, syn1neg), a GloVe bias (D = 1), tiny ragged cases with
    duplicate and out-of-range indices at D = 5 and D = 1, bf16, every
@@ -76,14 +90,14 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    and a ragged D = 30: exact on integer-valued inputs, within the
    any-order summation bound on random ones, timed beside its plain
    version, `index_add_` and its bound;
-11. trains the bench's Word2Vec at full size (bench.py:368-385: vocab
+12. trains the bench's Word2Vec at full size (bench.py:368-385: vocab
    10,000, 1.2M zipf tokens, vector 128, window 5, negative 5, HS, batch
    32,768, 6 epochs) through `Word2Vec.fit`: words/s as bench.py:391
    computes it, step time, 3 scatter launches a step and profiled steps;
    then one epoch of the same with per-word AdaGrad, whose tables stay
    finite and whose loss on a fixed batch falls (the bench's SGD diverges,
    in the JAX package too);
-12. trains Word2Vec, ParagraphVectors and GloVe on the two-cluster corpus of
+13. trains Word2Vec, ParagraphVectors and GloVe on the two-cluster corpus of
    tests/test_embeddings.py and passes its similarity assertions, each
    launching the scatter kernel once per gather of every step.
 
@@ -94,6 +108,7 @@ non-zero before the last line. Without a CUDA device it exits 2 at once.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -885,7 +900,9 @@ def phase_serve(torch, kernels):
     rng = np.random.RandomState(0)
     xs = [rng.randint(0, SLICE["vocab"], (REQUEST_ROWS, SLICE["seq"]))
           for _ in range(REQUESTS)]
-    net.output(xs[0])  # first-call set-up (cuBLAS handles) outside the run
+    # first-call set-up (cuBLAS handles, the captures of the request's and
+    # the coalesced batch's buckets) outside the run
+    net.warmup([xs[0], np.concatenate(xs)])
     torch.cuda.synchronize()
 
     kernels.reset_launches()
@@ -938,6 +955,8 @@ def phase_serve(torch, kernels):
           f"flash launches {serve_launches} != {n_attn} x {flushes} flushes")
     check(serve_pad_copies == 0,
           f"the serve path made {serve_pad_copies} padding copies")
+    check(stats["degraded_batches"] == 0,
+          f"the served batches took the degraded path: {stats}")
 
     errs_direct = []
     kernels.reset_launches()
@@ -981,7 +1000,16 @@ def phase_serve(torch, kernels):
     # batch (CUDA events; host launch work included), and the host's JSON
     # work on one answer
     xb = np.concatenate(xs)
-    forward_ms = cuda_ms(lambda: net.output(xb), iters=5, warmup=1)
+    books = graph_books(net)
+    # the coalesced batch's forward through the infer cache (a replay) and
+    # eagerly (the cache off), in turns
+    forward = {"captured": [], "eager": []}
+    for cached in (True, False, False, True):
+        net.use_infer_cache = cached
+        forward["captured" if cached else "eager"].append(
+            cuda_ms(lambda: net.output(xb), iters=5, warmup=1))
+    net.use_infer_cache = True
+    forward_ms = min(forward["captured"])
     t = time.perf_counter()
     body = json.dumps({"output": answers[0].tolist()})
     encode_ms = (time.perf_counter() - t) * 1e3
@@ -994,7 +1022,8 @@ def phase_serve(torch, kernels):
           "requests": REQUESTS, "rows_per_request": REQUEST_ROWS,
           "latency_ms": latencies, "wall_s": wall_s,
           "server_latency_ms": stats["latency_ms"],
-          "forward_ms": forward_ms,
+          "forward_ms": forward_ms, "forward_ms_turns": forward,
+          "graph": books,
           "answer_json_encode_ms": encode_ms,
           "answer_json_decode_ms": decode_ms,
           "answer_json_bytes": len(body),
@@ -1072,49 +1101,117 @@ def train_conf(compute_dtype: str, fused_bwd: bool = True):
                                     for c in conf.confs))
 
 
+def twin_nets(conf):
+    """(captured, eager): a network on the default path, through the step
+    and infer caches (CUDA graphs), and one with both caches off, on the
+    same weights (seed 0)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    captured = MultiLayerNetwork(conf, device="cuda", seed=0).init()
+    eager = MultiLayerNetwork(conf, device="cuda", seed=0)
+    eager.params = tuple({k: v.clone() for k, v in layer.items()}
+                         for layer in captured.params)
+    eager.use_step_cache = eager.use_infer_cache = False
+    return captured, eager
+
+
+def params_gap(torch, net, ref):
+    """max |net - ref| over every param, max |ref|, and whether every param
+    is bitwise equal."""
+    from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+
+    pairs = list(zip(tree_leaves(net.params), tree_leaves(ref.params)))
+    return {"max_abs_diff": max((a - b).abs().max().item()
+                                for a, b in pairs),
+            "max_abs": max(b.abs().max().item() for _, b in pairs),
+            "bitwise": all(torch.equal(a, b) for a, b in pairs)}
+
+
+def graph_books(net) -> dict:
+    """Capture seconds (warm-up calls included), the bytes the captures
+    added to the device's reserved memory (one pool per network), and both
+    caches' books."""
+    return {"train_capture_s": net.step_cache.stats.total_compile_seconds,
+            "infer_capture_s": net.infer_cache.stats.total_compile_seconds,
+            "graph_pool_bytes": net.step_cache.pool.reserved_bytes,
+            "step_cache": net.step_cache.stats.as_dict(),
+            "infer_cache": net.infer_cache.stats.as_dict()}
+
+
+def median(values):
+    return sorted(values)[len(values) // 2]
+
+
+def idle_shares(profile, step_ms):
+    """The device's idle share of a step: its profiled device time against
+    the median event-timed step (`idle_share`), and against the profiled
+    step's own wall time, which the profiler's host work lengthens
+    (`idle_share_profiled`)."""
+    return {"device_ms": profile["device_ms"],
+            "idle_share": 1.0 - profile["device_ms"] / step_ms,
+            "idle_share_profiled": profile["idle_share"],
+            "profiled_wall_ms": profile["wall_ms"]}
+
+
+def train_turns(torch, kernels, nets, x, y, steps):
+    """`steps` one-step `fit` calls of each network in turns (captured
+    first on even steps, eager first on odd ones), each timed with CUDA
+    events and followed by a `score`. Returns per network the step times,
+    the scores (the first before any step) and each step's launches."""
+    rec = {k: {"step_ms": [], "scores": [net.score(x, y)], "launches": []}
+           for k, net in nets.items()}
+    for step in range(steps):
+        order = list(nets) if step % 2 == 0 else list(nets)[::-1]
+        for which in order:
+            net = nets[which]
+            kernels.reset_launches()
+            rec[which]["step_ms"].append(event_ms(torch,
+                                                  lambda: net.fit(x, y)))
+            rec[which]["launches"].append(dict(kernels.LAUNCHES))
+            rec[which]["scores"].append(net.score(x, y))
+    return rec
+
+
 def phase_train(torch, kernels):
     """`MultiLayerNetwork.fit` on the full-width charTransformer in bf16
     compute, one batch of TRAIN_ROWS x 512 tokens made as bench.py:571-574
-    makes it, TRAIN_STEPS calls of one Adam step each; then the fused
-    attention backward against the recompute path on the same weights in
-    f32. Returns the launches of every kernel over the training steps, and
-    those of the f32 fused gradient."""
-    from deeplearning4j_tpu_torch.nn.multilayer import (MultiLayerNetwork,
-                                                        network_loss)
+    makes it, TRAIN_STEPS calls of one Adam step each, on two networks from
+    the same weights in turns: the default path (one captured CUDA graph a
+    step, replayed) and the eager one (both caches off). Each step must
+    launch every attention kernel once per layer on both; after the steps
+    the two networks' params must agree within bf16 (2e-2 of max|param|).
+    Then one profiled step of each, and the fused attention backward
+    against the recompute path on the same weights in f32. Returns the
+    launches of every kernel over the training steps, and those of the f32
+    fused gradient."""
+    from deeplearning4j_tpu_torch.nn.multilayer import network_loss
     from deeplearning4j_tpu_torch.optimize.solver import from_loss
     from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
 
     vocab, seq = SLICE["vocab"], SLICE["seq"]
-    net = MultiLayerNetwork(train_conf("bfloat16"), device="cuda",
-                            seed=0).init()
+    net, eager = twin_nets(train_conf("bfloat16"))
+    nets = {"captured": net, "eager": eager}
     rng = np.random.RandomState(0)
     ids = rng.randint(0, vocab, (TRAIN_ROWS, seq + 1))
     x = ids[:, :-1].astype(np.int32)
     y = ids[:, 1:].reshape(TRAIN_ROWS * seq).astype(np.int32)
-    scores = [net.score(x, y)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_ms, step_launches = [], []
-    total = {name: 0 for name in kernels.LAUNCHES}
     kernels.PAD_COPIES = 0
-    for _ in range(TRAIN_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        kernels.reset_launches()
-        start.record()
-        net.fit(x, y)
-        stop.record()
-        torch.cuda.synchronize()
-        step_launches.append(dict(kernels.LAUNCHES))
-        for name, n in kernels.LAUNCHES.items():
-            total[name] += n
-        step_ms.append(start.elapsed_time(stop))
-        scores.append(net.score(x, y))
+    rec = train_turns(torch, kernels, nets, x, y, TRAIN_STEPS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     train_pad_copies = kernels.PAD_COPIES
-    profile_step(torch, kernels, net, x, y)
+    total = {name: sum(launches[name] for r in rec.values()
+                       for launches in r["launches"])
+             for name in kernels.LAUNCHES}
+    gap = params_gap(torch, net, eager)
+    profiles = {"captured": profile_step(torch, kernels, net, x, y),
+                "eager": profile_step(torch, kernels, eager, x, y,
+                                      phase="train_profile_eager")}
+    books = graph_books(net)
     n_attn = SLICE["n_blocks"]
-    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    del eager, nets
+    torch.cuda.empty_cache()
 
     # the fused backward against the recompute path, f32 compute, 2 rows
     xs = torch.as_tensor(x[:2], device="cuda")
@@ -1136,28 +1233,43 @@ def phase_train(torch, kernels):
         ratios.append(err / gmax if gmax > 0 else (0.0 if err == 0 else
                                                    float("inf")))
     del grads
-    torch.cuda.empty_cache()
 
+    def path(r, profile):
+        steady = median(r["step_ms"][1:])
+        return {"step_ms": r["step_ms"], "step_ms_median_2_on": steady,
+                "tokens_per_s": TRAIN_ROWS * seq / (steady / 1e3),
+                "scores": r["scores"], "launches_per_step": r["launches"],
+                **idle_shares(profile, steady)}
+
+    captured = path(rec["captured"], profiles["captured"])
     row = {"phase": "train", "config": SLICE, "compute_dtype": "bfloat16",
            "rows": TRAIN_ROWS, "tokens_per_step": TRAIN_ROWS * seq,
            "updater": "adam", "lr": TRAIN_LR, "fused_updater": True,
            "fused_bwd": True,
            "params": sum(t.numel() for t in tree_leaves(net.params)),
-           "scores": scores, "step_ms": step_ms, "step_ms_median_2_on": steady,
-           "tokens_per_s": TRAIN_ROWS * seq / (steady / 1e3),
-           "launches_per_step": step_launches, "peak_mem_gb": peak_gb,
-           "pad_copies_train": train_pad_copies,
+           **captured, "eager": path(rec["eager"], profiles["eager"]),
+           "graph": books, "captured_vs_eager_params": gap,
+           "peak_mem_gb": peak_gb, "pad_copies_train": train_pad_copies,
            "grad_check_rows": 2, "grad_check_dtype": "float32",
            "grad_check_launches": f32_launches,
            "grad_fused_vs_recompute_max_rel": max(ratios)}
     emit(row)
-    check(all(np.isfinite(s) for s in scores), f"non-finite score: {scores}")
-    check(scores[-1] < scores[0], f"the score did not fall: {scores}")
-    for launches in step_launches:
-        for name in ("flash_attn_fwd",) + BWD_KERNELS:
-            check(launches[name] == n_attn,
-                  f"a step launched {name} {launches[name]} times, want "
-                  f"{n_attn}: {launches}")
+    for which, r in rec.items():
+        scores = r["scores"]
+        check(all(np.isfinite(s) for s in scores),
+              f"{which}: non-finite score: {scores}")
+        check(scores[-1] < scores[0], f"{which}: the score did not fall: "
+              f"{scores}")
+        for launches in r["launches"]:
+            for name in ("flash_attn_fwd",) + BWD_KERNELS:
+                check(launches[name] == n_attn,
+                      f"{which}: a step launched {name} {launches[name]} "
+                      f"times, want {n_attn}: {launches}")
+    check(books["step_cache"]["misses"] == 1
+          and books["step_cache"]["hits"] == TRAIN_STEPS,
+          f"the train step was captured more than once: {books}")
+    check(gap["max_abs_diff"] <= 2e-2 * gap["max_abs"],
+          f"captured and eager params differ: {gap}")
     for name in BWD_KERNELS:
         check(f32_launches[name] == n_attn,
               f"the f32 fused gradient launched {name} "
@@ -1357,103 +1469,255 @@ def event_ms(torch, fn) -> float:
 
 def phase_lstm_train(torch, kernels):
     """`MultiLayerNetwork.fit` on the bench's 4-layer char-LSTM: LSTM_STEPS
-    one-step calls (SGD with momentum, lr 0.1), a score after each, and one
-    `output`; every forward must launch the cell kernel n_layers * seq
-    times. Then one profiled step, the fused path against the scan path in
-    f32 (outputs and gradients), and both paths' step and forward times in
-    turns. Returns the main path's launches."""
+    one-step calls (SGD with momentum, lr 0.1), a score after each, on two
+    networks from the same weights in turns, the default (captured) path
+    and the eager one, then one `output` of each; every forward must launch
+    the cell kernel n_layers * seq times (a replay counts what its capture
+    launched), and after the steps the two networks' params must agree
+    within bf16. Then one profiled step of each path, the fused path
+    against the scan path in f32 (outputs and gradients), and both LSTM
+    paths' step and `output` times, captured and eager, in turns. Returns
+    the main path's launches."""
     from deeplearning4j_tpu_torch.nn.multilayer import (MultiLayerNetwork,
                                                         network_loss,
                                                         network_output)
     from deeplearning4j_tpu_torch.optimize.solver import from_loss
     from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
 
-    net = MultiLayerNetwork(lstm_conf(), device="cuda", seed=0).init()
+    net, eager = twin_nets(lstm_conf())
+    nets = {"captured": net, "eager": eager}
     x, y = lstm_batch()
     per_fwd = LSTM["n_layers"] * LSTM["seq"]
     chars = LSTM["rows"] * LSTM["seq"]
-    scores = [net.score(x, y)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    step_ms, fwd_launches = [], []
-    for _ in range(LSTM_STEPS):
+    fwd_launches = []
+    rec = {k: {"step_ms": [], "scores": []} for k in nets}
+    for k, n in nets.items():
         before = kernels.LAUNCHES["lstm_cell"]
-        step_ms.append(event_ms(torch, lambda: net.fit(x, y)))
-        mid = kernels.LAUNCHES["lstm_cell"]
-        scores.append(net.score(x, y))
-        fwd_launches += [mid - before, kernels.LAUNCHES["lstm_cell"] - mid]
-    before = kernels.LAUNCHES["lstm_cell"]
-    out = net.output(x)
-    torch.cuda.synchronize()
-    fwd_launches.append(kernels.LAUNCHES["lstm_cell"] - before)
+        rec[k]["scores"].append(n.score(x, y))
+        fwd_launches.append(kernels.LAUNCHES["lstm_cell"] - before)
+    for step in range(LSTM_STEPS):
+        order = list(nets) if step % 2 == 0 else list(nets)[::-1]
+        for k in order:
+            n = nets[k]
+            before = kernels.LAUNCHES["lstm_cell"]
+            rec[k]["step_ms"].append(event_ms(torch, lambda: n.fit(x, y)))
+            mid = kernels.LAUNCHES["lstm_cell"]
+            rec[k]["scores"].append(n.score(x, y))
+            fwd_launches += [mid - before,
+                             kernels.LAUNCHES["lstm_cell"] - mid]
+    outs = {}
+    for k, n in nets.items():
+        before = kernels.LAUNCHES["lstm_cell"]
+        outs[k] = n.output(x)
+        torch.cuda.synchronize()
+        fwd_launches.append(kernels.LAUNCHES["lstm_cell"] - before)
     launches = kernels.LAUNCHES["lstm_cell"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gap = params_gap(torch, net, eager)
+    out_gap = (outs["captured"] - outs["eager"]).abs().max().item()
+    out = outs["captured"]
     check(tuple(out.shape) == (chars, LSTM["vocab"]),
           f"output shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "output has non-finite values")
-    profile = profile_step(torch, kernels, net, x, y,
-                           phase="lstm_train_profile", ours_key="lstm_cell")
+    del outs
+    profiles = {
+        "captured": profile_step(torch, kernels, net, x, y,
+                                 phase="lstm_train_profile",
+                                 ours_key="lstm_cell"),
+        "eager": profile_step(torch, kernels, eager, x, y,
+                              phase="lstm_train_profile_eager",
+                              ours_key="lstm_cell")}
+    books = graph_books(net)
+    output_ms = {}
+    for k in ("captured", "eager", "eager", "captured"):
+        output_ms.setdefault(k, []).append(
+            cuda_ms(lambda: nets[k].output(x), iters=3, warmup=1))
+    del eager, nets
 
     # the kernel path against the hoisted scan in f32, on these weights
     xs = torch.as_tensor(x, device="cuda")
     ys = torch.as_tensor(y, device="cuda")
-    outs, grads = {}, {}
+    f32_outs, grads = {}, {}
     for impl in ("fused", "scan"):
         conf = lstm_conf(impl, compute_dtype="")
         with torch.inference_mode():
-            outs[impl] = network_output(conf, net.params, xs)
+            f32_outs[impl] = network_output(conf, net.params, xs)
         objective = from_loss(lambda p, c=conf: network_loss(c, p, xs, ys))
         grads[impl] = tree_leaves(objective.grad_and_score(net.params)[0])
-    out_err = (outs["fused"] - outs["scan"]).abs().max().item()
-    out_max = outs["scan"].abs().max().item()
+    out_err = (f32_outs["fused"] - f32_outs["scan"]).abs().max().item()
+    out_max = f32_outs["scan"].abs().max().item()
     ratios = []
     for a, b in zip(grads["fused"], grads["scan"]):
         gmax = b.abs().max().item()
         err = (a - b).abs().max().item()
         ratios.append(err / gmax if gmax > 0 else (0.0 if err == 0 else
                                                    float("inf")))
-    del outs, grads
+    del f32_outs, grads
 
-    # both paths' train step and forward, in turns (fused, scan, scan,
-    # fused), each on a copy of the weights: two warm calls, two timed
-    turns = {"fused": {"step_ms": [], "output_ms": []},
-             "scan": {"step_ms": [], "output_ms": []}}
-    for impl in ("fused", "scan", "scan", "fused"):
+    # both LSTM paths' train step and output, captured and eager, in turns
+    # (each on a copy of the weights: two warm calls, the first of a
+    # captured network capturing, then two timed)
+    turns = {}
+    order = [("fused", True), ("scan", True), ("fused", False),
+             ("scan", False)]
+    for impl, cached in order + order[::-1]:
         other = MultiLayerNetwork(lstm_conf(impl), device="cuda", seed=0)
         other.params = tuple({k: v.clone() for k, v in layer.items()}
                              for layer in net.params)
+        other.use_step_cache = other.use_infer_cache = cached
+        t = turns.setdefault(f"{impl}_{'captured' if cached else 'eager'}",
+                             {"step_ms": [], "output_ms": []})
         for k in range(4):
             ms = event_ms(torch, lambda: other.fit(x, y))
             if k >= 2:
-                turns[impl]["step_ms"].append(ms)
-        turns[impl]["output_ms"].append(
-            cuda_ms(lambda: other.output(x), iters=3, warmup=1))
+                t["step_ms"].append(ms)
+        t["output_ms"].append(cuda_ms(lambda: other.output(x), iters=3,
+                                      warmup=1))
         del other
     torch.cuda.empty_cache()
 
-    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    def path(k):
+        steady = median(rec[k]["step_ms"][1:])
+        return {"step_ms": rec[k]["step_ms"], "step_ms_median_2_on": steady,
+                "chars_per_s": chars / (steady / 1e3),
+                "scores": rec[k]["scores"], "output_ms": output_ms[k],
+                **idle_shares(profiles[k], steady)}
+
     row = {"phase": "lstm_train", "config": LSTM, "compute_dtype": "bfloat16",
            "updater": "sgd+momentum", "lr": 0.1,
            "params": sum(t.numel() for t in tree_leaves(net.params)),
-           "scores": scores, "step_ms": step_ms,
-           "step_ms_median_2_on": steady,
-           "chars_per_s": chars / (steady / 1e3),
+           **path("captured"), "eager": path("eager"), "graph": books,
+           "captured_vs_eager_params": gap,
+           "captured_vs_eager_output_max_abs_diff": out_gap,
            "launches_per_forward": fwd_launches, "launches": launches,
-           "peak_mem_gb": peak_gb, "idle_share": profile["idle_share"],
+           "peak_mem_gb": peak_gb,
            "f32_fused_vs_scan_output_max_abs_err": out_err,
            "f32_fused_vs_scan_output_max": out_max,
            "f32_fused_vs_scan_grad_max_rel": max(ratios),
            "turns": turns}
     emit(row)
-    check(all(np.isfinite(s) for s in scores), f"non-finite score: {scores}")
-    check(scores[-1] < scores[0], f"the score did not fall: {scores}")
+    for k, r in rec.items():
+        scores = r["scores"]
+        check(all(np.isfinite(s) for s in scores),
+              f"{k}: non-finite score: {scores}")
+        check(scores[-1] < scores[0], f"{k}: the score did not fall: "
+              f"{scores}")
     check(all(n == per_fwd for n in fwd_launches),
           f"a forward launched lstm_cell {fwd_launches}, want {per_fwd} each")
+    check(books["step_cache"]["misses"] == 1,
+          f"the train step was captured more than once: {books}")
+    check(gap["max_abs_diff"] <= 2e-2 * gap["max_abs"],
+          f"captured and eager params differ: {gap}")
+    check(out_gap <= 2e-2, f"captured and eager outputs differ by {out_gap}")
     check(out_err <= 1e-5 * out_max,
           f"fused and scan outputs differ by {out_err} (max {out_max})")
     check(max(ratios) <= 1e-3,
           f"fused and scan gradients differ: {max(ratios)} of max|g|")
+    return launches
+
+
+class SigtermAfter:
+    """A listener that calls the SIGTERM handler `fit(checkpoint_dir=...)`
+    installs once `after` batches are done, standing in for the signal."""
+
+    def __init__(self, after):
+        self.after, self.n = after, 0
+
+    def iteration_done(self, model, iteration, score):
+        import signal
+
+        self.n += 1
+        if self.n == self.after:
+            signal.getsignal(signal.SIGTERM)(signal.SIGTERM, None)
+
+
+#: batches of the checkpoint phase's stream, and the one SIGTERM follows
+CKPT_BATCHES, CKPT_STOP = 6, 3
+
+
+def phase_checkpoint(torch, kernels):
+    """A checkpointed char-LSTM `fit` on the card, at the bench's widths: a
+    stream of CKPT_BATCHES batches (the word corpus, made long enough, cut
+    into the bench's 256 x 64 windows), stopped by SIGTERM after CKPT_STOP
+    batches and rerun from its checkpoint, against two uninterrupted runs.
+    The resumed run may differ from an uninterrupted one by no more than
+    two uninterrupted runs differ from each other. Returns the cell
+    kernel's launches."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator, PrefetchIterator)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.reliability import TrainingInterrupted
+
+    rows, seq = LSTM["rows"], LSTM["seq"]
+    n = CKPT_BATCHES * rows
+    # word_corpus(k) may come out a few characters short of k
+    text = word_corpus(2 * n * (seq + 1))[:n * (seq + 1)]
+    index = {c: k for k, c in enumerate(sorted(set(text)))}
+    ids = np.asarray([index[c] for c in text],
+                     np.int32).reshape(n, seq + 1)
+    data = DataSet(ids[:, :-1].copy(), ids[:, 1:].reshape(-1).copy())
+
+    def stream():
+        return PrefetchIterator(ListDataSetIterator(data, rows),
+                                device="cuda")
+
+    def fresh():
+        return MultiLayerNetwork(lstm_conf(), device="cuda", seed=0).init()
+
+    kernels.reset_launches()
+    runs = []
+    for _ in range(2):
+        net = fresh()
+        t = time.perf_counter()
+        net.fit(stream())
+        torch.cuda.synchronize()
+        runs.append((net, time.perf_counter() - t))
+    with tempfile.TemporaryDirectory() as td:
+        ck = f"{td}/ck"
+        first = fresh()
+        first.set_listeners([SigtermAfter(CKPT_STOP)])
+        try:
+            first.fit(stream(), checkpoint_dir=ck,
+                      checkpoint_every_n_batches=2)
+            interrupted = False
+        except TrainingInterrupted:
+            interrupted = True
+        resumed = fresh()
+        t = time.perf_counter()
+        resumed.fit(stream(), checkpoint_dir=ck,
+                    checkpoint_every_n_batches=2)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t
+    launches = kernels.LAUNCHES["lstm_cell"]
+    ref, other = runs[0][0], runs[1][0]
+    spread = params_gap(torch, other, ref)
+    gap = params_gap(torch, resumed, ref)
+    row = {"phase": "checkpoint", "config": LSTM, "batches": CKPT_BATCHES,
+           "sigterm_after": CKPT_STOP, "interrupted": interrupted,
+           "resumed_from_batch": resumed.resumed_from_batch,
+           "resumed_steps": resumed.step_cache.stats.steps,
+           "checkpoints_written": [first.checkpoints_written,
+                                   resumed.checkpoints_written],
+           "checkpoint_write_s": [first.checkpoint_write_seconds,
+                                  resumed.checkpoint_write_seconds],
+           "uninterrupted_fit_s": [s for _, s in runs],
+           "resumed_fit_s": resumed_s,
+           "uninterrupted_vs_uninterrupted": spread,
+           "resumed_vs_uninterrupted": gap, "launches": launches}
+    emit(row)
+    check(interrupted, "SIGTERM did not interrupt the checkpointed fit")
+    check(resumed.resumed_from_batch == CKPT_STOP
+          and resumed.step_cache.stats.steps == CKPT_BATCHES - CKPT_STOP,
+          f"the rerun did not resume at batch {CKPT_STOP}: {row}")
+    check(gap["max_abs_diff"] <= spread["max_abs_diff"],
+          f"the resumed run differs from an uninterrupted one by more than "
+          f"two uninterrupted runs differ: {gap} vs {spread}")
     return launches
 
 
@@ -1493,6 +1757,15 @@ def phase_lstm_cli(torch, kernels):
             ["train", "--input", uri, "--zoo",
              "char_lstm:layers=4,hidden=128", "--output", ckpt,
              "--properties", "epochs=1"])
+        # the crash-safe form: batches of 256 windows, a checkpoint every
+        # 4 of them and at the end
+        ck_train, l_ck, w_ck = run(
+            ["train", "--input", uri, "--zoo",
+             "char_lstm:layers=4,hidden=128", "--output", f"{td}/lstm4ck",
+             "--properties", "epochs=1,batch=256,checkpoint_every=4",
+             "--checkpoint-dir", f"{td}/ck"])
+        with open(f"{td}/ck/meta.json") as f:
+            ck_cursor = json.load(f)["data_cursor"]
         pred, l_pred, w_pred = run(["predict", "--input", uri, "--model",
                                     ckpt, "--output", csv_path])
         test, l_test, w_test = run(["test", "--input", uri, "--model",
@@ -1508,18 +1781,31 @@ def phase_lstm_cli(torch, kernels):
     row = {"phase": "lstm_cli", "windows": n_win, "seq": CLI_SEQ,
            "vocab": int(data.vocab_size), "train": train,
            "chars_per_s": train["examples_per_sec"] * CLI_SEQ,
+           "train_checkpointed": ck_train, "checkpoint_cursor": ck_cursor,
            "predict": pred, "test": test,
-           "launches": {"train": l_train, "predict": l_pred, "test": l_test},
-           "wall_s": {"train": w_train, "predict": w_pred, "test": w_test},
+           "launches": {"train": l_train, "train_checkpointed": l_ck,
+                        "predict": l_pred, "test": l_test},
+           "wall_s": {"train": w_train, "train_checkpointed": w_ck,
+                      "predict": w_pred, "test": w_test},
            "predict_vs_direct_max_abs_err": err}
     emit(row)
-    check(set(train) == {"saved", "score", "train_seconds",
-                         "examples_per_sec"} and np.isfinite(train["score"]),
-          f"train line {train}")
+    # the JAX package's train line (deeplearning4j_tpu/cli/driver.py:350-365)
+    train_keys = {"saved", "score", "resumed_from_step",
+                  "checkpoint_write_seconds", "train_seconds",
+                  "examples_per_sec", "compile_seconds", "cache_hits",
+                  "cache_misses", "infer_compile_seconds", "disk_cache"}
+    for line in (train, ck_train):
+        check(set(line) == train_keys and np.isfinite(line["score"]),
+              f"train line {line}")
+    n_batches = -(-n_win // 256)
+    check(ck_cursor == {"batches_done": n_batches}
+          and ck_train["checkpoint_write_seconds"] > 0
+          and ck_train["cache_hits"] == n_batches - ck_train["cache_misses"],
+          f"checkpointed train line {ck_train}, cursor {ck_cursor}")
     check(pred["n"] == n_win * CLI_SEQ, f"predict line {pred}")
     check(set(test) == {"accuracy", "f1"}
           and 0.0 <= test["accuracy"] <= 1.0, f"test line {test}")
-    check(min(l_train, l_pred, l_test) > 0,
+    check(min(l_train, l_ck, l_pred, l_test) > 0,
           f"a command never launched the cell kernel: {row['launches']}")
     check(probs.shape == direct.shape and err <= 2e-6,
           f"predict differs from net.output by {err}")
@@ -2105,7 +2391,10 @@ def main(argv) -> int:
     bwd_rows = phase_bwd_kernels(torch, kernels)
     reference_rows = phase_f32_reference(torch, kernels)
     serve_launches = phase_serve(torch, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_launches, f32_train_launches = phase_train(torch, kernels)
+    gc.collect()
     check(serve_launches["flash_attn_fwd"] > 0, "the flash kernel never ran")
     for name in ("flash_attn_fwd",) + BWD_KERNELS:
         check(train_launches[name] > 0, f"{name} never ran in training")
@@ -2113,9 +2402,10 @@ def main(argv) -> int:
     lstm_rows, lstm_layer = phase_lstm_kernel(torch, kernels)
     lstm_row = lstm_rows["bench"]
     lstm_train_launches = phase_lstm_train(torch, kernels)
+    ckpt_launches = phase_checkpoint(torch, kernels)
     lstm_cli_launches = phase_lstm_cli(torch, kernels)
-    check(lstm_train_launches > 0 and lstm_cli_launches > 0,
-          "the LSTM cell kernel never ran")
+    check(lstm_train_launches > 0 and lstm_cli_launches > 0
+          and ckpt_launches > 0, "the LSTM cell kernel never ran")
     torch.cuda.empty_cache()
     sents = bench_sentences()
     fixed = w2v_fixed_batch(torch, sents)
@@ -2211,8 +2501,9 @@ def main(argv) -> int:
         "name": "lstm_cell", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/lstm_cell.cu",
         "replaces": "deeplearning4j_tpu/nd/pallas_kernels.py:529",
-        "launches": lstm_train_launches + lstm_cli_launches,
+        "launches": lstm_train_launches + ckpt_launches + lstm_cli_launches,
         "launches_by_path": {"lstm_train": lstm_train_launches,
+                             "checkpoint": ckpt_launches,
                              "lstm_cli": lstm_cli_launches},
         "max_abs_err": lstm_row["max_abs_err"], "ms": lstm_row["kernel_ms"],
         "plain_ms": lstm_row["plain_ms"], "bound_ms": lstm_row["bound_ms"],

@@ -6,7 +6,10 @@ unless `--device cpu`):
   (char_lstm, char_transformer) or `--model conf.json`, trains it
   `epochs` times over the data (whole, or in `batch`-example batches
   through the prefetcher) with `--properties epochs=N,batch=M`, and saves a
-  checkpoint that either package reads;
+  checkpoint that either package reads. With `--checkpoint-dir` the run is
+  one batch stream over every epoch, checkpointed every `checkpoint_every`
+  batches (`--properties`, default 10): SIGTERM checkpoints and exits 0
+  with an `interrupted` line, and a rerun with the same flags resumes;
 - `test` evaluates a checkpoint (accuracy, precision, recall, F1) and
   `predict` writes its argmax and class probabilities as CSV;
 - `serve` loads a checkpoint, starts the micro-batching HTTP gateway,
@@ -14,13 +17,13 @@ unless `--device cpu`):
   final JSON line.
 Checkpoints are `conf.json` + `arrays.npz`, written by either package.
 
-The final JSON lines keep the JAX package's keys that the port can fill
-(`saved`, `score`, `train_seconds`, `examples_per_sec`; `accuracy`, `f1`;
-`written`, `n`). The compile-cache keys are left out: the port has no
-compiled step or serve cache yet (ROADMAP.md queue A item 7). Options that
-are not ported exit naming their ROADMAP.md item: `--runtime mesh`,
-`--mesh` and `--zero1` (item 10), `--checkpoint-dir` (item 6),
-`--compile-cache` (item 7), pretraining recipes (item 9).
+The final JSON lines keep the JAX package's keys. `train`'s: `saved`,
+`score`, `resumed_from_step`, `checkpoint_write_seconds`, `train_seconds`,
+`examples_per_sec`, and the caches' `compile_seconds` (capture seconds),
+`cache_hits`, `cache_misses` and `infer_compile_seconds`; `disk_cache` is
+null, as a CUDA graph is not kept on disk. Options that are not ported exit
+naming their ROADMAP.md item: `--runtime mesh`, `--mesh` and `--zero1`
+(item 10), `--compile-cache` (item 11), pretraining recipes (item 9).
 """
 
 from __future__ import annotations
@@ -46,8 +49,10 @@ def _parse_properties(props: Optional[str]) -> dict:
 def _refuse_unported(args) -> None:
     if getattr(args, "compile_cache", None):
         raise SystemExit("--compile-cache is not ported to "
-                         "deeplearning4j_tpu_torch yet (no compiled step or "
-                         "serve cache); see ROADMAP.md queue A item 7")
+                         "deeplearning4j_tpu_torch yet (the step and serve "
+                         "caches hold CUDA graphs, which cannot be written "
+                         "to disk; persist.py comes with ROADMAP.md queue A "
+                         "item 11)")
     if (getattr(args, "runtime", "local") == "mesh"
             or getattr(args, "mesh", None) is not None
             or getattr(args, "zero1", False)):
@@ -55,10 +60,6 @@ def _refuse_unported(args) -> None:
                          "tensor parallel training) are not ported to "
                          "deeplearning4j_tpu_torch yet; see ROADMAP.md queue "
                          "A item 10")
-    if getattr(args, "checkpoint_dir", None):
-        raise SystemExit("--checkpoint-dir (crash-safe resumable training) "
-                         "is not ported to deeplearning4j_tpu_torch yet; see "
-                         "ROADMAP.md queue A item 6")
 
 
 def _load_data(args):
@@ -107,12 +108,14 @@ def _zoo_conf(spec: str, data):
 
 def cmd_train(args) -> int:
     from deeplearning4j_tpu_torch.datasets.dataset import DataSet
-    from deeplearning4j_tpu_torch.datasets.iterator import PrefetchIterator
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator, MultipleEpochsIterator, PrefetchIterator)
     from deeplearning4j_tpu_torch.nd.losses import LossFunction
     from deeplearning4j_tpu_torch.nn.conf import (LayerType,
                                                   MultiLayerConfiguration)
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.parallel import checkpoint
+    from deeplearning4j_tpu_torch.reliability import TrainingInterrupted
 
     _refuse_unported(args)
     data = _load_data(args)
@@ -145,29 +148,59 @@ def cmd_train(args) -> int:
     out_lf = conf.conf(conf.n_layers - 1).loss_function
     reconstruction = (LossFunction(str(out_lf))
                       == LossFunction.RECONSTRUCTION_CROSSENTROPY)
+    targets = data.features if reconstruction else data.labels
     net = MultiLayerNetwork(conf, device=args.device).init()
     t_train = time.perf_counter()
-    for _ in range(epochs):
-        if batch > 0:
-            for b in PrefetchIterator(data.batch_by(batch),
-                                      device=net.device):
-                net.fit(b.features,
-                        b.features if reconstruction else b.labels)
-        else:
-            net.fit(data.features,
-                    data.features if reconstruction else data.labels)
-    # each fit ends in the solver's read-back of its score: the work is done
+    if args.checkpoint_dir:
+        # one batch stream over every epoch, so that the checkpoint's one
+        # cursor addresses the whole run and a rerun replays the stream up
+        # to it, then resumes
+        if epochs > 0:
+            stream = ListDataSetIterator(
+                DataSet(data.features, targets),
+                batch if batch > 0 else data.num_examples())
+            if epochs > 1:
+                stream = MultipleEpochsIterator(epochs, stream)
+            try:
+                net.fit(PrefetchIterator(stream, device=net.device),
+                        checkpoint_dir=args.checkpoint_dir,
+                        checkpoint_every_n_batches=int(
+                            props.get("checkpoint_every", "10")))
+            except TrainingInterrupted as e:
+                # checkpointed on the way out: a rerun with the same flags
+                # resumes at the cursor
+                print(json.dumps({"interrupted": True,
+                                  "checkpoint": args.checkpoint_dir,
+                                  "detail": str(e)}), flush=True)
+                return 0
+    else:
+        for _ in range(epochs):
+            if batch > 0:
+                for b in PrefetchIterator(data.batch_by(batch),
+                                          device=net.device):
+                    net.fit(b.features,
+                            b.features if reconstruction else b.labels)
+            else:
+                net.fit(data.features, targets)
+    # each fit ends in the solver's read-back of its scores: the work is done
     train_seconds = time.perf_counter() - t_train
-    score = net.score(data.features,
-                      data.features if reconstruction else data.labels)
+    score = net.score(data.features, targets)
     checkpoint.save(args.output, net.params, conf=conf,
                     metadata={"score": score, "input": args.input})
     n_trained = data.num_examples() * epochs
+    cs, ic = net.step_cache.stats, net.infer_cache.stats
     print(json.dumps({"saved": args.output, "score": score,
+                      "resumed_from_step": net.resumed_from_batch,
+                      "checkpoint_write_seconds": round(
+                          net.checkpoint_write_seconds, 3),
                       "train_seconds": round(train_seconds, 3),
                       "examples_per_sec": round(
-                          n_trained / max(train_seconds, 1e-9), 2)}),
-          flush=True)
+                          n_trained / max(train_seconds, 1e-9), 2),
+                      "compile_seconds": round(cs.total_compile_seconds, 3),
+                      "cache_hits": cs.hits, "cache_misses": cs.misses,
+                      "infer_compile_seconds": round(
+                          ic.total_compile_seconds, 3),
+                      "disk_cache": None}), flush=True)
     return 0
 
 
@@ -273,7 +306,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--normalize", action="store_true",
                    help="zero-mean/unit-variance features")
     p.add_argument("--compile-cache", dest="compile_cache", default=None,
-                   metavar="DIR", help="not ported yet (exits)")
+                   metavar="DIR", help="not ported yet (exits): a CUDA "
+                   "graph is not kept on disk")
     _add_device(p)
 
 
@@ -296,9 +330,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported yet (exits)")
     t.add_argument("--properties", default=None,
                    help="k=v[,k=v...]: epochs (default 1), batch (examples "
-                        "per fit call; 0, the default, is the whole data)")
+                        "per fit call; 0, the default, is the whole data), "
+                        "checkpoint_every (batches between checkpoints with "
+                        "--checkpoint-dir; default 10)")
     t.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None,
-                   metavar="DIR", help="not ported yet (exits)")
+                   metavar="DIR",
+                   help="crash-safe training: checkpoint params and the "
+                        "batch cursor here; SIGTERM checkpoints and exits, "
+                        "a rerun resumes")
     t.set_defaults(fn=cmd_train)
 
     te = sub.add_parser("test", help="evaluate a checkpoint")

@@ -17,6 +17,7 @@ import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.nd.platform import resolve_device
+from deeplearning4j_tpu_torch.reliability import faults
 
 
 class DataSetIterator:
@@ -200,6 +201,9 @@ class PrefetchIterator:
             self.base.reset()
         pending = collections.deque()
         for item in self.base:
+            # an armed fault stands for a worker that dies mid-epoch, as
+            # at the JAX package's prefetch worker
+            faults.fire("prefetch.worker")
             pending.append(self._stage(item))
             if len(pending) > PREFETCH_DEPTH:
                 yield self._hand_over(*pending.popleft())

@@ -15,19 +15,20 @@ _NEG_BIG = -1e30  # finite -inf stand-in: keeps exp() NaN-free on masked rows
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """[B,Sq,H,D] x [B,Sk,H,D] -> [B,H,Sq,Sk], scaled."""
+    """[B,Sq,H,D] x [B,Sk,H,D] -> [B,H,Sq,Sk], scaled by sqrt(D) rounded to
+    q's dtype. The rounding is done on the host, so that no host-to-device
+    copy breaks a CUDA-graph capture."""
     d = q.shape[-1]
-    return torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.tensor(
-        math.sqrt(d), dtype=q.dtype, device=q.device)
+    return torch.einsum("bqhd,bkhd->bhqk", q, k) / float(
+        torch.tensor(math.sqrt(d), dtype=q.dtype))
 
 
 def _causal_mask(sq: int, sk: int, k_off: int, dtype,
                  device) -> torch.Tensor:
     qpos = torch.arange(sq, device=device)[:, None]
     kpos = k_off + torch.arange(sk, device=device)[None, :]
-    return torch.where(kpos <= qpos, torch.tensor(0.0, dtype=dtype,
-                                                  device=device),
-                       torch.tensor(_NEG_BIG, dtype=dtype, device=device))
+    return torch.zeros((sq, sk), dtype=dtype, device=device).masked_fill_(
+        kpos > qpos, _NEG_BIG)
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,7 +14,9 @@ Each kernel has, beside it here:
   kernel or raises;
 - a plain PyTorch version that repeats the kernel's arithmetic, for the CPU
   and for holding the kernel to on the card;
-- a launch count in `LAUNCHES`, raised by one where the kernel launches.
+- a launch count in `LAUNCHES`, raised by one where the kernel launches
+  (and, for a replayed CUDA graph, by what its capture launched:
+  `count_launches`).
 
 Kernels ported so far (see ROADMAP.md queue B for the rest):
 - `flash_attention`: `_flash_attn_kernel` forward, with the optional
@@ -95,6 +97,16 @@ def reset_launches() -> None:
 def _count(name: str) -> None:
     with _lock:
         LAUNCHES[name] += 1
+
+
+def count_launches(counts: Dict[str, int]) -> None:
+    """Add `counts` (kernel name -> launches, negative to take back) to
+    LAUNCHES. The wrappers count on the host, so a CUDA-graph replay, which
+    launches the kernels without running their wrappers, is counted here by
+    what its capture counted (`optimize/step_cache.py`)."""
+    with _lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

@@ -8,6 +8,9 @@ This slice ports inference; dropout and dropconnect come with training.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 from deeplearning4j_tpu_torch.nd.ops import activate
@@ -83,10 +86,29 @@ def check_ids(ids: torch.Tensor, vocab: int) -> None:
                          f"from {lo} to {hi}")
 
 
+_host_checked = threading.local()
+
+
+@contextlib.contextmanager
+def ids_checked():
+    """Inside this context `EmbeddingLayer.forward` skips `check_ids`: the
+    caller has checked the ids on the host already. The check reads two
+    values back to the host, which a CUDA graph cannot hold, so the cached
+    entry points (`optimize/step_cache.py`) check their input first and run
+    their programs inside it. Per thread."""
+    prev = getattr(_host_checked, "on", False)
+    _host_checked.on = True
+    try:
+        yield
+    finally:
+        _host_checked.on = prev
+
+
 class EmbeddingLayer:
     """Integer ids -> embedding rows (a gather). With conf.max_seq_len > 0
     a learned positional table "P" is added over the sequence axis. Ids
-    outside [0, vocab) raise ValueError (`check_ids`)."""
+    outside [0, vocab) raise ValueError (`check_ids`), unless the caller
+    checked them already (`ids_checked`)."""
 
     @staticmethod
     def init(gen, conf):
@@ -103,7 +125,8 @@ class EmbeddingLayer:
     @staticmethod
     def forward(params, conf, x):
         ids = x.long()
-        check_ids(ids, params["W"].shape[0])
+        if not getattr(_host_checked, "on", False):
+            check_ids(ids, params["W"].shape[0])
         e = params["W"][ids]
         if "P" in params and e.dim() >= 2:
             s = e.shape[-2]

@@ -57,11 +57,14 @@ class LSTMLayer:
 
     @staticmethod
     def _use_fused(conf, x) -> bool:
-        # "auto" is the kernel on a CUDA tensor, as the port's attention
-        # "auto" is flash, and the hoisted scan on the CPU, as the JAX
-        # package's is off the TPU. The JAX package's TPU measurement
-        # (lstm.py:57-63, Pallas cell vs scan on v5e) does not carry over:
-        # chip_smoke.py times both paths on the H100 for a later decision.
+        # "auto" is the kernel on a CUDA tensor and the hoisted scan on the
+        # CPU, as the JAX package's is off the TPU. On the H100 the kernel
+        # wins both entry points on the default (captured) path, so one
+        # rule serves both: at the bench's char-LSTM a captured train step
+        # takes 49.5-49.8 ms fused against 55.6-55.9 ms scan, and a
+        # captured `output` 4.2-4.3 ms against 9.3-9.5 ms (chip_smoke.py's
+        # lstm_train turns, PERF.md). The JAX package's TPU measurement
+        # (lstm.py:57-63, Pallas cell vs scan on v5e) does not carry over.
         impl = getattr(conf, "lstm_impl", "auto")
         if impl == "auto":
             return x.is_cuda

@@ -3,32 +3,55 @@
 Counterpart of `deeplearning4j_tpu/nn/multilayer.py`: `init_params`,
 `feed_forward`, `network_output`, the losses (`network_loss`,
 `network_rowwise_loss`, `make_finetune_loss`, `network_regularization`),
-and `MultiLayerNetwork` with `init` / `output` / `predict` / `score` /
-`evaluate` / `fit` / `serve`. Params are a tuple of dicts of tensors with the JAX
-package's key names, so `parallel/checkpoint.py` carries weights both ways.
+and `MultiLayerNetwork` with `init` / `output` / `feed_forward` /
+`predict` / `score` / `evaluate` / `fit` / `warmup` / `serve`. Params are a
+tuple of dicts of tensors with the JAX package's key names, so
+`parallel/checkpoint.py` carries weights both ways.
 Gradients come from autograd through the plain forward.
 
+As in the JAX package, `finetune` (so `fit`) runs through the network's
+`step_cache` and `output` / `feed_forward` / `score` of batched input
+through its `infer_cache`: on CUDA one captured CUDA graph per (entry
+point, conf, bucket), replayed (`optimize/step_cache.py`,
+`optimize/infer_cache.py`). A graph reads the params by address, so the
+train step writes its result into the param tensors in place, and
+assigning another params tree drops the network's graphs.
+`use_step_cache=False` / `use_infer_cache=False` give the eager paths.
+`fit(checkpoint_dir=...)` is crash-safe and resumable, as in the JAX
+package.
+
 Not ported yet: dropout under training (JAX's threefry masks cannot be
-reproduced; ROADMAP.md queue A item 3), BatchNorm training, layer-wise
-pretraining, and `fit(checkpoint_dir=...)`.
+reproduced; ROADMAP.md queue A item 3), BatchNorm training and layer-wise
+pretraining.
 """
 
 from __future__ import annotations
 
+import logging
+import signal
+import threading
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nd.platform import resolve_device
-from deeplearning4j_tpu_torch.nn.conf import LayerType, MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers import get_layer
-from deeplearning4j_tpu_torch.nn.layers.base import check_ids
 from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
 from deeplearning4j_tpu_torch.nn.layers.preprocessor import apply_preprocessor
 from deeplearning4j_tpu_torch.optimize import solver as solver_mod
+from deeplearning4j_tpu_torch.optimize import step_cache as step_cache_mod
+from deeplearning4j_tpu_torch.optimize.infer_cache import InferCache
 from deeplearning4j_tpu_torch.optimize.listeners import \
     dispatch as dispatch_listeners
+from deeplearning4j_tpu_torch.optimize.step_cache import (GraphPool,
+                                                          TrainStepCache)
+from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+from deeplearning4j_tpu_torch.reliability import TrainingInterrupted
+
+log = logging.getLogger("deeplearning4j_tpu_torch")
 
 
 def init_params(conf: MultiLayerConfiguration,
@@ -148,12 +171,47 @@ class MultiLayerNetwork:
         if seed is None:
             seed = conf.confs[0].seed if conf.confs else 123
         self.seed = int(seed)
-        self.params: Optional[tuple] = None
+        # one captured program per (conf, algorithm, bucket) for the train
+        # step, and per (entry point, conf, bucket) for inference, in one
+        # memory pool; use_*_cache=False runs the eager paths
+        pool = GraphPool()
+        self.step_cache = TrainStepCache(pool=pool)
+        self.use_step_cache = True
+        self.infer_cache = InferCache(pool=pool)
+        self.use_infer_cache = True
+        self._params: Optional[tuple] = None
+        self._gen: Optional[torch.Generator] = None
         self.listeners: List = []
+        # set by SIGTERM or request_stop_training; fit(checkpoint_dir=...)
+        # checks it between batches
+        self._stop_training = threading.Event()
+        # crash-resume books, reported by the CLI's train JSON
+        self.resumed_from_batch: Optional[int] = None
+        self.checkpoint_write_seconds = 0.0
+        self.checkpoints_written = 0
+
+    @property
+    def params(self) -> Optional[tuple]:
+        return self._params
+
+    @params.setter
+    def params(self, value) -> None:
+        """Assign a params tree. The network's CUDA graphs read the tensors
+        they were captured with, so a tree of other tensors drops them (the
+        next call captures anew)."""
+        old, self._params = self._params, value
+        if old is None or value is old:
+            return
+        new_leaves = tree_leaves(value) if value is not None else []
+        old_leaves = tree_leaves(old)
+        if len(new_leaves) != len(old_leaves) or any(
+                a is not b for a, b in zip(new_leaves, old_leaves)):
+            self.step_cache.drop_graphs()
+            self.infer_cache.drop_graphs()
 
     def init(self) -> "MultiLayerNetwork":
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.params = init_params(self.conf, gen)
+        self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.params = init_params(self.conf, self._gen)
         return self
 
     def set_listeners(self, listeners) -> None:
@@ -173,24 +231,97 @@ class MultiLayerNetwork:
         take: token ids outside [0, vocab) for an embedding. The batcher
         calls it per request, so one bad request neither reaches the
         device nor fails the batch it would have joined."""
-        c = self.conf.conf(0)
-        if c.layer_type == LayerType.EMBEDDING:
-            check_ids(torch.as_tensor(np.asarray(x)).long(), c.n_in)
+        step_cache_mod.check_input(self.conf, np.asarray(x) if not isinstance(
+            x, torch.Tensor) else x)
+
+    def warmup(self, shapes, entries=("output",), train: bool = False):
+        """Capture the serve (and with `train`, train) programs for the
+        given batch shapes ahead of traffic, so that the first real call is
+        a hit. `shapes`: batch sizes (int: (b, n_in) float32 zeros), full
+        input shapes (tuple: float32 zeros) or example arrays (an embedding
+        net wants its int ids). `entries`: "output", "feed_forward",
+        "loss". Labels for "loss" and the train step are zeros: int32 class
+        ids where the output layer's conf has `sparse_labels`, else shaped
+        and typed like the network's output. Returns the shapes, the
+        entries and both caches' stats."""
+        if self.params is None:
+            self.init()
+        captured = []
+        for spec in shapes:
+            if isinstance(spec, int):
+                x = torch.zeros((spec, self.conf.confs[0].n_in),
+                                device=self.device)
+            elif isinstance(spec, tuple):
+                x = torch.zeros(spec, device=self.device)
+            else:
+                x = self._input(spec)
+            y = None
+            if train or "loss" in entries:
+                with torch.no_grad():
+                    out = network_output(self.conf, self.params, x)
+                out_conf = self.conf.conf(self.conf.n_layers - 1)
+                # int class ids where the conf trains on them, else rows
+                # like the output
+                y = (torch.zeros(out.shape[:-1], dtype=torch.int32,
+                                 device=self.device)
+                     if out_conf.sparse_labels else torch.zeros_like(out))
+            for entry in entries:
+                if entry == "output":
+                    self.infer_cache.output(self.conf, self.params, x,
+                                            compile_only=True)
+                elif entry == "feed_forward":
+                    self.infer_cache.feed_forward(self.conf, self.params, x,
+                                                  compile_only=True)
+                elif entry == "loss":
+                    self.infer_cache.loss(self.conf, self.params, x, y,
+                                          compile_only=True)
+                else:
+                    raise ValueError(f"unknown warmup entry {entry!r}")
+            if train:
+                self.step_cache.finetune(self.conf, self.params, x, y,
+                                         compile_only=True)
+            captured.append(tuple(x.shape))
+        return {"shapes": captured, "entries": list(entries),
+                "train": bool(train),
+                "step_cache": self.step_cache.stats.as_dict(),
+                "infer_cache": self.infer_cache.stats.as_dict()}
+
+    # -- inference -----------------------------------------------------------
+    def _serve_cached(self, x: torch.Tensor) -> bool:
+        """Batched input (axis 0 = rows, which buckets pad) with the cache
+        on."""
+        return self.use_infer_cache and x.dim() >= 2
+
+    def feed_forward(self, x) -> list:
+        """Every layer's activations on `x`."""
+        x = self._input(x)
+        with torch.inference_mode():
+            if self._serve_cached(x):
+                return self.infer_cache.feed_forward(self.conf, self.params,
+                                                     x)
+            return feed_forward(self.conf, self.params, x)
 
     def output(self, x) -> torch.Tensor:
         """The network's output on `x`, as a tensor on the network's
         device."""
+        x = self._input(x)
         with torch.inference_mode():
-            return network_output(self.conf, self.params, self._input(x))
+            if self._serve_cached(x):
+                return self.infer_cache.output(self.conf, self.params, x)
+            return network_output(self.conf, self.params, x)
 
     def predict(self, x) -> np.ndarray:
         return self.output(x).argmax(dim=-1).cpu().numpy()
 
     def score(self, x, labels) -> float:
         """The network's loss on (x, labels), regularization included."""
+        x, labels = self._input(x), self._input(labels)
         with torch.inference_mode():
-            return float(network_loss(self.conf, self.params, self._input(x),
-                                      self._input(labels), training=False))
+            if self._serve_cached(x):
+                return float(self.infer_cache.loss(self.conf, self.params, x,
+                                                   labels))
+            return float(network_loss(self.conf, self.params, x, labels,
+                                      training=False))
 
     def evaluate(self, data, labels=None, batch_size: int = 0,
                  prefetch: bool = True):
@@ -206,18 +337,24 @@ class MultiLayerNetwork:
 
     # -- training ------------------------------------------------------------
     def finetune(self, x, labels) -> None:
-        """Supervised end-to-end optimization of `network_loss` on one batch
-        with the output layer's solver. The updater state starts at zero on
-        every call, as in the JAX package (its solver initializes the
-        updater inside each run): with one iteration, every batch is an
-        Adam step at t=1. Persistent updater state across batches is the
-        data-parallel trainer's (ROADMAP.md queue A item 10)."""
+        """Supervised end-to-end optimization of the loss on one batch with
+        the output layer's solver: through `step_cache` by default (the
+        row-weighted loss, the batch padded to its bucket, on CUDA one
+        captured graph replayed), else eagerly on `network_loss`. The
+        updater state starts at zero on every call, as in the JAX package
+        (its solver initializes the updater inside each run): with one
+        iteration, every batch is an Adam step at t=1. Persistent updater
+        state across batches is the data-parallel trainer's (ROADMAP.md
+        queue A item 10)."""
         x, labels = self._input(x), self._input(labels)
         conf = self.conf
-        objective = solver_mod.from_loss(
-            lambda p: network_loss(conf, p, x, labels, training=True))
-        self.params, scores = solver_mod.optimize(
-            objective, self.params, conf.conf(conf.n_layers - 1))
+        if self.use_step_cache:
+            scores = self.step_cache.finetune(conf, self.params, x, labels)
+        else:
+            objective = solver_mod.from_loss(
+                lambda p: network_loss(conf, p, x, labels, training=True))
+            self.params, scores = solver_mod.optimize(
+                objective, self.params, conf.conf(conf.n_layers - 1))
         dispatch_listeners(self.listeners, self, scores)
 
     def _fit_batch(self, x, y) -> None:
@@ -229,21 +366,104 @@ class MultiLayerNetwork:
             self.finetune(x, y)
 
     def fit(self, data, labels=None, *,
-            checkpoint_dir: Optional[str] = None) -> None:
+            checkpoint_dir: Optional[str] = None,
+            checkpoint_every_n_batches: int = 0,
+            auto_resume: bool = True) -> None:
         """Train on a DataSet, an (x, y) pair, or an iterator or list of
-        them; each batch is one `finetune`."""
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "fit(checkpoint_dir=...) is not ported to "
-                "deeplearning4j_tpu_torch yet; see ROADMAP.md queue A item 6")
+        them; each batch is one `finetune`.
+
+        With `checkpoint_dir` the run is crash-safe, as in the JAX package:
+        params, the generator state and the batch cursor are checkpointed
+        atomically every `checkpoint_every_n_batches` batches (0: never in
+        between) and at the end; a SIGTERM (handled on the main thread) or
+        `request_stop_training` checkpoints after the current batch and
+        raises `TrainingInterrupted`; and a rerun with the same directory
+        and the same batch stream resumes at the saved cursor
+        (`auto_resume`), reaching the params of one uninterrupted run. The
+        updater restarts on every batch, so params and the generator are
+        all the state there is."""
         if self.params is None:
             self.init()
         batches = [(data, labels)] if labels is not None \
             else _as_batches(data)
-        for batch in batches:
-            x, y = batch if isinstance(batch, tuple) else (
-                batch.features, batch.labels)
-            self._fit_batch(x, y)
+        if checkpoint_dir is None:
+            for batch in batches:
+                self._fit_batch(*_pair(batch))
+            return
+        self._fit_checkpointed(batches, checkpoint_dir,
+                               int(checkpoint_every_n_batches), auto_resume)
+
+    def request_stop_training(self) -> None:
+        """Ask a running `fit(checkpoint_dir=...)` to checkpoint and raise
+        `TrainingInterrupted` after the current batch (what the installed
+        SIGTERM handler calls)."""
+        self._stop_training.set()
+
+    def _save_checkpoint(self, directory: str, batches_done: int) -> None:
+        from deeplearning4j_tpu_torch.parallel import checkpoint as ckpt
+
+        t0 = time.perf_counter()
+        meta = {}
+        if self._gen is not None:
+            # where the JAX package saves its PRNG key: the generator's
+            # state bytes, as hex
+            meta["torch_generator_state"] = bytes(
+                self._gen.get_state().numpy()).hex()
+        ckpt.save(directory, self.params, conf=self.conf, step=batches_done,
+                  data_cursor={"batches_done": int(batches_done)},
+                  metadata=meta)
+        self.checkpoint_write_seconds += time.perf_counter() - t0
+        self.checkpoints_written += 1
+
+    def _fit_checkpointed(self, batches, checkpoint_dir: str, every_n: int,
+                          auto_resume: bool) -> None:
+        from deeplearning4j_tpu_torch.parallel import checkpoint as ckpt
+
+        start_batch = 0
+        if auto_resume:
+            restored = ckpt.load_resilient(checkpoint_dir,
+                                           like_params=self.params)
+            if restored is not None:
+                params, _, meta = restored
+                self.params = params
+                start_batch = int(
+                    (meta.get("data_cursor") or {}).get("batches_done", 0))
+                state = (meta.get("metadata") or {}).get(
+                    "torch_generator_state")
+                if state is not None and self._gen is not None:
+                    self._gen.set_state(torch.frombuffer(
+                        bytearray.fromhex(state), dtype=torch.uint8))
+                self.resumed_from_batch = start_batch
+                log.info("fit: auto-resumed %s at batch %d", checkpoint_dir,
+                         start_batch)
+        self._stop_training.clear()
+        prev_handler, installed = None, False
+        if threading.current_thread() is threading.main_thread():
+            try:
+                prev_handler = signal.signal(
+                    signal.SIGTERM,
+                    lambda signum, frame: self._stop_training.set())
+                installed = True
+            except ValueError:
+                pass  # an embedding without signals: explicit stop only
+        n_done = 0
+        try:
+            for batch in batches:
+                n_done += 1
+                if n_done <= start_batch:
+                    continue  # replaying the resumed prefix of the stream
+                self._fit_batch(*_pair(batch))
+                if self._stop_training.is_set():
+                    self._save_checkpoint(checkpoint_dir, n_done)
+                    raise TrainingInterrupted(
+                        f"stop requested: checkpointed {checkpoint_dir} at "
+                        f"batch {n_done}")
+                if every_n > 0 and n_done % every_n == 0:
+                    self._save_checkpoint(checkpoint_dir, n_done)
+            self._save_checkpoint(checkpoint_dir, n_done)
+        finally:
+            if installed:
+                signal.signal(signal.SIGTERM, prev_handler)
 
     def serve(self, host: str = "127.0.0.1", port: int = 0,
               max_delay_ms: Optional[float] = None, max_pending: int = 1024,
@@ -264,6 +484,12 @@ class MultiLayerNetwork:
                            request_timeout_s=request_timeout_s,
                            drain_timeout_s=drain_timeout_s,
                            breaker=breaker).start()
+
+
+def _pair(batch):
+    """(x, y) of a batch: an (x, y) tuple or a DataSet."""
+    return batch if isinstance(batch, tuple) else (batch.features,
+                                                   batch.labels)
 
 
 def _as_batches(data):

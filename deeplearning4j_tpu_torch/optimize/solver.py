@@ -3,11 +3,13 @@
 Counterpart of `deeplearning4j_tpu/optimize/solver.py` for the
 `ITERATION_GRADIENT_DESCENT` algorithm, which the zoo's nets train with.
 The JAX package runs the iterations as one `lax.scan` and masks every
-update once a termination condition trips; here the iterations are a
-Python loop that reads the score and the two norms back once per
-iteration and stops updating once it is done, giving the same params and
-the same per-iteration scores. The line-searched, conjugate-gradient,
-LBFGS and Hessian-free solvers are not ported yet.
+update once a termination condition trips. The port has two forms that
+give the same params and per-iteration scores: `_sgd`, a Python loop that
+reads the score and the two norms back once per iteration and stops
+updating once it is done (the eager path), and `sgd_device`, which keeps
+that state on the device and masks as the scan does, so that a CUDA graph
+can capture the whole run (`optimize/step_cache.py`). The line-searched,
+conjugate-gradient, LBFGS and Hessian-free solvers are not ported yet.
 """
 
 from __future__ import annotations
@@ -67,15 +69,20 @@ def from_loss(loss_fn: Callable) -> Objective:
     return Objective(grad_and_score=grad_and_score, score=score)
 
 
+def _termination_settings(conf):
+    """(conditions, eps, norm2 floor) from conf."""
+    return (tuple(getattr(conf, "termination_conditions", ("eps", "norm2"))
+                  or ()),
+            getattr(conf, "termination_eps", EPS_TERMINATION),
+            getattr(conf, "termination_norm2", NORM2_TERMINATION))
+
+
 def make_termination(conf):
     """The termination predicate from conf: any of "eps" (a plateau,
     |score - old_score| < termination_eps), "norm2" (gradient norm below
     termination_norm2) and "zero_direction" (step norm below 1e-12); an
     empty tuple never terminates early."""
-    conds = tuple(getattr(conf, "termination_conditions", ("eps", "norm2"))
-                  or ())
-    eps = getattr(conf, "termination_eps", EPS_TERMINATION)
-    n2 = getattr(conf, "termination_norm2", NORM2_TERMINATION)
+    conds, eps, n2 = _termination_settings(conf)
 
     def terminated(score, old_score, gnorm, dnorm=None):
         """(stall, hard): callers terminate after STALL_PATIENCE stalls in a
@@ -102,43 +109,45 @@ def apply_step(conf, x, d, alpha):
     return x + alpha * d
 
 
+def _carry(conf, params0):
+    """What the solver loop carries and how it reads it: (params carried,
+    to_tree, ravel_grads, norm, adjust). With `conf.fused_updater` params
+    and updater state are flat buffers (one per dtype); the gradient is
+    still taken on the tree of views into them."""
+    if getattr(conf, "fused_updater", False):
+        spec = make_flat_spec(params0)
+        return (flat_ravel(spec, params0),
+                lambda p: flat_unravel(spec, p),
+                lambda g: flat_ravel(spec, g),
+                lambda t: flat_norm(spec, t),
+                lambda it, g, p, u: adjust_gradient_flat(conf, it, g, p, u,
+                                                         spec))
+    return (params0, lambda p: p, lambda g: g, tree_norm,
+            lambda it, g, p, u: adjust_gradient(conf, it, g, p, u))
+
+
+def _step(conf, objective, it, params, upd, to_tree, ravel_grads, adjust):
+    """One updater-chain iteration: (new params, new updater state, grads,
+    step, score). Direction -step, alpha fixed at 1; the configured step
+    function applies."""
+    grads, score = objective.grad_and_score(to_tree(params))
+    grads = ravel_grads(grads)
+    adj, upd = adjust(it, grads, params, upd)
+    params = tree_map(lambda p, a: apply_step(conf, p, -a.to(p.dtype), 1.0),
+                      params, adj)
+    return params, upd, grads, adj, score
+
+
 def _sgd(objective: Objective, params0, conf):
     """ITERATION_GRADIENT_DESCENT: updater-chain steps, no line search.
 
-    The updater state starts at zero on every call. With
-    `conf.fused_updater` the loop carries params and updater state as flat
-    buffers (one per dtype); the gradient is still taken on the tree of
-    views into them. Once a termination condition trips, params stop
-    changing and the remaining iterations report the score there."""
-    if getattr(conf, "fused_updater", False):
-        spec = make_flat_spec(params0)
-        params = flat_ravel(spec, params0)
-
-        def to_tree(p):
-            return flat_unravel(spec, p)
-
-        def ravel_grads(g):
-            return flat_ravel(spec, g)
-
-        def norm(t):
-            return flat_norm(spec, t)
-
-        def adjust(it, g, p, u):
-            return adjust_gradient_flat(conf, it, g, p, u, spec)
-    else:
-        params = params0
-
-        def to_tree(p):
-            return p
-
-        def ravel_grads(g):
-            return g
-
-        norm = tree_norm
-
-        def adjust(it, g, p, u):
-            return adjust_gradient(conf, it, g, p, u)
-
+    The updater state starts at zero on every call. Once a termination
+    condition trips, params stop changing and the remaining iterations
+    report the score there. Each iteration reads its score and the two
+    norms back to the host, which decides termination: the eager form,
+    for `use_step_cache=False`; `sgd_device` is the form a CUDA graph
+    captures."""
+    params, to_tree, ravel_grads, norm, adjust = _carry(conf, params0)
     upd = init_updater(params)
     terminated = make_termination(conf)
     done, old_score, stall_n, frozen = False, math.inf, 0, None
@@ -149,15 +158,11 @@ def _sgd(objective: Objective, params0, conf):
                 frozen = float(objective.score(to_tree(params)))
             scores.append(frozen)
             continue
-        grads, score = objective.grad_and_score(to_tree(params))
-        grads = ravel_grads(grads)
-        adj, upd = adjust(it, grads, params, upd)
-        gnorm, dnorm = norm(grads), norm(adj)
-        # direction -adj, alpha fixed at 1; the step function applies
-        params = tree_map(lambda p, a: apply_step(conf, p, -a.to(p.dtype),
-                                                  1.0), params, adj)
+        params, upd, grads, adj, score = _step(
+            conf, objective, it, params, upd, to_tree, ravel_grads, adjust)
         # the one read-back of the iteration
-        s, gn, dn = torch.stack([score.float(), gnorm, dnorm]).tolist()
+        s, gn, dn = torch.stack([score.float(), norm(grads),
+                                 norm(adj)]).tolist()
         scores.append(s)
         stall, hard = terminated(s, old_score, gn, dn)
         stall_n = stall_n + 1 if stall else 0
@@ -166,15 +171,71 @@ def _sgd(objective: Objective, params0, conf):
     return to_tree(params), np.asarray(scores, np.float32), ()
 
 
+def sgd_device(objective: Objective, params0, conf):
+    """The graph-safe form of `_sgd`: the same iterations with nothing read
+    back to the host, so that one CUDA graph can hold the whole solver run.
+
+    The `num_iterations` iterations are unrolled. The termination state
+    (done, the stall count, the previous score) is carried on the device
+    and every update after the first is masked with `torch.where(done,
+    old, new)`, as the JAX package's `lax.scan` carries and masks it
+    (deeplearning4j_tpu/optimize/solver.py:276-303); termination is
+    decided in f32 as there. A masked iteration's score is the score of
+    the frozen params, as in both other forms. Returns (params, scores),
+    the scores a [num_iterations] float32 tensor on the params' device."""
+    params, to_tree, ravel_grads, norm, adjust = _carry(conf, params0)
+    upd = init_updater(params)
+    conds, eps, n2 = _termination_settings(conf)
+    done = old_score = stall_n = None  # None: nothing has terminated yet
+    scores = []
+    n_iter = conf.num_iterations
+    for it in range(n_iter):
+        new, upd_new, grads, adj, score = _step(
+            conf, objective, it, params, upd, to_tree, ravel_grads, adjust)
+        score = score.float()
+        scores.append(score)
+        if done is None:
+            params, upd = new, upd_new
+        else:
+            params = tree_map(lambda o, n: torch.where(done, o, n), params,
+                              new)
+            upd = tree_map(lambda o, n: torch.where(done, o, n), upd,
+                           upd_new)
+        if it + 1 == n_iter:
+            break  # the last iteration's termination decides nothing
+        hard = torch.zeros((), dtype=torch.bool, device=score.device)
+        if "norm2" in conds:
+            hard = hard | (norm(grads) < n2)
+        if "zero_direction" in conds:
+            hard = hard | (norm(adj) < 1e-12)
+        stall = (torch.abs(score - old_score) < eps
+                 if "eps" in conds and old_score is not None
+                 else torch.zeros_like(hard))
+        count = torch.where(stall, (0 if stall_n is None else stall_n) + 1,
+                            0)
+        stall_n = count if done is None else torch.where(done, stall_n,
+                                                         count)
+        now = hard | (stall_n >= STALL_PATIENCE)
+        done = now if done is None else done | now
+        old_score = score
+    return to_tree(params), (torch.stack(scores) if scores
+                             else torch.zeros(0))
+
+
 def optimize_with_aux(objective: Objective, params0, conf):
     """Run the configured solver: (params, per-iteration scores, aux). The
     aux channel (BatchNorm moments in the JAX package) is always () here."""
+    check_algorithm(conf)
+    return _sgd(objective, params0, conf)
+
+
+def check_algorithm(conf) -> None:
+    """Raise NotImplementedError for a solver the port does not have."""
     algo = OptimizationAlgorithm(str(conf.optimization_algo))
-    if algo == OptimizationAlgorithm.ITERATION_GRADIENT_DESCENT:
-        return _sgd(objective, params0, conf)
-    raise NotImplementedError(
-        f"optimization algorithm '{algo}' is not ported to "
-        f"deeplearning4j_tpu_torch yet; see ROADMAP.md queue A item 9")
+    if algo != OptimizationAlgorithm.ITERATION_GRADIENT_DESCENT:
+        raise NotImplementedError(
+            f"optimization algorithm '{algo}' is not ported to "
+            f"deeplearning4j_tpu_torch yet; see ROADMAP.md queue A item 9")
 
 
 def optimize(objective: Objective, params0, conf):

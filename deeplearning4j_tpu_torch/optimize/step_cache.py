@@ -1,0 +1,400 @@
+"""Captured train steps: capture once, replay many.
+
+Counterpart of `deeplearning4j_tpu/optimize/step_cache.py`. The JAX
+package compiles one XLA program per (conf, algorithm, batch shape) and
+reuses it for every batch; here the program is a `torch.cuda.CUDAGraph`:
+
+  key schema    (kind, conf fingerprint, algorithm, arg shapes/dtypes), the
+                JAX package's schema; `conf_fingerprint` is the same sha1
+                of `conf.to_json()`, so equal confs key alike in both
+                packages.
+  capture       on a miss, the program runs `WARMUP_CALLS` times on a side
+                stream (kernel libraries load and `cudaFuncSetAttribute`
+                runs there, outside any capture), then once under
+                `torch.cuda.graph` into the network's memory pool
+                (`GraphPool`). Batch data enters through static input
+                tensors, which each call fills before the replay. A capture
+                that fails raises `GraphCaptureError`: nothing falls back to
+                the eager path.
+  params        a graph reads params from the storage it was captured
+                with, so the train step ends by writing its result into the
+                network's param tensors in place. A program whose params
+                have moved (another tree was assigned) is captured anew.
+  bucketing     a batch pads with zero rows up to the smallest known bucket
+                that fits (buckets grow from the sizes seen), and pad rows
+                carry row weight 0 in the loss, as in the JAX package; an
+                epoch with a ragged tail captures at most n_buckets graphs.
+  launches      the kernel wrappers count launches on the host
+                (`nd/kernels.LAUNCHES`); the warm-up and capture launches
+                are taken back and each replay adds what its capture
+                launched.
+  CPU           (which a caller must ask for) the same program function
+                runs eagerly on every call, with the same keys, buckets,
+                padding and books, so the CPU tests reach all of it.
+
+`StepCacheStats.as_dict` keeps the JAX package's keys: `compile_seconds`
+holds capture seconds (warm-up included), and the disk counters stay 0, as
+a CUDA graph cannot be written to disk (ROADMAP.md queue A item 11). The
+serve-path sibling is `optimize/infer_cache.py`.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from deeplearning4j_tpu_torch.nd import kernels
+from deeplearning4j_tpu_torch.nn.conf import LayerType
+from deeplearning4j_tpu_torch.nn.layers.base import check_ids, ids_checked
+from deeplearning4j_tpu_torch.optimize import solver as solver_mod
+from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+from deeplearning4j_tpu_torch.reliability import faults
+
+log = logging.getLogger("deeplearning4j_tpu_torch")
+
+#: eager calls on a side stream before a capture: the first call of a
+#: program loads the kernel libraries, sets their function attributes and
+#: makes the cuBLAS workspace and the autograd threads, none of which may
+#: happen inside a capture (PyTorch's whole-network capture recipe warms up
+#: on a side stream alike)
+WARMUP_CALLS = 1
+
+
+class GraphCaptureError(RuntimeError):
+    """A program could not be captured as a CUDA graph."""
+
+
+def conf_fingerprint(conf) -> str:
+    """sha1 of the conf's canonical JSON, truncated: the JAX package's
+    fingerprint, so one conf JSON gives one key in both packages."""
+    return hashlib.sha1(conf.to_json().encode("utf-8")).hexdigest()[:16]
+
+
+def arg_signature(*arrays) -> Tuple:
+    """(shape, dtype name) per tensor (None stays None): the shape part of
+    the cache key, with the JAX package's dtype names ("int32",
+    "bfloat16")."""
+    return tuple(
+        None if a is None
+        else (tuple(a.shape), str(a.dtype).replace("torch.", ""))
+        for a in arrays)
+
+
+def check_input(conf, x) -> None:
+    """Raise ValueError, on the host, for input the first layer cannot take:
+    token ids outside [0, vocab) for an embedding. A captured forward cannot
+    check (the check reads back to the host), so the cached entry points
+    call this before the ids reach the device program."""
+    c = conf.conf(0)
+    if c.layer_type == LayerType.EMBEDDING:
+        ids = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+        check_ids(ids, c.n_in)
+
+
+class StepCacheStats:
+    """Hits, misses, steps and capture seconds per key; `as_dict` has the
+    JAX package's keys (the disk and fetch counters stay 0)."""
+
+    def __init__(self):
+        self.hits = 0
+        self.misses = 0
+        self.steps = 0
+        self.compile_seconds: Dict[Tuple, float] = {}  # key -> seconds
+
+    @property
+    def total_compile_seconds(self) -> float:
+        return float(sum(self.compile_seconds.values()))
+
+    def as_dict(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "steps": self.steps, "entries": len(self.compile_seconds),
+                "compile_seconds": round(self.total_compile_seconds, 3),
+                "disk_hits": 0, "disk_write_seconds": 0.0,
+                "deserialize_seconds": 0.0, "io_errors": 0,
+                "fetch_hits": 0, "fetch_corrupt": 0}
+
+    def __repr__(self):
+        return f"StepCacheStats({self.as_dict()})"
+
+
+class GraphPool:
+    """The memory pool that one network's graphs are captured into, and the
+    lock under which they are captured and replayed. Graphs that share a
+    pool reuse each other's freed memory, so no two of them may run at
+    once; and a replay overwrites the static outputs of the last one, so
+    callers read them under the lock. `reserved_bytes` sums what the
+    captures added to the device's reserved memory."""
+
+    def __init__(self):
+        self.lock = threading.RLock()
+        self.reserved_bytes = 0
+        self._handle = None
+
+    def handle(self):
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
+    def renew(self) -> None:
+        """Capture into a new pool from here on. A capture that fails can
+        leave the allocator recording into its pool, which refuses a second
+        capture; graphs already captured keep the pool they were made in."""
+        self._handle = None
+
+
+def _data_ptrs(params) -> Tuple[int, ...]:
+    return tuple(t.data_ptr() for t in tree_leaves(params))
+
+
+class _Eager:
+    """A program on the CPU: the function itself, run on every call."""
+
+    def __init__(self, fn: Callable, write: Optional[Callable]):
+        self.fn, self.write = fn, write
+
+    def stale(self, params) -> bool:
+        return False
+
+    def run(self, params, inputs, read):
+        with ids_checked():
+            out = self.fn(params, *inputs)
+            if self.write is not None:
+                out = self.write(params, out)
+        return read(out)
+
+
+class _Graph:
+    """A captured program: the graph, its static inputs and outputs, the
+    params' addresses it reads, and the kernel launches of one replay."""
+
+    def __init__(self, pool: GraphPool, fn: Callable,
+                 write: Optional[Callable], params, inputs):
+        device = inputs[0].device
+        self.pool = pool
+        self.ptrs = _data_ptrs(params)
+        # static inputs made outside any inference_mode, so that later
+        # calls may copy into them whatever mode they run in
+        with torch.inference_mode(False):
+            self.inputs = tuple(a.clone() for a in inputs)
+        with pool.lock:
+            start = dict(kernels.LAUNCHES)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with ids_checked(), torch.cuda.stream(side):
+                for _ in range(WARMUP_CALLS):
+                    fn(params, *self.inputs)
+            torch.cuda.current_stream(device).wait_stream(side)
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(device)
+            before = dict(kernels.LAUNCHES)
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                with ids_checked(), torch.cuda.graph(
+                        self.graph, pool=pool.handle(), stream=side):
+                    out = fn(params, *self.inputs)
+                    if write is not None:
+                        out = write(params, out)
+            except Exception as e:
+                pool.renew()
+                raise GraphCaptureError(
+                    f"CUDA-graph capture failed: {e!r}") from e
+            finally:
+                after = dict(kernels.LAUNCHES)
+                # the warm-up and capture launched nothing on the device
+                # that a caller asked for: take them back
+                kernels.count_launches({k: start[k] - after[k]
+                                        for k in after})
+            self.outputs = out
+            self.launches = {k: after[k] - before[k] for k in after}
+            pool.reserved_bytes += (torch.cuda.memory_reserved(device)
+                                    - reserved)
+
+    def stale(self, params) -> bool:
+        return _data_ptrs(params) != self.ptrs
+
+    def run(self, params, inputs, read):
+        with self.pool.lock:
+            for static, a in zip(self.inputs, inputs):
+                static.copy_(a)
+            self.graph.replay()
+            kernels.count_launches(self.launches)
+            return read(self.outputs)
+
+
+class CompiledProgramCache:
+    """Keyed captured programs, grow-on-demand row buckets and the books:
+    the machinery `TrainStepCache` and the serve-path `InferCache` share.
+    pool: the `GraphPool` the graphs are captured into (a network gives
+    both of its caches one)."""
+
+    #: label used in miss logs so train and infer captures are told apart
+    kind = "program-cache"
+
+    def __init__(self, pool: Optional[GraphPool] = None):
+        self._programs: Dict[Tuple, object] = {}
+        self._fingerprints: Dict[int, str] = {}  # id(conf) memo
+        self._buckets: List[int] = []
+        self.pool = pool if pool is not None else GraphPool()
+        self.stats = StepCacheStats()
+        # the serving dispatcher and the caller's thread reach one cache:
+        # lookup, bucket growth, capture and the books change under it
+        self._lock = threading.RLock()
+
+    # -- bucket policy ------------------------------------------------------
+    def bucket_rows(self, n: int) -> int:
+        """Smallest known bucket >= n; otherwise n becomes a new bucket. The
+        JAX package's tuned bucket ladder holds TPU rows and is not carried
+        over."""
+        with self._lock:
+            for b in self._buckets:
+                if b >= n:
+                    return b
+            self._buckets.append(n)
+            self._buckets.sort()
+            return n
+
+    @property
+    def buckets(self) -> Tuple[int, ...]:
+        return tuple(self._buckets)
+
+    # -- programs -----------------------------------------------------------
+    def _keyed_conf(self, conf):
+        """The conf as the key sees it (the infer cache leaves out what only
+        the backward reads)."""
+        return conf
+
+    def _fingerprint(self, conf) -> str:
+        with self._lock:
+            fp = self._fingerprints.get(id(conf))
+            if fp is None:
+                fp = conf_fingerprint(self._keyed_conf(conf))
+                self._fingerprints[id(conf)] = fp
+            return fp
+
+    def _run(self, key: Tuple, build: Callable[[], Callable], params,
+             inputs: Tuple[torch.Tensor, ...], read: Callable,
+             write: Optional[Callable] = None, compile_only: bool = False):
+        """`read` of the program for `key` applied to (params, *inputs),
+        and to `write(params, outputs)` where the program writes its result
+        into params: on a CUDA device the replay of its graph (captured on
+        a miss), on the CPU the program run eagerly. With `compile_only`
+        the program is captured (warm-up calls included) and nothing else
+        runs: params are untouched and None is returned."""
+        with self._lock:
+            prog = self._programs.get(key)
+            if prog is None or prog.stale(params):
+                # armed 'compile' faults fire here: every new program
+                # (train or infer) is made at this one place
+                faults.fire("compile", kind=self.kind, key=repr(key))
+                self.stats.misses += 1
+                t0 = time.perf_counter()
+                if inputs[0].is_cuda:
+                    prog = _Graph(self.pool, build(), write, params, inputs)
+                else:
+                    prog = _Eager(build(), write)
+                dt = time.perf_counter() - t0
+                self.stats.compile_seconds[key] = (
+                    self.stats.compile_seconds.get(key, 0.0) + dt)
+                log.info("%s miss: captured %s in %.2fs (entry %d)",
+                         self.kind, key, dt, len(self._programs) + 1)
+                self._programs[key] = prog
+            else:
+                self.stats.hits += 1
+            if compile_only:
+                return None
+            self.stats.steps += 1
+        return prog.run(params, inputs, read)
+
+    def drop_graphs(self) -> None:
+        """Forget every captured graph (its memory returns to the pool): the
+        params they read are no longer the network's. Books and buckets
+        stay; the next call of each key captures anew (a miss)."""
+        with self._lock:
+            self._programs = {k: p for k, p in self._programs.items()
+                              if not isinstance(p, _Graph)}
+
+    def __len__(self):
+        return len(self._programs)
+
+    # -- padding ------------------------------------------------------------
+    @staticmethod
+    def pad_batch(x: torch.Tensor, y: torch.Tensor, bucket: int):
+        """Zero-pad (x, y) up to `bucket` feature rows and build the
+        per-label-row weight vector (pad rows weigh 0). Label rows may be a
+        multiple of feature rows (B*T for sequence models)."""
+        b = x.shape[0]
+        ratio = max(1, y.shape[0] // max(1, b))
+        pad = bucket - b
+        w = torch.cat([torch.ones(b * ratio, device=x.device),
+                       torch.zeros(pad * ratio, device=x.device)])
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+            y = torch.cat([y, y.new_zeros((pad * ratio,)
+                                          + tuple(y.shape[1:]))])
+        return x, y, w
+
+
+def _write_params(params, out):
+    """Inside the train program: copy the new params into the network's
+    own tensors (a graph reads and writes them by address), and hand on the
+    scores."""
+    new, scores = out
+    for p, n in zip(tree_leaves(params), tree_leaves(new)):
+        p.copy_(n)
+    return scores
+
+
+class TrainStepCache(CompiledProgramCache):
+    """The training entry point over `CompiledProgramCache`: one captured
+    solver run per (conf, algorithm, bucket)."""
+
+    kind = "step-cache"
+
+    def finetune(self, conf, params, x, y, compile_only: bool = False):
+        """One cached supervised solver run (`MultiLayerNetwork.finetune`):
+        checks the ids, pads (x, y) to the bucket, fetches or captures the
+        program for (conf, algo, shapes) and runs it. The params tree is
+        updated in place; returns the per-iteration scores as a numpy
+        float32 array (one read-back after the replay). With
+        `compile_only` (warm-up) the program is captured without a step:
+        params are untouched and None is returned."""
+        out_conf = conf.conf(conf.n_layers - 1)
+        solver_mod.check_algorithm(out_conf)
+        check_input(conf, x)
+        bucket = self.bucket_rows(int(x.shape[0]))
+        xp, yp, w = self.pad_batch(x, y, bucket)
+        key = ("finetune", self._fingerprint(conf),
+               str(out_conf.optimization_algo), arg_signature(xp, yp, w))
+        return self._run(key, lambda: _finetune_program(conf), params,
+                         (xp, yp, w), read=lambda s: s.cpu().numpy(),
+                         write=_write_params, compile_only=compile_only)
+
+
+def _finetune_program(conf) -> Callable:
+    """The (uncaptured) finetune step over explicit batch args: the
+    configured solver's graph-safe form over the row-weighted loss.
+
+    The updater's host constants of the iteration (Adam's bias corrections,
+    scheduled momentum, the AdaGrad reset: `optimize/updater.py`) are baked
+    into the capture as constants of each unrolled iteration. That is right
+    only because every `finetune` restarts the updater at iteration 0, as
+    the JAX package's solver does, and the graph unrolls all
+    `num_iterations` iterations; a persistent updater (ROADMAP.md queue A
+    item 10) would have to feed them in as tensors."""
+    # local import: nn.multilayer imports this module at top level
+    from deeplearning4j_tpu_torch.nn.multilayer import make_finetune_loss
+
+    out_conf = conf.conf(conf.n_layers - 1)
+    loss_fn = make_finetune_loss(conf)
+
+    def program(params, x, y, w):
+        objective = solver_mod.from_loss(lambda p: loss_fn(p, x, y, w))
+        return solver_mod.sgd_device(objective, params, out_conf)
+
+    return program

@@ -22,7 +22,10 @@ def tree_map(fn: Callable, tree, *rest):
     """`fn` over the leaves of `tree` and the matching leaves of `rest`,
     which share its structure."""
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+        mapped = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        # a NamedTuple (the updater state) takes its fields as arguments
+        return type(tree)(*mapped) if hasattr(tree, "_fields") \
+            else type(tree)(mapped)
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
@@ -31,7 +34,9 @@ def tree_map(fn: Callable, tree, *rest):
 
 def _unflatten(like, it: Iterator):
     if isinstance(like, (tuple, list)):
-        return type(like)(_unflatten(x, it) for x in like)
+        parts = [_unflatten(x, it) for x in like]
+        return type(like)(*parts) if hasattr(like, "_fields") \
+            else type(like)(parts)
     if isinstance(like, dict):
         return {k: _unflatten(like[k], it) for k in sorted(like)}
     return next(it)

@@ -2,28 +2,37 @@
 across.
 
 Counterpart of `deeplearning4j_tpu/parallel/checkpoint.py` for the plain
-gathered layout: `meta.json`, `conf.json` and `arrays.npz`, whose keys are
-tree paths such as `params/3/W`. `save` writes that layout atomically (a
-temporary directory swung into place, the previous one kept as
-'<dir>.bak' until the swap is done), so the JAX package's `load` reads
-what the port trained; `load` reads it back. `params_from_numpy` turns the
-JAX package's params (a tuple of dicts of numpy arrays, as
-`jax.device_get` gives them) into the port's tensors, and
-`params_to_numpy` is its inverse.
+gathered layout: `meta.json` (step, data cursor, user metadata, format
+version), `conf.json` and `arrays.npz`, whose keys are tree paths such as
+`params/3/W`. `save` writes that layout atomically (a temporary directory
+swung into place, the previous one kept as '<dir>.bak' until the swap is
+done), so the JAX package's `load` reads what the port trained; `load`
+reads it back, into a given params tree or as nested dicts, and
+`load_resilient` falls back to '<dir>.bak' when the directory is missing
+or unreadable. Saves and loads traverse the `checkpoint.save` and
+`checkpoint.load` fault points where the JAX package's do.
+`params_from_numpy` turns the JAX package's params (a tuple of dicts of
+numpy arrays, as `jax.device_get` gives them) into the port's tensors, and
+`params_to_numpy` is its inverse. The sharded layout and asynchronous saves
+are not ported (ROADMAP.md queue A item 10).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
 import tempfile
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.reliability import faults
+
+log = logging.getLogger("deeplearning4j_tpu_torch")
 
 #: the checkpoint format `save` writes, and the newest `load` reads
 FORMAT_VERSION = 1
@@ -88,11 +97,14 @@ def _atomic_swap(tmp: str, directory: str) -> None:
 
 
 def save(directory: str, params, *, conf: MultiLayerConfiguration = None,
-         step: int = 0, metadata: Dict[str, Any] = None) -> str:
+         step: int = 0, data_cursor: Optional[Dict[str, Any]] = None,
+         metadata: Optional[Dict[str, Any]] = None) -> str:
     """Write `params` (and `conf` as conf.json) as a gathered-layout
     checkpoint that the JAX package's `checkpoint.load` reads: arrays.npz
-    keyed `params/{layer}/{name}`, meta.json with `format_version` 1 and
-    `metadata` (a JSON-able dict). Returns the directory."""
+    keyed `params/{layer}/{name}`, meta.json with the JAX package's keys
+    (`step`, `data_cursor` and `metadata`, JSON-able dicts, `format_version`
+    1, `mesh` null). Returns the directory."""
+    faults.fire("checkpoint.save", path=directory)
     directory = os.fspath(directory)
     parent = os.path.dirname(os.path.abspath(directory)) or "."
     os.makedirs(parent, exist_ok=True)
@@ -102,7 +114,7 @@ def save(directory: str, params, *, conf: MultiLayerConfiguration = None,
                   for i, layer in enumerate(params_to_numpy(params))
                   for name, a in layer.items()}
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
-        meta = {"step": int(step), "data_cursor": {},
+        meta = {"step": int(step), "data_cursor": dict(data_cursor or {}),
                 "metadata": dict(metadata or {}),
                 "format_version": FORMAT_VERSION, "mesh": None}
         with open(os.path.join(tmp, "meta.json"), "w") as f:
@@ -122,13 +134,18 @@ def load_conf(directory: str) -> MultiLayerConfiguration:
         return MultiLayerConfiguration.from_json(f.read())
 
 
-def load(directory: str) -> Tuple[Dict[str, Any], Any, Dict[str, Any]]:
-    """Read a gathered-layout checkpoint: (params, updater or None, meta),
-    the trees as nested dicts of numpy arrays keyed by path component.
+def load(directory: str, like_params=None
+         ) -> Tuple[Any, Any, Dict[str, Any]]:
+    """Read a gathered-layout checkpoint: (params, updater or None, meta).
+    With `like_params` (a params tree of tensors) the params come back in
+    that tree's structure, each leaf a tensor on its leaf's device; a
+    missing leaf or another shape raises `CheckpointFormatError`. Without
+    it the trees are nested dicts of numpy arrays keyed by path component.
     Falls back to '<dir>.bak' when the directory is missing, as the JAX
     package does."""
     if not os.path.isdir(directory) and os.path.isdir(directory + ".bak"):
         directory = directory + ".bak"
+    faults.fire("checkpoint.load", path=directory)
     with open(os.path.join(directory, "meta.json")) as f:
         meta = json.load(f)
     if meta.get("layout") == "sharded":
@@ -140,15 +157,60 @@ def load(directory: str) -> Tuple[Dict[str, Any], Any, Dict[str, Any]]:
         raise CheckpointFormatError(
             f"checkpoint {directory} has format_version={version} but this "
             f"build reads <= {FORMAT_VERSION}")
-    nested: Dict[str, Any] = {}
     with np.load(os.path.join(directory, "arrays.npz")) as z:
-        for key in z.files:
-            node = nested
-            parts = key.split("/")
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = z[key]
+        flat = {key: z[key] for key in z.files}
+    if like_params is not None:
+        return _restore(directory, flat, like_params), None, meta
+    nested: Dict[str, Any] = {}
+    for key, a in flat.items():
+        node = nested
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = a
     return nested.get("params", nested), nested.get("updater"), meta
+
+
+def _restore(directory: str, flat: Dict[str, np.ndarray], like) -> tuple:
+    """The `params/...` arrays of `flat` in the structure of `like`, on
+    its leaves' devices, after the JAX package's checks."""
+    out = []
+    for i, layer in enumerate(like):
+        restored = {}
+        for name, leaf in layer.items():
+            key = f"params/{i}/{name}"
+            if key not in flat:
+                raise CheckpointFormatError(
+                    f"checkpoint {directory} is missing '{key}': it was "
+                    f"written for a different model config")
+            if tuple(flat[key].shape) != tuple(leaf.shape):
+                raise CheckpointFormatError(
+                    f"checkpoint {directory} leaf {key} has shape "
+                    f"{tuple(flat[key].shape)}, model expects "
+                    f"{tuple(leaf.shape)}: this checkpoint belongs to a "
+                    f"different config")
+            restored[name] = _to_tensor(flat[key], leaf.device)
+        out.append(restored)
+    return tuple(out)
+
+
+def load_resilient(directory: str, like_params=None
+                   ) -> Optional[Tuple[Any, Any, Dict[str, Any]]]:
+    """The newest readable checkpoint among '<dir>' and '<dir>.bak', or
+    None. A corrupt directory (torn npz, missing meta.json) falls back to
+    the other; a `CheckpointFormatError` (newer format, another model) is
+    not corruption and propagates, as in the JAX package."""
+    for cand in (directory, directory + ".bak"):
+        if not os.path.isdir(cand):
+            continue
+        try:
+            return load(cand, like_params)
+        except CheckpointFormatError:
+            raise
+        except Exception as e:  # noqa: BLE001 — corrupt entry, try fallback
+            log.warning("checkpoint %s unreadable (%r); trying fallback",
+                        cand, e)
+    return None
 
 
 def load_network(directory: str, device=None):

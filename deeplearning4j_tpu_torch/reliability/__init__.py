@@ -1,8 +1,23 @@
-"""Resilience vocabulary of the serving path: the circuit breaker and the
-deadline error. The port's own copies of the JAX package's
-`reliability/circuit.py` and `DeadlineExceeded`; stdlib only."""
+"""Resilience vocabulary of the serving and training paths: the circuit
+breaker, fault injection and the exceptions the hardened paths raise. The
+port's own copies of the JAX package's `reliability/circuit.py`,
+`reliability/faults.py`, `DeadlineExceeded` and `TrainingInterrupted`;
+stdlib only."""
 
 from deeplearning4j_tpu_torch.reliability.circuit import CircuitBreaker
+from deeplearning4j_tpu_torch.reliability.faults import (
+    REGISTRY,
+    FaultInjected,
+    FaultPlanError,
+    FaultRegistry,
+    arm,
+    disarm,
+    fire,
+    hits,
+    install_env_plan,
+    reset,
+    stats,
+)
 
 
 class DeadlineExceeded(TimeoutError):
@@ -10,4 +25,25 @@ class DeadlineExceeded(TimeoutError):
     (serving maps this to HTTP 504)."""
 
 
-__all__ = ["CircuitBreaker", "DeadlineExceeded"]
+class TrainingInterrupted(RuntimeError):
+    """`fit()` was interrupted (SIGTERM or `request_stop_training`) and
+    checkpointed; re-running with the same `checkpoint_dir` resumes where
+    it left off."""
+
+
+__all__ = [
+    "CircuitBreaker",
+    "DeadlineExceeded",
+    "FaultInjected",
+    "FaultPlanError",
+    "FaultRegistry",
+    "REGISTRY",
+    "TrainingInterrupted",
+    "arm",
+    "disarm",
+    "fire",
+    "hits",
+    "install_env_plan",
+    "reset",
+    "stats",
+]

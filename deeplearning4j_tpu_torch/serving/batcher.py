@@ -19,8 +19,11 @@ head gives [rows * S, vocab]), so request i gets
 rows`. (The JAX package's batcher slices `out[offset : offset + rows]`,
 which is wrong for such models.)
 
-A `CircuitBreaker` guards `net.output`; while it is open, batches run
-through the eager `network_output` on the same device.
+A `CircuitBreaker` guards `net.output`, which replays the network's
+captured inference graph (`optimize/infer_cache.py`); while the breaker is
+open, batches run through the eager `network_output` on the same device and
+weights, a path that shares no graph, static buffer or memory pool with
+the primary one.
 """
 
 from __future__ import annotations
@@ -255,14 +258,15 @@ class MicroBatcher:
 
     # -- execution paths -----------------------------------------------------
     def _primary_output(self, xb: np.ndarray) -> np.ndarray:
-        """`net.output` on the batch; guarded by the circuit breaker."""
+        """`net.output` on the batch (on CUDA, a replay of the infer cache's
+        graph for the batch's bucket); guarded by the circuit breaker."""
         return self.net.output(xb).float().cpu().numpy()
 
     def _degraded_output(self, xb: np.ndarray) -> np.ndarray:
         """The fallback while the breaker is open: the eager
-        `network_output` on the network's own device. With no compiled or
-        cached program in the primary path yet, this is a same-device retry
-        of the same computation under another name."""
+        `network_output` on the network's own device and weights, without
+        the infer cache, so a fault in a capture, a replay or the graphs'
+        memory pool does not reach it."""
         import torch
 
         from deeplearning4j_tpu_torch.nn.multilayer import network_output

@@ -135,6 +135,40 @@ def test_open_breaker_serves_the_eager_path_on_the_same_device(nets,
                                    atol=1e-4)
 
 
+def test_open_breaker_answers_eagerly_within_bf16_and_counts_degraded(nets):
+    # the primary path replays the infer cache's program; with the breaker
+    # open the server answers through the eager forward instead, which
+    # never touches the cache, within bf16 of net.output
+    jconf, jparams, _ = nets
+    tconf = MultiLayerConfiguration.from_json(
+        jconf.to_json()).with_compute_dtype("bfloat16")
+    net = MultiLayerNetwork(tconf.replace(confs=tuple(
+        c.replace(attention_impl="flash") for c in tconf.confs)),
+        device="cpu")
+    net.params = params_from_numpy(jparams, "cpu")
+    breaker = CircuitBreaker(failure_threshold=1, reset_timeout_s=600.0)
+    breaker.record_failure()
+    server = net.serve(max_delay_ms=1, breaker=breaker)
+    try:
+        xs = _requests(rows=(2, 1), seed=8)
+        answers = [_post(server.url, {"features": x.tolist(),
+                                      "dtype": "int32"}) for x in xs]
+        code, stats = _get(server.url, "/v1/stats")
+    finally:
+        server.drain()
+    assert code == 200 and stats["degraded"]
+    assert stats["breaker"]["state"] == "open"
+    assert stats["degraded_batches"] == 2 and stats["errors"] == 0
+    assert net.infer_cache.stats.steps == 0
+    for x, ans in zip(xs, answers):
+        want = net.output(x).float().numpy()
+        got = np.asarray(ans["output"], np.float32)
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+    # the two references went through the cache: one bucket, one program
+    assert (net.infer_cache.stats.misses, net.infer_cache.stats.hits) == (1, 1)
+
+
 def test_deadlines_and_backpressure(nets):
     batcher = MicroBatcher(nets[2], max_delay_ms=1000, max_pending=1,
                            auto_start=False)

@@ -226,12 +226,15 @@ def _quadratic(lib, target):
     return loss
 
 
+@pytest.mark.parametrize("form", ["eager", "device"])
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("stop", ["norm2", "eps", "none", "zero_direction"])
-def test_sgd_solver_matches_jax(stop, fused):
+def test_sgd_solver_matches_jax(stop, fused, form):
     # "norm2" trips on a large gradient-norm floor, "eps" stalls on a tiny
     # learning rate (STALL_PATIENCE iterations), "none" runs every
-    # iteration; once done, params freeze and the score repeats
+    # iteration; once done, params freeze and the score repeats. "device"
+    # is the graph-safe form the step cache captures: termination carried
+    # on the device, updates masked
     kw = dict(optimization_algo="iteration_gradient_descent", lr=0.2,
               updater="sgd", momentum=0.0, num_iterations=12,
               fused_updater=fused,
@@ -251,9 +254,13 @@ def test_sgd_solver_matches_jax(stop, fused):
         jax_solver.from_loss(_quadratic(jnp, jnp.asarray(target))),
         ({"w": jnp.asarray(w0)},), jax_conf.NeuralNetConfiguration(**kw),
         jax.random.PRNGKey(0))
-    tp, ts = solver.optimize(
+    run = solver.optimize if form == "eager" else solver.sgd_device
+    tp, ts = run(
         solver.from_loss(_quadratic(torch, torch.from_numpy(target))),
         ({"w": torch.from_numpy(w0.copy())},), NeuralNetConfiguration(**kw))
+    if form == "device":
+        assert ts.dtype == torch.float32
+        ts = ts.numpy()
     assert ts.dtype == np.float32 and ts.shape == (12,)
     _close(ts, np.asarray(js), 1e-6)
     _close(tp[0]["w"], jp[0]["w"], 1e-6)
@@ -555,9 +562,16 @@ def test_fit_initializes_params_and_lowers_the_score():
 def test_unported_training_paths_raise():
     jconf, tconf = _confs()
     x, y = _batch(13)
-    net = ml.MultiLayerNetwork(tconf, device="cpu", seed=0).init()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        net.fit(x, y, checkpoint_dir="unused")
+    # checkpointed fit is ported (tests/test_torch_checkpoint.py); a solver
+    # other than stepped gradient descent is not, cached or eager
+    cg = tconf.replace(confs=tuple(
+        c.replace(optimization_algo="conjugate_gradient")
+        for c in tconf.confs))
+    for cached in (True, False):
+        net = ml.MultiLayerNetwork(cg, device="cpu", seed=0).init()
+        net.use_step_cache = cached
+        with pytest.raises(NotImplementedError, match="queue A item 9"):
+            net.fit(x, y)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         ml.MultiLayerNetwork(tconf.replace(pretrain=True), device="cpu",
                              seed=0).fit(x, y)
