@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch / H100 port on one GPU.
 
     python3 chip_smoke.py            # every phase (what the checks run)
-    python3 chip_smoke.py --quick    # build, ptxas, one check per case
+    python3 chip_smoke.py --quick    # build, ptxas, one check per case,
+                                     # the generate phase at 2 blocks
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU. It
 imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
@@ -47,7 +48,21 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    f32 and times both f32 network outputs, times the coalesced batch's
    forward through the cache and eagerly in turns, and checks that every
    forward pass launched the flash kernel once per attention layer (a
-   replay counts what its capture launched);
+   replay counts what its capture launched); then generates with it
+   (`generate` phase, GEN): `warmup_generate` captures the decode table's
+   graph and a B = 1 prefill graph per prompt bucket, and a 4-slot
+   `ContinuousBatcher` answers 8 POST /v1/generate requests of 128 tokens
+   from 4 clients (half greedy, half at 0.8); it checks every stream, that
+   each admission launched the flash kernel once per block and that
+   serving captured nothing new; times the captured and eager decode step
+   (each profiled once) and each prefill bucket beside the step's bounds;
+   and checks (a) the cached decode against the eager `nn/decode.py` loop
+   (tokens, keys, state), (b) teacher-forced decode logp against the
+   re-forward, and greedy tokens against it in f32 at 2 blocks, (c) the
+   flash forward at B = 1 and every prefill bucket against its plain
+   version, (d) the card's threefry keys and uniforms against the CPU's
+   bit for bit, (e) `CharLSTM.generate == sample` at BASELINE config 1's
+   widths, and times the forward kernel at the warmed buckets;
 6. trains the same network with `MultiLayerNetwork.fit` (the JAX package's
    flagship training conf, bench.py:558-567: Adam, sparse labels, fused
    updater, fused attention backward, bf16 compute over f32 weights) for
@@ -80,8 +95,9 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    it to two uninterrupted runs (`checkpoint` line);
 10. runs the CLI north star in process (bench.py:1716-1719: `train --zoo
    char_lstm:layers=4,hidden=128` over the corpus as text windows of 32),
-   the same with `--checkpoint-dir` in batches of 256, then `predict` and
-   `test` on its checkpoint;
+   the same with `--checkpoint-dir` in batches of 256, then `predict`,
+   `test` and `generate` (greedy and at 0.8, held to the cached path
+   called directly) on its checkpoint;
 11. holds the embedding-row scatter-add kernel against its plain version at
    the word2vec step's shapes (syn1 from the bench vocabulary's Huffman
    points, syn0, syn1neg), a GloVe bias (D = 1), tiny ragged cases with
@@ -797,8 +813,6 @@ def phase_kernels(torch, kernels):
     (contiguous), "f32_causal_view" (qkv views); and "f32_cli": the CLI's
     default char_transformer (d_model 128, 4 heads: D = 32) at
     [32, 256, 4, 32], causal on views, without lse, as its forward runs."""
-    import torch.nn.functional as F
-
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for dt in (torch.float32, torch.bfloat16):
@@ -815,50 +829,9 @@ def phase_kernels(torch, kernels):
               (8, 512, 16, 128, torch.float32, True, True, True),
               (32, 256, 4, 32, torch.float32, True, False, True)]
     path_rows = {}
-    for b, s, h, d, dt, causal, with_lse, view in cases:
-        q, k, v = fwd_inputs(torch, gen, b, s, h, d, dt, view)
-        if dt == torch.float32:
-            err_o, err_lse, ok = f32_fwd_check(torch, kernels, q, k, v,
-                                               causal, with_lse)
-        else:
-            got = kernels.flash_attention(q, k, v, causal, with_lse=with_lse)
-            want = kernels.flash_attention_reference(q, k, v, causal,
-                                                     with_lse=with_lse)
-            torch.cuda.synchronize()
-            if not with_lse:
-                got, want = (got, None), (want, None)
-            err_o = (got[0].float() - want[0].float()).abs().max().item()
-            ok = torch.allclose(got[0].float(), want[0].float(), atol=2e-2)
-            err_lse = None
-            if with_lse:
-                err_lse = (got[1] - want[1]).abs().max().item()
-                ok = ok and torch.allclose(got[1], want[1], atol=1e-3,
-                                           rtol=1e-3)
-            del got, want
-        dname = str(dt).replace("torch.", "")
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        kernel_ms = graph_ms(lambda: kernels.flash_attention(
-            q, k, v, causal, with_lse=with_lse))
-        call_ms = cuda_ms(lambda: kernels.flash_attention(
-            q, k, v, causal, with_lse=with_lse))
-        plain_ms = graph_ms(lambda: kernels.flash_attention_reference(
-            q, k, v, causal, with_lse=with_lse), iters=5, replays=1)
-        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal))
-        bound_ms, bound_by, fma_bound_ms = attention_bound_ms(
-            b, s, h, d, dname, causal, with_lse)
-        flops = 4.0 * b * h * s * s * d * (0.5 if causal else 1.0)
-        row = {"phase": "kernel", "name": "flash_attn_fwd",
-               "shape": [b, s, h, d], "dtype": dname, "causal": causal,
-               "with_lse": with_lse, "view": view, "max_abs_err": err_o,
-               "max_abs_err_lse": err_lse, "ok": bool(ok),
-               "kernel_ms": kernel_ms, "call_ms": call_ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "fma_bound_ms": fma_bound_ms,
-               "tflops": flops / kernel_ms / 1e9}
-        emit(row)
-        check(ok, f"flash_attn_fwd disagrees with its plain version: {row}")
+    for case in cases:
+        b, s, h, d, dt, causal, with_lse, view = case
+        row = fwd_kernel_row(torch, kernels, gen, case)
         if dt == torch.bfloat16 and view:
             path_rows["train" if with_lse else "serve"] = row
         elif dt == torch.float32 and d == 32:
@@ -867,9 +840,63 @@ def phase_kernels(torch, kernels):
             # what an f32 conf's train step runs (the forward with lse)
             key = "f32_causal" if causal else "f32_not_causal"
             path_rows[key + ("_view" if view else "")] = row
-        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return path_rows
+
+
+def fwd_kernel_row(torch, kernels, gen, case, phase="kernel"):
+    """One forward case (b, s, h, d, dtype, causal, with_lse, view): the
+    kernel against its plain version (f32: 1e-4 on o and lse; bf16: 2e-2 on
+    o, 1e-3 on lse), timed beside its plain version and SDPA by graph
+    replay, its eager call and its bound. Emits and returns the row; a
+    disagreement fails the run."""
+    import torch.nn.functional as F
+
+    b, s, h, d, dt, causal, with_lse, view = case
+    q, k, v = fwd_inputs(torch, gen, b, s, h, d, dt, view)
+    if dt == torch.float32:
+        err_o, err_lse, ok = f32_fwd_check(torch, kernels, q, k, v, causal,
+                                           with_lse)
+    else:
+        got = kernels.flash_attention(q, k, v, causal, with_lse=with_lse)
+        want = kernels.flash_attention_reference(q, k, v, causal,
+                                                 with_lse=with_lse)
+        torch.cuda.synchronize()
+        if not with_lse:
+            got, want = (got, None), (want, None)
+        err_o = (got[0].float() - want[0].float()).abs().max().item()
+        ok = torch.allclose(got[0].float(), want[0].float(), atol=2e-2)
+        err_lse = None
+        if with_lse:
+            err_lse = (got[1] - want[1]).abs().max().item()
+            ok = ok and torch.allclose(got[1], want[1], atol=1e-3,
+                                       rtol=1e-3)
+        del got, want
+    dname = str(dt).replace("torch.", "")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kernel_ms = graph_ms(lambda: kernels.flash_attention(
+        q, k, v, causal, with_lse=with_lse))
+    call_ms = cuda_ms(lambda: kernels.flash_attention(
+        q, k, v, causal, with_lse=with_lse))
+    plain_ms = graph_ms(lambda: kernels.flash_attention_reference(
+        q, k, v, causal, with_lse=with_lse), iters=5, replays=1)
+    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal))
+    bound_ms, bound_by, fma_bound_ms = attention_bound_ms(
+        b, s, h, d, dname, causal, with_lse)
+    flops = 4.0 * b * h * s * s * d * (0.5 if causal else 1.0)
+    row = {"phase": phase, "name": "flash_attn_fwd",
+           "shape": [b, s, h, d], "dtype": dname, "causal": causal,
+           "with_lse": with_lse, "view": view, "max_abs_err": err_o,
+           "max_abs_err_lse": err_lse, "ok": bool(ok),
+           "kernel_ms": kernel_ms, "call_ms": call_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "fma_bound_ms": fma_bound_ms,
+           "tflops": flops / kernel_ms / 1e9}
+    emit(row)
+    check(ok, f"flash_attn_fwd disagrees with its plain version: {row}")
+    return row
 
 
 def post(url, body, timeout=300.0):
@@ -1043,13 +1070,514 @@ def phase_serve(torch, kernels):
     return serve_launches
 
 
+# ---------------------------------------------------------------- generate
+
+#: the generate phase: the served charTransformer (SLICE, bf16) through a
+#: 4-slot `ContinuousBatcher` of 512-token tables with prompt buckets 64 and
+#: 256, 8 POST /v1/generate requests from 4 concurrent clients, prompts of
+#: 40-250 seeded ids, 128 new tokens each, half greedy, half at 0.8
+GEN = dict(n_blocks=SLICE["n_blocks"], slots=4, max_seq=512,
+           buckets=(64, 256), requests=8, clients=4, prompt_min=40,
+           prompt_max=250, max_new=128, temperature=0.8)
+#: --quick: the same widths at 2 blocks, 2 requests of 16 tokens
+GEN_QUICK = dict(GEN, n_blocks=2, requests=2, clients=2, max_new=16)
+#: the prompt buckets at which the forward kernel is held to its plain
+#: version (the warmed buckets, the JAX package's smallest, and ragged
+#: lengths inside them); timed at the warmed ones
+PREFILL_CHECK_S = (4, 8, 40, 64, 250, 256)
+#: CharLSTM.generate at BASELINE config 1's widths (one-hot input, as
+#: CharLSTM builds it): 50 characters, 4 layers of 256
+GEN_LSTM = dict(vocab=50, hidden=256, n_layers=4, seed_chars=20, n=200)
+
+
+def gen_conf(n_blocks, compute_dtype="bfloat16"):
+    """The charTransformer at SLICE's widths and `n_blocks` blocks, on the
+    default attention impl ("auto": the flash kernel on the card)."""
+    from deeplearning4j_tpu_torch.models.zoo import char_transformer
+
+    conf = char_transformer(SLICE["vocab"], d_model=SLICE["d_model"],
+                            n_blocks=n_blocks, n_heads=SLICE["n_heads"],
+                            max_seq_len=SLICE["seq"])
+    return conf.with_compute_dtype(compute_dtype) if compute_dtype else conf
+
+
+def post_generate(url, body, timeout=300.0):
+    """POST /v1/generate: (status, the JSON lines of the streamed body)."""
+    req = urllib.request.Request(url + "/v1/generate",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, [json.loads(x) for x in
+                             resp.read().decode().splitlines() if x.strip()]
+
+
+def get_json(url):
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def prefill_kernel_checks(torch, kernels):
+    """(c): the forward kernel at B = 1, S = each of PREFILL_CHECK_S, causal
+    on qkv views (as every prefill calls it), against its plain version:
+    bf16 within 2e-2 of max|o|, f32 at 1e-4. Returns the rows."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    h, d = SLICE["n_heads"], SLICE["d_model"] // SLICE["n_heads"]
+    for s in PREFILL_CHECK_S:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = fwd_inputs(torch, gen, 1, s, h, d, dt, True)
+            if dt == torch.float32:
+                err, _, ok = f32_fwd_check(torch, kernels, q, k, v, True,
+                                           False)
+                tol = 1e-4
+            else:
+                got = kernels.flash_attention(q, k, v, True)
+                want = kernels.flash_attention_reference(q, k, v, True)
+                err = (got.float() - want.float()).abs().max().item()
+                tol = 2e-2 * want.float().abs().max().item()
+                ok = err <= tol
+            row = {"shape": [1, s, h, d],
+                   "dtype": str(dt).replace("torch.", ""),
+                   "max_abs_err": err, "tol": tol, "ok": bool(ok)}
+            rows.append(row)
+            check(ok, f"flash_attn_fwd at a prefill shape: {row}")
+    emit({"phase": "generate_prefill_kernel", "cases": rows})
+    return rows
+
+
+def threefry_check(torch):
+    """(d): the sampler's keys, draws and uniforms on the card equal the
+    CPU's bit for bit over 1,000 keys; the categorical draws (through
+    `log`, whose last place may round otherwise) are counted."""
+    from deeplearning4j_tpu_torch.nd import random as nd_random
+
+    rs = np.random.RandomState(17)
+    keys = rs.randint(0, 2 ** 32, size=(1000, 2), dtype=np.uint64).astype(
+        np.uint32)
+    logits = rs.randn(1000, SLICE["vocab"]).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        k = nd_random.key_array(keys, dev)
+        out[dev] = [nd_random.split(k).cpu(),
+                    nd_random.random_bits(k, SLICE["vocab"]).cpu(),
+                    nd_random.uniform(k, SLICE["vocab"], 1.2e-38, 1.0).cpu(),
+                    nd_random.categorical(
+                        k, torch.as_tensor(logits, device=dev)).cpu()]
+    same = [torch.equal(a, b) for a, b in zip(out["cpu"][:3],
+                                              out["cuda"][:3])]
+    agree = int((out["cpu"][3] == out["cuda"][3]).sum())
+    row = {"phase": "generate_threefry", "keys": 1000,
+           "split_bitwise": same[0], "bits_bitwise": same[1],
+           "uniform_bitwise": same[2], "categorical_agree": agree}
+    emit(row)
+    check(all(same), f"the card's threefry differs from the CPU's: {row}")
+    return row
+
+
+def decode_bounds(net, conf, slots, max_seq):
+    """(bytes of one decode step as the step runs it, f32 params read and
+    every matmul weight cast to bf16 and read again; bytes with the weights
+    read once in bf16): each with the K/V tables of every attention layer
+    read once."""
+    from deeplearning4j_tpu_torch.nn.conf import LayerType
+
+    n_all = sum(t.numel() for layer in net.params for t in layer.values())
+    n_cast = sum(layer[k].numel() for layer in net.params
+                 for k in ("Wqkv", "Wo", "W1", "W2") if k in layer)
+    n_cast += net.params[-1]["W"].numel()  # the output layer
+    n_attn = sum(1 for c in conf.confs
+                 if LayerType(str(c.layer_type)) == LayerType.ATTENTION)
+    kv = 2 * n_attn * slots * max_seq * SLICE["d_model"] * 2
+    return 4 * n_all + 4 * n_cast + kv, 2 * n_cast + kv
+
+
+def decode_eager_check(torch, net, prompt, steps, temperature, seed):
+    """(a) on one stream: the cached path (`ic.prefill`, `ic.decode`; on the
+    card graph replays) against the eager `nn/decode.py` loop with the same
+    sampler on another state. Returns (tokens equal, keys equal, max state
+    gap, the logp gap of one eager step from each final state, the cached
+    tokens)."""
+    from deeplearning4j_tpu_torch.nd import random as nd_random
+    from deeplearning4j_tpu_torch.nn import decode as decode_mod
+    from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+
+    ic, conf = net.infer_cache, net.conf
+    n = len(prompt)
+    bucket = 1 << (n - 1).bit_length()
+    pb = np.zeros((1, bucket), np.int32)
+    pb[0, :n] = prompt
+    temps = torch.full((1,), float(temperature), device="cuda")
+    keys = nd_random.prng_key(seed, "cuda")[None]
+    cached = ic.init_decode_state(conf, 1, GEN["max_seq"], "cuda")
+    eager = ic.init_decode_state(conf, 1, GEN["max_seq"], "cuda")
+    tok, ck, cached = ic.prefill(conf, net.params, cached, pb,
+                                 np.asarray([n], np.int32), keys, temps)
+    with torch.inference_mode():
+        logp, eager = decode_mod.prefill(
+            conf, net.params, eager, torch.as_tensor(pb, device="cuda"),
+            torch.as_tensor([n], device="cuda"))
+        etok, ek = nd_random.sample_tokens(logp.float(), keys, temps)
+    toks, etoks = [int(tok[0])], [int(etok[0])]
+    keys_same = torch.equal(ck, ek)
+    pos = np.asarray([n], np.int32)
+    for _ in range(steps - 1):
+        tok, ck, cached = ic.decode(conf, net.params, cached, tok, pos, ck,
+                                    temps)
+        with torch.inference_mode():
+            logp, eager = decode_mod.decode_step(
+                conf, net.params, eager, etok,
+                torch.as_tensor(pos, device="cuda"))
+            etok, ek = nd_random.sample_tokens(logp.float(), ek, temps)
+        toks.append(int(tok[0]))
+        etoks.append(int(etok[0]))
+        keys_same = keys_same and torch.equal(ck, ek)
+        pos = pos + 1
+    # the final states' K/V rows past the written positions are zero in
+    # both; the carries of a recurrent stack are compared whole
+    gap = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(tree_leaves(cached), tree_leaves(eager)))
+    with torch.inference_mode():
+        nxt = torch.as_tensor([toks[-1]], device="cuda")
+        p_t = torch.as_tensor(pos, device="cuda")
+        lc, _ = decode_mod.decode_step(conf, net.params, cached, nxt, p_t)
+        le, _ = decode_mod.decode_step(conf, net.params, eager, nxt, p_t)
+    logp_gap = (lc.float() - le.float()).abs().max().item()
+    return toks == etoks, bool(keys_same), gap, logp_gap, toks
+
+
+def teacher_forced_gap(torch, net, prompt, tokens):
+    """(b): the eager decode path's logp at every position of prompt +
+    tokens, teacher-forced (B = 1: the prefill, then one decode step a
+    token), against the full re-forward `network_output` of the sequence:
+    (max |gap|, max |logp| of the re-forward)."""
+    from deeplearning4j_tpu_torch.nn import decode as decode_mod
+    from deeplearning4j_tpu_torch.nn.multilayer import network_output
+
+    conf = net.conf
+    n = len(prompt)
+    seq = list(prompt) + list(tokens[:-1])
+    with torch.inference_mode():
+        state = decode_mod.init_state(conf, 1, GEN["max_seq"], "cuda")
+        logp, state = decode_mod.prefill(
+            conf, net.params, state,
+            torch.as_tensor([prompt], device="cuda"),
+            torch.as_tensor([n], device="cuda"))
+        rows = [logp[0].float()]
+        for j, t in enumerate(tokens[:-1]):
+            logp, state = decode_mod.decode_step(
+                conf, net.params, state, torch.as_tensor([t], device="cuda"),
+                torch.as_tensor([n + j], device="cuda"))
+            rows.append(logp[0].float())
+        probs = network_output(conf, net.params,
+                               torch.as_tensor([seq], device="cuda"))
+        ref = torch.log(torch.clamp(probs.float(), 1e-9, 1.0))[n - 1:]
+    got = torch.stack(rows)
+    return (got - ref).abs().max().item(), ref.abs().max().item()
+
+
+def f32_token_identity(torch, steps=16):
+    """Greedy tokens of the cached path against the re-forward's argmax over
+    the growing sequence (the JAX package's test), in f32 at 2 blocks of
+    SLICE's widths: (equal, the cached tokens, the re-forward's, (a) on the
+    same net: tokens/keys equal, state gap, logp gap)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import (MultiLayerNetwork,
+                                                        network_output)
+
+    net = MultiLayerNetwork(gen_conf(2, ""), device="cuda", seed=1).init()
+    prompt = np.random.RandomState(5).randint(0, SLICE["vocab"],
+                                              100).tolist()
+    same_tok, same_keys, gap, logp_gap, toks = decode_eager_check(
+        torch, net, prompt, steps, 0.0, 0)
+    seq, ref = list(prompt), []
+    with torch.inference_mode():
+        for _ in range(steps):
+            probs = network_output(net.conf, net.params,
+                                   torch.as_tensor([seq], device="cuda"))
+            ref.append(int(torch.argmax(torch.log(torch.clamp(
+                probs[-1], 1e-9, 1.0)))))
+            seq.append(ref[-1])
+    del net
+    return toks == ref, toks, ref, (same_tok, same_keys, gap, logp_gap)
+
+
+def charlstm_generate_check(torch):
+    """(e): `CharLSTM.generate` (captured prefill and decode) equals
+    `CharLSTM.sample` (eager steps) for GEN_LSTM["n"] characters, greedy and
+    at 0.8, at BASELINE config 1's widths with random weights."""
+    from deeplearning4j_tpu_torch.models.char_lstm import CharLSTM
+    from deeplearning4j_tpu_torch.models.zoo import char_lstm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    g = GEN_LSTM
+    m = CharLSTM(hidden=g["hidden"], n_layers=g["n_layers"], device="cuda")
+    m.chars = [chr(48 + i) for i in range(g["vocab"])]
+    m.char_index = {c: i for i, c in enumerate(m.chars)}
+    m.net = MultiLayerNetwork(char_lstm(g["vocab"], hidden=g["hidden"],
+                                        n_layers=g["n_layers"]),
+                              device="cuda", seed=0).init()
+    seed_text = "".join(m.chars[i] for i in np.random.RandomState(6).randint(
+        0, g["vocab"], g["seed_chars"]))
+    runs = {}
+    for temp, seed in ((0.0, 0), (0.8, 3)):
+        t = time.perf_counter()
+        got = m.generate(seed_text, n=g["n"], temperature=temp,
+                         rng_seed=seed)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+        t = time.perf_counter()
+        want = m.sample(seed_text, n=g["n"], temperature=temp, rng_seed=seed)
+        sample_s = time.perf_counter() - t
+        runs[str(temp)] = {"equal": got == want, "generate_s": gen_s,
+                           "sample_s": sample_s,
+                           "distinct_chars": len(set(got))}
+        check(got == want, f"CharLSTM.generate != sample at {temp}: "
+                           f"{got[:40]!r} vs {want[:40]!r}")
+    row = {"phase": "generate_char_lstm", "config": g, "runs": runs,
+           "graph": graph_books(m.net)}
+    emit(row)
+    return row
+
+
+def phase_generate(torch, kernels, quick=False):
+    """The charTransformer served through POST /v1/generate (a
+    `ContinuousBatcher` over captured decode and prefill graphs, warmed
+    first), then the step's times, the checks (a)-(e) and the forward
+    kernel at the prefill shapes. Returns (the main path's launches, the
+    timed prefill-shape kernel rows)."""
+    from deeplearning4j_tpu_torch.nd import random as nd_random
+    from deeplearning4j_tpu_torch.nn import decode as decode_mod
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    g = GEN_QUICK if quick else GEN
+    conf = gen_conf(g["n_blocks"])
+    t0 = time.perf_counter()
+    net = MultiLayerNetwork(conf, device="cuda", seed=0).init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for layer in net.params for t in layer.values())
+    ic = net.infer_cache
+    t0 = time.perf_counter()
+    warm = net.warmup_generate(slots=g["slots"], max_seq=g["max_seq"],
+                               prompt_buckets=g["buckets"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_misses = ic.stats.misses
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, SLICE["vocab"], rng.randint(
+        g["prompt_min"], g["prompt_max"] + 1)).tolist()
+        for _ in range(g["requests"])]
+    temps = [0.0 if i % 2 == 0 else g["temperature"]
+             for i in range(g["requests"])]
+
+    kernels.reset_launches()
+    kernels.PAD_COPIES = 0
+    server = net.serve(port=0, generate=True, gen_slots=g["slots"],
+                       gen_max_seq=g["max_seq"],
+                       gen_prompt_buckets=g["buckets"])
+    results = [None] * g["requests"]
+    latency_ms = [None] * g["requests"]
+    errors = []
+    todo = list(range(g["requests"]))
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                if not todo:
+                    return
+                i = todo.pop(0)
+            t = time.perf_counter()
+            try:
+                results[i] = post_generate(server.url, {
+                    "prompt": prompts[i], "max_new_tokens": g["max_new"],
+                    "temperature": temps[i], "rng_seed": i})
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+            latency_ms[i] = (time.perf_counter() - t) * 1e3
+
+    t_all = time.perf_counter()
+    threads = [threading.Thread(target=client) for _ in range(g["clients"])]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall_s = time.perf_counter() - t_all
+    stats = get_json(server.url + "/v1/stats")["generation"]
+    launches = dict(kernels.LAUNCHES)
+    pad_copies = kernels.PAD_COPIES
+    server.drain()
+    check(not errors, f"generate requests failed: {errors}")
+    streams = []
+    for i, (status, lines) in enumerate(results):
+        toks = [x["token"] for x in lines if "token" in x]
+        check(status == 200 and lines[-1].get("done") is True
+              and "error" not in lines[-1]
+              and lines[-1]["tokens"] == g["max_new"] == len(toks)
+              and all(0 <= t < SLICE["vocab"] for t in toks),
+              f"request {i}: status {status}, last line {lines[-1]}, "
+              f"{len(toks)} tokens")
+        streams.append(toks)
+    check(stats["streams"] == {"admitted": g["requests"],
+                               "completed": g["requests"], "failed": 0},
+          f"generation streams {stats['streams']}")
+    check(stats["fresh_compiles"] == warm_misses,
+          f"serving captured programs: {stats['fresh_compiles']} misses "
+          f"after {warm_misses} in warm-up")
+    # every admission is one B = 1 prefill: one forward kernel a block
+    check(launches["flash_attn_fwd"] == g["n_blocks"] * g["requests"],
+          f"flash launches {launches['flash_attn_fwd']} != "
+          f"{g['n_blocks']} x {g['requests']} admissions")
+    check(pad_copies == 0, f"the generate path made {pad_copies} padding "
+                           f"copies")
+
+    # -- the step's times (outside the main path's launch count) ----------
+    table = ic.decode_state(conf, g["slots"], g["max_seq"], "cuda", "table")
+    tok = np.arange(g["slots"], dtype=np.int32)
+    pos = np.full((g["slots"],), 300 if not quick else 40, np.int32)
+    keys = np.zeros((g["slots"], 2), np.uint32)
+    tmp = np.asarray([0.0, g["temperature"]] * (g["slots"] // 2),
+                     np.float32)
+    books_before = ic.stats.misses
+
+    def captured():
+        return ic.decode(conf, net.params, table, tok, pos, keys, tmp)
+
+    tok_t, pos_t = (torch.as_tensor(a, device="cuda") for a in (tok, pos))
+    keys_t = nd_random.key_array(keys, "cuda")
+    tmp_t = torch.as_tensor(tmp, device="cuda")
+
+    def eager():
+        with torch.inference_mode():
+            logp, _ = decode_mod.decode_step(conf, net.params, table, tok_t,
+                                             pos_t)
+            return nd_random.sample_tokens(logp.float(), keys_t, tmp_t)
+
+    turns = {"captured": [], "eager": []}
+    for name in ("captured", "eager", "eager", "captured"):
+        turns[name].append(cuda_ms(captured if name == "captured" else eager,
+                                   iters=20, warmup=3))
+    check(ic.stats.misses == books_before, "timing the decode step captured "
+                                           "a new program")
+    prof = profiled(torch, kernels, captured, "generate_decode_profile")
+    prof_eager = profiled(torch, kernels, eager,
+                          "generate_decode_profile_eager")
+    captured_ms, eager_ms = min(turns["captured"]), min(turns["eager"])
+    row_state = ic.decode_state(conf, 1, g["max_seq"], "cuda", "row")
+    prefill_ms, prefill_device_ms = {}, {}
+    for tb in g["buckets"]:
+        pb = np.zeros((1, tb), np.int32)
+
+        def prefill(pb=pb, tb=tb):
+            return ic.prefill(conf, net.params, row_state, pb,
+                              np.asarray([tb], np.int32), keys[:1], tmp[:1])
+
+        prefill_ms[str(tb)] = cuda_ms(prefill, iters=5, warmup=1)
+        prefill_device_ms[str(tb)] = profiled(
+            torch, kernels, prefill,
+            f"generate_prefill_profile_{tb}")["device_ms"]
+    bytes_casts, bytes_bf16 = decode_bounds(net, conf, g["slots"],
+                                            g["max_seq"])
+
+    # -- correctness on the card --------------------------------------------
+    # (a) the cached decode against the eager loop, at these widths (bf16)
+    a_runs = {}
+    for temp, seed in ((0.0, 1), (g["temperature"], 2)):
+        same_tok, same_keys, gap, logp_gap, _ = decode_eager_check(
+            torch, net, prompts[0], 16 if quick else 32, temp, seed)
+        a_runs[str(temp)] = {"tokens_equal": same_tok,
+                             "keys_equal": same_keys, "state_gap": gap,
+                             "logp_gap": logp_gap}
+        check(same_tok and same_keys,
+              f"(a) cached decode differs from the eager loop: {a_runs}")
+    # (b) teacher-forced logp against the re-forward, on served streams
+    b_runs = []
+    for i in (0, 1):
+        gap, scale = teacher_forced_gap(torch, net, prompts[i], streams[i])
+        b_runs.append({"request": i, "max_abs_gap": gap,
+                       "max_abs_logp": scale})
+        check(gap <= 2e-2 * scale, f"(b) decode logp vs re-forward: "
+                                   f"{b_runs[-1]}")
+    gen_row = {
+        "phase": "generate", "config": {**SLICE, **g},
+        "compute_dtype": "bfloat16", "params": n_params, "init_s": init_s,
+        "warmup": {k: v for k, v in warm.items() if k != "infer_cache"},
+        "capture_s": warm_s,
+        "capture_s_by_program": {repr(k[:1] + k[2][:1]): v for k, v in
+                                 ic.stats.compile_seconds.items()},
+        "graph_pool_bytes": ic.pool.reserved_bytes,
+        "requests": g["requests"], "clients": g["clients"],
+        "prompt_lengths": [len(p) for p in prompts],
+        "temperatures": temps, "latency_ms": latency_ms, "wall_s": wall_s,
+        "tokens_per_s_wall": g["requests"] * g["max_new"] / wall_s,
+        "stats": {k: stats[k] for k in (
+            "tokens", "tokens_per_sec", "ttft_ms", "ttft_hist_s", "streams",
+            "host_overhead_fraction", "decode_host_seconds_total",
+            "fresh_compiles")},
+        "launches": launches,
+        "decode_step_ms": captured_ms, "decode_step_ms_turns": turns,
+        "decode_step_eager_ms": eager_ms,
+        "decode_step_device_ms": prof["device_ms"],
+        "decode_step_idle_share": 1.0 - prof["device_ms"] / captured_ms,
+        "decode_step_idle_share_profiled": prof["idle_share"],
+        "decode_step_eager_device_ms": prof_eager["device_ms"],
+        "decode_step_eager_idle_share": (1.0 - prof_eager["device_ms"]
+                                         / eager_ms),
+        "decode_bound_ms": bytes_casts / PEAK_BYTES * 1e3,
+        "decode_bound_bf16_weights_ms": bytes_bf16 / PEAK_BYTES * 1e3,
+        "decode_step_bytes": [bytes_casts, bytes_bf16],
+        "prefill_ms": prefill_ms, "prefill_device_ms": prefill_device_ms,
+        "a_cached_vs_eager": a_runs, "b_teacher_forced": b_runs,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del net, table, row_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # token identity against the re-forward, in f32 at 2 blocks; (a) there
+    # with the f32 logp gap
+    same, toks, ref, (a_tok, a_keys, a_gap, a_logp) = f32_token_identity(
+        torch)
+    gen_row["f32_two_blocks"] = {"tokens_equal_reforward": same,
+                                 "tokens": toks, "reforward": ref,
+                                 "a_tokens_equal": a_tok,
+                                 "a_keys_equal": a_keys, "a_state_gap": a_gap,
+                                 "a_logp_gap": a_logp}
+    emit(gen_row)
+    check(same, f"f32 cached greedy tokens differ from the re-forward: "
+                f"{toks} vs {ref}")
+    check(a_tok and a_keys and a_logp <= 1e-6,
+          f"(a) in f32: {gen_row['f32_two_blocks']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) the forward kernel at every prefill bucket; (d) the sampler
+    prefill_kernel_checks(torch, kernels)
+    threefry_check(torch)
+    # (e)
+    charlstm_generate_check(torch)
+    kernel_rows = []
+    if not quick:
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        for s in g["buckets"]:
+            kernel_rows.append(fwd_kernel_row(
+                torch, kernels, gen, (1, s, SLICE["n_heads"],
+                                      SLICE["d_model"] // SLICE["n_heads"],
+                                      torch.bfloat16, True, False, True),
+                phase="generate_kernel"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, kernel_rows
+
+
 def profile_step(torch, kernels, net, x, y, phase="train_profile",
                  ours_key="flash_") -> dict:
-    """One more training step under `torch.profiler`: prints the device
-    time by kernel name (the 15 largest), the device time of the port's
-    kernels (names holding `ours_key`), in all and by kernel, the sum over
-    every kernel, and the step's wall time, from which the device's idle
-    share follows. Launches made here are not counted as the main path's.
+    """One more training step under `torch.profiler` (`profiled`)."""
+    return profiled(torch, kernels, lambda: net.fit(x, y), phase, ours_key)
+
+
+def profiled(torch, kernels, fn, phase, ours_key="flash_") -> dict:
+    """One fn() call under `torch.profiler`: prints the device time by
+    kernel name (the 15 largest), the device time of the port's kernels
+    (names holding `ours_key`), in all and by kernel, the sum over every
+    kernel, and the call's wall time, from which the device's idle share
+    follows. Launches made here are not counted as the main path's.
     Returns the row."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1058,7 +1586,7 @@ def profile_step(torch, kernels, net, x, y, phase="train_profile",
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        net.fit(x, y)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels.LAUNCHES.update(saved)
@@ -1721,6 +2249,37 @@ def phase_checkpoint(torch, kernels):
     return launches
 
 
+#: the CLI's generate on the lstm_cli checkpoint: a prompt of 20 ids, 64
+#: new tokens, a 128-token table
+CLI_GEN = dict(prompt=20, new=64, max_seq=128)
+
+
+def cli_generate_direct(torch, ckpt, prompt, temperature):
+    """The tokens of the cached path called directly on the checkpoint's
+    network (B = 1 prefill into the bucket the CLI picks, then one decode
+    a token, key from seed 5): what the CLI's one-slot batcher must give."""
+    from deeplearning4j_tpu_torch.nd import random as nd_random
+    from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
+
+    net = load_network(ckpt)
+    ic = net.infer_cache
+    n = len(prompt)
+    pb = np.zeros((1, max(4, 1 << (n - 1).bit_length())), np.int32)
+    pb[0, :n] = prompt
+    state = ic.init_decode_state(net.conf, 1, CLI_GEN["max_seq"], "cuda")
+    temps = np.full((1,), temperature, np.float32)
+    tok, keys, state = ic.prefill(net.conf, net.params, state, pb,
+                                  np.asarray([n], np.int32),
+                                  nd_random.prng_key(5, "cuda")[None], temps)
+    out, pos = [int(tok[0])], np.asarray([n], np.int32)
+    for _ in range(CLI_GEN["new"] - 1):
+        tok, keys, state = ic.decode(net.conf, net.params, state, tok, pos,
+                                     keys, temps)
+        out.append(int(tok[0]))
+        pos = pos + 1
+    return out
+
+
 def phase_lstm_cli(torch, kernels):
     """The CLI north star in process: `train` over the word corpus with
     bench.py:1716-1719's arguments, then `predict` and `test` on the
@@ -1772,6 +2331,20 @@ def phase_lstm_cli(torch, kernels):
                                     ckpt])
         launches = kernels.LAUNCHES["lstm_cell"]
         data = load_input(uri)
+        # generation from the same checkpoint, greedy and at 0.8; the
+        # tokens must be those of the cached path called directly
+        gen_prompt = np.random.RandomState(8).randint(
+            0, int(data.vocab_size), CLI_GEN["prompt"]).tolist()
+        generated = {}
+        for temp in ("0", "0.8"):
+            line, _, wall = run(
+                ["generate", "--model", ckpt, "--prompt",
+                 ",".join(map(str, gen_prompt)), "--max-new-tokens",
+                 str(CLI_GEN["new"]), "--max-seq", str(CLI_GEN["max_seq"]),
+                 "--temperature", temp, "--seed", "5"])
+            generated[temp] = dict(line, wall_s=wall,
+                                   direct=cli_generate_direct(
+                                       torch, ckpt, gen_prompt, float(temp)))
         net = load_network(ckpt)
         direct = net.output(data.features).float().cpu().numpy()
         probs = np.loadtxt(csv_path, delimiter=",", skiprows=1,
@@ -1787,8 +2360,20 @@ def phase_lstm_cli(torch, kernels):
                         "predict": l_pred, "test": l_test},
            "wall_s": {"train": w_train, "train_checkpointed": w_ck,
                       "predict": w_pred, "test": w_test},
-           "predict_vs_direct_max_abs_err": err}
+           "predict_vs_direct_max_abs_err": err,
+           "generate": {t: {k: v for k, v in g.items() if k != "direct"}
+                        for t, g in generated.items()}}
     emit(row)
+    # the JAX package's generate line (deeplearning4j_tpu/cli/driver.py:
+    # 642-649)
+    for temp, line in generated.items():
+        check(set(line) - {"wall_s", "direct"}
+              == {"tokens", "n_tokens", "tokens_per_sec", "ttft_ms",
+                  "fresh_compiles", "disk_cache"}
+              and line["n_tokens"] == CLI_GEN["new"]
+              and line["fresh_compiles"] == 0
+              and line["tokens"] == line["direct"],
+              f"generate line at temperature {temp}: {line}")
     # the JAX package's train line (deeplearning4j_tpu/cli/driver.py:350-365)
     train_keys = {"saved", "score", "resumed_from_step",
                   "checkpoint_write_seconds", "train_seconds",
@@ -2384,6 +2969,8 @@ def main(argv) -> int:
         # spills, one check at the path's widths, stop
         ok = phase_quick(torch, kernels)
         check_bodies(bodies, f32_bodies)
+        # the generation path at 2 blocks: served, checked, timed once
+        phase_generate(torch, kernels, quick=True)
         return 0 if ok else 1
 
     fwd_rows = phase_kernels(torch, kernels)
@@ -2393,6 +2980,9 @@ def main(argv) -> int:
     serve_launches = phase_serve(torch, kernels)
     gc.collect()
     torch.cuda.empty_cache()
+    gen_launches, gen_kernel_rows = phase_generate(torch, kernels)
+    check(gen_launches["flash_attn_fwd"] > 0,
+          "the flash kernel never ran in generation")
     train_launches, f32_train_launches = phase_train(torch, kernels)
     gc.collect()
     check(serve_launches["flash_attn_fwd"] > 0, "the flash kernel never ran")
@@ -2426,8 +3016,10 @@ def main(argv) -> int:
         "source": "deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "deeplearning4j_tpu/nd/pallas_kernels.py:106",
         "launches": (serve_launches["flash_attn_fwd"]
+                     + gen_launches["flash_attn_fwd"]
                      + train_launches["flash_attn_fwd"]),
         "launches_by_path": {"serve": serve_launches["flash_attn_fwd"],
+                             "generate": gen_launches["flash_attn_fwd"],
                              "train": train_launches["flash_attn_fwd"]},
         "max_abs_err": fwd_row["max_abs_err"],
         "ms": fwd_row["kernel_ms"], "plain_ms": fwd_row["plain_ms"],
@@ -2446,6 +3038,11 @@ def main(argv) -> int:
             "bound_by": fwd_train_row["bound_by"],
             "library_ms": fwd_train_row["library_ms"],
             "tflops": fwd_train_row["tflops"]},
+        # every prefill's forward (B = 1, S = a warmed prompt bucket,
+        # causal, no lse); SDPA is the library column
+        "at_prefill_shapes": [{k: r[k] for k in (
+            "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "tflops")} for r in gen_kernel_rows],
         "f32": dict(
             f32_entry(fwd_rows, None), design="3xtf32 mma.sync + cp.async",
             ptxas=f32_bodies["flash_attn_fwd"],

@@ -1,4 +1,5 @@
-"""CLI driver: the `train`, `test`, `predict` and `serve` subcommands.
+"""CLI driver: the `train`, `test`, `predict`, `generate` and `serve`
+subcommands.
 
 Counterpart of `deeplearning4j_tpu/cli/driver.py`, on one device (CUDA
 unless `--device cpu`):
@@ -12,9 +13,14 @@ unless `--device cpu`):
   with an `interrupted` line, and a rerun with the same flags resumes;
 - `test` evaluates a checkpoint (accuracy, precision, recall, F1) and
   `predict` writes its argmax and class probabilities as CSV;
-- `serve` loads a checkpoint, starts the micro-batching HTTP gateway,
-  prints a startup JSON line, and on SIGTERM or SIGINT drains and prints a
-  final JSON line.
+- `generate` loads a checkpoint of a generative model (char_lstm,
+  char_transformer), captures its prefill and decode programs, and
+  generates `--max-new-tokens` tokens after `--prompt` through a
+  one-slot `ContinuousBatcher`, printing the JAX package's JSON keys;
+- `serve` loads a checkpoint, starts the micro-batching HTTP gateway (with
+  `--generate`, also POST /v1/generate over a `--gen-slots` decode table,
+  its programs captured before the socket opens), prints a startup JSON
+  line, and on SIGTERM or SIGINT drains and prints a final JSON line.
 Checkpoints are `conf.json` + `arrays.npz`, written by either package.
 
 The final JSON lines keep the JAX package's keys. `train`'s: `saved`,
@@ -23,7 +29,9 @@ The final JSON lines keep the JAX package's keys. `train`'s: `saved`,
 `cache_hits`, `cache_misses` and `infer_compile_seconds`; `disk_cache` is
 null, as a CUDA graph is not kept on disk. Options that are not ported exit
 naming their ROADMAP.md item: `--runtime mesh`, `--mesh` and `--zero1`
-(item 10), `--compile-cache` (item 11), pretraining recipes (item 9).
+(item 10), `--compile-cache` (item 11), pretraining recipes (item 9), and
+generation's paged pool, prefix cache, draft model and several steps a
+dispatch (item 8).
 """
 
 from __future__ import annotations
@@ -46,7 +54,27 @@ def _parse_properties(props: Optional[str]) -> dict:
     return out
 
 
+#: generation flags off the default path (`generate` and `serve`): dest ->
+#: the part of ROADMAP.md queue A item 8 that ports it
+_UNPORTED_GENERATION = {
+    "gen_page_size": "paged decode",
+    "gen_pages": "paged decode",
+    "gen_prefix_cache": "prefill_logp and the prefix cache",
+    "gen_draft": "speculative decoding",
+    "gen_spec_k": "speculative decoding",
+    "gen_steps_per_dispatch": "decode_block (steps_per_dispatch > 1)",
+}
+
+
 def _refuse_unported(args) -> None:
+    for dest, part in _UNPORTED_GENERATION.items():
+        value = getattr(args, dest, None)
+        if value not in (None, 0, False) and not (
+                dest == "gen_steps_per_dispatch" and value == 1):
+            flag = "--" + dest.replace("_", "-")
+            raise SystemExit(f"{flag} is not ported to "
+                             f"deeplearning4j_tpu_torch yet; see ROADMAP.md "
+                             f"queue A item 8 ({part})")
     if getattr(args, "compile_cache", None):
         raise SystemExit("--compile-cache is not ported to "
                          "deeplearning4j_tpu_torch yet (the step and serve "
@@ -249,19 +277,87 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def _parse_buckets(spec: str):
+    """'4,8' -> (4, 8): the prompt buckets the prefill programs pad into."""
+    out = tuple(int(p) for p in (spec or "").split(",") if p.strip())
+    if not out:
+        raise SystemExit("expected a comma-separated bucket list like 4,8")
+    return out
+
+
+def cmd_generate(args) -> int:
+    """Generation from a checkpoint through the cached KV-cache path: the
+    prefill takes the prompt, then a one-slot `ContinuousBatcher`'s decode
+    loop makes each token (`serve --generate` runs the many-slot table)."""
+    from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
+    from deeplearning4j_tpu_torch.serving.batcher import ContinuousBatcher
+
+    _refuse_unported(args)
+    net = load_network(args.model, device=args.device)
+    prompt = [int(t) for t in args.prompt.split(",") if t.strip()]
+    if not prompt:
+        raise SystemExit("generate needs --prompt <id,id,...>")
+    if len(prompt) >= args.gen_max_seq:
+        raise SystemExit(f"prompt of {len(prompt)} tokens needs "
+                         f"--max-seq > {len(prompt)}")
+    bucket = min(max(4, 1 << (len(prompt) - 1).bit_length()),
+                 args.gen_max_seq)
+    # one-shot generation decodes one stream: a one-slot table
+    net.warmup_generate(slots=1, max_seq=args.gen_max_seq,
+                        prompt_buckets=(bucket,))
+    warmed_misses = net.infer_cache.stats.misses
+    batcher = ContinuousBatcher(net, n_slots=1, max_seq=args.gen_max_seq,
+                                prompt_buckets=(bucket,))
+    try:
+        t0 = time.perf_counter()
+        stream = batcher.submit(prompt, max_new_tokens=args.max_new_tokens,
+                                temperature=args.temperature,
+                                rng_seed=args.seed)
+        tokens = list(stream.tokens(timeout=args.timeout))
+        dt = time.perf_counter() - t0
+    finally:
+        batcher.stop()
+    print(json.dumps({
+        "tokens": tokens,
+        "n_tokens": len(tokens),
+        "tokens_per_sec": round(len(tokens) / max(dt, 1e-9), 2),
+        "ttft_ms": (None if stream.ttft_s is None
+                    else round(stream.ttft_s * 1000.0, 3)),
+        "fresh_compiles": net.infer_cache.stats.misses - warmed_misses,
+        "disk_cache": None}), flush=True)
+    return 0
+
+
 def cmd_serve(args) -> int:
     from deeplearning4j_tpu_torch.nd.platform import device_kind
     from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
 
+    _refuse_unported(args)
     net = load_network(args.model, device=args.device)
+    generation = None
+    buckets = _parse_buckets(args.gen_prompt_buckets)
+    if args.generate:
+        # the decode and prefill programs are captured before the socket
+        # opens, so generation starts from cache hits
+        generation = net.warmup_generate(slots=args.gen_slots,
+                                         max_seq=args.gen_max_seq,
+                                         prompt_buckets=buckets)
+        generation.pop("infer_cache")
     server = net.serve(host=args.host, port=args.port,
                        max_delay_ms=args.max_delay_ms,
                        max_pending=args.max_pending,
                        max_batch_rows=args.max_batch_rows,
                        request_timeout_s=args.request_timeout,
-                       drain_timeout_s=args.drain_timeout)
+                       drain_timeout_s=args.drain_timeout,
+                       generate=args.generate, gen_slots=args.gen_slots,
+                       gen_max_seq=args.gen_max_seq,
+                       gen_prompt_buckets=buckets,
+                       gen_max_pending=args.gen_max_pending)
     print(json.dumps({"url": server.url, "device": str(net.device),
-                      "device_kind": device_kind(net.device)}), flush=True)
+                      "device_kind": device_kind(net.device),
+                      "generation": generation,
+                      "fresh_compiles": net.infer_cache.stats.misses}),
+          flush=True)
     # the handler only sets an event; the main thread runs the drain
     prev = {}
     for sig in (signal.SIGTERM, signal.SIGINT):
@@ -311,6 +407,41 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     _add_device(p)
 
 
+def _add_generate_flags(p: argparse.ArgumentParser) -> None:
+    """`serve --generate` and its decode-table flags (the JAX package's
+    names); the flags of the unported options exit naming their item."""
+    p.add_argument("--generate", action="store_true",
+                   help="also serve POST /v1/generate through a continuous-"
+                        "batching decode table (programs captured first)")
+    p.add_argument("--gen-slots", dest="gen_slots", type=int, default=None,
+                   help="decode table width: streams per decode step "
+                        "(default 4)")
+    p.add_argument("--gen-max-seq", dest="gen_max_seq", type=int,
+                   default=64,
+                   help="KV-cache length per slot; prompt + generated "
+                        "tokens must fit in it")
+    p.add_argument("--gen-prompt-buckets", dest="gen_prompt_buckets",
+                   default="8",
+                   help="comma-separated prompt buckets (one captured "
+                        "prefill each)")
+    p.add_argument("--gen-max-pending", dest="gen_max_pending", type=int,
+                   default=64,
+                   help="queued generation streams bound; beyond it 503")
+    p.add_argument("--gen-page-size", dest="gen_page_size", type=int,
+                   default=None, help="not ported yet (exits)")
+    p.add_argument("--gen-pages", dest="gen_pages", type=int, default=0,
+                   help="not ported yet (exits)")
+    p.add_argument("--gen-prefix-cache", dest="gen_prefix_cache",
+                   action="store_true", help="not ported yet (exits)")
+    p.add_argument("--gen-draft", dest="gen_draft", default=None,
+                   help="not ported yet (exits)")
+    p.add_argument("--gen-spec-k", dest="gen_spec_k", type=int, default=0,
+                   help="not ported yet (exits)")
+    p.add_argument("--gen-steps-per-dispatch",
+                   dest="gen_steps_per_dispatch", type=int, default=None,
+                   help="not ported yet (exits unless 1)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="deeplearning4j_tpu_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
@@ -352,8 +483,49 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--batch", type=int, default=1024,
                     help="examples per forward (0 = one call)")
     pr.set_defaults(fn=cmd_predict)
+    g = sub.add_parser("generate",
+                       help="generation from a checkpoint through the "
+                            "cached KV-cache path (one prefill, then one "
+                            "decode step a token)")
+    g.add_argument("--model", required=True,
+                   help="checkpoint dir of a generative model (char_lstm, "
+                        "char_transformer)")
+    _add_device(g)
+    g.add_argument("--prompt", required=True,
+                   help="comma-separated prompt token ids, e.g. 1,7,3")
+    g.add_argument("--max-new-tokens", dest="max_new_tokens", type=int,
+                   default=16,
+                   help="tokens to generate (clamped so that prompt and "
+                        "output fit --max-seq)")
+    g.add_argument("--temperature", type=float, default=0.0,
+                   help="0 decodes greedily; > 0 samples at it")
+    g.add_argument("--seed", type=int, default=0,
+                   help="PRNG seed of temperature sampling")
+    g.add_argument("--max-seq", dest="gen_max_seq", type=int, default=64,
+                   help="KV-cache length: prompt and generated tokens must "
+                        "fit in it")
+    g.add_argument("--timeout", type=float, default=120.0,
+                   help="bound on the whole generation (seconds)")
+    g.add_argument("--page-size", dest="gen_page_size", type=int,
+                   default=0, help="not ported yet (exits)")
+    g.add_argument("--prefix-cache", dest="gen_prefix_cache",
+                   action="store_true", help="not ported yet (exits)")
+    g.add_argument("--draft", dest="gen_draft", default=None,
+                   help="not ported yet (exits)")
+    g.add_argument("--spec-k", dest="gen_spec_k", type=int, default=0,
+                   help="not ported yet (exits)")
+    g.add_argument("--steps-per-dispatch", dest="gen_steps_per_dispatch",
+                   type=int, default=None,
+                   help="not ported yet (exits unless 1)")
+    g.add_argument("--mesh", nargs="?", const="all", default=None,
+                   metavar="SPEC", help="not ported yet (exits)")
+    g.add_argument("--compile-cache", dest="compile_cache", default=None,
+                   metavar="DIR", help="not ported yet (exits)")
+    g.set_defaults(fn=cmd_generate)
+
     s = sub.add_parser("serve", help="micro-batching HTTP gateway: POST "
-                                     "/v1/predict + GET /v1/stats")
+                                     "/v1/predict (and with --generate POST "
+                                     "/v1/generate) + GET /v1/stats")
     s.add_argument("--model", required=True, help="checkpoint dir to serve")
     _add_device(s)
     s.add_argument("--host", default="127.0.0.1")
@@ -374,6 +546,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--request-timeout", dest="request_timeout", type=float,
                    default=30.0, metavar="SECONDS",
                    help="cap on how long one request may wait (504 past it)")
+    _add_generate_flags(s)
     s.set_defaults(fn=cmd_serve)
     return p
 

@@ -1,16 +1,15 @@
-"""Char-LSTM language model: training, greedy sampling and beam search.
+"""Char-LSTM language model: training, sampling, generation, beam search.
 
 Counterpart of `deeplearning4j_tpu/models/char_lstm.py`. Training is the
 `zoo.char_lstm` network through `MultiLayerNetwork.fit` (on CUDA the LSTM
 layers run the fused cell kernel at every step); decoding keeps the
 recurrent state as explicit (h, c) tensors per layer and steps the
-concat-form cell `LSTMLayer.step`, as the JAX package does. Beams ride the
-batch dimension, so every candidate advances in one step.
-
-Not ported yet (ROADMAP.md queue A item 8, generation): temperature
-sampling (the JAX package's `jax.random.categorical` draws cannot be
-reproduced, so how the port samples is that item's decision) and
-`generate`, which needs the compiled decode cache.
+concat-form cell `LSTMLayer.step`, as the JAX package does. Temperature
+sampling draws with `nd/random.py`, the port of `jax.random`'s threefry
+split and categorical draw, so its key stream is the JAX package's bit for
+bit. `generate` is `sample` through the infer cache's prefill and decode
+programs (on CUDA, captured graphs). Beams ride the batch dimension, so
+every candidate advances in one step.
 """
 
 from __future__ import annotations
@@ -21,12 +20,10 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.models.zoo import char_lstm
+from deeplearning4j_tpu_torch.nd import random as nd_random
 from deeplearning4j_tpu_torch.nn.conf import LayerType
 from deeplearning4j_tpu_torch.nn.layers import get_layer
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-
-_GENERATION = ("is not ported to deeplearning4j_tpu_torch yet; see "
-               "ROADMAP.md queue A item 8 (generation)")
 
 
 class CharLSTM:
@@ -137,17 +134,27 @@ class CharLSTM:
     # -- public decode APIs
     def sample(self, seed_text: str, n: int = 50,
                temperature: float = 1.0, rng_seed: int = 0) -> str:
-        """Greedy decoding (`temperature <= 0`), one char at a time."""
+        """Temperature sampling, one char at a time (greedy at
+        `temperature <= 0`). The key is split before every char, as in the
+        JAX package: `key, sub = split(key)`, then
+        `categorical(sub, logp / temperature)`."""
         assert self.net is not None, "fit() first"
-        if temperature > 0:
-            raise NotImplementedError(f"temperature sampling {_GENERATION}")
         step = self._step_fn()
         hs, cs = self._init_state(1)
         logp, hs, cs = self._feed(step, seed_text, hs, cs)
+        key = nd_random.prng_key(rng_seed, self.net.device)
+        # a tensor, so that the division is a true one on the card too (a
+        # Python divisor becomes a product by its reciprocal there), as in
+        # the cached programs' `logp / temps`
+        temp = torch.tensor(float(temperature), device=self.net.device)
         eye = self._eye()
         out = []
         for _ in range(n):
-            cid = int(torch.argmax(logp[0]))
+            key, sub = nd_random.split(key)
+            if temperature <= 0:
+                cid = int(torch.argmax(logp[0]))
+            else:
+                cid = int(nd_random.categorical(sub, logp[0] / temp))
             out.append(self.chars[cid])
             logp, hs, cs = step(eye[cid][None], hs, cs)
         return "".join(out)
@@ -155,7 +162,39 @@ class CharLSTM:
     def generate(self, seed_text: str, n: int = 50,
                  temperature: float = 0.0, rng_seed: int = 0,
                  max_seq: Optional[int] = None) -> str:
-        raise NotImplementedError(f"CharLSTM.generate {_GENERATION}")
+        """`sample()` through the infer cache's programs: one prefill takes
+        the seed text, then one decode step a char (on CUDA, replays of
+        captured graphs). The same chars as `sample()` for the same
+        arguments: both split one key stream, and the prefill steps the
+        same concat-form cell. The decode state is the infer cache's own
+        for (1 row, max_seq), zeroed first, so later calls replay the
+        graphs the first one captured."""
+        assert self.net is not None, "fit() first"
+        ids = self._encode(seed_text)
+        if len(ids) == 0:
+            raise ValueError("seed_text must be non-empty")
+        if max_seq is None:
+            max_seq = max(8, 1 << (len(ids) + n - 1).bit_length())
+        bucket = max(4, 1 << (len(ids) - 1).bit_length())
+        net, ic = self.net, self.net.infer_cache
+        state = ic.decode_state(net.conf, 1, max_seq, net.device,
+                                role="generate")
+        ic.reset_state(state)
+        prompt = np.zeros((1, bucket), np.int32)
+        prompt[0, :len(ids)] = ids
+        keys = nd_random.prng_key(rng_seed, net.device)[None]
+        temps = np.full((1,), float(temperature), np.float32)
+        tok, keys, state = ic.prefill(net.conf, net.params, state, prompt,
+                                      np.asarray([len(ids)], np.int32),
+                                      keys, temps)
+        out = [self.chars[int(tok[0])]]
+        pos = np.asarray([len(ids)], np.int32)
+        for _ in range(n - 1):
+            tok, keys, state = ic.decode(net.conf, net.params, state, tok,
+                                         pos, keys, temps)
+            out.append(self.chars[int(tok[0])])
+            pos = pos + 1
+        return "".join(out)
 
     def beam_search(self, seed_text: str, n: int = 20,
                     beam_width: int = 4) -> Tuple[str, float]:

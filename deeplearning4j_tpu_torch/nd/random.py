@@ -1,0 +1,144 @@
+"""Threefry keys and the draws of temperature sampling, as JAX makes them.
+
+The JAX package samples tokens with `jax.random.split` and
+`jax.random.categorical` on `[B, 2]` uint32 keys (its
+`optimize/infer_cache.py` `_sample_tokens`, `models/char_lstm.py`
+`sample`). This module computes the same functions with integer tensor ops
+(int64 tensors holding uint32 values, masked after every add), so that a
+captured CUDA graph can hold them and the keys come out bit for bit what
+the JAX package's are, on the CPU and on the card. It reproduces the
+defaults of JAX 0.9: the `threefry2x32` implementation with
+`jax_threefry_partitionable` on, and the "low" Gumbel mode.
+
+- `threefry2x32`: the Threefry-2x32 hash (20 rounds, JAX's rotations and
+  key schedule);
+- `prng_key(seed)`: `jax.random.PRNGKey(seed)`, [0, seed mod 2^32] (the
+  high word is 0 without x64);
+- `split(keys, num)`: `jax.random.split`, key i of a split is
+  `threefry2x32(key, (0, i))`;
+- `random_bits(keys, n)`: 32-bit draws, `y1 ^ y2` of the hash of the
+  counts (0, j), j < n;
+- `uniform(keys, n, minval, maxval)`: the float32 uniform built from the
+  top 23 bits of each draw;
+- `gumbel`, `categorical`: `-log(-log(u))` with u uniform on [tiny, 1), and
+  the argmax of gumbel + logits.
+
+Keys are int64 tensors of shape [..., 2] whose values lie in [0, 2^32).
+Every function works on a batch of keys at once (the leading axes), the way
+the JAX package `vmap`s them. The float steps (`log`, the argmax of sums)
+may round differently from XLA's in the last place, so a draw can differ
+from JAX's only where two candidates tie to within that rounding.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_MASK = 0xFFFFFFFF
+_PARITY = 0x1BD11BDA
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+#: float32's smallest normal number: the low end of the Gumbel's uniform
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
+    """The Threefry-2x32 hash of the counts (x1, x2) under the key
+    (k1, k2): int64 tensors (or ints) of uint32 values that broadcast
+    together. Returns (y1, y2), int64 tensors of uint32 values."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x = [(x1 + ks[0]) & _MASK, (x2 + ks[1]) & _MASK]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & _MASK
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _MASK
+        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x[0], x[1]
+
+
+def prng_key(seed: int, device=None) -> torch.Tensor:
+    """`jax.random.PRNGKey(seed)`: an int64 [2] tensor [0, seed mod 2^32]."""
+    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
+                        device=device)
+
+
+def key_array(keys, device=None) -> torch.Tensor:
+    """Keys given as uint32 numpy arrays (the JAX package's form) or
+    tensors, as an int64 tensor on `device`."""
+    if isinstance(keys, torch.Tensor):
+        return keys.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(keys, np.uint32).astype(np.int64),
+                           device=device)
+
+
+def _hash_counts(keys: torch.Tensor, n: int):
+    """threefry2x32 of each key [..., 2] over the counts (0, j), j < n:
+    (y1, y2), each [..., n]."""
+    j = torch.arange(n, dtype=torch.int64, device=keys.device)
+    return threefry2x32(keys[..., 0:1], keys[..., 1:2], torch.zeros_like(j),
+                        j)
+
+
+def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`jax.random.split` of each key [..., 2]: [..., num, 2]."""
+    y1, y2 = _hash_counts(keys, num)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """`n` 32-bit draws of each key [..., 2]: int64 [..., n]."""
+    y1, y2 = _hash_counts(keys, n)
+    return y1 ^ y2
+
+
+def uniform(keys: torch.Tensor, n: int, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """`jax.random.uniform(key, (n,), float32, minval, maxval)` for each key
+    [..., 2]: float32 [..., n]. The top 23 bits of a draw fill the mantissa
+    of a float in [1, 2), minus 1, then `floats * (maxval - minval) +
+    minval`, which XLA fuses into one multiply-add: here the product is
+    exact in float64 and the sum is rounded once to float64, then to
+    float32 (the two roundings can differ from the fused one's in about one
+    case in 2^29; at the Gumbel's [tiny, 1) the span is 1 and they never
+    do)."""
+    bits = (random_bits(keys, n) >> 9) | 0x3F800000
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)  # rounded in float32, as in JAX
+    out = (floats.double() * span + float(lo)).float()
+    return torch.clamp_min(out, float(lo))
+
+
+def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.gumbel(key, (n,), float32)` ("low" mode) for each key:
+    -log(-log(u)), u uniform on [tiny, 1)."""
+    return -torch.log(-torch.log(uniform(keys, n, _TINY, 1.0)))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """`jax.random.categorical(key, logits)` over the last axis, one key a
+    row: keys [..., 2], logits [..., V] float32. Returns int64 [...]."""
+    g = gumbel(keys, logits.shape[-1])
+    return torch.argmax(g + logits, dim=-1)
+
+
+def sample_tokens(logp: torch.Tensor, keys: torch.Tensor,
+                  temps: torch.Tensor):
+    """One token a row with the JAX package's key discipline
+    (`optimize/infer_cache.py` `_sample_tokens`): every row splits its key
+    once (`key, sub = split(key)`); rows with temperature <= 0 take the
+    argmax, the rest draw `categorical(sub, logp / temperature)`. logp
+    [B, V] float32, keys [B, 2], temps [B] float32. Returns (tok [B] int32,
+    the advanced keys [B, 2]). Pure tensor ops: a CUDA graph holds it."""
+    ks = split(keys)
+    new_keys, subs = ks[:, 0], ks[:, 1]
+    greedy = torch.argmax(logp, dim=-1)
+    hot = temps > 0
+    safe = torch.where(hot, temps, torch.ones_like(temps))
+    sampled = categorical(subs, logp / safe[:, None])
+    return torch.where(hot, sampled, greedy).to(torch.int32), new_keys

@@ -1,0 +1,221 @@
+"""Cache-aware autoregressive decoding over a stacked network.
+
+Counterpart of `deeplearning4j_tpu/nn/decode.py` for the dense KV cache.
+Generation splits into two programs instead of re-running the whole prefix
+every token:
+
+  prefill      the prompt once through the sequence forward (on CUDA the
+               attention layers run the flash kernel), recording attention
+               K/V rows into [B, max_S, n] caches and LSTM carries (h, c),
+               and the next-token log-probs at each row's last real prompt
+               position;
+  decode_step  every row one token further against the recorded state:
+               attention scores are [B, H, max_S] (one sequence-long axis,
+               never [S, S]), and the LSTM steps its concat-form cell as
+               `models/char_lstm.py`'s sampler does.
+
+Both return `log(clip(probs, 1e-9, 1))`, the sampler's transform, so a
+greedy cached decode reproduces the eager token trajectory in f32. The
+captured programs (keys, static state, sampling) are in
+`optimize/infer_cache.py`; this module is the layer math.
+
+State: one dict per layer, in layer order, as a tuple:
+  LSTM/GRAVES_LSTM  {"h": [B, H] f32, "c": [B, H] f32}
+  ATTENTION         {"k": [B, max_S, n] compute dtype, "v": same}
+  everything else   {}
+Where the JAX package returns a new state, the port writes the attention
+caches in place (the K/V rows a call computes) and returns new (h, c)
+tensors; the infer cache copies those into the state it was given, so a
+captured graph reads and writes one set of buffers and no step copies a
+cache.
+
+Not ported yet (ROADMAP.md queue A item 8): the paged state and
+`decode_step_paged`, `decode_block` (several steps a dispatch) and
+`verify_chunk*` (speculative decoding).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deeplearning4j_tpu_torch.nn.conf import LayerType, MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.layers import get_layer
+from deeplearning4j_tpu_torch.nn.layers.base import compute_dtype
+from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
+
+#: hidden layer types the decode path can step one token at a time
+GENERATIVE_HIDDEN = (LayerType.LSTM, LayerType.GRAVES_LSTM,
+                     LayerType.ATTENTION, LayerType.TRANSFORMER_FFN)
+
+_RECURRENT = (LayerType.LSTM, LayerType.GRAVES_LSTM)
+
+#: the JAX package's token for the steps of a fused decode block that a row
+#: sat frozen; never a valid token id (the block itself is not ported yet)
+BLOCK_SENTINEL = -1
+
+
+def check_generative(conf: MultiLayerConfiguration):
+    """Raise ValueError unless `conf` is a decodable generative stack, and
+    return its layer types: an optional leading EMBEDDING, then LSTM,
+    GRAVES_LSTM, ATTENTION (causal only) or TRANSFORMER_FFN layers, then an
+    OUTPUT layer; the only preprocessor allowed is the trailing rnn_to_ff
+    (which the per-token decode skips: its rows are already [B, n])."""
+    n = conf.n_layers
+    if n < 2:
+        raise ValueError("generation needs at least one hidden layer "
+                         "and an OUTPUT layer")
+    types = [LayerType(str(conf.conf(i).layer_type)) for i in range(n)]
+    if types[-1] != LayerType.OUTPUT:
+        raise ValueError(f"last layer must be OUTPUT, got {types[-1]}")
+    start = 1 if types[0] == LayerType.EMBEDDING else 0
+    for i, t in enumerate(types[start:-1], start):
+        if t not in GENERATIVE_HIDDEN:
+            raise ValueError(
+                f"layer {i} ({t}) has no single-token decode path; "
+                f"generative stacks may use "
+                f"{[str(x) for x in GENERATIVE_HIDDEN]}")
+        if t == LayerType.ATTENTION and not conf.conf(i).causal:
+            raise ValueError(
+                f"layer {i}: only causal attention can decode "
+                f"autoregressively")
+    for idx, name in conf.input_preprocessors:
+        if not (idx == n - 1 and name == "rnn_to_ff"):
+            raise ValueError(
+                f"preprocessor {name!r} at layer {idx} is incompatible "
+                f"with token decoding (only the trailing rnn_to_ff is)")
+    return types
+
+
+def positional_bound(conf: MultiLayerConfiguration) -> int:
+    """The sequence-length ceiling of a learned positional table, or 0 when
+    the stack has none (one-hot and recurrent stacks decode unbounded).
+    Admission (`serving/batcher.py`) enforces it on the host."""
+    types = check_generative(conf)
+    if types[0] == LayerType.EMBEDDING:
+        return int(conf.conf(0).max_seq_len or 0)
+    return 0
+
+
+def init_state(conf: MultiLayerConfiguration, batch: int, max_seq: int,
+               device=None):
+    """A fresh (zero) decode state for `batch` rows and a `max_seq`-token
+    table, on `device`."""
+    types = check_generative(conf)
+    if types[0] == LayerType.EMBEDDING:
+        table = conf.conf(0).max_seq_len
+        if table and max_seq > table:
+            raise ValueError(
+                f"max_seq={max_seq} exceeds the learned positional table "
+                f"(max_seq_len={table})")
+    state = []
+    # made outside any inference_mode, so that the programs may write them
+    # in place whatever mode they run in
+    with torch.inference_mode(False):
+        for i, t in enumerate(types):
+            c = conf.conf(i)
+            if t in _RECURRENT:
+                # f32, like the eager sampler's zero carries
+                state.append({name: torch.zeros((batch, c.n_out),
+                                                device=device)
+                              for name in ("h", "c")})
+            elif t == LayerType.ATTENTION:
+                state.append({name: torch.zeros(
+                    (batch, max_seq, c.n_in), dtype=compute_dtype(c),
+                    device=device) for name in ("k", "v")})
+            else:
+                state.append({})
+    return tuple(state)
+
+
+def one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """f32 one-hot rows of `ids` ([...] -> [..., n]); ids outside [0, n)
+    give a zero row, as `jax.nn.one_hot` does. A comparison, so it reads
+    nothing back to the host (`F.one_hot` checks the range on the host)."""
+    return (ids.long()[..., None]
+            == torch.arange(n, device=ids.device)).to(torch.float32)
+
+
+def token_embed(conf: MultiLayerConfiguration, params, tok, pos):
+    """One token id a row: an EMBEDDING stack gathers W[tok] (+ P[pos] row
+    by row where it has a positional table; not `EmbeddingLayer.forward`,
+    whose P[:s] would read a [B] id vector as one sequence); a one-hot stack
+    builds the f32 rows the eager sampler feeds."""
+    c0 = conf.conf(0)
+    if LayerType(str(c0.layer_type)) == LayerType.EMBEDDING:
+        e = params[0]["W"][tok.long()]
+        if "P" in params[0]:
+            e = e + params[0]["P"][pos.long()]
+        return e
+    return one_hot(tok, c0.n_in)
+
+
+def _log_probs(conf, params, n_hidden: int, x):
+    probs = OutputLayer.forward(params[n_hidden], conf.conf(n_hidden), x)
+    return torch.log(torch.clamp(probs, 1e-9, 1.0))
+
+
+def decode_step(conf: MultiLayerConfiguration, params, state, tok, pos):
+    """Every row one token further: tok [B] int (the row's current token),
+    pos [B] int (the position that token takes). Returns (logp [B, vocab],
+    log(clip(probs)) of the NEXT token, and the state tuple: the attention
+    caches written in place at `pos`, new (h, c) tensors)."""
+    types = check_generative(conf)
+    x = token_embed(conf, params, tok, pos)
+    new_state = []
+    for i, t in enumerate(types[:-1]):
+        c = conf.conf(i)
+        impl = get_layer(c.layer_type)
+        if t in _RECURRENT:
+            h, cc = impl.step(params[i], c, x, state[i]["h"], state[i]["c"])
+            new_state.append({"h": h, "c": cc})
+            x = h
+        elif t == LayerType.ATTENTION:
+            x, kc, vc = impl.decode_step(params[i], c, x, state[i]["k"],
+                                         state[i]["v"], pos)
+            new_state.append({"k": kc, "v": vc})
+        elif t == LayerType.TRANSFORMER_FFN:
+            x = impl.forward(params[i], c, x)
+            new_state.append({})
+        else:  # EMBEDDING: token_embed consumed it
+            new_state.append({})
+    new_state.append({})
+    return _log_probs(conf, params, len(types) - 1, x), tuple(new_state)
+
+
+def prefill(conf: MultiLayerConfiguration, params, state, prompt, length):
+    """Fill the decode state from a prompt bucket: prompt [B, T] int
+    (zero-padded past each row's `length`), length [B] int >= 1. Returns
+    (logp [B, vocab] at each row's last real prompt position, what the
+    first generated token is drawn from, and the state: attention caches
+    written in place over [0, T), new (h, c) tensors).
+
+    Padding is inert: LSTM carries freeze at t >= length, the causal mask
+    hides later positions from every real one, and `decode_step` writes
+    position `pos` before it attends to it."""
+    types = check_generative(conf)
+    c0 = conf.conf(0)
+    if types[0] == LayerType.EMBEDDING:
+        x = get_layer(c0.layer_type).forward(params[0], c0, prompt)
+    else:
+        x = one_hot(prompt, c0.n_in)
+    new_state = []
+    for i, t in enumerate(types[:-1]):
+        c = conf.conf(i)
+        impl = get_layer(c.layer_type)
+        if t in _RECURRENT:
+            x, h, cc = impl.prefill(params[i], c, x, state[i]["h"],
+                                    state[i]["c"], length)
+            new_state.append({"h": h, "c": cc})
+        elif t == LayerType.ATTENTION:
+            x, kc, vc = impl.prefill(params[i], c, x, state[i]["k"],
+                                     state[i]["v"])
+            new_state.append({"k": kc, "v": vc})
+        elif t == LayerType.TRANSFORMER_FFN:
+            x = impl.forward(params[i], c, x)
+            new_state.append({})
+        else:  # EMBEDDING
+            new_state.append({})
+    rows = torch.arange(prompt.shape[0], device=x.device)
+    last = x[rows, length.long() - 1]
+    new_state.append({})
+    return _log_probs(conf, params, len(types) - 1, last), tuple(new_state)

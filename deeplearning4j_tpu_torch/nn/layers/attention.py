@@ -1,18 +1,23 @@
 """Multi-head self-attention and the transformer FFN.
 
-Counterpart of `deeplearning4j_tpu/nn/layers/attention.py` (the forward
-pass). Input and output are [batch, seq, n_in]; params are
+Counterpart of `deeplearning4j_tpu/nn/layers/attention.py`: the forward
+pass, and the attention layer's `prefill` and dense `decode_step` of
+KV-cache generation (the paged and verify variants are ROADMAP.md queue A
+item 8's rest). Input and output are [batch, seq, n_in]; params are
 {"Wqkv", "bqkv", "Wo", "bo", "ln_g", "ln_b"} and
 {"W1", "b1", "W2", "b2", "ln_g", "ln_b"}, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nd import kernels
-from deeplearning4j_tpu_torch.nd.attention import (blockwise_attention,
+from deeplearning4j_tpu_torch.nd.attention import (_NEG_BIG,
+                                                   blockwise_attention,
                                                    full_attention)
 from deeplearning4j_tpu_torch.nn.layers.base import (_sampler, compute_dtype,
                                                      mixed_matmul,
@@ -72,6 +77,74 @@ class MultiHeadAttentionLayer:
         o = mixed_matmul(o.reshape(b, s, n).to(x.dtype), params["Wo"],
                          conf) + params["bo"]
         return x + o
+
+    @staticmethod
+    def prefill(params, conf, x, k_cache, v_cache):
+        """The prompt phase of KV-cache generation: the forward over the
+        whole prompt (the same `_attend`, so on CUDA the flash kernel), with
+        the projected K/V rows written into the caches in place.
+
+        x: [B, T, n]; caches: [B, max_S, n] (T <= max_S). Returns (hidden
+        [B, T, n], k_cache, v_cache). Bucket padding writes junk K/V at
+        positions >= length, which nothing reads: the causal mask hides it
+        from the prompt, and `decode_step` writes position `pos` before it
+        attends to it."""
+        b, s, n = x.shape
+        h = conf.n_heads
+        hd = n // h
+        xn = _layer_norm(x, params["ln_g"], params["ln_b"])
+        qkv = (mixed_matmul(xn, params["Wqkv"], conf)
+               + params["bqkv"]).to(compute_dtype(conf))
+        q, k, v = qkv.split(n, dim=-1)
+        k_cache[:, :s].copy_(k)
+        v_cache[:, :s].copy_(v)
+        o = MultiHeadAttentionLayer._attend(
+            conf, *(t.view(b, s, h, hd) for t in (q, k, v)))
+        o = mixed_matmul(o.reshape(b, s, n).to(x.dtype), params["Wo"],
+                         conf) + params["bo"]
+        return x + o, k_cache, v_cache
+
+    @staticmethod
+    def decode_step(params, conf, x, k_cache, v_cache, pos):
+        """One generated token against the KV cache.
+
+        x: [B, n], the current token's hidden row; caches: [B, max_S, n];
+        pos: [B] int, the position each row writes. The new K/V row is
+        written at `pos` in place (indexing with device tensors, no host
+        read); the scores are [B, H, max_S], one sequence-long axis, and
+        key positions > pos get the additive -1e30 mask of
+        `nd.attention.full_attention`, as in the JAX package."""
+        b, n = x.shape
+        h = conf.n_heads
+        hd = n // h
+        cd = compute_dtype(conf)
+        xn = _layer_norm(x, params["ln_g"], params["ln_b"])
+        qkv = (mixed_matmul(xn, params["Wqkv"], conf)
+               + params["bqkv"]).to(cd)
+        q, k, v = qkv.split(n, dim=-1)
+        rows = torch.arange(b, device=x.device)
+        p64 = pos.long()
+        k_cache[rows, p64] = k.to(k_cache.dtype)
+        v_cache[rows, p64] = v.to(v_cache.dtype)
+        max_s = k_cache.shape[1]
+        qh = q.reshape(b, h, 1, hd)
+        kh = k_cache.to(cd).view(b, max_s, h, hd)
+        vh = v_cache.to(cd).view(b, max_s, h, hd)
+        # one batched product over the heads a row: a row's K^T
+        # [h, hd, max_S] and V [h, max_S, hd] are strided views of its cache
+        # rows that cuBLAS reads in place, where one product over (b, h)
+        # would first copy the whole cache
+        s = torch.stack([torch.bmm(qh[i], kh[i].permute(1, 2, 0))
+                         for i in range(b)])[:, :, 0] / float(
+            torch.tensor(math.sqrt(hd), dtype=cd))
+        kpos = torch.arange(max_s, device=x.device)[None, :]
+        mask = torch.where(kpos <= p64[:, None], 0.0, _NEG_BIG).to(s.dtype)
+        p = torch.softmax(s + mask[:, None, :], dim=-1)
+        o = torch.stack([torch.bmm(p[i][:, None], vh[i].permute(1, 0, 2))
+                         for i in range(b)])
+        o = mixed_matmul(o.reshape(b, n).to(x.dtype), params["Wo"],
+                         conf) + params["bo"]
+        return x + o, k_cache, v_cache
 
     @staticmethod
     def _attend(conf, q, k, v):

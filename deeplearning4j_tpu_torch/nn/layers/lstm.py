@@ -13,8 +13,9 @@ Two forward paths, chosen by `conf.lstm_impl`:
   views, so autograd returns their gradients to `W`;
 - "scan": the hoisted scan, the input half of the product taken for every
   step at once up front and only h.Wh left in the loop.
-BPTT is autograd through the loop. Decoding (`step`) is the concat form
-`[x, h].W + b`, as in the JAX package.
+BPTT is autograd through the loop. Decoding (`step`) and the prompt phase
+of cached generation (`prefill`) are the concat form `[x, h].W + b`, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -112,9 +113,23 @@ class LSTMLayer:
 
     @classmethod
     def prefill(cls, params, conf, x, h0, c0, length):
-        raise NotImplementedError(
-            "LSTM prefill (cached generation) is not ported to "
-            "deeplearning4j_tpu_torch yet; see ROADMAP.md queue A item 8")
+        """The prompt phase of cached generation: the prompt stepped
+        through the concat form `cls._step`, the math `step()` runs a token
+        at a time (not the hoisted scan, not the cell kernel), so the carry
+        is bitwise what repeated `step()` calls give. A row's carry freezes
+        at t >= length[row], so bucket padding never advances it.
+
+        x: [B, T, n_in]; length: [B] int tensor. Returns (hs [B, T, n_out],
+        h [B, n_out], c [B, n_out])."""
+        n_h = conf.n_out
+        carry, hs = (h0, c0), []
+        for t in range(x.shape[1]):
+            (h2, c2), _ = cls._step(params, n_h, carry, x[:, t])
+            live = (length > t)[:, None]
+            carry = (torch.where(live, h2, carry[0]),
+                     torch.where(live, c2, carry[1]))
+            hs.append(carry[0])
+        return torch.stack(hs, dim=1), carry[0], carry[1]
 
 
 class GravesLSTMLayer(LSTMLayer):

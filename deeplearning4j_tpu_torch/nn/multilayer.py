@@ -4,7 +4,8 @@ Counterpart of `deeplearning4j_tpu/nn/multilayer.py`: `init_params`,
 `feed_forward`, `network_output`, the losses (`network_loss`,
 `network_rowwise_loss`, `make_finetune_loss`, `network_regularization`),
 and `MultiLayerNetwork` with `init` / `output` / `feed_forward` /
-`predict` / `score` / `evaluate` / `fit` / `warmup` / `serve`. Params are a
+`predict` / `score` / `evaluate` / `fit` / `warmup` / `warmup_generate` /
+`serve`. Params are a
 tuple of dicts of tensors with the JAX package's key names, so
 `parallel/checkpoint.py` carries weights both ways.
 Gradients come from autograd through the plain forward.
@@ -286,6 +287,48 @@ class MultiLayerNetwork:
                 "step_cache": self.step_cache.stats.as_dict(),
                 "infer_cache": self.infer_cache.stats.as_dict()}
 
+    def warmup_generate(self, slots: Optional[int] = None, max_seq: int = 64,
+                        prompt_buckets=(8,), page_size: Optional[int] = None,
+                        n_pages: int = 0, prefix_cache: bool = False,
+                        draft_net=None, spec_k: int = 0,
+                        steps_per_dispatch: Optional[int] = None):
+        """Capture the generation programs ahead of traffic, on the states
+        the `ContinuousBatcher` decodes in (`InferCache.decode_state`): one
+        decode step over the `slots`-wide table, and one B = 1 prefill per
+        prompt bucket (each admission prefills one row). The default path
+        only: a paged pool, the prefix cache, a draft model and several
+        steps a dispatch raise NotImplementedError (ROADMAP.md queue A
+        item 8). Returns the geometry and the infer cache's stats."""
+        from deeplearning4j_tpu_torch.serving.batcher import (
+            DEFAULT_SLOTS, check_generation_options)
+
+        check_generation_options(page_size, n_pages, prefix_cache,
+                                 draft_net, spec_k, steps_per_dispatch)
+        if self.params is None:
+            self.init()
+        slots = DEFAULT_SLOTS if slots is None else int(slots)
+        ic, dev = self.infer_cache, self.device
+        zeros = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        keys = torch.zeros((slots, 2), dtype=torch.int64, device=dev)
+        temps = torch.zeros((slots,), device=dev)
+        table = ic.decode_state(self.conf, slots, max_seq, dev, "table")
+        ic.decode(self.conf, self.params, table, zeros, zeros, keys, temps,
+                  compile_only=True)
+        row = ic.decode_state(self.conf, 1, max_seq, dev, "row")
+        buckets = sorted(int(b) for b in prompt_buckets)
+        for tb in buckets:
+            if tb > max_seq:
+                raise ValueError(f"prompt bucket {tb} exceeds "
+                                 f"max_seq={max_seq}")
+            ic.prefill(self.conf, self.params, row,
+                       torch.zeros((1, tb), dtype=torch.int32, device=dev),
+                       torch.ones((1,), dtype=torch.int32, device=dev),
+                       keys[:1], temps[:1], compile_only=True)
+        return {"slots": slots, "max_seq": int(max_seq),
+                "prompt_buckets": buckets, "page_size": 0,
+                "prefix_cache": False, "spec_k": 0, "steps_per_dispatch": 1,
+                "infer_cache": ic.stats.as_dict()}
+
     # -- inference -----------------------------------------------------------
     def _serve_cached(self, x: torch.Tensor) -> bool:
         """Batched input (axis 0 = rows, which buckets pad) with the cache
@@ -469,10 +512,15 @@ class MultiLayerNetwork:
               max_delay_ms: Optional[float] = None, max_pending: int = 1024,
               max_batch_rows: Optional[int] = None,
               request_timeout_s: float = 30.0,
-              drain_timeout_s: float = 10.0, breaker=None):
+              drain_timeout_s: float = 10.0, breaker=None,
+              generate: bool = False, gen_slots: Optional[int] = None,
+              gen_max_seq: int = 64, gen_prompt_buckets=(8,),
+              gen_max_pending: int = 64):
         """Start the micro-batching HTTP gateway over this network
         (`serving.ModelServer`): POST /v1/predict, GET /v1/stats, /healthz,
-        /readyz. Returns the started server; `server.drain()` stops it."""
+        /readyz, and with `generate` POST /v1/generate through a
+        `ContinuousBatcher` of `gen_slots` slots. Returns the started
+        server; `server.drain()` stops it."""
         from deeplearning4j_tpu_torch.serving.server import ModelServer
 
         if self.params is None:
@@ -483,7 +531,10 @@ class MultiLayerNetwork:
                            max_batch_rows=max_batch_rows,
                            request_timeout_s=request_timeout_s,
                            drain_timeout_s=drain_timeout_s,
-                           breaker=breaker).start()
+                           breaker=breaker, generate=generate,
+                           gen_slots=gen_slots, gen_max_seq=gen_max_seq,
+                           gen_prompt_buckets=gen_prompt_buckets,
+                           gen_max_pending=gen_max_pending).start()
 
 
 def _pair(batch):

@@ -1,7 +1,8 @@
 """Captured inference: one CUDA graph per (entry point, conf, bucket).
 
 Counterpart of `deeplearning4j_tpu/optimize/infer_cache.py` for its
-single-device f32 entry points `output`, `feed_forward` and `loss`, over
+single-device f32 entry points `output`, `feed_forward`, `loss`, `decode`
+and `prefill`, over
 the `CompiledProgramCache` machinery of `optimize/step_cache.py`:
 
   key schema    (entry point, conf fingerprint, arg shapes/dtypes,
@@ -18,21 +19,44 @@ the `CompiledProgramCache` machinery of `optimize/step_cache.py`:
   params        read by address, as the train step writes them, so
                 training between two calls is seen by the second.
 
-The decode, prefill, verify and paged entry points come with generation
-(ROADMAP.md queue A item 8); the mesh and plan entry points with
-parallelism (item 10) and the precision policies with serving-side
-optimisation (item 11).
+Generation (the JAX package's `init_decode_state`, `decode`, `prefill`):
+
+  key schema    (entry point, conf fingerprint, arg signature with the
+                state's leaves, "single"), the JAX package's.
+  state         a graph reads and writes the decode state by address, as
+                the train step does its params: the state is the graph's
+                static buffers, and a call writes it in place (the new K/V
+                rows at their positions, the new LSTM carries copied over
+                the old). No step copies a KV cache in or out. A call with
+                a state at other addresses captures anew, so the batcher
+                and `warmup_generate` share the cache's own states
+                (`decode_state`, one per role).
+  sampling      inside the program (`nd/random.sample_tokens`): JAX's
+                threefry keys bit for bit, one split a row a call.
+  capture       the warm-up call before a capture writes the same K/V rows
+                the replay writes and leaves the carries alone (the carries
+                are written by the program's `write`, which only the
+                capture records), so capturing mid-stream changes nothing.
+
+The verify, paged and multi-step decode entry points and `prefill_logp`
+are the rest of ROADMAP.md queue A item 8; the mesh and plan entry points
+come with parallelism (item 10) and the precision policies with
+serving-side optimisation (item 11).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Set, Tuple
 
+import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.nd import random as nd_random
+from deeplearning4j_tpu_torch.nd.platform import resolve_device
 from deeplearning4j_tpu_torch.optimize.step_cache import (CompiledProgramCache,
                                                           arg_signature,
                                                           check_input)
+from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
 
 
 def pad_rows(x: torch.Tensor, bucket: int) -> torch.Tensor:
@@ -61,6 +85,13 @@ class InferCache(CompiledProgramCache):
 
     #: key element of programs made without a mesh (the JAX package's tag)
     SINGLE = "single"
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # (fingerprint, batch, max_seq, device, role) -> the decode state
+        # the graphs of that role are captured on (`decode_state`)
+        self._decode_states: Dict[Tuple, tuple] = {}
+        self._claimed: Set[int] = set()
 
     def _keyed_conf(self, conf):
         if any(c.attention_fused_bwd for c in conf.confs):
@@ -98,6 +129,133 @@ class InferCache(CompiledProgramCache):
                                                           n).clone()
                                             for a in acts],
                          compile_only=compile_only)
+
+    def programs_summary(self):
+        """Resident programs as (entry, bucket, sharding, policy) rows, the
+        JAX package's `/v1/stats` `programs` block: bucket is the leading
+        dim of the first argument (rows, or a decode table's slots)."""
+        with self._lock:
+            keys = list(self._programs)
+        rows = [{"entry": k[0],
+                 "bucket": int(k[2][0][0][0]) if k[2] and k[2][0] else 0,
+                 "sharding": k[3], "policy": "f32"} for k in keys]
+        return sorted(rows, key=lambda r: (r["entry"], r["bucket"]))
+
+    # -- generation -----------------------------------------------------------
+    def init_decode_state(self, conf, batch: int, max_seq: int,
+                          device=None):
+        """A fresh zero decode state (`nn/decode.init_state`) on `device`
+        (None: CUDA)."""
+        from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+        return decode_mod.init_state(conf, batch, max_seq,
+                                     device=resolve_device(device))
+
+    def decode_state(self, conf, batch: int, max_seq: int, device=None,
+                     role: str = "table"):
+        """The cache's own decode state for `role` (the batcher's "table"
+        and its B = 1 admission "row"; `warmup_generate` captures on the
+        same ones), made on first use and kept: the graphs read it by
+        address, so the programs warmed on it replay for its later users.
+        Its content is what the last call left; `reset_state` zeroes it."""
+        dev = resolve_device(device)
+        key = (self._fingerprint(conf), int(batch), int(max_seq), str(dev),
+               role)
+        with self._lock:
+            state = self._decode_states.get(key)
+            if state is None:
+                state = self.init_decode_state(conf, batch, max_seq, dev)
+                self._decode_states[key] = state
+            return state
+
+    def claim_decode_state(self, conf, batch: int, max_seq: int,
+                           device=None, role: str = "table"):
+        """`decode_state` for a user that writes it for a while (a running
+        batcher): while one holds it, another claimant gets a private fresh
+        state, so that two batchers on one network never write each
+        other's rows. Their calls share the key's one graph, which is
+        captured anew whenever the state changes: right, but slow while
+        both decode. `release_state` gives it back."""
+        state = self.decode_state(conf, batch, max_seq, device, role)
+        with self._lock:
+            if id(state) not in self._claimed:
+                self._claimed.add(id(state))
+                return state
+        return self.init_decode_state(conf, batch, max_seq, device)
+
+    def release_state(self, state) -> None:
+        with self._lock:
+            self._claimed.discard(id(state))
+
+    @staticmethod
+    def reset_state(state) -> None:
+        """Zero every tensor of a decode state in place."""
+        with torch.no_grad():
+            for t in tree_leaves(state):
+                t.zero_()
+
+    def _decode_inputs(self, conf, params, state, tok, *rest):
+        """The call's tensors on the program's device: `tok` (or the prompt)
+        int32, then the others; keys as int64 holding uint32. Token ids of
+        an embedding stack are checked on the host first (a captured
+        program cannot). Host arrays go to the card from pinned memory
+        without blocking, so that a call does not wait for the previous
+        replay to end before it is queued."""
+        leaves = tree_leaves(state) or tree_leaves(params)
+        dev = leaves[0].device
+        check_input(conf, tok if isinstance(tok, torch.Tensor)
+                    else torch.as_tensor(np.asarray(tok)))
+
+        def put(t):
+            if dev.type == "cuda" and not t.is_cuda:
+                return t.pin_memory().to(dev, non_blocking=True)
+            return t.to(dev)
+
+        out = [put(torch.as_tensor(np.asarray(tok) if not isinstance(
+            tok, torch.Tensor) else tok).to(torch.int32))]
+        for a in rest:
+            if isinstance(a, np.ndarray) and a.dtype == np.uint32:
+                a = nd_random.key_array(a)
+            out.append(put(torch.as_tensor(a)))
+        return out
+
+    def decode(self, conf, params, state, tok, pos, keys, temps,
+               compile_only: bool = False):
+        """One KV-cache decode step over the whole slot table: tok, pos [B]
+        int, keys [B, 2] (uint32 values), temps [B] float32 (rows at <= 0
+        decode greedily). Returns (next_tok [B] int32, advanced keys [B, 2]
+        int64, state), the state written in place. On CUDA the replay of one
+        captured graph per key; on the CPU the program, eagerly."""
+        tok, pos, keys, temps = self._decode_inputs(
+            conf, params, state, tok, pos, keys, temps)
+        pos, keys, temps = (pos.to(torch.int32), keys.to(torch.int64),
+                            temps.to(torch.float32))
+        key = ("decode", self._fingerprint(conf),
+               arg_signature(tok, pos, keys, temps, *tree_leaves(state)),
+               self.SINGLE)
+        out = self._run(key, lambda: _decode_program(conf), (params, state),
+                        (tok, pos, keys, temps), read=_read_tokens,
+                        write=_write_carries, compile_only=compile_only)
+        return None if compile_only else (*out, state)
+
+    def prefill(self, conf, params, state, prompt, length, keys, temps,
+                compile_only: bool = False):
+        """The prompt prefill: prompt [B, T_bucket] int (zero-padded),
+        length [B] int. Fills the state in place and draws each row's first
+        generated token. Returns (tok [B] int32, keys [B, 2], state). One
+        program per (conf, rows, prompt bucket, max_seq): the state's leaves
+        are in the key."""
+        prompt, length, keys, temps = self._decode_inputs(
+            conf, params, state, prompt, length, keys, temps)
+        length, keys, temps = (length.to(torch.int32), keys.to(torch.int64),
+                               temps.to(torch.float32))
+        key = ("prefill", self._fingerprint(conf),
+               arg_signature(prompt, length, keys, temps,
+                             *tree_leaves(state)), self.SINGLE)
+        out = self._run(key, lambda: _prefill_program(conf), (params, state),
+                        (prompt, length, keys, temps), read=_read_tokens,
+                        write=_write_carries, compile_only=compile_only)
+        return None if compile_only else (*out, state)
 
     def loss(self, conf, params, x, y, compile_only: bool = False):
         """`network_loss(training=False)` through the cache: the row-weighted
@@ -144,5 +302,52 @@ def _loss_program(conf) -> Callable:
             rows = network_rowwise_loss(conf, params, x, y, training=False)
             return (torch.dot(rows, w) / torch.clamp(w.sum(), min=1.0)
                     + network_regularization(conf, params))
+
+    return program
+
+
+def _read_tokens(out):
+    """Copies of a generation program's (tok, keys), made under the pool's
+    lock: the next replay overwrites them."""
+    return out[0].clone(), out[1].clone()
+
+
+def _write_carries(ps, out):
+    """After a generation program: copy its new LSTM carries into the state
+    it was given (the attention caches were written in place), and hand on
+    (tok, keys)."""
+    state = ps[1]
+    tok, keys, new = out
+    with torch.no_grad():
+        for layer, new_layer in zip(state, new):
+            for name, t in new_layer.items():
+                if t is not layer[name]:
+                    layer[name].copy_(t)
+    return tok, keys
+
+
+def _decode_program(conf) -> Callable:
+    from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+    def program(ps, tok, pos, keys, temps):
+        params, state = ps
+        with torch.inference_mode():
+            logp, new = decode_mod.decode_step(conf, params, state, tok, pos)
+            tok2, keys2 = nd_random.sample_tokens(logp.float(), keys, temps)
+        return tok2, keys2, new
+
+    return program
+
+
+def _prefill_program(conf) -> Callable:
+    from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+    def program(ps, prompt, length, keys, temps):
+        params, state = ps
+        with torch.inference_mode():
+            logp, new = decode_mod.prefill(conf, params, state, prompt,
+                                           length)
+            tok0, keys2 = nd_random.sample_tokens(logp.float(), keys, temps)
+        return tok0, keys2, new
 
     return program

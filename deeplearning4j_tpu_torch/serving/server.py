@@ -1,7 +1,6 @@
 """HTTP front of the micro-batching gateway.
 
-Counterpart of `ModelServer` in `deeplearning4j_tpu/serving/server.py`
-(the predict path):
+Counterpart of `ModelServer` in `deeplearning4j_tpu/serving/server.py`:
 
   POST /v1/predict   {"features": [[...], ...], "dtype": "float32"?,
                       "deadline_ms": 250?, "priority": "interactive"|"batch"?}
@@ -10,14 +9,25 @@ Counterpart of `ModelServer` in `deeplearning4j_tpu/serving/server.py`
                      vocabulary included, checked before it reaches the
                      device; 503 when the queue is full or the server is draining,
                      504 past `request_timeout_s` or the request's deadline)
+  POST /v1/generate  {"prompt": [ids...], "max_new_tokens": 16?,
+                      "temperature": 0.0?, "rng_seed": 0?}
+                     -> 200, a chunked stream of {"token": id} JSON lines
+                     ending with {"done": true, "tokens": n, "ttft_ms": ...}
+                     (servers made with `generate=True` only; 404 without).
+                     Failures before the first token are JSON errors (400
+                     bad prompt, 503 overloaded or draining, 504 timed out,
+                     500 a prefill fault); a fault after it ends THIS stream
+                     with an {"error": ..., "done": true} line while the
+                     other decode slots go on.
   GET  /v1/stats     gateway counters (queue depth, batch-size histogram,
-                     latency percentiles, rows/s, breaker state) and the
-                     device the network runs on
+                     latency percentiles, rows/s, breaker state), the
+                     device the network runs on, the resident programs and,
+                     with a generator, its `generation` block
   GET  /healthz      liveness: 200 while the process can answer at all
   GET  /readyz       readiness: 200 once started and not draining
 
-Handler threads only parse JSON and park on the batcher; the batcher's one
-dispatcher thread makes every device call. `drain()` stops admitting work,
+Handler threads only parse JSON and park on a batcher; each batcher's one
+thread makes its device calls. `drain()` stops admitting work,
 stops the accept loop, waits for in-flight handlers, then stops the batcher,
 which serves every queued request first.
 """
@@ -37,6 +47,7 @@ from deeplearning4j_tpu_torch.nd.platform import device_kind
 from deeplearning4j_tpu_torch.reliability import (CircuitBreaker,
                                                   DeadlineExceeded)
 from deeplearning4j_tpu_torch.serving.batcher import (PRIORITIES,
+                                                      ContinuousBatcher,
                                                       MicroBatcher,
                                                       ServerOverloaded)
 
@@ -76,7 +87,11 @@ class _ServeHandler(BaseHTTPRequestHandler):
             self._send({"error": "not found"}, 404)
 
     def do_POST(self):  # noqa: N802
-        if urlparse(self.path).path != "/v1/predict":
+        path = urlparse(self.path).path
+        if path == "/v1/generate":
+            self._do_generate()
+            return
+        if path != "/v1/predict":
             self._send({"error": "not found"}, 404)
             return
         ms = self.model_server
@@ -125,12 +140,94 @@ class _ServeHandler(BaseHTTPRequestHandler):
         finally:
             ms.exit_request()
 
+    def _chunk(self, obj) -> None:
+        """One chunked-transfer frame holding one JSON line."""
+        data = (json.dumps(obj) + "\n").encode()
+        self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
+
+    def _do_generate(self) -> None:
+        """POST /v1/generate: tokens streamed one a chunk. The status is
+        decided by the first token: a failure before it is a JSON error
+        with its 4xx/5xx; from it on the answer is a 200 stream, and a
+        fault of THIS stream ends it with an {"error", "done": true}
+        line."""
+        ms = self.model_server
+        if ms.generator is None:
+            self._send({"error": "generation not enabled on this server "
+                                 "(start with generate=True / --generate)"},
+                       404)
+            return
+        if not ms.enter_request():
+            self._send({"error": "draining: server is shutting down"}, 503)
+            return
+        try:
+            try:
+                body = self._body()
+                prompt = [int(t) for t in body["prompt"]]
+                max_new = int(body.get("max_new_tokens", 16))
+                temperature = float(body.get("temperature", 0.0))
+                rng_seed = int(body.get("rng_seed", 0))
+            except (KeyError, ValueError, TypeError,
+                    json.JSONDecodeError) as e:
+                self._send({"error": f"bad request: {e}"}, 400)
+                return
+            try:
+                stream = ms.generate_stream(prompt, max_new_tokens=max_new,
+                                            temperature=temperature,
+                                            rng_seed=rng_seed)
+            except ValueError as e:
+                self._send({"error": f"bad request: {e}"}, 400)
+                return
+            except ServerOverloaded as e:
+                self._send({"error": f"overloaded: {e}"}, 503)
+                return
+            except ServerDraining as e:
+                self._send({"error": f"draining: {e}"}, 503)
+                return
+            it = stream.tokens(timeout=ms.request_timeout_s)
+            try:
+                first = next(it)
+            except StopIteration:
+                self._send({"error": "stream produced no tokens"}, 500)
+                return
+            except TimeoutError as e:
+                self._send({"error": f"timed out: {e}"}, 504)
+                return
+            except ServerOverloaded as e:
+                self._send({"error": f"overloaded: {e}"}, 503)
+                return
+            except Exception as e:  # noqa: BLE001 — an admission fault
+                self._send({"error": f"generation failed: {e}"}, 500)
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            try:
+                self._chunk({"token": first})
+                for tok in it:
+                    self._chunk({"token": tok})
+                ttft = stream.ttft_s
+                self._chunk({"done": True,
+                             "tokens": stream.tokens_emitted,
+                             "ttft_ms": (None if ttft is None
+                                         else round(ttft * 1e3, 3))})
+            except Exception as e:  # noqa: BLE001 — a fault mid-stream
+                self._chunk({"error": f"generation failed: {e}",
+                             "done": True})
+            self.wfile.write(b"0\r\n\r\n")
+        finally:
+            ms.exit_request()
+
     def log_message(self, *args):  # quiet
         pass
 
 
 class ModelServer:
-    """Serve a `MultiLayerNetwork` over HTTP through the micro-batcher."""
+    """Serve a `MultiLayerNetwork` over HTTP through the micro-batcher, and
+    with `generate=True` POST /v1/generate through a `ContinuousBatcher`
+    (`gen_slots` slots, a `gen_max_seq`-token table, one prefill program per
+    `gen_prompt_buckets` bucket)."""
 
     def __init__(self, net, host: str = "127.0.0.1", port: int = 0,
                  max_delay_ms: Optional[float] = None,
@@ -138,7 +235,12 @@ class ModelServer:
                  max_batch_rows: Optional[int] = None,
                  request_timeout_s: float = 30.0,
                  drain_timeout_s: float = 10.0,
-                 breaker: Optional[CircuitBreaker] = None):
+                 breaker: Optional[CircuitBreaker] = None,
+                 generate: bool = False,
+                 gen_slots: Optional[int] = None,
+                 gen_max_seq: int = 64,
+                 gen_prompt_buckets=(8,),
+                 gen_max_pending: int = 64):
         self.net = net
         self.request_timeout_s = float(request_timeout_s)
         self.drain_timeout_s = float(drain_timeout_s)
@@ -146,6 +248,11 @@ class ModelServer:
             net, max_delay_ms=max_delay_ms, max_pending=max_pending,
             max_batch_rows=max_batch_rows, auto_start=False,
             breaker=breaker)
+        self.generator: Optional[ContinuousBatcher] = (
+            ContinuousBatcher(net, n_slots=gen_slots, max_seq=gen_max_seq,
+                              prompt_buckets=gen_prompt_buckets,
+                              max_pending=gen_max_pending, auto_start=False)
+            if generate else None)
         handler = type("Handler", (_ServeHandler,), {"model_server": self})
         self.server = ThreadingHTTPServer((host, port), handler)
         self.port = self.server.server_address[1]
@@ -188,10 +295,25 @@ class ModelServer:
                                     deadline_ms=deadline_ms,
                                     priority=priority)
 
+    def generate_stream(self, prompt, max_new_tokens: int = 16,
+                        temperature: float = 0.0, rng_seed: int = 0):
+        """Submit a generation request to the continuous batcher and return
+        its `GenerationStream`."""
+        if self.generator is None:
+            raise RuntimeError("generation not enabled (generate=True)")
+        if self.draining:
+            raise ServerDraining("server is draining")
+        return self.generator.submit(prompt, max_new_tokens=max_new_tokens,
+                                     temperature=temperature,
+                                     rng_seed=rng_seed)
+
     def stats(self) -> dict:
         out = self.batcher.stats()
         out["device"] = {"type": self.net.device.type,
                          "kind": device_kind(self.net.device)}
+        out["programs"] = self.net.infer_cache.programs_summary()
+        if self.generator is not None:
+            out["generation"] = self.generator.stats()
         with self._state_lock:
             out["ready"] = self._ready and not self._draining
             out["draining"] = self._draining
@@ -202,6 +324,8 @@ class ModelServer:
     # -- lifecycle ------------------------------------------------------------
     def start(self) -> "ModelServer":
         self.batcher.start()
+        if self.generator is not None:
+            self.generator.start()
         self._thread = threading.Thread(target=self.server.serve_forever,
                                         daemon=True)
         self._thread.start()
@@ -237,6 +361,11 @@ class ModelServer:
                     break
             time.sleep(0.005)
         self.batcher.stop(timeout=max(deadline - time.monotonic(), 1.0))
+        if self.generator is not None:
+            # running streams decode to their end (bounded by the table),
+            # queued ones are served like queued predicts
+            self.generator.stop(timeout=max(deadline - time.monotonic(),
+                                            1.0))
         self.server.server_close()
 
     def stop(self) -> None:
