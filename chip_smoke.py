@@ -1081,6 +1081,15 @@ GEN = dict(n_blocks=SLICE["n_blocks"], slots=4, max_seq=512,
            prompt_max=250, max_new=128, temperature=0.8)
 #: --quick: the same widths at 2 blocks, 2 requests of 16 tokens
 GEN_QUICK = dict(GEN, n_blocks=2, requests=2, clients=2, max_new=16)
+#: the option passes after the K = 1 pass, on the same net and requests:
+#: K steps a dispatch (ladder 1/2/4/8), the paged pool of 16-token pages
+#: (the default pool, then `overcommit` pages: 4 streams of up to 24 pages
+#: must queue and be preempted) and the prefix cache (longest match: the
+#: requests, `repeats` of them again, then `extend` of them with `suffix`
+#: more prompt tokens)
+GEN_OPTIONS = dict(k=8, page_size=16, overcommit=48, repeats=4, extend=4,
+                   suffix=16)
+GEN_OPTIONS_QUICK = dict(GEN_OPTIONS, overcommit=32, repeats=2, extend=2)
 #: the prompt buckets at which the forward kernel is held to its plain
 #: version (the warmed buckets, the JAX package's smallest, and ragged
 #: lengths inside them); timed at the warmed ones
@@ -1338,12 +1347,368 @@ def charlstm_generate_check(torch):
     return row
 
 
+def serve_generation(torch, kernels, net, g, groups, **options):
+    """Serve groups of requests ((prompt, temperature, rng_seed) each, of
+    g["max_new"] tokens) through POST /v1/generate on one server whose
+    `ContinuousBatcher` has the batcher `options`, from g["clients"]
+    clients, a group after the one before it has ended. The kernel counts
+    are set to 0 just before the server starts and read just before it
+    drains. Checks every stream. Returns the tokens by group, latencies,
+    each group's TTFTs, every dispatch's (K, wall s, wait s), /v1/stats'
+    generation block, the wall seconds and the launches."""
+    kernels.reset_launches()
+    kernels.PAD_COPIES = 0
+    server = net.serve(port=0, generate=True, gen_slots=g["slots"],
+                       gen_max_seq=g["max_seq"],
+                       gen_prompt_buckets=g["buckets"],
+                       **{SERVE_OPTION[k]: v for k, v in options.items()})
+    gen = server.generator
+    dispatches = []
+    note = gen._note_block
+
+    def record(k, wall, wait, emitted, now):
+        dispatches.append((k, wall, wait))
+        note(k, wall, wait, emitted, now)
+
+    gen._note_block = record
+    out = {"streams": [], "latency_ms": [], "ttft_ms": []}
+    errors = []
+    t_all = time.perf_counter()
+    for reqs in groups:
+        results = [None] * len(reqs)
+        latency_ms = [None] * len(reqs)
+        todo = list(range(len(reqs)))
+        lock = threading.Lock()
+        n_ttft = len(gen._ttfts)
+
+        def client():
+            while True:
+                with lock:
+                    if not todo:
+                        return
+                    i = todo.pop(0)
+                prompt, temp, seed = reqs[i]
+                t = time.perf_counter()
+                try:
+                    results[i] = post_generate(server.url, {
+                        "prompt": prompt, "max_new_tokens": g["max_new"],
+                        "temperature": temp, "rng_seed": seed})
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+                latency_ms[i] = (time.perf_counter() - t) * 1e3
+
+        threads = [threading.Thread(target=client)
+                   for _ in range(g["clients"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        check(not errors, f"generate requests failed: {errors}")
+        streams = []
+        for i, (status, lines) in enumerate(results):
+            toks = [x["token"] for x in lines if "token" in x]
+            check(status == 200 and lines[-1].get("done") is True
+                  and "error" not in lines[-1]
+                  and lines[-1]["tokens"] == g["max_new"] == len(toks)
+                  and all(0 <= t < SLICE["vocab"] for t in toks),
+                  f"request {i}: status {status}, last line {lines[-1]}, "
+                  f"{len(toks)} tokens")
+            streams.append(toks)
+        out["streams"].append(streams)
+        out["latency_ms"].append(latency_ms)
+        out["ttft_ms"].append([t * 1e3 for t in list(gen._ttfts)[n_ttft:]])
+    out["wall_s"] = time.perf_counter() - t_all
+    out["stats"] = get_json(server.url + "/v1/stats")["generation"]
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["pad_copies"] = kernels.PAD_COPIES
+    out["dispatches"] = dispatches
+    server.drain()
+    return out
+
+
+#: a `ContinuousBatcher` option -> its `net.serve` argument
+SERVE_OPTION = {"page_size": "gen_page_size", "n_pages": "gen_pages",
+                "prefix_cache": "gen_prefix_cache",
+                "prefix_match": "gen_prefix_match",
+                "steps_per_dispatch": "gen_steps_per_dispatch"}
+
+
+def dispatch_summary(dispatches) -> dict:
+    """By K: dispatches, mean wall and wait (ms) and the host's share."""
+    out = {}
+    for k in sorted({d[0] for d in dispatches}):
+        rows = [d for d in dispatches if d[0] == k]
+        wall = sum(d[1] for d in rows)
+        wait = sum(d[2] for d in rows)
+        out[str(k)] = {"dispatches": len(rows),
+                       "wall_ms_mean": wall / len(rows) * 1e3,
+                       "wait_ms_mean": wait / len(rows) * 1e3,
+                       "host_share": 1.0 - wait / wall if wall else 0.0}
+    return out
+
+
+def option_pass(torch, kernels, net, g, name, groups, refs, exact=None,
+                **options):
+    """One option pass: `warmup_generate` for the batcher `options` (timed:
+    the captures it adds, their seconds, the graph pool's growth), then
+    `serve_generation`; checks the first `exact` streams' tokens (all by
+    default) against their references bitwise (the others are reported),
+    and that serving captured nothing. Returns (the pass's row, emitted;
+    the served result)."""
+    ic = net.infer_cache
+    misses0, secs0 = ic.stats.misses, ic.stats.total_compile_seconds
+    pool0 = ic.pool.reserved_bytes
+    t0 = time.perf_counter()
+    net.warmup_generate(slots=g["slots"], max_seq=g["max_seq"],
+                        prompt_buckets=g["buckets"],
+                        **{k: v for k, v in options.items()
+                           if k != "prefix_match"})
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warmed = ic.stats.misses
+    served = serve_generation(torch, kernels, net, g, groups, **options)
+    got = [t for grp in served["streams"] for t in grp]
+    equal = [a == b for a, b in zip(got, refs)]
+    exact = len(refs) if exact is None else exact
+    st = served["stats"]
+    row = {"phase": name, "options": options,
+           "requests": len(got), "tokens_equal_k1": all(equal[:exact]),
+           "streams_held": exact, "streams_equal": sum(equal),
+           "first_difference": next(
+               ([i, j] for i, (a, b) in enumerate(zip(got, refs))
+                for j in range(len(a)) if a[j] != b[j]), None),
+           "captures": warmed - misses0, "capture_s": warm_s,
+           "capture_s_programs": ic.stats.total_compile_seconds - secs0,
+           "graph_pool_bytes": ic.pool.reserved_bytes,
+           "graph_pool_bytes_added": ic.pool.reserved_bytes - pool0,
+           "fresh_compiles_after_warmup": st["fresh_compiles"] - warmed,
+           "wall_s": served["wall_s"],
+           "tokens_per_s_wall": sum(len(t) for t in got) / served["wall_s"],
+           "stats": {k: st[k] for k in (
+               "tokens", "tokens_per_sec", "ttft_ms", "streams",
+               "steps_per_dispatch", "host_overhead_fraction",
+               "decode_host_seconds_total", "decode_block_steps",
+               "fresh_compiles", "kv_pages", "prefix_cache") if k in st},
+           "ttft_ms_by_group": served["ttft_ms"],
+           "latency_ms": served["latency_ms"],
+           "dispatch": dispatch_summary(served["dispatches"]),
+           "launches": served["launches"],
+           "pad_copies": served["pad_copies"]}
+    emit(row)
+    check(len(got) == len(refs) and all(equal[:exact]),
+          f"{name}: tokens differ from the K = 1 pass in "
+          f"{exact - sum(equal[:exact])} of {exact} streams "
+          f"(first at {row['first_difference']})")
+    check(row["fresh_compiles_after_warmup"] == 0,
+          f"{name}: serving captured {row['fresh_compiles_after_warmup']} "
+          f"programs after warm-up")
+    check(st["streams"]["failed"] == 0
+          and st["streams"]["completed"] == len(got),
+          f"{name}: streams {st['streams']}")
+    check(served["pad_copies"] == 0, f"{name}: padding copies")
+    return row, served
+
+
+def block_profile(torch, kernels, net, g, name, quick, pages=None):
+    """One K-step block over the whole table (every row budgeted K), timed
+    by events over back-to-back calls and traced once: its device time and
+    idle share. `pages` = (n_pages, page_size) times the paged block over
+    that pool (slot s on its own run of pages). Emits the row."""
+    ic, conf, k = net.infer_cache, net.conf, GEN_OPTIONS["k"]
+    slots = g["slots"]
+    tok = np.arange(slots, dtype=np.int32)
+    pos = np.full((slots,), min(40 if quick else 300, g["max_seq"] - k),
+                  np.int32)
+    keys = np.zeros((slots, 2), np.uint32)
+    tmp = np.asarray([0.0, g["temperature"]] * (slots // 2), np.float32)
+    rem = np.full((slots,), k, np.int32)
+    misses = ic.stats.misses
+    if pages is None:
+        table = ic.decode_state(conf, slots, g["max_seq"], "cuda", "table")
+
+        def block():
+            return ic.decode_multi(conf, net.params, table, tok, pos, keys,
+                                   tmp, rem, k)
+    else:
+        pool = ic.decode_state(conf, slots, g["max_seq"], "cuda", "pool",
+                               pages=pages)
+        per_slot = -(-g["max_seq"] // pages[1])
+        page_table = (1 + np.arange(slots * per_slot, dtype=np.int32)
+                      ).reshape(slots, per_slot)
+
+        def block():
+            return ic.decode_multi_paged(conf, net.params, pool, tok, pos,
+                                         keys, tmp, rem, page_table, k)
+
+    ms = cuda_ms(block, iters=5, warmup=1)
+    prof = profiled(torch, kernels, block, name)
+    check(ic.stats.misses == misses, f"{name}: timing captured a program")
+    row = {"phase": name + "_summary", "k": k, "block_ms": ms,
+           "device_ms": prof["device_ms"],
+           "idle_share": 1.0 - prof["device_ms"] / ms,
+           "idle_share_profiled": prof["idle_share"],
+           "kernel_count": prof["kernel_count"]}
+    emit(row)
+    return row
+
+
+def phase_generate_options(torch, kernels, net, g, reqs, k1_streams,
+                           quick):
+    """The option passes (GEN_OPTIONS) after the K = 1 pass: each serves
+    the K = 1 pass's requests (the prefix pass also repeats and extensions
+    of them) on the same net through a server of its options, warmed
+    first, holds every stream to the K = 1 pass's tokens bitwise (a
+    longest match's logp to a cold prefill's within bf16 rounding), and
+    checks its flash launches (one a block an admission, none on a prefix
+    hit); then times a prefix entry's copies. Returns each pass's flash
+    launches."""
+    from deeplearning4j_tpu_torch.serving import ContinuousBatcher
+
+    o = GEN_OPTIONS_QUICK if quick else GEN_OPTIONS
+    nb, k = g["n_blocks"], o["k"]
+    launches = {}
+    # -- K steps a dispatch --------------------------------------------------
+    _, served = option_pass(torch, kernels, net, g, "generate_block",
+                            [reqs], k1_streams, steps_per_dispatch=k)
+    launches["generate_block"] = served["launches"]["flash_attn_fwd"]
+    check(launches["generate_block"] == nb * len(reqs),
+          f"generate_block: flash launches {launches['generate_block']}")
+    check(served["stats"]["decode_block_steps"]["counts"][3] > 0,
+          "generate_block: no block of K = 8 ran")
+    block_profile(torch, kernels, net, g, "generate_block_profile", quick)
+    # -- the paged pool: its default size, then overcommitted ----------------
+    for name, pages in (("generate_paged", 0),
+                        ("generate_paged_overcommit", o["overcommit"])):
+        _, served = option_pass(torch, kernels, net, g, name, [reqs],
+                                k1_streams, page_size=o["page_size"],
+                                n_pages=pages, steps_per_dispatch=k)
+        kv = served["stats"]["kv_pages"]
+        launches[name] = served["launches"]["flash_attn_fwd"]
+        # every admission prefills: a preempted stream is admitted again
+        check(launches[name] == nb * (len(reqs) + kv["preempted_streams"]),
+              f"{name}: flash launches {launches[name]}, pages {kv}")
+        check(kv["live"] == 0, f"{name}: pages left live: {kv}")
+        if pages and not quick:
+            check(kv["preempted_streams"] >= 1,
+                  f"{name}: the overcommitted pool preempted nothing: {kv}")
+    per_slot = -(-g["max_seq"] // o["page_size"])
+    block_profile(torch, kernels, net, g, "generate_paged_block_profile",
+                  quick, (g["slots"] * per_slot + 1, o["page_size"]))
+    # -- the prefix cache ------------------------------------------------------
+    repeats = reqs[:o["repeats"]]
+    rng = np.random.RandomState(7)
+    fits = [r for r in sorted(reqs, key=lambda r: len(r[0]))
+            if len(r[0]) + o["suffix"] <= g["buckets"][-1]][:o["extend"]]
+    check(bool(fits), "no prompt leaves room for an extension")
+    suffixes = [rng.randint(0, SLICE["vocab"], o["suffix"]).tolist()
+                for _ in fits]
+    extended = [(p + sfx, t, 100 + i)
+                for i, ((p, t, _), sfx) in enumerate(zip(fits, suffixes))]
+    # the extensions have no stream in the K = 1 pass: a cold prefill of
+    # the whole prompt through the K = 1 dense path is reported beside
+    # them. A longest match feeds the suffix through decode steps instead
+    # of the prefill's flash forward, the same function by other kernels,
+    # so in bf16 the two agree within rounding (held below), not bit for
+    # bit
+    ref = ContinuousBatcher(net, n_slots=g["slots"], max_seq=g["max_seq"],
+                            prompt_buckets=g["buckets"])
+    try:
+        pending = [ref.submit(p, max_new_tokens=g["max_new"], temperature=t,
+                              rng_seed=s) for p, t, s in extended]
+        ext_refs = [list(x.tokens(timeout=300)) for x in pending]
+    finally:
+        ref.stop()
+    row, served = option_pass(
+        torch, kernels, net, g, "generate_prefix", [reqs, repeats, extended],
+        k1_streams + k1_streams[:len(repeats)] + ext_refs,
+        exact=len(reqs) + len(repeats), prefix_cache=True,
+        prefix_match="longest")
+    pc = served["stats"]["prefix_cache"]
+    launches["generate_prefix"] = served["launches"]["flash_attn_fwd"]
+    check(pc["hits"] == len(repeats) + len(extended)
+          and pc["misses"] == len(reqs), f"generate_prefix: {pc}")
+    check(launches["generate_prefix"] == nb * pc["misses"],
+          f"generate_prefix: flash launches {launches['generate_prefix']}")
+    gaps = [feed_vs_prefill_gap(torch, net, g, p, sfx)
+            for (p, _, _), sfx in zip(fits, suffixes)]
+    feed = {"extension_streams_equal_cold_prefill": [
+                a == b for a, b in zip(served["streams"][2], ext_refs)],
+            "feed_vs_prefill": [{"max_abs_gap": a, "max_abs_logp": b}
+                                for a, b in gaps]}
+    emit({"phase": "generate_prefix_feed", **feed})
+    check(all(a <= 2e-2 * b for a, b in gaps),
+          f"generate_prefix: the fed suffix's logp vs a cold prefill: {feed}")
+    emit(prefix_copy_times(torch, net, g))
+    return launches
+
+
+def feed_vs_prefill_gap(torch, net, g, prefix, suffix):
+    """A longest prefix match against a cold admission, eager at B = 1: the
+    logp after the prefill of `prefix` and one decode step a `suffix`
+    token, against the prefill of the whole prompt. Returns (max |gap|,
+    max |logp|)."""
+    from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+    conf, params = net.conf, net.params
+    n, full = len(prefix), prefix + suffix
+
+    def ids(x):
+        return torch.as_tensor(x, device="cuda")
+
+    with torch.inference_mode():
+        state = decode_mod.init_state(conf, 1, g["max_seq"], "cuda")
+        cold, _ = decode_mod.prefill(conf, params, state, ids([full]),
+                                     ids([len(full)]))
+        state = decode_mod.init_state(conf, 1, g["max_seq"], "cuda")
+        fed, state = decode_mod.prefill(conf, params, state, ids([prefix]),
+                                        ids([n]))
+        for j, t in enumerate(suffix):
+            fed, state = decode_mod.decode_step(conf, params, state, ids([t]),
+                                                ids([n + j]))
+    return ((cold.float() - fed.float()).abs().max().item(),
+            cold.float().abs().max().item())
+
+
+def prefix_copy_times(torch, net, g, turns=3):
+    """What a prefix-cache entry's copies cost at this width, pinned and
+    pageable host memory in turns: the store (host allocation and the
+    device-to-host copy of the admission row) and a hit's copy of it into a
+    table row (host to device). Milliseconds by host clock around a
+    synchronise, the minimum over `turns`."""
+    ic, conf = net.infer_cache, net.conf
+    row = ic.decode_state(conf, 1, g["max_seq"], "cuda", "row")
+    table = ic.decode_state(conf, g["slots"], g["max_seq"], "cuda", "table")
+    leaves = [t for lay in row for t in lay.values()]
+    dst = [t for lay in table for t in lay.values()]
+    out = {"phase": "generate_prefix_copy",
+           "row_bytes": sum(t.numel() * t.element_size() for t in leaves)}
+    for mode in ("pinned", "pageable", "pageable", "pinned"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "pinned":
+            host = [torch.empty(t.shape, dtype=t.dtype,
+                                pin_memory=True).copy_(t) for t in leaves]
+        else:
+            host = [t.cpu() for t in leaves]
+        store = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for d, h in zip(dst, host):
+            d[0].copy_(h[0], non_blocking=True)
+        torch.cuda.synchronize()
+        hit = (time.perf_counter() - t0) * 1e3
+        for key, v in ((f"{mode}_store_ms", store), (f"{mode}_hit_ms", hit)):
+            out[key] = min(out.get(key, v), v)
+        del host
+    return out
+
+
 def phase_generate(torch, kernels, quick=False):
     """The charTransformer served through POST /v1/generate (a
     `ContinuousBatcher` over captured decode and prefill graphs, warmed
-    first), then the step's times, the checks (a)-(e) and the forward
-    kernel at the prefill shapes. Returns (the main path's launches, the
-    timed prefill-shape kernel rows)."""
+    first), then the step's times, the checks (a)-(e), the option passes
+    (`phase_generate_options`) and the forward kernel at the prefill
+    shapes. Returns (the K = 1 pass's launches, the timed prefill-shape
+    kernel rows, each option pass's flash launches)."""
     from deeplearning4j_tpu_torch.nd import random as nd_random
     from deeplearning4j_tpu_torch.nn import decode as decode_mod
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
@@ -1369,54 +1734,11 @@ def phase_generate(torch, kernels, quick=False):
     temps = [0.0 if i % 2 == 0 else g["temperature"]
              for i in range(g["requests"])]
 
-    kernels.reset_launches()
-    kernels.PAD_COPIES = 0
-    server = net.serve(port=0, generate=True, gen_slots=g["slots"],
-                       gen_max_seq=g["max_seq"],
-                       gen_prompt_buckets=g["buckets"])
-    results = [None] * g["requests"]
-    latency_ms = [None] * g["requests"]
-    errors = []
-    todo = list(range(g["requests"]))
-    lock = threading.Lock()
-
-    def client():
-        while True:
-            with lock:
-                if not todo:
-                    return
-                i = todo.pop(0)
-            t = time.perf_counter()
-            try:
-                results[i] = post_generate(server.url, {
-                    "prompt": prompts[i], "max_new_tokens": g["max_new"],
-                    "temperature": temps[i], "rng_seed": i})
-            except Exception as e:  # noqa: BLE001 — reported below
-                errors.append(repr(e))
-            latency_ms[i] = (time.perf_counter() - t) * 1e3
-
-    t_all = time.perf_counter()
-    threads = [threading.Thread(target=client) for _ in range(g["clients"])]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    wall_s = time.perf_counter() - t_all
-    stats = get_json(server.url + "/v1/stats")["generation"]
-    launches = dict(kernels.LAUNCHES)
-    pad_copies = kernels.PAD_COPIES
-    server.drain()
-    check(not errors, f"generate requests failed: {errors}")
-    streams = []
-    for i, (status, lines) in enumerate(results):
-        toks = [x["token"] for x in lines if "token" in x]
-        check(status == 200 and lines[-1].get("done") is True
-              and "error" not in lines[-1]
-              and lines[-1]["tokens"] == g["max_new"] == len(toks)
-              and all(0 <= t < SLICE["vocab"] for t in toks),
-              f"request {i}: status {status}, last line {lines[-1]}, "
-              f"{len(toks)} tokens")
-        streams.append(toks)
+    reqs = [(prompts[i], temps[i], i) for i in range(g["requests"])]
+    served = serve_generation(torch, kernels, net, g, [reqs])
+    streams, latency_ms = served["streams"][0], served["latency_ms"][0]
+    wall_s, stats = served["wall_s"], served["stats"]
+    launches, pad_copies = served["launches"], served["pad_copies"]
     check(stats["streams"] == {"admitted": g["requests"],
                                "completed": g["requests"], "failed": 0},
           f"generation streams {stats['streams']}")
@@ -1528,6 +1850,11 @@ def phase_generate(torch, kernels, quick=False):
         "prefill_ms": prefill_ms, "prefill_device_ms": prefill_device_ms,
         "a_cached_vs_eager": a_runs, "b_teacher_forced": b_runs,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    gen_row["dispatch"] = dispatch_summary(served["dispatches"])
+    emit(gen_row)
+    # the option passes on the same net and requests
+    option_launches = phase_generate_options(torch, kernels, net, g, reqs,
+                                             streams, quick)
     del net, table, row_state
     gc.collect()
     torch.cuda.empty_cache()
@@ -1535,16 +1862,15 @@ def phase_generate(torch, kernels, quick=False):
     # with the f32 logp gap
     same, toks, ref, (a_tok, a_keys, a_gap, a_logp) = f32_token_identity(
         torch)
-    gen_row["f32_two_blocks"] = {"tokens_equal_reforward": same,
-                                 "tokens": toks, "reforward": ref,
-                                 "a_tokens_equal": a_tok,
-                                 "a_keys_equal": a_keys, "a_state_gap": a_gap,
-                                 "a_logp_gap": a_logp}
-    emit(gen_row)
+    f32_row = {"phase": "generate_f32_two_blocks",
+               "tokens_equal_reforward": same, "tokens": toks,
+               "reforward": ref, "a_tokens_equal": a_tok,
+               "a_keys_equal": a_keys, "a_state_gap": a_gap,
+               "a_logp_gap": a_logp}
+    emit(f32_row)
     check(same, f"f32 cached greedy tokens differ from the re-forward: "
                 f"{toks} vs {ref}")
-    check(a_tok and a_keys and a_logp <= 1e-6,
-          f"(a) in f32: {gen_row['f32_two_blocks']}")
+    check(a_tok and a_keys and a_logp <= 1e-6, f"(a) in f32: {f32_row}")
     gc.collect()
     torch.cuda.empty_cache()
     # (c) the forward kernel at every prefill bucket; (d) the sampler
@@ -1563,7 +1889,7 @@ def phase_generate(torch, kernels, quick=False):
                 phase="generate_kernel"))
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, kernel_rows
+    return launches, kernel_rows, option_launches
 
 
 def profile_step(torch, kernels, net, x, y, phase="train_profile",
@@ -2250,8 +2576,10 @@ def phase_checkpoint(torch, kernels):
 
 
 #: the CLI's generate on the lstm_cli checkpoint: a prompt of 20 ids, 64
-#: new tokens, a 128-token table
+#: new tokens, a 128-token table; then again with the ported options
 CLI_GEN = dict(prompt=20, new=64, max_seq=128)
+CLI_GEN_OPTIONS = ["--steps-per-dispatch", "4", "--page-size", "16",
+                   "--prefix-cache"]
 
 
 def cli_generate_direct(torch, ckpt, prompt, temperature):
@@ -2336,15 +2664,19 @@ def phase_lstm_cli(torch, kernels):
         gen_prompt = np.random.RandomState(8).randint(
             0, int(data.vocab_size), CLI_GEN["prompt"]).tolist()
         generated = {}
+        gen_argv = ["generate", "--model", ckpt, "--prompt",
+                    ",".join(map(str, gen_prompt)), "--max-new-tokens",
+                    str(CLI_GEN["new"]), "--max-seq",
+                    str(CLI_GEN["max_seq"]), "--seed", "5"]
         for temp in ("0", "0.8"):
-            line, _, wall = run(
-                ["generate", "--model", ckpt, "--prompt",
-                 ",".join(map(str, gen_prompt)), "--max-new-tokens",
-                 str(CLI_GEN["new"]), "--max-seq", str(CLI_GEN["max_seq"]),
-                 "--temperature", temp, "--seed", "5"])
+            line, _, wall = run(gen_argv + ["--temperature", temp])
             generated[temp] = dict(line, wall_s=wall,
                                    direct=cli_generate_direct(
                                        torch, ckpt, gen_prompt, float(temp)))
+            # the ported options: the same tokens
+            line, _, wall = run(gen_argv + ["--temperature", temp]
+                                + CLI_GEN_OPTIONS)
+            generated[temp]["with_options"] = dict(line, wall_s=wall)
         net = load_network(ckpt)
         direct = net.output(data.features).float().cpu().numpy()
         probs = np.loadtxt(csv_path, delimiter=",", skiprows=1,
@@ -2367,6 +2699,10 @@ def phase_lstm_cli(torch, kernels):
     # the JAX package's generate line (deeplearning4j_tpu/cli/driver.py:
     # 642-649)
     for temp, line in generated.items():
+        opt = line.pop("with_options")
+        check(opt["tokens"] == line["tokens"] and opt["fresh_compiles"] == 0,
+              f"generate {' '.join(CLI_GEN_OPTIONS)} at temperature {temp}: "
+              f"{opt} vs {line['tokens']}")
         check(set(line) - {"wall_s", "direct"}
               == {"tokens", "n_tokens", "tokens_per_sec", "ttft_ms",
                   "fresh_compiles", "disk_cache"}
@@ -2980,7 +3316,8 @@ def main(argv) -> int:
     serve_launches = phase_serve(torch, kernels)
     gc.collect()
     torch.cuda.empty_cache()
-    gen_launches, gen_kernel_rows = phase_generate(torch, kernels)
+    gen_launches, gen_kernel_rows, gen_option_launches = phase_generate(
+        torch, kernels)
     check(gen_launches["flash_attn_fwd"] > 0,
           "the flash kernel never ran in generation")
     train_launches, f32_train_launches = phase_train(torch, kernels)
@@ -3017,9 +3354,11 @@ def main(argv) -> int:
         "replaces": "deeplearning4j_tpu/nd/pallas_kernels.py:106",
         "launches": (serve_launches["flash_attn_fwd"]
                      + gen_launches["flash_attn_fwd"]
+                     + sum(gen_option_launches.values())
                      + train_launches["flash_attn_fwd"]),
         "launches_by_path": {"serve": serve_launches["flash_attn_fwd"],
                              "generate": gen_launches["flash_attn_fwd"],
+                             **gen_option_launches,
                              "train": train_launches["flash_attn_fwd"]},
         "max_abs_err": fwd_row["max_abs_err"],
         "ms": fwd_row["kernel_ms"], "plain_ms": fwd_row["plain_ms"],

@@ -16,7 +16,9 @@ unless `--device cpu`):
 - `generate` loads a checkpoint of a generative model (char_lstm,
   char_transformer), captures its prefill and decode programs, and
   generates `--max-new-tokens` tokens after `--prompt` through a
-  one-slot `ContinuousBatcher`, printing the JAX package's JSON keys;
+  one-slot `ContinuousBatcher` (with `--page-size`, `--prefix-cache` and
+  `--steps-per-dispatch` as its options), printing the JAX package's JSON
+  keys;
 - `serve` loads a checkpoint, starts the micro-batching HTTP gateway (with
   `--generate`, also POST /v1/generate over a `--gen-slots` decode table,
   its programs captured before the socket opens), prints a startup JSON
@@ -30,8 +32,7 @@ The final JSON lines keep the JAX package's keys. `train`'s: `saved`,
 null, as a CUDA graph is not kept on disk. Options that are not ported exit
 naming their ROADMAP.md item: `--runtime mesh`, `--mesh` and `--zero1`
 (item 10), `--compile-cache` (item 11), pretraining recipes (item 9), and
-generation's paged pool, prefix cache, draft model and several steps a
-dispatch (item 8).
+generation's draft model and speculative chunk (item 8).
 """
 
 from __future__ import annotations
@@ -54,23 +55,18 @@ def _parse_properties(props: Optional[str]) -> dict:
     return out
 
 
-#: generation flags off the default path (`generate` and `serve`): dest ->
-#: the part of ROADMAP.md queue A item 8 that ports it
+#: generation flags not ported (`generate` and `serve`): dest -> the part
+#: of ROADMAP.md queue A item 8 that ports it
 _UNPORTED_GENERATION = {
-    "gen_page_size": "paged decode",
-    "gen_pages": "paged decode",
-    "gen_prefix_cache": "prefill_logp and the prefix cache",
     "gen_draft": "speculative decoding",
     "gen_spec_k": "speculative decoding",
-    "gen_steps_per_dispatch": "decode_block (steps_per_dispatch > 1)",
 }
 
 
 def _refuse_unported(args) -> None:
     for dest, part in _UNPORTED_GENERATION.items():
         value = getattr(args, dest, None)
-        if value not in (None, 0, False) and not (
-                dest == "gen_steps_per_dispatch" and value == 1):
+        if value not in (None, 0, False):
             flag = "--" + dest.replace("_", "-")
             raise SystemExit(f"{flag} is not ported to "
                              f"deeplearning4j_tpu_torch yet; see ROADMAP.md "
@@ -303,11 +299,13 @@ def cmd_generate(args) -> int:
     bucket = min(max(4, 1 << (len(prompt) - 1).bit_length()),
                  args.gen_max_seq)
     # one-shot generation decodes one stream: a one-slot table
-    net.warmup_generate(slots=1, max_seq=args.gen_max_seq,
-                        prompt_buckets=(bucket,))
+    options = dict(max_seq=args.gen_max_seq, prompt_buckets=(bucket,),
+                   page_size=args.gen_page_size,
+                   prefix_cache=args.gen_prefix_cache,
+                   steps_per_dispatch=args.gen_steps_per_dispatch)
+    net.warmup_generate(slots=1, **options)
     warmed_misses = net.infer_cache.stats.misses
-    batcher = ContinuousBatcher(net, n_slots=1, max_seq=args.gen_max_seq,
-                                prompt_buckets=(bucket,))
+    batcher = ContinuousBatcher(net, n_slots=1, **options)
     try:
         t0 = time.perf_counter()
         stream = batcher.submit(prompt, max_new_tokens=args.max_new_tokens,
@@ -339,9 +337,11 @@ def cmd_serve(args) -> int:
     if args.generate:
         # the decode and prefill programs are captured before the socket
         # opens, so generation starts from cache hits
-        generation = net.warmup_generate(slots=args.gen_slots,
-                                         max_seq=args.gen_max_seq,
-                                         prompt_buckets=buckets)
+        generation = net.warmup_generate(
+            slots=args.gen_slots, max_seq=args.gen_max_seq,
+            prompt_buckets=buckets, page_size=args.gen_page_size,
+            n_pages=args.gen_pages, prefix_cache=args.gen_prefix_cache,
+            steps_per_dispatch=args.gen_steps_per_dispatch)
         generation.pop("infer_cache")
     server = net.serve(host=args.host, port=args.port,
                        max_delay_ms=args.max_delay_ms,
@@ -352,7 +352,12 @@ def cmd_serve(args) -> int:
                        generate=args.generate, gen_slots=args.gen_slots,
                        gen_max_seq=args.gen_max_seq,
                        gen_prompt_buckets=buckets,
-                       gen_max_pending=args.gen_max_pending)
+                       gen_max_pending=args.gen_max_pending,
+                       gen_page_size=args.gen_page_size,
+                       gen_pages=args.gen_pages,
+                       gen_prefix_cache=args.gen_prefix_cache,
+                       gen_prefix_match=args.gen_prefix_match,
+                       gen_steps_per_dispatch=args.gen_steps_per_dispatch)
     print(json.dumps({"url": server.url, "device": str(net.device),
                       "device_kind": device_kind(net.device),
                       "generation": generation,
@@ -409,7 +414,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 def _add_generate_flags(p: argparse.ArgumentParser) -> None:
     """`serve --generate` and its decode-table flags (the JAX package's
-    names); the flags of the unported options exit naming their item."""
+    names); the speculative-decoding flags exit naming their item."""
     p.add_argument("--generate", action="store_true",
                    help="also serve POST /v1/generate through a continuous-"
                         "batching decode table (programs captured first)")
@@ -428,18 +433,33 @@ def _add_generate_flags(p: argparse.ArgumentParser) -> None:
                    default=64,
                    help="queued generation streams bound; beyond it 503")
     p.add_argument("--gen-page-size", dest="gen_page_size", type=int,
-                   default=None, help="not ported yet (exits)")
+                   default=None,
+                   help="tokens a KV page; > 0 decodes through the paged "
+                        "pool (memory scales with live tokens; default 0, "
+                        "the dense table)")
     p.add_argument("--gen-pages", dest="gen_pages", type=int, default=0,
-                   help="not ported yet (exits)")
+                   help="physical KV pages in the pool (0: every slot at "
+                        "full --gen-max-seq; fewer overcommit, and streams "
+                        "wait or are preempted and recomputed)")
     p.add_argument("--gen-prefix-cache", dest="gen_prefix_cache",
-                   action="store_true", help="not ported yet (exits)")
+                   action="store_true",
+                   help="keep prefills by prompt digest; a repeated prompt "
+                        "skips its prefill, token-identical")
+    p.add_argument("--gen-prefix-match", dest="gen_prefix_match",
+                   choices=("exact", "longest"), default="exact",
+                   help="prefix-cache matching: the exact prompt only, or "
+                        "the longest cached prefix (the rest fed through "
+                        "the decode table)")
     p.add_argument("--gen-draft", dest="gen_draft", default=None,
                    help="not ported yet (exits)")
     p.add_argument("--gen-spec-k", dest="gen_spec_k", type=int, default=0,
                    help="not ported yet (exits)")
     p.add_argument("--gen-steps-per-dispatch",
                    dest="gen_steps_per_dispatch", type=int, default=None,
-                   help="not ported yet (exits unless 1)")
+                   help="decode steps a dispatch, at most (K); the batcher "
+                        "ramps 1 -> K while the slot set is stable and "
+                        "pipelines the blocks; tokens are the same for any "
+                        "K (default 1)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -507,16 +527,20 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--timeout", type=float, default=120.0,
                    help="bound on the whole generation (seconds)")
     g.add_argument("--page-size", dest="gen_page_size", type=int,
-                   default=0, help="not ported yet (exits)")
+                   default=0,
+                   help="tokens a KV page; > 0 decodes through the paged "
+                        "pool (the same tokens)")
     g.add_argument("--prefix-cache", dest="gen_prefix_cache",
-                   action="store_true", help="not ported yet (exits)")
+                   action="store_true",
+                   help="keep the prompt's prefill by digest")
     g.add_argument("--draft", dest="gen_draft", default=None,
                    help="not ported yet (exits)")
     g.add_argument("--spec-k", dest="gen_spec_k", type=int, default=0,
                    help="not ported yet (exits)")
     g.add_argument("--steps-per-dispatch", dest="gen_steps_per_dispatch",
                    type=int, default=None,
-                   help="not ported yet (exits unless 1)")
+                   help="decode steps a dispatch, at most (the same tokens "
+                        "for any value)")
     g.add_argument("--mesh", nargs="?", const="all", default=None,
                    metavar="SPEC", help="not ported yet (exits)")
     g.add_argument("--compile-cache", dest="compile_cache", default=None,

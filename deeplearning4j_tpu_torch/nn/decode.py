@@ -1,7 +1,7 @@
 """Cache-aware autoregressive decoding over a stacked network.
 
-Counterpart of `deeplearning4j_tpu/nn/decode.py` for the dense KV cache.
-Generation splits into two programs instead of re-running the whole prefix
+Counterpart of `deeplearning4j_tpu/nn/decode.py` for the dense and the
+paged KV cache. Generation splits into two programs instead of re-running the whole prefix
 every token:
 
   prefill      the prompt once through the sequence forward (on CUDA the
@@ -29,9 +29,18 @@ tensors; the infer cache copies those into the state it was given, so a
 captured graph reads and writes one set of buffers and no step copies a
 cache.
 
-Not ported yet (ROADMAP.md queue A item 8): the paged state and
-`decode_step_paged`, `decode_block` (several steps a dispatch) and
-`verify_chunk*` (speculative decoding).
+Paged state (`init_paged_state`): each ATTENTION layer's table becomes one
+physical page pool {"k": [n_pages, page_size, n], "v": same} shared by the
+rows, addressed through a per-call page table [B, pages_per_slot] of page
+ids (`decode_step_paged`); memory scales with the pages in use. The host
+(`serving/batcher.py`) keeps the free list and page 0 as a scratch page.
+
+`decode_block` runs K decode steps in one program, sampling inside
+(the infer cache's `decode_multi`): the JAX package's `lax.scan` is a
+Python loop of K steps here, so one CUDA graph holds the whole block.
+
+Not ported yet (ROADMAP.md queue A item 8): `verify_chunk*` (speculative
+decoding).
 """
 
 from __future__ import annotations
@@ -49,8 +58,8 @@ GENERATIVE_HIDDEN = (LayerType.LSTM, LayerType.GRAVES_LSTM,
 
 _RECURRENT = (LayerType.LSTM, LayerType.GRAVES_LSTM)
 
-#: the JAX package's token for the steps of a fused decode block that a row
-#: sat frozen; never a valid token id (the block itself is not ported yet)
+#: the token `decode_block` emits for the steps a row sat frozen (its `rem`
+#: budget spent mid-block); never a valid token id
 BLOCK_SENTINEL = -1
 
 
@@ -127,6 +136,29 @@ def init_state(conf: MultiLayerConfiguration, batch: int, max_seq: int,
     return tuple(state)
 
 
+def init_paged_state(conf: MultiLayerConfiguration, batch: int,
+                     n_pages: int, page_size: int, device=None):
+    """A fresh (zero) paged decode state: recurrent carries stay [batch, H]
+    a row, each ATTENTION layer's K/V become one shared physical pool
+    [n_pages, page_size, n] that the per-call page table addresses."""
+    types = check_generative(conf)
+    state = []
+    with torch.inference_mode(False):
+        for i, t in enumerate(types):
+            c = conf.conf(i)
+            if t in _RECURRENT:
+                state.append({name: torch.zeros((batch, c.n_out),
+                                                device=device)
+                              for name in ("h", "c")})
+            elif t == LayerType.ATTENTION:
+                state.append({name: torch.zeros(
+                    (n_pages, page_size, c.n_in), dtype=compute_dtype(c),
+                    device=device) for name in ("k", "v")})
+            else:
+                state.append({})
+    return tuple(state)
+
+
 def one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
     """f32 one-hot rows of `ids` ([...] -> [..., n]); ids outside [0, n)
     give a zero row, as `jax.nn.one_hot` does. A comparison, so it reads
@@ -154,11 +186,7 @@ def _log_probs(conf, params, n_hidden: int, x):
     return torch.log(torch.clamp(probs, 1e-9, 1.0))
 
 
-def decode_step(conf: MultiLayerConfiguration, params, state, tok, pos):
-    """Every row one token further: tok [B] int (the row's current token),
-    pos [B] int (the position that token takes). Returns (logp [B, vocab],
-    log(clip(probs)) of the NEXT token, and the state tuple: the attention
-    caches written in place at `pos`, new (h, c) tensors)."""
+def _step(conf, params, state, tok, pos, page_table):
     types = check_generative(conf)
     x = token_embed(conf, params, tok, pos)
     new_state = []
@@ -170,8 +198,13 @@ def decode_step(conf: MultiLayerConfiguration, params, state, tok, pos):
             new_state.append({"h": h, "c": cc})
             x = h
         elif t == LayerType.ATTENTION:
-            x, kc, vc = impl.decode_step(params[i], c, x, state[i]["k"],
-                                         state[i]["v"], pos)
+            if page_table is None:
+                x, kc, vc = impl.decode_step(params[i], c, x, state[i]["k"],
+                                             state[i]["v"], pos)
+            else:
+                x, kc, vc = impl.decode_step_paged(
+                    params[i], c, x, state[i]["k"], state[i]["v"], pos,
+                    page_table)
             new_state.append({"k": kc, "v": vc})
         elif t == LayerType.TRANSFORMER_FFN:
             x = impl.forward(params[i], c, x)
@@ -180,6 +213,66 @@ def decode_step(conf: MultiLayerConfiguration, params, state, tok, pos):
             new_state.append({})
     new_state.append({})
     return _log_probs(conf, params, len(types) - 1, x), tuple(new_state)
+
+
+def decode_step(conf: MultiLayerConfiguration, params, state, tok, pos):
+    """Every row one token further: tok [B] int (the row's current token),
+    pos [B] int (the position that token takes). Returns (logp [B, vocab],
+    log(clip(probs)) of the NEXT token, and the state tuple: the attention
+    caches written in place at `pos`, new (h, c) tensors)."""
+    return _step(conf, params, state, tok, pos, None)
+
+
+def decode_step_paged(conf: MultiLayerConfiguration, params, state, tok,
+                      pos, page_table):
+    """`decode_step` over a paged state: page_table [B, pages_per_slot] int
+    routes each row's cache reads and writes through the shared pool
+    (`MultiHeadAttentionLayer.decode_step_paged`)."""
+    return _step(conf, params, state, tok, pos, page_table)
+
+
+def decode_block(conf: MultiLayerConfiguration, params, state, tok, pos,
+                 keys, temps, rem, k: int, sample, page_table=None):
+    """Every row up to `k` tokens further in one program: `k` unrolled
+    `decode_step`s (`decode_step_paged` with a `page_table`), each followed
+    by `sample(logp, keys, temps) -> (tok, keys)`. The tokens are those of
+    `k` one-step calls, for any `k`.
+
+    rem [B] int is each row's remaining budget. A row whose budget reaches
+    0 mid-block freezes: its tok, pos and key stop, its recurrent carries
+    stop (`torch.where` over [B]-shaped rows, no select over a cache), and
+    its outputs become `BLOCK_SENTINEL`. Its K/V rows need no mask: with
+    tok, pos and carries frozen, each further step writes the same cell
+    with the same values (the same inputs through the same kernels), the
+    values the row's next real step would write; a released paged row's
+    table points every write at the scratch page. The sampler runs over
+    every row each step, but a frozen row's advanced key is dropped, so a
+    key splits once a token emitted, as in one-step decoding.
+
+    Returns (toks [k, B] int32, the last token of each row [B], keys
+    [B, 2], state): attention caches written in place, new (h, c)."""
+    types = check_generative(conf)
+    outs = []
+    for _ in range(int(k)):
+        active = rem > 0
+        logp, new = _step(conf, params, state, tok, pos, page_table)
+        tok2, keys2 = sample(logp, keys, temps)
+        frozen = []
+        for i, t in enumerate(types):
+            if t in _RECURRENT:
+                frozen.append({name: torch.where(active[:, None],
+                                                 new[i][name],
+                                                 state[i][name])
+                               for name in ("h", "c")})
+            else:
+                frozen.append(new[i])
+        state = tuple(frozen)
+        outs.append(tok2.masked_fill(~active, BLOCK_SENTINEL))
+        tok = torch.where(active, tok2, tok)
+        keys = torch.where(active[:, None], keys2, keys)
+        pos = torch.where(active, pos + 1, pos)
+        rem = torch.where(active, rem - 1, rem)
+    return torch.stack(outs), tok, keys, state
 
 
 def prefill(conf: MultiLayerConfiguration, params, state, prompt, length):

@@ -1,11 +1,12 @@
 """Multi-head self-attention and the transformer FFN.
 
 Counterpart of `deeplearning4j_tpu/nn/layers/attention.py`: the forward
-pass, and the attention layer's `prefill` and dense `decode_step` of
-KV-cache generation (the paged and verify variants are ROADMAP.md queue A
-item 8's rest). Input and output are [batch, seq, n_in]; params are
-{"Wqkv", "bqkv", "Wo", "bo", "ln_g", "ln_b"} and
-{"W1", "b1", "W2", "b2", "ln_g", "ln_b"}, as in the JAX package.
+pass, and the attention layer's `prefill`, dense `decode_step` and
+`decode_step_paged` of KV-cache generation (the verify variants of
+speculative decoding are ROADMAP.md queue A item 8's rest). Input and
+output are [batch, seq, n_in]; params are {"Wqkv", "bqkv", "Wo", "bo",
+"ln_g", "ln_b"} and {"W1", "b1", "W2", "b2", "ln_g", "ln_b"}, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -105,46 +106,97 @@ class MultiHeadAttentionLayer:
         return x + o, k_cache, v_cache
 
     @staticmethod
+    def _decode_qkv(params, conf, x):
+        """The current token's q, k, v rows ([B, n] each, compute dtype)."""
+        n = x.shape[1]
+        xn = _layer_norm(x, params["ln_g"], params["ln_b"])
+        qkv = (mixed_matmul(xn, params["Wqkv"], conf)
+               + params["bqkv"]).to(compute_dtype(conf))
+        return qkv.split(n, dim=-1)
+
+    @staticmethod
+    def _decode_attend(params, conf, x, q, k_ctx, v_ctx, pos):
+        """The attention of one token a row over its context and the output
+        projection: q [B, n]; k_ctx, v_ctx [B, ctx, n], the row's K/V rows
+        by position; pos [B]. Scores are [B, H, ctx], one sequence-long
+        axis, and key positions > pos get the additive -1e30 mask of
+        `nd.attention.full_attention`, as in the JAX package."""
+        b, n = x.shape
+        h = conf.n_heads
+        hd = n // h
+        cd = compute_dtype(conf)
+        ctx = k_ctx.shape[1]
+        qh = q.reshape(b, h, 1, hd)
+        kh = k_ctx.to(cd).view(b, ctx, h, hd)
+        vh = v_ctx.to(cd).view(b, ctx, h, hd)
+        # one batched product over the heads a row: a row's K^T
+        # [h, hd, ctx] and V [h, ctx, hd] are strided views of its rows
+        # that cuBLAS reads in place, where one product over (b, h) would
+        # first copy the whole context
+        s = torch.stack([torch.bmm(qh[i], kh[i].permute(1, 2, 0))
+                         for i in range(b)])[:, :, 0] / float(
+            torch.tensor(math.sqrt(hd), dtype=cd))
+        kpos = torch.arange(ctx, device=x.device)[None, :]
+        mask = torch.where(kpos <= pos.long()[:, None], 0.0,
+                           _NEG_BIG).to(s.dtype)
+        p = torch.softmax(s + mask[:, None, :], dim=-1)
+        o = torch.stack([torch.bmm(p[i][:, None], vh[i].permute(1, 0, 2))
+                         for i in range(b)])
+        o = mixed_matmul(o.reshape(b, n).to(x.dtype), params["Wo"],
+                         conf) + params["bo"]
+        return x + o
+
+    @staticmethod
     def decode_step(params, conf, x, k_cache, v_cache, pos):
         """One generated token against the KV cache.
 
         x: [B, n], the current token's hidden row; caches: [B, max_S, n];
         pos: [B] int, the position each row writes. The new K/V row is
         written at `pos` in place (indexing with device tensors, no host
-        read); the scores are [B, H, max_S], one sequence-long axis, and
-        key positions > pos get the additive -1e30 mask of
-        `nd.attention.full_attention`, as in the JAX package."""
-        b, n = x.shape
-        h = conf.n_heads
-        hd = n // h
-        cd = compute_dtype(conf)
-        xn = _layer_norm(x, params["ln_g"], params["ln_b"])
-        qkv = (mixed_matmul(xn, params["Wqkv"], conf)
-               + params["bqkv"]).to(cd)
-        q, k, v = qkv.split(n, dim=-1)
-        rows = torch.arange(b, device=x.device)
+        read), then the row attends over its whole cache
+        (`_decode_attend`)."""
+        q, k, v = MultiHeadAttentionLayer._decode_qkv(params, conf, x)
+        rows = torch.arange(x.shape[0], device=x.device)
         p64 = pos.long()
         k_cache[rows, p64] = k.to(k_cache.dtype)
         v_cache[rows, p64] = v.to(v_cache.dtype)
-        max_s = k_cache.shape[1]
-        qh = q.reshape(b, h, 1, hd)
-        kh = k_cache.to(cd).view(b, max_s, h, hd)
-        vh = v_cache.to(cd).view(b, max_s, h, hd)
-        # one batched product over the heads a row: a row's K^T
-        # [h, hd, max_S] and V [h, max_S, hd] are strided views of its cache
-        # rows that cuBLAS reads in place, where one product over (b, h)
-        # would first copy the whole cache
-        s = torch.stack([torch.bmm(qh[i], kh[i].permute(1, 2, 0))
-                         for i in range(b)])[:, :, 0] / float(
-            torch.tensor(math.sqrt(hd), dtype=cd))
-        kpos = torch.arange(max_s, device=x.device)[None, :]
-        mask = torch.where(kpos <= p64[:, None], 0.0, _NEG_BIG).to(s.dtype)
-        p = torch.softmax(s + mask[:, None, :], dim=-1)
-        o = torch.stack([torch.bmm(p[i][:, None], vh[i].permute(1, 0, 2))
-                         for i in range(b)])
-        o = mixed_matmul(o.reshape(b, n).to(x.dtype), params["Wo"],
-                         conf) + params["bo"]
-        return x + o, k_cache, v_cache
+        out = MultiHeadAttentionLayer._decode_attend(params, conf, x, q,
+                                                     k_cache, v_cache, pos)
+        return out, k_cache, v_cache
+
+    @staticmethod
+    def decode_step_paged(params, conf, x, k_pool, v_pool, pos, page_table):
+        """`decode_step` against a shared physical page pool.
+
+        x: [B, n]; pools: [n_pages, page_size, n]; pos: [B] int;
+        page_table: [B, pages_per_slot] int of physical page ids. The new
+        K/V row is written in place at (page_table[b, pos // ps], pos % ps),
+        and the row's pages are gathered back into one
+        [B, pages_per_slot * ps, n] context for the dense step's own score
+        code: where max_seq is a whole number of pages, the operands have
+        the dense cache's shape and layout and the same products run, so
+        paged tokens equal dense ones bit for bit. Table entries not
+        allocated point at the host's scratch page 0, whose junk sits
+        behind the additive mask (exp(-1e30 + .) is exactly 0.0). Every
+        inactive row writes page 0 too, so that page can take duplicate
+        indices in one write: which value lands there is unspecified, and
+        nothing reads it unmasked."""
+        q, k, v = MultiHeadAttentionLayer._decode_qkv(params, conf, x)
+        b = x.shape[0]
+        ps = k_pool.shape[1]
+        rows = torch.arange(b, device=x.device)
+        p64 = pos.long()
+        table = page_table.long()
+        phys = table[rows, p64 // ps]
+        off = p64 % ps
+        k_pool[phys, off] = k.to(k_pool.dtype)
+        v_pool[phys, off] = v.to(v_pool.dtype)
+        ctx = table.shape[1] * ps
+        k_ctx = k_pool[table].view(b, ctx, -1)
+        v_ctx = v_pool[table].view(b, ctx, -1)
+        out = MultiHeadAttentionLayer._decode_attend(params, conf, x, q,
+                                                     k_ctx, v_ctx, pos)
+        return out, k_pool, v_pool
 
     @staticmethod
     def _attend(conf, q, k, v):

@@ -292,41 +292,65 @@ class MultiLayerNetwork:
                         n_pages: int = 0, prefix_cache: bool = False,
                         draft_net=None, spec_k: int = 0,
                         steps_per_dispatch: Optional[int] = None):
-        """Capture the generation programs ahead of traffic, on the states
-        the `ContinuousBatcher` decodes in (`InferCache.decode_state`): one
-        decode step over the `slots`-wide table, and one B = 1 prefill per
-        prompt bucket (each admission prefills one row). The default path
-        only: a paged pool, the prefix cache, a draft model and several
-        steps a dispatch raise NotImplementedError (ROADMAP.md queue A
-        item 8). Returns the geometry and the infer cache's stats."""
+        """Capture the generation programs a `ContinuousBatcher` of the same
+        options runs, ahead of traffic, on the states it decodes in
+        (`InferCache.decode_state`): the one-step decode over the
+        `slots`-wide table (over the page pool with `page_size` > 0), every
+        K of the ladder up to `steps_per_dispatch` (a ramp dispatches each
+        of them, K = 1 included), and one B = 1 prefill per prompt bucket
+        (`prefill_logp` under `prefix_cache`). So `fresh_compiles` stays 0
+        under traffic. Speculative decoding raises NotImplementedError
+        (ROADMAP.md queue A item 8). Returns the geometry and the infer
+        cache's stats."""
         from deeplearning4j_tpu_torch.serving.batcher import (
-            DEFAULT_SLOTS, check_generation_options)
+            decode_geometry, decode_k_ladder)
 
-        check_generation_options(page_size, n_pages, prefix_cache,
-                                 draft_net, spec_k, steps_per_dispatch)
+        geo = decode_geometry(slots, max_seq, page_size, n_pages,
+                              steps_per_dispatch, draft_net, spec_k)
         if self.params is None:
             self.init()
-        slots = DEFAULT_SLOTS if slots is None else int(slots)
+        slots, ps, k_max = geo["slots"], geo["page_size"], geo["k_max"]
         ic, dev = self.infer_cache, self.device
         zeros = torch.zeros((slots,), dtype=torch.int32, device=dev)
         keys = torch.zeros((slots, 2), dtype=torch.int64, device=dev)
         temps = torch.zeros((slots,), device=dev)
-        table = ic.decode_state(self.conf, slots, max_seq, dev, "table")
-        ic.decode(self.conf, self.params, table, zeros, zeros, keys, temps,
-                  compile_only=True)
+        ladder = decode_k_ladder(k_max) if k_max > 1 else ()
+        if ps > 0:
+            table = ic.decode_state(self.conf, slots, max_seq, dev, "pool",
+                                    pages=(geo["n_pages"] + 1, ps))
+            page_table = torch.zeros((slots, geo["pages_per_slot"]),
+                                     dtype=torch.int32, device=dev)
+            ic.decode_paged(self.conf, self.params, table, zeros, zeros,
+                            keys, temps, page_table, compile_only=True)
+            for k in ladder:
+                ic.decode_multi_paged(self.conf, self.params, table, zeros,
+                                      zeros, keys, temps, zeros, page_table,
+                                      k, compile_only=True)
+        else:
+            table = ic.decode_state(self.conf, slots, max_seq, dev, "table")
+            ic.decode(self.conf, self.params, table, zeros, zeros, keys,
+                      temps, compile_only=True)
+            for k in ladder:
+                ic.decode_multi(self.conf, self.params, table, zeros, zeros,
+                                keys, temps, zeros, k, compile_only=True)
         row = ic.decode_state(self.conf, 1, max_seq, dev, "row")
         buckets = sorted(int(b) for b in prompt_buckets)
         for tb in buckets:
             if tb > max_seq:
                 raise ValueError(f"prompt bucket {tb} exceeds "
                                  f"max_seq={max_seq}")
-            ic.prefill(self.conf, self.params, row,
-                       torch.zeros((1, tb), dtype=torch.int32, device=dev),
-                       torch.ones((1,), dtype=torch.int32, device=dev),
-                       keys[:1], temps[:1], compile_only=True)
+            prompt = torch.zeros((1, tb), dtype=torch.int32, device=dev)
+            length = torch.ones((1,), dtype=torch.int32, device=dev)
+            if prefix_cache:
+                ic.prefill_logp(self.conf, self.params, row, prompt, length,
+                                compile_only=True)
+            else:
+                ic.prefill(self.conf, self.params, row, prompt, length,
+                           keys[:1], temps[:1], compile_only=True)
         return {"slots": slots, "max_seq": int(max_seq),
-                "prompt_buckets": buckets, "page_size": 0,
-                "prefix_cache": False, "spec_k": 0, "steps_per_dispatch": 1,
+                "prompt_buckets": buckets, "page_size": ps,
+                "prefix_cache": bool(prefix_cache), "spec_k": 0,
+                "steps_per_dispatch": k_max,
                 "infer_cache": ic.stats.as_dict()}
 
     # -- inference -----------------------------------------------------------
@@ -515,12 +539,17 @@ class MultiLayerNetwork:
               drain_timeout_s: float = 10.0, breaker=None,
               generate: bool = False, gen_slots: Optional[int] = None,
               gen_max_seq: int = 64, gen_prompt_buckets=(8,),
-              gen_max_pending: int = 64):
+              gen_max_pending: int = 64,
+              gen_page_size: Optional[int] = None, gen_pages: int = 0,
+              gen_prefix_cache: bool = False,
+              gen_prefix_match: str = "exact",
+              gen_steps_per_dispatch: Optional[int] = None):
         """Start the micro-batching HTTP gateway over this network
         (`serving.ModelServer`): POST /v1/predict, GET /v1/stats, /healthz,
         /readyz, and with `generate` POST /v1/generate through a
-        `ContinuousBatcher` of `gen_slots` slots. Returns the started
-        server; `server.drain()` stops it."""
+        `ContinuousBatcher` of `gen_slots` slots (its options the `gen_*`
+        arguments). Returns the started server; `server.drain()` stops
+        it."""
         from deeplearning4j_tpu_torch.serving.server import ModelServer
 
         if self.params is None:
@@ -534,7 +563,12 @@ class MultiLayerNetwork:
                            breaker=breaker, generate=generate,
                            gen_slots=gen_slots, gen_max_seq=gen_max_seq,
                            gen_prompt_buckets=gen_prompt_buckets,
-                           gen_max_pending=gen_max_pending).start()
+                           gen_max_pending=gen_max_pending,
+                           gen_page_size=gen_page_size, gen_pages=gen_pages,
+                           gen_prefix_cache=gen_prefix_cache,
+                           gen_prefix_match=gen_prefix_match,
+                           gen_steps_per_dispatch=gen_steps_per_dispatch
+                           ).start()
 
 
 def _pair(batch):

@@ -19,7 +19,9 @@ the `CompiledProgramCache` machinery of `optimize/step_cache.py`:
   params        read by address, as the train step writes them, so
                 training between two calls is seen by the second.
 
-Generation (the JAX package's `init_decode_state`, `decode`, `prefill`):
+Generation (the JAX package's `init_decode_state`, `decode`, `prefill`,
+`init_paged_decode_state`, `decode_paged`, `decode_multi`,
+`decode_multi_paged` and `prefill_logp`):
 
   key schema    (entry point, conf fingerprint, arg signature with the
                 state's leaves, "single"), the JAX package's.
@@ -37,11 +39,20 @@ Generation (the JAX package's `init_decode_state`, `decode`, `prefill`):
                 the replay writes and leaves the carries alone (the carries
                 are written by the program's `write`, which only the
                 capture records), so capturing mid-stream changes nothing.
+  blocks        `decode_multi[k]` is K steps in one graph; its outputs are
+                device copies made under the pool's lock, so a caller may
+                feed one block's tokens and keys to the next dispatch
+                without reading them back (the batcher's pipelined loop).
+                Ids given as CUDA tensors are not checked on the host:
+                they are a program's own samples, and a check would read
+                them back.
+  paged         the page pool is a state of its own role, keyed by its
+                (n_pages, page_size); the page table is a static input.
 
-The verify, paged and multi-step decode entry points and `prefill_logp`
-are the rest of ROADMAP.md queue A item 8; the mesh and plan entry points
-come with parallelism (item 10) and the precision policies with
-serving-side optimisation (item 11).
+The verify entry points of speculative decoding are the rest of
+ROADMAP.md queue A item 8; the mesh and plan entry points come with
+parallelism (item 10) and the precision policies with serving-side
+optimisation (item 11).
 """
 
 from __future__ import annotations
@@ -88,8 +99,8 @@ class InferCache(CompiledProgramCache):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        # (fingerprint, batch, max_seq, device, role) -> the decode state
-        # the graphs of that role are captured on (`decode_state`)
+        # (fingerprint, batch, max_seq, device, role, pages) -> the decode
+        # state the graphs of that role are captured on (`decode_state`)
         self._decode_states: Dict[Tuple, tuple] = {}
         self._claimed: Set[int] = set()
 
@@ -151,37 +162,53 @@ class InferCache(CompiledProgramCache):
         return decode_mod.init_state(conf, batch, max_seq,
                                      device=resolve_device(device))
 
+    def init_paged_decode_state(self, conf, batch: int, n_pages: int,
+                                page_size: int, device=None):
+        """A fresh zero paged decode state (`nn/decode.init_paged_state`):
+        a pool of `n_pages` physical pages of `page_size` tokens."""
+        from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+        return decode_mod.init_paged_state(conf, batch, n_pages, page_size,
+                                           device=resolve_device(device))
+
     def decode_state(self, conf, batch: int, max_seq: int, device=None,
-                     role: str = "table"):
-        """The cache's own decode state for `role` (the batcher's "table"
-        and its B = 1 admission "row"; `warmup_generate` captures on the
-        same ones), made on first use and kept: the graphs read it by
-        address, so the programs warmed on it replay for its later users.
-        Its content is what the last call left; `reset_state` zeroes it."""
+                     role: str = "table", pages=None):
+        """The cache's own decode state for `role` (the batcher's "table",
+        its paged "pool" and its B = 1 admission "row"; `warmup_generate`
+        captures on the same ones), made on first use and kept: the graphs
+        read it by address, so the programs warmed on it replay for its
+        later users. `pages` = (n_pages, page_size) makes a paged state,
+        and is part of the key. Its content is what the last call left;
+        `reset_state` zeroes it."""
         dev = resolve_device(device)
         key = (self._fingerprint(conf), int(batch), int(max_seq), str(dev),
-               role)
+               role, None if pages is None else tuple(int(p) for p in pages))
         with self._lock:
             state = self._decode_states.get(key)
             if state is None:
-                state = self.init_decode_state(conf, batch, max_seq, dev)
+                state = self._fresh_state(conf, batch, max_seq, dev, pages)
                 self._decode_states[key] = state
             return state
 
+    def _fresh_state(self, conf, batch, max_seq, device, pages):
+        if pages is None:
+            return self.init_decode_state(conf, batch, max_seq, device)
+        return self.init_paged_decode_state(conf, batch, *pages, device)
+
     def claim_decode_state(self, conf, batch: int, max_seq: int,
-                           device=None, role: str = "table"):
+                           device=None, role: str = "table", pages=None):
         """`decode_state` for a user that writes it for a while (a running
         batcher): while one holds it, another claimant gets a private fresh
         state, so that two batchers on one network never write each
         other's rows. Their calls share the key's one graph, which is
         captured anew whenever the state changes: right, but slow while
         both decode. `release_state` gives it back."""
-        state = self.decode_state(conf, batch, max_seq, device, role)
+        state = self.decode_state(conf, batch, max_seq, device, role, pages)
         with self._lock:
             if id(state) not in self._claimed:
                 self._claimed.add(id(state))
                 return state
-        return self.init_decode_state(conf, batch, max_seq, device)
+        return self._fresh_state(conf, batch, max_seq, device, pages)
 
     def release_state(self, state) -> None:
         with self._lock:
@@ -196,15 +223,20 @@ class InferCache(CompiledProgramCache):
 
     def _decode_inputs(self, conf, params, state, tok, *rest):
         """The call's tensors on the program's device: `tok` (or the prompt)
-        int32, then the others; keys as int64 holding uint32. Token ids of
-        an embedding stack are checked on the host first (a captured
-        program cannot). Host arrays go to the card from pinned memory
-        without blocking, so that a call does not wait for the previous
-        replay to end before it is queued."""
+        as int32, then each of `rest`, an (array, dtype) pair; keys given as
+        uint32 arrays become int64 holding uint32. Token ids of an embedding
+        stack that come from the host are checked there first (a captured
+        program cannot); ids in a CUDA tensor are a program's own samples,
+        in range by construction, and checking them would read them back.
+        Host arrays go to the card from pinned memory without blocking, so
+        that a call does not wait for the previous replay to end before it
+        is queued; `pin_memory` copies them first, so the caller may rewrite
+        its arrays as soon as the call returns."""
         leaves = tree_leaves(state) or tree_leaves(params)
         dev = leaves[0].device
-        check_input(conf, tok if isinstance(tok, torch.Tensor)
-                    else torch.as_tensor(np.asarray(tok)))
+        if not (isinstance(tok, torch.Tensor) and tok.is_cuda):
+            check_input(conf, tok if isinstance(tok, torch.Tensor)
+                        else torch.as_tensor(np.asarray(tok)))
 
         def put(t):
             if dev.type == "cuda" and not t.is_cuda:
@@ -213,11 +245,24 @@ class InferCache(CompiledProgramCache):
 
         out = [put(torch.as_tensor(np.asarray(tok) if not isinstance(
             tok, torch.Tensor) else tok).to(torch.int32))]
-        for a in rest:
+        for a, dtype in rest:
             if isinstance(a, np.ndarray) and a.dtype == np.uint32:
                 a = nd_random.key_array(a)
-            out.append(put(torch.as_tensor(a)))
-        return out
+            out.append(put(torch.as_tensor(a)).to(dtype))
+        return tuple(out)
+
+    def _generation(self, entry, build, conf, params, state, read,
+                    compile_only, tok, *rest):
+        """One generation program's call: its inputs on the device
+        (`_decode_inputs`), its key (entry, conf fingerprint, the signature
+        of the inputs and the state's leaves, "single"), and `_run` with the
+        new carries written into `state`. Returns `read` of the outputs, or
+        None with `compile_only`."""
+        args = self._decode_inputs(conf, params, state, tok, *rest)
+        key = (entry, self._fingerprint(conf),
+               arg_signature(*args, *tree_leaves(state)), self.SINGLE)
+        return self._run(key, build, (params, state), args, read=read,
+                         write=_write_carries, compile_only=compile_only)
 
     def decode(self, conf, params, state, tok, pos, keys, temps,
                compile_only: bool = False):
@@ -226,16 +271,10 @@ class InferCache(CompiledProgramCache):
         decode greedily). Returns (next_tok [B] int32, advanced keys [B, 2]
         int64, state), the state written in place. On CUDA the replay of one
         captured graph per key; on the CPU the program, eagerly."""
-        tok, pos, keys, temps = self._decode_inputs(
-            conf, params, state, tok, pos, keys, temps)
-        pos, keys, temps = (pos.to(torch.int32), keys.to(torch.int64),
-                            temps.to(torch.float32))
-        key = ("decode", self._fingerprint(conf),
-               arg_signature(tok, pos, keys, temps, *tree_leaves(state)),
-               self.SINGLE)
-        out = self._run(key, lambda: _decode_program(conf), (params, state),
-                        (tok, pos, keys, temps), read=_read_tokens,
-                        write=_write_carries, compile_only=compile_only)
+        out = self._generation(
+            "decode", lambda: _decode_program(conf), conf, params, state,
+            _read_tokens, compile_only, tok, (pos, torch.int32),
+            (keys, torch.int64), (temps, torch.float32))
         return None if compile_only else (*out, state)
 
     def prefill(self, conf, params, state, prompt, length, keys, temps,
@@ -245,17 +284,63 @@ class InferCache(CompiledProgramCache):
         generated token. Returns (tok [B] int32, keys [B, 2], state). One
         program per (conf, rows, prompt bucket, max_seq): the state's leaves
         are in the key."""
-        prompt, length, keys, temps = self._decode_inputs(
-            conf, params, state, prompt, length, keys, temps)
-        length, keys, temps = (length.to(torch.int32), keys.to(torch.int64),
-                               temps.to(torch.float32))
-        key = ("prefill", self._fingerprint(conf),
-               arg_signature(prompt, length, keys, temps,
-                             *tree_leaves(state)), self.SINGLE)
-        out = self._run(key, lambda: _prefill_program(conf), (params, state),
-                        (prompt, length, keys, temps), read=_read_tokens,
-                        write=_write_carries, compile_only=compile_only)
+        out = self._generation(
+            "prefill", lambda: _prefill_program(conf), conf, params, state,
+            _read_tokens, compile_only, prompt, (length, torch.int32),
+            (keys, torch.int64), (temps, torch.float32))
         return None if compile_only else (*out, state)
+
+    def decode_paged(self, conf, params, state, tok, pos, keys, temps,
+                     page_table, compile_only: bool = False):
+        """`decode` over a paged state: page_table [B, pages_per_slot] int
+        routes each row through the shared pool ("decode-paged")."""
+        out = self._generation(
+            "decode-paged", lambda: _decode_program(conf, paged=True), conf,
+            params, state, _read_tokens, compile_only, tok,
+            (pos, torch.int32), (keys, torch.int64), (temps, torch.float32),
+            (page_table, torch.int32))
+        return None if compile_only else (*out, state)
+
+    def decode_multi(self, conf, params, state, tok, pos, keys, temps, rem,
+                     k: int, compile_only: bool = False):
+        """K decode steps in one program (`nn/decode.decode_block`), the
+        tokens of K one-step calls: rem [B] int is each row's remaining
+        budget; a row that spends it mid-block freezes and emits
+        `BLOCK_SENTINEL`. Returns (toks [k, B] int32, the last token of each
+        row [B], keys [B, 2], state), the three tensors device copies. K is
+        in the entry name ("decode-multi[k]"), as in the JAX package."""
+        out = self._generation(
+            "decode-multi[%d]" % int(k),
+            lambda: _decode_block_program(conf, int(k), False), conf, params,
+            state, _read_block, compile_only, tok, (pos, torch.int32),
+            (keys, torch.int64), (temps, torch.float32), (rem, torch.int32))
+        return None if compile_only else (*out, state)
+
+    def decode_multi_paged(self, conf, params, state, tok, pos, keys, temps,
+                           rem, page_table, k: int,
+                           compile_only: bool = False):
+        """`decode_multi` over a paged state ("decode-multi-paged[k]"): the
+        page table rides the whole block, so the caller allocates the pages
+        of all `k` positions first."""
+        out = self._generation(
+            "decode-multi-paged[%d]" % int(k),
+            lambda: _decode_block_program(conf, int(k), True), conf, params,
+            state, _read_block, compile_only, tok, (pos, torch.int32),
+            (keys, torch.int64), (temps, torch.float32), (rem, torch.int32),
+            (page_table, torch.int32))
+        return None if compile_only else (*out, state)
+
+    def prefill_logp(self, conf, params, state, prompt, length,
+                     compile_only: bool = False):
+        """The prefill of the prefix cache: fills the state like `prefill`
+        but returns (logp [B, vocab] float32, state) without sampling
+        ("prefill-logp"); the batcher keeps the pair by prompt digest and
+        samples each stream's first token on the host with its own key."""
+        logp = self._generation(
+            "prefill-logp", lambda: _prefill_logp_program(conf), conf, params,
+            state, lambda out: out[0].clone(), compile_only, prompt,
+            (length, torch.int32))
+        return None if compile_only else (logp, state)
 
     def loss(self, conf, params, x, y, compile_only: bool = False):
         """`network_loss(training=False)` through the cache: the row-weighted
@@ -312,29 +397,70 @@ def _read_tokens(out):
     return out[0].clone(), out[1].clone()
 
 
+def _read_block(out):
+    """Copies of a block program's (toks, tok, keys), made under the pool's
+    lock."""
+    return tuple(t.clone() for t in out)
+
+
 def _write_carries(ps, out):
-    """After a generation program: copy its new LSTM carries into the state
-    it was given (the attention caches were written in place), and hand on
-    (tok, keys)."""
+    """After a generation program: copy its new LSTM carries (its last
+    output) into the state it was given (the attention caches were written
+    in place), and hand on the other outputs."""
     state = ps[1]
-    tok, keys, new = out
+    *rest, new = out
     with torch.no_grad():
         for layer, new_layer in zip(state, new):
             for name, t in new_layer.items():
                 if t is not layer[name]:
                     layer[name].copy_(t)
-    return tok, keys
+    return tuple(rest)
 
 
-def _decode_program(conf) -> Callable:
+def _decode_program(conf, paged: bool = False) -> Callable:
     from deeplearning4j_tpu_torch.nn import decode as decode_mod
 
-    def program(ps, tok, pos, keys, temps):
+    def program(ps, tok, pos, keys, temps, *page_table):
         params, state = ps
         with torch.inference_mode():
-            logp, new = decode_mod.decode_step(conf, params, state, tok, pos)
+            if paged:
+                logp, new = decode_mod.decode_step_paged(
+                    conf, params, state, tok, pos, *page_table)
+            else:
+                logp, new = decode_mod.decode_step(conf, params, state, tok,
+                                                   pos)
             tok2, keys2 = nd_random.sample_tokens(logp.float(), keys, temps)
         return tok2, keys2, new
+
+    return program
+
+
+def _sample_f32(logp, keys, temps):
+    return nd_random.sample_tokens(logp.float(), keys, temps)
+
+
+def _decode_block_program(conf, k: int, paged: bool) -> Callable:
+    from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+    def program(ps, tok, pos, keys, temps, rem, *page_table):
+        params, state = ps
+        with torch.inference_mode():
+            return decode_mod.decode_block(
+                conf, params, state, tok, pos, keys, temps, rem, k,
+                _sample_f32, page_table=page_table[0] if paged else None)
+
+    return program
+
+
+def _prefill_logp_program(conf) -> Callable:
+    from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+    def program(ps, prompt, length):
+        params, state = ps
+        with torch.inference_mode():
+            logp, new = decode_mod.prefill(conf, params, state, prompt,
+                                           length)
+        return logp.float(), new
 
     return program
 

@@ -27,21 +27,24 @@ the primary one.
 
 `ContinuousBatcher` runs autoregressive generation over a fixed table of
 decode slots (Orca-style continuous batching): each table step is one
-`InferCache.decode` over every slot (on CUDA, one graph replay), a stream
-that finishes frees its slot, and the next queued stream is admitted into
-it by a B = 1 prefill on the very next step. The default path only (the
-JAX package's `decode.slots` 4, `decode.page_size` 0,
-`decode.steps_per_dispatch` 1): a paged pool, the prefix cache,
-speculative decoding and several steps a dispatch raise
-NotImplementedError naming ROADMAP.md queue A item 8.
+decode call over every slot (on CUDA, one graph replay), a stream that
+finishes frees its slot, and the next queued stream is admitted into it by
+a B = 1 prefill on the very next step. Its options are the JAX package's:
+several steps a dispatch, pipelined (`steps_per_dispatch`), a paged KV pool
+(`page_size`, `n_pages`) and the prefix cache (`prefix_cache`,
+`prefix_match`), each off by default (`DEFAULT_SLOTS`, `DEFAULT_PAGE_SIZE`,
+`DEFAULT_STEPS_PER_DISPATCH`: the JAX package's registry defaults).
+Speculative decoding raises NotImplementedError naming ROADMAP.md queue A
+item 8.
 """
 
 from __future__ import annotations
 
+import hashlib
 import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -72,8 +75,8 @@ DEFAULT_SLOTS = 4
 LATENCY_BUCKETS_S = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
                      0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
 
-#: histogram bounds of decode steps a dispatch (always 1 here: several
-#: steps a dispatch are not ported)
+#: histogram bounds of decode steps a dispatch (K of a block), the JAX
+#: package's
 DECODE_BLOCK_STEPS_BOUNDS = (1, 2, 4, 8, 16)
 
 
@@ -383,32 +386,173 @@ class MicroBatcher:
 
 # -- continuous batching for autoregressive generation ----------------------
 
+#: decode steps a dispatch and KV page size when the caller gives none (the
+#: JAX package's `decode.steps_per_dispatch` and `decode.page_size` registry
+#: defaults; not yet measured on a GPU)
+DEFAULT_STEPS_PER_DISPATCH = 1
+DEFAULT_PAGE_SIZE = 0
+
+#: prefix-cache entries kept in memory by a batcher (LRU), the JAX package's
+PREFIX_CACHE_ENTRIES = 32
+
 _UNPORTED = "is not ported to deeplearning4j_tpu_torch yet; see ROADMAP.md " \
             "queue A item 8"
 
 
-def check_generation_options(page_size=None, n_pages=0, prefix_cache=False,
-                             draft_net=None, spec_k=0,
-                             steps_per_dispatch=None) -> None:
-    """Raise NotImplementedError for a generation option off the default
-    path (each names its part of ROADMAP.md queue A item 8); nothing falls
-    back to the default path in its place."""
-    if (page_size or 0) > 0 or n_pages:
-        raise NotImplementedError(f"paged KV decoding (page_size > 0) "
-                                  f"{_UNPORTED} (paged decode)")
-    if prefix_cache:
-        raise NotImplementedError(f"the prefix cache {_UNPORTED} "
-                                  f"(prefill_logp and the prefix cache)")
+def check_generation_options(draft_net=None, spec_k=0) -> None:
+    """Raise NotImplementedError for speculative decoding (a draft model,
+    `spec_k`), the part of ROADMAP.md queue A item 8 not ported; nothing
+    falls back to another path in its place."""
     if draft_net is not None or spec_k:
         raise NotImplementedError(f"speculative decoding (draft_net, "
                                   f"spec_k) {_UNPORTED} (verify_chunk)")
-    if steps_per_dispatch is not None and int(steps_per_dispatch) != 1:
-        if int(steps_per_dispatch) < 1:
-            raise ValueError(f"steps_per_dispatch must be >= 1, got "
-                             f"{steps_per_dispatch}")
-        raise NotImplementedError(f"several decode steps a dispatch "
-                                  f"(steps_per_dispatch > 1) {_UNPORTED} "
-                                  f"(decode_block)")
+
+
+def decode_k_ladder(k_max: int) -> Tuple[int, ...]:
+    """The block sizes the batcher's adaptive K may dispatch under a ceiling
+    of `k_max`: every power of two below it, then `k_max` (the JAX
+    package's `optimize/tunables.decode_k_ladder`). `warmup_generate`
+    captures exactly this ladder."""
+    k_max = max(1, int(k_max))
+    ladder, v = [], 1
+    while v < k_max:
+        ladder.append(v)
+        v *= 2
+    ladder.append(k_max)
+    return tuple(ladder)
+
+
+def decode_geometry(n_slots=None, max_seq: int = 64, page_size=None,
+                    n_pages: int = 0, steps_per_dispatch=None,
+                    draft_net=None, spec_k: int = 0) -> dict:
+    """The decode table a `ContinuousBatcher` runs and `warmup_generate`
+    captures, from the caller's options and the defaults: slots, page size,
+    pages a slot and usable pages (0 and 0 for the dense table; the pool
+    holds one more, the scratch page 0), and the largest K a dispatch.
+    Refuses the options not ported and a K below 1."""
+    check_generation_options(draft_net, spec_k)
+    slots = DEFAULT_SLOTS if n_slots is None else int(n_slots)
+    ps = DEFAULT_PAGE_SIZE if page_size is None else int(page_size)
+    k_max = (DEFAULT_STEPS_PER_DISPATCH if steps_per_dispatch is None
+             else int(steps_per_dispatch))
+    if k_max < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1, got {k_max}")
+    per_slot = -(-int(max_seq) // ps) if ps > 0 else 0
+    return {"slots": slots, "page_size": max(ps, 0),
+            "pages_per_slot": per_slot,
+            "n_pages": (int(n_pages) or slots * per_slot) if ps > 0 else 0,
+            "k_max": k_max}
+
+
+class PagesExhausted(RuntimeError):
+    """The KV page pool has no free page for the request. At admission the
+    stream waits in the queue (pages free as streams finish); past
+    admission (an overcommitted pool) the one stream that could not grow is
+    preempted, never the table."""
+
+
+class _PagePool:
+    """The host's free list over the physical K/V page pool. Page 0 is the
+    scratch page: every released slot's table row points there, so what
+    inactive rows write lands behind the mask and in no one's context.
+    Usable pages are 1..n_pages; `alloc` passes the `decode.page_alloc`
+    fault point (an armed raise fails the one stream being grown) and
+    raises `PagesExhausted` past the free list."""
+
+    def __init__(self, n_pages: int):
+        self.n_pages = int(n_pages)
+        # pop() hands out ascending ids: 1, 2, ...
+        self._free = list(range(self.n_pages, 0, -1))
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def live_count(self) -> int:
+        return self.n_pages - len(self._free)
+
+    def alloc(self, n: int, **ctx) -> List[int]:
+        faults.fire("decode.page_alloc", requested=n,
+                    free=len(self._free), **ctx)
+        if n > len(self._free):
+            raise PagesExhausted(
+                f"{n} KV pages requested, {len(self._free)} free "
+                f"(pool={self.n_pages})")
+        return [self._free.pop() for _ in range(n)]
+
+    def free(self, pages) -> None:
+        for p in pages:
+            if int(p):
+                self._free.append(int(p))
+
+
+def _host_sample(logp, key, temperature: float):
+    """One row of the programs' sampler on the host (`nd/random.py` on CPU
+    tensors): split the stream's key once, argmax at temperature <= 0, else
+    `categorical(sub, logp / temperature)`. So one cached prefill logp
+    serves streams of any key and temperature. Returns (token, the advanced
+    key as uint32 [2]). The keys are the device sampler's bit for bit; a
+    draw can differ only where the Gumbel's `log` rounds otherwise on the
+    card and two candidates tie to that last place."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nd import random as nd_random
+
+    ks = nd_random.split(nd_random.key_array(key))
+    new_key, sub = ks[0], ks[1]
+    logp = torch.as_tensor(np.asarray(logp, np.float32))
+    if temperature > 0:
+        tok = int(nd_random.categorical(
+            sub, logp / torch.tensor(np.float32(temperature))))
+    else:
+        tok = int(torch.argmax(logp))
+    return tok, new_key.numpy().astype(np.uint32)
+
+
+def _host_copy(t):
+    """A host copy of a state tensor, pinned when it comes from the card
+    (a prefix-cache hit copies it back without blocking)."""
+    import torch
+
+    if not t.is_cuda:
+        return t.clone()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t)
+
+
+class _BlockRead:
+    """One block's (toks, last tok, keys) on their way to the host: one
+    device concatenation and one copy into pinned memory, both enqueued
+    without blocking, and an event after them; `wait` blocks on that event
+    only. So the host can dispatch the next block before it reads this
+    one."""
+
+    def __init__(self, toks, tok, keys):
+        import torch
+
+        self.k, self.b = (int(d) for d in toks.shape)
+        flat = torch.cat([toks.long().reshape(-1), tok.long(),
+                          keys.reshape(-1)])
+        self._event = None
+        if flat.is_cuda:
+            host = torch.empty(flat.shape, dtype=flat.dtype,
+                               pin_memory=True)
+            self._flat = host.copy_(flat, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._flat = flat
+
+    def wait(self):
+        """(toks [k, B] int32, tok [B] int32, keys [B, 2] uint32)."""
+        if self._event is not None:
+            self._event.synchronize()
+        a = self._flat.numpy()
+        kb = self.k * self.b
+        return (a[:kb].reshape(self.k, self.b).astype(np.int32),
+                a[kb:kb + self.b].astype(np.int32),
+                a[kb + self.b:].reshape(self.b, 2).astype(np.uint32))
 
 
 class GenerationStream:
@@ -429,6 +573,9 @@ class GenerationStream:
         self.key = np.asarray([0, int(rng_seed) & 0xFFFFFFFF], np.uint32)
         self.error: Optional[BaseException] = None
         self.tokens_emitted = 0
+        #: tokens to swallow when the stream is admitted again after a
+        #: page-pool preemption (the recompute derives them anew)
+        self._replay = 0
         self._counted_admit = False
         self.t_submit = time.monotonic()
         self.t_first: Optional[float] = None
@@ -436,11 +583,22 @@ class GenerationStream:
         self._q: "queue.Queue" = queue.Queue()
 
     # decode-loop side ------------------------------------------------------
-    def _deliver(self, tok: int, now: float) -> None:
+    def _emit(self, tok: int, now: float) -> None:
         if self.t_first is None:
             self.t_first = now
         self.tokens_emitted += 1
         self._q.put(int(tok))
+
+    def _deliver(self, tok: int, now: float) -> bool:
+        """Emit `tok`, unless it replays a token delivered before a
+        page-pool preemption: decoding is deterministic given the prompt and
+        the key, so the recompute derives the prefix the consumer already
+        has, and those tokens are swallowed. True when emitted."""
+        if self._replay > 0:
+            self._replay -= 1
+            return False
+        self._emit(tok, now)
+        return True
 
     def _finish(self, error: Optional[BaseException] = None) -> None:
         self.error = error
@@ -486,50 +644,80 @@ def _new_hist(bounds) -> dict:
     return {"counts": [0] * len(bounds), "inf": 0, "sum": 0.0, "count": 0}
 
 
+def _hist_out(h: dict, bounds) -> dict:
+    return {"bounds": list(bounds), "counts": list(h["counts"]),
+            "inf": h["inf"], "sum": h["sum"], "count": h["count"]}
+
+
 class ContinuousBatcher:
     """A fixed-width table of decode slots with admission every step
     (continuous batching).
 
-    Every table step is ONE `InferCache.decode` call over all `n_slots`
-    rows; a stream that finishes frees its slot, and the next queued stream
-    is admitted into it (a B = 1 prefill that also draws its first token,
-    then its row copied into the table) before the next step, instead of
-    waiting for its longest neighbour. `continuous=False` admits only when
-    EVERY slot is free, so each wave waits for its longest stream.
+    Every table step is ONE decode call over all `n_slots` rows; a stream
+    that finishes frees its slot, and the next queued stream is admitted
+    into it (a B = 1 prefill that also draws its first token, then its row
+    copied into the table) before the next step, instead of waiting for its
+    longest neighbour. `continuous=False` admits only when EVERY slot is
+    free, so each wave waits for its longest stream.
 
     Rows are independent (each slot has its own K/V rows, LSTM carries and
-    key), so packing never changes a stream's tokens. The table and the
-    admission row are the infer cache's own states (`decode_state`), the
-    ones `MultiLayerNetwork.warmup_generate` captures on. A fault at the
-    `decode.step` point ends that slot's stream only, one at
-    `generate.admit` the admitted stream only; a failed decode call (a
-    capture that raises included) ends every stream it was decoding, and
-    nothing falls back to another path.
+    key), so packing never changes a stream's tokens. The table (or page
+    pool) and the admission row are the infer cache's own states
+    (`decode_state`), the ones `MultiLayerNetwork.warmup_generate` captures
+    on. Three options, off by default, each token-identical to the plain
+    path, as in the JAX package:
 
-    The JAX package's paged pool, prefix cache, speculative decoding and
-    several steps a dispatch are not ported: those arguments raise
-    NotImplementedError (ROADMAP.md queue A item 8)."""
+    steps_per_dispatch > 1  K steps a dispatch (`InferCache.decode_multi`):
+                    while the slot set is stable the loop dispatches block
+                    N + 1 from block N's device outputs before it reads
+                    block N back, so the host's work of a block overlaps the
+                    card's. K ramps 1, 2, 4, ... up to the ceiling, and
+                    pins to 1 while admissions wait or prompt tokens are
+                    fed; any admission, release or preemption restarts the
+                    ramp.
+    page_size > 0   paged KV: a shared pool of `n_pages` pages and a page
+                    table a slot; memory scales with live tokens, and a pool
+                    smaller than slots x pages a slot overcommits: an
+                    admission that finds no page waits in the queue, and a
+                    stream that cannot grow is preempted, queued first and
+                    recomputed, its delivered tokens swallowed.
+    prefix_cache    the prefill by prompt digest: a repeated prompt copies
+                    the cached row (a host copy) and draws its first token
+                    on the host from the cached logp with its own key;
+                    `prefix_match="longest"` also reuses the longest cached
+                    strict prefix and feeds the rest of the prompt through
+                    the decode table.
+
+    A fault at the `decode.step` point ends that slot's stream only (inside
+    a block it fires for every scheduled position), one at
+    `generate.admit` the admitted stream only, one at `decode.page_alloc`
+    the stream being grown, and one at `generate.prefix_lookup` gives a
+    counted miss and a cold prefill. A failed decode call (a capture that
+    raises included) ends every stream it was decoding, and nothing falls
+    back to another path. Speculative decoding raises NotImplementedError
+    (ROADMAP.md queue A item 8)."""
 
     def __init__(self, net, n_slots: Optional[int] = None, max_seq: int = 64,
                  prompt_buckets: Tuple[int, ...] = (8,),
                  max_pending: int = 64, continuous: bool = True,
                  auto_start: bool = True, page_size: Optional[int] = None,
                  n_pages: int = 0, prefix_cache: bool = False,
-                 draft_net=None, spec_k: int = 0,
+                 prefix_match: str = "exact", draft_net=None,
+                 spec_k: int = 0,
                  steps_per_dispatch: Optional[int] = None):
         from deeplearning4j_tpu_torch.nn import decode as decode_mod
 
-        check_generation_options(page_size, n_pages, prefix_cache,
-                                 draft_net, spec_k, steps_per_dispatch)
+        geo = decode_geometry(n_slots, max_seq, page_size, n_pages,
+                              steps_per_dispatch, draft_net, spec_k)
         self.net = net
-        self.n_slots = DEFAULT_SLOTS if n_slots is None else int(n_slots)
+        self.n_slots = geo["slots"]
         self.max_seq = int(max_seq)
         self.prompt_buckets = tuple(sorted(
             int(b) for b in prompt_buckets if int(b) <= self.max_seq))
         self.max_pending = int(max_pending)
         self.continuous = bool(continuous)
         self._auto_start = auto_start
-        decode_mod.check_generative(net.conf)
+        self._layer_types = decode_mod.check_generative(net.conf)
         # a learned positional table is gathered at P[pos] with no bound
         # check on the device, so the table edge (`submit` clamps max_new
         # to max_seq - n) must lie within it
@@ -539,24 +727,59 @@ class ContinuousBatcher:
                 f"max_seq={self.max_seq} exceeds the learned positional "
                 f"table (max_seq_len={bound}); decoding past it would read "
                 f"P[pos] out of range")
+        # -- paged KV (page 0 is the scratch page) --------------------------
+        self.page_size = geo["page_size"]
+        self.paged = self.page_size > 0
+        self.pages_per_slot = geo["pages_per_slot"]
+        self.n_pages = geo["n_pages"]
+        self._pool: Optional[_PagePool] = None
+        self._page_table = None
+        if self.paged:
+            if self.n_pages < self.pages_per_slot:
+                raise ValueError(
+                    f"n_pages={self.n_pages} cannot hold even one "
+                    f"max_seq={self.max_seq} stream "
+                    f"({self.pages_per_slot} pages of {self.page_size})")
+            self._pool = _PagePool(self.n_pages)
+            self._page_table = np.zeros(
+                (self.n_slots, self.pages_per_slot), np.int32)
+        # -- prefix cache ----------------------------------------------------
+        self.prefix_cache_enabled = bool(prefix_cache)
+        if prefix_match not in ("exact", "longest"):
+            raise ValueError(f"prefix_match must be 'exact' or 'longest', "
+                             f"got {prefix_match!r}")
+        self.prefix_match = prefix_match
+        self._prefix_lru: "OrderedDict[str, tuple]" = OrderedDict()
+        self._prefix_hits = 0
+        self._prefix_misses = 0
+        # -- K steps a dispatch ----------------------------------------------
+        self.k_max = geo["k_max"]
+        self._k_ladder = decode_k_ladder(self.k_max)
+        # the adaptive K (decode-loop thread only): doubles a stable block
+        # up the ladder, back to 1 on an admission, release or preemption
+        self._ramp = 1
         self._cv = threading.Condition()
         self._pending: Deque[GenerationStream] = deque()
         self._stop = False
         self._thread: Optional[threading.Thread] = None
         # -- slot table (decode-loop thread only) --------------------------
-        self._state = None                 # [n_slots] rows, on the device
+        self._state = None                 # [n_slots] rows (or the pool)
         self._row = None                   # the B = 1 admission row
         self._slots: List[Optional[GenerationStream]] = [None] * self.n_slots
         self._tok = np.zeros((self.n_slots,), np.int32)
         self._pos = np.zeros((self.n_slots,), np.int32)
         self._keys = np.zeros((self.n_slots, 2), np.uint32)
         self._temps = np.zeros((self.n_slots,), np.float32)
+        # prompt tokens still to feed through a slot admitted on a longest
+        # prefix match (empty with the option off)
+        self._feed: List[List[int]] = [[] for _ in range(self.n_slots)]
         # -- stats (under _cv's lock) --------------------------------------
         self._t_start = time.monotonic()
         self._tokens_total = 0
         self._admitted = 0
         self._completed = 0
         self._failed = 0
+        self._preempted = 0
         self._active = 0
         self._recent_tokens: Deque[Tuple[float, int]] = deque()
         self._ttfts: Deque[float] = deque(maxlen=4096)
@@ -575,9 +798,14 @@ class ContinuousBatcher:
             self._stop = False
             if self._state is None:
                 ic, net = self.net.infer_cache, self.net
-                self._state = ic.claim_decode_state(
-                    net.conf, self.n_slots, self.max_seq, net.device,
-                    "table")
+                if self.paged:
+                    self._state = ic.claim_decode_state(
+                        net.conf, self.n_slots, self.max_seq, net.device,
+                        "pool", pages=(self.n_pages + 1, self.page_size))
+                else:
+                    self._state = ic.claim_decode_state(
+                        net.conf, self.n_slots, self.max_seq, net.device,
+                        "table")
                 self._row = ic.claim_decode_state(
                     net.conf, 1, self.max_seq, net.device, "row")
                 ic.reset_state(self._state)
@@ -645,7 +873,7 @@ class ContinuousBatcher:
         stream = self.submit(prompt, max_new_tokens, temperature, rng_seed)
         return list(stream.tokens(timeout=timeout))
 
-    # -- decode loop (one thread) -------------------------------------------
+    # -- admission (decode-loop thread) --------------------------------------
     def _prompt_bucket(self, n: int) -> int:
         for b in self.prompt_buckets:
             if b >= n:
@@ -658,60 +886,204 @@ class ContinuousBatcher:
     def _admit_one(self, slot: int, stream: GenerationStream) -> None:
         """Prefill `stream` into `slot`: one B = 1 prefill fills the zeroed
         admission row and draws the stream's first token (its time to first
-        token), then the row is copied into the slot."""
+        token), then the row is copied into the slot (into freshly
+        allocated pages when paged).
+
+        A prefix-cache hit skips the prefill: the cached row is copied in,
+        and either (exact) the first token is drawn on the host from the
+        cached logp with the stream's own key, or (longest) the unmatched
+        prompt tokens are queued to feed through the decode table. Either
+        way the tokens are a cold prefill's."""
         ic, net = self.net.infer_cache, self.net
         faults.fire("generate.admit", slot=slot,
                     prompt_tokens=int(stream.prompt.shape[0]))
         n = int(stream.prompt.shape[0])
-        prompt = np.zeros((1, self._prompt_bucket(n)), np.int32)
-        prompt[0, :n] = stream.prompt
-        ic.reset_state(self._row)
-        t0, keys1, row = ic.prefill(
-            net.conf, net.params, self._row, prompt,
-            np.asarray([n], np.int32), stream.key[None],
-            np.asarray([stream.temperature], np.float32))
-        tok0 = int(t0[0])
-        key1 = keys1[0].cpu().numpy().astype(np.uint32)
-        self._scatter_row(slot, row)
+        hit = (self._prefix_lookup(stream.prompt)
+               if self.prefix_cache_enabled else None)
+        m = n if hit is None else hit[0]
+        pages = None
+        if self.paged:
+            # before any device work: a dry pool queues the stream without
+            # a wasted prefill
+            pages = self._pool.alloc(-(-m // self.page_size), slot=slot)
+        try:
+            tok0, key1, row = self._first_token(stream, hit)
+            self._scatter_row(slot, row, pages)
+        except BaseException:
+            if pages:
+                self._pool.free(pages)
+            raise
         self._slots[slot] = stream
         self._temps[slot] = stream.temperature
-        self._tok[slot] = tok0
-        self._pos[slot] = n
-        self._keys[slot] = key1
+        self._ramp = 1
         now = time.monotonic()
-        stream._deliver(tok0, now)
+        delivered = False
+        if tok0 is not None:
+            self._tok[slot] = tok0
+            self._pos[slot] = n
+            self._keys[slot] = key1
+            delivered = stream._deliver(tok0, now)
+        else:
+            # longest match: the next steps consume the unmatched prompt
+            # tokens, and the key stays unsplit until the step that
+            # consumes the last of them draws the first real token
+            self._tok[slot] = int(stream.prompt[m])
+            self._pos[slot] = m
+            self._keys[slot] = stream.key
+            self._feed[slot] = [int(x) for x in stream.prompt[m + 1:]]
         with self._cv:
             if not stream._counted_admit:
                 stream._counted_admit = True
                 self._admitted += 1
             self._active += 1
-            self._tokens_total += 1
-            self._recent_tokens.append((now, 1))
-            self._record_ttft_locked(stream)
-        if stream.tokens_emitted >= stream.max_new:
+            if delivered:
+                self._tokens_total += 1
+                self._recent_tokens.append((now, 1))
+                self._record_ttft_locked(stream)
+        if tok0 is not None and stream.tokens_emitted >= stream.max_new:
             self._release_slot(slot, stream)
+
+    def _first_token(self, stream: GenerationStream, hit):
+        """(first token, its advanced key, the row state) of an admission:
+        a prefill of the zeroed admission row (`prefill_logp` and a host
+        draw with the prefix cache, stored; else `prefill`, which draws on
+        the device), or a prefix hit's row (the token None on a longest
+        match)."""
+        if hit is not None:
+            if hit[1] is None:
+                return None, None, hit[2]
+            return (*_host_sample(hit[1], stream.key, stream.temperature),
+                    hit[2])
+        ic, net = self.net.infer_cache, self.net
+        n = int(stream.prompt.shape[0])
+        prompt = np.zeros((1, self._prompt_bucket(n)), np.int32)
+        prompt[0, :n] = stream.prompt
+        length = np.asarray([n], np.int32)
+        ic.reset_state(self._row)
+        if self.prefix_cache_enabled:
+            logp, row = ic.prefill_logp(net.conf, net.params, self._row,
+                                        prompt, length)
+            logp = logp[0].cpu().numpy()
+            self._prefix_store(stream.prompt, logp, row)
+            return (*_host_sample(logp, stream.key, stream.temperature),
+                    row)
+        t0, keys1, row = ic.prefill(
+            net.conf, net.params, self._row, prompt, length,
+            stream.key[None], np.asarray([stream.temperature], np.float32))
+        return (int(t0[0]), keys1[0].cpu().numpy().astype(np.uint32), row)
 
     def _record_ttft_locked(self, stream: GenerationStream) -> None:
         """Books of a stream's first token (the caller holds `_cv`)."""
         self._ttfts.append(stream.ttft_s)
         _hist_add(self._ttft_hist, LATENCY_BUCKETS_S, stream.ttft_s)
 
-    def _scatter_row(self, slot: int, row) -> None:
-        """Copy a B = 1 row state into the table's row `slot`, tensor by
-        tensor, on the device."""
+    def _scatter_row(self, slot: int, row, pages: Optional[List[int]]):
+        """Copy a B = 1 row state (on the device, or a prefix entry's host
+        copy) into the table's row `slot`, tensor by tensor; paged, the
+        row's dense K/V go into the freshly allocated pages, a page at a
+        time only where the last page runs past the row."""
         import torch
 
-        from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
-
         with torch.no_grad():
-            for tbl, r in zip(tree_leaves(self._state), tree_leaves(row)):
-                tbl[slot].copy_(r[0])
+            for lay, r in zip(self._state, row):
+                for name, tbl in lay.items():
+                    src = r[name][0]
+                    if not self.paged or name in ("h", "c"):
+                        tbl[slot].copy_(src, non_blocking=True)
+                        continue
+                    ps = self.page_size
+                    n_rows = min(len(pages) * ps, src.shape[0])
+                    full = n_rows // ps
+                    src = src.to(tbl.device, non_blocking=True)
+                    if full:
+                        idx = torch.as_tensor(pages[:full],
+                                              device=tbl.device)
+                        tbl.index_copy_(0, idx, src[:full * ps].view(
+                            full, ps, -1))
+                    if n_rows > full * ps:
+                        tbl[pages[full], :n_rows - full * ps].copy_(
+                            src[full * ps:n_rows])
+        if self.paged:
+            self._page_table[slot, :] = 0
+            self._page_table[slot, :len(pages)] = pages
+
+    # -- prefix cache -------------------------------------------------------
+    def _prefix_digest(self, prompt: np.ndarray) -> str:
+        """The key of a prompt's prefill: its tokens, the conf fingerprint,
+        max_seq (the row's shape) and the serving policy ("f32"), the
+        dimensions that key the prefill program itself."""
+        ic = self.net.infer_cache
+        h = hashlib.sha256()
+        h.update(ic._fingerprint(self.net.conf).encode())
+        h.update(repr((self.max_seq, "f32")).encode())
+        h.update(np.ascontiguousarray(prompt, np.int32).tobytes())
+        return h.hexdigest()
+
+    def _prefix_store(self, prompt: np.ndarray, logp: np.ndarray,
+                      row) -> None:
+        """Keep a cold prefill: (the prompt, the logp at its last position,
+        a host copy of the filled row), LRU-bounded. A copy: the admission
+        row is the cache's shared state, which the next admission writes."""
+        host_row = tuple({name: _host_copy(t) for name, t in lay.items()}
+                         for lay in row)
+        entry = (np.asarray(prompt, np.int32).copy(), logp, host_row)
+        digest = self._prefix_digest(prompt)
+        with self._cv:
+            self._prefix_lru[digest] = entry
+            self._prefix_lru.move_to_end(digest)
+            while len(self._prefix_lru) > PREFIX_CACHE_ENTRIES:
+                self._prefix_lru.popitem(last=False)
+
+    def _prefix_lookup(self, prompt: np.ndarray):
+        """(matched tokens, logp or None, host row) for `prompt`, or None on
+        a miss; logp only on an exact match. Any failure here (the armed
+        `generate.prefix_lookup` fault) is a counted miss and a cold
+        prefill: the stream never fails here."""
+        try:
+            faults.fire("generate.prefix_lookup",
+                        prompt_tokens=int(prompt.shape[0]))
+            digest = self._prefix_digest(prompt)
+            with self._cv:
+                entry = self._prefix_lru.get(digest)
+                if entry is not None:
+                    self._prefix_lru.move_to_end(digest)
+                    self._prefix_hits += 1
+                    return int(entry[0].shape[0]), entry[1], entry[2]
+                candidates = (list(self._prefix_lru.values())
+                              if self.prefix_match == "longest" else [])
+            best = None
+            for p2, _, row2 in candidates:
+                m = int(p2.shape[0])
+                if (m < int(prompt.shape[0])
+                        and (best is None or m > best[0])
+                        and np.array_equal(p2, prompt[:m])):
+                    best = (m, None, row2)
+            if best is not None:
+                with self._cv:
+                    self._prefix_hits += 1
+                return best
+        except Exception:  # noqa: BLE001 — a failed lookup is a miss
+            pass
+        with self._cv:
+            self._prefix_misses += 1
+        return None
+
+    # -- slots ----------------------------------------------------------------
+    def _vacate(self, slot: int) -> None:
+        """Free `slot` and its pages, point its table row at the scratch
+        page, and restart the ramp (the slot set changed)."""
+        self._slots[slot] = None
+        self._temps[slot] = 0.0
+        self._feed[slot] = []
+        self._ramp = 1
+        if self.paged:
+            self._pool.free(self._page_table[slot])
+            self._page_table[slot, :] = 0
 
     def _release_slot(self, slot: int, stream: GenerationStream,
                       error: Optional[BaseException] = None) -> None:
         stream._finish(error)
-        self._slots[slot] = None
-        self._temps[slot] = 0.0
+        self._vacate(slot)
         with self._cv:
             self._active -= 1
             if error is None:
@@ -719,6 +1091,26 @@ class ContinuousBatcher:
             else:
                 self._failed += 1
             self._cv.notify_all()
+
+    def _preempt_slot(self, slot: int, stream: GenerationStream) -> None:
+        """Page-pool preemption (an overcommitted pool ran dry mid-decode):
+        free the slot and its pages without finishing the stream, and queue
+        it first to be recomputed from its prompt; the tokens it delivered
+        are swallowed on the way (`GenerationStream._deliver`), so its
+        consumer sees one whole stream. Freeing its pages lets the others
+        grow, and a lone stream always fits (`n_pages >= pages_per_slot`)."""
+        stream._replay = stream.tokens_emitted
+        self._vacate(slot)
+        with self._cv:
+            self._active -= 1
+            self._preempted += 1
+            self._pending.appendleft(stream)
+            self._cv.notify_all()
+
+    def _fail_active(self, error: BaseException) -> None:
+        for slot, stream in enumerate(self._slots):
+            if stream is not None:
+                self._release_slot(slot, stream, error=error)
 
     def _admit_pending(self) -> None:
         free = self._free_slots()
@@ -731,15 +1123,55 @@ class ContinuousBatcher:
                 stream = self._pending.popleft()
             try:
                 self._admit_one(slot, stream)
+            except PagesExhausted:
+                # pool pressure: the stream waits, pages free as streams
+                # finish, and admission runs again every step
+                with self._cv:
+                    self._pending.appendleft(stream)
+                return
             except BaseException as e:  # noqa: BLE001 — isolate the stream
                 with self._cv:
                     self._failed += 1
                 stream._finish(e)
 
+    def _lazy_alloc(self, k: int, pos=None, steps=None) -> None:
+        """Give every active slot pages for its next `k` positions. A dry
+        pool preempts the one stream that could not grow; an armed
+        `decode.page_alloc` fault ends that stream. The block loop passes
+        its scheduled `pos` (the host's `_pos` lags it) and a per-slot
+        `steps` (a slot scheduled no step takes no page)."""
+        ps = self.page_size
+        for slot, stream in enumerate(self._slots):
+            if stream is None:
+                continue
+            kk = k if steps is None else int(steps[slot])
+            if kk <= 0:
+                continue
+            p0 = int(self._pos[slot] if pos is None else pos[slot])
+            need = [p for p in range(p0 // ps, (p0 + kk - 1) // ps + 1)
+                    if p < self.pages_per_slot
+                    and self._page_table[slot, p] == 0]
+            if not need:
+                continue
+            try:
+                got = self._pool.alloc(len(need), slot=slot, pos=p0)
+            except PagesExhausted:
+                self._preempt_slot(slot, stream)
+                continue
+            except BaseException as e:  # noqa: BLE001 — isolate the stream
+                self._release_slot(slot, stream, error=e)
+                continue
+            for p, phys in zip(need, got):
+                self._page_table[slot, p] = phys
+
+    # -- one step a dispatch (decode-loop thread) ----------------------------
     def _decode_once(self) -> None:
         """One table step: the per-slot fault point (a raise ends THAT
         stream only), one decode call over every slot, then each slot's
-        token delivered and finished slots freed."""
+        token delivered (or its next prompt token fed) and finished slots
+        freed."""
+        import torch
+
         t0 = time.monotonic()
         for slot, stream in enumerate(self._slots):
             if stream is None:
@@ -749,15 +1181,20 @@ class ContinuousBatcher:
                             pos=int(self._pos[slot]))
             except BaseException as e:  # noqa: BLE001 — isolate the stream
                 self._release_slot(slot, stream, error=e)
+        if self.paged:
+            self._lazy_alloc(1)
         if not any(s is not None for s in self._slots):
             return
-        import torch
-
-        net = self.net
+        ic, net = self.net.infer_cache, self.net
         try:
-            tok2, keys2, self._state = net.infer_cache.decode(
-                net.conf, net.params, self._state, self._tok, self._pos,
-                self._keys, self._temps)
+            if self.paged:
+                tok2, keys2, _ = ic.decode_paged(
+                    net.conf, net.params, self._state, self._tok,
+                    self._pos, self._keys, self._temps, self._page_table)
+            else:
+                tok2, keys2, _ = ic.decode(
+                    net.conf, net.params, self._state, self._tok,
+                    self._pos, self._keys, self._temps)
             # one read-back for tokens and keys
             t_get = time.monotonic()
             both = torch.cat([tok2.long()[:, None], keys2], dim=1).cpu()
@@ -765,24 +1202,39 @@ class ContinuousBatcher:
             tok2 = both[:, 0].numpy().astype(np.int32)
             keys2 = both[:, 1:].numpy().astype(np.uint32)
         except BaseException as e:  # noqa: BLE001 — no fallback: fail them
-            for slot, stream in enumerate(self._slots):
-                if stream is not None:
-                    self._release_slot(slot, stream, error=e)
+            self._fail_active(e)
             return
         now = time.monotonic()
         emitted = 0
         for slot, stream in enumerate(self._slots):
             if stream is None:
                 continue
+            if self._feed[slot]:
+                # a prompt-feed step (longest match): the table consumed one
+                # prompt token; its draw and key are dropped, so the key
+                # stream stays a cold prefill's
+                self._tok[slot] = self._feed[slot].pop(0)
+                self._pos[slot] += 1
+                continue
+            first = stream.tokens_emitted == 0
             self._tok[slot] = tok2[slot]
             self._pos[slot] += 1
             self._keys[slot] = keys2[slot]
-            stream._deliver(int(tok2[slot]), now)
-            emitted += 1
+            if stream._deliver(int(tok2[slot]), now):
+                emitted += 1
+                if first:
+                    with self._cv:
+                        self._record_ttft_locked(stream)
             if (stream.tokens_emitted >= stream.max_new
                     or int(self._pos[slot]) >= self.max_seq):
                 self._release_slot(slot, stream)
-        wall = time.monotonic() - t0
+        self._note_block(1, time.monotonic() - t0, wait, emitted, now)
+
+    def _note_block(self, k: int, wall: float, wait: float, emitted: int,
+                    now: float) -> None:
+        """Books of one dispatch (a step or a block): tokens and the
+        trailing rate window, the block-size histogram, and the host's share
+        (wall less the time spent waiting for the device's answer)."""
         with self._cv:
             self._tokens_total += emitted
             self._recent_tokens.append((now, emitted))
@@ -791,13 +1243,159 @@ class ContinuousBatcher:
                 self._recent_tokens.popleft()
             self._host_s += max(wall - wait, 0.0)
             self._wall_s += wall
-            _hist_add(self._blk_hist, DECODE_BLOCK_STEPS_BOUNDS, 1)
+            _hist_add(self._blk_hist, DECODE_BLOCK_STEPS_BOUNDS, k)
+
+    # -- K steps a dispatch, pipelined (decode-loop thread) ------------------
+    def _has_pending(self) -> bool:
+        with self._cv:
+            return bool(self._pending)
+
+    def _block_eligible(self) -> bool:
+        """Blocks run only while the slot set is stable: with admissions
+        waiting or prompt tokens to feed, K pins to 1 (`_decode_once`), so
+        time to first token and the feed are the one-step loop's."""
+        if self.k_max <= 1 or any(self._feed):
+            return False
+        return not self._has_pending()
+
+    def _next_k(self, max_rem: int) -> int:
+        """The largest ladder K within the ramp and the longest remaining
+        budget."""
+        k = 1
+        for v in self._k_ladder:
+            if v <= self._ramp and v <= max_rem:
+                k = v
+        return k
+
+    def _block_rounds(self) -> None:
+        """Pipelined blocks: block N + 1 is dispatched before block N is
+        read back, so the host's work of a block (delivery, books) overlaps
+        the card's. Each slot's progress is scheduled on the host (pos and
+        the remaining budget), and block N + 1's tokens and keys are block
+        N's device outputs, chained without a read-back. The loop goes back
+        to admission as soon as streams wait (after at most the one block in
+        flight). A failed dispatch or read-back ends every stream in the
+        table (after the block in flight is delivered); nothing falls back
+        to one step a dispatch."""
+        ic = self.net.infer_cache
+        streams = list(self._slots)
+        pos = self._pos.copy()
+        rem = np.zeros((self.n_slots,), np.int32)
+        for s, stream in enumerate(streams):
+            if stream is not None:
+                budget = (stream.max_new - stream.tokens_emitted
+                          + stream._replay)
+                rem[s] = max(0, min(budget, self.max_seq - int(pos[s])))
+        tok, keys = self._tok.copy(), self._keys.copy()
+        inflight = None
+        t_mark = time.monotonic()
+        while True:
+            blk, error = None, None
+            if int(rem.max(initial=0)) > 0 and not self._has_pending():
+                try:
+                    blk = self._dispatch_block(ic, streams, tok, keys, pos,
+                                               rem)
+                except BaseException as e:  # noqa: BLE001 — no fallback
+                    error = e
+                if blk is not None:
+                    tok, keys = blk["tok"], blk["keys"]
+            if inflight is not None:
+                # the block in flight was computed whatever came after it
+                try:
+                    t_mark = self._readback_block(inflight, t_mark)
+                except BaseException as e:  # noqa: BLE001 — no fallback
+                    error = error or e
+            if error is not None:
+                self._fail_active(error)
+                return
+            inflight = blk
+            if blk is None:
+                return
+
+    def _dispatch_block(self, ic, streams, tok, keys, pos, rem):
+        """Dispatch one K-step block without blocking: the `decode.step`
+        fault point for every scheduled position (a raise ends THAT stream
+        before its rows go), pages for the whole block, then the block and
+        its read-back, both enqueued. Advances the caller's scheduled pos
+        and rem in place; returns the block in flight, or None when nothing
+        was left to dispatch."""
+        k = self._next_k(int(rem.max(initial=0)))
+        for s, stream in enumerate(streams):
+            if (stream is None or rem[s] <= 0
+                    or self._slots[s] is not stream):
+                continue
+            try:
+                for j in range(min(k, int(rem[s]))):
+                    faults.fire("decode.step", slot=s, pos=int(pos[s]) + j,
+                                block=k)
+            except BaseException as e:  # noqa: BLE001 — isolate the stream
+                self._release_slot(s, stream, error=e)
+                rem[s] = 0
+        if int(rem.max(initial=0)) <= 0:
+            return None
+        net = self.net
+        if self.paged:
+            self._lazy_alloc(k, pos=pos, steps=np.minimum(rem, k))
+            for s, stream in enumerate(streams):
+                if stream is not None and self._slots[s] is not stream:
+                    rem[s] = 0  # preempted or failed while growing
+            if int(rem.max(initial=0)) <= 0:
+                return None
+            toks, tok2, keys2, _ = ic.decode_multi_paged(
+                net.conf, net.params, self._state, tok, pos, keys,
+                self._temps, rem, self._page_table, k)
+        else:
+            toks, tok2, keys2, _ = ic.decode_multi(
+                net.conf, net.params, self._state, tok, pos, keys,
+                self._temps, rem, k)
+        read = _BlockRead(toks, tok2, keys2)
+        adv = np.minimum(rem, k).astype(np.int32)
+        pos += adv
+        rem -= adv
+        self._ramp = min(self._ramp * 2, self.k_max)
+        return {"k": k, "streams": streams, "read": read, "tok": tok2,
+                "keys": keys2, "adv": adv, "pos_after": pos.copy()}
+
+    def _readback_block(self, blk, t_mark: float) -> float:
+        """Read back one block in flight (one wait on its event), then the
+        host's part: delivery (replay-aware), time to first token, releases
+        and the books. Returns the new wall-clock mark."""
+        t_get = time.monotonic()
+        toks, tok_last, keys_last = blk["read"].wait()
+        wait = time.monotonic() - t_get
+        now = time.monotonic()
+        emitted = 0
+        for s, stream in enumerate(blk["streams"]):
+            if (stream is None or int(blk["adv"][s]) <= 0
+                    or self._slots[s] is not stream):
+                continue  # idle, or released or preempted since dispatch
+            first = stream.tokens_emitted == 0
+            sent_first = False
+            for j in range(int(blk["adv"][s])):
+                if stream._deliver(int(toks[j, s]), now):
+                    emitted += 1
+                    sent_first = sent_first or first
+            self._tok[s] = tok_last[s]
+            self._keys[s] = keys_last[s]
+            self._pos[s] = blk["pos_after"][s]
+            if sent_first:
+                with self._cv:
+                    self._record_ttft_locked(stream)
+            if (stream.tokens_emitted >= stream.max_new
+                    or int(self._pos[s]) >= self.max_seq):
+                self._release_slot(s, stream)
+        t_end = time.monotonic()
+        self._note_block(blk["k"], t_end - t_mark, wait, emitted, now)
+        return t_end
 
     def _decode_loop(self) -> None:
         while True:
             self._admit_pending()
             if any(s is not None for s in self._slots):
-                self._decode_once()
+                if self._block_eligible():
+                    self._block_rounds()
+                else:
+                    self._decode_once()
                 continue
             with self._cv:
                 if self._pending:
@@ -811,13 +1409,13 @@ class ContinuousBatcher:
         """Generation counters for `/v1/stats`, with the JAX package's keys:
         slot occupancy, queue depth, tokens/s over the trailing window, TTFT
         percentiles and histogram, stream outcomes, the host's share of the
-        decode dispatches and the infer cache's fresh captures."""
+        decode dispatches, the page pool and the prefix cache where they
+        are on, and the infer cache's fresh captures."""
         with self._cv:
             now = time.monotonic()
             recent = sum(c for t, c in self._recent_tokens
                          if now - t <= RATE_WINDOW_S)
             ttfts = sorted(self._ttfts)
-            h, bh = self._ttft_hist, self._blk_hist
             active = self._active
             out = {
                 "slots": {"width": self.n_slots, "active": active,
@@ -836,18 +1434,36 @@ class ContinuousBatcher:
                 "ttft_ms": {
                     "p50": round(_percentile(ttfts, 0.50) * 1e3, 3),
                     "p99": round(_percentile(ttfts, 0.99) * 1e3, 3)},
-                "ttft_hist_s": {"bounds": list(LATENCY_BUCKETS_S),
-                                "counts": list(h["counts"]), "inf": h["inf"],
-                                "sum": h["sum"], "count": h["count"]},
-                "steps_per_dispatch": 1,
+                "ttft_hist_s": _hist_out(self._ttft_hist, LATENCY_BUCKETS_S),
+                "steps_per_dispatch": self.k_max,
                 "host_overhead_fraction": (
                     round(self._host_s / self._wall_s, 4)
                     if self._wall_s > 0 else 0.0),
                 "decode_host_seconds_total": round(self._host_s, 6),
-                "decode_block_steps": {
-                    "bounds": list(DECODE_BLOCK_STEPS_BOUNDS),
-                    "counts": list(bh["counts"]), "inf": bh["inf"],
-                    "sum": bh["sum"], "count": bh["count"]},
+                "decode_block_steps": _hist_out(self._blk_hist,
+                                                DECODE_BLOCK_STEPS_BOUNDS),
             }
+            if self.paged:
+                live_tokens = sum(int(self._pos[s])
+                                  for s, st in enumerate(self._slots)
+                                  if st is not None)
+                out["kv_pages"] = {
+                    "page_size": self.page_size,
+                    "total": self.n_pages,
+                    "free": self._pool.free_count,
+                    "live": self._pool.live_count,
+                    "live_tokens": live_tokens,
+                    "live_bytes": self._pool.live_count * self._page_bytes(),
+                    "preempted_streams": self._preempted}
+            if self.prefix_cache_enabled:
+                out["prefix_cache"] = {"hits": self._prefix_hits,
+                                       "misses": self._prefix_misses,
+                                       "entries": len(self._prefix_lru),
+                                       "match": self.prefix_match}
         out["fresh_compiles"] = self.net.infer_cache.stats.misses
         return out
+
+    def _page_bytes(self) -> int:
+        """Bytes of one physical K/V page over every attention layer."""
+        return sum(2 * lay["k"][0].numel() * lay["k"].element_size()
+                   for lay in (self._state or ()) if "k" in lay)

@@ -227,7 +227,9 @@ class ModelServer:
     """Serve a `MultiLayerNetwork` over HTTP through the micro-batcher, and
     with `generate=True` POST /v1/generate through a `ContinuousBatcher`
     (`gen_slots` slots, a `gen_max_seq`-token table, one prefill program per
-    `gen_prompt_buckets` bucket)."""
+    `gen_prompt_buckets` bucket; `gen_page_size`, `gen_pages`,
+    `gen_prefix_cache`, `gen_prefix_match` and `gen_steps_per_dispatch` are
+    its paged pool, prefix cache and steps a dispatch)."""
 
     def __init__(self, net, host: str = "127.0.0.1", port: int = 0,
                  max_delay_ms: Optional[float] = None,
@@ -240,7 +242,12 @@ class ModelServer:
                  gen_slots: Optional[int] = None,
                  gen_max_seq: int = 64,
                  gen_prompt_buckets=(8,),
-                 gen_max_pending: int = 64):
+                 gen_max_pending: int = 64,
+                 gen_page_size: Optional[int] = None,
+                 gen_pages: int = 0,
+                 gen_prefix_cache: bool = False,
+                 gen_prefix_match: str = "exact",
+                 gen_steps_per_dispatch: Optional[int] = None):
         self.net = net
         self.request_timeout_s = float(request_timeout_s)
         self.drain_timeout_s = float(drain_timeout_s)
@@ -251,7 +258,11 @@ class ModelServer:
         self.generator: Optional[ContinuousBatcher] = (
             ContinuousBatcher(net, n_slots=gen_slots, max_seq=gen_max_seq,
                               prompt_buckets=gen_prompt_buckets,
-                              max_pending=gen_max_pending, auto_start=False)
+                              max_pending=gen_max_pending, auto_start=False,
+                              page_size=gen_page_size, n_pages=gen_pages,
+                              prefix_cache=gen_prefix_cache,
+                              prefix_match=gen_prefix_match,
+                              steps_per_dispatch=gen_steps_per_dispatch)
             if generate else None)
         handler = type("Handler", (_ServeHandler,), {"model_server": self})
         self.server = ThreadingHTTPServer((host, port), handler)

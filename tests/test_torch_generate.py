@@ -539,24 +539,43 @@ def test_admit_fault_fails_only_the_admitted_stream(pairs):
         cb.stop()
 
 
-@pytest.mark.parametrize("kwargs,part", [
-    ({"page_size": 4}, "paged decode"),
-    ({"n_pages": 8}, "paged decode"),
-    ({"prefix_cache": True}, "prefix cache"),
-    ({"draft_net": object(), "spec_k": 3}, "verify_chunk"),
-    ({"spec_k": 3}, "verify_chunk"),
-    ({"steps_per_dispatch": 4}, "decode_block"),
-])
-def test_unported_generation_options_name_their_roadmap_item(pairs, kwargs,
-                                                             part):
+@pytest.mark.parametrize("kwargs", [{"draft_net": object(), "spec_k": 3},
+                                    {"spec_k": 3}])
+def test_unported_generation_options_name_their_roadmap_item(pairs, kwargs):
     _, tnet = pairs["lstm"]
     with pytest.raises(NotImplementedError, match="queue A item 8") as err:
         ContinuousBatcher(tnet, n_slots=1, max_seq=16, auto_start=False,
                           **kwargs)
-    assert part in str(err.value)
+    assert "verify_chunk" in str(err.value)
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         tnet.warmup_generate(slots=1, max_seq=16, prompt_buckets=(8,),
                              **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [{"page_size": 4}, {"page_size": 4,
+                                                       "n_pages": 5},
+                                    {"prefix_cache": True},
+                                    {"steps_per_dispatch": 4}],
+                         ids=["page_size", "n_pages", "prefix_cache",
+                              "steps_per_dispatch"])
+def test_generation_options_serve_jax_tokens_after_warmup(kwargs):
+    """The options that refused before this slice: warmed, then serving two
+    streams, JAX's tokens with no new program."""
+    jnet, tnet = _pair("transformer", seed=5)
+    want = [_jax_tokens(jnet, [1, 2, 3], 6, 0.8, 2)[0],
+            _jax_tokens(jnet, [4], 8, 0.0, 3)[0]]
+    tnet.warmup_generate(slots=2, max_seq=16, prompt_buckets=(8,), **kwargs)
+    misses = tnet.infer_cache.stats.misses
+    cb = ContinuousBatcher(tnet, n_slots=2, max_seq=16, prompt_buckets=(8,),
+                           **kwargs)
+    try:
+        a = cb.submit([1, 2, 3], max_new_tokens=6, temperature=0.8,
+                      rng_seed=2)
+        b = cb.submit([4], max_new_tokens=8, rng_seed=3)
+        assert [_drain(a), _drain(b)] == want
+    finally:
+        cb.stop()
+    assert tnet.infer_cache.stats.misses == misses
 
 
 def test_warmup_generate_then_batcher_makes_no_new_programs():
@@ -575,6 +594,312 @@ def test_warmup_generate_then_batcher_makes_no_new_programs():
         cb.stop()
     assert tnet.infer_cache.stats.misses == misses
     assert cb.stats()["fresh_compiles"] == misses
+
+
+# -- the paged KV pool ---------------------------------------------------------------
+
+def _jax_batcher(jnet, prompts, n_new, temps, **kw):
+    """The JAX package's ContinuousBatcher over the same streams (stream i
+    seeded i), all queued before it starts: each stream's tokens."""
+    from deeplearning4j_tpu.serving.batcher import ContinuousBatcher as JCB
+
+    cb = JCB(jnet, prompt_buckets=(8,), auto_start=False, **kw)
+    try:
+        streams = [cb.submit(list(p), max_new_tokens=n_new, temperature=t,
+                             rng_seed=i)
+                   for i, (p, t) in enumerate(zip(prompts, temps))]
+        cb.start()
+        return [_drain(x, 60.0) for x in streams], cb.stats()
+    finally:
+        cb.stop()
+
+
+def _port_batcher(tnet, prompts, n_new, temps, **kw):
+    cb = ContinuousBatcher(tnet, prompt_buckets=(8,), auto_start=False, **kw)
+    try:
+        streams = [cb.submit(list(p), max_new_tokens=n_new, temperature=t,
+                             rng_seed=i)
+                   for i, (p, t) in enumerate(zip(prompts, temps))]
+        cb.start()
+        return [_drain(x, 60.0) for x in streams], cb.stats()
+    finally:
+        cb.stop()
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_paged_step_and_state_match_jax(pairs, model):
+    jnet, tnet = pairs[model]
+    want = jax_decode.init_paged_state(jnet.conf, 3, 13, 4)
+    got = decode.init_paged_state(tnet.conf, 3, 13, 4, "cpu")
+    _state_close(got, want, 0.0)
+    table = np.asarray([[1, 2, 3, 4], [5, 6, 0, 0], [7, 8, 9, 10]], np.int32)
+    pos = np.asarray([0, 2, 5], np.int32)
+    rs = np.random.RandomState(8)
+    for _ in range(4):
+        tok = rs.randint(0, VOCAB, 3).astype(np.int32)
+        jl, want = jax_decode.decode_step_paged(
+            jnet.conf, jnet.params, want, jnp.asarray(tok), jnp.asarray(pos),
+            jnp.asarray(table))
+        with torch.inference_mode():
+            tl, got = decode.decode_step_paged(
+                tnet.conf, tnet.params, got, torch.as_tensor(tok),
+                torch.as_tensor(pos), torch.as_tensor(table))
+        _close(tl, jl)
+        _state_close(got, want)
+        pos = pos + 1
+
+
+def test_paged_step_is_the_dense_step_bit_for_bit(pairs):
+    """Where max_seq is a whole number of pages, the paged step gathers the
+    dense cache's shape and runs the dense step's score code: logp equal
+    bit for bit on the CPU (the card holds the same in `chip_smoke.py`)."""
+    _, tnet = pairs["transformer"]
+    dense = decode.init_state(tnet.conf, 2, 16, "cpu")
+    paged = decode.init_paged_state(tnet.conf, 2, 9, 4, "cpu")
+    table = torch.as_tensor([[3, 1, 8, 5], [2, 7, 4, 6]])
+    rs = np.random.RandomState(9)
+    with torch.inference_mode():
+        for p in range(6):
+            tok = torch.as_tensor(rs.randint(0, VOCAB, 2))
+            pos = torch.full((2,), p)
+            ld, dense = decode.decode_step(tnet.conf, tnet.params, dense,
+                                           tok, pos)
+            lp, paged = decode.decode_step_paged(tnet.conf, tnet.params,
+                                                 paged, tok, pos, table)
+            assert torch.equal(ld, lp)
+
+
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("k", [1, 4])
+def test_paged_batcher_gives_the_jax_batchers_tokens(pairs, model, k):
+    jnet, tnet = pairs[model]
+    prompts, temps = ([1, 2, 3], [4, 5]), (0.0, 0.8)
+    kw = dict(n_slots=2, max_seq=16, page_size=4, steps_per_dispatch=k)
+    want, _ = _jax_batcher(jnet, prompts, 6, temps, **kw)
+    got, st = _port_batcher(tnet, prompts, 6, temps, **kw)
+    assert got == want
+    pages = st["kv_pages"]
+    assert pages["page_size"] == 4 and pages["total"] == 8
+    assert pages["live"] == 0 and pages["free"] == pages["total"]
+
+
+def test_paged_pool_frees_and_reuses_pages(pairs):
+    _, tnet = pairs["lstm"]
+    cb = ContinuousBatcher(tnet, n_slots=1, max_seq=16, prompt_buckets=(8,),
+                           page_size=4)
+    try:
+        for _ in range(3):
+            assert len(cb.generate([1, 2, 3], max_new_tokens=4)) == 4
+            pages = cb.stats()["kv_pages"]
+            assert pages["live"] == 0 and pages["free"] == pages["total"]
+    finally:
+        cb.stop()
+
+
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("k", [1, 8])
+def test_overcommitted_pool_preempts_and_replays_token_identically(
+        pairs, model, k):
+    """4 slots of 4 pages share 6: admissions wait in the queue, streams
+    that cannot grow are preempted, recomputed and their delivered tokens
+    swallowed, so every stream arrives once and whole with the JAX batcher's
+    tokens."""
+    jnet, tnet = pairs[model]
+    prompts = [[i + 1] for i in range(6)]
+    temps = [0.8 if i % 2 else 0.0 for i in range(6)]
+    kw = dict(n_slots=4, max_seq=16, page_size=4, n_pages=6,
+              steps_per_dispatch=k)
+    want, jst = _jax_batcher(jnet, prompts, 12, temps, **kw)
+    got, st = _port_batcher(tnet, prompts, 12, temps, **kw)
+    assert got == want
+    assert got == [_jax_tokens(jnet, p, 12, t, i)[0]
+                   for i, (p, t) in enumerate(zip(prompts, temps))]
+    assert st["streams"] == {"admitted": 6, "completed": 6, "failed": 0}
+    assert st["kv_pages"]["preempted_streams"] >= 1
+    assert st["kv_pages"]["total"] == 6 and st["kv_pages"]["live"] == 0
+    assert st["tokens"] == 6 * 12  # replayed tokens are not counted twice
+    assert jst["kv_pages"]["preempted_streams"] >= 1
+
+
+def test_page_pool_too_small_for_one_stream_rejected_at_construction(pairs):
+    _, tnet = pairs["lstm"]
+    with pytest.raises(ValueError, match="cannot hold even one"):
+        ContinuousBatcher(tnet, n_slots=1, max_seq=16, prompt_buckets=(8,),
+                          page_size=4, n_pages=3, auto_start=False)
+
+
+def test_page_alloc_fault_fails_one_stream_neighbour_decodes_on(pairs):
+    _, tnet = pairs["lstm"]
+    cb = ContinuousBatcher(tnet, n_slots=2, max_seq=16, prompt_buckets=(4,),
+                           page_size=4, auto_start=False)
+    try:
+        # the admissions allocate once each (traversals 1-2); the doomed
+        # stream crosses into its second page first (prompt of 3 tokens,
+        # then 2 steps: position 4 at traversal 3)
+        faults.arm("decode.page_alloc", "raise", nth=3)
+        doomed = cb.submit([1, 2, 3], max_new_tokens=10)
+        ok = cb.submit([4], max_new_tokens=2)
+        cb.start()
+        assert len(_drain(ok)) == 2
+        with pytest.raises(faults.FaultInjected):
+            _drain(doomed)
+        faults.disarm()
+        st = cb.stats()
+        assert st["streams"]["failed"] == 1
+        assert st["kv_pages"]["live"] == 0
+        assert len(cb.generate([5], max_new_tokens=3)) == 3
+    finally:
+        cb.stop()
+
+
+# -- the prefix cache ------------------------------------------------------------------
+
+@pytest.mark.parametrize("model", MODELS)
+def test_prefill_logp_matches_jax(pairs, model):
+    """`prefill_logp` (no sampling) against JAX's within 1e-6 (f32), the
+    state alike, and its row's first token drawn on the host is the
+    device-sampling prefill's."""
+    jnet, tnet = pairs[model]
+    prompt, length = _prompts(5, rows=1)
+    jlogp, jstate = jnet.infer_cache.prefill_logp(
+        jnet.conf, jnet.params, jnet.infer_cache.init_decode_state(
+            jnet.conf, 1, 16), jnp.asarray(prompt), jnp.asarray(length))
+    ic = tnet.infer_cache
+    logp, state = ic.prefill_logp(tnet.conf, tnet.params,
+                                  ic.init_decode_state(tnet.conf, 1, 16,
+                                                       "cpu"),
+                                  prompt, length)
+    assert logp.dtype == torch.float32 and tuple(logp.shape) == (1, VOCAB)
+    _close(logp, jlogp, 1e-6)
+    _state_close(state, jstate)
+    from deeplearning4j_tpu_torch.serving.batcher import _host_sample
+
+    for temp, seed in ((0.0, 0), (0.8, 3), (1.3, 7)):
+        key = np.asarray(jax.random.PRNGKey(seed))
+        tok, new_key = _host_sample(logp[0].numpy(), key, temp)
+        t1, k1, _ = ic.prefill(tnet.conf, tnet.params,
+                               ic.init_decode_state(tnet.conf, 1, 16, "cpu"),
+                               prompt, length, key[None],
+                               np.asarray([temp], np.float32))
+        assert tok == int(t1[0])
+        assert np.array_equal(new_key, k1[0].numpy().astype(np.uint32))
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_prefix_cache_exact_hit_token_identical_and_counted(pairs, model):
+    jnet, tnet = pairs[model]
+    ref_greedy = _jax_tokens(jnet, [1, 2, 3], 6)[0]
+    ref_temp = _jax_tokens(jnet, [1, 2, 3], 6, 0.7, 9)[0]
+    cb = ContinuousBatcher(tnet, n_slots=2, max_seq=16, prompt_buckets=(8,),
+                           prefix_cache=True)
+    try:
+        assert cb.generate([1, 2, 3], max_new_tokens=6) == ref_greedy
+        assert cb.generate([1, 2, 3], max_new_tokens=6) == ref_greedy
+        s = cb.submit([1, 2, 3], max_new_tokens=6, temperature=0.7,
+                      rng_seed=9)
+        assert _drain(s) == ref_temp
+        pc = cb.stats()["prefix_cache"]
+        assert pc == {"hits": 2, "misses": 1, "entries": 1,
+                      "match": "exact"}
+        entry = next(iter(cb._prefix_lru.values()))
+        # a host copy, not the shared admission row
+        row_ptrs = {t.data_ptr() for t in tree_leaves(cb._row)}
+        assert not {t.data_ptr() for t in tree_leaves(entry[2])} & row_ptrs
+    finally:
+        cb.stop()
+
+
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("paged", [False, True])
+def test_prefix_cache_longest_match_parity(pairs, model, paged):
+    jnet, tnet = pairs[model]
+    ref = _jax_tokens(jnet, [1, 2, 3, 4, 5, 6], 5, 0.8, 1)[0]
+    cb = ContinuousBatcher(tnet, n_slots=2, max_seq=16, prompt_buckets=(8,),
+                           prefix_cache=True, prefix_match="longest",
+                           page_size=4 if paged else 0,
+                           steps_per_dispatch=4)
+    try:
+        cb.generate([1, 2, 3, 4], max_new_tokens=3)  # stores the prefix
+        s = cb.submit([1, 2, 3, 4, 5, 6], max_new_tokens=5, temperature=0.8,
+                      rng_seed=1)
+        assert _drain(s) == ref
+        pc = cb.stats()["prefix_cache"]
+        assert pc["hits"] == 1 and pc["misses"] == 1
+        assert pc["match"] == "longest"
+    finally:
+        cb.stop()
+
+
+def test_prefix_lookup_fault_falls_back_to_cold_prefill(pairs):
+    jnet, tnet = pairs["lstm"]
+    ref = _jax_tokens(jnet, [1, 2, 3], 6)[0]
+    cb = ContinuousBatcher(tnet, n_slots=2, max_seq=16, prompt_buckets=(8,),
+                           prefix_cache=True)
+    try:
+        assert cb.generate([1, 2, 3], max_new_tokens=6) == ref
+        faults.arm("generate.prefix_lookup", "raise", nth=1)
+        a = cb.submit([1, 2, 3], max_new_tokens=6)
+        b = cb.submit([1, 2, 3], max_new_tokens=6)
+        assert _drain(a) == ref and _drain(b) == ref
+        st = cb.stats()
+        assert st["streams"]["failed"] == 0
+        assert st["prefix_cache"]["misses"] == 2
+        assert st["prefix_cache"]["hits"] == 1
+    finally:
+        cb.stop()
+
+
+def test_all_options_together_give_jax_tokens(pairs):
+    """Paged pool, prefix cache (longest) and K = 8 at once, with a hit and
+    an overcommitted pool: the JAX batcher's tokens for the same options."""
+    jnet, tnet = pairs["transformer"]
+    prompts = [[1, 2, 3], [1, 2, 3], [1, 2, 3, 4, 5], [6]]
+    temps = [0.0, 0.8, 0.0, 0.8]
+    kw = dict(n_slots=2, max_seq=16, page_size=4, n_pages=5,
+              prefix_cache=True, prefix_match="longest",
+              steps_per_dispatch=8)
+    want, _ = _jax_batcher(jnet, prompts, 9, temps, **kw)
+    got, st = _port_batcher(tnet, prompts, 9, temps, **kw)
+    assert got == want
+    assert st["prefix_cache"]["hits"] >= 1
+    assert st["kv_pages"]["live"] == 0
+    assert st["streams"]["completed"] == 4
+
+
+def test_options_off_make_only_the_default_programs(pairs):
+    _, tnet = _pair("lstm", seed=6)
+    cb = ContinuousBatcher(tnet, n_slots=2, max_seq=16, prompt_buckets=(8,))
+    try:
+        assert len(cb.generate([1, 2], max_new_tokens=4)) == 4
+        kinds = {r["entry"] for r in tnet.infer_cache.programs_summary()}
+        assert kinds == {"decode", "prefill"}
+        st = cb.stats()
+        assert "kv_pages" not in st and "prefix_cache" not in st
+        assert st["steps_per_dispatch"] == 1
+    finally:
+        cb.stop()
+
+
+def test_warmup_generate_covers_every_option_combination():
+    _, tnet = _pair("lstm", seed=7)
+    options = dict(page_size=4, prefix_cache=True, steps_per_dispatch=4)
+    summary = tnet.warmup_generate(slots=2, max_seq=16, prompt_buckets=(8,),
+                                   **options)
+    assert (summary["page_size"], summary["prefix_cache"],
+            summary["steps_per_dispatch"]) == (4, True, 4)
+    before = tnet.infer_cache.stats.misses
+    kinds = {r["entry"] for r in tnet.infer_cache.programs_summary()}
+    assert kinds == {"decode-paged", "prefill-logp", "decode-multi-paged[1]",
+                     "decode-multi-paged[2]", "decode-multi-paged[4]"}
+    cb = ContinuousBatcher(tnet, n_slots=2, max_seq=16, prompt_buckets=(8,),
+                           prefix_match="longest", **options)
+    try:
+        assert len(cb.generate([1, 2, 3], max_new_tokens=6)) == 6
+        assert len(cb.generate([1, 2, 3, 4], max_new_tokens=6)) == 6
+        assert tnet.infer_cache.stats.misses == before
+        assert cb.stats()["fresh_compiles"] == before
+    finally:
+        cb.stop()
 
 
 # -- HTTP: /v1/generate -------------------------------------------------------------
@@ -698,9 +1023,7 @@ def test_cli_generate_prints_jax_keys_and_tokens(lstm_checkpoint, capsys,
     assert got["fresh_compiles"] == 0 and got["disk_cache"] is None
 
 
-@pytest.mark.parametrize("flag", [["--page-size", "4"], ["--prefix-cache"],
-                                  ["--draft", "x", "--spec-k", "3"],
-                                  ["--steps-per-dispatch", "2"],
+@pytest.mark.parametrize("flag", [["--draft", "x", "--spec-k", "3"],
                                   ["--compile-cache", "x"]])
 def test_cli_generate_refuses_unported_flags(lstm_checkpoint, flag):
     with pytest.raises(SystemExit, match="ROADMAP.md queue A item"):
@@ -708,14 +1031,82 @@ def test_cli_generate_refuses_unported_flags(lstm_checkpoint, flag):
                     "--device", "cpu"] + flag)
 
 
-@pytest.mark.parametrize("flag", [["--gen-page-size", "4"],
-                                  ["--gen-prefix-cache"],
-                                  ["--gen-spec-k", "3"],
-                                  ["--gen-steps-per-dispatch", "4"]])
+@pytest.mark.parametrize("flag", [["--gen-spec-k", "3"],
+                                  ["--gen-draft", "x"]])
 def test_cli_serve_refuses_unported_generation_flags(lstm_checkpoint, flag):
     with pytest.raises(SystemExit, match="queue A item 8"):
         torch_main(["serve", "--model", lstm_checkpoint, "--device", "cpu",
                     "--generate"] + flag)
+
+
+@pytest.mark.parametrize("flags", [["--page-size", "4"], ["--prefix-cache"],
+                                   ["--steps-per-dispatch", "2"],
+                                   ["--steps-per-dispatch", "4",
+                                    "--page-size", "4", "--prefix-cache"]],
+                         ids=["page_size", "prefix_cache",
+                              "steps_per_dispatch", "all"])
+def test_cli_generate_options_print_the_jax_clis_tokens(lstm_checkpoint,
+                                                        capsys, flags):
+    argv = ["generate", "--model", lstm_checkpoint, "--prompt", "1,2,3",
+            "--max-new-tokens", "9", "--temperature", "0.8", "--seed", "4",
+            "--max-seq", "16"] + flags
+    assert jax_main(argv) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert torch_main(argv + ["--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["tokens"] == want["tokens"] and got["n_tokens"] == 9
+    assert got["fresh_compiles"] == 0
+
+
+@pytest.mark.parametrize("flags", [
+    ["--gen-page-size", "4", "--gen-pages", "6"],
+    ["--gen-prefix-cache", "--gen-prefix-match", "longest"],
+    ["--gen-steps-per-dispatch", "4"]],
+    ids=["paged", "prefix", "steps_per_dispatch"])
+def test_cli_serve_generation_options_stream_jax_tokens(pairs,
+                                                        lstm_checkpoint,
+                                                        tmp_path, flags):
+    """`serve --generate` with the ported options: warmed before the socket
+    opens, POST /v1/generate streams JAX's tokens twice (a prefix hit the
+    second time), no program is made under traffic, SIGTERM drains."""
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    jnet, _ = pairs["lstm"]
+    want, _ = _jax_tokens(jnet, [1, 2, 3], 6, temperature=0.8, rng_seed=3)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "serve",
+         "--model", lstm_checkpoint, "--device", "cpu", "--generate",
+         "--gen-slots", "2", "--gen-max-seq", "16"] + flags,
+        stdout=subprocess.PIPE, text=True, cwd=str(tmp_path),
+        env=dict(os.environ, PYTHONPATH=repo))
+    try:
+        startup = json.loads(proc.stdout.readline())
+        warmed = startup["fresh_compiles"]
+        for _ in range(2):
+            status, lines = _post_generate(startup["url"], {
+                "prompt": [1, 2, 3], "max_new_tokens": 6,
+                "temperature": 0.8, "rng_seed": 3})
+            assert status == 200
+            assert [x["token"] for x in lines[:-1]] == want
+        with urllib.request.urlopen(startup["url"] + "/v1/stats") as resp:
+            gen = json.loads(resp.read())["generation"]
+        assert gen["fresh_compiles"] == warmed
+        if "--gen-prefix-cache" in flags:
+            assert gen["prefix_cache"]["hits"] == 1
+        if "--gen-page-size" in flags:
+            assert gen["kv_pages"]["total"] == 6
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0
+    assert json.loads(out.strip().splitlines()[-1])["drained"]
 
 
 # -- on the card -------------------------------------------------------------------------

@@ -616,17 +616,15 @@ def test_char_lstm_fit_trains_in_batches_on_cpu():
 
 def test_unported_decoding_names_its_roadmap_item():
     # temperature sampling and `generate` are ported (ROADMAP.md queue A
-    # item 8's default path) and give the JAX package's chars; what is left
-    # of the item (a paged KV pool, the prefix cache, speculative decoding,
-    # several steps a dispatch) still raises naming it
+    # item 8) and give the JAX package's chars; what is left of the item
+    # (speculative decoding) still raises naming it
     from deeplearning4j_tpu_torch.serving import ContinuousBatcher
 
     jm, tm = _carried_char_lstm(1)
     assert tm.sample("the ", n=8, temperature=1.0, rng_seed=2) == \
         jm.sample("the ", n=8, temperature=1.0, rng_seed=2)
     assert tm.generate("the ", n=8) == jm.generate("the ", n=8)
-    for kwargs in ({"page_size": 8}, {"prefix_cache": True},
-                   {"spec_k": 2}, {"steps_per_dispatch": 2}):
+    for kwargs in ({"spec_k": 2},):
         with pytest.raises(NotImplementedError, match="queue A item 8"):
             ContinuousBatcher(tm.net, n_slots=1, max_seq=16,
                               auto_start=False, **kwargs)
