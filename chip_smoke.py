@@ -62,7 +62,14 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    flash forward at B = 1 and every prefill bucket against its plain
    version, (d) the card's threefry keys and uniforms against the CPU's
    bit for bit, (e) `CharLSTM.generate == sample` at BASELINE config 1's
-   widths, and times the forward kernel at the warmed buckets;
+   widths, and times the forward kernel at the warmed buckets; the option
+   passes serve the same requests at K = 8, paged, with the prefix cache
+   and speculatively (GEN_SPEC: a char-LSTM draft, `spec_k` = 4, dense and
+   paged; each stream bitwise the K = 1 pass's or its first divergence
+   within 2e-2 max|logp|; a verify against 4 decode steps; the verify's
+   and a draft step's device times), then speculative decoding in f32 at
+   2 blocks (greedy, bitwise) and on the char-LSTM target with a cloned
+   and a disagreeing draft (SPEC_LSTM, bitwise);
 6. trains the same network with `MultiLayerNetwork.fit` (the JAX package's
    flagship training conf, bench.py:558-567: Adam, sparse labels, fused
    updater, fused attention backward, bf16 compute over f32 weights) for
@@ -97,7 +104,8 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    char_lstm:layers=4,hidden=128` over the corpus as text windows of 32),
    the same with `--checkpoint-dir` in batches of 256, then `predict`,
    `test` and `generate` (greedy and at 0.8, held to the cached path
-   called directly) on its checkpoint;
+   called directly, then with the ported options and with the checkpoint
+   as its own `--draft`) on its checkpoint;
 11. holds the embedding-row scatter-add kernel against its plain version at
    the word2vec step's shapes (syn1 from the bench vocabulary's Huffman
    points, syn0, syn1neg), a GloVe bias (D = 1), tiny ragged cases with
@@ -133,6 +141,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from typing import Optional
 
 import numpy as np
 
@@ -1097,6 +1106,18 @@ PREFILL_CHECK_S = (4, 8, 40, 64, 250, 256)
 #: CharLSTM.generate at BASELINE config 1's widths (one-hot input, as
 #: CharLSTM builds it): 50 characters, 4 layers of 256
 GEN_LSTM = dict(vocab=50, hidden=256, n_layers=4, seed_chars=20, n=200)
+#: speculative decoding on the generate pass's net and requests: a char-LSTM
+#: draft at the bench's LSTM widths (embed and hidden 256, 4 layers) with the
+#: target's vocabulary, chunks of k = 4, dense then over the default pool of
+#: 16-token pages; the f32 greedy variant at 2 blocks serves `f32_requests`
+#: of the requests, `f32_new` tokens each
+GEN_SPEC = dict(k=4, draft_seed=11, page_size=16, f32_requests=4,
+                f32_new=64)
+#: the char-LSTM target of speculative decoding (lstm_conf's widths in f32):
+#: `requests` prompts of 10-30 ids, `new` tokens each, greedy and at 0.8,
+#: with a cloned draft and a disagreeing `char_lstm(50, hidden=8)`
+SPEC_LSTM = dict(requests=4, new=64, max_seq=128, buckets=(32,), k=4,
+                 slots=4, temperature=0.8)
 
 
 def gen_conf(n_blocks, compute_dtype="bfloat16"):
@@ -1363,14 +1384,19 @@ def serve_generation(torch, kernels, net, g, groups, **options):
                        gen_prompt_buckets=g["buckets"],
                        **{SERVE_OPTION[k]: v for k, v in options.items()})
     gen = server.generator
-    dispatches = []
-    note = gen._note_block
+    dispatches, rounds = [], []
+    note, note_round = gen._note_block, gen._note_round
 
     def record(k, wall, wait, emitted, now):
         dispatches.append((k, wall, wait))
         note(k, wall, wait, emitted, now)
 
+    def record_round(wall, wait, emitted, accepted, now):
+        rounds.append((wall, wait, emitted))
+        note_round(wall, wait, emitted, accepted, now)
+
     gen._note_block = record
+    gen._note_round = record_round
     out = {"streams": [], "latency_ms": [], "ttft_ms": []}
     errors = []
     t_all = time.perf_counter()
@@ -1422,6 +1448,7 @@ def serve_generation(torch, kernels, net, g, groups, **options):
     out["launches"] = dict(kernels.LAUNCHES)
     out["pad_copies"] = kernels.PAD_COPIES
     out["dispatches"] = dispatches
+    out["rounds"] = rounds
     server.drain()
     return out
 
@@ -1430,6 +1457,7 @@ def serve_generation(torch, kernels, net, g, groups, **options):
 SERVE_OPTION = {"page_size": "gen_page_size", "n_pages": "gen_pages",
                 "prefix_cache": "gen_prefix_cache",
                 "prefix_match": "gen_prefix_match",
+                "draft_net": "gen_draft", "spec_k": "gen_spec_k",
                 "steps_per_dispatch": "gen_steps_per_dispatch"}
 
 
@@ -1447,17 +1475,37 @@ def dispatch_summary(dispatches) -> dict:
     return out
 
 
+def round_summary(rounds) -> Optional[dict]:
+    """Speculative rounds: how many, mean wall and wait (ms), the host's
+    share, tokens a round."""
+    if not rounds:
+        return None
+    wall = sum(r[0] for r in rounds)
+    wait = sum(r[1] for r in rounds)
+    return {"rounds": len(rounds), "wall_ms_mean": wall / len(rounds) * 1e3,
+            "wait_ms_mean": wait / len(rounds) * 1e3,
+            "host_share": 1.0 - wait / wall if wall else 0.0,
+            "tokens_per_round": sum(r[2] for r in rounds) / len(rounds)}
+
+
 def option_pass(torch, kernels, net, g, name, groups, refs, exact=None,
                 **options):
     """One option pass: `warmup_generate` for the batcher `options` (timed:
-    the captures it adds, their seconds, the graph pool's growth), then
-    `serve_generation`; checks the first `exact` streams' tokens (all by
-    default) against their references bitwise (the others are reported),
-    and that serving captured nothing. Returns (the pass's row, emitted;
-    the served result)."""
-    ic = net.infer_cache
-    misses0, secs0 = ic.stats.misses, ic.stats.total_compile_seconds
-    pool0 = ic.pool.reserved_bytes
+    the captures it adds, their seconds, the graph pool's growth; a draft
+    net's included), then `serve_generation`; checks the first `exact`
+    streams' tokens (all by default) against their references bitwise (the
+    others are reported), and that serving captured nothing. Returns (the
+    pass's row, emitted; the served result)."""
+    ics = [net.infer_cache] + ([options["draft_net"].infer_cache]
+                               if options.get("draft_net") else [])
+    ic = ics[0]
+
+    def books():
+        return (sum(c.stats.misses for c in ics),
+                sum(c.stats.total_compile_seconds for c in ics),
+                sum(c.pool.reserved_bytes for c in ics))
+
+    misses0, secs0, pool0 = books()
     t0 = time.perf_counter()
     net.warmup_generate(slots=g["slots"], max_seq=g["max_seq"],
                         prompt_buckets=g["buckets"],
@@ -1465,22 +1513,24 @@ def option_pass(torch, kernels, net, g, name, groups, refs, exact=None,
                            if k != "prefix_match"})
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    warmed = ic.stats.misses
+    warmed, secs1, pool1 = books()
     served = serve_generation(torch, kernels, net, g, groups, **options)
     got = [t for grp in served["streams"] for t in grp]
     equal = [a == b for a, b in zip(got, refs)]
     exact = len(refs) if exact is None else exact
     st = served["stats"]
-    row = {"phase": name, "options": options,
+    row = {"phase": name, "options": {
+               k: v if k != "draft_net" else str(v.conf.conf(1).layer_type)
+               for k, v in options.items()},
            "requests": len(got), "tokens_equal_k1": all(equal[:exact]),
            "streams_held": exact, "streams_equal": sum(equal),
            "first_difference": next(
                ([i, j] for i, (a, b) in enumerate(zip(got, refs))
                 for j in range(len(a)) if a[j] != b[j]), None),
            "captures": warmed - misses0, "capture_s": warm_s,
-           "capture_s_programs": ic.stats.total_compile_seconds - secs0,
-           "graph_pool_bytes": ic.pool.reserved_bytes,
-           "graph_pool_bytes_added": ic.pool.reserved_bytes - pool0,
+           "capture_s_programs": secs1 - secs0,
+           "graph_pool_bytes": pool1,
+           "graph_pool_bytes_added": pool1 - pool0,
            "fresh_compiles_after_warmup": st["fresh_compiles"] - warmed,
            "wall_s": served["wall_s"],
            "tokens_per_s_wall": sum(len(t) for t in got) / served["wall_s"],
@@ -1488,10 +1538,12 @@ def option_pass(torch, kernels, net, g, name, groups, refs, exact=None,
                "tokens", "tokens_per_sec", "ttft_ms", "streams",
                "steps_per_dispatch", "host_overhead_fraction",
                "decode_host_seconds_total", "decode_block_steps",
-               "fresh_compiles", "kv_pages", "prefix_cache") if k in st},
+               "fresh_compiles", "kv_pages", "prefix_cache", "speculative")
+               if k in st},
            "ttft_ms_by_group": served["ttft_ms"],
            "latency_ms": served["latency_ms"],
            "dispatch": dispatch_summary(served["dispatches"]),
+           "rounds": round_summary(served["rounds"]),
            "launches": served["launches"],
            "pad_copies": served["pad_copies"]}
     emit(row)
@@ -1702,6 +1754,331 @@ def prefix_copy_times(torch, net, g, turns=3):
     return out
 
 
+def spec_draft(vocab, seed, **widths):
+    """A char-LSTM draft on the card: the bench's LSTM widths (embed and
+    hidden 256, 4 layers) unless `widths` says otherwise, f32."""
+    from deeplearning4j_tpu_torch.models.zoo import char_lstm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    w = {"hidden": LSTM["hidden"], "n_layers": LSTM["n_layers"],
+         "embed": LSTM["embed"], **widths}
+    return MultiLayerNetwork(char_lstm(vocab, **w), device="cuda",
+                             seed=seed).init()
+
+
+def batcher_streams(torch, net, prompts, temps, n_new, slots, max_seq,
+                    buckets, **options):
+    """Every prompt through a `ContinuousBatcher` of `options` (stream i
+    seeded i), all queued before it starts: the tokens, the stats after it
+    stopped, the wall seconds."""
+    from deeplearning4j_tpu_torch.serving import ContinuousBatcher
+
+    cb = ContinuousBatcher(net, n_slots=slots, max_seq=max_seq,
+                           prompt_buckets=buckets, auto_start=False,
+                           **options)
+    try:
+        streams = [cb.submit(p, max_new_tokens=n_new, temperature=t,
+                             rng_seed=i)
+                   for i, (p, t) in enumerate(zip(prompts, temps))]
+        t0 = time.perf_counter()
+        cb.start()
+        toks = [list(x.tokens(timeout=600)) for x in streams]
+        wall = time.perf_counter() - t0
+    finally:
+        cb.stop()
+    return toks, cb.stats(), wall
+
+
+def spec_divergence(torch, net, g, prompt, want, got, k):
+    """Where a speculative stream `got` first differs from the K = 1 pass's
+    `want`: the index, and there the logp of the K = 1 path (the prefill,
+    then one decode step a token of `want`) against the verify path's (the
+    same prefill, then chunks of k tokens of `want` from its first),
+    teacher-forced, eager at B = 1. Returns (index, max |gap| at it, max
+    |logp| there, max |gap| up to it)."""
+    from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+    j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    conf, params, n = net.conf, net.params, len(prompt)
+
+    def ids(x):
+        return torch.as_tensor(x, device="cuda")
+
+    with torch.inference_mode():
+        state = decode_mod.init_state(conf, 1, g["max_seq"], "cuda")
+        lp0, state = decode_mod.prefill(conf, params, state, ids([prompt]),
+                                        ids([n]))
+        vstate = tuple({name: t.clone() for name, t in lay.items()}
+                       for lay in state)
+        rows, vrows = [lp0[0]], [lp0[0]]
+        for i, t in enumerate(want[:j]):
+            lp, state = decode_mod.decode_step(conf, params, state, ids([t]),
+                                               ids([n + i]))
+            rows.append(lp[0])
+        for c in range(0, j, k):
+            chunk = want[c:min(c + k, j)]
+            lp, vstate, _ = decode_mod.verify_chunk(
+                conf, params, vstate, ids([chunk]), ids([n + c]))
+            vrows.extend(lp[0])
+        a, b = torch.stack(rows).float(), torch.stack(vrows).float()
+        gap = (a - b).abs().amax(dim=-1)
+    return j, gap[j].item(), a[j].abs().max().item(), gap.max().item()
+
+
+def verify_vs_steps(torch, net, draft, g, prompts, k):
+    """(3): `verify_chunk` against k one-token `decode_step`s on copies of
+    one state (B = the prompts, prefilled), with the draft's greedy
+    proposals teacher-forced, eager: (max |logp gap|, max |logp|, the
+    proposals the target's greedy tokens agree with)."""
+    from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+    b, bucket = len(prompts), g["buckets"][-1]
+    pb = np.zeros((b, bucket), np.int32)
+    for i, p in enumerate(prompts):
+        pb[i, :len(p)] = p
+    length = torch.as_tensor([len(p) for p in prompts], device="cuda")
+    pb = torch.as_tensor(pb, device="cuda")
+    with torch.inference_mode():
+        state = decode_mod.init_state(net.conf, b, g["max_seq"], "cuda")
+        lp0, state = decode_mod.prefill(net.conf, net.params, state, pb,
+                                        length)
+        dstate = decode_mod.init_state(draft.conf, b, g["max_seq"], "cuda")
+        _, dstate = decode_mod.prefill(draft.conf, draft.params, dstate, pb,
+                                       length)
+        cols = [torch.argmax(lp0, dim=-1)]
+        for i in range(1, k):
+            dlp, dstate = decode_mod.decode_step(
+                draft.conf, draft.params, dstate, cols[-1], length + i - 1)
+            cols.append(torch.argmax(dlp, dim=-1))
+        toks = torch.stack(cols, dim=1)
+        copy = tuple({name: t.clone() for name, t in lay.items()}
+                     for lay in state)
+        vlp, _, _ = decode_mod.verify_chunk(net.conf, net.params, copy, toks,
+                                            length)
+        rows = []
+        for i in range(k):
+            lp, state = decode_mod.decode_step(net.conf, net.params, state,
+                                               toks[:, i], length + i)
+            rows.append(lp)
+        d = torch.stack(rows, dim=1).float()
+        agree = (torch.argmax(d[:, :-1], dim=-1) == toks[:, 1:]).sum()
+    return ((vlp.float() - d).abs().max().item(), d.abs().max().item(),
+            int(agree))
+
+
+def spec_step_times(torch, kernels, net, draft, g, k, decode_bytes):
+    """A verify's and a draft step's device time by graph replay (the
+    warmed programs, on the batcher's states), beside the decode step's in
+    turns (decode, verify, verify, decode), each profiled once, and the
+    verify's bounds: the decode step's bytes (the weights read once as the
+    step reads them, or once in bf16, and the K/V tables once), which the
+    verify moves too."""
+    ic, dic, conf = net.infer_cache, draft.infer_cache, net.conf
+    slots = g["slots"]
+    table = ic.decode_state(conf, slots, g["max_seq"], "cuda", "table")
+    dtable = dic.decode_state(draft.conf, slots, g["max_seq"], "cuda",
+                              "draft")
+    tok = np.arange(slots, dtype=np.int32)
+    toks = (np.arange(slots * k, dtype=np.int32) % SLICE["vocab"]).reshape(
+        slots, k)
+    pos = np.full((slots,), 300 if g["max_seq"] > 304 else 40, np.int32)
+    keys = np.zeros((slots, 2), np.uint32)
+    tmp = np.asarray([0.0, g["temperature"]] * (slots // 2), np.float32)
+    zeros = np.zeros((slots,), np.float32)
+    misses = ic.stats.misses + dic.stats.misses
+
+    def decode():
+        return ic.decode(conf, net.params, table, tok, pos, keys, tmp)
+
+    def verify():
+        return ic.verify(conf, net.params, table, toks, pos, keys, tmp)
+
+    def draft_step():
+        return dic.decode(draft.conf, draft.params, dtable, tok, pos, keys,
+                          zeros)
+
+    turns = {"decode": [], "verify": []}
+    for name in ("decode", "verify", "verify", "decode"):
+        turns[name].append(cuda_ms(decode if name == "decode" else verify,
+                                   iters=20, warmup=3))
+    draft_ms = cuda_ms(draft_step, iters=20, warmup=3)
+    # every admission prefills the draft's row too, a step a prompt token
+    drow = dic.decode_state(draft.conf, 1, g["max_seq"], "cuda", "draft-row")
+    draft_prefill_ms = {}
+    for tb in g["buckets"]:
+        pb = np.zeros((1, tb), np.int32)
+        draft_prefill_ms[str(tb)] = cuda_ms(
+            lambda pb=pb, tb=tb: dic.prefill(
+                draft.conf, draft.params, drow, pb,
+                np.asarray([tb], np.int32), keys[:1], zeros[:1]),
+            iters=5, warmup=1)
+    prof = {name: profiled(torch, kernels, fn, f"generate_spec_{name}"
+                           "_profile")
+            for name, fn in (("decode", decode), ("verify", verify),
+                             ("draft_step", draft_step))}
+    check(ic.stats.misses + dic.stats.misses == misses,
+          "timing the verify or the draft step captured a program")
+    casts, bf16 = decode_bytes
+    return {"verify_ms": min(turns["verify"]),
+            "decode_step_ms": min(turns["decode"]), "turns": turns,
+            "verify_device_ms": prof["verify"]["device_ms"],
+            "decode_step_device_ms": prof["decode"]["device_ms"],
+            "verify_kernel_count": prof["verify"]["kernel_count"],
+            "decode_kernel_count": prof["decode"]["kernel_count"],
+            "verify_bound_ms": casts / PEAK_BYTES * 1e3,
+            "verify_bound_bf16_weights_ms": bf16 / PEAK_BYTES * 1e3,
+            "draft_step_ms": draft_ms,
+            "draft_prefill_ms": draft_prefill_ms,
+            "draft_step_device_ms": prof["draft_step"]["device_ms"],
+            "draft_kernel_count": prof["draft_step"]["kernel_count"]}
+
+
+def phase_generate_spec(torch, kernels, net, g, reqs, k1_streams, quick,
+                        decode_bytes):
+    """Speculative decoding on the generate pass's net and requests
+    (GEN_SPEC): a char-LSTM draft, `warmup_generate(draft_net=, spec_k=)`,
+    then the requests through POST /v1/generate, dense and paged; each
+    stream against the K = 1 pass's: bitwise, or its first divergence with
+    the logp gap there within 2e-2 max|logp| (bf16 verify GEMMs have B x k
+    rows where the step has B); no capture after warm-up, one flash
+    launch a block an admission. Then (3) a verify against k decode steps,
+    and the verify's and a draft step's device times. Returns each pass's
+    flash launches."""
+    o, nb = GEN_SPEC, g["n_blocks"]
+    draft = spec_draft(SLICE["vocab"], o["draft_seed"])
+    launches, rows = {}, {}
+    for name, extra in (("generate_spec", {}),
+                        ("generate_spec_paged",
+                         {"page_size": o["page_size"]})):
+        row, served = option_pass(torch, kernels, net, g, name, [reqs],
+                                  k1_streams, exact=0, draft_net=draft,
+                                  spec_k=o["k"], **extra)
+        got = served["streams"][0]
+        divergences = []
+        for i, (a, b) in enumerate(zip(k1_streams, got)):
+            if a != b:
+                j, gap, scale, gap_max = spec_divergence(
+                    torch, net, g, reqs[i][0], a, b, o["k"])
+                divergences.append({"request": i, "token": j,
+                                    "logp_gap": gap, "max_abs_logp": scale,
+                                    "max_gap_before": gap_max})
+        spec = served["stats"]["speculative"]
+        rows[name] = {"phase": name + "_streams",
+                      "streams_equal_k1": sum(a == b for a, b in zip(
+                          k1_streams, got)),
+                      "divergences": divergences,
+                      "accepted_per_step": spec["accepted_per_step"],
+                      "rounds": spec["rounds"]}
+        emit(rows[name])
+        check(all(d["logp_gap"] <= 2e-2 * d["max_abs_logp"]
+                  for d in divergences),
+              f"{name}: a divergence past 2e-2 max|logp|: {divergences}")
+        launches[name] = served["launches"]["flash_attn_fwd"]
+        check(launches[name] == nb * len(reqs),
+              f"{name}: flash launches {launches[name]}")
+        check(spec["rounds"] > 0 and row["rounds"] is not None,
+              f"{name}: no speculative round ran")
+    gap, scale, agree = verify_vs_steps(
+        torch, net, draft, g, [r[0] for r in reqs[:g["slots"]]], o["k"])
+    times = spec_step_times(torch, kernels, net, draft, g, o["k"],
+                            decode_bytes)
+    dic = draft.infer_cache
+    row = {"phase": "generate_spec_steps", "k": o["k"],
+           "verify_vs_steps_max_abs_gap": gap, "max_abs_logp": scale,
+           "proposals_agreeing_greedy": agree,
+           "draft": {"vocab": SLICE["vocab"], "hidden": LSTM["hidden"],
+                     "n_layers": LSTM["n_layers"], "embed": LSTM["embed"]},
+           # the verify programs' and the draft's captures, warm-up calls
+           # included; the draft's graphs are in a pool of their own
+           "capture_s_by_program": {
+               repr(k[:1] + k[2][:1]): v
+               for c in (net.infer_cache, dic)
+               for k, v in c.stats.compile_seconds.items()
+               if c is dic or k[0].startswith("verify")},
+           "draft_graph_pool_bytes": dic.pool.reserved_bytes,
+           **times}
+    emit(row)
+    check(gap <= 2e-2 * scale, f"(3) verify vs decode steps: {row}")
+    del draft
+    return launches
+
+
+def spec_f32_identity(torch, g, reqs):
+    """The f32 greedy variant: the charTransformer at 2 blocks of SLICE's
+    widths in f32 with an f32 char-LSTM draft; the first
+    GEN_SPEC["f32_requests"] prompts, greedy, through a batcher with the
+    draft and one without: the streams must be bitwise equal."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    o = GEN_SPEC
+    net = MultiLayerNetwork(gen_conf(2, ""), device="cuda", seed=1).init()
+    draft = spec_draft(SLICE["vocab"], o["draft_seed"])
+    prompts = [r[0] for r in reqs[:o["f32_requests"]]]
+    temps = [0.0] * len(prompts)
+    args = (prompts, temps, o["f32_new"], g["slots"], g["max_seq"],
+            g["buckets"])
+    plain, _, plain_s = batcher_streams(torch, net, *args)
+    spec, st, spec_s = batcher_streams(torch, net, *args, draft_net=draft,
+                                       spec_k=o["k"])
+    row = {"phase": "generate_spec_f32_two_blocks",
+           "streams_equal": [a == b for a, b in zip(plain, spec)],
+           "speculative": st["speculative"], "wall_s": spec_s,
+           "k1_wall_s": plain_s}
+    emit(row)
+    check(plain == spec, f"f32 speculative streams differ from K = 1: "
+                         f"{row}")
+    del net, draft
+
+
+def phase_spec_char_lstm(torch):
+    """(4): the char-LSTM target at lstm_conf's widths in f32 with a
+    cloned draft (its conf and params: every greedy proposal accepted) and
+    a disagreeing `char_lstm(50, hidden=8, n_layers=1)` from another seed,
+    greedy and at 0.8: every stream bitwise the K = 1 pass's, and the
+    clone's greedy acceptance above 1 a step."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    o = SPEC_LSTM
+    target = MultiLayerNetwork(lstm_conf(compute_dtype=None), device="cuda",
+                               seed=3).init()
+    clone = MultiLayerNetwork(lstm_conf(compute_dtype=None), device="cuda",
+                              seed=3).init()
+    clone.params = [{name: t.clone() for name, t in lay.items()}
+                    for lay in target.params]
+    drafts = {"clone": clone,
+              "disagreeing": spec_draft(LSTM["vocab"], 4, hidden=8,
+                                        n_layers=1, embed=0)}
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(0, LSTM["vocab"], rng.randint(10, 31)).tolist()
+               for _ in range(o["requests"])]
+    # every program captured first, so that the passes are timed alone
+    geometry = dict(slots=o["slots"], max_seq=o["max_seq"],
+                    prompt_buckets=o["buckets"])
+    target.warmup_generate(**geometry)
+    for draft in drafts.values():
+        target.warmup_generate(**geometry, draft_net=draft, spec_k=o["k"])
+    runs = {}
+    for temp in (0.0, o["temperature"]):
+        args = (prompts, [temp] * len(prompts), o["new"], o["slots"],
+                o["max_seq"], o["buckets"])
+        plain, _, plain_s = batcher_streams(torch, target, *args)
+        for name, draft in drafts.items():
+            got, st, wall = batcher_streams(torch, target, *args,
+                                            draft_net=draft, spec_k=o["k"])
+            runs[f"{name}_{temp}"] = {
+                "streams_equal": got == plain,
+                "accepted_per_step": st["speculative"]["accepted_per_step"],
+                "rounds": st["speculative"]["rounds"],
+                "tokens_per_s": sum(map(len, got)) / wall,
+                "k1_tokens_per_s": sum(map(len, plain)) / plain_s}
+    row = {"phase": "generate_spec_char_lstm", "config": o, "runs": runs}
+    emit(row)
+    check(all(r["streams_equal"] for r in runs.values()),
+          f"char-LSTM speculative streams differ from K = 1: {runs}")
+    check(runs["clone_0.0"]["accepted_per_step"] > 1.0,
+          f"the cloned draft accepts no chunk: {runs}")
+
+
 def phase_generate(torch, kernels, quick=False):
     """The charTransformer served through POST /v1/generate (a
     `ContinuousBatcher` over captured decode and prefill graphs, warmed
@@ -1855,6 +2232,9 @@ def phase_generate(torch, kernels, quick=False):
     # the option passes on the same net and requests
     option_launches = phase_generate_options(torch, kernels, net, g, reqs,
                                              streams, quick)
+    option_launches.update(phase_generate_spec(
+        torch, kernels, net, g, reqs, streams, quick,
+        (bytes_casts, bytes_bf16)))
     del net, table, row_state
     gc.collect()
     torch.cuda.empty_cache()
@@ -1871,6 +2251,11 @@ def phase_generate(torch, kernels, quick=False):
     check(same, f"f32 cached greedy tokens differ from the re-forward: "
                 f"{toks} vs {ref}")
     check(a_tok and a_keys and a_logp <= 1e-6, f"(a) in f32: {f32_row}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # speculative decoding: f32 greedy at 2 blocks, then the char-LSTM target
+    spec_f32_identity(torch, g, reqs)
+    phase_spec_char_lstm(torch)
     gc.collect()
     torch.cuda.empty_cache()
     # (c) the forward kernel at every prefill bucket; (d) the sampler
@@ -2580,6 +2965,8 @@ def phase_checkpoint(torch, kernels):
 CLI_GEN = dict(prompt=20, new=64, max_seq=128)
 CLI_GEN_OPTIONS = ["--steps-per-dispatch", "4", "--page-size", "16",
                    "--prefix-cache"]
+#: speculative decoding from the CLI (the draft's checkpoint follows)
+CLI_GEN_DRAFT = ["--spec-k", "3", "--draft"]
 
 
 def cli_generate_direct(torch, ckpt, prompt, temperature):
@@ -2677,6 +3064,10 @@ def phase_lstm_cli(torch, kernels):
             line, _, wall = run(gen_argv + ["--temperature", temp]
                                 + CLI_GEN_OPTIONS)
             generated[temp]["with_options"] = dict(line, wall_s=wall)
+            # speculative, the checkpoint its own draft: the same tokens
+            line, _, wall = run(gen_argv + ["--temperature", temp]
+                                + CLI_GEN_DRAFT + [ckpt])
+            generated[temp]["with_draft"] = dict(line, wall_s=wall)
         net = load_network(ckpt)
         direct = net.output(data.features).float().cpu().numpy()
         probs = np.loadtxt(csv_path, delimiter=",", skiprows=1,
@@ -2703,6 +3094,11 @@ def phase_lstm_cli(torch, kernels):
         check(opt["tokens"] == line["tokens"] and opt["fresh_compiles"] == 0,
               f"generate {' '.join(CLI_GEN_OPTIONS)} at temperature {temp}: "
               f"{opt} vs {line['tokens']}")
+        spec = line.pop("with_draft")
+        check(spec["tokens"] == line["tokens"]
+              and spec["fresh_compiles"] == 0,
+              f"generate {' '.join(CLI_GEN_DRAFT)} at temperature {temp}: "
+              f"{spec} vs {line['tokens']}")
         check(set(line) - {"wall_s", "direct"}
               == {"tokens", "n_tokens", "tokens_per_sec", "ttft_ms",
                   "fresh_compiles", "disk_cache"}

@@ -16,13 +16,14 @@ unless `--device cpu`):
 - `generate` loads a checkpoint of a generative model (char_lstm,
   char_transformer), captures its prefill and decode programs, and
   generates `--max-new-tokens` tokens after `--prompt` through a
-  one-slot `ContinuousBatcher` (with `--page-size`, `--prefix-cache` and
-  `--steps-per-dispatch` as its options), printing the JAX package's JSON
-  keys;
+  one-slot `ContinuousBatcher` (with `--page-size`, `--prefix-cache`,
+  `--steps-per-dispatch` and a `--draft` checkpoint with `--spec-k` as
+  its options), printing the JAX package's JSON keys;
 - `serve` loads a checkpoint, starts the micro-batching HTTP gateway (with
   `--generate`, also POST /v1/generate over a `--gen-slots` decode table,
-  its programs captured before the socket opens), prints a startup JSON
-  line, and on SIGTERM or SIGINT drains and prints a final JSON line.
+  its programs, and with `--gen-draft` the draft's, captured before the
+  socket opens), prints a startup JSON line, and on SIGTERM or SIGINT
+  drains and prints a final JSON line.
 Checkpoints are `conf.json` + `arrays.npz`, written by either package.
 
 The final JSON lines keep the JAX package's keys. `train`'s: `saved`,
@@ -31,8 +32,7 @@ The final JSON lines keep the JAX package's keys. `train`'s: `saved`,
 `cache_hits`, `cache_misses` and `infer_compile_seconds`; `disk_cache` is
 null, as a CUDA graph is not kept on disk. Options that are not ported exit
 naming their ROADMAP.md item: `--runtime mesh`, `--mesh` and `--zero1`
-(item 10), `--compile-cache` (item 11), pretraining recipes (item 9), and
-generation's draft model and speculative chunk (item 8).
+(item 10), `--compile-cache` (item 11) and pretraining recipes (item 9).
 """
 
 from __future__ import annotations
@@ -55,22 +55,7 @@ def _parse_properties(props: Optional[str]) -> dict:
     return out
 
 
-#: generation flags not ported (`generate` and `serve`): dest -> the part
-#: of ROADMAP.md queue A item 8 that ports it
-_UNPORTED_GENERATION = {
-    "gen_draft": "speculative decoding",
-    "gen_spec_k": "speculative decoding",
-}
-
-
 def _refuse_unported(args) -> None:
-    for dest, part in _UNPORTED_GENERATION.items():
-        value = getattr(args, dest, None)
-        if value not in (None, 0, False):
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(f"{flag} is not ported to "
-                             f"deeplearning4j_tpu_torch yet; see ROADMAP.md "
-                             f"queue A item 8 ({part})")
     if getattr(args, "compile_cache", None):
         raise SystemExit("--compile-cache is not ported to "
                          "deeplearning4j_tpu_torch yet (the step and serve "
@@ -281,6 +266,18 @@ def _parse_buckets(spec: str):
     return out
 
 
+def _gen_draft_net(args):
+    """--draft / --gen-draft CHECKPOINT: the loaded draft network (on the
+    target's device), or None."""
+    from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
+
+    if not args.gen_draft:
+        return None
+    if args.gen_spec_k < 2:
+        raise SystemExit("--gen-draft requires --gen-spec-k >= 2")
+    return load_network(args.gen_draft, device=args.device)
+
+
 def cmd_generate(args) -> int:
     """Generation from a checkpoint through the cached KV-cache path: the
     prefill takes the prompt, then a one-slot `ContinuousBatcher`'s decode
@@ -302,6 +299,7 @@ def cmd_generate(args) -> int:
     options = dict(max_seq=args.gen_max_seq, prompt_buckets=(bucket,),
                    page_size=args.gen_page_size,
                    prefix_cache=args.gen_prefix_cache,
+                   draft_net=_gen_draft_net(args), spec_k=args.gen_spec_k,
                    steps_per_dispatch=args.gen_steps_per_dispatch)
     net.warmup_generate(slots=1, **options)
     warmed_misses = net.infer_cache.stats.misses
@@ -332,15 +330,17 @@ def cmd_serve(args) -> int:
 
     _refuse_unported(args)
     net = load_network(args.model, device=args.device)
-    generation = None
+    generation = draft = None
     buckets = _parse_buckets(args.gen_prompt_buckets)
     if args.generate:
-        # the decode and prefill programs are captured before the socket
-        # opens, so generation starts from cache hits
+        # the decode and prefill programs (and the draft's) are captured
+        # before the socket opens, so generation starts from cache hits
+        draft = _gen_draft_net(args)
         generation = net.warmup_generate(
             slots=args.gen_slots, max_seq=args.gen_max_seq,
             prompt_buckets=buckets, page_size=args.gen_page_size,
             n_pages=args.gen_pages, prefix_cache=args.gen_prefix_cache,
+            draft_net=draft, spec_k=args.gen_spec_k,
             steps_per_dispatch=args.gen_steps_per_dispatch)
         generation.pop("infer_cache")
     server = net.serve(host=args.host, port=args.port,
@@ -357,6 +357,7 @@ def cmd_serve(args) -> int:
                        gen_pages=args.gen_pages,
                        gen_prefix_cache=args.gen_prefix_cache,
                        gen_prefix_match=args.gen_prefix_match,
+                       gen_draft=draft, gen_spec_k=args.gen_spec_k,
                        gen_steps_per_dispatch=args.gen_steps_per_dispatch)
     print(json.dumps({"url": server.url, "device": str(net.device),
                       "device_kind": device_kind(net.device),
@@ -414,7 +415,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 def _add_generate_flags(p: argparse.ArgumentParser) -> None:
     """`serve --generate` and its decode-table flags (the JAX package's
-    names); the speculative-decoding flags exit naming their item."""
+    names)."""
     p.add_argument("--generate", action="store_true",
                    help="also serve POST /v1/generate through a continuous-"
                         "batching decode table (programs captured first)")
@@ -451,9 +452,12 @@ def _add_generate_flags(p: argparse.ArgumentParser) -> None:
                         "the longest cached prefix (the rest fed through "
                         "the decode table)")
     p.add_argument("--gen-draft", dest="gen_draft", default=None,
-                   help="not ported yet (exits)")
+                   help="checkpoint dir of a small recurrent draft model "
+                        "for speculative decoding (requires --gen-spec-k)")
     p.add_argument("--gen-spec-k", dest="gen_spec_k", type=int, default=0,
-                   help="not ported yet (exits)")
+                   help="speculative chunk: the draft proposes spec_k - 1 "
+                        "tokens, one verify step accepts the agreeing "
+                        "prefix (the same tokens as without a draft)")
     p.add_argument("--gen-steps-per-dispatch",
                    dest="gen_steps_per_dispatch", type=int, default=None,
                    help="decode steps a dispatch, at most (K); the batcher "
@@ -534,9 +538,11 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_true",
                    help="keep the prompt's prefill by digest")
     g.add_argument("--draft", dest="gen_draft", default=None,
-                   help="not ported yet (exits)")
+                   help="draft-model checkpoint dir for speculative "
+                        "decoding (requires --spec-k)")
     g.add_argument("--spec-k", dest="gen_spec_k", type=int, default=0,
-                   help="not ported yet (exits)")
+                   help="speculative chunk size (>= 2; the draft proposes "
+                        "spec_k - 1 tokens a verify step)")
     g.add_argument("--steps-per-dispatch", dest="gen_steps_per_dispatch",
                    type=int, default=None,
                    help="decode steps a dispatch, at most (the same tokens "

@@ -39,8 +39,12 @@ ids (`decode_step_paged`); memory scales with the pages in use. The host
 (the infer cache's `decode_multi`): the JAX package's `lax.scan` is a
 Python loop of K steps here, so one CUDA graph holds the whole block.
 
-Not ported yet (ROADMAP.md queue A item 8): `verify_chunk*` (speculative
-decoding).
+`verify_chunk` / `verify_chunk_paged` (speculative decoding) advance every
+row K given tokens in one pass: the attention layers take the chunk at once
+(`MultiHeadAttentionLayer.verify_chunk`), the LSTM layers unroll `step`
+over it, and the logp of every chunk position comes back with each
+recurrent layer's carries after every position, so that the caller can
+roll them back to the accepted depth.
 """
 
 from __future__ import annotations
@@ -273,6 +277,72 @@ def decode_block(conf: MultiLayerConfiguration, params, state, tok, pos,
         pos = torch.where(active, pos + 1, pos)
         rem = torch.where(active, rem - 1, rem)
     return torch.stack(outs), tok, keys, state
+
+
+def _verify_chunk_impl(conf, params, state, toks, pos, page_table):
+    """The body of `verify_chunk` and `verify_chunk_paged`."""
+    types = check_generative(conf)
+    b, kk = toks.shape
+    idx = pos.long()[:, None] + torch.arange(kk, device=toks.device)
+    x = token_embed(conf, params, toks, idx)  # [B, K, n]
+    new_state, carries = [], []
+    for i, t in enumerate(types[:-1]):
+        c = conf.conf(i)
+        impl = get_layer(c.layer_type)
+        if t in _RECURRENT:
+            h, cc = state[i]["h"], state[i]["c"]
+            hs, cs = [], []
+            for j in range(kk):  # K is small and static: unrolled
+                h, cc = impl.step(params[i], c, x[:, j], h, cc)
+                hs.append(h)
+                cs.append(cc)
+            new_state.append({"h": h, "c": cc})
+            carries.append({"h": torch.stack(hs, dim=1),
+                            "c": torch.stack(cs, dim=1)})
+            x = carries[-1]["h"]
+        elif t == LayerType.ATTENTION:
+            if page_table is None:
+                x, kc, vc = impl.verify_chunk(params[i], c, x, state[i]["k"],
+                                              state[i]["v"], pos)
+            else:
+                x, kc, vc = impl.verify_chunk_paged(
+                    params[i], c, x, state[i]["k"], state[i]["v"], pos,
+                    page_table)
+            new_state.append({"k": kc, "v": vc})
+            carries.append({})
+        elif t == LayerType.TRANSFORMER_FFN:
+            x = impl.forward(params[i], c, x)
+            new_state.append({})
+            carries.append({})
+        else:  # EMBEDDING: token_embed consumed it
+            new_state.append({})
+            carries.append({})
+    logp = _log_probs(conf, params, len(types) - 1, x.reshape(b * kk, -1))
+    new_state.append({})
+    carries.append({})
+    return logp.reshape(b, kk, -1), tuple(new_state), tuple(carries)
+
+
+def verify_chunk(conf: MultiLayerConfiguration, params, state, toks, pos):
+    """Speculative verification: every row K tokens further in one pass.
+    toks [B, K] int (column 0 the row's current token, the rest a draft's
+    continuation), pos [B] int the position of column 0 (pos + K <= the
+    table's length). Returns (logp [B, K, vocab]: logp[:, i] is what
+    `decode_step` returns on the i-th of K one-token calls, the state:
+    attention caches written in place, the recurrent layers' (h, c) after
+    all K tokens, and carries: for each recurrent layer {"h", "c"} as
+    [B, K, hidden] stacks of its carries after each token, {} for every
+    other layer). A caller that accepts e < K tokens rolls a recurrent
+    layer back to index e - 1 of its stacks; attention needs no rollback,
+    since the rejected positions are written again before they are read."""
+    return _verify_chunk_impl(conf, params, state, toks, pos, None)
+
+
+def verify_chunk_paged(conf: MultiLayerConfiguration, params, state, toks,
+                       pos, page_table):
+    """`verify_chunk` over a paged state (page_table [B, pages_per_slot],
+    `MultiHeadAttentionLayer.verify_chunk_paged`)."""
+    return _verify_chunk_impl(conf, params, state, toks, pos, page_table)
 
 
 def prefill(conf: MultiLayerConfiguration, params, state, prompt, length):

@@ -1,10 +1,10 @@
 """Multi-head self-attention and the transformer FFN.
 
 Counterpart of `deeplearning4j_tpu/nn/layers/attention.py`: the forward
-pass, and the attention layer's `prefill`, dense `decode_step` and
-`decode_step_paged` of KV-cache generation (the verify variants of
-speculative decoding are ROADMAP.md queue A item 8's rest). Input and
-output are [batch, seq, n_in]; params are {"Wqkv", "bqkv", "Wo", "bo",
+pass, and the attention layer's `prefill`, `decode_step`,
+`decode_step_paged` and the `verify_chunk`/`verify_chunk_paged` of
+speculative decoding (a decode step is a verify chunk of one token). Input
+and output are [batch, seq, n_in]; params are {"Wqkv", "bqkv", "Wo", "bo",
 "ln_g", "ln_b"} and {"W1", "b1", "W2", "b2", "ln_g", "ln_b"}, as in the
 JAX package.
 """
@@ -107,26 +107,29 @@ class MultiHeadAttentionLayer:
 
     @staticmethod
     def _decode_qkv(params, conf, x):
-        """The current token's q, k, v rows ([B, n] each, compute dtype)."""
-        n = x.shape[1]
+        """The q, k, v rows of the tokens `x` ([..., n] each, compute
+        dtype)."""
+        n = x.shape[-1]
         xn = _layer_norm(x, params["ln_g"], params["ln_b"])
         qkv = (mixed_matmul(xn, params["Wqkv"], conf)
                + params["bqkv"]).to(compute_dtype(conf))
         return qkv.split(n, dim=-1)
 
     @staticmethod
-    def _decode_attend(params, conf, x, q, k_ctx, v_ctx, pos):
-        """The attention of one token a row over its context and the output
-        projection: q [B, n]; k_ctx, v_ctx [B, ctx, n], the row's K/V rows
-        by position; pos [B]. Scores are [B, H, ctx], one sequence-long
-        axis, and key positions > pos get the additive -1e30 mask of
-        `nd.attention.full_attention`, as in the JAX package."""
-        b, n = x.shape
+    def _decode_attend(params, conf, x, q, k_ctx, v_ctx, idx):
+        """The attention of K tokens a row over the row's context and the
+        output projection: x, q [B, K, n]; k_ctx, v_ctx [B, ctx, n], the
+        row's K/V rows by position; idx [B, K], each token's position.
+        Scores are [B, H, K, ctx], one sequence-long axis, and token i sees
+        key positions <= idx[:, i] (the additive -1e30 mask of
+        `nd.attention.full_attention`, as in the JAX package), so a chunk's
+        rows are those of K one-token steps."""
+        b, kk, n = x.shape
         h = conf.n_heads
         hd = n // h
         cd = compute_dtype(conf)
         ctx = k_ctx.shape[1]
-        qh = q.reshape(b, h, 1, hd)
+        qh = q.reshape(b, kk, h, hd).transpose(1, 2)
         kh = k_ctx.to(cd).view(b, ctx, h, hd)
         vh = v_ctx.to(cd).view(b, ctx, h, hd)
         # one batched product over the heads a row: a row's K^T
@@ -134,45 +137,70 @@ class MultiHeadAttentionLayer:
         # that cuBLAS reads in place, where one product over (b, h) would
         # first copy the whole context
         s = torch.stack([torch.bmm(qh[i], kh[i].permute(1, 2, 0))
-                         for i in range(b)])[:, :, 0] / float(
+                         for i in range(b)]) / float(
             torch.tensor(math.sqrt(hd), dtype=cd))
-        kpos = torch.arange(ctx, device=x.device)[None, :]
-        mask = torch.where(kpos <= pos.long()[:, None], 0.0,
+        kpos = torch.arange(ctx, device=x.device)[None, None, :]
+        mask = torch.where(kpos <= idx.long()[:, :, None], 0.0,
                            _NEG_BIG).to(s.dtype)
-        p = torch.softmax(s + mask[:, None, :], dim=-1)
-        o = torch.stack([torch.bmm(p[i][:, None], vh[i].permute(1, 0, 2))
+        p = torch.softmax(s + mask[:, None], dim=-1)
+        o = torch.stack([torch.bmm(p[i], vh[i].permute(1, 0, 2))
                          for i in range(b)])
-        o = mixed_matmul(o.reshape(b, n).to(x.dtype), params["Wo"],
-                         conf) + params["bo"]
+        o = mixed_matmul(o.transpose(1, 2).reshape(b, kk, n).to(x.dtype),
+                         params["Wo"], conf) + params["bo"]
         return x + o
 
     @staticmethod
     def decode_step(params, conf, x, k_cache, v_cache, pos):
-        """One generated token against the KV cache.
+        """One generated token against the KV cache: `verify_chunk` of one
+        token.
 
         x: [B, n], the current token's hidden row; caches: [B, max_S, n];
-        pos: [B] int, the position each row writes. The new K/V row is
-        written at `pos` in place (indexing with device tensors, no host
-        read), then the row attends over its whole cache
-        (`_decode_attend`)."""
-        q, k, v = MultiHeadAttentionLayer._decode_qkv(params, conf, x)
-        rows = torch.arange(x.shape[0], device=x.device)
-        p64 = pos.long()
-        k_cache[rows, p64] = k.to(k_cache.dtype)
-        v_cache[rows, p64] = v.to(v_cache.dtype)
-        out = MultiHeadAttentionLayer._decode_attend(params, conf, x, q,
-                                                     k_cache, v_cache, pos)
-        return out, k_cache, v_cache
+        pos: [B] int, the position each row writes. Returns (hidden [B, n],
+        k_cache, v_cache)."""
+        out, k_cache, v_cache = MultiHeadAttentionLayer.verify_chunk(
+            params, conf, x[:, None], k_cache, v_cache, pos)
+        return out[:, 0], k_cache, v_cache
 
     @staticmethod
     def decode_step_paged(params, conf, x, k_pool, v_pool, pos, page_table):
-        """`decode_step` against a shared physical page pool.
+        """`decode_step` against a shared physical page pool:
+        `verify_chunk_paged` of one token."""
+        out, k_pool, v_pool = MultiHeadAttentionLayer.verify_chunk_paged(
+            params, conf, x[:, None], k_pool, v_pool, pos, page_table)
+        return out[:, 0], k_pool, v_pool
 
-        x: [B, n]; pools: [n_pages, page_size, n]; pos: [B] int;
-        page_table: [B, pages_per_slot] int of physical page ids. The new
-        K/V row is written in place at (page_table[b, pos // ps], pos % ps),
-        and the row's pages are gathered back into one
-        [B, pages_per_slot * ps, n] context for the dense step's own score
+    @staticmethod
+    def verify_chunk(params, conf, x, k_cache, v_cache, pos):
+        """K tokens a row at once against the KV cache (speculative
+        verification; one token is `decode_step`).
+
+        x: [B, K, n], the chunk's hidden rows; caches: [B, max_S, n]; pos:
+        [B] int, the position of each row's first chunk token. Token i's
+        K/V row is written at pos + i in place (indexing with device
+        tensors, no host read), and token i attends to key positions
+        <= pos + i (`_decode_attend`), the mask the i-th of K one-token
+        steps would apply. The caller keeps pos + K <= max_S. Positions a
+        caller rejects need no rollback: its next call writes them before
+        it reads them. Returns (hidden [B, K, n], k_cache, v_cache)."""
+        q, k, v = MultiHeadAttentionLayer._decode_qkv(params, conf, x)
+        b, kk = x.shape[:2]
+        rows = torch.arange(b, device=x.device)[:, None]
+        idx = pos.long()[:, None] + torch.arange(kk, device=x.device)
+        k_cache[rows, idx] = k.to(k_cache.dtype)
+        v_cache[rows, idx] = v.to(v_cache.dtype)
+        out = MultiHeadAttentionLayer._decode_attend(params, conf, x, q,
+                                                     k_cache, v_cache, idx)
+        return out, k_cache, v_cache
+
+    @staticmethod
+    def verify_chunk_paged(params, conf, x, k_pool, v_pool, pos, page_table):
+        """`verify_chunk` against a shared physical page pool.
+
+        x: [B, K, n]; pools: [n_pages, page_size, n]; pos: [B] int;
+        page_table: [B, pages_per_slot] int of physical page ids. Token i's
+        K/V row is written in place at (page_table[b, idx // ps], idx % ps)
+        with idx = pos + i, and the row's pages are gathered back into one
+        [B, pages_per_slot * ps, n] context for the dense chunk's own score
         code: where max_seq is a whole number of pages, the operands have
         the dense cache's shape and layout and the same products run, so
         paged tokens equal dense ones bit for bit. Table entries not
@@ -182,20 +210,20 @@ class MultiHeadAttentionLayer:
         indices in one write: which value lands there is unspecified, and
         nothing reads it unmasked."""
         q, k, v = MultiHeadAttentionLayer._decode_qkv(params, conf, x)
-        b = x.shape[0]
+        b, kk = x.shape[:2]
         ps = k_pool.shape[1]
-        rows = torch.arange(b, device=x.device)
-        p64 = pos.long()
+        rows = torch.arange(b, device=x.device)[:, None]
+        idx = pos.long()[:, None] + torch.arange(kk, device=x.device)
         table = page_table.long()
-        phys = table[rows, p64 // ps]
-        off = p64 % ps
+        phys = table[rows, idx // ps]
+        off = idx % ps
         k_pool[phys, off] = k.to(k_pool.dtype)
         v_pool[phys, off] = v.to(v_pool.dtype)
         ctx = table.shape[1] * ps
         k_ctx = k_pool[table].view(b, ctx, -1)
         v_ctx = v_pool[table].view(b, ctx, -1)
         out = MultiHeadAttentionLayer._decode_attend(params, conf, x, q,
-                                                     k_ctx, v_ctx, pos)
+                                                     k_ctx, v_ctx, idx)
         return out, k_pool, v_pool
 
     @staticmethod

@@ -298,10 +298,13 @@ class MultiLayerNetwork:
         `slots`-wide table (over the page pool with `page_size` > 0), every
         K of the ladder up to `steps_per_dispatch` (a ramp dispatches each
         of them, K = 1 included), and one B = 1 prefill per prompt bucket
-        (`prefill_logp` under `prefix_cache`). So `fresh_compiles` stays 0
-        under traffic. Speculative decoding raises NotImplementedError
-        (ROADMAP.md queue A item 8). Returns the geometry and the infer
-        cache's stats."""
+        (`prefill_logp` under `prefix_cache`); with `draft_net` and
+        `spec_k`, also the `spec_k`-token verify (`verify_paged` with
+        `page_size` > 0) and, on the draft's own states, its one-step
+        decode over the table and one prefill per prompt bucket. So
+        `fresh_compiles` stays 0 under traffic. The options a batcher
+        refuses raise here too. Returns the geometry and the infer cache's
+        stats."""
         from deeplearning4j_tpu_torch.serving.batcher import (
             decode_geometry, decode_k_ladder)
 
@@ -310,6 +313,7 @@ class MultiLayerNetwork:
         if self.params is None:
             self.init()
         slots, ps, k_max = geo["slots"], geo["page_size"], geo["k_max"]
+        spec_k = geo["spec_k"]
         ic, dev = self.infer_cache, self.device
         zeros = torch.zeros((slots,), dtype=torch.int32, device=dev)
         keys = torch.zeros((slots, 2), dtype=torch.int64, device=dev)
@@ -333,6 +337,22 @@ class MultiLayerNetwork:
             for k in ladder:
                 ic.decode_multi(self.conf, self.params, table, zeros, zeros,
                                 keys, temps, zeros, k, compile_only=True)
+        if draft_net is not None:
+            toks = torch.zeros((slots, spec_k), dtype=torch.int32,
+                               device=dev)
+            if ps > 0:
+                ic.verify_paged(self.conf, self.params, table, toks, zeros,
+                                keys, temps, page_table, compile_only=True)
+            else:
+                ic.verify(self.conf, self.params, table, toks, zeros, keys,
+                          temps, compile_only=True)
+            dn, dic = draft_net, draft_net.infer_cache
+            dn_table = dic.decode_state(dn.conf, slots, max_seq, dn.device,
+                                        "draft")
+            dic.decode(dn.conf, dn.params, dn_table, zeros, zeros, keys,
+                       temps, compile_only=True)
+            dn_row = dic.decode_state(dn.conf, 1, max_seq, dn.device,
+                                      "draft-row")
         row = ic.decode_state(self.conf, 1, max_seq, dev, "row")
         buckets = sorted(int(b) for b in prompt_buckets)
         for tb in buckets:
@@ -347,9 +367,12 @@ class MultiLayerNetwork:
             else:
                 ic.prefill(self.conf, self.params, row, prompt, length,
                            keys[:1], temps[:1], compile_only=True)
+            if draft_net is not None:
+                dic.prefill(dn.conf, dn.params, dn_row, prompt, length,
+                            keys[:1], temps[:1], compile_only=True)
         return {"slots": slots, "max_seq": int(max_seq),
                 "prompt_buckets": buckets, "page_size": ps,
-                "prefix_cache": bool(prefix_cache), "spec_k": 0,
+                "prefix_cache": bool(prefix_cache), "spec_k": spec_k,
                 "steps_per_dispatch": k_max,
                 "infer_cache": ic.stats.as_dict()}
 
@@ -543,6 +566,7 @@ class MultiLayerNetwork:
               gen_page_size: Optional[int] = None, gen_pages: int = 0,
               gen_prefix_cache: bool = False,
               gen_prefix_match: str = "exact",
+              gen_draft=None, gen_spec_k: int = 0,
               gen_steps_per_dispatch: Optional[int] = None):
         """Start the micro-batching HTTP gateway over this network
         (`serving.ModelServer`): POST /v1/predict, GET /v1/stats, /healthz,
@@ -567,6 +591,7 @@ class MultiLayerNetwork:
                            gen_page_size=gen_page_size, gen_pages=gen_pages,
                            gen_prefix_cache=gen_prefix_cache,
                            gen_prefix_match=gen_prefix_match,
+                           gen_draft=gen_draft, gen_spec_k=gen_spec_k,
                            gen_steps_per_dispatch=gen_steps_per_dispatch
                            ).start()
 

@@ -21,7 +21,7 @@ the `CompiledProgramCache` machinery of `optimize/step_cache.py`:
 
 Generation (the JAX package's `init_decode_state`, `decode`, `prefill`,
 `init_paged_decode_state`, `decode_paged`, `decode_multi`,
-`decode_multi_paged` and `prefill_logp`):
+`decode_multi_paged`, `prefill_logp`, `verify` and `verify_paged`):
 
   key schema    (entry point, conf fingerprint, arg signature with the
                 state's leaves, "single"), the JAX package's.
@@ -48,11 +48,15 @@ Generation (the JAX package's `init_decode_state`, `decode`, `prefill`,
                 them back.
   paged         the page pool is a state of its own role, keyed by its
                 (n_pages, page_size); the page table is a static input.
+  verify        speculative decoding's K-token step: one graph
+                chain-samples K tokens with each row's key stream (the
+                splits K one-step calls would make) and rolls the recurrent
+                carries back to the accepted depth in the program
+                (`_accepted_len`, `_rollback_carries`).
 
-The verify entry points of speculative decoding are the rest of
-ROADMAP.md queue A item 8; the mesh and plan entry points come with
-parallelism (item 10) and the precision policies with serving-side
-optimisation (item 11).
+The mesh and plan entry points come with parallelism (ROADMAP.md queue A
+item 10) and the precision policies with serving-side optimisation (item
+11).
 """
 
 from __future__ import annotations
@@ -342,6 +346,38 @@ class InferCache(CompiledProgramCache):
             (length, torch.int32))
         return None if compile_only else (logp, state)
 
+    def verify(self, conf, params, state, toks, pos, keys, temps,
+               compile_only: bool = False):
+        """Speculative verification over the whole slot table: toks [B, K]
+        int (column 0 each row's current token, columns 1..K-1 a draft's
+        proposals), pos [B] int the position of column 0, keys [B, 2],
+        temps [B]. One program advances every row K positions
+        (`nn/decode.verify_chunk`), chain-samples K tokens with the row's
+        key stream, the splits K one-step `decode` calls would make
+        (`_sample_chain`), and rolls each recurrent layer's carries back to
+        the row's accepted depth: 1 + the leading proposals equal to the
+        samples before them (`_accepted_len`). Returns (sampled [B, K]
+        int32, keys_after [B, K, 2]: the keys after accepting 1..K tokens,
+        state), the state written in place; the first two are device
+        copies, and a CUDA `toks` (a draft's own proposals) is not checked
+        on the host."""
+        out = self._generation(
+            "verify", lambda: _verify_program(conf, False), conf, params,
+            state, _read_tokens, compile_only, toks, (pos, torch.int32),
+            (keys, torch.int64), (temps, torch.float32))
+        return None if compile_only else (*out, state)
+
+    def verify_paged(self, conf, params, state, toks, pos, keys, temps,
+                     page_table, compile_only: bool = False):
+        """`verify` over a paged state ("verify-paged"): the caller has
+        allocated the pages of all K positions."""
+        out = self._generation(
+            "verify-paged", lambda: _verify_program(conf, True), conf, params,
+            state, _read_tokens, compile_only, toks, (pos, torch.int32),
+            (keys, torch.int64), (temps, torch.float32),
+            (page_table, torch.int32))
+        return None if compile_only else (*out, state)
+
     def loss(self, conf, params, x, y, compile_only: bool = False):
         """`network_loss(training=False)` through the cache: the row-weighted
         mean loss over the real rows plus regularization, a 0-d float32
@@ -448,6 +484,60 @@ def _decode_block_program(conf, k: int, paged: bool) -> Callable:
             return decode_mod.decode_block(
                 conf, params, state, tok, pos, keys, temps, rem, k,
                 _sample_f32, page_table=page_table[0] if paged else None)
+
+    return program
+
+
+def _sample_chain(logp, keys, temps):
+    """One token a chunk position: position i draws from logp[:, i] with
+    the keys position i - 1 left, the splits K one-step samplers make.
+    Returns (toks [B, K] int32, keys_after [B, K, 2])."""
+    toks, keys_after = [], []
+    for i in range(logp.shape[1]):
+        t, keys = nd_random.sample_tokens(logp[:, i], keys, temps)
+        toks.append(t)
+        keys_after.append(keys)
+    return torch.stack(toks, dim=1), torch.stack(keys_after, dim=1)
+
+
+def _accepted_len(toks, sampled):
+    """Each row's accepted depth, in the program: e = 1 + the number of
+    leading proposals toks[:, 1:] equal to the samples sampled[:, :-1]
+    before them. Integer comparisons, so it equals the host's count on the
+    read-back arrays."""
+    b, kk = toks.shape
+    if kk == 1:
+        return torch.ones((b,), dtype=torch.int64, device=toks.device)
+    agree = (toks[:, 1:].long() == sampled[:, :-1].long()).long()
+    return 1 + torch.cumprod(agree, dim=1).sum(dim=1)
+
+
+def _rollback_carries(state, carries, e):
+    """`state` with each recurrent layer's (h, c) replaced by its carries
+    after the e-th chunk token (index e - 1 of the [B, K, hidden] stacks):
+    a carry advanced past the accepted tokens would condition every later
+    token on rejected ones. Attention layers keep theirs."""
+    rows = torch.arange(e.shape[0], device=e.device)
+    return tuple({k: v[rows, e - 1] for k, v in car.items()} if car else lay
+                 for lay, car in zip(state, carries))
+
+
+def _verify_program(conf, paged: bool) -> Callable:
+    from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+    def program(ps, toks, pos, keys, temps, *page_table):
+        params, state = ps
+        with torch.inference_mode():
+            if paged:
+                logp, new, carries = decode_mod.verify_chunk_paged(
+                    conf, params, state, toks, pos, *page_table)
+            else:
+                logp, new, carries = decode_mod.verify_chunk(
+                    conf, params, state, toks, pos)
+            sampled, keys_after = _sample_chain(logp.float(), keys, temps)
+            new = _rollback_carries(new, carries,
+                                    _accepted_len(toks, sampled))
+        return sampled, keys_after, new
 
     return program
 

@@ -31,11 +31,11 @@ decode call over every slot (on CUDA, one graph replay), a stream that
 finishes frees its slot, and the next queued stream is admitted into it by
 a B = 1 prefill on the very next step. Its options are the JAX package's:
 several steps a dispatch, pipelined (`steps_per_dispatch`), a paged KV pool
-(`page_size`, `n_pages`) and the prefix cache (`prefix_cache`,
-`prefix_match`), each off by default (`DEFAULT_SLOTS`, `DEFAULT_PAGE_SIZE`,
-`DEFAULT_STEPS_PER_DISPATCH`: the JAX package's registry defaults).
-Speculative decoding raises NotImplementedError naming ROADMAP.md queue A
-item 8.
+(`page_size`, `n_pages`), the prefix cache (`prefix_cache`,
+`prefix_match`) and speculative decoding with a recurrent draft model
+(`draft_net`, `spec_k`), each off by default (`DEFAULT_SLOTS`,
+`DEFAULT_PAGE_SIZE`, `DEFAULT_STEPS_PER_DISPATCH`: the JAX package's
+registry defaults).
 """
 
 from __future__ import annotations
@@ -78,6 +78,10 @@ LATENCY_BUCKETS_S = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
 #: histogram bounds of decode steps a dispatch (K of a block), the JAX
 #: package's
 DECODE_BLOCK_STEPS_BOUNDS = (1, 2, 4, 8, 16)
+
+#: histogram bounds of the tokens a slot accepts in a speculative round (at
+#: least 1), the JAX package's
+ACCEPTED_TOKENS_BOUNDS = (1, 2, 3, 4, 6, 8, 12, 16)
 
 
 class ServerOverloaded(RuntimeError):
@@ -395,19 +399,6 @@ DEFAULT_PAGE_SIZE = 0
 #: prefix-cache entries kept in memory by a batcher (LRU), the JAX package's
 PREFIX_CACHE_ENTRIES = 32
 
-_UNPORTED = "is not ported to deeplearning4j_tpu_torch yet; see ROADMAP.md " \
-            "queue A item 8"
-
-
-def check_generation_options(draft_net=None, spec_k=0) -> None:
-    """Raise NotImplementedError for speculative decoding (a draft model,
-    `spec_k`), the part of ROADMAP.md queue A item 8 not ported; nothing
-    falls back to another path in its place."""
-    if draft_net is not None or spec_k:
-        raise NotImplementedError(f"speculative decoding (draft_net, "
-                                  f"spec_k) {_UNPORTED} (verify_chunk)")
-
-
 def decode_k_ladder(k_max: int) -> Tuple[int, ...]:
     """The block sizes the batcher's adaptive K may dispatch under a ceiling
     of `k_max`: every power of two below it, then `k_max` (the JAX
@@ -428,20 +419,49 @@ def decode_geometry(n_slots=None, max_seq: int = 64, page_size=None,
     """The decode table a `ContinuousBatcher` runs and `warmup_generate`
     captures, from the caller's options and the defaults: slots, page size,
     pages a slot and usable pages (0 and 0 for the dense table; the pool
-    holds one more, the scratch page 0), and the largest K a dispatch.
-    Refuses the options not ported and a K below 1."""
-    check_generation_options(draft_net, spec_k)
+    holds one more, the scratch page 0), the largest K a dispatch and the
+    speculative chunk (0 without a draft, as in the JAX package). Raises
+    the JAX package's ValueErrors for a K below 1 and for a draft it cannot
+    speculate with: `spec_k` < 2, a draft with attention (its rejected
+    tokens roll back to retained carries), a `max_seq` past the draft's
+    positional table, `steps_per_dispatch` > 1."""
+    from deeplearning4j_tpu_torch.nn import decode as decode_mod
+    from deeplearning4j_tpu_torch.nn.conf import LayerType
+
     slots = DEFAULT_SLOTS if n_slots is None else int(n_slots)
     ps = DEFAULT_PAGE_SIZE if page_size is None else int(page_size)
     k_max = (DEFAULT_STEPS_PER_DISPATCH if steps_per_dispatch is None
              else int(steps_per_dispatch))
     if k_max < 1:
         raise ValueError(f"steps_per_dispatch must be >= 1, got {k_max}")
+    spec_k = int(spec_k) if draft_net is not None else 0
+    if draft_net is not None:
+        if spec_k < 2:
+            raise ValueError(
+                "speculative decoding needs spec_k >= 2 (current token + at "
+                "least one draft position per verify)")
+        d_types = decode_mod.check_generative(draft_net.conf)
+        if LayerType.ATTENTION in d_types:
+            raise ValueError(
+                "the draft model must be recurrent-only: rejected draft "
+                "tokens roll its carries back to a retained copy, which K/V "
+                "tables are too large to retain per position")
+        dbound = decode_mod.positional_bound(draft_net.conf)
+        if dbound and int(max_seq) > dbound:
+            raise ValueError(
+                f"max_seq={max_seq} exceeds the DRAFT model's positional "
+                f"table (max_seq_len={dbound})")
+        if k_max > 1:
+            raise ValueError(
+                "speculative decoding is pinned to steps_per_dispatch=1: "
+                "draft/verify rounds already advance multiple positions per "
+                "dispatch and roll draft carries back per round; drop "
+                "spec_k or steps_per_dispatch")
     per_slot = -(-int(max_seq) // ps) if ps > 0 else 0
     return {"slots": slots, "page_size": max(ps, 0),
             "pages_per_slot": per_slot,
             "n_pages": (int(n_pages) or slots * per_slot) if ps > 0 else 0,
-            "k_max": k_max}
+            "k_max": k_max, "spec_k": spec_k}
 
 
 class PagesExhausted(RuntimeError):
@@ -508,6 +528,17 @@ def _host_sample(logp, key, temperature: float):
     else:
         tok = int(torch.argmax(logp))
     return tok, new_key.numpy().astype(np.uint32)
+
+
+def _on_device(a: np.ndarray, device):
+    """A host array on `device`, from a pinned copy without blocking when
+    the device is a card (the caller may rewrite `a` at once)."""
+    import torch
+
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone().to(device)
 
 
 def _host_copy(t):
@@ -687,15 +718,25 @@ class ContinuousBatcher:
                     `prefix_match="longest"` also reuses the longest cached
                     strict prefix and feeds the rest of the prompt through
                     the decode table.
+    draft_net, spec_k  speculative decoding: a recurrent-only draft network
+                    proposes spec_k - 1 tokens a slot (greedily, from its own
+                    slot table kept in lockstep with the target's), and one
+                    `InferCache.verify` advances every slot spec_k positions,
+                    chain-samples spec_k tokens with the slot's own keys and
+                    rolls the target's carries back in the program; the slot
+                    emits the samples up to the first disagreement (at least
+                    one), and the draft's carries roll back to a copy kept
+                    after each of its steps. The emitted tokens are the
+                    target's own samples, so streams are the one-step
+                    path's at any temperature. K pins to 1.
 
     A fault at the `decode.step` point ends that slot's stream only (inside
     a block it fires for every scheduled position), one at
     `generate.admit` the admitted stream only, one at `decode.page_alloc`
     the stream being grown, and one at `generate.prefix_lookup` gives a
     counted miss and a cold prefill. A failed decode call (a capture that
-    raises included) ends every stream it was decoding, and nothing falls
-    back to another path. Speculative decoding raises NotImplementedError
-    (ROADMAP.md queue A item 8)."""
+    raises included, and a draft step's or a verify's) ends every stream it
+    was decoding, and nothing falls back to another path."""
 
     def __init__(self, net, n_slots: Optional[int] = None, max_seq: int = 64,
                  prompt_buckets: Tuple[int, ...] = (8,),
@@ -727,6 +768,22 @@ class ContinuousBatcher:
                 f"max_seq={self.max_seq} exceeds the learned positional "
                 f"table (max_seq_len={bound}); decoding past it would read "
                 f"P[pos] out of range")
+        # -- speculative decoding (decode_geometry checked the draft) --------
+        self.draft_net = draft_net
+        self.spec_k = geo["spec_k"]
+        if draft_net is not None:
+            # tokens pass between the two nets on the device, unchecked
+            vocab = [(c.conf(0).n_in, c.conf(c.n_layers - 1).n_out)
+                     for c in (net.conf, draft_net.conf)]
+            if vocab[0] != vocab[1]:
+                raise ValueError(
+                    f"the draft's vocabulary (in, out) {vocab[1]} is not "
+                    f"the target's {vocab[0]}")
+        self._draft_state = None           # the draft's [n_slots] rows
+        self._draft_row = None             # its B = 1 admission row
+        self._draft_zeros = None           # its keys and temperatures
+        self._spec_rounds = 0
+        self._accept_hist = _new_hist(ACCEPTED_TOKENS_BOUNDS)
         # -- paged KV (page 0 is the scratch page) --------------------------
         self.page_size = geo["page_size"]
         self.paged = self.page_size > 0
@@ -792,6 +849,8 @@ class ContinuousBatcher:
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "ContinuousBatcher":
+        import torch
+
         with self._cv:
             if self._thread is not None:
                 return self
@@ -809,6 +868,20 @@ class ContinuousBatcher:
                 self._row = ic.claim_decode_state(
                     net.conf, 1, self.max_seq, net.device, "row")
                 ic.reset_state(self._state)
+                if self.draft_net is not None:
+                    # roles of their own: a draft net may also serve as a
+                    # target elsewhere
+                    dn = self.draft_net
+                    self._draft_state = dn.infer_cache.claim_decode_state(
+                        dn.conf, self.n_slots, self.max_seq, dn.device,
+                        "draft")
+                    self._draft_row = dn.infer_cache.claim_decode_state(
+                        dn.conf, 1, self.max_seq, dn.device, "draft-row")
+                    ic.reset_state(self._draft_state)
+                    self._draft_zeros = (
+                        torch.zeros((self.n_slots, 2), dtype=torch.int64,
+                                    device=dn.device),
+                        torch.zeros((self.n_slots,), device=dn.device))
             self._thread = threading.Thread(
                 target=self._decode_loop, name="dl4j-torch-decode",
                 daemon=True)
@@ -829,6 +902,11 @@ class ContinuousBatcher:
                 ic.release_state(self._state)
                 ic.release_state(self._row)
                 self._state = self._row = None
+                if self._draft_state is not None:
+                    dic = self.draft_net.infer_cache
+                    dic.release_state(self._draft_state)
+                    dic.release_state(self._draft_row)
+                    self._draft_state = self._draft_row = None
 
     # -- request side (any thread) ------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16,
@@ -909,6 +987,10 @@ class ContinuousBatcher:
         try:
             tok0, key1, row = self._first_token(stream, hit)
             self._scatter_row(slot, row, pages)
+            if self.draft_net is not None:
+                # the draft consumes the m tokens the target's row has, so
+                # that feed steps advance both in lockstep
+                self._draft_admit(slot, stream.prompt[:m])
         except BaseException:
             if pages:
                 self._pool.free(pages)
@@ -1007,6 +1089,28 @@ class ContinuousBatcher:
             self._page_table[slot, :] = 0
             self._page_table[slot, :len(pages)] = pages
 
+    def _draft_admit(self, slot: int, prompt: np.ndarray) -> None:
+        """Prefill the draft's admission row over `prompt` (the tokens the
+        target's row has consumed) and copy it into the draft's row
+        `slot`. The draft decodes greedily with a zero key: its proposals
+        only gate acceptance, they are never emitted."""
+        import torch
+
+        dn = self.draft_net
+        dic = dn.infer_cache
+        m = int(prompt.shape[0])
+        pb = np.zeros((1, self._prompt_bucket(m)), np.int32)
+        pb[0, :m] = prompt
+        dic.reset_state(self._draft_row)
+        _, _, row = dic.prefill(dn.conf, dn.params, self._draft_row, pb,
+                                np.asarray([m], np.int32),
+                                np.zeros((1, 2), np.uint32),
+                                np.zeros((1,), np.float32))
+        with torch.no_grad():
+            for lay, r in zip(self._draft_state, row):
+                for name, tbl in lay.items():
+                    tbl[slot].copy_(r[name][0], non_blocking=True)
+
     # -- prefix cache -------------------------------------------------------
     def _prefix_digest(self, prompt: np.ndarray) -> str:
         """The key of a prompt's prefill: its tokens, the conf fingerprint,
@@ -1074,6 +1178,9 @@ class ContinuousBatcher:
         page, and restart the ramp (the slot set changed)."""
         self._slots[slot] = None
         self._temps[slot] = 0.0
+        # an empty row decodes at position 0, so a verify's K positions
+        # stay inside the table
+        self._pos[slot] = 0
         self._feed[slot] = []
         self._ramp = 1
         if self.paged:
@@ -1169,7 +1276,10 @@ class ContinuousBatcher:
         """One table step: the per-slot fault point (a raise ends THAT
         stream only), one decode call over every slot, then each slot's
         token delivered (or its next prompt token fed) and finished slots
-        freed."""
+        freed. With a draft, a speculative round (`_spec_once`) instead
+        while no slot feeds prompt tokens and every slot has room for
+        spec_k more; otherwise the draft steps over the same tokens, in
+        lockstep."""
         import torch
 
         t0 = time.monotonic()
@@ -1181,10 +1291,18 @@ class ContinuousBatcher:
                             pos=int(self._pos[slot]))
             except BaseException as e:  # noqa: BLE001 — isolate the stream
                 self._release_slot(slot, stream, error=e)
+        active = [s for s, st in enumerate(self._slots) if st is not None]
+        if not active:
+            return
+        if (self.spec_k and not any(self._feed[s] for s in active)
+                and all(int(self._pos[s]) + self.spec_k <= self.max_seq
+                        for s in active)):
+            self._spec_once()
+            return
         if self.paged:
             self._lazy_alloc(1)
-        if not any(s is not None for s in self._slots):
-            return
+            if not any(s is not None for s in self._slots):
+                return
         ic, net = self.net.infer_cache, self.net
         try:
             if self.paged:
@@ -1195,6 +1313,8 @@ class ContinuousBatcher:
                 tok2, keys2, _ = ic.decode(
                     net.conf, net.params, self._state, self._tok,
                     self._pos, self._keys, self._temps)
+            if self.draft_net is not None:
+                self._draft_step(self._tok, self._pos)
             # one read-back for tokens and keys
             t_get = time.monotonic()
             both = torch.cat([tok2.long()[:, None], keys2], dim=1).cpu()
@@ -1236,14 +1356,150 @@ class ContinuousBatcher:
         trailing rate window, the block-size histogram, and the host's share
         (wall less the time spent waiting for the device's answer)."""
         with self._cv:
-            self._tokens_total += emitted
-            self._recent_tokens.append((now, emitted))
-            while (self._recent_tokens
-                   and now - self._recent_tokens[0][0] > RATE_WINDOW_S):
-                self._recent_tokens.popleft()
-            self._host_s += max(wall - wait, 0.0)
-            self._wall_s += wall
+            self._note_locked(wall, wait, emitted, now)
             _hist_add(self._blk_hist, DECODE_BLOCK_STEPS_BOUNDS, k)
+
+    def _note_locked(self, wall: float, wait: float, emitted: int,
+                     now: float) -> None:
+        """Tokens, the rate window and the host's share of one dispatch
+        (the caller holds `_cv`)."""
+        self._tokens_total += emitted
+        self._recent_tokens.append((now, emitted))
+        while (self._recent_tokens
+               and now - self._recent_tokens[0][0] > RATE_WINDOW_S):
+            self._recent_tokens.popleft()
+        self._host_s += max(wall - wait, 0.0)
+        self._wall_s += wall
+
+    # -- speculative rounds (decode-loop thread) -----------------------------
+    def _draft_carries(self) -> list:
+        """The draft table's carry tensors, (h, c) a recurrent layer."""
+        return [lay[name] for lay in self._draft_state
+                for name in ("h", "c") if name in lay]
+
+    def _draft_step(self, tok, pos):
+        """One greedy draft decode over the draft's table (zero keys and
+        temperatures, kept on its device), its carries written in place:
+        the proposals, a device tensor."""
+        dn = self.draft_net
+        nxt, _, _ = dn.infer_cache.decode(
+            dn.conf, dn.params, self._draft_state, tok, pos,
+            *self._draft_zeros)
+        return nxt
+
+    def _spec_once(self) -> None:
+        """One speculative round. The draft proposes spec_k - 1 tokens a
+        slot, then steps once more so that its retained carries reach depth
+        spec_k (a copy of its carries kept after each step; its tokens stay
+        on the device). One verify over the table chain-samples spec_k
+        target tokens against [current token, proposals] and rolls the
+        target's carries back to each slot's accepted depth in the
+        program. One read-back of (proposals, samples, keys), then each
+        slot emits its samples up to the first proposal that disagrees
+        with the sample before it (the budget cuts emission only), takes
+        the key after the last accepted token, and the draft's carries are
+        set to the copy at that depth (an empty slot keeps depth 0).
+
+        Parity: sample i is conditioned on the tokens emitted before it,
+        since the chain is cut where a proposal differs from the sample
+        the stream emitted there, and the key advances once a token
+        accepted, so the streams are the one-step path's at any
+        temperature. Rejected K/V rows are written again before they are
+        read. A failed draft step or verify ends every stream of the
+        table; nothing falls back to one-step decoding."""
+        import torch
+
+        t0 = time.monotonic()
+        ic, net = self.net.infer_cache, self.net
+        k, nb = self.spec_k, self.n_slots
+        dev = self.draft_net.device
+        carries = self._draft_carries()
+        try:
+            ladder = [[t.clone() for t in carries]]
+            cols = [_on_device(self._tok, dev)]
+            pos = _on_device(self._pos, dev)
+            cur = cols[0]
+            for i in range(1, k + 1):
+                cur = self._draft_step(cur, pos + (i - 1))
+                ladder.append([t.clone() for t in carries])
+                if i < k:
+                    cols.append(cur)
+            if self.paged:
+                self._lazy_alloc(k)
+                if not any(s is not None for s in self._slots):
+                    return
+            toks = torch.stack([c.to(torch.int32) for c in cols], dim=1)
+            if self.paged:
+                g, keys_all, _ = ic.verify_paged(
+                    net.conf, net.params, self._state, toks, pos,
+                    self._keys, self._temps, self._page_table)
+            else:
+                g, keys_all, _ = ic.verify(
+                    net.conf, net.params, self._state, toks, pos,
+                    self._keys, self._temps)
+            # one read-back for the proposals, the samples and the keys
+            t_get = time.monotonic()
+            both = torch.cat([toks.to(g.device).long(), g.long(),
+                              keys_all.reshape(nb, 2 * k)], dim=1).cpu()
+            wait = time.monotonic() - t_get
+        except BaseException as e:  # noqa: BLE001 — no fallback: fail them
+            self._fail_active(e)
+            return
+        toks = both[:, :k].numpy().astype(np.int32)
+        g = both[:, k:2 * k].numpy().astype(np.int32)
+        keys_all = both[:, 2 * k:].numpy().astype(np.uint32).reshape(
+            nb, k, 2)
+        now = time.monotonic()
+        e_idx = np.zeros((nb,), np.int64)
+        emitted = 0
+        accepted: List[int] = []
+        done = []
+        for slot, stream in enumerate(self._slots):
+            if stream is None:
+                continue
+            e = 1
+            while e < k and toks[slot, e] == g[slot, e - 1]:
+                e += 1
+            e_idx[slot] = e
+            first = stream.tokens_emitted == 0
+            sent = 0
+            for j in range(e):
+                if stream.tokens_emitted >= stream.max_new:
+                    break  # accepted past the budget: not emitted
+                if stream._deliver(int(g[slot, j]), now):
+                    sent += 1
+            emitted += sent
+            accepted.append(sent)
+            self._tok[slot] = g[slot, e - 1]
+            self._keys[slot] = keys_all[slot, e - 1]
+            self._pos[slot] += e
+            if first and sent:
+                with self._cv:
+                    self._record_ttft_locked(stream)
+            if (stream.tokens_emitted >= stream.max_new
+                    or int(self._pos[slot]) >= self.max_seq):
+                done.append((slot, stream))
+        depth = torch.as_tensor(e_idx, device=dev)
+        rows = torch.arange(nb, device=dev)
+        with torch.no_grad():
+            for j, t in enumerate(carries):
+                t.copy_(torch.stack([lad[j] for lad in ladder])[depth, rows])
+        # booked before the streams end, so that a stream's last round is
+        # in the stats its consumer reads after it
+        self._note_round(time.monotonic() - t0, wait, emitted, accepted,
+                         now)
+        for slot, stream in done:
+            self._release_slot(slot, stream)
+
+    def _note_round(self, wall: float, wait: float, emitted: int,
+                    accepted: List[int], now: float) -> None:
+        """Books of one speculative round: tokens, the host's share and
+        the tokens each active slot accepted."""
+        with self._cv:
+            self._note_locked(wall, wait, emitted, now)
+            self._spec_rounds += 1
+            for c in accepted:
+                _hist_add(self._accept_hist, ACCEPTED_TOKENS_BOUNDS, c)
 
     # -- K steps a dispatch, pipelined (decode-loop thread) ------------------
     def _has_pending(self) -> bool:
@@ -1253,8 +1509,9 @@ class ContinuousBatcher:
     def _block_eligible(self) -> bool:
         """Blocks run only while the slot set is stable: with admissions
         waiting or prompt tokens to feed, K pins to 1 (`_decode_once`), so
-        time to first token and the feed are the one-step loop's."""
-        if self.k_max <= 1 or any(self._feed):
+        time to first token and the feed are the one-step loop's. A
+        speculative batcher never runs them."""
+        if self.k_max <= 1 or self.spec_k or any(self._feed):
             return False
         return not self._has_pending()
 
@@ -1460,7 +1717,17 @@ class ContinuousBatcher:
                                        "misses": self._prefix_misses,
                                        "entries": len(self._prefix_lru),
                                        "match": self.prefix_match}
+            if self.spec_k:
+                h = self._accept_hist
+                out["speculative"] = {
+                    "k": self.spec_k, "rounds": self._spec_rounds,
+                    "accepted_per_step": (round(h["sum"] / h["count"], 3)
+                                          if h["count"] else 0.0),
+                    "accepted_hist": _hist_out(h, ACCEPTED_TOKENS_BOUNDS)}
         out["fresh_compiles"] = self.net.infer_cache.stats.misses
+        if self.draft_net is not None:
+            # warmed means warmed end to end: the draft's captures count
+            out["fresh_compiles"] += self.draft_net.infer_cache.stats.misses
         return out
 
     def _page_bytes(self) -> int:

@@ -228,8 +228,9 @@ class ModelServer:
     with `generate=True` POST /v1/generate through a `ContinuousBatcher`
     (`gen_slots` slots, a `gen_max_seq`-token table, one prefill program per
     `gen_prompt_buckets` bucket; `gen_page_size`, `gen_pages`,
-    `gen_prefix_cache`, `gen_prefix_match` and `gen_steps_per_dispatch` are
-    its paged pool, prefix cache and steps a dispatch)."""
+    `gen_prefix_cache`, `gen_prefix_match`, `gen_draft`, `gen_spec_k` and
+    `gen_steps_per_dispatch` are its paged pool, prefix cache, speculative
+    decoding's draft net and chunk, and steps a dispatch)."""
 
     def __init__(self, net, host: str = "127.0.0.1", port: int = 0,
                  max_delay_ms: Optional[float] = None,
@@ -247,6 +248,7 @@ class ModelServer:
                  gen_pages: int = 0,
                  gen_prefix_cache: bool = False,
                  gen_prefix_match: str = "exact",
+                 gen_draft=None, gen_spec_k: int = 0,
                  gen_steps_per_dispatch: Optional[int] = None):
         self.net = net
         self.request_timeout_s = float(request_timeout_s)
@@ -262,6 +264,7 @@ class ModelServer:
                               page_size=gen_page_size, n_pages=gen_pages,
                               prefix_cache=gen_prefix_cache,
                               prefix_match=gen_prefix_match,
+                              draft_net=gen_draft, spec_k=gen_spec_k,
                               steps_per_dispatch=gen_steps_per_dispatch)
             if generate else None)
         handler = type("Handler", (_ServeHandler,), {"model_server": self})

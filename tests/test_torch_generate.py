@@ -539,17 +539,46 @@ def test_admit_fault_fails_only_the_admitted_stream(pairs):
         cb.stop()
 
 
-@pytest.mark.parametrize("kwargs", [{"draft_net": object(), "spec_k": 3},
+@pytest.mark.parametrize("kwargs", [{"draft_net": "transformer",
+                                     "spec_k": 3},
                                     {"spec_k": 3}])
 def test_unported_generation_options_name_their_roadmap_item(pairs, kwargs):
-    _, tnet = pairs["lstm"]
-    with pytest.raises(NotImplementedError, match="queue A item 8") as err:
-        ContinuousBatcher(tnet, n_slots=1, max_seq=16, auto_start=False,
-                          **kwargs)
-    assert "verify_chunk" in str(err.value)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        tnet.warmup_generate(slots=1, max_seq=16, prompt_buckets=(8,),
-                             **kwargs)
+    """Speculative decoding is ported (these options refused before,
+    naming ROADMAP.md queue A item 8): a draft with attention raises the
+    JAX package's ValueError at construction and at warm-up, and `spec_k`
+    without a draft is 0, as in the JAX package, so the batcher decodes one
+    step at a time and gives JAX's tokens."""
+    from deeplearning4j_tpu.serving.batcher import ContinuousBatcher as JCB
+
+    jnet, tnet = pairs["lstm"]
+    if "draft_net" in kwargs:
+        jdraft, tdraft = pairs[kwargs["draft_net"]]
+        with pytest.raises(ValueError) as want:
+            JCB(jnet, n_slots=1, max_seq=16, auto_start=False,
+                draft_net=jdraft, spec_k=3)
+        for make in (lambda: ContinuousBatcher(
+                tnet, n_slots=1, max_seq=16, auto_start=False,
+                draft_net=tdraft, spec_k=3),
+                lambda: tnet.warmup_generate(
+                    slots=1, max_seq=16, prompt_buckets=(8,),
+                    draft_net=tdraft, spec_k=3)):
+            with pytest.raises(ValueError) as got:
+                make()
+            assert str(got.value) == str(want.value)
+        assert "recurrent-only" in str(want.value)
+        return
+    jcb = JCB(jnet, n_slots=1, max_seq=16, auto_start=False, **kwargs)
+    cb = ContinuousBatcher(tnet, n_slots=1, max_seq=16, **kwargs)
+    try:
+        assert cb.spec_k == jcb.spec_k == 0
+        assert cb.generate([1, 2, 3], max_new_tokens=5, temperature=0.8,
+                           rng_seed=2) == _jax_tokens(jnet, [1, 2, 3], 5,
+                                                      0.8, 2)[0]
+        assert "speculative" not in cb.stats()
+    finally:
+        cb.stop()
+    assert tnet.warmup_generate(slots=1, max_seq=16, prompt_buckets=(8,),
+                                **kwargs)["spec_k"] == 0
 
 
 @pytest.mark.parametrize("kwargs", [{"page_size": 4}, {"page_size": 4,
@@ -1023,20 +1052,52 @@ def test_cli_generate_prints_jax_keys_and_tokens(lstm_checkpoint, capsys,
     assert got["fresh_compiles"] == 0 and got["disk_cache"] is None
 
 
-@pytest.mark.parametrize("flag", [["--draft", "x", "--spec-k", "3"],
+@pytest.mark.parametrize("flag", [["--draft", "x", "--spec-k", "1"],
                                   ["--compile-cache", "x"]])
 def test_cli_generate_refuses_unported_flags(lstm_checkpoint, flag):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue A item"):
-        torch_main(["generate", "--model", lstm_checkpoint, "--prompt", "1",
-                    "--device", "cpu"] + flag)
+    """`--compile-cache` exits naming its ROADMAP.md item. `--draft` is
+    ported (it exited naming item 8 before), and with `--spec-k` below 2
+    it exits as the JAX CLI does."""
+    argv = ["generate", "--model", lstm_checkpoint, "--prompt", "1"] + flag
+    if flag[0] == "--compile-cache":
+        with pytest.raises(SystemExit, match="ROADMAP.md queue A item"):
+            torch_main(argv + ["--device", "cpu"])
+        return
+    with pytest.raises(SystemExit) as want:
+        jax_main(argv)
+    with pytest.raises(SystemExit) as got:
+        torch_main(argv + ["--device", "cpu"])
+    assert str(got.value) == str(want.value) == \
+        "--gen-draft requires --gen-spec-k >= 2"
 
 
 @pytest.mark.parametrize("flag", [["--gen-spec-k", "3"],
                                   ["--gen-draft", "x"]])
-def test_cli_serve_refuses_unported_generation_flags(lstm_checkpoint, flag):
-    with pytest.raises(SystemExit, match="queue A item 8"):
-        torch_main(["serve", "--model", lstm_checkpoint, "--device", "cpu",
-                    "--generate"] + flag)
+def test_cli_serve_refuses_unported_generation_flags(lstm_checkpoint, flag,
+                                                     capsys, monkeypatch):
+    """The speculative flags of `serve` are ported (they exited naming
+    ROADMAP.md queue A item 8 before): `--gen-draft` without
+    `--gen-spec-k >= 2` exits as the JAX CLI does, and `--gen-spec-k`
+    without a draft serves, its warm-up reporting spec_k 0 as the JAX
+    package's does (the server stops at once here)."""
+    from deeplearning4j_tpu_torch.serving.server import ModelServer
+
+    argv = ["serve", "--model", lstm_checkpoint, "--generate", "--port",
+            "0"] + flag
+    if flag[0] == "--gen-draft":
+        with pytest.raises(SystemExit) as want:
+            jax_main(argv)
+        with pytest.raises(SystemExit) as got:
+            torch_main(argv + ["--device", "cpu"])
+        assert str(got.value) == str(want.value) == \
+            "--gen-draft requires --gen-spec-k >= 2"
+        return
+    monkeypatch.setattr(ModelServer, "wait_for_stop", lambda self: None)
+    assert torch_main(argv + ["--device", "cpu"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert lines[0]["generation"]["spec_k"] == 0
+    assert lines[0]["fresh_compiles"] == 2  # the decode table and a bucket
+    assert lines[-1]["drained"] is True
 
 
 @pytest.mark.parametrize("flags", [["--page-size", "4"], ["--prefix-cache"],

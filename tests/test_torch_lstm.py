@@ -615,19 +615,31 @@ def test_char_lstm_fit_trains_in_batches_on_cpu():
 
 
 def test_unported_decoding_names_its_roadmap_item():
-    # temperature sampling and `generate` are ported (ROADMAP.md queue A
-    # item 8) and give the JAX package's chars; what is left of the item
-    # (speculative decoding) still raises naming it
+    # temperature sampling, `generate` and now speculative decoding (the
+    # last of ROADMAP.md queue A item 8, which raised naming the item
+    # before) are ported: the chars are the JAX package's, `spec_k` without
+    # a draft is 0 as in the JAX package, and a draft cloned from the
+    # model gives the one-step batcher's tokens in whole chunks
     from deeplearning4j_tpu_torch.serving import ContinuousBatcher
 
     jm, tm = _carried_char_lstm(1)
     assert tm.sample("the ", n=8, temperature=1.0, rng_seed=2) == \
         jm.sample("the ", n=8, temperature=1.0, rng_seed=2)
     assert tm.generate("the ", n=8) == jm.generate("the ", n=8)
-    for kwargs in ({"spec_k": 2},):
-        with pytest.raises(NotImplementedError, match="queue A item 8"):
-            ContinuousBatcher(tm.net, n_slots=1, max_seq=16,
-                              auto_start=False, **kwargs)
+    ids = [tm.char_index[c] for c in "the "]
+    plain = ContinuousBatcher(tm.net, n_slots=1, max_seq=16, spec_k=2)
+    clone = ml.MultiLayerNetwork(tm.net.conf, device="cpu")
+    clone.params = tm.net.params
+    spec = ContinuousBatcher(tm.net, n_slots=1, max_seq=16,
+                             draft_net=clone, spec_k=3)
+    try:
+        assert plain.spec_k == 0
+        assert spec.generate(ids, max_new_tokens=9) == plain.generate(
+            ids, max_new_tokens=9)
+        assert spec.stats()["speculative"]["accepted_per_step"] > 1.0
+    finally:
+        plain.stop()
+        spec.stop()
 
 
 # -------------------------------------------------------------- checkpoint
