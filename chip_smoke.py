@@ -123,7 +123,25 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    in the JAX package too);
 13. trains Word2Vec, ParagraphVectors and GloVe on the two-cluster corpus of
    tests/test_embeddings.py and passes its similarity assertions, each
-   launching the scatter kernel once per gather of every step.
+   launching the scatter kernel once per gather of every step;
+14. `datasets_serve_api`: writes the 60,000-image MNIST stand-in as IDX
+   files, reads them with the native reader (built with g++) and in Python
+   (array-equal, both timed), trains bench.py:416's 784-512-512-10 MLP on
+   them through the CLI (`train --zoo mlp:hidden=512x512 --input
+   mnist:60000`, batch 8,192, 5 epochs, read natively through MNIST_DIR)
+   and `test`s it (accuracy at least chance + 0.4); loads `iris:` and
+   `cifar10:` and trains an Iris net built with `list_builder` by SGD;
+   serves the SLICE charTransformer with `batching=True` and then
+   `batching=False` to 8 concurrent requests of mixed priority under a
+   default deadline (flash launches 8 a flush, then 8 a request; answers
+   within 2e-2 of `net.output`; per-priority request counts; no capture
+   after the int32 warm-up), then its checkpoint through the CLI's `serve
+   --shapes` in a subprocess (no capture after the warm-up, drained on
+   SIGTERM); takes a CheckpointListener's asynchronous saves during
+   captured `fit` steps at SLICE's width (2 blocks) and holds each
+   array-equal to a synchronous save of its step's params (the snapshot's
+   stall timed); and round-trips `params_flat` / `set_params_flat`, after
+   which the next step replays.
 
 Each phase prints one JSON line; then a line with every kernel's numbers,
 the card's line, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -3633,6 +3651,472 @@ def phase_embed_quality(torch, kernels):
             "glove": glove_info["launches"]}
 
 
+# ------------------------------------------------- datasets, serving, API
+
+#: the datasets_serve_api phase: bench.py:416's 784-512-512-10 MLP on the
+#: 60,000-image MNIST stand-in (bench.py:413's batch of 8,192) through the
+#: CLI; Iris through a `list_builder` net (SGD); the SLICE charTransformer
+#: served batched and unbatched to REQUESTS_API requests of 2 rows (mixed
+#: priorities, buckets 2 and 8 warmed), then by the CLI's `serve --shapes`
+#: in a subprocess; a CheckpointListener's asynchronous saves during
+#: captured `fit` steps at SLICE's width (depth cut to API_TRAIN_BLOCKS, rows
+#: to API_TRAIN_ROWS: each save writes every param to disk)
+MNIST_N, MLP_BATCH, MLP_EPOCHS = 60000, 8192, 5
+MLP_MIN_ACCURACY = 0.5  # chance (0.1) + 0.4
+IRIS_ITERS, IRIS_MIN_ACCURACY = 100, 0.9
+REQUESTS_API = 8
+API_TRAIN_BLOCKS, API_TRAIN_ROWS, API_TRAIN_STEPS = 2, 4, 3
+
+
+def write_idx(path, arr):
+    """An uncompressed u8 IDX file of `arr`."""
+    import struct
+
+    with open(path, "wb") as f:
+        f.write(struct.pack(">I", 0x0800 | arr.ndim))
+        for d in arr.shape:
+            f.write(struct.pack(">I", d))
+        f.write(np.ascontiguousarray(arr, np.uint8).tobytes())
+
+
+def cli_json(cli_main, argv):
+    """Run the port's CLI in process; (exit code, its last JSON line)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def api_mnist_cli(torch, td):
+    """(a): the stand-in written as IDX, read natively and in Python, then
+    `train --zoo mlp:hidden=512x512 --input mnist:60000` and `test` through
+    the CLI with MNIST_DIR there, so the CLI reads it natively."""
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.cli.driver import main as cli_main
+    from deeplearning4j_tpu_torch.datasets import mnist as mnist_mod
+
+    X, y = mnist_mod.synthetic_mnist(MNIST_N)
+    d = os.path.join(td, "mnist")
+    os.makedirs(d)
+    images = np.round(X.reshape(-1, 28, 28) * 255).astype(np.uint8)
+    write_idx(os.path.join(d, "train-images-idx3-ubyte"), images)
+    write_idx(os.path.join(d, "train-labels-idx1-ubyte"), y.astype(np.uint8))
+    t = time.perf_counter()
+    lib = native.get_library()
+    build_s = time.perf_counter() - t
+    check(lib is not None, "the native IDX/CSV reader did not build")
+    path = os.path.join(d, "train-images-idx3-ubyte")
+    times = {"native": [], "python": []}
+    for _ in range(3):
+        t = time.perf_counter()
+        via_native = native.native_read_idx(path)
+        times["native"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        via_python = mnist_mod.read_idx_python(path)
+        times["python"].append((time.perf_counter() - t) * 1e3)
+    check(via_native is not None and np.array_equal(via_native, via_python)
+          and np.array_equal(via_native, images),
+          "the native and Python IDX readers disagree")
+    # every IDX read of the CLI, and whether the native reader answered it
+    reads, real_read = [], native.native_read_idx
+
+    def counted(p):
+        arr = real_read(p)
+        reads.append(arr is not None)
+        return arr
+
+    native.native_read_idx = counted
+    old_dir = os.environ.get("MNIST_DIR")
+    os.environ["MNIST_DIR"] = d
+    ckpt = os.path.join(td, "mlp")
+    try:
+        rc, train = cli_json(cli_main, [
+            "train", "--input", f"mnist:{MNIST_N}", "--zoo",
+            "mlp:hidden=512x512", "--output", ckpt, "--properties",
+            f"epochs={MLP_EPOCHS},batch={MLP_BATCH}"])
+        check(rc == 0, f"cli train exited {rc}")
+        rc, test = cli_json(cli_main, ["test", "--input", f"mnist:{MNIST_N}",
+                                       "--model", ckpt])
+        check(rc == 0, f"cli test exited {rc}")
+    finally:
+        native.native_read_idx = real_read
+        if old_dir is None:
+            os.environ.pop("MNIST_DIR")
+        else:
+            os.environ["MNIST_DIR"] = old_dir
+    steps = MLP_EPOCHS * -(-MNIST_N // MLP_BATCH)
+    row = {"native_build_s": build_s, "native_read_ms": times["native"],
+           "python_read_ms": times["python"],
+           "idx_bytes": os.path.getsize(path),
+           "native_reads_in_cli": sum(reads), "train": train,
+           "steps": steps,
+           "step_ms": (train["train_seconds"] - train["compile_seconds"])
+           * 1e3 / steps,
+           "accuracy": test["accuracy"], "f1": test["f1"]}
+    check(len(reads) >= 4 and all(reads),
+          f"the CLI did not read MNIST natively: {reads}")
+    check(np.isfinite(train["score"]), f"MLP score is not finite: {row}")
+    check(test["accuracy"] >= MLP_MIN_ACCURACY,
+          f"MLP accuracy {test['accuracy']} is not chance + 0.4: {row}")
+    return row
+
+
+def api_iris_cifar(torch):
+    """(b): `iris:` and `cifar10:` through load_input; an Iris net built with
+    `list_builder`, trained by SGD on the card."""
+    from deeplearning4j_tpu_torch.cli.schemes import load_input
+    from deeplearning4j_tpu_torch.evaluation import Evaluation
+    from deeplearning4j_tpu_torch.nd.losses import LossFunction
+    from deeplearning4j_tpu_torch.nn.conf import (LayerType,
+                                                  NeuralNetConfiguration,
+                                                  OptimizationAlgorithm,
+                                                  list_builder)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    iris = load_input("iris:150")
+    cifar = load_input("cifar10:10000")
+    check(iris.features.shape == (150, 4) and iris.labels.shape == (150, 3),
+          f"iris shapes {iris.features.shape} {iris.labels.shape}")
+    check(cifar.features.shape == (10000, 3072)
+          and cifar.labels.shape == (10000, 10)
+          and float(cifar.features.min()) >= 0.0
+          and float(cifar.features.max()) <= 1.0,
+          f"cifar10 shapes {cifar.features.shape} {cifar.labels.shape}")
+    base = NeuralNetConfiguration(
+        activation="tanh", weight_init="vi", lr=0.1,
+        optimization_algo=OptimizationAlgorithm.ITERATION_GRADIENT_DESCENT,
+        num_iterations=IRIS_ITERS, seed=42)
+    conf = (list_builder(base, 2).hidden_layer_sizes([10], n_in=4, n_out=3)
+            .override(1, layer_type=LayerType.OUTPUT,
+                      loss_function=LossFunction.MCXENT).build())
+    data = iris.normalize_zero_mean_unit_variance()
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    s0 = net.score(data.features, data.labels)
+    net.fit(data.features, data.labels)
+    s1 = net.score(data.features, data.labels)
+    ev = Evaluation()
+    ev.eval(data.labels, net.output(data.features).float().cpu().numpy())
+    row = {"iris_score": [s0, s1], "iris_accuracy": ev.accuracy(),
+           "cifar10_class_counts": np.bincount(
+               cifar.labels.argmax(1), minlength=10).tolist()}
+    check(s1 < s0 and ev.accuracy() >= IRIS_MIN_ACCURACY,
+          f"Iris did not train: {row}")
+    return row
+
+
+def serve_traffic(url, xs, prios):
+    """POST every request at once from its own thread; (answers,
+    latencies ms)."""
+    answers, latencies, errors = [None] * len(xs), [None] * len(xs), []
+
+    def client(i):
+        t = time.perf_counter()
+        try:
+            answers[i] = np.asarray(post(url + "/v1/predict", {
+                "features": xs[i].tolist(), "dtype": "int32",
+                "priority": prios[i]})["output"], np.float32)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        latencies[i] = (time.perf_counter() - t) * 1e3
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(xs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"requests failed: {errors}")
+    return answers, latencies
+
+
+def cli_serve(torch, ckpt, xs, prios, shapes):
+    """`python -m deeplearning4j_tpu_torch.cli serve --shapes ...` as a
+    subprocess on the checkpoint: its startup line, its stats after the
+    requests, and its drained line."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "serve",
+           "--model", ckpt, "--port", "0", "--shapes", shapes,
+           "--max-delay-ms", "100", "--max-batch-rows", "8",
+           "--default-deadline-ms", "60000"]
+    env = dict(os.environ, PYTHONPATH=root)
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env,
+                            cwd=root)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                              daemon=True)
+    try:
+        reader.start()
+        while not lines and proc.poll() is None \
+                and time.perf_counter() - t < 300:
+            time.sleep(0.05)
+        check(bool(lines), f"cli serve printed no startup line (exit "
+                           f"{proc.poll()})")
+        startup = json.loads(lines[0])
+        start_s = time.perf_counter() - t
+        answers, latencies = serve_traffic(startup["url"], xs, prios)
+        stats = get_json(startup["url"] + "/v1/stats")
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=120)
+        reader.join(30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    drained = json.loads(lines[-1])
+    return {"startup": startup, "start_s": start_s, "stats": stats,
+            "latency_ms": latencies, "drained": drained,
+            "returncode": proc.returncode}, answers
+
+
+def api_serve(torch, kernels, td):
+    """(c): the SLICE charTransformer served in process with batching=True,
+    then batching=False, under mixed priorities and a default deadline; then
+    its checkpoint through the CLI's `serve --shapes` in a subprocess."""
+    from deeplearning4j_tpu_torch.models.zoo import char_transformer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import checkpoint
+
+    conf = char_transformer(SLICE["vocab"], d_model=SLICE["d_model"],
+                            n_blocks=SLICE["n_blocks"],
+                            n_heads=SLICE["n_heads"],
+                            max_seq_len=SLICE["seq"])
+    conf = conf.with_compute_dtype("bfloat16")
+    conf = conf.replace(confs=tuple(c.replace(attention_impl="flash")
+                                    for c in conf.confs))
+    net = MultiLayerNetwork(conf, device="cuda", seed=0).init()
+    rng = np.random.RandomState(16)
+    # int32 ids, as the requests carry them, so the direct checks replay
+    # the warmed programs too
+    xs = [rng.randint(0, SLICE["vocab"], (REQUEST_ROWS, SLICE["seq"]),
+                      dtype=np.int32) for _ in range(REQUESTS_API)]
+    prios = ["interactive" if i % 2 == 0 else "batch"
+             for i in range(REQUESTS_API)]
+    shapes = [(REQUEST_ROWS, SLICE["seq"]), (8, SLICE["seq"])]
+    t = time.perf_counter()
+    warm = net.warmup(shapes)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    warmed_misses = net.infer_cache.stats.misses
+    n_attn = SLICE["n_blocks"]
+    out, launches = {}, {}
+    for batching in (True, False):
+        name = "batched" if batching else "unbatched"
+        server = net.serve(port=0, max_delay_ms=100.0, max_batch_rows=8,
+                           batching=batching, default_deadline_ms=60000.0)
+        kernels.reset_launches()
+        try:
+            t = time.perf_counter()
+            answers, latencies = serve_traffic(server.url, xs, prios)
+            wall_s = time.perf_counter() - t
+            stats = server.stats()
+        finally:
+            server.drain()
+        launches[name] = kernels.LAUNCHES["flash_attn_fwd"]
+        flushes = sum(stats["batch_rows_hist"].values())
+        want = n_attn * (flushes if batching else REQUESTS_API)
+        check(launches[name] == want,
+              f"{name}: flash launches {launches[name]} != {want}")
+        errs = []
+        for x, ans in zip(xs, answers):
+            direct = net.output(x).float().cpu().numpy()
+            check(ans.shape == direct.shape, f"answer shape {ans.shape}")
+            errs.append(float(np.abs(ans - direct).max())
+                        / float(np.abs(direct).max()))
+        check(max(errs) < 2e-2,
+              f"{name}: answers differ from net.output: {errs}")
+        out[name] = {"wall_s": wall_s, "client_latency_ms": latencies,
+                     "flushes": flushes, "flash_launches": launches[name],
+                     "max_rel_err_vs_output": max(errs),
+                     "fresh_compiles": stats["fresh_compiles"],
+                     "batch_rows_hist": stats["batch_rows_hist"],
+                     "priorities": {p: {k: v[k] for k in (
+                         "requests", "latency_ms", "queue_depth")}
+                         for p, v in stats["priorities"].items()}}
+        if batching:
+            for p in ("interactive", "batch"):
+                check(stats["priorities"][p]["requests"]
+                      == prios.count(p),
+                      f"{p} requests {stats['priorities'][p]} != "
+                      f"{prios.count(p)}")
+        check(stats["fresh_compiles"] == warmed_misses,
+              f"{name}: serving captured {stats['fresh_compiles']} - "
+              f"{warmed_misses} programs")
+    ckpt = os.path.join(td, "char_transformer")
+    t = time.perf_counter()
+    checkpoint.save(ckpt, net.params, conf=conf)
+    save_s = time.perf_counter() - t
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = ",".join(f"{b}x{s}" for b, s in shapes)
+    cli, answers = cli_serve(torch, ckpt, xs, prios, spec)
+    check(cli["startup"]["warmed"] == [list(s) for s in shapes],
+          f"cli serve warmed {cli['startup']['warmed']}")
+    check(cli["stats"]["fresh_compiles"]
+          == cli["startup"]["fresh_compiles"] == len(shapes),
+          f"cli serve captured under traffic: {cli['stats']['cache']}")
+    check(cli["returncode"] == 0 and cli["drained"].get("drained"),
+          f"cli serve did not drain: {cli['drained']}")
+    check(all(a.shape == (REQUEST_ROWS * SLICE["seq"], SLICE["vocab"])
+              and np.isfinite(a).all() for a in answers),
+          "cli serve answers are malformed")
+    out["cli"] = {"start_s": cli["start_s"], "checkpoint_save_s": save_s,
+                  "warmed": cli["startup"]["warmed"],
+                  "fresh_compiles_startup": cli["startup"]["fresh_compiles"],
+                  "fresh_compiles_after": cli["stats"]["fresh_compiles"],
+                  "client_latency_ms": cli["latency_ms"],
+                  "priorities": {p: {k: v[k] for k in (
+                      "requests", "latency_ms")}
+                      for p, v in cli["stats"]["priorities"].items()},
+                  "drained": cli["drained"]}
+    out["warm"] = {"shapes": warm["shapes"], "seconds": warm_s,
+                   "captures": warmed_misses}
+    return out, launches
+
+
+def api_checkpoint_listener(torch, kernels, td):
+    """(d) and (e): a CheckpointListener's asynchronous saves during captured
+    one-step `fit` calls at SLICE's width, each held array-equal to a
+    synchronous save of the params it was taken at, with the snapshot's
+    stall on the training thread; then a params_flat / set_params_flat round
+    trip, after which the next step replays the captured graph."""
+    from deeplearning4j_tpu_torch.models.zoo import char_transformer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.listeners import \
+        CheckpointListener
+    from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+    from deeplearning4j_tpu_torch.parallel import checkpoint
+
+    conf = char_transformer(SLICE["vocab"], d_model=SLICE["d_model"],
+                            n_blocks=API_TRAIN_BLOCKS,
+                            n_heads=SLICE["n_heads"],
+                            max_seq_len=SLICE["seq"], sparse_labels=True,
+                            fused_updater=True, attention_block_skip=True,
+                            attention_fused_bwd=True)
+    conf = conf.with_compute_dtype("bfloat16")
+    conf = conf.replace(confs=tuple(c.replace(attention_impl="flash",
+                                              lr=TRAIN_LR)
+                                    for c in conf.confs))
+    net = MultiLayerNetwork(conf, device="cuda", seed=0).init()
+    rng = np.random.RandomState(17)
+    ids = rng.randint(0, SLICE["vocab"], (API_TRAIN_ROWS, SLICE["seq"] + 1))
+    x = ids[:, :-1].astype(np.int32)
+    y = ids[:, 1:].reshape(-1).astype(np.int32)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(net.params))
+    net.fit(x, y)  # the step's capture, outside the timed steps
+    torch.cuda.synchronize()
+    plain_ms = []  # the same step without a listener
+    for _ in range(2):
+        t = time.perf_counter()
+        net.fit(x, y)
+        plain_ms.append((time.perf_counter() - t) * 1e3)
+    listener = CheckpointListener(os.path.join(td, "async0"),
+                                  save_every_n=1, asynchronous=True)
+    net.set_listeners([listener])
+    stalls, step_ms = [], []
+    real = checkpoint.save_async
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        thread = real(*a, **kw)
+        stalls.append((time.perf_counter() - t) * 1e3)
+        return thread
+
+    checkpoint.save_async = timed
+    kernels.reset_launches()
+    try:
+        for k in range(API_TRAIN_STEPS):
+            listener.directory = os.path.join(td, f"async{k}")
+            t = time.perf_counter()
+            net.fit(x, y)
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            # the same params, written synchronously before the next step
+            checkpoint.save(os.path.join(td, f"sync{k}"), net.params)
+        checkpoint.join_async()
+    finally:
+        checkpoint.save_async = real
+    train_launches = dict(kernels.LAUNCHES)
+    net.set_listeners([])
+    equal, moved = [], []
+    for k in range(API_TRAIN_STEPS):
+        with np.load(os.path.join(td, f"async{k}", "arrays.npz")) as za, \
+                np.load(os.path.join(td, f"sync{k}", "arrays.npz")) as zs:
+            equal.append(sorted(za.files) == sorted(zs.files) and all(
+                np.array_equal(za[f], zs[f]) for f in za.files))
+            if k:
+                with np.load(os.path.join(td, f"sync{k - 1}",
+                                          "arrays.npz")) as zp:
+                    moved.append(any(not np.array_equal(zs[f], zp[f])
+                                     for f in zs.files))
+    check(all(equal), f"an asynchronous checkpoint differs from the params "
+                      f"at its step: {equal}")
+    check(all(moved), "the params did not change between steps")
+    check(listener.saves == API_TRAIN_STEPS,
+          f"the listener saved {listener.saves} times")
+    # (e) the flat vector's round trip keeps the captured step's addresses
+    books = net.step_cache.stats.as_dict()
+    ptrs = [t.data_ptr() for t in tree_leaves(net.params)]
+    t = time.perf_counter()
+    flat = net.params_flat()
+    net.set_params_flat(flat)
+    torch.cuda.synchronize()
+    flat_ms = (time.perf_counter() - t) * 1e3
+    same = bool(torch.equal(net.params_flat(), flat))
+    net.fit(x, y)
+    after = net.step_cache.stats.as_dict()
+    row = {"config": dict(SLICE, n_blocks=API_TRAIN_BLOCKS,
+                          rows=API_TRAIN_ROWS), "param_bytes": nbytes,
+           "steps": API_TRAIN_STEPS, "step_ms_without_save": plain_ms,
+           "step_ms_with_async_save": step_ms,
+           "snapshot_stall_ms": stalls,
+           "async_equal_to_sync": equal, "launches": train_launches,
+           "params_flat_elements": flat.numel(),
+           "params_flat_roundtrip_ms": flat_ms,
+           "params_flat_roundtrip_exact": same,
+           "step_cache_before": books, "step_cache_after": after}
+    check(same and [t.data_ptr() for t in tree_leaves(net.params)] == ptrs,
+          f"set_params_flat did not write in place: {row}")
+    check(after["misses"] == books["misses"]
+          and after["hits"] == books["hits"] + 1,
+          f"the step after set_params_flat did not replay: {row}")
+    return row
+
+
+def phase_datasets_serve_api(torch, kernels):
+    """The builtin datasets, the serving front's options and the API of
+    the listener and the flat params, at full width (module docstring,
+    item 14). Returns the
+    flash forward's launches by path and the backward kernels' launches."""
+    import shutil
+    import tempfile
+
+    td = tempfile.mkdtemp(prefix="dl4j-api-")
+    t0 = time.perf_counter()
+    try:
+        mnist = api_mnist_cli(torch, td)
+        iris = api_iris_cifar(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve, serve_launches = api_serve(torch, kernels, td)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ckpt = api_checkpoint_listener(torch, kernels, td)
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+    emit({"phase": "datasets_serve_api", "seconds": time.perf_counter() - t0,
+          "mnist_mlp": mnist, "iris_cifar10": iris, "serve": serve,
+          "checkpoint_listener": ckpt,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return serve_launches, ckpt["launches"]
+
+
 def f32_case(r, library_key):
     """One f32 row's numbers for the kernels line."""
     return {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
@@ -3740,6 +4224,13 @@ def main(argv) -> int:
     quality_launches = phase_embed_quality(torch, kernels)
     check(w2v_launches > 0 and all(quality_launches.values()),
           "the scatter-add kernel never ran")
+    gc.collect()
+    torch.cuda.empty_cache()
+    api_serve_launches, api_train_launches = phase_datasets_serve_api(
+        torch, kernels)
+    for name in ("flash_attn_fwd",) + BWD_KERNELS:
+        check(api_train_launches[name] > 0,
+              f"{name} never ran in the datasets_serve_api phase's steps")
 
     bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
     replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,
@@ -3751,11 +4242,19 @@ def main(argv) -> int:
         "launches": (serve_launches["flash_attn_fwd"]
                      + gen_launches["flash_attn_fwd"]
                      + sum(gen_option_launches.values())
-                     + train_launches["flash_attn_fwd"]),
+                     + train_launches["flash_attn_fwd"]
+                     + sum(api_serve_launches.values())
+                     + api_train_launches["flash_attn_fwd"]),
         "launches_by_path": {"serve": serve_launches["flash_attn_fwd"],
                              "generate": gen_launches["flash_attn_fwd"],
                              **gen_option_launches,
-                             "train": train_launches["flash_attn_fwd"]},
+                             "train": train_launches["flash_attn_fwd"],
+                             "api_serve_batched":
+                                 api_serve_launches["batched"],
+                             "api_serve_unbatched":
+                                 api_serve_launches["unbatched"],
+                             "api_checkpoint_listener":
+                                 api_train_launches["flash_attn_fwd"]},
         "max_abs_err": fwd_row["max_abs_err"],
         "ms": fwd_row["kernel_ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
@@ -3792,8 +4291,10 @@ def main(argv) -> int:
             "name": name, "route": "cuda", "source": bwd_src,
             "replaces": ("deeplearning4j_tpu/nd/pallas_kernels.py:"
                          f"{replaces[name]}"),
-            "launches": train_launches[name],
-            "launches_by_path": {"train": train_launches[name]},
+            "launches": train_launches[name] + api_train_launches[name],
+            "launches_by_path": {
+                "train": train_launches[name],
+                "api_checkpoint_listener": api_train_launches[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],

@@ -3,8 +3,9 @@ subcommands.
 
 Counterpart of `deeplearning4j_tpu/cli/driver.py`, on one device (CUDA
 unless `--device cpu`):
-- `train` loads `--input` (csv: or text:), builds the net from `--zoo`
-  (char_lstm, char_transformer) or `--model conf.json`, trains it
+- `train` loads `--input` (a builtin dataset, csv: or text:), builds the
+  net from `--zoo` (mlp, char_lstm, char_transformer) or `--model
+  conf.json`, trains it
   `epochs` times over the data (whole, or in `batch`-example batches
   through the prefetcher) with `--properties epochs=N,batch=M`, and saves a
   checkpoint that either package reads. With `--checkpoint-dir` the run is
@@ -19,11 +20,13 @@ unless `--device cpu`):
   one-slot `ContinuousBatcher` (with `--page-size`, `--prefix-cache`,
   `--steps-per-dispatch` and a `--draft` checkpoint with `--spec-k` as
   its options), printing the JAX package's JSON keys;
-- `serve` loads a checkpoint, starts the micro-batching HTTP gateway (with
-  `--generate`, also POST /v1/generate over a `--gen-slots` decode table,
-  its programs, and with `--gen-draft` the draft's, captured before the
-  socket opens), prints a startup JSON line, and on SIGTERM or SIGINT
-  drains and prints a final JSON line.
+- `serve` loads a checkpoint, captures the predict buckets of `--shapes`
+  (default 64), starts the micro-batching HTTP gateway (`--no-batching`: a
+  forward a request; `--default-deadline-ms`), with `--generate` also POST
+  /v1/generate over a `--gen-slots` decode table (its programs, and with
+  `--gen-draft` the draft's, captured before the socket opens too), prints
+  a startup JSON line (`warmed`: the captured shapes), and on SIGTERM or
+  SIGINT drains and prints a final JSON line.
 Checkpoints are `conf.json` + `arrays.npz`, written by either package.
 
 The final JSON lines keep the JAX package's keys. `train`'s: `saved`,
@@ -88,7 +91,9 @@ def _scaled(data, args):
 
 def _zoo_conf(spec: str, data):
     """--zoo 'name[:k=v,...]' -> MultiLayerConfiguration, sized from the
-    loaded data (the vocabulary of the char models)."""
+    loaded data (the vocabulary of the char models, the input and output
+    widths of mlp: `mlp:hidden=512x512` is bench.py's 784-512-512-10 on
+    MNIST)."""
     from deeplearning4j_tpu_torch.models import zoo
 
     name, _, props = spec.partition(":")
@@ -96,6 +101,10 @@ def _zoo_conf(spec: str, data):
     lr = float(kw.get("lr", 0.05))
     iters = int(kw.get("iterations", kw.get("iters", 1)))
     vocab = getattr(data, "vocab_size", data.features.shape[-1])
+    if name == "mlp":
+        hidden = [int(h) for h in kw.get("hidden", "64").split("x")]
+        return zoo.mlp(n_in=data.features.shape[-1], hidden=hidden,
+                       n_out=data.labels.shape[-1], lr=lr)
     if name == "char_lstm":
         return zoo.char_lstm(vocab, hidden=int(kw.get("hidden", 128)),
                              n_layers=int(kw.get("layers", 1)), lr=lr,
@@ -107,12 +116,12 @@ def _zoo_conf(spec: str, data):
             n_blocks=int(kw.get("blocks", 2)),
             n_heads=int(kw.get("heads", 4)), max_seq_len=seq,
             lr=float(kw.get("lr", 1e-3)), iterations=iters)
-    if name in ("lenet5", "mlp", "vgg_cifar10", "dbn", "deep_autoencoder"):
+    if name in ("lenet5", "vgg_cifar10", "dbn", "deep_autoencoder"):
         raise SystemExit(f"--zoo {name} is not ported to "
                          f"deeplearning4j_tpu_torch yet; see ROADMAP.md "
                          f"queue A item 9")
-    raise SystemExit(f"unknown --zoo model '{name}' (choose char_lstm or "
-                     f"char_transformer)")
+    raise SystemExit(f"unknown --zoo model '{name}' (choose mlp, char_lstm "
+                     f"or char_transformer)")
 
 
 def cmd_train(args) -> int:
@@ -258,6 +267,18 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def _parse_shapes(spec: str):
+    """'256,1024' or '32x784' -> [int batch | full shape tuple, ...]."""
+    shapes = []
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        dims = tuple(int(d) for d in part.split("x"))
+        shapes.append(dims[0] if len(dims) == 1 else dims)
+    return shapes
+
+
 def _parse_buckets(spec: str):
     """'4,8' -> (4, 8): the prompt buckets the prefill programs pad into."""
     out = tuple(int(p) for p in (spec or "").split(",") if p.strip())
@@ -330,7 +351,12 @@ def cmd_serve(args) -> int:
 
     _refuse_unported(args)
     net = load_network(args.model, device=args.device)
-    generation = draft = None
+    generation = draft = warmed = None
+    shapes = _parse_shapes(args.shapes)
+    if shapes:
+        # the predict buckets are captured before the socket opens, so
+        # requests that pad into them replay and capture nothing
+        warmed = net.warmup(shapes, entries=("output",))["shapes"]
     buckets = _parse_buckets(args.gen_prompt_buckets)
     if args.generate:
         # the decode and prefill programs (and the draft's) are captured
@@ -347,8 +373,10 @@ def cmd_serve(args) -> int:
                        max_delay_ms=args.max_delay_ms,
                        max_pending=args.max_pending,
                        max_batch_rows=args.max_batch_rows,
+                       batching=not args.no_batching,
                        request_timeout_s=args.request_timeout,
                        drain_timeout_s=args.drain_timeout,
+                       default_deadline_ms=args.default_deadline_ms,
                        generate=args.generate, gen_slots=args.gen_slots,
                        gen_max_seq=args.gen_max_seq,
                        gen_prompt_buckets=buckets,
@@ -361,6 +389,7 @@ def cmd_serve(args) -> int:
                        gen_steps_per_dispatch=args.gen_steps_per_dispatch)
     print(json.dumps({"url": server.url, "device": str(net.device),
                       "device_kind": device_kind(net.device),
+                      "warmed": warmed, "batching": not args.no_batching,
                       "generation": generation,
                       "fresh_compiles": net.infer_cache.stats.misses}),
           flush=True)
@@ -395,7 +424,8 @@ def _add_device(p: argparse.ArgumentParser) -> None:
 
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--input", required=True,
-                   help="csv:<path>[:label_col] | text:<path>[:seq_len] | "
+                   help="mnist|iris|lfw|curves|cifar10[:n] | "
+                        "csv:<path>[:label_col] | text:<path>[:seq_len] | "
                         "*.csv")
     p.add_argument("--model", default=None,
                    help="conf JSON (train) or checkpoint dir (test/predict)")
@@ -475,8 +505,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--output", required=True, help="checkpoint output dir")
     t.add_argument("--zoo", default=None,
                    help="train a zoo model instead of a conf JSON: "
-                        "char_lstm|char_transformer[:k=v,...] (e.g. "
-                        "char_lstm:layers=4,hidden=128)")
+                        "mlp|char_lstm|char_transformer[:k=v,...] (e.g. "
+                        "mlp:hidden=512x512, char_lstm:layers=4,hidden=128)")
     t.add_argument("--runtime", choices=["local", "mesh"], default="local",
                    help="mesh is not ported yet (exits)")
     t.add_argument("--mesh", nargs="?", const="all", default=None,
@@ -570,6 +600,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="queued-request bound; beyond it requests get 503")
     s.add_argument("--max-batch-rows", dest="max_batch_rows", type=int,
                    default=None, help="cap on coalesced rows per device call")
+    s.add_argument("--shapes", default="64",
+                   help="predict buckets captured before the socket opens: "
+                        "batch sizes or full shapes, e.g. 64 or 2x512,8x512 "
+                        "(an embedding net's are int32 ids); '' for none")
+    s.add_argument("--no-batching", dest="no_batching", action="store_true",
+                   help="answer each request with its own forward (no "
+                        "coalescing)")
+    s.add_argument("--default-deadline-ms", dest="default_deadline_ms",
+                   type=float, default=None,
+                   help="deadline of a request that names none (504 past "
+                        "it)")
     s.add_argument("--drain-timeout", dest="drain_timeout", type=float,
                    default=10.0, metavar="SECONDS",
                    help="bound on the graceful drain at SIGTERM")

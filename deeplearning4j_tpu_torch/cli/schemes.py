@@ -1,40 +1,31 @@
 """Input URI schemes: an `--input` string onto a DataSet.
 
 Counterpart of `deeplearning4j_tpu/cli/schemes.py` (its own copy):
+  - the builtin datasets `mnist[:n]`, `iris[:n]`, `lfw[:n]`, `curves[:n]`
+    and `cifar10[:n]`, through the port's fetchers (`datasets/fetchers.py`:
+    real data where a copy is on disk, else the JAX package's stand-ins);
   - `text:<path>[:seq_len]`: a char-LM DataSet, features one-hot windows
     [B, T, V], labels the next-char targets [B*T, V];
   - `csv:<path>[:label_col]`, or a bare `*.csv` path: features and one-hot
-    labels from a numeric CSV.
-The builtin datasets (mnist, iris, lfw, curves, cifar10) are not ported yet.
+    labels from a numeric CSV, through `CSVDataFetcher` (the native parser
+    where it can).
 """
 
 from __future__ import annotations
 
-import csv
 from typing import Optional
 
 import numpy as np
 
-from deeplearning4j_tpu_torch.datasets.dataset import (DataSet,
-                                                       labels_to_one_hot)
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.fetchers import (
+    Cifar10DataFetcher, CSVDataFetcher, CurvesDataFetcher, IrisDataFetcher,
+    LFWDataFetcher, MnistDataFetcher)
 
-_BUILTIN = ("mnist", "iris", "lfw", "curves", "cifar10")
-
-
-def _read_csv(path: str, label_column: int, num_examples: int) -> DataSet:
-    rows = []
-    with open(path, newline="") as f:
-        for row in csv.reader(f):
-            if not row:
-                continue
-            rows.append([float(v) for v in row])
-            if len(rows) >= num_examples:
-                break
-    arr = np.asarray(rows, np.float32)
-    lc = label_column % arr.shape[1]
-    y = arr[:, lc].astype(np.int64)
-    return DataSet(np.delete(arr, lc, axis=1),
-                   labels_to_one_hot(y, int(y.max()) + 1))
+#: builtin dataset -> (its fetcher, the examples it loads by default)
+_BUILTIN = {"mnist": (MnistDataFetcher, 10000), "iris": (IrisDataFetcher, 150),
+            "lfw": (LFWDataFetcher, 1000), "curves": (CurvesDataFetcher, 1000),
+            "cifar10": (Cifar10DataFetcher, 10000)}
 
 
 def _read_text(path: str, seq_len: int,
@@ -64,10 +55,9 @@ def load_input(uri: str, label_column: int = -1,
     scheme, _, rest = uri.partition(":")
     scheme = scheme.lower()
     if scheme in _BUILTIN:
-        raise NotImplementedError(
-            f"the builtin dataset '{scheme}' is not ported to "
-            f"deeplearning4j_tpu_torch yet; see ROADMAP.md queue A item 6 "
-            f"(use csv:<path> or text:<path>)")
+        fetcher, default_n = _BUILTIN[scheme]
+        return fetcher().fetch(num_examples or (int(rest) if rest
+                                                else default_n))
     if scheme == "csv" or uri.endswith(".csv"):
         if scheme == "csv":
             # split at the last colon, and only before an integer, so paths
@@ -79,7 +69,8 @@ def load_input(uri: str, label_column: int = -1,
                 path, lc = rest, label_column
         else:
             path, lc = uri, label_column
-        return _read_csv(path, lc, num_examples or int(1e9))
+        return CSVDataFetcher(path, label_column=lc).fetch(
+            num_examples or int(1e9))
     if scheme == "text":
         path, _, slen = rest.rpartition(":")
         if path and slen.isdigit():
@@ -88,5 +79,6 @@ def load_input(uri: str, label_column: int = -1,
             path, seq_len = rest, 32
         return _read_text(path, seq_len, num_examples)
     raise ValueError(
-        f"unrecognized --input '{uri}': expected csv:<path>[:label_col], "
-        f"text:<path>[:seq_len], or a .csv path")
+        f"unrecognized --input '{uri}': expected mnist/iris/lfw/curves/"
+        f"cifar10[:n], csv:<path>[:label_col], text:<path>[:seq_len], or a "
+        f".csv path")

@@ -2,8 +2,8 @@
 
 Counterpart of `deeplearning4j_tpu/datasets/dataset.py` (its own copy: the
 port imports nothing of the JAX package): counting, row selection and
-batching, and the two feature scalings the CLI offers. Merging, shuffling,
-binarizing, splitting and sampling are not ported yet.
+batching, a seeded shuffle, and the two feature scalings the CLI offers.
+Merging, binarizing, splitting and sampling are not ported yet.
 
 One deliberate difference: labels may hold k rows per example, window
 after window, as a sequence model's next-step targets do ([B*T, V] for
@@ -57,6 +57,12 @@ class DataSet:
     def batch_by(self, batch_size: int) -> List["DataSet"]:
         return [self.get(slice(i, i + batch_size))
                 for i in range(0, self.num_examples(), batch_size)]
+
+    def shuffle(self, seed: int = 123) -> "DataSet":
+        """The examples in the order of the JAX package's shuffle (a
+        `RandomState(seed)` permutation), each with its label rows."""
+        idx = np.random.RandomState(seed).permutation(self.num_examples())
+        return self.get(idx)
 
     def normalize_zero_mean_unit_variance(self) -> "DataSet":
         mean = self.features.mean(axis=0, keepdims=True)

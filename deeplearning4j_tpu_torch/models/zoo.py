@@ -1,7 +1,7 @@
 """Canonical model configurations.
 
 Counterpart of `deeplearning4j_tpu/models/zoo.py`; ported so far: the
-flagship `char_transformer` and `char_lstm` (BASELINE configs[1]). Each
+flagship `char_transformer`, `char_lstm` (BASELINE configs[1]) and `mlp`. Each
 configuration is the JAX package's, field for field, so both packages
 build the same network from it.
 """
@@ -24,6 +24,24 @@ def _base(lr=0.1, iters=1, **kw):
         optimization_algo=SGD, lr=lr, num_iterations=iters,
         activation=Activation.RELU, weight_init=WeightInit.VI,
         use_adagrad=False, momentum=0.9, **kw)
+
+
+def mlp(n_in: int, hidden, n_out: int, lr: float = 0.1,
+        iterations: int = 1) -> MultiLayerConfiguration:
+    """Plain MLP: relu dense layers of the `hidden` widths, then a softmax
+    output with the mcxent loss (bench.py's 784-512-512-10 on MNIST is
+    `mlp(784, [512, 512], 10)`)."""
+    b = _base(lr=lr, iters=iterations)
+    dims = [n_in] + list(hidden) + [n_out]
+    confs = []
+    for i in range(len(dims) - 1):
+        last = i == len(dims) - 2
+        confs.append(b.replace(
+            layer_type=LayerType.OUTPUT if last else LayerType.DENSE,
+            n_in=dims[i], n_out=dims[i + 1],
+            activation=Activation.SOFTMAX if last else Activation.RELU,
+            loss_function=LossFunction.MCXENT))
+    return MultiLayerConfiguration(confs=tuple(confs), backprop=True)
 
 
 def char_transformer(vocab: int, d_model: int = 128, n_blocks: int = 2,

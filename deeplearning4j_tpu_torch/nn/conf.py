@@ -1,4 +1,5 @@
-"""Configuration: `NeuralNetConfiguration` and `MultiLayerConfiguration`.
+"""Configuration: `NeuralNetConfiguration`, `MultiLayerConfiguration` and
+the fluent `ListBuilder` (`list_builder`).
 
 Counterpart of `deeplearning4j_tpu/nn/conf.py`, field for field, so that
 `from_json` reads the JAX package's configuration JSON unchanged and
@@ -324,3 +325,53 @@ class MultiLayerConfiguration:
                 (int(i), str(n)) for i, n in d.get("input_preprocessors", [])
             ),
         )
+
+
+class ListBuilder:
+    """Fluent builder of a stacked-network conf, the JAX package's
+    `ListBuilder`: `n_layers` copies of `base`, each changed by
+    `hidden_layer_sizes` (n_in / n_out from the input width, the hidden
+    widths and the output width) and `override(i, **fields)`, then
+    `build()`. The conf it builds gives the JAX builder's `to_json`."""
+
+    def __init__(self, base: NeuralNetConfiguration, n_layers: int):
+        self._confs = [base] * n_layers
+        self._pretrain = False
+        self._backprop = True
+        self._preprocessors: Dict[int, str] = {}
+
+    def hidden_layer_sizes(self, sizes, n_in: int,
+                           n_out: int) -> "ListBuilder":
+        """Set n_in / n_out of every layer from the input width, the hidden
+        widths and the output width."""
+        dims = [n_in] + list(sizes) + [n_out]
+        for i in range(len(self._confs)):
+            self._confs[i] = self._confs[i].replace(n_in=dims[i],
+                                                    n_out=dims[i + 1])
+        return self
+
+    def override(self, i: int, **kwargs) -> "ListBuilder":
+        self._confs[i] = self._confs[i].replace(**kwargs)
+        return self
+
+    def pretrain(self, flag: bool) -> "ListBuilder":
+        self._pretrain = flag
+        return self
+
+    def backprop(self, flag: bool) -> "ListBuilder":
+        self._backprop = flag
+        return self
+
+    def input_preprocessor(self, i: int, name: str) -> "ListBuilder":
+        self._preprocessors[i] = name
+        return self
+
+    def build(self) -> MultiLayerConfiguration:
+        return MultiLayerConfiguration(
+            confs=tuple(self._confs), pretrain=self._pretrain,
+            backprop=self._backprop,
+            input_preprocessors=tuple(sorted(self._preprocessors.items())))
+
+
+def list_builder(base: NeuralNetConfiguration, n_layers: int) -> ListBuilder:
+    return ListBuilder(base, n_layers)

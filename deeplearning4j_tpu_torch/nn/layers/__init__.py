@@ -1,8 +1,10 @@
 """Layer registry: `LayerType` -> the layer's `init` / `forward` pair.
 
-Counterpart of `deeplearning4j_tpu/nn/layers/__init__.py`. Layer types not
-ported yet raise `NotImplementedError` naming the ROADMAP.md item that
-ports them.
+Counterpart of `deeplearning4j_tpu/nn/layers/__init__.py`.
+`register_layer(layer_type, impl)` installs (or replaces) a type's
+implementation, as in the JAX package; `get_layer` finds a registered type
+first, and a layer type that is neither registered nor ported raises
+`NotImplementedError` naming the ROADMAP.md item that ports it.
 """
 
 from deeplearning4j_tpu_torch.nn.conf import LayerType
@@ -36,3 +38,9 @@ def get_layer(layer_type):
     raise NotImplementedError(
         f"layer type '{lt}' is not ported to deeplearning4j_tpu_torch yet; "
         f"see ROADMAP.md {_PLANNED[lt]}")
+
+
+def register_layer(layer_type, impl) -> None:
+    """Use `impl` (a class with the layers' `init` / `forward` static
+    methods) for `layer_type`."""
+    _REGISTRY[LayerType(str(layer_type).lower())] = impl

@@ -5,7 +5,8 @@ Counterpart of `deeplearning4j_tpu/nn/multilayer.py`: `init_params`,
 `network_rowwise_loss`, `make_finetune_loss`, `network_regularization`),
 and `MultiLayerNetwork` with `init` / `output` / `feed_forward` /
 `predict` / `score` / `evaluate` / `fit` / `warmup` / `warmup_generate` /
-`serve`. Params are a
+`serve`, and the flat parameter vector (`params_flat`, `set_params_flat`,
+written in place) and `clone` (on copies). Params are a
 tuple of dicts of tensors with the JAX package's key names, so
 `parallel/checkpoint.py` carries weights both ways.
 Gradients come from autograd through the plain forward.
@@ -38,7 +39,8 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nd.platform import resolve_device
-from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.conf import (LayerType,
+                                              MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.nn.layers import get_layer
 from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
 from deeplearning4j_tpu_torch.nn.layers.preprocessor import apply_preprocessor
@@ -238,9 +240,11 @@ class MultiLayerNetwork:
     def warmup(self, shapes, entries=("output",), train: bool = False):
         """Capture the serve (and with `train`, train) programs for the
         given batch shapes ahead of traffic, so that the first real call is
-        a hit. `shapes`: batch sizes (int: (b, n_in) float32 zeros), full
-        input shapes (tuple: float32 zeros) or example arrays (an embedding
-        net wants its int ids). `entries`: "output", "feed_forward",
+        a hit. `shapes`: batch sizes (int: (b, n_in) zeros), full input
+        shapes (tuple: zeros) or example arrays. The zeros are float32,
+        or int32 ids where the first layer is an embedding: the JAX package
+        warms float32 there, a program its int32 requests never hit
+        (ROADMAP.md, reference faults). `entries`: "output", "feed_forward",
         "loss". Labels for "loss" and the train step are zeros: int32 class
         ids where the output layer's conf has `sparse_labels`, else shaped
         and typed like the network's output. Returns the shapes, the
@@ -248,12 +252,15 @@ class MultiLayerNetwork:
         if self.params is None:
             self.init()
         captured = []
+        ids = (LayerType(str(self.conf.confs[0].layer_type))
+               == LayerType.EMBEDDING)
+        dtype = torch.int32 if ids else torch.float32
         for spec in shapes:
             if isinstance(spec, int):
-                x = torch.zeros((spec, self.conf.confs[0].n_in),
+                x = torch.zeros((spec, self.conf.confs[0].n_in), dtype=dtype,
                                 device=self.device)
             elif isinstance(spec, tuple):
-                x = torch.zeros(spec, device=self.device)
+                x = torch.zeros(spec, dtype=dtype, device=self.device)
             else:
                 x = self._input(spec)
             y = None
@@ -555,11 +562,52 @@ class MultiLayerNetwork:
             if installed:
                 signal.signal(signal.SIGTERM, prev_handler)
 
+    # -- the parameter vector ------------------------------------------------
+    def params_flat(self) -> torch.Tensor:
+        """Every param in one 1-D tensor, in the order and dtype of the JAX
+        package's `ravel_pytree`: layer by layer, each layer's names sorted,
+        promoted to their common dtype."""
+        leaves = tree_leaves(self.params)
+        dtype = leaves[0].dtype
+        for t in leaves[1:]:
+            dtype = torch.promote_types(dtype, t.dtype)
+        return torch.cat([t.detach().reshape(-1).to(dtype) for t in leaves])
+
+    def set_params_flat(self, flat) -> None:
+        """Write a `params_flat` vector back into the param tensors, in
+        place (each leaf takes its own dtype back). The CUDA graphs read the
+        params by address, so they stay valid: the next step replays."""
+        flat = torch.as_tensor(flat).reshape(-1)
+        leaves = tree_leaves(self.params)
+        n = sum(t.numel() for t in leaves)
+        if flat.numel() != n:
+            raise ValueError(f"flat params have {flat.numel()} elements; the "
+                             f"network has {n}")
+        flat = flat.to(leaves[0].device)
+        offset = 0
+        with torch.no_grad():
+            for t in leaves:
+                t.copy_(flat[offset:offset + t.numel()].view(t.shape))
+                offset += t.numel()
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A network of the same conf and device on copies of the params.
+        The JAX package's clone shares its (immutable) arrays; here the
+        train step writes params in place, so sharing them would train the
+        clone with the original."""
+        net = MultiLayerNetwork(self.conf, device=self.device,
+                                seed=self.seed)
+        if self.params is not None:
+            net.params = tuple({k: v.detach().clone() for k, v in
+                                layer.items()} for layer in self.params)
+        return net
+
     def serve(self, host: str = "127.0.0.1", port: int = 0,
               max_delay_ms: Optional[float] = None, max_pending: int = 1024,
-              max_batch_rows: Optional[int] = None,
+              max_batch_rows: Optional[int] = None, batching: bool = True,
               request_timeout_s: float = 30.0,
-              drain_timeout_s: float = 10.0, breaker=None,
+              drain_timeout_s: float = 10.0, default_deadline_ms=None,
+              breaker=None,
               generate: bool = False, gen_slots: Optional[int] = None,
               gen_max_seq: int = 64, gen_prompt_buckets=(8,),
               gen_max_pending: int = 64,
@@ -572,7 +620,10 @@ class MultiLayerNetwork:
         (`serving.ModelServer`): POST /v1/predict, GET /v1/stats, /healthz,
         /readyz, and with `generate` POST /v1/generate through a
         `ContinuousBatcher` of `gen_slots` slots (its options the `gen_*`
-        arguments). Returns the started server; `server.drain()` stops
+        arguments). `batching=False` answers each predict with its own
+        `output` call; `default_deadline_ms` is the deadline of a request
+        that names none. Call `warmup` first so the first request replays a
+        captured graph. Returns the started server; `server.drain()` stops
         it."""
         from deeplearning4j_tpu_torch.serving.server import ModelServer
 
@@ -582,8 +633,10 @@ class MultiLayerNetwork:
                            max_delay_ms=max_delay_ms,
                            max_pending=max_pending,
                            max_batch_rows=max_batch_rows,
+                           batching=batching,
                            request_timeout_s=request_timeout_s,
                            drain_timeout_s=drain_timeout_s,
+                           default_deadline_ms=default_deadline_ms,
                            breaker=breaker, generate=generate,
                            gen_slots=gen_slots, gen_max_seq=gen_max_seq,
                            gen_prompt_buckets=gen_prompt_buckets,

@@ -2,12 +2,16 @@
 
 Counterpart of `deeplearning4j_tpu/optimize/listeners.py`: a listener sees
 each iteration's score after a solver run, replayed from the run's score
-array by `dispatch`.
+array by `dispatch`. `ScoreIterationListener` logs, `CheckpointListener`
+saves the network every N iterations (asynchronously by default, from a
+host snapshot taken at the iteration), and `ComposableIterationListener`
+fans one iteration out to several listeners.
 """
 
 from __future__ import annotations
 
 import logging
+from typing import Sequence
 
 import numpy as np
 
@@ -28,6 +32,56 @@ class ScoreIterationListener(IterationListener):
     def iteration_done(self, model, iteration, score):
         if iteration % self.print_iterations == 0:
             log.info("Score at iteration %d is %s", iteration, score)
+
+
+class CheckpointListener(IterationListener):
+    """Save the network (params and conf, the score as metadata) to
+    `directory` every `save_every_n` iterations, through
+    `checkpoint.save_async` (`asynchronous`, the default: the snapshot is
+    taken on the training thread, the write runs on another) or
+    `checkpoint.save`. `wait()` blocks until the last write has landed.
+    The data-parallel trainer's state (updater, step, mesh) comes with
+    ROADMAP.md queue A item 10; a network is saved as in the JAX
+    package."""
+
+    def __init__(self, directory: str, save_every_n: int = 10,
+                 asynchronous: bool = True):
+        self.directory = directory
+        self.save_every_n = max(1, save_every_n)
+        self.asynchronous = asynchronous
+        self.saves = 0
+        self._last_thread = None
+
+    def iteration_done(self, model, iteration, score):
+        if iteration % self.save_every_n != 0:
+            return
+        from deeplearning4j_tpu_torch.parallel import checkpoint
+
+        net = getattr(model, "net", model)
+        kw = dict(conf=getattr(net, "conf", None), step=int(iteration),
+                  metadata={"score": float(score)})
+        if self.asynchronous:
+            self._last_thread = checkpoint.save_async(self.directory,
+                                                      net.params, **kw)
+        else:
+            checkpoint.save(self.directory, net.params, **kw)
+        self.saves += 1
+
+    def wait(self) -> None:
+        """Block until the last asynchronous save has landed."""
+        if self._last_thread is not None:
+            self._last_thread.join()
+
+
+class ComposableIterationListener(IterationListener):
+    """Hands each iteration to every listener in `listeners`, in order."""
+
+    def __init__(self, listeners: Sequence[IterationListener]):
+        self.listeners = list(listeners)
+
+    def iteration_done(self, model, iteration, score):
+        for listener in self.listeners:
+            listener.iteration_done(model, iteration, score)
 
 
 def dispatch(listeners, model, scores) -> None:

@@ -11,10 +11,14 @@ reads it back, into a given params tree or as nested dicts, and
 `load_resilient` falls back to '<dir>.bak' when the directory is missing
 or unreadable. Saves and loads traverse the `checkpoint.save` and
 `checkpoint.load` fault points where the JAX package's do.
+`save_async` takes an owned host copy of the params on the calling thread
+and writes it on a background thread; a failed background write is raised
+again by the next `save_async` or by `join_async`, which waits for every
+outstanding write, as in the JAX package.
 `params_from_numpy` turns the JAX package's params (a tuple of dicts of
 numpy arrays, as `jax.device_get` gives them) into the port's tensors, and
-`params_to_numpy` is its inverse. The sharded layout and asynchronous saves
-are not ported (ROADMAP.md queue A item 10).
+`params_to_numpy` is its inverse. The sharded layout is not ported
+(ROADMAP.md queue A item 10).
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import logging
 import os
 import shutil
 import tempfile
-from typing import Any, Dict, Optional, Tuple
+import threading
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,6 +132,78 @@ def save(directory: str, params, *, conf: MultiLayerConfiguration = None,
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     return directory
+
+
+# a failed background write is raised at the next save_async or join_async
+# call, never lost with its thread: a checkpoint the trainer believes exists
+# but does not is silent data loss
+_async_lock = threading.Lock()
+_async_threads: List[threading.Thread] = []
+_async_errors: List[BaseException] = []
+
+
+def _raise_pending_async_error() -> None:
+    with _async_lock:
+        if not _async_errors:
+            return
+        err = _async_errors.pop(0)
+    raise err
+
+
+def _host_snapshot(params) -> tuple:
+    """Owned host copies of every param, taken now. A CUDA tensor is copied
+    by a synchronous device-to-host copy after the device has finished the
+    work queued before it; the captured train step writes the same
+    addresses in place, so a `non_blocking` copy into pinned memory could
+    read a later step's values."""
+    if any(t.device.type == "cuda" for layer in params
+           for t in layer.values()):
+        torch.cuda.synchronize()
+    return tuple({name: t.detach().to("cpu", copy=True)
+                  for name, t in layer.items()} for layer in params)
+
+
+def save_async(directory: str, params, **kw) -> threading.Thread:
+    """`save` on a background thread, from a host snapshot taken before the
+    thread starts, so training may overwrite the params at once. Writes
+    land in call order: each thread waits for the one started before it,
+    so two saves into one directory never race on its '.bak' (the JAX
+    package's threads write at once and can). Raises the error of an
+    earlier `save_async` that failed; `join_async` waits for every
+    outstanding write and raises the first failure."""
+    _raise_pending_async_error()
+    snapshot = _host_snapshot(params)
+    with _async_lock:
+        before = _async_threads[-1] if _async_threads else None
+
+    def run():
+        try:
+            if before is not None:
+                before.join()
+            save(directory, snapshot, **kw)
+        except BaseException as e:  # noqa: BLE001 — raised at the next call
+            log.error("async checkpoint save to %s failed: %r", directory, e)
+            with _async_lock:
+                _async_errors.append(e)
+
+    t = threading.Thread(target=run, daemon=True,
+                         name="dl4j-torch-ckpt-save")
+    with _async_lock:
+        _async_threads[:] = [x for x in _async_threads if x.is_alive()]
+        _async_threads.append(t)
+    t.start()
+    return t
+
+
+def join_async(timeout: Optional[float] = None) -> None:
+    """Wait for every outstanding `save_async`; raise the first failure."""
+    with _async_lock:
+        threads = list(_async_threads)
+    for t in threads:
+        t.join(timeout)
+    with _async_lock:
+        _async_threads[:] = [x for x in _async_threads if x.is_alive()]
+    _raise_pending_async_error()
 
 
 def load_conf(directory: str) -> MultiLayerConfiguration:

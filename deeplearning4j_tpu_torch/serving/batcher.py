@@ -5,12 +5,18 @@ in `deeplearning4j_tpu/serving/batcher.py`. Predict requests land on a
 per-(feature shape, dtype) FIFO from any thread, and one dispatcher thread
 drains them into a single `net.output()` call.
 
-Flush policy: the queued rows reach the target batch (`max_batch_rows`,
-else `DEFAULT_TARGET_ROWS`), or the oldest queued request has waited
-`max_delay_ms`. Requests past their `deadline_ms` are answered
+Flush policy: the dispatcher takes the queue that holds the oldest queued
+request (FIFO across shapes), and flushes it once its rows reach the target
+batch (`max_batch_rows`, else `DEFAULT_TARGET_ROWS`) or that request has
+waited `max_delay_ms`. Requests past their `deadline_ms` are answered
 `DeadlineExceeded` before they are batched. "interactive" requests are
-queued ahead of "batch" ones. The queue is bounded by `max_pending`;
-beyond it `predict()` raises `ServerOverloaded`.
+queued ahead of "batch" ones, so a queue's head is not always its oldest
+request. The queue is bounded by `max_pending`; beyond it `predict()` raises
+`ServerOverloaded`. `stats()` has the JAX package's keys, with each priority
+class's queue depth, requests, latency percentiles and latency histogram
+(`LATENCY_BUCKETS_S`), and the infer cache's books (`fresh_compiles` is its
+misses: captures); the JAX package's `precision` block comes with the
+serve-precision policies (ROADMAP.md queue A item 11).
 
 Each request gets its own rows of the batch's output. A sequence model's
 output has several rows per input row (the charTransformer's `rnn_to_ff`
@@ -70,8 +76,8 @@ PRIORITIES = ("interactive", "batch")
 #: `decode.slots` registry default; not yet measured on a GPU)
 DEFAULT_SLOTS = 4
 
-#: histogram bounds (seconds) of time to first token, the JAX package's
-#: `le` upper bounds (+Inf implied)
+#: histogram bounds (seconds) of a predict's latency by priority class and of
+#: time to first token, the JAX package's `le` upper bounds (+Inf implied)
 LATENCY_BUCKETS_S = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
                      0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
 
@@ -149,6 +155,14 @@ class MicroBatcher:
         self._deadline_misses = 0
         self._errors = 0
         self._degraded_batches = 0
+        # per priority class: queued requests, answered requests (errors
+        # and deadline misses included), latencies, and a latency histogram
+        # of those answered without an error
+        self._pending_by = {p: 0 for p in PRIORITIES}
+        self._reqs_by = {p: 0 for p in PRIORITIES}
+        self._lat_by = {p: deque(maxlen=4096) for p in PRIORITIES}
+        self._lat_hist = {p: _new_hist(LATENCY_BUCKETS_S)
+                          for p in PRIORITIES}
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "MicroBatcher":
@@ -195,6 +209,7 @@ class MicroBatcher:
         if deadline_ms is not None and float(deadline_ms) <= 0.0:
             with self._cv:
                 self._deadline_misses += 1
+                self._reqs_by[priority] += 1
             raise DeadlineExceeded(
                 f"deadline_ms={deadline_ms} already expired at enqueue")
         req = _Pending(x, deadline_ms, priority)
@@ -214,6 +229,7 @@ class MicroBatcher:
                     i += 1
                 q.insert(i, req)
             self._pending += 1
+            self._pending_by[priority] += 1
             self._cv.notify_all()
         if self._thread is None and self._auto_start:
             self.start()
@@ -231,11 +247,17 @@ class MicroBatcher:
 
     # -- dispatcher (one thread) --------------------------------------------
     def _oldest_key(self):
-        """The queue whose head has waited longest (FIFO across shapes).
+        """(key, t_enqueue) of the queue holding the oldest queued request
+        (FIFO across shapes), or None. A queue's head is not its oldest
+        request once an interactive request went ahead of batch ones, so
+        every request counts (the JAX package keeps an arrival heap).
         Caller holds `_cv`."""
-        heads = [(q[0].t_enqueue, key) for key, q in self._queues.items()
-                 if q]
-        return min(heads, key=lambda h: h[0])[1] if heads else None
+        oldest = [(min(r.t_enqueue for r in q), key)
+                  for key, q in self._queues.items() if q]
+        if not oldest:
+            return None
+        t, key = min(oldest, key=lambda o: o[0])
+        return key, t
 
     def _evict_expired_locked(self, now: float) -> None:
         """Answer every queued request past its deadline with
@@ -246,6 +268,8 @@ class MicroBatcher:
             for r in expired:
                 q.remove(r)
                 self._pending -= 1
+                self._pending_by[r.priority] -= 1
+                self._reqs_by[r.priority] += 1
                 self._deadline_misses += 1
                 self._errors += 1
                 r.error = DeadlineExceeded(
@@ -263,15 +287,16 @@ class MicroBatcher:
             with self._cv:
                 now = time.monotonic()
                 self._evict_expired_locked(now)
-                key = self._oldest_key()
-                if key is None:
+                oldest = self._oldest_key()
+                if oldest is None:
                     if self._stop:
                         return
                     self._cv.wait()
                     continue
+                key, t_oldest = oldest
                 q = self._queues[key]
                 queued_rows = sum(r.rows for r in q)
-                flush_at = min(r.t_enqueue for r in q) + self.max_delay_s
+                flush_at = t_oldest + self.max_delay_s
                 # stopping: drain immediately rather than wait
                 if (queued_rows < self.target_rows and now < flush_at
                         and not self._stop):
@@ -285,6 +310,8 @@ class MicroBatcher:
                     batch.append(q.popleft())
                     rows += batch[-1].rows
                 self._pending -= len(batch)
+                for r in batch:
+                    self._pending_by[r.priority] -= 1
             self._execute(batch)
 
     # -- execution paths -----------------------------------------------------
@@ -348,7 +375,13 @@ class MicroBatcher:
             while self._recent and t_done - self._recent[0][0] > RATE_WINDOW_S:
                 self._recent.popleft()
             for r in batch:
-                self._latencies.append(t_done - r.t_enqueue)
+                lat = t_done - r.t_enqueue
+                self._latencies.append(lat)
+                self._lat_by[r.priority].append(lat)
+                self._reqs_by[r.priority] += 1
+                if err is None:
+                    _hist_add(self._lat_hist[r.priority], LATENCY_BUCKETS_S,
+                              lat)
             if degraded:
                 self._degraded_batches += 1
             if err is not None:
@@ -381,11 +414,26 @@ class MicroBatcher:
                 "deadline_misses": self._deadline_misses,
                 "errors": self._errors,
                 "degraded_batches": self._degraded_batches,
+                "priorities": {p: self._priority_stats(p)
+                               for p in PRIORITIES},
             }
+        cache = self.net.infer_cache.stats
+        out["fresh_compiles"] = cache.misses
+        out["cache"] = cache.as_dict()
         breaker = self.breaker.stats()
         out["degraded"] = breaker["state"] != CircuitBreaker.CLOSED
         out["breaker"] = breaker
         return out
+
+    def _priority_stats(self, p: str) -> dict:
+        """One priority class's block of `stats()`. Caller holds `_cv`."""
+        lat = sorted(self._lat_by[p])
+        return {"queue_depth": self._pending_by[p],
+                "requests": self._reqs_by[p],
+                "latency_ms": {"p50": round(_percentile(lat, 0.50) * 1e3, 3),
+                               "p99": round(_percentile(lat, 0.99) * 1e3, 3)},
+                "latency_hist_s": _hist_out(self._lat_hist[p],
+                                            LATENCY_BUCKETS_S)}
 
 
 # -- continuous batching for autoregressive generation ----------------------

@@ -27,7 +27,11 @@ Counterpart of `ModelServer` in `deeplearning4j_tpu/serving/server.py`:
   GET  /readyz       readiness: 200 once started and not draining
 
 Handler threads only parse JSON and park on a batcher; each batcher's one
-thread makes its device calls. `drain()` stops admitting work,
+thread makes its device calls. With `batching=False` each handler thread
+calls `net.output` itself: no coalescing, and the network's captured graphs
+replay one at a time under their pool's lock. `default_deadline_ms` is the
+deadline of a request that names none (a 504 past it, on the batched
+path). `drain()` stops admitting work,
 stops the accept loop, waits for in-flight handlers, then stops the batcher,
 which serves every queued request first.
 """
@@ -230,14 +234,21 @@ class ModelServer:
     `gen_prompt_buckets` bucket; `gen_page_size`, `gen_pages`,
     `gen_prefix_cache`, `gen_prefix_match`, `gen_draft`, `gen_spec_k` and
     `gen_steps_per_dispatch` are its paged pool, prefix cache, speculative
-    decoding's draft net and chunk, and steps a dispatch)."""
+    decoding's draft net and chunk, and steps a dispatch).
+
+    `batching=False` bypasses the micro-batcher (each handler thread calls
+    `net.output`), as in the JAX package. `default_deadline_ms` applies to
+    requests that carry no `deadline_ms` (None: they wait up to
+    `request_timeout_s`)."""
 
     def __init__(self, net, host: str = "127.0.0.1", port: int = 0,
                  max_delay_ms: Optional[float] = None,
                  max_pending: int = 1024,
                  max_batch_rows: Optional[int] = None,
+                 batching: bool = True,
                  request_timeout_s: float = 30.0,
                  drain_timeout_s: float = 10.0,
+                 default_deadline_ms: Optional[float] = None,
                  breaker: Optional[CircuitBreaker] = None,
                  generate: bool = False,
                  gen_slots: Optional[int] = None,
@@ -251,8 +262,10 @@ class ModelServer:
                  gen_draft=None, gen_spec_k: int = 0,
                  gen_steps_per_dispatch: Optional[int] = None):
         self.net = net
+        self.batching = bool(batching)
         self.request_timeout_s = float(request_timeout_s)
         self.drain_timeout_s = float(drain_timeout_s)
+        self.default_deadline_ms = default_deadline_ms
         self.batcher = MicroBatcher(
             net, max_delay_ms=max_delay_ms, max_pending=max_pending,
             max_batch_rows=max_batch_rows, auto_start=False,
@@ -305,9 +318,14 @@ class ModelServer:
                 priority: str = "interactive") -> np.ndarray:
         if self.draining:
             raise ServerDraining("server is draining")
-        return self.batcher.predict(feats, timeout=self.request_timeout_s,
-                                    deadline_ms=deadline_ms,
-                                    priority=priority)
+        if deadline_ms is None:
+            deadline_ms = self.default_deadline_ms
+        if self.batching:
+            return self.batcher.predict(feats,
+                                        timeout=self.request_timeout_s,
+                                        deadline_ms=deadline_ms,
+                                        priority=priority)
+        return self.net.output(feats).float().cpu().numpy()
 
     def generate_stream(self, prompt, max_new_tokens: int = 16,
                         temperature: float = 0.0, rng_seed: int = 0):
@@ -323,6 +341,7 @@ class ModelServer:
 
     def stats(self) -> dict:
         out = self.batcher.stats()
+        out["batching"] = self.batching
         out["device"] = {"type": self.net.device.type,
                          "kind": device_kind(self.net.device)}
         out["programs"] = self.net.infer_cache.programs_summary()

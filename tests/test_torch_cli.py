@@ -200,13 +200,31 @@ def test_unported_train_options_name_their_roadmap_item(tmp_path, extra,
 
 @pytest.mark.parametrize("zoo_name", ["lenet5", "mlp", "vgg_cifar10", "dbn",
                                       "deep_autoencoder"])
-def test_unported_zoo_models_name_their_roadmap_item(tmp_path, zoo_name):
+def test_unported_zoo_models_name_their_roadmap_item(tmp_path, capsys,
+                                                     zoo_name):
+    """`mlp` is ported (it exited naming item 9 before): it builds JAX's
+    conf from the data's widths and trains; the others still exit."""
+    if zoo_name == "mlp":
+        uri = "csv:" + _csv(tmp_path)
+        out = str(tmp_path / "o")
+        assert main(["train", "--input", uri, "--zoo", "mlp:hidden=8x4",
+                     "--output", out, "--device", "cpu"]) == 0
+        assert np.isfinite(_last_json(capsys.readouterr().out)["score"])
+        want = jax_conf.MultiLayerConfiguration.from_json(
+            open(f"{out}/conf.json").read())
+        from deeplearning4j_tpu.models import zoo as jax_zoo
+
+        assert want.to_json() == jax_zoo.mlp(4, [8, 4], 3, lr=0.05).to_json()
+        return
     with pytest.raises(SystemExit, match="queue A item 9"):
         main(["train", "--input", _corpus(tmp_path), "--zoo", zoo_name,
               "--output", str(tmp_path / "o"), "--device", "cpu"])
 
 
 def test_pretraining_and_builtin_datasets_name_their_roadmap_item(tmp_path):
+    """Pretraining still exits naming item 9. The builtin datasets are
+    ported (they raised naming item 6 before): each loads the JAX
+    package's arrays (tests/test_torch_datasets.py holds every scheme)."""
     conf = MultiLayerConfiguration(confs=(
         NeuralNetConfiguration(layer_type=LayerType.OUTPUT, n_in=4, n_out=3),
     ), pretrain=True)
@@ -216,11 +234,159 @@ def test_pretraining_and_builtin_datasets_name_their_roadmap_item(tmp_path):
         main(["train", "--input", "csv:" + _csv(tmp_path), "--model",
               str(conf_path), "--output", str(tmp_path / "o"), "--device",
               "cpu"])
-    for name in ("mnist", "iris:20", "cifar10"):
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            load_input(name)
+    for name in ("mnist:30", "iris:20", "cifar10:12"):
+        got, want = load_input(name), jax_load_input(name)
+        np.testing.assert_array_equal(got.features, want.features)
+        np.testing.assert_array_equal(got.labels, want.labels)
     with pytest.raises(SystemExit, match="--model"):
         main(["train", "--input", _corpus(tmp_path), "--output",
               str(tmp_path / "o"), "--device", "cpu"])
     with pytest.raises(ValueError, match="unrecognized"):
         load_input("parquet:x")
+
+
+def _carry_jax_init(monkeypatch):
+    """The port's `MultiLayerNetwork.init` draws the JAX package's initial
+    params for the same conf and seed (the generators differ), so a CLI
+    run starts where the JAX CLI's does."""
+    from deeplearning4j_tpu_torch.nn import multilayer as port_ml
+    from deeplearning4j_tpu_torch.parallel.checkpoint import params_from_numpy
+
+    real_init = port_ml.MultiLayerNetwork.init
+
+    def init(self):
+        real_init(self)
+        jconf = jax_conf.MultiLayerConfiguration.from_json(
+            self.conf.to_json())
+        jnet = jax_ml.MultiLayerNetwork(jconf, seed=self.seed).init()
+        self.params = params_from_numpy(jax.device_get(jnet.params),
+                                        self.device)
+        return self
+
+    monkeypatch.setattr(port_ml.MultiLayerNetwork, "init", init)
+
+
+@pytest.mark.parametrize("props", ["epochs=1", "epochs=2,batch=40"])
+def test_train_zoo_mlp_on_mnist_gives_jaxs_score(tmp_path, capsys,
+                                                 monkeypatch, props):
+    """`train --zoo mlp --input mnist:n`: the MNIST stand-in, the JAX
+    package's conf and initial params; the score within rtol 1e-4 (the
+    f32 score tolerance of tests/test_torch_training.py), and `test`
+    reports JAX's accuracy on the same checkpoint."""
+    monkeypatch.delenv("MNIST_DIR", raising=False)
+    monkeypatch.delenv("DL4J_MNIST_URL", raising=False)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    _carry_jax_init(monkeypatch)
+    common = ["train", "--input", "mnist:120", "--zoo", "mlp:hidden=32x16",
+              "--properties", props]
+    want = _last_json(_run(jax_main, common + ["--output",
+                                               str(tmp_path / "j")], capsys))
+    got = _last_json(_run(main, common + ["--output", str(tmp_path / "t"),
+                                          "--device", "cpu"], capsys))
+    np.testing.assert_allclose(got["score"], want["score"], rtol=1e-4)
+    conf = open(tmp_path / "t" / "conf.json").read()
+    assert conf == open(tmp_path / "j" / "conf.json").read()
+    test = ["test", "--input", "mnist:120", "--batch", "0"]
+    jt = _last_json(_run(jax_main, test + ["--model", str(tmp_path / "j")],
+                         capsys))
+    tt = _last_json(_run(main, test + ["--model", str(tmp_path / "t"),
+                                       "--device", "cpu"], capsys))
+    assert tt["accuracy"] == jt["accuracy"]
+
+
+def test_serve_shapes_warm_before_listening(tmp_path, capsys, monkeypatch):
+    """`serve --shapes 2x8,4x8` captures its buckets before the socket
+    opens (the JAX CLI's shapes); an embedding net is warmed with int32
+    ids, so a request replays and captures nothing (the JAX CLI warms
+    float32 there, which int32 requests miss: ROADMAP.md, reference
+    faults). `--no-batching` and `--default-deadline-ms` reach the
+    server."""
+    from deeplearning4j_tpu.cli import driver as jax_driver
+    from deeplearning4j_tpu_torch.serving.server import ModelServer
+
+    jconf = jax_conf.MultiLayerConfiguration.from_json(
+        _zoo_json("char_transformer:d_model=16,blocks=1,heads=2,seq_len=8"))
+    ckpt = str(tmp_path / "ckpt")
+    jax_checkpoint.save(ckpt, jax_ml.init_params(jconf,
+                                                 jax.random.PRNGKey(0)),
+                        conf=jconf)
+    argv = ["serve", "--model", ckpt, "--port", "0", "--shapes", "2x8,4x8"]
+    seen = {}
+    real_start = ModelServer.start
+
+    def start(self):
+        seen["misses_at_start"] = self.net.infer_cache.stats.misses
+        seen["batching"] = self.batching
+        seen["default_deadline_ms"] = self.default_deadline_ms
+        return real_start(self)
+
+    def traffic(self):
+        x = np.random.RandomState(0).randint(0, 5, (3, 8))
+        seen["answer"] = _post_json(self.url + "/v1/predict",
+                                    {"features": x.tolist(),
+                                     "dtype": "int32"})
+        seen["stats"] = self.stats()
+
+    monkeypatch.setattr(ModelServer, "start", start)
+    monkeypatch.setattr(ModelServer, "wait_for_stop", traffic)
+    assert main(argv + ["--device", "cpu", "--default-deadline-ms",
+                        "5000"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    startup = lines[0]
+    assert startup["warmed"] == [[2, 8], [4, 8]]
+    assert startup["batching"] is True and lines[-1]["drained"]
+    assert seen["misses_at_start"] == startup["fresh_compiles"] == 2
+    assert seen["default_deadline_ms"] == 5000.0
+    assert seen["stats"]["fresh_compiles"] == 2  # the request replayed
+    assert len(seen["answer"]["output"]) == 3 * 8
+    jargs = jax_driver.build_parser().parse_args(argv)
+    _, jserver, summary = jax_driver._build_server(jargs)
+    jserver.stop()
+    assert [list(s) for s in summary["warmed"]] == startup["warmed"]
+    assert main(argv + ["--device", "cpu", "--no-batching"]) == 0
+    assert seen["batching"] is False
+    assert seen["stats"]["requests"] == 0
+    assert json.loads(capsys.readouterr().out.splitlines()[0])[
+        "batching"] is False
+
+
+def _zoo_json(spec):
+    from deeplearning4j_tpu_torch.cli.driver import _zoo_conf
+
+    class _Data:
+        vocab_size = 5
+        features = np.zeros((1, 8, 5), np.float32)
+
+    return _zoo_conf(spec, _Data()).to_json()
+
+
+def _post_json(url, body):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def test_jax_warmup_of_an_embedding_net_misses_its_int32_requests():
+    """The reference fault the port's `warmup` avoids: the JAX package
+    warms a tuple shape with float32 zeros, so an embedding net's int32 id
+    requests miss the warmed program and compile under traffic; the port
+    warms int32 ids and its requests hit."""
+    from deeplearning4j_tpu.models import zoo as jax_zoo
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    jconf = jax_zoo.char_transformer(13, d_model=16, n_blocks=1, n_heads=2,
+                                     max_seq_len=8)
+    jnet = jax_ml.MultiLayerNetwork(jconf, seed=0).init()
+    tnet = MultiLayerNetwork(MultiLayerConfiguration.from_json(
+        jconf.to_json()), device="cpu", seed=0).init()
+    ids = np.random.RandomState(0).randint(0, 13, (2, 8)).astype(np.int32)
+    misses = []
+    for net in (jnet, tnet):
+        net.warmup([(2, 8)])
+        before = net.infer_cache.stats.misses
+        net.output(ids)
+        misses.append(net.infer_cache.stats.misses - before)
+    assert misses == [1, 0]

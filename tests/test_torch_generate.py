@@ -1096,7 +1096,10 @@ def test_cli_serve_refuses_unported_generation_flags(lstm_checkpoint, flag,
     assert torch_main(argv + ["--device", "cpu"]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert lines[0]["generation"]["spec_k"] == 0
-    assert lines[0]["fresh_compiles"] == 2  # the decode table and a bucket
+    # the predict bucket of the default --shapes 64 (captured before the
+    # socket opens, as in the JAX CLI), the decode table and a bucket
+    assert lines[0]["warmed"] == [[64, 13]]
+    assert lines[0]["fresh_compiles"] == 3
     assert lines[-1]["drained"] is True
 
 

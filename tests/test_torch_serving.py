@@ -326,3 +326,230 @@ def test_cli_serves_a_jax_checkpoint_and_drains_on_sigterm(nets, tmp_path):
     assert proc.returncode == 0
     drained = json.loads(out.strip().splitlines()[-1])
     assert drained["drained"] and drained["requests"] == 1
+
+
+# -- dispatch order, stats, unbatched serving and default deadlines ------------------
+
+class _FakeClock:
+    """Stands in for a batcher module's `time`: `monotonic()` is what the
+    test sets; the rest is the real module's."""
+
+    def __init__(self, t):
+        self.t = t
+        self.perf_counter = time.perf_counter
+        self.sleep = time.sleep
+        self.time = time.time
+
+    def monotonic(self):
+        return self.t
+
+
+class _StubNet:
+    """What a MicroBatcher's dispatch reads of a network (nothing runs)."""
+
+    class infer_cache:  # noqa: N801 — attribute namespace
+        buckets = ()
+
+    @staticmethod
+    def check_input(x):
+        pass
+
+
+def _dispatch_order(batcher_cls, module, monkeypatch):
+    """ROADMAP.md queue C's scenario through `batcher_cls`: shape A gets a
+    "batch" request at t = 1 and an "interactive" one at t = 5 (queued
+    ahead of it), shape B an "interactive" one at t = 3; max_delay 4 s.
+    Returns [(shape, clock at the flush, priorities of the batch)]."""
+    clock = _FakeClock(0.0)
+    monkeypatch.setattr(module, "time", clock)
+    b = batcher_cls(_StubNet(), max_delay_ms=4000, auto_start=False)
+    flushed = []
+
+    def execute(batch):
+        flushed.append((batch[0].x.shape[1], clock.t,
+                        [r.priority for r in batch]))
+        for r in batch:
+            r.result = r.x
+            r.done.set()
+
+    b._execute = execute
+    threads = []
+    for t, width, priority in ((1.0, 4, "batch"), (3.0, 6, "interactive"),
+                               (5.0, 4, "interactive")):
+        clock.t = t
+        x = np.zeros((1, width), np.float32)
+        th = threading.Thread(target=b.predict, args=(x,),
+                              kwargs=dict(timeout=30, priority=priority))
+        th.start()
+        threads.append(th)
+        deadline = time.monotonic() + 10
+        while b.queue_depth() < len(threads) and \
+                time.monotonic() < deadline:
+            time.sleep(0.002)
+    b.start()
+    deadline = time.monotonic() + 5.0
+    while not flushed and time.monotonic() < deadline:
+        time.sleep(0.002)
+    clock.t = 7.0  # B's own flush time, 3 + max_delay
+    with b._cv:
+        b._cv.notify_all()
+    for th in threads:
+        th.join(10)
+    b.stop()
+    return flushed
+
+
+def test_dispatch_takes_the_queue_of_the_oldest_request_as_jax(monkeypatch):
+    """The oldest live request (A's batch request, t = 1) picks the queue,
+    although A's head is the later interactive one: A flushes first, at
+    1 + max_delay, with both its requests, interactive first; then B at its
+    own 3 + max_delay. The JAX batcher's arrival heap gives the same."""
+    from deeplearning4j_tpu.serving import batcher as jax_batcher
+    from deeplearning4j_tpu_torch.serving import batcher as port_batcher
+
+    want = _dispatch_order(jax_batcher.MicroBatcher, jax_batcher,
+                           monkeypatch)
+    got = _dispatch_order(port_batcher.MicroBatcher, port_batcher,
+                          monkeypatch)
+    assert want == [(4, 5.0, ["interactive", "batch"]),
+                    (6, 7.0, ["interactive"])]
+    assert got == want
+
+
+def _mixed_traffic(batcher, xs, expired):
+    """Interactive and batch requests coalesced, one batch request that
+    expires at enqueue, one that expires in the queue (`expired`: the
+    package's DeadlineExceeded)."""
+    prios = ["interactive", "batch", "interactive", "batch"]
+    results = [None] * len(xs)
+
+    def call(i):
+        results[i] = batcher.predict(xs[i], timeout=30, priority=prios[i])
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(xs))]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 10
+    while batcher.queue_depth() < len(xs) and time.monotonic() < deadline:
+        time.sleep(0.005)
+    with pytest.raises(expired):
+        batcher.predict(xs[0], deadline_ms=0, priority="batch")
+    late = threading.Thread(target=lambda: pytest.raises(
+        expired, batcher.predict, xs[1], timeout=10,
+        deadline_ms=1, priority="interactive"))
+    late.start()
+    time.sleep(0.05)
+    batcher.start()
+    for t in threads + [late]:
+        t.join(30)
+    batcher.stop()
+    return batcher.stats()
+
+
+def test_stats_have_the_jax_batchers_priority_cache_and_compile_keys(nets):
+    from deeplearning4j_tpu.reliability import \
+        DeadlineExceeded as JaxDeadlineExceeded
+    from deeplearning4j_tpu.serving.batcher import MicroBatcher as JaxBatcher
+
+    jconf, jparams, net = nets
+    jnet = jax_ml.MultiLayerNetwork(jconf, seed=0)
+    jnet.params = jax.tree_util.tree_map(jnp.asarray, jparams)
+    xs = _requests(rows=(1, 2, 1, 2), seed=8)
+    want = _mixed_traffic(JaxBatcher(jnet, max_delay_ms=200,
+                                     auto_start=False), xs,
+                          JaxDeadlineExceeded)
+    got = _mixed_traffic(MicroBatcher(net, max_delay_ms=200,
+                                      auto_start=False), xs,
+                         DeadlineExceeded)
+    # the JAX package's precision block and tuning status come with
+    # ROADMAP.md queue A item 11
+    assert set(got) == set(want) - {"precision", "tuning"}
+    assert set(got["cache"]) == set(want["cache"])
+    assert got["fresh_compiles"] == net.infer_cache.stats.misses
+    assert got["fresh_compiles"] == got["cache"]["misses"] >= 1
+    assert got["deadline_misses"] == want["deadline_misses"] == 2
+    for p in ("interactive", "batch"):
+        g, w = got["priorities"][p], want["priorities"][p]
+        assert set(g) == set(w) and set(g["latency_hist_s"]) == set(
+            w["latency_hist_s"])
+        assert g["requests"] == w["requests"] == 3
+        assert g["queue_depth"] == w["queue_depth"] == 0
+        assert g["latency_hist_s"]["bounds"] == \
+            w["latency_hist_s"]["bounds"]
+        h = g["latency_hist_s"]
+        assert h["count"] == w["latency_hist_s"]["count"] == 2
+        assert sum(h["counts"]) + h["inf"] == h["count"]
+        assert g["latency_ms"]["p99"] >= g["latency_ms"]["p50"] > 0
+
+
+def test_unbatched_server_answers_concurrent_requests(nets):
+    """batching=False: each handler thread runs `net.output` (its graph
+    replays are serialised under the pool's lock); every answer is its
+    request's own, and the batcher sees none of them, as in JAX."""
+    server = nets[2].serve(batching=False)
+    try:
+        xs = _requests(rows=(2, 1, 3, 2, 1, 2), seed=9)
+        answers = [None] * len(xs)
+
+        def call(i):
+            answers[i] = _post(server.url, {"features": xs[i].tolist(),
+                                            "dtype": "int32"})
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(xs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30)
+        for x, ans in zip(xs, answers):
+            assert ans["rows"] == x.shape[0]
+            np.testing.assert_allclose(np.asarray(ans["output"]),
+                                       _jax_answer(nets, x), rtol=1e-4,
+                                       atol=1e-4)
+        bad = xs[0].copy()
+        bad[0, 0] = VOCAB
+        with pytest.raises(urllib.error.HTTPError) as info:
+            _post(server.url, {"features": bad.tolist(), "dtype": "int32"})
+        assert info.value.code == 400
+        stats = server.stats()
+        assert stats["batching"] is False and stats["requests"] == 0
+    finally:
+        server.drain()
+
+
+def _status(url, body):
+    try:
+        _post(url, body)
+        return 200
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def test_default_deadline_ms_answers_504_past_it_as_jax(nets):
+    """A request that names no deadline takes the server's default: past
+    it in the queue, 504; one that names its own waits for the flush."""
+    from deeplearning4j_tpu.serving.server import ModelServer as JaxServer
+
+    jconf, jparams, net = nets
+    jnet = jax_ml.MultiLayerNetwork(jconf, seed=0)
+    jnet.params = jax.tree_util.tree_map(jnp.asarray, jparams)
+    x = _requests(rows=(2,), seed=10)[0]
+    codes = {}
+    for name, server in (
+            ("jax", JaxServer(jnet, max_delay_ms=300,
+                              default_deadline_ms=20).start()),
+            ("port", net.serve(max_delay_ms=300, default_deadline_ms=20))):
+        try:
+            codes[name] = [
+                _status(server.url, {"features": x.tolist(),
+                                     "dtype": "int32"}),
+                _status(server.url, {"features": x.tolist(),
+                                     "dtype": "int32",
+                                     "deadline_ms": 10000})]
+            stats = server.stats()
+            codes[name] += [stats["deadline_misses"],
+                            stats["priorities"]["interactive"]["requests"]]
+        finally:
+            server.drain()
+    assert codes["port"] == codes["jax"] == [504, 200, 1, 2]

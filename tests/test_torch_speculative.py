@@ -713,3 +713,24 @@ def test_cuda_captured_verify_equals_the_eager_program(model, paged):
     assert got == plain
     assert st["fresh_compiles"] == warmed
     assert st["speculative"]["accepted_per_step"] > 1.0
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_bf16_speculative_streams_equal_the_jax_batchers(nets, temperature):
+    """bf16 compute (the chip smoke's serving dtype): the speculative
+    streams are the JAX batcher's and the port's one-step pass's token for
+    token on the CPU. On the card 4 of 8 diverge from the one-step pass
+    within 2e-2 max|logp| (cuBLAS sums a verify's 16-row GEMMs in another
+    order than a step's 4-row ones; ROADMAP.md, deliberate differences)."""
+    (jnet, tnet), (jd, td) = nets["transformer"], nets["draft"]
+    jconf = jnet.conf.with_compute_dtype("bfloat16")
+    jbf = jax_ml.MultiLayerNetwork(jconf, seed=0)
+    jbf.params = jnet.params
+    tbf = ml.MultiLayerNetwork(
+        MultiLayerConfiguration.from_json(jconf.to_json()), device="cpu")
+    tbf.params = tnet.params
+    want, jst = _serve(JaxBatcher, jbf, 10, temperature, jd)
+    got, st = _serve(ContinuousBatcher, tbf, 10, temperature, td)
+    plain, _ = _serve(ContinuousBatcher, tbf, 10, temperature, None)
+    assert got == want == plain
+    assert st["speculative"] == jst["speculative"]
