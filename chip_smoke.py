@@ -141,7 +141,31 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    captured `fit` steps at SLICE's width (2 blocks) and holds each
    array-equal to a synchronous save of its step's params (the snapshot's
    stall timed); and round-trips `params_flat` / `set_params_flat`, after
-   which the next step replays.
+   which the next step replays;
+15. `conv_nets` (CONV_*): bench.py's LeNet-5 (`_mixed`, batch 4,096, the
+   60,000-image MNIST stand-in) and VGG-CIFAR10 (`_mixed`, width 64, batch
+   512, the CIFAR stand-in) through `MultiLayerNetwork.fit`: captured and
+   eager steps in turns (median step ms, samples/s, idle share from one
+   profiled step, whose device ms by kind of kernel are the
+   `conv_profile_*` lines), held within 2e-2 of max|param| of the captured
+   program run uncaptured (the BatchNorm EMA too) and of each other (a
+   BatchNorm net one step from the same params, EMA included, since its
+   trajectories part), the ragged tail padded into the batch's bucket against an
+   unpadded uncaptured step, `output` timed and read after a step with no
+   new capture, epochs of the captured net with no capture under traffic
+   and the held-out accuracy (at least chance + 0.4); `conv_dropout`:
+   LeNet with dropout 0.5, the card's masks bitwise the CPU's, captured
+   against eager, and the graph drawing its masks from its key input;
+   `conv_f32`, in a child process with PyTorch's default (TF32) flags: the
+   CLI's train/predict/test on `mnist:` and `cifar10:` in f32, the card's
+   LeNet output within 1e-4 relative of the CPU port's (a plain
+   `F.conv2d` under those flags beside it), the f32 VGG's captured and
+   eager steps each within 1e-3 of max|leaf| of the CPU port's from the
+   same params (EMA included; each conv against float64 beside them),
+   deterministic against default cuDNN
+   algorithms, and a checkpointed LeNet `fit` stopped by SIGTERM
+   after 3 of 6 batches that resumes bitwise equal to an uninterrupted
+   one.
 
 Each phase prints one JSON line; then a line with every kernel's numbers,
 the card's line, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -4117,6 +4141,741 @@ def phase_datasets_serve_api(torch, kernels):
     return serve_launches, ckpt["launches"]
 
 
+#: the conv_nets phase (slice 17): bench.py's LeNet-5 (:205-208, batch
+#: 4,096) and VGG-CIFAR10 (:322-326, width 64, batch 512) cells, `_mixed`,
+#: trained through `MultiLayerNetwork.fit` (the bench's DataParallelTrainer
+#: at world size 1 is ROADMAP.md queue A item 10), `turns` steps a path in
+#: turns, then `epochs` epochs of the captured net and the held-out rows
+CONV_LENET = dict(batch=4096, train=54000, held_out=6000, turns=6, epochs=4)
+CONV_VGG = dict(width=64, batch=512, train=9004, held_out=1000, turns=6,
+                epochs=2)
+CONV_MIN_ACCURACY = 0.5  # chance (0.1) + 0.4
+CONV_TOL = 2e-2          # bf16 compute: 2e-2 of max|leaf|
+#: conv_f32, in a child process of its own: the CLI on mnist: and cifar10:
+#: (f32; the VGG at `cifar_width`), the card's f32 LeNet output against the
+#: CPU port's on `rows` rows (1e-4 relative), the f32 VGG's captured and
+#: eager steps against the CPU port's (`vgg_steps` batches of `vgg_batch`,
+#: `vgg_rel_tol` of max|leaf|: the first conv's update moves ~4e-5 on the
+#: CPU alone when its inputs move by 1e-7 relative, and the card's conv
+#: outputs differ from the CPU's by ~1e-6), the checkpointed LeNet fit
+#: (`ckpt_batches` batches of `ckpt_batch`, SIGTERM after `ckpt_stop`), and
+#: `det_iters` timed conv passes a cuDNN setting
+CONV_F32 = dict(mnist=8192, cifar=2048, cifar_width=64, rows=512,
+                rel_tol=1e-4, vgg_batch=512, vgg_steps=3, vgg_rel_tol=1e-3,
+                ckpt_batch=4096, ckpt_batches=6, ckpt_stop=3, det_iters=10)
+CONV_DROPOUT = dict(dropout=0.5, batch=4096, turns=4)
+
+
+def conv_data(kind, n):
+    """The MNIST or CIFAR-10 stand-in (the fetchers' own; real data where a
+    copy is configured) as host arrays: features [n, C*H*W], one-hot
+    labels."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import (
+        Cifar10DataFetcher, MnistDataFetcher)
+
+    ds = (MnistDataFetcher() if kind == "mnist"
+          else Cifar10DataFetcher()).fetch(n)
+    return (np.ascontiguousarray(ds.features, np.float32),
+            np.ascontiguousarray(ds.labels, np.float32))
+
+
+def conv_conf(name, width=64, dtype="bfloat16", dropout=0.0):
+    """lenet5() or vgg_cifar10(width) with `compute_dtype` (bench.py's
+    `_mixed` for bf16), dropout on LeNet's dense layer."""
+    from deeplearning4j_tpu_torch.models.zoo import lenet5, vgg_cifar10
+
+    conf = lenet5() if name == "lenet5" else vgg_cifar10(width=width)
+    if dropout:
+        conf = conf.replace(confs=tuple(
+            c.replace(dropout=dropout) if i == 4 else c
+            for i, c in enumerate(conf.confs)))
+    return conf.with_compute_dtype(dtype) if dtype else conf
+
+
+def device_batches(torch, x, y, batch):
+    """(x, y) cut into batches of `batch` rows, on the card."""
+    xd, yd = (torch.as_tensor(a, device="cuda") for a in (x, y))
+    return [(xd[i:i + batch], yd[i:i + batch])
+            for i in range(0, len(x), batch)]
+
+
+def named_leaves(net, ema):
+    """The network's leaves as (layer.name, tensor): the BatchNorm EMA's
+    (ema=True) or all the others."""
+    return [(f"{i}.{k}", t) for i, layer in enumerate(net.params)
+            for k, t in sorted(layer.items()) if k.startswith("ema_") == ema]
+
+
+def leaves_gap(torch, got, want):
+    """max |got - want| over matching leaves, max |want|, bitwise; None
+    when there are none."""
+    pairs = list(zip(got, want))
+    if not pairs:
+        return None
+    return {"max_abs_diff": max(float((a.float() - b.float()).abs().max())
+                                for (_, a), (_, b) in pairs),
+            "max_abs": max(float(b.float().abs().max())
+                           for _, (_, b) in pairs),
+            "bitwise": all(torch.equal(a, b) for (_, a), (_, b) in pairs)}
+
+
+def gap_ok(gap, tol=CONV_TOL):
+    return gap is None or gap["max_abs_diff"] <= tol * max(gap["max_abs"],
+                                                           1e-12)
+
+
+class LeafCopy:
+    """A snapshot of a network's params tree (copies), as a stand-in net
+    for `named_leaves`."""
+
+    def __init__(self, net):
+        self.params = tuple({k: v.detach().clone() for k, v in layer.items()}
+                            for layer in net.params)
+
+
+def copy_params(net, device):
+    """A copy of the network's params tree on `device`."""
+    return tuple({k: v.detach().to(device).clone() for k, v in layer.items()}
+                 for layer in net.params)
+
+
+def one_step_gaps(torch, captured, eager, batch):
+    """One `fit` step of the captured and of the eager net on `batch`, the
+    eager net first given the captured one's params: the params' gap and
+    the EMA's (None without BatchNorm)."""
+    eager.params = copy_params(captured, "cuda")
+    captured.fit(*batch)
+    eager.fit(*batch)
+    return {"params": leaves_gap(torch, named_leaves(captured, False),
+                                 named_leaves(eager, False)),
+            "ema": leaves_gap(torch, named_leaves(captured, True),
+                              named_leaves(eager, True))}
+
+
+def program_steps(torch, conf, snap, batches, bucket):
+    """The captured step's own program run eagerly (no graph) on `snap`'s
+    params in place, one call a batch padded to `bucket` rows: the math a
+    replay does, the BatchNorm EMA advance included, uncaptured."""
+    from deeplearning4j_tpu_torch.optimize import step_cache as sc
+
+    program = sc._finetune_program(conf)
+    for x, y in batches:
+        xp, yp, w = sc.CompiledProgramCache.pad_batch(x, y, bucket)
+        sc._write_params(snap.params, program(snap.params, xp, yp, w))
+    return snap
+
+
+CONV_KINDS = (("pooling", ("pool",)),
+              ("layout", ("nchwtonhwc", "nhwctonchw")),
+              ("conv_backward", ("dgrad", "wgrad", "bprop", "backward",
+                                 "convolve_bwd")),
+              ("conv_forward", ("fprop", "conv", "implicit", "xmma_fprop")),
+              ("gemm", ("gemm", "nvjet", "cublas", "cutlass")),
+              ("reduction", ("reduce", "welford", "norm")),
+              ("copy_cast", ("copy", "cast")),
+              ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def conv_kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in CONV_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def conv_profile(torch, kernels, fn, phase) -> dict:
+    """One fn() call under `torch.profiler`: device ms by kind of kernel
+    (`CONV_KINDS`, by name), the largest kernels, the kernel count and the
+    wall time. Prints the row and returns it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels.LAUNCHES.update(saved)
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    events.sort(key=lambda e: -e.device_time_total)
+    by_kind = {}
+    for e in events:
+        k = conv_kind(e.key)
+        by_kind[k] = by_kind.get(k, 0.0) + e.device_time_total / 1e3
+    total_ms = sum(e.device_time_total for e in events) / 1e3
+    row = {"phase": phase, "wall_ms": wall_ms, "device_ms": total_ms,
+           "idle_share": 1.0 - total_ms / wall_ms,
+           "kernel_count": sum(e.count for e in events),
+           "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+           "top": [{"name": e.key[:90], "kind": conv_kind(e.key),
+                    "calls": e.count, "ms": e.device_time_total / 1e3}
+                   for e in events[:12]]}
+    emit(row)
+    return row
+
+
+def conv_net_run(torch, kernels, name, conf, data, cfg):
+    """One conv net on the card (module docstring, item 15): captured and
+    eager `fit` steps in turns from the same weights, the captured path
+    checked against its own program run uncaptured (params and EMA), the
+    ragged tail against an unpadded uncaptured step, `output` timed and
+    read after a step without a new capture, then `epochs` epochs of the
+    captured net and its held-out accuracy. Returns the row (emitted by
+    the caller) and the profile rows."""
+    from deeplearning4j_tpu_torch.nn.multilayer import (has_batchnorm,
+                                                        network_output)
+
+    x, y = data
+    n_train, batch = cfg["train"], cfg["batch"]
+    batches = device_batches(torch, x[:n_train], y[:n_train], batch)
+    held_x, held_y = x[n_train:n_train + cfg["held_out"]], \
+        y[n_train:n_train + cfg["held_out"]]
+    captured, eager = twin_nets(conf)
+    nets = {"captured": captured, "eager": eager}
+    start = LeafCopy(captured)
+    turns = {k: [] for k in nets}
+    for step in range(cfg["turns"]):
+        xb, yb = batches[step % len(batches)]
+        for which in (list(nets) if step % 2 == 0 else list(nets)[::-1]):
+            turns[which].append(event_ms(
+                torch, lambda n=nets[which]: n.fit(xb, yb)))
+    step_ms = {k: median(v[1:]) for k, v in turns.items()}
+    gap = leaves_gap(torch, named_leaves(captured, False),
+                     named_leaves(eager, False))
+    ema_gap = leaves_gap(torch, named_leaves(captured, True),
+                         named_leaves(eager, True))
+    # the same steps through the program uncaptured: the graph's own math
+    ref = program_steps(torch, conf, start,
+                        [batches[s % len(batches)]
+                         for s in range(cfg["turns"])], batch)
+    program_gap = leaves_gap(torch, named_leaves(captured, False),
+                             named_leaves(ref, False))
+    program_ema_gap = leaves_gap(torch, named_leaves(captured, True),
+                                 named_leaves(ref, True))
+    # one step of each path from the same params (the eager net takes the
+    # captured one's): the turns' trajectories part for a BatchNorm net
+    one_step = one_step_gaps(torch, captured, eager,
+                             batches[cfg["turns"] % len(batches)])
+    profiles = {
+        "captured": conv_profile(torch, kernels,
+                                 lambda: captured.fit(*batches[0]),
+                                 f"conv_profile_{name}"),
+        "eager": conv_profile(torch, kernels,
+                              lambda: eager.fit(*batches[0]),
+                              f"conv_profile_{name}_eager")}
+    del eager, nets
+    torch.cuda.empty_cache()
+    # output at the batch: captured once, then replayed
+    xo = batches[0][0]
+    captured.output(xo)
+    out_ms = [event_ms(torch, lambda: captured.output(xo)) for _ in range(5)]
+    misses = (captured.step_cache.stats.misses,
+              captured.infer_cache.stats.misses)
+    before = captured.output(xo)
+    captured.fit(*batches[1])
+    after = captured.output(xo)
+    with torch.inference_mode():
+        want = network_output(conf, captured.params, xo)
+    read = {"max_abs_diff": float((after - want).abs().max()),
+            "max_abs": float(want.abs().max()),
+            "changed": not torch.equal(before, after)}
+    # the ragged tail: padded into the batch's bucket against unpadded
+    tail = batches[-1]
+    snap = LeafCopy(captured)
+    captured.fit(*tail)
+    program_steps(torch, conf, snap, [tail], int(tail[0].shape[0]))
+    tail_gap = leaves_gap(torch, named_leaves(captured, False)
+                          + named_leaves(captured, True),
+                          named_leaves(snap, False) + named_leaves(snap, True))
+    # epochs of the captured net, then the held-out rows
+    t = time.perf_counter()
+    for _ in range(cfg["epochs"]):
+        for xb, yb in batches:
+            captured.fit(xb, yb)
+    torch.cuda.synchronize()
+    epochs_s = time.perf_counter() - t
+    ev = captured.evaluate(held_x, held_y, batch_size=batch)
+    traffic = (captured.step_cache.stats.misses - misses[0],
+               captured.infer_cache.stats.misses - misses[1])
+    med = step_ms["captured"]
+    row = {"batch": batch, "train_rows": n_train,
+           "tail_rows": int(tail[0].shape[0]),
+           "step_ms": med, "step_ms_eager": step_ms["eager"],
+           "samples_per_s": batch * 1e3 / med,
+           "samples_per_s_eager": batch * 1e3 / step_ms["eager"],
+           "turns_ms": turns,
+           "idle_share": idle_shares(profiles["captured"], med),
+           "idle_share_eager": idle_shares(profiles["eager"],
+                                           step_ms["eager"]),
+           "output_ms": median(out_ms), "output_ms_all": out_ms,
+           "captured_vs_eager": gap, "captured_vs_eager_ema": ema_gap,
+           "captured_vs_program": program_gap,
+           "captured_vs_program_ema": program_ema_gap,
+           "one_step_captured_vs_eager": one_step,
+           "output_reads_new_params": read, "tail_vs_unpadded": tail_gap,
+           "epochs": cfg["epochs"], "epochs_s": epochs_s,
+           "epoch_samples_per_s": cfg["epochs"] * n_train / epochs_s,
+           "held_out_rows": len(held_x), "accuracy": ev.accuracy(),
+           "captures_under_traffic": {"train": traffic[0],
+                                      "infer": traffic[1]},
+           "graph": graph_books(captured)}
+    # a BatchNorm net's trajectories part: 1 / sqrt(var + eps) of a
+    # near-dead channel amplifies each step's rounding, in f32 too, and the
+    # eager EMA comes from a forward after the step (JAX's uncached path).
+    # Its paths are held one step at a time from the same params here
+    # (params and EMA), and each against the CPU port in f32 (conv_f32's
+    # `vgg_f32_vs_cpu`)
+    check(gap_ok(gap) or has_batchnorm(conf),
+          f"{name}: captured and eager params disagree: {gap}")
+    check(gap_ok(one_step["params"]) and gap_ok(one_step["ema"]),
+          f"{name}: one captured and one eager step from the same params "
+          f"disagree: {one_step}")
+    check(gap_ok(program_gap) and gap_ok(program_ema_gap),
+          f"{name}: the captured steps disagree with their program run "
+          f"uncaptured: {program_gap} {program_ema_gap}")
+    check(read["max_abs_diff"] <= 1e-3 * read["max_abs"] and read["changed"],
+          f"{name}: output after a step does not read the new params: "
+          f"{read}")
+    check(gap_ok(tail_gap), f"{name}: the padded tail disagrees with an "
+          f"unpadded step: {tail_gap}")
+    check(traffic == (0, 0), f"{name}: captures under traffic: {traffic}")
+    check(captured.step_cache.stats.misses == 1,
+          f"{name}: the train step was captured "
+          f"{captured.step_cache.stats.misses} times")
+    check((program_ema_gap is not None) == has_batchnorm(conf),
+          f"{name}: the EMA leaves do not follow the conf's BatchNorm")
+    return row, profiles
+
+
+def phase_conv_lenet(torch, kernels):
+    t0 = time.perf_counter()
+    data = conv_data("mnist", CONV_LENET["train"] + CONV_LENET["held_out"])
+    row, profiles = conv_net_run(torch, kernels, "lenet5",
+                                 conv_conf("lenet5"), data, CONV_LENET)
+    emit({"phase": "conv_lenet", "seconds": time.perf_counter() - t0,
+          "config": "bench.py:205-208 _mixed(lenet5()), batch 4096",
+          **row})
+    check(row["accuracy"] >= CONV_MIN_ACCURACY,
+          f"LeNet held-out accuracy {row['accuracy']} is not chance + 0.4")
+    return profiles
+
+
+def phase_conv_vgg(torch, kernels):
+    t0 = time.perf_counter()
+    data = conv_data("cifar10", CONV_VGG["train"] + CONV_VGG["held_out"])
+    row, profiles = conv_net_run(
+        torch, kernels, "vgg_cifar10",
+        conv_conf("vgg_cifar10", width=CONV_VGG["width"]), data, CONV_VGG)
+    emit({"phase": "conv_vgg", "seconds": time.perf_counter() - t0,
+          "config": "bench.py:322-326 _mixed(vgg_cifar10(width=64)), "
+                    "batch 512", **row})
+    check(row["captured_vs_program_ema"] is not None,
+          "the VGG net has no BatchNorm EMA")
+    check(row["accuracy"] >= CONV_MIN_ACCURACY,
+          f"VGG held-out accuracy {row['accuracy']} is not chance + 0.4")
+    return profiles
+
+
+def dense_mask(torch, conf, key, shape):
+    """The input-dropout mask of LeNet's dense layer (layer 4) in the first
+    solver iteration of a step on `key`, drawn as the layers draw it."""
+    from deeplearning4j_tpu_torch.nd import random as nd_random
+
+    sub = nd_random.split(key)[1]
+    layer_key = nd_random.split(sub, conf.n_layers)[4]
+    kdrop = nd_random.split(layer_key)[0]
+    return nd_random.dropout_mask(kdrop, 1.0 - conf.conf(4).dropout, shape)
+
+
+def phase_conv_dropout(torch, kernels):
+    """LeNet with dropout 0.5 on its dense layer, `_mixed`, batch 4,096:
+    the card's masks equal the CPU's bit for bit, captured and eager steps
+    in turns agree within bf16, the captured graph draws its masks from
+    its key input (the same key replays bitwise, another key gives other
+    params), and two steps' masks differ."""
+    from deeplearning4j_tpu_torch.nd import random as nd_random
+
+    t0 = time.perf_counter()
+    cfg = CONV_DROPOUT
+    conf = conv_conf("lenet5", dropout=cfg["dropout"])
+    x, y = conv_data("mnist", cfg["batch"])
+    (xb, yb), = device_batches(torch, x, y, cfg["batch"])
+    shape = (cfg["batch"], 800)
+    key = nd_random.split_host((0, 123))[1]
+    masks_equal = torch.equal(
+        dense_mask(torch, conf, torch.tensor(key, device="cuda"),
+                   shape).cpu(),
+        dense_mask(torch, conf, torch.tensor(key), shape))
+    captured, eager = twin_nets(conf)
+    # the eager twin skipped init, which takes the stream's first key
+    eager._key = captured._key
+    nets = {"captured": captured, "eager": eager}
+    turns = {k: [] for k in nets}
+    for step in range(cfg["turns"]):
+        for which in (list(nets) if step % 2 == 0 else list(nets)[::-1]):
+            turns[which].append(event_ms(
+                torch, lambda n=nets[which]: n.fit(xb, yb)))
+    gap = leaves_gap(torch, named_leaves(captured, False),
+                     named_leaves(eager, False))
+    del eager, nets
+    # the graph's key input: the same key replays bitwise, another differs
+    snap = LeafCopy(captured)
+    key0 = captured._key
+    results = []
+    for k in (key0, key0, nd_random.split_host(key0)[0]):
+        with torch.no_grad():
+            for (_, t), (_, s) in zip(named_leaves(captured, False),
+                                      named_leaves(snap, False)):
+                t.copy_(s)
+        captured._key = k
+        captured.fit(xb, yb)
+        results.append(LeafCopy(captured))
+    same = leaves_gap(torch, named_leaves(results[0], False),
+                      named_leaves(results[1], False))
+    other = leaves_gap(torch, named_leaves(results[0], False),
+                       named_leaves(results[2], False))
+    # two successive steps' dense masks
+    k1, k2 = (torch.tensor(nd_random.split_host(k)[1], device="cuda")
+              for k in (key0, nd_random.split_host(key0)[0]))
+    m1, m2 = (dense_mask(torch, conf, k, shape) for k in (k1, k2))
+    row = {"phase": "conv_dropout", "seconds": time.perf_counter() - t0,
+           "dropout": cfg["dropout"], "batch": cfg["batch"],
+           "masks_equal_cpu": masks_equal,
+           "step_ms": median(turns["captured"][1:]),
+           "step_ms_eager": median(turns["eager"][1:]), "turns_ms": turns,
+           "captured_vs_eager": gap, "same_key_replay": same,
+           "other_key_replay": other,
+           "mask_keep_share": float(m1.ne(0).float().mean()),
+           "masks_differ_share": float(m1.ne(m2).float().mean()),
+           "step_cache": captured.step_cache.stats.as_dict()}
+    emit(row)
+    check(masks_equal, "the card's dropout masks differ from the CPU's")
+    check(gap_ok(gap), f"captured and eager dropout steps disagree: {gap}")
+    check(same["bitwise"], f"one key replayed two ways: {same}")
+    check(not other["bitwise"], "another key gave the same step")
+    check(row["masks_differ_share"] > 0.3, "two steps drew one mask")
+    check(captured.step_cache.stats.misses == 1,
+          "the dropout step was captured more than once")
+
+
+def conv_det_times(torch, iters):
+    """fwd + bwd ms of each conv shape on the paths (LeNet's two at batch
+    4,096 in f32 and bf16, VGG's first three at 512 in bf16) with cuDNN's
+    deterministic algorithms, as the port runs them, and with its default
+    ones, TF32 off in both; CUDA events, median of `iters`."""
+    shapes = [("lenet_conv1", (4096, 1, 28, 28), (20, 1, 5, 5), 0),
+              ("lenet_conv2", (4096, 20, 12, 12), (50, 20, 5, 5), 0),
+              ("vgg_conv1", (512, 3, 32, 32), (64, 3, 3, 3), 1),
+              ("vgg_conv2", (512, 64, 16, 16), (128, 64, 3, 3), 1),
+              ("vgg_conv3", (512, 128, 8, 8), (256, 128, 3, 3), 1)]
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.deterministic, cudnn.allow_tf32, cudnn.benchmark)
+    rows = []
+    try:
+        for name, xs, ws, pad in shapes:
+            for dt in ((torch.float32, torch.bfloat16)
+                       if name.startswith("lenet") else (torch.bfloat16,)):
+                x = torch.randn(xs, device="cuda", dtype=dt)
+                w = torch.randn(ws, device="cuda", dtype=dt)
+                geo = ([1, 1], [pad, pad], [1, 1], False, [0, 0], 1)
+                out = torch.ops.aten.convolution(x, w, None, *geo)
+                g = torch.randn_like(out)
+                row = {"name": name, "dtype": str(dt).replace("torch.", "")}
+                for det in (True, False):
+                    cudnn.deterministic, cudnn.allow_tf32 = det, False
+                    cudnn.benchmark = False
+
+                    def run():
+                        torch.ops.aten.convolution(x, w, None, *geo)
+                        torch.ops.aten.convolution_backward(
+                            g, x, w, None, *geo, [name != "lenet_conv1"
+                                                  and name != "vgg_conv1",
+                                                  True, False])
+
+                    run()
+                    row["deterministic_ms" if det else "default_ms"] = \
+                        median([event_ms(torch, run) for _ in range(iters)])
+                row["cost"] = row["deterministic_ms"] / row["default_ms"]
+                rows.append(row)
+    finally:
+        cudnn.deterministic, cudnn.allow_tf32, cudnn.benchmark = prev
+    return rows
+
+
+def vgg_f32_vs_cpu(torch, cfg, device="cuda"):
+    """f32 VGG-CIFAR10 at `cifar_width`, captured and eager, on `device`
+    and on the CPU, one step at a time: before each of `vgg_steps` batches
+    of `vgg_batch` CIFAR stand-in rows, every net takes the device's
+    captured net's params. The gaps are the largest over the steps, each
+    relative to max|leaf|: the device's captured step against the CPU's
+    (the same program) and its eager step against the CPU's eager one,
+    params and EMA, which `ok` holds to `vgg_rel_tol`; and, reported, the
+    two paths on each device, which differ by JAX's own design: the
+    captured variance is s2 / n - mean^2 from raw sums, the eager one
+    two-pass, and the eager EMA comes from a forward after the step; the
+    CPU's step on inputs moved by ~1e-7 relative against its step on the
+    inputs (how far rounding alone moves a step); the leaves furthest
+    apart (captured, the worst step); and each conv's forward and
+    gradients against float64 (`conv_vs_f64`)."""
+    from deeplearning4j_tpu_torch.nn.layers import conv
+    from deeplearning4j_tpu_torch.nn.multilayer import (MultiLayerNetwork,
+                                                        feed_forward)
+
+    conf = conv_conf("vgg_cifar10", width=cfg["cifar_width"], dtype="")
+    x, y = conv_data("cifar10", cfg["vgg_batch"] * cfg["vgg_steps"])
+    # the yardstick: the CPU's step on inputs moved by ~1e-7 relative
+    x_moved = (x * (1 + 1e-7 * np.random.RandomState(0).standard_normal(
+        x.shape))).astype(np.float32)
+    nets = {}
+    for dev, path in ((device, "captured"), (device, "eager"),
+                      ("cpu", "captured"), ("cpu", "eager"),
+                      ("cpu", "moved")):
+        net = MultiLayerNetwork(conf, device=dev, seed=0).init()
+        net.use_step_cache = path != "eager"
+        nets[dev, path] = net
+    lead = nets[device, "captured"]
+    start = copy_params(lead, "cpu")
+    pairs = {"captured_vs_cpu": ((device, "captured"), ("cpu", "captured")),
+             "eager_vs_cpu": ((device, "eager"), ("cpu", "eager")),
+             "captured_vs_eager": ((device, "captured"), (device, "eager")),
+             "cpu_captured_vs_eager": (("cpu", "captured"), ("cpu", "eager")),
+             "cpu_moved_input_vs_cpu": (("cpu", "moved"), ("cpu", "captured"))}
+    worst = {f"{k}_{part}": 0.0 for k in pairs for part in ("params", "ema")}
+    top = []
+    t = time.perf_counter()
+    for i in range(0, len(x), cfg["vgg_batch"]):
+        before = copy_params(lead, "cpu")
+        for (dev, path), net in nets.items():
+            if net is not lead:
+                net.params = copy_params(lead, dev)
+        for (dev, path), net in nets.items():
+            net.fit(torch.as_tensor((x_moved if path == "moved" else x)
+                                    [i:i + cfg["vgg_batch"]], device=dev),
+                    torch.as_tensor(y[i:i + cfg["vgg_batch"]], device=dev))
+        for k, (a, b) in pairs.items():
+            for part, ema in (("params", False), ("ema", True)):
+                gap = leaves_gap(torch,
+                                 [(n, v.cpu()) for n, v in
+                                  named_leaves(nets[a], ema)],
+                                 [(n, v.cpu()) for n, v in
+                                  named_leaves(nets[b], ema)])
+                rel = gap["max_abs_diff"] / max(gap["max_abs"], 1e-12)
+                if k == "captured_vs_cpu" and part == "params" \
+                        and rel >= worst[f"{k}_{part}"]:
+                    top = sorted(
+                        ({"leaf": name, "step": i // cfg["vgg_batch"],
+                          "diff": float((v.cpu() - w).abs().max()),
+                          "max_abs": float(w.abs().max()),
+                          "update": float((w - before[int(name.split(".")[0])]
+                                           [name.split(".")[1]]).abs().max())}
+                         for (name, v), (_, w) in zip(
+                             named_leaves(nets[a], False),
+                             named_leaves(nets[b], False))),
+                        key=lambda r: -r["diff"])[:4]
+                worst[f"{k}_{part}"] = max(worst[f"{k}_{part}"], rel)
+    seconds = time.perf_counter() - t
+    # each conv in f32 on the device (the port's cuDNN setting) and on the
+    # CPU against float64, at its input from the first batch's forward
+    with torch.no_grad():
+        acts = feed_forward(conf, start, torch.as_tensor(x[:cfg["vgg_batch"]]),
+                            training=True)
+    conv_vs_f64 = []
+    gen = torch.Generator().manual_seed(0)
+    for li, h in ((0, torch.as_tensor(x[:cfg["vgg_batch"]]).reshape(
+            -1, 3, 32, 32)), (3, acts[2]), (6, acts[5])):
+        w = start[li]["W"]
+        out64 = torch.ops.aten.convolution(h.double(), w.double(), None,
+                                           [1, 1], [1, 1], [1, 1], False,
+                                           [0, 0], 1)
+        g = torch.randn(out64.shape, generator=gen)
+        gx64, gw64, _ = torch.ops.aten.convolution_backward(
+            g.double(), h.double(), w.double(), None, [1, 1], [1, 1],
+            [1, 1], False, [0, 0], 1, [True, True, False])
+        row = {"layer": li, "input": list(h.shape)}
+        for dev in (device, "cpu"):
+            hd, wd = (h.to(dev).requires_grad_(), w.to(dev).requires_grad_())
+            with torch.enable_grad():
+                out = conv.conv2d(hd, wd, (1, 1), (1, 1))
+                gx, gw = torch.autograd.grad(out, (hd, wd), g.to(dev))
+            row[dev] = {name: float((a.detach().double().cpu()
+                                     - ref).abs().max() / ref.abs().max())
+                        for name, a, ref in (("out", out, out64),
+                                             ("grad_x", gx, gx64),
+                                             ("grad_w", gw, gw64))}
+        conv_vs_f64.append(row)
+    return {"width": cfg["cifar_width"], "batch": cfg["vgg_batch"],
+            "steps": cfg["vgg_steps"], "seconds": seconds,
+            "rel_gaps": worst, "captured_vs_cpu_top_leaves": top,
+            "conv_vs_f64": conv_vs_f64,
+            "ok": all(worst[f"{k}_{part}"] <= cfg["vgg_rel_tol"]
+                      for k in ("captured_vs_cpu", "eager_vs_cpu")
+                      for part in ("params", "ema"))}
+
+
+def conv_f32_child(workdir) -> int:
+    """conv_f32's child process (`chip_smoke.py --conv-f32-child DIR`):
+    run with PyTorch's default global flags (cuDNN TF32 on), which the
+    parent's do not reach. Prints one JSON line; exits 1 on a failed
+    check."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch.cli.driver import main as cli_main
+    from deeplearning4j_tpu_torch.nn.layers import conv
+    from deeplearning4j_tpu_torch.nn.multilayer import (MultiLayerNetwork,
+                                                        feed_forward)
+    from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
+    from deeplearning4j_tpu_torch.reliability import TrainingInterrupted
+
+    cfg = CONV_F32
+    out = {"tf32_flags": {"cudnn_allow_tf32":
+                          torch.backends.cudnn.allow_tf32,
+                          "matmul_allow_tf32":
+                          torch.backends.cuda.matmul.allow_tf32,
+                          "cudnn_deterministic":
+                          torch.backends.cudnn.deterministic}}
+    ok = True
+    # the CLI on both stand-ins, f32
+    cli = {}
+    for scheme, n, spec in (("mnist", cfg["mnist"], "lenet5"),
+                            ("cifar10", cfg["cifar"],
+                             f"vgg_cifar10:width={cfg['cifar_width']}")):
+        ck = os.path.join(workdir, scheme)
+        uri = f"{scheme}:{n}"
+        t = time.perf_counter()
+        rc1, train = cli_json(cli_main, [
+            "train", "--input", uri, "--zoo", spec, "--output", ck,
+            "--properties", "epochs=2,batch=1024"])
+        pred_csv = os.path.join(workdir, f"{scheme}.csv")
+        rc2 = cli_main(["predict", "--input", uri, "--model", ck,
+                        "--output", pred_csv, "--batch", "1024"])
+        rc3, test = cli_json(cli_main, ["test", "--input", uri, "--model",
+                                        ck, "--batch", "1024"])
+        with open(pred_csv) as f:
+            n_pred = sum(1 for _ in f) - 1
+        cli[scheme] = {"zoo": spec, "rcs": [rc1, rc2, rc3],
+                       "score": train["score"],
+                       "train_seconds": train["train_seconds"],
+                       "compile_seconds": train["compile_seconds"],
+                       "predictions": n_pred,
+                       "accuracy": test["accuracy"],
+                       "wall_s": time.perf_counter() - t}
+        ok &= (rc1, rc2, rc3) == (0, 0, 0) and n_pred == n \
+            and bool(np.isfinite(train["score"]))
+    out["cli"] = cli
+    # the card's f32 LeNet output against the CPU port's, same params
+    net = load_network(os.path.join(workdir, "mnist"), device="cuda")
+    cpu = load_network(os.path.join(workdir, "mnist"), device="cpu")
+    x, _ = conv_data("mnist", cfg["rows"])
+    got = net.output(x).cpu()
+    want = cpu.output(x)
+    rel = float((got - want).abs().max() / want.abs().max())
+    # what a plain F.conv2d under the global flags gives at LeNet's second
+    # conv, against the CPU's
+    with torch.inference_mode():
+        h = feed_forward(cpu.conf, cpu.params, torch.as_tensor(x))[1]
+        w2 = cpu.params[2]["W"]
+        plain = torch.nn.functional.conv2d(h.cuda(), w2.cuda()).cpu()
+        port = conv.conv2d(h.cuda(), w2.cuda()).cpu()
+        ref = torch.nn.functional.conv2d(h, w2)
+    scale = float(ref.abs().max())
+    out["f32_output"] = {
+        "rows": cfg["rows"], "rel_err": rel,
+        "conv2_rel_err_port": float((port - ref).abs().max()) / scale,
+        "conv2_rel_err_global_flags": float((plain - ref).abs().max())
+        / scale}
+    ok &= rel <= cfg["rel_tol"] \
+        and out["f32_output"]["conv2_rel_err_port"] <= cfg["rel_tol"]
+    out["vgg_f32_vs_cpu"] = vgg_f32_vs_cpu(torch, cfg)
+    ok &= out["vgg_f32_vs_cpu"]["ok"]
+    out["deterministic_cost"] = conv_det_times(torch, cfg["det_iters"])
+    # the checkpointed f32 LeNet fit: SIGTERM after 3 of 6 batches, rerun
+    xs, ys = conv_data("mnist", cfg["ckpt_batch"] * cfg["ckpt_batches"])
+    batches = device_batches(torch, xs, ys, cfg["ckpt_batch"])
+
+    def fresh():
+        return MultiLayerNetwork(conv_conf("lenet5", dtype=""),
+                                 device="cuda", seed=0).init()
+
+    runs = []
+    for _ in range(2):
+        n = fresh()
+        n.fit(list(batches))
+        runs.append(n)
+    ck = os.path.join(workdir, "ckpt")
+    first = fresh()
+    first.set_listeners([SigtermAfter(cfg["ckpt_stop"])])
+    try:
+        first.fit(list(batches), checkpoint_dir=ck)
+        interrupted = False
+    except TrainingInterrupted:
+        interrupted = True
+    resumed = fresh()
+    resumed.fit(list(batches), checkpoint_dir=ck)
+    out["checkpoint"] = {
+        "batches": cfg["ckpt_batches"], "batch": cfg["ckpt_batch"],
+        "sigterm_after": cfg["ckpt_stop"], "interrupted": interrupted,
+        "resumed_from_batch": resumed.resumed_from_batch,
+        "uninterrupted_bitwise": params_gap(torch, runs[1], runs[0]),
+        "resumed_vs_uninterrupted": params_gap(torch, resumed, runs[0])}
+    ok &= interrupted and resumed.resumed_from_batch == cfg["ckpt_stop"] \
+        and out["checkpoint"]["resumed_vs_uninterrupted"]["bitwise"]
+    out["tf32_flags_after"] = {"cudnn_allow_tf32":
+                               torch.backends.cudnn.allow_tf32}
+    out["ok"] = bool(ok)
+    print(json.dumps(out), flush=True)
+    return 0 if ok else 1
+
+
+def phase_conv_f32(torch):
+    """f32 conv nets in a child process with PyTorch's default flags
+    (`conv_f32_child`); the parent checks its line."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--conv-f32-child",
+             td], capture_output=True, text=True, timeout=400)
+    lines = proc.stdout.strip().splitlines()
+    try:
+        row = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        row = {"stdout_tail": proc.stdout[-2000:]}
+    row = {"phase": "conv_f32", "seconds": time.perf_counter() - t0,
+           "rc": proc.returncode, **row}
+    emit(row)
+    check(proc.returncode == 0 and row.get("ok"),
+          f"conv_f32 failed (rc {proc.returncode}): "
+          f"{proc.stderr[-3000:]}")
+    check(row["tf32_flags"]["cudnn_allow_tf32"],
+          "the child did not run with the default (TF32) cuDNN flags")
+
+
+def phase_conv_nets(torch, kernels):
+    """Slice 17's conv nets (module docstring, item 15)."""
+    t0 = time.perf_counter()
+    profiles = {"lenet5": phase_conv_lenet(torch, kernels)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    profiles["vgg_cifar10"] = phase_conv_vgg(torch, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_conv_dropout(torch, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_conv_f32(torch)
+    emit({"phase": "conv_nets", "seconds": time.perf_counter() - t0,
+          "profile_by_kind_ms": {k: {p: r["by_kind_ms"]
+                                     for p, r in v.items()}
+                                 for k, v in profiles.items()}})
+
+
 def f32_case(r, library_key):
     """One f32 row's numbers for the kernels line."""
     return {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
@@ -4156,6 +4915,9 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to test", file=sys.stderr)
         return 2
+    if "--conv-f32-child" in argv:
+        # conv_f32's child: PyTorch's default flags, none of the below
+        return conv_f32_child(argv[argv.index("--conv-f32-child") + 1])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deeplearning4j_tpu_torch.nd import kernels
 
@@ -4231,6 +4993,9 @@ def main(argv) -> int:
     for name in ("flash_attn_fwd",) + BWD_KERNELS:
         check(api_train_launches[name] > 0,
               f"{name} never ran in the datasets_serve_api phase's steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_conv_nets(torch, kernels)
 
     bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
     replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,

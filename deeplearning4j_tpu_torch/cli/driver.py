@@ -93,7 +93,8 @@ def _zoo_conf(spec: str, data):
     """--zoo 'name[:k=v,...]' -> MultiLayerConfiguration, sized from the
     loaded data (the vocabulary of the char models, the input and output
     widths of mlp: `mlp:hidden=512x512` is bench.py's 784-512-512-10 on
-    MNIST)."""
+    MNIST). `lenet5` takes MNIST's [B, 784] and `vgg_cifar10[:width=]`
+    CIFAR-10's [B, 3072]."""
     from deeplearning4j_tpu_torch.models import zoo
 
     name, _, props = spec.partition(":")
@@ -101,6 +102,11 @@ def _zoo_conf(spec: str, data):
     lr = float(kw.get("lr", 0.05))
     iters = int(kw.get("iterations", kw.get("iters", 1)))
     vocab = getattr(data, "vocab_size", data.features.shape[-1])
+    if name == "lenet5":
+        return zoo.lenet5(lr=lr, iterations=iters)
+    if name == "vgg_cifar10":
+        return zoo.vgg_cifar10(lr=lr, iterations=iters,
+                               width=int(kw.get("width", 64)))
     if name == "mlp":
         hidden = [int(h) for h in kw.get("hidden", "64").split("x")]
         return zoo.mlp(n_in=data.features.shape[-1], hidden=hidden,
@@ -116,12 +122,12 @@ def _zoo_conf(spec: str, data):
             n_blocks=int(kw.get("blocks", 2)),
             n_heads=int(kw.get("heads", 4)), max_seq_len=seq,
             lr=float(kw.get("lr", 1e-3)), iterations=iters)
-    if name in ("lenet5", "vgg_cifar10", "dbn", "deep_autoencoder"):
+    if name in ("dbn", "deep_autoencoder"):
         raise SystemExit(f"--zoo {name} is not ported to "
                          f"deeplearning4j_tpu_torch yet; see ROADMAP.md "
                          f"queue A item 9")
-    raise SystemExit(f"unknown --zoo model '{name}' (choose mlp, char_lstm "
-                     f"or char_transformer)")
+    raise SystemExit(f"unknown --zoo model '{name}' (choose lenet5, "
+                     f"vgg_cifar10, mlp, char_lstm or char_transformer)")
 
 
 def cmd_train(args) -> int:

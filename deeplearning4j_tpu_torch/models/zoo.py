@@ -1,7 +1,8 @@
 """Canonical model configurations.
 
 Counterpart of `deeplearning4j_tpu/models/zoo.py`; ported so far: the
-flagship `char_transformer`, `char_lstm` (BASELINE configs[1]) and `mlp`. Each
+flagship `char_transformer`, `char_lstm` (BASELINE configs[1]), `lenet5`
+(configs[0]), `vgg_cifar10` (configs[2]) and `mlp`. Each
 configuration is the JAX package's, field for field, so both packages
 build the same network from it.
 """
@@ -13,7 +14,8 @@ from deeplearning4j_tpu_torch.nd.ops import Activation
 from deeplearning4j_tpu_torch.nn.conf import (LayerType,
                                               MultiLayerConfiguration,
                                               NeuralNetConfiguration,
-                                              OptimizationAlgorithm)
+                                              OptimizationAlgorithm,
+                                              PoolingType)
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
 
 SGD = OptimizationAlgorithm.ITERATION_GRADIENT_DESCENT
@@ -24,6 +26,65 @@ def _base(lr=0.1, iters=1, **kw):
         optimization_algo=SGD, lr=lr, num_iterations=iters,
         activation=Activation.RELU, weight_init=WeightInit.VI,
         use_adagrad=False, momentum=0.9, **kw)
+
+
+def lenet5(lr: float = 0.05, iterations: int = 1,
+           dtype: str = "float32") -> MultiLayerConfiguration:
+    """LeNet-5 on MNIST (BASELINE configs[0]): 1x28x28 -> conv20@5x5 ->
+    pool2 -> conv50@5x5 -> pool2 -> dense500 -> softmax10. Input flat
+    [B, 784]."""
+    b = _base(lr=lr, iters=iterations, dtype=dtype)
+    confs = (
+        b.replace(layer_type=LayerType.CONVOLUTION, n_channels=1, n_out=20,
+                  kernel_size=(5, 5), stride=(1, 1)),
+        b.replace(layer_type=LayerType.SUBSAMPLING, kernel_size=(2, 2),
+                  stride=(2, 2), pooling=PoolingType.MAX),
+        b.replace(layer_type=LayerType.CONVOLUTION, n_channels=20, n_out=50,
+                  kernel_size=(5, 5), stride=(1, 1)),
+        b.replace(layer_type=LayerType.SUBSAMPLING, kernel_size=(2, 2),
+                  stride=(2, 2), pooling=PoolingType.MAX),
+        b.replace(layer_type=LayerType.DENSE, n_in=50 * 4 * 4, n_out=500),
+        b.replace(layer_type=LayerType.OUTPUT, n_in=500, n_out=10,
+                  activation=Activation.SOFTMAX,
+                  loss_function=LossFunction.MCXENT),
+    )
+    return MultiLayerConfiguration(
+        confs=confs, pretrain=False, backprop=True,
+        input_preprocessors=((0, "ff_to_conv:1:28:28"), (4, "conv_to_ff")))
+
+
+def vgg_cifar10(lr: float = 0.05, iterations: int = 1,
+                width: int = 64) -> MultiLayerConfiguration:
+    """VGG-style conv net for CIFAR-10 (BASELINE configs[2]): three
+    [conv3x3 -> BatchNorm -> pool2] stages of width, 2*width and 4*width
+    channels, then dense256 -> softmax10. Input flat [B, 3072]."""
+    b = _base(lr=lr, iters=iterations)
+
+    def conv(cin, cout):
+        return b.replace(layer_type=LayerType.CONVOLUTION, n_channels=cin,
+                         n_out=cout, kernel_size=(3, 3), stride=(1, 1),
+                         padding=(1, 1))
+
+    def bn(c):
+        return b.replace(layer_type=LayerType.BATCH_NORM, n_in=c, n_out=c)
+
+    def pool():
+        return b.replace(layer_type=LayerType.SUBSAMPLING, kernel_size=(2, 2),
+                         stride=(2, 2), pooling=PoolingType.MAX)
+
+    w = width
+    confs = (
+        conv(3, w), bn(w), pool(),
+        conv(w, 2 * w), bn(2 * w), pool(),
+        conv(2 * w, 4 * w), bn(4 * w), pool(),
+        b.replace(layer_type=LayerType.DENSE, n_in=4 * w * 4 * 4, n_out=256),
+        b.replace(layer_type=LayerType.OUTPUT, n_in=256, n_out=10,
+                  activation=Activation.SOFTMAX,
+                  loss_function=LossFunction.MCXENT),
+    )
+    return MultiLayerConfiguration(
+        confs=confs, backprop=True,
+        input_preprocessors=((0, "ff_to_conv:3:32:32"), (9, "conv_to_ff")))
 
 
 def mlp(n_in: int, hidden, n_out: int, lr: float = 0.1,

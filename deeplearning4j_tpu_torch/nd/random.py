@@ -21,7 +21,16 @@ defaults of JAX 0.9: the `threefry2x32` implementation with
 - `uniform(keys, n, minval, maxval)`: the float32 uniform built from the
   top 23 bits of each draw;
 - `gumbel`, `categorical`: `-log(-log(u))` with u uniform on [tiny, 1), and
-  the argmax of gumbel + logits.
+  the argmax of gumbel + logits;
+- `bernoulli`, `dropout_mask`, `binomial`, `normal` and `KeyStream`, the
+  JAX package's `nd/random.py` (dropout's masks, sampling preprocessors and
+  host-side key streams): `bernoulli(key, p, shape)` is
+  `uniform(key, prod(shape)).reshape(shape) < p`, JAX's "low" mode.
+  Dropout calls `dropout_mask`; `binomial`, `normal` and `KeyStream` have
+  no caller in the port yet and exist for parity with the JAX package's
+  API (`binomial` for the pretraining layers, ROADMAP.md item 9b);
+- `split_host`: `split` of one key held as two Python ints, for host-side
+  streams (`MultiLayerNetwork`'s key), with no tensor op at all.
 
 Keys are int64 tensors of shape [..., 2] whose values lie in [0, 2^32).
 Every function works on a batch of keys at once (the leading axes), the way
@@ -142,3 +151,67 @@ def sample_tokens(logp: torch.Tensor, keys: torch.Tensor,
     safe = torch.where(hot, temps, torch.ones_like(temps))
     sampled = categorical(subs, logp / safe[:, None])
     return torch.where(hot, sampled, greedy).to(torch.int32), new_keys
+
+
+def split_host(key, num: int = 2) -> list:
+    """`jax.random.split` of one key given as two ints (or any pair of
+    uint32 values): `num` keys, each a tuple of two ints. The hash runs on
+    Python ints, so a host-side stream costs no tensor op."""
+    k1, k2 = (int(v) & _MASK for v in key)
+    return [tuple(threefry2x32(k1, k2, 0, i)) for i in range(num)]
+
+
+class KeyStream:
+    """Host-side sequential keys, as the JAX package's `KeyStream`: each
+    `next()` splits the stream's key once and hands out the second half,
+    an int64 [2] tensor on `device`."""
+
+    def __init__(self, seed: int = 123, device=None):
+        self._key = (0, int(seed) & _MASK)
+        self.device = device
+
+    def next(self) -> torch.Tensor:
+        self._key, sub = split_host(self._key)
+        return torch.tensor(sub, dtype=torch.int64, device=self.device)
+
+    def __call__(self) -> torch.Tensor:
+        return self.next()
+
+
+def _numel(shape) -> int:
+    return int(np.prod(tuple(shape), dtype=np.int64))
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)` for one key [2]: a bool tensor
+    of `shape`, each entry uniform < p with p rounded to float32, as JAX
+    compares them."""
+    u = uniform(key, _numel(shape))
+    return (u < float(np.float32(p))).reshape(tuple(shape))
+
+
+def binomial(key: torch.Tensor, p: float, shape,
+             dtype=torch.float32) -> torch.Tensor:
+    """A single-trial binomial (Bernoulli(p)) draw as floats in {0, 1}."""
+    return bernoulli(key, p, shape).to(dtype)
+
+
+def normal(key: torch.Tensor, mean: float, std: float, shape,
+           dtype=torch.float32) -> torch.Tensor:
+    """`mean + std * jax.random.normal(key, shape)`: sqrt(2) * erfinv(u)
+    with u uniform on (-1, 1), as JAX draws it (erfinv may round
+    differently from XLA's in the last place)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, _numel(shape), lo, 1.0).reshape(tuple(shape))
+    z = float(np.float32(np.sqrt(2.0))) * torch.erfinv(u)
+    return (mean + std * z).to(dtype)
+
+
+def dropout_mask(key: torch.Tensor, keep_prob: float, shape,
+                 dtype=torch.float32) -> torch.Tensor:
+    """The inverted-dropout mask of the JAX package: `bernoulli(key,
+    keep_prob, shape)` in `dtype`, divided by keep_prob rounded to `dtype`
+    (a 0-d tensor, so that a bf16 mask divides by bf16(keep_prob) as JAX's
+    does), so inference needs no rescale."""
+    keep = bernoulli(key, keep_prob, shape).to(dtype)
+    return keep / torch.tensor(keep_prob, dtype=dtype)

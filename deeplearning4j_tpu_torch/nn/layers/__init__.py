@@ -8,7 +8,8 @@ first, and a layer type that is neither registered nor ported raises
 """
 
 from deeplearning4j_tpu_torch.nn.conf import LayerType
-from deeplearning4j_tpu_torch.nn.layers import attention, base, lstm, output
+from deeplearning4j_tpu_torch.nn.layers import (attention, base, conv, lstm,
+                                                output)
 
 _REGISTRY = {
     LayerType.DENSE: base.DenseLayer,
@@ -18,13 +19,13 @@ _REGISTRY = {
     LayerType.TRANSFORMER_FFN: attention.TransformerFFNLayer,
     LayerType.LSTM: lstm.LSTMLayer,
     LayerType.GRAVES_LSTM: lstm.GravesLSTMLayer,
+    LayerType.BATCH_NORM: base.BatchNormLayer,
+    LayerType.CONVOLUTION: conv.ConvolutionLayer,
+    LayerType.SUBSAMPLING: conv.SubsamplingLayer,
 }
 
 #: where each layer type not ported yet stands in ROADMAP.md
 _PLANNED = {
-    LayerType.BATCH_NORM: "queue A item 3",
-    LayerType.CONVOLUTION: "queue A item 9",
-    LayerType.SUBSAMPLING: "queue A item 9",
     LayerType.RBM: "queue A item 9",
     LayerType.AUTOENCODER: "queue A item 9",
     LayerType.RECURSIVE_AUTOENCODER: "queue A item 9",
@@ -41,6 +42,8 @@ def get_layer(layer_type):
 
 
 def register_layer(layer_type, impl) -> None:
-    """Use `impl` (a class with the layers' `init` / `forward` static
-    methods) for `layer_type`."""
+    """Use `impl` (a class with the layers' `init(gen, conf)` and
+    `forward(params, conf, x, key=None, training=False)` static methods)
+    for `layer_type`. A layer that only serves inference may take
+    `forward(params, conf, x)`: inference without a key calls that form."""
     _REGISTRY[LayerType(str(layer_type).lower())] = impl

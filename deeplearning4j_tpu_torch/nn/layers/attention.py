@@ -6,7 +6,8 @@ pass, and the attention layer's `prefill`, `decode_step`,
 speculative decoding (a decode step is a verify chunk of one token). Input
 and output are [batch, seq, n_in]; params are {"Wqkv", "bqkv", "Wo", "bo",
 "ln_g", "ln_b"} and {"W1", "b1", "W2", "b2", "ln_g", "ln_b"}, as in the
-JAX package.
+JAX package. Under training with a key, both layers drop their branch's
+output (`conf.dropout`) before the residual add, with JAX's masks.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nd import kernels
+from deeplearning4j_tpu_torch.nd import random as nd_random
 from deeplearning4j_tpu_torch.nd.attention import (_NEG_BIG,
                                                    blockwise_attention,
                                                    full_attention)
@@ -31,6 +33,15 @@ def _layer_norm(x, g, b, eps: float = 1e-5):
     mu = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, keepdim=True, unbiased=False)
     return (x - mu) * torch.rsqrt(var + eps) * g + b
+
+
+def _dropped(conf, o, key, training):
+    """The branch output `o` with dropout under training, as the JAX
+    package applies it before the residual add."""
+    if training and conf.dropout > 0.0 and key is not None:
+        o = o * nd_random.dropout_mask(key, 1.0 - conf.dropout, o.shape,
+                                       o.dtype)
+    return o
 
 
 def _vector(n, fill, conf, device):
@@ -63,7 +74,7 @@ class MultiHeadAttentionLayer:
         }
 
     @staticmethod
-    def forward(params, conf, x):
+    def forward(params, conf, x, key=None, training=False):
         b, s, n = x.shape
         h = conf.n_heads
         hd = n // h
@@ -77,7 +88,7 @@ class MultiHeadAttentionLayer:
         o = MultiHeadAttentionLayer._attend(conf, q, k, v)
         o = mixed_matmul(o.reshape(b, s, n).to(x.dtype), params["Wo"],
                          conf) + params["bo"]
-        return x + o
+        return x + _dropped(conf, o, key, training)
 
     @staticmethod
     def prefill(params, conf, x, k_cache, v_cache):
@@ -283,9 +294,10 @@ class TransformerFFNLayer:
         }
 
     @staticmethod
-    def forward(params, conf, x):
+    def forward(params, conf, x, key=None, training=False):
         xn = _layer_norm(x, params["ln_g"], params["ln_b"])
         # jax.nn.gelu defaults to the tanh approximation
         hid = F.gelu(mixed_matmul(xn, params["W1"], conf) + params["b1"],
                      approximate="tanh")
-        return x + (mixed_matmul(hid, params["W2"], conf) + params["b2"])
+        o = mixed_matmul(hid, params["W2"], conf) + params["b2"]
+        return x + _dropped(conf, o, key, training)

@@ -1,9 +1,20 @@
-"""Dense and embedding layers.
+"""Dense, batch-norm and embedding layers.
 
 Counterpart of `deeplearning4j_tpu/nn/layers/base.py`. A layer is a pair of
 plain functions on tensors: `init(gen, conf)` returns its params as a dict
-(keys as in the JAX package), `forward(params, conf, x)` its activations.
-This slice ports inference; dropout and dropconnect come with training.
+(keys as in the JAX package), `forward(params, conf, x, key=None,
+training=False)` its activations. Under training with a key, a dense
+layer drops its input (`conf.dropout`) and its weights (`drop_connect`,
+keep 0.5) with the JAX package's threefry masks (`nd/random.py`), after
+the same split of its key.
+
+`BatchNormLayer` keeps its running statistics among its params ("ema_*",
+with the EMA's total weight "ema_w" for bias correction), as the JAX
+package does; the training loop advances them (`nn/multilayer.py`). The
+JAX package expresses the batch reductions as gemm contractions
+(`rows_broadcast`) so that XLA's results do not depend on zero pad rows
+bit for bit; the port reduces with plain sums and broadcasts, which agree
+with it to float rounding.
 """
 
 from __future__ import annotations
@@ -13,6 +24,7 @@ import threading
 
 import torch
 
+from deeplearning4j_tpu_torch.nd import random as nd_random
 from deeplearning4j_tpu_torch.nd.ops import activate
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 
@@ -53,7 +65,7 @@ def _sampler(conf):
 
 
 class DenseLayer:
-    """f(x.W + b)."""
+    """f(x.W + b), with input dropout and drop-connect under training."""
 
     @staticmethod
     def init(gen, conf):
@@ -65,12 +77,127 @@ class DenseLayer:
         }
 
     @staticmethod
-    def preout(params, conf, x):
-        return mixed_matmul(x, params["W"], conf) + params["b"]
+    def preout(params, conf, x, key=None, training=False):
+        W = params["W"]
+        if training and conf.drop_connect and key is not None:
+            W = W * nd_random.dropout_mask(key, 0.5, W.shape, W.dtype)
+        return mixed_matmul(x, W, conf) + params["b"]
 
     @staticmethod
-    def forward(params, conf, x):
-        return activate(conf.activation, DenseLayer.preout(params, conf, x))
+    def dropped_input(conf, x, key, training):
+        """(x with input dropout applied, the drop-connect key): JAX's
+        `kdrop, kdc = split(key)`."""
+        if key is None or not training or not (conf.dropout > 0.0
+                                                or conf.drop_connect):
+            return x, None
+        kdrop, kdc = nd_random.split(key)
+        if conf.dropout > 0.0:
+            x = x * nd_random.dropout_mask(kdrop, 1.0 - conf.dropout,
+                                           x.shape, x.dtype)
+        return x, kdc
+
+    @staticmethod
+    def forward(params, conf, x, key=None, training=False):
+        x, kdc = DenseLayer.dropped_input(conf, x, key, training)
+        return activate(conf.activation,
+                        DenseLayer.preout(params, conf, x, kdc, training))
+
+
+class BatchNormLayer:
+    """Batch normalization over the feature axis: the channel axis of NCHW
+    input, the last axis otherwise. Training normalizes with the batch's
+    statistics (row-weighted where pad rows must not count), inference
+    with the bias-corrected running EMA."""
+
+    EPS = 1e-5
+
+    @staticmethod
+    def init(gen, conf):
+        n = conf.n_out or conf.n_in
+        d, dev = param_dtype(conf), gen.device
+        return {
+            "gamma": torch.ones((n,), dtype=d, device=dev),
+            "beta": torch.zeros((n,), dtype=d, device=dev),
+            # raw EMA accumulators and their total weight (1 - m^k):
+            # inference divides by ema_w, so one batch already gives exact
+            # statistics
+            "ema_mean": torch.zeros((n,), dtype=d, device=dev),
+            "ema_var": torch.zeros((n,), dtype=d, device=dev),
+            "ema_w": torch.zeros((), dtype=d, device=dev),
+        }
+
+    @staticmethod
+    def _feature_axes(x):
+        """The reduction axes: (0, 2, 3) for NCHW, every axis but the last
+        otherwise."""
+        return (0, 2, 3) if x.dim() == 4 else tuple(range(x.dim() - 1))
+
+    @staticmethod
+    def moments(x, row_weights=None):
+        """Raw f32 batch moments (s1, s2, cnt) per feature; with
+        `row_weights` (one per row of axis 0) each row counts with its
+        weight, so pad rows of weight 0 drop out. mean = s1 / cnt, var =
+        s2 / cnt - mean^2 (`stats_of`)."""
+        axes = BatchNormLayer._feature_axes(x)
+        xf = x.float()
+        per_row = 1
+        for a in axes:
+            if a != 0:
+                per_row *= x.shape[a]
+        if row_weights is None:
+            cnt = torch.tensor(float(x.shape[0] * per_row),
+                               dtype=torch.float32, device=x.device)
+            return (xf.sum(dim=axes), (xf * xf).sum(dim=axes), cnt)
+        w = row_weights.float().reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+        return ((xf * w).sum(dim=axes), (xf * xf * w).sum(dim=axes),
+                row_weights.float().sum() * per_row)
+
+    @staticmethod
+    def stats_of(s1, s2, cnt):
+        """(mean, var) from raw moments."""
+        cnt = torch.clamp(cnt, min=1.0)
+        mean = s1 / cnt
+        var = torch.clamp(s2 / cnt - mean * mean, min=0.0)
+        return mean, var
+
+    @staticmethod
+    def weighted_batch_stats(x, row_weights):
+        """Mean and var over the rows of non-zero weight, in x's dtype."""
+        mean, var = BatchNormLayer.stats_of(
+            *BatchNormLayer.moments(x, row_weights))
+        return mean.to(x.dtype), var.to(x.dtype)
+
+    @staticmethod
+    def apply_stats(params, x, mean, var):
+        """Normalize x with the given per-feature stats and apply the
+        affine."""
+        if x.dim() == 4:
+            def bc(v):
+                return v[None, :, None, None]
+        else:
+            def bc(v):
+                return v
+        xn = (x - bc(mean)) / torch.sqrt(bc(var) + BatchNormLayer.EPS)
+        return xn * bc(params["gamma"]) + bc(params["beta"])
+
+    @staticmethod
+    def forward(params, conf, x, key=None, training=False, row_weights=None):
+        axes = BatchNormLayer._feature_axes(x)
+        if training and row_weights is not None:
+            mean, var = BatchNormLayer.weighted_batch_stats(x, row_weights)
+        elif training:
+            mean = x.mean(dim=axes)
+            var = x.var(dim=axes, unbiased=False)
+        else:
+            mean, var = params["ema_mean"], params["ema_var"]
+            if "ema_w" in params:  # the bias-corrected running estimate
+                ema_w = params["ema_w"]
+                denom = torch.clamp(ema_w, min=1e-8)
+                mean = mean / denom
+                # untrained (ema_w == 0): unit variance
+                var = torch.where(ema_w > 0, var / denom,
+                                  torch.ones_like(var))
+        return BatchNormLayer.apply_stats(params, x, mean, var)
 
 
 def check_ids(ids: torch.Tensor, vocab: int) -> None:
@@ -123,7 +250,7 @@ class EmbeddingLayer:
         return params
 
     @staticmethod
-    def forward(params, conf, x):
+    def forward(params, conf, x, key=None, training=False):
         ids = x.long()
         if not getattr(_host_checked, "on", False):
             check_ids(ids, params["W"].shape[0])

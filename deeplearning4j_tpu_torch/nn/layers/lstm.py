@@ -72,8 +72,9 @@ class LSTMLayer:
         return impl == "fused"
 
     @staticmethod
-    def forward(params, conf, x):
-        """x: [batch, time, n_in] -> hidden states [batch, time, n_out]."""
+    def forward(params, conf, x, key=None, training=False):
+        """x: [batch, time, n_in] -> hidden states [batch, time, n_out]. No
+        dropout (as in the JAX package): key and training are ignored."""
         if x.dim() == 2:  # one sequence [time, n_in]
             return LSTMLayer.forward(params, conf, x[None])[0]
         bsz, steps, _ = x.shape
@@ -166,7 +167,7 @@ class GravesLSTMLayer(LSTMLayer):
         return (h, c_new), h
 
     @staticmethod
-    def forward(params, conf, x):
+    def forward(params, conf, x, key=None, training=False):
         if x.dim() == 2:
             return GravesLSTMLayer.forward(params, conf, x[None])[0]
         bsz = x.shape[0]

@@ -1,8 +1,9 @@
 """Output layer: a dense head whose activation follows the loss.
 
-Counterpart of `deeplearning4j_tpu/nn/layers/output.py`: the forward pass,
-the scored loss (`loss`, with the L2/L1 terms of the layer's own weights)
-and the per-row loss without them (`rowwise_loss`).
+Counterpart of `deeplearning4j_tpu/nn/layers/output.py`: the forward pass
+(with a dense layer's input dropout and drop-connect under training), the
+scored loss (`loss`, with the L2/L1 terms of the layer's own weights) and
+the per-row loss without them (`rowwise_loss`).
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ from deeplearning4j_tpu_torch.nn.layers.base import DenseLayer
 
 class OutputLayer(DenseLayer):
     @staticmethod
-    def forward(params, conf, x):
-        z = OutputLayer.preout(params, conf, x)
+    def forward(params, conf, x, key=None, training=False):
+        x, kdc = DenseLayer.dropped_input(conf, x, key, training)
+        z = OutputLayer.preout(params, conf, x, kdc, training)
         loss = str(conf.loss_function).lower()
         # the head matches the loss: softmax for multiclass CE, sigmoid for
         # binary CE, the configured activation for regression
@@ -28,8 +30,8 @@ class OutputLayer(DenseLayer):
         return activate(conf.activation, z)
 
     @staticmethod
-    def loss(params, conf, x, labels):
-        out = OutputLayer.forward(params, conf, x)
+    def loss(params, conf, x, labels, key=None, training=False):
+        out = OutputLayer.forward(params, conf, x, key, training)
         w = params["W"].float()
         l2 = conf.l2 if conf.use_regularization else 0.0
         s = L.score(labels, conf.loss_function, out, l2, torch.sum(w ** 2))
@@ -38,8 +40,8 @@ class OutputLayer(DenseLayer):
         return s
 
     @staticmethod
-    def rowwise_loss(params, conf, x, labels):
+    def rowwise_loss(params, conf, x, labels, key=None, training=False):
         """Per-example loss vector without the regularization terms, which
         the caller counts once per step."""
-        out = OutputLayer.forward(params, conf, x)
+        out = OutputLayer.forward(params, conf, x, key, training)
         return L.get_rowwise(conf.loss_function)(labels, out)

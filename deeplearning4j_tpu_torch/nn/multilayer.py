@@ -22,9 +22,23 @@ assigning another params tree drops the network's graphs.
 `fit(checkpoint_dir=...)` is crash-safe and resumable, as in the JAX
 package.
 
-Not ported yet: dropout under training (JAX's threefry masks cannot be
-reproduced; ROADMAP.md queue A item 3), BatchNorm training and layer-wise
-pretraining.
+Keys: the network holds the JAX package's threefry key stream
+(`prng_key(seed)`, split on the host as two ints): `init` takes one key
+(the params come from the torch generator, but the stream stays in step
+with JAX's) and each `finetune` another, which the solver splits once an
+iteration and the losses into one key a layer, so dropout and drop-connect
+draw JAX's masks. A conf that drops nothing (`uses_key`) gets no key on
+the device and splits nothing. The checkpoint saves the key as
+`metadata["rng_key"]`, JAX's name.
+
+BatchNorm: the cached step trains on row-weighted batch moments (pad rows
+weigh 0) and advances the running EMA inside the captured graph from the
+last live iteration's moments, written into the EMA leaves in place, so
+the inference graphs read the new EMA; the eager path advances it after
+the step with one more forward (`update_bn_ema`), as JAX's uncached path
+does.
+
+Not ported yet: layer-wise pretraining (ROADMAP.md queue A item 9b).
 """
 
 from __future__ import annotations
@@ -38,10 +52,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.nd import random as nd_random
 from deeplearning4j_tpu_torch.nd.platform import resolve_device
 from deeplearning4j_tpu_torch.nn.conf import (LayerType,
                                               MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.nn.layers import get_layer
+from deeplearning4j_tpu_torch.nn.layers.base import BatchNormLayer
 from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
 from deeplearning4j_tpu_torch.nn.layers.preprocessor import apply_preprocessor
 from deeplearning4j_tpu_torch.optimize import solver as solver_mod
@@ -63,55 +79,65 @@ def init_params(conf: MultiLayerConfiguration,
     return tuple(get_layer(c.layer_type).init(gen, c) for c in conf.confs)
 
 
-def feed_forward(conf: MultiLayerConfiguration, params, x) -> list:
-    """Activations after each layer."""
+def uses_key(conf: MultiLayerConfiguration) -> bool:
+    """Whether a training forward of `conf` draws from its key: a layer
+    with dropout or drop-connect. Without one the key changes no value,
+    so the callers leave it off the device and split nothing."""
+    return any(c.dropout > 0.0 or c.drop_connect for c in conf.confs)
+
+
+def _layer_keys(key, n: int) -> list:
+    """`n` keys, one a layer, JAX's `split(key, n)`; Nones without a
+    key."""
+    if key is None:
+        return [None] * n
+    ks = nd_random.split(key, n)
+    return [ks[i] for i in range(n)]
+
+
+def _is_bn(c) -> bool:
+    return LayerType(str(c.layer_type)) == LayerType.BATCH_NORM
+
+
+def feed_forward(conf: MultiLayerConfiguration, params, x, key=None,
+                 training: bool = False, up_to: Optional[int] = None) -> list:
+    """Activations after each layer; `up_to` stops early."""
+    n = conf.n_layers if up_to is None else up_to
+    keys = _layer_keys(key, max(1, n))
     acts = []
-    for i in range(conf.n_layers):
+    for i in range(n):
         c = conf.conf(i)
         x = apply_preprocessor(conf.preprocessor(i), x)
-        x = get_layer(c.layer_type).forward(params[i], c, x)
+        x = get_layer(c.layer_type).forward(params[i], c, x, keys[i],
+                                            training)
         acts.append(x)
     return acts
 
 
-def network_output(conf: MultiLayerConfiguration, params, x):
-    acts = feed_forward(conf, params, x)
+def network_output(conf: MultiLayerConfiguration, params, x, key=None,
+                   training: bool = False):
+    acts = feed_forward(conf, params, x, key, training)
     return acts[-1] if acts else x
 
 
-def _check_trainable(conf: MultiLayerConfiguration) -> None:
-    for i, c in enumerate(conf.confs):
-        if c.dropout > 0.0:
-            raise NotImplementedError(
-                f"layer {i} has dropout {c.dropout}: dropout under training "
-                f"is not ported to deeplearning4j_tpu_torch yet (the JAX "
-                f"package's threefry masks cannot be reproduced); see "
-                f"ROADMAP.md queue A item 3")
-
-
-def _hidden(conf: MultiLayerConfiguration, params, x, training: bool):
-    """The input of the output layer: every hidden layer's forward and the
-    output layer's preprocessor."""
-    if training:
-        _check_trainable(conf)
-    h = x
-    for i in range(conf.n_layers - 1):
-        c = conf.conf(i)
-        h = apply_preprocessor(conf.preprocessor(i), h)
-        h = get_layer(c.layer_type).forward(params[i], c, h)
-    return apply_preprocessor(conf.preprocessor(conf.n_layers - 1), h)
-
-
-def network_loss(conf: MultiLayerConfiguration, params, x, labels,
+def network_loss(conf: MultiLayerConfiguration, params, x, labels, key=None,
                  training: bool = True):
     """End-to-end loss: hidden forward + the output layer's scored loss,
     plus 0.5 * l2 * |W|^2 of every hidden layer when the output layer
-    regularizes. `training` only decides whether dropout would apply (it
-    raises: not ported)."""
+    regularizes. Under training a BatchNorm layer normalizes with the
+    batch's statistics, and with a key the layers drop as configured."""
     n = conf.n_layers
+    keys = _layer_keys(key, n)
+    h = x
+    for i in range(n - 1):
+        c = conf.conf(i)
+        h = apply_preprocessor(conf.preprocessor(i), h)
+        h = get_layer(c.layer_type).forward(params[i], c, h, keys[i],
+                                            training)
     out_conf = conf.conf(n - 1)
-    h = _hidden(conf, params, x, training)
-    loss = OutputLayer.loss(params[n - 1], out_conf, h, labels)
+    h = apply_preprocessor(conf.preprocessor(n - 1), h)
+    loss = OutputLayer.loss(params[n - 1], out_conf, h, labels, keys[n - 1],
+                            training)
     if out_conf.use_regularization and out_conf.l2:
         for i in range(n - 1):
             if "W" in params[i]:
@@ -121,15 +147,101 @@ def network_loss(conf: MultiLayerConfiguration, params, x, labels,
 
 
 def network_rowwise_loss(conf: MultiLayerConfiguration, params, x, labels,
-                         training: bool = True):
+                         key=None, training: bool = True, row_weights=None,
+                         return_bn_stats: bool = False):
     """Per-label-row loss vector, no regularization (see
     `network_regularization`). Rows follow `labels`' leading dim, e.g.
-    B*T for a sequence model whose `rnn_to_ff` flattens time. A BATCH_NORM
-    layer raises NotImplementedError (its layer is not ported)."""
+    B*T for a sequence model whose `rnn_to_ff` flattens time.
+
+    `row_weights` (one per feature row, pad rows 0) keeps a training
+    BatchNorm layer's statistics to the real rows. `return_bn_stats` also
+    returns the raw moments ((s1, s2, cnt) per BatchNorm layer, in layer
+    order) of this forward, from which the train step advances the running
+    EMA without a second forward (`update_bn_ema_from_stats`)."""
     n = conf.n_layers
-    h = _hidden(conf, params, x, training)
-    return OutputLayer.rowwise_loss(params[n - 1], conf.conf(n - 1), h,
-                                    labels)
+    keys = _layer_keys(key, n)
+    h = x
+    stats = []
+    for i in range(n - 1):
+        c = conf.conf(i)
+        h = apply_preprocessor(conf.preprocessor(i), h)
+        if _is_bn(c) and training and (row_weights is not None
+                                       or return_bn_stats):
+            s1, s2, cnt = BatchNormLayer.moments(h, row_weights)
+            if return_bn_stats:
+                stats.append((s1, s2, cnt))
+            mean, var = BatchNormLayer.stats_of(s1, s2, cnt)
+            h = BatchNormLayer.apply_stats(params[i], h, mean.to(h.dtype),
+                                           var.to(h.dtype))
+        else:
+            h = get_layer(c.layer_type).forward(params[i], c, h, keys[i],
+                                                training)
+    h = apply_preprocessor(conf.preprocessor(n - 1), h)
+    rows = OutputLayer.rowwise_loss(params[n - 1], conf.conf(n - 1), h,
+                                    labels, keys[n - 1], training)
+    if return_bn_stats:
+        return rows, tuple(stats)
+    return rows
+
+
+def has_batchnorm(conf: MultiLayerConfiguration) -> bool:
+    return any(_is_bn(c) for c in conf.confs)
+
+
+def _bn_ema_apply(c, p, mean, var):
+    """One layer's EMA advance: ema = m * ema + (1 - m) * batch, and the
+    EMA's total weight for bias correction."""
+    m = c.batch_norm_momentum
+    p = dict(p)
+    p["ema_mean"] = (m * p["ema_mean"].float()
+                     + (1 - m) * mean).to(p["ema_mean"].dtype)
+    p["ema_var"] = (m * p["ema_var"].float()
+                    + (1 - m) * var).to(p["ema_var"].dtype)
+    if "ema_w" in p:
+        p["ema_w"] = (m * p["ema_w"].float() + (1 - m)).to(p["ema_w"].dtype)
+    return p
+
+
+def update_bn_ema_from_stats(conf: MultiLayerConfiguration, params, stats):
+    """Every BatchNorm layer's running stats advanced from the raw moments
+    the loss forward computed (`network_rowwise_loss(...,
+    return_bn_stats=True)`): a new params tree."""
+    bn_idx = [i for i, c in enumerate(conf.confs) if _is_bn(c)]
+    new = list(params)
+    for (s1, s2, cnt), i in zip(stats, bn_idx):
+        mean, var = BatchNormLayer.stats_of(s1, s2, cnt)
+        new[i] = _bn_ema_apply(conf.conf(i), new[i], mean, var)
+    return tuple(new)
+
+
+def update_bn_ema(conf: MultiLayerConfiguration, params, x,
+                  row_weights=None):
+    """Every BatchNorm layer's running stats advanced from one batch by a
+    forward up to the last BatchNorm layer (training statistics all the
+    way, row-weighted with `row_weights`): the eager path's EMA, after the
+    step. Returns a new params tree."""
+    if not has_batchnorm(conf):
+        return params
+    last_bn = max(i for i, c in enumerate(conf.confs) if _is_bn(c))
+    new = list(params)
+    h = x
+    with torch.no_grad():
+        for i in range(last_bn + 1):
+            c = conf.conf(i)
+            h = apply_preprocessor(conf.preprocessor(i), h)
+            if _is_bn(c):
+                mean, var = BatchNormLayer.stats_of(
+                    *BatchNormLayer.moments(h, row_weights))
+                new[i] = _bn_ema_apply(c, new[i], mean, var)
+            if i < last_bn:
+                if _is_bn(c):
+                    h = BatchNormLayer.forward(params[i], c, h, None,
+                                               training=True,
+                                               row_weights=row_weights)
+                else:
+                    h = get_layer(c.layer_type).forward(params[i], c, h,
+                                                        None, True)
+    return tuple(new)
 
 
 def network_regularization(conf: MultiLayerConfiguration, params):
@@ -149,16 +261,26 @@ def network_regularization(conf: MultiLayerConfiguration, params):
     return reg
 
 
-def make_finetune_loss(conf: MultiLayerConfiguration):
-    """Row-weighted loss `(params, x, y, w) -> scalar`: the w-weighted mean
-    of `network_rowwise_loss` over the rows whose weight is not 0, plus
-    `network_regularization`. w is one weight per label row (padding rows
-    carry 0)."""
+def make_finetune_loss(conf: MultiLayerConfiguration,
+                       collect_bn: bool = False):
+    """Row-weighted loss `(params, x, y, w, key) -> (loss, stats)`: the
+    w-weighted mean of `network_rowwise_loss` over the rows whose weight is
+    not 0, plus `network_regularization`. w is one weight per label row
+    (padding rows carry 0); the feature rows weigh what their first label
+    row weighs, so BatchNorm layers train on the real rows' moments. stats
+    is () unless `collect_bn` (then this forward's raw BatchNorm moments,
+    for `update_bn_ema_from_stats`)."""
 
-    def loss_fn(params, x, y, w):
-        rows = network_rowwise_loss(conf, params, x, y, training=True)
-        return (torch.dot(rows, w) / torch.clamp(w.sum(), min=1.0)
+    def loss_fn(params, x, y, w, key=None):
+        ratio = w.shape[0] // x.shape[0]
+        wx = w.reshape(x.shape[0], ratio)[:, 0]
+        out = network_rowwise_loss(conf, params, x, y, key, training=True,
+                                   row_weights=wx,
+                                   return_bn_stats=collect_bn)
+        rows, stats = out if collect_bn else (out, ())
+        loss = (torch.dot(rows, w) / torch.clamp(w.sum(), min=1.0)
                 + network_regularization(conf, params))
+        return loss, stats
 
     return loss_fn
 
@@ -174,6 +296,8 @@ class MultiLayerNetwork:
         if seed is None:
             seed = conf.confs[0].seed if conf.confs else 123
         self.seed = int(seed)
+        # JAX's key stream, as two uint32 ints (`_next_key`)
+        self._key = (0, self.seed & 0xFFFFFFFF)
         # one captured program per (conf, algorithm, bucket) for the train
         # step, and per (entry point, conf, bucket) for inference, in one
         # memory pool; use_*_cache=False runs the eager paths
@@ -192,6 +316,8 @@ class MultiLayerNetwork:
         self.resumed_from_batch: Optional[int] = None
         self.checkpoint_write_seconds = 0.0
         self.checkpoints_written = 0
+        # did the last finetune advance the BatchNorm EMA in its step?
+        self._bn_in_step = False
 
     @property
     def params(self) -> Optional[tuple]:
@@ -212,7 +338,24 @@ class MultiLayerNetwork:
             self.step_cache.drop_graphs()
             self.infer_cache.drop_graphs()
 
+    def _next_key(self) -> tuple:
+        """The next key of the stream, JAX's `self._key, sub =
+        split(self._key)`: two ints."""
+        self._key, sub = nd_random.split_host(self._key)
+        return sub
+
+    def _key_tensor(self, key):
+        """A stream key as the int64 [2] tensor the solver splits, on the
+        network's device; None where the conf draws nothing from it."""
+        if not uses_key(self.conf):
+            return None
+        return torch.tensor(key, dtype=torch.int64, device=self.device)
+
     def init(self) -> "MultiLayerNetwork":
+        # the JAX package draws the params from this key; the port draws
+        # them from the generator, and takes the key to keep the stream in
+        # step with JAX's
+        self._next_key()
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self.params = init_params(self.conf, self._gen)
         return self
@@ -287,6 +430,7 @@ class MultiLayerNetwork:
                     raise ValueError(f"unknown warmup entry {entry!r}")
             if train:
                 self.step_cache.finetune(self.conf, self.params, x, y,
+                                         self._key_tensor(self._key),
                                          compile_only=True)
             captured.append(tuple(x.shape))
         return {"shapes": captured, "entries": list(entries),
@@ -435,8 +579,9 @@ class MultiLayerNetwork:
     # -- training ------------------------------------------------------------
     def finetune(self, x, labels) -> None:
         """Supervised end-to-end optimization of the loss on one batch with
-        the output layer's solver: through `step_cache` by default (the
-        row-weighted loss, the batch padded to its bucket, on CUDA one
+        the output layer's solver, on the stream's next key: through
+        `step_cache` by default (the row-weighted loss, the batch padded to
+        its bucket, the BatchNorm EMA advanced in the step; on CUDA one
         captured graph replayed), else eagerly on `network_loss`. The
         updater state starts at zero on every call, as in the JAX package
         (its solver initializes the updater inside each run): with one
@@ -445,22 +590,34 @@ class MultiLayerNetwork:
         queue A item 10)."""
         x, labels = self._input(x), self._input(labels)
         conf = self.conf
+        key = self._key_tensor(self._next_key())
         if self.use_step_cache:
-            scores = self.step_cache.finetune(conf, self.params, x, labels)
+            scores = self.step_cache.finetune(conf, self.params, x, labels,
+                                              key)
+            self._bn_in_step = has_batchnorm(conf)
         else:
             objective = solver_mod.from_loss(
-                lambda p: network_loss(conf, p, x, labels, training=True))
+                lambda p, k: network_loss(conf, p, x, labels, k,
+                                          training=True), with_key=True)
             self.params, scores = solver_mod.optimize(
-                objective, self.params, conf.conf(conf.n_layers - 1))
+                objective, self.params, conf.conf(conf.n_layers - 1), key)
+            self._bn_in_step = False
         dispatch_listeners(self.listeners, self, scores)
 
     def _fit_batch(self, x, y) -> None:
         if self.conf.pretrain:
             raise NotImplementedError(
                 "layer-wise pretraining is not ported to "
-                "deeplearning4j_tpu_torch yet; see ROADMAP.md queue A item 9")
+                "deeplearning4j_tpu_torch yet; see ROADMAP.md queue A item "
+                "9b")
+        self._bn_in_step = False
         if self.conf.backprop:
             self.finetune(x, y)
+        if has_batchnorm(self.conf) and not self._bn_in_step:
+            # the eager path: the running EMA from one more forward with
+            # the new params, as JAX's uncached path computes it
+            self.params = update_bn_ema(self.conf, self.params,
+                                        self._input(x))
 
     def fit(self, data, labels=None, *,
             checkpoint_dir: Optional[str] = None,
@@ -500,7 +657,8 @@ class MultiLayerNetwork:
         from deeplearning4j_tpu_torch.parallel import checkpoint as ckpt
 
         t0 = time.perf_counter()
-        meta = {}
+        # the key under JAX's own name, which JAX's resume reads too
+        meta = {"rng_key": [int(v) for v in self._key]}
         if self._gen is not None:
             # where the JAX package saves its PRNG key: the generator's
             # state bytes, as hex
@@ -530,6 +688,9 @@ class MultiLayerNetwork:
                 if state is not None and self._gen is not None:
                     self._gen.set_state(torch.frombuffer(
                         bytearray.fromhex(state), dtype=torch.uint8))
+                rng = (meta.get("metadata") or {}).get("rng_key")
+                if rng is not None:
+                    self._key = tuple(int(v) & 0xFFFFFFFF for v in rng)
                 self.resumed_from_batch = start_batch
                 log.info("fit: auto-resumed %s at batch %d", checkpoint_dir,
                          start_batch)

@@ -22,8 +22,16 @@ reuses it for every batch; here the program is a `torch.cuda.CUDAGraph`:
                 have moved (another tree was assigned) is captured anew.
   bucketing     a batch pads with zero rows up to the smallest known bucket
                 that fits (buckets grow from the sizes seen), and pad rows
-                carry row weight 0 in the loss, as in the JAX package; an
-                epoch with a ragged tail captures at most n_buckets graphs.
+                carry row weight 0 in the loss and in BatchNorm's moments,
+                as in the JAX package; an epoch with a ragged tail captures
+                at most n_buckets graphs.
+  keys          a conf with dropout takes the step's threefry key as one
+                more static input (int64 [2]), copied in before each
+                replay, so the masks are drawn inside the graph.
+  BatchNorm     the program advances the running EMA after the solver from
+                the last live iteration's moments, and writes it into the
+                EMA leaves in place with the params: the inference graphs,
+                which read those leaves by address, see it at once.
   launches      the kernel wrappers count launches on the host
                 (`nd/kernels.LAUNCHES`); the warm-up and capture launches
                 are taken back and each replay adds what its capture
@@ -356,29 +364,37 @@ class TrainStepCache(CompiledProgramCache):
 
     kind = "step-cache"
 
-    def finetune(self, conf, params, x, y, compile_only: bool = False):
+    def finetune(self, conf, params, x, y, key=None,
+                 compile_only: bool = False):
         """One cached supervised solver run (`MultiLayerNetwork.finetune`):
         checks the ids, pads (x, y) to the bucket, fetches or captures the
-        program for (conf, algo, shapes) and runs it. The params tree is
-        updated in place; returns the per-iteration scores as a numpy
-        float32 array (one read-back after the replay). With
-        `compile_only` (warm-up) the program is captured without a step:
-        params are untouched and None is returned."""
+        program for (conf, algo, shapes) and runs it on `key` (an int64
+        [2] tensor on x's device, or None where nothing is drawn). The
+        params tree, the BatchNorm EMA included, is updated in place;
+        returns the per-iteration scores as a numpy float32 array (one
+        read-back after the replay). With `compile_only` (warm-up) the
+        program is captured without a step: params are untouched and None
+        is returned."""
         out_conf = conf.conf(conf.n_layers - 1)
         solver_mod.check_algorithm(out_conf)
         check_input(conf, x)
         bucket = self.bucket_rows(int(x.shape[0]))
         xp, yp, w = self.pad_batch(x, y, bucket)
-        key = ("finetune", self._fingerprint(conf),
-               str(out_conf.optimization_algo), arg_signature(xp, yp, w))
-        return self._run(key, lambda: _finetune_program(conf), params,
-                         (xp, yp, w), read=lambda s: s.cpu().numpy(),
+        inputs = (xp, yp, w) if key is None else (xp, yp, w, key)
+        cache_key = ("finetune", self._fingerprint(conf),
+                     str(out_conf.optimization_algo),
+                     arg_signature(*inputs))
+        return self._run(cache_key, lambda: _finetune_program(conf), params,
+                         inputs, read=lambda s: s.cpu().numpy(),
                          write=_write_params, compile_only=compile_only)
 
 
 def _finetune_program(conf) -> Callable:
     """The (uncaptured) finetune step over explicit batch args: the
-    configured solver's graph-safe form over the row-weighted loss.
+    configured solver's graph-safe form over the row-weighted loss, then,
+    for a conf with BatchNorm, the EMA advanced from the moments of the
+    last live iteration's forward (`update_bn_ema_from_stats`), as the
+    JAX package folds it into its program.
 
     The updater's host constants of the iteration (Adam's bias corrections,
     scheduled momentum, the AdaGrad reset: `optimize/updater.py`) are baked
@@ -388,13 +404,20 @@ def _finetune_program(conf) -> Callable:
     `num_iterations` iterations; a persistent updater (ROADMAP.md queue A
     item 10) would have to feed them in as tensors."""
     # local import: nn.multilayer imports this module at top level
-    from deeplearning4j_tpu_torch.nn.multilayer import make_finetune_loss
+    from deeplearning4j_tpu_torch.nn.multilayer import (
+        has_batchnorm, make_finetune_loss, update_bn_ema_from_stats)
 
     out_conf = conf.conf(conf.n_layers - 1)
-    loss_fn = make_finetune_loss(conf)
+    collect_bn = has_batchnorm(conf)
+    loss_fn = make_finetune_loss(conf, collect_bn=collect_bn)
 
-    def program(params, x, y, w):
-        objective = solver_mod.from_loss(lambda p: loss_fn(p, x, y, w))
-        return solver_mod.sgd_device(objective, params, out_conf)
+    def program(params, x, y, w, key=None):
+        objective = solver_mod.from_loss_with_aux(
+            lambda p, k: loss_fn(p, x, y, w, k))
+        new, scores, aux = solver_mod.sgd_device(objective, params,
+                                                 out_conf, key)
+        if collect_bn:
+            new = update_bn_ema_from_stats(conf, new, aux)
+        return new, scores
 
     return program

@@ -209,7 +209,7 @@ class _PortScaledTanh:
                 "b": torch.full((conf.n_out,), 0.1, device=gen.device)}
 
     @staticmethod
-    def forward(params, conf, x):
+    def forward(params, conf, x, key=None, training=False):
         return 2 * torch.tanh(x @ params["W"] + params["b"])
 
 

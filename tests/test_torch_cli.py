@@ -201,20 +201,31 @@ def test_unported_train_options_name_their_roadmap_item(tmp_path, extra,
 @pytest.mark.parametrize("zoo_name", ["lenet5", "mlp", "vgg_cifar10", "dbn",
                                       "deep_autoencoder"])
 def test_unported_zoo_models_name_their_roadmap_item(tmp_path, capsys,
-                                                     zoo_name):
-    """`mlp` is ported (it exited naming item 9 before): it builds JAX's
-    conf from the data's widths and trains; the others still exit."""
-    if zoo_name == "mlp":
-        uri = "csv:" + _csv(tmp_path)
+                                                     monkeypatch, zoo_name):
+    """`mlp`, `lenet5` and `vgg_cifar10` are ported (they exited naming
+    item 9 before): each builds JAX's conf and trains (the conv nets on
+    the MNIST and CIFAR stand-ins; tests/test_torch_conv.py holds them to
+    the JAX CLI); `dbn` and `deep_autoencoder` still exit."""
+    from deeplearning4j_tpu.models import zoo as jax_zoo
+
+    monkeypatch.setenv("HOME", str(tmp_path))
+    for var in ("MNIST_DIR", "DL4J_MNIST_URL", "CIFAR10_DIR"):
+        monkeypatch.delenv(var, raising=False)
+    ported = {
+        "mlp": ("csv:" + _csv(tmp_path), "mlp:hidden=8x4",
+                lambda: jax_zoo.mlp(4, [8, 4], 3, lr=0.05)),
+        "lenet5": ("mnist:16", "lenet5", lambda: jax_zoo.lenet5(lr=0.05)),
+        "vgg_cifar10": ("cifar10:16", "vgg_cifar10:width=4",
+                        lambda: jax_zoo.vgg_cifar10(lr=0.05, width=4))}
+    if zoo_name in ported:
+        uri, spec, want_conf = ported[zoo_name]
         out = str(tmp_path / "o")
-        assert main(["train", "--input", uri, "--zoo", "mlp:hidden=8x4",
+        assert main(["train", "--input", uri, "--zoo", spec,
                      "--output", out, "--device", "cpu"]) == 0
         assert np.isfinite(_last_json(capsys.readouterr().out)["score"])
         want = jax_conf.MultiLayerConfiguration.from_json(
             open(f"{out}/conf.json").read())
-        from deeplearning4j_tpu.models import zoo as jax_zoo
-
-        assert want.to_json() == jax_zoo.mlp(4, [8, 4], 3, lr=0.05).to_json()
+        assert want.to_json() == want_conf().to_json()
         return
     with pytest.raises(SystemExit, match="queue A item 9"):
         main(["train", "--input", _corpus(tmp_path), "--zoo", zoo_name,

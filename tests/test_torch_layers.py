@@ -216,8 +216,15 @@ def test_embedding_rejects_ids_outside_the_vocabulary(bad_id):
 
 
 def test_unported_layer_types_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_layer(LayerType.CONVOLUTION)
+    """The conv-net layers are ported (CONVOLUTION raised naming item 9
+    before); the pretraining layers still name item 9."""
+    from deeplearning4j_tpu_torch.nn.layers import base, conv
+
+    assert get_layer(LayerType.CONVOLUTION) is conv.ConvolutionLayer
+    assert get_layer("subsampling") is conv.SubsamplingLayer
+    assert get_layer(LayerType.BATCH_NORM) is base.BatchNormLayer
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 9"):
+        get_layer(LayerType.RBM)
 
 
 def test_lstm_layer_types_are_registered():

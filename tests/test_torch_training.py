@@ -254,10 +254,11 @@ def test_sgd_solver_matches_jax(stop, fused, form):
         jax_solver.from_loss(_quadratic(jnp, jnp.asarray(target))),
         ({"w": jnp.asarray(w0)},), jax_conf.NeuralNetConfiguration(**kw),
         jax.random.PRNGKey(0))
-    run = solver.optimize if form == "eager" else solver.sgd_device
-    tp, ts = run(
+    run = solver.optimize_with_aux if form == "eager" else solver.sgd_device
+    tp, ts, aux = run(
         solver.from_loss(_quadratic(torch, torch.from_numpy(target))),
         ({"w": torch.from_numpy(w0.copy())},), NeuralNetConfiguration(**kw))
+    assert aux == ()
     if form == "device":
         assert ts.dtype == torch.float32
         ts = ts.numpy()
@@ -429,7 +430,8 @@ def test_rowwise_loss_regularization_and_finetune_loss_match_jax():
            jax_ml.network_regularization(jconf, jp), 1e-5)
     _close(ml.network_loss(tconf, tp, tx, ty),
            jax_ml.network_loss(jconf, jp, jx, jy), 1e-5)
-    _close(ml.make_finetune_loss(tconf)(tp, tx, ty, tw),
+    # (loss, BatchNorm stats), JAX's signature
+    _close(ml.make_finetune_loss(tconf)(tp, tx, ty, tw, None)[0],
            jax_ml.make_finetune_loss(jconf)(jp, jx, jy, jw, None)[0], 1e-5)
 
 
@@ -575,26 +577,57 @@ def test_unported_training_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         ml.MultiLayerNetwork(tconf.replace(pretrain=True), device="cpu",
                              seed=0).fit(x, y)
-    dropped = tconf.replace(confs=tuple(c.replace(dropout=0.1)
-                                        for c in tconf.confs))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ml.MultiLayerNetwork(dropped, device="cpu", seed=0).fit(x, y)
+    # dropout under training is ported (it raised before): the loss on a
+    # key equals JAX's, masks and all, and fit trains
+    jdrop = jconf.replace(confs=tuple(c.replace(dropout=0.1)
+                                      for c in jconf.confs))
+    dropped = MultiLayerConfiguration.from_json(jdrop.to_json())
+    np_params = _numpy_params(jdrop, seed=4)
+    key = jax.random.PRNGKey(5)
+    from deeplearning4j_tpu_torch.nd import random as nd_random
+
+    _close(ml.network_loss(dropped, checkpoint.params_from_numpy(
+               np_params, "cpu"), torch.from_numpy(x), torch.from_numpy(y),
+               nd_random.key_array(np.asarray(key))),
+           jax_ml.network_loss(jdrop, _jax_params(np_params), jnp.asarray(x),
+                               jnp.asarray(y), key), 1e-5)
+    net = ml.MultiLayerNetwork(dropped, device="cpu", seed=0).init()
+    net.fit(x, y)
+    assert all(torch.isfinite(t).all() for t in tree_leaves(net.params))
     # inference is unaffected by the dropout rate
     ml.MultiLayerNetwork(dropped, device="cpu", seed=0).init().output(x)
 
 
 def test_batch_norm_layers_name_their_roadmap_item():
-    from deeplearning4j_tpu_torch.nn.conf import LayerType
+    """BATCH_NORM is ported (it raised naming item 3 before): the training
+    loss of a dense -> BatchNorm -> output net equals JAX's."""
+    from deeplearning4j_tpu.nn import conf as jc
 
-    base = NeuralNetConfiguration(n_in=4, n_out=3)
-    conf = MultiLayerConfiguration(confs=(
-        base.replace(layer_type=LayerType.DENSE),
-        base.replace(layer_type=LayerType.BATCH_NORM, n_in=3),
-        base.replace(layer_type=LayerType.OUTPUT, n_in=3, n_out=2)))
-    params = ({"W": torch.zeros(4, 3), "b": torch.zeros(3)}, {}, {})
-    x, y = torch.zeros(5, 4), torch.zeros(5, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 3"):
-        ml.network_rowwise_loss(conf, params, x, y)
+    base = jc.NeuralNetConfiguration(n_in=4, n_out=3)
+    jconf = jc.MultiLayerConfiguration(confs=(
+        base.replace(layer_type=jc.LayerType.DENSE),
+        base.replace(layer_type=jc.LayerType.BATCH_NORM, n_in=3),
+        base.replace(layer_type=jc.LayerType.OUTPUT, n_in=3, n_out=2)))
+    conf = MultiLayerConfiguration.from_json(jconf.to_json())
+    rng = np.random.RandomState(6)
+    np_params = ({"W": rng.standard_normal((4, 3)).astype(np.float32),
+                  "b": rng.standard_normal(3).astype(np.float32)},
+                 {"gamma": 1 + 0.1 * rng.standard_normal(3).astype(
+                     np.float32),
+                  "beta": 0.1 * rng.standard_normal(3).astype(np.float32),
+                  "ema_mean": np.zeros(3, np.float32),
+                  "ema_var": np.zeros(3, np.float32),
+                  "ema_w": np.zeros((), np.float32)},
+                 {"W": rng.standard_normal((3, 2)).astype(np.float32),
+                  "b": np.zeros(2, np.float32)})
+    x = rng.standard_normal((5, 4)).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[rng.randint(0, 2, 5)]
+    params = checkpoint.params_from_numpy(np_params, "cpu")
+    _close(ml.network_rowwise_loss(conf, params, torch.from_numpy(x),
+                                   torch.from_numpy(y)),
+           jax_ml.network_rowwise_loss(jconf, _jax_params(np_params),
+                                       jnp.asarray(x), jnp.asarray(y)),
+           1e-5)
 
 
 def test_fit_needs_cuda_unless_cpu_is_asked(monkeypatch):
