@@ -165,7 +165,29 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    deterministic against default cuDNN
    algorithms, and a checkpointed LeNet `fit` stopped by SIGTERM
    after 3 of 6 batches that resumes bitwise equal to an uninterrupted
-   one.
+   one;
+16. `pretraining` (PRE_*; `--only-pretraining` runs it alone, with no
+   kernel build and no last line): `pretrain_deep_ae`, the Curves net of
+   Hinton & Salakhutdinov (2006) at `zoo.deep_autoencoder()`'s widths on
+   20,000 stand-in curves at full batch through `fit_deep_autoencoder`,
+   captured and with its programs uncaptured (bitwise after each layer's
+   pretraining, the unroll and the CG finetune; MSE below its init; JAX's
+   MSE criteria on JAX's test net), each layer's and the CG run's replay
+   timed, probes and host reads an iteration, one profiled pretrain run
+   and CG run (device ms by kind: GEMM, threefry int64, elementwise,
+   reductions), the card against the CPU port on a 2,000-row cut (gated
+   at ten times the CPU's own gap under a 1e-7 move of its inputs), and
+   the CLI recipe; `pretrain_dbn`, `zoo.dbn(784, [500, 500, 2000], 10)`
+   (Hinton, Osindero & Teh 2006) over the MNIST stand-in in [0, 1] in
+   batches of 10,000 through `fit` (batch 1 bitwise its programs
+   uncaptured, held-out accuracy at least chance + 0.4, the card's Gibbs
+   uniforms bitwise the CPU's, its sample's flips beside the near-ties),
+   ms a batch and a layer iteration, the draw share, the cut against the
+   CPU, and the CLI; `solvers`, bench.py's MLP 784-512-512-10 on 8,192
+   rows with GD, CG and LBFGS (10 iterations) and HF (5, CG 32): captured
+   bitwise its program uncaptured, scores falling, each iteration's probes
+   those of the eager `backtrack`, HF one graph a run, a Gauss-Newton
+   product against dense M'Mv.
 
 Each phase prints one JSON line; then a line with every kernel's numbers,
 the card's line, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -4284,10 +4306,12 @@ def conv_kind(name: str) -> str:
     return "other"
 
 
-def conv_profile(torch, kernels, fn, phase) -> dict:
+def conv_profile(torch, kernels, fn, phase, kind=None) -> dict:
     """One fn() call under `torch.profiler`: device ms by kind of kernel
-    (`CONV_KINDS`, by name), the largest kernels, the kernel count and the
-    wall time. Prints the row and returns it."""
+    (`kind(name)`, by default `conv_kind`: `CONV_KINDS`), the largest
+    kernels, the kernel count and the wall time. Prints the row and returns
+    it."""
+    kind = kind or conv_kind
     from torch.profiler import ProfilerActivity, profile
 
     saved = dict(kernels.LAUNCHES)
@@ -4305,14 +4329,14 @@ def conv_profile(torch, kernels, fn, phase) -> dict:
     events.sort(key=lambda e: -e.device_time_total)
     by_kind = {}
     for e in events:
-        k = conv_kind(e.key)
+        k = kind(e.key)
         by_kind[k] = by_kind.get(k, 0.0) + e.device_time_total / 1e3
     total_ms = sum(e.device_time_total for e in events) / 1e3
     row = {"phase": phase, "wall_ms": wall_ms, "device_ms": total_ms,
            "idle_share": 1.0 - total_ms / wall_ms,
            "kernel_count": sum(e.count for e in events),
            "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-           "top": [{"name": e.key[:90], "kind": conv_kind(e.key),
+           "top": [{"name": e.key[:90], "kind": kind(e.key),
                     "calls": e.count, "ms": e.device_time_total / 1e3}
                    for e in events[:12]]}
     emit(row)
@@ -4876,6 +4900,662 @@ def phase_conv_nets(torch, kernels):
                                  for k, v in profiles.items()}})
 
 
+# -- slice 18: layer-wise pretraining and the classic solvers ------------------
+
+#: where the pretraining phase runs (a CPU rehearsal sets "cpu")
+PRE_DEVICE = "cuda"
+#: the Curves net of Hinton & Salakhutdinov (2006): zoo.deep_autoencoder()'s
+#: defaults on the Curves training set's 20,000 rows at full batch; its
+#: card-vs-CPU check on a 2,000-row cut with a 10-iteration CG finetune
+PRE_AE = dict(rows=20000, cut=2000, cut_finetune=10)
+#: the DBN of Hinton, Osindero & Teh (2006): zoo.dbn(784, [500, 500, 2000],
+#: 10) on the MNIST stand-in in [0, 1], batches of 10,000
+PRE_DBN = dict(hidden=(500, 500, 2000), batch=10000, train=54000,
+               held_out=6000, cut=2000)
+#: bench.py:413-416's MLP on one 8,192-row batch, each solver
+PRE_SOLVERS = dict(hidden=(512, 512), rows=8192, iterations=10,
+                   hf_iterations=5, hf_cg=32, runs=3)
+PRE_MIN_ACCURACY = 0.5  # chance (0.1) + 0.4
+#: the card against the CPU port: within this many times the CPU's own gap
+#: when its inputs move by 1e-7 relative (floor PRE_GAP_FLOOR of max|leaf|)
+PRE_GAP_FACTOR, PRE_GAP_FLOOR = 10.0, 1e-6
+PRE_KINDS = (("gemm", ("gemm", "cutlass", "xmma", "sm90_", "sm80_",
+                       "ampere_", "Kernel2")),
+             ("reduction", ("reduce", "Reduce", "norm_kernel")),
+             ("threefry_int64", ("long",)),
+             ("copy", ("Memcpy", "Memset", "copy_kernel")))
+
+
+def pre_kind(name: str) -> str:
+    for kind, keys in PRE_KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "elementwise"
+
+
+def pre_sync(torch):
+    if PRE_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def pre_timed(torch, fn):
+    """(fn's result, its wall ms), the device synchronised on both sides."""
+    pre_sync(torch)
+    t = time.perf_counter()
+    out = fn()
+    pre_sync(torch)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def pre_leaves(net):
+    from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+
+    return [t.detach().clone() for t in tree_leaves(net.params)]
+
+
+def pre_bitwise(torch, a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def pre_gap(a, b) -> float:
+    """max |a - b| over matching leaves, in units of max |b|."""
+    scale = max(float(t.abs().max()) for t in b) or 1.0
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max())
+               for x, y in zip(a, b)) / scale
+
+
+class PreSnapshots:
+    """A listener that copies the params after each solver run (at its
+    first reported iteration: listeners hear a run after it ends)."""
+
+    def __init__(self):
+        self.snaps = []
+
+    def iteration_done(self, model, iteration, score):
+        if iteration == 0:
+            self.snaps.append(pre_leaves(model))
+
+
+def pre_net(conf, params=None, capture=True, seed=0):
+    """A network of `conf` on PRE_DEVICE (seed 0), on copies of `params`
+    (leaves) where given; `capture` False runs the step cache's programs
+    uncaptured."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.tree import (tree_leaves,
+                                                        tree_unflatten)
+
+    net = MultiLayerNetwork(conf, device=PRE_DEVICE, seed=seed).init()
+    if params is not None:
+        net.params = tree_unflatten(net.params, [
+            t.detach().to(PRE_DEVICE).clone() for t in params])
+        assert len(tree_leaves(net.params)) == len(params)
+    net.step_cache.capture = capture
+    return net
+
+
+def pre_timed_layers(torch, net):
+    """Wrap `net.pretrain_layer` to time each layer run (synchronised):
+    returns the list it appends (layer, rows, ms) to."""
+    rows = []
+    real = net.pretrain_layer
+
+    def timed(i, x):
+        _, ms = pre_timed(torch, lambda: real(i, x))
+        rows.append((i, int(x.shape[0]), ms))
+
+    net.pretrain_layer = timed
+    return rows
+
+
+def pre_cpu_gap(torch, run, inputs):
+    """The CPU port's own gap: `run(inputs)` against `run` on inputs moved
+    by 1e-7 relative (a fixed random sign each), in units of max|leaf|."""
+    ref = run(inputs)
+    gen = torch.Generator().manual_seed(0)
+    moved = [x * (1 + 1e-7 * (2 * torch.randint(0, 2, x.shape,
+                                                generator=gen) - 1))
+             for x in inputs]
+    return pre_gap(run(moved), ref), ref
+
+
+def pre_card_vs_cpu(torch, name, run, inputs):
+    """`run(inputs on a device) -> leaves` on the card and on the CPU port
+    from the same params and keys: the gap, gated at PRE_GAP_FACTOR times
+    the CPU's own gap under a 1e-7 move of its inputs."""
+    global PRE_DEVICE
+    card = run([x.to(PRE_DEVICE) for x in inputs])
+    saved, PRE_DEVICE = PRE_DEVICE, "cpu"
+    try:
+        own, cpu = pre_cpu_gap(torch, run, [x.cpu() for x in inputs])
+    finally:
+        PRE_DEVICE = saved
+    gap = pre_gap(card, cpu)
+    gate = max(PRE_GAP_FACTOR * own, PRE_GAP_FLOOR)
+    row = {"what": name, "gap_of_max_leaf": gap,
+           "cpu_own_gap_1e-7": own, "gate": gate}
+    check(gap <= gate, f"{name}: card {gap:.3g} from the CPU port (gate "
+          f"{gate:.3g})")
+    return row
+
+
+def pre_curves(n):
+    from deeplearning4j_tpu_torch.datasets.fetchers import CurvesDataFetcher
+
+    return np.ascontiguousarray(CurvesDataFetcher().fetch(n).features,
+                                np.float32)
+
+
+def pre_ae_cut(torch, conf, x):
+    """The deep AE on a cut: one layer's pretraining (layer 0, the zoo's
+    30 iterations), then a PRE_AE['cut_finetune']-iteration CG finetune of
+    the unrolled net, on the card and on the CPU port from the same
+    params."""
+    from deeplearning4j_tpu_torch.models import zoo
+
+    start = pre_leaves(pre_net(conf))
+    short = conf.replace(confs=conf.confs[:-1] + (conf.confs[-1].replace(
+        num_iterations=PRE_AE["cut_finetune"]),))
+
+    def pretrain(inputs):
+        net = pre_net(conf, start)
+        net.pretrain_layer(0, inputs[0])
+        return pre_leaves(net)
+
+    def finetune(inputs):
+        net = pre_net(short, start)
+        net.params = zoo.unroll_autoencoder_stack(short, net.params)
+        net.finetune(inputs[0], inputs[0])
+        return pre_leaves(net)
+
+    xc = torch.from_numpy(x[:PRE_AE["cut"]])
+    return [pre_card_vs_cpu(torch, "deep_ae layer 0 pretraining", pretrain,
+                            [xc]),
+            pre_card_vs_cpu(torch, "deep_ae CG finetune", finetune, [xc])]
+
+
+def pre_deep_ae(torch, kernels, card):
+    """`pretrain_deep_ae` (module docstring, item 16)."""
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.cli.driver import main as cli_main
+
+    t0 = time.perf_counter()
+    conf = zoo.deep_autoencoder()
+    x = pre_curves(PRE_AE["rows"])
+    xd = torch.from_numpy(x).to(PRE_DEVICE)
+    captured = pre_net(conf)
+    start = pre_leaves(captured)
+    uncaptured = pre_net(conf, start, capture=False)
+    with torch.no_grad():
+        mse0 = float(((captured.output(xd) - xd) ** 2).mean())
+    runs = {}
+    for name, net in (("captured", captured), ("uncaptured", uncaptured)):
+        snaps = PreSnapshots()
+        net.set_listeners([snaps])
+        layers = pre_timed_layers(torch, net)
+        real_finetune, fine = net.finetune, {}
+
+        def finetune(a, b, net=net, real=real_finetune, snaps=snaps,
+                     fine=fine):
+            snaps.snaps.append(pre_leaves(net))   # after the unroll
+            _, fine["ms"] = pre_timed(torch, lambda: real(a, b))
+            fine["books"] = net.step_cache.stats.solver
+
+        net.finetune = finetune
+        _, wall = pre_timed(torch, lambda: zoo.fit_deep_autoencoder(net, xd))
+        runs[name] = dict(snaps=snaps.snaps, layers=layers, fine=fine,
+                          wall_ms=wall)
+    a, b = runs["captured"], runs["uncaptured"]
+    n_enc = len(conf.confs) // 2
+    check(len(a["snaps"]) == len(b["snaps"]) == n_enc + 2,
+          "deep_ae: a snapshot after each layer, the unroll, the finetune")
+    stages = ([f"pretrain_{i}" for i in range(n_enc)]
+              + ["unrolled", "finetuned"])
+    bitwise = {s: pre_bitwise(torch, p, q)
+               for s, p, q in zip(stages, a["snaps"], b["snaps"])}
+    check(all(bitwise.values()),
+          f"deep_ae: captured differs from its programs uncaptured "
+          f"{bitwise}")
+    with torch.no_grad():
+        mse = float(((captured.output(xd) - xd) ** 2).mean())
+    var = float(np.var(x))
+    # JAX's criteria (MSE < 0.5 var(x), < 0.4 MSE at init) are made for
+    # its test's net (one hidden layer of 64, 100 CG iterations, 120
+    # rows): `pre_jax_criteria`. The Curves net at the zoo's defaults
+    # misses them in both packages (JAX's own CPU run on 2,000 rows: MSE
+    # 0.01536, var 0.01618): here it must improve on its init.
+    check(np.isfinite(mse) and mse < mse0,
+          f"deep_ae: reconstruction MSE {mse} (var {var}, at init {mse0})")
+    # replays, timed: each layer's captured run once more on its input
+    # from the trained net, and the CG finetune again from the unrolled
+    # params (the recipe's first runs include their captures)
+    from deeplearning4j_tpu_torch.nn.multilayer import feed_forward
+    from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+
+    iters = conf.confs[0].num_iterations
+    cg_first_ms = {name: r["fine"]["ms"] for name, r in runs.items()}
+    for i in range(n_enc):
+        with torch.no_grad():
+            acts = feed_forward(conf, captured.params, xd, up_to=i)
+        captured.pretrain_layer(i, acts[-1] if acts else xd)
+    replay_layer_ms = [ms for _, _, ms in a["layers"][n_enc:]]
+
+    def unrolled():
+        with torch.no_grad():
+            for t, s in zip(tree_leaves(captured.params), a["snaps"][n_enc]):
+                t.copy_(s)
+
+    unrolled()
+    captured.finetune(xd, xd)
+    books = a["fine"]["books"]
+    probes = books["probes"]
+    cg_replay_ms = a["fine"]["ms"]
+    check(books["graphs_captured"] == 0, "deep_ae: the CG replay captured")
+    row = {"phase": "pretrain_deep_ae", "gpu": card,
+           "widths": [c.n_out for c in conf.confs[:n_enc]],
+           "params": sum(t.numel() for t in start),
+           "rows": PRE_AE["rows"], "mse": mse, "mse_at_init": mse0,
+           "var": var, "mse_over_var": mse / var, "bitwise": bitwise,
+           "jax_criteria": pre_jax_criteria(torch),
+           "first_run_layer_ms": {name: [ms for _, _, ms in
+                                         r["layers"][:n_enc]]
+                                  for name, r in runs.items()},
+           "replay_layer_ms": replay_layer_ms,
+           "replay_ms_per_iteration": [ms / iters for ms in replay_layer_ms],
+           "uncaptured_ms_per_iteration": [ms / iters for _, _, ms in
+                                           b["layers"]],
+           "cg_first_run_ms": cg_first_ms,
+           "cg_replay_ms": cg_replay_ms,
+           "cg_iterations_run": books["iterations_run"],
+           "cg_ms_per_iteration": cg_replay_ms / max(1, len(probes)),
+           "probes_per_iteration": {"mean": float(np.mean(probes)),
+                                    "max": int(max(probes))},
+           "host_syncs_per_iteration": {
+               "mean": books["host_reads"] / max(1, len(probes)),
+               "max": int(max(probes))},
+           "graphs_per_cg_run": len(getattr(next(
+               p for k, p in captured.step_cache._programs.items()
+               if k[0] == "finetune"), "graphs", {})),
+           "capture_s": captured.step_cache.stats.total_compile_seconds,
+           "graph_pool_bytes": captured.step_cache.pool.reserved_bytes,
+           "wall_ms": {name: r["wall_ms"] for name, r in runs.items()}}
+    # one profiled pretrain run of layer 0 (30 iterations) and one CG run
+    # from the unrolled params
+    prof_pre = conv_profile(
+        torch, kernels, lambda: captured.pretrain_layer(0, xd),
+        "pretrain_deep_ae_profile_layer0", kind=pre_kind)
+    unrolled()
+    prof_cg = conv_profile(
+        torch, kernels, lambda: captured.finetune(xd, xd),
+        "pretrain_deep_ae_profile_cg", kind=pre_kind)
+    cg_iters = captured.step_cache.stats.solver["iterations_run"]
+    row["profile"] = {
+        "pretrain_iteration_by_kind_ms": {
+            k: v / iters for k, v in prof_pre["by_kind_ms"].items()},
+        "pretrain_draw_share": prof_pre["by_kind_ms"].get(
+            "threefry_int64", 0.0) / prof_pre["device_ms"],
+        "pretrain_idle_share": prof_pre["idle_share"],
+        "cg_iteration_by_kind_ms": {
+            k: v / max(1, cg_iters) for k, v in prof_cg["by_kind_ms"].items()},
+        "cg_idle_share": prof_cg["idle_share"]}
+    row["card_vs_cpu"] = pre_ae_cut(torch, conf, x)
+    # the CLI recipe at the zoo's widths
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    # the CLI's network: the conf's own seed
+    init = MultiLayerNetwork(conf, device=PRE_DEVICE).init()
+    score0 = init.score(xd, xd)
+    del init
+    with tempfile_dir() as td:
+        rc, out = cli_json(cli_main, [
+            "train", "--zoo", "deep_autoencoder:hidden=400x200x100x50x25x6,"
+            "iterations=30,finetune=60", "--input",
+            f"curves:{PRE_AE['rows']}",
+            "--output", os.path.join(td, "dae")])
+    check(rc == 0 and np.isfinite(out["score"]) and out["score"] < score0,
+          f"deep_ae CLI: rc {rc}, score {out.get('score')} (init {score0})")
+    row["cli"] = {"score": out["score"], "score_at_init": score0,
+                  "train_seconds": out["train_seconds"],
+                  "capture_seconds": out["compile_seconds"]}
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def pre_jax_criteria(torch) -> dict:
+    """JAX's deep-AE test on the card (tests/test_multilayer.py:154-187):
+    `deep_autoencoder(784, hidden=(64,), iterations=20,
+    finetune_iterations=100, lr=0.1)` on 120 curves through
+    `fit_deep_autoencoder`: MSE < 0.5 var(x) and < 0.4 MSE at init."""
+    from deeplearning4j_tpu_torch.models import zoo
+
+    x = torch.from_numpy(pre_curves(120)).to(PRE_DEVICE)
+    net = pre_net(zoo.deep_autoencoder(784, hidden=(64,), iterations=20,
+                                       finetune_iterations=100, lr=0.1),
+                  seed=1)
+    with torch.no_grad():
+        mse0 = float(((net.output(x) - x) ** 2).mean())
+    zoo.fit_deep_autoencoder(net, x)
+    with torch.no_grad():
+        mse = float(((net.output(x) - x) ** 2).mean())
+    var = float(x.var(unbiased=False))
+    check(mse < 0.5 * var and mse < 0.4 * mse0,
+          f"deep_ae (JAX's test net): MSE {mse} (var {var}, init {mse0})")
+    return {"mse": mse, "var": var, "mse_at_init": mse0}
+
+
+class tempfile_dir:
+    """A temporary directory, removed on exit."""
+
+    def __enter__(self):
+        import tempfile
+
+        self.td = tempfile.TemporaryDirectory()
+        return self.td.name
+
+    def __exit__(self, *exc):
+        self.td.cleanup()
+
+
+def pre_mnist01(n):
+    """The MNIST stand-in scaled into [0, 1] (the CLI's --scale-01)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    x, y = conv_data("mnist", n)
+    ds = DataSet(x, y).scale_to_unit()
+    return (np.ascontiguousarray(ds.features, np.float32),
+            np.ascontiguousarray(ds.labels, np.float32))
+
+
+def pre_rbm_draws(torch, net, x):
+    """The card's uniforms for layer 0's first Gibbs step (bitwise the
+    CPU's), and the flips of its hidden sample against the CPU port's from
+    the same params, beside the draws that lie within 1e-6 of p."""
+    from deeplearning4j_tpu_torch.nd import random as nd_random
+
+    key = nd_random.fold_in(torch.tensor([7, 11], dtype=torch.int64), 0)
+    W, b = (net.params[0][k] for k in ("W", "b"))
+    n = x.shape[0] * W.shape[1]
+    u_card = nd_random.uniform(key.to(PRE_DEVICE), n)
+    u_cpu = nd_random.uniform(key, n)
+    same = bool(torch.equal(u_card.cpu(), u_cpu))
+    check(same, "the card's threefry uniforms differ from the CPU's")
+    with torch.no_grad():
+        p_card = torch.sigmoid(x @ W + b)
+        p_cpu = torch.sigmoid(x.cpu() @ W.cpu() + b.cpu())
+    s_card = nd_random.bernoulli(key.to(PRE_DEVICE), p_card).cpu()
+    s_cpu = nd_random.bernoulli(key, p_cpu)
+    flips = int((s_card != s_cpu).sum())
+    near = int(((u_cpu.reshape(p_cpu.shape) - p_cpu).abs() < 1e-6).sum())
+    check(flips <= near, f"{flips} flips but {near} near-ties")
+    return {"uniforms": n, "uniforms_bitwise": same, "flips": flips,
+            "draws_within_1e-6_of_p": near,
+            "p_max_abs_diff": float((p_card.cpu() - p_cpu).abs().max())}
+
+
+def pre_dbn_cut(torch, conf, x, y):
+    """Layer 0's pretraining (30 CD-1 iterations) on a cut, card against
+    the CPU port from the same params and key."""
+    start = pre_leaves(pre_net(conf))
+
+    def pretrain(inputs):
+        net = pre_net(conf, start)
+        net.pretrain_layer(0, inputs[0])
+        return pre_leaves(net)
+
+    return pre_card_vs_cpu(torch, "dbn RBM 0 pretraining (CD-1)", pretrain,
+                           [torch.from_numpy(x[:PRE_DBN["cut"]])])
+
+
+def pre_dbn(torch, kernels, card):
+    """`pretrain_dbn` (module docstring, item 16)."""
+    from deeplearning4j_tpu_torch.cli.driver import main as cli_main
+    from deeplearning4j_tpu_torch.models import zoo
+
+    t0 = time.perf_counter()
+    n_train, bsz = PRE_DBN["train"], PRE_DBN["batch"]
+    x, y = pre_mnist01(n_train + PRE_DBN["held_out"])
+    conf = zoo.dbn(x.shape[1], list(PRE_DBN["hidden"]), y.shape[1])
+    xd = torch.from_numpy(x).to(PRE_DEVICE)
+    yd = torch.from_numpy(y).to(PRE_DEVICE)
+    batches = [(xd[i:min(i + bsz, n_train)], yd[i:min(i + bsz, n_train)])
+               for i in range(0, n_train, bsz)]
+    net = pre_net(conf)
+    start = pre_leaves(net)
+    # batch 1 captured against its programs uncaptured
+    twin = pre_net(conf, start, capture=False)
+    layers = pre_timed_layers(torch, net)
+    fine = []
+    real_finetune = net.finetune
+
+    def finetune(a, b):
+        _, ms = pre_timed(torch, lambda: real_finetune(a, b))
+        fine.append((ms, net.step_cache.stats.solver))
+
+    net.finetune = finetune
+    batch_ms = []
+    for i, (xb, yb) in enumerate(batches):
+        _, ms = pre_timed(torch, lambda: net.fit(xb, yb))
+        batch_ms.append(ms)
+        if i == 0:
+            first = pre_leaves(net)
+            _, twin_ms = pre_timed(torch, lambda: twin.fit(xb, yb))
+            bitwise = pre_bitwise(torch, first, pre_leaves(twin))
+            check(bitwise, "dbn: batch 1 captured differs from its "
+                  "programs uncaptured")
+    del twin
+    held_x, held_y = xd[n_train:], yd[n_train:]
+    acc = float((net.output(held_x).argmax(1) == held_y.argmax(1))
+                .float().mean())
+    check(acc >= PRE_MIN_ACCURACY, f"dbn held-out accuracy {acc}")
+    # replays of the full batches (batch 1 captured; the tail its own)
+    rep = [(i, r, ms) for i, r, ms in layers[len(PRE_DBN["hidden"]):]
+           if r == bsz]
+    iters = conf.confs[0].num_iterations
+    per_layer = {f"rbm{i}": median([ms for j, _, ms in rep if j == i]) / iters
+                 for i in range(len(PRE_DBN["hidden"]))}
+    probes = [p for _, books in fine for p in books["probes"]]
+    row = {"phase": "pretrain_dbn", "gpu": card,
+           "widths": [x.shape[1], *PRE_DBN["hidden"], y.shape[1]],
+           "params": sum(t.numel() for t in start),
+           "batches": [int(b[0].shape[0]) for b in batches],
+           "batch_ms": batch_ms, "batch1_uncaptured_ms": twin_ms,
+           "batch1_bitwise": bitwise, "held_out_accuracy": acc,
+           "pretrain_ms_per_iteration": per_layer,
+           "cg_ms": [ms for ms, _ in fine],
+           "cg_probes_per_iteration": {"mean": float(np.mean(probes)),
+                                       "max": int(max(probes))},
+           "capture_s": net.step_cache.stats.total_compile_seconds,
+           "graph_pool_bytes": net.step_cache.pool.reserved_bytes,
+           "step_cache": net.step_cache.stats.as_dict()}
+    row["draws"] = pre_rbm_draws(torch, net, batches[0][0])
+    # one profiled 2000-wide RBM run (30 CD-1 iterations) and one batch
+    with torch.no_grad():
+        from deeplearning4j_tpu_torch.nn.multilayer import feed_forward
+
+        acts = feed_forward(conf, net.params, batches[0][0], up_to=2)[-1]
+    prof = conv_profile(torch, kernels, lambda: net.pretrain_layer(2, acts),
+                        "pretrain_dbn_profile_rbm2", kind=pre_kind)
+    draw = prof["by_kind_ms"].get("threefry_int64", 0.0)
+    row["profile_rbm2"] = {
+        "iteration_by_kind_ms": {k: v / iters
+                                 for k, v in prof["by_kind_ms"].items()},
+        "draw_share": draw / prof["device_ms"],
+        "idle_share": prof["idle_share"]}
+    prof_b = conv_profile(torch, kernels, lambda: net.fit(*batches[1]),
+                          "pretrain_dbn_profile_batch", kind=pre_kind)
+    row["profile_batch"] = {"device_ms": prof_b["device_ms"],
+                            "wall_ms": prof_b["wall_ms"],
+                            "idle_share": prof_b["idle_share"],
+                            "draw_share": prof_b["by_kind_ms"].get(
+                                "threefry_int64", 0.0) / prof_b["device_ms"]}
+    row["card_vs_cpu"] = pre_dbn_cut(torch, conf, x, y)
+    with tempfile_dir() as td:
+        rc, out = cli_json(cli_main, [
+            "train", "--zoo", "dbn:hidden=500x500x2000", "--input",
+            f"mnist:{n_train + PRE_DBN['held_out']}", "--scale-01",
+            "--properties", f"batch={bsz}",
+            "--output", os.path.join(td, "dbn")])
+    check(rc == 0 and np.isfinite(out["score"]),
+          f"dbn CLI: rc {rc}, {out}")
+    row["cli"] = {"score": out["score"], "train_seconds": out["train_seconds"],
+                  "capture_seconds": out["compile_seconds"],
+                  "examples_per_sec": out["examples_per_sec"]}
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def pre_gn_dense(torch):
+    """A Gauss-Newton product on the card against dense M'Mv
+    (tests/test_hessian_free.py:36-49's shape), within 1e-4."""
+    from deeplearning4j_tpu_torch.optimize import solver
+
+    gen = torch.Generator().manual_seed(1)
+    M = torch.randn(5, 4, generator=gen).to(PRE_DEVICE)
+    y = torch.randn(5, generator=gen).to(PRE_DEVICE)
+    v = torch.randn(4, generator=gen).to(PRE_DEVICE)
+    obj = solver.from_predict_loss(lambda p, k: M @ p,
+                                   lambda z: 0.5 * torch.sum((z - y) ** 2))
+    gv = obj.gnvp(torch.zeros(4, device=PRE_DEVICE), v, None)
+    err = float((gv - M.T @ (M @ v)).abs().max())
+    check(err <= 1e-4, f"Gauss-Newton product {err} from dense M'Mv")
+    return err
+
+
+def pre_solvers(torch, kernels, card):
+    """`solvers` (module docstring, item 16)."""
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.multilayer import make_finetune_loss
+    from deeplearning4j_tpu_torch.optimize import linesearch, solver
+    from deeplearning4j_tpu_torch.optimize.step_cache import _Graph
+    from deeplearning4j_tpu_torch.optimize.tree import tree_unflatten
+
+    t0 = time.perf_counter()
+    cfg = PRE_SOLVERS
+    x, y = conv_data("mnist", cfg["rows"])
+    xd = torch.from_numpy(x).to(PRE_DEVICE)
+    yd = torch.from_numpy(y).to(PRE_DEVICE)
+    base = zoo.mlp(x.shape[1], list(cfg["hidden"]), y.shape[1])
+    rows = {}
+    for algo in ("gradient_descent", "conjugate_gradient", "lbfgs",
+                 "hessian_free"):
+        hf = algo == "hessian_free"
+        conf = base.replace(confs=tuple(c.replace(
+            optimization_algo=algo, hf_cg_iterations=cfg["hf_cg"],
+            num_iterations=cfg["hf_iterations" if hf else "iterations"])
+            for c in base.confs))
+        net = pre_net(conf)
+        start = pre_leaves(net)
+        twin = pre_net(conf, start, capture=False)
+        scores, ms, books = [], [], []
+        for r in range(cfg["runs"]):
+            # each run from the same params: the graphs read them in place
+            with torch.no_grad():
+                for t, s in zip(pre_leaves_refs(net), start):
+                    t.copy_(s)
+            rec = ScoreRec()
+            net.set_listeners([rec])
+            _, t_ms = pre_timed(torch, lambda: net.finetune(xd, yd))
+            scores.append(rec.scores)
+            ms.append(t_ms)
+            books.append(net.step_cache.stats.solver)
+        twin.finetune(xd, yd)
+        bitwise = pre_bitwise(torch, pre_leaves(net), pre_leaves(twin))
+        check(bitwise, f"{algo}: captured differs from its program "
+              f"uncaptured")
+        check(scores[0][-1] < scores[0][0], f"{algo}: scores did not fall "
+              f"{scores[0]}")
+        row = {"iterations": conf.confs[-1].num_iterations,
+               "run_ms": ms, "ms_per_run": median(ms[1:]),
+               "bitwise_vs_uncaptured": bitwise,
+               "first_score": scores[0][0], "last_score": scores[0][-1],
+               "capture_s": net.step_cache.stats.total_compile_seconds,
+               "graph_pool_bytes": net.step_cache.pool.reserved_bytes}
+        if hf:
+            progs = list(net.step_cache._programs.values())
+            check(len(progs) == 1 and isinstance(progs[0], _Graph)
+                  and net.step_cache.stats.misses == 1,
+                  "hessian_free is not one graph a run")
+            row["graphs_per_run"] = 1
+            row["ms_per_iteration"] = row["ms_per_run"] / row["iterations"]
+        else:
+            # the eager form on the same row-weighted loss, its backtrack's
+            # score calls counted per iteration
+            loss = make_finetune_loss(conf)
+            w = torch.ones(cfg["rows"], device=PRE_DEVICE)
+            objective = solver.from_loss_with_aux(
+                lambda p, k: loss(p, xd, yd, w, k))
+            counts, real = [], linesearch.backtrack
+
+            def counting(score_fn, *a, **kw):
+                n = [0]
+
+                def counted(v):
+                    n[0] += 1
+                    return score_fn(v)
+
+                out = real(counted, *a, **kw)
+                counts.append(n[0])
+                return out
+
+            linesearch.backtrack = counting
+            try:
+                solver._line_searched(objective, tree_unflatten(
+                    net.params, [t.clone() for t in start]),
+                    conf.confs[-1], None)
+            finally:
+                linesearch.backtrack = real
+            probes = books[-1]["probes"]
+            check(probes == counts, f"{algo}: probes {probes} against the "
+                  f"eager backtrack's {counts}")
+            row.update(probes_per_iteration=probes,
+                       graphs=books[0]["graphs_captured"],
+                       replays_per_run=books[-1]["graph_replays"],
+                       host_reads_per_run=books[-1]["host_reads"],
+                       ms_per_iteration=row["ms_per_run"] / max(1,
+                                                                len(probes)))
+        rows[algo] = row
+        del net, twin
+    out = {"phase": "solvers", "gpu": card,
+           "widths": [x.shape[1], *cfg["hidden"], y.shape[1]],
+           "rows": cfg["rows"], "gauss_newton_max_err": pre_gn_dense(torch),
+           "solvers": rows, "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def pre_leaves_refs(net):
+    from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+
+    return tree_leaves(net.params)
+
+
+class ScoreRec:
+    def __init__(self):
+        self.scores = []
+
+    def iteration_done(self, model, iteration, score):
+        self.scores.append(score)
+
+
+def phase_pretraining(torch, kernels):
+    """Slice 18's pretraining and solvers (module docstring, item 16)."""
+    t0 = time.perf_counter()
+    card = gpu_line()
+    ae = pre_deep_ae(torch, kernels, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dbn = pre_dbn(torch, kernels, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sol = pre_solvers(torch, kernels, card)
+    emit({"phase": "pretraining", "gpu": card,
+          "seconds": time.perf_counter() - t0,
+          "parts_seconds": {"pretrain_deep_ae": ae["seconds"],
+                            "pretrain_dbn": dbn["seconds"],
+                            "solvers": sol["seconds"]}})
+
+
 def f32_case(r, library_key):
     """One f32 row's numbers for the kernels line."""
     return {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
@@ -4915,6 +5595,16 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to test", file=sys.stderr)
         return 2
+    if "--only-pretraining" in argv:
+        # slice 18's phase alone (it launches none of the kernels): for
+        # iterating on it; prints no kernels line and no last line
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from deeplearning4j_tpu_torch.nd import kernels
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        phase_pretraining(torch, kernels)
+        return 0
     if "--conv-f32-child" in argv:
         # conv_f32's child: PyTorch's default flags, none of the below
         return conv_f32_child(argv[argv.index("--conv-f32-child") + 1])
@@ -4996,6 +5686,9 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_conv_nets(torch, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_pretraining(torch, kernels)
 
     bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
     replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,

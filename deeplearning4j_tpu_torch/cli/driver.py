@@ -4,14 +4,19 @@ subcommands.
 Counterpart of `deeplearning4j_tpu/cli/driver.py`, on one device (CUDA
 unless `--device cpu`):
 - `train` loads `--input` (a builtin dataset, csv: or text:), builds the
-  net from `--zoo` (mlp, char_lstm, char_transformer) or `--model
-  conf.json`, trains it
+  net from `--zoo` (lenet5, vgg_cifar10, mlp, char_lstm, char_transformer,
+  dbn, deep_autoencoder) or `--model conf.json`, trains it
   `epochs` times over the data (whole, or in `batch`-example batches
   through the prefetcher) with `--properties epochs=N,batch=M`, and saves a
   checkpoint that either package reads. With `--checkpoint-dir` the run is
   one batch stream over every epoch, checkpointed every `checkpoint_every`
   batches (`--properties`, default 10): SIGTERM checkpoints and exits 0
-  with an `interrupted` line, and a rerun with the same flags resumes;
+  with an `interrupted` line, and a rerun with the same flags resumes. A
+  net whose output loss is reconstruction cross-entropy trains and is
+  scored against its inputs; one that is also a pretrained autoencoder
+  stack runs Hinton's recipe (pretrain and unroll once, then `epochs`
+  finetunes). Pretraining recipes refuse `--checkpoint-dir`, as the JAX
+  package's do;
 - `test` evaluates a checkpoint (accuracy, precision, recall, F1) and
   `predict` writes its argmax and class probabilities as CSV;
 - `generate` loads a checkpoint of a generative model (char_lstm,
@@ -35,7 +40,7 @@ The final JSON lines keep the JAX package's keys. `train`'s: `saved`,
 `cache_hits`, `cache_misses` and `infer_compile_seconds`; `disk_cache` is
 null, as a CUDA graph is not kept on disk. Options that are not ported exit
 naming their ROADMAP.md item: `--runtime mesh`, `--mesh` and `--zero1`
-(item 10), `--compile-cache` (item 11) and pretraining recipes (item 9).
+(item 10) and `--compile-cache` (item 11).
 """
 
 from __future__ import annotations
@@ -93,8 +98,9 @@ def _zoo_conf(spec: str, data):
     """--zoo 'name[:k=v,...]' -> MultiLayerConfiguration, sized from the
     loaded data (the vocabulary of the char models, the input and output
     widths of mlp: `mlp:hidden=512x512` is bench.py's 784-512-512-10 on
-    MNIST). `lenet5` takes MNIST's [B, 784] and `vgg_cifar10[:width=]`
-    CIFAR-10's [B, 3072]."""
+    MNIST; of dbn and deep_autoencoder, with the JAX CLI's defaults).
+    `lenet5` takes MNIST's [B, 784] and `vgg_cifar10[:width=]` CIFAR-10's
+    [B, 3072]."""
     from deeplearning4j_tpu_torch.models import zoo
 
     name, _, props = spec.partition(":")
@@ -122,12 +128,23 @@ def _zoo_conf(spec: str, data):
             n_blocks=int(kw.get("blocks", 2)),
             n_heads=int(kw.get("heads", 4)), max_seq_len=seq,
             lr=float(kw.get("lr", 1e-3)), iterations=iters)
-    if name in ("dbn", "deep_autoencoder"):
-        raise SystemExit(f"--zoo {name} is not ported to "
-                         f"deeplearning4j_tpu_torch yet; see ROADMAP.md "
-                         f"queue A item 9")
+    if name == "dbn":
+        hidden = [int(h) for h in kw.get("hidden", "32x16").split("x")]
+        return zoo.dbn(n_in=data.features.shape[-1], hidden=hidden,
+                       n_out=data.labels.shape[-1], lr=lr,
+                       iterations=int(kw.get("iterations",
+                                             kw.get("iters", 30))),
+                       k=int(kw.get("k", 1)),
+                       finetune_iterations=int(kw.get("finetune", 60)))
+    if name == "deep_autoencoder":
+        hidden = [int(h) for h in kw.get("hidden", "64x16").split("x")]
+        return zoo.deep_autoencoder(
+            n_in=data.features.shape[-1], hidden=hidden, lr=lr,
+            iterations=int(kw.get("iterations", kw.get("iters", 20))),
+            finetune_iterations=int(kw.get("finetune", 100)))
     raise SystemExit(f"unknown --zoo model '{name}' (choose lenet5, "
-                     f"vgg_cifar10, mlp, char_lstm or char_transformer)")
+                     f"vgg_cifar10, mlp, char_lstm, char_transformer, dbn "
+                     f"or deep_autoencoder)")
 
 
 def cmd_train(args) -> int:
@@ -150,10 +167,6 @@ def cmd_train(args) -> int:
             conf = MultiLayerConfiguration.from_json(f.read())
     else:
         raise SystemExit("train needs --model <conf.json> or --zoo <name>")
-    if conf.pretrain:
-        raise SystemExit("pretraining recipes (dbn, deep_autoencoder) are "
-                         "not ported to deeplearning4j_tpu_torch yet; see "
-                         "ROADMAP.md queue A item 9")
     if (LayerType(str(conf.confs[0].layer_type)) == LayerType.EMBEDDING
             and data.features.ndim == 3):
         # an embedding takes int ids [B, T]; the text scheme gives one-hot
@@ -169,13 +182,33 @@ def cmd_train(args) -> int:
     epochs = int(props.get("epochs", "1"))
     batch = int(props.get("batch", "0"))
     # a reconstruction head is trained and scored against its inputs
+    # (detected from the output loss, not the --zoo name, so that a --model
+    # conf gets it too); with a pretrained AE stack it is Hinton's recipe
     out_lf = conf.conf(conf.n_layers - 1).loss_function
     reconstruction = (LossFunction(str(out_lf))
                       == LossFunction.RECONSTRUCTION_CROSSENTROPY)
+    deep_ae = reconstruction and conf.pretrain and any(
+        LayerType(str(c.layer_type)) == LayerType.AUTOENCODER
+        for c in conf.confs)
+    if args.checkpoint_dir and conf.pretrain:
+        raise SystemExit(
+            "--checkpoint-dir does not support pretraining recipes "
+            "(dbn/deep_autoencoder): their multi-phase schedule is not "
+            "batch-cursor resumable")
     targets = data.features if reconstruction else data.labels
     net = MultiLayerNetwork(conf, device=args.device).init()
     t_train = time.perf_counter()
-    if args.checkpoint_dir:
+    if deep_ae:
+        if epochs > 0:
+            # pretrain and unroll once (again would overwrite the finetuned
+            # decoder with the encoder's transpose); the finetune repeats
+            from deeplearning4j_tpu_torch.models.zoo import \
+                fit_deep_autoencoder
+
+            fit_deep_autoencoder(net, data.features)
+            for _ in range(epochs - 1):
+                net.finetune(data.features, data.features)
+    elif args.checkpoint_dir:
         # one batch stream over every epoch, so that the checkpoint's one
         # cursor addresses the whole run and a rerun replays the stream up
         # to it, then resumes

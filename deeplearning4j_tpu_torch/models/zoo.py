@@ -1,13 +1,16 @@
 """Canonical model configurations.
 
-Counterpart of `deeplearning4j_tpu/models/zoo.py`; ported so far: the
-flagship `char_transformer`, `char_lstm` (BASELINE configs[1]), `lenet5`
-(configs[0]), `vgg_cifar10` (configs[2]) and `mlp`. Each
-configuration is the JAX package's, field for field, so both packages
-build the same network from it.
+Counterpart of `deeplearning4j_tpu/models/zoo.py`: the flagship
+`char_transformer`, `char_lstm` (BASELINE configs[1]), `lenet5`
+(configs[0]), `vgg_cifar10` (configs[2]), `mlp`, and the pretraining
+recipes `dbn` and `deep_autoencoder` (with `unroll_autoencoder_stack` and
+`fit_deep_autoencoder`). Each configuration is the JAX package's, field
+for field, so both packages build the same network from it.
 """
 
 from __future__ import annotations
+
+import torch
 
 from deeplearning4j_tpu_torch.nd.losses import LossFunction
 from deeplearning4j_tpu_torch.nd.ops import Activation
@@ -103,6 +106,96 @@ def mlp(n_in: int, hidden, n_out: int, lr: float = 0.1,
             activation=Activation.SOFTMAX if last else Activation.RELU,
             loss_function=LossFunction.MCXENT))
     return MultiLayerConfiguration(confs=tuple(confs), backprop=True)
+
+
+def dbn(n_in: int, hidden, n_out: int, lr: float = 0.05,
+        iterations: int = 30, k: int = 1,
+        finetune_iterations: int = 60) -> MultiLayerConfiguration:
+    """Deep belief net (Hinton, Osindero & Teh 2006): a stack of sigmoid
+    RBMs greedily pretrained with CD-k by stepped descent, then a softmax
+    output finetuned with conjugate gradient at twice the lr. Features
+    should lie in [0, 1] for the binary visible units."""
+    b = _base(lr=lr, iters=iterations).replace(
+        layer_type=LayerType.RBM, activation=Activation.SIGMOID, k=k)
+    dims = [n_in] + list(hidden)
+    confs = [b.replace(n_in=dims[i], n_out=dims[i + 1])
+             for i in range(len(dims) - 1)]
+    confs.append(b.replace(
+        layer_type=LayerType.OUTPUT, n_in=dims[-1], n_out=n_out,
+        activation=Activation.SOFTMAX, loss_function=LossFunction.MCXENT,
+        lr=2 * lr, num_iterations=finetune_iterations,
+        optimization_algo=OptimizationAlgorithm.CONJUGATE_GRADIENT))
+    return MultiLayerConfiguration(confs=tuple(confs), pretrain=True,
+                                   backprop=True)
+
+
+def deep_autoencoder(n_in: int = 784, hidden=(400, 200, 100, 50, 25, 6),
+                     lr: float = 0.05, iterations: int = 30,
+                     finetune_iterations: int = 60,
+                     corruption: float = 0.3) -> MultiLayerConfiguration:
+    """Deep autoencoder (Hinton & Salakhutdinov 2006; the default widths
+    are their Curves net): a denoising-AE encoder stack pretrained layer by
+    layer, a mirrored sigmoid decoder, and a reconstruction cross-entropy
+    output finetuned by conjugate gradient against the inputs (fit(x, x)).
+    `fit_deep_autoencoder` runs pretrain -> unroll -> finetune."""
+    if not hidden:
+        raise ValueError("deep_autoencoder needs at least one hidden size")
+    b = _base(lr=lr, iters=iterations).replace(
+        activation=Activation.SIGMOID)
+    dims = [n_in] + list(hidden)
+    confs = [b.replace(layer_type=LayerType.AUTOENCODER, n_in=dims[i],
+                       n_out=dims[i + 1], corruption_level=corruption)
+             for i in range(len(dims) - 1)]
+    # the mirrored decoder: plain sigmoid dense layers back up the stack
+    rev = list(reversed(dims))
+    confs += [b.replace(layer_type=LayerType.DENSE, n_in=rev[i],
+                        n_out=rev[i + 1])
+              for i in range(len(rev) - 2)]
+    confs.append(b.replace(
+        layer_type=LayerType.OUTPUT, n_in=rev[-2], n_out=n_in,
+        activation=Activation.SIGMOID,
+        loss_function=LossFunction.RECONSTRUCTION_CROSSENTROPY,
+        num_iterations=finetune_iterations,
+        optimization_algo=OptimizationAlgorithm.CONJUGATE_GRADIENT))
+    return MultiLayerConfiguration(confs=tuple(confs), pretrain=True,
+                                   backprop=True)
+
+
+def unroll_autoencoder_stack(conf: MultiLayerConfiguration, params):
+    """Hinton's unrolling for a `deep_autoencoder` net: decoder layer p
+    mirrors encoder layer L-1-p, so its W becomes the pretrained encoder's
+    W transposed and its b the encoder's visible bias vb. Returns a new
+    params tree whose decoder leaves are new tensors (contiguous copies),
+    the encoder's the same tensors."""
+    n_enc = sum(1 for c in conf.confs
+                if LayerType(str(c.layer_type)) == LayerType.AUTOENCODER)
+    params = list(params)
+    for p in range(n_enc):  # decoder positions, the output layer included
+        enc = params[n_enc - 1 - p]
+        dec = dict(params[n_enc + p])
+        dec["W"] = enc["W"].T.contiguous()
+        dec["b"] = enc["vb"].clone()
+        params[n_enc + p] = dec
+    return tuple(params)
+
+
+def fit_deep_autoencoder(net, x):
+    """pretrain (the greedy AE stack) -> unroll the decoder ->
+    reconstruction finetune, for a net of a `deep_autoencoder` conf. The
+    unroll is copied into the net's param tensors in place, so the
+    network's captured programs keep reading them."""
+    x = net._input(x)
+    if net.params is None:
+        net.init()
+    net.pretrain(x)
+    unrolled = unroll_autoencoder_stack(net.conf, net.params)
+    with torch.no_grad():
+        for old, new in zip(net.params, unrolled):
+            for name, t in old.items():
+                if new[name] is not t:
+                    t.copy_(new[name])
+    net.finetune(x, x)
+    return net
 
 
 def char_transformer(vocab: int, d_model: int = 128, n_blocks: int = 2,

@@ -22,13 +22,19 @@ defaults of JAX 0.9: the `threefry2x32` implementation with
   top 23 bits of each draw;
 - `gumbel`, `categorical`: `-log(-log(u))` with u uniform on [tiny, 1), and
   the argmax of gumbel + logits;
+- `fold_in(key, data)`: `jax.random.fold_in`, `threefry2x32(key, (0,
+  data))` (the RBM's Gibbs chain folds in the step number);
 - `bernoulli`, `dropout_mask`, `binomial`, `normal` and `KeyStream`, the
-  JAX package's `nd/random.py` (dropout's masks, sampling preprocessors and
-  host-side key streams): `bernoulli(key, p, shape)` is
-  `uniform(key, prod(shape)).reshape(shape) < p`, JAX's "low" mode.
-  Dropout calls `dropout_mask`; `binomial`, `normal` and `KeyStream` have
-  no caller in the port yet and exist for parity with the JAX package's
-  API (`binomial` for the pretraining layers, ROADMAP.md item 9b);
+  JAX package's `nd/random.py` (dropout's masks, the denoising
+  autoencoder's corruption, the RBM's unit samples and host-side key
+  streams): `bernoulli(key, p, shape)` is `uniform(key,
+  prod(shape)).reshape(shape) < p`, JAX's "low" mode; with a tensor p (the
+  RBM's sigmoid means) the shape is p's and the uniforms are compared with
+  p element by element;
+- `categorical_joint(key, logits)`: `jax.random.categorical(key, logits)`
+  with ONE key for the whole [..., V] array (one Gumbel field of that
+  shape), as the RBM's softmax units draw; `categorical` takes one key a
+  row;
 - `split_host`: `split` of one key held as two Python ints, for host-side
   streams (`MultiLayerNetwork`'s key), with no tensor op at all.
 
@@ -136,6 +142,23 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(g + logits, dim=-1)
 
 
+def categorical_joint(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """`jax.random.categorical(key, logits, axis=-1)` for one key [2] and
+    logits of any shape [..., V]: one Gumbel draw of logits' whole shape
+    (counts in row-major order), added to the logits, argmax over the last
+    axis. Returns int64 [...]."""
+    g = gumbel(key, logits.numel()).reshape(logits.shape)
+    return torch.argmax(g + logits, dim=-1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)` for keys [..., 2] and a 32-bit int:
+    the hash of the counts (0, data) under the key, as `split`'s key
+    `data` is."""
+    y1, y2 = threefry2x32(key[..., 0], key[..., 1], 0, int(data) & _MASK)
+    return torch.stack([y1, y2], dim=-1)
+
+
 def sample_tokens(logp: torch.Tensor, keys: torch.Tensor,
                   temps: torch.Tensor):
     """One token a row with the JAX package's key discipline
@@ -182,10 +205,13 @@ def _numel(shape) -> int:
     return int(np.prod(tuple(shape), dtype=np.int64))
 
 
-def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+def bernoulli(key: torch.Tensor, p, shape=None) -> torch.Tensor:
     """`jax.random.bernoulli(key, p, shape)` for one key [2]: a bool tensor
     of `shape`, each entry uniform < p with p rounded to float32, as JAX
-    compares them."""
+    compares them. With p a float32 tensor (shape None) the draw has p's
+    shape and each uniform is compared with its own p."""
+    if isinstance(p, torch.Tensor):
+        return uniform(key, p.numel()).reshape(p.shape) < p
     u = uniform(key, _numel(shape))
     return (u < float(np.float32(p))).reshape(tuple(shape))
 

@@ -2,14 +2,15 @@
 
 Counterpart of `deeplearning4j_tpu/nn/layers/__init__.py`.
 `register_layer(layer_type, impl)` installs (or replaces) a type's
-implementation, as in the JAX package; `get_layer` finds a registered type
-first, and a layer type that is neither registered nor ported raises
-`NotImplementedError` naming the ROADMAP.md item that ports it.
+implementation, as in the JAX package. Every `LayerType` is ported: the
+recursive autoencoder's type runs the flat denoising autoencoder, as in
+the JAX package. Pretrainable layers (RBM, the autoencoders) also have
+`pretrain_grad_and_score(params, conf, x, key)` and `pretrain_score`.
 """
 
 from deeplearning4j_tpu_torch.nn.conf import LayerType
-from deeplearning4j_tpu_torch.nn.layers import (attention, base, conv, lstm,
-                                                output)
+from deeplearning4j_tpu_torch.nn.layers import (attention, autoencoder, base,
+                                                conv, lstm, output, rbm)
 
 _REGISTRY = {
     LayerType.DENSE: base.DenseLayer,
@@ -22,23 +23,16 @@ _REGISTRY = {
     LayerType.BATCH_NORM: base.BatchNormLayer,
     LayerType.CONVOLUTION: conv.ConvolutionLayer,
     LayerType.SUBSAMPLING: conv.SubsamplingLayer,
-}
-
-#: where each layer type not ported yet stands in ROADMAP.md
-_PLANNED = {
-    LayerType.RBM: "queue A item 9",
-    LayerType.AUTOENCODER: "queue A item 9",
-    LayerType.RECURSIVE_AUTOENCODER: "queue A item 9",
+    LayerType.AUTOENCODER: autoencoder.AutoEncoder,
+    # a recursive AE over trees is future scope in the JAX package too;
+    # the flat denoising AE gives its type the pretraining contract
+    LayerType.RECURSIVE_AUTOENCODER: autoencoder.AutoEncoder,
+    LayerType.RBM: rbm.RBM,
 }
 
 
 def get_layer(layer_type):
-    lt = LayerType(str(layer_type).lower())
-    if lt in _REGISTRY:
-        return _REGISTRY[lt]
-    raise NotImplementedError(
-        f"layer type '{lt}' is not ported to deeplearning4j_tpu_torch yet; "
-        f"see ROADMAP.md {_PLANNED[lt]}")
+    return _REGISTRY[LayerType(str(layer_type).lower())]
 
 
 def register_layer(layer_type, impl) -> None:

@@ -38,7 +38,14 @@ the inference graphs read the new EMA; the eager path advances it after
 the step with one more forward (`update_bn_ema`), as JAX's uncached path
 does.
 
-Not ported yet: layer-wise pretraining (ROADMAP.md queue A item 9b).
+Pretraining: with `conf.pretrain`, each `fit` batch first trains every
+pretrainable hidden layer (RBM, autoencoder) in order on its own input
+(the batch fed forward through the layers below it and its preprocessor)
+with that layer's solver (`pretrain_layer`: through `step_cache.pretrain`,
+the layer's params written in place), then finetunes. Each pretrainable
+layer takes the stream's next key whether or not it draws, so the stream
+advances as JAX's does; only a layer that draws (an RBM, an autoencoder
+with corruption) gets it on the device.
 """
 
 from __future__ import annotations
@@ -54,8 +61,10 @@ import torch
 
 from deeplearning4j_tpu_torch.nd import random as nd_random
 from deeplearning4j_tpu_torch.nd.platform import resolve_device
+from deeplearning4j_tpu_torch.nd.losses import get_loss
 from deeplearning4j_tpu_torch.nn.conf import (LayerType,
-                                              MultiLayerConfiguration)
+                                              MultiLayerConfiguration,
+                                              OptimizationAlgorithm)
 from deeplearning4j_tpu_torch.nn.layers import get_layer
 from deeplearning4j_tpu_torch.nn.layers.base import BatchNormLayer
 from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
@@ -71,6 +80,10 @@ from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
 from deeplearning4j_tpu_torch.reliability import TrainingInterrupted
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
+
+#: the layer types that layer-wise pretraining trains
+_PRETRAINABLE = {LayerType.RBM, LayerType.AUTOENCODER,
+                 LayerType.RECURSIVE_AUTOENCODER}
 
 
 def init_params(conf: MultiLayerConfiguration,
@@ -577,6 +590,63 @@ class MultiLayerNetwork:
         return evaluate(self, data, batch_size=batch_size, prefetch=prefetch)
 
     # -- training ------------------------------------------------------------
+    def _finetune_objective(self, x, labels):
+        """The eager finetune's objective: `network_loss` by autograd; for
+        Hessian-free also the Gauss-Newton product of the network's output
+        and the output layer's loss (JAX's R-operator replacement)."""
+        conf = self.conf
+        objective = solver_mod.from_loss(
+            lambda p, k: network_loss(conf, p, x, labels, k, training=True),
+            with_key=True)
+        out_conf = conf.conf(conf.n_layers - 1)
+        if (OptimizationAlgorithm(str(out_conf.optimization_algo))
+                == OptimizationAlgorithm.HESSIAN_FREE):
+            solver_mod.check_jvp(conf, x.is_cuda)
+            loss_fn = get_loss(out_conf.loss_function)
+            objective = objective._replace(
+                gnvp=solver_mod.from_predict_loss(
+                    lambda p, k: network_output(conf, p, x),
+                    lambda z: loss_fn(labels, z)).gnvp)
+        return objective
+
+    def pretrain_layer(self, i: int, x) -> None:
+        """Train layer i's unsupervised objective on its own input x with
+        the layer's solver, on the stream's next key: through
+        `step_cache.pretrain` (params written in place) or eagerly."""
+        c = self.conf.conf(i)
+        impl = get_layer(c.layer_type)
+        x = self._input(x)
+        key = self._next_key()
+        key = (torch.tensor(key, dtype=torch.int64, device=self.device)
+               if impl.uses_key(c) else None)
+        if self.use_step_cache:
+            scores = self.step_cache.pretrain(c, i, impl, self.params[i], x,
+                                              key)
+        else:
+            new, scores = solver_mod.optimize(
+                step_cache_mod.pretrain_objective(c, impl, x),
+                self.params[i], c, key)
+            params = list(self.params)
+            params[i] = new
+            self.params = tuple(params)
+        dispatch_listeners(self.listeners, self, scores)
+
+    def pretrain(self, data) -> None:
+        """Layer-wise pretraining of every pretrainable hidden layer, batch
+        by batch: layer i trains on the batch fed forward through layers
+        below it (inference mode), then its preprocessor."""
+        for batch in _as_batches(data):
+            x = self._input(batch[0] if isinstance(batch, tuple) else batch)
+            for i in range(self.conf.n_layers - 1):
+                c = self.conf.conf(i)
+                if LayerType(str(c.layer_type)) not in _PRETRAINABLE:
+                    continue
+                with torch.no_grad():
+                    acts = feed_forward(self.conf, self.params, x, up_to=i)
+                    layer_in = apply_preprocessor(self.conf.preprocessor(i),
+                                                  acts[-1] if acts else x)
+                self.pretrain_layer(i, layer_in)
+
     def finetune(self, x, labels) -> None:
         """Supervised end-to-end optimization of the loss on one batch with
         the output layer's solver, on the stream's next key: through
@@ -596,21 +666,16 @@ class MultiLayerNetwork:
                                               key)
             self._bn_in_step = has_batchnorm(conf)
         else:
-            objective = solver_mod.from_loss(
-                lambda p, k: network_loss(conf, p, x, labels, k,
-                                          training=True), with_key=True)
             self.params, scores = solver_mod.optimize(
-                objective, self.params, conf.conf(conf.n_layers - 1), key)
+                self._finetune_objective(x, labels), self.params,
+                conf.conf(conf.n_layers - 1), key)
             self._bn_in_step = False
         dispatch_listeners(self.listeners, self, scores)
 
     def _fit_batch(self, x, y) -> None:
-        if self.conf.pretrain:
-            raise NotImplementedError(
-                "layer-wise pretraining is not ported to "
-                "deeplearning4j_tpu_torch yet; see ROADMAP.md queue A item "
-                "9b")
         self._bn_in_step = False
+        if self.conf.pretrain:
+            self.pretrain(self._input(x))
         if self.conf.backprop:
             self.finetune(x, y)
         if has_batchnorm(self.conf) and not self._bn_in_step:
@@ -624,7 +689,8 @@ class MultiLayerNetwork:
             checkpoint_every_n_batches: int = 0,
             auto_resume: bool = True) -> None:
         """Train on a DataSet, an (x, y) pair, or an iterator or list of
-        them; each batch is one `finetune`.
+        them; each batch is layer-wise pretraining (a `pretrain` conf),
+        then one `finetune` (a `backprop` conf).
 
         With `checkpoint_dir` the run is crash-safe, as in the JAX package:
         params, the generator state and the batch cursor are checkpointed

@@ -36,9 +36,25 @@ reuses it for every batch; here the program is a `torch.cuda.CUDAGraph`:
                 (`nd/kernels.LAUNCHES`); the warm-up and capture launches
                 are taken back and each replay adds what its capture
                 launched.
+  segments      a line-searched solver (GD, CG, LBFGS) cannot be one graph:
+                its search is a data-dependent loop. Its program is a
+                `solver.LineSearchRun` whose segments (init; gradient,
+                direction and first probe; halve and probe; step; and the
+                write of the result into the params) are captured as one
+                graph each over state tensors that stay in place, and the
+                host replays them, reading one small tensor per probe.
+                `stats.solver` counts the graphs captured and replayed, the
+                probes and the reads of the last run.
+  pretraining   `pretrain` runs a layer's solver on its own input, one
+                program per (layer index, layer conf, algorithm, input
+                shape), unbucketed, as in the JAX package; the layer's
+                params are written in place. RBMs and corrupting
+                autoencoders take their key as a static input.
   CPU           (which a caller must ask for) the same program function
                 runs eagerly on every call, with the same keys, buckets,
-                padding and books, so the CPU tests reach all of it.
+                padding and books, so the CPU tests reach all of it. So
+                does a cache whose `capture` is False, on any device: the
+                captured programs run uncaptured.
 
 `StepCacheStats.as_dict` keeps the JAX package's keys: `compile_seconds`
 holds capture seconds (warm-up included), and the disk counters stay 0, as
@@ -54,10 +70,11 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nd import kernels
-from deeplearning4j_tpu_torch.nn.conf import LayerType
+from deeplearning4j_tpu_torch.nn.conf import LayerType, OptimizationAlgorithm
 from deeplearning4j_tpu_torch.nn.layers.base import check_ids, ids_checked
 from deeplearning4j_tpu_torch.optimize import solver as solver_mod
 from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
@@ -106,13 +123,17 @@ def check_input(conf, x) -> None:
 
 class StepCacheStats:
     """Hits, misses, steps and capture seconds per key; `as_dict` has the
-    JAX package's keys (the disk and fetch counters stay 0)."""
+    JAX package's keys (the disk and fetch counters stay 0). `solver`
+    holds the books of the last run if it was a segmented solver run (else
+    None): graphs captured for it (0 on a hit), graph replays, probes per
+    iteration and host reads."""
 
     def __init__(self):
         self.hits = 0
         self.misses = 0
         self.steps = 0
         self.compile_seconds: Dict[Tuple, float] = {}  # key -> seconds
+        self.solver: Optional[dict] = None
 
     @property
     def total_compile_seconds(self) -> float:
@@ -168,12 +189,44 @@ class _Eager:
     def stale(self, params) -> bool:
         return False
 
-    def run(self, params, inputs, read):
+    def run(self, params, inputs, read, stats):
+        stats.solver = None  # the books of segmented runs only
         with ids_checked():
             out = self.fn(params, *inputs)
             if self.write is not None:
                 out = self.write(params, out)
         return read(out)
+
+
+class _EagerSegments:
+    """A segmented program run uncaptured: a new run over the call's own
+    params and inputs, its segments called directly."""
+
+    def __init__(self, make: Callable):
+        self.make = make
+
+    def stale(self, params) -> bool:
+        return False
+
+    def run(self, params, inputs, read, stats):
+        with ids_checked():
+            run = self.make(params, inputs)
+            scores = run.drive(lambda name: run.segments[name]())
+            run.segments["write"]()
+        stats.solver = _solver_books(run, 0, replayed=False)
+        return scores
+
+
+def _solver_books(run, captured: int, replayed: bool) -> dict:
+    """The books of a segmented run: graphs captured for it, graph replays
+    (init, a probe each, a step an iteration, the write), iterations,
+    probes per iteration and host reads."""
+    probes = run.books["probes"]
+    return {"graphs_captured": captured,
+            "graph_replays": (2 + len(probes) + sum(probes)) if replayed
+            else 0,
+            "iterations_run": len(probes), "probes": list(probes),
+            "host_reads": run.books["reads"]}
 
 
 class _Graph:
@@ -226,7 +279,8 @@ class _Graph:
     def stale(self, params) -> bool:
         return _data_ptrs(params) != self.ptrs
 
-    def run(self, params, inputs, read):
+    def run(self, params, inputs, read, stats):
+        stats.solver = None  # the books of segmented runs only
         with self.pool.lock:
             for static, a in zip(self.inputs, inputs):
                 static.copy_(a)
@@ -235,14 +289,100 @@ class _Graph:
             return read(self.outputs)
 
 
+class _GraphSegments:
+    """A segmented program captured: one run over static inputs and the
+    network's params (by address), each segment one graph, replayed in the
+    order the run's host loop asks for them."""
+
+    #: segments warmed up (in this order) before the captures; "write"
+    #: changes the params, and is made of copies that need no warm-up
+    WARM = ("init", "start", "halve", "finish")
+
+    def __init__(self, pool: GraphPool, make: Callable, params, inputs):
+        device = inputs[0].device
+        self.pool = pool
+        self.ptrs = _data_ptrs(params)
+        with torch.inference_mode(False):
+            self.inputs = tuple(a.clone() for a in inputs)
+        with pool.lock:
+            # the run's state is allocated on the caller's stream, outside
+            # any capture, so that its addresses stay put
+            self.solve = make(params, self.inputs)
+            start = dict(kernels.LAUNCHES)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with ids_checked(), torch.cuda.stream(side):
+                for _ in range(WARMUP_CALLS):
+                    for name in self.WARM:
+                        self.solve.segments[name]()
+            torch.cuda.current_stream(device).wait_stream(side)
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(device)
+            self.graphs, self.outputs, self.launches = {}, {}, {}
+            try:
+                for name, fn in self.solve.segments.items():
+                    before = dict(kernels.LAUNCHES)
+                    graph = torch.cuda.CUDAGraph()
+                    with ids_checked(), torch.cuda.graph(
+                            graph, pool=pool.handle(), stream=side):
+                        self.outputs[name] = fn()
+                    after = dict(kernels.LAUNCHES)
+                    self.graphs[name] = graph
+                    self.launches[name] = {k: after[k] - before[k]
+                                           for k in after}
+            except Exception as e:
+                pool.renew()
+                raise GraphCaptureError(
+                    f"CUDA-graph capture failed: {e!r}") from e
+            finally:
+                after = dict(kernels.LAUNCHES)
+                kernels.count_launches({k: start[k] - after[k]
+                                        for k in after})
+            pool.reserved_bytes += (torch.cuda.memory_reserved(device)
+                                    - reserved)
+        self.fresh = True
+
+    def stale(self, params) -> bool:
+        return _data_ptrs(params) != self.ptrs
+
+    def _replay(self, name):
+        self.graphs[name].replay()
+        kernels.count_launches(self.launches[name])
+        return self.outputs[name]
+
+    def run(self, params, inputs, read, stats):
+        with self.pool.lock:
+            for static, a in zip(self.inputs, inputs):
+                static.copy_(a)
+            scores = self.solve.drive(self._replay)
+            self._replay("write")
+        stats.solver = _solver_books(
+            self.solve, len(self.graphs) if self.fresh else 0, replayed=True)
+        self.fresh = False
+        return scores
+
+
+class Segmented:
+    """What a segmented program's `build` returns: `make(params, inputs)`
+    gives a run with `segments` (name -> function of no arguments; "write"
+    puts the result into params in place), `drive(call)` (the host loop,
+    returning what the program returns) and `books`."""
+
+    def __init__(self, make: Callable):
+        self.make = make
+
+
 class CompiledProgramCache:
     """Keyed captured programs, grow-on-demand row buckets and the books:
     the machinery `TrainStepCache` and the serve-path `InferCache` share.
     pool: the `GraphPool` the graphs are captured into (a network gives
-    both of its caches one)."""
+    both of its caches one). `capture` False runs every program
+    uncaptured, on any device."""
 
     #: label used in miss logs so train and infer captures are told apart
     kind = "program-cache"
+    capture = True
 
     def __init__(self, pool: Optional[GraphPool] = None):
         self._programs: Dict[Tuple, object] = {}
@@ -302,10 +442,16 @@ class CompiledProgramCache:
                 faults.fire("compile", kind=self.kind, key=repr(key))
                 self.stats.misses += 1
                 t0 = time.perf_counter()
-                if inputs[0].is_cuda:
-                    prog = _Graph(self.pool, build(), write, params, inputs)
+                fn = build()
+                graph = inputs[0].is_cuda and self.capture
+                if isinstance(fn, Segmented):
+                    prog = (_GraphSegments(self.pool, fn.make, params,
+                                           inputs)
+                            if graph else _EagerSegments(fn.make))
+                elif graph:
+                    prog = _Graph(self.pool, fn, write, params, inputs)
                 else:
-                    prog = _Eager(build(), write)
+                    prog = _Eager(fn, write)
                 dt = time.perf_counter() - t0
                 self.stats.compile_seconds[key] = (
                     self.stats.compile_seconds.get(key, 0.0) + dt)
@@ -317,7 +463,7 @@ class CompiledProgramCache:
             if compile_only:
                 return None
             self.stats.steps += 1
-        return prog.run(params, inputs, read)
+        return prog.run(params, inputs, read, self.stats)
 
     def drop_graphs(self) -> None:
         """Forget every captured graph (its memory returns to the pool): the
@@ -325,7 +471,8 @@ class CompiledProgramCache:
         stay; the next call of each key captures anew (a miss)."""
         with self._lock:
             self._programs = {k: p for k, p in self._programs.items()
-                              if not isinstance(p, _Graph)}
+                              if not isinstance(p, (_Graph,
+                                                    _GraphSegments))}
 
     def __len__(self):
         return len(self._programs)
@@ -359,8 +506,9 @@ def _write_params(params, out):
 
 
 class TrainStepCache(CompiledProgramCache):
-    """The training entry point over `CompiledProgramCache`: one captured
-    solver run per (conf, algorithm, bucket)."""
+    """The training entry points over `CompiledProgramCache`: one captured
+    solver run per (conf, algorithm, bucket), and per (layer, layer conf,
+    algorithm, input shape) for pretraining."""
 
     kind = "step-cache"
 
@@ -371,12 +519,12 @@ class TrainStepCache(CompiledProgramCache):
         program for (conf, algo, shapes) and runs it on `key` (an int64
         [2] tensor on x's device, or None where nothing is drawn). The
         params tree, the BatchNorm EMA included, is updated in place;
-        returns the per-iteration scores as a numpy float32 array (one
-        read-back after the replay). With `compile_only` (warm-up) the
-        program is captured without a step: params are untouched and None
-        is returned."""
+        returns the per-iteration scores as a numpy float32 array. With
+        `compile_only` (warm-up) the program is captured without a step:
+        params are untouched and None is returned."""
         out_conf = conf.conf(conf.n_layers - 1)
-        solver_mod.check_algorithm(out_conf)
+        if _is_hf(out_conf):
+            solver_mod.check_jvp(conf, x.is_cuda)
         check_input(conf, x)
         bucket = self.bucket_rows(int(x.shape[0]))
         xp, yp, w = self.pad_batch(x, y, bucket)
@@ -385,16 +533,85 @@ class TrainStepCache(CompiledProgramCache):
                      str(out_conf.optimization_algo),
                      arg_signature(*inputs))
         return self._run(cache_key, lambda: _finetune_program(conf), params,
-                         inputs, read=lambda s: s.cpu().numpy(),
-                         write=_write_params, compile_only=compile_only)
+                         inputs, read=_read_scores, write=_write_params,
+                         compile_only=compile_only)
+
+    def pretrain(self, layer_conf, layer_idx: int, impl, layer_params, x,
+                 key=None):
+        """One cached layer-wise pretraining solver run
+        (`MultiLayerNetwork.pretrain_layer`): the layer's solver on its
+        unsupervised objective over `x`, the layer's params (a dict)
+        updated in place; returns the per-iteration scores (numpy
+        float32). Pretraining objectives take no row weights, so batches
+        are not bucketed: each input shape has its own program, keyed by
+        the layer index as in the JAX package."""
+        inputs = (x,) if key is None else (x, key)
+        cache_key = ("pretrain", layer_idx, self._fingerprint(layer_conf),
+                     str(layer_conf.optimization_algo), arg_signature(x))
+        return self._run(cache_key,
+                         lambda: _pretrain_program(layer_conf, impl),
+                         layer_params, inputs, read=_read_scores,
+                         write=_write_params)
+
+
+def _read_scores(s) -> np.ndarray:
+    """Scores as the host sees them: a segmented run's are numpy already."""
+    return s if isinstance(s, np.ndarray) else s.cpu().numpy()
+
+
+def _is_hf(conf) -> bool:
+    return (OptimizationAlgorithm(str(conf.optimization_algo))
+            == OptimizationAlgorithm.HESSIAN_FREE)
+
+
+def _line_searched(conf) -> bool:
+    return OptimizationAlgorithm(str(conf.optimization_algo)) in (
+        OptimizationAlgorithm.GRADIENT_DESCENT,
+        OptimizationAlgorithm.CONJUGATE_GRADIENT,
+        OptimizationAlgorithm.LBFGS)
+
+
+def _solver_program(solver_conf, objective_of: Callable,
+                    finalize: Callable) -> Callable:
+    """The program of one solver run: `objective_of(*inputs) -> (Objective,
+    key)`, the configured solver, then `finalize(new params, aux) -> new
+    params` (the BatchNorm EMA). Stepped descent and Hessian-free are one
+    function (one graph); a line-searched solver is `Segmented`, whose
+    "write" segment puts the result into params in place."""
+    if _line_searched(solver_conf):
+        def make(params, inputs):
+            objective, key = objective_of(*inputs)
+            run = solver_mod.LineSearchRun(objective, solver_conf,
+                                           solver_conf.optimization_algo)
+            run.setup(params, key)
+
+            def write():
+                _write_params(params, (finalize(run.unravel(run.flat),
+                                                run.aux), None))
+
+            run.segments["write"] = write
+            return run
+
+        return Segmented(make)
+    solve = (solver_mod._hessian_free if _is_hf(solver_conf)
+             else solver_mod.sgd_device)
+
+    def program(params, *inputs):
+        objective, key = objective_of(*inputs)
+        new, scores, aux = solve(objective, params, solver_conf, key)
+        return finalize(new, aux), scores
+
+    return program
 
 
 def _finetune_program(conf) -> Callable:
     """The (uncaptured) finetune step over explicit batch args: the
-    configured solver's graph-safe form over the row-weighted loss, then,
-    for a conf with BatchNorm, the EMA advanced from the moments of the
-    last live iteration's forward (`update_bn_ema_from_stats`), as the
-    JAX package folds it into its program.
+    configured solver over the row-weighted loss, then, for a conf with
+    BatchNorm, the EMA advanced from the moments of the last live
+    iteration's forward (`update_bn_ema_from_stats`), as the JAX package
+    folds it into its program. Hessian-free's Gauss-Newton product threads
+    the row weights through the loss of the outputs
+    (`solver.weighted_predict_loss`), so pad rows carry zero curvature.
 
     The updater's host constants of the iteration (Adam's bias corrections,
     scheduled momentum, the AdaGrad reset: `optimize/updater.py`) are baked
@@ -404,20 +621,50 @@ def _finetune_program(conf) -> Callable:
     `num_iterations` iterations; a persistent updater (ROADMAP.md queue A
     item 10) would have to feed them in as tensors."""
     # local import: nn.multilayer imports this module at top level
+    from deeplearning4j_tpu_torch.nd.losses import get_rowwise
     from deeplearning4j_tpu_torch.nn.multilayer import (
-        has_batchnorm, make_finetune_loss, update_bn_ema_from_stats)
+        has_batchnorm, make_finetune_loss, network_output,
+        update_bn_ema_from_stats)
 
     out_conf = conf.conf(conf.n_layers - 1)
     collect_bn = has_batchnorm(conf)
     loss_fn = make_finetune_loss(conf, collect_bn=collect_bn)
+    hf = _is_hf(out_conf)
 
-    def program(params, x, y, w, key=None):
+    def objective_of(x, y, w, key=None):
         objective = solver_mod.from_loss_with_aux(
             lambda p, k: loss_fn(p, x, y, w, k))
-        new, scores, aux = solver_mod.sgd_device(objective, params,
-                                                 out_conf, key)
-        if collect_bn:
-            new = update_bn_ema_from_stats(conf, new, aux)
-        return new, scores
+        if hf:
+            objective = objective._replace(
+                gnvp=solver_mod.weighted_predict_loss(
+                    lambda p, k: network_output(conf, p, x),
+                    get_rowwise(out_conf.loss_function), y, w).gnvp)
+        return objective, key
 
-    return program
+    def finalize(new, aux):
+        return update_bn_ema_from_stats(conf, new, aux) if collect_bn else new
+
+    return _solver_program(out_conf, objective_of, finalize)
+
+
+def pretrain_objective(layer_conf, impl, x) -> "solver_mod.Objective":
+    """A pretrainable layer's objective on its input x: its own gradient
+    (CD-k for an RBM, autograd for an autoencoder) and score, and its loss
+    where it has one (the autoencoder's, for Hessian-free)."""
+    loss = getattr(impl, "pretrain_loss", None)
+    return solver_mod.Objective(
+        grad_and_score=lambda p, k=None: impl.pretrain_grad_and_score(
+            p, layer_conf, x, k),
+        score=lambda p, k=None: impl.pretrain_score(p, layer_conf, x, k),
+        loss=(None if loss is None
+              else lambda p, k=None: loss(p, layer_conf, x, k)))
+
+
+def _pretrain_program(layer_conf, impl) -> Callable:
+    """The (uncaptured) layer-pretraining step over explicit x (and the
+    layer's key)."""
+
+    def objective_of(x, key=None):
+        return pretrain_objective(layer_conf, impl, x), key
+
+    return _solver_program(layer_conf, objective_of, lambda new, aux: new)

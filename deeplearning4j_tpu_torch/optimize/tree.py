@@ -7,7 +7,9 @@ order: containers in sequence, dict keys sorted.
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, List
+from typing import Callable, Iterator, List, Tuple
+
+import torch
 
 
 def tree_leaves(tree) -> List:
@@ -46,3 +48,26 @@ def tree_unflatten(like, leaves):
     """A tree of `like`'s structure holding `leaves` in `tree_leaves`
     order."""
     return _unflatten(like, iter(leaves))
+
+
+def ravel_tree(tree) -> Tuple[torch.Tensor, Callable]:
+    """(flat, unravel): every leaf of `tree` in `tree_leaves` order in one
+    1-D tensor, promoted to the leaves' common dtype (JAX's
+    `ravel_pytree`), and the function taking such a vector back to a tree
+    of `tree`'s structure, each leaf a view of the vector in its own shape
+    and dtype."""
+    leaves = tree_leaves(tree)
+    dtype = leaves[0].dtype
+    for t in leaves[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    sizes = [t.numel() for t in leaves]
+    shapes = [tuple(t.shape) for t in leaves]
+    dtypes = [t.dtype for t in leaves]
+    flat = torch.cat([t.detach().reshape(-1).to(dtype) for t in leaves])
+
+    def unravel(v: torch.Tensor):
+        parts = torch.split(v, sizes)
+        return tree_unflatten(tree, [p.view(s).to(dt) for p, s, dt in
+                                     zip(parts, shapes, dtypes)])
+
+    return flat, unravel

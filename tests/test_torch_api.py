@@ -214,11 +214,13 @@ class _PortScaledTanh:
 
 
 def test_registered_layer_is_run_by_feed_forward():
-    """RBM is not ported; registered, it is found before the refusal, and
+    """A layer registered for a type (here RBM's, which is ported: it
+    raised naming item 9 before) replaces the type's implementation, and
     `feed_forward` runs it (JAX's registration of the same layer on the
-    same params agrees to 1e-5)."""
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        port_layers.get_layer("rbm")
+    same params agrees to 1e-5); restoring the registry restores RBM."""
+    from deeplearning4j_tpu_torch.nn.layers.rbm import RBM
+
+    assert port_layers.get_layer("rbm") is RBM
     j_old = jax_layers._REGISTRY[jc.LayerType.RBM]
     jax_layers.register_layer("rbm", _JaxScaledTanh)
     port_layers.register_layer(tc.LayerType.RBM, _PortScaledTanh)
@@ -243,9 +245,8 @@ def test_registered_layer_is_run_by_feed_forward():
         assert set(net.params[0]) == {"W", "b"}
     finally:
         jax_layers._REGISTRY[jc.LayerType.RBM] = j_old
-        del port_layers._REGISTRY[tc.LayerType.RBM]
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        port_layers.get_layer("rbm")
+        port_layers.register_layer(tc.LayerType.RBM, RBM)
+    assert port_layers.get_layer("rbm") is RBM
 
 
 # -- the flat parameter vector and clone -----------------------------------------------

@@ -200,12 +200,13 @@ def test_unported_train_options_name_their_roadmap_item(tmp_path, extra,
 
 @pytest.mark.parametrize("zoo_name", ["lenet5", "mlp", "vgg_cifar10", "dbn",
                                       "deep_autoencoder"])
-def test_unported_zoo_models_name_their_roadmap_item(tmp_path, capsys,
-                                                     monkeypatch, zoo_name):
-    """`mlp`, `lenet5` and `vgg_cifar10` are ported (they exited naming
-    item 9 before): each builds JAX's conf and trains (the conv nets on
-    the MNIST and CIFAR stand-ins; tests/test_torch_conv.py holds them to
-    the JAX CLI); `dbn` and `deep_autoencoder` still exit."""
+def test_zoo_models_train_with_jaxs_conf(tmp_path, capsys, monkeypatch,
+                                         zoo_name):
+    """Every --zoo model is ported (each exited naming item 9 before): each
+    builds JAX's conf and trains (the conv nets on the MNIST and CIFAR
+    stand-ins, tests/test_torch_conv.py holding them to the JAX CLI; the
+    pretraining recipes on Iris in [0, 1], tests/test_torch_pretrain.py
+    holding them to JAX)."""
     from deeplearning4j_tpu.models import zoo as jax_zoo
 
     monkeypatch.setenv("HOME", str(tmp_path))
@@ -216,35 +217,48 @@ def test_unported_zoo_models_name_their_roadmap_item(tmp_path, capsys,
                 lambda: jax_zoo.mlp(4, [8, 4], 3, lr=0.05)),
         "lenet5": ("mnist:16", "lenet5", lambda: jax_zoo.lenet5(lr=0.05)),
         "vgg_cifar10": ("cifar10:16", "vgg_cifar10:width=4",
-                        lambda: jax_zoo.vgg_cifar10(lr=0.05, width=4))}
-    if zoo_name in ported:
-        uri, spec, want_conf = ported[zoo_name]
-        out = str(tmp_path / "o")
-        assert main(["train", "--input", uri, "--zoo", spec,
-                     "--output", out, "--device", "cpu"]) == 0
-        assert np.isfinite(_last_json(capsys.readouterr().out)["score"])
-        want = jax_conf.MultiLayerConfiguration.from_json(
-            open(f"{out}/conf.json").read())
-        assert want.to_json() == want_conf().to_json()
-        return
-    with pytest.raises(SystemExit, match="queue A item 9"):
-        main(["train", "--input", _corpus(tmp_path), "--zoo", zoo_name,
-              "--output", str(tmp_path / "o"), "--device", "cpu"])
+                        lambda: jax_zoo.vgg_cifar10(lr=0.05, width=4)),
+        "dbn": ("iris:", "dbn:hidden=8x4,iterations=3,finetune=5",
+                lambda: jax_zoo.dbn(4, [8, 4], 3, lr=0.05, iterations=3,
+                                    finetune_iterations=5)),
+        "deep_autoencoder": (
+            "iris:", "deep_autoencoder:hidden=3,iterations=3,finetune=5",
+            lambda: jax_zoo.deep_autoencoder(4, hidden=[3], lr=0.05,
+                                             iterations=3,
+                                             finetune_iterations=5))}
+    uri, spec, want_conf = ported[zoo_name]
+    out = str(tmp_path / "o")
+    assert main(["train", "--input", uri, "--zoo", spec, "--scale-01",
+                 "--output", out, "--device", "cpu"]) == 0
+    assert np.isfinite(_last_json(capsys.readouterr().out)["score"])
+    want = jax_conf.MultiLayerConfiguration.from_json(
+        open(f"{out}/conf.json").read())
+    assert want.to_json() == want_conf().to_json()
 
 
-def test_pretraining_and_builtin_datasets_name_their_roadmap_item(tmp_path):
-    """Pretraining still exits naming item 9. The builtin datasets are
+def test_pretraining_conf_and_builtin_datasets_train_as_jax(tmp_path,
+                                                            capsys,
+                                                            monkeypatch):
+    """A `pretrain` conf trains (it exited naming item 9 before): here one
+    CG output layer, nothing to pretrain, to the score JAX's CLI reaches
+    from the same initial params (rtol 1e-4). The builtin datasets are
     ported (they raised naming item 6 before): each loads the JAX
     package's arrays (tests/test_torch_datasets.py holds every scheme)."""
     conf = MultiLayerConfiguration(confs=(
-        NeuralNetConfiguration(layer_type=LayerType.OUTPUT, n_in=4, n_out=3),
+        NeuralNetConfiguration(layer_type=LayerType.OUTPUT, n_in=4, n_out=3,
+                               num_iterations=20),
     ), pretrain=True)
     conf_path = tmp_path / "conf.json"
     conf_path.write_text(conf.to_json())
-    with pytest.raises(SystemExit, match="queue A item 9"):
-        main(["train", "--input", "csv:" + _csv(tmp_path), "--model",
-              str(conf_path), "--output", str(tmp_path / "o"), "--device",
-              "cpu"])
+    _carry_jax_init(monkeypatch)
+    argv = ["train", "--input", "csv:" + _csv(tmp_path), "--model",
+            str(conf_path)]
+    got = _last_json(_run(main, argv + ["--output", str(tmp_path / "o"),
+                                        "--device", "cpu"], capsys))
+    want = _last_json(_run(jax_main, argv + ["--output",
+                                             str(tmp_path / "j")], capsys))
+    assert np.isfinite(got["score"])
+    np.testing.assert_allclose(got["score"], want["score"], rtol=1e-4)
     for name in ("mnist:30", "iris:20", "cifar10:12"):
         got, want = load_input(name), jax_load_input(name)
         np.testing.assert_array_equal(got.features, want.features)

@@ -215,16 +215,18 @@ def test_embedding_rejects_ids_outside_the_vocabulary(bad_id):
     net.check_input(_ids(seed=9))
 
 
-def test_unported_layer_types_name_their_roadmap_item():
+def test_conv_and_pretraining_layer_types_are_registered():
     """The conv-net layers are ported (CONVOLUTION raised naming item 9
-    before); the pretraining layers still name item 9."""
-    from deeplearning4j_tpu_torch.nn.layers import base, conv
+    before), and so are the pretraining layers (RBM raised naming item 9
+    before; tests/test_torch_pretrain.py holds them to JAX)."""
+    from deeplearning4j_tpu_torch.nn.layers import (autoencoder, base, conv,
+                                                    rbm)
 
     assert get_layer(LayerType.CONVOLUTION) is conv.ConvolutionLayer
     assert get_layer("subsampling") is conv.SubsamplingLayer
     assert get_layer(LayerType.BATCH_NORM) is base.BatchNormLayer
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 9"):
-        get_layer(LayerType.RBM)
+    assert get_layer(LayerType.RBM) is rbm.RBM
+    assert get_layer(LayerType.AUTOENCODER) is autoencoder.AutoEncoder
 
 
 def test_lstm_layer_types_are_registered():
