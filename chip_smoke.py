@@ -187,7 +187,32 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    rows with GD, CG and LBFGS (10 iterations) and HF (5, CG 32): captured
    bitwise its program uncaptured, scores falling, each iteration's probes
    those of the eager `backtrack`, HF one graph a run, a Gauss-Newton
-   product against dense M'Mv.
+   product against dense M'Mv;
+17. `data_parallel` (DP_*; `--only-data-parallel` runs it alone, with no
+   last line, and the full run runs it so, in a child process): an NCCL
+   group of one rank, then bench.py:546-569's flagship
+   training entry point, `DataParallelTrainer(mode="sync")`, at its conf
+   (the train phase's `train_conf`, TRAIN_LR) on 32 x 512 ids from
+   RandomState(0): three eager trainer steps, then three captured ones
+   (one CUDA graph, the NCCL all-reduce inside it) held to them bitwise,
+   step 1 against one `MultiLayerNetwork.fit` call (bitwise, or the first
+   differing leaf and a gap within a hundredth of how far that `fit` moved
+   the params, so a skipped or wrong update fails), ZeRO-1 bitwise
+   sync after two steps, 8 launches of each of rows 1-4 a step (host
+   counts and a profiled replay), the collectives issued inside the
+   captures, no capture under traffic; the step's event-timed median
+   beside `fit`'s, tokens/s, the profiled replay's idle share (its device
+   time over its own wall time), device ms by kind (GEMM, casts,
+   elementwise, attention, NCCL), capture s, pool bytes and peak memory;
+   then, in a child process (`--dp-ckpt-child DIR`), a checkpointed
+   trainer `fit` over 6 batches (the flagship at 2 blocks) stopped by a
+   SIGTERM after 3 and resumed bitwise equal to an uninterrupted one
+   (write s); then the bench's char-LSTM (captured vs eager bitwise, 256
+   cell launches a step) and VGG-CIFAR10 (width 64, batch 512; captured vs
+   eager bitwise, the EMA after one step against `fit`'s, within a
+   hundredth of how far that step moved it) through the
+   trainer, each timed. The masked (remainder) steps never run at one
+   rank; the CPU tests hold them at two.
 
 Each phase prints one JSON line; then a line with every kernel's numbers,
 the card's line, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -543,13 +568,15 @@ def phase_bwd_kernels(torch, kernels):
             if view:
                 row["grad_fn_max_abs_err"] = grad_err
                 row["grad_fn_ok"] = grad_ok
-            if name == "flash_bwd_delta" and dt == torch.float32:
-                # one PyTorch call computes f32 delta: rowsum(dO * O) in
-                # f32 ([B, S, H] where the kernel writes [B*H, S]). In bf16
-                # vecdot returns bf16, rounded, where delta is f32: not the
-                # same function
+            if name == "flash_bwd_delta":
+                # one PyTorch call computes delta: rowsum(dO * O) ([B, S,
+                # H] where the kernel writes [B*H, S]), f32 in f32; on the
+                # bf16 views vecdot returns bf16, rounded, where delta is
+                # f32 (`vecdot_dtype`)
                 row["vecdot_ms"] = graph_ms(
                     lambda: torch.linalg.vecdot(do, o, dim=-1))
+                row["vecdot_dtype"] = str(torch.linalg.vecdot(
+                    do[:1], o[:1], dim=-1).dtype).replace("torch.", "")
             emit(row)
             check(ok, f"{name} disagrees with its plain version: {row}")
             if view:
@@ -2384,16 +2411,17 @@ def profiled(torch, kernels, fn, phase, ours_key="flash_") -> dict:
     return row
 
 
-def train_conf(compute_dtype: str, fused_bwd: bool = True):
+def train_conf(compute_dtype: str, fused_bwd: bool = True,
+               n_blocks: Optional[int] = None):
     """The JAX package's flagship training configuration (bench.py:558-567
     with `_mixed`): the full-width charTransformer with sparse labels, the
     fused updater, block skip and the fused attention backward, flash
     attention on every layer, in `compute_dtype` over f32 weights, at
-    learning rate TRAIN_LR."""
+    learning rate TRAIN_LR; `n_blocks` cuts its depth."""
     from deeplearning4j_tpu_torch.models.zoo import char_transformer
 
     conf = char_transformer(SLICE["vocab"], d_model=SLICE["d_model"],
-                            n_blocks=SLICE["n_blocks"],
+                            n_blocks=n_blocks or SLICE["n_blocks"],
                             n_heads=SLICE["n_heads"],
                             max_seq_len=SLICE["seq"], sparse_labels=True,
                             fused_updater=True, attention_block_skip=True,
@@ -4166,7 +4194,7 @@ def phase_datasets_serve_api(torch, kernels):
 #: the conv_nets phase (slice 17): bench.py's LeNet-5 (:205-208, batch
 #: 4,096) and VGG-CIFAR10 (:322-326, width 64, batch 512) cells, `_mixed`,
 #: trained through `MultiLayerNetwork.fit` (the bench's DataParallelTrainer
-#: at world size 1 is ROADMAP.md queue A item 10), `turns` steps a path in
+#: at world size 1 is the data_parallel phase's), `turns` steps a path in
 #: turns, then `epochs` epochs of the captured net and the held-out rows
 CONV_LENET = dict(batch=4096, train=54000, held_out=6000, turns=6, epochs=4)
 CONV_VGG = dict(width=64, batch=512, train=9004, held_out=1000, turns=6,
@@ -5556,6 +5584,546 @@ def phase_pretraining(torch, kernels):
                             "solvers": sol["seconds"]}})
 
 
+# -- slice 19: data-parallel training ------------------------------------------
+
+#: the flagship through `DataParallelTrainer` at bench.py:546-569's conf (the
+#: train phase's `train_conf`, TRAIN_LR), batch `rows` x 512 ids from
+#: RandomState(0): `steps` eager, then `steps` captured trainer steps (each
+#: held bitwise to the eager one), `timed` event-timed captured steps and as
+#: many `fit` steps, one profiled step, `zero1_steps` ZeRO-1 steps
+DP = dict(rows=32, steps=3, timed=5, zero1_steps=2)
+#: the SIGTERM child: the flagship's widths at `blocks` blocks, `batches`
+#: batches of `rows` rows, stopped after `stop`
+DP_CKPT = dict(blocks=2, rows=8, batches=6, stop=3)
+#: the bench's char-LSTM (bench.py:249-263: LSTM's widths, batch 256 x 64)
+#: and VGG-CIFAR10 (bench.py:319-328: width 64, batch 512, the CIFAR
+#: stand-in) through the trainer
+DP_LSTM = dict(steps=3, timed=5)
+DP_VGG = dict(width=64, batch=512, steps=3, timed=5)
+#: a trainer step against one `fit` call (bf16 compute, where the two take
+#: the loss's mean in another order), and the BatchNorm EMA likewise: the
+#: gap may be a hundredth of how far that step moved the leaves, so a
+#: skipped or wrong-signed update fails
+DP_STEP_TOL = 1e-2
+#: the flash kernels' bf16 bodies, as the profiler names them, by row
+DP_FLASH = {"flash_attn_fwd": "flash_fwd_tma_kernel",
+            "flash_bwd_delta": "flash_bwd_delta_kernel",
+            "flash_bwd_dkv": "flash_bwd_dkv_tma_kernel",
+            "flash_bwd_dq": "flash_bwd_dq_tma_kernel"}
+DP_KINDS = (("nccl", ("nccl",)), ("attention", ("flash_",)),
+            ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "sm80_",
+                      "cublas")),
+            ("copy_cast", ("copy", "cast", "convert")),
+            ("reduction", ("reduce",)),
+            ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def dp_kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in DP_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def dp_net(conf):
+    """A network of `conf` on the card at seed 0 (the same params every
+    time)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    return MultiLayerNetwork(conf, device="cuda", seed=0).init()
+
+
+def dp_free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dp_snapshot(trainer):
+    """The trainer's params and whole updater as named host copies."""
+    params, updater, _ = trainer.checkpoint_state()
+    out = [(f"params/{i}.{k}", t.detach().to("cpu", copy=True))
+           for i, layer in enumerate(params) for k, t in sorted(layer.items())]
+    for field, tree in zip(("hist", "vel"), updater):
+        out += [(f"{field}/{i}.{k}", t.detach().to("cpu", copy=True))
+                for i, layer in enumerate(tree)
+                for k, t in sorted(layer.items())]
+    return out
+
+
+def dp_gap(torch, got, want) -> dict:
+    """Bitwise, the first leaf that differs, max |got - want| and max
+    |want| over named leaves."""
+    first = next((n for (n, a), (_, b) in zip(got, want)
+                  if not torch.equal(a, b)), None)
+    return {"bitwise": first is None, "first_differing_leaf": first,
+            "max_abs_diff": max(float((a.float() - b.float()).abs().max())
+                                for (_, a), (_, b) in zip(got, want)),
+            "max_abs": max(float(b.float().abs().max()) for _, b in want)}
+
+
+def dp_profile(torch, kernels, fn, phase) -> dict:
+    """One fn() call under `torch.profiler`: device ms by kind (DP_KINDS),
+    the calls of each flash kernel body, the NCCL kernels' ms, the largest
+    kernels and the wall time. Launches made here are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels.LAUNCHES.update(saved)
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    events.sort(key=lambda e: -e.device_time_total)
+    by_kind = {}
+    for e in events:
+        by_kind[dp_kind(e.key)] = (by_kind.get(dp_kind(e.key), 0.0)
+                                   + e.device_time_total / 1e3)
+    total_ms = sum(e.device_time_total for e in events) / 1e3
+    row = {"phase": phase, "wall_ms": wall_ms, "device_ms": total_ms,
+           "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+           "flash_calls": {row: sum(e.count for e in events if body in e.key)
+                           for row, body in DP_FLASH.items()},
+           "nccl": [{"name": e.key[:90], "calls": e.count,
+                     "ms": e.device_time_total / 1e3}
+                    for e in events if "nccl" in e.key.lower()],
+           "kernel_count": sum(e.count for e in events),
+           "top": [{"name": e.key[:90], "kind": dp_kind(e.key),
+                    "calls": e.count, "ms": e.device_time_total / 1e3}
+                   for e in events[:12]]}
+    emit(row)
+    return row
+
+
+def dp_turns(torch, kernels, make, x, y, steps):
+    """`steps` `fit` calls of an eager trainer (its cache's capture off),
+    its state snapshotted after each, then of a captured one on the same
+    params, each held to the eager state of its step. Returns (captured
+    trainer, per-step gaps, the captured steps' launches, eager step ms,
+    captured step ms)."""
+    eager = make()
+    eager.compile_cache.capture = False
+    snaps, eager_ms = [], []
+    for _ in range(steps):
+        eager_ms.append(event_ms(torch, lambda: eager.fit([(x, y)])))
+        snaps.append(dp_snapshot(eager))
+    del eager
+    dp_free(torch)
+    trainer = make()
+    gaps, launches, cap_ms = [], [], []
+    for snap in snaps:
+        kernels.reset_launches()
+        cap_ms.append(event_ms(torch, lambda: trainer.fit([(x, y)])))
+        launches.append(dict(kernels.LAUNCHES))
+        gaps.append(dp_gap(torch, dp_snapshot(trainer), snap))
+    return trainer, gaps, launches, eager_ms, cap_ms, snaps
+
+
+def dp_step_times(torch, trainer, x, y, n):
+    """n captured steps as bench.py drives them (`trainer._step` on the
+    sharded batch, one key), each event-timed."""
+    from deeplearning4j_tpu_torch.parallel.mesh import shard_batch
+
+    xs, ys = shard_batch(trainer.mesh, (x, y), trainer.axis)
+    key = trainer._next_key()
+
+    def step():
+        trainer.state, _ = trainer._step(trainer.state, xs, ys, key,
+                                         checked=True)
+
+    return [event_ms(torch, step) for _ in range(n)], step
+
+
+def dp_books(trainer) -> dict:
+    cache = trainer.compile_cache
+    return {"capture_s": cache.stats.total_compile_seconds,
+            "graph_pool_bytes": cache.pool.reserved_bytes,
+            "dp_step_cache": cache.stats.as_dict()}
+
+
+def dp_flagship(torch, kernels, card):
+    """The flagship through the trainer (module docstring, item 17)."""
+    from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+    from deeplearning4j_tpu_torch.parallel.data_parallel import (
+        CAPTURED_COLLECTIVES, DataParallelTrainer)
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    cfg = DP
+    vocab, seq, rows = SLICE["vocab"], SLICE["seq"], cfg["rows"]
+    mesh = make_mesh({"dp": 1}, device="cuda")
+    conf = train_conf("bfloat16")
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, vocab, (rows, seq + 1))
+    x = ids[:, :-1].astype(np.int32)
+    y = ids[:, 1:].reshape(rows * seq).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # one `fit` call (its captured step), then its timed steps
+    ref = dp_net(conf)
+
+    def ref_params():
+        return [(f"params/{i}.{k}", t.detach().to("cpu", copy=True))
+                for i, layer in enumerate(ref.params)
+                for k, t in sorted(layer.items())]
+
+    init_params = ref_params()
+    ref.fit(x, y)
+    fit_params = ref_params()
+    # how far one step moved the params: the scale of step 1's gate
+    moved = dp_gap(torch, fit_params, init_params)["max_abs_diff"]
+    del init_params
+    fit_ms = [event_ms(torch, lambda: ref.fit(x, y))
+              for _ in range(cfg["timed"])]
+    del ref
+    dp_free(torch)
+
+    def make():
+        return DataParallelTrainer(dp_net(conf), mesh, mode="sync")
+
+    before = dict(CAPTURED_COLLECTIVES)
+    trainer, gaps, launches, eager_ms, cap_ms, snaps = dp_turns(
+        torch, kernels, make, x, y, cfg["steps"])
+    captured = {k: v - before[k] for k, v in CAPTURED_COLLECTIVES.items()}
+    step1 = dp_gap(torch, snaps[0][:len(fit_params)], fit_params)
+    step_ms, step = dp_step_times(torch, trainer, x, y, cfg["timed"])
+    books = dp_books(trainer)
+    profile = dp_profile(torch, kernels, step, "data_parallel_profile")
+    median_ms = median(step_ms)
+    params = sum(t.numel() for t in tree_leaves(trainer.state.params))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del trainer
+    dp_free(torch)
+    # ZeRO-1 at world size 1: held bitwise to the sync step
+    z = DataParallelTrainer(dp_net(conf), mesh, mode="sync", zero1=True)
+    before = dict(CAPTURED_COLLECTIVES)
+    z_ms = [event_ms(torch, lambda: z.fit([(x, y)]))
+            for _ in range(cfg["zero1_steps"])]
+    z_captured = {k: v - before[k] for k, v in CAPTURED_COLLECTIVES.items()}
+    zero1 = dp_gap(torch, dp_snapshot(z), snaps[cfg["zero1_steps"] - 1])
+    z_books = dp_books(z)
+    del z, snaps
+    dp_free(torch)
+    n_attn = SLICE["n_blocks"]
+    row = {"phase": "data_parallel_flagship", "gpu": card,
+           "config": SLICE, "rows": rows, "tokens_per_step": rows * seq,
+           "params": params, "mode": "sync", "world_size": 1,
+           "backend": mesh.backend, "lr": TRAIN_LR,
+           "step_ms": step_ms, "step_ms_median": median_ms,
+           "tokens_per_s": rows * seq / (median_ms / 1e3),
+           "fit_step_ms": fit_ms, "fit_step_ms_median": median(fit_ms),
+           "fit_steps": cfg["timed"] + 1,
+           "trainer_fit_ms": {"eager": eager_ms, "captured": cap_ms},
+           "captured_vs_eager": gaps,
+           "step1_vs_fit": {**step1, "step_max_abs": moved,
+                            "tol": DP_STEP_TOL * moved},
+           "zero1_vs_sync": {**zero1, "steps": cfg["zero1_steps"],
+                             "fit_ms": z_ms, "graph": z_books,
+                             "collectives_in_graph": z_captured},
+           # collectives issued inside the step's capture (the gradient
+           # buffer's all-reduce and the score's)
+           "collectives_in_graph": captured,
+           "launches_per_step": launches, "graph": books,
+           "peak_mem_gb": peak_gb,
+           "masked_steps": "not run on the card: at world size 1 every "
+                           "batch divides; held on the CPU at world size 2 "
+                           "(tests/test_torch_dp_ranks.py)",
+           "seconds": time.perf_counter() - t0}
+    nccl_ms = sum(r["ms"] for r in profile["nccl"])
+    row.update({"device_ms": profile["device_ms"],
+                # the profiled replay's own: its device time over its wall
+                # time (which holds the profiler's cost: an upper bound)
+                "idle_share": 1.0 - profile["device_ms"] / profile["wall_ms"],
+                "by_kind_ms": profile["by_kind_ms"],
+                # NCCL's in-place all-reduce of one rank launches no
+                # kernel: 0 at world size 1
+                "nccl_ms": nccl_ms,
+                "nccl_share": nccl_ms / profile["device_ms"],
+                "flash_calls_in_replay": profile["flash_calls"]})
+    emit(row)
+    for i, gap in enumerate(gaps):
+        check(gap["bitwise"], f"data_parallel: captured trainer step {i + 1}"
+              f" differs from the eager one: {gap}")
+    check(moved > 0 and (step1["bitwise"] or step1["max_abs_diff"]
+                         <= DP_STEP_TOL * moved),
+          f"data_parallel: step 1 against fit (fit moved the params by "
+          f"{moved}): {step1}")
+    check(zero1["bitwise"], f"data_parallel: ZeRO-1 differs from sync after "
+          f"{cfg['zero1_steps']} steps: {zero1}")
+    for launch in launches:
+        for name in DP_FLASH:
+            check(launch[name] == n_attn,
+                  f"data_parallel: a step launched {name} {launch[name]} "
+                  f"times, want {n_attn}: {launch}")
+    check(books["dp_step_cache"]["misses"] == 1,
+          f"data_parallel: captured under traffic after warm-up: {books}")
+    for name, calls in profile["flash_calls"].items():
+        check(calls == n_attn, f"data_parallel: the profiled replay ran "
+              f"{name} {calls} times, want {n_attn}")
+    check(captured["all_reduce"] >= 2 and z_captured["reduce_scatter"]
+          >= 1 and z_captured["all_gather"] >= 1,
+          f"data_parallel: the collectives are not inside the captured "
+          f"steps: sync {captured}, zero1 {z_captured}")
+    return {name: sum(launch[name] for launch in launches)
+            for name in DP_FLASH}
+
+
+def dp_lstm(torch, kernels, card):
+    """The bench's char-LSTM through the trainer: captured against eager
+    bitwise, the cell kernel's launches a step, step ms."""
+    from deeplearning4j_tpu_torch.parallel.data_parallel import \
+        DataParallelTrainer
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh({"dp": 1}, device="cuda")
+    conf = lstm_conf()
+    x, y = lstm_batch()
+
+    def make():
+        return DataParallelTrainer(dp_net(conf), mesh)
+
+    trainer, gaps, launches, eager_ms, cap_ms, _ = dp_turns(
+        torch, kernels, make, x, y, DP_LSTM["steps"])
+    step_ms, _ = dp_step_times(torch, trainer, x, y, DP_LSTM["timed"])
+    books = dp_books(trainer)
+    want = LSTM["n_layers"] * LSTM["seq"]
+    row = {"phase": "data_parallel_char_lstm", "gpu": card,
+           "config": LSTM, "step_ms": step_ms,
+           "step_ms_median": median(step_ms),
+           "chars_per_s": LSTM["rows"] * LSTM["seq"]
+           / (median(step_ms) / 1e3),
+           "trainer_fit_ms": {"eager": eager_ms, "captured": cap_ms},
+           "captured_vs_eager": gaps, "launches_per_step": launches,
+           "graph": books, "seconds": time.perf_counter() - t0}
+    emit(row)
+    for i, gap in enumerate(gaps):
+        check(gap["bitwise"], f"data_parallel char-LSTM: captured step "
+              f"{i + 1} differs from the eager one: {gap}")
+    for launch in launches:
+        check(launch["lstm_cell"] == want,
+              f"data_parallel char-LSTM: a step launched the cell "
+              f"kernel {launch['lstm_cell']} times, want {want}")
+    check(books["dp_step_cache"]["misses"] == 1,
+          f"data_parallel char-LSTM: captured under traffic: {books}")
+    return sum(launch["lstm_cell"] for launch in launches)
+
+
+def dp_vgg(torch, kernels, card):
+    """VGG-CIFAR10 through the trainer: captured against eager bitwise, its
+    BatchNorm EMA after one step against one `fit` call's, step ms."""
+    from deeplearning4j_tpu_torch.parallel.data_parallel import \
+        DataParallelTrainer
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    cfg = DP_VGG
+    mesh = make_mesh({"dp": 1}, device="cuda")
+    conf = conv_conf("vgg_cifar10", width=cfg["width"])
+    x, y = conv_data("cifar10", cfg["batch"])
+    ref = dp_net(conf)
+
+    def ref_ema():
+        return [(n, t.detach().to("cpu", copy=True))
+                for n, t in named_leaves(ref, True)]
+
+    init_ema = ref_ema()
+    ref.fit(x, y)
+    fit_ema = ref_ema()
+    # how far one step moved the EMA: the scale of its gate
+    moved = dp_gap(torch, fit_ema, init_ema)["max_abs_diff"]
+    del ref
+    dp_free(torch)
+
+    def make():
+        return DataParallelTrainer(dp_net(conf), mesh)
+
+    trainer, gaps, launches, eager_ms, cap_ms, snaps = dp_turns(
+        torch, kernels, make, x, y, cfg["steps"])
+    ema_names = {f"params/{n}" for n, _ in fit_ema}
+    step1_ema = [(n, t) for n, t in snaps[0] if n in ema_names]
+    ema = dp_gap(torch, step1_ema, [(f"params/{n}", t) for n, t in fit_ema])
+    step_ms, _ = dp_step_times(torch, trainer, x, y, cfg["timed"])
+    books = dp_books(trainer)
+    row = {"phase": "data_parallel_vgg", "gpu": card, "width": cfg["width"],
+           "batch": cfg["batch"], "step_ms": step_ms,
+           "step_ms_median": median(step_ms),
+           "samples_per_s": cfg["batch"] / (median(step_ms) / 1e3),
+           "trainer_fit_ms": {"eager": eager_ms, "captured": cap_ms},
+           "captured_vs_eager": gaps,
+           "ema_step1_vs_fit": {**ema, "step_max_abs": moved,
+                                "tol": DP_STEP_TOL * moved},
+           "graph": books, "seconds": time.perf_counter() - t0}
+    emit(row)
+    for i, gap in enumerate(gaps):
+        check(gap["bitwise"], f"data_parallel VGG: captured step {i + 1} "
+              f"differs from the eager one: {gap}")
+    check(len(step1_ema) == len(fit_ema) > 0 and moved > 0 and (
+        ema["bitwise"] or ema["max_abs_diff"] <= DP_STEP_TOL * moved),
+          f"data_parallel VGG: the EMA after one step differs from fit's "
+          f"(fit moved it by {moved}): {ema}")
+    check(books["dp_step_cache"]["misses"] == 1,
+          f"data_parallel VGG: captured under traffic: {books}")
+
+
+def dp_ckpt_child(workdir) -> int:
+    """The data-parallel checkpoint child (`chip_smoke.py --dp-ckpt-child
+    DIR`): the flagship at DP_CKPT's depth through a checkpointed trainer
+    `fit` over DP_CKPT["batches"] batches, stopped by a real SIGTERM after
+    DP_CKPT["stop"], rerun from its checkpoint, against an uninterrupted
+    run. Prints one JSON line; exits 1 on a failed check."""
+    import signal
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch.parallel.data_parallel import \
+        DataParallelTrainer
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+    from deeplearning4j_tpu_torch.reliability import TrainingInterrupted
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DP_CKPT
+    conf = train_conf("bfloat16", n_blocks=cfg["blocks"])
+    mesh = make_mesh({"dp": 1}, device="cuda")
+    rng = np.random.RandomState(1)
+    seq = SLICE["seq"]
+    batches = []
+    for _ in range(cfg["batches"]):
+        ids = rng.randint(0, SLICE["vocab"], (cfg["rows"], seq + 1))
+        batches.append((ids[:, :-1].astype(np.int32),
+                        ids[:, 1:].reshape(-1).astype(np.int32)))
+
+    class Kill:
+        def __init__(self):
+            self.n = 0
+
+        def iteration_done(self, model, iteration, score):
+            self.n += 1
+            if self.n == cfg["stop"]:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    def fresh(listeners=()):
+        return DataParallelTrainer(dp_net(conf), mesh,
+                                   listeners=list(listeners))
+
+    ref = fresh()
+    ref.fit(batches)
+    want = dp_snapshot(ref)
+    del ref
+    ck = os.path.join(workdir, "ck")
+    first = fresh([Kill()])
+    try:
+        first.fit(batches, checkpoint_dir=ck)
+        interrupted = False
+    except TrainingInterrupted:
+        interrupted = True
+    write_s = first.checkpoint_write_seconds
+    del first
+    resumed = fresh()
+    resumed.fit(batches, checkpoint_dir=ck)
+    gap = dp_gap(torch, dp_snapshot(resumed), want)
+    out = {"blocks": cfg["blocks"], "rows": cfg["rows"],
+           "batches": cfg["batches"], "sigterm_after": cfg["stop"],
+           "interrupted": interrupted,
+           "resumed_from_step": resumed.resumed_from_step,
+           "checkpoint_write_s": {"at_sigterm": write_s,
+                                  "final": resumed.checkpoint_write_seconds},
+           "checkpoint_bytes": sum(
+               os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck)),
+           "resumed_vs_uninterrupted": gap}
+    ok = (interrupted and resumed.resumed_from_step == cfg["stop"]
+          and gap["bitwise"])
+    out["ok"] = bool(ok)
+    print(json.dumps(out), flush=True)
+    dp_close()
+    return 0 if ok else 1
+
+
+def dp_checkpoint(torch):
+    """`dp_ckpt_child` in a child process; the parent checks its line."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--dp-ckpt-child",
+             td], capture_output=True, text=True, timeout=400)
+    lines = proc.stdout.strip().splitlines()
+    try:
+        row = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        row = {"stdout_tail": proc.stdout[-2000:]}
+    row = {"phase": "data_parallel_checkpoint",
+           "seconds": time.perf_counter() - t0, "rc": proc.returncode, **row}
+    emit(row)
+    check(proc.returncode == 0 and row.get("ok"),
+          f"data_parallel checkpoint failed (rc {proc.returncode}): "
+          f"{proc.stderr[-3000:]}")
+
+
+def phase_data_parallel(torch, kernels):
+    """Slice 19's data-parallel training (module docstring, item 17).
+    Returns the launches of the flash kernels and the LSTM cell in the
+    trainers' captured steps."""
+    t0 = time.perf_counter()
+    card = gpu_line()
+    launches = dp_flagship(torch, kernels, card)
+    dp_free(torch)
+    dp_checkpoint(torch)
+    launches["lstm_cell"] = dp_lstm(torch, kernels, card)
+    dp_free(torch)
+    dp_vgg(torch, kernels, card)
+    dp_free(torch)
+    emit({"phase": "data_parallel", "gpu": card,
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    dp_close()
+    return launches
+
+
+def phase_data_parallel_child(torch):
+    """`phase_data_parallel` in a child process (`chip_smoke.py
+    --only-data-parallel`): a fresh CUDA context, NCCL communicator and
+    profiler. In the process that has run and profiled every earlier
+    phase, the
+    profiler misnames kernels of a graph replay (a full run's profiled
+    trainer replay named 5 of each backward kernel's 8 launches, where the
+    host counts and the phase run alone gave 8). Echoes the child's lines;
+    returns its launches."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--only-data-parallel"],
+        capture_output=True, text=True, timeout=900)
+    rows = []
+    for line in proc.stdout.strip().splitlines():
+        print(line, flush=True)
+        if line.startswith("{"):
+            rows.append(json.loads(line))
+    summary = [r for r in rows if r.get("phase") == "data_parallel"]
+    check(proc.returncode == 0 and len(summary) == 1,
+          f"the data_parallel child failed (rc {proc.returncode}): "
+          f"{proc.stderr[-3000:]}")
+    emit({"phase": "data_parallel_child",
+          "seconds": time.perf_counter() - t0})
+    return summary[0]["launches"]
+
+
+def dp_close() -> None:
+    """End this process's process group (the trainers' NCCL
+    communicator)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def f32_case(r, library_key):
     """One f32 row's numbers for the kernels line."""
     return {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
@@ -5604,6 +6172,21 @@ def main(argv) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         phase_pretraining(torch, kernels)
+        return 0
+    if "--dp-ckpt-child" in argv:
+        # the data_parallel phase's SIGTERM child
+        i = argv.index("--dp-ckpt-child")
+        return dp_ckpt_child(argv[i + 1])
+    if "--only-data-parallel" in argv:
+        # slice 19's phase alone (for iterating on it, and as the full
+        # run's child): prints no kernels line and no last line
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from deeplearning4j_tpu_torch.nd import kernels
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kernels.build()
+        phase_data_parallel(torch, kernels)
         return 0
     if "--conv-f32-child" in argv:
         # conv_f32's child: PyTorch's default flags, none of the below
@@ -5689,6 +6272,12 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_pretraining(torch, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_launches = phase_data_parallel_child(torch)
+    for name in ("flash_attn_fwd",) + BWD_KERNELS + ("lstm_cell",):
+        check(dp_launches[name] > 0,
+              f"{name} never ran in the data-parallel trainer's steps")
 
     bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
     replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,
@@ -5702,7 +6291,8 @@ def main(argv) -> int:
                      + sum(gen_option_launches.values())
                      + train_launches["flash_attn_fwd"]
                      + sum(api_serve_launches.values())
-                     + api_train_launches["flash_attn_fwd"]),
+                     + api_train_launches["flash_attn_fwd"]
+                     + dp_launches["flash_attn_fwd"]),
         "launches_by_path": {"serve": serve_launches["flash_attn_fwd"],
                              "generate": gen_launches["flash_attn_fwd"],
                              **gen_option_launches,
@@ -5712,7 +6302,8 @@ def main(argv) -> int:
                              "api_serve_unbatched":
                                  api_serve_launches["unbatched"],
                              "api_checkpoint_listener":
-                                 api_train_launches["flash_attn_fwd"]},
+                                 api_train_launches["flash_attn_fwd"],
+                             "data_parallel": dp_launches["flash_attn_fwd"]},
         "max_abs_err": fwd_row["max_abs_err"],
         "ms": fwd_row["kernel_ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
@@ -5749,19 +6340,22 @@ def main(argv) -> int:
             "name": name, "route": "cuda", "source": bwd_src,
             "replaces": ("deeplearning4j_tpu/nd/pallas_kernels.py:"
                          f"{replaces[name]}"),
-            "launches": train_launches[name] + api_train_launches[name],
+            "launches": (train_launches[name] + api_train_launches[name]
+                         + dp_launches[name]),
             "launches_by_path": {
                 "train": train_launches[name],
-                "api_checkpoint_listener": api_train_launches[name]},
+                "api_checkpoint_listener": api_train_launches[name],
+                "data_parallel": dp_launches[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
-            # bf16 delta has no one-call counterpart (vecdot's bf16 result
-            # is rounded to bf16; delta is f32); SDPA's backward computes
-            # what delta, dK/dV and dQ compute together
-            "library_ms": (None if name == "flash_bwd_delta"
+            # delta: `torch.linalg.vecdot(dO, O, dim=-1)` on the bf16 views,
+            # whose result is bf16 (rounded) where delta is f32; SDPA's
+            # backward computes what delta, dK/dV and dQ compute together
+            "library_ms": (r["vecdot_ms"] if name == "flash_bwd_delta"
                            else r["sdpa_backward_ms"]),
-            "library_covers": (None if name == "flash_bwd_delta"
+            "library_covers": ("vecdot, bf16 result"
+                               if name == "flash_bwd_delta"
                                else "delta + dkv + dq"),
             "max_rel_err": r["max_rel_err"], "tflops": r["tflops"]})
         rows[-1]["f32"] = f32_entry(bwd_rows, name)
@@ -5792,10 +6386,12 @@ def main(argv) -> int:
         "name": "lstm_cell", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/lstm_cell.cu",
         "replaces": "deeplearning4j_tpu/nd/pallas_kernels.py:529",
-        "launches": lstm_train_launches + ckpt_launches + lstm_cli_launches,
+        "launches": (lstm_train_launches + ckpt_launches + lstm_cli_launches
+                     + dp_launches["lstm_cell"]),
         "launches_by_path": {"lstm_train": lstm_train_launches,
                              "checkpoint": ckpt_launches,
-                             "lstm_cli": lstm_cli_launches},
+                             "lstm_cli": lstm_cli_launches,
+                             "data_parallel": dp_launches["lstm_cell"]},
         "max_abs_err": lstm_row["max_abs_err"], "ms": lstm_row["kernel_ms"],
         "plain_ms": lstm_row["plain_ms"], "bound_ms": lstm_row["bound_ms"],
         "bound_by": lstm_row["bound_by"],

@@ -38,9 +38,19 @@ The final JSON lines keep the JAX package's keys. `train`'s: `saved`,
 `score`, `resumed_from_step`, `checkpoint_write_seconds`, `train_seconds`,
 `examples_per_sec`, and the caches' `compile_seconds` (capture seconds),
 `cache_hits`, `cache_misses` and `infer_compile_seconds`; `disk_cache` is
-null, as a CUDA graph is not kept on disk. Options that are not ported exit
-naming their ROADMAP.md item: `--runtime mesh`, `--mesh` and `--zero1`
-(item 10) and `--compile-cache` (item 11).
+null, as a CUDA graph is not kept on disk.
+
+`train --runtime mesh` trains through `parallel.DataParallelTrainer` over
+the ranks of a `torch.distributed` group (one process a rank: torchrun's
+environment, or a group of one), in batches of `batch` (default 128),
+remainders padded and masked, with `mode=sync|averaging` from
+`--properties`; `--zero1` shards the updater state; bare `--mesh`, `--mesh
+all` and `--mesh batch=N` are the 1-D layout over N ranks, as in the JAX
+package; `--checkpoint-dir` checkpoints the trainer's whole state, and the
+rerun resumes on any number of ranks. Pretraining recipes refuse the mesh
+runtime as the JAX CLI does. Options that are not ported exit naming their
+ROADMAP.md item: a `--mesh` with a model axis, and `serve`'s and
+`generate`'s `--mesh` (item 10b), and `--compile-cache` (item 11).
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import argparse
 import csv
 import json
 import signal
+import sys
 import time
 from typing import List, Optional
 
@@ -70,13 +81,77 @@ def _refuse_unported(args) -> None:
                          "caches hold CUDA graphs, which cannot be written "
                          "to disk; persist.py comes with ROADMAP.md queue A "
                          "item 11)")
-    if (getattr(args, "runtime", "local") == "mesh"
-            or getattr(args, "mesh", None) is not None
-            or getattr(args, "zero1", False)):
-        raise SystemExit("--runtime mesh, --mesh and --zero1 (data and "
-                         "tensor parallel training) are not ported to "
+    if args.command != "train" and getattr(args, "mesh", None) is not None:
+        raise SystemExit("--mesh (mesh-sharded serving) is not ported to "
                          "deeplearning4j_tpu_torch yet; see ROADMAP.md queue "
-                         "A item 10")
+                         "A item 10b")
+
+
+def parse_mesh_spec(spec: str) -> dict:
+    """A `--mesh` value: "batch=2,model=4" -> {"batch": 2, "model": 4}; ""
+    and "all" (the bare flag) -> {}, the 1-D layout over every rank. Sizes
+    may be -1 (every remaining rank). The JAX package's
+    `parallel/plan.parse_mesh_spec`."""
+    spec = (spec or "").strip()
+    if spec in ("", "all"):
+        return {}
+    shape = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(
+                f"bad mesh spec {spec!r}: expected axis=N[,axis=N...] "
+                f"(e.g. 'batch=2,model=4'), got segment {part!r}")
+        axis, _, size = part.partition("=")
+        axis = axis.strip()
+        try:
+            n = int(size)
+        except ValueError:
+            raise ValueError(f"bad mesh spec {spec!r}: size {size!r} of "
+                             f"axis {axis!r} is not an integer") from None
+        if n == 0 or n < -1:
+            raise ValueError(f"bad mesh spec {spec!r}: axis {axis!r} "
+                             f"size must be positive or -1, got {n}")
+        if axis in shape:
+            raise ValueError(f"bad mesh spec {spec!r}: axis {axis!r} "
+                             f"given twice")
+        shape[axis] = n
+    return shape
+
+
+def _cli_mesh(spec: Optional[str], device):
+    """(mesh, axis, rows a batch divides into) of `--runtime mesh` (the
+    "dp" axis over every rank) and `--mesh SPEC` (the 1-D "batch" layout):
+    a model axis exits naming item 10b, and more ranks than the group has
+    exit as the JAX CLI's mesh does with too few devices."""
+    from deeplearning4j_tpu_torch.nd.platform import world_size
+    from deeplearning4j_tpu_torch.parallel.mesh import (init_distributed,
+                                                        make_mesh)
+
+    init_distributed(device)  # the group, before its size is read
+    if spec is None:
+        mesh = make_mesh({"dp": world_size()}, device=device)
+        return mesh, "dp", mesh.shape["dp"]
+    try:
+        shape = parse_mesh_spec(spec)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    model = {a: n for a, n in shape.items() if a != "batch"}
+    if model:
+        raise SystemExit(
+            f"--mesh {spec}: a model axis (tensor parallelism, {model}) is "
+            f"not ported to deeplearning4j_tpu_torch yet; see ROADMAP.md "
+            f"queue A item 10b")
+    rows = shape.get("batch", -1)
+    n = world_size()
+    if rows > n:
+        raise SystemExit(f"mesh {{'batch': {rows}}} needs {rows} ranks, "
+                         f"have {n} (one process a rank, e.g. torchrun "
+                         f"--nproc-per-node {rows})")
+    mesh = make_mesh({"batch": rows}, device=device)
+    return mesh, "batch", mesh.shape["batch"]
 
 
 def _load_data(args):
@@ -190,15 +265,75 @@ def cmd_train(args) -> int:
     deep_ae = reconstruction and conf.pretrain and any(
         LayerType(str(c.layer_type)) == LayerType.AUTOENCODER
         for c in conf.confs)
+    if args.runtime == "mesh" and (deep_ae or conf.pretrain):
+        raise SystemExit(
+            "pretraining workflows (dbn/deep_autoencoder) need "
+            "--runtime local: the mesh data-parallel step is "
+            "gradient-only and would silently skip layer-wise pretraining")
+    if args.mesh is not None:
+        args.runtime = "mesh"  # --mesh implies the mesh runtime
+    if args.zero1 and args.runtime != "mesh":
+        raise SystemExit("--zero1 shards updater state over the dp mesh "
+                         "axis; it requires --runtime mesh (or --mesh)")
     if args.checkpoint_dir and conf.pretrain:
         raise SystemExit(
             "--checkpoint-dir does not support pretraining recipes "
             "(dbn/deep_autoencoder): their multi-phase schedule is not "
             "batch-cursor resumable")
     targets = data.features if reconstruction else data.labels
-    net = MultiLayerNetwork(conf, device=args.device).init()
+    device = args.device
+    if args.runtime == "mesh":
+        # the group first: it gives this rank its device (under torchrun
+        # one card a rank), which the network is built on
+        mesh, axis, rows = _cli_mesh(args.mesh, args.device)
+        device = mesh.device
+    net = MultiLayerNetwork(conf, device=device).init()
     t_train = time.perf_counter()
-    if deep_ae:
+    step_stats = net.step_cache.stats
+    resumed_from_step = None
+    ckpt_write_seconds = 0.0
+    if args.runtime == "mesh":
+        from deeplearning4j_tpu_torch.parallel.data_parallel import \
+            DataParallelTrainer
+
+        batch = int(props.get("batch", "128"))
+        n = data.num_examples()
+        if n < rows:
+            raise SystemExit(
+                f"mesh runtime needs >= {rows} examples (one per row "
+                f"shard), got {n}")
+        remainder = sum(b.num_examples() % rows
+                        for b in data.batch_by(batch))
+        if remainder:
+            # remainder batches run the pad-and-mask step in every mode:
+            # every example still trains
+            print(f"note: {remainder} examples/epoch take the padded-batch "
+                  f"path to stay divisible by the {rows}-row dp axis",
+                  file=sys.stderr)
+        trainer = DataParallelTrainer(net, mesh, axis=axis,
+                                      mode=props.get("mode", "sync"),
+                                      zero1=args.zero1)
+        if args.checkpoint_dir:
+            # crash-safe and elastic: the trainer's whole state (params,
+            # updater moments, step, key, batch cursor) resumes on any
+            # number of ranks
+            try:
+                trainer.fit(data.batch_by(batch), epochs=epochs,
+                            checkpoint_dir=args.checkpoint_dir,
+                            checkpoint_every_n_batches=int(
+                                props.get("checkpoint_every", "10")))
+            except TrainingInterrupted as e:
+                print(json.dumps({"interrupted": True,
+                                  "checkpoint": args.checkpoint_dir,
+                                  "detail": str(e)}), flush=True)
+                return 0
+        else:
+            trainer.fit(data.batch_by(batch), epochs=epochs)
+        resumed_from_step = trainer.resumed_from_step
+        ckpt_write_seconds = trainer.checkpoint_write_seconds
+        # the trainer's steps are programs of its own cache
+        step_stats = trainer.compile_cache.stats
+    elif deep_ae:
         if epochs > 0:
             # pretrain and unroll once (again would overwrite the finetuned
             # decoder with the encoder's transpose); the finetune repeats
@@ -245,11 +380,14 @@ def cmd_train(args) -> int:
     checkpoint.save(args.output, net.params, conf=conf,
                     metadata={"score": score, "input": args.input})
     n_trained = data.num_examples() * epochs
-    cs, ic = net.step_cache.stats, net.infer_cache.stats
+    if args.runtime != "mesh":
+        resumed_from_step = net.resumed_from_batch
+        ckpt_write_seconds = net.checkpoint_write_seconds
+    cs, ic = step_stats, net.infer_cache.stats
     print(json.dumps({"saved": args.output, "score": score,
-                      "resumed_from_step": net.resumed_from_batch,
+                      "resumed_from_step": resumed_from_step,
                       "checkpoint_write_seconds": round(
-                          net.checkpoint_write_seconds, 3),
+                          ckpt_write_seconds, 3),
                       "train_seconds": round(train_seconds, 3),
                       "examples_per_sec": round(
                           n_trained / max(train_seconds, 1e-9), 2),
@@ -547,11 +685,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "mlp|char_lstm|char_transformer[:k=v,...] (e.g. "
                         "mlp:hidden=512x512, char_lstm:layers=4,hidden=128)")
     t.add_argument("--runtime", choices=["local", "mesh"], default="local",
-                   help="mesh is not ported yet (exits)")
+                   help="mesh: data-parallel training over the ranks of a "
+                        "torch.distributed group (torchrun's, or this "
+                        "process alone)")
     t.add_argument("--mesh", nargs="?", const="all", default=None,
-                   metavar="SPEC", help="not ported yet (exits)")
+                   metavar="SPEC",
+                   help="the 1-D layout batch=N (implies --runtime mesh); "
+                        "bare --mesh or --mesh all is every rank; a model "
+                        "axis is not ported yet (exits)")
     t.add_argument("--zero1", action="store_true",
-                   help="not ported yet (exits)")
+                   help="ZeRO-1: shard the updater state over the ranks; "
+                        "checkpoints gather it whole, so resume works on "
+                        "any number of ranks")
     t.add_argument("--properties", default=None,
                    help="k=v[,k=v...]: epochs (default 1), batch (examples "
                         "per fit call; 0, the default, is the whole data), "

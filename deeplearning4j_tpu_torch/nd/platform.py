@@ -5,6 +5,11 @@ the default backend; here every entry point takes an explicit `device`.
 When it is None the device is `cuda`, and a machine without a GPU raises
 instead of falling back to the CPU in silence. `is_hopper()` is cached:
 the kernels are built for sm_90a and refuse other cards.
+
+The JAX package runs one process over every device; the port runs one
+process per rank of a `torch.distributed` group (`parallel/mesh.py`).
+`device_count()` counts the CUDA devices this process sees, and `rank()`
+and `world_size()` read the default group (0 and 1 without one).
 """
 
 from __future__ import annotations
@@ -41,3 +46,28 @@ def device_kind(device: torch.device) -> str:
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return "cpu"
+
+
+def device_count() -> int:
+    """The CUDA devices this process sees (0 on a machine without one)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def rank(group=None) -> int:
+    """This process's rank in `group` (the default group when None); 0
+    when no process group is initialized."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0
+    return dist.get_rank(group)
+
+
+def world_size(group=None) -> int:
+    """The number of ranks of `group` (the default group when None); 1
+    when no process group is initialized."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return dist.get_world_size(group)

@@ -145,8 +145,10 @@ class BatchNormLayer:
             if a != 0:
                 per_row *= x.shape[a]
         if row_weights is None:
-            cnt = torch.tensor(float(x.shape[0] * per_row),
-                               dtype=torch.float32, device=x.device)
+            # a fill on the device, not a host copy: a captured step
+            # computes it too
+            cnt = torch.full((), float(x.shape[0] * per_row),
+                             dtype=torch.float32, device=x.device)
             return (xf.sum(dim=axes), (xf * xf).sum(dim=axes), cnt)
         w = row_weights.float().reshape((x.shape[0],) + (1,) * (x.dim() - 1))
         return ((xf * w).sum(dim=axes), (xf * xf * w).sum(dim=axes),

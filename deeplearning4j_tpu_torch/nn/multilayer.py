@@ -215,11 +215,25 @@ def _bn_ema_apply(c, p, mean, var):
     return p
 
 
-def update_bn_ema_from_stats(conf: MultiLayerConfiguration, params, stats):
+def update_bn_ema_from_stats(conf: MultiLayerConfiguration, params, stats,
+                             group=None):
     """Every BatchNorm layer's running stats advanced from the raw moments
     the loss forward computed (`network_rowwise_loss(...,
-    return_bn_stats=True)`): a new params tree."""
+    return_bn_stats=True)`): a new params tree. With a process `group`
+    (the data-parallel step's) the moments s1, s2 and cnt are first summed
+    over its ranks in one all-reduce, so every rank records the global
+    batch's statistics, as the JAX package's `psum` over the mesh axis
+    does."""
     bn_idx = [i for i, c in enumerate(conf.confs) if _is_bn(c)]
+    if group is not None and stats:
+        import torch.distributed as dist
+
+        leaves = [t for moments in stats for t in moments]
+        packed = torch.cat([t.reshape(-1).float() for t in leaves])
+        dist.all_reduce(packed, group=group)
+        parts = torch.split(packed, [t.numel() for t in leaves])
+        it = iter(p.view(t.shape).to(t.dtype) for p, t in zip(parts, leaves))
+        stats = tuple((next(it), next(it), next(it)) for _ in stats)
     new = list(params)
     for (s1, s2, cnt), i in zip(stats, bn_idx):
         mean, var = BatchNormLayer.stats_of(s1, s2, cnt)
@@ -656,8 +670,8 @@ class MultiLayerNetwork:
         updater state starts at zero on every call, as in the JAX package
         (its solver initializes the updater inside each run): with one
         iteration, every batch is an Adam step at t=1. Persistent updater
-        state across batches is the data-parallel trainer's (ROADMAP.md
-        queue A item 10)."""
+        state across batches is the data-parallel trainer's
+        (`parallel/data_parallel.py`)."""
         x, labels = self._input(x), self._input(labels)
         conf = self.conf
         key = self._key_tensor(self._next_key())

@@ -54,8 +54,8 @@ Generation (the JAX package's `init_decode_state`, `decode`, `prefill`,
                 carries back to the accepted depth in the program
                 (`_accepted_len`, `_rollback_carries`).
 
-The mesh and plan entry points come with parallelism (ROADMAP.md queue A
-item 10) and the precision policies with serving-side optimisation (item
+The mesh and plan entry points come with tensor parallelism (ROADMAP.md
+queue A item 10b) and the precision policies with serving-side optimisation (item
 11).
 """
 

@@ -4,7 +4,8 @@ Counterpart of `deeplearning4j_tpu/optimize/listeners.py`: a listener sees
 each iteration's score after a solver run, replayed from the run's score
 array by `dispatch`. `ScoreIterationListener` logs, `CheckpointListener`
 saves the network every N iterations (asynchronously by default, from a
-host snapshot taken at the iteration), and `ComposableIterationListener`
+host snapshot taken at the iteration; a data-parallel trainer's state
+with its updater and mesh), and `ComposableIterationListener`
 fans one iteration out to several listeners.
 """
 
@@ -35,14 +36,14 @@ class ScoreIterationListener(IterationListener):
 
 
 class CheckpointListener(IterationListener):
-    """Save the network (params and conf, the score as metadata) to
-    `directory` every `save_every_n` iterations, through
-    `checkpoint.save_async` (`asynchronous`, the default: the snapshot is
-    taken on the training thread, the write runs on another) or
-    `checkpoint.save`. `wait()` blocks until the last write has landed.
-    The data-parallel trainer's state (updater, step, mesh) comes with
-    ROADMAP.md queue A item 10; a network is saved as in the JAX
-    package."""
+    """Save the model to `directory` every `save_every_n` iterations,
+    through `checkpoint.save_async` (`asynchronous`, the default: the
+    snapshot is taken on the training thread, the write runs on another)
+    or `checkpoint.save`. Given a `DataParallelTrainer` it saves the
+    trainer's params, updater state (gathered whole under ZeRO-1) and step
+    with its mesh record, as the JAX package's does; given a network, its
+    params and conf, with the iteration as the step. `wait()` blocks until
+    the last write has landed."""
 
     def __init__(self, directory: str, save_every_n: int = 10,
                  asynchronous: bool = True):
@@ -58,13 +59,22 @@ class CheckpointListener(IterationListener):
         from deeplearning4j_tpu_torch.parallel import checkpoint
 
         net = getattr(model, "net", model)
-        kw = dict(conf=getattr(net, "conf", None), step=int(iteration),
-                  metadata={"score": float(score)})
-        if self.asynchronous:
-            self._last_thread = checkpoint.save_async(self.directory,
-                                                      net.params, **kw)
+        conf = getattr(net, "conf", None)
+        meta = {"score": float(score)}
+        if callable(getattr(model, "checkpoint_state", None)):
+            params, updater, step = model.checkpoint_state()
+            args = (self.directory, params, updater)
+            # the writing topology, so that a loader detects an elastic
+            # (n -> m ranks) resume instead of guessing
+            kw = dict(conf=conf, step=step, metadata=meta,
+                      mesh=model.mesh_meta())
         else:
-            checkpoint.save(self.directory, net.params, **kw)
+            args = (self.directory, net.params, None)
+            kw = dict(conf=conf, step=int(iteration), metadata=meta)
+        if self.asynchronous:
+            self._last_thread = checkpoint.save_async(*args, **kw)
+        else:
+            checkpoint.save(*args, **kw)
         self.saves += 1
 
     def wait(self) -> None:

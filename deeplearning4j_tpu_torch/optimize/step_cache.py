@@ -56,6 +56,15 @@ reuses it for every batch; here the program is a `torch.cuda.CUDAGraph`:
                 does a cache whose `capture` is False, on any device: the
                 captured programs run uncaptured.
 
+  data-parallel the trainer's steps (`parallel/data_parallel.py`) are
+                programs of a `DPStepCache` (kind "dp-step-cache", the JAX
+                package's name): one graph per (variant, conf, shapes), the
+                variants sync, masked, grad_accum, averaging and zero1. The
+                graph reads the trainer's flat param and updater buffers by
+                address and writes the step into them in place; the
+                iteration's updater constants and the key are static
+                inputs, and the collectives run inside the graph.
+
 `StepCacheStats.as_dict` keeps the JAX package's keys: `compile_seconds`
 holds capture seconds (warm-up included), and the disk counters stay 0, as
 a CUDA graph cannot be written to disk (ROADMAP.md queue A item 11). The
@@ -618,8 +627,9 @@ def _finetune_program(conf) -> Callable:
     into the capture as constants of each unrolled iteration. That is right
     only because every `finetune` restarts the updater at iteration 0, as
     the JAX package's solver does, and the graph unrolls all
-    `num_iterations` iterations; a persistent updater (ROADMAP.md queue A
-    item 10) would have to feed them in as tensors."""
+    `num_iterations` iterations. The data-parallel trainer's updater
+    persists, and its steps (`DPStepCache`) take them as a tensor input
+    (`updater.iteration_constants`)."""
     # local import: nn.multilayer imports this module at top level
     from deeplearning4j_tpu_torch.nd.losses import get_rowwise
     from deeplearning4j_tpu_torch.nn.multilayer import (
@@ -668,3 +678,30 @@ def _pretrain_program(layer_conf, impl) -> Callable:
         return pretrain_objective(layer_conf, impl, x), key
 
     return _solver_program(layer_conf, objective_of, lambda new, aux: new)
+
+
+class DPStepCache(CompiledProgramCache):
+    """The data-parallel trainer's captured steps: one program per
+    (variant key, conf, input shapes), over the trainer's flat state
+    buffers (params, and the updater's two moments), which the program's
+    `write` updates in place. Books as `TrainStepCache`'s; the graphs
+    go into the trainer's own memory pool."""
+
+    kind = "dp-step-cache"
+
+    def step(self, variant: Tuple, conf, build: Callable, bufs,
+             inputs: Tuple[torch.Tensor, ...], write: Callable,
+             compile_only: bool = False):
+        """Run (or capture, on a miss) the program of `variant` for
+        `conf` on `inputs`: `build()` gives the function of (bufs,
+        *inputs) that computes a step, `write(bufs, out)` puts it into the
+        buffers and returns the score, a tensor on the device."""
+        key = variant + (self._fingerprint(conf), arg_signature(*inputs))
+        return self._run(key, build, bufs, inputs, read=_read_score,
+                         write=write, compile_only=compile_only)
+
+
+def _read_score(s: torch.Tensor) -> torch.Tensor:
+    """A step's score as the caller keeps it: a copy on the device, since
+    the next replay overwrites the graph's static output."""
+    return s.detach().clone()

@@ -15,6 +15,20 @@ op is one full-width kernel instead of one per leaf. Every op is
 elementwise except the two global norms, which `flat_norm` reduces per
 original leaf. The JAX package's `optimization_barrier`s pin XLA's fusion
 choices; eager PyTorch makes none, so they have no counterpart.
+`adjust_gradient_auto` takes trees and honours the flag, as in the JAX
+package.
+
+The iteration enters the chain through host constants: Adam's bias
+corrections, the scheduled momentum and AdaGrad's reset flag
+(`iteration_constants`, float32 arithmetic on the host). A one-call solver
+run bakes them in as Python numbers. An updater that persists across
+calls (the data-parallel trainer's) passes them as a float32 [4] tensor,
+`consts`, which a captured step takes as an input that the host fills
+before each replay; the eager and captured steps then read the same
+values. Computing `pow` on the device instead would give a captured graph
+the iteration alone, but `torch.pow` on the card need not round as
+numpy's float32 `**` does, and the constants would part from the solver
+run's.
 """
 
 from __future__ import annotations
@@ -46,6 +60,25 @@ def _momentum_at(conf, iteration: int) -> float:
         if iteration >= it:
             m = mom
     return float(np.float32(m))
+
+
+#: the fields of `iteration_constants`, in order
+ITERATION_CONSTANTS = ("c1", "c2", "momentum", "reset")
+
+
+def iteration_constants(conf, iteration: int) -> np.ndarray:
+    """The host constants of one iteration as float32 [4]: Adam's bias
+    corrections c1 = 1 - b1^t and c2 = 1 - b2^t (t = iteration + 1), the
+    scheduled momentum, and 1.0 where AdaGrad's history resets at this
+    iteration (else 0.0). The values `adjust_gradient` computes for an int
+    iteration."""
+    t = np.float32(iteration + 1)
+    c1 = 1 - np.float32(conf.adam_beta1) ** t
+    c2 = 1 - np.float32(conf.adam_beta2) ** t
+    reset = (conf.adagrad_reset_iterations > 0
+             and iteration % conf.adagrad_reset_iterations == 0)
+    return np.array([c1, c2, _momentum_at(conf, iteration), float(reset)],
+                    np.float32)
 
 
 # -- flat-buffer (fused) layout ---------------------------------------------
@@ -106,10 +139,11 @@ def tree_norm(t) -> torch.Tensor:
 
 
 def adjust_gradient(conf, iteration: int, grads, params,
-                    state: UpdaterState, _norm_fn=tree_norm):
+                    state: UpdaterState, _norm_fn=tree_norm, consts=None):
     """Apply the updater chain; returns (step, new_state). The step is
     subtracted from params. Adam keeps its first moment in `velocity` and
-    its second in `adagrad_hist`."""
+    its second in `adagrad_hist`. `consts`, a float32 [4] tensor of
+    `iteration_constants`, replaces what `iteration` gives."""
     eps = 1e-8
     lr = conf.lr
     which = (getattr(conf, "updater", "") or "").lower()
@@ -123,10 +157,12 @@ def adjust_gradient(conf, iteration: int, grads, params,
     vel = state.velocity
     if which == "adam":
         b1, b2 = conf.adam_beta1, conf.adam_beta2
-        # the bias corrections in f32, as the JAX package computes them
-        t = np.float32(iteration + 1)
-        c1 = float(1 - np.float32(b1) ** t)
-        c2 = float(1 - np.float32(b2) ** t)
+        if consts is None:
+            # the bias corrections in f32, as the JAX package computes them
+            c1, c2 = (float(c) for c in
+                      iteration_constants(conf, iteration)[:2])
+        else:
+            c1, c2 = consts[0], consts[1]
         vel = tree_map(lambda m, g: b1 * m + (1 - b1) * g, vel, grads)
         hist = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, hist, grads)
         step = tree_map(lambda m, v: lr * (m / c1)
@@ -138,7 +174,8 @@ def adjust_gradient(conf, iteration: int, grads, params,
         step = tree_map(lambda g, h: lr * g / (torch.sqrt(h) + eps), grads,
                         hist)
     elif which == "nesterov":
-        mom = _momentum_at(conf, iteration)
+        mom = (_momentum_at(conf, iteration) if consts is None
+               else consts[2])
         vel = tree_map(lambda v, g: mom * v + g, vel, grads)
         # look-ahead step: lr * (g + mu * v_new)
         step = tree_map(lambda g, v: lr * (g + mom * v), grads, vel)
@@ -147,15 +184,20 @@ def adjust_gradient(conf, iteration: int, grads, params,
         use_adagrad = (conf.use_adagrad if which == ""
                        else which == "adagrad")
         if use_adagrad:
-            resetting = (conf.adagrad_reset_iterations > 0 and iteration
-                         % conf.adagrad_reset_iterations == 0)
-            hist = tree_map((lambda h, g: g * g) if resetting
-                            else (lambda h, g: h + g * g), hist, grads)
+            if consts is not None and conf.adagrad_reset_iterations > 0:
+                hist = tree_map(lambda h, g: torch.where(
+                    consts[3] > 0, g * g, h + g * g), hist, grads)
+            else:
+                resetting = (conf.adagrad_reset_iterations > 0 and iteration
+                             % conf.adagrad_reset_iterations == 0)
+                hist = tree_map((lambda h, g: g * g) if resetting
+                                else (lambda h, g: h + g * g), hist, grads)
             scaled = tree_map(lambda g, h: lr * g / (torch.sqrt(h) + eps),
                               grads, hist)
         else:
             scaled = tree_map(lambda g: lr * g, grads)
-        mom = _momentum_at(conf, iteration)
+        mom = (_momentum_at(conf, iteration) if consts is None
+               else consts[2])
         vel = tree_map(lambda v, s: mom * v + s, vel, scaled)
         step = vel
     else:
@@ -176,8 +218,34 @@ def adjust_gradient(conf, iteration: int, grads, params,
 
 
 def adjust_gradient_flat(conf, iteration: int, grad_bufs, param_bufs,
-                         state: UpdaterState, spec: FlatSpec):
+                         state: UpdaterState, spec: FlatSpec, consts=None,
+                         norm_fn=None):
     """The updater chain over `flat_ravel`ed buffers (and state of the same
-    layout); the norms reduce per original leaf."""
+    layout); the norms reduce per original leaf (`norm_fn` replaces
+    `flat_norm`, as ZeRO-1's chunked norm does)."""
     return adjust_gradient(conf, iteration, grad_bufs, param_bufs, state,
-                           _norm_fn=lambda t: flat_norm(spec, t))
+                           _norm_fn=norm_fn or (lambda t: flat_norm(spec,
+                                                                    t)),
+                           consts=consts)
+
+
+def adjust_gradient_auto(conf, iteration: int, grads, params,
+                         state: UpdaterState, consts=None):
+    """`adjust_gradient` that honours `conf.fused_updater` on trees: with
+    the flag, grads, params and state are raveled at the boundary, the
+    chain runs over the flat buffers, and the step and the new state come
+    back as trees (views into the buffers). Per element both layouts run
+    the same ops, and the norms reduce per original leaf in both, so they
+    agree bit for bit."""
+    if not getattr(conf, "fused_updater", False):
+        return adjust_gradient(conf, iteration, grads, params, state,
+                               consts=consts)
+    spec = make_flat_spec(params)
+    fstate = UpdaterState(adagrad_hist=flat_ravel(spec, state.adagrad_hist),
+                          velocity=flat_ravel(spec, state.velocity))
+    adj, new = adjust_gradient_flat(conf, iteration, flat_ravel(spec, grads),
+                                    flat_ravel(spec, params), fstate, spec,
+                                    consts=consts)
+    return (flat_unravel(spec, adj),
+            UpdaterState(adagrad_hist=flat_unravel(spec, new.adagrad_hist),
+                         velocity=flat_unravel(spec, new.velocity)))

@@ -1,24 +1,29 @@
-"""Checkpoints in the JAX package's gathered layout, and carrying weights
-across.
+"""Checkpoints in the JAX package's layouts, and carrying weights across.
 
-Counterpart of `deeplearning4j_tpu/parallel/checkpoint.py` for the plain
-gathered layout: `meta.json` (step, data cursor, user metadata, format
-version), `conf.json` and `arrays.npz`, whose keys are tree paths such as
-`params/3/W`. `save` writes that layout atomically (a temporary directory
-swung into place, the previous one kept as '<dir>.bak' until the swap is
-done), so the JAX package's `load` reads what the port trained; `load`
-reads it back, into a given params tree or as nested dicts, and
-`load_resilient` falls back to '<dir>.bak' when the directory is missing
-or unreadable. Saves and loads traverse the `checkpoint.save` and
-`checkpoint.load` fault points where the JAX package's do.
+Counterpart of `deeplearning4j_tpu/parallel/checkpoint.py`. The gathered
+layout: `meta.json` (step, data cursor, user metadata, format version, the
+writing mesh), `conf.json` and `arrays.npz`, whose keys are tree paths such
+as `params/3/W`, and for a trainer's updater `updater/.adagrad_hist/3/W`
+and `updater/.velocity/3/W` (the JAX package's names for the fields of its
+`UpdaterState`). `save` writes that layout atomically (a temporary
+directory swung into place, the previous one kept as '<dir>.bak' until the
+swap is done), on rank 0 only, so the JAX package's `load` reads what the
+port trained; `load` reads it back, into given params and updater trees or
+as nested dicts, and `load_resilient` falls back to '<dir>.bak' when the
+directory is missing or unreadable. `load` also reads the sharded layout
+(`index.json` and `shards.npz`, one piece a unique shard) that the JAX
+package's `save_sharded` writes for a tensor-parallel plan, assembling
+each leaf whole (`load_sharded`); writing it comes with the plan
+(ROADMAP.md queue A item 10b). Saves and loads traverse the
+`checkpoint.save` and `checkpoint.load` fault points where the JAX
+package's do.
 `save_async` takes an owned host copy of the params on the calling thread
 and writes it on a background thread; a failed background write is raised
 again by the next `save_async` or by `join_async`, which waits for every
 outstanding write, as in the JAX package.
 `params_from_numpy` turns the JAX package's params (a tuple of dicts of
 numpy arrays, as `jax.device_get` gives them) into the port's tensors, and
-`params_to_numpy` is its inverse. The sharded layout is not ported
-(ROADMAP.md queue A item 10).
+`params_to_numpy` is its inverse.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.nd import platform
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.optimize.tree import tree_unflatten
 from deeplearning4j_tpu_torch.reliability import faults
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
@@ -101,27 +108,51 @@ def _atomic_swap(tmp: str, directory: str) -> None:
         os.replace(tmp, directory)
 
 
-def save(directory: str, params, *, conf: MultiLayerConfiguration = None,
-         step: int = 0, data_cursor: Optional[Dict[str, Any]] = None,
-         metadata: Optional[Dict[str, Any]] = None) -> str:
-    """Write `params` (and `conf` as conf.json) as a gathered-layout
-    checkpoint that the JAX package's `checkpoint.load` reads: arrays.npz
-    keyed `params/{layer}/{name}`, meta.json with the JAX package's keys
-    (`step`, `data_cursor` and `metadata`, JSON-able dicts, `format_version`
-    1, `mesh` null). Returns the directory."""
+def _leaf_paths(tree, prefix: Tuple[str, ...] = ()):
+    """(path, leaf) of every leaf in `tree_leaves` order, keyed as the JAX
+    package keys its arrays: sequence indices, dict keys (sorted) and
+    "." + the field name of a NamedTuple, joined by '/'."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for name, v in zip(tree._fields, tree):
+            yield from _leaf_paths(v, prefix + ("." + name,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, prefix + (str(i),))
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], prefix + (str(k),))
+    else:
+        yield "/".join(prefix), tree
+
+
+def save(directory: str, params, updater=None, *,
+         conf: MultiLayerConfiguration = None, step: int = 0,
+         data_cursor: Optional[Dict[str, Any]] = None,
+         metadata: Optional[Dict[str, Any]] = None,
+         mesh: Optional[Dict[str, Any]] = None) -> str:
+    """Write `params` (and a trainer's `updater`, and `conf` as conf.json)
+    as a gathered-layout checkpoint that the JAX package's
+    `checkpoint.load` reads: arrays.npz keyed `params/{layer}/{name}` and
+    `updater/.{field}/{layer}/{name}`, meta.json with the JAX package's
+    keys (`step`, `data_cursor` and `metadata`, JSON-able dicts,
+    `format_version` 1, and `mesh`, the writing topology or null). Only
+    rank 0 of a process group writes. Returns the directory."""
+    if platform.rank() != 0:
+        return directory
     faults.fire("checkpoint.save", path=directory)
     directory = os.fspath(directory)
     parent = os.path.dirname(os.path.abspath(directory)) or "."
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=".ckpt-tmp-", dir=parent)
     try:
-        arrays = {f"params/{i}/{name}": a
-                  for i, layer in enumerate(params_to_numpy(params))
-                  for name, a in layer.items()}
+        state = {"params": params}
+        if updater is not None:
+            state["updater"] = updater
+        arrays = {key: _to_numpy(a) for key, a in _leaf_paths(state)}
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         meta = {"step": int(step), "data_cursor": dict(data_cursor or {}),
                 "metadata": dict(metadata or {}),
-                "format_version": FORMAT_VERSION, "mesh": None}
+                "format_version": FORMAT_VERSION, "mesh": mesh or None}
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump(meta, f, indent=1)
         if conf is not None:
@@ -150,20 +181,22 @@ def _raise_pending_async_error() -> None:
     raise err
 
 
-def _host_snapshot(params) -> tuple:
-    """Owned host copies of every param, taken now. A CUDA tensor is copied
-    by a synchronous device-to-host copy after the device has finished the
-    work queued before it; the captured train step writes the same
-    addresses in place, so a `non_blocking` copy into pinned memory could
-    read a later step's values."""
-    if any(t.device.type == "cuda" for layer in params
-           for t in layer.values()):
+def _host_snapshot(tree):
+    """Owned host copies of every leaf of `tree`, taken now. A CUDA tensor
+    is copied by a synchronous device-to-host copy after the device has
+    finished the work queued before it; the captured train steps write the
+    same addresses in place, so a `non_blocking` copy into pinned memory
+    could read a later step's values."""
+    from deeplearning4j_tpu_torch.optimize.tree import tree_leaves, tree_map
+
+    if any(isinstance(t, torch.Tensor) and t.device.type == "cuda"
+           for t in tree_leaves(tree)):
         torch.cuda.synchronize()
-    return tuple({name: t.detach().to("cpu", copy=True)
-                  for name, t in layer.items()} for layer in params)
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
 
 
-def save_async(directory: str, params, **kw) -> threading.Thread:
+def save_async(directory: str, params, updater=None,
+               **kw) -> threading.Thread:
     """`save` on a background thread, from a host snapshot taken before the
     thread starts, so training may overwrite the params at once. Writes
     land in call order: each thread waits for the one started before it,
@@ -173,6 +206,7 @@ def save_async(directory: str, params, **kw) -> threading.Thread:
     outstanding write and raises the first failure."""
     _raise_pending_async_error()
     snapshot = _host_snapshot(params)
+    upd_snapshot = None if updater is None else _host_snapshot(updater)
     with _async_lock:
         before = _async_threads[-1] if _async_threads else None
 
@@ -180,7 +214,7 @@ def save_async(directory: str, params, **kw) -> threading.Thread:
         try:
             if before is not None:
                 before.join()
-            save(directory, snapshot, **kw)
+            save(directory, snapshot, upd_snapshot, **kw)
         except BaseException as e:  # noqa: BLE001 — raised at the next call
             log.error("async checkpoint save to %s failed: %r", directory, e)
             with _async_lock:
@@ -211,33 +245,40 @@ def load_conf(directory: str) -> MultiLayerConfiguration:
         return MultiLayerConfiguration.from_json(f.read())
 
 
-def load(directory: str, like_params=None
+def _check_version(directory: str, meta: Dict[str, Any]) -> None:
+    version = int(meta.get("format_version", 0))
+    if version > FORMAT_VERSION:
+        raise CheckpointFormatError(
+            f"checkpoint {directory} has format_version={version} but this "
+            f"build reads <= {FORMAT_VERSION}")
+
+
+def load(directory: str, like_params=None, like_updater=None
          ) -> Tuple[Any, Any, Dict[str, Any]]:
-    """Read a gathered-layout checkpoint: (params, updater or None, meta).
+    """Read a checkpoint of either layout: (params, updater or None, meta).
     With `like_params` (a params tree of tensors) the params come back in
-    that tree's structure, each leaf a tensor on its leaf's device; a
-    missing leaf or another shape raises `CheckpointFormatError`. Without
-    it the trees are nested dicts of numpy arrays keyed by path component.
-    Falls back to '<dir>.bak' when the directory is missing, as the JAX
-    package does."""
+    that tree's structure, each leaf a tensor on its leaf's device, and so
+    does the updater with `like_updater` (an `UpdaterState` of such
+    trees); a missing leaf or another shape raises
+    `CheckpointFormatError`. Without them the trees are nested dicts of
+    numpy arrays keyed by path component (the sharded layout needs
+    `like_params`, as in the JAX package). Falls back to '<dir>.bak' when
+    the directory is missing, as the JAX package does."""
     if not os.path.isdir(directory) and os.path.isdir(directory + ".bak"):
         directory = directory + ".bak"
     faults.fire("checkpoint.load", path=directory)
     with open(os.path.join(directory, "meta.json")) as f:
         meta = json.load(f)
     if meta.get("layout") == "sharded":
-        raise CheckpointFormatError(
-            f"checkpoint {directory} has the sharded layout, which the port "
-            f"does not read yet (ROADMAP.md queue A item 10)")
-    version = int(meta.get("format_version", 0))
-    if version > FORMAT_VERSION:
-        raise CheckpointFormatError(
-            f"checkpoint {directory} has format_version={version} but this "
-            f"build reads <= {FORMAT_VERSION}")
+        return _load_sharded_impl(directory, like_params, like_updater, None)
+    _check_version(directory, meta)
     with np.load(os.path.join(directory, "arrays.npz")) as z:
         flat = {key: z[key] for key in z.files}
     if like_params is not None:
-        return _restore(directory, flat, like_params), None, meta
+        params = _restore(directory, flat, "params", like_params)
+        updater = (None if like_updater is None else
+                   _restore(directory, flat, "updater", like_updater))
+        return params, updater, meta
     nested: Dict[str, Any] = {}
     for key, a in flat.items():
         node = nested
@@ -248,30 +289,141 @@ def load(directory: str, like_params=None
     return nested.get("params", nested), nested.get("updater"), meta
 
 
-def _restore(directory: str, flat: Dict[str, np.ndarray], like) -> tuple:
-    """The `params/...` arrays of `flat` in the structure of `like`, on
+def _restore(directory: str, flat: Dict[str, np.ndarray], prefix: str,
+             like):
+    """The `prefix/...` arrays of `flat` in the structure of `like`, on
     its leaves' devices, after the JAX package's checks."""
-    out = []
-    for i, layer in enumerate(like):
-        restored = {}
-        for name, leaf in layer.items():
-            key = f"params/{i}/{name}"
-            if key not in flat:
-                raise CheckpointFormatError(
-                    f"checkpoint {directory} is missing '{key}': it was "
-                    f"written for a different model config")
-            if tuple(flat[key].shape) != tuple(leaf.shape):
-                raise CheckpointFormatError(
-                    f"checkpoint {directory} leaf {key} has shape "
-                    f"{tuple(flat[key].shape)}, model expects "
-                    f"{tuple(leaf.shape)}: this checkpoint belongs to a "
-                    f"different config")
-            restored[name] = _to_tensor(flat[key], leaf.device)
-        out.append(restored)
-    return tuple(out)
+    leaves = []
+    for path, leaf in _leaf_paths(like, (prefix,)):
+        if path not in flat:
+            raise CheckpointFormatError(
+                f"checkpoint {directory} is missing '{path}': it was "
+                f"written for a different model config")
+        if tuple(flat[path].shape) != tuple(leaf.shape):
+            raise CheckpointFormatError(
+                f"checkpoint {directory} leaf {path} has shape "
+                f"{tuple(flat[path].shape)}, model expects "
+                f"{tuple(leaf.shape)}: this checkpoint belongs to a "
+                f"different config")
+        leaves.append(_to_tensor(flat[path], leaf.device))
+    return tree_unflatten(like, leaves)
 
 
-def load_resilient(directory: str, like_params=None
+# -- the sharded layout (read) ----------------------------------------------
+#
+# The JAX package's `save_sharded` writes one piece a unique shard of
+# every leaf:
+#
+#   meta.json    as above, plus "layout": "sharded"
+#   index.json   {"leaves": {path: {"shape", "dtype",
+#                 "pieces": [{"key", "index": [[s, e], ...]}]}}}
+#   shards.npz   pieces keyed "path::i"
+#
+# A region of a leaf assembles from the pieces that overlap it, so an N-way
+# sharded checkpoint reads on any number of ranks.
+
+
+def _read_sharded_index(directory: str) -> Tuple[Dict[str, Any],
+                                                 Dict[str, Any]]:
+    with open(os.path.join(directory, "index.json")) as f:
+        index = json.load(f)
+    with open(os.path.join(directory, "meta.json")) as f:
+        meta = json.load(f)
+    _check_version(directory, meta)
+    return index["leaves"], meta
+
+
+def _assemble_region(z, info: Dict[str, Any], region: Tuple[slice, ...],
+                     stats: Optional[Dict[str, Any]]) -> np.ndarray:
+    """One region of a leaf, assembled from the saved pieces overlapping
+    it: the host holds the region, never the whole leaf."""
+    shape = tuple(int(d) for d in info["shape"])
+    dtype = _np_dtype(info["dtype"])
+    bounds = tuple(sl.indices(d)[:2] for sl, d in zip(region, shape))
+    out = np.zeros(tuple(e - s for s, e in bounds), dtype)
+    for piece in info["pieces"]:
+        pb = [tuple(b) for b in piece["index"]]
+        lo = [max(s, ps) for (s, _), (ps, _) in zip(bounds, pb)]
+        hi = [min(e, pe) for (_, e), (_, pe) in zip(bounds, pb)]
+        if any(a >= b for a, b in zip(lo, hi)):
+            continue
+        data = z[piece["key"]]
+        src = tuple(slice(a - ps, b - ps)
+                    for a, b, (ps, _) in zip(lo, hi, pb))
+        dst = tuple(slice(a - s, b - s)
+                    for a, b, (s, _) in zip(lo, hi, bounds))
+        out[dst] = data[src]
+        if stats is not None:
+            stats["max_piece_bytes"] = max(
+                stats.get("max_piece_bytes", 0), int(data.nbytes))
+            stats["pieces_read"] = stats.get("pieces_read", 0) + 1
+    if stats is not None:
+        stats["max_region_bytes"] = max(
+            stats.get("max_region_bytes", 0), int(out.nbytes))
+    return out
+
+
+def _np_dtype(name: str):
+    """A numpy dtype by name; "bfloat16" through `ml_dtypes`, as JAX
+    writes it."""
+    if name == "bfloat16":
+        import ml_dtypes
+
+        return ml_dtypes.bfloat16
+    return np.dtype(name)
+
+
+def _load_sharded_impl(directory: str, like_params, like_updater,
+                       stats) -> Tuple[Any, Any, Dict[str, Any]]:
+    index, meta = _read_sharded_index(directory)
+    if like_params is None:
+        raise CheckpointFormatError(
+            f"checkpoint {directory} has the sharded layout, which "
+            f"restores into an example tree: pass like_params=")
+
+    def restore(prefix, like):
+        paths = list(_leaf_paths(like, (prefix,)))
+        missing = [k for k, _ in paths if k not in index]
+        if missing:
+            raise CheckpointFormatError(
+                f"checkpoint {directory} is missing {len(missing)} "
+                f"'{prefix}' leaves (first: {missing[0]}): it was written "
+                f"for a different model config")
+        leaves = []
+        with np.load(os.path.join(directory, "shards.npz")) as z:
+            for k, leaf in paths:
+                info = index[k]
+                if tuple(info["shape"]) != tuple(leaf.shape):
+                    raise CheckpointFormatError(
+                        f"checkpoint {directory} leaf {k} has shape "
+                        f"{tuple(info['shape'])}, model expects "
+                        f"{tuple(leaf.shape)}: this checkpoint belongs to "
+                        f"a different config")
+                whole = (slice(None),) * len(info["shape"])
+                leaves.append(_to_tensor(
+                    _assemble_region(z, info, whole, stats), leaf.device))
+        return tree_unflatten(like, leaves)
+
+    params = restore("params", like_params)
+    updater = (None if like_updater is None
+               else restore("updater", like_updater))
+    return params, updater, meta
+
+
+def load_sharded(directory: str, like_params=None, like_updater=None, *,
+                 stats: Optional[Dict[str, Any]] = None
+                 ) -> Tuple[Any, Any, Dict[str, Any]]:
+    """Read a checkpoint of the JAX package's sharded layout into
+    `like_params` (and `like_updater`): each leaf assembled whole from its
+    pieces, on its like leaf's device. `stats` (a dict) records
+    "max_piece_bytes", "max_region_bytes" and "pieces_read"."""
+    if not os.path.isdir(directory) and os.path.isdir(directory + ".bak"):
+        directory = directory + ".bak"
+    faults.fire("checkpoint.load", path=directory)
+    return _load_sharded_impl(directory, like_params, like_updater, stats)
+
+
+def load_resilient(directory: str, like_params=None, like_updater=None
                    ) -> Optional[Tuple[Any, Any, Dict[str, Any]]]:
     """The newest readable checkpoint among '<dir>' and '<dir>.bak', or
     None. A corrupt directory (torn npz, missing meta.json) falls back to
@@ -281,7 +433,7 @@ def load_resilient(directory: str, like_params=None
         if not os.path.isdir(cand):
             continue
         try:
-            return load(cand, like_params)
+            return load(cand, like_params, like_updater)
         except CheckpointFormatError:
             raise
         except Exception as e:  # noqa: BLE001 — corrupt entry, try fallback

@@ -1,0 +1,218 @@
+"""Process groups as meshes.
+
+Counterpart of `deeplearning4j_tpu/parallel/mesh.py:1-80`. The JAX package
+runs one process over every device and names the device axes of a
+`jax.sharding.Mesh`; the port runs one process per rank of a
+`torch.distributed` process group, and its `Mesh` records the axis names,
+their sizes, the group and this rank's device. Only the data-parallel axis
+is ported: the tensor, sequence, pipeline and expert axes come with
+ROADMAP.md queue A item 10b, and so does the serving mesh
+(`serve_mesh`).
+
+`init_distributed` starts (or reuses) the default group: from torchrun's
+`RANK`/`WORLD_SIZE`/`MASTER_ADDR`/`MASTER_PORT` when they are set, and
+otherwise as a group of one over an in-memory store. A CUDA device takes
+NCCL and the CPU takes gloo; without NCCL a CUDA run fails and says so,
+with no fallback to gloo. `shard_batch` gives this rank its contiguous
+slice of a batch, the rows that `P("dp")` places on device r in JAX:
+rank r takes rows [r·b/n, (r+1)·b/n).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.nd.platform import resolve_device
+
+#: canonical axis order, outermost first (the JAX package's)
+AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")
+
+#: the axis the port's data-parallel training runs over
+DP_AXIS = "dp"
+#: the axes that shard the batch: "dp", and "batch", the 1-D layout of the
+#: CLI's `--mesh` (the JAX package's serving and plan axis)
+DATA_AXES = (DP_AXIS, "batch")
+
+
+class Mesh:
+    """A data-parallel mesh: `axis_names`, `shape` ({axis: size}), the
+    process `group` whose ranks make up the mesh, and this rank's
+    `device`."""
+
+    def __init__(self, shape: Dict[str, int], group, device: torch.device):
+        self.axis_names: Tuple[str, ...] = tuple(shape)
+        self.shape: Dict[str, int] = dict(shape)
+        self.group = group
+        self.device = device
+
+    @property
+    def rank(self) -> int:
+        import torch.distributed as dist
+
+        return dist.get_rank(self.group)
+
+    @property
+    def backend(self) -> str:
+        import torch.distributed as dist
+
+        return str(dist.get_backend(self.group))
+
+    def __repr__(self):
+        return (f"Mesh(shape={self.shape}, rank={self.rank}, "
+                f"device={self.device}, backend={self.backend})")
+
+
+class Sharding(NamedTuple):
+    """Where an array lives on a mesh: `spec` names the mesh axis of each
+    leading dim, () replicated (JAX's `PartitionSpec`)."""
+
+    mesh: Mesh
+    spec: Tuple[str, ...]
+
+
+def mesh_axes(mesh: Mesh) -> Sequence[str]:
+    return tuple(mesh.axis_names)
+
+
+def _torchrun() -> bool:
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def rank_device(device=None) -> torch.device:
+    """This rank's device. Under torchrun, one card a rank: None or a
+    `cuda` without an index is the card of torchrun's `LOCAL_RANK` (modulo
+    the cards this process sees, so a rank shown only its own card takes
+    it); an explicit index or the CPU stands. Otherwise as
+    `resolve_device`."""
+    want = torch.device("cuda" if device is None else device)
+    if (_torchrun() and want.type == "cuda" and want.index is None
+            and torch.cuda.is_available()):
+        local = int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
+        want = torch.device("cuda", local % torch.cuda.device_count())
+    return resolve_device(want)
+
+
+def init_distributed(device=None):
+    """(group, device): the default process group, started here if no
+    group is running, and this rank's device (`rank_device`, made the
+    current CUDA device). torchrun's environment (`RANK`, `WORLD_SIZE`,
+    `MASTER_ADDR`, `MASTER_PORT`, `LOCAL_RANK`) gives the rendezvous;
+    without it the group is this process alone, over a `HashStore`. CUDA
+    takes NCCL, the CPU gloo. Build the network on the returned device (or
+    the mesh's): under torchrun it is not `cuda:0` on every rank."""
+    import torch.distributed as dist
+
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if not dist.is_available():
+        raise RuntimeError("torch.distributed is not available in this "
+                           "PyTorch build")
+    if dist.is_initialized():
+        have = str(dist.get_backend())
+        if have != backend:
+            raise RuntimeError(
+                f"the running process group uses {have}, but a {dev.type} "
+                f"mesh needs {backend}")
+        return dist.group.WORLD, dev
+    if backend == "nccl" and not dist.is_nccl_available():
+        raise RuntimeError(
+            "data-parallel training on CUDA needs the NCCL backend, which "
+            "this PyTorch build lacks (there is no gloo fallback on the "
+            "card)")
+    if _torchrun():
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return dist.group.WORLD, dev
+
+
+def make_mesh(shape: Optional[Dict[str, int]] = None, device=None,
+              group=None) -> Mesh:
+    """A Mesh of `{axis: size}` over the ranks of `group` (the default
+    group, started by `init_distributed` when None); `-1` for one axis
+    means every remaining rank. Default: data parallelism over every rank.
+    The sizes must multiply to the group's size. Axes other than the data
+    axes ("dp", and the CLI's "batch") of more than one rank (tensor,
+    sequence, pipeline and expert parallelism) raise, naming ROADMAP.md
+    queue A item 10b."""
+    import torch.distributed as dist
+
+    if group is None:
+        group, dev = init_distributed(device)
+    else:
+        dev = rank_device(device)
+    n = dist.get_world_size(group)
+    shape = dict(shape) if shape else {DP_AXIS: n}
+    model = {a: s for a, s in shape.items()
+             if a not in DATA_AXES and s != 1}
+    if model:
+        raise ValueError(
+            f"mesh axes {model} are not ported to deeplearning4j_tpu_torch "
+            f"yet (tensor, sequence, pipeline and expert parallelism: "
+            f"ROADMAP.md queue A item 10b)")
+    fills = [a for a, s in shape.items() if s == -1]
+    if len(fills) > 1:
+        raise ValueError("at most one axis may be -1")
+    fixed = math.prod(s for s in shape.values() if s != -1)
+    if fills:
+        if n % fixed:
+            raise ValueError(f"{n} ranks not divisible by {fixed}")
+        shape[fills[0]] = n // fixed
+    total = math.prod(shape.values())
+    if total != n:
+        raise ValueError(f"mesh {shape} needs {total} ranks, the process "
+                         f"group has {n}")
+    axes = [a for a in AXIS_ORDER if a in shape]
+    axes += [a for a in shape if a not in axes]
+    return Mesh({a: shape[a] for a in axes}, group, dev)
+
+
+def replicated(mesh: Mesh) -> Sharding:
+    return Sharding(mesh, ())
+
+
+def batch_sharding(mesh: Mesh, axis: str = DP_AXIS) -> Sharding:
+    """Shard the leading (batch) dimension over `axis`."""
+    return Sharding(mesh, (axis,))
+
+
+def batch_tensor(a) -> torch.Tensor:
+    """An array of a batch as a tensor where it lies (float64 becomes
+    float32)."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def shard_batch(mesh: Mesh, arrays, axis: str = DP_AXIS):
+    """This rank's contiguous slice of each array's leading dim, as a
+    tensor on the mesh's device (float64 becomes float32): rank r of n
+    takes rows [r·b/n, (r+1)·b/n), the rows `P(axis)` places on device r
+    in the JAX package. A leading dim that n does not divide raises.
+    `arrays` is one array or a tuple or list of them."""
+    n = mesh.shape[axis]
+    r = mesh.rank if n > 1 else 0
+
+    def one(a):
+        t = batch_tensor(a)
+        b = int(t.shape[0])
+        if b % n:
+            raise ValueError(f"leading dim {b} is not divisible by the "
+                             f"{n}-rank '{axis}' axis")
+        k = b // n
+        return t[r * k:(r + 1) * k].to(mesh.device)
+
+    if isinstance(arrays, (tuple, list)):
+        return type(arrays)(one(a) for a in arrays)
+    return one(arrays)

@@ -7,8 +7,12 @@ A SIGTERM (the handler `fit` installs, called in process) or
 rerun on the same directory and stream resumes at the saved cursor and ends
 bitwise equal to one uninterrupted run (on the CPU; the card's check is in
 chip_smoke.py). Checkpoints carry params, the data cursor and metadata in
-the JAX package's layout both ways. Inputs and weights come from numpy
-seeds.
+the JAX package's layout both ways. The data-parallel trainer's
+checkpoints (its updater, step and mesh record too) cross both ways as
+well, a JAX mesh checkpoint of 4 virtual devices resuming in the port
+and stepping as JAX steps (rtol 2e-4, atol 2e-5), and the sharded layout
+of JAX's tensor-parallel plan reads bit for bit. Inputs and weights come
+from numpy seeds.
 """
 
 import json
@@ -25,7 +29,9 @@ import jax  # noqa: E402
 
 from deeplearning4j_tpu.cli.driver import main as jax_main  # noqa: E402
 from deeplearning4j_tpu.models import zoo as jax_zoo  # noqa: E402
+from deeplearning4j_tpu.nn import conf as jax_conf  # noqa: E402
 from deeplearning4j_tpu.nn import multilayer as jax_ml  # noqa: E402
+from deeplearning4j_tpu.optimize import updater as jax_updater  # noqa: E402,E501
 from deeplearning4j_tpu.parallel import checkpoint as jax_checkpoint  # noqa: E402,E501
 from deeplearning4j_tpu_torch.cli.driver import main  # noqa: E402
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet  # noqa: E402
@@ -34,7 +40,11 @@ from deeplearning4j_tpu_torch.datasets.iterator import (  # noqa: E402
 from deeplearning4j_tpu_torch.nn import multilayer as ml  # noqa: E402
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration  # noqa: E402,E501
 from deeplearning4j_tpu_torch.optimize.tree import tree_leaves  # noqa: E402
+from deeplearning4j_tpu_torch.optimize.updater import UpdaterState  # noqa: E402,E501
 from deeplearning4j_tpu_torch.parallel import checkpoint  # noqa: E402
+from deeplearning4j_tpu_torch.parallel.data_parallel import (  # noqa: E402
+    DataParallelTrainer, gather_updater)
+from deeplearning4j_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from deeplearning4j_tpu_torch.reliability import (  # noqa: E402
     TrainingInterrupted, faults)
 
@@ -286,3 +296,200 @@ def test_cli_checkpoint_dir_resumes_and_keeps_the_jax_train_keys(
     for p, q in zip(tree_leaves(a.params), tree_leaves(b.params)):
         assert torch.equal(p, q)
     assert two["score"] == one["score"]
+
+
+# -- the data-parallel trainer's checkpoints (tests/test_elastic_resume.py) --
+
+def _dp_conf():
+    """The JAX package's elastic-resume net: 4 -> 8 -> 3, AdaGrad."""
+    jc = jax_conf
+    base = jc.NeuralNetConfiguration(
+        n_in=4, n_out=3, lr=0.1,
+        optimization_algo=jc.OptimizationAlgorithm.ITERATION_GRADIENT_DESCENT,
+        num_iterations=5)
+    jconf = (jc.list_builder(base, 2).hidden_layer_sizes([8], 4, 3)
+             .override(1, layer_type=jc.LayerType.OUTPUT)
+             .pretrain(False).backprop(True).build())
+    return jconf, MultiLayerConfiguration.from_json(jconf.to_json())
+
+
+def _dp_batches(n=48, bs=8, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, 4).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.randint(0, 3, size=n)]
+    return [(x[i:i + bs], y[i:i + bs]) for i in range(0, n, bs)]
+
+
+def _dp_pair(n_jax=1, **kw):
+    """(JAX trainer on `n_jax` virtual devices, port trainer at world size
+    1) on JAX's initial params."""
+    from deeplearning4j_tpu.parallel.data_parallel import \
+        DataParallelTrainer as JaxTrainer
+    from deeplearning4j_tpu.parallel.mesh import make_mesh as jax_mesh
+
+    jconf, tconf = _dp_conf()
+    jnet = jax_ml.MultiLayerNetwork(jconf).init()
+    net = ml.MultiLayerNetwork(tconf, device="cpu")
+    net.params = checkpoint.params_from_numpy(jax.device_get(jnet.params),
+                                              "cpu")
+    jt = JaxTrainer(jnet, jax_mesh({"dp": n_jax},
+                                   devices=jax.devices()[:n_jax]), **kw)
+    return jt, DataParallelTrainer(net, make_mesh({"dp": 1}, device="cpu"),
+                                   **kw)
+
+
+def _assert_close_trees(got, want):
+    got, want = tree_leaves(got), jax.tree_util.tree_leaves(want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("zero1", [False, True])
+def test_jax_mesh_checkpoint_resumes_in_the_port_and_steps_as_jax(
+        tmp_path, zero1):
+    """A checkpoint JAX's trainer wrote on 4 virtual devices (with the
+    updater sharded under zero1) restores into the port's trainer, whose
+    next step matches JAX's next step."""
+    ck = str(tmp_path / "ck")
+    batches = _dp_batches()
+    jt, t = _dp_pair(n_jax=4, zero1=zero1)
+    jt.fit(batches[:3], checkpoint_dir=ck, checkpoint_every_n_batches=1)
+    with open(os.path.join(ck, "meta.json")) as f:
+        assert json.load(f)["mesh"]["shape"] == {"dp": 4}
+    assert t.restore(ck) == 3
+    jt.fit([batches[3]])
+    t.fit([batches[3]])
+    assert t.state.step == int(jt.state.step) == 4
+    _assert_close_trees(t.state.params, jt.state.params)
+    _assert_close_trees(gather_updater(t.state, t.mesh), jt.state.updater)
+
+
+def test_port_trainer_checkpoint_loads_in_jax_and_trains_on(tmp_path):
+    ck = str(tmp_path / "ck")
+    batches = _dp_batches()
+    jt, t = _dp_pair()
+    t.fit(batches[:3], checkpoint_dir=ck, checkpoint_every_n_batches=1)
+    like_u = jax_updater.init_updater(jt.state.params)
+    _, updater, meta = jax_checkpoint.load(ck, like_params=jt.state.params,
+                                           like_updater=like_u)
+    assert meta["mesh"] == {"axis_names": ["dp"], "shape": {"dp": 1},
+                            "zero1": False}
+    assert meta["data_cursor"] == {"batches_done": 3} and meta["step"] == 3
+    _assert_close_trees(t.state.updater, updater)
+    assert jt.restore(ck) == 3
+    jt.fit([batches[3]])
+    t.fit([batches[3]])
+    _assert_close_trees(t.state.params, jt.state.params)
+
+
+def test_jax_sharded_checkpoint_reads_exactly(tmp_path):
+    """The sharded layout JAX's tensor-parallel plan writes (one piece a
+    unique shard, tests/test_tp_mesh.py) assembles through the port's
+    `load` and `load_sharded` bit for bit, params and updater."""
+    from deeplearning4j_tpu.parallel.plan import ShardPlan, plan_mesh
+
+    jconf = jax_zoo.char_transformer(32, d_model=16, n_blocks=2, n_heads=2,
+                                     max_seq_len=32)
+    jnet = jax_ml.MultiLayerNetwork(jconf, seed=0).init()
+    plan = ShardPlan(mesh=plan_mesh({"batch": 2, "model": 4}))
+    shard = plan.param_shardings(jnet.params)
+    params = jax.tree_util.tree_map(jax.device_put, jnet.params, shard)
+    upd = jax_updater.UpdaterState(
+        adagrad_hist=jax.tree_util.tree_map(
+            lambda a, s: jax.device_put(a * a, s), jnet.params, shard),
+        velocity=jax.tree_util.tree_map(
+            lambda a, s: jax.device_put(-a, s), jnet.params, shard))
+    d = str(tmp_path / "sharded")
+    jax_checkpoint.save_sharded(d, params, upd, conf=jconf, step=5)
+    net = ml.MultiLayerNetwork(MultiLayerConfiguration.from_json(
+        jconf.to_json()), device="cpu").init()
+    like_u = UpdaterState(adagrad_hist=net.params, velocity=net.params)
+    got, got_u, meta = checkpoint.load(d, like_params=net.params,
+                                       like_updater=like_u)
+    assert meta["step"] == 5 and meta["layout"] == "sharded"
+    for a, b in zip(tree_leaves((got, got_u)),
+                    jax.tree_util.tree_leaves((jnet.params, upd))):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    stats = {}
+    again, _, _ = checkpoint.load_sharded(d, like_params=net.params,
+                                          stats=stats)
+    assert stats["pieces_read"] > len(tree_leaves(net.params))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(again),
+                                                  tree_leaves(got)))
+    with pytest.raises(checkpoint.CheckpointFormatError, match="like_params"):
+        checkpoint.load(d)
+
+
+def test_trainer_sigterm_checkpoints_then_raises(tmp_path):
+    ck = str(tmp_path / "ck")
+    batches = _dp_batches()
+    _, t = _dp_pair()
+    t.listeners = [_SigtermAfter(2)]
+    with pytest.raises(TrainingInterrupted):
+        t.fit(batches, epochs=2, checkpoint_dir=ck,
+              checkpoint_every_n_batches=100)
+    _, _, meta = checkpoint.load(ck)
+    assert meta["data_cursor"]["batches_done"] == 2
+    _, ref = _dp_pair()
+    ref.fit(batches, epochs=2)
+    _, t2 = _dp_pair()
+    t2.fit(batches, epochs=2, checkpoint_dir=ck)
+    assert t2.resumed_from_step == 2
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((t2.state.params, t2.state.updater)),
+        tree_leaves((ref.state.params, ref.state.updater))))
+
+
+@pytest.mark.parametrize("damage", ["truncate_npz", "drop_meta"])
+def test_corrupt_trainer_checkpoint_falls_back_to_bak(tmp_path, damage):
+    ck = str(tmp_path / "ck")
+    batches = _dp_batches()
+    _, t = _dp_pair()
+    t.fit(batches[:3], checkpoint_dir=ck, checkpoint_every_n_batches=1)
+    shutil.copytree(ck, ck + ".bak")
+    if damage == "truncate_npz":
+        p = os.path.join(ck, "arrays.npz")
+        with open(p, "r+b") as f:
+            f.truncate(os.path.getsize(p) // 2)
+    else:
+        os.remove(os.path.join(ck, "meta.json"))
+    _, t2 = _dp_pair()
+    t2.fit(batches, epochs=2, checkpoint_dir=ck)
+    assert t2.resumed_from_step == 3
+
+
+def test_future_format_version_fails_in_one_line(tmp_path):
+    ck = str(tmp_path / "ck")
+    _, t = _dp_pair()
+    t.fit(_dp_batches()[:1], checkpoint_dir=ck)
+    with open(os.path.join(ck, "meta.json")) as f:
+        meta = json.load(f)
+    meta["format_version"] = 99
+    with open(os.path.join(ck, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    with pytest.raises(checkpoint.CheckpointFormatError,
+                       match="format_version=99"):
+        checkpoint.load(ck)
+    _, t2 = _dp_pair()
+    with pytest.raises(checkpoint.CheckpointFormatError):
+        t2.fit(_dp_batches(), checkpoint_dir=ck)
+
+
+def test_structurally_incompatible_trainer_tree_fails_actionably(tmp_path):
+    ck = str(tmp_path / "ck")
+    _, t = _dp_pair()
+    t.fit(_dp_batches()[:1], checkpoint_dir=ck)
+    wide = jax_zoo.mlp(4, [16], 3)
+    other = DataParallelTrainer(
+        ml.MultiLayerNetwork(MultiLayerConfiguration.from_json(
+            wide.to_json()), device="cpu").init(),
+        make_mesh({"dp": 1}, device="cpu"))
+    with pytest.raises(checkpoint.CheckpointFormatError, match="shape"):
+        other.restore(ck)
+    # a network's checkpoint holds no updater: the trainer cannot resume it
+    net_dir = str(tmp_path / "net")
+    checkpoint.save(net_dir, t.net.params, conf=t.net.conf)
+    with pytest.raises(checkpoint.CheckpointFormatError, match="missing"):
+        t.restore(net_dir)
