@@ -212,7 +212,28 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    eager bitwise, the EMA after one step against `fit`'s, within a
    hundredth of how far that step moved it) through the
    trainer, each timed. The masked (remainder) steps never run at one
-   rank; the CPU tests hold them at two.
+   rank; the CPU tests hold them at two;
+18. `tensor_parallel` (TP_*; `--only-tensor-parallel` runs it alone, with
+   no last line, and the full run runs it so, in a child process): the
+   flagship (the data_parallel phase's conf and batch) through
+   `DataParallelTrainer(plan=ShardPlan(plan_mesh({"batch": 1, "model":
+   1})))`, held bitwise to the sync trainer for 3 steps, rows 1-4 8 a
+   step (host counts and a profiled replay), step ms, tokens/s, bytes of
+   params and moments; rows 1-4 at the plan step's per-rank shapes [32,
+   512, H/M, 128] for M = 2 and 4 (bf16, causal, qkv views) against their
+   plain versions, beside their bounds and SDPA; ring and Ulysses
+   attention (16 heads of 128, S = 512), the pipeline and MoE at d_model
+   2048 against their dense references. Under `torchrun --nproc-per-node
+   4 chip_smoke.py --only-tensor-parallel` (four cards): the one-rank plan
+   run on rank 0, then the flagship at 1 x 4, 2 x 2 and 2 x 2 with ZeRO-1,
+   each rank's bytes, step ms, tokens/s, NCCL device ms and the
+   collectives inside the capture (4 all-reduces a block, the gradient's
+   and the score's), scores within TP_SCORE_RTOL of the one-rank run's
+   and, after the same 3 steps, its params and Adam moments within the
+   TP_PARAM_* and TP_MOMENT_RTOL gates, which a control run on half the
+   batch (a dropped gradient all-reduce) must break; a
+   2 x 2 sharded checkpoint (2 blocks) restored on 1 x 4 bitwise; ring,
+   Ulysses, the pipeline and MoE over the four ranks (S = 4 x 512).
 
 Each phase prints one JSON line; then a line with every kernel's numbers,
 the card's line, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -499,6 +520,81 @@ def sdpa_backward_ms(torch, q, k, v, do, causal):
 BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq")
 
 
+def bwd_case_rows(torch, kernels, gen, case, phase="bwd_kernel"):
+    """One backward case (b, s, h, d, dtype, causal, view): each of the
+    three kernels against its plain version, timed beside its plain
+    version, its bound and SDPA's whole backward (delta also beside
+    `vecdot`); with `view`, `FlashAttentionFunction`'s grads against
+    autograd of the plain forward. Emits each kernel's row and returns
+    {kernel: row}; a disagreement fails the run."""
+    b, s, h, d, dt, causal, view = case
+    qkv, q, k, v, do, o, lse = bwd_inputs(torch, kernels, gen, b, s, h,
+                                          d, dt, causal, view)
+    results = bwd_check(torch, kernels, q, k, v, do, o, lse, causal)
+    rel = bwd_rel_errors(torch, kernels, q, k, v, do, o, lse, causal)
+    dname = str(dt).replace("torch.", "")
+    grad_err = grad_ok = None
+    if view:
+        grad_err, grad_ok = grad_function_check(torch, kernels, qkv, h, d,
+                                                do, causal)
+    library_ms = sdpa_backward_ms(torch, q, k, v, do, causal)
+    delta = kernels.flash_bwd_delta(o, do)
+    calls = {
+        "flash_bwd_delta": (lambda: kernels.flash_bwd_delta(o, do),
+                            lambda: kernels.flash_bwd_delta_reference(
+                                o, do)),
+        "flash_bwd_dkv": (lambda: kernels.flash_bwd_dkv(
+            q, k, v, do, lse, delta, causal),
+            lambda: kernels.flash_bwd_dkv_reference(
+                q, k, v, do, lse, delta, causal)),
+        "flash_bwd_dq": (lambda: kernels.flash_bwd_dq(
+            q, k, v, do, lse, delta, causal),
+            lambda: kernels.flash_bwd_dq_reference(
+                q, k, v, do, lse, delta, causal)),
+    }
+    case_rows = {}
+    for name in BWD_KERNELS:
+        err, ok = results[name]
+        kernel_fn, plain_fn = calls[name]
+        bound_ms, bound_by, fma_bound_ms = bwd_bound_ms(
+            name, b, s, h, d, dname, causal)
+        kernel_ms = graph_ms(kernel_fn)
+        half = 0.5 if causal else 1.0
+        flops = {"flash_bwd_delta": 2.0 * b * s * h * d,
+                 "flash_bwd_dkv": 8.0 * b * h * s * s * d * half,
+                 "flash_bwd_dq": 6.0 * b * h * s * s * d * half}[name]
+        row = {"phase": phase, "name": name, "shape": [b, s, h, d],
+               "dtype": dname, "causal": causal, "view": view,
+               "max_abs_err": err, "max_rel_err": rel[name], "ok": ok,
+               "kernel_ms": kernel_ms, "tflops": flops / kernel_ms / 1e9,
+               "call_ms": cuda_ms(kernel_fn),
+               "plain_ms": graph_ms(plain_fn, iters=3, replays=1),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "fma_bound_ms": fma_bound_ms,
+               "sdpa_backward_ms": library_ms}
+        if view:
+            row["grad_fn_max_abs_err"] = grad_err
+            row["grad_fn_ok"] = grad_ok
+        if name == "flash_bwd_delta":
+            # one PyTorch call computes delta: rowsum(dO * O) ([B, S,
+            # H] where the kernel writes [B*H, S]), f32 in f32; on the
+            # bf16 views vecdot returns bf16, rounded, where delta is
+            # f32 (`vecdot_dtype`)
+            row["vecdot_ms"] = graph_ms(
+                lambda: torch.linalg.vecdot(do, o, dim=-1))
+            row["vecdot_dtype"] = str(torch.linalg.vecdot(
+                do[:1], o[:1], dim=-1).dtype).replace("torch.", "")
+        emit(row)
+        check(ok, f"{name} disagrees with its plain version: {row}")
+        if view:
+            check(grad_ok, f"FlashAttentionFunction grads disagree with "
+                           f"autograd of the plain forward: {row}")
+        case_rows[name] = row
+    del qkv, q, k, v, do, o, lse, delta, calls
+    torch.cuda.empty_cache()
+    return case_rows
+
+
 def phase_bwd_kernels(torch, kernels):
     """The three backward kernels against their plain versions on the card,
     at the train path's shape and layout (bf16, causal, q/k/v views of one
@@ -520,69 +616,9 @@ def phase_bwd_kernels(torch, kernels):
              # a head dim that takes the padding route (D 100 -> 128)
              (8, 200, 16, 100, torch.bfloat16, True, False)]
     main_rows = {}
-    for b, s, h, d, dt, causal, view in cases:
-        qkv, q, k, v, do, o, lse = bwd_inputs(torch, kernels, gen, b, s, h,
-                                              d, dt, causal, view)
-        results = bwd_check(torch, kernels, q, k, v, do, o, lse, causal)
-        rel = bwd_rel_errors(torch, kernels, q, k, v, do, o, lse, causal)
-        dname = str(dt).replace("torch.", "")
-        grad_err = grad_ok = None
-        if view:
-            grad_err, grad_ok = grad_function_check(torch, kernels, qkv, h, d,
-                                                    do, causal)
-        library_ms = sdpa_backward_ms(torch, q, k, v, do, causal)
-        delta = kernels.flash_bwd_delta(o, do)
-        calls = {
-            "flash_bwd_delta": (lambda: kernels.flash_bwd_delta(o, do),
-                                lambda: kernels.flash_bwd_delta_reference(
-                                    o, do)),
-            "flash_bwd_dkv": (lambda: kernels.flash_bwd_dkv(
-                q, k, v, do, lse, delta, causal),
-                lambda: kernels.flash_bwd_dkv_reference(
-                    q, k, v, do, lse, delta, causal)),
-            "flash_bwd_dq": (lambda: kernels.flash_bwd_dq(
-                q, k, v, do, lse, delta, causal),
-                lambda: kernels.flash_bwd_dq_reference(
-                    q, k, v, do, lse, delta, causal)),
-        }
-        case_rows = {}
-        for name in BWD_KERNELS:
-            err, ok = results[name]
-            kernel_fn, plain_fn = calls[name]
-            bound_ms, bound_by, fma_bound_ms = bwd_bound_ms(
-                name, b, s, h, d, dname, causal)
-            kernel_ms = graph_ms(kernel_fn)
-            half = 0.5 if causal else 1.0
-            flops = {"flash_bwd_delta": 2.0 * b * s * h * d,
-                     "flash_bwd_dkv": 8.0 * b * h * s * s * d * half,
-                     "flash_bwd_dq": 6.0 * b * h * s * s * d * half}[name]
-            row = {"phase": "bwd_kernel", "name": name, "shape": [b, s, h, d],
-                   "dtype": dname, "causal": causal, "view": view,
-                   "max_abs_err": err, "max_rel_err": rel[name], "ok": ok,
-                   "kernel_ms": kernel_ms, "tflops": flops / kernel_ms / 1e9,
-                   "call_ms": cuda_ms(kernel_fn),
-                   "plain_ms": graph_ms(plain_fn, iters=3, replays=1),
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "fma_bound_ms": fma_bound_ms,
-                   "sdpa_backward_ms": library_ms}
-            if view:
-                row["grad_fn_max_abs_err"] = grad_err
-                row["grad_fn_ok"] = grad_ok
-            if name == "flash_bwd_delta":
-                # one PyTorch call computes delta: rowsum(dO * O) ([B, S,
-                # H] where the kernel writes [B*H, S]), f32 in f32; on the
-                # bf16 views vecdot returns bf16, rounded, where delta is
-                # f32 (`vecdot_dtype`)
-                row["vecdot_ms"] = graph_ms(
-                    lambda: torch.linalg.vecdot(do, o, dim=-1))
-                row["vecdot_dtype"] = str(torch.linalg.vecdot(
-                    do[:1], o[:1], dim=-1).dtype).replace("torch.", "")
-            emit(row)
-            check(ok, f"{name} disagrees with its plain version: {row}")
-            if view:
-                check(grad_ok, f"FlashAttentionFunction grads disagree with "
-                               f"autograd of the plain forward: {row}")
-            case_rows[name] = row
+    for case in cases:
+        _, s, _, _, dt, causal, view = case
+        case_rows = bwd_case_rows(torch, kernels, gen, case)
         if dt == torch.bfloat16 and view:
             main_rows.update(case_rows)
         elif dt == torch.float32:
@@ -590,8 +626,6 @@ def phase_bwd_kernels(torch, kernels):
                    "f32_causal" if causal else "f32_not_causal")
             main_rows[key + ("_view" if view else "")] = case_rows
             emit(f32_backward_sum(case_rows))
-        del qkv, q, k, v, do, o, lse, delta, calls
-        torch.cuda.empty_cache()
     return main_rows
 
 
@@ -5662,10 +5696,11 @@ def dp_gap(torch, got, want) -> dict:
             "max_abs": max(float(b.float().abs().max()) for _, b in want)}
 
 
-def dp_profile(torch, kernels, fn, phase) -> dict:
+def dp_profile(torch, kernels, fn, phase, quiet=False) -> dict:
     """One fn() call under `torch.profiler`: device ms by kind (DP_KINDS),
     the calls of each flash kernel body, the NCCL kernels' ms, the largest
-    kernels and the wall time. Launches made here are not counted."""
+    kernels and the wall time (emitted unless `quiet`). Launches made here
+    are not counted."""
     from torch.profiler import ProfilerActivity, profile
 
     saved = dict(kernels.LAUNCHES)
@@ -5697,7 +5732,8 @@ def dp_profile(torch, kernels, fn, phase) -> dict:
            "top": [{"name": e.key[:90], "kind": dp_kind(e.key),
                     "calls": e.count, "ms": e.device_time_total / 1e3}
                    for e in events[:12]]}
-    emit(row)
+    if not quiet:
+        emit(row)
     return row
 
 
@@ -6124,6 +6160,591 @@ def dp_close() -> None:
         dist.destroy_process_group()
 
 
+# -- tensor parallelism -------------------------------------------------------
+
+#: the flagship through `DataParallelTrainer(plan=)`: RandomState(0)'s 32 x
+#: 512 ids (the data_parallel phase's batch), `steps` steps held to the
+#: sync trainer (one card) or the one-rank plan run (four), `timed` replays
+TP = dict(rows=32, steps=3, timed=5)
+#: the sharded checkpoint on four cards: the flagship at `blocks` blocks,
+#: batches of `rows`, checkpointed after `batches` batches by 2 x 2 and
+#: resumed on 1 x 4
+TP_CKPT = dict(blocks=2, rows=8, batches=2)
+#: the model axes whose per-rank heads (H / M) rows 1-4 are checked and
+#: timed at
+TP_MODELS = (2, 4)
+#: the layouts of the four-card run: (batch, model, zero1)
+TP_LAYOUTS = ((1, 4, False), (2, 2, False), (2, 2, True))
+#: ring and Ulysses attention: the flagship's heads and head dim, `seq`
+#: positions a rank, f32; the pipeline: `micro` microbatches of `rows` at
+#: d_model through one tanh layer a stage; MoE: `tokens` tokens at d_model,
+#: `experts` experts of `hidden`, capacity ample (factor = experts)
+TP_SEQ = dict(batch=2, seq=512)
+TP_PIPE = dict(micro=4, rows=8)
+TP_MOE = dict(tokens=1024, hidden=4096, experts=8)
+#: the four-card runs against the one-rank plan run, at equal steps. The
+#: scores step by step, relative (bf16 products summed over other partial
+#: sums: at most 5.6e-5 measured on H100).
+TP_SCORE_RTOL = 2e-4
+#: Adam steps an element by about +-lr whatever its gradient's size, so
+#: where rounding flips a near-zero gradient's sign the two runs part by
+#: 2 lr: the gate is the share of elements more than half a step apart
+#: (the key bias left out: its gradient is zero in exact arithmetic), and
+#: the moments' relative L2 gap, which the large gradients dominate
+TP_PARAM_ATOL = 0.5 * TRAIN_LR
+TP_PARAM_SHARE = 5e-3
+TP_MOMENT_RTOL = 3e-2
+#: how far two Adam runs of n steps can part in any element: 2 n lr
+#: (Adam's bias-corrected step exceeds lr by under 1 % in 3 steps)
+TP_ADAM_REACH = 2 * 1.01
+TP_DEVICE = "cuda"
+
+
+def tp_net(conf):
+    """A network of `conf` at seed 0 on this rank's device."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.mesh import rank_device
+
+    return MultiLayerNetwork(conf, device=rank_device(TP_DEVICE),
+                             seed=0).init()
+
+
+def tp_plan(batch, model, group=None):
+    from deeplearning4j_tpu_torch.parallel.plan import ShardPlan, plan_mesh
+
+    return ShardPlan(mesh=plan_mesh({"batch": batch, "model": model},
+                                    device=TP_DEVICE, group=group))
+
+
+def tp_batch(rows, seed=0, n=1):
+    """`n` batches of `rows` x SLICE["seq"] ids and their next-id labels."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, SLICE["vocab"], (rows, SLICE["seq"] + 1))
+        out.append((ids[:, :-1].astype(np.int32),
+                    ids[:, 1:].reshape(-1).astype(np.int32)))
+    return out
+
+
+def tp_state_bytes(trainer) -> dict:
+    """This rank's bytes of params and of updater moments."""
+    flat = trainer.state.flat
+
+    def size(bufs):
+        return sum(b.numel() * b.element_size() for b in bufs)
+
+    return {"params_bytes": size(flat.params),
+            "moments_bytes": size(flat.hist) + size(flat.vel)}
+
+
+def tp_gathered(trainer, moments=False):
+    """The trainer's params (and with `moments` its updater's hist and
+    vel) gathered whole, as named host copies (a collective over every
+    rank)."""
+    params, updater, _ = trainer.gathered_state()
+    trees = [("params", params)]
+    if moments:
+        trees += [("hist", updater.adagrad_hist), ("vel", updater.velocity)]
+    return [(f"{field}/{i}.{k}", t.detach().to("cpu", copy=True))
+            for field, tree in trees for i, layer in enumerate(tree)
+            for k, t in sorted(layer.items())]
+
+
+def tp_state_gap(torch, got, want) -> dict:
+    """`tp_gathered(..., moments=True)` of two runs after as many steps:
+    of the params, the largest gap in the attention key bias (the middle
+    third of each `bqkv`) and in every other element, the leaf that holds
+    the latter, and the share of those elements more than TP_PARAM_ATOL
+    apart; of each moment, |got - want| / |want| in L2 over all leaves."""
+    key, top, leaf, over, n = 0.0, 0.0, None, 0, 0
+    sq = {"hist": [0.0, 0.0], "vel": [0.0, 0.0]}
+    for (name, a), (_, b) in zip(got, want):
+        diff = a.double() - b.double()
+        field = name.split("/")[0]
+        if field != "params":
+            sq[field][0] += float(torch.sum(diff * diff))
+            sq[field][1] += float(torch.sum(b.double() ** 2))
+            continue
+        diff = diff.abs().reshape(-1)
+        if name.endswith(".bqkv"):
+            d = diff.numel() // 3
+            key = max(key, float(diff[d:2 * d].max()))
+            diff = torch.cat([diff[:d], diff[2 * d:]])
+        if float(diff.max()) > top or leaf is None:
+            top, leaf = float(diff.max()), name
+        over += int((diff > TP_PARAM_ATOL).sum())
+        n += diff.numel()
+    return {"key_bias_max_abs_diff": key, "max_abs_diff": top,
+            "max_leaf": leaf, "over_atol_share": over / n,
+            **{f"{f}_rel_l2": (d / w) ** 0.5 for f, (d, w) in sq.items()}}
+
+
+def tp_state_fails(gap, reach) -> list:
+    """What of `tp_state_gap`'s row breaks the gates."""
+    fails = []
+    if max(gap["key_bias_max_abs_diff"], gap["max_abs_diff"]) > reach:
+        fails.append(f"a param moved beyond Adam's reach {reach}")
+    if gap["over_atol_share"] > TP_PARAM_SHARE:
+        fails.append(f"share over {TP_PARAM_ATOL} > {TP_PARAM_SHARE}")
+    for f in ("hist", "vel"):
+        if gap[f"{f}_rel_l2"] > TP_MOMENT_RTOL:
+            fails.append(f"{f} relative L2 gap > {TP_MOMENT_RTOL}")
+    return fails
+
+
+def tp_collectives_want(n_blocks, zero1):
+    """The collectives one captured plan step issues: per block two
+    all-reduces forward (after Wo, after W2) and two backward (the
+    gradient of each copy-to-model), the gradient's over the batch group
+    (ZeRO-1: a reduce-scatter, and the params' all-gather) and the
+    score's."""
+    return {"all_reduce": 4 * n_blocks + (1 if zero1 else 2),
+            "reduce_scatter": int(zero1), "all_gather": int(zero1)}
+
+
+def tp_kernel_rows(torch, kernels):
+    """Rows 1-4 at the per-rank shapes of the plan step, [32, 512, H/M,
+    128] for M in TP_MODELS (bf16, causal, q/k/v views of one rank's
+    head-aligned projection), against their plain versions, timed beside
+    the bound and SDPA. Returns {M: {kernel: row}}."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for m in TP_MODELS:
+        h = SLICE["n_heads"] // m
+        case = (TP["rows"], SLICE["seq"], h, SLICE["d_model"] // SLICE[
+            "n_heads"], torch.bfloat16, True, True, True)
+        rows = {"flash_attn_fwd": fwd_kernel_row(
+            torch, kernels, gen, case, phase="tensor_parallel_kernel")}
+        rows.update(bwd_case_rows(torch, kernels, gen,
+                                  case[:5] + (True, True),
+                                  phase="tensor_parallel_kernel"))
+        out[m] = rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_modules(torch, world: int) -> dict:
+    """Ring and Ulysses attention (the flagship's 16 heads of 128, S =
+    TP_SEQ["seq"] a rank, causal and not, f32), the pipeline (a tanh layer
+    of d_model a stage) and MoE (d_model, TP_MOE) over `world` ranks,
+    each against its dense reference on the whole input (computed on every
+    rank), at the JAX package's tolerances; ring and full attention timed
+    by events."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.nd.attention import full_attention
+    from deeplearning4j_tpu_torch.parallel import expert, pipeline, sequence
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+    dev = make_mesh({"sp": world}, device=TP_DEVICE).device
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def gather(t, dim):
+        if world == 1:
+            return t
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t.contiguous())
+        return torch.cat(parts, dim=dim)
+
+    def close(got, want, rtol, atol):
+        err = (got - want).abs().max().item()
+        return err, bool(torch.allclose(got, want, rtol=rtol, atol=atol))
+
+    rows = {}
+    h, d = SLICE["n_heads"], SLICE["d_model"] // SLICE["n_heads"]
+    b, s = TP_SEQ["batch"], TP_SEQ["seq"]
+    mesh = make_mesh({"sp": world}, device=TP_DEVICE)
+    r = mesh.coord("sp")
+    q, k, v = (torch.randn(b, s * world, h, d, generator=gen, device=dev)
+               for _ in range(3))
+    do = torch.randn(b, s * world, h, d, generator=gen, device=dev)
+    for kind in ("ring", "ulysses"):
+        for causal in (False, True):
+            shard = [t[:, r * s:(r + 1) * s].clone().requires_grad_()
+                     for t in (q, k, v)]
+            fn = sequence.make_context_parallel_attention(
+                mesh, kind=kind, causal=causal)
+            t0 = time.perf_counter()
+            o = fn(*shard)
+            o.backward(do[:, r * s:(r + 1) * s])
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+            whole = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            ref = full_attention(*whole, causal=causal)
+            ref.backward(do)
+            errs = {"o": close(gather(o.detach(), 1), ref.detach(), 2e-5,
+                               2e-5)}
+            for name, part, w in zip("qkv", shard, whole):
+                errs[f"d{name}"] = close(gather(part.grad, 1), w.grad, 1e-3,
+                                         1e-3)
+            ms = (event_ms(torch, lambda: fn(*shard)) if dev.type == "cuda"
+                  else None)
+            full_ms = (event_ms(torch, lambda: full_attention(
+                q, k, v, causal=causal)) if dev.type == "cuda" else None)
+            rows[f"{kind}_{'causal' if causal else 'full'}"] = {
+                "shape": [b, s * world, h, d], "ranks": world,
+                "max_abs_err": {n: e for n, (e, _) in errs.items()},
+                "ok": all(ok for _, ok in errs.values()),
+                "forward_ms": ms, "full_attention_ms": full_ms,
+                "forward_backward_wall_ms": wall}
+    del q, k, v, do
+    # the pipeline: every rank draws every stage, keeps its own
+    pmesh = make_mesh({"pp": world}, device=TP_DEVICE)
+    width = SLICE["d_model"]
+    ws = torch.randn(world, width, width, generator=gen, device=dev) * (
+        1.0 / width ** 0.5)
+    bs = torch.randn(world, width, generator=gen, device=dev) * 0.1
+    x = torch.randn(TP_PIPE["micro"], TP_PIPE["rows"], width,
+                    generator=gen, device=dev)
+    st = pmesh.coord("pp")
+
+    def stage(p, a):
+        return torch.tanh(a @ p["W"] + p["b"])
+
+    mine = {"W": ws[st].clone().requires_grad_(),
+            "b": bs[st].clone().requires_grad_()}
+    out = pipeline.pipeline_apply(stage, mine, x, pmesh, axis="pp")
+    (out ** 2).mean().backward()
+    allp = {"W": ws.clone().requires_grad_(), "b": bs.clone().requires_grad_()}
+    seq_out = x
+    for i in range(world):
+        seq_out = stage({"W": allp["W"][i], "b": allp["b"][i]}, seq_out)
+    (seq_out ** 2).mean().backward()
+    errs = {"out": close(out.detach(), seq_out.detach(), 1e-5, 1e-5),
+            "dW": close(mine["W"].grad, allp["W"].grad[st], 1e-4, 1e-5),
+            "db": close(mine["b"].grad, allp["b"].grad[st], 1e-4, 1e-5)}
+    rows["pipeline"] = {"stages": world, "micro": TP_PIPE["micro"],
+                        "rows": TP_PIPE["rows"], "width": width,
+                        "max_abs_err": {n: e for n, (e, _) in errs.items()},
+                        "ok": all(ok for _, ok in errs.values())}
+    del ws, bs, x, allp, mine, out, seq_out
+    # MoE: every rank draws every expert, keeps its share
+    emesh = make_mesh({"ep": world}, device=TP_DEVICE)
+    er = emesh.coord("ep")
+    e, t = TP_MOE["experts"], TP_MOE["tokens"]
+    full = expert.init_moe_params(gen, width, TP_MOE["hidden"], e)
+    x = torch.randn(t, width, generator=gen, device=dev)
+    e_loc, t_loc = e // world, t // world
+    mp = {"router": full["router"].clone().requires_grad_()}
+    for name in ("W1", "b1", "W2", "b2"):
+        mp[name] = full[name][er * e_loc:(er + 1) * e_loc].clone() \
+            .requires_grad_()
+    y, aux = expert.moe_ffn(mp, x[er * t_loc:(er + 1) * t_loc], emesh,
+                            capacity_factor=float(e))
+    ((y ** 2).sum() / x.numel() + 0.01 * aux).backward()
+    dense = {k: a.clone().requires_grad_() for k, a in full.items()}
+    yd, auxd = expert.moe_ffn_dense(dense, x, capacity_factor=float(e))
+    ((yd ** 2).mean() + 0.01 * auxd).backward()
+    errs = {"y": close(gather(y.detach(), 0), yd.detach(), 2e-4, 2e-4),
+            "aux": close(aux.detach().reshape(1), auxd.detach().reshape(1),
+                         1e-5, 0.0),
+            "router": close(mp["router"].grad, dense["router"].grad, 1e-4,
+                            1e-6)}
+    for name in ("W1", "b1", "W2", "b2"):
+        errs[name] = close(mp[name].grad, dense[name].grad[
+            er * e_loc:(er + 1) * e_loc], 1e-4, 1e-6)
+    rows["moe"] = {"shards": world, "tokens": t, "d_model": width,
+                   "hidden": TP_MOE["hidden"], "experts": e,
+                   "max_abs_err": {n: err for n, (err, _) in errs.items()},
+                   "ok": all(ok for _, ok in errs.values())}
+    return rows
+
+
+def tp_one_card(torch, kernels, card):
+    """The flagship through `DataParallelTrainer(plan=ShardPlan(plan_mesh(
+    {"batch": 1, "model": 1})))` against the sync trainer, step by step
+    (bitwise), rows 1-4's launches a step (host counts and a profiled
+    replay), the step's times. Returns the launches of rows 1-4."""
+    from deeplearning4j_tpu_torch.parallel.data_parallel import (
+        CAPTURED_COLLECTIVES, DataParallelTrainer)
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    conf = train_conf("bfloat16")
+    (x, y), = tp_batch(TP["rows"])
+    sync = DataParallelTrainer(tp_net(conf), make_mesh({"dp": 1},
+                                                       device=TP_DEVICE))
+    snaps, sync_scores = [], []
+    for _ in range(TP["steps"]):
+        sync_scores.append(sync.fit([(x, y)]))
+        snaps.append(dp_snapshot(sync))
+    del sync
+    dp_free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(CAPTURED_COLLECTIVES)
+    plan = tp_plan(1, 1)
+    t = DataParallelTrainer(tp_net(conf), plan=plan)
+    gaps, launches, fit_ms, scores = [], [], [], []
+    for snap in snaps:
+        kernels.reset_launches()
+        fit_ms.append(event_ms(torch, lambda: scores.append(
+            t.fit([(x, y)]))))
+        launches.append(dict(kernels.LAUNCHES))
+        gaps.append(dp_gap(torch, dp_snapshot(t), snap))
+    captured = {k: v - before[k] for k, v in CAPTURED_COLLECTIVES.items()}
+    step_ms, step = dp_step_times(torch, t, x, y, TP["timed"])
+    books = dp_books(t)
+    profile = dp_profile(torch, kernels, step, "tensor_parallel_profile")
+    median_ms = median(step_ms)
+    n_attn = SLICE["n_blocks"]
+    row = {"phase": "tensor_parallel_one_card", "gpu": card,
+           "config": SLICE, "rows": TP["rows"], "plan": plan.describe(),
+           "sharding_tag": list(plan.sharding_tag()),
+           "key": repr(t._step.variant), "lr": TRAIN_LR,
+           "plan_vs_sync": gaps, "scores": scores,
+           "sync_scores": sync_scores, "fit_ms": fit_ms,
+           "step_ms": step_ms, "step_ms_median": median_ms,
+           "tokens_per_s": TP["rows"] * SLICE["seq"] / (median_ms / 1e3),
+           "launches_per_step": launches, "collectives_in_graph": captured,
+           "graph": books, **tp_state_bytes(t),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "device_ms": profile["device_ms"],
+           "idle_share": 1.0 - profile["device_ms"] / profile["wall_ms"],
+           "by_kind_ms": profile["by_kind_ms"],
+           "flash_calls_in_replay": profile["flash_calls"],
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    del t
+    dp_free(torch)
+    for i, gap in enumerate(gaps):
+        check(gap["bitwise"], f"tensor_parallel: the 1 x 1 plan step "
+              f"{i + 1} differs from the sync trainer's: {gap}")
+    for launch in launches:
+        for name in DP_FLASH:
+            check(launch[name] == n_attn,
+                  f"tensor_parallel: a step launched {name} "
+                  f"{launch[name]} times, want {n_attn}: {launch}")
+    for name, calls in profile["flash_calls"].items():
+        check(calls == n_attn, f"tensor_parallel: the profiled replay ran "
+              f"{name} {calls} times, want {n_attn}")
+    check(books["dp_step_cache"]["misses"] == 1,
+          f"tensor_parallel: captured under traffic: {books}")
+    return {name: sum(launch[name] for launch in launches)
+            for name in DP_FLASH}
+
+
+def phase_tensor_parallel(torch, kernels):
+    """Tensor parallelism on one card (module docstring, item 18).
+    Returns the launches of rows 1-4 in the plan trainer's captured steps,
+    and the kernel rows at the per-rank shapes."""
+    t0 = time.perf_counter()
+    card = gpu_line()
+    launches = tp_one_card(torch, kernels, card)
+    kernel_rows = tp_kernel_rows(torch, kernels)
+    modules = tp_modules(torch, 1)
+    emit({"phase": "tensor_parallel_modules", "gpu": card, **modules})
+    for name, r in modules.items():
+        check(r["ok"], f"tensor_parallel: {name} disagrees with its dense "
+              f"reference: {r}")
+    summary = {"phase": "tensor_parallel", "gpu": card,
+               "seconds": time.perf_counter() - t0, "launches": launches,
+               "kernels": {str(m): {name: {k: r[k] for k in (
+                   "shape", "max_abs_err", "kernel_ms", "plain_ms",
+                   "bound_ms", "bound_by", "library_ms", "sdpa_backward_ms",
+                   "vecdot_ms") if k in r}
+                   for name, r in rows.items()}
+                   for m, rows in kernel_rows.items()}}
+    emit(summary)
+    dp_close()
+    return summary
+
+
+def phase_tensor_parallel_child(torch):
+    """`phase_tensor_parallel` in a child process (`chip_smoke.py
+    --only-tensor-parallel`), as `phase_data_parallel_child` runs its
+    phase: a fresh CUDA context, NCCL communicator and profiler. Echoes
+    the child's lines; returns its summary."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--only-tensor-parallel"],
+        capture_output=True, text=True, timeout=900)
+    rows = []
+    for line in proc.stdout.strip().splitlines():
+        print(line, flush=True)
+        if line.startswith("{"):
+            rows.append(json.loads(line))
+    summary = [r for r in rows if r.get("phase") == "tensor_parallel"]
+    check(proc.returncode == 0 and len(summary) == 1,
+          f"the tensor_parallel child failed (rc {proc.returncode}): "
+          f"{proc.stderr[-3000:]}")
+    emit({"phase": "tensor_parallel_child",
+          "seconds": time.perf_counter() - t0})
+    return summary[0]
+
+
+def tp_ranks(torch, kernels) -> int:
+    """Tensor parallelism on the cards of a torchrun group (`torchrun
+    --nproc-per-node 4 chip_smoke.py --only-tensor-parallel`; module
+    docstring, item 18): the one-rank plan run on rank 0 alone, then each
+    layout of TP_LAYOUTS at full width, held to it; the sharded checkpoint
+    of 2 x 2 resumed on 1 x 4; ring, Ulysses, the pipeline and MoE over
+    every rank. Rank 0 prints the lines; every rank checks."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel.data_parallel import (
+        CAPTURED_COLLECTIVES, DataParallelTrainer)
+    from deeplearning4j_tpu_torch.parallel.mesh import init_distributed
+
+    t_all = time.perf_counter()
+    _, dev = init_distributed(TP_DEVICE)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    lead = rank == 0
+    card = gpu_line() if lead else None
+
+    def say(obj):
+        if lead:
+            emit(obj)
+
+    conf = train_conf("bfloat16")
+    n_blocks = SLICE["n_blocks"]
+    (x, y), = tp_batch(TP["rows"])
+    # the one-rank reference: rank 0 alone, the others wait
+    solo = dist.new_group([0])
+    ref = None
+    reach = TP_ADAM_REACH * TP["steps"] * TRAIN_LR
+    fails = []
+    if lead:
+        t = DataParallelTrainer(tp_net(conf), plan=tp_plan(1, 1, solo))
+        init = tp_gathered(t)
+        scores = [t.fit([(x, y)]) for _ in range(TP["steps"])]
+        state = tp_gathered(t, moments=True)
+        ref = {"state": state, "scores": scores,
+               "moved": dp_gap(torch, state[:len(init)],
+                               init)["max_abs_diff"]}
+        del t, init
+        dp_free(torch)
+        # the control: the steps on half the batch, as a 2 x 2 step that
+        # dropped the batch group's gradient all-reduce takes them on
+        # each batch rank; the gates must tell it from the reference
+        half = TP["rows"] // 2
+        t = DataParallelTrainer(tp_net(conf), plan=tp_plan(1, 1, solo))
+        for _ in range(TP["steps"]):
+            t.fit([(x[:half], y[:half * SLICE["seq"]])])
+        control = tp_state_gap(torch, tp_gathered(t, moments=True),
+                               state)
+        del t
+        dp_free(torch)
+        say({"phase": "tensor_parallel_control", "gpu": card,
+             "rows": half, "steps": TP["steps"], "vs_one_rank": control,
+             "gates_broken": tp_state_fails(control, reach)})
+        if len(tp_state_fails(control, reach)) < 3:
+            fails.append(f"the gates do not tell a half-batch update from "
+                         f"the reference: {control}")
+    dist.barrier()
+    layouts = []
+    for b, m, zero1 in TP_LAYOUTS:
+        t0 = time.perf_counter()
+        plan = tp_plan(b, m)
+        before = dict(CAPTURED_COLLECTIVES)
+        torch.cuda.reset_peak_memory_stats()
+        t = DataParallelTrainer(tp_net(conf), plan=plan, zero1=zero1)
+        scores, fit_ms = [], []
+        for _ in range(TP["steps"]):
+            fit_ms.append(event_ms(torch, lambda: scores.append(
+                t.fit([(x, y)]))))
+        captured = {k: v - before[k] for k, v in CAPTURED_COLLECTIVES.items()}
+        # the state after the reference's steps, before the timed ones
+        gathered = tp_gathered(t, moments=True)
+        step_ms, step = dp_step_times(torch, t, x, y, TP["timed"])
+        profile = dp_profile(torch, kernels, step,
+                             "tensor_parallel_profile", quiet=True)
+        nccl_ms = sum(r["ms"] for r in profile["nccl"])
+        mine = {"rank": rank, "coords": {a: plan.mesh.coord(a)
+                                         for a in plan.mesh.axis_names},
+                **tp_state_bytes(t), "step_ms": step_ms,
+                "step_ms_median": median(step_ms),
+                "tokens_per_s": TP["rows"] * SLICE["seq"] / (
+                    median(step_ms) / 1e3),
+                "fit_ms": fit_ms, "device_ms": profile["device_ms"],
+                "nccl_ms": nccl_ms,
+                "nccl_share": nccl_ms / max(profile["device_ms"], 1e-9),
+                "nccl": profile["nccl"],
+                "flash_calls_in_replay": profile["flash_calls"],
+                "collectives_in_graph": captured,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        ranks = [None] * world
+        dist.all_gather_object(ranks, mine)
+        row = {"phase": "tensor_parallel_layout", "gpu": card,
+               "layout": {"batch": b, "model": m}, "zero1": zero1,
+               "sharding_tag": list(plan.sharding_tag()),
+               "scores": scores, "ranks": ranks,
+               "seconds": time.perf_counter() - t0}
+        want = tp_collectives_want(n_blocks, zero1)
+        if lead:
+            gap = tp_state_gap(torch, gathered, ref["state"])
+            rel = [abs(a - r) / abs(r) for a, r in zip(scores,
+                                                       ref["scores"])]
+            row.update({"vs_one_rank": {
+                **gap, "steps": TP["steps"], "scores": ref["scores"],
+                "score_rel_diff": rel, "one_rank_moved": ref["moved"]}})
+            fails += [f"tensor_parallel {b}x{m}: {f}: {gap}"
+                      for f in tp_state_fails(gap, reach)]
+            if max(rel) > TP_SCORE_RTOL:
+                fails.append(f"tensor_parallel {b}x{m}: scores {scores} "
+                             f"against the one-rank run's {ref['scores']}")
+        say(row)
+        layouts.append(row)
+        check(captured == want, f"tensor_parallel {b}x{m}: collectives in "
+              f"the captured step {captured}, want {want}")
+        for name, calls in profile["flash_calls"].items():
+            check(calls == n_blocks, f"tensor_parallel {b}x{m}: the "
+                  f"profiled replay ran {name} {calls} times")
+        del t, gathered
+        dp_free(torch)
+    check(not fails, "; ".join(fails))
+    # the sharded checkpoint: 2 x 2 (ZeRO-1) writes, 1 x 4 resumes
+    t0 = time.perf_counter()
+    cconf = train_conf("bfloat16", n_blocks=TP_CKPT["blocks"])
+    batches = tp_batch(TP_CKPT["rows"], seed=1, n=TP_CKPT["batches"] + 1)
+    box = [tempfile.mkdtemp(prefix="tp-ck-") if lead else None]
+    dist.broadcast_object_list(box, src=0)
+    ck = os.path.join(box[0], "ck")
+    w = DataParallelTrainer(tp_net(cconf), plan=tp_plan(2, 2), zero1=True)
+    w.fit(batches[:TP_CKPT["batches"]], checkpoint_dir=ck)
+    written = tp_gathered(w)
+    write_s = w.checkpoint_write_seconds
+    del w
+    r = DataParallelTrainer(tp_net(cconf), plan=tp_plan(1, 4))
+    step = r.restore(ck)
+    restored = tp_gathered(r)
+    more = r.fit(batches[TP_CKPT["batches"]:])
+    gap = dp_gap(torch, restored, written)
+    ckpt = {"phase": "tensor_parallel_checkpoint", "gpu": card,
+            "blocks": TP_CKPT["blocks"], "written_by": {"batch": 2,
+                                                        "model": 2},
+            "zero1": True, "resumed_on": {"batch": 1, "model": 4},
+            "restored_step": step, "restored_vs_written": gap,
+            "score_after": more, "write_s": write_s,
+            "bytes": (sum(os.path.getsize(os.path.join(ck, f))
+                          for f in os.listdir(ck)) if lead else None),
+            "seconds": time.perf_counter() - t0}
+    say(ckpt)
+    check(step == TP_CKPT["batches"] and gap["bitwise"]
+          and np.isfinite(more), f"tensor_parallel checkpoint: {ckpt}")
+    del r
+    dp_free(torch)
+    dist.barrier()
+    if lead:
+        import shutil
+
+        shutil.rmtree(box[0], ignore_errors=True)
+    modules = tp_modules(torch, world)
+    say({"phase": "tensor_parallel_modules", "gpu": card, **modules})
+    for name, row in modules.items():
+        check(row["ok"], f"tensor_parallel: {name} over {world} ranks "
+              f"disagrees with its dense reference: {row}")
+    say({"phase": "tensor_parallel_ranks", "gpu": card, "ranks": world,
+         "seconds": time.perf_counter() - t_all})
+    if lead:
+        print(card, flush=True)
+    dp_close()
+    return 0
+
+
 def f32_case(r, library_key):
     """One f32 row's numbers for the kernels line."""
     return {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
@@ -6187,6 +6808,29 @@ def main(argv) -> int:
         torch.backends.cudnn.allow_tf32 = False
         kernels.build()
         phase_data_parallel(torch, kernels)
+        return 0
+    if "--only-tensor-parallel" in argv:
+        # the tensor_parallel phase alone (the full run's child; under
+        # torchrun, the four-card run): no kernels line and no last line
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from deeplearning4j_tpu_torch.nd import kernels
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            if os.environ.get("RANK") == "0":
+                kernels.build()
+            import torch.distributed as dist
+
+            from deeplearning4j_tpu_torch.parallel.mesh import \
+                init_distributed
+
+            init_distributed()
+            dist.barrier()
+            kernels.build()
+            return tp_ranks(torch, kernels)
+        kernels.build()
+        phase_tensor_parallel(torch, kernels)
         return 0
     if "--conv-f32-child" in argv:
         # conv_f32's child: PyTorch's default flags, none of the below
@@ -6278,6 +6922,11 @@ def main(argv) -> int:
     for name in ("flash_attn_fwd",) + BWD_KERNELS + ("lstm_cell",):
         check(dp_launches[name] > 0,
               f"{name} never ran in the data-parallel trainer's steps")
+    tp_summary = phase_tensor_parallel_child(torch)
+    tp_launches = tp_summary["launches"]
+    for name in ("flash_attn_fwd",) + BWD_KERNELS:
+        check(tp_launches[name] > 0,
+              f"{name} never ran in the tensor-parallel trainer's steps")
 
     bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
     replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,
@@ -6292,7 +6941,8 @@ def main(argv) -> int:
                      + train_launches["flash_attn_fwd"]
                      + sum(api_serve_launches.values())
                      + api_train_launches["flash_attn_fwd"]
-                     + dp_launches["flash_attn_fwd"]),
+                     + dp_launches["flash_attn_fwd"]
+                     + tp_launches["flash_attn_fwd"]),
         "launches_by_path": {"serve": serve_launches["flash_attn_fwd"],
                              "generate": gen_launches["flash_attn_fwd"],
                              **gen_option_launches,
@@ -6303,7 +6953,9 @@ def main(argv) -> int:
                                  api_serve_launches["unbatched"],
                              "api_checkpoint_listener":
                                  api_train_launches["flash_attn_fwd"],
-                             "data_parallel": dp_launches["flash_attn_fwd"]},
+                             "data_parallel": dp_launches["flash_attn_fwd"],
+                             "tensor_parallel":
+                                 tp_launches["flash_attn_fwd"]},
         "max_abs_err": fwd_row["max_abs_err"],
         "ms": fwd_row["kernel_ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
@@ -6321,6 +6973,10 @@ def main(argv) -> int:
             "bound_by": fwd_train_row["bound_by"],
             "library_ms": fwd_train_row["library_ms"],
             "tflops": fwd_train_row["tflops"]},
+        # the plan step's forward at its per-rank heads (model = 2, 4)
+        "at_tensor_parallel_shapes": {
+            m: rows["flash_attn_fwd"]
+            for m, rows in tp_summary["kernels"].items()},
         # every prefill's forward (B = 1, S = a warmed prompt bucket,
         # causal, no lse); SDPA is the library column
         "at_prefill_shapes": [{k: r[k] for k in (
@@ -6341,11 +6997,15 @@ def main(argv) -> int:
             "replaces": ("deeplearning4j_tpu/nd/pallas_kernels.py:"
                          f"{replaces[name]}"),
             "launches": (train_launches[name] + api_train_launches[name]
-                         + dp_launches[name]),
+                         + dp_launches[name] + tp_launches[name]),
             "launches_by_path": {
                 "train": train_launches[name],
                 "api_checkpoint_listener": api_train_launches[name],
-                "data_parallel": dp_launches[name]},
+                "data_parallel": dp_launches[name],
+                "tensor_parallel": tp_launches[name]},
+            # at the plan step's per-rank heads (model = 2, 4)
+            "at_tensor_parallel_shapes": {
+                m: rows[name] for m, rows in tp_summary["kernels"].items()},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],

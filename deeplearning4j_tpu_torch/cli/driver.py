@@ -46,11 +46,14 @@ environment, or a group of one), in batches of `batch` (default 128),
 remainders padded and masked, with `mode=sync|averaging` from
 `--properties`; `--zero1` shards the updater state; bare `--mesh`, `--mesh
 all` and `--mesh batch=N` are the 1-D layout over N ranks, as in the JAX
-package; `--checkpoint-dir` checkpoints the trainer's whole state, and the
-rerun resumes on any number of ranks. Pretraining recipes refuse the mesh
-runtime as the JAX CLI does. Options that are not ported exit naming their
-ROADMAP.md item: a `--mesh` with a model axis, and `serve`'s and
-`generate`'s `--mesh` (item 10b), and `--compile-cache` (item 11).
+package; `--mesh batch=N,model=M` trains tensor-parallel over N·M ranks
+(`parallel/plan.py`; the attention and FFN blocks split over the model
+axis, checkpoints in the sharded layout), as the JAX CLI does;
+`--checkpoint-dir` checkpoints the trainer's whole state, and the rerun
+resumes on any number of ranks and any layout. Pretraining recipes refuse
+the mesh runtime as the JAX CLI does. Options that are not ported exit
+naming their ROADMAP.md item: `serve`'s and `generate`'s `--mesh` (item
+10b's serving half), and `--compile-cache` (item 11).
 """
 
 from __future__ import annotations
@@ -84,74 +87,50 @@ def _refuse_unported(args) -> None:
     if args.command != "train" and getattr(args, "mesh", None) is not None:
         raise SystemExit("--mesh (mesh-sharded serving) is not ported to "
                          "deeplearning4j_tpu_torch yet; see ROADMAP.md queue "
-                         "A item 10b")
-
-
-def parse_mesh_spec(spec: str) -> dict:
-    """A `--mesh` value: "batch=2,model=4" -> {"batch": 2, "model": 4}; ""
-    and "all" (the bare flag) -> {}, the 1-D layout over every rank. Sizes
-    may be -1 (every remaining rank). The JAX package's
-    `parallel/plan.parse_mesh_spec`."""
-    spec = (spec or "").strip()
-    if spec in ("", "all"):
-        return {}
-    shape = {}
-    for part in spec.split(","):
-        part = part.strip()
-        if not part:
-            continue
-        if "=" not in part:
-            raise ValueError(
-                f"bad mesh spec {spec!r}: expected axis=N[,axis=N...] "
-                f"(e.g. 'batch=2,model=4'), got segment {part!r}")
-        axis, _, size = part.partition("=")
-        axis = axis.strip()
-        try:
-            n = int(size)
-        except ValueError:
-            raise ValueError(f"bad mesh spec {spec!r}: size {size!r} of "
-                             f"axis {axis!r} is not an integer") from None
-        if n == 0 or n < -1:
-            raise ValueError(f"bad mesh spec {spec!r}: axis {axis!r} "
-                             f"size must be positive or -1, got {n}")
-        if axis in shape:
-            raise ValueError(f"bad mesh spec {spec!r}: axis {axis!r} "
-                             f"given twice")
-        shape[axis] = n
-    return shape
+                         "A item 10b (its serving half)")
 
 
 def _cli_mesh(spec: Optional[str], device):
-    """(mesh, axis, rows a batch divides into) of `--runtime mesh` (the
-    "dp" axis over every rank) and `--mesh SPEC` (the 1-D "batch" layout):
-    a model axis exits naming item 10b, and more ranks than the group has
-    exit as the JAX CLI's mesh does with too few devices."""
+    """(mesh, axis, rows a batch divides into, plan) of `--runtime mesh`
+    (the "dp" axis over every rank; plan None) and `--mesh SPEC`: the 1-D
+    "batch" layout (plan None), or with a model axis the 2-D plan
+    (`parallel/plan.py`: batch outermost, rank = b·M + m). Sizes that do
+    not multiply to the ranks exit as the JAX CLI's mesh does with too
+    few devices."""
     from deeplearning4j_tpu_torch.nd.platform import world_size
     from deeplearning4j_tpu_torch.parallel.mesh import (init_distributed,
                                                         make_mesh)
+    from deeplearning4j_tpu_torch.parallel.plan import (ShardPlan,
+                                                        parse_mesh_spec,
+                                                        plan_mesh)
 
     init_distributed(device)  # the group, before its size is read
     if spec is None:
         mesh = make_mesh({"dp": world_size()}, device=device)
-        return mesh, "dp", mesh.shape["dp"]
+        return mesh, "dp", mesh.shape["dp"], None
     try:
         shape = parse_mesh_spec(spec)
     except ValueError as e:
         raise SystemExit(str(e))
-    model = {a: n for a, n in shape.items() if a != "batch"}
-    if model:
-        raise SystemExit(
-            f"--mesh {spec}: a model axis (tensor parallelism, {model}) is "
-            f"not ported to deeplearning4j_tpu_torch yet; see ROADMAP.md "
-            f"queue A item 10b")
-    rows = shape.get("batch", -1)
+    other = sorted(set(shape) - {"batch", "model"})
+    if other:
+        raise SystemExit(f"--mesh {spec}: train takes the axes 'batch' and "
+                         f"'model', not {other}")
     n = world_size()
-    if rows > n:
-        raise SystemExit(f"mesh {{'batch': {rows}}} needs {rows} ranks, "
-                         f"have {n} (one process a rank, e.g. torchrun "
-                         f"--nproc-per-node {rows})")
-    mesh = make_mesh({"batch": rows}, device=device)
-    return mesh, "batch", mesh.shape["batch"]
+    if "model" not in shape:
+        rows = shape.get("batch", -1)
+        if rows > n:
+            raise SystemExit(f"mesh {{'batch': {rows}}} needs {rows} ranks, "
+                             f"have {n} (one process a rank, e.g. torchrun "
+                             f"--nproc-per-node {rows})")
+        mesh = make_mesh({"batch": rows}, device=device)
+        return mesh, "batch", mesh.shape["batch"], None
+    try:
+        plan = ShardPlan(mesh=plan_mesh(shape, device=device))
+    except ValueError as e:
+        raise SystemExit(f"--mesh {spec}: {e} (one process a rank, e.g. "
+                         f"torchrun --nproc-per-node N)")
+    return plan.mesh, "batch", plan.rows, plan
 
 
 def _load_data(args):
@@ -285,7 +264,7 @@ def cmd_train(args) -> int:
     if args.runtime == "mesh":
         # the group first: it gives this rank its device (under torchrun
         # one card a rank), which the network is built on
-        mesh, axis, rows = _cli_mesh(args.mesh, args.device)
+        mesh, axis, rows, plan = _cli_mesh(args.mesh, args.device)
         device = mesh.device
     net = MultiLayerNetwork(conf, device=device).init()
     t_train = time.perf_counter()
@@ -310,9 +289,11 @@ def cmd_train(args) -> int:
             print(f"note: {remainder} examples/epoch take the padded-batch "
                   f"path to stay divisible by the {rows}-row dp axis",
                   file=sys.stderr)
+        # a plan with a model axis (tensor parallelism) takes the place of
+        # mesh and axis
         trainer = DataParallelTrainer(net, mesh, axis=axis,
                                       mode=props.get("mode", "sync"),
-                                      zero1=args.zero1)
+                                      zero1=args.zero1, plan=plan)
         if args.checkpoint_dir:
             # crash-safe and elastic: the trainer's whole state (params,
             # updater moments, step, key, batch cursor) resumes on any
@@ -690,9 +671,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "process alone)")
     t.add_argument("--mesh", nargs="?", const="all", default=None,
                    metavar="SPEC",
-                   help="the 1-D layout batch=N (implies --runtime mesh); "
-                        "bare --mesh or --mesh all is every rank; a model "
-                        "axis is not ported yet (exits)")
+                   help="batch=N (the 1-D layout) or batch=N,model=M "
+                        "(tensor parallelism over N*M ranks); implies "
+                        "--runtime mesh; bare --mesh or --mesh all is "
+                        "every rank")
     t.add_argument("--zero1", action="store_true",
                    help="ZeRO-1: shard the updater state over the ranks; "
                         "checkpoints gather it whole, so resume works on "
@@ -772,6 +754,10 @@ def build_parser() -> argparse.ArgumentParser:
                                      "/v1/generate) + GET /v1/stats")
     s.add_argument("--model", required=True, help="checkpoint dir to serve")
     _add_device(s)
+    s.add_argument("--mesh", nargs="?", const="all", default=None,
+                   metavar="SPEC",
+                   help="serve over a mesh of ranks: ROADMAP.md queue A "
+                        "item 10b's serving half (exits)")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=0,
                    help="0 picks an ephemeral port (printed in the startup "

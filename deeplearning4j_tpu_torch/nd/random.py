@@ -234,10 +234,19 @@ def normal(key: torch.Tensor, mean: float, std: float, shape,
 
 
 def dropout_mask(key: torch.Tensor, keep_prob: float, shape,
-                 dtype=torch.float32) -> torch.Tensor:
+                 dtype=torch.float32, rows=None) -> torch.Tensor:
     """The inverted-dropout mask of the JAX package: `bernoulli(key,
     keep_prob, shape)` in `dtype`, divided by keep_prob rounded to `dtype`
     (a 0-d tensor, so that a bf16 mask divides by bf16(keep_prob) as JAX's
-    does), so inference needs no rescale."""
-    keep = bernoulli(key, keep_prob, shape).to(dtype)
-    return keep / torch.tensor(keep_prob, dtype=dtype)
+    does), so inference needs no rescale. `rows` = (offset, total): the
+    mask's leading dim is rows [offset, offset + shape[0]) of a batch of
+    `total` rows, whose one mask is drawn and cut (a rank's shard of a
+    batch that the JAX package masks in one draw)."""
+    shape = tuple(shape)
+    if rows is None:
+        keep = bernoulli(key, keep_prob, shape)
+    else:
+        offset, total = rows
+        keep = bernoulli(key, keep_prob, (total,) + shape[1:])[
+            offset:offset + shape[0]]
+    return keep.to(dtype) / torch.tensor(keep_prob, dtype=dtype)

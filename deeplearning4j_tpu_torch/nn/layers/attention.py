@@ -35,12 +35,14 @@ def _layer_norm(x, g, b, eps: float = 1e-5):
     return (x - mu) * torch.rsqrt(var + eps) * g + b
 
 
-def _dropped(conf, o, key, training):
+def _dropped(conf, o, key, training, tp=None):
     """The branch output `o` with dropout under training, as the JAX
-    package applies it before the residual add."""
+    package applies it before the residual add (under a batch split, the
+    global batch's mask cut to this rank's rows)."""
     if training and conf.dropout > 0.0 and key is not None:
-        o = o * nd_random.dropout_mask(key, 1.0 - conf.dropout, o.shape,
-                                       o.dtype)
+        o = o * nd_random.dropout_mask(
+            key, 1.0 - conf.dropout, o.shape, o.dtype,
+            rows=None if tp is None else tp.mask_rows(o.shape[0]))
     return o
 
 
@@ -74,21 +76,32 @@ class MultiHeadAttentionLayer:
         }
 
     @staticmethod
-    def forward(params, conf, x, key=None, training=False):
+    def forward(params, conf, x, key=None, training=False, tp=None):
+        """Under a model axis (`tp`, `parallel/tensor.TensorParallel`) the
+        params hold this rank's H/M heads (`tp_layout`): the input enters
+        through copy-to-model, the heads attend on their own, and the
+        partial output projection is summed over the model group before
+        `bo` is added once."""
         b, s, n = x.shape
         h = conf.n_heads
         hd = n // h
         xn = _layer_norm(x, params["ln_g"], params["ln_b"])
+        if tp is not None:
+            xn = tp.copy_to_model(xn)
+            h //= tp.size
         # the projections and the attention run in compute_dtype; the
         # residual stream and the layer norm stay in the param dtype
         qkv = (mixed_matmul(xn, params["Wqkv"], conf)
                + params["bqkv"]).to(compute_dtype(conf))
         # views of the fused projection: the kernel reads them in place
-        q, k, v = (t.view(b, s, h, hd) for t in qkv.split(n, dim=-1))
+        q, k, v = (t.view(b, s, h, hd) for t in qkv.split(h * hd, dim=-1))
         o = MultiHeadAttentionLayer._attend(conf, q, k, v)
-        o = mixed_matmul(o.reshape(b, s, n).to(x.dtype), params["Wo"],
-                         conf) + params["bo"]
-        return x + _dropped(conf, o, key, training)
+        o = mixed_matmul(o.reshape(b, s, h * hd).to(x.dtype), params["Wo"],
+                         conf)
+        if tp is not None:
+            o = tp.reduce_from_model(o)
+        o = o + params["bo"]
+        return x + _dropped(conf, o, key, training, tp)
 
     @staticmethod
     def prefill(params, conf, x, k_cache, v_cache):
@@ -294,10 +307,18 @@ class TransformerFFNLayer:
         }
 
     @staticmethod
-    def forward(params, conf, x, key=None, training=False):
+    def forward(params, conf, x, key=None, training=False, tp=None):
+        """Under a model axis (`tp`) the params hold this rank's F/M hidden
+        units: columns of W1 and b1, rows of W2, the partial down
+        projection summed over the model group before `b2`."""
         xn = _layer_norm(x, params["ln_g"], params["ln_b"])
+        if tp is not None:
+            xn = tp.copy_to_model(xn)
         # jax.nn.gelu defaults to the tanh approximation
         hid = F.gelu(mixed_matmul(xn, params["W1"], conf) + params["b1"],
                      approximate="tanh")
-        o = mixed_matmul(hid, params["W2"], conf) + params["b2"]
-        return x + _dropped(conf, o, key, training)
+        o = mixed_matmul(hid, params["W2"], conf)
+        if tp is not None:
+            o = tp.reduce_from_model(o)
+        o = o + params["b2"]
+        return x + _dropped(conf, o, key, training, tp)

@@ -84,21 +84,23 @@ class DenseLayer:
         return mixed_matmul(x, W, conf) + params["b"]
 
     @staticmethod
-    def dropped_input(conf, x, key, training):
+    def dropped_input(conf, x, key, training, tp=None):
         """(x with input dropout applied, the drop-connect key): JAX's
-        `kdrop, kdc = split(key)`."""
+        `kdrop, kdc = split(key)`. Under a batch split (`tp.rows`) the
+        mask is the global batch's, cut to this rank's rows."""
         if key is None or not training or not (conf.dropout > 0.0
                                                 or conf.drop_connect):
             return x, None
         kdrop, kdc = nd_random.split(key)
         if conf.dropout > 0.0:
-            x = x * nd_random.dropout_mask(kdrop, 1.0 - conf.dropout,
-                                           x.shape, x.dtype)
+            x = x * nd_random.dropout_mask(
+                kdrop, 1.0 - conf.dropout, x.shape, x.dtype,
+                rows=None if tp is None else tp.mask_rows(x.shape[0]))
         return x, kdc
 
     @staticmethod
-    def forward(params, conf, x, key=None, training=False):
-        x, kdc = DenseLayer.dropped_input(conf, x, key, training)
+    def forward(params, conf, x, key=None, training=False, tp=None):
+        x, kdc = DenseLayer.dropped_input(conf, x, key, training, tp)
         return activate(conf.activation,
                         DenseLayer.preout(params, conf, x, kdc, training))
 

@@ -17,8 +17,8 @@ from deeplearning4j_tpu_torch.nn.layers.base import DenseLayer
 
 class OutputLayer(DenseLayer):
     @staticmethod
-    def forward(params, conf, x, key=None, training=False):
-        x, kdc = DenseLayer.dropped_input(conf, x, key, training)
+    def forward(params, conf, x, key=None, training=False, tp=None):
+        x, kdc = DenseLayer.dropped_input(conf, x, key, training, tp)
         z = OutputLayer.preout(params, conf, x, kdc, training)
         loss = str(conf.loss_function).lower()
         # the head matches the loss: softmax for multiclass CE, sigmoid for
@@ -40,8 +40,9 @@ class OutputLayer(DenseLayer):
         return s
 
     @staticmethod
-    def rowwise_loss(params, conf, x, labels, key=None, training=False):
+    def rowwise_loss(params, conf, x, labels, key=None, training=False,
+                     tp=None):
         """Per-example loss vector without the regularization terms, which
         the caller counts once per step."""
-        out = OutputLayer.forward(params, conf, x, key, training)
+        out = OutputLayer.forward(params, conf, x, key, training, tp)
         return L.get_rowwise(conf.loss_function)(labels, out)

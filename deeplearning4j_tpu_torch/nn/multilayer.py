@@ -112,24 +112,42 @@ def _is_bn(c) -> bool:
     return LayerType(str(c.layer_type)) == LayerType.BATCH_NORM
 
 
+#: the layer types that take the model axis (`tp`): the attention and FFN
+#: blocks split by head and hidden unit, the dense and output layers only
+#: cut the global batch's dropout mask to this rank's rows
+_TP_TYPES = {LayerType.ATTENTION, LayerType.TRANSFORMER_FFN,
+             LayerType.DENSE, LayerType.OUTPUT}
+
+
+def _forward(c, p, x, key, training, tp):
+    """One layer's forward; `tp` reaches the layers of `_TP_TYPES`."""
+    layer = get_layer(c.layer_type)
+    if tp is not None and LayerType(str(c.layer_type)) in _TP_TYPES:
+        return layer.forward(p, c, x, key, training, tp=tp)
+    return layer.forward(p, c, x, key, training)
+
+
 def feed_forward(conf: MultiLayerConfiguration, params, x, key=None,
-                 training: bool = False, up_to: Optional[int] = None) -> list:
-    """Activations after each layer; `up_to` stops early."""
+                 training: bool = False, up_to: Optional[int] = None,
+                 tp=None) -> list:
+    """Activations after each layer; `up_to` stops early. `tp` (a
+    `parallel.tensor.TensorParallel`) is the model axis: the params are
+    this rank's shards of it (`tp_layout`), and the activations come out
+    whole on every model rank."""
     n = conf.n_layers if up_to is None else up_to
     keys = _layer_keys(key, max(1, n))
     acts = []
     for i in range(n):
         c = conf.conf(i)
         x = apply_preprocessor(conf.preprocessor(i), x)
-        x = get_layer(c.layer_type).forward(params[i], c, x, keys[i],
-                                            training)
+        x = _forward(c, params[i], x, keys[i], training, tp)
         acts.append(x)
     return acts
 
 
 def network_output(conf: MultiLayerConfiguration, params, x, key=None,
-                   training: bool = False):
-    acts = feed_forward(conf, params, x, key, training)
+                   training: bool = False, tp=None):
+    acts = feed_forward(conf, params, x, key, training, tp=tp)
     return acts[-1] if acts else x
 
 
@@ -161,7 +179,7 @@ def network_loss(conf: MultiLayerConfiguration, params, x, labels, key=None,
 
 def network_rowwise_loss(conf: MultiLayerConfiguration, params, x, labels,
                          key=None, training: bool = True, row_weights=None,
-                         return_bn_stats: bool = False):
+                         return_bn_stats: bool = False, tp=None):
     """Per-label-row loss vector, no regularization (see
     `network_regularization`). Rows follow `labels`' leading dim, e.g.
     B*T for a sequence model whose `rnn_to_ff` flattens time.
@@ -170,7 +188,8 @@ def network_rowwise_loss(conf: MultiLayerConfiguration, params, x, labels,
     BatchNorm layer's statistics to the real rows. `return_bn_stats` also
     returns the raw moments ((s1, s2, cnt) per BatchNorm layer, in layer
     order) of this forward, from which the train step advances the running
-    EMA without a second forward (`update_bn_ema_from_stats`)."""
+    EMA without a second forward (`update_bn_ema_from_stats`). `tp`: the
+    model axis, as in `feed_forward`."""
     n = conf.n_layers
     keys = _layer_keys(key, n)
     h = x
@@ -187,11 +206,10 @@ def network_rowwise_loss(conf: MultiLayerConfiguration, params, x, labels,
             h = BatchNormLayer.apply_stats(params[i], h, mean.to(h.dtype),
                                            var.to(h.dtype))
         else:
-            h = get_layer(c.layer_type).forward(params[i], c, h, keys[i],
-                                                training)
+            h = _forward(c, params[i], h, keys[i], training, tp)
     h = apply_preprocessor(conf.preprocessor(n - 1), h)
     rows = OutputLayer.rowwise_loss(params[n - 1], conf.conf(n - 1), h,
-                                    labels, keys[n - 1], training)
+                                    labels, keys[n - 1], training, tp)
     if return_bn_stats:
         return rows, tuple(stats)
     return rows

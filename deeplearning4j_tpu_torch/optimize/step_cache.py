@@ -685,7 +685,12 @@ class DPStepCache(CompiledProgramCache):
     (variant key, conf, input shapes), over the trainer's flat state
     buffers (params, and the updater's two moments), which the program's
     `write` updates in place. Books as `TrainStepCache`'s; the graphs
-    go into the trainer's own memory pool."""
+    go into the trainer's own memory pool. A tensor-parallel plan's step
+    is keyed as the JAX package keys it, ("plan_step",
+    plan.sharding_tag(), masked, zero1), and its collectives over the
+    model and batch groups run inside its graph (NCCL makes a group's
+    communicator at its first collective, so the trainer runs one eager
+    collective on each group before any capture)."""
 
     kind = "dp-step-cache"
 

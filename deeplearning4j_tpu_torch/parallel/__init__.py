@@ -7,17 +7,24 @@ step; the control plane (membership, heartbeats, job routing, status
 REST) is the host-side coordinator.
 
 Modules:
-  mesh            process groups as meshes (the dp axis), batch sharding
+  mesh            process groups as meshes (named axes, a sub-group an
+                  axis), batch sharding
+  plan            `ShardPlan`, `parse_mesh_spec`, `plan_mesh`: the
+                  (batch, model) layout and its keys and per-leaf specs
+  tensor          the model axis: Megatron collectives as autograd
+                  Functions, the split layout, `TensorParallel`
   averaging       parameter averaging / aggregation
-  data_parallel   the sync, masked, grad-accum, averaging and ZeRO-1 steps
-                  and `DataParallelTrainer`
+  data_parallel   the sync, masked, grad-accum, averaging, ZeRO-1 and
+                  plan (tensor-parallel) steps and `DataParallelTrainer`
+  sequence        ring and Ulysses attention over a sequence axis
+  pipeline        GPipe microbatch pipelining over a stage axis
+  expert          Switch mixture-of-experts over an expert axis
   coordinator     host-side state tracker: workers, heartbeats, jobs, REST
   config_registry configs parked for workers, on disk or over HTTP
   checkpoint      params, updater state and data cursor, both layouts
 
-Tensor, sequence, pipeline and expert parallelism (`plan.py`,
-`sequence.py`, `pipeline.py`, `expert.py`) are ROADMAP.md queue A item
-10b.
+Sharded serving (`set_serve_mesh`, `serve --mesh`) is ROADMAP.md queue A
+item 10b's serving half.
 """
 
 from deeplearning4j_tpu_torch.parallel.averaging import (ParameterAggregator,
@@ -25,11 +32,15 @@ from deeplearning4j_tpu_torch.parallel.averaging import (ParameterAggregator,
                                                          merge)
 from deeplearning4j_tpu_torch.parallel.checkpoint import CheckpointFormatError
 from deeplearning4j_tpu_torch.parallel.data_parallel import (
-    DataParallelTrainer, make_dp_train_step, make_zero1_train_step,
-    zero1_shard_state)
+    DataParallelTrainer, make_dp_train_step, make_plan_train_step,
+    make_zero1_train_step, plan_shard_state, zero1_shard_state)
 from deeplearning4j_tpu_torch.parallel.mesh import make_mesh, mesh_axes
+from deeplearning4j_tpu_torch.parallel.plan import (ShardPlan,
+                                                    parse_mesh_spec,
+                                                    plan_mesh)
 
 __all__ = ["CheckpointFormatError", "DataParallelTrainer",
-           "ParameterAggregator", "average_pytrees", "make_dp_train_step",
-           "make_mesh", "make_zero1_train_step", "merge", "mesh_axes",
-           "zero1_shard_state"]
+           "ParameterAggregator", "ShardPlan", "average_pytrees",
+           "make_dp_train_step", "make_mesh", "make_plan_train_step",
+           "make_zero1_train_step", "merge", "mesh_axes", "parse_mesh_spec",
+           "plan_mesh", "plan_shard_state", "zero1_shard_state"]

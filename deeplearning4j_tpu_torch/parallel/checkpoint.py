@@ -10,11 +10,15 @@ directory swung into place, the previous one kept as '<dir>.bak' until the
 swap is done), on rank 0 only, so the JAX package's `load` reads what the
 port trained; `load` reads it back, into given params and updater trees or
 as nested dicts, and `load_resilient` falls back to '<dir>.bak' when the
-directory is missing or unreadable. `load` also reads the sharded layout
-(`index.json` and `shards.npz`, one piece a unique shard) that the JAX
-package's `save_sharded` writes for a tensor-parallel plan, assembling
-each leaf whole (`load_sharded`); writing it comes with the plan
-(ROADMAP.md queue A item 10b). Saves and loads traverse the
+directory is missing or unreadable. The sharded layout (`index.json` and
+`shards.npz`, one piece a unique shard, each with its global bounds) is
+what the JAX package's `save_sharded` writes for a tensor-parallel plan;
+the port's `save_sharded` writes it too, from the ranks of a model axis
+(rank 0 writes, the other model ranks send it their pieces one at a
+time, and no rank holds a split leaf whole), and `load` reads either
+layout whole or, with `tp=`, as this rank's shards of a model axis
+(`parallel/tensor.py`'s pieces, assembled from the pieces that overlap
+them). Saves and loads traverse the
 `checkpoint.save` and `checkpoint.load` fault points where the JAX
 package's do.
 `save_async` takes an owned host copy of the params on the calling thread
@@ -253,7 +257,7 @@ def _check_version(directory: str, meta: Dict[str, Any]) -> None:
             f"build reads <= {FORMAT_VERSION}")
 
 
-def load(directory: str, like_params=None, like_updater=None
+def load(directory: str, like_params=None, like_updater=None, tp=None
          ) -> Tuple[Any, Any, Dict[str, Any]]:
     """Read a checkpoint of either layout: (params, updater or None, meta).
     With `like_params` (a params tree of tensors) the params come back in
@@ -263,12 +267,17 @@ def load(directory: str, like_params=None, like_updater=None
     `CheckpointFormatError`. Without them the trees are nested dicts of
     numpy arrays keyed by path component (the sharded layout needs
     `like_params`, as in the JAX package). Falls back to '<dir>.bak' when
-    the directory is missing, as the JAX package does."""
+    the directory is missing, as the JAX package does. With `tp` (a
+    `parallel.tensor.TensorParallel` of more than one rank) the like trees
+    are this rank's shards, and each split leaf is read as the pieces this
+    rank holds, from either layout."""
     if not os.path.isdir(directory) and os.path.isdir(directory + ".bak"):
         directory = directory + ".bak"
     faults.fire("checkpoint.load", path=directory)
     with open(os.path.join(directory, "meta.json")) as f:
         meta = json.load(f)
+    if tp is not None and tp.size > 1:
+        return _load_local(directory, meta, like_params, like_updater, tp)
     if meta.get("layout") == "sharded":
         return _load_sharded_impl(directory, like_params, like_updater, None)
     _check_version(directory, meta)
@@ -410,6 +419,175 @@ def _load_sharded_impl(directory: str, like_params, like_updater,
     return params, updater, meta
 
 
+def _split_of(path: str, tp):
+    """The Split of the leaf at a checkpoint path (".../{layer}/{name}")
+    under `tp`'s layout, or None (a whole leaf)."""
+    parts = path.split("/")
+    try:
+        return tp.layout.get((int(parts[-2]), parts[-1]))
+    except (IndexError, ValueError):
+        return None
+
+
+def _write_sharded(directory: str, pieces: Dict[str, np.ndarray],
+                   index: Dict[str, Any], conf, meta) -> str:
+    """The sharded layout's files, swung into place atomically."""
+    directory = os.fspath(directory)
+    parent = os.path.dirname(os.path.abspath(directory)) or "."
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=".ckpt-tmp-", dir=parent)
+    try:
+        np.savez(os.path.join(tmp, "shards.npz"), **pieces)
+        with open(os.path.join(tmp, "index.json"), "w") as f:
+            json.dump(index, f)
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f, indent=1)
+        if conf is not None:
+            with open(os.path.join(tmp, "conf.json"), "w") as f:
+                f.write(conf.to_json())
+        _atomic_swap(tmp, directory)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return directory
+
+
+def save_sharded(directory: str, params, updater=None, *,
+                 conf: MultiLayerConfiguration = None, step: int = 0,
+                 data_cursor: Optional[Dict[str, Any]] = None,
+                 metadata: Optional[Dict[str, Any]] = None,
+                 mesh: Optional[Dict[str, Any]] = None, tp=None) -> str:
+    """Write the JAX package's sharded layout: meta.json (with "layout":
+    "sharded"), index.json (per leaf its global shape, dtype and pieces,
+    each with its [start, end] bounds a dim) and shards.npz (the pieces,
+    keyed "path::i"); JAX's `load_sharded` and `load` read it.
+
+    Without `tp` (or at one model rank) every leaf is one piece, written
+    by rank 0. With `tp` (a `parallel.tensor.TensorParallel`; `params` and
+    `updater` this rank's shards) it is a collective over the model group:
+    a whole leaf is written once, from the group's rank 0, and each split
+    leaf as every model rank's pieces (three a rank for the head-aligned
+    `Wqkv`), which the other ranks send to rank 0 one piece at a time; no
+    rank holds a split leaf whole. The group's rank 0 writes."""
+    import torch.distributed as dist
+
+    state = {"params": params}
+    if updater is not None:
+        state["updater"] = updater
+    multi = tp is not None and tp.size > 1
+    writer = (tp.rank == 0) if multi else platform.rank() == 0
+    if writer:
+        faults.fire("checkpoint.save", path=directory)
+    if multi:
+        from deeplearning4j_tpu_torch.parallel.tensor import pieces as bounds
+
+        root = dist.get_global_rank(tp.group, 0)
+    pieces: Dict[str, np.ndarray] = {}
+    index: Dict[str, Any] = {}
+    for path, leaf in _leaf_paths(state):
+        split = _split_of(path, tp) if multi else None
+        if split is None:
+            if writer:
+                arr = _to_numpy(leaf)
+                pieces[f"{path}::0"] = arr
+                index[path] = {"shape": list(arr.shape),
+                               "dtype": str(arr.dtype),
+                               "pieces": [{"key": f"{path}::0", "index": [
+                                   [0, int(d)] for d in arr.shape]}]}
+            continue
+        shape = list(leaf.shape)
+        shape[split.dim] *= tp.size
+        mine = leaf.detach().chunk(split.parts, dim=split.dim)
+        entry = []
+        for r in range(tp.size):
+            for p, b in enumerate(bounds(shape, split, tp.size, r)):
+                key = f"{path}::{r * split.parts + p}"
+                if r == 0:
+                    if writer:
+                        pieces[key] = _to_numpy(mine[p])
+                elif tp.rank == r:
+                    dist.send(mine[p].contiguous(), dst=root, group=tp.group)
+                elif writer:
+                    buf = torch.empty_like(mine[p], memory_format=torch.
+                                           contiguous_format)
+                    dist.recv(buf, src=dist.get_global_rank(tp.group, r),
+                              group=tp.group)
+                    pieces[key] = _to_numpy(buf)
+                entry.append({"key": key, "index": [list(x) for x in b]})
+        if writer:
+            index[path] = {"shape": shape,
+                           "dtype": str(pieces[entry[0]["key"]].dtype),
+                           "pieces": entry}
+    if not writer:
+        return directory
+    meta = {"step": int(step), "data_cursor": dict(data_cursor or {}),
+            "metadata": dict(metadata or {}),
+            "format_version": FORMAT_VERSION, "layout": "sharded",
+            "mesh": mesh or None}
+    return _write_sharded(directory, pieces, {"leaves": index}, conf, meta)
+
+
+def _load_local(directory: str, meta: Dict[str, Any], like_params,
+                like_updater, tp) -> Tuple[Any, Any, Dict[str, Any]]:
+    """`load` into this rank's shards of `tp`'s model axis: each split
+    leaf as the concatenation of the pieces this rank holds, read from
+    the sharded layout's overlapping pieces or cut from the gathered
+    layout's whole array."""
+    from deeplearning4j_tpu_torch.parallel.tensor import (local_shape,
+                                                          pieces, shard_leaf)
+
+    _check_version(directory, meta)
+    sharded = meta.get("layout") == "sharded"
+    if sharded:
+        index, _ = _read_sharded_index(directory)
+        store = np.load(os.path.join(directory, "shards.npz"))
+    else:
+        store = np.load(os.path.join(directory, "arrays.npz"))
+
+    def read(path, like):
+        split = _split_of(path, tp)
+        if sharded:
+            if path not in index:
+                raise CheckpointFormatError(
+                    f"checkpoint {directory} is missing '{path}': it was "
+                    f"written for a different model config")
+            info = index[path]
+            shape = tuple(int(d) for d in info["shape"])
+            regions = ([tuple((0, d) for d in shape)] if split is None
+                       else pieces(shape, split, tp.size, tp.rank))
+            parts = [_assemble_region(store, info, tuple(
+                slice(lo, hi) for lo, hi in b), None) for b in regions]
+            local = (parts[0] if split is None
+                     else np.concatenate(parts, axis=split.dim))
+        else:
+            if path not in store.files:
+                raise CheckpointFormatError(
+                    f"checkpoint {directory} is missing '{path}': it was "
+                    f"written for a different model config")
+            whole = store[path]
+            shape = tuple(whole.shape)
+            local = shard_leaf(whole, split, tp.size, tp.rank)
+        want = tuple(like.shape)
+        got = shape if split is None else local_shape(shape, split, tp.size)
+        if tuple(local.shape) != want or tuple(got) != want:
+            raise CheckpointFormatError(
+                f"checkpoint {directory} leaf {path} has shape {shape}, "
+                f"which does not hold this rank's {want}: this checkpoint "
+                f"belongs to a different config")
+        return _to_tensor(local, like.device)
+
+    try:
+        params = tree_unflatten(like_params, [
+            read(path, like) for path, like in
+            _leaf_paths(like_params, ("params",))])
+        updater = (None if like_updater is None else tree_unflatten(
+            like_updater, [read(path, like) for path, like in
+                           _leaf_paths(like_updater, ("updater",))]))
+    finally:
+        store.close()
+    return params, updater, meta
+
+
 def load_sharded(directory: str, like_params=None, like_updater=None, *,
                  stats: Optional[Dict[str, Any]] = None
                  ) -> Tuple[Any, Any, Dict[str, Any]]:
@@ -423,8 +601,8 @@ def load_sharded(directory: str, like_params=None, like_updater=None, *,
     return _load_sharded_impl(directory, like_params, like_updater, stats)
 
 
-def load_resilient(directory: str, like_params=None, like_updater=None
-                   ) -> Optional[Tuple[Any, Any, Dict[str, Any]]]:
+def load_resilient(directory: str, like_params=None, like_updater=None,
+                   tp=None) -> Optional[Tuple[Any, Any, Dict[str, Any]]]:
     """The newest readable checkpoint among '<dir>' and '<dir>.bak', or
     None. A corrupt directory (torn npz, missing meta.json) falls back to
     the other; a `CheckpointFormatError` (newer format, another model) is
@@ -433,7 +611,7 @@ def load_resilient(directory: str, like_params=None, like_updater=None
         if not os.path.isdir(cand):
             continue
         try:
-            return load(cand, like_params, like_updater)
+            return load(cand, like_params, like_updater, tp)
         except CheckpointFormatError:
             raise
         except Exception as e:  # noqa: BLE001 — corrupt entry, try fallback

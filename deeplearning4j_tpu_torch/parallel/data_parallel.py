@@ -49,18 +49,31 @@ does: `fit` over batches (remainders padded and masked), listeners, the
 `trainer.step` fault point, crash-safe and elastic checkpoints (params,
 updater, step, key and batch cursor; a checkpoint of n ranks resumes on
 m), and at the end the trained params copied into the network's own
-tensors in place, so its inference graphs stay valid. Tensor, sequence,
-pipeline and expert parallelism (`plan=` with a model axis) come with
-ROADMAP.md queue A item 10b.
+tensors in place, so its inference graphs stay valid.
+
+Tensor parallelism (`plan=`, a `parallel.plan.ShardPlan` with a model
+axis): the JAX package's one GSPMD program becomes each rank's part of
+it. Rank (b, m) holds its shards of the attention and FFN blocks
+(`parallel/tensor.py`'s layout; every other leaf whole), runs the
+forward and backward on its rows of the batch with the model axis's
+collectives inside the layers, all-reduces the gradient over the batch
+axis only (ZeRO-1: reduce-scatters it and all-gathers the params, the
+sync step's chunks of this rank's own flat buffers), takes the batch
+axis's mean
+score, and draws the dropout masks of the whole batch from the unfolded
+key, keeping its rows. `plan_params_from_numpy` carries the JAX package's
+params in as this rank's shards; checkpoints take the sharded layout
+(`checkpoint.save_sharded`) and resume on any layout; at the end of `fit`
+the network's params are gathered whole on every rank.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import signal
 import threading
 import time
-import warnings
 from typing import Callable, Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -87,6 +100,9 @@ from deeplearning4j_tpu_torch.optimize.updater import (FlatSpec,
                                                        make_flat_spec)
 from deeplearning4j_tpu_torch.parallel.mesh import (Mesh, batch_tensor,
                                                     shard_batch)
+from deeplearning4j_tpu_torch.parallel.tensor import (  # noqa: F401
+    CAPTURED_COLLECTIVES, TensorParallel, all_gather, all_reduce,
+    reduce_scatter, shard_leaf, tp_layout, unshard_leaf)
 from deeplearning4j_tpu_torch.reliability import TrainingInterrupted, faults
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
@@ -191,13 +207,13 @@ def gather_updater(state: TrainState, mesh: Mesh,
     flat = state.flat
     if flat.chunk is None:
         return state.updater
-    group, n = mesh.group, mesh.shape[axis]
+    group, n = mesh.axis_group(axis), mesh.shape[axis]
 
     def full(chunks):
         bufs = []
         for b, c, size in zip(chunks, flat.chunk, flat.spec.group_sizes):
             out = b.new_empty(c * n)
-            _all_gather(out, b, group)
+            all_gather(out, b, group)
             bufs.append(out[:size])
         return flat_unravel(flat.spec, bufs)
 
@@ -206,7 +222,7 @@ def gather_updater(state: TrainState, mesh: Mesh,
 
 
 def _rank(mesh: Mesh, axis: str = "dp") -> int:
-    return mesh.rank if mesh.shape[axis] > 1 else 0
+    return mesh.coord(axis)
 
 
 def _feature_row_weights(w, x):
@@ -218,48 +234,9 @@ def _feature_row_weights(w, x):
 
 # -- collectives ------------------------------------------------------------
 
-#: collectives issued while a CUDA graph was being captured, by op: what a
-#: captured step replays. (NCCL's in-place all-reduce over one rank moves
-#: nothing and launches no kernel, so a profile of a world-size-1 replay
-#: cannot show it.)
-CAPTURED_COLLECTIVES = {"all_reduce": 0, "reduce_scatter": 0,
-                        "all_gather": 0}
-
-
-def _note(op: str, t: torch.Tensor) -> None:
-    if t.is_cuda and torch.cuda.is_current_stream_capturing():
-        CAPTURED_COLLECTIVES[op] += 1
-
-
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    import torch.distributed as dist
-
-    _note("all_reduce", t)
-    dist.all_reduce(t, group=group)
-    return t
-
-
-def _reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group) -> None:
-    import torch.distributed as dist
-
-    _note("reduce_scatter", out)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.reduce_scatter_tensor(out, inp, group=group)
-
-
-def _all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
-    import torch.distributed as dist
-
-    _note("all_gather", out)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.all_gather_into_tensor(out, inp, group=group)
-
-
 def _scalar_sum(t: torch.Tensor, group) -> torch.Tensor:
     """psum of a scalar: the all-reduce of a one-element copy."""
-    return _all_reduce(t.float().reshape(1).clone(), group).reshape(())
+    return all_reduce(t.float().reshape(1).clone(), group).reshape(())
 
 
 # -- the steps --------------------------------------------------------------
@@ -272,7 +249,7 @@ def _split_inputs(rest, masked: bool):
 
 
 def _loss_fn(conf, x, y, w, den, n: int, collect_bn: bool,
-             dot: bool = False):
+             dot: bool = False, tp=None):
     """`(params, key) -> (loss, BatchNorm moments)` of one shard: the mean
     of the rows plus regularization, or with weights w the weighted sum
     over the global `den` plus regularization / n (every rank's loss sums
@@ -282,12 +259,13 @@ def _loss_fn(conf, x, y, w, den, n: int, collect_bn: bool,
     def loss(p, k):
         out = network_rowwise_loss(conf, p, x, y, k, training=True,
                                    row_weights=wx,
-                                   return_bn_stats=collect_bn)
+                                   return_bn_stats=collect_bn, tp=tp)
         rows, stats = out if collect_bn else (out, ())
         if w is None:
             return rows.mean() + network_regularization(conf, p), stats
         total = torch.dot(rows, w) if dot else torch.sum(rows * w)
-        return total / den + network_regularization(conf, p) / n, stats
+        return (total / den + network_regularization(conf, p) / n,
+                stats)
 
     return loss
 
@@ -321,20 +299,49 @@ def _accum_grads(conf, spec, params, x, y, key, k: int):
     return tuple(a / k for a in acc), score / k
 
 
+def _shard_key(key, rank: int, n: int, rows: int,
+               tp: Optional[TensorParallel]):
+    """(the dropout key of this rank's shard, the model axis as its layers
+    see it). Data parallel: the batch key folded with the rank, distinct
+    masks a shard and the same update everywhere. Under a model axis: the
+    batch key itself, each rank taking its rows of the global batch's one
+    draw, as the JAX package's one program draws it."""
+    if tp is None:
+        return (None if key is None else nd_random.fold_in(key, rank)), None
+    return key, tp.with_rows(rank * rows, rows, n * rows)
+
+
+def _plan_norm(flat: FlatState, chunk, rank: int, n: int, group,
+               tp: Optional[TensorParallel]):
+    """The norm of `_sharded_norm` for a step on `flat`'s buffers, a leaf
+    split over `tp`'s model axis summed over its group."""
+    split = () if tp is None else [
+        tp.is_split(i, name)
+        for i, name in _leaf_names(flat_unravel(flat.spec, flat.params))]
+    return _sharded_norm(flat.spec, chunk, rank, n, group, split, tp)
+
+
 def _sync_program(conf, mesh: Mesh, axis: str, masked: bool,
-                  grad_accum: int, spec: FlatSpec) -> Callable:
+                  grad_accum: int, flat: FlatState,
+                  tp: Optional[TensorParallel] = None) -> Callable:
     """The sync (or masked, or grad_accum) step: a function of (bufs, x,
-    y, [w], consts, [key]) returning the new buffers and the score."""
+    y, [w], consts, [key]) returning the new buffers and the score. With
+    `tp` (`make_plan_train_step`) the forward and backward run on this
+    rank's shards with the model axis's collectives inside them, the
+    gradient is all-reduced over the batch group (`axis`) only, and the
+    norms sum a split leaf over the model group."""
     out_conf = conf.conf(conf.n_layers - 1)
     collect_bn = has_batchnorm(conf)
-    n, group, rank = mesh.shape[axis], mesh.group, _rank(mesh, axis)
+    n, group = mesh.shape[axis], mesh.axis_group(axis)
+    rank = _rank(mesh, axis)
+    spec = flat.spec
+    norm = None if tp is None else _plan_norm(flat, None, rank, n, group, tp)
 
     def compute(bufs, x, y, *rest):
         pbufs, hbufs, vbufs = bufs
         w, consts, key = _split_inputs(rest, masked)
         params = flat_unravel(spec, pbufs)
-        # distinct per-shard dropout keys, the same update everywhere
-        k = None if key is None else nd_random.fold_in(key, rank)
+        k, shard_tp = _shard_key(key, rank, n, x.shape[0], tp)
         stats = ()
         if grad_accum > 1:
             gbufs, score = _accum_grads(conf, spec, params, x, y, k,
@@ -343,19 +350,20 @@ def _sync_program(conf, mesh: Mesh, axis: str, masked: bool,
             den = None
             if w is not None:
                 den = torch.clamp(_scalar_sum(w.sum(), group), min=1.0)
-            loss = _loss_fn(conf, x, y, w, den, n, collect_bn)
+            loss = _loss_fn(conf, x, y, w, den, n, collect_bn,
+                            dot=tp is not None, tp=shard_tp)
             grads, score, stats = _grads(loss, params, k)
             gbufs = flat_ravel(spec, grads)
         # the all-reduce: what the reference moved as whole param vectors
         for g in gbufs:
-            _all_reduce(g, group)
+            all_reduce(g, group)
         score = _scalar_sum(score, group)
         if w is None and n > 1:
             gbufs = tuple(g / n for g in gbufs)
             score = score / n
         adj, upd = adjust_gradient_flat(out_conf, 0, gbufs, pbufs,
                                         UpdaterState(hbufs, vbufs), spec,
-                                        consts=consts)
+                                        consts=consts, norm_fn=norm)
         new = tuple(p - a.to(p.dtype) for p, a in zip(pbufs, adj))
         if collect_bn:
             # running inference stats from the global batch's moments
@@ -379,7 +387,8 @@ def _averaging_program(conf, mesh: Mesh, axis: str, masked: bool,
     then params and updater state averaged over the ranks."""
     out_conf = conf.conf(conf.n_layers - 1)
     collect_bn = has_batchnorm(conf)
-    n, group, rank = mesh.shape[axis], mesh.group, _rank(mesh, axis)
+    n, group = mesh.shape[axis], mesh.axis_group(axis)
+    rank = _rank(mesh, axis)
 
     def compute(bufs, x, y, *rest):
         pbufs, hbufs, vbufs = bufs
@@ -411,7 +420,7 @@ def _averaging_program(conf, mesh: Mesh, axis: str, masked: bool,
         trees = tuple(p) + tuple(h) + tuple(v)
         if w is None:
             for t in trees:
-                _all_reduce(t, group)
+                all_reduce(t, group)
             score = _scalar_sum(score, group)
             if n > 1:
                 trees = tuple(t / n for t in trees)
@@ -419,7 +428,7 @@ def _averaging_program(conf, mesh: Mesh, axis: str, masked: bool,
         else:
             total = torch.clamp(_scalar_sum(local_den, group), min=1.0)
             share = local_den / total
-            trees = tuple(_all_reduce(t * share.to(t.dtype), group)
+            trees = tuple(all_reduce(t * share.to(t.dtype), group)
                           for t in trees)
             score = _scalar_sum(score * local_den, group) / total
         g = len(pbufs)
@@ -428,53 +437,32 @@ def _averaging_program(conf, mesh: Mesh, axis: str, masked: bool,
     return compute
 
 
-def _chunk_norm(spec: FlatSpec, chunk: tuple, rank: int, n: int, group):
-    """`flat_norm` of a step held as this rank's chunks: each leaf's
-    squared sum over the part of it in the chunk, summed over the ranks,
-    then added up leaf by leaf as `flat_norm` adds them."""
-
-    def norm(bufs):
-        parts = []
-        for g, o, size in spec.leaf_slices:
-            c = chunk[g]
-            lo, hi = max(o, rank * c), min(o + size, (rank + 1) * c)
-            if hi > lo:
-                seg = bufs[g][lo - rank * c:hi - rank * c]
-                parts.append(torch.sum(torch.square(seg.float())))
-            else:
-                parts.append(torch.zeros((), dtype=torch.float32,
-                                         device=bufs[g].device))
-        sq = torch.stack(parts)
-        if n > 1:
-            _all_reduce(sq, group)
-        return torch.sqrt(sum(sq.unbind()))
-
-    return norm
-
-
 def _zero1_program(conf, mesh: Mesh, axis: str, masked: bool,
-                   flat: FlatState) -> Callable:
+                   flat: FlatState,
+                   tp: Optional[TensorParallel] = None) -> Callable:
     """The ZeRO-1 step: reduce-scatter of the flat gradient, the updater
     on this rank's chunk, and (in `_zero1_write`) the all-gather of the
-    params."""
+    params; `tp` as in `_sync_program`, the chunks those of this rank's
+    shards."""
     out_conf = conf.conf(conf.n_layers - 1)
-    n, group, rank = mesh.shape[axis], mesh.group, _rank(mesh, axis)
+    n, group = mesh.shape[axis], mesh.axis_group(axis)
+    rank = _rank(mesh, axis)
     spec, chunk = flat.spec, flat.chunk
-    norm = _chunk_norm(spec, chunk, rank, n, group)
+    norm = _plan_norm(flat, chunk, rank, n, group, tp)
 
     def compute(bufs, x, y, *rest):
         pbufs, hbufs, vbufs = bufs
         w, consts, key = _split_inputs(rest, masked)
-        k = None if key is None else nd_random.fold_in(key, rank)
+        k, shard_tp = _shard_key(key, rank, n, x.shape[0], tp)
         den = None
         if w is not None:
             den = torch.clamp(_scalar_sum(w.sum(), group), min=1.0)
-        loss = _loss_fn(conf, x, y, w, den, n, False, dot=True)
+        loss = _loss_fn(conf, x, y, w, den, n, False, dot=True, tp=shard_tp)
         grads, score, _ = _grads(loss, flat_unravel(spec, pbufs), k)
         gchunks = []
         for g, c in zip(flat_ravel(spec, grads), chunk):
             out = g.new_empty(c)
-            _reduce_scatter(out, _padded(g, c * n), group)
+            reduce_scatter(out, _padded(g, c * n), group)
             gchunks.append(out / n if w is None and n > 1 else out)
         score = _scalar_sum(score, group)
         if w is None and n > 1:
@@ -498,7 +486,7 @@ def _zero1_write(group) -> Callable:
             dst.copy_(src)
         # the params come back whole: every rank's chunk gathered
         for dst, src in zip(pbufs, new):
-            _all_gather(dst, src, group)
+            all_gather(dst, src, group)
         return score
 
     return write
@@ -582,7 +570,7 @@ def make_dp_train_step(conf, mesh: Mesh, axis: str = "dp",
                          "batchnorm-free network")
     return DPStep(conf, mesh, axis, ("dp_step", axis, masked, grad_accum),
                   masked, lambda flat: _sync_program(
-                      conf, mesh, axis, masked, grad_accum, flat.spec),
+                      conf, mesh, axis, masked, grad_accum, flat),
                   cache=cache, grad_accum=grad_accum)
 
 
@@ -606,7 +594,7 @@ def make_zero1_train_step(conf, mesh: Mesh, axis: str = "dp",
     return DPStep(conf, mesh, axis, ("zero1_step", axis, masked), masked,
                   lambda flat: _zero1_program(conf, mesh, axis, masked,
                                               flat),
-                  write=_zero1_write(mesh.group), cache=cache)
+                  write=_zero1_write(mesh.axis_group(axis)), cache=cache)
 
 
 def make_averaging_round(conf, mesh: Mesh, local_steps: int,
@@ -633,6 +621,158 @@ def make_masked_averaging_round(conf, mesh: Mesh, local_steps: int,
                                 cache=cache)
 
 
+# -- tensor parallelism: a plan with a model axis ----------------------------
+
+def plan_tp(conf, plan) -> TensorParallel:
+    """The model axis of `plan` as the layers see it (`parallel/tensor.py`):
+    its group, size, this rank's coordinate, and `conf`'s split leaves."""
+    size = plan.model_size
+    if not plan.has_model_axis:
+        return TensorParallel(None, 1, 0, tp_layout(conf, 1))
+    mesh = plan.mesh
+    return TensorParallel(mesh.axis_group(plan.model_axis), size,
+                          mesh.coord(plan.model_axis), tp_layout(conf, size))
+
+
+def _leaf_names(params) -> list:
+    """(layer, name) of every leaf of a params tree, in `tree_leaves`
+    order."""
+    return [(i, name) for i, layer in enumerate(params)
+            for name in sorted(layer)]
+
+
+def shard_params(params, tp: TensorParallel):
+    """This rank's shards of a whole params tree (tensors or numpy
+    arrays): split leaves cut to their pieces (`tensor.shard_leaf`), every
+    other leaf as it is."""
+    if isinstance(params, dict):
+        params = [params[k] for k in sorted(params, key=int)]
+    return tuple({name: shard_leaf(a, tp.layout.get((i, name))
+                                   if tp.size > 1 else None,
+                                   tp.size, tp.rank)
+                  for name, a in layer.items()}
+                 for i, layer in enumerate(params))
+
+
+def plan_params_from_numpy(params, conf, plan, device) -> tuple:
+    """The JAX package's whole params (numpy arrays, a tuple of dicts or
+    a checkpoint's nested dict) as this rank's shards of `plan`, tensors on
+    `device`: the start both packages are held to."""
+    from deeplearning4j_tpu_torch.parallel.checkpoint import \
+        params_from_numpy
+
+    return params_from_numpy(shard_params(params, plan_tp(conf, plan)),
+                             device)
+
+
+def gather_params(params, tp: TensorParallel):
+    """The whole params tree from every model rank's shards (a collective
+    over the model group: each of its ranks calls it)."""
+    if tp.size == 1:
+        return params
+    out = []
+    for i, layer in enumerate(params):
+        whole = {}
+        for name, t in layer.items():
+            split = tp.layout.get((i, name))
+            if split is None:
+                whole[name] = t
+                continue
+            t = t.detach().contiguous()
+            buf = t.new_empty((tp.size * t.shape[0],) + tuple(t.shape[1:]))
+            all_gather(buf, t, tp.group)
+            whole[name] = unshard_leaf(buf.view((tp.size,) + t.shape),
+                                       split)
+        out.append(whole)
+    return tuple(out)
+
+
+def plan_shard_state(state: TrainState, plan, zero1: bool = False, *,
+                     conf) -> TrainState:
+    """A whole TrainState (`init_train_state`) placed per a model-axis
+    plan: params and updater moments cut to this rank's shards of
+    `conf`'s layout, and under ZeRO-1 the updater's flat buffers further
+    cut into the batch axis's chunks, of which this rank keeps its own."""
+    tp = plan_tp(conf, plan)
+    upd = state.updater
+    return _state_from_trees(
+        shard_params(state.params, tp),
+        UpdaterState(shard_params(upd.adagrad_hist, tp),
+                     shard_params(upd.velocity, tp)),
+        state.step, plan.batch_size, plan.mesh.coord(plan.batch_axis),
+        zero1=zero1)
+
+
+def _sharded_norm(spec: FlatSpec, chunk, rank: int, n: int, group,
+                  split=(), tp: Optional[TensorParallel] = None):
+    """`flat_norm` of a step held in shards: each leaf's squared sum over
+    the part of it in this rank's chunk (`chunk`, ZeRO-1; None: the whole
+    buffer), summed over the batch group's ranks, a leaf split over the
+    model axis (`split`, a flag a leaf) summed over `tp`'s group too, a
+    whole leaf counted once; then added up leaf by leaf as `flat_norm`
+    adds them."""
+    split_idx = [i for i, s in enumerate(split) if s]
+
+    def norm(bufs):
+        parts = []
+        for g, o, size in spec.leaf_slices:
+            if chunk is None:
+                parts.append(torch.sum(torch.square(
+                    bufs[g][o:o + size].float())))
+                continue
+            c = chunk[g]
+            lo, hi = max(o, rank * c), min(o + size, (rank + 1) * c)
+            if hi > lo:
+                seg = bufs[g][lo - rank * c:hi - rank * c]
+                parts.append(torch.sum(torch.square(seg.float())))
+            else:
+                parts.append(torch.zeros((), dtype=torch.float32,
+                                         device=bufs[g].device))
+        sq = torch.stack(parts)
+        if chunk is not None and n > 1:
+            all_reduce(sq, group)
+        vals = list(sq.unbind())
+        if split_idx:
+            model = all_reduce(torch.stack([vals[i] for i in split_idx]),
+                                tp.group)
+            for j, i in enumerate(split_idx):
+                vals[i] = model[j]
+        return torch.sqrt(sum(vals))
+
+    return norm
+
+
+def make_plan_train_step(conf, plan, masked: bool = False,
+                         zero1: bool = False,
+                         cache: Optional[DPStepCache] = None) -> DPStep:
+    """The training step of a `parallel.plan.ShardPlan` with a model axis,
+    on a state from `plan_shard_state`: the attention and FFN blocks split
+    over the model axis (`parallel/tensor.py`; the flash kernels run on
+    each rank's H/M heads), the batch over the batch axis, the gradient
+    all-reduced over the batch group. `masked` is the pad-and-mask
+    variant ((state, x, y, w, key), dot-form weighted mean over the global
+    batch); `zero1` reduce-scatters the gradient over the batch group,
+    steps this rank's chunk of the updater and all-gathers the params
+    (ZeRO-1's chunks of this rank's flat buffers). Keyed as the JAX
+    package keys it: ("plan_step", plan.sharding_tag(), masked, zero1).
+    BatchNorm nets raise, as in the JAX package."""
+    if has_batchnorm(conf):
+        raise ValueError("plan step does not support BatchNorm nets "
+                         "(per-batch stats need the shard_map path)")
+    tp = plan_tp(conf, plan)
+    mesh, axis = plan.mesh, plan.batch_axis
+    variant = ("plan_step", plan.sharding_tag(), masked, zero1)
+    if zero1:
+        return DPStep(conf, mesh, axis, variant, masked,
+                      lambda flat: _zero1_program(conf, mesh, axis, masked,
+                                                  flat, tp),
+                      write=_zero1_write(mesh.axis_group(axis)), cache=cache)
+    return DPStep(conf, mesh, axis, variant, masked,
+                  lambda flat: _sync_program(conf, mesh, axis, masked, 1,
+                                             flat, tp),
+                  cache=cache)
+
+
 # -- the trainer ------------------------------------------------------------
 
 class DataParallelTrainer:
@@ -644,8 +784,13 @@ class DataParallelTrainer:
     zero1=True       sync with ZeRO-1 updater-state sharding; checkpoints
                      gather the updater whole, so the elastic resume
                      covers it
-    plan=            a plan with a model axis is ROADMAP.md queue A item
-                     10b; a 1-D plan runs the dp path on its mesh
+    plan=ShardPlan   a `parallel.plan.ShardPlan` with a model axis: the
+                     tensor-parallel step (`make_plan_train_step`; sync
+                     only, zero1 composes), params and moments held as
+                     this rank's shards, checkpoints in the sharded
+                     layout; at the end of `fit` the network's params are
+                     whole on every rank. A 1-D plan runs the dp path on
+                     its mesh.
 
     Every rank constructs the trainer and calls `fit` on the same batch
     stream; each takes its own shard of every batch."""
@@ -655,12 +800,20 @@ class DataParallelTrainer:
                  axis: str = "dp", listeners=(), grad_accum: int = 1,
                  zero1: bool = False, plan=None):
         self.plan = plan
-        if plan is not None and getattr(plan, "has_model_axis", False):
-            raise ValueError(
-                "a plan with a model axis (tensor parallelism) is not "
-                "ported to deeplearning4j_tpu_torch yet; see ROADMAP.md "
-                "queue A item 10b")
-        if mesh is None:
+        self.tp = None
+        if plan is not None and plan.has_model_axis:
+            mesh, axis = plan.mesh, plan.batch_axis
+            if mode != "sync":
+                raise ValueError("a model-axis plan requires mode='sync'")
+            if grad_accum > 1:
+                raise ValueError("a model-axis plan does not compose "
+                                 "with grad_accum yet")
+            if has_batchnorm(net.conf):
+                raise ValueError("plan step does not support BatchNorm "
+                                 "nets (per-batch stats need the "
+                                 "shard_map path)")
+            self.tp = plan_tp(net.conf, plan)
+        elif mesh is None:
             if plan is None:
                 raise ValueError("pass mesh= or plan=")
             mesh, axis = plan.mesh, plan.batch_axis
@@ -678,7 +831,10 @@ class DataParallelTrainer:
         if net.params is None:
             net.init()
         self.compile_cache = DPStepCache()
-        if zero1:
+        if self.tp is not None:
+            self._step = make_plan_train_step(net.conf, plan, zero1=zero1,
+                                              cache=self.compile_cache)
+        elif zero1:
             if mode != "sync":
                 raise ValueError("zero1=True requires mode='sync' (the "
                                  "averaging round replicates its carry)")
@@ -703,7 +859,10 @@ class DataParallelTrainer:
         self._grad_accum = grad_accum
         self._masked_step = None  # built on the first remainder batch
         self.state = init_train_state(net)
-        if zero1:
+        if self.tp is not None:
+            self.state = plan_shard_state(self.state, plan, zero1,
+                                          conf=net.conf)
+        elif zero1:
             self.state = zero1_shard_state(self.state, mesh, axis)
         # the JAX package's key: PRNGKey(seed), split once a batch
         self._key = (0, int(net.conf.confs[0].seed or 0) & 0xFFFFFFFF)
@@ -713,9 +872,13 @@ class DataParallelTrainer:
         self.resumed_from_step: Optional[int] = None
         self.checkpoint_write_seconds = 0.0
         self.checkpoints_written = 0
-        # NCCL makes its communicator at the first collective, which a
-        # graph capture cannot hold: one eager collective now
-        _all_reduce(torch.zeros(1, device=mesh.device), mesh.group)
+        # NCCL makes a group's communicator at its first collective, which
+        # a graph capture cannot hold: one eager collective on each group
+        all_reduce(torch.zeros(1, device=mesh.device), mesh.group)
+        for a in mesh.axis_names:
+            if mesh.axis_group(a) is not mesh.group:
+                all_reduce(torch.zeros(1, device=mesh.device),
+                            mesh.axis_group(a))
 
     @property
     def n_ranks(self) -> int:
@@ -784,10 +947,15 @@ class DataParallelTrainer:
 
     def _copy_to_net(self) -> None:
         """The trainer's params into the network's own tensors, in place:
-        the network's captured graphs read them by address."""
+        the network's captured graphs read them by address. Under a model
+        axis they are first gathered whole (a collective over the model
+        group)."""
+        params = self.state.params
+        if self.tp is not None:
+            params = gather_params(params, self.tp)
         with torch.no_grad():
             for dst, src in zip(tree_leaves(self.net.params),
-                                tree_leaves(self.state.params)):
+                                tree_leaves(params)):
                 dst.copy_(src)
 
     def _apply_restored(self, params, updater, meta: dict) -> None:
@@ -815,16 +983,30 @@ class DataParallelTrainer:
 
         params, updater, meta = checkpoint.load(
             directory, like_params=self.state.params,
-            like_updater=self._like_updater())
+            like_updater=self._like_updater(), tp=self.tp)
         self._apply_restored(params, updater, meta)
         return int(meta["step"])
 
     def checkpoint_state(self):
         """(params, updater, step) as a checkpoint holds them: the updater
-        whole (gathered from every rank under ZeRO-1, a collective)."""
+        gathered whole over the batch axis under ZeRO-1 (a collective);
+        under a model axis both are this rank's shards."""
         return (self.state.params,
                 gather_updater(self.state, self.mesh, self.axis),
                 int(self.state.step))
+
+    def gathered_state(self):
+        """(params, updater, step), every leaf whole: `checkpoint_state`
+        with the model axis's shards gathered too (a collective over every
+        rank). For holding a run to a whole-params reference; a checkpoint
+        never takes this."""
+        params, updater, step = self.checkpoint_state()
+        if self.tp is None:
+            return params, updater, step
+        return (gather_params(params, self.tp),
+                UpdaterState(gather_params(updater.adagrad_hist, self.tp),
+                             gather_params(updater.velocity, self.tp)),
+                step)
 
     def _save_checkpoint(self, directory: str, batches_done: int) -> None:
         """A synchronous atomic checkpoint of the whole cross-batch state:
@@ -834,11 +1016,18 @@ class DataParallelTrainer:
 
         t0 = time.perf_counter()
         params, updater, step = self.checkpoint_state()
-        ckpt.save(directory, params, updater, conf=self.net.conf, step=step,
+        kw = dict(conf=self.net.conf, step=step,
                   data_cursor={"batches_done": int(batches_done)},
                   metadata={"rng_key": [int(v) for v in self._key]},
                   mesh=self.mesh_meta())
-        if self.n_ranks > 1:
+        if self.tp is None:
+            ckpt.save(directory, params, updater, **kw)
+        elif self.mesh.coord(self.axis) == 0:
+            # the sharded layout: the model ranks of batch coordinate 0
+            # send their pieces to rank 0, which writes; no rank assembles
+            # a split leaf whole
+            ckpt.save_sharded(directory, params, updater, tp=self.tp, **kw)
+        if math.prod(self.mesh.shape.values()) > 1:
             import torch.distributed as dist
 
             dist.barrier(group=self.mesh.group)
@@ -858,7 +1047,7 @@ class DataParallelTrainer:
         one rank the flag is all-reduced (MAX) after every batch, and every
         rank stops at the same cursor."""
         stop = self._stop_training.is_set()
-        if self.n_ranks == 1:
+        if math.prod(self.mesh.shape.values()) == 1:
             return stop
         import torch.distributed as dist
 
@@ -873,7 +1062,11 @@ class DataParallelTrainer:
                 log.warning("a remainder batch runs the masked step "
                             "WITHOUT grad_accum=%d (one forward and "
                             "backward)", self._grad_accum)
-            if self.zero1:
+            if self.tp is not None:
+                self._masked_step = make_plan_train_step(
+                    self.net.conf, self.plan, masked=True, zero1=self.zero1,
+                    cache=self.compile_cache)
+            elif self.zero1:
                 self._masked_step = make_zero1_train_step(
                     self.net.conf, self.mesh, self.axis, masked=True,
                     cache=self.compile_cache)
@@ -948,7 +1141,7 @@ class DataParallelTrainer:
 
         restored = checkpoint.load_resilient(
             directory, like_params=self.state.params,
-            like_updater=self._like_updater())
+            like_updater=self._like_updater(), tp=self.tp)
         if restored is None:
             return 0
         params, updater, meta = restored

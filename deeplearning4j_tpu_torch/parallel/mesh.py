@@ -14,8 +14,8 @@ ROADMAP.md queue A item 10b, and so does the serving mesh
 otherwise as a group of one over an in-memory store. A CUDA device takes
 NCCL and the CPU takes gloo; without NCCL a CUDA run fails and says so,
 with no fallback to gloo. `shard_batch` gives this rank its contiguous
-slice of a batch, the rows that `P("dp")` places on device r in JAX:
-rank r takes rows [r·b/n, (r+1)·b/n).
+slice of a batch, the rows that `P("dp")` places on device r in JAX: the
+rank at coordinate r of the axis takes rows [r·b/n, (r+1)·b/n).
 """
 
 from __future__ import annotations
@@ -40,21 +40,38 @@ DATA_AXES = (DP_AXIS, "batch")
 
 
 class Mesh:
-    """A data-parallel mesh: `axis_names`, `shape` ({axis: size}), the
-    process `group` whose ranks make up the mesh, and this rank's
-    `device`."""
+    """A mesh of ranks: `axis_names`, `shape` ({axis: size}), the process
+    `group` whose ranks make up the mesh, this rank's `device`, and per
+    axis this rank's coordinate (`coord`) and the sub-group of the ranks
+    that differ from it only along that axis (`axis_group`)."""
 
-    def __init__(self, shape: Dict[str, int], group, device: torch.device):
+    def __init__(self, shape: Dict[str, int], group, device: torch.device,
+                 axis_groups: Optional[Dict[str, object]] = None):
         self.axis_names: Tuple[str, ...] = tuple(shape)
         self.shape: Dict[str, int] = dict(shape)
         self.group = group
         self.device = device
+        self._axis_groups = dict(axis_groups or {})
 
     @property
     def rank(self) -> int:
         import torch.distributed as dist
 
         return dist.get_rank(self.group)
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate along `axis` (row-major over the axes)."""
+        if self.shape[axis] == 1:
+            return 0
+        stride = math.prod(self.shape[a] for a in self.axis_names[
+            self.axis_names.index(axis) + 1:])
+        return (self.rank // stride) % self.shape[axis]
+
+    def axis_group(self, axis: str):
+        """The process group of the ranks that share this rank's
+        coordinates on every axis but `axis` (the mesh's own group where
+        `axis` spans it)."""
+        return self._axis_groups.get(axis, self.group)
 
     @property
     def backend(self) -> str:
@@ -134,15 +151,41 @@ def init_distributed(device=None):
     return dist.group.WORLD, dev
 
 
+def _axis_groups(shape: Dict[str, int], group) -> Dict[str, object]:
+    """One sub-group per axis that does not span the whole mesh, for this
+    rank. `new_group` is collective over the default group: every process
+    creates every sub-group, in one order (axes, then the other axes'
+    coordinates row-major), the ones it is not in too (a mesh over a
+    sub-group needs no sub-group of its own only when it has one rank)."""
+    import torch.distributed as dist
+
+    n = math.prod(shape.values())
+    axes = list(shape)
+    ranks = [dist.get_global_rank(group, r) if group is not dist.group.WORLD
+             else r for r in range(n)]
+    me = dist.get_rank(group)
+    grid = np.arange(n).reshape([shape[a] for a in axes])
+    out = {}
+    for i, axis in enumerate(axes):
+        if shape[axis] == n:
+            continue
+        moved = np.moveaxis(grid, i, -1).reshape(-1, shape[axis])
+        for row in moved:
+            sub = dist.new_group([ranks[int(r)] for r in row])
+            if me in row:
+                out[axis] = sub
+    return out
+
+
 def make_mesh(shape: Optional[Dict[str, int]] = None, device=None,
-              group=None) -> Mesh:
+              group=None, order: Optional[Sequence[str]] = None) -> Mesh:
     """A Mesh of `{axis: size}` over the ranks of `group` (the default
     group, started by `init_distributed` when None); `-1` for one axis
     means every remaining rank. Default: data parallelism over every rank.
-    The sizes must multiply to the group's size. Axes other than the data
-    axes ("dp", and the CLI's "batch") of more than one rank (tensor,
-    sequence, pipeline and expert parallelism) raise, naming ROADMAP.md
-    queue A item 10b."""
+    The sizes must multiply to the group's size. The axes are laid out in
+    `order`, else in AXIS_ORDER ("pp", "dp", "ep", "sp", "tp") with other
+    names ("batch", "model", ...) after them in the order given; the
+    first is outermost."""
     import torch.distributed as dist
 
     if group is None:
@@ -151,13 +194,6 @@ def make_mesh(shape: Optional[Dict[str, int]] = None, device=None,
         dev = rank_device(device)
     n = dist.get_world_size(group)
     shape = dict(shape) if shape else {DP_AXIS: n}
-    model = {a: s for a, s in shape.items()
-             if a not in DATA_AXES and s != 1}
-    if model:
-        raise ValueError(
-            f"mesh axes {model} are not ported to deeplearning4j_tpu_torch "
-            f"yet (tensor, sequence, pipeline and expert parallelism: "
-            f"ROADMAP.md queue A item 10b)")
     fills = [a for a, s in shape.items() if s == -1]
     if len(fills) > 1:
         raise ValueError("at most one axis may be -1")
@@ -170,9 +206,16 @@ def make_mesh(shape: Optional[Dict[str, int]] = None, device=None,
     if total != n:
         raise ValueError(f"mesh {shape} needs {total} ranks, the process "
                          f"group has {n}")
-    axes = [a for a in AXIS_ORDER if a in shape]
-    axes += [a for a in shape if a not in axes]
-    return Mesh({a: shape[a] for a in axes}, group, dev)
+    if order is None:
+        axes = [a for a in AXIS_ORDER if a in shape]
+        axes += [a for a in shape if a not in axes]
+    else:
+        axes = list(order)
+        if sorted(axes) != sorted(shape):
+            raise ValueError(f"order {axes} does not name the axes of "
+                             f"{shape}")
+    shape = {a: shape[a] for a in axes}
+    return Mesh(shape, group, dev, _axis_groups(shape, group))
 
 
 def replicated(mesh: Mesh) -> Sharding:
@@ -202,7 +245,7 @@ def shard_batch(mesh: Mesh, arrays, axis: str = DP_AXIS):
     in the JAX package. A leading dim that n does not divide raises.
     `arrays` is one array or a tuple or list of them."""
     n = mesh.shape[axis]
-    r = mesh.rank if n > 1 else 0
+    r = mesh.coord(axis)
 
     def one(a):
         t = batch_tensor(a)

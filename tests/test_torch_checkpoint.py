@@ -422,6 +422,46 @@ def test_jax_sharded_checkpoint_reads_exactly(tmp_path):
         checkpoint.load(d)
 
 
+@pytest.mark.parametrize("model_rank", [0, 3])
+def test_sharded_layouts_both_ways_and_into_a_ranks_shards(tmp_path,
+                                                           model_rank):
+    """The port's `save_sharded` at one rank is read by JAX's `load` bit
+    for bit; a checkpoint of JAX's 2 x 4 plan (Wqkv cut in contiguous
+    thirds of 3n/4) reads into one model rank's head-aligned shards of a
+    model axis of 4 (`load(tp=)`), which equal the whole leaves cut by
+    `tensor.shard_leaf`; so does the gathered layout."""
+    from deeplearning4j_tpu.parallel.plan import ShardPlan, plan_mesh
+    from deeplearning4j_tpu_torch.parallel import tensor
+
+    jconf = jax_zoo.char_transformer(32, d_model=16, n_blocks=2, n_heads=4,
+                                     max_seq_len=32)
+    jnet = jax_ml.MultiLayerNetwork(jconf, seed=0).init()
+    conf = MultiLayerConfiguration.from_json(jconf.to_json())
+    whole = checkpoint.params_from_numpy(jax.device_get(jnet.params), "cpu")
+    mine = str(tmp_path / "port")
+    checkpoint.save_sharded(mine, whole, conf=conf, step=3)
+    got, _, meta = jax_checkpoint.load(mine, like_params=jnet.params)
+    assert meta["layout"] == "sharded" and meta["step"] == 3
+    for a, b in zip(jax.tree_util.tree_leaves(got), tree_leaves(whole)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    plan = ShardPlan(mesh=plan_mesh({"batch": 2, "model": 4}))
+    theirs = str(tmp_path / "jax")
+    jax_checkpoint.save_sharded(theirs, jax.tree_util.tree_map(
+        jax.device_put, jnet.params, plan.param_shardings(jnet.params)),
+        conf=jconf)
+    tp = tensor.TensorParallel(None, 4, model_rank,
+                               tensor.tp_layout(conf, 4))
+    from deeplearning4j_tpu_torch.parallel.data_parallel import shard_params
+
+    like = shard_params(whole, tp)
+    gathered = checkpoint.save(str(tmp_path / "gathered"), whole, conf=conf)
+    for d in (mine, theirs, gathered):
+        local, _, _ = checkpoint.load(d, like_params=like, tp=tp)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(local),
+                                                      tree_leaves(like)))
+    assert tuple(like[1]["Wqkv"].shape) == (16, 12)
+
+
 def test_trainer_sigterm_checkpoints_then_raises(tmp_path):
     ck = str(tmp_path / "ck")
     batches = _dp_batches()

@@ -294,10 +294,36 @@ def test_mesh_runtime_refuses_pretraining_recipes_as_jax(tmp_path):
     assert "--runtime local" in str(got.value)
 
 
-def test_a_model_axis_exits_naming_item_10b(tmp_path):
+def test_a_model_axis_exits_naming_item_10b(tmp_path, capsys):
+    """A model axis trains now (it exited naming item 10b before): `--mesh
+    batch=1,model=1` at one rank runs the tensor-parallel trainer and
+    writes the conf.json of JAX's `train` under the same flag; a mesh
+    whose sizes need more ranks than the group has exits as JAX's does
+    with too few devices (tests/test_torch_tp_ranks.py trains at 4)."""
     argv = ["train", "--input", "iris:", "--zoo", "mlp:hidden=8",
-            "--output", str(tmp_path / "o"), "--device", "cpu",
-            "--mesh", "batch=1,model=2"]
+            "--output", str(tmp_path / "o"), "--mesh", "batch=1,model=1"]
+    out = _last_json(_run(main, argv + ["--device", "cpu"], capsys))
+    assert np.isfinite(out["score"]) and out["cache_misses"] >= 1
+    _run(jax_main, argv[:-4] + ["--output", str(tmp_path / "jax"),
+                                "--mesh", "batch=1,model=1"], capsys)
+    assert ((tmp_path / "o" / "conf.json").read_text()
+            == (tmp_path / "jax" / "conf.json").read_text())
+    with pytest.raises(SystemExit, match="needs 2 ranks"):
+        main(argv[:-1] + ["batch=1,model=2", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("command", ["serve", "generate"])
+def test_serve_and_generate_mesh_exit_naming_item_10b(tmp_path, capsys,
+                                                      command):
+    """Sharded serving is item 10b's serving half: `serve --mesh` and
+    `generate --mesh` exit naming it."""
+    ckpt = str(tmp_path / "ck")
+    _run(main, ["train", "--input", _corpus(tmp_path), "--zoo",
+                "char_lstm:hidden=8", "--output", ckpt, "--device", "cpu"],
+         capsys)
+    argv = ([command, "--model", ckpt, "--mesh", "batch=1,model=2",
+             "--device", "cpu"]
+            + (["--prompt", "1,2"] if command == "generate" else []))
     with pytest.raises(SystemExit, match="ROADMAP.md queue A item 10b"):
         main(argv)
 

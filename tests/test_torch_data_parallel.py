@@ -327,12 +327,22 @@ def test_trainer_guards_raise_as_jax():
         dp.DataParallelTrainer(net, _mesh(), mode="hogwild")
     with pytest.raises(ValueError, match="pass mesh= or plan="):
         dp.DataParallelTrainer(net)
+    # a plan with a model axis trains (tests/test_torch_tp_ranks.py holds
+    # it to JAX's plan trainer at 4 ranks) and refuses what JAX's refuses
+    from deeplearning4j_tpu_torch.parallel.plan import ShardPlan, plan_mesh
 
-    class Plan:
-        has_model_axis = True
-
-    with pytest.raises(ValueError, match="item 10b"):
-        dp.DataParallelTrainer(net, plan=Plan())
+    plan = ShardPlan(mesh=plan_mesh({"batch": 1, "model": 1},
+                                    device="cpu"))
+    t = dp.DataParallelTrainer(net, plan=plan)
+    assert t.tp is not None and np.isfinite(
+        t.fit(_mlp_batches(1, n_in=4, n_out=2)))
+    with pytest.raises(ValueError, match="mode='sync'"):
+        dp.DataParallelTrainer(net, plan=plan, mode="averaging")
+    with pytest.raises(ValueError, match="grad_accum"):
+        dp.DataParallelTrainer(net, plan=plan, grad_accum=2)
+    _, bn_net = _pair(_bn_conf())
+    with pytest.raises(ValueError, match="BatchNorm"):
+        dp.DataParallelTrainer(bn_net, plan=plan)
 
 
 def test_mesh_of_one_rank_and_its_refusals():
@@ -342,7 +352,10 @@ def test_mesh_of_one_rank_and_its_refusals():
     assert make_mesh({"dp": -1}, device="cpu").shape == {"dp": 1}
     with pytest.raises(ValueError, match="needs 2 ranks"):
         make_mesh({"dp": 2}, device="cpu")
-    with pytest.raises(ValueError, match="item 10b"):
+    # every axis is ported; sizes that do not multiply to the group raise
+    assert make_mesh({"dp": 1, "tp": 1}, device="cpu").shape == {
+        "dp": 1, "tp": 1}
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         make_mesh({"dp": 1, "tp": 2}, device="cpu")
     x = np.arange(12, dtype=np.float64).reshape(6, 2)
     got = shard_batch(mesh, x)
