@@ -51,9 +51,14 @@ package; `--mesh batch=N,model=M` trains tensor-parallel over N·M ranks
 axis, checkpoints in the sharded layout), as the JAX CLI does;
 `--checkpoint-dir` checkpoints the trainer's whole state, and the rerun
 resumes on any number of ranks and any layout. Pretraining recipes refuse
-the mesh runtime as the JAX CLI does. Options that are not ported exit
-naming their ROADMAP.md item: `serve`'s and `generate`'s `--mesh` (item
-10b's serving half), and `--compile-cache` (item 11).
+the mesh runtime as the JAX CLI does.
+
+`serve --mesh` and `generate --mesh` serve over the ranks of the group
+(`MultiLayerNetwork.set_serve_mesh`): bare `--mesh` or `all` is the 1-D
+("batch",) mesh, `batch=N,model=M` the plan's. Rank 0 is the only one to
+open the HTTP port, generate and print; the other ranks run its calls
+(`follow`) until it ends them. `--compile-cache` (item 11) is not ported
+and exits naming it.
 """
 
 from __future__ import annotations
@@ -84,10 +89,6 @@ def _refuse_unported(args) -> None:
                          "caches hold CUDA graphs, which cannot be written "
                          "to disk; persist.py comes with ROADMAP.md queue A "
                          "item 11)")
-    if args.command != "train" and getattr(args, "mesh", None) is not None:
-        raise SystemExit("--mesh (mesh-sharded serving) is not ported to "
-                         "deeplearning4j_tpu_torch yet; see ROADMAP.md queue "
-                         "A item 10b (its serving half)")
 
 
 def _cli_mesh(spec: Optional[str], device):
@@ -131,6 +132,46 @@ def _cli_mesh(spec: Optional[str], device):
         raise SystemExit(f"--mesh {spec}: {e} (one process a rank, e.g. "
                          f"torchrun --nproc-per-node N)")
     return plan.mesh, "batch", plan.rows, plan
+
+
+def _serving_net(args):
+    """(network, mesh) of `serve`/`generate`: without `--mesh` the
+    checkpoint on `--device` and no mesh; with it, the process group first
+    (torchrun's ranks, or a group of one), the network on this rank's
+    device, then `set_serve_mesh(spec=...)`: bare `--mesh`/`all` the 1-D
+    ("batch",) mesh, else the plan's ("batch", "model") mesh. Sizes that
+    do not multiply to the ranks exit as `train --mesh` does."""
+    from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
+    from deeplearning4j_tpu_torch.parallel.mesh import init_distributed
+    from deeplearning4j_tpu_torch.parallel.plan import parse_mesh_spec
+
+    if args.mesh is None:
+        return load_network(args.model, device=args.device), None
+    try:
+        shape = parse_mesh_spec(args.mesh)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    other = sorted(set(shape) - {"batch", "model"})
+    if other:
+        raise SystemExit(f"--mesh {args.mesh}: {args.command} takes the "
+                         f"axes 'batch' and 'model', not {other}")
+    _, dev = init_distributed(args.device)
+    net = load_network(args.model, device=dev)
+    try:
+        mesh = net.set_serve_mesh(spec=args.mesh)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh}: {e} (one process a rank, "
+                         f"e.g. torchrun --nproc-per-node N)")
+    return net, mesh
+
+
+def _follows(net, mesh) -> bool:
+    """On a rank other than 0 of the serving mesh: run rank 0's calls
+    until it stops them, then True (the command prints nothing there)."""
+    if mesh is None or mesh.rank == 0:
+        return False
+    net.follow()
+    return True
 
 
 def _load_data(args):
@@ -460,12 +501,21 @@ def _gen_draft_net(args):
 def cmd_generate(args) -> int:
     """Generation from a checkpoint through the cached KV-cache path: the
     prefill takes the prompt, then a one-slot `ContinuousBatcher`'s decode
-    loop makes each token (`serve --generate` runs the many-slot table)."""
-    from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
+    loop makes each token (`serve --generate` runs the many-slot table).
+    Under `--mesh` rank 0 generates and prints; the other ranks follow."""
+    _refuse_unported(args)
+    net, mesh = _serving_net(args)
+    if _follows(net, mesh):
+        return 0
+    try:
+        return _generate_on_rank0(args, net)
+    finally:
+        net.stop_followers()
+
+
+def _generate_on_rank0(args, net) -> int:
     from deeplearning4j_tpu_torch.serving.batcher import ContinuousBatcher
 
-    _refuse_unported(args)
-    net = load_network(args.model, device=args.device)
     prompt = [int(t) for t in args.prompt.split(",") if t.strip()]
     if not prompt:
         raise SystemExit("generate needs --prompt <id,id,...>")
@@ -504,11 +554,21 @@ def cmd_generate(args) -> int:
 
 
 def cmd_serve(args) -> int:
-    from deeplearning4j_tpu_torch.nd.platform import device_kind
-    from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
-
+    """The HTTP server; under `--mesh` on rank 0 alone, the other ranks
+    following its calls."""
     _refuse_unported(args)
-    net = load_network(args.model, device=args.device)
+    net, mesh = _serving_net(args)
+    if _follows(net, mesh):
+        return 0
+    try:
+        return _serve_on_rank0(args, net)
+    finally:
+        net.stop_followers()
+
+
+def _serve_on_rank0(args, net) -> int:
+    from deeplearning4j_tpu_torch.nd.platform import device_kind
+
     generation = draft = warmed = None
     shapes = _parse_shapes(args.shapes)
     if shapes:
@@ -547,6 +607,7 @@ def cmd_serve(args) -> int:
                        gen_steps_per_dispatch=args.gen_steps_per_dispatch)
     print(json.dumps({"url": server.url, "device": str(net.device),
                       "device_kind": device_kind(net.device),
+                      "plan": net.infer_cache.plan.describe(),
                       "warmed": warmed, "batching": not args.no_batching,
                       "generation": generation,
                       "fresh_compiles": net.infer_cache.stats.misses}),
@@ -744,7 +805,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode steps a dispatch, at most (the same tokens "
                         "for any value)")
     g.add_argument("--mesh", nargs="?", const="all", default=None,
-                   metavar="SPEC", help="not ported yet (exits)")
+                   metavar="SPEC",
+                   help="decode over a mesh of ranks (one process a rank, "
+                        "torchrun): bare --mesh or 'all' is the 1-D batch "
+                        "mesh (generation on rank 0), batch=1,model=4 "
+                        "splits heads and the K/V state over 4 ranks")
     g.add_argument("--compile-cache", dest="compile_cache", default=None,
                    metavar="DIR", help="not ported yet (exits)")
     g.set_defaults(fn=cmd_generate)
@@ -756,8 +821,11 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(s)
     s.add_argument("--mesh", nargs="?", const="all", default=None,
                    metavar="SPEC",
-                   help="serve over a mesh of ranks: ROADMAP.md queue A "
-                        "item 10b's serving half (exits)")
+                   help="serve over a mesh of ranks (one process a rank, "
+                        "torchrun; the HTTP front on rank 0): bare --mesh "
+                        "or 'all' splits a batch's rows over every rank, "
+                        "batch=2,model=2 also splits heads, FFN units and "
+                        "the K/V state over the model axis")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=0,
                    help="0 picks an ephemeral port (printed in the startup "

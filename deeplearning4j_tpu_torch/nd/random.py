@@ -36,7 +36,12 @@ defaults of JAX 0.9: the `threefry2x32` implementation with
   shape), as the RBM's softmax units draw; `categorical` takes one key a
   row;
 - `split_host`: `split` of one key held as two Python ints, for host-side
-  streams (`MultiLayerNetwork`'s key), with no tensor op at all.
+  streams (`MultiLayerNetwork`'s key), with no tensor op at all;
+- `uniform_dtype`, `normal_dtype`: `jax.random.uniform(key, shape, dtype,
+  minval, maxval)` and `jax.random.normal(key, shape, dtype)` for one key
+  in float32, bfloat16 or float16, the draws of the initial params
+  (`nn/weights.py`): a 16-bit float takes 8 (bfloat16) or 16 (float16) bits
+  of each draw for its mantissa, as JAX's `_uniform` does.
 
 Keys are int64 tensors of shape [..., 2] whose values lie in [0, 2^32).
 Every function works on a batch of keys at once (the leading axes), the way
@@ -222,14 +227,46 @@ def binomial(key: torch.Tensor, p: float, shape,
     return bernoulli(key, p, shape).to(dtype)
 
 
+#: the coefficients of XLA's single-precision erfinv (M. Giles, "Approximating
+#: the erfinv function"), for w < 5 and w >= 5
+_ERFINV_LO = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_HI = (-0.000200214257, 0.000100950558, 0.00134934322,
+              -0.00367342844, 0.00573950773, -0.0076224613, 0.00943887047,
+              1.00167406, 2.83297682)
+
+
+def _horner(coeffs, w: torch.Tensor) -> torch.Tensor:
+    """The polynomial in float32 with a fused multiply-add a step (the
+    product exact in float64, one rounding to float32)."""
+    p = torch.full_like(w, float(np.float32(coeffs[0])))
+    wd = w.double()
+    for c in coeffs[1:]:
+        p = (p.double() * wd + float(np.float32(c))).float()
+    return p
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 erfinv as XLA computes it: Giles' polynomials in
+    w = -log1p(-x^2). Within 3 ulps of JAX's on the CPU (log1p's last
+    place), equal in ~99 % of draws; `torch.erfinv` is up to ~90 ulps
+    away in the tails."""
+    x = x.float()
+    w = -torch.log1p(-x * x)
+    p = torch.where(w < 5.0, _horner(_ERFINV_LO, w - 2.5),
+                    _horner(_ERFINV_HI, torch.sqrt(w) - 3.0))
+    return p * x
+
+
 def normal(key: torch.Tensor, mean: float, std: float, shape,
            dtype=torch.float32) -> torch.Tensor:
     """`mean + std * jax.random.normal(key, shape)`: sqrt(2) * erfinv(u)
-    with u uniform on (-1, 1), as JAX draws it (erfinv may round
-    differently from XLA's in the last place)."""
+    with u uniform on (-1, 1), as JAX draws it (`erfinv`: within a few
+    ulps of XLA's)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, _numel(shape), lo, 1.0).reshape(tuple(shape))
-    z = float(np.float32(np.sqrt(2.0))) * torch.erfinv(u)
+    z = float(np.float32(np.sqrt(2.0))) * erfinv(u)
     return (mean + std * z).to(dtype)
 
 
@@ -250,3 +287,50 @@ def dropout_mask(key: torch.Tensor, keep_prob: float, shape,
         keep = bernoulli(key, keep_prob, (total,) + shape[1:])[
             offset:offset + shape[0]]
     return keep.to(dtype) / torch.tensor(keep_prob, dtype=dtype)
+
+
+#: (mantissa bits, random bits a draw keeps, the bits of 1.0) of the 16-bit
+#: floats: JAX's `_uniform` draws 8 bits where a mantissa is narrower
+_HALF = {torch.bfloat16: (7, 8, 0x3F80), torch.float16: (10, 16, 0x3C00)}
+
+
+def uniform_dtype(key: torch.Tensor, shape, dtype=torch.float32,
+                  minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, dtype, minval, maxval)` for one key
+    [2]. float32 is `uniform`; a 16-bit float fills its mantissa from the
+    low 8 (bfloat16) or 16 (float16) bits of each draw and scales as XLA
+    does on the CPU: bfloat16 rounding after each op, float16 in float32
+    from its span in float16. float64 draws float32 values (JAX without
+    x64)."""
+    shape = tuple(int(d) for d in shape)
+    n = _numel(shape)
+    if dtype not in _HALF:
+        out = uniform(key, n, minval, maxval).reshape(shape)
+        return out.to(dtype)
+    nmant, width, one = _HALF[dtype]
+    bits = random_bits(key, n) & ((1 << width) - 1)
+    half = ((bits >> (width - nmant)) | one).to(torch.int16).view(dtype)
+    lo, hi = (torch.tensor(v, dtype=dtype, device=half.device)
+              for v in (minval, maxval))
+    if dtype is torch.bfloat16:
+        # one rounding to bfloat16 an op, as XLA computes it
+        out = (half - 1.0) * (hi - lo) + lo
+    else:
+        # float16: the span in float16, the rest in float32, rounded once
+        out = ((half.float() - 1.0) * (hi - lo).float()
+               + lo.float()).to(dtype)
+    return torch.maximum(out, lo).reshape(shape)
+
+
+def normal_dtype(key: torch.Tensor, shape, dtype=torch.float32
+                 ) -> torch.Tensor:
+    """`jax.random.normal(key, shape, dtype)` for one key [2]: sqrt(2) *
+    erfinv(u), u uniform on (-1, 1) in `dtype` (`erfinv` within a few
+    float32 ulps of XLA's)."""
+    if dtype not in _HALF:
+        return normal(key, 0.0, 1.0, shape).to(dtype)
+    # nextafter(-1, 0) in dtype: the spacing below 1 is 2^-(nmant + 1)
+    lo = -(1.0 - 2.0 ** -(_HALF[dtype][0] + 1))
+    u = uniform_dtype(key, shape, dtype, lo, 1.0)
+    z = erfinv(u).to(dtype)
+    return z * torch.tensor(float(np.sqrt(2.0)), dtype=dtype)

@@ -90,17 +90,18 @@ class Distribution:
     p: float = 0.5
 
     def sampler(self):
-        """`(gen, shape, device) -> tensor` drawing from this distribution
-        with a `torch.Generator`."""
+        """`(key, shape) -> tensor` drawing from this distribution with a
+        threefry key (`nd/random.py`), as the JAX package draws it."""
+        from deeplearning4j_tpu_torch.nd import random as nd_random
+
         if self.kind == "normal":
-            return lambda gen, shape, device: self.mean + self.std * torch.randn(
-                shape, generator=gen, device=device)
+            return lambda key, shape: nd_random.normal(key, self.mean,
+                                                       self.std, shape)
         if self.kind == "uniform":
-            return lambda gen, shape, device: self.lo + (self.hi - self.lo) * (
-                torch.rand(shape, generator=gen, device=device))
+            return lambda key, shape: nd_random.uniform_dtype(
+                key, shape, torch.float32, self.lo, self.hi)
         if self.kind == "binomial":
-            return lambda gen, shape, device: (torch.rand(
-                shape, generator=gen, device=device) < self.p).float()
+            return lambda key, shape: nd_random.binomial(key, self.p, shape)
         raise ValueError(f"unknown distribution kind {self.kind}")
 
 

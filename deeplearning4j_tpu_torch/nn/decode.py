@@ -39,6 +39,14 @@ ids (`decode_step_paged`); memory scales with the pages in use. The host
 (the infer cache's `decode_multi`): the JAX package's `lax.scan` is a
 Python loop of K steps here, so one CUDA graph holds the whole block.
 
+Under a model axis (`tp`, the serving `parallel/tensor.ServeParallel`)
+each rank holds its H/M heads of every attention layer and its F/M hidden
+units of every FFN: `init_state`/`init_paged_state` give it the heads' n/M
+K/V columns, every function takes `tp` and hands it to those layers, and
+the logits come out whole on every rank. The recurrent carries stay whole
+on every rank (the JAX package's state spec splits them over the model
+axis, a layout hint its programs gather back; ROADMAP.md queue C).
+
 `verify_chunk` / `verify_chunk_paged` (speculative decoding) advance every
 row K given tokens in one pass: the attention layers take the chunk at once
 (`MultiHeadAttentionLayer.verify_chunk`), the LSTM layers unroll `step`
@@ -109,10 +117,16 @@ def positional_bound(conf: MultiLayerConfiguration) -> int:
     return 0
 
 
+def _kv_width(c, tp) -> int:
+    """An attention layer's K/V columns on this rank: n, or n/M under a
+    model axis of M."""
+    return c.n_in // (1 if tp is None else tp.size)
+
+
 def init_state(conf: MultiLayerConfiguration, batch: int, max_seq: int,
-               device=None):
+               device=None, tp=None):
     """A fresh (zero) decode state for `batch` rows and a `max_seq`-token
-    table, on `device`."""
+    table, on `device` (under `tp`, this rank's K/V columns)."""
     types = check_generative(conf)
     if types[0] == LayerType.EMBEDDING:
         table = conf.conf(0).max_seq_len
@@ -133,18 +147,20 @@ def init_state(conf: MultiLayerConfiguration, batch: int, max_seq: int,
                               for name in ("h", "c")})
             elif t == LayerType.ATTENTION:
                 state.append({name: torch.zeros(
-                    (batch, max_seq, c.n_in), dtype=compute_dtype(c),
-                    device=device) for name in ("k", "v")})
+                    (batch, max_seq, _kv_width(c, tp)),
+                    dtype=compute_dtype(c), device=device)
+                    for name in ("k", "v")})
             else:
                 state.append({})
     return tuple(state)
 
 
 def init_paged_state(conf: MultiLayerConfiguration, batch: int,
-                     n_pages: int, page_size: int, device=None):
+                     n_pages: int, page_size: int, device=None, tp=None):
     """A fresh (zero) paged decode state: recurrent carries stay [batch, H]
     a row, each ATTENTION layer's K/V become one shared physical pool
-    [n_pages, page_size, n] that the per-call page table addresses."""
+    [n_pages, page_size, n] (n/M under `tp`) that the per-call page table
+    addresses."""
     types = check_generative(conf)
     state = []
     with torch.inference_mode(False):
@@ -156,8 +172,9 @@ def init_paged_state(conf: MultiLayerConfiguration, batch: int,
                               for name in ("h", "c")})
             elif t == LayerType.ATTENTION:
                 state.append({name: torch.zeros(
-                    (n_pages, page_size, c.n_in), dtype=compute_dtype(c),
-                    device=device) for name in ("k", "v")})
+                    (n_pages, page_size, _kv_width(c, tp)),
+                    dtype=compute_dtype(c), device=device)
+                    for name in ("k", "v")})
             else:
                 state.append({})
     return tuple(state)
@@ -190,7 +207,7 @@ def _log_probs(conf, params, n_hidden: int, x):
     return torch.log(torch.clamp(probs, 1e-9, 1.0))
 
 
-def _step(conf, params, state, tok, pos, page_table):
+def _step(conf, params, state, tok, pos, page_table, tp=None):
     types = check_generative(conf)
     x = token_embed(conf, params, tok, pos)
     new_state = []
@@ -204,14 +221,14 @@ def _step(conf, params, state, tok, pos, page_table):
         elif t == LayerType.ATTENTION:
             if page_table is None:
                 x, kc, vc = impl.decode_step(params[i], c, x, state[i]["k"],
-                                             state[i]["v"], pos)
+                                             state[i]["v"], pos, tp)
             else:
                 x, kc, vc = impl.decode_step_paged(
                     params[i], c, x, state[i]["k"], state[i]["v"], pos,
-                    page_table)
+                    page_table, tp)
             new_state.append({"k": kc, "v": vc})
         elif t == LayerType.TRANSFORMER_FFN:
-            x = impl.forward(params[i], c, x)
+            x = impl.forward(params[i], c, x, tp=tp)
             new_state.append({})
         else:  # EMBEDDING: token_embed consumed it
             new_state.append({})
@@ -219,24 +236,26 @@ def _step(conf, params, state, tok, pos, page_table):
     return _log_probs(conf, params, len(types) - 1, x), tuple(new_state)
 
 
-def decode_step(conf: MultiLayerConfiguration, params, state, tok, pos):
+def decode_step(conf: MultiLayerConfiguration, params, state, tok, pos,
+                tp=None):
     """Every row one token further: tok [B] int (the row's current token),
     pos [B] int (the position that token takes). Returns (logp [B, vocab],
     log(clip(probs)) of the NEXT token, and the state tuple: the attention
     caches written in place at `pos`, new (h, c) tensors)."""
-    return _step(conf, params, state, tok, pos, None)
+    return _step(conf, params, state, tok, pos, None, tp)
 
 
 def decode_step_paged(conf: MultiLayerConfiguration, params, state, tok,
-                      pos, page_table):
+                      pos, page_table, tp=None):
     """`decode_step` over a paged state: page_table [B, pages_per_slot] int
     routes each row's cache reads and writes through the shared pool
     (`MultiHeadAttentionLayer.decode_step_paged`)."""
-    return _step(conf, params, state, tok, pos, page_table)
+    return _step(conf, params, state, tok, pos, page_table, tp)
 
 
 def decode_block(conf: MultiLayerConfiguration, params, state, tok, pos,
-                 keys, temps, rem, k: int, sample, page_table=None):
+                 keys, temps, rem, k: int, sample, page_table=None,
+                 tp=None):
     """Every row up to `k` tokens further in one program: `k` unrolled
     `decode_step`s (`decode_step_paged` with a `page_table`), each followed
     by `sample(logp, keys, temps) -> (tok, keys)`. The tokens are those of
@@ -259,7 +278,7 @@ def decode_block(conf: MultiLayerConfiguration, params, state, tok, pos,
     outs = []
     for _ in range(int(k)):
         active = rem > 0
-        logp, new = _step(conf, params, state, tok, pos, page_table)
+        logp, new = _step(conf, params, state, tok, pos, page_table, tp)
         tok2, keys2 = sample(logp, keys, temps)
         frozen = []
         for i, t in enumerate(types):
@@ -279,7 +298,7 @@ def decode_block(conf: MultiLayerConfiguration, params, state, tok, pos,
     return torch.stack(outs), tok, keys, state
 
 
-def _verify_chunk_impl(conf, params, state, toks, pos, page_table):
+def _verify_chunk_impl(conf, params, state, toks, pos, page_table, tp=None):
     """The body of `verify_chunk` and `verify_chunk_paged`."""
     types = check_generative(conf)
     b, kk = toks.shape
@@ -303,15 +322,15 @@ def _verify_chunk_impl(conf, params, state, toks, pos, page_table):
         elif t == LayerType.ATTENTION:
             if page_table is None:
                 x, kc, vc = impl.verify_chunk(params[i], c, x, state[i]["k"],
-                                              state[i]["v"], pos)
+                                              state[i]["v"], pos, tp)
             else:
                 x, kc, vc = impl.verify_chunk_paged(
                     params[i], c, x, state[i]["k"], state[i]["v"], pos,
-                    page_table)
+                    page_table, tp)
             new_state.append({"k": kc, "v": vc})
             carries.append({})
         elif t == LayerType.TRANSFORMER_FFN:
-            x = impl.forward(params[i], c, x)
+            x = impl.forward(params[i], c, x, tp=tp)
             new_state.append({})
             carries.append({})
         else:  # EMBEDDING: token_embed consumed it
@@ -323,7 +342,8 @@ def _verify_chunk_impl(conf, params, state, toks, pos, page_table):
     return logp.reshape(b, kk, -1), tuple(new_state), tuple(carries)
 
 
-def verify_chunk(conf: MultiLayerConfiguration, params, state, toks, pos):
+def verify_chunk(conf: MultiLayerConfiguration, params, state, toks, pos,
+                 tp=None):
     """Speculative verification: every row K tokens further in one pass.
     toks [B, K] int (column 0 the row's current token, the rest a draft's
     continuation), pos [B] int the position of column 0 (pos + K <= the
@@ -335,17 +355,18 @@ def verify_chunk(conf: MultiLayerConfiguration, params, state, toks, pos):
     other layer). A caller that accepts e < K tokens rolls a recurrent
     layer back to index e - 1 of its stacks; attention needs no rollback,
     since the rejected positions are written again before they are read."""
-    return _verify_chunk_impl(conf, params, state, toks, pos, None)
+    return _verify_chunk_impl(conf, params, state, toks, pos, None, tp)
 
 
 def verify_chunk_paged(conf: MultiLayerConfiguration, params, state, toks,
-                       pos, page_table):
+                       pos, page_table, tp=None):
     """`verify_chunk` over a paged state (page_table [B, pages_per_slot],
     `MultiHeadAttentionLayer.verify_chunk_paged`)."""
-    return _verify_chunk_impl(conf, params, state, toks, pos, page_table)
+    return _verify_chunk_impl(conf, params, state, toks, pos, page_table, tp)
 
 
-def prefill(conf: MultiLayerConfiguration, params, state, prompt, length):
+def prefill(conf: MultiLayerConfiguration, params, state, prompt, length,
+            tp=None):
     """Fill the decode state from a prompt bucket: prompt [B, T] int
     (zero-padded past each row's `length`), length [B] int >= 1. Returns
     (logp [B, vocab] at each row's last real prompt position, what the
@@ -371,10 +392,10 @@ def prefill(conf: MultiLayerConfiguration, params, state, prompt, length):
             new_state.append({"h": h, "c": cc})
         elif t == LayerType.ATTENTION:
             x, kc, vc = impl.prefill(params[i], c, x, state[i]["k"],
-                                     state[i]["v"])
+                                     state[i]["v"], tp)
             new_state.append({"k": kc, "v": vc})
         elif t == LayerType.TRANSFORMER_FFN:
-            x = impl.forward(params[i], c, x)
+            x = impl.forward(params[i], c, x, tp=tp)
             new_state.append({})
         else:  # EMBEDDING
             new_state.append({})

@@ -36,7 +36,7 @@ def get_layer(layer_type):
 
 
 def register_layer(layer_type, impl) -> None:
-    """Use `impl` (a class with the layers' `init(gen, conf)` and
+    """Use `impl` (a class with the layers' `init(key, conf)` and
     `forward(params, conf, x, key=None, training=False)` static methods)
     for `layer_type`. A layer that only serves inference may take
     `forward(params, conf, x)`: inference without a key calls that form."""

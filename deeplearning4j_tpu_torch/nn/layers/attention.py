@@ -3,7 +3,12 @@
 Counterpart of `deeplearning4j_tpu/nn/layers/attention.py`: the forward
 pass, and the attention layer's `prefill`, `decode_step`,
 `decode_step_paged` and the `verify_chunk`/`verify_chunk_paged` of
-speculative decoding (a decode step is a verify chunk of one token). Input
+speculative decoding (a decode step is a verify chunk of one token).
+Every one of them takes the model axis (`tp`,
+`parallel/tensor.TensorParallel`): the params then hold this rank's H/M
+heads, its K/V rows are those heads' n/M columns (contiguous, as heads are
+laid out head-major), and the partial output projection is summed over the
+model group before `bo` is added. Input
 and output are [batch, seq, n_in]; params are {"Wqkv", "bqkv", "Wo", "bo",
 "ln_g", "ln_b"} and {"W1", "b1", "W2", "b2", "ln_g", "ln_b"}, as in the
 JAX package. Under training with a key, both layers drop their branch's
@@ -54,8 +59,9 @@ class MultiHeadAttentionLayer:
     """Pre-LN multi-head self-attention with a residual connection."""
 
     @staticmethod
-    def init(gen, conf):
+    def init(key, conf):
         n = conf.n_in
+        kq, ko = nd_random.split(key)
         if n % conf.n_heads != 0:
             raise ValueError(f"n_in={n} not divisible by "
                              f"n_heads={conf.n_heads}")
@@ -63,12 +69,12 @@ class MultiHeadAttentionLayer:
             raise ValueError(
                 f"attention is residual: n_out must equal n_in={n} (or 0), "
                 f"got {conf.n_out}")
-        d, dev = param_dtype(conf), gen.device
+        d, dev = param_dtype(conf), key.device
         return {
-            "Wqkv": init_weights(gen, (n, 3 * n), conf.weight_init,
+            "Wqkv": init_weights(kq, (n, 3 * n), conf.weight_init,
                                  _sampler(conf), d),
             "bqkv": _vector(3 * n, 0.0, conf, dev),
-            "Wo": init_weights(gen, (n, n), conf.weight_init, _sampler(conf),
+            "Wo": init_weights(ko, (n, n), conf.weight_init, _sampler(conf),
                                d),
             "bo": _vector(n, 0.0, conf, dev),
             "ln_g": _vector(n, 1.0, conf, dev),
@@ -104,53 +110,60 @@ class MultiHeadAttentionLayer:
         return x + _dropped(conf, o, key, training, tp)
 
     @staticmethod
-    def prefill(params, conf, x, k_cache, v_cache):
+    def _out(params, conf, x, o, tp):
+        """x + the output projection of the heads' rows `o` (this rank's
+        under `tp`, whose partial products the model group sums before
+        `bo`)."""
+        o = mixed_matmul(o.to(x.dtype), params["Wo"], conf)
+        if tp is not None:
+            o = tp.reduce_from_model(o)
+        return x + (o + params["bo"])
+
+    @staticmethod
+    def prefill(params, conf, x, k_cache, v_cache, tp=None):
         """The prompt phase of KV-cache generation: the forward over the
         whole prompt (the same `_attend`, so on CUDA the flash kernel), with
         the projected K/V rows written into the caches in place.
 
-        x: [B, T, n]; caches: [B, max_S, n] (T <= max_S). Returns (hidden
-        [B, T, n], k_cache, v_cache). Bucket padding writes junk K/V at
-        positions >= length, which nothing reads: the causal mask hides it
-        from the prompt, and `decode_step` writes position `pos` before it
-        attends to it."""
+        x: [B, T, n]; caches: [B, max_S, w] (T <= max_S), w = n, or n/M
+        under a model axis of M (this rank's heads' columns). Returns
+        (hidden [B, T, n], k_cache, v_cache). Bucket padding writes junk
+        K/V at positions >= length, which nothing reads: the causal mask
+        hides it from the prompt, and `decode_step` writes position `pos`
+        before it attends to it."""
         b, s, n = x.shape
-        h = conf.n_heads
-        hd = n // h
-        xn = _layer_norm(x, params["ln_g"], params["ln_b"])
-        qkv = (mixed_matmul(xn, params["Wqkv"], conf)
-               + params["bqkv"]).to(compute_dtype(conf))
-        q, k, v = qkv.split(n, dim=-1)
+        hd = n // conf.n_heads
+        q, k, v = MultiHeadAttentionLayer._decode_qkv(params, conf, x)
         k_cache[:, :s].copy_(k)
         v_cache[:, :s].copy_(v)
         o = MultiHeadAttentionLayer._attend(
-            conf, *(t.view(b, s, h, hd) for t in (q, k, v)))
-        o = mixed_matmul(o.reshape(b, s, n).to(x.dtype), params["Wo"],
-                         conf) + params["bo"]
-        return x + o, k_cache, v_cache
+            conf, *(t.view(b, s, -1, hd) for t in (q, k, v)))
+        o = MultiHeadAttentionLayer._out(params, conf, x,
+                                         o.reshape(b, s, -1), tp)
+        return o, k_cache, v_cache
 
     @staticmethod
     def _decode_qkv(params, conf, x):
-        """The q, k, v rows of the tokens `x` ([..., n] each, compute
-        dtype)."""
-        n = x.shape[-1]
+        """The q, k, v rows of the tokens `x` ([..., w] each, compute
+        dtype; w = n, or this rank's heads' n/M under a model axis)."""
         xn = _layer_norm(x, params["ln_g"], params["ln_b"])
         qkv = (mixed_matmul(xn, params["Wqkv"], conf)
                + params["bqkv"]).to(compute_dtype(conf))
-        return qkv.split(n, dim=-1)
+        return qkv.split(params["Wqkv"].shape[-1] // 3, dim=-1)
 
     @staticmethod
-    def _decode_attend(params, conf, x, q, k_ctx, v_ctx, idx):
+    def _decode_attend(params, conf, x, q, k_ctx, v_ctx, idx, tp=None):
         """The attention of K tokens a row over the row's context and the
-        output projection: x, q [B, K, n]; k_ctx, v_ctx [B, ctx, n], the
-        row's K/V rows by position; idx [B, K], each token's position.
+        output projection: x [B, K, n], q [B, K, w]; k_ctx, v_ctx
+        [B, ctx, w], the row's K/V rows by position (w = n, or n/M under a
+        model axis); idx [B, K], each token's position.
         Scores are [B, H, K, ctx], one sequence-long axis, and token i sees
         key positions <= idx[:, i] (the additive -1e30 mask of
         `nd.attention.full_attention`, as in the JAX package), so a chunk's
         rows are those of K one-token steps."""
         b, kk, n = x.shape
-        h = conf.n_heads
-        hd = n // h
+        hd = n // conf.n_heads
+        h = q.shape[-1] // hd
         cd = compute_dtype(conf)
         ctx = k_ctx.shape[1]
         qh = q.reshape(b, kk, h, hd).transpose(1, 2)
@@ -169,12 +182,11 @@ class MultiHeadAttentionLayer:
         p = torch.softmax(s + mask[:, None], dim=-1)
         o = torch.stack([torch.bmm(p[i], vh[i].permute(1, 0, 2))
                          for i in range(b)])
-        o = mixed_matmul(o.transpose(1, 2).reshape(b, kk, n).to(x.dtype),
-                         params["Wo"], conf) + params["bo"]
-        return x + o
+        return MultiHeadAttentionLayer._out(
+            params, conf, x, o.transpose(1, 2).reshape(b, kk, h * hd), tp)
 
     @staticmethod
-    def decode_step(params, conf, x, k_cache, v_cache, pos):
+    def decode_step(params, conf, x, k_cache, v_cache, pos, tp=None):
         """One generated token against the KV cache: `verify_chunk` of one
         token.
 
@@ -182,19 +194,20 @@ class MultiHeadAttentionLayer:
         pos: [B] int, the position each row writes. Returns (hidden [B, n],
         k_cache, v_cache)."""
         out, k_cache, v_cache = MultiHeadAttentionLayer.verify_chunk(
-            params, conf, x[:, None], k_cache, v_cache, pos)
+            params, conf, x[:, None], k_cache, v_cache, pos, tp)
         return out[:, 0], k_cache, v_cache
 
     @staticmethod
-    def decode_step_paged(params, conf, x, k_pool, v_pool, pos, page_table):
+    def decode_step_paged(params, conf, x, k_pool, v_pool, pos, page_table,
+                          tp=None):
         """`decode_step` against a shared physical page pool:
         `verify_chunk_paged` of one token."""
         out, k_pool, v_pool = MultiHeadAttentionLayer.verify_chunk_paged(
-            params, conf, x[:, None], k_pool, v_pool, pos, page_table)
+            params, conf, x[:, None], k_pool, v_pool, pos, page_table, tp)
         return out[:, 0], k_pool, v_pool
 
     @staticmethod
-    def verify_chunk(params, conf, x, k_cache, v_cache, pos):
+    def verify_chunk(params, conf, x, k_cache, v_cache, pos, tp=None):
         """K tokens a row at once against the KV cache (speculative
         verification; one token is `decode_step`).
 
@@ -213,11 +226,13 @@ class MultiHeadAttentionLayer:
         k_cache[rows, idx] = k.to(k_cache.dtype)
         v_cache[rows, idx] = v.to(v_cache.dtype)
         out = MultiHeadAttentionLayer._decode_attend(params, conf, x, q,
-                                                     k_cache, v_cache, idx)
+                                                     k_cache, v_cache, idx,
+                                                     tp)
         return out, k_cache, v_cache
 
     @staticmethod
-    def verify_chunk_paged(params, conf, x, k_pool, v_pool, pos, page_table):
+    def verify_chunk_paged(params, conf, x, k_pool, v_pool, pos, page_table,
+                           tp=None):
         """`verify_chunk` against a shared physical page pool.
 
         x: [B, K, n]; pools: [n_pages, page_size, n]; pos: [B] int;
@@ -247,7 +262,7 @@ class MultiHeadAttentionLayer:
         k_ctx = k_pool[table].view(b, ctx, -1)
         v_ctx = v_pool[table].view(b, ctx, -1)
         out = MultiHeadAttentionLayer._decode_attend(params, conf, x, q,
-                                                     k_ctx, v_ctx, idx)
+                                                     k_ctx, v_ctx, idx, tp)
         return out, k_pool, v_pool
 
     @staticmethod
@@ -287,19 +302,20 @@ class TransformerFFNLayer:
     """Pre-LN residual MLP, hidden width conf.ffn_hidden (default 4*n_in)."""
 
     @staticmethod
-    def init(gen, conf):
+    def init(key, conf):
         n = conf.n_in
+        k1, k2 = nd_random.split(key)
         if conf.n_out not in (0, n):
             raise ValueError(
                 f"ffn is residual: n_out must equal n_in={n} (or 0), "
                 f"got {conf.n_out}")
         hid = conf.ffn_hidden or 4 * n
-        d, dev = param_dtype(conf), gen.device
+        d, dev = param_dtype(conf), key.device
         return {
-            "W1": init_weights(gen, (n, hid), conf.weight_init,
+            "W1": init_weights(k1, (n, hid), conf.weight_init,
                                _sampler(conf), d),
             "b1": _vector(hid, 0.0, conf, dev),
-            "W2": init_weights(gen, (hid, n), conf.weight_init,
+            "W2": init_weights(k2, (hid, n), conf.weight_init,
                                _sampler(conf), d),
             "b2": _vector(n, 0.0, conf, dev),
             "ln_g": _vector(n, 1.0, conf, dev),

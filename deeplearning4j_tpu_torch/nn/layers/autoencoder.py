@@ -21,20 +21,26 @@ from deeplearning4j_tpu_torch.nn.layers.base import (DenseLayer, _sampler,
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 
 
-def pretrain_params(gen, conf) -> dict:
-    """W [n_in, n_out] as the conf initializes it, hidden bias b and
-    visible bias vb at zero: the params of both pretraining layers."""
+def pretrain_params(key, conf) -> dict:
+    """W [n_in, n_out] drawn from `key` as the conf initializes it, hidden
+    bias b and visible bias vb at zero: the params of both pretraining
+    layers (the RBM draws W from its layer key, as the JAX package's
+    does)."""
     dt = param_dtype(conf)
     return {
-        "W": init_weights(gen, (conf.n_in, conf.n_out), conf.weight_init,
+        "W": init_weights(key, (conf.n_in, conf.n_out), conf.weight_init,
                           _sampler(conf), dt),
-        "b": torch.zeros((conf.n_out,), dtype=dt, device=gen.device),
-        "vb": torch.zeros((conf.n_in,), dtype=dt, device=gen.device),
+        "b": torch.zeros((conf.n_out,), dtype=dt, device=key.device),
+        "vb": torch.zeros((conf.n_in,), dtype=dt, device=key.device),
     }
 
 
 class AutoEncoder(DenseLayer):
-    init = staticmethod(pretrain_params)
+    @staticmethod
+    def init(key, conf):
+        """`pretrain_params` of the first half of the layer key's split
+        (JAX's `kw, _ = split(key)`)."""
+        return pretrain_params(nd_random.split(key)[0], conf)
 
     @staticmethod
     def encode(params, conf, x):

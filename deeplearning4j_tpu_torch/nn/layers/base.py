@@ -1,7 +1,8 @@
 """Dense, batch-norm and embedding layers.
 
 Counterpart of `deeplearning4j_tpu/nn/layers/base.py`. A layer is a pair of
-plain functions on tensors: `init(gen, conf)` returns its params as a dict
+plain functions on tensors: `init(key, conf)` returns its params as a dict,
+drawn from an int64 [2] threefry key as the JAX package draws them
 (keys as in the JAX package), `forward(params, conf, x, key=None,
 training=False)` its activations. Under training with a key, a dense
 layer drops its input (`conf.dropout`) and its weights (`drop_connect`,
@@ -68,12 +69,13 @@ class DenseLayer:
     """f(x.W + b), with input dropout and drop-connect under training."""
 
     @staticmethod
-    def init(gen, conf):
+    def init(key, conf):
+        kw = nd_random.split(key)[0]
         return {
-            "W": init_weights(gen, (conf.n_in, conf.n_out), conf.weight_init,
+            "W": init_weights(kw, (conf.n_in, conf.n_out), conf.weight_init,
                               _sampler(conf), param_dtype(conf)),
             "b": torch.zeros((conf.n_out,), dtype=param_dtype(conf),
-                             device=gen.device),
+                             device=key.device),
         }
 
     @staticmethod
@@ -114,9 +116,9 @@ class BatchNormLayer:
     EPS = 1e-5
 
     @staticmethod
-    def init(gen, conf):
+    def init(key, conf):
         n = conf.n_out or conf.n_in
-        d, dev = param_dtype(conf), gen.device
+        d, dev = param_dtype(conf), key.device
         return {
             "gamma": torch.ones((n,), dtype=d, device=dev),
             "beta": torch.zeros((n,), dtype=d, device=dev),
@@ -242,15 +244,17 @@ class EmbeddingLayer:
     checked them already (`ids_checked`)."""
 
     @staticmethod
-    def init(gen, conf):
+    def init(key, conf):
+        kw, kp = nd_random.split(key)
+        d = param_dtype(conf)
         params = {
-            "W": init_weights(gen, (conf.n_in, conf.n_out), conf.weight_init,
-                              _sampler(conf), param_dtype(conf)),
+            "W": init_weights(kw, (conf.n_in, conf.n_out), conf.weight_init,
+                              _sampler(conf), d),
         }
         if conf.max_seq_len > 0:
-            params["P"] = 0.02 * torch.randn(
-                (conf.max_seq_len, conf.n_out), generator=gen,
-                device=gen.device).to(param_dtype(conf))
+            # 0.02 * normal in the param dtype, as JAX draws the table
+            params["P"] = torch.tensor(0.02, dtype=d, device=key.device) * \
+                nd_random.normal_dtype(kp, (conf.max_seq_len, conf.n_out), d)
         return params
 
     @staticmethod

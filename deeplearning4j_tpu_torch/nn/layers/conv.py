@@ -20,12 +20,13 @@ runs it later, outside the forward's call.
 from __future__ import annotations
 
 import contextlib
-import math
 import threading
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.nd import random as nd_random
 from deeplearning4j_tpu_torch.nd.ops import activate
 from deeplearning4j_tpu_torch.nn.conf import PoolingType
 from deeplearning4j_tpu_torch.nn.layers.base import (_sampler, compute_dtype,
@@ -106,21 +107,19 @@ class ConvolutionLayer:
     """Conv2d + bias + activation. Params: "W" [O, C, kh, kw], "b" [O]."""
 
     @staticmethod
-    def init(gen, conf):
+    def init(key, conf):
         kh, kw = conf.kernel_size
         shape = (conf.n_out, conf.n_channels, kh, kw)
-        d, dev = param_dtype(conf), gen.device
+        d, dev = param_dtype(conf), key.device
         sampler = _sampler(conf)
         if str(conf.weight_init) == "distribution" and sampler is not None:
-            W = sampler(gen, shape, dev).to(d)
+            W = sampler(key, shape).to(d)
         else:
             # VI/Glorot over the receptive field, not the first two dims
             fan_in = conf.n_channels * kh * kw
             fan_out = conf.n_out * kh * kw
-            r = math.sqrt(6.0 / (fan_in + fan_out))
-            u = torch.rand(shape, generator=gen, dtype=torch.float32,
-                           device=dev)
-            W = (u * (2 * r) - r).to(d)
+            r = float(np.sqrt(np.float32(6.0 / (fan_in + fan_out))))
+            W = nd_random.uniform_dtype(key, shape, d, -r, r)
         return {"W": W, "b": torch.zeros((conf.n_out,), dtype=d, device=dev)}
 
     @staticmethod
@@ -135,7 +134,7 @@ class SubsamplingLayer:
     """Pooling only; no params."""
 
     @staticmethod
-    def init(gen, conf):
+    def init(key, conf):
         return {}
 
     @staticmethod

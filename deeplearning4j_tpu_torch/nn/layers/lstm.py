@@ -29,12 +29,12 @@ from deeplearning4j_tpu_torch.nn.weights import init_weights
 
 class LSTMLayer:
     @staticmethod
-    def init(gen, conf):
+    def init(key, conf):
         n_in, n_h = conf.n_in, conf.n_out
-        W = init_weights(gen, (n_in + n_h, 4 * n_h), conf.weight_init,
+        W = init_weights(key, (n_in + n_h, 4 * n_h), conf.weight_init,
                          _sampler(conf), param_dtype(conf))
         b = torch.zeros((4 * n_h,), dtype=param_dtype(conf),
-                        device=gen.device)
+                        device=key.device)
         b[n_h:2 * n_h] = 1.0  # forget-gate bias 1
         return {"W": W, "b": b}
 
@@ -140,13 +140,13 @@ class GravesLSTMLayer(LSTMLayer):
     scan."""
 
     @staticmethod
-    def init(gen, conf):
-        params = LSTMLayer.init(gen, conf)
+    def init(key, conf):
+        params = LSTMLayer.init(key, conf)
         n_h = conf.n_out
         for name in ("p_i", "p_f", "p_o"):
             # zero at init: the layer starts as the plain LSTM
             params[name] = torch.zeros((n_h,), dtype=param_dtype(conf),
-                                       device=gen.device)
+                                       device=key.device)
         return params
 
     @staticmethod

@@ -23,12 +23,12 @@ assigning another params tree drops the network's graphs.
 package.
 
 Keys: the network holds the JAX package's threefry key stream
-(`prng_key(seed)`, split on the host as two ints): `init` takes one key
-(the params come from the torch generator, but the stream stays in step
-with JAX's) and each `finetune` another, which the solver splits once an
-iteration and the losses into one key a layer, so dropout and drop-connect
-draw JAX's masks. A conf that drops nothing (`uses_key`) gets no key on
-the device and splits nothing. The checkpoint saves the key as
+(`prng_key(seed)`, split on the host as two ints): `init` draws the params
+from one key as JAX does (`init_params`, so a seed gives JAX's params on
+the CPU and on the card) and each `finetune` another, which the solver
+splits once an iteration and the losses into one key a layer, so dropout
+and drop-connect draw JAX's masks. A conf that drops nothing (`uses_key`)
+gets no key on the device and splits nothing. The checkpoint saves the key as
 `metadata["rng_key"]`, JAX's name.
 
 BatchNorm: the cached step trains on row-weighted batch moments (pad rows
@@ -86,10 +86,14 @@ _PRETRAINABLE = {LayerType.RBM, LayerType.AUTOENCODER,
                  LayerType.RECURSIVE_AUTOENCODER}
 
 
-def init_params(conf: MultiLayerConfiguration,
-                gen: torch.Generator) -> tuple:
-    """Every layer's params, drawn in order from `gen` on its device."""
-    return tuple(get_layer(c.layer_type).init(gen, c) for c in conf.confs)
+def init_params(conf: MultiLayerConfiguration, key: torch.Tensor) -> tuple:
+    """Every layer's params from `key` (an int64 [2] threefry key, on the
+    device the params go to), JAX's `split(key, max(1, n_layers))`, one
+    key a layer. A leaf is drawn at a time, so the draws' temporaries are
+    one leaf's."""
+    keys = nd_random.split(key, max(1, conf.n_layers))
+    return tuple(get_layer(c.layer_type).init(keys[i], c)
+                 for i, c in enumerate(conf.confs))
 
 
 def uses_key(conf: MultiLayerConfiguration) -> bool:
@@ -352,7 +356,6 @@ class MultiLayerNetwork:
         self.infer_cache = InferCache(pool=pool)
         self.use_infer_cache = True
         self._params: Optional[tuple] = None
-        self._gen: Optional[torch.Generator] = None
         self.listeners: List = []
         # set by SIGTERM or request_stop_training; fit(checkpoint_dir=...)
         # checks it between batches
@@ -397,13 +400,47 @@ class MultiLayerNetwork:
         return torch.tensor(key, dtype=torch.int64, device=self.device)
 
     def init(self) -> "MultiLayerNetwork":
-        # the JAX package draws the params from this key; the port draws
-        # them from the generator, and takes the key to keep the stream in
-        # step with JAX's
-        self._next_key()
-        self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.params = init_params(self.conf, self._gen)
+        key = torch.tensor(self._next_key(), dtype=torch.int64,
+                           device=self.device)
+        self.params = init_params(self.conf, key)
         return self
+
+    def set_serve_mesh(self, mesh=None, spec=None):
+        """Serve over a mesh of ranks, the JAX package's contract: no
+        arguments is the 1-D ("batch",) mesh over every rank
+        (`parallel/mesh.serve_mesh`: rows split, params whole); `spec` a
+        `--mesh` value ("batch=2,model=4"; "" or "all" the 1-D mesh), whose
+        model axis splits heads, FFN units and the decode state's K/V
+        columns (`parallel/plan.plan_mesh`); `mesh` a mesh made already.
+        `mesh` and `spec` exclude each other. Every rank calls it, with
+        the network on the mesh's device; then rank 0 serves and the
+        others `follow`. Programs of each mesh are keyed by its plan and
+        coexist. Returns the mesh."""
+        from deeplearning4j_tpu_torch.parallel.mesh import serve_mesh
+        from deeplearning4j_tpu_torch.parallel.plan import (parse_mesh_spec,
+                                                            plan_mesh)
+
+        if mesh is not None and spec is not None:
+            raise ValueError("pass mesh= or spec=, not both")
+        if spec is not None:
+            mesh = plan_mesh(parse_mesh_spec(spec), device=self.device)
+        elif mesh is None:
+            mesh = serve_mesh(device=self.device)
+        if mesh.device != self.device:
+            raise ValueError(f"the mesh's device {mesh.device} is not the "
+                             f"network's {self.device}: build the network "
+                             f"on the mesh's device")
+        self.infer_cache.set_mesh(mesh)
+        return mesh
+
+    def follow(self) -> int:
+        """On a rank other than 0 of the serving mesh: run rank 0's calls
+        until it stops them (`stop_followers`); returns how many ran."""
+        return self.infer_cache.follow(self)
+
+    def stop_followers(self) -> None:
+        """On rank 0 of the serving mesh: end the other ranks' `follow`."""
+        self.infer_cache.stop_followers()
 
     def set_listeners(self, listeners) -> None:
         self.listeners = list(listeners)
@@ -725,15 +762,15 @@ class MultiLayerNetwork:
         then one `finetune` (a `backprop` conf).
 
         With `checkpoint_dir` the run is crash-safe, as in the JAX package:
-        params, the generator state and the batch cursor are checkpointed
+        params, the key stream and the batch cursor are checkpointed
         atomically every `checkpoint_every_n_batches` batches (0: never in
         between) and at the end; a SIGTERM (handled on the main thread) or
         `request_stop_training` checkpoints after the current batch and
         raises `TrainingInterrupted`; and a rerun with the same directory
         and the same batch stream resumes at the saved cursor
         (`auto_resume`), reaching the params of one uninterrupted run. The
-        updater restarts on every batch, so params and the generator are
-        all the state there is."""
+        updater restarts on every batch, so params and the key are all the
+        state there is."""
         if self.params is None:
             self.init()
         batches = [(data, labels)] if labels is not None \
@@ -757,11 +794,6 @@ class MultiLayerNetwork:
         t0 = time.perf_counter()
         # the key under JAX's own name, which JAX's resume reads too
         meta = {"rng_key": [int(v) for v in self._key]}
-        if self._gen is not None:
-            # where the JAX package saves its PRNG key: the generator's
-            # state bytes, as hex
-            meta["torch_generator_state"] = bytes(
-                self._gen.get_state().numpy()).hex()
         ckpt.save(directory, self.params, conf=self.conf, step=batches_done,
                   data_cursor={"batches_done": int(batches_done)},
                   metadata=meta)
@@ -781,11 +813,8 @@ class MultiLayerNetwork:
                 self.params = params
                 start_batch = int(
                     (meta.get("data_cursor") or {}).get("batches_done", 0))
-                state = (meta.get("metadata") or {}).get(
-                    "torch_generator_state")
-                if state is not None and self._gen is not None:
-                    self._gen.set_state(torch.frombuffer(
-                        bytearray.fromhex(state), dtype=torch.uint8))
+                # a "torch_generator_state" of older checkpoints is not
+                # read: no generator draws anything
                 rng = (meta.get("metadata") or {}).get("rng_key")
                 if rng is not None:
                     self._key = tuple(int(v) & 0xFFFFFFFF for v in rng)

@@ -54,14 +54,49 @@ Generation (the JAX package's `init_decode_state`, `decode`, `prefill`,
                 carries back to the accepted depth in the program
                 (`_accepted_len`, `_rollback_carries`).
 
-The mesh and plan entry points come with tensor parallelism (ROADMAP.md
-queue A item 10b) and the precision policies with serving-side optimisation (item
-11).
+Meshes (`set_mesh`, `set_plan`; the JAX package's `:135-177`,
+`:250-288`): a `ShardPlan` over a mesh of ranks keys every program, so
+programs of different meshes coexist without eviction.
+
+  1-D mesh      ("batch",) over every rank (`parallel/mesh.serve_mesh`):
+                `output`, `feed_forward` and `loss` split a bucket's rows
+                over the ranks in JAX's `P("batch")` order (buckets round
+                up to a multiple of the ranks, `_serve_bucket`), each rank
+                runs them with the whole params, and the rows are gathered
+                back. Generation keeps the "single" tag and runs on rank 0
+                alone, as the JAX package's does.
+  model axis    ("batch", "model"): rows split over the batch axis; every
+                rank holds its heads and FFN units (`parallel/tensor.
+                shard_params` of the whole params, made once a params tree)
+                and runs the programs with `ServeParallel`, whose
+                all-reduces sit inside the captured graph. Generation is
+                keyed by the plan's tag, and each rank's decode state holds
+                its heads' n/M K/V columns (dense and paged; LSTM carries
+                whole). The logits are whole on every rank and every rank
+                samples with the same keys, so the tokens agree; rank 0
+                reads them back.
+  followers     one process a rank: rank 0 sends each mesh call to the
+                other ranks (`parallel/followers.py`: a header with the
+                entry, its key and bucket and the inputs, a vote, then the
+                run), and they run it in `follow`, capturing a miss in the
+                same order. A follower that fails ends rank 0's call with
+                its error. `stop_followers` ends them. The batcher's state
+                copies (`reset_state`, `scatter_row`, `keep_row`,
+                `drop_row`) go the same way under a model axis, so each
+                rank's prefix entries hold its own K/V columns; the rows of
+                a collected batcher (`forget_rows`) leave the followers
+                with the next header.
+
+The precision policies come with serving-side optimisation (ROADMAP.md
+queue A item 11).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Set, Tuple
+import contextlib
+import functools
+import threading
+from typing import Callable, Dict, NamedTuple, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +107,7 @@ from deeplearning4j_tpu_torch.optimize.step_cache import (CompiledProgramCache,
                                                           arg_signature,
                                                           check_input)
 from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+from deeplearning4j_tpu_torch.reliability import faults
 
 
 def pad_rows(x: torch.Tensor, bucket: int) -> torch.Tensor:
@@ -93,6 +129,56 @@ def truncate_rows(arr: torch.Tensor, bucket: int, n: int) -> torch.Tensor:
     return arr
 
 
+def _host_copy(t):
+    """A host copy of a state tensor, pinned when it comes from the card
+    (a prefix-cache hit copies it back without blocking)."""
+    if not t.is_cuda:
+        return t.clone()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t)
+
+
+class _Ref(NamedTuple):
+    """A call argument that a follower rank resolves to its own object:
+    "conf", "params" (its network's), "state" (its decode state of rank
+    0's descriptor), "tensor" (a host array, on its device)."""
+
+    kind: str
+    value: object = None
+
+
+class _Leaf(NamedTuple):
+    """A leaf's shape and dtype only, for a key's signature."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _is_conf(obj) -> bool:
+    return hasattr(obj, "confs") and hasattr(obj, "to_json")
+
+
+def _mesh_entry(fn):
+    """An entry that a mesh may run on every rank: on rank 0 of a mesh
+    with followers, the call (name and arguments) is recorded for the
+    header `_on_every_rank` sends."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        ch = self._channel
+        if ch is None or not ch.leader:
+            return fn(self, *args, **kwargs)
+        prev = getattr(self._tls, "call", None)
+        self._tls.call = (name, args, kwargs)
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            self._tls.call = prev
+
+    return wrapper
+
+
 class InferCache(CompiledProgramCache):
     """Keyed captured programs for the inference entry points."""
 
@@ -103,10 +189,33 @@ class InferCache(CompiledProgramCache):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        # (fingerprint, batch, max_seq, device, role, pages) -> the decode
-        # state the graphs of that role are captured on (`decode_state`)
+        # (fingerprint, batch, max_seq, device, role, pages, decode tag) ->
+        # the decode state the graphs of that role are captured on
+        # (`decode_state`)
         self._decode_states: Dict[Tuple, tuple] = {}
         self._claimed: Set[int] = set()
+        # the serving mesh (None: one rank), the channel to the other ranks
+        # (None without followers), one ServeParallel and one sharded
+        # params tree a conf under a model axis
+        self._mesh = None
+        self._channel = None
+        self._tps: Dict[str, object] = {}
+        self._sharded: Dict[str, tuple] = {}
+        # rank 0: one mesh call at a time, header to done (the batchers'
+        # threads and the server's share the cache)
+        self._call_lock = threading.RLock()
+        # per thread: rank 0's call in flight ("call"), or a follower's
+        # (seq, key) until it is ready ("follow") and rank 0's bucket
+        self._tls = threading.local()
+        # decode states by id: their descriptors (serial, batch, max_seq,
+        # pages), which a follower maps to states of its own
+        self._descs: Dict[int, tuple] = {}
+        self._serial = 0
+        self._follower_states: Dict[tuple, tuple] = {}
+        # prefix rows kept by handle (`keep_row`), and rank 0's handle
+        # prefixes forgotten since its last header (`forget_rows`)
+        self._kept: Dict[str, tuple] = {}
+        self._forgotten: list = []
 
     def _keyed_conf(self, conf):
         if any(c.attention_fused_bwd for c in conf.confs):
@@ -114,66 +223,389 @@ class InferCache(CompiledProgramCache):
                 c.replace(attention_fused_bwd=False) for c in conf.confs))
         return conf
 
+    # -- mesh / plan ------------------------------------------------------
+    def set_mesh(self, mesh) -> None:
+        """Serve every later call over `mesh` (`parallel/mesh.Mesh`): the
+        1-D ("batch",) mesh splits rows, a ("batch", "model") mesh also
+        splits heads, FFN units and the decode state's K/V columns over
+        the model axis; None goes back to one rank. Every rank of the mesh
+        calls it, in the same order; ranks other than 0 then run `follow`
+        while rank 0 serves. Programs of other meshes stay cached under
+        their own tags."""
+        from deeplearning4j_tpu_torch.parallel.followers import Channel
+
+        with self._lock:
+            self._mesh = mesh
+            self._tps.clear()
+            self._sharded.clear()
+            n = 1 if mesh is None else int(np.prod(list(mesh.shape.values())))
+            self._channel = None if n == 1 else Channel(mesh.rank, n)
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    @property
+    def plan(self):
+        """The cache's `ShardPlan` (its mesh, policy f32): every key element
+        and placement comes from it."""
+        from deeplearning4j_tpu_torch.parallel.plan import ShardPlan
+
+        return ShardPlan(mesh=self._mesh)
+
+    def set_plan(self, plan) -> None:
+        """Install a `ShardPlan`: its mesh. The precision policies are
+        ROADMAP.md queue A item 11's, so a plan's policy must be f32."""
+        if plan.policy != "f32":
+            raise ValueError(f"serving precision policy {plan.policy!r} is "
+                             f"not ported (ROADMAP.md queue A item 11)")
+        self.set_mesh(plan.mesh)
+
+    def sharding_tag(self):
+        """The sharding element of the row entries' keys (the plan's):
+        "single" or ("mesh", axis names, sizes)."""
+        return self.plan.sharding_tag()
+
+    def _decode_tag(self):
+        """The sharding element of the generation keys: "single" unless
+        the plan has a model axis."""
+        return self.plan.decode_tag()
+
+    def _mesh_rows(self) -> int:
+        """The row divisibility the plan asks of a bucket (1: no mesh)."""
+        return self.plan.rows
+
+    def _serve_bucket(self, n: int) -> int:
+        """The bucket of `n` rows: under a mesh, the smallest known bucket
+        >= n that the batch axis divides, else a new one at the next
+        multiple, as the JAX package's."""
+        m = self._mesh_rows()
+        if m == 1:
+            return self.bucket_rows(n)
+        target = -(-n // m) * m
+        with self._lock:
+            for b in self._buckets:
+                if b >= n and b % m == 0:
+                    return b
+            self._buckets.append(target)
+            self._buckets.sort()
+            return target
+
+    def _bucket_of(self, n: int) -> int:
+        """A row entry's bucket: rank 0's on a follower, else
+        `_serve_bucket`."""
+        b = getattr(self._tls, "bucket", None)
+        return self._serve_bucket(n) if b is None else int(b)
+
+    def _tp(self, conf):
+        """The serving model axis for `conf` (None without one)."""
+        if not self.plan.has_model_axis:
+            return None
+        from deeplearning4j_tpu_torch.parallel.tensor import serve_parallel
+
+        fp = self._fingerprint(conf)
+        with self._lock:
+            tp = self._tps.get(fp)
+            if tp is None:
+                tp = self._tps[fp] = serve_parallel(self._mesh, conf)
+            return tp
+
+    def _local_params(self, conf, params):
+        """The params a program of this rank reads: the whole tree, or
+        under a model axis its shard (`shard_params`), made once a params
+        tree and kept, so that the graphs read it by address. Training
+        that writes the whole params in place is not seen by the shard:
+        `set_mesh` again (or assign the params) to shard them anew."""
+        tp = self._tp(conf)
+        if tp is None:
+            return params
+        from deeplearning4j_tpu_torch.parallel.tensor import shard_params
+
+        fp = self._fingerprint(conf)
+        ids = tuple(id(t) for t in tree_leaves(params))
+        with self._lock:
+            held = self._sharded.get(fp)
+            if held is None or held[0] != ids:
+                with torch.no_grad():
+                    held = self._sharded[fp] = (ids, shard_params(params,
+                                                                  tp))
+            return held[1]
+
+    def _batch_axis(self) -> Tuple[int, int]:
+        """(this rank's coordinate, size) of the batch axis."""
+        mesh = self._mesh
+        if mesh is None or "batch" not in mesh.shape:
+            return 0, 1
+        return mesh.coord("batch"), int(mesh.shape["batch"])
+
+    def _my_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous rows of a bucket, JAX's `P("batch")`
+        order."""
+        r, size = self._batch_axis()
+        if size == 1:
+            return t
+        k = t.shape[0] // size
+        return t[r * k:(r + 1) * k]
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The batch axis's rows of `t`, concatenated in rank order."""
+        from deeplearning4j_tpu_torch.parallel.tensor import all_gather
+
+        _, size = self._batch_axis()
+        if size == 1:
+            return t
+        t = t.contiguous()
+        out = t.new_empty((size * t.shape[0],) + tuple(t.shape[1:]))
+        all_gather(out, t, self._mesh.axis_group("batch"))
+        return out
+
+    def _read_rows(self, out: torch.Tensor, bucket: int, n: int):
+        """The `read` of a row entry's output: a copy of this rank's rows,
+        cut back to the `n` real rows where no batch axis splits them."""
+        if self._batch_axis()[1] == 1:
+            out = truncate_rows(out, bucket, n)
+        return out.clone()
+
+    def _real_rows(self, out: torch.Tensor, bucket: int, n: int):
+        """A row entry's result from its `_read_rows` copy: the batch
+        axis's rows gathered and cut back to the `n` real rows."""
+        if self._batch_axis()[1] == 1:
+            return out
+        return truncate_rows(self._gather(out), bucket, n)
+
+    # -- rank 0 and its followers -----------------------------------------
+    def _wire(self, obj):
+        """A call argument as a header carries it: tensors as host arrays,
+        decode states by descriptor."""
+        if isinstance(obj, torch.Tensor):
+            return _Ref("tensor", obj.detach().cpu().numpy())
+        if isinstance(obj, tuple) and id(obj) in self._descs:
+            return _Ref("state", self._descs[id(obj)][0])
+        if isinstance(obj, (tuple, list)):
+            return type(obj)(self._wire(x) for x in obj)
+        if isinstance(obj, dict):
+            return {k: self._wire(v) for k, v in obj.items()}
+        if isinstance(obj, np.ndarray):
+            return obj.copy()
+        return obj
+
+    def _wire_call(self, args, kwargs):
+        args = list(args)
+        head = []
+        if args and _is_conf(args[0]):
+            head = [_Ref("conf"), _Ref("params")]
+            args = args[2:]
+        return (tuple(head) + tuple(self._wire(a) for a in args),
+                {k: self._wire(v) for k, v in kwargs.items()})
+
+    def _unwire(self, obj, net):
+        if isinstance(obj, _Ref):
+            if obj.kind == "conf":
+                return net.conf
+            if obj.kind == "params":
+                return net.params
+            if obj.kind == "tensor":
+                return torch.from_numpy(obj.value).to(net.device)
+            return self._follower_state(net.conf, obj.value, net.device)
+        if isinstance(obj, (tuple, list)):
+            return type(obj)(self._unwire(x, net) for x in obj)
+        if isinstance(obj, dict):
+            return {k: self._unwire(v, net) for k, v in obj.items()}
+        return obj
+
+    def _follower_state(self, conf, desc, device):
+        """A follower's decode state for rank 0's descriptor: made fresh
+        (zero, its own K/V columns) on first sight, the same ever after."""
+        with self._lock:
+            state = self._follower_states.get(desc)
+            if state is None:
+                _, batch, max_seq, pages = desc
+                state = self._fresh_state(conf, batch, max_seq,
+                                          resolve_device(device), pages)
+                self._follower_states[desc] = state
+            return state
+
+    @contextlib.contextmanager
+    def _on_every_rank(self, key, bucket=None):
+        """Run the body on every rank of the mesh: on rank 0 the header
+        goes out and the followers vote before the body, and their end is
+        awaited after it; on a follower (inside `follow`), its key is
+        checked against rank 0's and it answers ready and waits for go.
+        Without followers, the body alone."""
+        ch = self._channel
+        follow = getattr(self._tls, "follow", None)
+        if follow is not None:
+            seq, want = follow
+            if key != want:
+                raise RuntimeError(f"rank {ch.rank}: key {key!r} is not "
+                                   f"rank 0's {want!r}")
+            self._tls.follow = None
+            ch.answer(seq, "p")
+            ch.wait_go(seq)
+            yield
+            return
+        if ch is None or not ch.leader:
+            yield
+            return
+        name, args, kwargs = self._tls.call
+        args, kwargs = self._wire_call(args, kwargs)
+        with self._call_lock:
+            with self._lock:
+                forgets, self._forgotten = self._forgotten, []
+            seq = ch.send(("call", name, args, kwargs, key, bucket,
+                           forgets))
+            ch.vote(seq)
+            try:
+                yield
+            except BaseException:
+                try:
+                    ch.done(seq)
+                except Exception:  # noqa: BLE001 — rank 0's error first
+                    pass
+                raise
+            ch.done(seq)
+
+    def _model_axis(self, key):
+        """`_on_every_rank` under a model axis (the generation entries and
+        the state copies), else nothing: under a 1-D mesh generation runs
+        on rank 0 alone."""
+        if self.plan.has_model_axis:
+            return self._on_every_rank(key)
+        return contextlib.nullcontext()
+
+    def follow(self, net) -> int:
+        """The loop of a rank other than 0 of a serving mesh: run each call
+        rank 0 sends on `net` (its conf, params and device) until rank 0
+        stops it (`stop_followers`). Returns the calls run. An armed
+        `serve.follower` fault fails the call it fires on, and rank 0's
+        call raises with its error."""
+        from deeplearning4j_tpu_torch.parallel.followers import Aborted
+
+        ch = self._channel
+        if ch is None or ch.leader:
+            raise RuntimeError("follow runs on a rank other than 0 of a "
+                               "serving mesh (set_mesh first)")
+        served = 0
+        while True:
+            seq, msg = ch.receive()
+            if msg[0] == "stop":
+                ch.answer(seq, "p")
+                return served
+            _, name, args, kwargs, key, bucket, forgets = msg
+            for prefix in forgets:
+                self._drop_kept(prefix)
+            self._tls.follow, self._tls.bucket = (seq, key), bucket
+            try:
+                faults.fire("serve.follower", entry=name, rank=ch.rank)
+                getattr(self, name)(*self._unwire(args, net),
+                                    **self._unwire(kwargs, net))
+                if self._tls.follow is not None:
+                    raise RuntimeError(f"{name} ran no mesh program here")
+            except Aborted:
+                continue
+            except Exception as e:  # noqa: BLE001 — rank 0 raises it
+                ch.answer(seq, "p" if self._tls.follow is not None else "d",
+                          e)
+                continue
+            finally:
+                self._tls.follow = self._tls.bucket = None
+            ch.answer(seq, "d")
+            served += 1
+
+    def stop_followers(self) -> None:
+        """Rank 0: end the followers' `follow` loops."""
+        ch = self._channel
+        if ch is None or not ch.leader:
+            return
+        with self._call_lock:
+            ch.vote(ch.send(("stop",)))
+
+    # -- row entries ------------------------------------------------------
+    @_mesh_entry
     def output(self, conf, params, x, compile_only: bool = False):
         """`network_output` through the cache: the output activations of the
         `x.shape[0]` real rows (a copy). `compile_only` (warm-up) registers
-        the bucket and captures the program without running it."""
+        the bucket and captures the program without running it. Under a
+        mesh, every rank runs its rows and the rows are gathered."""
         check_input(conf, x)
         n = int(x.shape[0])
-        bucket = self.bucket_rows(n)
+        bucket = self._bucket_of(n)
         xp = pad_rows(x, bucket)
-        key = ("output", self._fingerprint(conf), arg_signature(xp),
-               self.SINGLE)
-        return self._run(key, lambda: _output_program(conf), params, (xp,),
-                         read=lambda out: truncate_rows(out, bucket,
-                                                        n).clone(),
-                         compile_only=compile_only)
+        key = (("output", self._fingerprint(conf), arg_signature(xp))
+               + self.plan.key_suffix())
+        tp = self._tp(conf)
+        with self._on_every_rank(key, bucket):
+            out = self._run(key, lambda: _output_program(conf, tp),
+                            self._local_params(conf, params),
+                            (self._my_rows(xp),),
+                            read=lambda o: self._read_rows(o, bucket, n),
+                            compile_only=compile_only)
+            if compile_only:
+                return None
+            return self._real_rows(out, bucket, n)
 
+    @_mesh_entry
     def feed_forward(self, conf, params, x, compile_only: bool = False):
         """`feed_forward` through the cache: the per-layer activations, each
         cut back to the real rows (copies)."""
         check_input(conf, x)
         n = int(x.shape[0])
-        bucket = self.bucket_rows(n)
+        bucket = self._bucket_of(n)
         xp = pad_rows(x, bucket)
-        key = ("feed_forward", self._fingerprint(conf), arg_signature(xp),
-               self.SINGLE)
-        return self._run(key, lambda: _feed_forward_program(conf), params,
-                         (xp,),
-                         read=lambda acts: [truncate_rows(a, bucket,
-                                                          n).clone()
-                                            for a in acts],
-                         compile_only=compile_only)
+        key = (("feed_forward", self._fingerprint(conf), arg_signature(xp))
+               + self.plan.key_suffix())
+        tp = self._tp(conf)
+        with self._on_every_rank(key, bucket):
+            acts = self._run(key, lambda: _feed_forward_program(conf, tp),
+                             self._local_params(conf, params),
+                             (self._my_rows(xp),),
+                             read=lambda acts: [self._read_rows(a, bucket, n)
+                                                for a in acts],
+                             compile_only=compile_only)
+            if compile_only:
+                return None
+            return [self._real_rows(a, bucket, n) for a in acts]
 
     def programs_summary(self):
         """Resident programs as (entry, bucket, sharding, policy) rows, the
         JAX package's `/v1/stats` `programs` block: bucket is the leading
-        dim of the first argument (rows, or a decode table's slots)."""
+        dim of the first argument (rows, or a decode table's slots), and a
+        mesh's sharding reads "mesh:" and its sizes."""
         with self._lock:
             keys = list(self._programs)
-        rows = [{"entry": k[0],
-                 "bucket": int(k[2][0][0][0]) if k[2] and k[2][0] else 0,
-                 "sharding": k[3], "policy": "f32"} for k in keys]
-        return sorted(rows, key=lambda r: (r["entry"], r["bucket"]))
+        rows = []
+        for k in keys:
+            tag = k[3]
+            rows.append({
+                "entry": k[0],
+                "bucket": int(k[2][0][0][0]) if k[2] and k[2][0] else 0,
+                "sharding": (tag if isinstance(tag, str) else
+                             "mesh:" + "x".join(str(d) for d in tag[2])),
+                "policy": "f32"})
+        return sorted(rows, key=lambda r: (r["entry"], r["bucket"],
+                                           r["sharding"], r["policy"]))
 
     # -- generation -----------------------------------------------------------
     def init_decode_state(self, conf, batch: int, max_seq: int,
                           device=None):
         """A fresh zero decode state (`nn/decode.init_state`) on `device`
-        (None: CUDA)."""
+        (None: CUDA); under a model axis, this rank's K/V columns."""
         from deeplearning4j_tpu_torch.nn import decode as decode_mod
 
         return decode_mod.init_state(conf, batch, max_seq,
-                                     device=resolve_device(device))
+                                     device=resolve_device(device),
+                                     tp=self._tp(conf))
 
     def init_paged_decode_state(self, conf, batch: int, n_pages: int,
                                 page_size: int, device=None):
         """A fresh zero paged decode state (`nn/decode.init_paged_state`):
-        a pool of `n_pages` physical pages of `page_size` tokens."""
+        a pool of `n_pages` physical pages of `page_size` tokens (this
+        rank's K/V columns under a model axis)."""
         from deeplearning4j_tpu_torch.nn import decode as decode_mod
 
         return decode_mod.init_paged_state(conf, batch, n_pages, page_size,
-                                           device=resolve_device(device))
+                                           device=resolve_device(device),
+                                           tp=self._tp(conf))
 
     def decode_state(self, conf, batch: int, max_seq: int, device=None,
                      role: str = "table", pages=None):
@@ -182,11 +614,13 @@ class InferCache(CompiledProgramCache):
         captures on the same ones), made on first use and kept: the graphs
         read it by address, so the programs warmed on it replay for its
         later users. `pages` = (n_pages, page_size) makes a paged state,
-        and is part of the key. Its content is what the last call left;
-        `reset_state` zeroes it."""
+        and is part of the key, as is the decode tag (a model axis's state
+        holds this rank's K/V columns). Its content is what the last call
+        left; `reset_state` zeroes it."""
         dev = resolve_device(device)
         key = (self._fingerprint(conf), int(batch), int(max_seq), str(dev),
-               role, None if pages is None else tuple(int(p) for p in pages))
+               role, None if pages is None else tuple(int(p) for p in pages),
+               self._decode_tag())
         with self._lock:
             state = self._decode_states.get(key)
             if state is None:
@@ -195,9 +629,19 @@ class InferCache(CompiledProgramCache):
             return state
 
     def _fresh_state(self, conf, batch, max_seq, device, pages):
+        """A fresh state, registered under a descriptor that a follower
+        rank maps to a state of its own."""
         if pages is None:
-            return self.init_decode_state(conf, batch, max_seq, device)
-        return self.init_paged_decode_state(conf, batch, *pages, device)
+            state = self.init_decode_state(conf, batch, max_seq, device)
+        else:
+            state = self.init_paged_decode_state(conf, batch, *pages, device)
+        with self._lock:
+            self._serial += 1
+            self._descs[id(state)] = ((self._serial, int(batch),
+                                       int(max_seq),
+                                       None if pages is None
+                                       else tuple(pages)), state)
+        return state
 
     def claim_decode_state(self, conf, batch: int, max_seq: int,
                            device=None, role: str = "table", pages=None):
@@ -218,12 +662,79 @@ class InferCache(CompiledProgramCache):
         with self._lock:
             self._claimed.discard(id(state))
 
-    @staticmethod
-    def reset_state(state) -> None:
-        """Zero every tensor of a decode state in place."""
-        with torch.no_grad():
+    @_mesh_entry
+    def reset_state(self, state) -> None:
+        """Zero every tensor of a decode state in place (on every rank
+        under a model axis)."""
+        with self._model_axis(("reset_state",)), torch.no_grad():
             for t in tree_leaves(state):
                 t.zero_()
+
+    @_mesh_entry
+    def scatter_row(self, table, slot: int, row=None, pages=None,
+                    kept: Optional[str] = None) -> None:
+        """Copy a B = 1 row state (a decode state, or with `kept` the row
+        `keep_row` kept under that handle) into the table's row `slot`,
+        tensor by tensor; into a paged pool, the row's dense K/V go into
+        `pages` (a list of page ids), a page at a time only where the last
+        page runs past the row. On every rank under a model axis."""
+        with self._model_axis(("scatter_row",)), torch.no_grad():
+            if kept is not None:
+                row = self._kept[kept]
+            for lay, r in zip(table, row):
+                for name, tbl in lay.items():
+                    src = r[name][0]
+                    if pages is None or name in ("h", "c"):
+                        tbl[slot].copy_(src, non_blocking=True)
+                        continue
+                    ps = tbl.shape[1]
+                    n_rows = min(len(pages) * ps, src.shape[0])
+                    full = n_rows // ps
+                    src = src.to(tbl.device, non_blocking=True)
+                    if full:
+                        idx = torch.as_tensor(list(pages[:full]),
+                                              device=tbl.device)
+                        tbl.index_copy_(0, idx, src[:full * ps].view(
+                            full, ps, -1))
+                    if n_rows > full * ps:
+                        tbl[pages[full], :n_rows - full * ps].copy_(
+                            src[full * ps:n_rows])
+
+    @_mesh_entry
+    def keep_row(self, handle: str, row) -> tuple:
+        """Keep a host copy of a row state under `handle` (each rank its
+        own under a model axis: its K/V columns); returns it. A copy: the
+        admission row is the cache's shared state, which the next
+        admission writes."""
+        with self._model_axis(("keep_row",)):
+            host = tuple({name: _host_copy(t) for name, t in lay.items()}
+                         for lay in row)
+            with self._lock:
+                self._kept[handle] = host
+            return host
+
+    def forget_rows(self, prefix: str) -> None:
+        """Forget the kept rows whose handles start with `prefix` (a
+        batcher's, when it is collected). A follower forgets them when the
+        next header arrives, which carries the prefix: the call runs from
+        a finalizer, where no call to the other ranks may start."""
+        with self._lock:
+            self._drop_kept(prefix)
+            ch = self._channel
+            if ch is not None and ch.leader:
+                self._forgotten.append(prefix)
+
+    def _drop_kept(self, prefix: str) -> None:
+        with self._lock:
+            for h in [h for h in self._kept if h.startswith(prefix)]:
+                del self._kept[h]
+
+    @_mesh_entry
+    def drop_row(self, handle: str) -> None:
+        """Forget the row kept under `handle` (on every rank)."""
+        with self._model_axis(("drop_row",)):
+            with self._lock:
+                self._kept.pop(handle, None)
 
     def _decode_inputs(self, conf, params, state, tok, *rest):
         """The call's tensors on the program's device: `tok` (or the prompt)
@@ -259,15 +770,26 @@ class InferCache(CompiledProgramCache):
                     compile_only, tok, *rest):
         """One generation program's call: its inputs on the device
         (`_decode_inputs`), its key (entry, conf fingerprint, the signature
-        of the inputs and the state's leaves, "single"), and `_run` with the
-        new carries written into `state`. Returns `read` of the outputs, or
-        None with `compile_only`."""
+        of the inputs and the state's leaves at their whole shapes, the
+        decode tag), and `_run` of `build(tp)` with the new carries written
+        into `state`, on every rank under a model axis. Returns `read` of
+        the outputs, or None with `compile_only`."""
         args = self._decode_inputs(conf, params, state, tok, *rest)
-        key = (entry, self._fingerprint(conf),
-               arg_signature(*args, *tree_leaves(state)), self.SINGLE)
-        return self._run(key, build, (params, state), args, read=read,
-                         write=_write_carries, compile_only=compile_only)
+        tp = self._tp(conf)
+        # the keys travel as int64 holding uint32 values (the only int64
+        # input): the key names JAX's dtype
+        sig = tuple((s[0], "uint32") if s is not None and s[1] == "int64"
+                    else s for s in arg_signature(*args))
+        key = ((entry, self._fingerprint(conf),
+                sig + arg_signature(*_whole_leaves(state, tp)))
+               + self.plan.decode_key_suffix())
+        with self._model_axis(key):
+            return self._run(key, lambda: build(tp),
+                             (self._local_params(conf, params), state),
+                             args, read=read, write=_write_carries,
+                             compile_only=compile_only)
 
+    @_mesh_entry
     def decode(self, conf, params, state, tok, pos, keys, temps,
                compile_only: bool = False):
         """One KV-cache decode step over the whole slot table: tok, pos [B]
@@ -276,11 +798,12 @@ class InferCache(CompiledProgramCache):
         int64, state), the state written in place. On CUDA the replay of one
         captured graph per key; on the CPU the program, eagerly."""
         out = self._generation(
-            "decode", lambda: _decode_program(conf), conf, params, state,
-            _read_tokens, compile_only, tok, (pos, torch.int32),
+            "decode", lambda tp: _decode_program(conf, tp=tp), conf, params,
+            state, _read_tokens, compile_only, tok, (pos, torch.int32),
             (keys, torch.int64), (temps, torch.float32))
         return None if compile_only else (*out, state)
 
+    @_mesh_entry
     def prefill(self, conf, params, state, prompt, length, keys, temps,
                 compile_only: bool = False):
         """The prompt prefill: prompt [B, T_bucket] int (zero-padded),
@@ -289,22 +812,24 @@ class InferCache(CompiledProgramCache):
         program per (conf, rows, prompt bucket, max_seq): the state's leaves
         are in the key."""
         out = self._generation(
-            "prefill", lambda: _prefill_program(conf), conf, params, state,
-            _read_tokens, compile_only, prompt, (length, torch.int32),
+            "prefill", lambda tp: _prefill_program(conf, tp), conf, params,
+            state, _read_tokens, compile_only, prompt, (length, torch.int32),
             (keys, torch.int64), (temps, torch.float32))
         return None if compile_only else (*out, state)
 
+    @_mesh_entry
     def decode_paged(self, conf, params, state, tok, pos, keys, temps,
                      page_table, compile_only: bool = False):
         """`decode` over a paged state: page_table [B, pages_per_slot] int
         routes each row through the shared pool ("decode-paged")."""
         out = self._generation(
-            "decode-paged", lambda: _decode_program(conf, paged=True), conf,
+            "decode-paged", lambda tp: _decode_program(conf, True, tp), conf,
             params, state, _read_tokens, compile_only, tok,
             (pos, torch.int32), (keys, torch.int64), (temps, torch.float32),
             (page_table, torch.int32))
         return None if compile_only else (*out, state)
 
+    @_mesh_entry
     def decode_multi(self, conf, params, state, tok, pos, keys, temps, rem,
                      k: int, compile_only: bool = False):
         """K decode steps in one program (`nn/decode.decode_block`), the
@@ -315,11 +840,13 @@ class InferCache(CompiledProgramCache):
         in the entry name ("decode-multi[k]"), as in the JAX package."""
         out = self._generation(
             "decode-multi[%d]" % int(k),
-            lambda: _decode_block_program(conf, int(k), False), conf, params,
+            lambda tp: _decode_block_program(conf, int(k), False, tp), conf,
+            params,
             state, _read_block, compile_only, tok, (pos, torch.int32),
             (keys, torch.int64), (temps, torch.float32), (rem, torch.int32))
         return None if compile_only else (*out, state)
 
+    @_mesh_entry
     def decode_multi_paged(self, conf, params, state, tok, pos, keys, temps,
                            rem, page_table, k: int,
                            compile_only: bool = False):
@@ -328,12 +855,14 @@ class InferCache(CompiledProgramCache):
         of all `k` positions first."""
         out = self._generation(
             "decode-multi-paged[%d]" % int(k),
-            lambda: _decode_block_program(conf, int(k), True), conf, params,
+            lambda tp: _decode_block_program(conf, int(k), True, tp), conf,
+            params,
             state, _read_block, compile_only, tok, (pos, torch.int32),
             (keys, torch.int64), (temps, torch.float32), (rem, torch.int32),
             (page_table, torch.int32))
         return None if compile_only else (*out, state)
 
+    @_mesh_entry
     def prefill_logp(self, conf, params, state, prompt, length,
                      compile_only: bool = False):
         """The prefill of the prefix cache: fills the state like `prefill`
@@ -341,11 +870,13 @@ class InferCache(CompiledProgramCache):
         ("prefill-logp"); the batcher keeps the pair by prompt digest and
         samples each stream's first token on the host with its own key."""
         logp = self._generation(
-            "prefill-logp", lambda: _prefill_logp_program(conf), conf, params,
+            "prefill-logp", lambda tp: _prefill_logp_program(conf, tp), conf,
+            params,
             state, lambda out: out[0].clone(), compile_only, prompt,
             (length, torch.int32))
         return None if compile_only else (logp, state)
 
+    @_mesh_entry
     def verify(self, conf, params, state, toks, pos, keys, temps,
                compile_only: bool = False):
         """Speculative verification over the whole slot table: toks [B, K]
@@ -362,67 +893,95 @@ class InferCache(CompiledProgramCache):
         copies, and a CUDA `toks` (a draft's own proposals) is not checked
         on the host."""
         out = self._generation(
-            "verify", lambda: _verify_program(conf, False), conf, params,
+            "verify", lambda tp: _verify_program(conf, False, tp), conf,
+            params,
             state, _read_tokens, compile_only, toks, (pos, torch.int32),
             (keys, torch.int64), (temps, torch.float32))
         return None if compile_only else (*out, state)
 
+    @_mesh_entry
     def verify_paged(self, conf, params, state, toks, pos, keys, temps,
                      page_table, compile_only: bool = False):
         """`verify` over a paged state ("verify-paged"): the caller has
         allocated the pages of all K positions."""
         out = self._generation(
-            "verify-paged", lambda: _verify_program(conf, True), conf, params,
+            "verify-paged", lambda tp: _verify_program(conf, True, tp), conf,
+            params,
             state, _read_tokens, compile_only, toks, (pos, torch.int32),
             (keys, torch.int64), (temps, torch.float32),
             (page_table, torch.int32))
         return None if compile_only else (*out, state)
 
+    @_mesh_entry
     def loss(self, conf, params, x, y, compile_only: bool = False):
         """`network_loss(training=False)` through the cache: the row-weighted
         mean loss over the real rows plus regularization, a 0-d float32
         tensor. Pad rows carry weight 0."""
         check_input(conf, x)
         n = int(x.shape[0])
-        bucket = self.bucket_rows(n)
+        bucket = self._bucket_of(n)
         xp, yp, w = self.pad_batch(x, y, bucket)
-        key = ("loss", self._fingerprint(conf), arg_signature(xp, yp, w),
-               self.SINGLE)
-        return self._run(key, lambda: _loss_program(conf), params,
-                         (xp, yp, w), read=lambda s: s.clone(),
-                         compile_only=compile_only)
+        key = (("loss", self._fingerprint(conf), arg_signature(xp, yp, w))
+               + self.plan.key_suffix())
+        # each rank's program gives its rows' losses; the weighted mean of
+        # the gathered rows is taken outside it, on every mesh alike
+        from deeplearning4j_tpu_torch.nn.multilayer import \
+            network_regularization
+
+        tp = self._tp(conf)
+        with self._on_every_rank(key, bucket):
+            rows = self._run(key, lambda: _rows_loss_program(conf, tp),
+                             self._local_params(conf, params),
+                             (self._my_rows(xp), self._my_rows(yp)),
+                             read=lambda r: r.clone(),
+                             compile_only=compile_only)
+            if compile_only:
+                return None
+            rows = self._gather(rows)
+            with torch.inference_mode():
+                return (torch.dot(rows, w) / torch.clamp(w.sum(), min=1.0)
+                        + network_regularization(conf, params))
 
 
-def _output_program(conf) -> Callable:
+def _whole_leaves(state, tp):
+    """The state's leaves at the shapes the JAX package's state has (a
+    model axis's K/V leaves hold n/M of the n columns): the signature
+    part of a generation key."""
+    if tp is None:
+        return tree_leaves(state)
+    return [_Leaf(tuple(t.shape[:-1]) + (t.shape[-1] * tp.size,), t.dtype)
+            if name in ("k", "v") else t
+            for lay in state for name, t in lay.items()]
+
+
+def _output_program(conf, tp=None) -> Callable:
     # local import: nn.multilayer imports this module at top level
     from deeplearning4j_tpu_torch.nn.multilayer import network_output
 
     def program(params, x):
         with torch.inference_mode():
-            return network_output(conf, params, x)
+            return network_output(conf, params, x, tp=tp)
 
     return program
 
 
-def _feed_forward_program(conf) -> Callable:
+def _feed_forward_program(conf, tp=None) -> Callable:
     from deeplearning4j_tpu_torch.nn.multilayer import feed_forward
 
     def program(params, x):
         with torch.inference_mode():
-            return feed_forward(conf, params, x)
+            return feed_forward(conf, params, x, tp=tp)
 
     return program
 
 
-def _loss_program(conf) -> Callable:
-    from deeplearning4j_tpu_torch.nn.multilayer import (network_regularization,
-                                                        network_rowwise_loss)
+def _rows_loss_program(conf, tp=None) -> Callable:
+    from deeplearning4j_tpu_torch.nn.multilayer import network_rowwise_loss
 
-    def program(params, x, y, w):
+    def program(params, x, y):
         with torch.inference_mode():
-            rows = network_rowwise_loss(conf, params, x, y, training=False)
-            return (torch.dot(rows, w) / torch.clamp(w.sum(), min=1.0)
-                    + network_regularization(conf, params))
+            return network_rowwise_loss(conf, params, x, y, training=False,
+                                        tp=tp)
 
     return program
 
@@ -453,7 +1012,7 @@ def _write_carries(ps, out):
     return tuple(rest)
 
 
-def _decode_program(conf, paged: bool = False) -> Callable:
+def _decode_program(conf, paged: bool = False, tp=None) -> Callable:
     from deeplearning4j_tpu_torch.nn import decode as decode_mod
 
     def program(ps, tok, pos, keys, temps, *page_table):
@@ -461,10 +1020,10 @@ def _decode_program(conf, paged: bool = False) -> Callable:
         with torch.inference_mode():
             if paged:
                 logp, new = decode_mod.decode_step_paged(
-                    conf, params, state, tok, pos, *page_table)
+                    conf, params, state, tok, pos, *page_table, tp=tp)
             else:
                 logp, new = decode_mod.decode_step(conf, params, state, tok,
-                                                   pos)
+                                                   pos, tp=tp)
             tok2, keys2 = nd_random.sample_tokens(logp.float(), keys, temps)
         return tok2, keys2, new
 
@@ -475,7 +1034,7 @@ def _sample_f32(logp, keys, temps):
     return nd_random.sample_tokens(logp.float(), keys, temps)
 
 
-def _decode_block_program(conf, k: int, paged: bool) -> Callable:
+def _decode_block_program(conf, k: int, paged: bool, tp=None) -> Callable:
     from deeplearning4j_tpu_torch.nn import decode as decode_mod
 
     def program(ps, tok, pos, keys, temps, rem, *page_table):
@@ -483,7 +1042,8 @@ def _decode_block_program(conf, k: int, paged: bool) -> Callable:
         with torch.inference_mode():
             return decode_mod.decode_block(
                 conf, params, state, tok, pos, keys, temps, rem, k,
-                _sample_f32, page_table=page_table[0] if paged else None)
+                _sample_f32, page_table=page_table[0] if paged else None,
+                tp=tp)
 
     return program
 
@@ -522,7 +1082,7 @@ def _rollback_carries(state, carries, e):
                  for lay, car in zip(state, carries))
 
 
-def _verify_program(conf, paged: bool) -> Callable:
+def _verify_program(conf, paged: bool, tp=None) -> Callable:
     from deeplearning4j_tpu_torch.nn import decode as decode_mod
 
     def program(ps, toks, pos, keys, temps, *page_table):
@@ -530,10 +1090,10 @@ def _verify_program(conf, paged: bool) -> Callable:
         with torch.inference_mode():
             if paged:
                 logp, new, carries = decode_mod.verify_chunk_paged(
-                    conf, params, state, toks, pos, *page_table)
+                    conf, params, state, toks, pos, *page_table, tp=tp)
             else:
                 logp, new, carries = decode_mod.verify_chunk(
-                    conf, params, state, toks, pos)
+                    conf, params, state, toks, pos, tp=tp)
             sampled, keys_after = _sample_chain(logp.float(), keys, temps)
             new = _rollback_carries(new, carries,
                                     _accepted_len(toks, sampled))
@@ -542,27 +1102,27 @@ def _verify_program(conf, paged: bool) -> Callable:
     return program
 
 
-def _prefill_logp_program(conf) -> Callable:
+def _prefill_logp_program(conf, tp=None) -> Callable:
     from deeplearning4j_tpu_torch.nn import decode as decode_mod
 
     def program(ps, prompt, length):
         params, state = ps
         with torch.inference_mode():
             logp, new = decode_mod.prefill(conf, params, state, prompt,
-                                           length)
+                                           length, tp=tp)
         return logp.float(), new
 
     return program
 
 
-def _prefill_program(conf) -> Callable:
+def _prefill_program(conf, tp=None) -> Callable:
     from deeplearning4j_tpu_torch.nn import decode as decode_mod
 
     def program(ps, prompt, length, keys, temps):
         params, state = ps
         with torch.inference_mode():
             logp, new = decode_mod.prefill(conf, params, state, prompt,
-                                           length)
+                                           length, tp=tp)
             tok0, keys2 = nd_random.sample_tokens(logp.float(), keys, temps)
         return tok0, keys2, new
 

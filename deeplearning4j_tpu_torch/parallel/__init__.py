@@ -12,7 +12,9 @@ Modules:
   plan            `ShardPlan`, `parse_mesh_spec`, `plan_mesh`: the
                   (batch, model) layout and its keys and per-leaf specs
   tensor          the model axis: Megatron collectives as autograd
-                  Functions, the split layout, `TensorParallel`
+                  Functions, the split layout, `TensorParallel`, and the
+                  serving side (`ServeParallel`, `shard_params`)
+  followers       rank 0's calls to the other ranks of a serving mesh
   averaging       parameter averaging / aggregation
   data_parallel   the sync, masked, grad-accum, averaging, ZeRO-1 and
                   plan (tensor-parallel) steps and `DataParallelTrainer`
@@ -23,8 +25,9 @@ Modules:
   config_registry configs parked for workers, on disk or over HTTP
   checkpoint      params, updater state and data cursor, both layouts
 
-Sharded serving (`set_serve_mesh`, `serve --mesh`) is ROADMAP.md queue A
-item 10b's serving half.
+Serving under a mesh (`MultiLayerNetwork.set_serve_mesh`, `serve
+--mesh`, `generate --mesh`) runs through `optimize/infer_cache.py` on
+`serve_mesh` or `plan_mesh`.
 """
 
 from deeplearning4j_tpu_torch.parallel.averaging import (ParameterAggregator,

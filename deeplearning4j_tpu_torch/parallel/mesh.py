@@ -1,13 +1,13 @@
 """Process groups as meshes.
 
-Counterpart of `deeplearning4j_tpu/parallel/mesh.py:1-80`. The JAX package
+Counterpart of `deeplearning4j_tpu/parallel/mesh.py:1-119`. The JAX package
 runs one process over every device and names the device axes of a
 `jax.sharding.Mesh`; the port runs one process per rank of a
 `torch.distributed` process group, and its `Mesh` records the axis names,
-their sizes, the group and this rank's device. Only the data-parallel axis
-is ported: the tensor, sequence, pipeline and expert axes come with
-ROADMAP.md queue A item 10b, and so does the serving mesh
-(`serve_mesh`).
+their sizes, the group and this rank's device. `make_mesh` defaults to the
+data-parallel ("dp",) mesh, `serve_mesh` is the serving path's 1-D
+("batch",) mesh, and the plan's 2-D ("batch", "model") mesh is
+`parallel/plan.plan_mesh`.
 
 `init_distributed` starts (or reuses) the default group: from torchrun's
 `RANK`/`WORLD_SIZE`/`MASTER_ADDR`/`MASTER_PORT` when they are set, and
@@ -216,6 +216,19 @@ def make_mesh(shape: Optional[Dict[str, int]] = None, device=None,
                              f"{shape}")
     shape = {a: shape[a] for a in axes}
     return Mesh(shape, group, dev, _axis_groups(shape, group))
+
+
+#: the serving mesh's one axis (the JAX package's `SERVE_AXIS`)
+SERVE_AXIS = "batch"
+
+
+def serve_mesh(device=None, group=None) -> Mesh:
+    """The 1-D ("batch",) mesh over every rank of `group` (the default
+    group, started by `init_distributed`): rows of a served batch split
+    over the ranks, params whole on each. Without torchrun it is a group
+    of one over a `HashStore`, as the JAX package's degrades to a mesh of
+    one device."""
+    return make_mesh({SERVE_AXIS: -1}, device=device, group=group)
 
 
 def replicated(mesh: Mesh) -> Sharding:

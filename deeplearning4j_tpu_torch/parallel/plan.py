@@ -82,10 +82,10 @@ def plan_mesh(shape: Optional[Dict[str, int]] = None, device=None,
     `batch` outermost (default 1) and the other axes after it in the
     order given, one of them possibly -1. The sizes must multiply to the
     group's size."""
-    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh, serve_mesh
 
     if not shape:
-        return make_mesh({BATCH_AXIS: -1}, device=device, group=group)
+        return serve_mesh(device=device, group=group)
     shape = dict(shape)
     shape.setdefault(BATCH_AXIS, 1)
     axes = [BATCH_AXIS] + [a for a in shape if a != BATCH_AXIS]

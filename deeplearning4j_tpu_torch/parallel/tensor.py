@@ -28,6 +28,14 @@ the global bounds of each).
 this rank's m, the split leaves, and the rows of the global batch this
 rank holds, so that dropout draws the one mask of the global batch and
 keeps its own rows.
+
+The serving side: `ServeParallel` is the model axis of the inference
+programs (`optimize/infer_cache.py`), where nothing is differentiated:
+copy-to-model is the identity and reduce-from-model a plain in-place
+all-reduce of the partial products, in the forward only.
+`shard_params` cuts a network's whole params to this rank's layout (a
+plan's `fit` leaves them whole, ROADMAP.md queue C, so serving shards them
+again, as the JAX package's serving places them).
 """
 
 from __future__ import annotations
@@ -251,3 +259,35 @@ class TensorParallel:
         offset, local, total = self.rows
         ratio = n // local
         return offset * ratio, total * ratio
+
+
+class ServeParallel(TensorParallel):
+    """The model axis of an inference program: no autograd, so the input
+    needs no copy-to-model and the partial products are all-reduced in
+    place (NCCL on the card, captured into the program's graph)."""
+
+    def copy_to_model(self, x):
+        return x
+
+    def reduce_from_model(self, x):
+        if self.size == 1:
+            return x
+        return all_reduce(x.contiguous(), self.group)
+
+
+def serve_parallel(mesh, conf, axis: str = "model") -> ServeParallel:
+    """The serving model axis of `mesh` for `conf`: its sub-group, size,
+    this rank's coordinate and the layout (`tp_layout`)."""
+    size = int(mesh.shape[axis])
+    return ServeParallel(mesh.axis_group(axis), size, mesh.coord(axis),
+                         tp_layout(conf, size))
+
+
+def shard_params(params, tp: TensorParallel):
+    """This rank's params from a whole params tree: the split leaves of
+    `tp.layout` cut to its slices (copies), every other leaf the whole
+    tensor itself (shared, not copied)."""
+    return tuple({name: shard_leaf(t, tp.layout.get((i, name)), tp.size,
+                                   tp.rank)
+                  for name, t in layer.items()}
+                 for i, layer in enumerate(params))

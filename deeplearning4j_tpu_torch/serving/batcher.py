@@ -50,6 +50,7 @@ import hashlib
 import queue
 import threading
 import time
+import weakref
 from collections import OrderedDict, deque
 from typing import Deque, Dict, List, Optional, Tuple
 
@@ -589,17 +590,6 @@ def _on_device(a: np.ndarray, device):
     return t.clone().to(device)
 
 
-def _host_copy(t):
-    """A host copy of a state tensor, pinned when it comes from the card
-    (a prefix-cache hit copies it back without blocking)."""
-    import torch
-
-    if not t.is_cuda:
-        return t.clone()
-    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    return out.copy_(t)
-
-
 class _BlockRead:
     """One block's (toks, last tok, keys) on their way to the host: one
     device concatenation and one copy into pinned memory, both enqueued
@@ -855,6 +845,7 @@ class ContinuousBatcher:
                              f"got {prefix_match!r}")
         self.prefix_match = prefix_match
         self._prefix_lru: "OrderedDict[str, tuple]" = OrderedDict()
+        self._forget = None
         self._prefix_hits = 0
         self._prefix_misses = 0
         # -- K steps a dispatch ----------------------------------------------
@@ -1081,9 +1072,9 @@ class ContinuousBatcher:
         match)."""
         if hit is not None:
             if hit[1] is None:
-                return None, None, hit[2]
+                return None, None, hit[3]
             return (*_host_sample(hit[1], stream.key, stream.temperature),
-                    hit[2])
+                    hit[3])
         ic, net = self.net.infer_cache, self.net
         n = int(stream.prompt.shape[0])
         prompt = np.zeros((1, self._prompt_bucket(n)), np.int32)
@@ -1108,31 +1099,17 @@ class ContinuousBatcher:
         _hist_add(self._ttft_hist, LATENCY_BUCKETS_S, stream.ttft_s)
 
     def _scatter_row(self, slot: int, row, pages: Optional[List[int]]):
-        """Copy a B = 1 row state (on the device, or a prefix entry's host
-        copy) into the table's row `slot`, tensor by tensor; paged, the
-        row's dense K/V go into the freshly allocated pages, a page at a
-        time only where the last page runs past the row."""
-        import torch
-
-        with torch.no_grad():
-            for lay, r in zip(self._state, row):
-                for name, tbl in lay.items():
-                    src = r[name][0]
-                    if not self.paged or name in ("h", "c"):
-                        tbl[slot].copy_(src, non_blocking=True)
-                        continue
-                    ps = self.page_size
-                    n_rows = min(len(pages) * ps, src.shape[0])
-                    full = n_rows // ps
-                    src = src.to(tbl.device, non_blocking=True)
-                    if full:
-                        idx = torch.as_tensor(pages[:full],
-                                              device=tbl.device)
-                        tbl.index_copy_(0, idx, src[:full * ps].view(
-                            full, ps, -1))
-                    if n_rows > full * ps:
-                        tbl[pages[full], :n_rows - full * ps].copy_(
-                            src[full * ps:n_rows])
+        """Copy a B = 1 row state (the admission row on the device, or a
+        prefix entry's kept row, by its handle) into the table's row
+        `slot` (`InferCache.scatter_row`, on every rank under a model
+        axis); paged, the row's dense K/V go into the freshly allocated
+        pages."""
+        ic = self.net.infer_cache
+        pages = None if not self.paged else [int(p) for p in pages]
+        if isinstance(row, str):
+            ic.scatter_row(self._state, slot, pages=pages, kept=row)
+        else:
+            ic.scatter_row(self._state, slot, row, pages=pages)
         if self.paged:
             self._page_table[slot, :] = 0
             self._page_table[slot, :len(pages)] = pages
@@ -1163,34 +1140,51 @@ class ContinuousBatcher:
     def _prefix_digest(self, prompt: np.ndarray) -> str:
         """The key of a prompt's prefill: its tokens, the conf fingerprint,
         max_seq (the row's shape) and the serving policy ("f32"), the
-        dimensions that key the prefill program itself."""
+        dimensions that key the prefill program itself; a plan with a
+        model axis folds its decode tag in (its rows are laid out by
+        rank), as the JAX package's does. One-rank and 1-D digests stay as
+        they were."""
         ic = self.net.infer_cache
         h = hashlib.sha256()
         h.update(ic._fingerprint(self.net.conf).encode())
         h.update(repr((self.max_seq, "f32")).encode())
+        tag = ic._decode_tag()
+        if tag != ic.SINGLE:
+            h.update(repr(tag).encode())
         h.update(np.ascontiguousarray(prompt, np.int32).tobytes())
         return h.hexdigest()
 
     def _prefix_store(self, prompt: np.ndarray, logp: np.ndarray,
                       row) -> None:
         """Keep a cold prefill: (the prompt, the logp at its last position,
-        a host copy of the filled row), LRU-bounded. A copy: the admission
-        row is the cache's shared state, which the next admission writes."""
-        host_row = tuple({name: _host_copy(t) for name, t in lay.items()}
-                         for lay in row)
-        entry = (np.asarray(prompt, np.int32).copy(), logp, host_row)
+        a host copy of the filled row, its handle in the infer cache),
+        LRU-bounded. The infer cache keeps the row (`keep_row`, each rank
+        its own under a model axis) and forgets it when it leaves the
+        LRU."""
         digest = self._prefix_digest(prompt)
+        handle = f"{id(self)}:{digest}"
+        ic = self.net.infer_cache
+        if self._forget is None:
+            # the rows this batcher keeps leave the infer cache with it
+            # (a follower's with rank 0's next header)
+            self._forget = weakref.finalize(self, ic.forget_rows,
+                                            f"{id(self)}:")
+        host_row = ic.keep_row(handle, row)
+        entry = (np.asarray(prompt, np.int32).copy(), logp, host_row, handle)
+        dropped = []
         with self._cv:
             self._prefix_lru[digest] = entry
             self._prefix_lru.move_to_end(digest)
             while len(self._prefix_lru) > PREFIX_CACHE_ENTRIES:
-                self._prefix_lru.popitem(last=False)
+                dropped.append(self._prefix_lru.popitem(last=False)[1][3])
+        for h in dropped:
+            ic.drop_row(h)
 
     def _prefix_lookup(self, prompt: np.ndarray):
-        """(matched tokens, logp or None, host row) for `prompt`, or None on
-        a miss; logp only on an exact match. Any failure here (the armed
-        `generate.prefix_lookup` fault) is a counted miss and a cold
-        prefill: the stream never fails here."""
+        """(matched tokens, logp or None, host row, its handle) for
+        `prompt`, or None on a miss; logp only on an exact match. Any
+        failure here (the armed `generate.prefix_lookup` fault) is a
+        counted miss and a cold prefill: the stream never fails here."""
         try:
             faults.fire("generate.prefix_lookup",
                         prompt_tokens=int(prompt.shape[0]))
@@ -1200,16 +1194,17 @@ class ContinuousBatcher:
                 if entry is not None:
                     self._prefix_lru.move_to_end(digest)
                     self._prefix_hits += 1
-                    return int(entry[0].shape[0]), entry[1], entry[2]
+                    return (int(entry[0].shape[0]), entry[1], entry[2],
+                            entry[3])
                 candidates = (list(self._prefix_lru.values())
                               if self.prefix_match == "longest" else [])
             best = None
-            for p2, _, row2 in candidates:
+            for p2, _, row2, handle in candidates:
                 m = int(p2.shape[0])
                 if (m < int(prompt.shape[0])
                         and (best is None or m > best[0])
                         and np.array_equal(p2, prompt[:m])):
-                    best = (m, None, row2)
+                    best = (m, None, row2, handle)
             if best is not None:
                 with self._cv:
                     self._prefix_hits += 1

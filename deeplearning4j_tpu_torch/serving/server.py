@@ -21,8 +21,14 @@ Counterpart of `ModelServer` in `deeplearning4j_tpu/serving/server.py`:
                      other decode slots go on.
   GET  /v1/stats     gateway counters (queue depth, batch-size histogram,
                      latency percentiles, rows/s, breaker state), the
-                     device the network runs on, the resident programs and,
-                     with a generator, its `generation` block
+                     device the network runs on, the serving plan
+                     (`ShardPlan.describe()`: axes, sizes, policy), the
+                     resident programs and, with a generator, its
+                     `generation` block
+
+Under a serving mesh (`MultiLayerNetwork.set_serve_mesh`) the server runs
+on rank 0 alone, the one HTTP front: its batchers' calls reach the other
+ranks through the infer cache, which runs there in `follow`.
   GET  /healthz      liveness: 200 while the process can answer at all
   GET  /readyz       readiness: 200 once started and not draining
 
@@ -344,6 +350,7 @@ class ModelServer:
         out["batching"] = self.batching
         out["device"] = {"type": self.net.device.type,
                          "kind": device_kind(self.net.device)}
+        out["plan"] = self.net.infer_cache.plan.describe()
         out["programs"] = self.net.infer_cache.programs_summary()
         if self.generator is not None:
             out["generation"] = self.generator.stats()

@@ -27,6 +27,7 @@ from deeplearning4j_tpu.nn import multilayer as jax_ml  # noqa: E402
 from deeplearning4j_tpu.optimize import listeners as jax_listeners  # noqa: E402,E501
 from deeplearning4j_tpu.parallel import checkpoint as jax_checkpoint  # noqa: E402,E501
 from deeplearning4j_tpu_torch.nd import ops  # noqa: E402
+from deeplearning4j_tpu_torch.nd import random as nd_random  # noqa: E402
 from deeplearning4j_tpu_torch.nn import conf as tc  # noqa: E402
 from deeplearning4j_tpu_torch.nn import layers as port_layers  # noqa: E402
 from deeplearning4j_tpu_torch.nn import multilayer as ml  # noqa: E402
@@ -203,10 +204,10 @@ class _JaxScaledTanh:
 
 class _PortScaledTanh:
     @staticmethod
-    def init(gen, conf):
-        return {"W": 0.3 * torch.randn((conf.n_in, conf.n_out),
-                                       generator=gen, device=gen.device),
-                "b": torch.full((conf.n_out,), 0.1, device=gen.device)}
+    def init(key, conf):
+        return {"W": 0.3 * nd_random.normal(key, 0.0, 1.0,
+                                            (conf.n_in, conf.n_out)),
+                "b": torch.full((conf.n_out,), 0.1, device=key.device)}
 
     @staticmethod
     def forward(params, conf, x, key=None, training=False):

@@ -312,20 +312,92 @@ def test_a_model_axis_exits_naming_item_10b(tmp_path, capsys):
         main(argv[:-1] + ["batch=1,model=2", "--device", "cpu"])
 
 
+def _two_ranks(argv):
+    """The port's CLI on two gloo ranks (torchrun's environment: RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+               PYTHONPATH=root)
+    env.pop("XLA_FLAGS", None)
+    return [subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.cli"] + argv,
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+
+
+def _ended(procs, timeout=120):
+    outs = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=timeout)
+        except Exception:  # noqa: BLE001 — a hung rank: end them all
+            for q in procs:
+                q.kill()
+            out, err = p.communicate()
+        outs.append((p.returncode, out, err))
+    assert all(rc == 0 for rc, _, _ in outs), outs
+    return outs
+
+
 @pytest.mark.parametrize("command", ["serve", "generate"])
-def test_serve_and_generate_mesh_exit_naming_item_10b(tmp_path, capsys,
-                                                      command):
-    """Sharded serving is item 10b's serving half: `serve --mesh` and
-    `generate --mesh` exit naming it."""
-    ckpt = str(tmp_path / "ck")
-    _run(main, ["train", "--input", _corpus(tmp_path), "--zoo",
-                "char_lstm:hidden=8", "--output", ckpt, "--device", "cpu"],
-         capsys)
-    argv = ([command, "--model", ckpt, "--mesh", "batch=1,model=2",
-             "--device", "cpu"]
-            + (["--prompt", "1,2"] if command == "generate" else []))
-    with pytest.raises(SystemExit, match="ROADMAP.md queue A item 10b"):
-        main(argv)
+def test_serve_and_generate_mesh_answer_as_one_rank(tmp_path, capsys,
+                                                    monkeypatch, command):
+    """`serve --mesh` and `generate --mesh` at batch=1,model=2 over two
+    gloo ranks: the
+    charTransformer's heads split over the ranks, rank 0 answers POST
+    /v1/predict as the one-rank server does (rtol 1e-5, atol 1e-6: the
+    split sums in another order) and generates the one-rank tokens, and
+    rank 1 prints nothing and exits when rank 0 ends."""
+    import signal
+
+    from deeplearning4j_tpu_torch.serving.server import ModelServer
+
+    jconf = jax_conf.MultiLayerConfiguration.from_json(_zoo_json(
+        "char_transformer:d_model=16,blocks=1,heads=2,seq_len=16"))
+    ckpt = str(tmp_path / "ckpt")
+    jax_checkpoint.save(ckpt, jax_ml.init_params(jconf,
+                                                 jax.random.PRNGKey(0)),
+                        conf=jconf)
+    mesh = ["--mesh", "batch=1,model=2", "--device", "cpu"]
+    if command == "generate":
+        argv = ["generate", "--model", ckpt, "--prompt", "1,2,3",
+                "--max-new-tokens", "8", "--max-seq", "16"]
+        assert main(argv + ["--device", "cpu"]) == 0
+        want = _last_json(capsys.readouterr().out)["tokens"]
+        outs = _ended(_two_ranks(argv + mesh))
+        assert _last_json(outs[0][1])["tokens"] == want and len(want) == 8
+        assert outs[1][1] == ""
+        return
+    x = np.random.RandomState(0).randint(0, 5, (3, 8))
+    body = {"features": x.tolist(), "dtype": "int32"}
+    argv = ["serve", "--model", ckpt, "--port", "0", "--shapes", "2x8"]
+    seen = {}
+    monkeypatch.setattr(ModelServer, "wait_for_stop", lambda self: seen.update(
+        answer=_post_json(self.url + "/v1/predict", body)))
+    assert main(argv + ["--device", "cpu"]) == 0
+    procs = _two_ranks(argv + mesh)
+    startup = json.loads(procs[0].stdout.readline())
+    assert startup["plan"] == {"axes": ["batch", "model"],
+                               "shape": {"batch": 1, "model": 2},
+                               "policy": "f32"}
+    got = _post_json(startup["url"] + "/v1/predict", body)
+    procs[0].send_signal(signal.SIGTERM)
+    outs = _ended(procs)
+    assert json.loads(outs[0][1].splitlines()[-1])["drained"]
+    assert outs[1][1] == ""
+    np.testing.assert_allclose(np.asarray(got["output"]),
+                               np.asarray(seen["answer"]["output"]),
+                               rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("zoo_name", ["lenet5", "mlp", "vgg_cifar10", "dbn",

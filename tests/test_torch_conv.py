@@ -31,6 +31,7 @@ from deeplearning4j_tpu_torch.cli.driver import main  # noqa: E402
 from deeplearning4j_tpu_torch.datasets import mnist as port_mnist  # noqa: E402,E501
 from deeplearning4j_tpu_torch.datasets.cifar import synthetic_cifar10  # noqa: E402,E501
 from deeplearning4j_tpu_torch.models import zoo  # noqa: E402
+from deeplearning4j_tpu_torch.nd import random as nd_random  # noqa: E402
 from deeplearning4j_tpu_torch.nn import multilayer as ml  # noqa: E402
 from deeplearning4j_tpu_torch.nn.conf import (  # noqa: E402
     LayerType, MultiLayerConfiguration, NeuralNetConfiguration, PoolingType)
@@ -177,8 +178,7 @@ def test_convolution_layer_init_and_forward():
         layer_type=jax_conf.LayerType.CONVOLUTION, n_channels=3, n_out=4,
         kernel_size=(3, 3), padding=(1, 1), activation="relu")
     tc = NeuralNetConfiguration.from_json(jc.to_json())
-    gen = torch.Generator().manual_seed(0)
-    p = conv.ConvolutionLayer.init(gen, tc)
+    p = conv.ConvolutionLayer.init(nd_random.prng_key(0), tc)
     assert p["W"].shape == (4, 3, 3, 3) and p["b"].shape == (4,)
     r = np.sqrt(6.0 / (3 * 9 + 4 * 9))
     assert float(p["W"].abs().max()) <= r and float(p["b"].abs().max()) == 0
@@ -259,7 +259,7 @@ def test_batchnorm_moments_and_init_match_jax(ndim):
     jc = jax_conf.NeuralNetConfiguration(
         layer_type=jax_conf.LayerType.BATCH_NORM, n_in=5, n_out=5)
     want = jax_base.BatchNormLayer.init(jax.random.PRNGKey(0), jc)
-    got = BatchNormLayer.init(torch.Generator(),
+    got = BatchNormLayer.init(nd_random.prng_key(0),
                               NeuralNetConfiguration.from_json(jc.to_json()))
     assert sorted(got) == sorted(want)
     for k in want:

@@ -38,6 +38,7 @@ from deeplearning4j_tpu_torch.evaluation import Evaluation  # noqa: E402
 from deeplearning4j_tpu_torch.models import zoo  # noqa: E402
 from deeplearning4j_tpu_torch.models.char_lstm import CharLSTM  # noqa: E402
 from deeplearning4j_tpu_torch.nd import kernels  # noqa: E402
+from deeplearning4j_tpu_torch.nd import random as nd_random  # noqa: E402
 from deeplearning4j_tpu_torch.nn import multilayer as ml  # noqa: E402
 from deeplearning4j_tpu_torch.nn.conf import (  # noqa: E402
     LayerType, MultiLayerConfiguration)
@@ -279,8 +280,7 @@ def test_lstm_init_matches_jax_shapes_and_forget_bias():
     for lt in ("lstm", "graves_lstm"):
         jc, tc = _layer_confs(lt, "auto")
         jp = jax_get_layer(jc.layer_type).init(jax.random.PRNGKey(0), jc)
-        tp = get_layer(tc.layer_type).init(torch.Generator().manual_seed(0),
-                                           tc)
+        tp = get_layer(tc.layer_type).init(nd_random.prng_key(0), tc)
         assert {k: v.shape for k, v in jp.items()} == \
             {k: tuple(v.shape) for k, v in tp.items()}
         for k in tp:
