@@ -259,6 +259,29 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    greedy streams' first divergence within 2e-2 max|logp|
    (teacher-forced), the CPU test's small f32 net's greedy tokens
    identical, and the per-rank K/V bytes 1/M of one card's.
+20. `serve_precision` (SP_*; `--only-serve-precision` runs it alone, with
+   no last line, and the full run runs it so, in a child process): the
+   flagship from seed 0 with f32 compute served under f32, bf16 and int8
+   (`set_serve_precision`, the default calibration), then f32 again:
+   8 flash launches a forward, the 3xTF32 body under f32 and the TMA bf16
+   body under bf16 and int8 (profiled), every int8 q and scale bitwise
+   numpy's quantization of the card's params, the flip back bitwise and
+   uncaptured, all three policies in `programs_summary`; per policy the
+   replay's ms, the pool and param bytes and the accuracy delta against
+   the charTransformer's budgets (reported); generation under bf16 and
+   int8 (SM's 4-slot batcher, 4 prompts of 40-250 ids, 32 greedy tokens:
+   nothing captured while serving, 8 flash launches an admission,
+   tokens/s, the decode step's device ms); the store: the cold int8
+   calibration timed, a second process (`--sp-child`) loading the
+   artifact (no calibration, its output bitwise) and serving a prefix
+   entry this process wrote (a disk hit, the same tokens), a corrupted
+   artifact evicted and calibrated again; the CLI's `warmup --precision
+   int8 --compile-cache D` then `serve --precision int8 --compile-cache D`
+   (a subprocess) and 4 POST /v1/predict (its weights from the artifact,
+   `/v1/stats` int8, nothing captured under traffic); the bench's
+   char-LSTM with f32 compute under bf16 and int8 (`lstm_cell_bf16_kernel`
+   4 x 64 launches a forward, within SP_LSTM_TOL of the same policy's
+   scan); `error_budget_report(small=False)` within every budget.
 
 Each phase prints one JSON line; then a line with every kernel's numbers,
 the card's line, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -3272,7 +3295,7 @@ def phase_lstm_cli(torch, kernels):
           and ck_train["cache_hits"] == n_batches - ck_train["cache_misses"],
           f"checkpointed train line {ck_train}, cursor {ck_cursor}")
     check(pred["n"] == n_win * CLI_SEQ, f"predict line {pred}")
-    check(set(test) == {"accuracy", "f1"}
+    check(set(test) == {"accuracy", "f1", "disk_cache"}
           and 0.0 <= test["accuracy"] <= 1.0, f"test line {test}")
     check(min(l_train, l_ck, l_pred, l_test) > 0,
           f"a command never launched the cell kernel: {row['launches']}")
@@ -3966,17 +3989,17 @@ def serve_traffic(url, xs, prios):
     return answers, latencies
 
 
-def cli_serve(torch, ckpt, xs, prios, shapes):
-    """`python -m deeplearning4j_tpu_torch.cli serve --shapes ...` as a
-    subprocess on the checkpoint: its startup line, its stats after the
-    requests, and its drained line."""
+def cli_serve(torch, ckpt, xs, prios, shapes, extra=()):
+    """`python -m deeplearning4j_tpu_torch.cli serve --shapes ...` (and
+    `extra` flags) as a subprocess on the checkpoint: its startup line, its
+    stats after the requests, and its drained line."""
     import signal
 
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "serve",
            "--model", ckpt, "--port", "0", "--shapes", shapes,
            "--max-delay-ms", "100", "--max-batch-rows", "8",
-           "--default-deadline-ms", "60000"]
+           "--default-deadline-ms", "60000", *extra]
     env = dict(os.environ, PYTHONPATH=root)
     t = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env,
@@ -7363,6 +7386,487 @@ def sm_ranks(torch, kernels) -> int:
     return 0
 
 
+# -- serving precision --------------------------------------------------------
+
+#: the flagship from seed 0 with f32 compute, served under each policy on
+#: `rows` x SLICE seq ids; its generation is the serve_mesh phase's (SM's
+#: slots, max_seq, prompt buckets and prompts), greedy
+SP = dict(rows=4, seed=0)
+SP_POLICIES = ("f32", "bf16", "int8")
+#: the flash forward's body by policy: the 3xTF32 one on the f32 conf's
+#: float32 operands, the TMA bf16 one where the policy computes in bf16
+SP_FLASH_BODY = {"f32": "flash_fwd_3xtf32_kernel",
+                 "bf16": "flash_fwd_tma_kernel",
+                 "int8": "flash_fwd_tma_kernel"}
+#: the char-LSTM under a policy (the cell kernel) against the same policy's
+#: hoisted scan: max|o - o_scan| over max|o_scan|
+SP_LSTM_TOL = 2e-2
+#: where the phase runs ("cpu" rehearses it at tiny sizes)
+SP_DEVICE = "cuda"
+
+
+def sp_device_flags():
+    """The CLI's --device flag where the phase is rehearsed off the card."""
+    return [] if SP_DEVICE == "cuda" else ["--device", SP_DEVICE]
+
+
+def sp_numpy_quantize(w, clip):
+    """The JAX package's `_quantize_leaf` in numpy (its own arithmetic:
+    abs-max per output channel, float32 scale, `np.rint`, +-127)."""
+    axis = 0 if w.ndim == 4 else w.ndim - 1
+    red = tuple(a for a in range(w.ndim) if a != axis)
+    amax = np.max(np.abs(w), axis=red, keepdims=True)
+    scale = np.where(amax > 0.0, amax * clip / 127.0, 1.0).astype(np.float32)
+    return np.clip(np.rint(w / scale), -127, 127).astype(np.int8), scale
+
+
+def sp_quantized_bitwise(torch, net) -> dict:
+    """Every int8 leaf the infer cache serves against `sp_numpy_quantize`
+    of the card's param at the calibrated clip."""
+    clip = net.serve_precision_report["calibration"]["clip"]
+    leaves, q_off, scale_off = 0, 0, 0
+    for layer, qlayer in zip(net.params, net.infer_cache._qparams):
+        for name, leaf in qlayer.items():
+            if not isinstance(leaf, dict):
+                continue
+            q, scale = sp_numpy_quantize(
+                layer[name].detach().float().cpu().numpy(), clip)
+            leaves += 1
+            q_off += int((leaf["q"].cpu().numpy() != q).sum())
+            scale_off += int((leaf["scale"].cpu().numpy() != scale).sum())
+    return {"clip": clip, "leaves": leaves, "q_differing": q_off,
+            "scale_differing": scale_off,
+            "bitwise": q_off == 0 and scale_off == 0}
+
+
+def sp_bytes(tree) -> int:
+    from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def sp_within(delta) -> bool:
+    from deeplearning4j_tpu_torch.models.zoo import PRECISION_ERROR_BUDGETS
+
+    budget = PRECISION_ERROR_BUDGETS["char_transformer"][delta["policy"]]
+    return all(delta[k] <= v for k, v in budget.items())
+
+
+def sp_held_out_delta(net, policy) -> dict:
+    """`accuracy_delta` of the served policy on `default_calibration(seed=
+    1)`, held out from the int8 calibration batch (seed 0, which
+    `set_serve_precision`'s own report measures on, as the JAX package's
+    does)."""
+    from deeplearning4j_tpu_torch.optimize import quantize
+
+    x = net._input(quantize.default_calibration(net.conf, seed=1))
+    return quantize.accuracy_delta(
+        net.conf, net.params, x, policy,
+        qparams=net.infer_cache._qparams if policy == "int8" else None)
+
+
+def sp_flagship(torch, kernels, net, x, card) -> dict:
+    """`output` under f32, bf16 and int8, then f32 again: the flash
+    launches and body of each forward, the int8 leaves bitwise numpy's, the
+    flip back bitwise and uncaptured, every policy in `programs_summary`;
+    per policy the replay's ms, its device ms, the pool bytes its capture
+    added, the resident param bytes and the accuracy delta on a held-out
+    batch."""
+    ic = net.infer_cache
+    nb = SLICE["n_blocks"]
+    rows, outs = {}, {}
+    for policy in SP_POLICIES:
+        pool0 = ic.pool.reserved_bytes
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        report = net.set_serve_precision(policy)
+        torch.cuda.synchronize()
+        set_s = time.perf_counter() - t
+        kernels.reset_launches()
+        out = net.output(x)
+        torch.cuda.synchronize()
+        flash = kernels.LAUNCHES["flash_attn_fwd"]
+        outs[policy] = out
+        prof = profiled(torch, kernels, lambda: net.output(x),
+                        f"serve_precision_output_{policy}")
+        bodies = sorted({k["name"] for k in prof["port_kernels"]})
+        row = {"policy": policy, "set_s": set_s, "report": report,
+               "flash_launches": flash, "flash_bodies": bodies,
+               "output_ms": sm_output_ms(torch, net, x),
+               "output_device_ms": prof["device_ms"],
+               "pool_bytes": ic.pool.reserved_bytes - pool0,
+               "param_bytes": sp_bytes(ic._serve_params(net.params)),
+               "finite": bool(torch.isfinite(out).all()),
+               "shape": list(out.shape)}
+        if policy != "f32":
+            row["accuracy_delta_held_out"] = sp_held_out_delta(net, policy)
+            row["within_budget"] = sp_within(row["accuracy_delta_held_out"])
+        if policy == "int8":
+            row["quantized"] = sp_quantized_bitwise(torch, net)
+            check(row["quantized"]["bitwise"], "serve_precision: the int8 "
+                  "leaves are not numpy's quantization of the params")
+        emit({"phase": "serve_precision_output", "gpu": card, **row})
+        check(row["finite"] and row["shape"] == [SP["rows"] * SLICE["seq"],
+                                                 SLICE["vocab"]],
+              f"serve_precision {policy}: output {row['shape']} not finite "
+              f"or misshapen")
+        check(flash == nb, f"serve_precision {policy}: {flash} flash "
+              f"launches a forward, want {nb}")
+        check(any(SP_FLASH_BODY[policy] in b for b in bodies),
+              f"serve_precision {policy}: the flash body was {bodies}, "
+              f"want {SP_FLASH_BODY[policy]}")
+        rows[policy] = row
+    misses = ic.stats.misses
+    net.set_serve_precision("f32")
+    kernels.reset_launches()
+    back = net.output(x)
+    torch.cuda.synchronize()
+    flip = {"bitwise": bool(torch.equal(back, outs["f32"])),
+            "captured": ic.stats.misses - misses,
+            "flash_launches": kernels.LAUNCHES["flash_attn_fwd"],
+            "policies": sorted({r["policy"] for r in ic.programs_summary()})}
+    emit({"phase": "serve_precision_flip_back", "gpu": card, **flip})
+    check(flip["bitwise"] and flip["captured"] == 0,
+          f"serve_precision: the flip back to f32 {flip}")
+    check(flip["policies"] == sorted(SP_POLICIES),
+          f"serve_precision: programs_summary lists {flip['policies']}")
+    launches = sum(r["flash_launches"] for r in rows.values()) \
+        + flip["flash_launches"]
+    return {"rows": rows, "flip": flip, "flash_launches": launches,
+            "int8_out": outs["int8"]}
+
+
+def sp_generation(torch, kernels, net, card) -> dict:
+    """`warmup_generate`, then SM's 4-slot batcher over its 4 prompts, 32
+    greedy tokens each, under bf16 and int8 (its weights a disk hit):
+    nothing captured while serving, one flash launch a block an admission;
+    tokens/s and one captured decode step's device ms (profiled)."""
+    ic = net.infer_cache
+    nb = SLICE["n_blocks"]
+    prompts, _ = sm_requests()
+    temps = [0.0] * len(prompts)
+    rows = {}
+    for policy in ("bf16", "int8"):
+        rep = net.set_serve_precision(policy, measure=False)
+        pool0 = ic.pool.reserved_bytes
+        toks, r = sm_pass(torch, kernels, net, prompts, temps)
+        slots = SM["slots"]
+        table = ic.decode_state(net.conf, slots, SM["max_seq"], net.device,
+                                "table")
+        zeros = torch.zeros((slots,), dtype=torch.int32, device=net.device)
+        keys = torch.zeros((slots, 2), dtype=torch.int64, device=net.device)
+        temps_t = torch.zeros((slots,), device=net.device)
+        prof = profiled(torch, kernels, lambda: ic.decode(
+            net.conf, net.params, table, zeros, zeros, keys, temps_t),
+            f"serve_precision_decode_{policy}")
+        r.update(policy=policy, artifact=rep.get("artifact"),
+                 decode_device_ms=prof["device_ms"],
+                 decode_wall_ms=prof["wall_ms"],
+                 pool_bytes=ic.pool.reserved_bytes - pool0,
+                 stream_lengths=[len(t) for t in toks])
+        emit({"phase": "serve_precision_generate", "gpu": card, **r})
+        flash = r["launches"]["flash_attn_fwd"]
+        check(flash == nb * len(prompts), f"serve_precision generate "
+              f"{policy}: {flash} flash launches, want {nb * len(prompts)}")
+        check(r["captured_while_serving"] == 0, f"serve_precision generate "
+              f"{policy}: captured while serving")
+        check(all(n == SM["new"] for n in r["stream_lengths"]),
+              f"serve_precision generate {policy}: streams "
+              f"{r['stream_lengths']}")
+        rows[policy] = r
+    return {"rows": rows, "flash_launches": sum(
+        r["launches"]["flash_attn_fwd"] for r in rows.values())}
+
+
+def sp_lstm(torch, kernels, card) -> dict:
+    """The bench's 4-layer char-LSTM with f32 compute under bf16 and int8:
+    the cell kernel's launches (T a layer a forward) and its body (bf16),
+    and the output against the same policy's hoisted scan on the card
+    (the scan net serves the kernel net's int8 weights)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    lnet = MultiLayerNetwork(lstm_conf("auto", None), device=SP_DEVICE,
+                             seed=0).init()
+    snet = MultiLayerNetwork(lstm_conf("scan", None), device=SP_DEVICE)
+    snet.params = tuple({k: v.clone() for k, v in lay.items()}
+                        for lay in lnet.params)
+    x = torch.as_tensor(lstm_batch()[0], device=SP_DEVICE)
+    want = LSTM["n_layers"] * LSTM["seq"]
+    rows = {}
+    for policy in ("bf16", "int8"):
+        lnet.set_serve_precision(policy, measure=False)
+        if policy == "int8":
+            snet.infer_cache.set_policy("int8", lnet.infer_cache._qparams)
+        else:
+            snet.set_serve_precision(policy, measure=False)
+        kernels.reset_launches()
+        out = lnet.output(x)
+        torch.cuda.synchronize()
+        n = kernels.LAUNCHES["lstm_cell"]
+        prof = profiled(torch, kernels, lambda: lnet.output(x),
+                        f"serve_precision_lstm_{policy}", "lstm_cell")
+        ref = snet.output(x)
+        gap = float((out - ref).abs().max() / ref.abs().max())
+        row = {"policy": policy, "launches": n,
+               "bodies": sorted({k["name"] for k in prof["port_kernels"]}),
+               "gap_to_scan": gap, "output_device_ms": prof["device_ms"],
+               "output_ms": sm_output_ms(torch, lnet, x)}
+        emit({"phase": "serve_precision_lstm", "gpu": card, **row})
+        check(n == want, f"serve_precision lstm {policy}: {n} cell "
+              f"launches a forward, want {want}")
+        check(any("lstm_cell_bf16_kernel" in b for b in row["bodies"]),
+              f"serve_precision lstm {policy}: bodies {row['bodies']}")
+        check(gap <= SP_LSTM_TOL, f"serve_precision lstm {policy}: gap "
+              f"{gap} to the scan")
+        rows[policy] = row
+    del lnet, snet
+    dp_free(torch)
+    return {"rows": rows, "launches": sum(r["launches"]
+                                          for r in rows.values())}
+
+
+def sp_budgets(torch, card) -> dict:
+    """`error_budget_report(small=False)` on the card: the JAX package's
+    full-size eval confs."""
+    from deeplearning4j_tpu_torch.optimize import quantize
+
+    t = time.perf_counter()
+    report = quantize.error_budget_report(small=False, device=SP_DEVICE)
+    row = {model: {p: {k: d[k] for k in ("top1_delta", "rel_mse",
+                                          "within_budget", "budget")}
+                   for p, d in entry.items()}
+           for model, entry in report.items()}
+    emit({"phase": "serve_precision_budgets", "gpu": card, "report": row,
+          "seconds": time.perf_counter() - t})
+    bad = [(m, p) for m, e in row.items() for p, d in e.items()
+           if not d["within_budget"]]
+    check(not bad, f"serve_precision: error budgets exceeded: {bad}")
+    return row
+
+
+def sp_child_run(workdir) -> int:
+    """The store's second process (`--sp-child DIR`): the flagship from
+    seed 0 on DIR/store, int8 from the stored artifact, its output saved
+    for the parent, and the parent's prefix prompt through a batcher with
+    the prefix cache (a disk hit). Prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch.nd import kernels
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build()
+    net = MultiLayerNetwork(gen_conf(SLICE["n_blocks"], None),
+                            device=SP_DEVICE, seed=SP["seed"]).init()
+    store = net.set_compile_cache(os.path.join(workdir, "store"))
+    rep = net.set_serve_precision("int8", measure=False)
+    x = torch.as_tensor(np.load(os.path.join(workdir, "x.npy")),
+                        device=SP_DEVICE)
+    np.save(os.path.join(workdir, "child_int8.npy"),
+            net.output(x).cpu().numpy())
+    with open(os.path.join(workdir, "prefix.json")) as f:
+        prompt = json.load(f)
+    toks, stats, _ = batcher_streams(
+        torch, net, [prompt], [0.0], SM["new"], SM["slots"], SM["max_seq"],
+        SM["buckets"], prefix_cache=True)
+    emit({"artifact": rep["artifact"], "calibration": rep["calibration"],
+          "tokens": toks[0], "prefix_cache": stats["prefix_cache"],
+          "store": store.stats()})
+    return 0
+
+
+def sp_child(workdir) -> dict:
+    """`chip_smoke.py --sp-child DIR` in a process of its own; its line."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--sp-child", workdir], capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"serve_precision child failed: "
+          f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def sp_store(torch, kernels, net, x, int8_out, card, workdir) -> dict:
+    """The store on the flagship: the int8 artifact in a second process (a
+    disk hit, no calibration, output bitwise this process's), the prefix
+    disk store (the child serves this process's prompt from disk with its
+    tokens), a corrupted artifact evicted and calibrated again."""
+    store = net.infer_cache.persist
+    prompts, _ = sm_requests()
+    net.set_serve_precision("int8", measure=False)
+    toks, stats, _ = batcher_streams(
+        torch, net, prompts[:1], [0.0], SM["new"], SM["slots"],
+        SM["max_seq"], SM["buckets"], prefix_cache=True)
+    np.save(os.path.join(workdir, "x.npy"), x.cpu().numpy())
+    with open(os.path.join(workdir, "prefix.json"), "w") as f:
+        json.dump(prompts[0], f)
+    t = time.perf_counter()
+    child = sp_child(workdir)
+    child_s = time.perf_counter() - t
+    child_out = np.load(os.path.join(workdir, "child_int8.npy"))
+    row = {"child_s": child_s, "child_artifact": child["artifact"],
+           "child_output_bitwise": bool(np.array_equal(
+               child_out, int8_out.cpu().numpy())),
+           "prefix_writer": stats["prefix_cache"],
+           "prefix_reader": child["prefix_cache"],
+           "prefix_tokens_identical": child["tokens"] == toks[0],
+           "store": store.stats()}
+    # a corrupted artifact: evicted, calibrated again
+    entries = len(store)
+    evicted = store.corrupt_evicted
+    from deeplearning4j_tpu_torch.optimize import quantize
+
+    art = store.path_for(quantize.quantize_artifact_key(
+        net.infer_cache._fingerprint(net.conf),
+        quantize.params_digest(net.params)))
+    with open(art, "r+b") as f:
+        f.seek(-16, os.SEEK_END)
+        f.write(b"\xff" * 16)
+    rep = net.set_serve_precision("int8", measure=False)
+    row["corrupt"] = {"entries": entries, "artifact": rep["artifact"],
+                      "corrupt_evicted": store.corrupt_evicted - evicted}
+    emit({"phase": "serve_precision_store", "gpu": card, **row})
+    check(child["artifact"]["source"] == "disk",
+          f"serve_precision: the child calibrated: {child['artifact']}")
+    check(row["child_output_bitwise"], "serve_precision: the child's int8 "
+          "output differs")
+    check(child["prefix_cache"]["disk_hits"] == 1
+          and row["prefix_tokens_identical"],
+          f"serve_precision: the prefix disk entry {row['prefix_reader']}")
+    check(rep["artifact"]["source"] == "calibrated"
+          and row["corrupt"]["corrupt_evicted"] == 1,
+          f"serve_precision: the corrupt artifact {row['corrupt']}")
+    return row
+
+
+def sp_cli(torch, net, card, workdir) -> dict:
+    """`warmup --precision int8 --compile-cache D --shapes 4x512` in
+    process, then `serve --precision int8 --compile-cache D --shapes 4x512`
+    as a subprocess and 4 POST /v1/predict of one row each: its int8
+    weights come from the artifact, `/v1/stats` shows int8, and no request
+    captured (`fresh_compiles` as at startup)."""
+    from deeplearning4j_tpu_torch.cli.driver import main as cli_main
+    from deeplearning4j_tpu_torch.parallel import checkpoint
+
+    ckpt = os.path.join(workdir, "ckpt")
+    cache = os.path.join(workdir, "cli_store")
+    t = time.perf_counter()
+    checkpoint.save(ckpt, net.params, conf=net.conf)
+    save_s = time.perf_counter() - t
+    shapes = f"{SP['rows']}x{SLICE['seq']}"
+    t = time.perf_counter()
+    rc, warm = cli_json(cli_main, ["warmup", "--model", ckpt,
+                                   "--compile-cache", cache, "--shapes",
+                                   shapes, "--precision", "int8",
+                                   *sp_device_flags()])
+    warm_s = time.perf_counter() - t
+    check(rc == 0, "serve_precision: cli warmup failed")
+    xs = [np.random.RandomState(20 + i).randint(
+        0, SLICE["vocab"], (1, SLICE["seq"])).astype(np.int32)
+        for i in range(4)]
+    served, answers = cli_serve(torch, ckpt, xs, ["interactive"] * 4, shapes,
+                                extra=["--precision", "int8",
+                                       "--compile-cache", cache,
+                                       *sp_device_flags()])
+    startup, stats = served["startup"], served["stats"]
+    row = {"save_s": save_s, "warmup_s": warm_s,
+           "warmup_artifact": warm["precision_report"]["artifact"],
+           "serve_start_s": served["start_s"],
+           "serve_artifact": startup["precision_report"]["artifact"],
+           "fresh_compiles_startup": startup["fresh_compiles"],
+           "fresh_compiles_after": stats["fresh_compiles"],
+           "stats_precision": {k: stats["precision"][k] for k in (
+               "policy", "rows_by_policy")},
+           "latency_ms": served["latency_ms"],
+           "answers_finite": all(bool(np.isfinite(a).all())
+                                 for a in answers)}
+    emit({"phase": "serve_precision_cli", "gpu": card, **row})
+    check(startup["precision_report"]["artifact"]["source"] == "disk"
+          and startup["precision_report"]["calibration"]
+          == warm["precision_report"]["calibration"],
+          f"serve_precision cli: serve calibrated: {row}")
+    check(stats["precision"]["policy"] == "int8"
+          and row["fresh_compiles_after"] <= row["fresh_compiles_startup"]
+          and row["answers_finite"], f"serve_precision cli: {row}")
+    return row
+
+
+def phase_serve_precision(torch, kernels):
+    """Serving precision (module docstring, item 20). Returns the summary:
+    the flash and cell launches of the policies' runs and their bodies."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    t0 = time.perf_counter()
+    card = gpu_line()
+    workdir = tempfile.mkdtemp(prefix="serve_precision_")
+    try:
+        net = MultiLayerNetwork(gen_conf(SLICE["n_blocks"], None),
+                                device=SP_DEVICE, seed=SP["seed"]).init()
+        net.set_compile_cache(os.path.join(workdir, "store"))
+        x = torch.as_tensor(np.random.RandomState(3).randint(
+            0, SLICE["vocab"], (SP["rows"], SLICE["seq"])).astype(np.int32),
+            device=SP_DEVICE)
+        flag = sp_flagship(torch, kernels, net, x, card)
+        gen = sp_generation(torch, kernels, net, card)
+        store = sp_store(torch, kernels, net, x, flag["int8_out"], card,
+                         workdir)
+        cli = sp_cli(torch, net, card, workdir)
+        del net
+        dp_free(torch)
+        lstm = sp_lstm(torch, kernels, card)
+        budgets = sp_budgets(torch, card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    summary = {"phase": "serve_precision", "gpu": card,
+               "seconds": time.perf_counter() - t0,
+               "flash_launches": flag["flash_launches"]
+               + gen["flash_launches"],
+               "flash_by_policy": {
+                   p: {"output_launches": r["flash_launches"],
+                       "bodies": r["flash_bodies"]}
+                   for p, r in flag["rows"].items()},
+               "generate_flash_launches": {
+                   p: r["launches"]["flash_attn_fwd"]
+                   for p, r in gen["rows"].items()},
+               "lstm_launches": lstm["launches"],
+               "lstm_by_policy": {p: {"launches": r["launches"],
+                                      "bodies": r["bodies"]}
+                                  for p, r in lstm["rows"].items()},
+               "store": {k: store[k] for k in ("child_artifact",
+                                               "child_output_bitwise")},
+               "cli": {k: cli[k] for k in ("serve_artifact",
+                                           "fresh_compiles_after")},
+               "budgets": budgets}
+    emit(summary)
+    return summary
+
+
+def phase_serve_precision_child(torch):
+    """`phase_serve_precision` in a child process (`chip_smoke.py
+    --only-serve-precision`). Echoes the child's lines; returns its
+    summary."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--only-serve-precision"],
+        capture_output=True, text=True, timeout=900)
+    rows = []
+    for line in proc.stdout.strip().splitlines():
+        print(line, flush=True)
+        if line.startswith("{"):
+            rows.append(json.loads(line))
+    summary = [r for r in rows if r.get("phase") == "serve_precision"]
+    check(proc.returncode == 0 and len(summary) == 1,
+          f"the serve_precision child failed (rc {proc.returncode}): "
+          f"{proc.stderr[-3000:]}")
+    emit({"phase": "serve_precision_child",
+          "seconds": time.perf_counter() - t0})
+    return summary[0]
+
+
 def f32_case(r, library_key):
     """One f32 row's numbers for the kernels line."""
     return {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
@@ -7472,6 +7976,20 @@ def main(argv) -> int:
             return sm_ranks(torch, kernels)
         kernels.build()
         phase_serve_mesh(torch, kernels)
+        return 0
+    if "--sp-child" in argv:
+        # the serve_precision phase's second process on its store
+        return sp_child_run(argv[argv.index("--sp-child") + 1])
+    if "--only-serve-precision" in argv:
+        # the serve_precision phase alone (the full run's child): no
+        # kernels line and no last line
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from deeplearning4j_tpu_torch.nd import kernels
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kernels.build()
+        phase_serve_precision(torch, kernels)
         return 0
     if "--seed-sweeps" in argv:
         # the recipes that hang on the initial draw (SEED_SWEEPS)
@@ -7583,6 +8101,10 @@ def main(argv) -> int:
     sm_launches = sum(sm_summary["launches"].values())
     check(sm_launches > 0, "flash_attn_fwd never ran in the serve_mesh "
           "phase's mesh runs")
+    sp_summary = phase_serve_precision_child(torch)
+    sp_launches = sp_summary["flash_launches"]
+    check(sp_launches > 0 and sp_summary["lstm_launches"] > 0,
+          "the serve_precision phase launched no flash or cell kernel")
 
     bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
     replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,
@@ -7598,7 +8120,8 @@ def main(argv) -> int:
                      + sum(api_serve_launches.values())
                      + api_train_launches["flash_attn_fwd"]
                      + dp_launches["flash_attn_fwd"]
-                     + tp_launches["flash_attn_fwd"] + sm_launches),
+                     + tp_launches["flash_attn_fwd"] + sm_launches
+                     + sp_launches),
         "launches_by_path": {"serve": serve_launches["flash_attn_fwd"],
                              "generate": gen_launches["flash_attn_fwd"],
                              **gen_option_launches,
@@ -7612,7 +8135,13 @@ def main(argv) -> int:
                              "data_parallel": dp_launches["flash_attn_fwd"],
                              "tensor_parallel":
                                  tp_launches["flash_attn_fwd"],
-                             "serve_mesh": sm_launches},
+                             "serve_mesh": sm_launches,
+                             "serve_precision": sp_launches},
+        # the f32 conf's forward under each serve policy: 8 launches, the
+        # 3xTF32 body under f32 and the TMA bf16 body under bf16 and int8
+        "serve_precision": {
+            "by_policy": sp_summary["flash_by_policy"],
+            "generate": sp_summary["generate_flash_launches"]},
         "max_abs_err": fwd_row["max_abs_err"],
         "ms": fwd_row["kernel_ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
@@ -7707,11 +8236,17 @@ def main(argv) -> int:
         "source": "deeplearning4j_tpu_torch/csrc/lstm_cell.cu",
         "replaces": "deeplearning4j_tpu/nd/pallas_kernels.py:529",
         "launches": (lstm_train_launches + ckpt_launches + lstm_cli_launches
-                     + dp_launches["lstm_cell"]),
+                     + dp_launches["lstm_cell"]
+                     + sp_summary["lstm_launches"]),
         "launches_by_path": {"lstm_train": lstm_train_launches,
                              "checkpoint": ckpt_launches,
                              "lstm_cli": lstm_cli_launches,
-                             "data_parallel": dp_launches["lstm_cell"]},
+                             "data_parallel": dp_launches["lstm_cell"],
+                             "serve_precision":
+                                 sp_summary["lstm_launches"]},
+        # the f32-compute char-LSTM under the bf16 and int8 serve policies:
+        # lstm_cell_bf16_kernel, T launches a layer a forward
+        "serve_precision": sp_summary["lstm_by_policy"],
         "max_abs_err": lstm_row["max_abs_err"], "ms": lstm_row["kernel_ms"],
         "plain_ms": lstm_row["plain_ms"], "bound_ms": lstm_row["bound_ms"],
         "bound_by": lstm_row["bound_by"],

@@ -1,5 +1,5 @@
-"""CLI driver: the `train`, `test`, `predict`, `generate` and `serve`
-subcommands.
+"""CLI driver: the `train`, `test`, `predict`, `warmup`, `generate` and
+`serve` subcommands.
 
 Counterpart of `deeplearning4j_tpu/cli/driver.py`, on one device (CUDA
 unless `--device cpu`):
@@ -25,20 +25,37 @@ unless `--device cpu`):
   one-slot `ContinuousBatcher` (with `--page-size`, `--prefix-cache`,
   `--steps-per-dispatch` and a `--draft` checkpoint with `--spec-k` as
   its options), printing the JAX package's JSON keys;
-- `serve` loads a checkpoint, captures the predict buckets of `--shapes`
-  (default 64), starts the micro-batching HTTP gateway (`--no-batching`: a
-  forward a request; `--default-deadline-ms`), with `--generate` also POST
-  /v1/generate over a `--gen-slots` decode table (its programs, and with
-  `--gen-draft` the draft's, captured before the socket opens too), prints
-  a startup JSON line (`warmed`: the captured shapes), and on SIGTERM or
-  SIGINT drains and prints a final JSON line.
+- `serve` loads a checkpoint, sets `--precision` (f32, bf16, int8), captures
+  the predict buckets of `--shapes` (default 64), starts the micro-batching
+  HTTP gateway (`--no-batching`: a forward a request;
+  `--default-deadline-ms`), with `--generate` also POST /v1/generate over a
+  `--gen-slots` decode table (its programs, and with `--gen-draft` the
+  draft's, captured before the socket opens too), prints a startup JSON
+  line (`warmed`: the captured shapes; `precision` and `precision_report`)
+  and on SIGTERM or SIGINT drains and prints a final JSON line;
+- `warmup` loads a checkpoint (or builds a conf.json's network), attaches
+  `--compile-cache`, sets `--mesh` and `--precision` and captures the
+  `--shapes` buckets of `--entries` (and with `--train` the train step,
+  with `--generate` the generation programs), as `serve` would. Only the
+  store's byte payloads outlive it: a captured graph ends with the
+  process, so `--precision int8` (its quantized weights) is the one flag
+  with a lasting effect; the others check that the programs capture.
 Checkpoints are `conf.json` + `arrays.npz`, written by either package.
 
 The final JSON lines keep the JAX package's keys. `train`'s: `saved`,
 `score`, `resumed_from_step`, `checkpoint_write_seconds`, `train_seconds`,
 `examples_per_sec`, and the caches' `compile_seconds` (capture seconds),
-`cache_hits`, `cache_misses` and `infer_compile_seconds`; `disk_cache` is
-null, as a CUDA graph is not kept on disk.
+`cache_hits`, `cache_misses` and `infer_compile_seconds`.
+
+`--compile-cache DIR` (every command takes it, as in the JAX package)
+attaches the persistent store
+(`optimize/persist.py`) to the network and its draft: it holds byte
+artifacts, the int8 weights and the prefix entries, so a `serve
+--precision int8` on a directory that a `warmup --precision int8` filled
+loads its quantized weights and calibrates nothing. A CUDA graph is not
+kept on disk: each process captures its declared programs before it
+serves, and none under traffic. `disk_cache` reports the store (its
+directory, entries, bytes and counters; the program counters stay 0).
 
 `train --runtime mesh` trains through `parallel.DataParallelTrainer` over
 the ranks of a `torch.distributed` group (one process a rank: torchrun's
@@ -57,8 +74,8 @@ the mesh runtime as the JAX CLI does.
 (`MultiLayerNetwork.set_serve_mesh`): bare `--mesh` or `all` is the 1-D
 ("batch",) mesh, `batch=N,model=M` the plan's. Rank 0 is the only one to
 open the HTTP port, generate and print; the other ranks run its calls
-(`follow`) until it ends them. `--compile-cache` (item 11) is not ported
-and exits naming it.
+(`follow`) until it ends them; every rank sets the precision policy
+first.
 """
 
 from __future__ import annotations
@@ -82,13 +99,34 @@ def _parse_properties(props: Optional[str]) -> dict:
     return out
 
 
-def _refuse_unported(args) -> None:
+def _attach_compile_cache(net, args) -> None:
+    """--compile-cache DIR: the persistent store of the network's caches
+    (`MultiLayerNetwork.set_compile_cache`)."""
     if getattr(args, "compile_cache", None):
-        raise SystemExit("--compile-cache is not ported to "
-                         "deeplearning4j_tpu_torch yet (the step and serve "
-                         "caches hold CUDA graphs, which cannot be written "
-                         "to disk; persist.py comes with ROADMAP.md queue A "
-                         "item 11)")
+        net.set_compile_cache(args.compile_cache)
+
+
+def _disk_stats(net) -> dict:
+    """The disk-cache block of the CLI's JSON: the caches' program
+    counters (0: a CUDA graph is not written to disk) and, with a store
+    attached, its directory, entries, bytes, writes, hits and evictions."""
+    cs, ic = net.step_cache.stats.as_dict(), net.infer_cache.stats.as_dict()
+    out = {k: cs[k] + ic[k] for k in ("disk_hits", "disk_write_seconds",
+                                      "deserialize_seconds", "fetch_hits",
+                                      "fetch_corrupt")}
+    store = net.infer_cache.persist
+    if store is not None:
+        out.update(store.stats())
+    return out
+
+
+def _set_precision(net, args, measure: bool = True):
+    """--precision: the serve policy, set before anything is captured (on
+    every rank of a serving mesh); returns its report, or None for f32."""
+    precision = getattr(args, "precision", "f32")
+    if precision == "f32":
+        return None
+    return net.set_serve_precision(precision, measure=measure)
 
 
 def _cli_mesh(spec: Optional[str], device):
@@ -135,7 +173,7 @@ def _cli_mesh(spec: Optional[str], device):
 
 
 def _serving_net(args):
-    """(network, mesh) of `serve`/`generate`: without `--mesh` the
+    """(network, mesh) of `serve`/`generate`/`warmup`: without `--mesh` the
     checkpoint on `--device` and no mesh; with it, the process group first
     (torchrun's ranks, or a group of one), the network on this rank's
     device, then `set_serve_mesh(spec=...)`: bare `--mesh`/`all` the 1-D
@@ -253,7 +291,6 @@ def cmd_train(args) -> int:
     from deeplearning4j_tpu_torch.parallel import checkpoint
     from deeplearning4j_tpu_torch.reliability import TrainingInterrupted
 
-    _refuse_unported(args)
     data = _load_data(args)
     if args.zoo:
         conf = _zoo_conf(args.zoo, data)
@@ -308,6 +345,7 @@ def cmd_train(args) -> int:
         mesh, axis, rows, plan = _cli_mesh(args.mesh, args.device)
         device = mesh.device
     net = MultiLayerNetwork(conf, device=device).init()
+    _attach_compile_cache(net, args)
     t_train = time.perf_counter()
     step_stats = net.step_cache.stats
     resumed_from_step = None
@@ -417,7 +455,7 @@ def cmd_train(args) -> int:
                       "cache_hits": cs.hits, "cache_misses": cs.misses,
                       "infer_compile_seconds": round(
                           ic.total_compile_seconds, 3),
-                      "disk_cache": None}), flush=True)
+                      "disk_cache": _disk_stats(net)}), flush=True)
     return 0
 
 
@@ -425,12 +463,13 @@ def cmd_test(args) -> int:
     from deeplearning4j_tpu_torch.evaluation import evaluate
     from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
 
-    _refuse_unported(args)
     net = load_network(args.model, device=args.device)
+    _attach_compile_cache(net, args)
     data = _scaled(_load_data(args), args)
     ev = evaluate(net, data, batch_size=args.batch)
     print(ev.stats())
-    print(json.dumps({"accuracy": ev.accuracy(), "f1": ev.f1()}), flush=True)
+    print(json.dumps({"accuracy": ev.accuracy(), "f1": ev.f1(),
+                      "disk_cache": _disk_stats(net)}), flush=True)
     return 0
 
 
@@ -442,8 +481,8 @@ def cmd_predict(args) -> int:
     from deeplearning4j_tpu_torch.evaluation.evaluation import _host
     from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
 
-    _refuse_unported(args)
     net = load_network(args.model, device=args.device)
+    _attach_compile_cache(net, args)
     data = _scaled(_load_data(args), args)
     if 0 < args.batch < data.num_examples():
         probs = np.concatenate(
@@ -459,8 +498,8 @@ def cmd_predict(args) -> int:
                        [f"p{i}" for i in range(probs.shape[1])])
             for p, row in zip(preds, probs):
                 w.writerow([int(p)] + [f"{v:.6f}" for v in row])
-        print(json.dumps({"written": args.output, "n": len(preds)}),
-              flush=True)
+        print(json.dumps({"written": args.output, "n": len(preds),
+                          "disk_cache": _disk_stats(net)}), flush=True)
     else:
         print(" ".join(str(int(p)) for p in preds))
     return 0
@@ -486,16 +525,84 @@ def _parse_buckets(spec: str):
     return out
 
 
-def _gen_draft_net(args):
+def _gen_draft_net(args, device=None):
     """--draft / --gen-draft CHECKPOINT: the loaded draft network (on the
-    target's device), or None."""
+    target's device), on the target's store, or None."""
     from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
 
-    if not args.gen_draft:
+    if not getattr(args, "gen_draft", None):
         return None
     if args.gen_spec_k < 2:
         raise SystemExit("--gen-draft requires --gen-spec-k >= 2")
-    return load_network(args.gen_draft, device=args.device)
+    draft = load_network(args.gen_draft,
+                         device=args.device if device is None else device)
+    _attach_compile_cache(draft, args)
+    return draft
+
+
+def _warm_generate(net, args, draft=None) -> dict:
+    """Capture the generation programs of the gen_* flags (`serve
+    --generate` and `warmup --generate`), before any traffic."""
+    summary = net.warmup_generate(
+        slots=args.gen_slots, max_seq=args.gen_max_seq,
+        prompt_buckets=_parse_buckets(args.gen_prompt_buckets),
+        page_size=args.gen_page_size, n_pages=args.gen_pages,
+        prefix_cache=args.gen_prefix_cache, draft_net=draft,
+        spec_k=args.gen_spec_k,
+        steps_per_dispatch=args.gen_steps_per_dispatch)
+    summary.pop("infer_cache")
+    return summary
+
+
+def cmd_warmup(args) -> int:
+    """Fill `--compile-cache` ahead of traffic: the policy (`--precision`;
+    for int8 its quantized weights go into the store) and the mesh
+    (`--mesh`) are set first, as `serve` sets them, then the `--shapes`
+    buckets of `--entries` are captured (`--train`: the train step too;
+    `--generate`: the generation programs, the draft's on the target's
+    store). Only the store's byte payloads outlive the process: its CUDA
+    graphs end with it and `serve` captures every key again, so the int8
+    weights are the one lasting effect, and the captures check that the
+    programs build. Under `--mesh` rank 0 warms and prints; the other
+    ranks follow its calls."""
+    import os
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    if os.path.isdir(args.model) or args.mesh is not None:
+        net, mesh = _serving_net(args)
+    else:
+        with open(args.model) as f:
+            conf = MultiLayerConfiguration.from_json(f.read())
+        net, mesh = MultiLayerNetwork(conf, device=args.device).init(), None
+    net.set_compile_cache(args.compile_cache)
+    _set_precision(net, args, measure=False)
+    if _follows(net, mesh):
+        return 0
+    try:
+        shapes = _parse_shapes(args.shapes)
+        if not shapes:
+            raise SystemExit("warmup needs --shapes (e.g. 256,1024 or "
+                             "32x784)")
+        entries = tuple(e.strip() for e in args.entries.split(",")
+                        if e.strip())
+        summary = net.warmup(shapes, entries=entries, train=args.train)
+        if args.generate:
+            summary["generation"] = _warm_generate(
+                net, args, draft=_gen_draft_net(args, net.device))
+            summary["infer_cache"] = net.infer_cache.stats.as_dict()
+    finally:
+        net.stop_followers()
+    summary["precision"] = net.serve_precision
+    summary["precision_report"] = net.serve_precision_report
+    summary["mesh_devices"] = (None if mesh is None else
+                               int(np.prod(list(mesh.shape.values()))))
+    summary["disk_cache"] = _disk_stats(net)
+    print(json.dumps(summary), flush=True)
+    return 0
 
 
 def cmd_generate(args) -> int:
@@ -503,8 +610,8 @@ def cmd_generate(args) -> int:
     prefill takes the prompt, then a one-slot `ContinuousBatcher`'s decode
     loop makes each token (`serve --generate` runs the many-slot table).
     Under `--mesh` rank 0 generates and prints; the other ranks follow."""
-    _refuse_unported(args)
     net, mesh = _serving_net(args)
+    _attach_compile_cache(net, args)
     if _follows(net, mesh):
         return 0
     try:
@@ -528,7 +635,8 @@ def _generate_on_rank0(args, net) -> int:
     options = dict(max_seq=args.gen_max_seq, prompt_buckets=(bucket,),
                    page_size=args.gen_page_size,
                    prefix_cache=args.gen_prefix_cache,
-                   draft_net=_gen_draft_net(args), spec_k=args.gen_spec_k,
+                   draft_net=_gen_draft_net(args, net.device),
+                   spec_k=args.gen_spec_k,
                    steps_per_dispatch=args.gen_steps_per_dispatch)
     net.warmup_generate(slots=1, **options)
     warmed_misses = net.infer_cache.stats.misses
@@ -549,24 +657,27 @@ def _generate_on_rank0(args, net) -> int:
         "ttft_ms": (None if stream.ttft_s is None
                     else round(stream.ttft_s * 1000.0, 3)),
         "fresh_compiles": net.infer_cache.stats.misses - warmed_misses,
-        "disk_cache": None}), flush=True)
+        "disk_cache": _disk_stats(net)}), flush=True)
     return 0
 
 
 def cmd_serve(args) -> int:
     """The HTTP server; under `--mesh` on rank 0 alone, the other ranks
-    following its calls."""
-    _refuse_unported(args)
+    following its calls. The store and the precision policy come first, on
+    every rank, so that the warmed programs carry the policy's key (and an
+    int8 artifact a `warmup` stored is loaded, not calibrated)."""
     net, mesh = _serving_net(args)
+    _attach_compile_cache(net, args)
+    precision_report = _set_precision(net, args)
     if _follows(net, mesh):
         return 0
     try:
-        return _serve_on_rank0(args, net)
+        return _serve_on_rank0(args, net, precision_report)
     finally:
         net.stop_followers()
 
 
-def _serve_on_rank0(args, net) -> int:
+def _serve_on_rank0(args, net, precision_report) -> int:
     from deeplearning4j_tpu_torch.nd.platform import device_kind
 
     generation = draft = warmed = None
@@ -579,14 +690,8 @@ def _serve_on_rank0(args, net) -> int:
     if args.generate:
         # the decode and prefill programs (and the draft's) are captured
         # before the socket opens, so generation starts from cache hits
-        draft = _gen_draft_net(args)
-        generation = net.warmup_generate(
-            slots=args.gen_slots, max_seq=args.gen_max_seq,
-            prompt_buckets=buckets, page_size=args.gen_page_size,
-            n_pages=args.gen_pages, prefix_cache=args.gen_prefix_cache,
-            draft_net=draft, spec_k=args.gen_spec_k,
-            steps_per_dispatch=args.gen_steps_per_dispatch)
-        generation.pop("infer_cache")
+        draft = _gen_draft_net(args, net.device)
+        generation = _warm_generate(net, args, draft)
     server = net.serve(host=args.host, port=args.port,
                        max_delay_ms=args.max_delay_ms,
                        max_pending=args.max_pending,
@@ -610,7 +715,10 @@ def _serve_on_rank0(args, net) -> int:
                       "plan": net.infer_cache.plan.describe(),
                       "warmed": warmed, "batching": not args.no_batching,
                       "generation": generation,
-                      "fresh_compiles": net.infer_cache.stats.misses}),
+                      "fresh_compiles": net.infer_cache.stats.misses,
+                      "precision": net.serve_precision,
+                      "precision_report": precision_report,
+                      "disk_cache": _disk_stats(net)}),
           flush=True)
     # the handler only sets an event; the main thread runs the drain
     prev = {}
@@ -656,10 +764,24 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="scale features into [-1, 1] by their max |value|")
     p.add_argument("--normalize", action="store_true",
                    help="zero-mean/unit-variance features")
-    p.add_argument("--compile-cache", dest="compile_cache", default=None,
-                   metavar="DIR", help="not ported yet (exits): a CUDA "
-                   "graph is not kept on disk")
+    _add_compile_cache(p)
     _add_device(p)
+
+
+def _add_compile_cache(p: argparse.ArgumentParser,
+                       required: bool = False) -> None:
+    p.add_argument("--compile-cache", dest="compile_cache", default=None,
+                   required=required, metavar="DIR",
+                   help="persistent store (int8 weights, prefix entries); "
+                        "CUDA graphs are captured in each process")
+
+
+def _add_precision(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--precision", choices=["f32", "bf16", "int8"],
+                   default="f32",
+                   help="serve-precision policy, set before any program is "
+                        "captured (int8: its quantized weights are loaded "
+                        "from, or calibrated into, --compile-cache)")
 
 
 def _add_generate_flags(p: argparse.ArgumentParser) -> None:
@@ -810,8 +932,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "torchrun): bare --mesh or 'all' is the 1-D batch "
                         "mesh (generation on rank 0), batch=1,model=4 "
                         "splits heads and the K/V state over 4 ranks")
-    g.add_argument("--compile-cache", dest="compile_cache", default=None,
-                   metavar="DIR", help="not ported yet (exits)")
+    _add_compile_cache(g)
     g.set_defaults(fn=cmd_generate)
 
     s = sub.add_parser("serve", help="micro-batching HTTP gateway: POST "
@@ -855,8 +976,35 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--request-timeout", dest="request_timeout", type=float,
                    default=30.0, metavar="SECONDS",
                    help="cap on how long one request may wait (504 past it)")
+    _add_compile_cache(s)
+    _add_precision(s)
     _add_generate_flags(s)
     s.set_defaults(fn=cmd_serve)
+
+    w = sub.add_parser("warmup", help="fill a persistent store ahead of "
+                                      "traffic: only its byte payloads "
+                                      "last (--precision int8's weights); "
+                                      "the shapes captured end with the "
+                                      "process")
+    w.add_argument("--model", required=True,
+                   help="checkpoint dir (or conf JSON) to warm up")
+    _add_device(w)
+    _add_compile_cache(w, required=True)
+    w.add_argument("--shapes", default="1024",
+                   help="comma-separated batch sizes or full input shapes "
+                        "('x'-separated dims): 256,1024 or 4x512")
+    w.add_argument("--entries", default="output",
+                   help="serve entry points to capture: "
+                        "output,feed_forward,loss")
+    w.add_argument("--train", action="store_true",
+                   help="also capture the train step for each shape")
+    w.add_argument("--mesh", nargs="?", const="all", default=None,
+                   metavar="SPEC",
+                   help="warm under a serving mesh (one process a rank, "
+                        "torchrun), as `serve --mesh` with the same spec")
+    _add_precision(w)
+    _add_generate_flags(w)
+    w.set_defaults(fn=cmd_warmup)
     return p
 
 

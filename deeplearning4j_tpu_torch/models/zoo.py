@@ -4,8 +4,10 @@ Counterpart of `deeplearning4j_tpu/models/zoo.py`: the flagship
 `char_transformer`, `char_lstm` (BASELINE configs[1]), `lenet5`
 (configs[0]), `vgg_cifar10` (configs[2]), `mlp`, and the pretraining
 recipes `dbn` and `deep_autoencoder` (with `unroll_autoencoder_stack` and
-`fit_deep_autoencoder`). Each configuration is the JAX package's, field
-for field, so both packages build the same network from it.
+`fit_deep_autoencoder`), and the serve-precision eval slice
+(`PRECISION_ERROR_BUDGETS`, `precision_eval_confs`). Each configuration is
+the JAX package's, field for field, so both packages build the same
+network from it.
 """
 
 from __future__ import annotations
@@ -257,3 +259,47 @@ def char_lstm(vocab: int, hidden: int = 256, n_layers: int = 1,
     return MultiLayerConfiguration(
         confs=tuple(confs), backprop=True,
         input_preprocessors=((len(confs) - 1, "rnn_to_ff"),))
+
+
+# -- the serve-precision eval slice ------------------------------------------
+
+#: the JAX package's error budgets of the low-precision serve policies
+#: (optimize/quantize.py): a softmax head budgets its top-1 disagreement
+#: with the f32 forward, the reconstruction head its relative output MSE
+PRECISION_ERROR_BUDGETS = {
+    "lenet5": {
+        "bf16": {"top1_delta": 0.05, "rel_mse": 5e-4},
+        "int8": {"top1_delta": 0.10, "rel_mse": 5e-3},
+    },
+    "char_lstm": {
+        "bf16": {"top1_delta": 0.05, "rel_mse": 5e-4},
+        "int8": {"top1_delta": 0.10, "rel_mse": 5e-3},
+    },
+    "char_transformer": {
+        "bf16": {"top1_delta": 0.08, "rel_mse": 1e-3},
+        "int8": {"top1_delta": 0.15, "rel_mse": 1e-2},
+    },
+    "deep_autoencoder": {
+        "bf16": {"rel_mse": 5e-4},
+        "int8": {"rel_mse": 5e-3},
+    },
+}
+
+
+def precision_eval_confs(small: bool = True):
+    """The four models the precision eval harness runs (conv, recurrent,
+    attention, reconstruction), the JAX package's; `small` for the CPU."""
+    if small:
+        return {
+            "lenet5": lenet5(),
+            "char_lstm": char_lstm(24, hidden=24, n_layers=1),
+            "char_transformer": char_transformer(
+                24, d_model=16, n_blocks=1, n_heads=2, max_seq_len=16),
+            "deep_autoencoder": deep_autoencoder(n_in=32, hidden=(16, 8)),
+        }
+    return {
+        "lenet5": lenet5(),
+        "char_lstm": char_lstm(64, hidden=256, n_layers=1),
+        "char_transformer": char_transformer(64),
+        "deep_autoencoder": deep_autoencoder(),
+    }

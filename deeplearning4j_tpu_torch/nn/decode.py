@@ -203,7 +203,14 @@ def token_embed(conf: MultiLayerConfiguration, params, tok, pos):
 
 
 def _log_probs(conf, params, n_hidden: int, x):
-    probs = OutputLayer.forward(params[n_hidden], conf.conf(n_hidden), x)
+    """log(clip(probs, 1e-9, 1)) of the next token. The head (softmax and
+    log) runs in float32 whatever the pre-activation's dtype: a serve
+    policy's bfloat16 logits would otherwise tie at bfloat16's resolution,
+    where the JAX package's XLA program keeps float32 (float32 programs
+    are unchanged)."""
+    c = conf.conf(n_hidden)
+    z = OutputLayer.preout(params[n_hidden], c, x)
+    probs = OutputLayer.head(c, z.float())
     return torch.log(torch.clamp(probs, 1e-9, 1.0))
 
 

@@ -17,7 +17,8 @@ from deeplearning4j_tpu_torch.nd import losses as L
 from deeplearning4j_tpu_torch.nd import random as nd_random
 from deeplearning4j_tpu_torch.nd.ops import activate
 from deeplearning4j_tpu_torch.nn.layers.base import (DenseLayer, _sampler,
-                                                     param_dtype)
+                                                     param_dtype,
+                                                     promoted_matmul)
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 
 
@@ -44,11 +45,13 @@ class AutoEncoder(DenseLayer):
 
     @staticmethod
     def encode(params, conf, x):
-        return activate(conf.activation, x @ params["W"] + params["b"])
+        return activate(conf.activation,
+                        promoted_matmul(x, params["W"]) + params["b"])
 
     @staticmethod
     def decode(params, conf, h):
-        return activate(conf.activation, h @ params["W"].T + params["vb"])
+        return activate(conf.activation,
+                        promoted_matmul(h, params["W"].T) + params["vb"])
 
     @staticmethod
     def forward(params, conf, x, key=None, training=False):

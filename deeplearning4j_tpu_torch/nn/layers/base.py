@@ -61,6 +61,14 @@ def mixed_matmul(x: torch.Tensor, W: torch.Tensor, conf) -> torch.Tensor:
     return (x.to(cd) @ W.to(cd)).to(W.dtype)
 
 
+def promoted_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w in the wider of their dtypes, as JAX promotes a mixed product
+    (a float32 input against a serve policy's bfloat16 weights); operands
+    of one dtype take the plain product."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
 def _sampler(conf):
     return conf.dist.sampler() if conf.dist is not None else None
 

@@ -16,6 +16,13 @@ Two forward paths, chosen by `conf.lstm_impl`:
 BPTT is autograd through the loop. Decoding (`step`) and the prompt phase
 of cached generation (`prefill`) are the concat form `[x, h].W + b`, as in
 the JAX package.
+
+Mixed dtypes (the serve policies' bfloat16 weights under a float32 input or
+carry): the scan and the concat form take each product in the wider of its
+operands' dtypes (`base.promoted_matmul`), as JAX promotes. The cell kernel
+takes one dtype, so the fused path casts the input to the weights' dtype
+and runs its carries there: a policy's bfloat16 weights run the bfloat16
+cell.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from deeplearning4j_tpu_torch.nd.kernels import fused_lstm_step
-from deeplearning4j_tpu_torch.nn.layers.base import _sampler, param_dtype
+from deeplearning4j_tpu_torch.nn.layers.base import (_sampler, param_dtype,
+                                                     promoted_matmul)
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 
 
@@ -41,7 +49,8 @@ class LSTMLayer:
     @staticmethod
     def _step(params, n_h, carry, x_t):
         h, _ = carry
-        z = torch.cat([x_t, h], dim=-1) @ params["W"] + params["b"]
+        z = promoted_matmul(torch.cat([x_t, h], dim=-1),
+                            params["W"]) + params["b"]
         return LSTMLayer._gates(n_h, carry, z)
 
     @staticmethod
@@ -79,6 +88,9 @@ class LSTMLayer:
             return LSTMLayer.forward(params, conf, x[None])[0]
         bsz, steps, _ = x.shape
         n_h, n_in = conf.n_out, conf.n_in
+        if LSTMLayer._use_fused(conf, x):
+            # the kernel's operands share one dtype: the weights'
+            x = x.to(params["W"].dtype)
         h = x.new_zeros((bsz, n_h))
         c = x.new_zeros((bsz, n_h))
         if LSTMLayer._use_fused(conf, x):
@@ -99,10 +111,11 @@ class LSTMLayer:
         (plus the bias), leaving h.Wh in the loop. The concat form's math,
         reassociated. `gates`: (carry, z) -> ((h, c), h)."""
         wh = params["W"][n_in:]
-        z_x = x @ params["W"][:n_in] + params["b"]  # [B, T, 4H]
+        # [B, T, 4H]
+        z_x = promoted_matmul(x, params["W"][:n_in]) + params["b"]
         carry, hs = (h0, c0), []
         for t in range(x.shape[1]):
-            carry, h = gates(carry, z_x[:, t] + carry[0] @ wh)
+            carry, h = gates(carry, z_x[:, t] + promoted_matmul(carry[0], wh))
             hs.append(h)
         return torch.stack(hs, dim=1)
 
@@ -152,7 +165,8 @@ class GravesLSTMLayer(LSTMLayer):
     @staticmethod
     def _step(params, n_h, carry, x_t):
         h, _ = carry
-        z = torch.cat([x_t, h], dim=-1) @ params["W"] + params["b"]
+        z = promoted_matmul(torch.cat([x_t, h], dim=-1),
+                            params["W"]) + params["b"]
         return GravesLSTMLayer._gates(params, n_h, carry, z)
 
     @staticmethod

@@ -19,7 +19,13 @@ class OutputLayer(DenseLayer):
     @staticmethod
     def forward(params, conf, x, key=None, training=False, tp=None):
         x, kdc = DenseLayer.dropped_input(conf, x, key, training, tp)
-        z = OutputLayer.preout(params, conf, x, kdc, training)
+        return OutputLayer.head(conf,
+                                OutputLayer.preout(params, conf, x, kdc,
+                                                   training))
+
+    @staticmethod
+    def head(conf, z):
+        """The activation of the pre-activation `z`."""
         loss = str(conf.loss_function).lower()
         # the head matches the loss: softmax for multiclass CE, sigmoid for
         # binary CE, the configured activation for regression

@@ -23,6 +23,7 @@ from deeplearning4j_tpu_torch.nd import random as nd_random
 from deeplearning4j_tpu_torch.nn.conf import RBMUnit
 from deeplearning4j_tpu_torch.nn.layers.autoencoder import (AutoEncoder,
                                                             pretrain_params)
+from deeplearning4j_tpu_torch.nn.layers.base import promoted_matmul
 
 
 def _unit_mean(kind, pre: torch.Tensor) -> torch.Tensor:
@@ -71,12 +72,13 @@ class RBM(AutoEncoder):
 
     @staticmethod
     def prop_up(params, conf, v):
-        return _unit_mean(conf.hidden_unit, v @ params["W"] + params["b"])
+        return _unit_mean(conf.hidden_unit,
+                          promoted_matmul(v, params["W"]) + params["b"])
 
     @staticmethod
     def prop_down(params, conf, h):
         return _unit_mean(conf.visible_unit,
-                          h @ params["W"].T + params["vb"])
+                          promoted_matmul(h, params["W"].T) + params["vb"])
 
     @staticmethod
     def sample_h_given_v(params, conf, key, v, draw: bool = True):

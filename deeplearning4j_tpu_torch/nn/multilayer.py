@@ -38,6 +38,17 @@ the inference graphs read the new EMA; the eager path advances it after
 the step with one more forward (`update_bn_ema`), as JAX's uncached path
 does.
 
+Serving precision (`set_serve_precision`, the JAX package's): "f32",
+"bf16" or "int8" for every later `output` / `feed_forward` / `score`, every
+generation program and every program `warmup` captures
+(`optimize/quantize.py`); int8 quantizes a snapshot of the params, with
+its clip calibrated on a held-out batch, and with a store attached
+(`set_compile_cache`, or `DL4J_COMPILE_CACHE` at construction) the
+quantized weights are kept there under (conf fingerprint, params digest),
+so that another process loads them instead of calibrating. A train step
+writes the params in place and tells the infer cache
+(`InferCache.params_written`), so the bf16 cast follows training.
+
 Pretraining: with `conf.pretrain`, each `fit` batch first trains every
 pretrainable hidden layer (RBM, autoencoder) in order on its own input
 (the batch fed forward through the layers below it and its preprocessor)
@@ -51,6 +62,7 @@ with corruption) gets it on the device.
 from __future__ import annotations
 
 import logging
+import os
 import signal
 import threading
 import time
@@ -366,6 +378,14 @@ class MultiLayerNetwork:
         self.checkpoints_written = 0
         # did the last finetune advance the BatchNorm EMA in its step?
         self._bn_in_step = False
+        # the serve-precision report of the active policy
+        # (`set_serve_precision`)
+        self._serve_precision_report: dict = {"policy": "f32"}
+        # DL4J_COMPILE_CACHE=<dir> attaches the persistent store to every
+        # network of the process, as the CLI's --compile-cache does to one
+        cache_dir = os.environ.get("DL4J_COMPILE_CACHE")
+        if cache_dir:
+            self.set_compile_cache(cache_dir)
 
     @property
     def params(self) -> Optional[tuple]:
@@ -377,6 +397,7 @@ class MultiLayerNetwork:
         they were captured with, so a tree of other tensors drops them (the
         next call captures anew)."""
         old, self._params = self._params, value
+        self.infer_cache.params_written()
         if old is None or value is old:
             return
         new_leaves = tree_leaves(value) if value is not None else []
@@ -404,6 +425,105 @@ class MultiLayerNetwork:
                            device=self.device)
         self.params = init_params(self.conf, key)
         return self
+
+    def params_written(self) -> None:
+        """Note that the params were written in place (the train steps and
+        `set_params_flat` call it): a cast serve policy casts again."""
+        self.infer_cache.params_written()
+
+    # -- the persistent store and the serve precision -----------------------
+    def set_compile_cache(self, directory, max_bytes=None):
+        """Attach a persistent store at `directory` (`optimize/persist.py`)
+        to both caches: the int8 weight artifact and the continuous
+        batcher's prefix entries go through it. A CUDA graph is not written
+        to disk, so every process captures its own programs. Returns the
+        store."""
+        from deeplearning4j_tpu_torch.optimize.persist import \
+            PersistentProgramStore
+
+        kw = {} if max_bytes is None else {"max_bytes": max_bytes}
+        store = PersistentProgramStore(directory, device=self.device, **kw)
+        self.step_cache.set_persist(store)
+        self.infer_cache.set_persist(store)
+        return store
+
+    @property
+    def serve_precision(self) -> str:
+        """The active serve-path precision policy ("f32" until set)."""
+        return self.infer_cache.policy
+
+    @property
+    def serve_precision_report(self) -> dict:
+        """The report `set_serve_precision` gave for the active policy."""
+        return self._serve_precision_report
+
+    def set_serve_precision(self, policy: str = "f32", calibration=None,
+                            measure: bool = True) -> dict:
+        """Serve every later call under `policy` (`optimize/quantize.py`):
+        "f32" (bitwise the pre-policy path), "bf16" (params cast once,
+        bfloat16 compute) or "int8" (per-channel symmetric weights, the
+        clip calibrated on `calibration`, a held-out batch; None is
+        `default_calibration`). The policy is a key element, so the
+        programs of each coexist. int8 quantizes a snapshot of the params;
+        call this again after training to quantize anew. With a store
+        attached, the quantized weights are looked up there under
+        `quantize_artifact_key` (a hit calibrates nothing; a corrupt entry
+        is evicted and calibrated again) and written after a calibration.
+
+        Returns, and keeps as `serve_precision_report`, {"policy"}, the
+        calibration report (int8), where the artifact came from and the
+        seconds it took ("artifact": {"source": "disk" or "calibrated",
+        "seconds"}), and unless `measure` is False the accuracy delta
+        against f32 on a held-out batch (`quantize.accuracy_delta`)."""
+        from deeplearning4j_tpu_torch.optimize import quantize
+
+        quantize.validate_policy(policy)
+        if self.params is None:
+            self.init()
+        qparams = cal_report = artifact = None
+        if policy == "int8":
+            if calibration is None:
+                calibration = quantize.default_calibration(self.conf)
+            calibration = self._input(calibration)
+            t0 = time.perf_counter()
+            store = self.infer_cache.persist
+            blob = None
+            if store is not None:
+                art_key = quantize.quantize_artifact_key(
+                    self.infer_cache._fingerprint(self.conf),
+                    quantize.params_digest(self.params))
+                blob = store.load_bytes(art_key)
+            if blob is not None:
+                try:
+                    qparams, cal_report = quantize.unpack_quantized(
+                        blob, self.device)
+                    artifact = "disk"
+                except Exception:  # noqa: BLE001 — calibrate instead
+                    qparams = None
+            if qparams is None:
+                qparams, cal_report = quantize.calibrate_int8(
+                    self.conf, self.params, calibration)
+                artifact = "calibrated"
+                if store is not None:
+                    store.store_bytes(
+                        art_key, quantize.pack_quantized(qparams, cal_report))
+            artifact = {"source": artifact,
+                        "seconds": time.perf_counter() - t0}
+        self.infer_cache.set_policy(policy, qparams=qparams)
+        report = {"policy": policy}
+        if cal_report:
+            report["calibration"] = cal_report
+            report["artifact"] = artifact
+        if measure and policy != "f32":
+            # held out from the calibration batch when that defaulted
+            batch = (calibration if calibration is not None
+                     else quantize.default_calibration(self.conf, seed=1))
+            report["accuracy_delta"] = quantize.accuracy_delta(
+                self.conf, self.params, self._input(batch), policy,
+                qparams=self.infer_cache._qparams if policy == "int8"
+                else None)
+        self._serve_precision_report = report
+        return report
 
     def set_serve_mesh(self, mesh=None, spec=None):
         """Serve over a mesh of ranks, the JAX package's contract: no
@@ -691,6 +811,7 @@ class MultiLayerNetwork:
         if self.use_step_cache:
             scores = self.step_cache.pretrain(c, i, impl, self.params[i], x,
                                               key)
+            self.params_written()
         else:
             new, scores = solver_mod.optimize(
                 step_cache_mod.pretrain_objective(c, impl, x),
@@ -733,6 +854,7 @@ class MultiLayerNetwork:
         if self.use_step_cache:
             scores = self.step_cache.finetune(conf, self.params, x, labels,
                                               key)
+            self.params_written()
             self._bn_in_step = has_batchnorm(conf)
         else:
             self.params, scores = solver_mod.optimize(
@@ -877,6 +999,7 @@ class MultiLayerNetwork:
             for t in leaves:
                 t.copy_(flat[offset:offset + t.numel()].view(t.shape))
                 offset += t.numel()
+        self.params_written()
 
     def clone(self) -> "MultiLayerNetwork":
         """A network of the same conf and device on copies of the params.

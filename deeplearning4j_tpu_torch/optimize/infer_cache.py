@@ -1,9 +1,8 @@
 """Captured inference: one CUDA graph per (entry point, conf, bucket).
 
-Counterpart of `deeplearning4j_tpu/optimize/infer_cache.py` for its
-single-device f32 entry points `output`, `feed_forward`, `loss`, `decode`
-and `prefill`, over
-the `CompiledProgramCache` machinery of `optimize/step_cache.py`:
+Counterpart of `deeplearning4j_tpu/optimize/infer_cache.py` for its entry
+points `output`, `feed_forward`, `loss`, `decode` and `prefill`, over the
+`CompiledProgramCache` machinery of `optimize/step_cache.py`:
 
   key schema    (entry point, conf fingerprint, arg shapes/dtypes,
                 "single"). `attention_fused_bwd` changes only the backward,
@@ -87,8 +86,36 @@ programs of different meshes coexist without eviction.
                 a collected batcher (`forget_rows`) leave the followers
                 with the next header.
 
-The precision policies come with serving-side optimisation (ROADMAP.md
-queue A item 11).
+Precision policies (`set_policy`, the JAX package's `:180-230`): "f32",
+"bf16" and "int8" (`optimize/quantize.py`) are a key element of every entry
+(the plan's `policy_suffix`: nothing for f32, whose keys and outputs stay
+the pre-policy ones), so the programs of each policy coexist and a flip
+back is all hits. A policy's programs run its conf (compute dtype
+bfloat16) on its params tree, and their outputs are float32:
+
+  bf16          the params cast once (`_serve_params`) and held; the
+                network reports in-place writes (a train step, `fit`,
+                `set_params_flat`) through `params_written`, and the next
+                call casts again into the same tensors, which the graphs
+                read by address.
+  int8          the quantized snapshot `set_policy` installs ({"q",
+                "scale"} leaves), dequantized to bfloat16 inside the
+                captured program; a new snapshot of the same shapes is
+                copied into the held tensors, so the graphs stay valid.
+  decode state  shaped for the policy's conf (bfloat16 K/V rows), one a
+                policy and role.
+  model axis    the policy's tree is sharded like the f32 one: an int8
+                leaf's `q` as its float leaf, its per-column `scale` with
+                the columns of a column split (`Wqkv`, `W1`) and whole for a
+                row split (`Wo`, `W2`). A new bf16 cast or int8 snapshot
+                is sharded again into the held shard. Every rank sets the
+                policy: the header carries rank 0's count of int8
+                snapshots, and a follower whose count differs refuses
+                the call.
+
+`set_persist` (the base class's) attaches the byte store
+(`optimize/persist.py`) that the network's int8 artifact and the batcher's
+prefix entries go through; a CUDA graph is not written to disk.
 """
 
 from __future__ import annotations
@@ -205,7 +232,8 @@ class InferCache(CompiledProgramCache):
         # threads and the server's share the cache)
         self._call_lock = threading.RLock()
         # per thread: rank 0's call in flight ("call"), or a follower's
-        # (seq, key) until it is ready ("follow") and rank 0's bucket
+        # (seq, (key, int8 snapshot count)) until it is ready ("follow")
+        # and rank 0's bucket
         self._tls = threading.local()
         # decode states by id: their descriptors (serial, batch, max_seq,
         # pages), which a follower maps to states of its own
@@ -216,6 +244,17 @@ class InferCache(CompiledProgramCache):
         # prefixes forgotten since its last header (`forget_rows`)
         self._kept: Dict[str, tuple] = {}
         self._forgotten: list = []
+        # the precision policy, its params trees (the int8 snapshot and
+        # the count of snapshots installed; the bf16 cast as (source leaf
+        # ids, version, tree)), the version the network bumps when it
+        # writes its params in place, and the digest of the weights served
+        # (`weights_digest`) by (int8, stamp)
+        self._policy = "f32"
+        self._qparams = None
+        self._qversion = 0
+        self._cast = None
+        self._version = 0
+        self._digests: Dict[bool, tuple] = {}
 
     def _keyed_conf(self, conf):
         if any(c.attention_fused_bwd for c in conf.confs):
@@ -247,19 +286,119 @@ class InferCache(CompiledProgramCache):
 
     @property
     def plan(self):
-        """The cache's `ShardPlan` (its mesh, policy f32): every key element
+        """The cache's `ShardPlan` (its mesh and policy): every key element
         and placement comes from it."""
         from deeplearning4j_tpu_torch.parallel.plan import ShardPlan
 
-        return ShardPlan(mesh=self._mesh)
+        return ShardPlan(mesh=self._mesh, policy=self._policy)
 
     def set_plan(self, plan) -> None:
-        """Install a `ShardPlan`: its mesh. The precision policies are
-        ROADMAP.md queue A item 11's, so a plan's policy must be f32."""
-        if plan.policy != "f32":
-            raise ValueError(f"serving precision policy {plan.policy!r} is "
-                             f"not ported (ROADMAP.md queue A item 11)")
+        """Install a `ShardPlan`: its policy and its mesh. An int8 plan needs
+        the quantized tree installed first (`set_policy`; the plan carries
+        the policy's name, not the snapshot)."""
+        if plan.policy != self._policy:
+            self.set_policy(plan.policy, qparams=self._qparams
+                            if plan.policy == "int8" else None)
         self.set_mesh(plan.mesh)
+
+    # -- precision policy -------------------------------------------------
+    def set_policy(self, policy: str, qparams=None) -> None:
+        """Serve every later call under `policy` ("f32", "bf16" or "int8").
+        int8 takes the quantized tree (`MultiLayerNetwork.
+        set_serve_precision` makes it); one of the same shapes as the held
+        snapshot is copied into it, so that the captured int8 graphs stay
+        valid, and another one replaces it (those graphs capture anew).
+        Each new snapshot counts one, and under a mesh a rank whose count
+        is not rank 0's refuses the call (every rank sets it). The
+        programs of every policy stay cached under their own keys."""
+        from deeplearning4j_tpu_torch.optimize.quantize import validate_policy
+
+        validate_policy(policy)
+        if policy == "int8":
+            if qparams is None:
+                raise ValueError("the int8 policy needs the quantized params "
+                                 "tree (use MultiLayerNetwork."
+                                 "set_serve_precision)")
+            with self._lock:
+                held = self._qparams
+                if held is not None and held is not qparams and _same_leaves(
+                        held, qparams):
+                    with torch.no_grad():
+                        for dst, src in zip(tree_leaves(held),
+                                            tree_leaves(qparams)):
+                            dst.copy_(src)
+                    self._qversion += 1
+                elif held is not qparams:
+                    self._qparams = qparams
+                    self._qversion += 1
+        with self._lock:
+            self._policy = policy
+
+    @property
+    def policy(self) -> str:
+        return self._policy
+
+    def params_written(self) -> None:
+        """The network's params were written in place (a train step): the
+        bf16 cast is made again at the next call."""
+        with self._lock:
+            self._version += 1
+
+    def _serve_params(self, params):
+        """The params tree the policy's programs read: f32 the network's
+        own; bf16 the held cast of it, cast again (into the same tensors)
+        after `params_written`, and made anew for another tree; int8 the
+        snapshot `set_policy` installed."""
+        policy = self._policy
+        if policy == "f32":
+            return params
+        if policy == "int8":
+            return self._qparams
+        from deeplearning4j_tpu_torch.optimize.quantize import cast_params_bf16
+
+        ids = tuple(id(t) for t in tree_leaves(params))
+        with self._lock:
+            held = self._cast
+            if held is not None and held[:2] == (ids, self._version):
+                return held[2]
+            with torch.no_grad():
+                if held is not None and held[0] == ids:
+                    tree = held[2]
+                    for dst, src in zip(tree_leaves(tree),
+                                        tree_leaves(params)):
+                        if dst is not src:
+                            dst.copy_(src)
+                else:
+                    tree = cast_params_bf16(params)
+            self._cast = (ids, self._version, tree)
+            return tree
+
+    def _stamp(self, params, int8: bool):
+        """(leaf ids, version) of the weights a policy serves: the int8
+        snapshot's and its count, else the network's and their version."""
+        tree = self._qparams if int8 else params
+        return (tuple(id(t) for t in tree_leaves(tree)),
+                self._qversion if int8 else self._version)
+
+    def weights_digest(self, params) -> str:
+        """The digest (`quantize.params_digest`) of the weights the policy
+        serves: the int8 snapshot's under int8, else the network's params
+        (the bf16 cast is made of them). Made once a params version; it
+        ties what a store keeps of a program's results to the weights that
+        made them."""
+        from deeplearning4j_tpu_torch.optimize.quantize import params_digest
+
+        int8 = self._policy == "int8"
+        with self._lock:
+            stamp = self._stamp(params, int8)
+            held = self._digests.get(int8)
+            if held is not None and held[0] == stamp:
+                return held[1]
+            tree = self._qparams if int8 else params
+        digest = params_digest(tree)
+        with self._lock:
+            self._digests[int8] = (stamp, digest)
+        return digest
 
     def sharding_tag(self):
         """The sharding element of the row entries' keys (the plan's):
@@ -311,11 +450,16 @@ class InferCache(CompiledProgramCache):
             return tp
 
     def _local_params(self, conf, params):
-        """The params a program of this rank reads: the whole tree, or
-        under a model axis its shard (`shard_params`), made once a params
-        tree and kept, so that the graphs read it by address. Training
-        that writes the whole params in place is not seen by the shard:
-        `set_mesh` again (or assign the params) to shard them anew."""
+        """The params a program of this rank reads: the policy's tree
+        (`_serve_params`), whole, or under a model axis its shard
+        (`shard_params`), made once a tree and kept, so that the graphs
+        read it by address. A new version of a policy's tree (the bf16
+        cast made again, a new int8 snapshot) is sharded again into the
+        held shard. Training that writes the whole f32 params in place is
+        not seen by their shard: `set_mesh` again (or assign the params)
+        to shard them anew."""
+        policy = self._policy
+        params = self._serve_params(params)
         tp = self._tp(conf)
         if tp is None:
             return params
@@ -323,13 +467,22 @@ class InferCache(CompiledProgramCache):
 
         fp = self._fingerprint(conf)
         ids = tuple(id(t) for t in tree_leaves(params))
+        version = {"bf16": self._cast[1] if self._cast else None,
+                   "int8": self._qversion}.get(policy)
         with self._lock:
-            held = self._sharded.get(fp)
+            held = self._sharded.get((fp, policy))
             if held is None or held[0] != ids:
                 with torch.no_grad():
-                    held = self._sharded[fp] = (ids, shard_params(params,
-                                                                  tp))
-            return held[1]
+                    held = self._sharded[(fp, policy)] = (
+                        ids, version, shard_params(params, tp))
+            elif held[1] != version:
+                with torch.no_grad():
+                    for dst, src in zip(tree_leaves(held[2]), tree_leaves(
+                            shard_params(params, tp))):
+                        if dst is not src:
+                            dst.copy_(src)
+                held = self._sharded[(fp, policy)] = (ids, version, held[2])
+            return held[2]
 
     def _batch_axis(self) -> Tuple[int, int]:
         """(this rank's coordinate, size) of the batch axis."""
@@ -429,16 +582,21 @@ class InferCache(CompiledProgramCache):
     def _on_every_rank(self, key, bucket=None):
         """Run the body on every rank of the mesh: on rank 0 the header
         goes out and the followers vote before the body, and their end is
-        awaited after it; on a follower (inside `follow`), its key is
-        checked against rank 0's and it answers ready and waits for go.
-        Without followers, the body alone."""
+        awaited after it; on a follower (inside `follow`), its key and its
+        int8 snapshot count are checked against rank 0's and it answers
+        ready and waits for go. Without followers, the body alone."""
         ch = self._channel
         follow = getattr(self._tls, "follow", None)
+        snap = self._qversion if self._policy == "int8" else None
         if follow is not None:
-            seq, want = follow
+            seq, (want, want_snap) = follow
             if key != want:
                 raise RuntimeError(f"rank {ch.rank}: key {key!r} is not "
                                    f"rank 0's {want!r}")
+            if snap != want_snap:
+                raise RuntimeError(
+                    f"rank {ch.rank}: int8 snapshot {snap} is not rank 0's "
+                    f"{want_snap} (set_serve_precision on every rank)")
             self._tls.follow = None
             ch.answer(seq, "p")
             ch.wait_go(seq)
@@ -452,7 +610,7 @@ class InferCache(CompiledProgramCache):
         with self._call_lock:
             with self._lock:
                 forgets, self._forgotten = self._forgotten, []
-            seq = ch.send(("call", name, args, kwargs, key, bucket,
+            seq = ch.send(("call", name, args, kwargs, (key, snap), bucket,
                            forgets))
             ch.vote(seq)
             try:
@@ -533,9 +691,9 @@ class InferCache(CompiledProgramCache):
         xp = pad_rows(x, bucket)
         key = (("output", self._fingerprint(conf), arg_signature(xp))
                + self.plan.key_suffix())
-        tp = self._tp(conf)
+        tp, policy = self._tp(conf), self._policy
         with self._on_every_rank(key, bucket):
-            out = self._run(key, lambda: _output_program(conf, tp),
+            out = self._run(key, lambda: _output_program(conf, tp, policy),
                             self._local_params(conf, params),
                             (self._my_rows(xp),),
                             read=lambda o: self._read_rows(o, bucket, n),
@@ -554,9 +712,10 @@ class InferCache(CompiledProgramCache):
         xp = pad_rows(x, bucket)
         key = (("feed_forward", self._fingerprint(conf), arg_signature(xp))
                + self.plan.key_suffix())
-        tp = self._tp(conf)
+        tp, policy = self._tp(conf), self._policy
         with self._on_every_rank(key, bucket):
-            acts = self._run(key, lambda: _feed_forward_program(conf, tp),
+            acts = self._run(key,
+                             lambda: _feed_forward_program(conf, tp, policy),
                              self._local_params(conf, params),
                              (self._my_rows(xp),),
                              read=lambda acts: [self._read_rows(a, bucket, n)
@@ -581,7 +740,7 @@ class InferCache(CompiledProgramCache):
                 "bucket": int(k[2][0][0][0]) if k[2] and k[2][0] else 0,
                 "sharding": (tag if isinstance(tag, str) else
                              "mesh:" + "x".join(str(d) for d in tag[2])),
-                "policy": "f32"})
+                "policy": k[4][1] if len(k) > 4 else "f32"})
         return sorted(rows, key=lambda r: (r["entry"], r["bucket"],
                                            r["sharding"], r["policy"]))
 
@@ -589,10 +748,12 @@ class InferCache(CompiledProgramCache):
     def init_decode_state(self, conf, batch: int, max_seq: int,
                           device=None):
         """A fresh zero decode state (`nn/decode.init_state`) on `device`
-        (None: CUDA); under a model axis, this rank's K/V columns."""
+        (None: CUDA), shaped for the policy's conf; under a model axis,
+        this rank's K/V columns."""
         from deeplearning4j_tpu_torch.nn import decode as decode_mod
 
-        return decode_mod.init_state(conf, batch, max_seq,
+        return decode_mod.init_state(_policy_conf(conf, self._policy),
+                                     batch, max_seq,
                                      device=resolve_device(device),
                                      tp=self._tp(conf))
 
@@ -603,7 +764,8 @@ class InferCache(CompiledProgramCache):
         rank's K/V columns under a model axis)."""
         from deeplearning4j_tpu_torch.nn import decode as decode_mod
 
-        return decode_mod.init_paged_state(conf, batch, n_pages, page_size,
+        return decode_mod.init_paged_state(_policy_conf(conf, self._policy),
+                                           batch, n_pages, page_size,
                                            device=resolve_device(device),
                                            tp=self._tp(conf))
 
@@ -614,13 +776,13 @@ class InferCache(CompiledProgramCache):
         captures on the same ones), made on first use and kept: the graphs
         read it by address, so the programs warmed on it replay for its
         later users. `pages` = (n_pages, page_size) makes a paged state,
-        and is part of the key, as is the decode tag (a model axis's state
-        holds this rank's K/V columns). Its content is what the last call
-        left; `reset_state` zeroes it."""
+        and is part of the key, as are the decode tag (a model axis's state
+        holds this rank's K/V columns) and the policy (its K/V dtype). Its
+        content is what the last call left; `reset_state` zeroes it."""
         dev = resolve_device(device)
         key = (self._fingerprint(conf), int(batch), int(max_seq), str(dev),
                role, None if pages is None else tuple(int(p) for p in pages),
-               self._decode_tag())
+               self._decode_tag(), self._policy)
         with self._lock:
             state = self._decode_states.get(key)
             if state is None:
@@ -771,11 +933,12 @@ class InferCache(CompiledProgramCache):
         """One generation program's call: its inputs on the device
         (`_decode_inputs`), its key (entry, conf fingerprint, the signature
         of the inputs and the state's leaves at their whole shapes, the
-        decode tag), and `_run` of `build(tp)` with the new carries written
+        decode tag, the policy), and `_run` of `build(tp, policy)` with the new
+        carries written
         into `state`, on every rank under a model axis. Returns `read` of
         the outputs, or None with `compile_only`."""
         args = self._decode_inputs(conf, params, state, tok, *rest)
-        tp = self._tp(conf)
+        tp, policy = self._tp(conf), self._policy
         # the keys travel as int64 holding uint32 values (the only int64
         # input): the key names JAX's dtype
         sig = tuple((s[0], "uint32") if s is not None and s[1] == "int64"
@@ -784,7 +947,7 @@ class InferCache(CompiledProgramCache):
                 sig + arg_signature(*_whole_leaves(state, tp)))
                + self.plan.decode_key_suffix())
         with self._model_axis(key):
-            return self._run(key, lambda: build(tp),
+            return self._run(key, lambda: build(tp, policy),
                              (self._local_params(conf, params), state),
                              args, read=read, write=_write_carries,
                              compile_only=compile_only)
@@ -798,7 +961,8 @@ class InferCache(CompiledProgramCache):
         int64, state), the state written in place. On CUDA the replay of one
         captured graph per key; on the CPU the program, eagerly."""
         out = self._generation(
-            "decode", lambda tp: _decode_program(conf, tp=tp), conf, params,
+            "decode", lambda tp, pol: _decode_program(conf, False, tp, pol),
+            conf, params,
             state, _read_tokens, compile_only, tok, (pos, torch.int32),
             (keys, torch.int64), (temps, torch.float32))
         return None if compile_only else (*out, state)
@@ -812,7 +976,8 @@ class InferCache(CompiledProgramCache):
         program per (conf, rows, prompt bucket, max_seq): the state's leaves
         are in the key."""
         out = self._generation(
-            "prefill", lambda tp: _prefill_program(conf, tp), conf, params,
+            "prefill", lambda tp, pol: _prefill_program(conf, tp, pol),
+            conf, params,
             state, _read_tokens, compile_only, prompt, (length, torch.int32),
             (keys, torch.int64), (temps, torch.float32))
         return None if compile_only else (*out, state)
@@ -823,7 +988,8 @@ class InferCache(CompiledProgramCache):
         """`decode` over a paged state: page_table [B, pages_per_slot] int
         routes each row through the shared pool ("decode-paged")."""
         out = self._generation(
-            "decode-paged", lambda tp: _decode_program(conf, True, tp), conf,
+            "decode-paged",
+            lambda tp, pol: _decode_program(conf, True, tp, pol), conf,
             params, state, _read_tokens, compile_only, tok,
             (pos, torch.int32), (keys, torch.int64), (temps, torch.float32),
             (page_table, torch.int32))
@@ -840,7 +1006,8 @@ class InferCache(CompiledProgramCache):
         in the entry name ("decode-multi[k]"), as in the JAX package."""
         out = self._generation(
             "decode-multi[%d]" % int(k),
-            lambda tp: _decode_block_program(conf, int(k), False, tp), conf,
+            lambda tp, pol: _decode_block_program(conf, int(k), False, tp,
+                                                  pol), conf,
             params,
             state, _read_block, compile_only, tok, (pos, torch.int32),
             (keys, torch.int64), (temps, torch.float32), (rem, torch.int32))
@@ -855,7 +1022,8 @@ class InferCache(CompiledProgramCache):
         of all `k` positions first."""
         out = self._generation(
             "decode-multi-paged[%d]" % int(k),
-            lambda tp: _decode_block_program(conf, int(k), True, tp), conf,
+            lambda tp, pol: _decode_block_program(conf, int(k), True, tp,
+                                                  pol), conf,
             params,
             state, _read_block, compile_only, tok, (pos, torch.int32),
             (keys, torch.int64), (temps, torch.float32), (rem, torch.int32),
@@ -870,7 +1038,8 @@ class InferCache(CompiledProgramCache):
         ("prefill-logp"); the batcher keeps the pair by prompt digest and
         samples each stream's first token on the host with its own key."""
         logp = self._generation(
-            "prefill-logp", lambda tp: _prefill_logp_program(conf, tp), conf,
+            "prefill-logp",
+            lambda tp, pol: _prefill_logp_program(conf, tp, pol), conf,
             params,
             state, lambda out: out[0].clone(), compile_only, prompt,
             (length, torch.int32))
@@ -893,7 +1062,8 @@ class InferCache(CompiledProgramCache):
         copies, and a CUDA `toks` (a draft's own proposals) is not checked
         on the host."""
         out = self._generation(
-            "verify", lambda tp: _verify_program(conf, False, tp), conf,
+            "verify", lambda tp, pol: _verify_program(conf, False, tp, pol),
+            conf,
             params,
             state, _read_tokens, compile_only, toks, (pos, torch.int32),
             (keys, torch.int64), (temps, torch.float32))
@@ -905,7 +1075,8 @@ class InferCache(CompiledProgramCache):
         """`verify` over a paged state ("verify-paged"): the caller has
         allocated the pages of all K positions."""
         out = self._generation(
-            "verify-paged", lambda tp: _verify_program(conf, True, tp), conf,
+            "verify-paged",
+            lambda tp, pol: _verify_program(conf, True, tp, pol), conf,
             params,
             state, _read_tokens, compile_only, toks, (pos, torch.int32),
             (keys, torch.int64), (temps, torch.float32),
@@ -928,9 +1099,10 @@ class InferCache(CompiledProgramCache):
         from deeplearning4j_tpu_torch.nn.multilayer import \
             network_regularization
 
-        tp = self._tp(conf)
+        tp, policy = self._tp(conf), self._policy
         with self._on_every_rank(key, bucket):
-            rows = self._run(key, lambda: _rows_loss_program(conf, tp),
+            rows = self._run(key,
+                             lambda: _rows_loss_program(conf, tp, policy),
                              self._local_params(conf, params),
                              (self._my_rows(xp), self._my_rows(yp)),
                              read=lambda r: r.clone(),
@@ -954,34 +1126,72 @@ def _whole_leaves(state, tp):
             for lay in state for name, t in lay.items()]
 
 
-def _output_program(conf, tp=None) -> Callable:
+def _same_leaves(a, b) -> bool:
+    """Whether two trees have leaves of equal shapes and dtypes in one
+    order."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype for x, y in zip(la, lb))
+
+
+def _policy_conf(conf, policy: str):
+    """The conf a policy's programs run (f32: the conf itself)."""
+    if policy == "f32":
+        return conf
+    from deeplearning4j_tpu_torch.optimize.quantize import serve_conf
+
+    return serve_conf(conf, policy)
+
+
+def _policy_args(params, policy: str):
+    """The program's view of its params: int8 leaves dequantized to
+    bfloat16 here, inside the captured program."""
+    if policy == "f32":
+        return params
+    from deeplearning4j_tpu_torch.optimize.quantize import runtime_params
+
+    return runtime_params(params, policy)
+
+
+def _output_program(conf, tp=None, policy: str = "f32") -> Callable:
     # local import: nn.multilayer imports this module at top level
     from deeplearning4j_tpu_torch.nn.multilayer import network_output
 
+    pconf = _policy_conf(conf, policy)
+
     def program(params, x):
         with torch.inference_mode():
-            return network_output(conf, params, x, tp=tp)
+            out = network_output(pconf, _policy_args(params, policy), x,
+                                 tp=tp)
+            return out if policy == "f32" else out.float()
 
     return program
 
 
-def _feed_forward_program(conf, tp=None) -> Callable:
+def _feed_forward_program(conf, tp=None, policy: str = "f32") -> Callable:
     from deeplearning4j_tpu_torch.nn.multilayer import feed_forward
 
+    pconf = _policy_conf(conf, policy)
+
     def program(params, x):
         with torch.inference_mode():
-            return feed_forward(conf, params, x, tp=tp)
+            acts = feed_forward(pconf, _policy_args(params, policy), x,
+                                tp=tp)
+            return acts if policy == "f32" else [a.float() for a in acts]
 
     return program
 
 
-def _rows_loss_program(conf, tp=None) -> Callable:
+def _rows_loss_program(conf, tp=None, policy: str = "f32") -> Callable:
     from deeplearning4j_tpu_torch.nn.multilayer import network_rowwise_loss
+
+    pconf = _policy_conf(conf, policy)
 
     def program(params, x, y):
         with torch.inference_mode():
-            return network_rowwise_loss(conf, params, x, y, training=False,
-                                        tp=tp)
+            rows = network_rowwise_loss(pconf, _policy_args(params, policy),
+                                        x, y, training=False, tp=tp)
+            return rows if policy == "f32" else rows.float()
 
     return program
 
@@ -1012,11 +1222,15 @@ def _write_carries(ps, out):
     return tuple(rest)
 
 
-def _decode_program(conf, paged: bool = False, tp=None) -> Callable:
+def _decode_program(conf, paged: bool = False, tp=None,
+                    policy: str = "f32") -> Callable:
     from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+    conf = _policy_conf(conf, policy)
 
     def program(ps, tok, pos, keys, temps, *page_table):
         params, state = ps
+        params = _policy_args(params, policy)
         with torch.inference_mode():
             if paged:
                 logp, new = decode_mod.decode_step_paged(
@@ -1034,11 +1248,15 @@ def _sample_f32(logp, keys, temps):
     return nd_random.sample_tokens(logp.float(), keys, temps)
 
 
-def _decode_block_program(conf, k: int, paged: bool, tp=None) -> Callable:
+def _decode_block_program(conf, k: int, paged: bool, tp=None,
+                          policy: str = "f32") -> Callable:
     from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+    conf = _policy_conf(conf, policy)
 
     def program(ps, tok, pos, keys, temps, rem, *page_table):
         params, state = ps
+        params = _policy_args(params, policy)
         with torch.inference_mode():
             return decode_mod.decode_block(
                 conf, params, state, tok, pos, keys, temps, rem, k,
@@ -1082,11 +1300,15 @@ def _rollback_carries(state, carries, e):
                  for lay, car in zip(state, carries))
 
 
-def _verify_program(conf, paged: bool, tp=None) -> Callable:
+def _verify_program(conf, paged: bool, tp=None,
+                    policy: str = "f32") -> Callable:
     from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+    conf = _policy_conf(conf, policy)
 
     def program(ps, toks, pos, keys, temps, *page_table):
         params, state = ps
+        params = _policy_args(params, policy)
         with torch.inference_mode():
             if paged:
                 logp, new, carries = decode_mod.verify_chunk_paged(
@@ -1102,11 +1324,14 @@ def _verify_program(conf, paged: bool, tp=None) -> Callable:
     return program
 
 
-def _prefill_logp_program(conf, tp=None) -> Callable:
+def _prefill_logp_program(conf, tp=None, policy: str = "f32") -> Callable:
     from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+    conf = _policy_conf(conf, policy)
 
     def program(ps, prompt, length):
         params, state = ps
+        params = _policy_args(params, policy)
         with torch.inference_mode():
             logp, new = decode_mod.prefill(conf, params, state, prompt,
                                            length, tp=tp)
@@ -1115,11 +1340,14 @@ def _prefill_logp_program(conf, tp=None) -> Callable:
     return program
 
 
-def _prefill_program(conf, tp=None) -> Callable:
+def _prefill_program(conf, tp=None, policy: str = "f32") -> Callable:
     from deeplearning4j_tpu_torch.nn import decode as decode_mod
+
+    conf = _policy_conf(conf, policy)
 
     def program(ps, prompt, length, keys, temps):
         params, state = ps
+        params = _policy_args(params, policy)
         with torch.inference_mode():
             logp, new = decode_mod.prefill(conf, params, state, prompt,
                                            length, tp=tp)

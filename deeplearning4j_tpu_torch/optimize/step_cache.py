@@ -67,7 +67,8 @@ reuses it for every batch; here the program is a `torch.cuda.CUDAGraph`:
 
 `StepCacheStats.as_dict` keeps the JAX package's keys: `compile_seconds`
 holds capture seconds (warm-up included), and the disk counters stay 0, as
-a CUDA graph cannot be written to disk (ROADMAP.md queue A item 11). The
+a CUDA graph cannot be written to disk (ROADMAP.md queue C): a cache's
+`persist` store (`optimize/persist.py`) holds byte artifacts only. The
 serve-path sibling is `optimize/infer_cache.py`.
 """
 
@@ -402,6 +403,17 @@ class CompiledProgramCache:
         # the serving dispatcher and the caller's thread reach one cache:
         # lookup, bucket growth, capture and the books change under it
         self._lock = threading.RLock()
+        # the persistent byte store (`optimize/persist.py`), or None
+        self._persist = None
+
+    def set_persist(self, store) -> None:
+        """Attach a `PersistentProgramStore` (None detaches it). It holds
+        byte artifacts; the graphs stay in memory."""
+        self._persist = store
+
+    @property
+    def persist(self):
+        return self._persist
 
     # -- bucket policy ------------------------------------------------------
     def bucket_rows(self, n: int) -> int:

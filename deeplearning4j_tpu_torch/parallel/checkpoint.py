@@ -58,7 +58,9 @@ class CheckpointFormatError(RuntimeError):
     """The checkpoint cannot be read into this process."""
 
 
-def _to_tensor(a, device) -> torch.Tensor:
+def to_tensor(a, device) -> torch.Tensor:
+    """A numpy array (an `ml_dtypes.bfloat16` one by its bits) as a tensor
+    on `device`."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret bits
         return torch.from_numpy(a.view(np.uint16).copy()).view(
@@ -66,17 +68,28 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _leaf_to_tensor(a, device):
+    """A leaf, or an int8 leaf's {"q", "scale"} sub-dict, as tensors."""
+    if isinstance(a, dict):
+        return {k: to_tensor(v, device) for k, v in a.items()}
+    return to_tensor(a, device)
+
+
 def params_from_numpy(tree, device) -> tuple:
     """A tuple of per-layer dicts of tensors on `device`, from the JAX
     package's params: a tuple (or list) of dicts of arrays, or the nested
-    dict keyed "0", "1", ... that a checkpoint read gives."""
+    dict keyed "0", "1", ... that a checkpoint read gives. The quantized
+    trees of the int8 serve policy carry over too: a leaf that is a
+    {"q": int8, "scale": float32} sub-dict stays one."""
     if isinstance(tree, dict):
         tree = [tree[k] for k in sorted(tree, key=int)]
-    return tuple({name: _to_tensor(a, device) for name, a in layer.items()}
-                 for layer in tree)
+    return tuple({name: _leaf_to_tensor(a, device)
+                  for name, a in layer.items()} for layer in tree)
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array (see `params_to_numpy` for
+    bfloat16)."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         try:
@@ -93,8 +106,9 @@ def params_to_numpy(params) -> tuple:
     bfloat16 tensor becomes an `ml_dtypes.bfloat16` array (the type JAX
     gives bf16 arrays, bit for bit) where `ml_dtypes` can be imported, and
     a float32 array (exact: widening loses nothing) where it cannot."""
-    return tuple({name: _to_numpy(t) for name, t in layer.items()}
-                 for layer in params)
+    return tuple({name: ({k: to_numpy(v) for k, v in t.items()}
+                         if isinstance(t, dict) else to_numpy(t))
+                  for name, t in layer.items()} for layer in params)
 
 
 def _atomic_swap(tmp: str, directory: str) -> None:
@@ -152,7 +166,7 @@ def save(directory: str, params, updater=None, *,
         state = {"params": params}
         if updater is not None:
             state["updater"] = updater
-        arrays = {key: _to_numpy(a) for key, a in _leaf_paths(state)}
+        arrays = {key: to_numpy(a) for key, a in _leaf_paths(state)}
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         meta = {"step": int(step), "data_cursor": dict(data_cursor or {}),
                 "metadata": dict(metadata or {}),
@@ -314,7 +328,7 @@ def _restore(directory: str, flat: Dict[str, np.ndarray], prefix: str,
                 f"{tuple(flat[path].shape)}, model expects "
                 f"{tuple(leaf.shape)}: this checkpoint belongs to a "
                 f"different config")
-        leaves.append(_to_tensor(flat[path], leaf.device))
+        leaves.append(to_tensor(flat[path], leaf.device))
     return tree_unflatten(like, leaves)
 
 
@@ -409,7 +423,7 @@ def _load_sharded_impl(directory: str, like_params, like_updater,
                         f"{tuple(leaf.shape)}: this checkpoint belongs to "
                         f"a different config")
                 whole = (slice(None),) * len(info["shape"])
-                leaves.append(_to_tensor(
+                leaves.append(to_tensor(
                     _assemble_region(z, info, whole, stats), leaf.device))
         return tree_unflatten(like, leaves)
 
@@ -488,7 +502,7 @@ def save_sharded(directory: str, params, updater=None, *,
         split = _split_of(path, tp) if multi else None
         if split is None:
             if writer:
-                arr = _to_numpy(leaf)
+                arr = to_numpy(leaf)
                 pieces[f"{path}::0"] = arr
                 index[path] = {"shape": list(arr.shape),
                                "dtype": str(arr.dtype),
@@ -504,7 +518,7 @@ def save_sharded(directory: str, params, updater=None, *,
                 key = f"{path}::{r * split.parts + p}"
                 if r == 0:
                     if writer:
-                        pieces[key] = _to_numpy(mine[p])
+                        pieces[key] = to_numpy(mine[p])
                 elif tp.rank == r:
                     dist.send(mine[p].contiguous(), dst=root, group=tp.group)
                 elif writer:
@@ -512,7 +526,7 @@ def save_sharded(directory: str, params, updater=None, *,
                                            contiguous_format)
                     dist.recv(buf, src=dist.get_global_rank(tp.group, r),
                               group=tp.group)
-                    pieces[key] = _to_numpy(buf)
+                    pieces[key] = to_numpy(buf)
                 entry.append({"key": key, "index": [list(x) for x in b]})
         if writer:
             index[path] = {"shape": shape,
@@ -574,7 +588,7 @@ def _load_local(directory: str, meta: Dict[str, Any], like_params,
                 f"checkpoint {directory} leaf {path} has shape {shape}, "
                 f"which does not hold this rank's {want}: this checkpoint "
                 f"belongs to a different config")
-        return _to_tensor(local, like.device)
+        return to_tensor(local, like.device)
 
     try:
         params = tree_unflatten(like_params, [

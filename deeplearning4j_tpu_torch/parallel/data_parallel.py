@@ -957,6 +957,7 @@ class DataParallelTrainer:
             for dst, src in zip(tree_leaves(self.net.params),
                                 tree_leaves(params)):
                 dst.copy_(src)
+        self.net.params_written()
 
     def _apply_restored(self, params, updater, meta: dict) -> None:
         self._check_mesh_meta(meta)

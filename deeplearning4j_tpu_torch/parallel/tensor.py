@@ -283,11 +283,26 @@ def serve_parallel(mesh, conf, axis: str = "model") -> ServeParallel:
                          tp_layout(conf, size))
 
 
+def _shard_any(t, split: Optional[Split], size: int, rank: int):
+    """`shard_leaf` of a leaf, or of an int8 serve leaf's {"q", "scale"}:
+    `q` as its float leaf; its per-column `scale` ([1, n]) with the same
+    pieces where the split is over the last dim (a column split), and
+    whole where it is over the rows."""
+    if not isinstance(t, dict):
+        return shard_leaf(t, split, size, rank)
+    q = t["q"]
+    col = split is not None and split.dim == q.dim() - 1
+    return {"q": shard_leaf(q, split, size, rank),
+            "scale": shard_leaf(t["scale"], split if col else None, size,
+                                rank)}
+
+
 def shard_params(params, tp: TensorParallel):
     """This rank's params from a whole params tree: the split leaves of
     `tp.layout` cut to its slices (copies), every other leaf the whole
-    tensor itself (shared, not copied)."""
-    return tuple({name: shard_leaf(t, tp.layout.get((i, name)), tp.size,
+    tensor itself (shared, not copied). The int8 serve policy's quantized
+    leaves split with their `q` (`_shard_any`)."""
+    return tuple({name: _shard_any(t, tp.layout.get((i, name)), tp.size,
                                    tp.rank)
                   for name, t in layer.items()}
                  for i, layer in enumerate(params))

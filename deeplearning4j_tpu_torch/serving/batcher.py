@@ -14,9 +14,10 @@ queued ahead of "batch" ones, so a queue's head is not always its oldest
 request. The queue is bounded by `max_pending`; beyond it `predict()` raises
 `ServerOverloaded`. `stats()` has the JAX package's keys, with each priority
 class's queue depth, requests, latency percentiles and latency histogram
-(`LATENCY_BUCKETS_S`), and the infer cache's books (`fresh_compiles` is its
-misses: captures); the JAX package's `precision` block comes with the
-serve-precision policies (ROADMAP.md queue A item 11).
+(`LATENCY_BUCKETS_S`), the infer cache's books (`fresh_compiles` is its
+misses: captures) and the JAX package's `precision` block: the active
+serve-precision policy, the rows served under each policy (recorded per
+batch when it ran) and the network's `serve_precision_report`.
 
 Each request gets its own rows of the batch's output. A sequence model's
 output has several rows per input row (the charTransformer's `rnn_to_ff`
@@ -47,6 +48,7 @@ registry defaults).
 from __future__ import annotations
 
 import hashlib
+import io
 import queue
 import threading
 import time
@@ -152,7 +154,10 @@ class MicroBatcher:
         self._rows_done = 0
         self._batch_hist: Dict[int, int] = {}   # flushed batch rows -> count
         self._latencies: Deque[float] = deque(maxlen=4096)  # seconds
-        self._recent: Deque[Tuple[float, int]] = deque()    # (t_done, rows)
+        # (t_done, rows, policy): the policy of each batch as it ran, so
+        # that rows per policy stay right when the policy changes
+        self._recent: Deque[Tuple[float, int, str]] = deque()
+        self._rows_by_policy: Dict[str, int] = {}
         self._deadline_misses = 0
         self._errors = 0
         self._degraded_batches = 0
@@ -336,6 +341,7 @@ class MicroBatcher:
                                   x).float().cpu().numpy()
 
     def _execute(self, batch: List[_Pending]) -> None:
+        policy = self.net.infer_cache.policy
         xs = [r.x for r in batch]
         xb = xs[0] if len(xs) == 1 else np.concatenate(xs, axis=0)
         out, err, degraded = None, None, False
@@ -372,7 +378,9 @@ class MicroBatcher:
             self._reqs_done += len(batch)
             self._rows_done += rows
             self._batch_hist[rows] = self._batch_hist.get(rows, 0) + 1
-            self._recent.append((t_done, rows))
+            self._rows_by_policy[policy] = (
+                self._rows_by_policy.get(policy, 0) + rows)
+            self._recent.append((t_done, rows, policy))
             while self._recent and t_done - self._recent[0][0] > RATE_WINDOW_S:
                 self._recent.popleft()
             for r in batch:
@@ -394,8 +402,11 @@ class MicroBatcher:
         with self._cv:
             lat = sorted(self._latencies)
             now = time.monotonic()
-            recent_rows = sum(r for t, r in self._recent
-                              if now - t <= RATE_WINDOW_S)
+            recent_rows, recent_by_policy = 0, {}
+            for t, r, pol in self._recent:
+                if now - t <= RATE_WINDOW_S:
+                    recent_rows += r
+                    recent_by_policy[pol] = recent_by_policy.get(pol, 0) + r
             window = min(max(now - self._t_start, 1e-9), RATE_WINDOW_S)
             out = {
                 "queue_depth": self._pending,
@@ -417,6 +428,16 @@ class MicroBatcher:
                 "degraded_batches": self._degraded_batches,
                 "priorities": {p: self._priority_stats(p)
                                for p in PRIORITIES},
+                # the active policy, rows per policy and the accuracy
+                # delta measured when it was set (serving has no labels)
+                "precision": {
+                    "policy": self.net.infer_cache.policy,
+                    "rows_by_policy": dict(self._rows_by_policy),
+                    "rows_per_sec_by_policy": {
+                        p: round(r / window, 2)
+                        for p, r in sorted(recent_by_policy.items())},
+                    "report": getattr(self.net, "serve_precision_report",
+                                      {"policy": "f32"})},
             }
         cache = self.net.infer_cache.stats
         out["fresh_compiles"] = cache.misses
@@ -755,7 +776,14 @@ class ContinuousBatcher:
                     on the host from the cached logp with its own key;
                     `prefix_match="longest"` also reuses the longest cached
                     strict prefix and feeds the rest of the prompt through
-                    the decode table.
+                    the decode table. With the network's store attached
+                    (`set_compile_cache`) each entry is written through to
+                    it, and an exact miss in memory is looked up there, so
+                    another process's batcher serves the prompt from the
+                    disk entry with the same tokens; a corrupt entry is a
+                    counted miss and a cold prefill. Under a model axis
+                    each rank holds its own heads' K/V columns, and the
+                    disk store is not used.
     draft_net, spec_k  speculative decoding: a recurrent-only draft network
                     proposes spec_k - 1 tokens a slot (greedily, from its own
                     slot table kept in lockstep with the target's), and one
@@ -848,6 +876,7 @@ class ContinuousBatcher:
         self._forget = None
         self._prefix_hits = 0
         self._prefix_misses = 0
+        self._prefix_disk_hits = 0
         # -- K steps a dispatch ----------------------------------------------
         self.k_max = geo["k_max"]
         self._k_ladder = decode_k_ladder(self.k_max)
@@ -1139,15 +1168,14 @@ class ContinuousBatcher:
     # -- prefix cache -------------------------------------------------------
     def _prefix_digest(self, prompt: np.ndarray) -> str:
         """The key of a prompt's prefill: its tokens, the conf fingerprint,
-        max_seq (the row's shape) and the serving policy ("f32"), the
-        dimensions that key the prefill program itself; a plan with a
-        model axis folds its decode tag in (its rows are laid out by
-        rank), as the JAX package's does. One-rank and 1-D digests stay as
-        they were."""
+        max_seq (the row's shape) and the serving policy, the dimensions
+        that key the prefill program itself; a plan with a model axis
+        folds its decode tag in (its rows are laid out by rank), as the
+        JAX package's does. One-rank and 1-D digests stay as they were."""
         ic = self.net.infer_cache
         h = hashlib.sha256()
         h.update(ic._fingerprint(self.net.conf).encode())
-        h.update(repr((self.max_seq, "f32")).encode())
+        h.update(repr((self.max_seq, ic.policy)).encode())
         tag = ic._decode_tag()
         if tag != ic.SINGLE:
             h.update(repr(tag).encode())
@@ -1156,12 +1184,87 @@ class ContinuousBatcher:
 
     def _prefix_store(self, prompt: np.ndarray, logp: np.ndarray,
                       row) -> None:
-        """Keep a cold prefill: (the prompt, the logp at its last position,
-        a host copy of the filled row, its handle in the infer cache),
-        LRU-bounded. The infer cache keeps the row (`keep_row`, each rank
-        its own under a model axis) and forgets it when it leaves the
-        LRU."""
+        """Keep a cold prefill (`_prefix_keep`) and write it through to the
+        network's store, where there is one (`_prefix_disk_write`)."""
         digest = self._prefix_digest(prompt)
+        entry = self._prefix_keep(digest, prompt, logp, row)
+        self._prefix_disk_write(digest, entry)
+
+    def _prefix_disk_store(self):
+        """The store prefix entries go through: the network's, off a model
+        axis (where each rank holds its own K/V columns)."""
+        ic = self.net.infer_cache
+        if ic.persist is None or ic.plan.has_model_axis:
+            return None
+        return ic.persist
+
+    def _prefix_disk_key(self, digest: str) -> tuple:
+        """The store key of a prefix entry: its digest and the digest of
+        the weights served (`InferCache.weights_digest`), so that an entry
+        another checkpoint of the same conf wrote is a miss."""
+        return ("prefix", self.net.infer_cache.weights_digest(
+            self.net.params), digest)
+
+    def _prefix_disk_write(self, digest: str, entry) -> None:
+        """Write an entry to the store as one npz blob: the prompt, the
+        logp and each layer's row tensors, named "L<layer>_<name>|<dtype>"
+        (a bfloat16 tensor as its 16-bit pattern, so that it comes back
+        bit for bit). Best effort: a failed write changes nothing."""
+        store = self._prefix_disk_store()
+        if store is None:
+            return
+        import torch
+
+        try:
+            arrs = {"prompt": entry[0],
+                    "logp": np.asarray(entry[1], np.float32),
+                    "n_layers": np.asarray(len(entry[2]), np.int64)}
+            for i, lay in enumerate(entry[2]):
+                for name, t in lay.items():
+                    dt = str(t.dtype).replace("torch.", "")
+                    if t.dtype == torch.bfloat16:
+                        t = t.view(torch.int16)
+                    arrs[f"L{i}_{name}|{dt}"] = t.cpu().numpy()
+            buf = io.BytesIO()
+            np.savez(buf, **arrs)
+            store.store_bytes(self._prefix_disk_key(digest),
+                              buf.getvalue())
+        except Exception:  # noqa: BLE001 — the disk is best effort
+            pass
+
+    def _prefix_disk_load(self, digest: str):
+        """The store's entry of `digest`, kept in memory (`_prefix_keep`),
+        or None. A corrupt entry raises (the lookup counts a miss)."""
+        store = self._prefix_disk_store()
+        if store is None:
+            return None
+        blob = store.load_bytes(self._prefix_disk_key(digest))
+        if blob is None:
+            return None
+        import torch
+
+        with np.load(io.BytesIO(blob)) as z:
+            row = [dict() for _ in range(int(z["n_layers"]))]
+            for key in z.files:
+                if not key.startswith("L"):
+                    continue
+                where, dt = key.split("|")
+                i, name = where[1:].split("_", 1)
+                t = torch.from_numpy(z[key].copy())
+                if dt == "bfloat16":
+                    t = t.view(torch.bfloat16)
+                row[int(i)][name] = t
+            prompt = np.asarray(z["prompt"], np.int32)
+            logp = np.asarray(z["logp"], np.float32)
+        return self._prefix_keep(digest, prompt, logp, tuple(row))
+
+    def _prefix_keep(self, digest: str, prompt: np.ndarray, logp: np.ndarray,
+                     row) -> tuple:
+        """Keep an entry in memory: (the prompt, the logp at its last
+        position, a host copy of the filled row, its handle in the infer
+        cache), LRU-bounded. The infer cache keeps the row (`keep_row`,
+        each rank its own under a model axis) and forgets it when it
+        leaves the LRU."""
         handle = f"{id(self)}:{digest}"
         ic = self.net.infer_cache
         if self._forget is None:
@@ -1179,12 +1282,15 @@ class ContinuousBatcher:
                 dropped.append(self._prefix_lru.popitem(last=False)[1][3])
         for h in dropped:
             ic.drop_row(h)
+        return entry
 
     def _prefix_lookup(self, prompt: np.ndarray):
         """(matched tokens, logp or None, host row, its handle) for
-        `prompt`, or None on a miss; logp only on an exact match. Any
-        failure here (the armed `generate.prefix_lookup` fault) is a
-        counted miss and a cold prefill: the stream never fails here."""
+        `prompt`, or None on a miss; logp only on an exact match. An exact
+        miss in memory is looked up in the store (`_prefix_disk_load`). Any
+        failure here (the armed `generate.prefix_lookup` fault, a corrupt
+        disk entry) is a counted miss and a cold prefill: the stream never
+        fails here."""
         try:
             faults.fire("generate.prefix_lookup",
                         prompt_tokens=int(prompt.shape[0]))
@@ -1193,9 +1299,17 @@ class ContinuousBatcher:
                 entry = self._prefix_lru.get(digest)
                 if entry is not None:
                     self._prefix_lru.move_to_end(digest)
+            if entry is None:
+                entry = self._prefix_disk_load(digest)
+                if entry is not None:
+                    with self._cv:
+                        self._prefix_disk_hits += 1
+            if entry is not None:
+                with self._cv:
                     self._prefix_hits += 1
-                    return (int(entry[0].shape[0]), entry[1], entry[2],
-                            entry[3])
+                return (int(entry[0].shape[0]), entry[1], entry[2],
+                        entry[3])
+            with self._cv:
                 candidates = (list(self._prefix_lru.values())
                               if self.prefix_match == "longest" else [])
             best = None
@@ -1710,7 +1824,8 @@ class ContinuousBatcher:
         slot occupancy, queue depth, tokens/s over the trailing window, TTFT
         percentiles and histogram, stream outcomes, the host's share of the
         decode dispatches, the page pool and the prefix cache where they
-        are on, and the infer cache's fresh captures."""
+        are on (with a store attached, its `disk_hits`: the hits the store
+        served), and the infer cache's fresh captures."""
         with self._cv:
             now = time.monotonic()
             recent = sum(c for t, c in self._recent_tokens
@@ -1760,6 +1875,9 @@ class ContinuousBatcher:
                                        "misses": self._prefix_misses,
                                        "entries": len(self._prefix_lru),
                                        "match": self.prefix_match}
+                if self._prefix_disk_store() is not None:
+                    # the hits the store served
+                    out["prefix_cache"]["disk_hits"] = self._prefix_disk_hits
             if self.spec_k:
                 h = self._accept_hist
                 out["speculative"] = {

@@ -1,0 +1,15 @@
+"""The precision eval harness and the int8 calibration of the conv and
+recurrent models of `precision_eval_confs(small=True)` (lenet5,
+char_lstm) against the JAX package's: `tests/torch_budget_support.py`
+says what is checked."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch_budget_support import check_model, jax_run  # noqa: E402
+
+
+@pytest.mark.parametrize("model", ["lenet5", "char_lstm"])
+def test_budget_verdicts_and_calibration_are_jaxs(model, monkeypatch):
+    check_model(model, jax_run(model), monkeypatch)

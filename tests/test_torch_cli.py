@@ -10,6 +10,7 @@ decimals, accuracy and F1 exactly).
 
 import csv
 import json
+import os
 
 import numpy as np
 import pytest
@@ -190,7 +191,8 @@ def test_predict_and_test_match_jax_cli(tmp_path, capsys, kind):
     (["--mesh", "batch=2", "--checkpoint-dir", "ck"], "item 10"),
     (["--compile-cache", "cc"], "item 11")])
 def test_unported_train_options_name_their_roadmap_item(tmp_path, capsys,
-                                                        extra, item):
+                                                        monkeypatch, extra,
+                                                        item):
     """The item-10 cases are ported now (each exited naming item 10
     before): `--runtime mesh` and bare `--mesh` train the char-LSTM on
     text windows through the data-parallel trainer and write the conf.json
@@ -198,13 +200,20 @@ def test_unported_train_options_name_their_roadmap_item(tmp_path, capsys,
     `--mesh batch=2` (with or without `--checkpoint-dir`) exits as the JAX
     CLI's mesh does with too few devices ("needs 2 ..., have 1"), and
     `--zero1` without the mesh runtime exits with the JAX CLI's own
-    message. `--compile-cache` still exits naming item 11."""
+    message. The item-11 case is ported too (it exited naming item 11):
+    `--compile-cache` attaches the persistent store, whose directory the
+    train JSON's `disk_cache` names, as the JAX CLI's does."""
     uri = _corpus(tmp_path)
     argv = ["train", "--input", uri, "--zoo", "char_lstm:hidden=16",
             "--output", str(tmp_path / "o"), *extra]
     if item == "item 11":
-        with pytest.raises(SystemExit, match=f"ROADMAP.md queue A {item}"):
-            main(argv + ["--device", "cpu"])
+        monkeypatch.chdir(tmp_path)  # the store's relative directory
+        out = _last_json(_run(main, argv + ["--device", "cpu"], capsys))
+        jax_out = _last_json(_run(jax_main, argv, capsys))
+        assert out["disk_cache"]["dir"] == jax_out["disk_cache"]["dir"] \
+            == os.path.abspath("cc")
+        assert out["disk_cache"]["disk_hits"] == 0
+        assert np.isfinite(out["score"])
     elif "batch=2" in extra:
         with pytest.raises(SystemExit, match="needs 2 ranks, have 1"):
             main(argv + ["--device", "cpu"])
@@ -225,6 +234,60 @@ def test_unported_train_options_name_their_roadmap_item(tmp_path, capsys,
              capsys)
         assert ((tmp_path / "o" / "conf.json").read_text()
                 == (jax_out / "conf.json").read_text())
+
+
+@pytest.mark.parametrize("command", ["train", "test", "predict", "generate",
+                                     "serve", "warmup"])
+def test_compile_cache_attaches_one_store(tmp_path, capsys, monkeypatch,
+                                          command):
+    """`--compile-cache DIR` on every command the JAX CLI takes it on
+    attaches one persistent store at DIR to the network (and its two
+    caches share it); the command runs to its end."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving.server import ModelServer
+
+    uri = "csv:" + _csv(tmp_path)
+    ckpt = str(tmp_path / "ckpt")
+    assert main(["train", "--input", uri, "--zoo", "mlp:hidden=8",
+                 "--output", ckpt, "--device", "cpu"]) == 0
+    if command in ("generate", "serve", "warmup"):
+        lm = str(tmp_path / "lm")
+        assert main(["train", "--input", _corpus(tmp_path), "--zoo",
+                     "char_transformer:d_model=16,blocks=1,heads=2",
+                     "--output", lm, "--device", "cpu"]) == 0
+    capsys.readouterr()
+    cache = str(tmp_path / "cache")
+    attached = []
+    real = MultiLayerNetwork.set_compile_cache
+
+    def spy(self, directory, max_bytes=None):
+        store = real(self, directory, max_bytes)
+        attached.append((self, store))
+        return store
+
+    monkeypatch.setattr(MultiLayerNetwork, "set_compile_cache", spy)
+    monkeypatch.setattr(ModelServer, "wait_for_stop", lambda self: None)
+    argv = {"train": ["train", "--input", uri, "--zoo", "mlp:hidden=8",
+                      "--output", str(tmp_path / "o")],
+            "test": ["test", "--input", uri, "--model", ckpt],
+            "predict": ["predict", "--input", uri, "--model", ckpt,
+                        "--output", str(tmp_path / "p.csv")],
+            "generate": ["generate", "--model", str(tmp_path / "lm"),
+                         "--prompt", "1,2", "--max-new-tokens", "2",
+                         "--max-seq", "8"],
+            "serve": ["serve", "--model", str(tmp_path / "lm"), "--shapes",
+                      "", "--port", "0"],
+            "warmup": ["warmup", "--model", str(tmp_path / "lm"),
+                       "--shapes", "1x8"]}[command]
+    assert main(argv + ["--compile-cache", cache, "--device", "cpu"]) == 0
+    assert len(attached) == 1
+    net, store = attached[0]
+    assert store.directory == os.path.abspath(cache)
+    assert net.infer_cache.persist is net.step_cache.persist is store
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert any((line.get("disk_cache") or {}).get("dir") == store.directory
+               for line in lines)
 
 
 @pytest.mark.parametrize("flags", [["--runtime", "mesh"],

@@ -1049,19 +1049,26 @@ def test_cli_generate_prints_jax_keys_and_tokens(lstm_checkpoint, capsys,
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(got) == set(want)
     assert got["tokens"] == want["tokens"] and got["n_tokens"] == 6
-    assert got["fresh_compiles"] == 0 and got["disk_cache"] is None
+    assert got["fresh_compiles"] == 0
+    # no store attached: the program counters of the JAX CLI's block, 0
+    assert got["disk_cache"] == {k: 0 for k in want["disk_cache"]}
 
 
 @pytest.mark.parametrize("flag", [["--draft", "x", "--spec-k", "1"],
                                   ["--compile-cache", "x"]])
-def test_cli_generate_refuses_unported_flags(lstm_checkpoint, flag):
-    """`--compile-cache` exits naming its ROADMAP.md item. `--draft` is
-    ported (it exited naming item 8 before), and with `--spec-k` below 2
-    it exits as the JAX CLI does."""
+def test_cli_generate_refuses_unported_flags(lstm_checkpoint, flag, tmp_path,
+                                            capsys):
+    """Both flags are ported. `--compile-cache` (it exited naming item 11
+    before) attaches the persistent store, which the JSON's `disk_cache`
+    names. `--draft` (it exited naming item 8 before) with `--spec-k`
+    below 2 exits as the JAX CLI does."""
     argv = ["generate", "--model", lstm_checkpoint, "--prompt", "1"] + flag
     if flag[0] == "--compile-cache":
-        with pytest.raises(SystemExit, match="ROADMAP.md queue A item"):
-            torch_main(argv + ["--device", "cpu"])
+        argv[-1] = str(tmp_path / "cc")
+        assert torch_main(argv + ["--device", "cpu"]) == 0
+        got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert got["disk_cache"]["dir"] == argv[-1]
+        assert got["fresh_compiles"] == 0
         return
     with pytest.raises(SystemExit) as want:
         jax_main(argv)

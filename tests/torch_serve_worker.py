@@ -27,6 +27,14 @@ and rank 0 writes WORKDIR/out/<layout>.npz and <layout>.json:
   rank 0 records the error its next call raises and the answer of the
   call after it.
 
+A layout with "precision" sets that serve policy on every rank
+(`set_serve_precision`, after `set_serve_mesh`); with "output_only" rank 0
+serves the rows alone and writes `y` and `keys`, and the other ranks only
+follow. With "requantize" (a params name of inputs.npz) as well, rank 0
+then takes those params and sets the policy again alone, and records the
+error of its next call (`stale`); then every rank takes them and sets it,
+and rank 0 serves the rows again (`y2`).
+
 The process imports no JAX and nothing of the JAX package.
 """
 
@@ -66,16 +74,19 @@ def main(workdir: str) -> int:
     out_dir = os.path.join(workdir, "out")
     os.makedirs(out_dir, exist_ok=True)
 
-    def net_of(name):
-        conf = MultiLayerConfiguration.from_json(spec["confs"][name])
+    def params_of(name, n_layers):
         layers = {}
         for key in inputs.files:
             parts = key.split("/")
             if parts[0] == "params" and parts[1] == name:
                 layers.setdefault(int(parts[2]), {})[parts[3]] = inputs[key]
+        return params_from_numpy(
+            [layers.get(i, {}) for i in range(n_layers)], "cpu")
+
+    def net_of(name):
+        conf = MultiLayerConfiguration.from_json(spec["confs"][name])
         net = MultiLayerNetwork(conf, device="cpu")
-        net.params = params_from_numpy(
-            [layers.get(i, {}) for i in range(conf.n_layers)], "cpu")
+        net.params = params_of(name, conf.n_layers)
         return net
 
     g = spec["generate"]
@@ -103,7 +114,39 @@ def main(workdir: str) -> int:
         b, m = (int(v) for v in name.split("x"))
         net = net_of("tf")
         mesh = net.set_serve_mesh(spec=f"batch={b},model={m}")
+        if sc.get("precision"):
+            net.set_serve_precision(sc["precision"], measure=False)
         ic = net.infer_cache
+        again = sc.get("requantize")
+        if sc.get("output_only"):
+            if rank == 0:
+                x = torch.from_numpy(inputs["output/x"])
+                arrays = {"y": net.output(x).numpy()}
+                result = {"keys": sorted(repr(k) for k in ic._programs),
+                          "policy": ic.policy}
+                if again:
+                    net.params = params_of(again, net.conf.n_layers)
+                    net.set_serve_precision(sc["precision"], measure=False)
+                    try:
+                        net.output(x)
+                        result["stale"] = None
+                    except Exception as e:  # noqa: BLE001 — expected
+                        result["stale"] = f"{type(e).__name__}: {e}"
+                    net.stop_followers()
+                    dist.barrier()
+                    arrays["y2"] = net.output(x).numpy()
+                np.savez(os.path.join(out_dir, f"{name}.npz"), **arrays)
+                with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+                    json.dump(result, f)
+                net.stop_followers()
+            else:
+                net.follow()
+                if again:
+                    net.params = params_of(again, net.conf.n_layers)
+                    net.set_serve_precision(sc["precision"], measure=False)
+                    dist.barrier()
+                    net.follow()
+            continue
         if rank != 0:
             net.follow()
             if sc.get("fault"):
