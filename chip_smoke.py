@@ -282,6 +282,28 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    char-LSTM with f32 compute under bf16 and int8 (`lstm_cell_bf16_kernel`
    4 x 64 launches a forward, within SP_LSTM_TOL of the same policy's
    scan); `error_budget_report(small=False)` within every budget.
+21. `fleet` (FL_*; `--only-fleet` runs it alone, with no last line, and the
+   full run runs it so, in a child process): each tile variant of the
+   flash forward (`FL_TILE_CASES`: bf16 128x128 and 128x64 at the train and
+   prefill shapes and D = 64, f32 64x32 and 64x64 at [8, 512, 16, 128]
+   causal and not and at D = 64) against the plain version (bf16 2e-2 of
+   max|o|, f32 1e-4), its replay, plain and SDPA ms and bound; `tune
+   --groups attention` of the f32-compute flagship (both f32 tiles
+   launched), then `tune` of the bf16 flagship at SLICE's widths cut to
+   FL's 2 blocks into an empty store, in process (both bf16 tiles
+   launched; candidates, winners, seconds, the serve group's pool bytes a
+   row target; a candidate the card cannot hold fails its capture, counted
+   and skipped), then again in a fresh process (inherited: fresh_tunes 0,
+   source disk); `serve --replicas 2 --min-replicas 1 --max-replicas 2` on
+   that store (each replica's `tuning` block: the table, fresh_tunes 0, the
+   card's kind), 16 requests through the router bitwise an in-process
+   `net.output` with the same table, a burst from 8 threads (rows/s), the
+   router's and a replica's /metrics parsed, the replicas' flash launches
+   (`kernel_launches` of /v1/stats), one replica SIGKILLed and respawned
+   (answers bitwise after it), the drain to exit 0; an `agent` on an empty
+   store and `serve --agent` with its cache server on the first store: the
+   replica inherits the table over the cachesync wire (a fetch hit) and
+   answers bitwise.
 
 Each phase prints one JSON line; then a line with every kernel's numbers,
 the card's line, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -694,7 +716,10 @@ def f32_backward_sum(case_rows):
 def ptxas_info(log: str, kernel: str) -> dict:
     """Registers and spill bytes of each compiled instance of `kernel` in an
     nvcc -Xptxas -v log: {template args: {"registers", "spill_stores",
-    "spill_loads"}} (`ILi128EE...` -> "128")."""
+    "spill_loads"}} (`ILi128EE...` -> "128", `ILi128ELi64EE...` ->
+    "128,64": a head dim, then a tile variant's key tile)."""
+    import re
+
     out, cur = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -702,8 +727,9 @@ def ptxas_info(log: str, kernel: str) -> dict:
             cur = None
             if kernel in name:
                 rest = name.split(kernel, 1)[1]
-                cur = rest[3:rest.index("E")] if rest.startswith("ILi") \
-                    else rest
+                cur = (",".join(re.findall(r"Li(\d+)E",
+                                           rest.split("EE")[0] + "E"))
+                       if rest.startswith("ILi") else rest)
                 out[cur] = {}
         elif cur is not None and "spill stores" in line:
             words = line.replace(",", " ").split()
@@ -741,12 +767,14 @@ def f32_ptxas(kernels) -> dict:
 
 
 def check_no_spills(bodies, dims=("64", "128"), what="TMA") -> None:
-    """Every body is compiled for each head dim of `dims`, without
-    spills."""
+    """Every body is compiled for each head dim of `dims` (each of its tile
+    variants there, keyed "D,BN"), without spills."""
     for name, info in bodies.items():
         for d in dims:
-            at = info.get(d, {})
-            check(at.get("spill_stores") == 0 and at.get("spill_loads") == 0,
+            ats = [v for k, v in info.items() if k.split(",")[0] == d]
+            check(bool(ats) and all(at.get("spill_stores") == 0
+                                    and at.get("spill_loads") == 0
+                                    for at in ats),
                   f"{name}'s {what} body spills (or is missing) at D = {d}: "
                   f"{info}")
 
@@ -7867,6 +7895,632 @@ def phase_serve_precision_child(torch):
     return summary[0]
 
 
+#: the fleet phase (item 21): the flagship at SLICE's widths cut to
+#: FL["n_blocks"] blocks (bf16 compute), the tile-variant cases, the
+#: requests through the router and the tune's decode sweep length
+FL = dict(n_blocks=2, seed=0, requests=16, burst=64, burst_threads=8,
+          heal_requests=4, agent_requests=4, gen_max_seq=64, rounds=3,
+          timeout_s=300.0)
+FL_DEVICE = "cuda"
+#: the serve group's row candidates (`batcher.target_rows`' space)
+FL_SERVE_ROWS = (64, 128, 256, 512, 1024)
+
+#: the forward's tile-variant cases: (b, s, h, d, dtype, causal, with_lse,
+#: view), each run at every tile its body is built with: bf16 at the train
+#: shape (on qkv views, with lse) and the prefill shapes (causal, views),
+#: a D = 64 case for the bf16 D = 64 bodies; f32 at [8, 512, 16, 128]
+#: causal and not, with lse, and at D = 64
+FL_TILE_CASES = (
+    ("bfloat16", (32, 512, 16, 128, True, True, True)),
+    ("bfloat16", (1, 64, 16, 128, True, False, True)),
+    ("bfloat16", (1, 256, 16, 128, True, False, True)),
+    ("bfloat16", (8, 512, 16, 64, True, True, False)),
+    ("float32", (8, 512, 16, 128, True, True, False)),
+    ("float32", (8, 512, 16, 128, False, True, False)),
+    ("float32", (8, 512, 16, 64, True, True, False)),
+)
+
+
+def fl_tile_row(torch, kernels, gen, dname, case, tile):
+    """One forward case at one tile variant against the plain version (bf16
+    within 2e-2 of max|o|, its lse 1e-3; f32 1e-4 on o and lse), timed by
+    graph replay beside the plain version and SDPA, with its bound. Emits
+    and returns the row; a disagreement fails the run."""
+    import torch.nn.functional as F
+
+    b, s, h, d, causal, with_lse, view = case
+    dt = getattr(torch, dname)
+    q, k, v = fwd_inputs(torch, gen, b, s, h, d, dt, view)
+
+    def run():
+        return kernels.flash_attn_fwd(q, k, v, causal, with_lse=with_lse,
+                                      tile=tile)
+
+    before = dict(kernels.TILE_LAUNCHES)
+    got = run()
+    want = kernels.flash_attention_reference(q, k, v, causal,
+                                             with_lse=with_lse)
+    torch.cuda.synchronize()
+    name = kernels.tile_name(dt, tile)
+    check(kernels.TILE_LAUNCHES[name] == before[name] + 1,
+          f"fleet: the {name} variant did not launch")
+    if not with_lse:
+        got, want = (got, None), (want, None)
+    err_o = (got[0].float() - want[0].float()).abs().max().item()
+    if dt == torch.float32:
+        tol = 1e-4
+        ok = bool(torch.allclose(got[0], want[0], atol=1e-4, rtol=1e-4))
+    else:
+        tol = 2e-2 * want[0].float().abs().max().item()
+        ok = err_o <= tol
+    err_lse = None
+    if with_lse:
+        err_lse = (got[1] - want[1]).abs().max().item()
+        lse_tol = 1e-4 if dt == torch.float32 else 1e-3
+        ok = ok and bool(torch.allclose(got[1], want[1], atol=lse_tol,
+                                        rtol=lse_tol))
+    del got, want
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kernel_ms = graph_ms(run)
+    plain_ms = graph_ms(lambda: kernels.flash_attention_reference(
+        q, k, v, causal, with_lse=with_lse), iters=5, replays=1)
+    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal))
+    bound_ms, bound_by, fma_bound_ms = attention_bound_ms(
+        b, s, h, d, dname, causal, with_lse)
+    flops = 4.0 * b * h * s * s * d * (0.5 if causal else 1.0)
+    row = {"phase": "fleet_tile", "name": "flash_attn_fwd", "tile": name,
+           "shape": [b, s, h, d], "dtype": dname, "causal": causal,
+           "with_lse": with_lse, "view": view, "max_abs_err": err_o,
+           "tol": tol, "max_abs_err_lse": err_lse, "ok": bool(ok),
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "fma_bound_ms": fma_bound_ms,
+           "tflops": flops / kernel_ms / 1e9}
+    emit(row)
+    check(ok, f"fleet: a flash tile variant disagrees with its plain "
+              f"version: {row}")
+    return row
+
+
+def fl_tile_rows(torch, kernels):
+    """Every FL_TILE_CASES case at every tile its body is built with; their
+    launches are made to compare and time, not by the fleet's path."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    saved = kernels.launch_snapshot()
+    rows = []
+    for dname, case in FL_TILE_CASES:
+        for tile in kernels.fwd_tiles(getattr(torch, dname), case[3]):
+            rows.append(fl_tile_row(torch, kernels, gen, dname, case, tile))
+        torch.cuda.empty_cache()
+    kernels.reset_launches()
+    kernels.count_launches(saved)
+    return rows
+
+
+def fl_conf():
+    """The flagship at SLICE's widths, FL's depth, bf16 compute."""
+    return gen_conf(FL["n_blocks"], "bfloat16")
+
+
+def fl_rows(seed, n, rows=1):
+    """`n` requests of `rows` rows of ids each, from `seed`."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, SLICE["vocab"], (rows, SLICE["seq"]))
+            .astype(np.int32) for _ in range(n)]
+
+
+def fl_post(url, x, timeout=120.0):
+    """POST /v1/predict of int32 ids: (status, the output as float32 or
+    the error body)."""
+    body = {"features": x.tolist(), "dtype": "int32"}
+    req = urllib.request.Request(url + "/v1/predict",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, np.asarray(json.loads(resp.read())["output"],
+                                           np.float32)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode() or "{}")
+
+
+def fl_spawn(args, what):
+    """A port CLI subprocess (`python -m deeplearning4j_tpu_torch.cli
+    ARGS`): (process, its first stdout line as JSON, seconds to it, the
+    reader's list of its lines). The first line must come within FL's
+    timeout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", *args]
+    if FL_DEVICE != "cuda" and args[0] != "agent":
+        cmd += ["--device", FL_DEVICE]
+    env = dict(os.environ, PYTHONPATH=root)
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env,
+                            cwd=root)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                              daemon=True)
+    reader.start()
+    while not lines and proc.poll() is None \
+            and time.perf_counter() - t < FL["timeout_s"]:
+        time.sleep(0.05)
+    if not lines:
+        proc.kill()
+        proc.wait()
+        check(False, f"fleet: {what} printed no startup line (exit "
+                     f"{proc.poll()})")
+    return proc, json.loads(lines[0]), time.perf_counter() - t, lines
+
+
+def fl_stop(proc, lines, what, sig=None):
+    """SIGTERM (or `sig`) a CLI subprocess and wait: its last JSON line;
+    exit 0 required."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM if sig is None else sig)
+    try:
+        proc.wait(timeout=FL["timeout_s"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    time.sleep(0.2)
+    check(proc.returncode == 0, f"fleet: {what} exited {proc.returncode}")
+    return json.loads(lines[-1])
+
+
+def fl_tuning_ok(block, kind) -> bool:
+    return (block is not None and block.get("tuned_tables") == 1
+            and block.get("fresh_tunes") == 0
+            and block.get("device_kind") == kind)
+
+
+def fl_answers(url, xs, want, what):
+    """Each of `xs` POSTed in turn through `url`: every answer a 200 bitwise
+    `want`'s row (the same program on the same card). Returns (seconds,
+    rows)."""
+    t = time.perf_counter()
+    for i, x in enumerate(xs):
+        code, out = fl_post(url, x)
+        check(code == 200, f"fleet: {what} request {i} answered {code}: "
+                           f"{out}")
+        check(out.shape == want[i].shape
+              and np.array_equal(out, want[i]),
+              f"fleet: {what} request {i} is not bitwise the in-process "
+              f"output (max diff "
+              f"{float(np.abs(out - want[i]).max()) if out.shape == want[i].shape else out.shape})")
+    return time.perf_counter() - t, sum(x.shape[0] for x in xs)
+
+
+def fl_burst(url, xs, want):
+    """`xs` from FL's threads at once: rows/s through the router, and
+    the largest gap from `want` (a coalesced batch pads other rows, so
+    the gate is bf16's 2e-2 of max|o|, not bitwise)."""
+    results = [None] * len(xs)
+
+    def worker(idx):
+        for i in idx:
+            results[i] = fl_post(url, xs[i])
+
+    n = FL["burst_threads"]
+    threads = [threading.Thread(target=worker,
+                                args=(range(j, len(xs), n),))
+               for j in range(n)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(FL["timeout_s"])
+    seconds = time.perf_counter() - t
+    gap, scale = 0.0, 0.0
+    for i, (code, out) in enumerate(results):
+        check(code == 200, f"fleet: burst request {i} answered {code}")
+        gap = max(gap, float(np.abs(out - want[i]).max()))
+        scale = max(scale, float(np.abs(want[i]).max()))
+    check(gap <= 2e-2 * scale, f"fleet: burst answers {gap} from the "
+                               f"in-process rows (max|o| {scale})")
+    rows = sum(x.shape[0] for x in xs)
+    return {"seconds": seconds, "rows": rows, "rows_per_s": rows / seconds,
+            "tokens_per_s": rows * SLICE["seq"] / seconds,
+            "max_gap": gap, "max_abs": scale}
+
+
+def fl_metrics(url):
+    """The families of one `/metrics` scrape, parsed by the port's
+    `parse_prometheus_text`."""
+    from deeplearning4j_tpu_torch.serving.metrics import \
+        parse_prometheus_text
+
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as resp:
+        text = resp.read().decode()
+    return parse_prometheus_text(text)
+
+
+def fl_wait(url, cond, seconds):
+    """/v1/stats of `url` polled until `cond(stats)`, or None after
+    `seconds`."""
+    deadline = time.perf_counter() + seconds
+    while time.perf_counter() < deadline:
+        try:
+            st = get_json(url + "/v1/stats")
+        except Exception:  # noqa: BLE001 - the router is busy or healing
+            st = None
+        if st is not None and cond(st):
+            return st
+        time.sleep(0.2)
+    return None
+
+
+def fl_tune_f32(torch, kernels, workdir):
+    """`tune --groups attention` of the f32-compute flagship (its params
+    from the same seed) in process: the f32 body at each of its tiles.
+    Returns the row; the table it installs is cleared after."""
+    from deeplearning4j_tpu_torch.cli.driver import main as cli_main
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import tunables
+    from deeplearning4j_tpu_torch.parallel import checkpoint
+
+    ckpt = os.path.join(workdir, "ckpt_f32")
+    net = MultiLayerNetwork(gen_conf(FL["n_blocks"], None), device=FL_DEVICE,
+                            seed=FL["seed"]).init()
+    checkpoint.save(ckpt, net.params, conf=net.conf)
+    del net
+    dev = [] if FL_DEVICE == "cuda" else ["--device", FL_DEVICE]
+    kernels.reset_launches()
+    rc, rep = cli_json(cli_main, ["tune", "--model", ckpt, "--compile-cache",
+                                  os.path.join(workdir, "store_f32"),
+                                  "--groups", "attention", "--rounds",
+                                  str(FL["rounds"]), *dev])
+    launches = kernels.launch_snapshot()
+    tunables.clear()
+    att = rep["groups"]["attention"]
+    row = {"phase": "fleet_tune_f32", "tune_seconds": rep["tune_seconds"],
+           "candidates_measured": rep["candidates_measured"],
+           "entries": rep["entries"],
+           "winners": {k: r["winner"] for k, r in att.items()},
+           "attention_candidates_s": {k: r["candidates"]
+                                      for k, r in att.items()},
+           "launches": launches}
+    emit(row)
+    check(rc == 0 and rep["measure_failures"] == 0 and all(
+        launches[kernels.tile_name(torch.float32, t)] > 0
+        for t in kernels.fwd_tiles(torch.float32, 128)),
+        f"fleet: the f32 tune did not launch every f32 tile: {row}")
+    return row
+
+
+def fl_tune(torch, kernels, ckpt, store):
+    """`tune` on the checkpoint into the empty store, in process (its
+    launches counted here), then again in a fresh process on the same
+    store, which inherits the table."""
+    from deeplearning4j_tpu_torch.cli.driver import main as cli_main
+
+    dev = [] if FL_DEVICE == "cuda" else ["--device", FL_DEVICE]
+    kernels.reset_launches()
+    t = time.perf_counter()
+    rc, rep = cli_json(cli_main, ["tune", "--model", ckpt, "--compile-cache",
+                                  store, "--rounds", str(FL["rounds"]),
+                                  "--gen-max-seq", str(FL["gen_max_seq"]),
+                                  *dev])
+    wall = time.perf_counter() - t
+    launches = kernels.launch_snapshot()
+    check(rc == 0, "fleet: tune failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    att = rep["groups"].get("attention", {})
+    row = {"phase": "fleet_tune", "wall_s": wall,
+           "tune_seconds": rep["tune_seconds"],
+           "candidates_measured": rep["candidates_measured"],
+           "candidates_pruned": rep["candidates_pruned"],
+           "measure_failures": rep["measure_failures"],
+           "entries": rep["entries"], "tuning": rep["tuning"],
+           "winners": {g: {k: r["winner"] for k, r in grp.items()}
+                       for g, grp in rep["groups"].items()},
+           "attention_candidates_s": {k: r["candidates"]
+                                      for k, r in att.items()},
+           "serve_candidates_s": rep["groups"]["serve"][
+               "batcher.target_rows"]["candidates"],
+           "serve_pool_bytes": rep["groups"]["serve"][
+               "batcher.target_rows"]["pool_bytes"],
+           "decode_candidates_s": {k: r["candidates"] for k, r in
+                                   rep["groups"].get("decode", {}).items()},
+           "launches": launches}
+    # a candidate that does not fit the card (1,024 rows of 512 ids: its
+    # graph's pool is larger than the card) fails its capture: counted
+    # and skipped, as any failed measurement; every other one is measured
+    serve_failed = [str(c) for c in FL_SERVE_ROWS
+                    if str(c) not in row["serve_candidates_s"]]
+    row["serve_failed"] = serve_failed
+    emit(row)
+    check(rep["measure_failures"] == len(serve_failed)
+          and set(serve_failed) <= {"1024"}
+          and rep["tuning"]["tuned_tables"] == 1
+          and rep["tuning"]["fresh_tunes"] > 0
+          and rep["tuning"]["source"] == "fresh",
+          f"fleet: tune's report: {row}")
+    check(launches["flash_attn_fwd"] > 0 and all(
+        launches[kernels.tile_name(torch.bfloat16, t)] > 0
+        for t in kernels.fwd_tiles(torch.bfloat16, 128)),
+        f"fleet: tune's attention group did not launch every bf16 tile: "
+        f"{launches}")
+    proc, again, again_s, lines = fl_spawn(
+        ["tune", "--model", ckpt, "--compile-cache", store], "tune again")
+    proc.wait(timeout=FL["timeout_s"])
+    again_row = {"phase": "fleet_tune_again", "wall_s": again_s,
+                 "tuning": again["tuning"],
+                 "candidates_measured": again["candidates_measured"],
+                 "entries": again["entries"]}
+    emit(again_row)
+    check(proc.returncode == 0 and again["tuning"]["fresh_tunes"] == 0
+          and again["tuning"]["source"] == "disk"
+          and again["candidates_measured"] == 0
+          and again["entries"] == rep["entries"],
+          f"fleet: the second tune did not inherit: {again_row}")
+    return row, launches
+
+
+def phase_fleet(torch, kernels):
+    """Tuned tables and the serving fleet (module docstring, item 21).
+    Returns the summary: the launch counts of the fleet's path."""
+    import shutil
+    import signal
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import tunables
+    from deeplearning4j_tpu_torch.parallel import checkpoint
+    from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
+
+    t0 = time.perf_counter()
+    card = gpu_line()
+    kind = (torch.cuda.get_device_name(0) if FL_DEVICE == "cuda"
+            else "cpu")
+    bodies = {"tma": tma_ptxas(kernels)["flash_attn_fwd"],
+              "f32": f32_ptxas(kernels)["flash_attn_fwd"]}
+    emit({"phase": "fleet_build", "flash_attn_fwd_bodies": bodies})
+    check_no_spills({"flash_attn_fwd": bodies["tma"]})
+    check_no_spills({"flash_attn_fwd": bodies["f32"]}, ("32", "64", "128"),
+                    "f32")
+    tile_rows = fl_tile_rows(torch, kernels)
+    workdir = tempfile.mkdtemp(prefix="fleet_")
+    procs = []
+    try:
+        ckpt = os.path.join(workdir, "ckpt")
+        store1 = os.path.join(workdir, "store1")
+        store2 = os.path.join(workdir, "store2")
+        f32_row = fl_tune_f32(torch, kernels, workdir)
+        net = MultiLayerNetwork(fl_conf(), device=FL_DEVICE,
+                                seed=FL["seed"]).init()
+        checkpoint.save(ckpt, net.params, conf=net.conf)
+        del net
+        gc.collect()
+        torch.cuda.empty_cache()
+        tune_row, tune_launches = fl_tune(torch, kernels, ckpt, store1)
+        # the in-process reference: the checkpoint with the same table
+        # installed (the tune above installed it) and the same buckets
+        ref = load_network(ckpt, device=FL_DEVICE)
+        ref.set_compile_cache(store1)
+        check(tunables.active() is not None, "fleet: no table installed")
+
+        def expect(xs):
+            return [np.asarray(ref.output(x).float().cpu().numpy(),
+                               np.float32) for x in xs]
+
+        # -- serve --replicas 2 --min-replicas 1 --max-replicas 2 ---------
+        shapes = f"1x{SLICE['seq']}"
+        router, up, start_s, lines = fl_spawn(
+            ["serve", "--model", ckpt, "--compile-cache", store1,
+             "--shapes", shapes, "--replicas", "2", "--min-replicas", "1",
+             "--max-replicas", "2", "--port", "0", "--max-delay-ms", "2",
+             "--drain-timeout", "30"], "serve --replicas 2")
+        procs.append(router)
+        url = up["url"]
+        # each replica's stats and /metrics at once, before the
+        # autoscaler (min 1) may scale an idle fleet down
+        replica_stats = [get_json(u + "/v1/stats") for u in up["replicas"]]
+        replica_families = fl_metrics(up["replicas"][0])
+        tuned = [fl_tuning_ok(t, kind) for t in up["tuning"]] + [
+            fl_tuning_ok(s.get("tuning"), kind) for s in replica_stats]
+        check(len(up["replicas"]) == 2 and all(tuned),
+              f"fleet: a replica did not inherit the table: "
+              f"{up['tuning']}, {[s.get('tuning') for s in replica_stats]}")
+        xs = fl_rows(31, FL["requests"])
+        want = expect(xs)
+        seq_s, seq_rows = fl_answers(url, xs, want, "router")
+        burst_xs = fl_rows(32, FL["burst"])
+        burst = fl_burst(url, burst_xs, expect(burst_xs))
+        served_launches = fl_replica_launches(up["replicas"])
+        router_families = fl_metrics(url)
+        for fam in ("dl4j_router_requests_total",
+                    "dl4j_router_replicas_healthy",
+                    "dl4j_fleet_replicas", "dl4j_fleet_restarts_total"):
+            check(fam in router_families, f"fleet: router /metrics lacks "
+                                          f"{fam}")
+        for fam in ("dl4j_serving_requests_total", "dl4j_tuning_table_info",
+                    "dl4j_tuning_fresh_tunes_total"):
+            check(fam in replica_families, f"fleet: replica /metrics lacks "
+                                           f"{fam}")
+        # -- SIGKILL one live replica: the supervisor respawns it ----------
+        victims = [p for p in up["replica_pids"] if fl_alive(p)]
+        check(bool(victims), "fleet: no live replica to kill")
+        t = time.perf_counter()
+        os.kill(victims[0], signal.SIGKILL)
+        healed = fl_wait(url, lambda st: (
+            (st.get("fleet") or {}).get("restarts_total", 0) >= 1
+            and st.get("healthy_replicas", 0) >= 1
+            and any(s["restarts"] >= 1 and s["state"] == "running"
+                    for s in st["fleet"]["slots"])), FL["timeout_s"])
+        heal_s = time.perf_counter() - t
+        check(healed is not None, "fleet: the killed replica was not "
+                                  "respawned")
+        heal_xs = fl_rows(33, FL["heal_requests"])
+        fl_answers(url, heal_xs, expect(heal_xs), "router after the heal")
+        respawned = [s for s in healed["fleet"]["slots"]
+                     if s["restarts"] >= 1]
+        fleet_stats = get_json(url + "/v1/stats")
+        drained = fl_stop(router, lines, "serve --replicas 2")
+        procs.remove(router)
+        check(drained["drained"] and drained["restarts"] >= 1 and all(
+            rc == 0 for rc in drained["replica_exit_codes"]),
+            f"fleet: the drain: {drained}")
+        fleet_row = {
+            "phase": "fleet_serve", "gpu": card, "start_s": start_s,
+            "replicas": len(up["replicas"]),
+            "startup_tuning": up["tuning"],
+            "fresh_compiles": up["fresh_compiles"],
+            "sequential": {"requests": len(xs), "seconds": seq_s,
+                           "rows_per_s": seq_rows / seq_s,
+                           "bitwise": True},
+            "burst": burst,
+            "served_kernel_launches": served_launches,
+            "router_families": len(router_families),
+            "replica_families": len(replica_families),
+            "heal_s": heal_s, "respawned": respawned,
+            "autoscaler": fleet_stats.get("autoscaler"),
+            "retries": fleet_stats.get("retries"),
+            "unroutable": fleet_stats.get("unroutable"),
+            "drained": drained}
+        emit(fleet_row)
+        flash_served = sum(r.get("flash_attn_fwd", 0)
+                           for r in served_launches)
+        check(flash_served > 0, f"fleet: the replicas launched no flash "
+                                f"forward: {served_launches}")
+        # -- an agent on an empty store, warmed over the cachesync wire ---
+        agent, agent_up, agent_s, agent_lines = fl_spawn(
+            ["agent", "--compile-cache", store2, "--max-replicas", "1",
+             "--port", "0", "--drain-timeout", "30"], "agent")
+        procs.append(agent)
+        remote, rup, rstart_s, rlines = fl_spawn(
+            ["serve", "--model", ckpt, "--compile-cache", store1,
+             "--shapes", shapes, "--agent", agent_up["url"], "--port", "0",
+             "--max-delay-ms", "2", "--drain-timeout", "30"],
+            "serve --agent")
+        procs.append(remote)
+        rstats = get_json(rup["url"] + "/v1/stats")
+        slot = rstats["fleet"]["slots"][0]
+        agent_xs = fl_rows(34, FL["agent_requests"])
+        agent_seq_s, _ = fl_answers(rup["url"], agent_xs, expect(agent_xs),
+                                    "the agent's replica")
+        rdrained = fl_stop(remote, rlines, "serve --agent")
+        procs.remove(remote)
+        adrained = fl_stop(agent, agent_lines, "agent")
+        procs.remove(agent)
+        agent_row = {"phase": "fleet_agent", "agent_start_s": agent_s,
+                     "serve_start_s": rstart_s, "tuning": rup["tuning"],
+                     "slot": slot, "requests_s": agent_seq_s,
+                     "store2_entries": len([n for n in os.listdir(store2)
+                                            if n.endswith(".ptp")]),
+                     "drained": rdrained, "agent_drained": adrained}
+        emit(agent_row)
+        check(fl_tuning_ok(rup["tuning"][0], kind)
+              and (slot.get("cache_fetch_hits") or 0) >= 1,
+              f"fleet: the agent's replica did not get the table over the "
+              f"wire: {agent_row}")
+    finally:
+        # a router or agent ends its replicas when it drains: SIGTERM
+        # first, so that none outlives the phase
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+    summary = {"phase": "fleet", "gpu": card,
+               "seconds": time.perf_counter() - t0,
+               "tile_rows": [{k: r[k] for k in (
+                   "tile", "shape", "dtype", "causal", "max_abs_err", "tol",
+                   "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                   "bound_by", "tflops")} for r in tile_rows],
+               "tune_launches": tune_launches,
+               "tune_f32_launches": f32_row["launches"],
+               "served_kernel_launches": served_launches,
+               "winners": tune_row["winners"],
+               "f32_winners": f32_row["winners"],
+               "entries": tune_row["entries"]}
+    emit(summary)
+    return summary
+
+
+def fl_replica_launches(urls):
+    """Each replica's kernel launches (`/v1/stats` `kernel_launches`: what
+    its served replays launched), for the replicas still up."""
+    out = []
+    for u in urls:
+        try:
+            out.append(get_json(u + "/v1/stats")["kernel_launches"])
+        except Exception:  # noqa: BLE001 - scaled down meanwhile
+            continue
+    return out
+
+
+def fl_alive(pid) -> bool:
+    try:
+        os.kill(pid, 0)
+        return True
+    except OSError:
+        return False
+
+
+def fleet_flash_launches(summary) -> int:
+    """The flash forward's launches on the fleet's path: the two tunes in
+    the child, and the replicas' served replays."""
+    return (summary["tune_launches"]["flash_attn_fwd"]
+            + summary["tune_f32_launches"]["flash_attn_fwd"]
+            + sum(r.get("flash_attn_fwd", 0)
+                  for r in summary["served_kernel_launches"]))
+
+
+def fleet_tile_entries(summary):
+    """One entry a tile variant for the kernels line: its launches on the
+    fleet's path and its numbers at the main shape of its body (bf16: the
+    train shape; f32: [8, 512, 16, 128] causal), with every case."""
+    out = []
+    for name in ("bf16:128x128", "bf16:128x64", "f32:64x32", "f32:64x64"):
+        cases = [r for r in summary["tile_rows"] if r["tile"] == name]
+        main_row = cases[0]
+        launches = (summary["tune_launches"].get(name, 0)
+                    + summary["tune_f32_launches"].get(name, 0)
+                    + sum(r.get(name, 0)
+                          for r in summary["served_kernel_launches"]))
+        out.append({
+            "name": f"flash_attn_fwd[{name}]", "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
+            "replaces": "deeplearning4j_tpu/nd/pallas_kernels.py:106",
+            "launches": launches, "shape": main_row["shape"],
+            "max_abs_err": main_row["max_abs_err"],
+            "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"], "cases": cases})
+    return out
+
+
+def phase_fleet_child(torch):
+    """`phase_fleet` in a child process (`chip_smoke.py --only-fleet`), as
+    the other recent phases run. Echoes the child's lines; returns its
+    summary."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--only-fleet"],
+        capture_output=True, text=True, timeout=900)
+    rows = []
+    for line in proc.stdout.strip().splitlines():
+        print(line, flush=True)
+        if line.startswith("{"):
+            rows.append(json.loads(line))
+    summary = [r for r in rows if r.get("phase") == "fleet"]
+    check(proc.returncode == 0 and len(summary) == 1,
+          f"the fleet child failed (rc {proc.returncode}): "
+          f"{proc.stderr[-3000:]}")
+    emit({"phase": "fleet_child", "seconds": time.perf_counter() - t0})
+    return summary[0]
+
+
 def f32_case(r, library_key):
     """One f32 row's numbers for the kernels line."""
     return {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
@@ -7991,6 +8645,17 @@ def main(argv) -> int:
         kernels.build()
         phase_serve_precision(torch, kernels)
         return 0
+    if "--only-fleet" in argv:
+        # the fleet phase alone (the full run's child): no kernels line and
+        # no last line
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from deeplearning4j_tpu_torch.nd import kernels
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kernels.build()
+        phase_fleet(torch, kernels)
+        return 0
     if "--seed-sweeps" in argv:
         # the recipes that hang on the initial draw (SEED_SWEEPS)
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -8105,6 +8770,9 @@ def main(argv) -> int:
     sp_launches = sp_summary["flash_launches"]
     check(sp_launches > 0 and sp_summary["lstm_launches"] > 0,
           "the serve_precision phase launched no flash or cell kernel")
+    fl_summary = phase_fleet_child(torch)
+    fl_launches = fleet_flash_launches(fl_summary)
+    check(fl_launches > 0, "flash_attn_fwd never ran in the fleet phase")
 
     bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
     replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,
@@ -8121,7 +8789,7 @@ def main(argv) -> int:
                      + api_train_launches["flash_attn_fwd"]
                      + dp_launches["flash_attn_fwd"]
                      + tp_launches["flash_attn_fwd"] + sm_launches
-                     + sp_launches),
+                     + sp_launches + fl_launches),
         "launches_by_path": {"serve": serve_launches["flash_attn_fwd"],
                              "generate": gen_launches["flash_attn_fwd"],
                              **gen_option_launches,
@@ -8136,7 +8804,8 @@ def main(argv) -> int:
                              "tensor_parallel":
                                  tp_launches["flash_attn_fwd"],
                              "serve_mesh": sm_launches,
-                             "serve_precision": sp_launches},
+                             "serve_precision": sp_launches,
+                             "fleet": fl_launches},
         # the f32 conf's forward under each serve policy: 8 launches, the
         # 3xTF32 body under f32 and the TMA bf16 body under bf16 and int8
         "serve_precision": {
@@ -8166,6 +8835,10 @@ def main(argv) -> int:
         # the served mesh's prefill at each rank's heads (H / M, M = 2,
         # 4) and the served output's shape
         "at_serve_mesh_shapes": sm_summary["kernels"],
+        # each tile variant of the two bodies: its launches on the
+        # fleet's path (the tunes' attention groups, the tuned flagship's
+        # served replays) and its numbers at the fleet phase's shapes
+        "tile_variants": fleet_tile_entries(fl_summary),
         # every prefill's forward (B = 1, S = a warmed prompt bucket,
         # causal, no lse); SDPA is the library column
         "at_prefill_shapes": [{k: r[k] for k in (

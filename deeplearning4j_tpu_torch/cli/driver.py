@@ -1,5 +1,5 @@
-"""CLI driver: the `train`, `test`, `predict`, `warmup`, `generate` and
-`serve` subcommands.
+"""CLI driver: the `train`, `test`, `predict`, `warmup`, `generate`,
+`serve`, `tune` and `agent` subcommands.
 
 Counterpart of `deeplearning4j_tpu/cli/driver.py`, on one device (CUDA
 unless `--device cpu`):
@@ -40,6 +40,25 @@ unless `--device cpu`):
   store's byte payloads outlive it: a captured graph ends with the
   process, so `--precision int8` (its quantized weights) is the one flag
   with a lasting effect; the others check that the programs capture.
+- `tune` searches the tunables registry (`optimize/tune.py`: the flash
+  forward's tiles, the batcher's row target, the decode table) by
+  measuring real captured programs and kernels, and stores the winning
+  table in `--compile-cache` keyed by (conf fingerprint, card): every
+  later process on the directory (warmup, serve, each replica) inherits it
+  with fresh_tunes 0; a second `tune` inherits it too unless `--force`;
+- `serve --replicas N` spawns N `serve` replica processes (each its own
+  CUDA context, all on `--compile-cache`, with the caller's `--device`)
+  behind the `Router` (`--hedge`, `--retry-budget`), supervised by
+  `FleetSupervisor` (reap, respawn, quarantine) and, with `--max-replicas`
+  above `--min-replicas`, the `Autoscaler`; `serve --agent URL` spawns them
+  through `agent` processes instead (`--agent-failover`), and serves its
+  own store to them over the cachesync wire (`--cache-from` on their
+  command lines); SIGTERM drains the router, then the replicas;
+- `agent` runs the per-host replica agent (`serving/agent.py`): it spawns
+  `serve` replicas for a remote `serve --agent`, pins them to its own
+  `--compile-cache` and serves that store's entries at GET /a/cache.
+The warmup, serve and tune JSON carry the `tuning` block
+(`optimize/tunables.status()`).
 Checkpoints are `conf.json` + `arrays.npz`, written by either package.
 
 The final JSON lines keep the JAX package's keys. `train`'s: `saved`,
@@ -101,21 +120,45 @@ def _parse_properties(props: Optional[str]) -> dict:
 
 def _attach_compile_cache(net, args) -> None:
     """--compile-cache DIR: the persistent store of the network's caches
-    (`MultiLayerNetwork.set_compile_cache`)."""
-    if getattr(args, "compile_cache", None):
+    (`MultiLayerNetwork.set_compile_cache`; a tuned table stored there for
+    this conf and card installs). --cache-from URL (repeatable) adds a
+    remote fallback: an entry absent from the directory is fetched from a
+    peer agent or cache server over the cachesync wire
+    (`serving/cachesync.py`) before it is recomputed."""
+    if not getattr(args, "compile_cache", None):
+        return
+    sources = getattr(args, "cache_from", None)
+    if not sources:
         net.set_compile_cache(args.compile_cache)
+        return
+    from deeplearning4j_tpu_torch.serving.cachesync import CacheFetcher
+
+    net.set_compile_cache(args.compile_cache,
+                          remote=CacheFetcher(list(sources)))
+
+
+def _tuning_status() -> dict:
+    """The autotuning block of the warmup/serve/tune JSON (the shape of
+    `/v1/stats`'s `tuning`)."""
+    from deeplearning4j_tpu_torch.optimize import tunables
+
+    return tunables.status()
 
 
 def _disk_stats(net) -> dict:
     """The disk-cache block of the CLI's JSON: the caches' program
     counters (0: a CUDA graph is not written to disk) and, with a store
-    attached, its directory, entries, bytes, writes, hits and evictions."""
+    attached, its directory, entries, bytes, writes, hits and evictions;
+    `fetch_hits` and `fetch_corrupt` add the store's entries fetched over
+    the cachesync wire (`--cache-from`)."""
     cs, ic = net.step_cache.stats.as_dict(), net.infer_cache.stats.as_dict()
     out = {k: cs[k] + ic[k] for k in ("disk_hits", "disk_write_seconds",
                                       "deserialize_seconds", "fetch_hits",
                                       "fetch_corrupt")}
     store = net.infer_cache.persist
     if store is not None:
+        out["fetch_hits"] += store.fetch_hits
+        out["fetch_corrupt"] += store.fetch_corrupt
         out.update(store.stats())
     return out
 
@@ -601,7 +644,41 @@ def cmd_warmup(args) -> int:
     summary["mesh_devices"] = (None if mesh is None else
                                int(np.prod(list(mesh.shape.values()))))
     summary["disk_cache"] = _disk_stats(net)
+    summary["tuning"] = _tuning_status()
     print(json.dumps(summary), flush=True)
+    return 0
+
+
+def cmd_tune(args) -> int:
+    """Search the tunables registry's config space for this model
+    (`optimize/tune.py`): measure real captured candidate programs and
+    kernel tiles through the network's caches and wrappers, prune the
+    analytically bad candidates, and persist the winning table in the
+    store, keyed by (conf fingerprint, device kind): later warmup, serve
+    and replica processes on the directory inherit it with
+    fresh_tunes == 0."""
+    import os
+
+    from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import tune as tune_mod
+    from deeplearning4j_tpu_torch.parallel.checkpoint import load_network
+
+    if os.path.isdir(args.model):
+        net = load_network(args.model, device=args.device)
+    else:
+        with open(args.model) as f:
+            conf = MultiLayerConfiguration.from_json(f.read())
+        net = MultiLayerNetwork(conf, device=args.device).init()
+    store = None
+    if args.compile_cache:
+        store = net.set_compile_cache(args.compile_cache)
+    groups = tuple(g.strip() for g in args.groups.split(",") if g.strip())
+    report = tune_mod.tune_and_store(
+        net, store, force=args.force, groups=groups, rounds=args.rounds,
+        seed=args.seed, max_seq=args.gen_max_seq)
+    report["disk_cache"] = _disk_stats(net)
+    print(json.dumps(report), flush=True)
     return 0
 
 
@@ -666,6 +743,8 @@ def cmd_serve(args) -> int:
     following its calls. The store and the precision policy come first, on
     every rank, so that the warmed programs carry the policy's key (and an
     int8 artifact a `warmup` stored is loaded, not calibrated)."""
+    if args.replicas >= 1 or args.agent:
+        return cmd_serve_router(args)
     net, mesh = _serving_net(args)
     _attach_compile_cache(net, args)
     precision_report = _set_precision(net, args)
@@ -718,7 +797,8 @@ def _serve_on_rank0(args, net, precision_report) -> int:
                       "fresh_compiles": net.infer_cache.stats.misses,
                       "precision": net.serve_precision,
                       "precision_report": precision_report,
-                      "disk_cache": _disk_stats(net)}),
+                      "disk_cache": _disk_stats(net),
+                      "tuning": _tuning_status()}),
           flush=True)
     # the handler only sets an event; the main thread runs the drain
     prev = {}
@@ -740,6 +820,300 @@ def _serve_on_rank0(args, net, precision_report) -> int:
         print(json.dumps({"drained": True, "requests": st["requests"],
                           "deadline_misses": st["deadline_misses"],
                           "errors": st["errors"]}), flush=True)
+    return 0
+
+
+def _replica_cmd(args) -> List[str]:
+    """The `serve` command line one replica subprocess runs: the
+    caller's flags minus --replicas, always on an ephemeral port, with the
+    caller's --device (a CPU fleet spawns CPU replicas; without it each
+    replica takes the card, and none falls back to the CPU)."""
+    cmd = [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "serve",
+           "--model", args.model, "--host", args.host, "--port", "0",
+           "--shapes", args.shapes,
+           "--max-pending", str(args.max_pending),
+           "--drain-timeout", str(getattr(args, "drain_timeout", 10.0)),
+           "--request-timeout", str(getattr(args, "request_timeout", 30.0))]
+    if args.max_delay_ms is not None:
+        # None = tunable-governed; each replica resolves its own (and a
+        # shared tuned table keeps the fleet uniform)
+        cmd += ["--max-delay-ms", str(args.max_delay_ms)]
+    if args.compile_cache:
+        cmd += ["--compile-cache", args.compile_cache]
+    if args.max_batch_rows is not None:
+        cmd += ["--max-batch-rows", str(args.max_batch_rows)]
+    if args.no_batching:
+        cmd += ["--no-batching"]
+    if getattr(args, "default_deadline_ms", None) is not None:
+        cmd += ["--default-deadline-ms", str(args.default_deadline_ms)]
+    if getattr(args, "mesh", None) is not None:
+        cmd += ["--mesh", args.mesh]
+    if getattr(args, "precision", "f32") != "f32":
+        cmd += ["--precision", args.precision]
+    if getattr(args, "device", None):
+        cmd += ["--device", args.device]
+    return cmd
+
+
+def _remote_serve_argv(args, cache_sources: List[str]) -> List[str]:
+    """The `serve` argv a ReplicaAgent spawns for one remote replica:
+    the local replica command line minus the interpreter prefix and
+    minus --compile-cache (each agent pins its own host's cache dir),
+    plus --cache-from URLs so a cold host warms over the cachesync wire
+    instead of compiling."""
+    # drop `python -m deeplearning4j_tpu_torch.cli`
+    cmd = _replica_cmd(args)[3:]
+    argv: List[str] = []
+    skip = False
+    for a in cmd:
+        if skip:
+            skip = False
+            continue
+        if a == "--compile-cache":
+            skip = True
+            continue
+        argv.append(a)
+    for src in cache_sources:
+        argv += ["--cache-from", src]
+    return argv
+
+
+class ReplicaProcess:
+    """One `serve` replica subprocess: spawn, read the startup JSON off
+    its stdout (blocks until the replica warmed and is listening),
+    SIGTERM + collect the drained JSON at shutdown."""
+
+    def __init__(self, cmd: List[str]):
+        import subprocess
+
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+        self.summary: Optional[dict] = None
+
+    def wait_ready(self) -> dict:
+        line = self.proc.stdout.readline()
+        if not line:
+            rc = self.proc.wait()
+            raise SystemExit(f"replica died during startup (exit {rc})")
+        self.summary = json.loads(line)
+        return self.summary
+
+    @property
+    def url(self) -> Optional[str]:
+        return None if self.summary is None else self.summary.get("url")
+
+    @property
+    def pid(self) -> int:
+        return self.proc.pid
+
+    def poll(self) -> Optional[int]:
+        """Exit code if the process died, None while alive — the
+        supervisor's reap probe."""
+        return self.proc.poll()
+
+    def terminate(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                self.proc.send_signal(signal.SIGTERM)
+            except OSError:
+                pass
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                self.proc.kill()
+            except OSError:
+                pass
+
+    def wait(self, timeout: Optional[float] = None) -> int:
+        try:
+            rc = self.proc.wait(timeout)
+        finally:
+            if self.proc.stdout is not None:
+                self.proc.stdout.close()
+        return rc
+
+
+def cmd_serve_router(args) -> int:
+    """serve --replicas N: spawn N replica subprocesses sharing the
+    --compile-cache dir, front them with `serving.Router`, supervise
+    them (`FleetSupervisor` reaps + respawns deaths, `Autoscaler` flexes
+    the fleet between --min/--max-replicas), and mirror the
+    single-server SIGTERM contract fleet-wide — drain the ROUTER first
+    (every accepted request still finds its replica), then SIGTERM the
+    replicas and insist they all drain to exit 0."""
+    import signal
+
+    from deeplearning4j_tpu_torch.serving.autoscaler import Autoscaler
+    from deeplearning4j_tpu_torch.serving.router import Router
+    from deeplearning4j_tpu_torch.serving.supervisor import FleetSupervisor
+
+    agent_urls = list(getattr(args, "agent", None) or [])
+    if agent_urls and args.replicas < 1:
+        args.replicas = 1
+    min_replicas = getattr(args, "min_replicas", None) or args.replicas
+    max_replicas = getattr(args, "max_replicas", None) or args.replicas
+    cmd = _replica_cmd(args)
+    cache_server = None
+    remote_argv = None
+    clients = []
+    if agent_urls:
+        # multi-host: replicas live on per-host ReplicaAgents; the
+        # supervisor drives them over the network with leases
+        from deeplearning4j_tpu_torch.serving.agent import AgentClient
+        from deeplearning4j_tpu_torch.serving.cachesync import CacheServer
+
+        clients = [AgentClient(u) for u in agent_urls]
+        sources = []
+        if args.compile_cache:
+            # the control-plane host serves its own warmed cache dir
+            # too, so a respawn on a cold host warms over the wire even
+            # when every peer agent is cold (or dead)
+            cache_server = CacheServer(args.compile_cache).start()
+            sources.append(cache_server.url)
+        sources += [c.url for c in clients]
+        remote_argv = _remote_serve_argv(args, sources)
+        replicas = [clients[i % len(clients)].spawn(remote_argv)
+                    for i in range(args.replicas)]
+    else:
+        replicas = [ReplicaProcess(cmd) for _ in range(args.replicas)]
+    router = supervisor = autoscaler = None
+    try:
+        summaries = [r.wait_ready() for r in replicas]
+        router = Router([s["url"] for s in summaries],
+                        host=args.host, port=args.port,
+                        request_timeout_s=getattr(args, "request_timeout",
+                                                  30.0) + 5.0,
+                        hedge=getattr(args, "hedge", False),
+                        retry_budget_ratio=getattr(args, "retry_budget",
+                                                   0.1)).start()
+        # the supervisor adopts the already-ready initial handles; a
+        # respawn re-runs the same replica command line against the same
+        # shared disk cache, so coming back is seconds, not compiles
+        supervisor = FleetSupervisor(
+            spawn_fn=lambda: ReplicaProcess(cmd), router=router,
+            initial=replicas, min_replicas=min_replicas,
+            max_replicas=max_replicas,
+            agents=clients, remote_argv=remote_argv,
+            agent_failover_s=getattr(args, "agent_failover", 10.0),
+            drain_timeout_s=getattr(args, "drain_timeout", 10.0)).start()
+        if max_replicas > min_replicas:
+            autoscaler = Autoscaler(
+                router, supervisor,
+                slo_p99_ms=getattr(args, "slo_p99_ms", 500.0)).start()
+        router.attach_fleet(supervisor, autoscaler)
+        print(json.dumps({
+            "url": router.url,
+            "replicas": [s["url"] for s in summaries],
+            "replica_pids": [r.pid for r in replicas],
+            "min_replicas": min_replicas,
+            "max_replicas": max_replicas,
+            "hedge": router.hedge,
+            "agents": [c.url for c in clients],
+            "fresh_compiles": [s.get("fresh_compiles") for s in summaries],
+            "tuning": [s.get("tuning") for s in summaries],
+            "mesh_devices": summaries[0].get("mesh_devices"),
+        }), flush=True)
+        prev = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev[sig] = signal.signal(
+                    sig, lambda signum, frame: router.request_stop())
+            except ValueError:
+                pass  # not the main thread: explicit stop only
+        try:
+            router.wait_for_stop()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            for sig, handler in prev.items():
+                signal.signal(sig, handler)
+    finally:
+        drain_timeout = getattr(args, "drain_timeout", 10.0)
+        # shutdown order: control plane first (no respawn or scale
+        # action races the teardown), then the router drain (accepted
+        # requests finish against live replicas), then SIGTERM whatever
+        # processes the supervisor currently owns
+        if autoscaler is not None:
+            autoscaler.stop()
+        if supervisor is not None:
+            supervisor.stop()
+        if router is not None:
+            router.drain(drain_timeout)
+        if cache_server is not None:
+            cache_server.stop()
+        handles = supervisor.handles() if supervisor is not None else replicas
+        for r in handles:
+            r.terminate()
+        rcs = []
+        for r in handles:
+            try:
+                rcs.append(r.wait(timeout=drain_timeout + 15.0))
+            except Exception:  # noqa: BLE001 — a wedged replica: kill
+                r.kill()
+                rcs.append(r.wait())
+        stats = router.stats() if router is not None else {}
+        fleet = stats.get("fleet", {})
+        print(json.dumps({"drained": True,
+                          "replica_exit_codes": rcs,
+                          "retries": stats.get("retries", 0),
+                          "unroutable": stats.get("unroutable", 0),
+                          "hedges": stats.get("hedges", 0),
+                          "restarts": fleet.get("restarts_total", 0)}),
+              flush=True)
+    return 0 if rcs and all(rc == 0 for rc in rcs) else 1
+
+
+def cmd_agent(args) -> int:
+    """agent: the per-host replica-agent control plane.  Runs a small
+    HTTP server (POST /a/spawn, POST /a/stop, GET /a/health,
+    GET /a/replicas, GET /a/cache/{key}) that owns this host's replica
+    subprocesses on behalf of a remote `serve --agent` supervisor.
+    Model-free: the agent imports no torch model code -- replicas are
+    ordinary `serve` subprocesses, and the agent pins each one to this
+    host's --compile-cache dir so they share its entries (the tuned table,
+    the int8 artifact, prefix entries) and serve them to cold peers over
+    /a/cache."""
+    import threading
+
+    from deeplearning4j_tpu_torch.serving.agent import ReplicaAgent
+
+    def spawn_fn(argv):
+        return ReplicaProcess(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch.cli"] + list(argv))
+
+    agent = ReplicaAgent(spawn_fn, host=args.host, port=args.port,
+                         cache_dir=args.compile_cache,
+                         max_replicas=args.max_replicas).start()
+    print(json.dumps({"url": agent.url,
+                      "compile_cache": args.compile_cache,
+                      "max_replicas": args.max_replicas}), flush=True)
+    stop = threading.Event()
+    prev = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev[sig] = signal.signal(sig,
+                                      lambda signum, frame: stop.set())
+        except ValueError:
+            pass  # not the main thread: explicit stop only
+    try:
+        while not stop.wait(0.5):
+            pass
+    except KeyboardInterrupt:
+        pass
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
+        h = agent.health()
+        rcs = agent.stop(terminate_children=True,
+                         drain_timeout_s=getattr(args, "drain_timeout",
+                                                 10.0) + 15.0)
+        print(json.dumps({"drained": True,
+                          "replica_exit_codes": rcs,
+                          "spawns_total": h.get("spawns_total", 0),
+                          "cache_requests_total":
+                              h.get("cache_requests_total", 0),
+                          "cache_hits_total": h.get("cache_hits_total", 0)}),
+              flush=True)
     return 0
 
 
@@ -979,7 +1353,104 @@ def build_parser() -> argparse.ArgumentParser:
     _add_compile_cache(s)
     _add_precision(s)
     _add_generate_flags(s)
+    s.add_argument("--replicas", type=int, default=0, metavar="N",
+                   help="front N replica subprocesses (each its own "
+                        "gateway and CUDA context, all sharing "
+                        "--compile-cache) with the routing front end; 0 "
+                        "(default) serves in-process with no router")
+    s.add_argument("--min-replicas", dest="min_replicas", type=int,
+                   default=None, metavar="N",
+                   help="floor for the supervised fleet (default: "
+                        "--replicas); scale-down and quarantine never "
+                        "shrink below it")
+    s.add_argument("--max-replicas", dest="max_replicas", type=int,
+                   default=None, metavar="N",
+                   help="ceiling for the supervised fleet (default: "
+                        "--replicas); setting it above --min-replicas "
+                        "enables the autoscaler")
+    s.add_argument("--hedge", action="store_true",
+                   help="hedged requests: a proxy attempt that outlives "
+                        "the p95 of recent latencies is duplicated at a "
+                        "second replica, first answer wins; hedges and "
+                        "retries share the --retry-budget")
+    s.add_argument("--retry-budget", dest="retry_budget", type=float,
+                   default=0.1, metavar="RATIO",
+                   help="extra attempts (retries + hedges) allowed as a "
+                        "fraction of the trailing request window "
+                        "(default 0.1)")
+    s.add_argument("--slo-p99-ms", dest="slo_p99_ms", type=float,
+                   default=500.0,
+                   help="autoscaler latency objective: fleet p99 above "
+                        "this is a scale-up signal")
+    s.add_argument("--agent", action="append", default=None, metavar="URL",
+                   help="multi-host: spawn replicas through a ReplicaAgent "
+                        "at URL instead of forking locally (repeatable, "
+                        "one per host); supervision becomes lease-based")
+    s.add_argument("--agent-failover", dest="agent_failover", type=float,
+                   default=10.0, metavar="SECONDS",
+                   help="how long an agent may stay partitioned before "
+                        "its replicas fail over to surviving agents")
+    s.add_argument("--cache-from", dest="cache_from", action="append",
+                   default=None, metavar="URL",
+                   help="on a local store miss, fetch the entry from these "
+                        "cachesync URLs (repeatable, tried in order) "
+                        "before recomputing it; fetched entries are "
+                        "checksum-validated and served from memory")
     s.set_defaults(fn=cmd_serve)
+
+    tu = sub.add_parser(
+        "tune",
+        help="search the tunables registry's config space (flash tiles, "
+             "batch targets, decode geometry) by measuring real captured "
+             "programs and kernels; persist the winning table per (conf "
+             "fingerprint, device kind) in the store")
+    tu.add_argument("--model", required=True,
+                    help="conf JSON or checkpoint dir to tune for")
+    _add_device(tu)
+    tu.add_argument("--compile-cache", dest="compile_cache", default=None,
+                    metavar="DIR",
+                    help="persistent store to keep the tuned table in (and "
+                         "to inherit an existing one from: inherited tables "
+                         "report fresh_tunes == 0)")
+    tu.add_argument("--groups", default="attention,serve,decode",
+                    help="comma-separated tunable groups to search")
+    tu.add_argument("--rounds", type=int, default=3,
+                    help="timed rounds per candidate (min-of-rounds)")
+    tu.add_argument("--seed", type=int, default=0,
+                    help="rng seed for measurement inputs (the search is "
+                         "deterministic under a fixed seed)")
+    tu.add_argument("--gen-max-seq", dest="gen_max_seq", type=int,
+                    default=64,
+                    help="KV-cache length for the decode-group sweep")
+    tu.add_argument("--force", action="store_true",
+                    help="re-search even when the store already holds a "
+                         "valid table for this (fingerprint, device kind)")
+    tu.set_defaults(fn=cmd_tune)
+
+    ag = sub.add_parser(
+        "agent",
+        help="per-host replica agent: HTTP control plane (POST /a/spawn, "
+             "POST /a/stop, GET /a/health, GET /a/replicas, GET "
+             "/a/cache/{key}) that owns this host's replica subprocesses "
+             "for a remote serve --agent supervisor")
+    ag.add_argument("--host", default="127.0.0.1")
+    ag.add_argument("--port", type=int, default=0,
+                    help="0 picks an ephemeral port (printed in the startup "
+                         "JSON)")
+    ag.add_argument("--compile-cache", dest="compile_cache", default=None,
+                    metavar="DIR",
+                    help="this host's persistent store: every spawned "
+                         "replica is pinned to it, and its checksummed "
+                         "entries are served to cold peers over GET "
+                         "/a/cache/{key}")
+    ag.add_argument("--max-replicas", dest="max_replicas", type=int,
+                    default=4, metavar="N",
+                    help="capacity cap: spawns beyond it get 409 (default 4)")
+    ag.add_argument("--drain-timeout", dest="drain_timeout", type=float,
+                    default=10.0, metavar="SECONDS",
+                    help="bound on each child's SIGTERM graceful drain at "
+                         "agent shutdown")
+    ag.set_defaults(fn=cmd_agent)
 
     w = sub.add_parser("warmup", help="fill a persistent store ahead of "
                                       "traffic: only its byte payloads "

@@ -33,11 +33,11 @@
 //     block of three warpgroups per (batch*head, 128-query tile), D of 64
 //     or 128 (the wrapper zero-pads other head dims). Warpgroup 2 is the
 //     producer: `setmaxnreg` gives its registers to the consumers, and one
-//     of its threads loads Q once and streams 128-key K and V tiles by TMA
+//     of its threads loads Q once and streams K and V tiles by TMA
 //     (rank-4 tensor maps over the strided [B, S, H, D] views, [rows][64]
 //     boxes, 128-byte swizzle, zeros past S) into a two-stage ring with
 //     full / empty mbarriers, so loads overlap the products. Warpgroups 0
-//     and 1 each own 64 query rows: S = (q*scale).K^T is wgmma m64n128k16
+//     and 1 each own 64 query rows: S = (q*scale).K^T is wgmma m64nBNk16
 //     with both operands K-major in shared memory; the online softmax runs
 //     on the f32 accumulators in base 2 (exp2f, log2(e) folded into the
 //     scores); P, rounded to bf16 in registers, is the A operand of
@@ -52,9 +52,9 @@
 //     width of its bucket, 32, 64 or 128), on the tensor cores through
 //     mma.sync m16n8k8 TF32 with each operand split into hi + lo
 //     (3xTF32). One block of 4 warps per (batch*head, 64-query tile),
-//     each warp 16 query rows; K and V tiles (64 keys at D = 64, else 32:
-//     at D = 128 for two blocks an SM, at D = 32 because ptxas spills
-//     with 64) stream through a two-stage cp.async ring (16-byte chunks
+//     each warp 16 query rows; K and V tiles (by default 64 keys at D = 64,
+//     else 32: at D = 128 for two blocks an SM, at D = 32 because ptxas
+//     spills with 64) stream through a two-stage cp.async ring (16-byte chunks
 //     where D, the strides and the bases are 4-float aligned, as the
 //     fused qkv views are; single floats otherwise) behind one barrier a
 //     tile, so the copy of tile j + 1 runs while tile j is multiplied; Q
@@ -70,6 +70,13 @@
 //     causal query tiles launch first. What bounds it on this card is the
 //     instruction rate: per TF32 product about three other instructions
 //     (the splits of K and V, fragment loads, the softmax), PERF.md.
+
+// Tile variants. The key tile BN is a template parameter of both bodies,
+// built at two values where shared memory allows (bf16: 128 and 64 at D of
+// 64 and 128; f32: 64 and 32 at D = 64, 32 and 64 at D = 128; D = 32 at 32
+// alone). The C entry point takes block_k (0: the default above), and a
+// tuned table (`attention.block_fwd`, optimize/tunables.py) names the
+// variant through the wrapper in nd/kernels.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,15 +108,15 @@ constexpr int kF32BM = 64;  // queries per block: 4 warps of 16 rows
 constexpr int kF32Threads = 128;
 
 // The f32 body's shared memory for head dims up to DMAX: the block's Q tile
-// and a two-stage ring of K and V tiles of kBN keys (107,520 bytes at
-// DMAX = 128: two blocks an SM). The row strides make the fragment loads
+// and a two-stage ring of K and V tiles of BN keys (107,520 bytes at
+// DMAX = 128 and BN = 32: two blocks an SM; 178,176 at BN = 64: one). The row strides make the fragment loads
 // conflict-free: a quarter warp's float4 loads of Q or K (2 rows x 4 column
 // quads) meet 8 distinct 16-byte bank groups when the stride is 16 mod 32
 // floats; a half warp's float2 loads of V (4 rows x 4 column pairs) meet 16
 // distinct 8-byte bank pairs when it is 4 mod 16.
-template <int DMAX>
+template <int DMAX, int BN>
 struct F32Tiles {
-  static constexpr int kBN = DMAX == 64 ? 64 : 32;  // keys a tile
+  static constexpr int kBN = BN;  // keys a tile
   static constexpr int kStages = 2;
   static constexpr int kLdQK = DMAX + 16;
   static constexpr int kLdV = DMAX + 4;
@@ -149,7 +156,7 @@ __device__ __forceinline__ void stage_rows(float* dst,
   }
 }
 
-template <int DMAX>
+template <int DMAX, int BN>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_3xtf32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -158,7 +165,7 @@ flash_fwd_3xtf32_kernel(const float* __restrict__ q,
                         long long q_sb, long long q_ss, long long k_sb,
                         long long k_ss, long long v_sb, long long v_ss,
                         float scale, int causal, int vec4) {
-  using T = F32Tiles<DMAX>;
+  using T = F32Tiles<DMAX, BN>;
   constexpr int kBN = T::kBN;
   constexpr int kLdQK = T::kLdQK;
   constexpr int kLdV = T::kLdV;
@@ -365,17 +372,16 @@ flash_fwd_3xtf32_kernel(const float* __restrict__ q,
 using hopper::bf16;
 
 constexpr int kTmaBM = 128;       // queries per block: 2 consumer warpgroups
-constexpr int kTmaBN = 128;       // keys per tile
 constexpr int kTmaStages = 2;     // depth of the K/V ring
 constexpr int kTmaThreads = 384;  // warpgroups 0, 1 consume; 2 produces
 
 // Every box is [rows][64] bf16 with the 128-byte swizzle; every array size
 // is a multiple of 1024 bytes, so each box stays 1024-byte aligned.
-template <int D>
+template <int D, int BN>
 struct FwdSmem {
   bf16 q[D / 64][kTmaBM * 64];
-  bf16 k[kTmaStages][D / 64][kTmaBN * 64];
-  bf16 v[kTmaStages][D / 64][kTmaBN * 64];
+  bf16 k[kTmaStages][D / 64][BN * 64];
+  bf16 v[kTmaStages][D / 64][BN * 64];
   uint64_t q_full;
   uint64_t k_full[kTmaStages], v_full[kTmaStages], empty[kTmaStages];
 };
@@ -385,7 +391,9 @@ union Pack8 {  // 8 bf16 = one 16-byte load or store
   bf16 h[8];
 };
 
-template <int D>
+// BN (keys a tile, 128 or 64) is the N of the S = Q.K^T wgmma, the k-steps
+// of P.V and the rows of each K and V box.
+template <int D, int BN>
 __global__ void __launch_bounds__(kTmaThreads, 1)
 flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -394,9 +402,11 @@ flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      int S, float scale, int causal) {
   using namespace hopper;
   constexpr int kBoxes = D / 64;
+  constexpr int kTmaBN = BN;
   constexpr uint32_t kQBox = kTmaBM * 128, kKBox = kTmaBN * 128;  // bytes
   extern __shared__ char smem_raw[];
-  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(align_1024(smem_raw));
+  FwdSmem<D, BN>& sm =
+      *reinterpret_cast<FwdSmem<D, BN>*>(align_1024(smem_raw));
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -496,8 +506,12 @@ flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < D / 16; ++kk) {
         // columns 16 kk ..: box kk / 4, 32 bytes a k-step within its rows
         const uint32_t off = (kk % 4) * 32;
-        wgmma_ss_n128(s, desc_at(qd, (kk / 4) * kQBox + off),
-                      desc_at(kd, (kk / 4) * kKBox + off), kk);
+        if constexpr (BN == 128)
+          wgmma_ss_n128(s, desc_at(qd, (kk / 4) * kQBox + off),
+                        desc_at(kd, (kk / 4) * kKBox + off), kk);
+        else
+          wgmma_ss_n64(s, desc_at(qd, (kk / 4) * kQBox + off),
+                       desc_at(kd, (kk / 4) * kKBox + off), kk);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -587,7 +601,7 @@ flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
+template <int D, int BN>
 cudaError_t launch_tma(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int S, long long q_sb,
                        long long q_ss, long long k_sb, long long k_ss,
@@ -600,12 +614,12 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, void* o,
   CUtensorMap mq, mk, mv;
   cudaError_t err = heads_map(&mq, q, B, S, H, D, q_ss, q_sb, kTmaBM);
   if (err == cudaSuccess)
-    err = heads_map(&mk, k, B, S, H, D, k_ss, k_sb, kTmaBN);
+    err = heads_map(&mk, k, B, S, H, D, k_ss, k_sb, BN);
   if (err == cudaSuccess)
-    err = heads_map(&mv, v, B, S, H, D, v_ss, v_sb, kTmaBN);
+    err = heads_map(&mv, v, B, S, H, D, v_ss, v_sb, BN);
   if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(FwdSmem<D>) + 1024;  // + alignment slack
-  auto kernel = flash_fwd_tma_kernel<D>;
+  const size_t smem = sizeof(FwdSmem<D, BN>) + 1024;  // + alignment slack
+  auto kernel = flash_fwd_tma_kernel<D, BN>;
   static std::atomic<bool> smem_set[kMaxDevices];
   err = set_smem_once(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
@@ -616,7 +630,7 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <int DMAX, int BN>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int S, int D, long long q_sb,
                        long long q_ss, long long k_sb, long long k_ss,
@@ -625,8 +639,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   using warp_mma::rows_vec4;
   const int vec4 = D % 4 == 0 && rows_vec4(q, q_sb, q_ss) &&
                    rows_vec4(k, k_sb, k_ss) && rows_vec4(v, v_sb, v_ss);
-  const size_t smem = F32Tiles<DMAX>::kBytes;
-  auto kernel = flash_fwd_3xtf32_kernel<DMAX>;
+  const size_t smem = F32Tiles<DMAX, BN>::kBytes;
+  auto kernel = flash_fwd_3xtf32_kernel<DMAX, BN>;
   static std::atomic<bool> smem_set[kMaxDevices];
   cudaError_t err = set_smem_once(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
@@ -644,12 +658,15 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 // q, k, v: [B, S, H, D] with unit stride over D and stride D over H; their
 // batch and sequence strides (in elements) are passed. o: contiguous
 // [B, S, H, D]. lse: contiguous [B*H, S] f32, or null. dtype: 0 = f32,
-// 1 = bf16. Returns cudaGetLastError() after the launch (0 on success).
+// 1 = bf16. block_k: keys a tile, 0 for the body's default; the bodies are
+// built at bf16 {128 (default), 64}, f32 D <= 32 {32}, D <= 64 {64
+// (default), 32}, D <= 128 {32 (default), 64}, and another value is
+// refused. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int S, int D,
                               long long q_sb, long long q_ss, long long k_sb,
                               long long k_ss, long long v_sb, long long v_ss,
-                              float scale, int causal, int dtype,
+                              float scale, int causal, int dtype, int block_k,
                               void* stream) {
   if (D < 1 || D > 128 || S < 1 || B < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
@@ -658,21 +675,35 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   q, k, v, o, lse, B, H, S, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, \
       causal, st
   if (dtype == 0) {
-    if (D <= 32) return (int)launch_f32<32>(DL4J_FLASH_ARGS);
-    if (D <= 64) return (int)launch_f32<64>(DL4J_FLASH_ARGS);
-    return (int)launch_f32<128>(DL4J_FLASH_ARGS);
+    if (D <= 32) {
+      if (block_k == 0 || block_k == 32)
+        return (int)launch_f32<32, 32>(DL4J_FLASH_ARGS);
+    } else if (D <= 64) {
+      if (block_k == 0 || block_k == 64)
+        return (int)launch_f32<64, 64>(DL4J_FLASH_ARGS);
+      if (block_k == 32) return (int)launch_f32<64, 32>(DL4J_FLASH_ARGS);
+    } else {
+      if (block_k == 0 || block_k == 32)
+        return (int)launch_f32<128, 32>(DL4J_FLASH_ARGS);
+      if (block_k == 64) return (int)launch_f32<128, 64>(DL4J_FLASH_ARGS);
+    }
+    return (int)cudaErrorInvalidValue;
   }
+#define DL4J_TMA_ARGS \
+  q, k, v, o, lse, B, H, S, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, \
+      causal, st
   if (dtype == 1) {
     // bf16 takes D of 64 or 128 on 16-byte aligned rows (the wrapper pads
     // other shapes)
-    if (D == 64)
-      return (int)launch_tma<64>(q, k, v, o, lse, B, H, S, q_sb, q_ss, k_sb,
-                                 k_ss, v_sb, v_ss, scale, causal, st);
-    if (D == 128)
-      return (int)launch_tma<128>(q, k, v, o, lse, B, H, S, q_sb, q_ss,
-                                  k_sb, k_ss, v_sb, v_ss, scale, causal, st);
+    const int bn = block_k == 0 ? 128 : block_k;
+    if (D == 64 && bn == 128) return (int)launch_tma<64, 128>(DL4J_TMA_ARGS);
+    if (D == 64 && bn == 64) return (int)launch_tma<64, 64>(DL4J_TMA_ARGS);
+    if (D == 128 && bn == 128)
+      return (int)launch_tma<128, 128>(DL4J_TMA_ARGS);
+    if (D == 128 && bn == 64) return (int)launch_tma<128, 64>(DL4J_TMA_ARGS);
     return (int)cudaErrorInvalidValue;
   }
+#undef DL4J_TMA_ARGS
 #undef DL4J_FLASH_ARGS
   return (int)cudaErrorInvalidValue;
 }

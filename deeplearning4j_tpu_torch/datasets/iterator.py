@@ -136,7 +136,9 @@ class PrefetchIterator:
 
     Wraps any iterable of batches (a `DataSetIterator`, a list of
     `DataSet`s, (features, labels) tuples or arrays) and keeps up to
-    PREFETCH_DEPTH batches in flight beyond the one the consumer holds.
+    `buffer_batches` batches in flight beyond the one the consumer holds
+    (None: the "data.prefetch_depth" tunable, registry default
+    PREFETCH_DEPTH).
     A DataSet becomes a `DeviceBatch`, a tuple a tuple of tensors, an array
     a tensor; float64 becomes float32, as the JAX package's transfer gives.
 
@@ -152,8 +154,14 @@ class PrefetchIterator:
     the port does. Iterating again restarts from the base (its `reset()`
     first, where it has one)."""
 
-    def __init__(self, base, device=None):
+    def __init__(self, base, device=None,
+                 buffer_batches: Optional[int] = None):
+        from deeplearning4j_tpu_torch.optimize import tunables
+
         self.base = base
+        if buffer_batches is None:
+            buffer_batches = tunables.resolve("data.prefetch_depth")
+        self.buffer_batches = max(1, int(buffer_batches))
         self.device = resolve_device(device)
         self._stream: Optional[torch.cuda.Stream] = None
 
@@ -205,7 +213,7 @@ class PrefetchIterator:
             # at the JAX package's prefetch worker
             faults.fire("prefetch.worker")
             pending.append(self._stage(item))
-            if len(pending) > PREFETCH_DEPTH:
+            if len(pending) > self.buffer_batches:
                 yield self._hand_over(*pending.popleft())
         while pending:
             yield self._hand_over(*pending.popleft())

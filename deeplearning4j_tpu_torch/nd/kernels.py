@@ -81,6 +81,12 @@ KERNELS: Dict[str, str] = {"flash_attn_fwd": "flash_attn_fwd",
 #: kernel name -> launches since the last `reset_launches()`
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
+#: the flash forward's tile variants, "dtype:block_qxblock_k" -> launches of
+#: that body since the last `reset_launches()` (each also counts in
+#: LAUNCHES["flash_attn_fwd"])
+TILE_LAUNCHES: Dict[str, int] = {"bf16:128x128": 0, "bf16:128x64": 0,
+                                 "f32:64x32": 0, "f32:64x64": 0}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: library name -> the compiler's output of its build (ptxas -v), also kept
@@ -90,23 +96,36 @@ BUILD_LOGS: Dict[str, str] = {}
 
 def reset_launches() -> None:
     with _lock:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
+        for counts in (LAUNCHES, TILE_LAUNCHES):
+            for name in counts:
+                counts[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, tile: Optional[str] = None) -> None:
     with _lock:
         LAUNCHES[name] += 1
+        if tile is not None:
+            TILE_LAUNCHES[tile] += 1
+
+
+def launch_snapshot() -> Dict[str, int]:
+    """LAUNCHES and TILE_LAUNCHES in one dict (their keys do not meet), for
+    `count_launches` of a difference."""
+    with _lock:
+        out = dict(LAUNCHES)
+        out.update(TILE_LAUNCHES)
+        return out
 
 
 def count_launches(counts: Dict[str, int]) -> None:
-    """Add `counts` (kernel name -> launches, negative to take back) to
-    LAUNCHES. The wrappers count on the host, so a CUDA-graph replay, which
-    launches the kernels without running their wrappers, is counted here by
-    what its capture counted (`optimize/step_cache.py`)."""
+    """Add `counts` (kernel or tile-variant name -> launches, negative to
+    take back) to LAUNCHES and TILE_LAUNCHES. The wrappers count on the
+    host, so a CUDA-graph replay, which launches the kernels without running
+    their wrappers, is counted here by what its capture counted
+    (`optimize/step_cache.py`)."""
     with _lock:
         for name, n in counts.items():
-            LAUNCHES[name] += n
+            (TILE_LAUNCHES if name in TILE_LAUNCHES else LAUNCHES)[name] += n
 
 
 def _nvcc() -> str:
@@ -205,7 +224,7 @@ def _library(name: str) -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     elif name == "flash_attn_bwd":
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -383,8 +402,61 @@ def tma_slice(t: torch.Tensor, d: int) -> torch.Tensor:
     return t[..., :d].contiguous()
 
 
+def fwd_tiles(dtype: torch.dtype, head_dim: int):
+    """The (block_q, block_k) tiles the flash forward's body for `dtype` is
+    built with at `head_dim`, its default first: bf16 (the TMA body) 128
+    queries a block and 128 or 64 keys a tile; f32 (the 3xTF32 body) 64
+    queries and, by head-dim bucket, 32 (D <= 32), 64 or 32 (D <= 64), 32 or
+    64 (D <= 128)."""
+    if dtype == torch.bfloat16:
+        return ((128, 128), (128, 64))
+    if head_dim <= 32:
+        return ((64, 32),)
+    if head_dim <= 64:
+        return ((64, 64), (64, 32))
+    return ((64, 32), (64, 64))
+
+
+def bwd_tile(dtype: torch.dtype, head_dim: int):
+    """The one (block_q, block_k) tile the dK/dV kernel is built with for
+    `dtype` at `head_dim` (the dQ kernel's is its transpose in bf16)."""
+    if dtype == torch.bfloat16:
+        return (64, 128)
+    return (16, 64) if head_dim > 64 else (32, 64)
+
+
+def tile_name(dtype: torch.dtype, tile) -> str:
+    """The TILE_LAUNCHES key of a tile variant, e.g. "bf16:128x64"."""
+    return "%s:%dx%d" % ("bf16" if dtype == torch.bfloat16 else "f32",
+                         tile[0], tile[1])
+
+
+def resolve_fwd_tile(dtype: torch.dtype, seq: int, head_dim: int,
+                     tile=None):
+    """The forward tile of a call at (seq, head_dim): `tile` when given,
+    else the `attention.block_fwd` tunable at "{seq}x{head_dim}" (an
+    installed tuned table's entry; None is the body's default). Raises
+    ValueError on a tile the body is not built with."""
+    if tile is None:
+        from deeplearning4j_tpu_torch.optimize import tunables
+
+        tile = tunables.resolve("attention.block_fwd",
+                                "%dx%d" % (seq, head_dim))
+    tiles = fwd_tiles(dtype, head_dim)
+    if tile is None:
+        return tiles[0]
+    tile = tuple(int(t) for t in tile)
+    if tile not in tiles:
+        raise ValueError(
+            f"attention.block_fwd {tile} at {seq}x{head_dim}: the "
+            f"{str(dtype).replace('torch.', '')} forward is built with "
+            f"the tiles {list(tiles)}")
+    return tile
+
+
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool = False, with_lse: bool = False):
+                   causal: bool = False, with_lse: bool = False,
+                   tile=None):
     """Wrapper of the flash-attention forward kernel over [B, S, H, D]
     inputs (any S, head_dim up to 128, float32 or bfloat16). Returns o
     [B, S, H, D] and, with `with_lse`, the logsumexp residual [B*H, S, 1]
@@ -393,7 +465,11 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors launch `csrc/flash_attn_fwd.cu`; CPU tensors take
     `flash_attention_reference`. Inputs may be views (the heads of a fused
-    qkv projection) as long as D has unit stride and H stride D."""
+    qkv projection) as long as D has unit stride and H stride D. `tile`
+    ((block_q, block_k), one of `fwd_tiles`) picks the body's variant; None
+    resolves it (`resolve_fwd_tile`). The plain version is the same for
+    every tile."""
+    tile = resolve_fwd_tile(q.dtype, q.shape[1], q.shape[3], tile)
     if _all_cpu(q, k, v):
         return flash_attention_reference(q, k, v, causal, with_lse)
     _check_heads("flash_attention", q=q, k=k, v=v)
@@ -412,9 +488,9 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if lse is None else lse.data_ptr(), b, h, s, width,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), scale, int(bool(causal)),
-            _dtype_code(q), _stream(q))
+            _dtype_code(q), tile[1], _stream(q))
     _check(err, "flash_attn_fwd")
-    _count("flash_attn_fwd")
+    _count("flash_attn_fwd", tile_name(q.dtype, tile))
     o = tma_slice(o, d)
     return (o, lse) if with_lse else o
 

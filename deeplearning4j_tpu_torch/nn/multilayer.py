@@ -432,19 +432,36 @@ class MultiLayerNetwork:
         self.infer_cache.params_written()
 
     # -- the persistent store and the serve precision -----------------------
-    def set_compile_cache(self, directory, max_bytes=None):
+    def set_compile_cache(self, directory, max_bytes=None, remote=None):
         """Attach a persistent store at `directory` (`optimize/persist.py`)
-        to both caches: the int8 weight artifact and the continuous
-        batcher's prefix entries go through it. A CUDA graph is not written
-        to disk, so every process captures its own programs. Returns the
-        store."""
+        to both caches: the int8 weight artifact, the continuous batcher's
+        prefix entries and the tuned table (`optimize/tunables.py`, installed
+        here when none is active) go through it. A CUDA graph is not written
+        to disk, so every process captures its own programs. `remote` (a
+        `serving.cachesync.CacheFetcher`) serves the entries the directory
+        lacks (`PersistentProgramStore.set_remote`). Returns the store."""
         from deeplearning4j_tpu_torch.optimize.persist import \
             PersistentProgramStore
 
         kw = {} if max_bytes is None else {"max_bytes": max_bytes}
         store = PersistentProgramStore(directory, device=self.device, **kw)
+        if remote is not None:
+            # before the table's lookup below, so that a table this
+            # directory lacks is fetched too
+            store.set_remote(remote)
         self.step_cache.set_persist(store)
         self.infer_cache.set_persist(store)
+        # tuned-table inheritance: a table `cli tune` stored for this (conf
+        # fingerprint, device kind) installs process-wide here, so replicas
+        # and later sessions serve with the tuned constants and
+        # fresh_tunes == 0; a missing, corrupt or other-kind table leaves
+        # the registry defaults (inside load_and_install)
+        from deeplearning4j_tpu_torch.optimize import tunables
+        from deeplearning4j_tpu_torch.optimize.step_cache import \
+            conf_fingerprint
+
+        if tunables.active() is None:
+            tunables.load_and_install(store, conf_fingerprint(self.conf))
         return store
 
     @property

@@ -27,8 +27,8 @@ package also stores its compiled programs (serialized StableHLO); a CUDA
 graph cannot be written to disk, so the port's program caches keep their
 graphs in memory and their disk counters stay 0 (ROADMAP.md queue C). The
 payloads are the int8 weight artifact (`optimize/quantize.py`), the
-continuous batcher's prefix entries (`serving/batcher.py`) and, later, tuned
-tables. `platform_info` names the port's facts: the format, the backend
+continuous batcher's prefix entries (`serving/batcher.py`) and the tuned
+tables (`optimize/tunables.py`). `platform_info` names the port's facts: the format, the backend
 ("cuda" or "cpu"), the device's name and compute capability, the device
 count, and the torch and CUDA versions.
 """

@@ -33,7 +33,8 @@ reuses it for every batch; here the program is a `torch.cuda.CUDAGraph`:
                 EMA leaves in place with the params: the inference graphs,
                 which read those leaves by address, see it at once.
   launches      the kernel wrappers count launches on the host
-                (`nd/kernels.LAUNCHES`); the warm-up and capture launches
+                (`nd/kernels.LAUNCHES`, `TILE_LAUNCHES` by forward tile
+                variant); the warm-up and capture launches
                 are taken back and each replay adds what its capture
                 launched.
   segments      a line-searched solver (GD, CG, LBFGS) cannot be one graph:
@@ -253,7 +254,7 @@ class _Graph:
         with torch.inference_mode(False):
             self.inputs = tuple(a.clone() for a in inputs)
         with pool.lock:
-            start = dict(kernels.LAUNCHES)
+            start = kernels.launch_snapshot()
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             with ids_checked(), torch.cuda.stream(side):
@@ -263,7 +264,7 @@ class _Graph:
             torch.cuda.synchronize(device)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(device)
-            before = dict(kernels.LAUNCHES)
+            before = kernels.launch_snapshot()
             self.graph = torch.cuda.CUDAGraph()
             try:
                 with ids_checked(), torch.cuda.graph(
@@ -276,7 +277,7 @@ class _Graph:
                 raise GraphCaptureError(
                     f"CUDA-graph capture failed: {e!r}") from e
             finally:
-                after = dict(kernels.LAUNCHES)
+                after = kernels.launch_snapshot()
                 # the warm-up and capture launched nothing on the device
                 # that a caller asked for: take them back
                 kernels.count_launches({k: start[k] - after[k]
@@ -318,7 +319,7 @@ class _GraphSegments:
             # the run's state is allocated on the caller's stream, outside
             # any capture, so that its addresses stay put
             self.solve = make(params, self.inputs)
-            start = dict(kernels.LAUNCHES)
+            start = kernels.launch_snapshot()
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             with ids_checked(), torch.cuda.stream(side):
@@ -332,12 +333,12 @@ class _GraphSegments:
             self.graphs, self.outputs, self.launches = {}, {}, {}
             try:
                 for name, fn in self.solve.segments.items():
-                    before = dict(kernels.LAUNCHES)
+                    before = kernels.launch_snapshot()
                     graph = torch.cuda.CUDAGraph()
                     with ids_checked(), torch.cuda.graph(
                             graph, pool=pool.handle(), stream=side):
                         self.outputs[name] = fn()
-                    after = dict(kernels.LAUNCHES)
+                    after = kernels.launch_snapshot()
                     self.graphs[name] = graph
                     self.launches[name] = {k: after[k] - before[k]
                                            for k in after}
@@ -346,7 +347,7 @@ class _GraphSegments:
                 raise GraphCaptureError(
                     f"CUDA-graph capture failed: {e!r}") from e
             finally:
-                after = dict(kernels.LAUNCHES)
+                after = kernels.launch_snapshot()
                 kernels.count_launches({k: start[k] - after[k]
                                         for k in after})
             pool.reserved_bytes += (torch.cuda.memory_reserved(device)
@@ -417,10 +418,17 @@ class CompiledProgramCache:
 
     # -- bucket policy ------------------------------------------------------
     def bucket_rows(self, n: int) -> int:
-        """Smallest known bucket >= n; otherwise n becomes a new bucket. The
-        JAX package's tuned bucket ladder holds TPU rows and is not carried
-        over."""
+        """Smallest known bucket >= n; otherwise n becomes a new bucket. A
+        tuned `infer.bucket_ladder` (optimize/tunables.py) pre-seeds the
+        grow-on-demand list; the registry default is the empty ladder,
+        which leaves the list as it was."""
+        from deeplearning4j_tpu_torch.optimize import tunables
+
         with self._lock:
+            for b in tunables.resolve("infer.bucket_ladder"):
+                if int(b) not in self._buckets:
+                    self._buckets.append(int(b))
+                    self._buckets.sort()
             for b in self._buckets:
                 if b >= n:
                     return b

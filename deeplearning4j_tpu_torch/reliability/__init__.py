@@ -1,9 +1,10 @@
 """Resilience vocabulary of the serving and training paths: the circuit
-breaker, fault injection and the exceptions the hardened paths raise. The
-port's own copies of the JAX package's `reliability/circuit.py`,
-`reliability/faults.py`, `DeadlineExceeded` and `TrainingInterrupted`;
-stdlib only."""
+breaker, the retry budget, fault injection and the exceptions the hardened
+paths raise. The port's own copies of the JAX package's
+`reliability/circuit.py`, `reliability/budget.py`, `reliability/faults.py`,
+`DeadlineExceeded` and `TrainingInterrupted`; stdlib only."""
 
+from deeplearning4j_tpu_torch.reliability.budget import RetryBudget
 from deeplearning4j_tpu_torch.reliability.circuit import CircuitBreaker
 from deeplearning4j_tpu_torch.reliability.faults import (
     REGISTRY,
@@ -38,6 +39,7 @@ __all__ = [
     "FaultPlanError",
     "FaultRegistry",
     "REGISTRY",
+    "RetryBudget",
     "TrainingInterrupted",
     "arm",
     "disarm",

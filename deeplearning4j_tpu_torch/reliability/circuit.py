@@ -23,6 +23,9 @@ class CircuitBreaker:
     CLOSED = "closed"
     OPEN = "open"
     HALF_OPEN = "half_open"
+    #: numeric encoding for metrics exporters (Prometheus gauges carry
+    #: floats, not strings): closed=0, open=1, half_open=2
+    STATE_CODES = {CLOSED: 0, OPEN: 1, HALF_OPEN: 2}
 
     def __init__(self, failure_threshold: int = 5,
                  reset_timeout_s: float = 5.0, probe_prob: float = 0.5,

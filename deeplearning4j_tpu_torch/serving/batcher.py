@@ -58,16 +58,18 @@ from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.optimize import tunables
 from deeplearning4j_tpu_torch.reliability import (CircuitBreaker,
                                                   DeadlineExceeded, faults)
 
-#: coalescing target in rows when the caller sets no `max_batch_rows` (the
-#: JAX package's registry default; not yet measured on a GPU)
-DEFAULT_TARGET_ROWS = 256
+#: coalescing target in rows when the caller sets no `max_batch_rows` and
+#: no tuned table names one: the registry default of "batcher.target_rows"
+#: (`optimize/tunables.py`)
+DEFAULT_TARGET_ROWS = tunables.default("batcher.target_rows")
 
-#: flush deadline when the caller sets no `max_delay_ms` (the JAX package's
-#: registry default; not yet measured on a GPU)
-DEFAULT_MAX_DELAY_MS = 3.0
+#: flush deadline when the caller sets no `max_delay_ms` and no tuned table
+#: names one: the registry default of "batcher.max_delay_ms"
+DEFAULT_MAX_DELAY_MS = tunables.default("batcher.max_delay_ms")
 
 #: rows/s is reported over this trailing window (seconds)
 RATE_WINDOW_S = 10.0
@@ -75,9 +77,9 @@ RATE_WINDOW_S = 10.0
 #: request priority classes, highest first
 PRIORITIES = ("interactive", "batch")
 
-#: decode slots when the caller gives none (the JAX package's
-#: `decode.slots` registry default; not yet measured on a GPU)
-DEFAULT_SLOTS = 4
+#: decode slots when the caller gives none and no tuned table names them:
+#: the registry default of "decode.slots"
+DEFAULT_SLOTS = tunables.default("decode.slots")
 
 #: histogram bounds (seconds) of a predict's latency by priority class and of
 #: time to first token, the JAX package's `le` upper bounds (+Inf implied)
@@ -134,11 +136,14 @@ class MicroBatcher:
                  auto_start: bool = True,
                  breaker: Optional[CircuitBreaker] = None):
         self.net = net
+        # None -> the tunable's effective value (a tuned table's if one is
+        # installed, else the registry default)
         if max_delay_ms is None:
-            max_delay_ms = DEFAULT_MAX_DELAY_MS
+            max_delay_ms = tunables.resolve("batcher.max_delay_ms")
         self.max_delay_s = float(max_delay_ms) / 1000.0
         self.max_pending = int(max_pending)
-        self.target_rows = int(max_batch_rows or DEFAULT_TARGET_ROWS)
+        self.target_rows = int(max_batch_rows
+                               or tunables.resolve("batcher.target_rows"))
         self.breaker = breaker if breaker is not None else CircuitBreaker()
         self._auto_start = auto_start
         self._cv = threading.Condition()
@@ -438,6 +443,9 @@ class MicroBatcher:
                         for p, r in sorted(recent_by_policy.items())},
                     "report": getattr(self.net, "serve_precision_report",
                                       {"policy": "f32"})},
+                # autotuning state: tuned-table presence + fresh_tunes (a
+                # process that inherited its table from disk shows 0)
+                "tuning": tunables.status(),
             }
         cache = self.net.infer_cache.stats
         out["fresh_compiles"] = cache.misses
@@ -460,27 +468,19 @@ class MicroBatcher:
 
 # -- continuous batching for autoregressive generation ----------------------
 
-#: decode steps a dispatch and KV page size when the caller gives none (the
-#: JAX package's `decode.steps_per_dispatch` and `decode.page_size` registry
-#: defaults; not yet measured on a GPU)
-DEFAULT_STEPS_PER_DISPATCH = 1
-DEFAULT_PAGE_SIZE = 0
+#: decode steps a dispatch and KV page size when the caller gives none and
+#: no tuned table names them: the registry defaults of
+#: "decode.steps_per_dispatch" and "decode.page_size"
+DEFAULT_STEPS_PER_DISPATCH = tunables.default("decode.steps_per_dispatch")
+DEFAULT_PAGE_SIZE = tunables.default("decode.page_size")
 
 #: prefix-cache entries kept in memory by a batcher (LRU), the JAX package's
 PREFIX_CACHE_ENTRIES = 32
 
-def decode_k_ladder(k_max: int) -> Tuple[int, ...]:
-    """The block sizes the batcher's adaptive K may dispatch under a ceiling
-    of `k_max`: every power of two below it, then `k_max` (the JAX
-    package's `optimize/tunables.decode_k_ladder`). `warmup_generate`
-    captures exactly this ladder."""
-    k_max = max(1, int(k_max))
-    ladder, v = [], 1
-    while v < k_max:
-        ladder.append(v)
-        v *= 2
-    ladder.append(k_max)
-    return tuple(ladder)
+#: the block sizes the batcher's adaptive K may dispatch under a ceiling of
+#: `k_max` (`optimize/tunables.decode_k_ladder`); `warmup_generate` captures
+#: exactly this ladder
+decode_k_ladder = tunables.decode_k_ladder
 
 
 def decode_geometry(n_slots=None, max_seq: int = 64, page_size=None,
@@ -498,10 +498,16 @@ def decode_geometry(n_slots=None, max_seq: int = 64, page_size=None,
     from deeplearning4j_tpu_torch.nn import decode as decode_mod
     from deeplearning4j_tpu_torch.nn.conf import LayerType
 
-    slots = DEFAULT_SLOTS if n_slots is None else int(n_slots)
-    ps = DEFAULT_PAGE_SIZE if page_size is None else int(page_size)
-    k_max = (DEFAULT_STEPS_PER_DISPATCH if steps_per_dispatch is None
-             else int(steps_per_dispatch))
+    # None -> tunable-governed geometry ("decode.slots", "decode.page_size",
+    # "decode.steps_per_dispatch"); explicit arguments always win, so that
+    # warmup and the batcher stay geometry-identical when the caller pins
+    slots = int(tunables.resolve("decode.slots") if n_slots is None
+                else n_slots)
+    ps = int(tunables.resolve("decode.page_size") if page_size is None
+             else page_size)
+    explicit_k = steps_per_dispatch is not None
+    k_max = int(tunables.resolve("decode.steps_per_dispatch")
+                if steps_per_dispatch is None else steps_per_dispatch)
     if k_max < 1:
         raise ValueError(f"steps_per_dispatch must be >= 1, got {k_max}")
     spec_k = int(spec_k) if draft_net is not None else 0
@@ -521,6 +527,8 @@ def decode_geometry(n_slots=None, max_seq: int = 64, page_size=None,
             raise ValueError(
                 f"max_seq={max_seq} exceeds the DRAFT model's positional "
                 f"table (max_seq_len={dbound})")
+        if k_max > 1 and not explicit_k:
+            k_max = 1  # a tuned table's K > 1 silently yields to spec
         if k_max > 1:
             raise ValueError(
                 "speculative decoding is pinned to steps_per_dispatch=1: "

@@ -23,8 +23,12 @@ Counterpart of `ModelServer` in `deeplearning4j_tpu/serving/server.py`:
                      latency percentiles, rows/s, breaker state), the
                      device the network runs on, the serving plan
                      (`ShardPlan.describe()`: axes, sizes, policy), the
-                     resident programs and, with a generator, its
-                     `generation` block
+                     resident programs, the process's kernel launches
+                     (`kernel_launches`), the `tuning` block
+                     (`optimize/tunables.status()`) and, with a generator,
+                     its `generation` block
+  GET  /metrics      the same counters as Prometheus text
+                     (`serving/metrics.replica_metrics`)
 
 Under a serving mesh (`MultiLayerNetwork.set_serve_mesh`) the server runs
 on rank 0 alone, the one HTTP front: its batchers' calls reach the other
@@ -53,6 +57,7 @@ from urllib.parse import urlparse
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.nd import kernels
 from deeplearning4j_tpu_torch.nd.platform import device_kind
 from deeplearning4j_tpu_torch.reliability import (CircuitBreaker,
                                                   DeadlineExceeded)
@@ -86,6 +91,15 @@ class _ServeHandler(BaseHTTPRequestHandler):
         ms = self.model_server
         if path == "/v1/stats":
             self._send(ms.stats())
+        elif path == "/metrics":
+            from deeplearning4j_tpu_torch.serving.metrics import (
+                CONTENT_TYPE, replica_metrics)
+            data = replica_metrics(ms.stats()).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", CONTENT_TYPE)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
         elif path == "/healthz":
             self._send({"ok": True})
         elif path == "/readyz":
@@ -352,6 +366,10 @@ class ModelServer:
                          "kind": device_kind(self.net.device)}
         out["plan"] = self.net.infer_cache.plan.describe()
         out["programs"] = self.net.infer_cache.programs_summary()
+        # the process's kernel launches by kernel and by forward tile
+        # variant (`nd/kernels.launch_snapshot`; a replay counts what its
+        # capture launched)
+        out["kernel_launches"] = kernels.launch_snapshot()
         if self.generator is not None:
             out["generation"] = self.generator.stats()
         with self._state_lock:
