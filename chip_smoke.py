@@ -304,6 +304,25 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    store and `serve --agent` with its cache server on the first store: the
    replica inherits the table over the cachesync wire (a fetch hit) and
    answers bitwise.
+22. `text_trees` (TT; `--only-text-trees` runs it alone, with no last
+   line, and the full run runs it so, in a child process): an SST-sized
+   synthetic treebank from seed 0 (8,544 training and 2,210 held-out
+   s-expressions of 5 to 56 tokens over the bundled lexicon's and tagger's
+   words, each node labelled with the 5-way bucket of its span's lexicon
+   score); the RNTN at Socher et al.'s width (dim 25, 5 classes, max_nodes
+   128, AdaGrad lr 0.05, l2 1e-4) for 30 full-batch epochs, each step one
+   captured graph (capture s, pool bytes, step ms, the last step profiled:
+   kernels a step, idle share), an eager model's steps from the same
+   state (first loss equal), held-out root and all-node accuracy and
+   RNTNEval against the majority shares, the scatter kernel at the leaf
+   gradient's shape against its plain version, and the card's loss and
+   params after 3 epochs of a 512-tree subset within TT's cpu_rel_tol and
+   cpu_param_tol of the CPU port's (params where the first gradient is
+   above rounding noise); the recursive autoencoder for 10 epochs alike; the chunk
+   parser with the lexicon on 256 sentences, its Viterbi on the card,
+   tags and trees equal to the CPU's; a window classifier (the bench MLP
+   on Word2VecDataSetIterator batches of a small port Word2Vec) whose
+   score falls. Its scatter launches join the scatter row's.
 
 Each phase prints one JSON line; then a line with every kernel's numbers,
 the card's line, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -8521,6 +8540,496 @@ def phase_fleet_child(torch):
     return summary[0]
 
 
+# --------------------------------------------------------------- text_trees
+
+#: the text-and-trees path (slice 24): an SST-sized synthetic treebank (the
+#: sizes of Socher et al. 2013's train and test splits), the RNTN at that
+#: paper's width, and what feeds it
+TT = dict(train=8544, held_out=2210, min_tokens=5, max_tokens=56,
+          p_sentiment=0.4, p_negation=0.01, dim=25, classes=5, max_nodes=128,
+          lr=0.05, l2=1e-4, epochs=30, eager_steps=2, rae_epochs=10,
+          cpu_trees=512, cpu_epochs=3, cpu_rel_tol=1e-5, cpu_param_tol=1e-4,
+          tag_sentences=256,
+          w2v_sentences=512, w2v_vector=32, window=5, mlp_batch=256,
+          mlp_steps=6)
+#: the 5-way buckets of a span's lexicon score: <= -1, < -0.25, <= 0.25,
+#: < 1, the rest
+TT_CUTS = (-1.0, -0.25, 0.25, 1.0)
+
+
+def tt_bucket(score: float) -> int:
+    a, b, c, d = TT_CUTS
+    return (0 if score <= a else 1 if score < b else 2 if score <= c
+            else 3 if score < d else 4)
+
+
+def tt_sexpr(toks, lex, rng) -> str:
+    """A random binary bracketing of toks as a PTB s-expression, every node
+    labelled with the bucket of its span's lexicon score (negation
+    flipping the span, as the lexicon scores a sentence)."""
+    label = tt_bucket(lex.score_tokens(toks))
+    if len(toks) == 1:
+        return f"({label} {toks[0]})"
+    k = int(rng.randint(1, len(toks)))
+    return (f"({label} {tt_sexpr(toks[:k], lex, rng)} "
+            f"{tt_sexpr(toks[k:], lex, rng)})")
+
+
+def tt_treebank(n: int, seed: int = 0):
+    """n SST-like trees from `seed`: 5 to 56 tokens (log-normal around 17,
+    SST's mean sentence is about 19), each a negation word of the lexicon
+    with p_negation, a scored lexicon word with p_sentiment, else a word of
+    the bundled tagger or lexicon that scores 0."""
+    from deeplearning4j_tpu_torch.text.hmm_pos import bundled_tagger
+    from deeplearning4j_tpu_torch.text.sentiment_lexicon import (
+        NEGATION_WORDS, SentimentLexicon)
+
+    lex = SentimentLexicon()
+    tagger_words = set(bundled_tagger(device="cpu").log_emit)
+    scored = sorted(w for w in lex.scores if w.isalpha() and lex.score(w))
+    plain = sorted(w for w in tagger_words | set(lex.scores)
+                   if w.isalpha() and not lex.score(w))
+    negation = sorted(NEGATION_WORDS)
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        length = int(np.clip(round(rng.lognormal(np.log(17.0), 0.5)),
+                             TT["min_tokens"], TT["max_tokens"]))
+        toks = []
+        for u in rng.random_sample(length):
+            pool = (negation if u < TT["p_negation"] else scored
+                    if u < TT["p_negation"] + TT["p_sentiment"] else plain)
+            toks.append(pool[rng.randint(len(pool))])
+        out.append(tt_sexpr(toks, lex, rng))
+    return out
+
+
+def tt_majorities(plans):
+    """Shares of the most common label at the roots and at the internal
+    nodes (what RNTNEval counts) of stacked plans."""
+    label = plans["label"].cpu().numpy()
+    valid = plans["valid"].cpu().numpy()
+    leaf = plans["is_leaf"].cpu().numpy()
+    roots = label[np.arange(len(label)), valid.sum(1) - 1]
+    internal = label[valid & ~leaf]
+    share = lambda a: float(np.bincount(a).max() / len(a))  # noqa: E731
+    return share(roots), share(internal)
+
+
+def tt_saved_bytes(b, n, d) -> dict:
+    """The tree step's saved state reckoned from its shapes (f32): the node
+    buffer TreeScan keeps for its backward, and what keeping each step's
+    [B, d, 2d] tensor-term product would cost instead."""
+    return {"node_buffer": b * n * d * 4, "per_step_products": b * d * 2 * d
+            * 4 * n}
+
+
+def tt_train(torch, kernels, model, plans, epochs, name):
+    """`epochs` AdaGrad steps of a tree model through its step cache: the
+    first (warm-up and capture, then the first replay) timed on the host,
+    the middle ones each between CUDA events, the last under the profiler.
+    Returns the row (per-epoch losses, read back at the end), with the
+    scatter launches of the steps before the profiled one (`profiled`
+    takes its own back)."""
+    t = time.perf_counter()
+    losses = [model._step(plans)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    ms = []
+    for _ in range(epochs - 2):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(model._step(plans))
+        stop.record()
+        ms.append((start, stop))
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["scatter_add_rows"]
+    prof = profiled(torch, kernels, lambda: losses.append(model._step(plans)),
+                    f"text_trees_{name}_profile", ours_key="scatter")
+    losses = [float(v) for v in losses]
+    stats = model.step_cache.stats.as_dict()
+    ms = [a.elapsed_time(b) for a, b in ms]
+    row = {"model": name, "first_step_s": first_s,
+           "capture_s": stats["compile_seconds"],
+           "step_ms_median": median(ms), "step_ms_min": min(ms),
+           "graph_pool_bytes": model.step_cache.pool.reserved_bytes,
+           "books": stats, "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "scatter_launches": launches,
+           "kernel_count": prof["kernel_count"],
+           "device_ms": prof["device_ms"],
+           "idle_share": 1.0 - prof["device_ms"] / median(ms)}
+    check(all(np.isfinite(losses)), f"{name}: a loss is not finite")
+    check(losses[-1] < losses[0], f"{name}: the loss did not fall: "
+                                  f"{losses[0]} -> {losses[-1]}")
+    return row
+
+
+def tt_eager(torch, kernels, make, state, plans, steps):
+    """`steps` eager steps of a fresh model (its step cache's capture
+    off) from `state`
+    (params, hist, vocabulary), each timed between CUDA events, its first
+    loss, and one more step profiled (kernels launched a step, device
+    time). Not the main path: the caller reads its launch counts first."""
+    model = make()
+    model.step_cache.capture = False
+    model.vocab = state[2]
+    model.params = {k: v.clone() for k, v in state[0].items()}
+    model._hist = {k: v.clone() for k, v in state[1].items()}
+    losses, ms = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(model._step(plans))
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+    prof = profiled(torch, kernels, lambda: model._step(plans),
+                    f"text_trees_{model.kind}_eager_profile",
+                    ours_key="scatter")
+    return {"step_ms": ms, "first_loss": float(losses[0]),
+            "kernel_count": prof["kernel_count"],
+            "device_ms": prof["device_ms"],
+            "idle_share_profiled": prof["idle_share"]}
+
+
+def tt_scatter_row(torch, kernels, vocab_n, idx, d):
+    """The scatter kernel at the RNTN's leaf-gradient shape ([vocab, d]
+    table, an update for every plan step of every tree, most of them to
+    row 0): checked against its plain version and timed as
+    `phase_scatter_kernel` times its cases."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    exact, err, close, (ti, ui, table, upd, got, want) = scatter_check(
+        torch, kernels, gen, vocab_n, d, idx, torch.float32)
+    scratch = table.clone()
+    bound_ms, bound_by, touched = scatter_bound_ms(torch, table, idx, upd)
+    row = {"phase": "text_trees_scatter", "case": "rntn_leaf_grad",
+           "rows": vocab_n, "width": d, "n": int(idx.shape[0]),
+           "touched_rows": touched,
+           "max_dup": int(torch.bincount(idx.long()).max().item()),
+           "exact_on_integers": exact, "max_abs_err": err,
+           "within_sum_bound": close, "ok": exact and close,
+           "kernel_ms": graph_ms(lambda: kernels.scatter_add_rows_(
+               scratch, idx, upd)),
+           "plain_ms": graph_ms(lambda: kernels.scatter_add_rows_reference(
+               table, idx, upd), iters=5, replays=1),
+           "library_ms": graph_ms(lambda: scratch.index_add_(0, idx, upd)),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(row)
+    check(row["ok"], f"scatter_add_rows disagrees at the RNTN's shape: "
+                     f"{row}")
+    del ti, ui, table, upd, got, want, scratch
+    return row
+
+
+def tt_cpu_check(torch, train):
+    """The card's RNTN after cpu_epochs against the CPU port's, from one
+    draw (same seed, same trees): the loss within cpu_rel_tol, and every
+    param within cpu_param_tol wherever the first gradient (the CPU's) is
+    above 1e-3 of its largest. AdaGrad's 1e-8 start makes the first update
+    lr * sign(g), so elements whose gradient is rounding noise move by lr
+    either way and are left out; where |g| is under sqrt(1e-8) the start
+    still dominates the history, and an update of about lr * g / 1e-4
+    magnifies g's rounding. The scatter adds in any order on the card, so
+    the two agree to rounding, not bitwise: the CPU's own rounding noise is
+    shown beside the gaps, as the gaps of a CPU run over the same trees in
+    another order (the same vocabulary and draws)."""
+    from deeplearning4j_tpu_torch.models.rntn import RNTN, rntn_loss
+
+    subset = train[:TT["cpu_trees"]]
+    order = np.random.RandomState(1).permutation(len(subset))
+    runs = {"cuda": ("cuda", subset), "cpu": ("cpu", subset),
+            "cpu_reordered": ("cpu", [subset[i] for i in order])}
+    out, params = {}, {}
+    for name, (dev, trees) in runs.items():
+        m = RNTN(dim=TT["dim"], n_classes=TT["classes"],
+                 max_nodes=TT["max_nodes"], lr=TT["lr"], l2=TT["l2"],
+                 seed=0, device=dev)
+        m._prepare(subset)  # the vocabulary in the subset's order
+        if name == "cpu":
+            plans = m._plans(m._prepare(subset))
+            ps = {k: v.detach().requires_grad_() for k, v in m.params.items()}
+            g0 = dict(zip(ps, torch.autograd.grad(
+                rntn_loss(ps, plans, TT["l2"]), list(ps.values()))))
+        t = time.perf_counter()
+        out[name] = m.fit(trees, epochs=TT["cpu_epochs"])
+        out[f"{name}_s"] = time.perf_counter() - t
+        params[name] = {k: v.detach().cpu() for k, v in m.params.items()}
+    out["rel_gap"] = abs(out["cuda"] - out["cpu"]) / abs(out["cpu"])
+    out["rel_gap_reordered"] = (abs(out["cpu_reordered"] - out["cpu"])
+                                / abs(out["cpu"]))
+    out["tol"] = TT["cpu_rel_tol"]
+    out["param_tol"] = TT["cpu_param_tol"]
+    out["params"] = {}
+    for k, g in g0.items():
+        live = g.abs() > 1e-3 * g.abs().max()
+        gap = {n: float((params[n][k] - params["cpu"][k]).abs()[live].max())
+               for n in ("cuda", "cpu_reordered")}
+        out["params"][k] = {"live": int(live.sum()), "size": live.numel(),
+                            "max_abs_grad": float(g.abs().max()),
+                            "max_abs_gap": gap["cuda"],
+                            "max_abs_gap_reordered": gap["cpu_reordered"]}
+    check(out["rel_gap"] <= TT["cpu_rel_tol"]
+          and all(v["max_abs_gap"] <= TT["cpu_param_tol"]
+                  for v in out["params"].values()),
+          f"the card's RNTN after {TT['cpu_epochs']} epochs is not the "
+          f"CPU port's: {out}")
+    return out
+
+
+def tt_tagging(torch, sentences):
+    """The chunk parser with the lexicon over `sentences`, its tagger's
+    Viterbi on the card, against the same parser on the CPU: equal trees
+    and tags. Returns the row."""
+    from deeplearning4j_tpu_torch.text.sentiment_lexicon import (
+        SentimentLexicon)
+    from deeplearning4j_tpu_torch.text.tree_parser import TreeParser
+
+    def sexpr(t):
+        return (f"({t.label} {t.word})" if t.is_leaf else
+                f"({t.label} {sexpr(t.left)} {sexpr(t.right)})")
+
+    lex = SentimentLexicon()
+    card = TreeParser("chunk", n_classes=3, lexicon=lex, device="cuda")
+    cpu = TreeParser("chunk", n_classes=3, lexicon=lex, device="cpu")
+    card.parse(sentences[0])  # loads the tagger, moves its tables
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trees = card.get_trees(sentences)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = cpu.get_trees(sentences)
+    cpu_s = time.perf_counter() - t
+    tokens = [card.tokenizer_factory.create(s).get_tokens()
+              for s in sentences]
+    tags_equal = all(card.tagger.tag(tk) == cpu.tagger.tag(tk)
+                     for tk in tokens)
+    trees_equal = [sexpr(a) for a in trees] == [sexpr(b) for b in want]
+    row = {"sentences": len(sentences),
+           "tokens": sum(len(tk) for tk in tokens),
+           "card_ms_per_sentence": card_s * 1e3 / len(sentences),
+           "cpu_ms_per_sentence": cpu_s * 1e3 / len(sentences),
+           "tags_equal": tags_equal, "trees_equal": trees_equal,
+           "viterbi_device": str(card.tagger.device)}
+    check(tags_equal and trees_equal,
+          f"the card's tags or trees are not the CPU's: {row}")
+    return row
+
+
+def tt_windows(torch, kernels, sentences, labels):
+    """A small port Word2Vec on the card, its windows through
+    Word2VecDataSetIterator, and a few `fit` steps of the bench MLP on
+    them: the score of the first batch must fall. Returns the row and the
+    Word2Vec fit's scatter launches."""
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.word2vec import Word2Vec
+    from deeplearning4j_tpu_torch.models.word2vec_iterator import (
+        Word2VecDataSetIterator)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.text.sentence_iterator import (
+        LabelAwareSentenceIterator)
+
+    before = kernels.LAUNCHES["scatter_add_rows"]
+    t = time.perf_counter()
+    w2v = Word2Vec(vector_length=TT["w2v_vector"], window=TT["window"],
+                   min_word_frequency=1, negative=4, epochs=1,
+                   batch_size=4096, seed=1, device="cuda").fit(sentences)
+    w2v_s = time.perf_counter() - t
+    w2v_launches = kernels.LAUNCHES["scatter_add_rows"] - before
+    names = ["neg", "neutral", "pos"]
+    it = Word2VecDataSetIterator(
+        w2v, LabelAwareSentenceIterator(sentences, labels), names,
+        batch=TT["mlp_batch"], window=TT["window"])
+    net = MultiLayerNetwork(zoo.mlp(it.input_columns(), [512, 512], 3),
+                            device="cuda").init()
+    batches = []
+    t = time.perf_counter()
+    for ds in it:
+        batches.append(ds)
+        if len(batches) == TT["mlp_steps"]:
+            break
+    featurize_s = time.perf_counter() - t
+    x0, y0 = batches[0].features, batches[0].labels
+    s0 = net.score(x0, y0)
+    scores = []
+    for ds in batches:
+        net.fit(ds.features, ds.labels)
+        scores.append(net.score(x0, y0))
+    row = {"w2v_fit_s": w2v_s, "w2v_words": w2v.cache.num_words(),
+           "w2v_scatter_launches": w2v_launches,
+           "input_columns": it.input_columns(),
+           "featurize_ms_per_batch": featurize_s * 1e3 / len(batches),
+           "batches": len(batches), "score_before": s0, "scores": scores}
+    check(len(batches) == TT["mlp_steps"] and scores[-1] < s0,
+          f"the window classifier's score did not fall: {row}")
+    return row, w2v_launches
+
+
+def phase_text_trees(torch, kernels):
+    """The text-and-trees path at full width (TT): an SST-sized synthetic
+    treebank from seed 0; the RNTN (dim 25, 5 classes, max_nodes 128,
+    AdaGrad lr 0.05, l2 1e-4) for 30 full-batch epochs of captured steps,
+    an eager model's steps from the same state, the held-out root and
+    all-node accuracy and RNTNEval beside the majority shares, and the card
+    against the CPU port after 3 epochs of a 512-tree subset; the RAE for
+    10 epochs on the same trees; the scatter kernel at the leaf gradient's
+    shape; the chunk parser's tags (Viterbi on the card) on 256 sentences
+    against the CPU's; a window classifier over Word2VecDataSetIterator.
+    Launch counts are zeroed just before each model's training and read
+    just after. Returns the summary (emitted too)."""
+    from deeplearning4j_tpu_torch.models.recursive_autoencoder import (
+        RecursiveAutoEncoder, rae_loss)
+    from deeplearning4j_tpu_torch.models.rntn import (RNTN, parse_tree,
+                                                      tree_tokens)
+    from deeplearning4j_tpu_torch.models.rntn_eval import RNTNEval
+
+    card = gpu_line()
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    bank = tt_treebank(TT["train"] + TT["held_out"])
+    train, held_out = bank[:TT["train"]], bank[TT["train"]:]
+    gen_s = time.perf_counter() - t
+
+    def make_rntn():
+        return RNTN(dim=TT["dim"], n_classes=TT["classes"],
+                    max_nodes=TT["max_nodes"], lr=TT["lr"], l2=TT["l2"],
+                    seed=0, device="cuda")
+
+    model = make_rntn()
+    t = time.perf_counter()
+    trees = model._prepare(train)
+    plans = model._plans(trees)
+    plan_s = time.perf_counter() - t
+    b, n = plans["word_id"].shape
+    state0 = ({k: v.clone() for k, v in model.params.items()},
+              {k: v.clone() for k, v in model._hist.items()},
+              dict(model.vocab))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    rntn_row = tt_train(torch, kernels, model, plans, TT["epochs"], "rntn")
+    rntn_launches = rntn_row["scatter_launches"]
+    rntn_row["peak_bytes"] = torch.cuda.max_memory_allocated()
+    check(rntn_launches > 0, "the scatter kernel never ran in the RNTN's "
+                             "steps")
+    rntn_row["eager"] = tt_eager(torch, kernels, make_rntn, state0, plans,
+                                 TT["eager_steps"])
+    rntn_row["first_loss_gap"] = abs(rntn_row["eager"]["first_loss"]
+                                     - rntn_row["loss_first"])
+    check(rntn_row["first_loss_gap"] <= 1e-5 * abs(rntn_row["loss_first"]),
+          f"the captured first step is not the eager one: {rntn_row}")
+    rntn_row["saved_bytes_reckoned"] = tt_saved_bytes(b, n, TT["dim"])
+    t = time.perf_counter()
+    root_acc = model.accuracy(held_out, root_only=True)
+    node_acc = model.accuracy(held_out, root_only=False)
+    ev = RNTNEval()
+    ev.eval(model, held_out)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    root_major, internal_major = tt_majorities(model._plans(held_out))
+    rntn_row.update({
+        "held_out_root_accuracy": root_acc, "root_majority": root_major,
+        "held_out_node_accuracy": node_acc,
+        "rntn_eval_accuracy": ev.accuracy(), "rntn_eval_f1": ev.f1(),
+        "internal_majority": internal_major, "eval_s": eval_s})
+    check(root_acc > root_major and ev.accuracy() > internal_major,
+          f"the RNTN does not beat the majority class: {rntn_row}")
+    rntn_row["scatter_at_leaf_grad"] = tt_scatter_row(
+        torch, kernels, len(model.vocab), plans["word_id"].reshape(-1),
+        TT["dim"])
+    rntn_row["cpu_check"] = tt_cpu_check(torch, train)
+    rntn_row.update({"phase": "text_trees_rntn", "gpu": card,
+                     "trees": b, "max_nodes": n,
+                     "nodes": int(plans["valid"].sum().item()),
+                     "vocab": len(model.vocab), "treebank_s": gen_s,
+                     "plan_s": plan_s})
+    emit(rntn_row)
+    del model, plans, state0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def make_rae():
+        return RecursiveAutoEncoder(dim=TT["dim"], max_nodes=TT["max_nodes"],
+                                    lr=TT["lr"], l2=TT["l2"], seed=0,
+                                    device="cuda")
+
+    rae = make_rae()
+    trees = rae._prepare(train)
+    plans = rae._plans(trees)
+    state0 = ({k: v.clone() for k, v in rae.params.items()},
+              {k: v.clone() for k, v in rae._hist.items()}, dict(rae.vocab))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    rae_row = tt_train(torch, kernels, rae, plans, TT["rae_epochs"], "rae")
+    rae_launches = rae_row["scatter_launches"]
+    rae_row["peak_bytes"] = torch.cuda.max_memory_allocated()
+    check(rae_launches > 0, "the scatter kernel never ran in the RAE's steps")
+    rae_row["eager"] = tt_eager(torch, kernels, make_rae, state0, plans,
+                                TT["eager_steps"])
+    rae_row["first_loss_gap"] = abs(rae_row["eager"]["first_loss"]
+                                    - rae_row["loss_first"])
+    check(rae_row["first_loss_gap"] <= 1e-5 * abs(rae_row["loss_first"]),
+          f"the RAE's captured first step is not the eager one: {rae_row}")
+    with torch.no_grad():
+        rae_row["held_out_reconstruction"] = float(rae_loss(
+            rae.params, rae._plans(held_out), l2=0.0))
+    rae_row.update({"phase": "text_trees_rae", "gpu": card})
+    emit(rae_row)
+    del rae, plans, state0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sentences = [" ".join(tree_tokens(parse_tree(s)))
+                 for s in held_out[:TT["tag_sentences"]]]
+    tag_row = tt_tagging(torch, sentences)
+    tag_row.update({"phase": "text_trees_tagging", "gpu": card})
+    emit(tag_row)
+
+    w2v_sents = [" ".join(tree_tokens(parse_tree(s)))
+                 for s in train[:TT["w2v_sentences"]]]
+    roots = [int(s[1]) for s in train[:TT["w2v_sentences"]]]
+    labels = [["neg", "neg", "neutral", "pos", "pos"][r] for r in roots]
+    kernels.reset_launches()
+    win_row, w2v_launches = tt_windows(torch, kernels, w2v_sents, labels)
+    win_row.update({"phase": "text_trees_windows", "gpu": card})
+    emit(win_row)
+    summary = {"phase": "text_trees", "gpu": card,
+               "seconds": time.perf_counter() - t0,
+               "scatter_launches": {"rntn": rntn_launches,
+                                    "rae": rae_launches,
+                                    "word2vec": w2v_launches},
+               "scatter_at_leaf_grad": rntn_row["scatter_at_leaf_grad"],
+               "rntn_step_ms": rntn_row["step_ms_median"],
+               "rntn_eager_step_ms": median(rntn_row["eager"]["step_ms"]),
+               "rae_step_ms": rae_row["step_ms_median"],
+               "held_out_root_accuracy": rntn_row["held_out_root_accuracy"],
+               "rntn_eval_accuracy": rntn_row["rntn_eval_accuracy"]}
+    emit(summary)
+    return summary
+
+
+def phase_text_trees_child(torch):
+    """`phase_text_trees` in a child process (`chip_smoke.py
+    --only-text-trees`), as the other late phases run. Echoes the child's
+    lines; returns its summary."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--only-text-trees"],
+        capture_output=True, text=True, timeout=600)
+    rows = []
+    for line in proc.stdout.strip().splitlines():
+        print(line, flush=True)
+        if line.startswith("{"):
+            rows.append(json.loads(line))
+    summary = [r for r in rows if r.get("phase") == "text_trees"]
+    check(proc.returncode == 0 and len(summary) == 1,
+          f"the text_trees child failed (rc {proc.returncode}): "
+          f"{proc.stderr[-3000:]}")
+    emit({"phase": "text_trees_child", "seconds": time.perf_counter() - t0})
+    return summary[0]
+
+
 def f32_case(r, library_key):
     """One f32 row's numbers for the kernels line."""
     return {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
@@ -8656,6 +9165,17 @@ def main(argv) -> int:
         kernels.build()
         phase_fleet(torch, kernels)
         return 0
+    if "--only-text-trees" in argv:
+        # the text_trees phase alone (the full run's child): no kernels
+        # line and no last line
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from deeplearning4j_tpu_torch.nd import kernels
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kernels.build(["scatter_add"])
+        phase_text_trees(torch, kernels)
+        return 0
     if "--seed-sweeps" in argv:
         # the recipes that hang on the initial draw (SEED_SWEEPS)
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -8773,6 +9293,10 @@ def main(argv) -> int:
     fl_summary = phase_fleet_child(torch)
     fl_launches = fleet_flash_launches(fl_summary)
     check(fl_launches > 0, "flash_attn_fwd never ran in the fleet phase")
+    tt_summary = phase_text_trees_child(torch)
+    tt_launches = tt_summary["scatter_launches"]
+    check(tt_launches["rntn"] > 0 and tt_launches["rae"] > 0,
+          "the scatter kernel never ran in the text_trees phase's steps")
 
     bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
     replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,
@@ -8938,9 +9462,11 @@ def main(argv) -> int:
         "name": "scatter_add_rows", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/scatter_add.cu",
         "replaces": "deeplearning4j_tpu/nd/pallas_kernels.py:600",
-        "launches": w2v_launches + sum(quality_launches.values()),
+        "launches": (w2v_launches + sum(quality_launches.values())
+                     + sum(tt_launches.values())),
         "launches_by_path": {"w2v_train": w2v_launches,
-                             "embed_quality": quality_launches},
+                             "embed_quality": quality_launches,
+                             "text_trees": tt_launches},
         "launches_per_w2v_step": W2V_GATHERS,
         # the numbers below are at the syn1 shape of the bench's step
         "max_abs_err": syn1["max_abs_err"], "ms": syn1["kernel_ms"],
@@ -8953,6 +9479,11 @@ def main(argv) -> int:
                                            "plain_ms", "bound_ms",
                                            "library_ms")}
                   for name, r in scatter_rows.items()},
+        # the RNTN's leaf gradient: E [vocab, 25], a row a plan step
+        "at_rntn_leaf_grad": {k: tt_summary["scatter_at_leaf_grad"][k]
+                              for k in ("n", "width", "rows", "max_abs_err",
+                                        "kernel_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
         "w2v_step_ms_median": w2v_row["step_ms_median"],
         "w2v_words_per_s": w2v_row["words_per_s"]})
     emit({"kernels": rows})

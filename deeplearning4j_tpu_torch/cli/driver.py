@@ -13,7 +13,8 @@ unless `--device cpu`):
   batches (`--properties`, default 10): SIGTERM checkpoints and exits 0
   with an `interrupted` line, and a rerun with the same flags resumes. A
   net whose output loss is reconstruction cross-entropy trains and is
-  scored against its inputs; one that is also a pretrained autoencoder
+  scored against its inputs (batched, its stream is a
+  `ReconstructionDataSetIterator`); one that is also a pretrained autoencoder
   stack runs Hinton's recipe (pretrain and unroll once, then `epochs`
   finetunes). Pretraining recipes refuse `--checkpoint-dir`, as the JAX
   package's do;
@@ -326,7 +327,8 @@ def _zoo_conf(spec: str, data):
 def cmd_train(args) -> int:
     from deeplearning4j_tpu_torch.datasets.dataset import DataSet
     from deeplearning4j_tpu_torch.datasets.iterator import (
-        ListDataSetIterator, MultipleEpochsIterator, PrefetchIterator)
+        ListDataSetIterator, MultipleEpochsIterator, PrefetchIterator,
+        ReconstructionDataSetIterator)
     from deeplearning4j_tpu_torch.nd.losses import LossFunction
     from deeplearning4j_tpu_torch.nn.conf import (LayerType,
                                                   MultiLayerConfiguration)
@@ -452,8 +454,9 @@ def cmd_train(args) -> int:
         # to it, then resumes
         if epochs > 0:
             stream = ListDataSetIterator(
-                DataSet(data.features, targets),
-                batch if batch > 0 else data.num_examples())
+                data, batch if batch > 0 else data.num_examples())
+            if reconstruction:
+                stream = ReconstructionDataSetIterator(stream)
             if epochs > 1:
                 stream = MultipleEpochsIterator(epochs, stream)
             try:
@@ -471,10 +474,11 @@ def cmd_train(args) -> int:
     else:
         for _ in range(epochs):
             if batch > 0:
-                for b in PrefetchIterator(data.batch_by(batch),
-                                          device=net.device):
-                    net.fit(b.features,
-                            b.features if reconstruction else b.labels)
+                stream = ListDataSetIterator(data, batch)
+                if reconstruction:
+                    stream = ReconstructionDataSetIterator(stream)
+                for b in PrefetchIterator(stream, device=net.device):
+                    net.fit(b.features, b.labels)
             else:
                 net.fit(data.features, targets)
     # each fit ends in the solver's read-back of its scores: the work is done

@@ -1,16 +1,19 @@
 """Batch iterators and the host-to-device prefetcher.
 
 Counterpart of `deeplearning4j_tpu/datasets/iterator.py` (its own copy):
-`DataSetIterator`, `ListDataSetIterator`, `MultipleEpochsIterator`, and
-`PrefetchIterator`, which moves batches to the device ahead of the
-consumer. The sampling, reconstruction, moving-window and test iterators
-are not ported yet.
+`DataSetIterator`, `ListDataSetIterator`, `SamplingDataSetIterator`,
+`MultipleEpochsIterator`, `ReconstructionDataSetIterator`,
+`moving_window_dataset` with `MovingWindowBaseDataSetIterator`,
+`TestDataSetIterator`, and `PrefetchIterator`, which moves batches to the
+device ahead of the consumer. Every iterator but the prefetcher is host
+numpy; a selection of examples takes each example's label rows
+(`DataSet.get`).
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Iterator, NamedTuple, Optional
+from typing import Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -82,6 +85,29 @@ class ListDataSetIterator(DataSetIterator):
         return out
 
 
+class SamplingDataSetIterator(DataSetIterator):
+    """Batches drawn at random with replacement, `total_batches` of them,
+    by `RandomState(seed).choice` as the JAX package draws them."""
+
+    def __init__(self, data: DataSet, batch_size: int, total_batches: int,
+                 seed: int = 123):
+        super().__init__(batch_size, total_batches * batch_size)
+        self.data = data
+        self._rng = np.random.RandomState(seed)
+
+    def input_columns(self) -> int:
+        return self.data.num_inputs()
+
+    def total_outcomes(self) -> int:
+        return self.data.num_outcomes()
+
+    def next(self, num: Optional[int] = None) -> DataSet:
+        n = self.batch_size if num is None else num
+        idx = self._rng.choice(self.data.num_examples(), size=n)
+        self.cursor += n
+        return self.data.get(idx)
+
+
 class MultipleEpochsIterator(DataSetIterator):
     """Replays an underlying iterator for `epochs` epochs."""
 
@@ -114,6 +140,103 @@ class MultipleEpochsIterator(DataSetIterator):
         out = self.base.next(num)
         self.cursor += out.num_examples()
         return out
+
+
+class ReconstructionDataSetIterator(DataSetIterator):
+    """Each batch of `base` with its features as its labels (a copy): the
+    stream an autoencoder or RBM trains on."""
+
+    def __init__(self, base: DataSetIterator):
+        super().__init__(base.batch_size, base.total_examples())
+        self.base = base
+
+    def input_columns(self) -> int:
+        return self.base.input_columns()
+
+    def total_outcomes(self) -> int:
+        # the target is the features themselves
+        return self.base.input_columns()
+
+    def reset(self) -> None:
+        super().reset()
+        self.base.reset()
+
+    def has_next(self) -> bool:
+        return self.base.has_next()
+
+    def next(self, num: Optional[int] = None) -> DataSet:
+        d = self.base.next(num)
+        self.cursor = self.base.cursor
+        return DataSet(d.features, np.array(d.features, copy=True))
+
+
+def moving_window_dataset(data: DataSet, window_rows: int,
+                          window_cols: int, rotate: bool = True) -> DataSet:
+    """Every square image of `data` (features [n, side*side]) cut into all
+    its non-overlapping window_rows x window_cols tiles, and, for square
+    windows with `rotate`, the tiles turned by 90, 180 and 270 degrees
+    (`np.rot90` k = 1, 2, 3, after the unturned tiles); each row one
+    window, labelled with its image's label. Rows come image by image, in
+    the JAX package's order."""
+    n, d = data.features.shape
+    side = int(round(d ** 0.5))
+    if side * side != d:
+        raise ValueError(f"features ({d} columns) are not square images")
+    if side % window_rows or side % window_cols:
+        raise ValueError(f"{side}x{side} images do not tile into "
+                         f"{window_rows}x{window_cols} windows")
+    imgs = data.features.reshape(n, side // window_rows, window_rows,
+                                 side // window_cols, window_cols)
+    tiles = imgs.transpose(0, 1, 3, 2, 4).reshape(
+        n, -1, window_rows, window_cols)  # [n, tiles, wr, wc]
+    variants = [tiles]
+    if rotate and window_rows == window_cols:
+        for k in (1, 2, 3):
+            variants.append(np.rot90(tiles, k=k, axes=(2, 3)))
+    stacked = np.concatenate(variants, axis=1)  # [n, v*tiles, wr, wc]
+    per_img = stacked.shape[1]
+    feats = np.ascontiguousarray(stacked).reshape(
+        n * per_img, window_rows * window_cols)
+    labels = np.repeat(data.labels, per_img, axis=0)
+    return DataSet(feats.astype(np.float32), labels)
+
+
+class MovingWindowBaseDataSetIterator(ListDataSetIterator):
+    """Batches over `moving_window_dataset(data, ...)`."""
+
+    def __init__(self, data: DataSet, window_rows: int, window_cols: int,
+                 batch_size: int = 10, rotate: bool = True):
+        super().__init__(
+            moving_window_dataset(data, window_rows, window_cols, rotate),
+            batch_size)
+
+
+class TestDataSetIterator(DataSetIterator):
+    """Wraps any iterator and keeps every batch it served (`served`)."""
+
+    def __init__(self, base: DataSetIterator):
+        super().__init__(base.batch_size, base.total_examples())
+        self.base = base
+        self.served: List[DataSet] = []
+
+    def input_columns(self) -> int:
+        return self.base.input_columns()
+
+    def total_outcomes(self) -> int:
+        return self.base.total_outcomes()
+
+    def reset(self) -> None:
+        super().reset()
+        self.base.reset()
+
+    def has_next(self) -> bool:
+        return self.base.has_next()
+
+    def next(self, num: Optional[int] = None) -> DataSet:
+        d = self.base.next(num)
+        self.served.append(d)
+        self.cursor = self.base.cursor
+        return d
 
 
 class DeviceBatch(NamedTuple):

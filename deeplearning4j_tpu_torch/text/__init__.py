@@ -7,11 +7,17 @@ package's `text/` modules that the port needs (the port imports nothing of
   stopwords         — StopWords list
   vocab             — VocabCache/VocabWord + Huffman coding
   corpus            — TokenCorpus, the two-pass corpus view
+  windows           — moving-window featurization
+  inverted_index    — corpus store for mini-batched embedding training
+  vectorizers       — BagOfWords / TF-IDF
+  pos, hmm_pos      — PoS tagging (rules; the bundled HMM over Viterbi)
+  sentiment_lexicon — SentiWordNet-style scored lexicon
+  tree_parser       — sentences to binary trees for the tree models
 """
 
 from deeplearning4j_tpu_torch.text.sentence_iterator import (
     CollectionSentenceIterator, FileSentenceIterator,
-    LabelAwareSentenceIterator, LineSentenceIterator)
+    IndexSentenceIterator, LabelAwareSentenceIterator, LineSentenceIterator)
 from deeplearning4j_tpu_torch.text.tokenization import (
     DefaultTokenizer, DefaultTokenizerFactory, input_homogenization)
 from deeplearning4j_tpu_torch.text.vocab import Huffman, VocabCache, VocabWord

@@ -6,10 +6,8 @@ and the supervised vectorizers), and `text/documentiterator/DocumentIterator`.
 All expose the same tiny contract: `next_sentence()`, `has_next()`,
 `reset()`, plus Python iteration.
 
-A copy of the in-memory and file iterators of
-`deeplearning4j_tpu/text/sentence_iterator.py` (the port imports nothing of
-the JAX package). `IndexSentenceIterator` and `DocumentIterator` wait for
-the port of the inverted index.
+A copy of `deeplearning4j_tpu/text/sentence_iterator.py` (the port imports
+nothing of the JAX package).
 """
 
 from __future__ import annotations
@@ -138,3 +136,71 @@ class LabelAwareSentenceIterator(CollectionSentenceIterator):
 
     def current_label(self) -> str:
         return self.labels[max(0, self._i - 1)]
+
+
+class IndexSentenceIterator(BaseSentenceIterator):
+    """Sentences streamed from an inverted-index corpus store — the
+    `LuceneSentenceIterator.java` analog: the reference iterates the
+    sentences Lucene has on disk; here the store is `InvertedIndex` or
+    the disk-backed `DiskInvertedIndex` (bounded-RAM streaming), with
+    documents detokenized by `sep`."""
+
+    def __init__(self, index, preprocessor=None, sep: str = " "):
+        super().__init__(preprocessor)
+        self.index = index
+        self.sep = sep
+        self.reset()
+
+    def reset(self) -> None:
+        self._it = iter(self.index.all_docs())
+        self._next = next(self._it, None)
+
+    def has_next(self) -> bool:
+        return self._next is not None
+
+    def next_sentence(self) -> str:
+        toks = self._next
+        self._next = next(self._it, None)
+        return self._prep(self.sep.join(toks))
+
+
+class DocumentIterator:
+    """Whole-document iterator (`DocumentIterator.java`): each item is the
+    full text of one file under root."""
+
+    def __init__(self, root: str):
+        self.root = os.fspath(root)
+        self.reset()
+
+    def reset(self) -> None:
+        if os.path.isfile(self.root):
+            self._paths = [self.root]
+        else:
+            self._paths = []
+            for d, _, files in sorted(os.walk(self.root)):
+                self._paths.extend(os.path.join(d, f) for f in sorted(files))
+        self._i = 0
+
+    def has_next(self) -> bool:
+        return self._i < len(self._paths)
+
+    def next_document(self) -> str:
+        path = self._paths[self._i]
+        self._i += 1
+        with open(path, "r", encoding="utf-8", errors="replace") as f:
+            return f.read()
+
+    def current_path(self) -> str:
+        """Path of the most recently returned document (cursor-following,
+        like the label-aware iterators' current_label)."""
+        return self._paths[max(0, self._i - 1)]
+
+    def paths(self) -> List[str]:
+        """The discovered document paths (recursive sorted walk), for
+        consumers that stream file contents themselves."""
+        return list(self._paths)
+
+    def __iter__(self):
+        self.reset()
+        while self.has_next():
+            yield self.next_document()
