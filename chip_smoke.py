@@ -323,6 +323,32 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    tags and trees equal to the CPU's; a window classifier (the bench MLP
    on Word2VecDataSetIterator batches of a small port Word2Vec) whose
    score falls. Its scatter launches join the scatter row's.
+23. `scaleout_clustering` (SC; `--only-scaleout-clustering` runs it alone,
+   with no last line, and the full run runs it so, in a child process):
+   the distributed Word2Vec at the bench's widths with AdaGrad, 4 BSP
+   workers, 1 epoch (words/s beside the single-process port's on the same
+   corpus, scatter launches 3 a step, a profiled tenth of the corpus for
+   the host share, quality on embed_quality's corpus); the distributed
+   GloVe on that corpus for 2 epochs (loss falls, 4 launches a step);
+   the scatter kernel at a job's syn0, syn1, syn1neg, w and b shapes
+   against its plain version; `distributed_word_count` equal to a serial
+   count; k-means at 1,000,000 x 128, k = 256, through the fast path and
+   the strategy framework (ms an iteration, iterations, peak memory; a
+   20,000-point subset's seeds, iterations and assignments equal to the
+   CPU port's); exact t-SNE on 10,000 MNIST stand-in rows for 1,000
+   iterations (KL falls; P and 10 iterations of a 500-row subset against
+   the CPU port); meanwhile, in their own processes, Barnes-Hut t-SNE on
+   2,000 rows for 100 iterations on the host (the exact KL falls, and
+   falls along its gradient; the full run starts it at its own start), the
+   parameter server's BSP and
+   async fleets of 3 ps_worker processes on the card (4 rounds of the
+   Iris MLP; the scores fall; the straggler exits last) and a LocalLauncher
+   fleet of 2 gloo ranks that all-reduce from the exported env; a
+   BlobModelSaver round trip, bitwise. Its scatter launches join the
+   scatter row's.
+
+The full run starts each late phase's child process while the phase
+before it runs (`Children`), so the child's start-up costs no wall time.
 
 Each phase prints one JSON line; then a line with every kernel's numbers,
 the card's line, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -3351,7 +3377,6 @@ def phase_lstm_cli(torch, kernels):
     return launches
 
 
-
 # ---------------------------------------------------------------- word2vec
 
 #: the bench's Word2Vec (bench.py:368-385, nothing cut): vocab 10,000, 1.2M
@@ -6293,33 +6318,6 @@ def phase_data_parallel(torch, kernels):
     return launches
 
 
-def phase_data_parallel_child(torch):
-    """`phase_data_parallel` in a child process (`chip_smoke.py
-    --only-data-parallel`): a fresh CUDA context, NCCL communicator and
-    profiler. In the process that has run and profiled every earlier
-    phase, the
-    profiler misnames kernels of a graph replay (a full run's profiled
-    trainer replay named 5 of each backward kernel's 8 launches, where the
-    host counts and the phase run alone gave 8). Echoes the child's lines;
-    returns its launches."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--only-data-parallel"],
-        capture_output=True, text=True, timeout=900)
-    rows = []
-    for line in proc.stdout.strip().splitlines():
-        print(line, flush=True)
-        if line.startswith("{"):
-            rows.append(json.loads(line))
-    summary = [r for r in rows if r.get("phase") == "data_parallel"]
-    check(proc.returncode == 0 and len(summary) == 1,
-          f"the data_parallel child failed (rc {proc.returncode}): "
-          f"{proc.stderr[-3000:]}")
-    emit({"phase": "data_parallel_child",
-          "seconds": time.perf_counter() - t0})
-    return summary[0]["launches"]
-
-
 def dp_close() -> None:
     """End this process's process group (the trainers' NCCL
     communicator)."""
@@ -6718,29 +6716,6 @@ def phase_tensor_parallel(torch, kernels):
     emit(summary)
     dp_close()
     return summary
-
-
-def phase_tensor_parallel_child(torch):
-    """`phase_tensor_parallel` in a child process (`chip_smoke.py
-    --only-tensor-parallel`), as `phase_data_parallel_child` runs its
-    phase: a fresh CUDA context, NCCL communicator and profiler. Echoes
-    the child's lines; returns its summary."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--only-tensor-parallel"],
-        capture_output=True, text=True, timeout=900)
-    rows = []
-    for line in proc.stdout.strip().splitlines():
-        print(line, flush=True)
-        if line.startswith("{"):
-            rows.append(json.loads(line))
-    summary = [r for r in rows if r.get("phase") == "tensor_parallel"]
-    check(proc.returncode == 0 and len(summary) == 1,
-          f"the tensor_parallel child failed (rc {proc.returncode}): "
-          f"{proc.stderr[-3000:]}")
-    emit({"phase": "tensor_parallel_child",
-          "seconds": time.perf_counter() - t0})
-    return summary[0]
 
 
 def tp_ranks(torch, kernels) -> int:
@@ -7219,27 +7194,6 @@ def phase_serve_mesh(torch, kernels):
     emit(summary)
     dp_close()
     return summary
-
-
-def phase_serve_mesh_child(torch):
-    """`phase_serve_mesh` in a child process (`chip_smoke.py
-    --only-serve-mesh`), as the tensor_parallel phase runs. Echoes the
-    child's lines; returns its summary."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--only-serve-mesh"],
-        capture_output=True, text=True, timeout=900)
-    rows = []
-    for line in proc.stdout.strip().splitlines():
-        print(line, flush=True)
-        if line.startswith("{"):
-            rows.append(json.loads(line))
-    summary = [r for r in rows if r.get("phase") == "serve_mesh"]
-    check(proc.returncode == 0 and len(summary) == 1,
-          f"the serve_mesh child failed (rc {proc.returncode}): "
-          f"{proc.stderr[-3000:]}")
-    emit({"phase": "serve_mesh_child", "seconds": time.perf_counter() - t0})
-    return summary[0]
 
 
 def sm_small_conf():
@@ -7892,28 +7846,6 @@ def phase_serve_precision(torch, kernels):
     return summary
 
 
-def phase_serve_precision_child(torch):
-    """`phase_serve_precision` in a child process (`chip_smoke.py
-    --only-serve-precision`). Echoes the child's lines; returns its
-    summary."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--only-serve-precision"],
-        capture_output=True, text=True, timeout=900)
-    rows = []
-    for line in proc.stdout.strip().splitlines():
-        print(line, flush=True)
-        if line.startswith("{"):
-            rows.append(json.loads(line))
-    summary = [r for r in rows if r.get("phase") == "serve_precision"]
-    check(proc.returncode == 0 and len(summary) == 1,
-          f"the serve_precision child failed (rc {proc.returncode}): "
-          f"{proc.stderr[-3000:]}")
-    emit({"phase": "serve_precision_child",
-          "seconds": time.perf_counter() - t0})
-    return summary[0]
-
-
 #: the fleet phase (item 21): the flagship at SLICE's widths cut to
 #: FL["n_blocks"] blocks (bf16 compute), the tile-variant cases, the
 #: requests through the router and the tune's decode sweep length
@@ -8519,27 +8451,6 @@ def fleet_tile_entries(summary):
     return out
 
 
-def phase_fleet_child(torch):
-    """`phase_fleet` in a child process (`chip_smoke.py --only-fleet`), as
-    the other recent phases run. Echoes the child's lines; returns its
-    summary."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--only-fleet"],
-        capture_output=True, text=True, timeout=900)
-    rows = []
-    for line in proc.stdout.strip().splitlines():
-        print(line, flush=True)
-        if line.startswith("{"):
-            rows.append(json.loads(line))
-    summary = [r for r in rows if r.get("phase") == "fleet"]
-    check(proc.returncode == 0 and len(summary) == 1,
-          f"the fleet child failed (rc {proc.returncode}): "
-          f"{proc.stderr[-3000:]}")
-    emit({"phase": "fleet_child", "seconds": time.perf_counter() - t0})
-    return summary[0]
-
-
 # --------------------------------------------------------------- text_trees
 
 #: the text-and-trees path (slice 24): an SST-sized synthetic treebank (the
@@ -9009,25 +8920,832 @@ def phase_text_trees(torch, kernels):
     return summary
 
 
-def phase_text_trees_child(torch):
-    """`phase_text_trees` in a child process (`chip_smoke.py
-    --only-text-trees`), as the other late phases run. Echoes the child's
-    lines; returns its summary."""
+# ------------------------------------------------------ scaleout_clustering
+
+#: the scaleout_clustering phase: the distributed Word2Vec at the bench's
+#: widths (W2V: vocab 10,000, 1.2 M tokens, vector 128, window 5, negative
+#: 5, batch 32,768) with AdaGrad over 4 BSP workers, epochs cut to 1 (SGD at
+#: that batch blows up in both packages, ROADMAP queue C); the distributed
+#: GloVe (vector 128, window 15, batch 4,096) on the same corpus, epochs cut
+#: to 2, at lr 0.01 (at GloVe's 0.05 the 4 workers' summed AdaGrad deltas
+#: overshoot and the second epoch's loss rises, ROADMAP queue C); k-means on
+#: 1,000,000 x 128 Gaussian blobs from seed 0, k = 256; exact t-SNE on
+#: 10,000 rows of the MNIST stand-in, 1,000 iterations; Barnes-Hut t-SNE on
+#: 2,000 of them on the host, iterations cut to bh_iters with the
+#: exaggeration and first momentum cut to bh_stop (from 250 of 1,000: ~5 s
+#: an iteration); the parameter server with 3 ps_worker processes, 4
+#: rounds of tests/test_multiprocess_distributed.py's MLP
+SC = dict(w2v_workers=4, w2v_epochs=1, profile_share=0.1,
+          glove_vector=128, glove_window=15,
+          glove_batch=4096, glove_epochs=2, glove_workers=4, glove_lr=0.01,
+          km_n=1_000_000, km_d=128, km_k=256, km_spread=2.0, km_subset=20_000,
+          km_tol=1e-4, km_max_iters=100, km_rate=1e-3,
+          tsne_n=10_000, tsne_iters=1000, tsne_check_n=500,
+          tsne_check_iters=10, tsne_check_tol=1e-4, tsne_check_p_tol=1e-5,
+          bh_n=2000, bh_iters=100, bh_stop=50,
+          ps_workers=3, ps_rounds=4, ps_slow=2.0, fleet_ranks=2)
+
+
+def sc_scatter_row(torch, kernels, case, rows_n, width, idx):
+    """The scatter kernel at one of a distributed job's gather shapes (a
+    table of rows_n x width, width 0 for a 1-D bias; the job's indices):
+    checked against its plain version and timed as `tt_scatter_row`."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    exact, err, close, (ti, ui, table, upd, got, want) = scatter_check(
+        torch, kernels, gen, rows_n, width, idx, torch.float32)
+    scratch = table.clone()
+    bound_ms, bound_by, touched = scatter_bound_ms(torch, table, idx, upd)
+    row = {"phase": "scaleout_scatter", "case": case, "rows": rows_n,
+           "width": width or 1, "n": int(idx.shape[0]),
+           "touched_rows": touched,
+           "max_dup": int(torch.bincount(idx.long()).max().item()),
+           "exact_on_integers": exact, "max_abs_err": err,
+           "within_sum_bound": close, "ok": exact and close,
+           "kernel_ms": graph_ms(lambda: kernels.scatter_add_rows_(
+               scratch, idx, upd)),
+           "plain_ms": graph_ms(lambda: kernels.scatter_add_rows_reference(
+               table, idx, upd), iters=5, replays=1),
+           "library_ms": graph_ms(lambda: scratch.index_add_(0, idx, upd)),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(row)
+    check(row["ok"], f"scatter_add_rows disagrees at the {case} shape: "
+                     f"{row}")
+    del ti, ui, table, upd, got, want, scratch
+    return row
+
+
+def sc_w2v_job_batch(torch, model, centers, contexts):
+    """The first step of job 0 of epoch 0 of a distributed fit over these
+    pairs, as `DistributedWord2Vec.fit` makes it: its centers, contexts,
+    and negatives from the job's key."""
+    from deeplearning4j_tpu_torch.nd import random as nd_random
+    from deeplearning4j_tpu_torch.scaleout.word2vec_performer import \
+        job_batches
+
+    perm = np.random.RandomState(model.seed).permutation(len(centers))
+    chunk = max(1, len(perm) // SC["w2v_workers"])
+    c_all, t_all, b_job = job_batches(centers[perm[:chunk]],
+                                      contexts[perm[:chunk]],
+                                      model.batch_size)
+    cb = torch.as_tensor(c_all[:b_job], device="cuda")
+    tb = torch.as_tensor(t_all[:b_job], device="cuda")
+    codes, points, mask, neg_table = model._vocab_arrays()
+    key = nd_random.fold_in(nd_random.fold_in(nd_random.fold_in(
+        nd_random.prng_key(model.seed, device="cuda"), 0), 0), 0)
+    slots = nd_random.randint(key, (b_job, model.negative), 0,
+                              neg_table.shape[0])
+    return cb, tb, points[tb], neg_table[slots]
+
+
+def sc_word2vec(torch, kernels, sents):
+    """The distributed Word2Vec at the bench's widths (AdaGrad, 4 BSP
+    workers, 1 epoch) beside the single-process port's fit of the same
+    corpus and configuration; the scatter launches of the distributed fit
+    (zeroed just before, read just after: 3 a step); the scatter kernel at
+    a job's syn0, syn1 and syn1neg shapes; a profiled fit of a tenth of the
+    corpus (host share); quality on the two-cluster corpus as embed_quality
+    checks it. Returns (row, launches)."""
+    import deeplearning4j_tpu_torch.scaleout.word2vec_performer as wp
+    from deeplearning4j_tpu_torch.models.word2vec import SYN_KEYS
+    from deeplearning4j_tpu_torch.scaleout import DistributedWord2Vec
+
+    kw = dict(vector_length=W2V["vector"], window=W2V["window"],
+              negative=W2V["negative"], min_word_frequency=1,
+              epochs=SC["w2v_epochs"], seed=W2V["seed"],
+              batch_size=W2V["batch"], use_adagrad=True, device="cuda")
+    model = DistributedWord2Vec(n_workers=SC["w2v_workers"], **kw)
+    counter, restore = count_calls(wp, "w2v_step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    try:
+        t = time.perf_counter()
+        model.fit(sents)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        restore()
+    launches = kernels.LAUNCHES["scatter_add_rows"]
+    steps = counter["calls"]
+    row = {"phase": "scaleout_w2v", "config": {
+        **W2V, "epochs": SC["w2v_epochs"], "workers": SC["w2v_workers"],
+        "use_adagrad": True, "mode": "bsp"},
+        "steps": steps, "jobs": model.tracker.count("jobs_done"),
+        "fit_wall_s": wall,
+        "words_per_s": W2V["tokens"] * SC["w2v_epochs"] / wall,
+        "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "tables_finite": all(bool(torch.isfinite(getattr(model.table, k))
+                                  .all()) for k in SYN_KEYS)}
+    check(steps > 0 and launches == W2V_GATHERS * steps,
+          f"distributed word2vec: {launches} scatter launches in {steps} "
+          f"steps, want {W2V_GATHERS} a step")
+    check(row["tables_finite"], "a distributed word2vec table is not finite")
+    # the single-process port on the same corpus and configuration
+    single = bench_word2vec(use_adagrad=True, epochs=SC["w2v_epochs"])
+    t = time.perf_counter()
+    single.fit(sents)
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t
+    row["single_process"] = {
+        "fit_wall_s": single_wall,
+        "words_per_s": W2V["tokens"] * SC["w2v_epochs"] / single_wall}
+    del single
+    # the scatter kernel at a job's shapes
+    ids = [np.asarray([model.cache.index_of(t) for t in s], np.int32)
+           for s in sents]
+    model._rng = np.random.RandomState(model.seed)
+    centers, contexts = model._pairs(ids)
+    cb, tb, pts, neg = sc_w2v_job_batch(torch, model, centers, contexts)
+    vocab_n = model.cache.num_words()
+    row["scatter"] = {
+        "syn0": sc_scatter_row(torch, kernels, "w2v_job_syn0", vocab_n,
+                               W2V["vector"], cb),
+        "syn1": sc_scatter_row(torch, kernels, "w2v_job_syn1", vocab_n - 1,
+                               W2V["vector"], pts.reshape(-1)),
+        "syn1neg": sc_scatter_row(
+            torch, kernels, "w2v_job_syn1neg", vocab_n, W2V["vector"],
+            torch.cat([tb[:, None], neg], 1).reshape(-1))}
+    del model, centers, contexts, cb, tb, pts, neg
+    gc.collect()
+    torch.cuda.empty_cache()
+    # host share of the jobs: a profiled fit of a tenth of the corpus
+    sub = sents[:int(len(sents) * SC["profile_share"])]
+    prof = profiled(torch, kernels, lambda: DistributedWord2Vec(
+        n_workers=SC["w2v_workers"], **kw).fit(sub),
+        "scaleout_w2v_profile", ours_key="scatter")
+    row["profile_tenth"] = {k: prof[k] for k in (
+        "wall_ms", "device_ms", "idle_share", "port_kernels_ms",
+        "kernel_count")}
+    row["host_share"] = prof["idle_share"]
+    # quality: embed_quality's corpus and Word2Vec settings, 4 workers
+    q = DistributedWord2Vec(vector_length=24, window=4, min_word_frequency=1,
+                            negative=4, epochs=4, batch_size=256, seed=1,
+                            n_workers=SC["w2v_workers"], device="cuda")
+    q.fit(cluster_corpus())
+    same, cross = q.similarity("cat", "dog"), q.similarity("cat", "truck")
+    near = [w for w, _ in q.words_nearest("cat", top=4)]
+    row["quality"] = {"cat_dog": same, "cat_truck": cross,
+                      "nearest_cat": near}
+    emit(row)
+    check(same > cross, f"distributed word2vec: cat~dog {same} <= "
+                        f"cat~truck {cross}")
+    check(any(w in ("dog", "pet", "fur", "paw") for w in near),
+          f"distributed word2vec: nearest to cat {near}")
+    return row, launches
+
+
+def sc_glove(torch, kernels, sents):
+    """The distributed GloVe on the bench corpus (vector 128, window 15, 4
+    workers, lr 0.01), its epochs cut to 2: its
+    scatter launches (4 a step), the epoch losses (must fall), and the
+    kernel at a job's w and b shapes. Returns (row, launches)."""
+    import deeplearning4j_tpu_torch.scaleout.glove_performer as gp
+    from deeplearning4j_tpu_torch.scaleout import DistributedGlove
+
+    g = DistributedGlove(vector_length=SC["glove_vector"],
+                         window=SC["glove_window"], min_word_frequency=1,
+                         epochs=SC["glove_epochs"], lr=SC["glove_lr"],
+                         batch_size=SC["glove_batch"], seed=0,
+                         n_workers=SC["glove_workers"], device="cuda")
+    counts_s = []
+    real_count = g._count_cooccurrences
+
+    def timed_count(token_lists):
+        t = time.perf_counter()
+        out = real_count(token_lists)
+        counts_s.append(time.perf_counter() - t)
+        return out
+
+    g._count_cooccurrences = timed_count
+    counter, restore = count_calls(gp, "glove_step")
+    kernels.reset_launches()
+    try:
+        t = time.perf_counter()
+        g.fit(sents)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        restore()
+    launches = kernels.LAUNCHES["scatter_add_rows"]
+    steps = counter["calls"]
+    row = {"phase": "scaleout_glove", "config": {
+        "vector": SC["glove_vector"], "window": SC["glove_window"],
+        "batch": SC["glove_batch"], "epochs": SC["glove_epochs"],
+        "lr": SC["glove_lr"],
+        "workers": SC["glove_workers"],
+        "tokens": sum(len(s) for s in sents)},
+        "fit_wall_s": wall, "cooccurrence_s": counts_s[0],
+        "steps": steps, "launches": launches,
+        "epoch_losses": g.epoch_losses,
+        "finite": bool(torch.isfinite(g.table.syn0).all())}
+    check(steps > 0 and launches == GLOVE_GATHERS * steps,
+          f"distributed glove: {launches} scatter launches in {steps} "
+          f"steps, want {GLOVE_GATHERS} a step")
+    check(row["finite"] and g.epoch_losses[-1] < g.epoch_losses[0],
+          f"the distributed glove's loss did not fall: {g.epoch_losses}")
+    ids = [[g.cache.index_of(t) for t in s] for s in sents[:2000]]
+    wi = torch.as_tensor(np.concatenate([np.asarray(s, np.int64)
+                                         for s in ids])[:SC["glove_batch"]],
+                         device="cuda")
+    n = g.cache.num_words()
+    row["scatter"] = {
+        "w": sc_scatter_row(torch, kernels, "glove_job_w", n,
+                            SC["glove_vector"], wi),
+        "b": sc_scatter_row(torch, kernels, "glove_job_b", n, 0, wi)}
+    emit(row)
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def sc_mlp_conf_json() -> str:
+    """tests/test_multiprocess_distributed.py:33-39's MLP: 4-8-3, lr 0.5,
+    20 plain SGD iterations a fit."""
+    from deeplearning4j_tpu_torch.models.zoo import mlp
+
+    conf = mlp(4, [8], 3, lr=0.5)
+    confs = tuple(c.replace(num_iterations=20, use_adagrad=False,
+                            momentum=0.0) for c in conf.confs)
+    return conf.replace(confs=confs).to_json()
+
+
+def sc_start_fleets(td):
+    """Start the subprocess fleets of the phase, which run while the card
+    works on the rest: the BSP and the async parameter-server fleets (3
+    ps_worker processes each on the card, the async one with a straggler,
+    against servers in this process) and the LocalLauncher's two gloo
+    ranks. Returns the handles for `sc_join_fleets`."""
+    from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.scaleout.param_server import \
+        ParameterServer
+    from deeplearning4j_tpu_torch.scaleout.provision import (
+        ClusterSpec, HostProvisioner, HostSpec, LocalLauncher)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    conf_json = sc_mlp_conf_json()
+    conf_path = os.path.join(td, "conf.json")
+    with open(conf_path, "w") as f:
+        f.write(conf_json)
+    net0 = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf_json),
+                             device="cuda", seed=7).init()
+    fleets = {"net0": net0, "t0": time.perf_counter()}
+    for mode in ("bsp", "async"):
+        ps = ParameterServer(net0.params_flat().cpu().numpy(),
+                             SC["ps_workers"], iterations=SC["ps_rounds"],
+                             mode=mode)
+        port = ps.serve(0)
+        procs = []
+        for i in range(SC["ps_workers"]):
+            argv = [sys.executable, "-m",
+                    "deeplearning4j_tpu_torch.scaleout.ps_worker",
+                    "--server", f"http://127.0.0.1:{port}",
+                    "--worker-id", f"w{i}", "--conf", conf_path,
+                    "--rounds", str(SC["ps_rounds"]), "--timeout", "300"]
+            if mode == "async" and i == SC["ps_workers"] - 1:
+                argv += ["--slow", str(SC["ps_slow"])]
+            procs.append(subprocess.Popen(
+                argv, env=env, cwd=here, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        fleets[mode] = (ps, procs)
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        free = s.getsockname()[1]
+    spec = ClusterSpec(hosts=[HostSpec("127.0.0.1", ssh_port=22 + r)
+                              for r in range(SC["fleet_ranks"])],
+                       coordinator_port=free)
+    script = os.path.join(td, "rank.py")
+    with open(script, "w") as f:
+        f.write("import sys, torch, torch.distributed as dist\n"
+                f"sys.path.insert(0, {here!r})\n"
+                "from deeplearning4j_tpu_torch.scaleout.provision import "
+                "initialize_distributed\n"
+                "assert initialize_distributed(device='cpu') is True\n"
+                "t = torch.tensor([dist.get_rank() + 1.0])\n"
+                "dist.all_reduce(t)\n"
+                "assert t.item() == sum(range(1, dist.get_world_size() + 1))\n"
+                "print('rank', dist.get_rank(), 'sum', t.item())\n"
+                "dist.destroy_process_group()\n")
+    prov = HostProvisioner(spec, launcher=LocalLauncher(
+        os.path.join(td, "fleet")))
+    prov.launch_workers(f"{sys.executable} {script}")
+    fleets["launcher"] = prov
+    return fleets
+
+
+def sc_join_fleets(torch, fleets):
+    """Wait for the fleets of `sc_start_fleets` and check them: every BSP
+    round published and the averaged model's score below the start's; the
+    async server took every delta (12), the straggler exited last, and its
+    model's score fell too; both gloo ranks exited 0. Returns the row."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import IrisDataFetcher
+
+    data = IrisDataFetcher().fetch(150).normalize_zero_mean_unit_variance()
+    net0 = fleets["net0"]
+    start = net0.params_flat().clone()
+    s0 = net0.score(data.features, data.labels)
+    row = {"phase": "scaleout_fleets", "score_start": s0}
+    for mode in ("bsp", "async"):
+        ps, procs = fleets[mode]
+        order, live = [], dict(enumerate(procs))
+        deadline = time.perf_counter() + 300
+        while live and time.perf_counter() < deadline:
+            for i in list(live):
+                if live[i].poll() is not None:
+                    order.append(f"w{i}")
+                    del live[i]
+            time.sleep(0.05)
+        errs = []
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            out, err = p.communicate(timeout=30)
+            errs.append(err[-1500:] if p.returncode else "")
+        ps.shutdown()
+        net0.set_params_flat(ps.current)
+        score = net0.score(data.features, data.labels)
+        acc = float((net0.predict(data.features)
+                     == data.labels.argmax(-1)).mean())
+        net0.set_params_flat(start)
+        row[mode] = {"rcs": [p.returncode for p in procs],
+                     "round": ps.round, "completed": sorted(ps.completed),
+                     "errors": ps.errors, "exit_order": order,
+                     "score": score, "accuracy": acc,
+                     "metrics": dict(ps.metrics)}
+        check(all(p.returncode == 0 for p in procs),
+              f"a {mode} ps_worker failed: {errs}")
+        check(score < s0, f"the {mode} fleet's score did not fall: {s0} -> "
+                          f"{score}")
+    check(row["bsp"]["round"] == SC["ps_rounds"],
+          f"BSP published {row['bsp']['round']} rounds")
+    check(row["async"]["round"] == SC["ps_workers"] * SC["ps_rounds"]
+          and row["async"]["exit_order"][-1] == f"w{SC['ps_workers'] - 1}",
+          f"the async fleet was gated or lost updates: {row['async']}")
+    rcs = fleets["launcher"].wait(timeout=120)
+    row["launcher_rcs"] = rcs
+    row["seconds"] = time.perf_counter() - fleets["t0"]
+    check(rcs == [0] * SC["fleet_ranks"],
+          f"a LocalLauncher gloo rank failed: {rcs}")
+    emit(row)
+    return row
+
+
+def sc_blob_saver(torch, td, net):
+    """A BlobModelSaver round trip of a network's params on the card:
+    bitwise."""
+    from deeplearning4j_tpu_torch.scaleout.provision import (BlobModelSaver,
+                                                             LocalBlobStore)
+
+    saver = BlobModelSaver(LocalBlobStore(os.path.join(td, "store")),
+                           key="models/mlp")
+    saver.save(net.params, conf=net.conf, step=3)
+    back, _, meta = saver.load(like_params=net.params)
+    same = all(torch.equal(a, b) for layer_a, layer_b in zip(net.params, back)
+               for a, b in zip(layer_a.values(), layer_b.values()))
+    check(same and meta["step"] == 3, "the blob round trip is not bitwise")
+    return {"bitwise": same, "step": meta["step"]}
+
+
+def sc_word_count(sents):
+    """`distributed_word_count` over the corpus against a serial count."""
+    from collections import Counter
+
+    from deeplearning4j_tpu_torch.scaleout import distributed_word_count
+    from deeplearning4j_tpu_torch.text.tokenization import \
+        DefaultTokenizerFactory
+
+    docs = [" ".join(s) for s in sents]
+    t = time.perf_counter()
+    got = distributed_word_count(docs, n_workers=4)
+    wall = time.perf_counter() - t
+    tok = DefaultTokenizerFactory()
+    want = Counter(w for d in docs for w in tok.tokenize(d))
+    same = dict(got.items()) == dict(want)
+    check(same, "distributed_word_count differs from a serial count")
+    return {"equal_serial": same, "words": len(want),
+            "tokens": sum(want.values()), "seconds": wall}
+
+
+def sc_blobs(torch):
+    """SC's k-means data on the card: km_k centers N(0, spread^2) in km_d
+    dims, km_n points each at a uniformly drawn center plus N(0, 1), from a
+    generator seeded 0."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    centers = torch.randn(SC["km_k"], SC["km_d"], generator=gen,
+                          device="cuda") * SC["km_spread"]
+    pick = torch.randint(0, SC["km_k"], (SC["km_n"],), generator=gen,
+                         device="cuda")
+    return centers[pick] + torch.randn(SC["km_n"], SC["km_d"], generator=gen,
+                                       device="cuda")
+
+
+def sc_timed_seeding(module):
+    """Wrap module.kmeanspp_seed to record its seconds; (times, restore)."""
+    real = module.kmeanspp_seed
+    times = []
+
+    def wrapped(*a, **kw):
+        t = time.perf_counter()
+        out = real(*a, **kw)
+        times.append(time.perf_counter() - t)
+        return out
+
+    module.kmeanspp_seed = wrapped
+    return times, lambda: setattr(module, "kmeanspp_seed", real)
+
+
+def sc_kmeans(torch):
+    """k-means at 1,000,000 x 128, k = 256: the fast path (`fit`) and the
+    strategy framework with the convergence condition: seeding seconds, ms
+    an iteration, iterations, peak device memory; then a 20,000-point
+    subset through both on the card and in the CPU port, whose seeds,
+    iterations and assignments must be equal."""
+    import deeplearning4j_tpu_torch.clustering.kmeans as km
+    import deeplearning4j_tpu_torch.clustering.strategy as st
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+
+    x = sc_blobs(torch)
+    row = {"phase": "scaleout_kmeans", "n": SC["km_n"], "d": SC["km_d"],
+           "k": SC["km_k"], "x_gb": x.numel() * 4 / 1e9}
+    for name, make, module in (
+            ("fast", lambda dev: KMeansClustering(
+                k=SC["km_k"], max_iterations=SC["km_max_iters"],
+                tol=SC["km_tol"], seed=0, device=dev), km),
+            ("strategy", lambda dev: KMeansClustering.setup(
+                SC["km_k"], min_distribution_variation_rate=SC["km_rate"],
+                seed=0, device=dev), st)):
+        algo = make("cuda")
+        times, restore = sc_timed_seeding(module)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t = time.perf_counter()
+            centers, assign = algo.fit(x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            restore()
+        iters = (algo.iterations if name == "fast"
+                 else algo.history.iteration_count)
+        # the fast path runs one more update for the final assignment, the
+        # framework one more iteration
+        row[name] = {"seconds": wall, "seeding_s": times[0],
+                     "iterations": iters,
+                     "ms_per_iteration": (wall - times[0]) * 1e3
+                     / (iters + 1),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "cluster_sizes_min_max": [
+                         int(v) for v in torch.bincount(
+                             assign, minlength=SC["km_k"]).aminmax()]}
+        if name == "strategy":
+            row[name]["last_location_change"] = \
+                algo.history.most_recent.point_location_change
+        check(bool(torch.isfinite(centers).all()) and iters >= 1,
+              f"k-means {name}: {row[name]}")
+        del centers, assign
+        torch.cuda.empty_cache()
+    sub = x[:SC["km_subset"]].clone()
+    del x
+    torch.cuda.empty_cache()
+    subset = {}
+    for name, make in (
+            ("fast", lambda dev: KMeansClustering(
+                k=SC["km_k"], max_iterations=SC["km_max_iters"],
+                tol=SC["km_tol"], seed=0, device=dev)),
+            ("strategy", lambda dev: KMeansClustering.setup(
+                SC["km_k"], min_distribution_variation_rate=SC["km_rate"],
+                seed=0, device=dev))):
+        out = {}
+        for dev, xs in (("cuda", sub), ("cpu", sub.cpu())):
+            algo = make(dev)
+            centers, assign = algo.fit(xs)
+            out[dev] = (centers.cpu(), assign.cpu(),
+                        algo.iterations if name == "fast"
+                        else algo.history.iteration_count)
+        subset[name] = {
+            "iterations": [out["cuda"][2], out["cpu"][2]],
+            "assign_equal": bool(torch.equal(out["cuda"][1], out["cpu"][1])),
+            "centers_max_abs_gap": float(
+                (out["cuda"][0] - out["cpu"][0]).abs().max())}
+        check(subset[name]["assign_equal"]
+              and out["cuda"][2] == out["cpu"][2],
+              f"k-means {name} on the card differs from the CPU port on the "
+              f"subset: {subset[name]}")
+    row["subset_vs_cpu"] = subset
+    emit(row)
+    return row
+
+
+def sc_tsne(torch):
+    """Exact t-SNE on 10,000 rows of the MNIST stand-in for 1,000
+    iterations on the card: P's seconds, ms an iteration (wall; and one
+    gradient + update as CUDA-event device time), the KL history (must
+    fall), peak memory; then on a 500-row subset the card's P within 1e-5
+    of max P of the CPU port's and 10 iterations at learning rate 10 from
+    one start
+    within tsne_check_tol of max|y| (at the default rate of 500 the
+    iteration is chaotic: tests/test_torch_tsne.py)."""
+    from deeplearning4j_tpu_torch.plot import Tsne
+    from deeplearning4j_tpu_torch.plot import tsne as tsne_mod
+
+    x, _ = conv_data("mnist", SC["tsne_n"])
+    t = Tsne(max_iter=SC["tsne_iters"], seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s = time.perf_counter()
+    p = t.compute_p(x)
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - s
+    y = t.initial_y(SC["tsne_n"])
+    inc, gains = torch.zeros_like(y), torch.ones_like(y)
+
+    def one():
+        g, _ = tsne_mod.tsne_grad(y, p)
+        return tsne_mod.tsne_update(y, g, inc, gains, 0.5, 500.0, 0.01)
+
+    iter_ms = cuda_ms(one, iters=5, warmup=1)
+    del p, y, inc, gains
+    s = time.perf_counter()
+    emb = t.calculate(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - s
+    row = {"phase": "scaleout_tsne", "n": SC["tsne_n"], "d": x.shape[1],
+           "iterations": SC["tsne_iters"], "p_s": p_s,
+           "calculate_s": wall,
+           "ms_per_iteration": (wall - p_s) * 1e3 / SC["tsne_iters"],
+           "iteration_device_ms": iter_ms, "kl_history": t.kl_history,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "finite": bool(np.isfinite(emb).all())}
+    check(row["finite"] and t.kl_history[-1] < t.kl_history[0],
+          f"t-SNE's KL did not fall: {t.kl_history}")
+    torch.cuda.empty_cache()
+    xs = x[:SC["tsne_check_n"]]
+    kw = dict(max_iter=SC["tsne_check_iters"], learning_rate=10.0,
+              exaggeration=4.0, seed=0)
+    card, cpu = Tsne(device="cuda", **kw), Tsne(device="cpu", **kw)
+    p_cpu = cpu.compute_p(xs)
+    p_gap = float((card.compute_p(xs).cpu() - p_cpu).abs().max())
+    y0 = cpu.initial_y(SC["tsne_check_n"])
+    card.initial_y = lambda n: y0.to("cuda")
+    cpu.initial_y = lambda n: y0
+    ya, yb = card.calculate(xs), cpu.calculate(xs)
+    y_gap = float(np.abs(ya - yb).max())
+    row["subset_vs_cpu"] = {"n": SC["tsne_check_n"], "p_max_abs_gap": p_gap,
+                            "p_max": float(p_cpu.max()),
+                            "y_max_abs_gap": y_gap,
+                            "y_max_abs": float(np.abs(yb).max())}
+    emit(row)
+    check(p_gap <= SC["tsne_check_p_tol"] * row["subset_vs_cpu"]["p_max"],
+          f"the card's P differs from the CPU's: {row['subset_vs_cpu']}")
+    check(y_gap <= SC["tsne_check_tol"] * row["subset_vs_cpu"]["y_max_abs"],
+          f"the card's t-SNE iterations differ from the CPU's: "
+          f"{row['subset_vs_cpu']}")
+    return row
+
+
+def sc_bh_child() -> int:
+    """`chip_smoke.py --sc-bh-child`: Barnes-Hut t-SNE on SC["bh_n"] rows
+    of the MNIST stand-in on the host, SC["bh_iters"] iterations with the
+    exaggeration and the first momentum until SC["bh_stop"]; prints one
+    JSON line with P's seconds, the iterations', the exact KL of the sparse
+    P against the dense Q of the start and of the result, and the KL before
+    and after a small step (the largest move 1e-3 of max|y|) along the
+    Barnes-Hut gradient of the plain P at the result."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne
+
+    n, iters = SC["bh_n"], SC["bh_iters"]
+    x, _ = conv_data("mnist", n)
+    bh = BarnesHutTsne(max_iter=iters, stop_lying_iter=SC["bh_stop"],
+                       switch_momentum_iter=SC["bh_stop"], seed=0)
+    t = time.perf_counter()
+    sparse = bh.compute_gaussian_perplexity(x)
+    p_s = time.perf_counter() - t
+    bh.compute_gaussian_perplexity = lambda _x: sparse
+    t = time.perf_counter()
+    y = bh.calculate(x)
+    it_s = time.perf_counter() - t
+    # calculate's start: the same draw
+    y0 = np.random.RandomState(0).randn(len(x), 2) * 1e-4
+
+    def kl(emb):
+        rows, cols, vals = sparse
+        d2 = ((emb[:, None, :] - emb[None, :, :]) ** 2).sum(-1)
+        num = 1.0 / (1.0 + d2)
+        np.fill_diagonal(num, 0.0)
+        q = num / num.sum()
+        r = np.repeat(np.arange(len(emb)), np.diff(rows))
+        return float(np.sum(vals * np.log(np.maximum(vals, 1e-12)
+                                          / np.maximum(q[r, cols], 1e-12))))
+
+    grad = bh.gradient(y, *sparse)
+    step = y - grad * (1e-3 * np.abs(y).max() / np.abs(grad).max())
+    emit({"phase": "scaleout_bh_tsne", "n": n, "iterations": iters,
+          "stop_lying_iter": SC["bh_stop"], "p_s": p_s,
+          "s_per_iteration": it_s / iters,
+          "kl": [kl(y0), kl(y)], "kl_gradient_step": [kl(y), kl(step)],
+          "finite": bool(np.isfinite(y).all())})
+    return 0
+
+
+def sc_bh_start():
+    """Start the Barnes-Hut child on one host thread."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sc-bh-child"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    stop_at_exit(proc)
+    return proc
+
+
+def sc_bh_finish(proc) -> dict:
+    """Wait for the Barnes-Hut child; emit its line and check that the
+    exact KL at the end lies below the start's and that a step along the
+    tree's gradient lowers it."""
+    out, err = proc.communicate(timeout=900)
+    rows = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    check(proc.returncode == 0 and len(rows) == 1,
+          f"the Barnes-Hut child failed (rc {proc.returncode}): "
+          f"{err[-3000:]}")
+    row = rows[0]
+    emit(row)
+    check(row["finite"] and row["kl"][1] < row["kl"][0],
+          f"Barnes-Hut t-SNE's KL did not fall: {row}")
+    kl_a, kl_b = row["kl_gradient_step"]
+    check(kl_b < kl_a,
+          f"Barnes-Hut t-SNE's KL did not fall along its gradient: {row}")
+    return row
+
+
+def phase_scaleout_clustering(torch, kernels, bh=True):
+    """The scaleout layer, clustering and t-SNE on the card at the sizes
+    of SC; the fleets (after the GloVe) run meanwhile in their own
+    processes, and so does the Barnes-Hut child, from the phase's start
+    (`bh`; a full run starts it at its own start and passes False). Launch
+    counts are zeroed just before each distributed fit and read just
+    after. Returns the summary (emitted too)."""
+    import tempfile
+
+    card = gpu_line()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--only-text-trees"],
-        capture_output=True, text=True, timeout=600)
-    rows = []
-    for line in proc.stdout.strip().splitlines():
-        print(line, flush=True)
-        if line.startswith("{"):
-            rows.append(json.loads(line))
-    summary = [r for r in rows if r.get("phase") == "text_trees"]
-    check(proc.returncode == 0 and len(summary) == 1,
-          f"the text_trees child failed (rc {proc.returncode}): "
-          f"{proc.stderr[-3000:]}")
-    emit({"phase": "text_trees_child", "seconds": time.perf_counter() - t0})
-    return summary[0]
+    bh_proc = sc_bh_start() if bh else None
+    with tempfile.TemporaryDirectory() as td:
+        sents = bench_sentences()
+        w2v_row, w2v_launches = sc_word2vec(torch, kernels, sents)
+        glove_row, glove_launches = sc_glove(torch, kernels, sents)
+        # the fleets' eight processes start after the host-bound Word2Vec
+        # steps and GloVe count, which would share the cores with them
+        fleets = sc_start_fleets(td)
+        wc = sc_word_count(sents)
+        del sents
+        km_row = sc_kmeans(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tsne_row = sc_tsne(torch)
+        blob = sc_blob_saver(torch, td, fleets["net0"])
+        fleet_row = sc_join_fleets(torch, fleets)
+    scatter = {**{f"w2v_job_{k}": v for k, v in w2v_row["scatter"].items()},
+               **{f"glove_job_{k}": v
+                  for k, v in glove_row["scatter"].items()}}
+    summary = {"phase": "scaleout_clustering", "gpu": card,
+               "seconds": time.perf_counter() - t0,
+               "scatter_launches": {"distributed_word2vec": w2v_launches,
+                                    "distributed_glove": glove_launches},
+               "scatter_at_job_shapes": {
+                   k: {f: r[f] for f in (
+                       "n", "width", "rows", "max_abs_err", "kernel_ms",
+                       "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                   for k, r in scatter.items()},
+               "w2v_words_per_s": w2v_row["words_per_s"],
+               "w2v_single_process_words_per_s":
+                   w2v_row["single_process"]["words_per_s"],
+               "w2v_host_share": w2v_row["host_share"],
+               "glove_epoch_losses": glove_row["epoch_losses"],
+               "word_count": wc, "blob_saver": blob,
+               "kmeans_ms_per_iteration": {
+                   k: km_row[k]["ms_per_iteration"]
+                   for k in ("fast", "strategy")},
+               "kmeans_iterations": {k: km_row[k]["iterations"]
+                                     for k in ("fast", "strategy")},
+               "kmeans_peak_mem_gb": max(km_row[k]["peak_mem_gb"]
+                                         for k in ("fast", "strategy")),
+               "tsne_ms_per_iteration": tsne_row["ms_per_iteration"],
+               "tsne_kl": [tsne_row["kl_history"][0],
+                           tsne_row["kl_history"][-1]],
+               "fleets_s": fleet_row["seconds"]}
+    if bh_proc is not None:
+        summary.update(sc_bh_summary(sc_bh_finish(bh_proc)))
+    emit(summary)
+    return summary
+
+
+def sc_bh_summary(row) -> dict:
+    """The Barnes-Hut child's figures for the phase's summary."""
+    return {"bh_kl": row["kl"], "bh_kl_gradient_step": row["kl_gradient_step"],
+            "bh_seconds": row["p_s"] + row["s_per_iteration"]
+            * row["iterations"]}
+
+
+#: the full run's late phases, in turn, each in a process of its own as
+#: `chip_smoke.py FLAG` runs it alone: (flag, the phase whose summary line
+#: it returns, its time limit in seconds). A child has a fresh CUDA
+#: context, NCCL communicator and profiler: in the process that has run and
+#: profiled every earlier phase, the profiler misnamed kernels of a graph
+#: replay (a full run's profiled trainer replay named 5 of each backward
+#: kernel's 8 launches, where the host counts and the phase run alone gave
+#: 8)
+CHILDREN = (("--only-data-parallel", "data_parallel", 900),
+            ("--only-tensor-parallel", "tensor_parallel", 900),
+            ("--only-serve-mesh", "serve_mesh", 900),
+            ("--only-serve-precision", "serve_precision", 900),
+            ("--only-fleet", "fleet", 900),
+            ("--only-text-trees", "text_trees", 600),
+            ("--only-scaleout-clustering", "scaleout_clustering", 600))
+
+
+class Children:
+    """Runs CHILDREN in turn. Each child starts while the one before it
+    runs: it imports, loads the kernels and opens its CUDA context, then
+    waits on its stdin (`--wait-turn`, `wait_turn`), so that its start-up
+    overlaps the phase before it. `extra` maps a flag to more arguments.
+    Output goes to files, so a waiting child never blocks on a pipe."""
+
+    def __init__(self, extra=None):
+        self.queue = list(CHILDREN)
+        self.extra = extra or {}
+        self.waiting = None
+
+    def start(self) -> None:
+        """Start the next child, to wait for its turn."""
+        import tempfile
+
+        if not self.queue or self.waiting is not None:
+            return
+        flag = self.queue[0][0]
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, "--wait-turn",
+             *self.extra.get(flag, ())],
+            stdin=subprocess.PIPE, stdout=out, stderr=err, text=True)
+        stop_at_exit(proc)
+        self.waiting = (proc, out, err)
+
+    def run(self, phase: str) -> dict:
+        """Let the next child run `phase` and start the one after it; echo
+        the child's lines and return its summary."""
+        self.start()
+        flag, name, timeout = self.queue.pop(0)
+        check(name == phase, f"child {flag} runs {name}, not {phase}")
+        (proc, out, err), self.waiting = self.waiting, None
+        t0 = time.perf_counter()
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+        self.start()
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        out.seek(0)
+        err.seek(0)
+        rows = []
+        for line in out.read().strip().splitlines():
+            print(line, flush=True)
+            if line.startswith("{"):
+                rows.append(json.loads(line))
+        summary = [r for r in rows if r.get("phase") == phase]
+        check(proc.returncode == 0 and len(summary) == 1,
+              f"the {phase} child failed (rc {proc.returncode}): "
+              f"{err.read()[-3000:]}")
+        emit({"phase": f"{phase}_child", "seconds": time.perf_counter() - t0})
+        return summary[0]
+
+
+def wait_turn(torch, argv) -> None:
+    """Under `--wait-turn` (a child that `Children` starts ahead of its
+    turn): open the CUDA context, then wait for the parent's word on stdin;
+    exit if the parent goes away instead."""
+    if "--wait-turn" not in argv:
+        return
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    if sys.stdin.readline().strip() != "go":
+        sys.exit(3)
+
+
+def stop_at_exit(proc) -> None:
+    """Kill `proc` at this process's exit if it still runs (a failed check
+    leaves no child behind)."""
+    import atexit
+
+    atexit.register(lambda: proc.poll() is None and proc.kill())
 
 
 def f32_case(r, library_key):
@@ -9066,6 +9784,9 @@ def main(argv) -> int:
     import torch
 
     quick = "--quick" in argv
+    if "--sc-bh-child" in argv:
+        # the scaleout_clustering phase's Barnes-Hut t-SNE (host only)
+        return sc_bh_child()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to test", file=sys.stderr)
         return 2
@@ -9092,6 +9813,7 @@ def main(argv) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         kernels.build()
+        wait_turn(torch, argv)
         phase_data_parallel(torch, kernels)
         return 0
     if "--only-tensor-parallel" in argv:
@@ -9115,6 +9837,7 @@ def main(argv) -> int:
             kernels.build()
             return tp_ranks(torch, kernels)
         kernels.build()
+        wait_turn(torch, argv)
         phase_tensor_parallel(torch, kernels)
         return 0
     if "--only-serve-mesh" in argv:
@@ -9138,6 +9861,7 @@ def main(argv) -> int:
             kernels.build()
             return sm_ranks(torch, kernels)
         kernels.build()
+        wait_turn(torch, argv)
         phase_serve_mesh(torch, kernels)
         return 0
     if "--sp-child" in argv:
@@ -9152,6 +9876,7 @@ def main(argv) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         kernels.build()
+        wait_turn(torch, argv)
         phase_serve_precision(torch, kernels)
         return 0
     if "--only-fleet" in argv:
@@ -9163,6 +9888,7 @@ def main(argv) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         kernels.build()
+        wait_turn(torch, argv)
         phase_fleet(torch, kernels)
         return 0
     if "--only-text-trees" in argv:
@@ -9174,7 +9900,21 @@ def main(argv) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         kernels.build(["scatter_add"])
+        wait_turn(torch, argv)
         phase_text_trees(torch, kernels)
+        return 0
+    if "--only-scaleout-clustering" in argv:
+        # the scaleout_clustering phase alone (the full run's child): no
+        # kernels line and no last line
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from deeplearning4j_tpu_torch.nd import kernels
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kernels.build(["scatter_add"])
+        wait_turn(torch, argv)
+        phase_scaleout_clustering(torch, kernels,
+                                  bh="--sc-no-bh" not in argv)
         return 0
     if "--seed-sweeps" in argv:
         # the recipes that hang on the initial draw (SEED_SWEEPS)
@@ -9223,6 +9963,9 @@ def main(argv) -> int:
         phase_generate(torch, kernels, quick=True)
         return 0 if ok else 1
 
+    # the scaleout_clustering phase's Barnes-Hut t-SNE, on one host thread
+    # beside every phase up to that one's end
+    bh_proc = sc_bh_start()
     fwd_rows = phase_kernels(torch, kernels)
     fwd_row, fwd_train_row = fwd_rows["serve"], fwd_rows["train"]
     bwd_rows = phase_bwd_kernels(torch, kernels)
@@ -9270,33 +10013,42 @@ def main(argv) -> int:
     phase_conv_nets(torch, kernels)
     gc.collect()
     torch.cuda.empty_cache()
+    # the late phases' children: each starts while the phase before it runs
+    children = Children({"--only-scaleout-clustering": ["--sc-no-bh"]})
+    children.start()
     phase_pretraining(torch, kernels)
     gc.collect()
     torch.cuda.empty_cache()
-    dp_launches = phase_data_parallel_child(torch)
+    dp_launches = children.run("data_parallel")["launches"]
     for name in ("flash_attn_fwd",) + BWD_KERNELS + ("lstm_cell",):
         check(dp_launches[name] > 0,
               f"{name} never ran in the data-parallel trainer's steps")
-    tp_summary = phase_tensor_parallel_child(torch)
+    tp_summary = children.run("tensor_parallel")
     tp_launches = tp_summary["launches"]
     for name in ("flash_attn_fwd",) + BWD_KERNELS:
         check(tp_launches[name] > 0,
               f"{name} never ran in the tensor-parallel trainer's steps")
-    sm_summary = phase_serve_mesh_child(torch)
+    sm_summary = children.run("serve_mesh")
     sm_launches = sum(sm_summary["launches"].values())
     check(sm_launches > 0, "flash_attn_fwd never ran in the serve_mesh "
           "phase's mesh runs")
-    sp_summary = phase_serve_precision_child(torch)
+    sp_summary = children.run("serve_precision")
     sp_launches = sp_summary["flash_launches"]
     check(sp_launches > 0 and sp_summary["lstm_launches"] > 0,
           "the serve_precision phase launched no flash or cell kernel")
-    fl_summary = phase_fleet_child(torch)
+    fl_summary = children.run("fleet")
     fl_launches = fleet_flash_launches(fl_summary)
     check(fl_launches > 0, "flash_attn_fwd never ran in the fleet phase")
-    tt_summary = phase_text_trees_child(torch)
+    tt_summary = children.run("text_trees")
     tt_launches = tt_summary["scatter_launches"]
     check(tt_launches["rntn"] > 0 and tt_launches["rae"] > 0,
           "the scatter kernel never ran in the text_trees phase's steps")
+    sc_summary = children.run("scaleout_clustering")
+    sc_summary.update(sc_bh_summary(sc_bh_finish(bh_proc)))
+    sc_launches = sc_summary["scatter_launches"]
+    check(all(n > 0 for n in sc_launches.values()),
+          "the scatter kernel never ran in the distributed Word2Vec or "
+          "GloVe steps")
 
     bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
     replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,
@@ -9463,10 +10215,12 @@ def main(argv) -> int:
         "source": "deeplearning4j_tpu_torch/csrc/scatter_add.cu",
         "replaces": "deeplearning4j_tpu/nd/pallas_kernels.py:600",
         "launches": (w2v_launches + sum(quality_launches.values())
-                     + sum(tt_launches.values())),
+                     + sum(tt_launches.values())
+                     + sum(sc_launches.values())),
         "launches_by_path": {"w2v_train": w2v_launches,
                              "embed_quality": quality_launches,
-                             "text_trees": tt_launches},
+                             "text_trees": tt_launches,
+                             "scaleout": sc_launches},
         "launches_per_w2v_step": W2V_GATHERS,
         # the numbers below are at the syn1 shape of the bench's step
         "max_abs_err": syn1["max_abs_err"], "ms": syn1["kernel_ms"],
@@ -9484,6 +10238,9 @@ def main(argv) -> int:
                               for k in ("n", "width", "rows", "max_abs_err",
                                         "kernel_ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
+        # a distributed job's gathers: the Word2Vec's syn0, syn1 and
+        # syn1neg at a job's first step, the GloVe's w and b
+        "at_distributed_job_shapes": sc_summary["scatter_at_job_shapes"],
         "w2v_step_ms_median": w2v_row["step_ms_median"],
         "w2v_words_per_s": w2v_row["words_per_s"]})
     emit({"kernels": rows})

@@ -15,7 +15,7 @@ w and wt start as U(-0.5/D, 0.5/D) from a CPU generator seeded with `seed`
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,32 +30,106 @@ from deeplearning4j_tpu_torch.text.vocab import VocabCache
 PARAM_KEYS = ("w", "wt", "b", "bt")
 
 
+#: tokens a batch of `CoOccurrences.add_sentences` (its adds take ~480
+#: bytes a token at window 15)
+_BATCH_TOKENS = 1 << 20
+
+
 class CoOccurrences:
     """Symmetric windowed co-occurrence counts with 1/distance weighting
-    (`CoOccurrences.java` contract); a copy of the JAX package's."""
+    (`CoOccurrences.java` contract). The JAX package's adds each pair to a
+    dict in a Python loop; here a batch of sentences becomes one array of
+    the same adds in the same order, folded in by key: the pairs come out
+    in the dict's order (first occurrence) and each count is the same
+    float64 sum, added in the same order (`np.bincount` adds in input
+    order)."""
 
     def __init__(self, window: int = 15):
         self.window = window
-        self.counts: Dict[Tuple[int, int], float] = {}
+        self.keys = np.zeros(0, np.int64)  # a << 32 | b
+        self.values = np.zeros(0, np.float64)
 
     def add_sentence(self, ids: Sequence[int]) -> None:
-        n = len(ids)
-        for i in range(n):
-            for j in range(max(0, i - self.window), i):
-                w = 1.0 / (i - j)
-                a, b = ids[i], ids[j]
-                if a == b:
-                    continue
-                self.counts[(a, b)] = self.counts.get((a, b), 0.0) + w
-                self.counts[(b, a)] = self.counts.get((b, a), 0.0) + w
+        self.add_sentences([ids])
+
+    def add_sentences(self, id_lists: Iterable[Sequence[int]]) -> None:
+        """Every sentence's adds, folded in a batch of about _BATCH_TOKENS
+        tokens at a time (the same counts: each batch folds in after the
+        one before), so the adds' arrays stay bounded on a long corpus."""
+        batch, n = [], 0
+        for ids in id_lists:
+            batch.append(ids)
+            n += len(ids)
+            if n >= _BATCH_TOKENS:
+                self._add_batch(batch)
+                batch, n = [], 0
+        if batch:
+            self._add_batch(batch)
+
+    def _add_batch(self, id_lists: Sequence[Sequence[int]]) -> None:
+        """For token i, each j of the window before it (ascending) with a
+        different id adds 1/(i - j) to (a, b), then to (b, a)."""
+        lens = np.array([len(s) for s in id_lists], np.int64)
+        if lens.sum() == 0:
+            return
+        ids = np.concatenate([np.asarray(s, np.int64) for s in id_lists
+                              if len(s)])
+        pos = np.arange(len(ids))
+        start = np.repeat(np.cumsum(lens) - lens, lens)
+        dist = np.arange(self.window, 0, -1)
+        j = pos[:, None] - dist[None, :]
+        a = np.broadcast_to(ids[:, None], j.shape)
+        b = ids[np.maximum(j, 0)]
+        valid = (j >= start[:, None]) & (a != b)
+        pairs = np.stack([a << 32 | b, b << 32 | a], axis=-1)[valid]
+        w = np.broadcast_to(1.0 / dist, j.shape)[valid]
+        self._fold(pairs.reshape(-1), np.repeat(w, 2))
+
+    def merge(self, other: "CoOccurrences") -> None:
+        """Add `other`'s counts, key by key in its order."""
+        self._fold(other.keys, other.values)
+
+    def _fold(self, keys: np.ndarray, weights: np.ndarray) -> None:
+        self.keys, self.values = _sum_by_key(
+            np.concatenate([self.keys, keys]),
+            np.concatenate([self.values, weights]))
 
     def arrays(self):
-        ij = np.asarray(list(self.counts.keys()), np.int32)
-        x = np.asarray(list(self.counts.values()), np.float32)
-        if len(ij) == 0:
-            return (np.zeros((0,), np.int32), np.zeros((0,), np.int32),
-                    np.zeros((0,), np.float32))
-        return ij[:, 0], ij[:, 1], x
+        return ((self.keys >> 32).astype(np.int32),
+                (self.keys & 0xFFFFFFFF).astype(np.int32),
+                self.values.astype(np.float32))
+
+
+def _sum_by_key(keys: np.ndarray, weights: np.ndarray):
+    """The distinct keys (a << 32 | b) in order of first occurrence, and
+    each one's weights summed in input order. One sort of (compact key,
+    position) pairs does it where both fit in 62 bits; else np.unique's
+    stable argsort."""
+    if len(keys) == 0:
+        return keys, weights
+    a, b = keys >> 32, keys & 0xFFFFFFFF
+    v = int(max(a.max(), b.max())) + 1
+    compact = a * v + b
+    pos_bits = max(1, (len(keys) - 1).bit_length())
+    if int(compact.max()).bit_length() + pos_bits > 62:
+        uniq, first, inv = np.unique(keys, return_index=True,
+                                     return_inverse=True)
+        sums = np.bincount(inv.reshape(-1), weights, minlength=len(uniq))
+        order = np.argsort(first, kind="stable")
+        return uniq[order], sums[order]
+    srt = np.sort(compact << pos_bits | np.arange(len(keys)))
+    pos, key = srt & ((1 << pos_bits) - 1), srt >> pos_bits
+    head = np.empty(len(srt), bool)
+    head[0] = True
+    np.not_equal(key[1:], key[:-1], out=head[1:])
+    group = np.cumsum(head) - 1
+    sums = np.bincount(group, weights[pos], minlength=int(group[-1]) + 1)
+    first = pos[head]
+    g_bits = max(1, (len(first) - 1).bit_length())
+    order = np.sort(first << g_bits | np.arange(len(first))) & (
+        (1 << g_bits) - 1)
+    key = key[head][order]
+    return (key // v) << 32 | key % v, sums[order]
 
 
 def glove_loss(params: Dict[str, torch.Tensor], wi, wj, logx,
@@ -133,9 +207,8 @@ class Glove:
         token_lists = TokenCorpus(sentences, self.tokenizer.tokenize)
         self.cache = VocabCache(self.min_word_frequency).fit(token_lists)
         co = CoOccurrences(self.window)
-        for toks in token_lists:
-            ids = [self.cache.index_of(t) for t in toks if t in self.cache]
-            co.add_sentence(ids)
+        co.add_sentences([self.cache.index_of(t) for t in toks
+                          if t in self.cache] for toks in token_lists)
         wi, wj, x = co.arrays()
         self.table = InMemoryLookupTable(self.cache, self.vector_length,
                                          self.seed, device=self.device)

@@ -7,6 +7,7 @@ derivative by autograd (softmax: the diagonal term `y * (1 - y)`, as in the
 JAX package). Two choices follow JAX's defaults so the port computes what
 the reference computes: `gelu` is the tanh approximation (`jax.nn.gelu`
 defaults to `approximate=True`) and `leakyrelu` has slope 0.01.
+`pairwise_sq_dists` is the distance matrix of k-means and t-SNE.
 """
 
 from __future__ import annotations
@@ -92,3 +93,12 @@ def activation_derivative(name, x: torch.Tensor) -> torch.Tensor:
         y = fn(xg)
         (dx,) = torch.autograd.grad(y, xg, torch.ones_like(y))
     return dx
+
+
+def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(n,d),(m,d) -> (n,m) squared euclidean distances through one matrix
+    product (|x|^2 - 2 x.y^T + |y|^2), clamped against cancellation
+    negatives: the JAX package's `pairwise_sq_dists`, term for term."""
+    xx = torch.sum(x * x, dim=1, keepdim=True)
+    yy = torch.sum(y * y, dim=1)
+    return torch.clamp_min(xx - 2.0 * (x @ y.T) + yy[None, :], 0.0)

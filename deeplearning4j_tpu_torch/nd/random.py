@@ -24,6 +24,10 @@ defaults of JAX 0.9: the `threefry2x32` implementation with
   the argmax of gumbel + logits;
 - `fold_in(key, data)`: `jax.random.fold_in`, `threefry2x32(key, (0,
   data))` (the RBM's Gibbs chain folds in the step number);
+- `randint(keys, shape, minval, maxval)`: `jax.random.randint` in its
+  default int32, JAX's `_randint`: two 32-bit draws a value (one from each
+  half of a split), folded into the span with remainders in uint32
+  (the distributed Word2Vec's negative draws);
 - `bernoulli`, `dropout_mask`, `binomial`, `normal` and `KeyStream`, the
   JAX package's `nd/random.py` (dropout's masks, the denoising
   autoencoder's corruption, the RBM's unit samples and host-side key
@@ -35,8 +39,9 @@ defaults of JAX 0.9: the `threefry2x32` implementation with
   with ONE key for the whole [..., V] array (one Gumbel field of that
   shape), as the RBM's softmax units draw; `categorical` takes one key a
   row;
-- `split_host`: `split` of one key held as two Python ints, for host-side
-  streams (`MultiLayerNetwork`'s key), with no tensor op at all;
+- `split_host`, `fold_in_host`: `split` and `fold_in` of one key held as
+  two Python ints, for host-side streams (`MultiLayerNetwork`'s key, the
+  distributed Word2Vec's job and step keys), with no tensor op at all;
 - `uniform_dtype`, `normal_dtype`: `jax.random.uniform(key, shape, dtype,
   minval, maxval)` and `jax.random.normal(key, shape, dtype)` for one key
   in float32, bfloat16 or float16, the draws of the initial params
@@ -164,6 +169,52 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([y1, y2], dim=-1)
 
 
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def randint(keys, shape, minval: int, maxval: int, device=None
+            ) -> torch.Tensor:
+    """`jax.random.randint(key, shape, minval, maxval)` (dtype int32) for
+    each key [..., 2], bit for bit: int64 [..., *shape] holding the int32
+    values. As JAX's `_randint`: the key splits in two, each half draws 32
+    bits a value (high, low); span = maxval - minval in uint32 (1 when
+    maxval <= minval, one more when maxval is past int32's top); m =
+    (2^16 % span)^2 % span; then ((high % span) * m + low % span) % span,
+    each product and sum wrapping in uint32, added to minval in int32.
+
+    `keys` may also be one key held as two ints (`split_host`,
+    `fold_in_host`), drawn on `device`: its split then runs on the host,
+    and both halves' draws take one pass of the hash."""
+    if isinstance(keys, torch.Tensor):
+        lead, halves = tuple(keys.shape[:-1]), split(keys)
+    else:
+        lead = ()
+        halves = torch.tensor(split_host(keys), dtype=torch.int64,
+                              device=device)
+    shape = tuple(int(d) for d in shape)
+    n = _numel(shape)
+    lo_v = min(max(int(minval), _INT32_MIN), _INT32_MAX)
+    hi_v = min(max(int(maxval), _INT32_MIN), _INT32_MAX)
+    span = (hi_v - lo_v) & _MASK
+    if hi_v <= lo_v:
+        span = 1
+    elif int(maxval) > _INT32_MAX:
+        span = (span + 1) & _MASK
+    bits = random_bits(halves, n)
+    higher, lower = bits[..., 0, :], bits[..., 1, :]
+    if span == 0:  # the whole uint32 range: XLA's x % 0 is x
+        offset = lower
+    else:
+        mult = ((((1 << 16) % span) ** 2) & _MASK) % span
+        # int64 products of uint32 values keep their low 32 bits when they
+        # wrap, so the mask gives uint32's wrapped product
+        offset = (((higher % span) * mult) & _MASK) + lower % span
+        offset = (offset & _MASK) % span
+    out = (offset + (lo_v & _MASK)) & _MASK
+    out = torch.where(out > _INT32_MAX, out - (1 << 32), out)
+    return out.reshape(lead + shape)
+
+
 def sample_tokens(logp: torch.Tensor, keys: torch.Tensor,
                   temps: torch.Tensor):
     """One token a row with the JAX package's key discipline
@@ -187,6 +238,13 @@ def split_host(key, num: int = 2) -> list:
     Python ints, so a host-side stream costs no tensor op."""
     k1, k2 = (int(v) & _MASK for v in key)
     return [tuple(threefry2x32(k1, k2, 0, i)) for i in range(num)]
+
+
+def fold_in_host(key, data: int) -> tuple:
+    """`jax.random.fold_in` of one key given as two ints: a tuple of two
+    ints, hashed on the host."""
+    k1, k2 = (int(v) & _MASK for v in key)
+    return tuple(threefry2x32(k1, k2, 0, int(data) & _MASK))
 
 
 class KeyStream:

@@ -6,6 +6,7 @@ and reconstruction models of `precision_eval_confs(small=True)`
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one share of the cores)
 
 from torch_budget_support import check_model, jax_run  # noqa: E402
 

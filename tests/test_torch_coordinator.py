@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one share of the cores)
 
 from deeplearning4j_tpu.parallel import config_registry as jax_registry  # noqa: E402,E501
 from deeplearning4j_tpu_torch.parallel import average_pytrees  # noqa: E402

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one share of the cores)
 
 from deeplearning4j_tpu.cli.schemes import load_input as jax_load_input  # noqa: E402,E501
 from deeplearning4j_tpu.datasets import fetchers as jax_fetchers  # noqa: E402

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one share of the cores)
 
 from deeplearning4j_tpu.cli.driver import main as jax_main  # noqa: E402
 from deeplearning4j_tpu.datasets import dataset as jax_dataset  # noqa: E402

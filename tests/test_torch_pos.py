@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one share of the cores)
 
 from deeplearning4j_tpu.text import hmm_pos as jax_hmm  # noqa: E402
 from deeplearning4j_tpu.text import pos as jax_pos  # noqa: E402

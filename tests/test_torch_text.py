@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one share of the cores)
 
 from deeplearning4j_tpu.models.word2vec import Word2Vec as JaxWord2Vec  # noqa: E402,E501
 from deeplearning4j_tpu.text import corpus as jax_corpus  # noqa: E402

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one share of the cores)
 
 from deeplearning4j_tpu.models import word2vec_iterator as jax_w2vit  # noqa: E402,E501
 from deeplearning4j_tpu.text import inverted_index as jax_index  # noqa: E402

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one share of the cores)
 
 from deeplearning4j_tpu.optimize import tunables as jt  # noqa: E402
 from deeplearning4j_tpu_torch.models.zoo import (char_transformer,  # noqa: E402

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one share of the cores)
 
 from deeplearning4j_tpu.optimize import profiling as jprof  # noqa: E402
 from deeplearning4j_tpu.optimize import tunables as jt  # noqa: E402
