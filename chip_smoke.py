@@ -347,6 +347,26 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    BlobModelSaver round trip, bitwise. Its scatter launches join the
    scatter row's.
 
+24. `analysis_ui` (AN; `--only-analysis-ui` runs it alone, with no last
+   line, and the full run runs it so, in a child process): `analyze
+   --fail-on error --format json` on the card (the port's lint and the
+   small zoo's programs, each run once under the recording dispatch mode;
+   exit 0, no error); `audit_zoo_programs` at the zoo's published widths
+   (charTransformer d_model 128, 2 blocks, S 256; char-LSTM hidden 256)
+   with the scores rule at S = 256, no error; the full-width
+   charTransformer's `output` under the bf16 serve policy (its
+   dtype-promotion warns printed); `audit_attention_structure(S=1024)`
+   through the f32 forward and fused backward kernels (rows 1-4, no
+   finding, their launches printed; `analyze` runs the decode and
+   speculative-parity audits, once); the UI
+   server's `/api/tsne` on 2,000 rows on the card against the same route
+   on the CPU (20 iterations: KL within 1e-4, coordinates within ten
+   times the CPU run's own gap under a one-ulp change of its input) and the
+   route's default 300 iterations timed; a `Tracer` trace of one
+   full-width char-LSTM `output` that names `lstm_cell_f32_kernel`; the
+   plotter where matplotlib is installed (skipped with the reason where it
+   is not). Its launches join rows 1-5.
+
 The full run starts each late phase's child process while the phase
 before it runs (`Children`), so the child's start-up costs no wall time.
 
@@ -9646,6 +9666,195 @@ def phase_scaleout_clustering(torch, kernels, bh=True):
     return summary
 
 
+#: the analysis_ui phase's sizes: the zoo audit's rows and scores scale,
+#: the t-SNE route's rows, its checked and its timed iterations, the
+#: perplexity, and the traced char-LSTM's batch
+AN = dict(rows=4, seq_threshold=256, tsne_n=2000, tsne_dims=50,
+          tsne_check_iters=20, tsne_iters=300, perplexity=30.0,
+          trace_rows=32)
+
+
+def an_tsne_route(device, vecs, iters):
+    """POST /api/tsne on a fresh `UiServer(device=...)` over `vecs`:
+    (the answer, the coordinates, the route's ms)."""
+    from deeplearning4j_tpu_torch.ui import UiServer
+
+    server = UiServer(device=device).start()
+    try:
+        post(server.url + "/api/vectors",
+             {"vectors": vecs.tolist(), "labels": []})
+        t0 = time.perf_counter()
+        out = post(server.url + "/api/tsne",
+                   {"iters": iters, "perplexity": AN["perplexity"]})
+        ms = (time.perf_counter() - t0) * 1e3
+        coords = np.asarray(get_json(server.url + "/api/coords")["coords"])
+    finally:
+        server.stop()
+    return out, coords, ms
+
+
+def an_tsne(torch) -> dict:
+    """The UI server's t-SNE on the card against the same route on the
+    CPU. The iteration is chaotic (tests/test_torch_ui_plot.py), so the
+    coordinates after AN's checked iterations are held to ten times the
+    CPU run's own gap when its input moves by one float32 ulp."""
+    rng = np.random.RandomState(0)
+    centers = rng.randn(10, AN["tsne_dims"]) * 4.0
+    vecs = (centers[rng.randint(0, 10, AN["tsne_n"])]
+            + rng.randn(AN["tsne_n"], AN["tsne_dims"])).astype(np.float32)
+    it = AN["tsne_check_iters"]
+    card, card_xy, card_ms = an_tsne_route("cuda", vecs, it)
+    cpu, cpu_xy, cpu_ms = an_tsne_route("cpu", vecs, it)
+    _, moved_xy, _ = an_tsne_route(
+        "cpu", np.nextafter(vecs, np.float32(np.inf), dtype=np.float32), it)
+    gap = float(np.abs(card_xy - cpu_xy).max())
+    own = float(np.abs(moved_xy - cpu_xy).max())
+    kl_rel = abs(card["kl"] - cpu["kl"]) / max(abs(cpu["kl"]), 1e-12)
+    check(card["n"] == cpu["n"] == AN["tsne_n"], "t-SNE route row count")
+    check(kl_rel <= 1e-4, f"t-SNE KL on the card {card['kl']} vs the CPU "
+          f"{cpu['kl']}")
+    check(gap <= 10 * own, f"t-SNE coordinates on the card {gap} "
+          f"from the CPU's, its own gap {own}")
+    full, full_xy, full_ms = an_tsne_route("cuda", vecs, AN["tsne_iters"])
+    check(np.isfinite(full_xy).all() and full["n"] == AN["tsne_n"],
+          "t-SNE route at its default iterations")
+    return {"rows": AN["tsne_n"], "check_iters": it,
+            "card_ms": card_ms, "cpu_ms": cpu_ms, "max_abs_gap": gap,
+            "cpu_own_gap": own, "kl_rel_gap": kl_rel,
+            "iters": AN["tsne_iters"], "ms": full_ms, "kl": full["kl"]}
+
+
+def an_trace(torch, kernels) -> dict:
+    """One full-width char-LSTM `output` under `Tracer` on the card: the
+    Chrome trace must name the f32 cell kernel."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.quantize import \
+        default_calibration
+    from deeplearning4j_tpu_torch.utils.profiling import Tracer
+
+    conf = zoo.precision_eval_confs(False)["char_lstm"]
+    net = MultiLayerNetwork(conf, device="cuda", seed=0).init()
+    x = default_calibration(conf, AN["trace_rows"])
+    with tempfile.TemporaryDirectory() as td:
+        tracer = Tracer(td)
+        before = kernels.launch_snapshot()["lstm_cell"]
+        with tracer.trace(), Tracer.annotate("char_lstm_output"):
+            out = net.output(x)
+        launches = kernels.launch_snapshot()["lstm_cell"] - before
+        with open(tracer.trace_path) as fh:
+            names = [e.get("name", "") for e in json.load(fh)["traceEvents"]]
+    check(bool(torch.isfinite(out).all()), "char-LSTM output not finite")
+    cell = [n for n in names if "lstm_cell_f32_kernel" in n]
+    check(bool(cell), "the trace names no lstm_cell_f32_kernel")
+    check("char_lstm_output" in names, "the trace names no annotate span")
+    return {"events": len(names), "lstm_cell_f32_kernel_events": len(cell),
+            "launches": launches}
+
+
+def an_plot(torch) -> dict:
+    """The plotter's histograms of a char-LSTM's params, where matplotlib
+    is installed."""
+    import importlib.util
+    import tempfile
+
+    if importlib.util.find_spec("matplotlib") is None:
+        return {"skipped": "matplotlib is not installed on this machine"}
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.plot.plotter import NeuralNetPlotter
+
+    net = MultiLayerNetwork(zoo.char_lstm(64, hidden=256, n_layers=1),
+                            device="cuda", seed=0).init()
+    with tempfile.TemporaryDirectory() as td:
+        path = NeuralNetPlotter(td).plot_weight_histograms(net.params)
+        size = os.path.getsize(path)
+    check(size > 0, "empty weight histogram")
+    return {"png_bytes": size}
+
+
+def phase_analysis_ui(torch, kernels) -> dict:
+    """The analysis layer, the UI server's t-SNE, the tracer and the
+    plotter on the card (AN). Launch counts of every kernel are read just
+    before and just after. Returns the summary (emitted too)."""
+    import contextlib as _contextlib
+    import io
+
+    from deeplearning4j_tpu_torch.analysis import audit_cache
+    from deeplearning4j_tpu_torch.analysis.program_audit import (
+        audit_attention_structure, audit_zoo_programs)
+    from deeplearning4j_tpu_torch.cli import driver
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.quantize import \
+        default_calibration
+
+    card = gpu_line()
+    t0 = time.perf_counter()
+    start = kernels.launch_snapshot()
+    # analyze runs the small zoo's programs and, once in the phase, the
+    # decode and speculative-parity audits (its error gate holds them)
+    out = io.StringIO()
+    with _contextlib.redirect_stdout(out):
+        rc = driver.main(["analyze", "--fail-on", "error",
+                          "--format", "json"])
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and report["counts"]["error"] == 0,
+          f"analyze on the card: rc {rc}, {report['counts']}: "
+          f"{[f for f in report['findings'] if f['severity'] == 'error']}")
+    analyze_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    zoo_findings, zoo_programs = audit_zoo_programs(
+        small=False, rows=AN["rows"], seq_threshold=AN["seq_threshold"])
+    errors = [f.as_dict() for f in zoo_findings if f.severity == "error"]
+    check(not errors, f"zoo audit at published widths: {errors}")
+    zoo_s = time.perf_counter() - t1
+
+    conf = zoo.precision_eval_confs(False)["char_transformer"]
+    net = MultiLayerNetwork(conf, device="cuda", seed=0).init()
+    net.set_serve_precision("bf16", measure=False)
+    net.output(default_calibration(conf, AN["rows"]))
+    bf16 = audit_cache(net.infer_cache, seq_threshold=AN["seq_threshold"])
+    check(not [f for f in bf16 if f.severity == "error"],
+          f"bf16 charTransformer output audit: {bf16}")
+    del net
+
+    before = kernels.launch_snapshot()
+    attention = audit_attention_structure(S=1024)
+    after = kernels.launch_snapshot()
+    attn_launches = {k: after[k] - before[k] for k in
+                     ("flash_attn_fwd",) + BWD_KERNELS}
+    check(attention == [], f"attention audit at S=1024: {attention}")
+    check(all(n > 0 for n in attn_launches.values()),
+          f"the attention audit did not launch rows 1-4: {attn_launches}")
+
+    tsne = an_tsne(torch)
+    trace = an_trace(torch, kernels)
+    plot = an_plot(torch)
+    end = kernels.launch_snapshot()
+    # by kernel, and the flash forward's launches by body and tile too
+    launches = {k: end[k] - start[k] for k in end}
+    summary = {"phase": "analysis_ui", "gpu": card,
+               "seconds": time.perf_counter() - t0,
+               "analyze": {"seconds": analyze_s, "counts": report["counts"],
+                           "checked": report["checked"]},
+               "zoo_published": {"seconds": zoo_s, "programs": zoo_programs,
+                                 "counts": {s: sum(f.severity == s
+                                                   for f in zoo_findings)
+                                            for s in ("info", "warn",
+                                                      "error")}},
+               "bf16_output_warns": [f.message for f in bf16
+                                     if f.severity == "warn"],
+               "attention_launches": attn_launches,
+               "tsne": tsne, "trace": trace, "plot": plot,
+               "launches": launches}
+    emit(summary)
+    return summary
+
+
 def sc_bh_summary(row) -> dict:
     """The Barnes-Hut child's figures for the phase's summary."""
     return {"bh_kl": row["kl"], "bh_kl_gradient_step": row["kl_gradient_step"],
@@ -9667,7 +9876,8 @@ CHILDREN = (("--only-data-parallel", "data_parallel", 900),
             ("--only-serve-precision", "serve_precision", 900),
             ("--only-fleet", "fleet", 900),
             ("--only-text-trees", "text_trees", 600),
-            ("--only-scaleout-clustering", "scaleout_clustering", 600))
+            ("--only-scaleout-clustering", "scaleout_clustering", 600),
+            ("--only-analysis-ui", "analysis_ui", 300))
 
 
 class Children:
@@ -9916,6 +10126,18 @@ def main(argv) -> int:
         phase_scaleout_clustering(torch, kernels,
                                   bh="--sc-no-bh" not in argv)
         return 0
+    if "--only-analysis-ui" in argv:
+        # the analysis_ui phase alone (the full run's child): no kernels
+        # line and no last line
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from deeplearning4j_tpu_torch.nd import kernels
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kernels.build()
+        wait_turn(torch, argv)
+        phase_analysis_ui(torch, kernels)
+        return 0
     if "--seed-sweeps" in argv:
         # the recipes that hang on the initial draw (SEED_SWEEPS)
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -10049,6 +10271,10 @@ def main(argv) -> int:
     check(all(n > 0 for n in sc_launches.values()),
           "the scatter kernel never ran in the distributed Word2Vec or "
           "GloVe steps")
+    an_launches = children.run("analysis_ui")["launches"]
+    for name in ("flash_attn_fwd",) + BWD_KERNELS + ("lstm_cell",):
+        check(an_launches[name] > 0,
+              f"{name} never ran in the analysis_ui phase")
 
     bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
     replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,
@@ -10065,7 +10291,8 @@ def main(argv) -> int:
                      + api_train_launches["flash_attn_fwd"]
                      + dp_launches["flash_attn_fwd"]
                      + tp_launches["flash_attn_fwd"] + sm_launches
-                     + sp_launches + fl_launches),
+                     + sp_launches + fl_launches
+                     + an_launches["flash_attn_fwd"]),
         "launches_by_path": {"serve": serve_launches["flash_attn_fwd"],
                              "generate": gen_launches["flash_attn_fwd"],
                              **gen_option_launches,
@@ -10081,12 +10308,18 @@ def main(argv) -> int:
                                  tp_launches["flash_attn_fwd"],
                              "serve_mesh": sm_launches,
                              "serve_precision": sp_launches,
-                             "fleet": fl_launches},
+                             "fleet": fl_launches,
+                             "analysis_ui": an_launches["flash_attn_fwd"]},
         # the f32 conf's forward under each serve policy: 8 launches, the
         # 3xTF32 body under f32 and the TMA bf16 body under bf16 and int8
         "serve_precision": {
             "by_policy": sp_summary["flash_by_policy"],
             "generate": sp_summary["generate_flash_launches"]},
+        # the analysis_ui phase's forward launches by body and tile: the
+        # small zoo's f32 charTransformer and the S = 1024 audit on the
+        # f32 body, the bf16-policy audit on the TMA body
+        "analysis_ui_by_tile": {k: an_launches[k]
+                                for k in kernels.TILE_LAUNCHES},
         "max_abs_err": fwd_row["max_abs_err"],
         "ms": fwd_row["kernel_ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
@@ -10135,12 +10368,14 @@ def main(argv) -> int:
             "replaces": ("deeplearning4j_tpu/nd/pallas_kernels.py:"
                          f"{replaces[name]}"),
             "launches": (train_launches[name] + api_train_launches[name]
-                         + dp_launches[name] + tp_launches[name]),
+                         + dp_launches[name] + tp_launches[name]
+                         + an_launches[name]),
             "launches_by_path": {
                 "train": train_launches[name],
                 "api_checkpoint_listener": api_train_launches[name],
                 "data_parallel": dp_launches[name],
-                "tensor_parallel": tp_launches[name]},
+                "tensor_parallel": tp_launches[name],
+                "analysis_ui": an_launches[name]},
             # at the plan step's per-rank heads (model = 2, 4)
             "at_tensor_parallel_shapes": {
                 m: rows[name] for m, rows in tp_summary["kernels"].items()},
@@ -10186,13 +10421,15 @@ def main(argv) -> int:
         "replaces": "deeplearning4j_tpu/nd/pallas_kernels.py:529",
         "launches": (lstm_train_launches + ckpt_launches + lstm_cli_launches
                      + dp_launches["lstm_cell"]
-                     + sp_summary["lstm_launches"]),
+                     + sp_summary["lstm_launches"]
+                     + an_launches["lstm_cell"]),
         "launches_by_path": {"lstm_train": lstm_train_launches,
                              "checkpoint": ckpt_launches,
                              "lstm_cli": lstm_cli_launches,
                              "data_parallel": dp_launches["lstm_cell"],
                              "serve_precision":
-                                 sp_summary["lstm_launches"]},
+                                 sp_summary["lstm_launches"],
+                             "analysis_ui": an_launches["lstm_cell"]},
         # the f32-compute char-LSTM under the bf16 and int8 serve policies:
         # lstm_cell_bf16_kernel, T launches a layer a forward
         "serve_precision": sp_summary["lstm_by_policy"],
@@ -10216,11 +10453,13 @@ def main(argv) -> int:
         "replaces": "deeplearning4j_tpu/nd/pallas_kernels.py:600",
         "launches": (w2v_launches + sum(quality_launches.values())
                      + sum(tt_launches.values())
-                     + sum(sc_launches.values())),
+                     + sum(sc_launches.values())
+                     + an_launches["scatter_add_rows"]),
         "launches_by_path": {"w2v_train": w2v_launches,
                              "embed_quality": quality_launches,
                              "text_trees": tt_launches,
-                             "scaleout": sc_launches},
+                             "scaleout": sc_launches,
+                             "analysis_ui": an_launches["scatter_add_rows"]},
         "launches_per_w2v_step": W2V_GATHERS,
         # the numbers below are at the syn1 shape of the bench's step
         "max_abs_err": syn1["max_abs_err"], "ms": syn1["kernel_ms"],

@@ -1,5 +1,5 @@
 """CLI driver: the `train`, `test`, `predict`, `warmup`, `generate`,
-`serve`, `tune` and `agent` subcommands.
+`serve`, `tune`, `agent` and `analyze` subcommands.
 
 Counterpart of `deeplearning4j_tpu/cli/driver.py`, on one device (CUDA
 unless `--device cpu`):
@@ -57,7 +57,11 @@ unless `--device cpu`):
   command lines); SIGTERM drains the router, then the replicas;
 - `agent` runs the per-host replica agent (`serving/agent.py`): it spawns
   `serve` replicas for a remote `serve --agent`, pins them to its own
-  `--compile-cache` and serves that store's entries at GET /a/cache.
+  `--compile-cache` and serves that store's entries at GET /a/cache;
+- `analyze` lints the port's tree against the repo's conventions and
+  audits the zoo models' programs on `--device` (`analysis/`), prints one
+  report (`--format text|json`, the JAX package's schema) and exits 1 when
+  a finding reaches `--fail-on`; `--skip-programs` lints only.
 The warmup, serve and tune JSON carry the `tuning` block
 (`optimize/tunables.status()`).
 Checkpoints are `conf.json` + `arrays.npz`, written by either package.
@@ -712,16 +716,17 @@ def _generate_on_rank0(args, net) -> int:
                          f"--max-seq > {len(prompt)}")
     bucket = min(max(4, 1 << (len(prompt) - 1).bit_length()),
                  args.gen_max_seq)
-    # one-shot generation decodes one stream: a one-slot table
+    # one-shot generation decodes one stream: a one-slot table, a
+    # deliberate pin that no tuned table may widen
     options = dict(max_seq=args.gen_max_seq, prompt_buckets=(bucket,),
                    page_size=args.gen_page_size,
                    prefix_cache=args.gen_prefix_cache,
                    draft_net=_gen_draft_net(args, net.device),
                    spec_k=args.gen_spec_k,
                    steps_per_dispatch=args.gen_steps_per_dispatch)
-    net.warmup_generate(slots=1, **options)
+    net.warmup_generate(slots=1, **options)  # lint: allow(hardcoded-tunable)
     warmed_misses = net.infer_cache.stats.misses
-    batcher = ContinuousBatcher(net, n_slots=1, **options)
+    batcher = ContinuousBatcher(net, n_slots=1, **options)  # lint: allow(hardcoded-tunable)
     try:
         t0 = time.perf_counter()
         stream = batcher.submit(prompt, max_new_tokens=args.max_new_tokens,
@@ -1121,6 +1126,29 @@ def cmd_agent(args) -> int:
     return 0
 
 
+def cmd_analyze(args) -> int:
+    """Static analysis over the port's tree and the zoo's programs
+    (analysis/): AST convention lint + the program audit on `--device`,
+    one report, exit 1 when any finding reaches the --fail-on severity."""
+    from deeplearning4j_tpu_torch.analysis import (at_or_above,
+                                                   audit_zoo_models,
+                                                   lint_package, render_text,
+                                                   to_report)
+
+    findings, n_files = lint_package()
+    n_programs = 0
+    if not args.skip_programs:
+        prog_findings, n_programs = audit_zoo_models(small=True,
+                                                     device=args.device)
+        findings = findings + prog_findings
+    checked = {"files": n_files, "programs": n_programs}
+    if args.format == "json":
+        print(json.dumps(to_report(findings, checked)))
+    else:
+        print(render_text(findings, checked))
+    return 1 if at_or_above(findings, args.fail_on) else 0
+
+
 def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' must be asked "
@@ -1480,6 +1508,25 @@ def build_parser() -> argparse.ArgumentParser:
     _add_precision(w)
     _add_generate_flags(w)
     w.set_defaults(fn=cmd_warmup)
+
+    an = sub.add_parser(
+        "analyze",
+        help="static analysis: lint the port's ASTs against repo "
+             "conventions and audit the zoo models' programs, each run "
+             "once under a recording dispatch mode (analysis/)")
+    an.add_argument("--format", choices=["text", "json"], default="text",
+                    help="report rendering (json emits the versioned "
+                         "report schema tests assert on)")
+    an.add_argument("--fail-on", dest="fail_on",
+                    choices=["warn", "error"], default="error",
+                    help="exit 1 when any finding reaches this severity "
+                         "(default error)")
+    an.add_argument("--skip-programs", dest="skip_programs",
+                    action="store_true",
+                    help="lint only: skip running + auditing the zoo "
+                         "models' programs (fast pre-commit mode)")
+    _add_device(an)
+    an.set_defaults(fn=cmd_analyze)
     return p
 
 

@@ -18,7 +18,9 @@ Each kernel has, beside it here:
   (and, for a replayed CUDA graph, by what its capture launched:
   `count_launches`).
 
-Kernels ported so far (see ROADMAP.md queue B for the rest):
+The kernels, one for each Pallas kernel of the JAX package (when the
+attention layer's "auto" should take them on an H100 is ROADMAP.md item
+28):
 - `flash_attention`: `_flash_attn_kernel` forward, with the optional
   logsumexp residual (`csrc/flash_attn_fwd.cu`; bf16 on TMA and `wgmma`,
   f32 on the tensor cores as 3xTF32 `mma.sync` with a `cp.async` ring);

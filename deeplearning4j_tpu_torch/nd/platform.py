@@ -10,12 +10,17 @@ The JAX package runs one process over every device; the port runs one
 process per rank of a `torch.distributed` group (`parallel/mesh.py`).
 `device_count()` counts the CUDA devices this process sees, and `rank()`
 and `world_size()` read the default group (0 and 1 without one).
+
+This is the one module of the port that asks torch about the card
+(`torch.cuda.is_available`, `device_count`, `get_device_name`,
+`get_device_capability`): every other module calls the functions here
+(`analysis/repo_lint.py`, rule platform-sniff).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -48,9 +53,23 @@ def device_kind(device: torch.device) -> str:
     return "cpu"
 
 
+def cuda_available() -> bool:
+    """Whether this process sees a CUDA device. Asked on every call (not
+    cached), so a test may stand in for the answer."""
+    return torch.cuda.is_available()
+
+
 def device_count() -> int:
     """The CUDA devices this process sees (0 on a machine without one)."""
-    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return torch.cuda.device_count() if cuda_available() else 0
+
+
+def device_capability(device: torch.device) -> Optional[Tuple[int, int]]:
+    """The compute capability (major, minor) of a CUDA device, None for
+    the CPU."""
+    if device.type == "cuda":
+        return tuple(torch.cuda.get_device_capability(device))
+    return None
 
 
 def rank(group=None) -> int:

@@ -126,16 +126,21 @@ def uniform(keys: torch.Tensor, n: int, minval: float = 0.0,
     """`jax.random.uniform(key, (n,), float32, minval, maxval)` for each key
     [..., 2]: float32 [..., n]. The top 23 bits of a draw fill the mantissa
     of a float in [1, 2), minus 1, then `floats * (maxval - minval) +
-    minval`, which XLA fuses into one multiply-add: here the product is
-    exact in float64 and the sum is rounded once to float64, then to
+    minval`, which XLA fuses into one multiply-add. A span of 1 (the
+    Gumbel's [tiny, 1), dropout's and the samplers' [0, 1)) makes the
+    product exact in float32, so one float32 sum is the fused result, and
+    the draw stays in float32. Any other span (the init draws): the product
+    is exact in float64 and the sum is rounded once to float64, then to
     float32 (the two roundings can differ from the fused one's in about one
-    case in 2^29; at the Gumbel's [tiny, 1) the span is 1 and they never
-    do)."""
+    case in 2^29)."""
     bits = (random_bits(keys, n) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     lo = np.float32(minval)
     span = float(np.float32(maxval) - lo)  # rounded in float32, as in JAX
-    out = (floats.double() * span + float(lo)).float()
+    if span == 1.0:
+        out = floats + float(lo)
+    else:
+        out = (floats.double() * span + float(lo)).float()
     return torch.clamp_min(out, float(lo))
 
 

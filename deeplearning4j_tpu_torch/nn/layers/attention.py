@@ -271,7 +271,7 @@ class MultiHeadAttentionLayer:
         "full". On CUDA, "auto" resolves to "flash": the JAX package's
         crossover to dense attention (nn/layers/attention.py:86-116) is a
         TPU v5e measurement and is not carried over; an H100 crossover is
-        open work (ROADMAP.md queue B). On the CPU, "auto" keeps the JAX
+        open work (ROADMAP.md item 28). On the CPU, "auto" keeps the JAX
         rule: "blockwise" when a block size is set, else "full". The conf's
         block size does not reach the kernel, whose tiles are its own.
 

@@ -29,9 +29,11 @@ from deeplearning4j_tpu_torch.nd import random as nd_random
 from deeplearning4j_tpu_torch.nd.ops import activate
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 
+#: a conf's dtype names; "float64" computes in float32, as the JAX package
+#: does with x64 disabled
 _DTYPES = {
     "float32": torch.float32,
-    "float64": torch.float64,
+    "float64": torch.float32,
     "float16": torch.float16,
     "bfloat16": torch.bfloat16,
 }

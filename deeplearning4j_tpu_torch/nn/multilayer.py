@@ -587,7 +587,8 @@ class MultiLayerNetwork:
         becomes float32)."""
         x = torch.as_tensor(np.asarray(x) if not isinstance(
             x, torch.Tensor) else x)
-        if x.dtype == torch.float64:
+        # the guard that keeps float64 off the device: it names the dtype
+        if x.dtype == torch.float64:  # lint: allow(f64-literal)
             x = x.float()
         return x.to(self.device)
 

@@ -436,6 +436,15 @@ class InferCache(CompiledProgramCache):
         b = getattr(self._tls, "bucket", None)
         return self._serve_bucket(n) if b is None else int(b)
 
+    def _audit_scope(self, key):
+        """A program's mesh, plan and model-axis layout for its audit
+        record: the plan's mesh, the plan, and the split leaves of the
+        key's conf (the fingerprint, key[1]) under a model axis."""
+        with self._lock:
+            tp = self._tps.get(key[1])
+        return {"mesh": self.plan.mesh is not None, "plan": self.plan,
+                "layout": None if tp is None else dict(tp.layout)}
+
     def _tp(self, conf):
         """The serving model axis for `conf` (None without one)."""
         if not self.plan.has_model_axis:

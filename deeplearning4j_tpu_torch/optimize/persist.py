@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.nd import platform
 from deeplearning4j_tpu_torch.reliability import faults
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
@@ -66,15 +67,15 @@ def platform_info(device=None) -> dict:
     card where there is one, else the CPU) names the backend and, on CUDA,
     the card's name and compute capability."""
     dev = torch.device(device if device is not None else
-                       ("cuda" if torch.cuda.is_available() else "cpu"))
+                       ("cuda" if platform.cuda_available() else "cpu"))
     cuda = dev.type == "cuda"
     return {
         "format": FORMAT_VERSION,
         "backend": "cuda" if cuda else "cpu",
-        "device_kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
-        "capability": (list(torch.cuda.get_device_capability(dev)) if cuda
+        "device_kind": platform.device_kind(dev),
+        "capability": (list(platform.device_capability(dev)) if cuda
                        else None),
-        "n_devices": torch.cuda.device_count() if cuda else 1,
+        "n_devices": platform.device_count() if cuda else 1,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
     }

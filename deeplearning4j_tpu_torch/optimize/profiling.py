@@ -33,8 +33,8 @@ work targets --
 `unattributed` remainder of the measured total the analytic model does
 not cover.
 
-`maybe_trace` wraps `torch.profiler` around the body on CUDA (a Chrome
-trace written into the directory), and is a no-op on the CPU.
+`chrome_trace` wraps `torch.profiler` around a body and writes a Chrome
+trace; `maybe_trace` does so on CUDA only, and is a no-op on the CPU.
 """
 
 from __future__ import annotations
@@ -235,20 +235,37 @@ def breakdown(analytic: dict, totals: dict | None = None,
 
 
 @contextlib.contextmanager
-def maybe_trace(trace_dir: str | None = None):
-    """`torch.profiler` around the body when a dir is given AND a CUDA card
-    is there (CPU and CUDA activities, a Chrome trace written into
-    `trace_dir`); a no-op otherwise."""
+def chrome_trace(trace_dir: str, cuda: bool):
+    """`torch.profiler` around the body (CPU activity, and CUDA activity
+    when `cuda`), the Chrome trace written to `trace_dir/trace.json` at the
+    end. Yields the path. The one tracer of the port: `maybe_trace` and
+    `utils/profiling.Tracer` both go through it."""
     import torch
-
-    if not trace_dir or not torch.cuda.is_available():
-        yield
-        return
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(trace_dir, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    path = os.path.join(trace_dir, "trace.json")
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield path
+        if cuda:
+            # the body's kernels end inside the profile, so that their
+            # device records are in the trace
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+
+
+@contextlib.contextmanager
+def maybe_trace(trace_dir: str | None = None):
+    """`chrome_trace` around the body when a dir is given AND a CUDA card
+    is there (CPU and CUDA activities, a Chrome trace written into
+    `trace_dir`); a no-op otherwise."""
+    from deeplearning4j_tpu_torch.nd.platform import cuda_available
+
+    if not trace_dir or not cuda_available():
         yield
-    torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        return
+    with chrome_trace(trace_dir, cuda=True):
+        yield

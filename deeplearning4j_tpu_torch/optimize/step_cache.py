@@ -79,7 +79,7 @@ import hashlib
 import logging
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,7 +88,7 @@ from deeplearning4j_tpu_torch.nd import kernels
 from deeplearning4j_tpu_torch.nn.conf import LayerType, OptimizationAlgorithm
 from deeplearning4j_tpu_torch.nn.layers.base import check_ids, ids_checked
 from deeplearning4j_tpu_torch.optimize import solver as solver_mod
-from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+from deeplearning4j_tpu_torch.optimize.tree import tree_leaves, tree_map
 from deeplearning4j_tpu_torch.reliability import faults
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
@@ -185,6 +185,44 @@ class GraphPool:
         leave the allocator recording into its pool, which refuses a second
         capture; graphs already captured keep the pool they were made in."""
         self._handle = None
+
+
+class TensorSpec(NamedTuple):
+    """A tensor's shape, dtype and device: an audit record's leaf, the JAX
+    package's `ShapeDtypeStruct`. `value` keeps a host copy of a small
+    integer input (ids, positions, lengths, page tables, keys), whose
+    values a program indexes with; a float's value does not matter to an
+    audit and is not kept."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    device: torch.device
+    value: Optional[torch.Tensor] = None
+
+    #: the largest integer input whose values a record keeps
+    KEEP_NUMEL = 1 << 16
+
+    @staticmethod
+    def of(t, keep_value: bool = False):
+        """The spec of a tensor (with its value where `keep_value` and it
+        is a small integer tensor); any other leaf stays as it is."""
+        if not isinstance(t, torch.Tensor):
+            return t
+        value = None
+        if (keep_value and not t.is_floating_point()
+                and t.numel() <= TensorSpec.KEEP_NUMEL):
+            value = t.detach().to("cpu", copy=True)
+        return TensorSpec(tuple(t.shape), t.dtype, t.device, value)
+
+    @property
+    def nbytes(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64)) * self.dtype.itemsize
+
+    def make(self) -> torch.Tensor:
+        """A fresh tensor of this spec: the kept value, else zeros."""
+        if self.value is not None:
+            return self.value.to(self.device, copy=True)
+        return torch.zeros(self.shape, dtype=self.dtype, device=self.device)
 
 
 def _data_ptrs(params) -> Tuple[int, ...]:
@@ -406,11 +444,14 @@ class CompiledProgramCache:
         self._lock = threading.RLock()
         # the persistent byte store (`optimize/persist.py`), or None
         self._persist = None
+        # one audit record a key (`audit_records`)
+        self._audit_records: Dict[Tuple, dict] = {}
 
     def set_persist(self, store) -> None:
         """Attach a `PersistentProgramStore` (None detaches it). It holds
         byte artifacts; the graphs stay in memory."""
-        self._persist = store
+        with self._lock:
+            self._persist = store
 
     @property
     def persist(self):
@@ -454,6 +495,24 @@ class CompiledProgramCache:
                 self._fingerprints[id(conf)] = fp
             return fp
 
+    def _audit_scope(self, key: Tuple) -> dict:
+        """The record fields that say where a program runs: `mesh` (its
+        ranks run collectives), `plan` (the `ShardPlan`, or None) and
+        `layout` (the model axis's split leaves, or None)."""
+        return {"mesh": False, "plan": None, "layout": None}
+
+    def audit_records(self) -> List[dict]:
+        """One record a program key, as the JAX package's caches keep:
+        {key, kind, build, write, abstract, in_place, mesh, plan, layout}.
+        `abstract` is the (params, *inputs) tree of the first call with
+        `TensorSpec` leaves (shape, dtype, device); `in_place` says the
+        program writes its result into the params (or the decode state) in
+        place, the port's counterpart of donation.
+        `analysis.program_audit.audit_cache` runs each `build()` once on
+        fresh tensors of those specs."""
+        with self._lock:
+            return list(self._audit_records.values())
+
     def _run(self, key: Tuple, build: Callable[[], Callable], params,
              inputs: Tuple[torch.Tensor, ...], read: Callable,
              write: Optional[Callable] = None, compile_only: bool = False):
@@ -472,6 +531,14 @@ class CompiledProgramCache:
                 self.stats.misses += 1
                 t0 = time.perf_counter()
                 fn = build()
+                self._audit_records[key] = dict(
+                    key=key, kind=self.kind, build=build, write=write,
+                    abstract=(tree_map(TensorSpec.of, params),)
+                    + tuple(TensorSpec.of(a, keep_value=True)
+                            for a in inputs),
+                    in_place=(write is not None
+                              or isinstance(fn, Segmented)),
+                    **self._audit_scope(key))
                 graph = inputs[0].is_cuda and self.capture
                 if isinstance(fn, Segmented):
                     prog = (_GraphSegments(self.pool, fn.make, params,
@@ -713,6 +780,10 @@ class DPStepCache(CompiledProgramCache):
     collective on each group before any capture)."""
 
     kind = "dp-step-cache"
+
+    def _audit_scope(self, key):
+        """A trainer's step runs its collectives over the mesh's ranks."""
+        return {"mesh": True, "plan": None, "layout": None}
 
     def step(self, variant: Tuple, conf, build: Callable, bufs,
              inputs: Tuple[torch.Tensor, ...], write: Callable,

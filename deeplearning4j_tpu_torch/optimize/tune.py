@@ -48,6 +48,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.nd.platform import cuda_available
 from deeplearning4j_tpu_torch.optimize import tunables
 from deeplearning4j_tpu_torch.optimize.step_cache import conf_fingerprint
 from deeplearning4j_tpu_torch.reliability import faults
@@ -94,7 +95,7 @@ class _Search:
             return best
         except Exception:  # noqa: BLE001 -- one bad candidate never ends a search
             self.measure_failures += 1
-            if torch.cuda.is_available():
+            if cuda_available():
                 # an out-of-memory candidate leaves its blocks cached
                 torch.cuda.empty_cache()
             return None

@@ -27,7 +27,9 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.nd.platform import resolve_device
+from deeplearning4j_tpu_torch.nd.platform import (cuda_available,
+                                                  device_count,
+                                                  resolve_device)
 
 #: canonical axis order, outermost first (the JAX package's)
 AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")
@@ -108,9 +110,9 @@ def rank_device(device=None) -> torch.device:
     `resolve_device`."""
     want = torch.device("cuda" if device is None else device)
     if (_torchrun() and want.type == "cuda" and want.index is None
-            and torch.cuda.is_available()):
+            and cuda_available()):
         local = int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
-        want = torch.device("cuda", local % torch.cuda.device_count())
+        want = torch.device("cuda", local % device_count())
     return resolve_device(want)
 
 
@@ -246,7 +248,8 @@ def batch_tensor(a) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a
     a = np.asarray(a)
-    if a.dtype == np.float64:
+    # the guard that keeps float64 off the device: it names the dtype
+    if a.dtype == np.float64:  # lint: allow(f64-literal)
         a = a.astype(np.float32)
     return torch.from_numpy(np.ascontiguousarray(a))
 

@@ -15,6 +15,13 @@ armed for the JAX package arms the port. Points the port traverses:
   ``checkpoint.load``     checkpoint read (parallel/checkpoint.py); an
                           armed raise simulates a torn or unreadable
                           directory, which `load_resilient` must skip
+  ``dispatcher.execute``  per coalesced batch on the micro-batcher's
+                          primary path (serving/batcher.py), before the
+                          device call: an armed raise opens the breaker
+  ``serve.follower``      per call a rank other than 0 of a serving mesh
+                          runs (optimize/infer_cache.py `follow`); a
+                          point of the port only, since the JAX package
+                          serves a mesh from one process
 
 `DOCUMENTED_POINTS` keeps the JAX package's whole registry, so that names
 stay one vocabulary across both packages. With nothing armed, `fire()` is a
@@ -45,8 +52,8 @@ _sleep = time.sleep
 
 ENV_VAR = "DL4J_FAULT_PLAN"
 
-#: Every injection point of the JAX package's registry, by name (the
-#: port traverses the four its module docstring lists).
+#: Every injection point of the JAX package's registry, by name, and the
+#: one point of the port's own (``serve.follower``).
 DOCUMENTED_POINTS = {
     "prefetch.worker": "per batch produced by PrefetchIterator's "
                        "background thread (datasets/iterator.py)",
@@ -97,6 +104,10 @@ DOCUMENTED_POINTS = {
                        "(serving/supervisor.py); arming 'raise' "
                        "simulates a network partition between the "
                        "supervisor and a healthy agent",
+    "serve.follower": "per call a follower rank of a serving mesh runs "
+                      "(optimize/infer_cache.py InferCache.follow); the "
+                      "port's own point: the JAX package serves a mesh "
+                      "from one process",
 }
 
 _PLAN_RE = re.compile(

@@ -328,7 +328,10 @@ class MicroBatcher:
     # -- execution paths -----------------------------------------------------
     def _primary_output(self, xb: np.ndarray) -> np.ndarray:
         """`net.output` on the batch (on CUDA, a replay of the infer cache's
-        graph for the batch's bucket); guarded by the circuit breaker."""
+        graph for the batch's bucket); guarded by the circuit breaker. An
+        armed `dispatcher.execute` fault fires before the device call, as in
+        the JAX package."""
+        faults.fire("dispatcher.execute", rows=int(xb.shape[0]))
         return self.net.output(xb).float().cpu().numpy()
 
     def _degraded_output(self, xb: np.ndarray) -> np.ndarray:
