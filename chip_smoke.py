@@ -54,7 +54,7 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    replay counts what its capture launched); then generates with it
    (`generate` phase, GEN): `warmup_generate` captures the decode table's
    graph and a B = 1 prefill graph per prompt bucket, and a 4-slot
-   `ContinuousBatcher` answers 8 POST /v1/generate requests of 128 tokens
+   `ContinuousBatcher` answers 4 POST /v1/generate requests of 128 tokens
    from 4 clients (half greedy, half at 0.8); it checks every stream, that
    each admission launched the flash kernel once per block and that
    serving captured nothing new; times the captured and eager decode step
@@ -100,9 +100,9 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    paths agree within bf16, profiles one more step of each, holds the
    kernel path to the hoisted scan in f32 (outputs, gradients), and times
    the fused and scan paths' step and `output`, each captured and eager;
-9. stops a checkpointed char-LSTM `fit` (the bench's widths, six batches)
-   by SIGTERM after three batches, reruns it from its checkpoint, and holds
-   it to two uninterrupted runs (`checkpoint` line);
+9. stops a checkpointed char-LSTM `fit` (the bench's widths, four
+   batches) by SIGTERM after two batches, reruns it from its checkpoint,
+   and holds it to two uninterrupted runs (`checkpoint` line);
 10. runs the CLI north star in process (bench.py:1716-1719: `train --zoo
    char_lstm:layers=4,hidden=128` over the corpus as text windows of 32),
    the same with `--checkpoint-dir` in batches of 256, then `predict`,
@@ -119,7 +119,7 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    version, `index_add_` and its bound;
 12. trains the bench's Word2Vec at full size (bench.py:368-385: vocab
    10,000, 1.2M zipf tokens, vector 128, window 5, negative 5, HS, batch
-   32,768, 6 epochs) through `Word2Vec.fit`: words/s as bench.py:391
+   32,768, 3 epochs) through `Word2Vec.fit`: words/s as bench.py:391
    computes it, step time, 3 scatter launches a step and profiled steps;
    then one epoch of the same with per-word AdaGrad, whose tables stay
    finite and whose loss on a fixed batch falls (the bench's SGD diverges,
@@ -135,7 +135,7 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    and `test`s it (accuracy at least chance + 0.4); loads `iris:` and
    `cifar10:` and trains an Iris net built with `list_builder` by SGD;
    serves the SLICE charTransformer with `batching=True` and then
-   `batching=False` to 8 concurrent requests of mixed priority under a
+   `batching=False` to 4 concurrent requests of mixed priority under a
    default deadline (flash launches 8 a flush, then 8 a request; answers
    within 2e-2 of `net.output`; per-priority request counts; no capture
    after the int32 warm-up), then its checkpoint through the CLI's `serve
@@ -167,12 +167,13 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    same params (EMA included; each conv against float64 beside them),
    deterministic against default cuDNN
    algorithms, and a checkpointed LeNet `fit` stopped by SIGTERM
-   after 3 of 6 batches that resumes bitwise equal to an uninterrupted
+   after 2 of 4 batches that resumes bitwise equal to an uninterrupted
    one;
 16. `pretraining` (PRE_*; `--only-pretraining` runs it alone, with no
    kernel build and no last line): `pretrain_deep_ae`, the Curves net of
    Hinton & Salakhutdinov (2006) at `zoo.deep_autoencoder()`'s widths on
-   20,000 stand-in curves at full batch through `fit_deep_autoencoder`,
+   20,000 stand-in curves at full batch (10 pretraining and 20 CG
+   iterations) through `fit_deep_autoencoder`,
    captured and with its programs uncaptured (bitwise after each layer's
    pretraining, the unroll and the CG finetune; MSE below its init; JAX's
    MSE criteria on JAX's test net), each layer's and the CG run's replay
@@ -182,13 +183,13 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    5-iteration CG finetune (gated at ten times the CPU's own gap under a
    1e-7 move of its inputs), and
    the CLI recipe; `pretrain_dbn`, `zoo.dbn(784, [500, 500, 2000], 10)`
-   (Hinton, Osindero & Teh 2006) over the MNIST stand-in in [0, 1] in
-   batches of 10,000 through `fit` (batch 1 bitwise its programs
+   (Hinton, Osindero & Teh 2006) over 20,000 rows of the MNIST stand-in in
+   [0, 1] in batches of 10,000 through `fit` (batch 1 bitwise its programs
    uncaptured, held-out accuracy at least chance + 0.4, the card's Gibbs
    uniforms bitwise the CPU's, its sample's flips beside the near-ties),
    ms a batch and a layer iteration, the draw share, the cut against the
    CPU, and the CLI; `solvers`, bench.py's MLP 784-512-512-10 on 8,192
-   rows with GD, CG and LBFGS (10 iterations) and HF (5, CG 32): captured
+   rows with GD, CG and LBFGS (6 iterations) and HF (3, CG 32): captured
    bitwise its program uncaptured, scores falling, each iteration's probes
    those of the eager `backtrack`, HF one graph a run, a Gauss-Newton
    product against dense M'Mv;
@@ -197,7 +198,7 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    group of one rank, then bench.py:546-569's flagship
    training entry point, `DataParallelTrainer(mode="sync")`, at its conf
    (the train phase's `train_conf`, TRAIN_LR) on 32 x 512 ids from
-   RandomState(0): three eager trainer steps, then three captured ones
+   RandomState(0): two eager trainer steps, then two captured ones
    (one CUDA graph, the NCCL all-reduce inside it) held to them bitwise,
    step 1 against one `MultiLayerNetwork.fit` call (bitwise, or the first
    differing leaf and a gap within a hundredth of how far that `fit` moved
@@ -209,8 +210,8 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    time over its own wall time), device ms by kind (GEMM, casts,
    elementwise, attention, NCCL), capture s, pool bytes and peak memory;
    then, in a child process (`--dp-ckpt-child DIR`), a checkpointed
-   trainer `fit` over 6 batches (the flagship at 2 blocks) stopped by a
-   SIGTERM after 3 and resumed bitwise equal to an uninterrupted one
+   trainer `fit` over 4 batches (the flagship at 2 blocks) stopped by a
+   SIGTERM after 2 and resumed bitwise equal to an uninterrupted one
    (write s); then the bench's char-LSTM (captured vs eager bitwise, 256
    cell launches a step) and VGG-CIFAR10 (width 64, batch 512; captured vs
    eager bitwise, the EMA after one step against `fit`'s, within a
@@ -221,7 +222,7 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    no last line, and the full run runs it so, in a child process): the
    flagship (the data_parallel phase's conf and batch) through
    `DataParallelTrainer(plan=ShardPlan(plan_mesh({"batch": 1, "model":
-   1})))`, held bitwise to the sync trainer for 3 steps, rows 1-4 8 a
+   1})))`, held bitwise to the sync trainer for 2 steps, rows 1-4 8 a
    step (host counts and a profiled replay), step ms, tokens/s, bytes of
    params and moments; rows 1-4 at the plan step's per-rank shapes [32,
    512, H/M, 128] for M = 2 and 4 (bf16, causal, qkv views) against their
@@ -233,7 +234,7 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    each rank's bytes, step ms, tokens/s, NCCL device ms and the
    collectives inside the capture (4 all-reduces a block, the gradient's
    and the score's), scores within TP_SCORE_RTOL of the one-rank run's
-   and, after the same 3 steps, its params and Adam moments within the
+   and, after the same 2 steps, its params and Adam moments within the
    TP_PARAM_* and TP_MOMENT_RTOL gates, which a control run on half the
    batch (a dropped gradient all-reduce) must break; a
    2 x 2 sharded checkpoint (2 blocks) restored on 1 x 4 bitwise; ring,
@@ -277,7 +278,7 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    entry this process wrote (a disk hit, the same tokens), a corrupted
    artifact evicted and calibrated again; the CLI's `warmup --precision
    int8 --compile-cache D` then `serve --precision int8 --compile-cache D`
-   (a subprocess) and 4 POST /v1/predict (its weights from the artifact,
+   (a subprocess) and 2 POST /v1/predict (its weights from the artifact,
    `/v1/stats` int8, nothing captured under traffic); the bench's
    char-LSTM with f32 compute under bf16 and int8 (`lstm_cell_bf16_kernel`
    4 x 64 launches a forward, within SP_LSTM_TOL of the same policy's
@@ -296,7 +297,7 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    and skipped), then again in a fresh process (inherited: fresh_tunes 0,
    source disk); `serve --replicas 2 --min-replicas 1 --max-replicas 2` on
    that store (each replica's `tuning` block: the table, fresh_tunes 0, the
-   card's kind), 16 requests through the router bitwise an in-process
+   card's kind), 4 requests through the router bitwise an in-process
    `net.output` with the same table, a burst from 8 threads (rows/s), the
    router's and a replica's /metrics parsed, the replicas' flash launches
    (`kernel_launches` of /v1/stats), one replica SIGKILLed and respawned
@@ -316,7 +317,7 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    state (first loss equal), held-out root and all-node accuracy and
    RNTNEval against the majority shares, the scatter kernel at the leaf
    gradient's shape against its plain version, and the card's loss and
-   params after 3 epochs of a 512-tree subset within TT's cpu_rel_tol and
+   params after 1 epoch of a 512-tree subset within TT's cpu_rel_tol and
    cpu_param_tol of the CPU port's (params where the first gradient is
    above rounding noise); the recursive autoencoder for 10 epochs alike; the chunk
    parser with the lexicon on 256 sentences, its Viterbi on the card,
@@ -335,7 +336,7 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    count; k-means at 1,000,000 x 128, k = 256, through the fast path and
    the strategy framework (ms an iteration, iterations, peak memory; a
    20,000-point subset's seeds, iterations and assignments equal to the
-   CPU port's); exact t-SNE on 10,000 MNIST stand-in rows for 1,000
+   CPU port's); exact t-SNE on 10,000 MNIST stand-in rows for 300
    iterations (KL falls; P and 10 iterations of a 500-row subset against
    the CPU port); meanwhile, in their own processes, Barnes-Hut t-SNE on
    2,000 rows for 100 iterations on the host (the exact KL falls, and
@@ -367,11 +368,25 @@ imports `deeplearning4j_tpu_torch` (never JAX or `deeplearning4j_tpu`) and:
    plotter where matplotlib is installed (skipped with the reason where it
    is not). Its launches join rows 1-5.
 
+Slice 27's public names ride on earlier phases: the serve phase holds
+`f1_score` to `evaluate`'s F1 and two batches `evaluate`d into one
+`Evaluation` to one `evaluate` over both (same forwards, equal counts;
+their flash launches join row 1), prints `program_memory()` of the infer
+cache (and the train phase of the step cache), and reads the breaker's
+gauge in `/metrics` against `CircuitBreaker.state_code`; the
+`data_parallel` VGG trainer's state goes through `save_sharded_async`
+and `join_async`, loaded back bitwise equal to `save_sharded`'s; and
+`datasets_serve_api` pulls the MNIST stand-in's batches through one
+`PrefetchIterator` from two threads, each batch delivered once.
+
 The full run starts each late phase's child process while the phase
 before it runs (`Children`), so the child's start-up costs no wall time.
 
-Each phase prints one JSON line; then a line with every kernel's numbers,
-the card's line, and last `{"ok": true, "device": {...}}`. Any failure exits
+Each phase prints one JSON line (with `t_s`, the seconds since its
+process started or, in a child, since its turn came); then a
+`phase_seconds` line with each phase's seconds on the host clock, a line
+with every kernel's numbers, the card's line, and last `{"ok": true,
+"device": {...}}`. Any failure exits
 non-zero before the last line. Without a CUDA device it exits 2 at once.
 """
 
@@ -415,8 +430,29 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+#: this process's clock origin: its start, or a child's turn (`wait_turn`)
+_T0 = [time.perf_counter()]
+#: the full run's phases in order, each with its seconds on the host clock
+#: (`phase_clock`), printed on the `phase_seconds` line
+PHASE_SECONDS: dict = {}
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase line gets `t_s`, the seconds since
+    this process started (a child: since its turn came)."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0[0]}
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def phase_clock(name: str):
+    """Record the seconds a phase of the full run takes (PHASE_SECONDS)."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
 
 
 def check(cond: bool, what: str) -> None:
@@ -1249,6 +1285,11 @@ def phase_serve(torch, kernels):
         bad_status = 200
     except urllib.error.HTTPError as e:
         bad_status = e.code
+    # the breaker gauge of /metrics against `CircuitBreaker.state_code`
+    breaker = {"state": server.batcher.breaker.state,
+               "state_code": server.batcher.breaker.state_code,
+               "metrics_gauge": metrics_gauge(
+                   server.url, "dl4j_serving_breaker_state")}
     server.drain()
     check(not errors, f"requests failed: {errors}")
     check(bad_status == 400, f"an out-of-vocabulary id got {bad_status}")
@@ -1277,6 +1318,9 @@ def phase_serve(torch, kernels):
           f"{n_attn * REQUESTS}")
     check(max(errs_direct) < 2e-2,
           f"served answer differs from net.output: {errs_direct}")
+    check(breaker["metrics_gauge"] == breaker["state_code"] == 0,
+          f"the breaker gauge of /metrics is not its state_code: {breaker}")
+    surface = serve_surface(torch, kernels, net, xs)
 
     # the flash path against the plain attention path on the same weights,
     # in f32 compute, where the two differ only by f32 rounding (in bf16
@@ -1342,8 +1386,96 @@ def phase_serve(torch, kernels):
           "f32_forward_ms": sorted(f32_ms["flash"])[2],
           "f32_forward_ms_all": f32_ms["flash"],
           "f32_forward_plain_attention_ms": sorted(f32_ms["plain"])[2],
+          "breaker": breaker, "surface": surface,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return serve_launches
+    return serve_launches, surface["flash_launches"]
+
+
+def metrics_gauge(url: str, name: str) -> float:
+    """The value of the unlabelled-or-labelled gauge `name` in the
+    Prometheus text of GET /metrics."""
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            return float(line.rsplit(" ", 1)[1])
+    raise SmokeFailure(f"/metrics has no {name}")
+
+
+def eval_counts(ev) -> list:
+    """An `Evaluation`'s confusion counts: (actual, predicted, count)."""
+    classes = sorted(ev.confusion.classes)
+    return [(a, p, ev.confusion.count(a, p)) for a in classes
+            for p in classes if ev.confusion.count(a, p)]
+
+
+def program_rows(cache) -> list:
+    """A cache's `program_memory()` as JSON rows (keys as repr)."""
+    return [dict(r, key=repr(r["key"]), entry=str(r["entry"]))
+            for r in cache.program_memory()]
+
+
+def check_program_rows(rows, what: str) -> None:
+    """One card, no model axis: each program's per-device argument bytes
+    are its replicated bytes, and each captured graph states its pool."""
+    check(bool(rows), f"{what}: program_memory() has no rows")
+    for r in rows:
+        check(0 < r["per_device_argument_bytes"]
+              == r["replicated_argument_bytes"]
+              and r["memory_analysis"] is not None
+              and r["memory_analysis"]["graph_pool_bytes"] >= 0,
+              f"{what}: program_memory row {r}")
+
+
+def serve_surface(torch, kernels, net, xs) -> dict:
+    """Slice 27's calls on the served flagship (bf16, SLICE's widths):
+    `f1_score` on two requests' rows against `evaluate` of the same rows;
+    two batches evaluated into one `Evaluation` (`evaluate(...,
+    evaluation=)`) against one `evaluate` over both, cut into the same two
+    batches (the same forwards, so the counts must be equal); and the infer
+    cache's `program_memory()`. Labels: one-hot ids from RandomState(5).
+    Counts its flash launches, 8 a forward."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.evaluation import Evaluation, evaluate
+
+    t0 = time.perf_counter()
+    vocab, rows = SLICE["vocab"], REQUEST_ROWS * SLICE["seq"]
+    rng = np.random.RandomState(5)
+    ys = [np.eye(vocab, dtype=np.float32)[rng.randint(0, vocab, rows)]
+          for _ in range(2)]
+    kernels.reset_launches()
+    f1 = net.f1_score(xs[0], ys[0])
+    single = evaluate(net, DataSet(xs[0], ys[0]))
+    into = Evaluation()
+    for x, y in zip(xs[:2], ys):
+        check(evaluate(net, DataSet(x, y), evaluation=into) is into,
+              "evaluate(evaluation=) returned another Evaluation")
+    both = evaluate(net, DataSet(np.concatenate(xs[:2]), np.concatenate(ys)),
+                    batch_size=REQUEST_ROWS)
+    launches = kernels.LAUNCHES["flash_attn_fwd"]
+    seconds = time.perf_counter() - t0
+    memory = program_rows(net.infer_cache)
+    row = {"rows_per_batch": REQUEST_ROWS, "label_rows": rows,
+           "f1_score": f1, "evaluate_f1": single.f1(),
+           "into_two_batches": {"total": into.confusion.total(),
+                                "accuracy": into.accuracy(),
+                                "f1": into.f1()},
+           "one_evaluate_over_both": {"total": both.confusion.total(),
+                                      "accuracy": both.accuracy(),
+                                      "f1": both.f1()},
+           "counts_equal": eval_counts(into) == eval_counts(both),
+           "flash_launches": launches, "seconds": seconds,
+           "infer_program_memory": memory}
+    check(f1 == single.f1(), f"f1_score {f1} is not evaluate's "
+          f"{single.f1()}")
+    check(row["counts_equal"] and into.confusion.total() == 2 * rows,
+          f"evaluate(evaluation=) over two batches differs from one "
+          f"evaluate over both: {row}")
+    check(launches == 6 * SLICE["n_blocks"],
+          f"f1_score and the evaluates launched flash {launches} times, "
+          f"want {6 * SLICE['n_blocks']} (6 forwards)")
+    check_program_rows(memory, "serve infer cache")
+    return row
 
 
 # ---------------------------------------------------------------- generate
@@ -1353,7 +1485,7 @@ def phase_serve(torch, kernels):
 #: 256, 8 POST /v1/generate requests from 4 concurrent clients, prompts of
 #: 40-250 seeded ids, 128 new tokens each, half greedy, half at 0.8
 GEN = dict(n_blocks=SLICE["n_blocks"], slots=4, max_seq=512,
-           buckets=(64, 256), requests=8, clients=4, prompt_min=40,
+           buckets=(64, 256), requests=4, clients=4, prompt_min=40,
            prompt_max=250, max_new=128, temperature=0.8)
 #: --quick: the same widths at 2 blocks, 2 requests of 16 tokens
 GEN_QUICK = dict(GEN, n_blocks=2, requests=2, clients=2, max_new=16)
@@ -1363,7 +1495,7 @@ GEN_QUICK = dict(GEN, n_blocks=2, requests=2, clients=2, max_new=16)
 #: must queue and be preempted) and the prefix cache (longest match: the
 #: requests, `repeats` of them again, then `extend` of them with `suffix`
 #: more prompt tokens)
-GEN_OPTIONS = dict(k=8, page_size=16, overcommit=48, repeats=4, extend=4,
+GEN_OPTIONS = dict(k=8, page_size=16, overcommit=48, repeats=2, extend=2,
                    suffix=16)
 GEN_OPTIONS_QUICK = dict(GEN_OPTIONS, overcommit=32, repeats=2, extend=2)
 #: the prompt buckets at which the forward kernel is held to its plain
@@ -1378,12 +1510,12 @@ GEN_LSTM = dict(vocab=50, hidden=256, n_layers=4, seed_chars=20, n=200)
 #: target's vocabulary, chunks of k = 4, dense then over the default pool of
 #: 16-token pages; the f32 greedy variant at 2 blocks serves `f32_requests`
 #: of the requests, `f32_new` tokens each
-GEN_SPEC = dict(k=4, draft_seed=11, page_size=16, f32_requests=4,
+GEN_SPEC = dict(k=4, draft_seed=11, page_size=16, f32_requests=2,
                 f32_new=64)
 #: the char-LSTM target of speculative decoding (lstm_conf's widths in f32):
 #: `requests` prompts of 10-30 ids, `new` tokens each, greedy and at 0.8,
 #: with a cloned draft and a disagreeing `char_lstm(50, hidden=8)`
-SPEC_LSTM = dict(requests=4, new=64, max_seq=128, buckets=(32,), k=4,
+SPEC_LSTM = dict(requests=2, new=64, max_seq=128, buckets=(32,), k=4,
                  slots=4, temperature=0.8)
 
 
@@ -2716,6 +2848,8 @@ def phase_train(torch, kernels):
                 "eager": profile_step(torch, kernels, eager, x, y,
                                       phase="train_profile_eager")}
     books = graph_books(net)
+    step_memory = program_rows(net.step_cache)
+    check_program_rows(step_memory, "train step cache")
     n_attn = SLICE["n_blocks"]
     del eager, nets
     torch.cuda.empty_cache()
@@ -2755,7 +2889,8 @@ def phase_train(torch, kernels):
            "fused_bwd": True,
            "params": sum(t.numel() for t in tree_leaves(net.params)),
            **captured, "eager": path(rec["eager"], profiles["eager"]),
-           "graph": books, "captured_vs_eager_params": gap,
+           "graph": books, "step_program_memory": step_memory,
+           "captured_vs_eager_params": gap,
            "peak_mem_gb": peak_gb, "pad_copies_train": train_pad_copies,
            "grad_check_rows": 2, "grad_check_dtype": "float32",
            "grad_check_launches": f32_launches,
@@ -3070,7 +3205,7 @@ def phase_lstm_train(torch, kernels):
     turns = {}
     order = [("fused", True), ("scan", True), ("fused", False),
              ("scan", False)]
-    for impl, cached in order + order[::-1]:
+    for impl, cached in order:
         other = MultiLayerNetwork(lstm_conf(impl), device="cuda", seed=0)
         other.params = tuple({k: v.clone() for k, v in layer.items()}
                              for layer in net.params)
@@ -3142,7 +3277,7 @@ class SigtermAfter:
 
 
 #: batches of the checkpoint phase's stream, and the one SIGTERM follows
-CKPT_BATCHES, CKPT_STOP = 6, 3
+CKPT_BATCHES, CKPT_STOP = 4, 2
 
 
 def phase_checkpoint(torch, kernels):
@@ -3403,7 +3538,7 @@ def phase_lstm_cli(torch, kernels):
 #: zipf tokens in sentences of 20, vector 128, window 5, negative 5,
 #: hierarchical softmax on, batch 32,768, 6 epochs, seed 0
 W2V = dict(vocab=10_000, tokens=1_200_000, sent_len=20, vector=128, window=5,
-           negative=5, batch=32_768, epochs=6, seed=0)
+           negative=5, batch=32_768, epochs=3, seed=0)
 #: gathers (so scatter-add launches) per step: syn0, syn1 and syn1neg (the
 #: contexts and negatives in one gather); GloVe: w, wt, b, bt
 W2V_GATHERS, GLOVE_GATHERS = 3, 4
@@ -3913,7 +4048,7 @@ def phase_embed_quality(torch, kernels):
 MNIST_N, MLP_BATCH, MLP_EPOCHS = 60000, 8192, 5
 MLP_MIN_ACCURACY = 0.5  # chance (0.1) + 0.4
 IRIS_ITERS, IRIS_MIN_ACCURACY = 100, 0.9
-REQUESTS_API = 8
+REQUESTS_API = 4
 API_TRAIN_BLOCKS, API_TRAIN_ROWS, API_TRAIN_STEPS = 2, 4, 3
 
 
@@ -4010,6 +4145,59 @@ def api_mnist_cli(torch, td):
     check(np.isfinite(train["score"]), f"MLP score is not finite: {row}")
     check(test["accuracy"] >= MLP_MIN_ACCURACY,
           f"MLP accuracy {test['accuracy']} is not chance + 0.4: {row}")
+    return row
+
+
+def api_prefetch_pull(torch, consumers: int = 2) -> dict:
+    """A `PrefetchIterator` over the MNIST stand-in's batches (4,096 rows
+    of 784 a batch, with the batch's index beside it) to the card, started
+    once and pulled from `consumers` threads: each batch must reach exactly
+    one of them, its features equal to the host's."""
+    from deeplearning4j_tpu_torch.datasets import mnist as mnist_mod
+    from deeplearning4j_tpu_torch.datasets.iterator import PrefetchIterator
+
+    X, _ = mnist_mod.synthetic_mnist(MNIST_N)
+    X = X.astype(np.float32)
+    bsz = 4096
+    host = [X[i:i + bsz] for i in range(0, len(X), bsz)]
+    it = PrefetchIterator([(x, np.full((1,), i, np.int64))
+                           for i, x in enumerate(host)], device="cuda")
+    got = {c: [] for c in range(consumers)}
+    equal, errors = [], []
+
+    def consume(c):
+        try:
+            while True:
+                feats, idx = it.pull()
+                i = int(idx.item())
+                got[c].append(i)
+                equal.append(bool(np.array_equal(feats.cpu().numpy(),
+                                                 host[i])))
+        except StopIteration:
+            return
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    it.start()
+    threads = [threading.Thread(target=consume, args=(c,))
+               for c in range(consumers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    it.close()
+    seconds = time.perf_counter() - t0
+    delivered = sorted(i for v in got.values() for i in v)
+    row = {"batches": len(host), "rows_per_batch": bsz,
+           "consumers": consumers,
+           "by_consumer": {str(c): len(v) for c, v in got.items()},
+           "delivered_once": delivered == list(range(len(host))),
+           "copies_equal": bool(equal) and all(equal), "errors": errors,
+           "seconds": seconds}
+    check(not errors and not any(t.is_alive() for t in threads)
+          and row["delivered_once"] and row["copies_equal"],
+          f"the prefetcher's pull from {consumers} threads: {row}")
     return row
 
 
@@ -4350,6 +4538,7 @@ def phase_datasets_serve_api(torch, kernels):
     t0 = time.perf_counter()
     try:
         mnist = api_mnist_cli(torch, td)
+        pull = api_prefetch_pull(torch)
         iris = api_iris_cifar(torch)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4360,7 +4549,8 @@ def phase_datasets_serve_api(torch, kernels):
     finally:
         shutil.rmtree(td, ignore_errors=True)
     emit({"phase": "datasets_serve_api", "seconds": time.perf_counter() - t0,
-          "mnist_mlp": mnist, "iris_cifar10": iris, "serve": serve,
+          "mnist_mlp": mnist, "prefetch_pull": pull, "iris_cifar10": iris,
+          "serve": serve,
           "checkpoint_listener": ckpt,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return serve_launches, ckpt["launches"]
@@ -4392,8 +4582,8 @@ CONV_TOL = 2e-2          # bf16 compute: 2e-2 of max|leaf|
 #: (`ckpt_batches` batches of `ckpt_batch`, SIGTERM after `ckpt_stop`), and
 #: `det_iters` timed conv passes a cuDNN setting
 CONV_F32 = dict(mnist=8192, cifar=2048, cifar_width=64, rows=512,
-                rel_tol=1e-4, vgg_batch=512, vgg_steps=3, vgg_rel_tol=1e-3,
-                ckpt_batch=4096, ckpt_batches=6, ckpt_stop=3, det_iters=10)
+                rel_tol=1e-4, vgg_batch=512, vgg_steps=1, vgg_rel_tol=1e-3,
+                ckpt_batch=4096, ckpt_batches=4, ckpt_stop=2, det_iters=10)
 CONV_DROPOUT = dict(dropout=0.5, batch=4096, turns=4)
 
 
@@ -5087,7 +5277,7 @@ def conv_f32_child(workdir) -> int:
     out["vgg_f32_vs_cpu"] = vgg_f32_vs_cpu(torch, cfg)
     ok &= out["vgg_f32_vs_cpu"]["ok"]
     out["deterministic_cost"] = conv_det_times(torch, cfg["det_iters"])
-    # the checkpointed f32 LeNet fit: SIGTERM after 3 of 6 batches, rerun
+    # the checkpointed f32 LeNet fit: SIGTERM after 2 of 4 batches, rerun
     xs, ys = conv_data("mnist", cfg["ckpt_batch"] * cfg["ckpt_batches"])
     batches = device_batches(torch, xs, ys, cfg["ckpt_batch"])
 
@@ -5180,15 +5370,17 @@ PRE_DEVICE = "cuda"
 #: CPU port by 4.2e-5-5.0e-5 of max|leaf| from 2 of 4 initial draws (a 1e-7
 #: input move does not), and the first 5 stay within 7.1e-8 from each
 #: (`--seed-sweeps`, PERF.md): a long CG run is held to its first
-#: iterations
-PRE_AE = dict(rows=20000, cut=2000, cut_finetune=5)
+#: iterations; `iterations` a layer's pretraining and `finetune` CG
+#: iterations (the zoo's 30 and 60, cut)
+PRE_AE = dict(rows=20000, cut=2000, cut_finetune=5, iterations=10,
+              finetune=20)
 #: the DBN of Hinton, Osindero & Teh (2006): zoo.dbn(784, [500, 500, 2000],
 #: 10) on the MNIST stand-in in [0, 1], batches of 10,000
-PRE_DBN = dict(hidden=(500, 500, 2000), batch=10000, train=54000,
-               held_out=6000, cut=2000)
+PRE_DBN = dict(hidden=(500, 500, 2000), batch=10000, train=20000,
+               held_out=6000, cut=2000, cut_iterations=10, cli=20000)
 #: bench.py:413-416's MLP on one 8,192-row batch, each solver
-PRE_SOLVERS = dict(hidden=(512, 512), rows=8192, iterations=10,
-                   hf_iterations=5, hf_cg=32, runs=3)
+PRE_SOLVERS = dict(hidden=(512, 512), rows=8192, iterations=6,
+                   hf_iterations=3, hf_cg=32, runs=2)
 PRE_MIN_ACCURACY = 0.5  # chance (0.1) + 0.4
 #: the card against the CPU port: within this many times the CPU's own gap
 #: when its inputs move by 1e-7 relative (floor PRE_GAP_FLOOR of max|leaf|)
@@ -5321,8 +5513,8 @@ def pre_curves(n):
 
 
 def pre_ae_cut(torch, conf, x, iterations=None, seed=0, gated=True):
-    """The deep AE on a cut: one layer's pretraining (layer 0, the zoo's
-    30 iterations), then an `iterations`-iteration CG finetune of the
+    """The deep AE on a cut: one layer's pretraining (layer 0, the conf's
+    iterations), then an `iterations`-iteration CG finetune of the
     unrolled net (PRE_AE['cut_finetune'] by default), on the card and on
     the CPU port from the same params (the draw of `seed`)."""
     from deeplearning4j_tpu_torch.models import zoo
@@ -5355,7 +5547,8 @@ def pre_deep_ae(torch, kernels, card):
     from deeplearning4j_tpu_torch.cli.driver import main as cli_main
 
     t0 = time.perf_counter()
-    conf = zoo.deep_autoencoder()
+    conf = zoo.deep_autoencoder(iterations=PRE_AE["iterations"],
+                                finetune_iterations=PRE_AE["finetune"])
     x = pre_curves(PRE_AE["rows"])
     xd = torch.from_numpy(x).to(PRE_DEVICE)
     captured = pre_net(conf)
@@ -5454,7 +5647,7 @@ def pre_deep_ae(torch, kernels, card):
            "capture_s": captured.step_cache.stats.total_compile_seconds,
            "graph_pool_bytes": captured.step_cache.pool.reserved_bytes,
            "wall_ms": {name: r["wall_ms"] for name, r in runs.items()}}
-    # one profiled pretrain run of layer 0 (30 iterations) and one CG run
+    # one profiled pretrain run of layer 0 and one CG run
     # from the unrolled params
     prof_pre = conv_profile(
         torch, kernels, lambda: captured.pretrain_layer(0, xd),
@@ -5484,7 +5677,8 @@ def pre_deep_ae(torch, kernels, card):
     with tempfile_dir() as td:
         rc, out = cli_json(cli_main, [
             "train", "--zoo", "deep_autoencoder:hidden=400x200x100x50x25x6,"
-            "iterations=30,finetune=60", "--input",
+            f"iterations={PRE_AE['iterations']},"
+            f"finetune={PRE_AE['finetune']}", "--input",
             f"curves:{PRE_AE['rows']}",
             "--output", os.path.join(td, "dae")])
     check(rc == 0 and np.isfinite(out["score"]) and out["score"] < score0,
@@ -5569,8 +5763,10 @@ def pre_rbm_draws(torch, net, x):
 
 
 def pre_dbn_cut(torch, conf, x, y):
-    """Layer 0's pretraining (30 CD-1 iterations) on a cut, card against
-    the CPU port from the same params and key."""
+    """Layer 0's pretraining (PRE_DBN["cut_iterations"] CD-1 iterations)
+    on a cut, card against the CPU port from the same params and key."""
+    conf = conf.replace(confs=(conf.confs[0].replace(
+        num_iterations=PRE_DBN["cut_iterations"]),) + conf.confs[1:])
     start = pre_leaves(pre_net(conf))
 
     def pretrain(inputs):
@@ -5668,7 +5864,7 @@ def pre_dbn(torch, kernels, card):
     with tempfile_dir() as td:
         rc, out = cli_json(cli_main, [
             "train", "--zoo", "dbn:hidden=500x500x2000", "--input",
-            f"mnist:{n_train + PRE_DBN['held_out']}", "--scale-01",
+            f"mnist:{PRE_DBN['cli']}", "--scale-01",
             "--properties", f"batch={bsz}",
             "--output", os.path.join(td, "dbn")])
     check(rc == 0 and np.isfinite(out["score"]),
@@ -5839,15 +6035,15 @@ def phase_pretraining(torch, kernels):
 #: RandomState(0): `steps` eager, then `steps` captured trainer steps (each
 #: held bitwise to the eager one), `timed` event-timed captured steps and as
 #: many `fit` steps, one profiled step, `zero1_steps` ZeRO-1 steps
-DP = dict(rows=32, steps=3, timed=5, zero1_steps=2)
+DP = dict(rows=32, steps=2, timed=3, zero1_steps=2)
 #: the SIGTERM child: the flagship's widths at `blocks` blocks, `batches`
 #: batches of `rows` rows, stopped after `stop`
-DP_CKPT = dict(blocks=2, rows=8, batches=6, stop=3)
+DP_CKPT = dict(blocks=2, rows=8, batches=4, stop=2)
 #: the bench's char-LSTM (bench.py:249-263: LSTM's widths, batch 256 x 64)
 #: and VGG-CIFAR10 (bench.py:319-328: width 64, batch 512, the CIFAR
 #: stand-in) through the trainer
-DP_LSTM = dict(steps=3, timed=5)
-DP_VGG = dict(width=64, batch=512, steps=3, timed=5)
+DP_LSTM = dict(steps=2, timed=3)
+DP_VGG = dict(width=64, batch=512, steps=2, timed=3)
 #: a trainer step against one `fit` call (bf16 compute, where the two take
 #: the loss's mean in another order), and the BatchNorm EMA likewise: the
 #: gap may be a hundredth of how far that step moved the leaves, so a
@@ -6201,6 +6397,7 @@ def dp_vgg(torch, kernels, card):
     ema = dp_gap(torch, step1_ema, [(f"params/{n}", t) for n, t in fit_ema])
     step_ms, _ = dp_step_times(torch, trainer, x, y, cfg["timed"])
     books = dp_books(trainer)
+    sharded_async = dp_sharded_async(torch, trainer)
     row = {"phase": "data_parallel_vgg", "gpu": card, "width": cfg["width"],
            "batch": cfg["batch"], "step_ms": step_ms,
            "step_ms_median": median(step_ms),
@@ -6209,8 +6406,12 @@ def dp_vgg(torch, kernels, card):
            "captured_vs_eager": gaps,
            "ema_step1_vs_fit": {**ema, "step_max_abs": moved,
                                 "tol": DP_STEP_TOL * moved},
-           "graph": books, "seconds": time.perf_counter() - t0}
+           "graph": books, "sharded_async": sharded_async,
+           "seconds": time.perf_counter() - t0}
     emit(row)
+    check(sharded_async["bitwise"] and sharded_async["leaves"] > 0,
+          f"data_parallel VGG: the save_sharded_async checkpoint differs "
+          f"from save_sharded's: {sharded_async}")
     for i, gap in enumerate(gaps):
         check(gap["bitwise"], f"data_parallel VGG: captured step {i + 1} "
               f"differs from the eager one: {gap}")
@@ -6220,6 +6421,47 @@ def dp_vgg(torch, kernels, card):
           f"(fit moved it by {moved}): {ema}")
     check(books["dp_step_cache"]["misses"] == 1,
           f"data_parallel VGG: captured under traffic: {books}")
+
+
+def dp_sharded_async(torch, trainer) -> dict:
+    """The trainer's state (params and updater, on the card) written by
+    `save_sharded_async`, then `join_async`, against `save_sharded` of the
+    same state: both loaded back, every leaf bitwise equal. The params are
+    changed between the async call and the join (and put back after),
+    which the async checkpoint must not see."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.optimize.tree import tree_leaves
+    from deeplearning4j_tpu_torch.parallel import checkpoint
+
+    st = trainer.state
+    with tempfile.TemporaryDirectory() as td:
+        sync, lazy = os.path.join(td, "sync"), os.path.join(td, "async")
+        t = time.perf_counter()
+        checkpoint.save_sharded(sync, st.params, st.updater, step=st.step)
+        sync_s = time.perf_counter() - t
+        t = time.perf_counter()
+        checkpoint.save_sharded_async(lazy, st.params, st.updater,
+                                      step=st.step)
+        call_s = time.perf_counter() - t
+        kept = [leaf.clone() for leaf in tree_leaves(st.params)]
+        for leaf in tree_leaves(st.params):
+            leaf.add_(1.0)  # after the call: not in the checkpoint
+        checkpoint.join_async()
+        async_s = time.perf_counter() - t
+        for leaf, k in zip(tree_leaves(st.params), kept):
+            leaf.copy_(k)
+        del kept
+        a, ua, ma = checkpoint.load_sharded(sync, like_params=st.params,
+                                            like_updater=st.updater)
+        b, ub, mb = checkpoint.load_sharded(lazy, like_params=st.params,
+                                            like_updater=st.updater)
+    pairs = list(zip(tree_leaves((a, ua)), tree_leaves((b, ub))))
+    return {"leaves": len(pairs),
+            "bytes": sum(t.numel() * t.element_size() for t, _ in pairs),
+            "bitwise": ma == mb and all(torch.equal(p, q) for p, q in pairs),
+            "save_sharded_s": sync_s, "save_sharded_async_call_s": call_s,
+            "save_sharded_async_join_s": async_s}
 
 
 def dp_ckpt_child(workdir) -> int:
@@ -6352,7 +6594,7 @@ def dp_close() -> None:
 #: the flagship through `DataParallelTrainer(plan=)`: RandomState(0)'s 32 x
 #: 512 ids (the data_parallel phase's batch), `steps` steps held to the
 #: sync trainer (one card) or the one-rank plan run (four), `timed` replays
-TP = dict(rows=32, steps=3, timed=5)
+TP = dict(rows=32, steps=2, timed=3)
 #: the sharded checkpoint on four cards: the flagship at `blocks` blocks,
 #: batches of `rows`, checkpointed after `batches` batches by 2 x 2 and
 #: resumed on 1 x 4
@@ -7411,8 +7653,9 @@ def sm_ranks(torch, kernels) -> int:
 
 #: the flagship from seed 0 with f32 compute, served under each policy on
 #: `rows` x SLICE seq ids; its generation is the serve_mesh phase's (SM's
-#: slots, max_seq, prompt buckets and prompts), greedy
-SP = dict(rows=4, seed=0)
+#: slots, max_seq, prompt buckets and prompts), greedy; `cli_requests`
+#: requests to the CLI's server
+SP = dict(rows=4, seed=0, cli_requests=2)
 SP_POLICIES = ("f32", "bf16", "int8")
 #: the flash forward's body by policy: the 3xTF32 one on the f32 conf's
 #: float32 operands, the TMA bf16 one where the policy computes in bf16
@@ -7764,9 +8007,9 @@ def sp_store(torch, kernels, net, x, int8_out, card, workdir) -> dict:
 def sp_cli(torch, net, card, workdir) -> dict:
     """`warmup --precision int8 --compile-cache D --shapes 4x512` in
     process, then `serve --precision int8 --compile-cache D --shapes 4x512`
-    as a subprocess and 4 POST /v1/predict of one row each: its int8
-    weights come from the artifact, `/v1/stats` shows int8, and no request
-    captured (`fresh_compiles` as at startup)."""
+    as a subprocess and SP["cli_requests"] POST /v1/predict of one row
+    each: its int8 weights come from the artifact, `/v1/stats` shows int8,
+    and no request captured (`fresh_compiles` as at startup)."""
     from deeplearning4j_tpu_torch.cli.driver import main as cli_main
     from deeplearning4j_tpu_torch.parallel import checkpoint
 
@@ -7785,8 +8028,9 @@ def sp_cli(torch, net, card, workdir) -> dict:
     check(rc == 0, "serve_precision: cli warmup failed")
     xs = [np.random.RandomState(20 + i).randint(
         0, SLICE["vocab"], (1, SLICE["seq"])).astype(np.int32)
-        for i in range(4)]
-    served, answers = cli_serve(torch, ckpt, xs, ["interactive"] * 4, shapes,
+        for i in range(SP["cli_requests"])]
+    served, answers = cli_serve(torch, ckpt, xs,
+                                ["interactive"] * SP["cli_requests"], shapes,
                                 extra=["--precision", "int8",
                                        "--compile-cache", cache,
                                        *sp_device_flags()])
@@ -7869,8 +8113,8 @@ def phase_serve_precision(torch, kernels):
 #: the fleet phase (item 21): the flagship at SLICE's widths cut to
 #: FL["n_blocks"] blocks (bf16 compute), the tile-variant cases, the
 #: requests through the router and the tune's decode sweep length
-FL = dict(n_blocks=2, seed=0, requests=16, burst=64, burst_threads=8,
-          heal_requests=4, agent_requests=4, gen_max_seq=64, rounds=3,
+FL = dict(n_blocks=2, seed=0, requests=4, burst=16, burst_threads=8,
+          heal_requests=2, agent_requests=2, gen_max_seq=64, rounds=2,
           timeout_s=300.0)
 FL_DEVICE = "cuda"
 #: the serve group's row candidates (`batcher.target_rows`' space)
@@ -8479,7 +8723,7 @@ def fleet_tile_entries(summary):
 TT = dict(train=8544, held_out=2210, min_tokens=5, max_tokens=56,
           p_sentiment=0.4, p_negation=0.01, dim=25, classes=5, max_nodes=128,
           lr=0.05, l2=1e-4, epochs=30, eager_steps=2, rae_epochs=10,
-          cpu_trees=512, cpu_epochs=3, cpu_rel_tol=1e-5, cpu_param_tol=1e-4,
+          cpu_trees=512, cpu_epochs=1, cpu_rel_tol=1e-5, cpu_param_tol=1e-4,
           tag_sentences=256,
           w2v_sentences=512, w2v_vector=32, window=5, mlp_batch=256,
           mlp_steps=6)
@@ -8960,7 +9204,7 @@ SC = dict(w2v_workers=4, w2v_epochs=1, profile_share=0.1,
           glove_batch=4096, glove_epochs=2, glove_workers=4, glove_lr=0.01,
           km_n=1_000_000, km_d=128, km_k=256, km_spread=2.0, km_subset=20_000,
           km_tol=1e-4, km_max_iters=100, km_rate=1e-3,
-          tsne_n=10_000, tsne_iters=1000, tsne_check_n=500,
+          tsne_n=10_000, tsne_iters=300, tsne_check_n=500,
           tsne_check_iters=10, tsne_check_tol=1e-4, tsne_check_p_tol=1e-5,
           bh_n=2000, bh_iters=100, bh_stop=50,
           ps_workers=3, ps_rounds=4, ps_slow=2.0, fleet_ranks=2)
@@ -9948,6 +10192,7 @@ def wait_turn(torch, argv) -> None:
     torch.cuda.synchronize()
     if sys.stdin.readline().strip() != "go":
         sys.exit(3)
+    _T0[0] = time.perf_counter()
 
 
 def stop_at_exit(proc) -> None:
@@ -10188,93 +10433,122 @@ def main(argv) -> int:
     # the scaleout_clustering phase's Barnes-Hut t-SNE, on one host thread
     # beside every phase up to that one's end
     bh_proc = sc_bh_start()
-    fwd_rows = phase_kernels(torch, kernels)
+    with phase_clock("kernels"):
+        fwd_rows = phase_kernels(torch, kernels)
     fwd_row, fwd_train_row = fwd_rows["serve"], fwd_rows["train"]
-    bwd_rows = phase_bwd_kernels(torch, kernels)
-    reference_rows = phase_f32_reference(torch, kernels)
-    serve_launches = phase_serve(torch, kernels)
+    with phase_clock("bwd_kernels"):
+        bwd_rows = phase_bwd_kernels(torch, kernels)
+    with phase_clock("f32_reference"):
+        reference_rows = phase_f32_reference(torch, kernels)
+    with phase_clock("serve"):
+        serve_launches, surface_launches = phase_serve(torch, kernels)
     gc.collect()
     torch.cuda.empty_cache()
-    gen_launches, gen_kernel_rows, gen_option_launches = phase_generate(
-        torch, kernels)
+    with phase_clock("generate"):
+        gen_launches, gen_kernel_rows, gen_option_launches = phase_generate(
+            torch, kernels)
     check(gen_launches["flash_attn_fwd"] > 0,
           "the flash kernel never ran in generation")
-    train_launches, f32_train_launches = phase_train(torch, kernels)
+    with phase_clock("train"):
+        train_launches, f32_train_launches = phase_train(torch, kernels)
     gc.collect()
     check(serve_launches["flash_attn_fwd"] > 0, "the flash kernel never ran")
+    check(surface_launches > 0, "the flash kernel never ran under f1_score "
+          "and evaluate(evaluation=)")
     for name in ("flash_attn_fwd",) + BWD_KERNELS:
         check(train_launches[name] > 0, f"{name} never ran in training")
     torch.cuda.empty_cache()
-    lstm_rows, lstm_layer = phase_lstm_kernel(torch, kernels)
+    with phase_clock("lstm_kernel"):
+        lstm_rows, lstm_layer = phase_lstm_kernel(torch, kernels)
     lstm_row = lstm_rows["bench"]
-    lstm_train_launches = phase_lstm_train(torch, kernels)
-    ckpt_launches = phase_checkpoint(torch, kernels)
-    lstm_cli_launches = phase_lstm_cli(torch, kernels)
+    with phase_clock("lstm_train"):
+        lstm_train_launches = phase_lstm_train(torch, kernels)
+    with phase_clock("checkpoint"):
+        ckpt_launches = phase_checkpoint(torch, kernels)
+    with phase_clock("lstm_cli"):
+        lstm_cli_launches = phase_lstm_cli(torch, kernels)
     check(lstm_train_launches > 0 and lstm_cli_launches > 0
           and ckpt_launches > 0, "the LSTM cell kernel never ran")
     torch.cuda.empty_cache()
-    sents = bench_sentences()
-    fixed = w2v_fixed_batch(torch, sents)
-    _, centers, contexts, neg, vocab = fixed
-    scatter_rows = phase_scatter_kernel(
-        torch, kernels, centers, contexts, neg, vocab[1])
-    w2v_launches, w2v_row = phase_w2v_train(torch, kernels, sents, fixed)
+    with phase_clock("scatter_kernel"):
+        sents = bench_sentences()
+        fixed = w2v_fixed_batch(torch, sents)
+        _, centers, contexts, neg, vocab = fixed
+        scatter_rows = phase_scatter_kernel(
+            torch, kernels, centers, contexts, neg, vocab[1])
+    with phase_clock("w2v_train"):
+        w2v_launches, w2v_row = phase_w2v_train(torch, kernels, sents, fixed)
     del fixed, centers, contexts, neg, vocab
-    quality_launches = phase_embed_quality(torch, kernels)
+    with phase_clock("embed_quality"):
+        quality_launches = phase_embed_quality(torch, kernels)
     check(w2v_launches > 0 and all(quality_launches.values()),
           "the scatter-add kernel never ran")
     gc.collect()
     torch.cuda.empty_cache()
-    api_serve_launches, api_train_launches = phase_datasets_serve_api(
-        torch, kernels)
+    with phase_clock("datasets_serve_api"):
+        api_serve_launches, api_train_launches = phase_datasets_serve_api(
+            torch, kernels)
     for name in ("flash_attn_fwd",) + BWD_KERNELS:
         check(api_train_launches[name] > 0,
               f"{name} never ran in the datasets_serve_api phase's steps")
     gc.collect()
     torch.cuda.empty_cache()
-    phase_conv_nets(torch, kernels)
+    with phase_clock("conv_nets"):
+        phase_conv_nets(torch, kernels)
     gc.collect()
     torch.cuda.empty_cache()
     # the late phases' children: each starts while the phase before it runs
     children = Children({"--only-scaleout-clustering": ["--sc-no-bh"]})
     children.start()
-    phase_pretraining(torch, kernels)
+    with phase_clock("pretraining"):
+        phase_pretraining(torch, kernels)
     gc.collect()
     torch.cuda.empty_cache()
-    dp_launches = children.run("data_parallel")["launches"]
+    with phase_clock("data_parallel"):
+        dp_launches = children.run("data_parallel")["launches"]
     for name in ("flash_attn_fwd",) + BWD_KERNELS + ("lstm_cell",):
         check(dp_launches[name] > 0,
               f"{name} never ran in the data-parallel trainer's steps")
-    tp_summary = children.run("tensor_parallel")
+    with phase_clock("tensor_parallel"):
+        tp_summary = children.run("tensor_parallel")
     tp_launches = tp_summary["launches"]
     for name in ("flash_attn_fwd",) + BWD_KERNELS:
         check(tp_launches[name] > 0,
               f"{name} never ran in the tensor-parallel trainer's steps")
-    sm_summary = children.run("serve_mesh")
+    with phase_clock("serve_mesh"):
+        sm_summary = children.run("serve_mesh")
     sm_launches = sum(sm_summary["launches"].values())
     check(sm_launches > 0, "flash_attn_fwd never ran in the serve_mesh "
           "phase's mesh runs")
-    sp_summary = children.run("serve_precision")
+    with phase_clock("serve_precision"):
+        sp_summary = children.run("serve_precision")
     sp_launches = sp_summary["flash_launches"]
     check(sp_launches > 0 and sp_summary["lstm_launches"] > 0,
           "the serve_precision phase launched no flash or cell kernel")
-    fl_summary = children.run("fleet")
+    with phase_clock("fleet"):
+        fl_summary = children.run("fleet")
     fl_launches = fleet_flash_launches(fl_summary)
     check(fl_launches > 0, "flash_attn_fwd never ran in the fleet phase")
-    tt_summary = children.run("text_trees")
+    with phase_clock("text_trees"):
+        tt_summary = children.run("text_trees")
     tt_launches = tt_summary["scatter_launches"]
     check(tt_launches["rntn"] > 0 and tt_launches["rae"] > 0,
           "the scatter kernel never ran in the text_trees phase's steps")
-    sc_summary = children.run("scaleout_clustering")
-    sc_summary.update(sc_bh_summary(sc_bh_finish(bh_proc)))
+    with phase_clock("scaleout_clustering"):
+        sc_summary = children.run("scaleout_clustering")
+        sc_summary.update(sc_bh_summary(sc_bh_finish(bh_proc)))
     sc_launches = sc_summary["scatter_launches"]
     check(all(n > 0 for n in sc_launches.values()),
           "the scatter kernel never ran in the distributed Word2Vec or "
           "GloVe steps")
-    an_launches = children.run("analysis_ui")["launches"]
+    with phase_clock("analysis_ui"):
+        an_launches = children.run("analysis_ui")["launches"]
     for name in ("flash_attn_fwd",) + BWD_KERNELS + ("lstm_cell",):
         check(an_launches[name] > 0,
               f"{name} never ran in the analysis_ui phase")
+    emit({"phase": "phase_seconds", "gpu": card,
+          "total_s": time.perf_counter() - _T0[0],
+          "phases_s": PHASE_SECONDS})
 
     bwd_src = "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu"
     replaces = {"flash_bwd_delta": 229, "flash_bwd_dkv": 241,
@@ -10292,7 +10566,7 @@ def main(argv) -> int:
                      + dp_launches["flash_attn_fwd"]
                      + tp_launches["flash_attn_fwd"] + sm_launches
                      + sp_launches + fl_launches
-                     + an_launches["flash_attn_fwd"]),
+                     + an_launches["flash_attn_fwd"] + surface_launches),
         "launches_by_path": {"serve": serve_launches["flash_attn_fwd"],
                              "generate": gen_launches["flash_attn_fwd"],
                              **gen_option_launches,
@@ -10309,7 +10583,8 @@ def main(argv) -> int:
                              "serve_mesh": sm_launches,
                              "serve_precision": sp_launches,
                              "fleet": fl_launches,
-                             "analysis_ui": an_launches["flash_attn_fwd"]},
+                             "analysis_ui": an_launches["flash_attn_fwd"],
+                             "serve_f1_evaluate": surface_launches},
         # the f32 conf's forward under each serve policy: 8 launches, the
         # 3xTF32 body under f32 and the TMA bf16 body under bf16 and int8
         "serve_precision": {

@@ -13,6 +13,9 @@ numpy; a selection of examples takes each example's label rows
 from __future__ import annotations
 
 import collections
+import queue
+import threading
+import time
 from typing import Iterator, List, NamedTuple, Optional
 
 import numpy as np
@@ -264,29 +267,57 @@ class PrefetchIterator:
     PREFETCH_DEPTH).
     A DataSet becomes a `DeviceBatch`, a tuple a tuple of tensors, an array
     a tensor; float64 becomes float32, as the JAX package's transfer gives.
+    With `to_device=False` the base's items are handed over as they are.
 
     On a CUDA device each array is staged in pinned host memory and copied
     with `non_blocking=True` on a side stream, and an event is recorded
     after the copies; the consumer's stream waits on that event when the
     batch is handed over, so the copy of the next batches overlaps the
-    device work on this one. On the CPU it is a plain lookahead. The host
-    staging runs in the consumer's thread (the JAX package uses a worker
-    thread for its device_put; here the copy engine gives the overlap).
+    device work on this one. On the CPU it is a plain lookahead. Iterating
+    stages in the consumer's thread (the JAX package uses a worker thread
+    for its device_put; here the copy engine gives the overlap).
+
+    `start()`, `pull()` and `close()` are the JAX package's multi-consumer
+    form. A worker thread reads the base into a queue of `buffer_batches`
+    (firing `prefetch.worker` once a batch); any number of consumer threads
+    call `pull()`, and each batch goes to exactly one of them, staged as
+    above by the consumer that takes it from the queue (the worker makes
+    no CUDA call, so a consumer may capture a CUDA graph meanwhile).
+    `pull()` raises StopIteration at the end of the stream, for every
+    consumer, and after `close()`, which any thread may call and which
+    releases a consumer waiting for a batch; a worker error is raised at
+    exactly one consumer and ends the others' pulls.
 
     `device=None` is CUDA and raises without a GPU, as every entry point of
     the port does. Iterating again restarts from the base (its `reset()`
     first, where it has one)."""
 
+    _ITEM = "item"
+    _DONE = "done"
+    _ERROR = "error"
+    #: seconds a waiting consumer or worker sleeps between looks at the
+    #: stop flag
+    _WAIT_S = 0.05
+
     def __init__(self, base, device=None,
-                 buffer_batches: Optional[int] = None):
+                 buffer_batches: Optional[int] = None,
+                 to_device: bool = True):
         from deeplearning4j_tpu_torch.optimize import tunables
 
         self.base = base
         if buffer_batches is None:
             buffer_batches = tunables.resolve("data.prefetch_depth")
         self.buffer_batches = max(1, int(buffer_batches))
-        self.device = resolve_device(device)
+        self.to_device = bool(to_device)
+        self.device = resolve_device(device) if self.to_device else None
         self._stream: Optional[torch.cuda.Stream] = None
+        # the multi-consumer pipeline (`start`, `pull`, `close`)
+        self._lock = threading.Lock()
+        self._queue: Optional[queue.Queue] = None
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._pending: collections.deque = collections.deque()
+        self._end: Optional[tuple] = None
 
     def _tensor(self, a) -> torch.Tensor:
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
@@ -307,6 +338,8 @@ class PrefetchIterator:
 
     def _stage(self, item):
         """Start one batch's copy: (the batch, its copy event or None)."""
+        if not self.to_device:
+            return item, None
         if self.device.type != "cuda":
             return self._convert(item), None
         if self._stream is None:
@@ -341,6 +374,129 @@ class PrefetchIterator:
         while pending:
             yield self._hand_over(*pending.popleft())
 
+    # -- the multi-consumer pipeline -----------------------------------------
+    def _put(self, q: queue.Queue, stop: threading.Event, msg) -> bool:
+        """Queue `msg`, waiting in slices so that a stopped pipeline
+        releases the worker instead of leaving it on a full queue."""
+        while not stop.is_set():
+            try:
+                q.put(msg, timeout=self._WAIT_S)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _worker(self, q: queue.Queue, stop: threading.Event) -> None:
+        try:
+            for item in self.base:
+                if stop.is_set():
+                    return
+                faults.fire("prefetch.worker")
+                if not self._put(q, stop, (self._ITEM, item)):
+                    return
+            self._put(q, stop, (self._DONE, None))
+        except BaseException as e:  # noqa: BLE001 — raised at one consumer
+            self._put(q, stop, (self._ERROR, e))
+
+    def _start_locked(self) -> None:
+        self.close()
+        if hasattr(self.base, "reset"):
+            self.base.reset()
+        self._stop = threading.Event()
+        self._pending = collections.deque()
+        self._end = None
+        self._queue = queue.Queue(maxsize=self.buffer_batches)
+        self._thread = threading.Thread(
+            target=self._worker, args=(self._queue, self._stop),
+            name="dl4j-torch-prefetch", daemon=True)
+        self._thread.start()
+
+    def start(self) -> None:
+        """(Re)start the pipeline from the base. The first `pull()` starts
+        it where nothing has; after `close()`, only `start()` or `reset()`
+        does."""
+        with self._lock:
+            self._start_locked()
+
+    def _take(self, q: queue.Queue, stop: threading.Event):
+        """Under the lock: the next staged batch (batch, event), or None
+        when the worker has none ready yet. Stages what the queue holds,
+        up to `buffer_batches` beyond the one taken; at the end of the
+        stream raises StopIteration, or the worker's error once."""
+        wait = not self._pending
+        while self._end is None and len(self._pending) <= self.buffer_batches:
+            try:
+                kind, payload = (q.get(timeout=self._WAIT_S) if wait
+                                 else q.get_nowait())
+            except queue.Empty:
+                break
+            wait = False
+            if kind == self._ITEM:
+                self._pending.append(self._stage(payload))
+            else:
+                self._end = (kind, payload)
+        if self._pending:
+            return self._pending.popleft()
+        if self._end is None:
+            return None
+        kind, payload = self._end
+        if kind == self._ERROR:
+            # raised here once; the other consumers stop
+            self._end = (self._DONE, None)
+            stop.set()
+            raise payload
+        raise StopIteration
+
+    def pull(self):
+        """The next batch; thread-safe. Any number of consumer threads may
+        pull from one running pipeline, and each batch goes to exactly one
+        of them. Raises StopIteration at the end of the stream and after
+        `close()` (a consumer waiting then stops too); a worker error is
+        raised at exactly one consumer, and the others then stop."""
+        with self._lock:
+            if self._queue is None:
+                if self._stop.is_set():
+                    raise StopIteration  # closed: `start()` runs it again
+                self._start_locked()
+            q, stop = self._queue, self._stop
+        while not stop.is_set():
+            # a timed wait for the lock, so that `close()` releases a
+            # consumer queued behind another
+            if not self._lock.acquire(timeout=self._WAIT_S):
+                continue
+            try:
+                if stop.is_set():
+                    break
+                out = self._take(q, stop)
+            finally:
+                self._lock.release()
+            if out is not None:
+                return self._hand_over(*out)
+        raise StopIteration
+
+    def close(self, join_timeout: float = 5.0) -> None:
+        """Stop the pipeline's worker and join it (idempotent; any thread
+        may call it, a consumer waiting in `pull()` then stops). A worker
+        stuck inside the base is left behind as a daemon thread: the stop
+        flag ends it when its call returns."""
+        self._stop.set()
+        thread, self._thread = self._thread, None
+        q, self._queue = self._queue, None
+        if thread is None:
+            return
+        deadline = time.monotonic() + join_timeout
+        while thread.is_alive() and time.monotonic() < deadline:
+            # drain, so that a worker waiting on a full queue sees the flag
+            if q is not None:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+            thread.join(timeout=self._WAIT_S)
+
     def reset(self) -> None:
-        """DataSetIterator-style reset: nothing is held between
-        iterations, each of which restarts from the base."""
+        """DataSetIterator-style reset: the pipeline stops; iterating or
+        `pull()` starts again from the base."""
+        self.close()
+        with self._lock:
+            self._stop = threading.Event()

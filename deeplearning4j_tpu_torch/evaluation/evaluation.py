@@ -124,8 +124,8 @@ def _host(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def evaluate(net, data, batch_size: int = 0,
-             prefetch: bool = True) -> Evaluation:
+def evaluate(net, data, batch_size: int = 0, prefetch: bool = True,
+             evaluation: Optional[Evaluation] = None) -> Evaluation:
     """Evaluate `net` batch by batch instead of in one device call.
 
     `data` is a `DataSet`, a `DataSetIterator`, or any iterable of batches
@@ -134,7 +134,8 @@ def evaluate(net, data, batch_size: int = 0,
     rows, see `datasets.dataset`). With `prefetch=True` the batches reach
     `net.device` through `datasets.iterator.PrefetchIterator`, each copy
     overlapping the previous batch's forward. Counting is exact integer
-    math, so the result does not depend on the batching."""
+    math, so the result does not depend on the batching. With `evaluation`
+    the counts accumulate into that `Evaluation`, which is returned."""
     from deeplearning4j_tpu_torch.datasets.iterator import (
         ListDataSetIterator, PrefetchIterator)
 
@@ -146,7 +147,7 @@ def evaluate(net, data, batch_size: int = 0,
         batches = data
     if prefetch:
         batches = PrefetchIterator(batches, device=net.device)
-    ev = Evaluation()
+    ev = evaluation if evaluation is not None else Evaluation()
     for batch in batches:
         ev.eval(_host(batch.labels), _host(net.output(batch.features)))
     return ev

@@ -1,6 +1,7 @@
 """Canonical model configurations and the embedding model families.
 
-zoo               — canonical configs (charTransformer, char-LSTM)
+zoo               — canonical configs (charTransformer, char-LSTM, LeNet-5,
+                    VGG-CIFAR10, MLPs)
 char_lstm         — char-LSTM decoding
 word2vec          — skip-gram with hierarchical softmax + negative sampling
 glove             — co-occurrence weighted least squares
@@ -8,6 +9,8 @@ paragraph_vectors — doc embeddings on top of word2vec
 embeddings        — lookup tables, queries and word2vec file formats
 """
 
+from deeplearning4j_tpu_torch.models.zoo import (char_lstm, lenet5, mlp,
+                                                 vgg_cifar10)
 from deeplearning4j_tpu_torch.models.embeddings import (InMemoryLookupTable,
                                                         read_word_vectors,
                                                         write_word_vectors)

@@ -131,12 +131,47 @@ def get_rowwise(fn):
     return _checked(lf, _ROWWISE[lf])
 
 
-# -- batch-mean forms --------------------------------------------------------
+# -- batch-mean forms (the reference's scoring surface) ----------------------
+
+def _mean_of(lf: LossFunction):
+    """The batch mean of `lf`'s rowwise form, with its sparse-label
+    check."""
+    rows = get_rowwise(lf)
+
+    def f(labels, output):
+        return torch.mean(rows(labels, output))
+
+    f.__name__ = f.__qualname__ = lf.value
+    return f
+
+
+mcxent = _mean_of(LossFunction.MCXENT)
+xent = _mean_of(LossFunction.XENT)
+mse = _mean_of(LossFunction.MSE)
+expll = _mean_of(LossFunction.EXPLL)
+rmse_xent = _mean_of(LossFunction.RMSE_XENT)
+squared_loss = _mean_of(LossFunction.SQUARED_LOSS)
+negativeloglikelihood = _mean_of(LossFunction.NEGATIVELOGLIKELIHOOD)
+reconstruction_crossentropy = _mean_of(
+    LossFunction.RECONSTRUCTION_CROSSENTROPY)
+cosine_proximity = _mean_of(LossFunction.COSINE_PROXIMITY)
+
+_LOSSES = {
+    LossFunction.MCXENT: mcxent,
+    LossFunction.XENT: xent,
+    LossFunction.MSE: mse,
+    LossFunction.EXPLL: expll,
+    LossFunction.RMSE_XENT: rmse_xent,
+    LossFunction.SQUARED_LOSS: squared_loss,
+    LossFunction.NEGATIVELOGLIKELIHOOD: negativeloglikelihood,
+    LossFunction.RECONSTRUCTION_CROSSENTROPY: reconstruction_crossentropy,
+    LossFunction.COSINE_PROXIMITY: cosine_proximity,
+}
+
 
 def get_loss(fn):
     """Batch-mean loss `(labels, output) -> scalar`."""
-    rows = get_rowwise(fn)
-    return lambda labels, output: torch.mean(rows(labels, output))
+    return _LOSSES[LossFunction(str(fn).lower())]
 
 
 def score(labels, loss_fn, output, l2: float = 0.0, params_l2_norm_sq=None):

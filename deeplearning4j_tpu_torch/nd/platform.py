@@ -8,8 +8,9 @@ the kernels are built for sm_90a and refuse other cards.
 
 The JAX package runs one process over every device; the port runs one
 process per rank of a `torch.distributed` group (`parallel/mesh.py`).
-`device_count()` counts the CUDA devices this process sees, and `rank()`
-and `world_size()` read the default group (0 and 1 without one).
+`devices()` lists the CUDA devices this process sees and `device_count()`
+counts them; `rank()` and `world_size()` read the default group (0 and 1
+without one).
 
 This is the one module of the port that asks torch about the card
 (`torch.cuda.is_available`, `device_count`, `get_device_name`,
@@ -62,6 +63,14 @@ def cuda_available() -> bool:
 def device_count() -> int:
     """The CUDA devices this process sees (0 on a machine without one)."""
     return torch.cuda.device_count() if cuda_available() else 0
+
+
+def devices() -> Tuple[torch.device, ...]:
+    """The CUDA devices this process sees, in index order (none on a
+    machine without one): what the JAX package's `devices()` lists of its
+    default backend. An entry point takes one of them, or the CPU, as its
+    `device`."""
+    return tuple(torch.device("cuda", i) for i in range(device_count()))
 
 
 def device_capability(device: torch.device) -> Optional[Tuple[int, int]]:

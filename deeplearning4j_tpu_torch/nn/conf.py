@@ -290,6 +290,13 @@ class MultiLayerConfiguration:
                 return name
         return None
 
+    def override(self, i: int, **kwargs) -> "MultiLayerConfiguration":
+        """A new conf whose layer `i` has `kwargs` replaced:
+        `ListBuilder.override`'s per-layer override, on a built conf."""
+        confs = list(self.confs)
+        confs[i] = confs[i].replace(**kwargs)
+        return dataclasses.replace(self, confs=tuple(confs))
+
     def replace(self, **kwargs) -> "MultiLayerConfiguration":
         return dataclasses.replace(self, **kwargs)
 

@@ -71,6 +71,22 @@ def promoted_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(dt) @ w.to(dt)
 
 
+def rows_broadcast(v: torch.Tensor, n_rows: int, dtype=None) -> torch.Tensor:
+    """A feature vector v[F] over n_rows rows as `ones @ v[None]`, the JAX
+    package's rank-1 product: value-equal to a plain broadcast (1.0 * v_j
+    is exact), in `dtype` (a torch dtype or a conf's dtype name; None:
+    v's). JAX uses it so that the batch reduction of its backward is a
+    product whatever the batch; the port's layers broadcast plainly."""
+    if dtype is None:
+        dt = v.dtype
+    elif isinstance(dtype, torch.dtype):
+        dt = dtype
+    else:
+        dt = torch_dtype(dtype)
+    ones = torch.ones((n_rows, 1), dtype=dt, device=v.device)
+    return ones @ v[None, :].to(dt)
+
+
 def _sampler(conf):
     return conf.dist.sampler() if conf.dist is not None else None
 

@@ -8,6 +8,7 @@ the per-row loss without them (`rowwise_loss`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nd import losses as L
@@ -44,6 +45,27 @@ class OutputLayer(DenseLayer):
         if conf.use_regularization and conf.l1:
             s = s + conf.l1 * torch.sum(torch.abs(w))
         return s
+
+    @staticmethod
+    def score(params, conf, examples, labels) -> float:
+        """F1 of the layer's classifications on (examples, labels), the
+        reference's `OutputLayer.score(INDArray, INDArray)`: an
+        `Evaluation` over the forward's class probabilities. Scale 0-1,
+        higher is better, unlike `loss`, the training objective."""
+        from deeplearning4j_tpu_torch.evaluation.evaluation import (
+            Evaluation, _host)
+
+        if not isinstance(examples, torch.Tensor):
+            examples = torch.as_tensor(np.asarray(examples),
+                                       device=params["W"].device)
+            # the guard that keeps float64 off the device: it names the dtype
+            if examples.dtype == torch.float64:  # lint: allow(f64-literal)
+                examples = examples.float()
+        with torch.inference_mode():
+            probs = OutputLayer.forward(params, conf, examples)
+        ev = Evaluation()
+        ev.eval(_host(labels), _host(probs))
+        return float(ev.f1())
 
     @staticmethod
     def rowwise_loss(params, conf, x, labels, key=None, training=False,

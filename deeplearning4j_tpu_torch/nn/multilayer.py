@@ -784,6 +784,17 @@ class MultiLayerNetwork:
             return float(network_loss(self.conf, self.params, x, labels,
                                       training=False))
 
+    def f1_score(self, x, labels) -> float:
+        """Classification F1 on (x, labels): the reference's
+        `OutputLayer.score(examples, labels)` at the network's level, an
+        `Evaluation` over `output`. Higher is better, 0..1."""
+        from deeplearning4j_tpu_torch.evaluation.evaluation import (
+            Evaluation, _host)
+
+        ev = Evaluation()
+        ev.eval(_host(labels), _host(self.output(x)))
+        return float(ev.f1())
+
     def evaluate(self, data, labels=None, batch_size: int = 0,
                  prefetch: bool = True):
         """Classifier metrics over `data` (or the pair data, labels), batch

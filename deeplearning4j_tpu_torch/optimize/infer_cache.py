@@ -416,8 +416,8 @@ class InferCache(CompiledProgramCache):
 
     def _serve_bucket(self, n: int) -> int:
         """The bucket of `n` rows: under a mesh, the smallest known bucket
-        >= n that the batch axis divides, else a new one at the next
-        multiple, as the JAX package's."""
+        >= n that the batch axis divides, else the next multiple (kept as a
+        new bucket unless the set is fixed), as the JAX package's."""
         m = self._mesh_rows()
         if m == 1:
             return self.bucket_rows(n)
@@ -426,8 +426,9 @@ class InferCache(CompiledProgramCache):
             for b in self._buckets:
                 if b >= n and b % m == 0:
                     return b
-            self._buckets.append(target)
-            self._buckets.sort()
+            if not self._fixed_buckets:
+                self._buckets.append(target)
+                self._buckets.sort()
             return target
 
     def _bucket_of(self, n: int) -> int:

@@ -839,3 +839,16 @@ def optimize(objective: Objective, params0, conf, key=None):
     """Run the configured solver; returns (params, per-iteration scores)."""
     params, scores, _ = optimize_with_aux(objective, params0, conf, key)
     return params, scores
+
+
+class Solver:
+    """The reference's `Solver` as an object: a conf and an objective,
+    `optimize(params, key)` the configured solver over them (`optimize`).
+    The params' device is the device the solver runs on."""
+
+    def __init__(self, conf, objective: Objective):
+        self.conf = conf
+        self.objective = objective
+
+    def optimize(self, params, key=None):
+        return optimize(self.objective, params, self.conf, key)

@@ -322,8 +322,8 @@ class _Graph:
                                         for k in after})
             self.outputs = out
             self.launches = {k: after[k] - before[k] for k in after}
-            pool.reserved_bytes += (torch.cuda.memory_reserved(device)
-                                    - reserved)
+            self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+            pool.reserved_bytes += self.pool_bytes
 
     def stale(self, params) -> bool:
         return _data_ptrs(params) != self.ptrs
@@ -388,8 +388,8 @@ class _GraphSegments:
                 after = kernels.launch_snapshot()
                 kernels.count_launches({k: start[k] - after[k]
                                         for k in after})
-            pool.reserved_bytes += (torch.cuda.memory_reserved(device)
-                                    - reserved)
+            self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+            pool.reserved_bytes += self.pool_bytes
         self.fresh = True
 
     def stale(self, params) -> bool:
@@ -426,24 +426,29 @@ class CompiledProgramCache:
     """Keyed captured programs, grow-on-demand row buckets and the books:
     the machinery `TrainStepCache` and the serve-path `InferCache` share.
     pool: the `GraphPool` the graphs are captured into (a network gives
-    both of its caches one). `capture` False runs every program
-    uncaptured, on any device."""
+    both of its caches one). buckets: a fixed set of allowed batch-row
+    buckets (None: they grow on demand from the batch sizes seen; a fixed
+    set never grows, and a larger batch runs unpadded). persist: a
+    `PersistentProgramStore` (`set_persist`). `capture` False runs every
+    program uncaptured, on any device."""
 
     #: label used in miss logs so train and infer captures are told apart
     kind = "program-cache"
     capture = True
 
-    def __init__(self, pool: Optional[GraphPool] = None):
+    def __init__(self, pool: Optional[GraphPool] = None,
+                 buckets: Optional[Tuple[int, ...]] = None, persist=None):
         self._programs: Dict[Tuple, object] = {}
         self._fingerprints: Dict[int, str] = {}  # id(conf) memo
-        self._buckets: List[int] = []
+        self._buckets: List[int] = sorted(buckets) if buckets else []
+        self._fixed_buckets = buckets is not None
         self.pool = pool if pool is not None else GraphPool()
         self.stats = StepCacheStats()
         # the serving dispatcher and the caller's thread reach one cache:
         # lookup, bucket growth, capture and the books change under it
         self._lock = threading.RLock()
         # the persistent byte store (`optimize/persist.py`), or None
-        self._persist = None
+        self._persist = persist
         # one audit record a key (`audit_records`)
         self._audit_records: Dict[Tuple, dict] = {}
 
@@ -459,22 +464,29 @@ class CompiledProgramCache:
 
     # -- bucket policy ------------------------------------------------------
     def bucket_rows(self, n: int) -> int:
-        """Smallest known bucket >= n; otherwise n becomes a new bucket. A
-        tuned `infer.bucket_ladder` (optimize/tunables.py) pre-seeds the
-        grow-on-demand list; the registry default is the empty ladder,
-        which leaves the list as it was."""
+        """Smallest known bucket >= n; otherwise n becomes a new bucket
+        (a fixed set never grows: an oversize batch runs unpadded as its
+        own bucket, logged). A tuned `infer.bucket_ladder`
+        (optimize/tunables.py) pre-seeds the grow-on-demand list; the
+        registry default is the empty ladder, which leaves the list as it
+        was."""
         from deeplearning4j_tpu_torch.optimize import tunables
 
         with self._lock:
-            for b in tunables.resolve("infer.bucket_ladder"):
-                if int(b) not in self._buckets:
-                    self._buckets.append(int(b))
-                    self._buckets.sort()
+            if not self._fixed_buckets:
+                for b in tunables.resolve("infer.bucket_ladder"):
+                    if int(b) not in self._buckets:
+                        self._buckets.append(int(b))
+                        self._buckets.sort()
             for b in self._buckets:
                 if b >= n:
                     return b
-            self._buckets.append(n)
-            self._buckets.sort()
+            if self._fixed_buckets and self._buckets:
+                log.info("%s: batch of %d rows exceeds the fixed buckets "
+                         "%s; running unpadded", self.kind, n, self._buckets)
+            else:
+                self._buckets.append(n)
+                self._buckets.sort()
             return n
 
     @property
@@ -561,6 +573,55 @@ class CompiledProgramCache:
             self.stats.steps += 1
         return prog.run(params, inputs, read, self.stats)
 
+    def program_memory(self) -> List[dict]:
+        """One row a program (an audit record): {key, entry,
+        per_device_argument_bytes, replicated_argument_bytes,
+        memory_analysis}, the JAX package's keys. The per-device figure is
+        the bytes of the arguments this rank's program reads (under a
+        model axis its shards of the split leaves, `parallel/tensor.py`
+        SPLITS); the replicated figure counts each split leaf whole, as a
+        plan without the model axis would hold it. `memory_analysis` is
+        what the port can state of the program itself:
+        {"graph_pool_bytes"}, the device memory its capture added to the
+        graph pool, for a captured program, else None."""
+        with self._lock:
+            recs = list(self._audit_records.values())
+            programs = dict(self._programs)
+        rows = []
+        for rec in recs:
+            per_dev, whole = _argument_bytes(rec)
+            prog = programs.get(rec["key"])
+            pool_bytes = getattr(prog, "pool_bytes", None)
+            rows.append({"key": rec["key"],
+                         "entry": rec["key"][0] if rec["key"] else None,
+                         "per_device_argument_bytes": per_dev,
+                         "replicated_argument_bytes": whole,
+                         "memory_analysis": (
+                             None if pool_bytes is None
+                             else {"graph_pool_bytes": int(pool_bytes)})})
+        return rows
+
+    def clear(self) -> None:
+        """Forget every program, its audit record and the books (a fixed
+        bucket set stays, grown buckets go). The captured graphs are
+        dropped and the memory their captures added to the pool is given
+        back to the device; later captures go into a new pool."""
+        with self._lock:
+            graphs = [p for p in self._programs.values()
+                      if isinstance(p, (_Graph, _GraphSegments))]
+            self._programs.clear()
+            self._audit_records.clear()
+            self._buckets = (sorted(self._buckets) if self._fixed_buckets
+                             else [])
+            self.stats = StepCacheStats()
+            if graphs:
+                with self.pool.lock:
+                    self.pool.reserved_bytes -= sum(g.pool_bytes
+                                                    for g in graphs)
+                    self.pool.renew()
+                del graphs
+                torch.cuda.empty_cache()
+
     def drop_graphs(self) -> None:
         """Forget every captured graph (its memory returns to the pool): the
         params they read are no longer the network's. Books and buckets
@@ -589,6 +650,48 @@ class CompiledProgramCache:
             y = torch.cat([y, y.new_zeros((pad * ratio,)
                                           + tuple(y.shape[1:]))])
         return x, y, w
+
+
+def _argument_bytes(rec) -> Tuple[int, int]:
+    """(this rank's, whole) bytes of an audit record's arguments: a param
+    leaf the record's `layout` splits over the plan's model axis counts
+    `model_size` times in the whole; an int8 leaf's per-column scale too
+    where the split is over its columns."""
+    params, *inputs = rec["abstract"]
+    layout = rec.get("layout") or {}
+    size = int(getattr(rec.get("plan"), "model_size", 1) or 1)
+    per_dev = sum(t.nbytes for t in _spec_leaves(rec["abstract"]))
+    whole = per_dev
+    if size > 1 and isinstance(params, (tuple, list)):
+        for i, layer in enumerate(params):
+            if not isinstance(layer, dict):
+                continue
+            for name, leaf in layer.items():
+                split = layout.get((i, name))
+                if split is None:
+                    continue
+                if isinstance(leaf, dict):
+                    q = leaf["q"]
+                    split_specs = [q] + ([leaf["scale"]]
+                                         if split.dim == len(q.shape) - 1
+                                         else [])
+                else:
+                    split_specs = [leaf]
+                whole += (size - 1) * sum(t.nbytes for t in
+                                          _spec_leaves(split_specs))
+    return per_dev, whole
+
+
+def _spec_leaves(tree) -> List[TensorSpec]:
+    """The `TensorSpec` leaves of a record's tree (a spec is itself a
+    tuple, so `tree_leaves` would walk into it)."""
+    if isinstance(tree, TensorSpec):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _spec_leaves(x)]
+    if isinstance(tree, dict):
+        return [t for k in tree for t in _spec_leaves(tree[k])]
+    return []
 
 
 def _write_params(params, out):

@@ -22,9 +22,11 @@ them). Saves and loads traverse the
 `checkpoint.save` and `checkpoint.load` fault points where the JAX
 package's do.
 `save_async` takes an owned host copy of the params on the calling thread
-and writes it on a background thread; a failed background write is raised
-again by the next `save_async` or by `join_async`, which waits for every
-outstanding write, as in the JAX package.
+and writes it on a background thread, and `save_sharded_async` does so for
+this rank's pieces of the sharded layout; a failed background write is
+raised again by the next `save_async` or `save_sharded_async` or by
+`join_async`, which waits for every outstanding write, as in the JAX
+package.
 `params_from_numpy` turns the JAX package's params (a tuple of dicts of
 numpy arrays, as `jax.device_get` gives them) into the port's tensors, and
 `params_to_numpy` is its inverse.
@@ -183,9 +185,9 @@ def save(directory: str, params, updater=None, *,
     return directory
 
 
-# a failed background write is raised at the next save_async or join_async
-# call, never lost with its thread: a checkpoint the trainer believes exists
-# but does not is silent data loss
+# a failed background write is raised at the next save_async,
+# save_sharded_async or join_async call, never lost with its thread: a
+# checkpoint the trainer believes exists but does not is silent data loss
 _async_lock = threading.Lock()
 _async_threads: List[threading.Thread] = []
 _async_errors: List[BaseException] = []
@@ -225,6 +227,13 @@ def save_async(directory: str, params, updater=None,
     _raise_pending_async_error()
     snapshot = _host_snapshot(params)
     upd_snapshot = None if updater is None else _host_snapshot(updater)
+    return _start_async(
+        lambda: save(directory, snapshot, upd_snapshot, **kw), directory)
+
+
+def _start_async(write, directory: str) -> threading.Thread:
+    """Run `write()` on a background thread after the async write started
+    before it; its error is kept for the next call to raise."""
     with _async_lock:
         before = _async_threads[-1] if _async_threads else None
 
@@ -232,7 +241,7 @@ def save_async(directory: str, params, updater=None,
         try:
             if before is not None:
                 before.join()
-            save(directory, snapshot, upd_snapshot, **kw)
+            write()
         except BaseException as e:  # noqa: BLE001 — raised at the next call
             log.error("async checkpoint save to %s failed: %r", directory, e)
             with _async_lock:
@@ -248,7 +257,8 @@ def save_async(directory: str, params, updater=None,
 
 
 def join_async(timeout: Optional[float] = None) -> None:
-    """Wait for every outstanding `save_async`; raise the first failure."""
+    """Wait for every outstanding `save_async` and `save_sharded_async`;
+    raise the first failure."""
     with _async_lock:
         threads = list(_async_threads)
     for t in threads:
@@ -483,15 +493,72 @@ def save_sharded(directory: str, params, updater=None, *,
     leaf as every model rank's pieces (three a rank for the head-aligned
     `Wqkv`), which the other ranks send to rank 0 one piece at a time; no
     rank holds a split leaf whole. The group's rank 0 writes."""
+    writer = _sharded_writer(tp)
+    if writer:
+        faults.fire("checkpoint.save", path=directory)
+    pieces, index = _collect_sharded(params, updater, tp, writer)
+    if not writer:
+        return directory
+    return _write_sharded(directory, pieces, index, conf,
+                          _sharded_meta(step, data_cursor, metadata, mesh))
+
+
+def save_sharded_async(directory: str, params, updater=None, *,
+                       conf: MultiLayerConfiguration = None, step: int = 0,
+                       data_cursor: Optional[Dict[str, Any]] = None,
+                       metadata: Optional[Dict[str, Any]] = None,
+                       mesh: Optional[Dict[str, Any]] = None,
+                       tp=None) -> threading.Thread:
+    """`save_sharded` with the writes on a background thread. The host
+    copies of this rank's pieces are taken now, on the calling thread (with
+    `tp`, the pieces' sends to the group's rank 0 too), so training may
+    overwrite the params at once; the thread fires `checkpoint.save` and
+    writes the files. Failures and ordering are `save_async`'s: the error
+    of a failed write is raised at the next `save_async`,
+    `save_sharded_async` or `join_async`, and writes land in call order. A
+    rank that does not write returns a finished thread."""
+    _raise_pending_async_error()
+    writer = _sharded_writer(tp)
+    pieces, index = _collect_sharded(params, updater, tp, writer)
+    if not writer:
+        t = threading.Thread(target=lambda: None)
+        t.start()
+        return t
+    meta = _sharded_meta(step, data_cursor, metadata, mesh)
+
+    def write():
+        faults.fire("checkpoint.save", path=directory)
+        _write_sharded(directory, pieces, index, conf, meta)
+
+    return _start_async(write, directory)
+
+
+def _sharded_writer(tp) -> bool:
+    """Whether this rank writes a sharded checkpoint: the model group's
+    rank 0 under a model axis of more than one rank, else global rank 0."""
+    if tp is not None and tp.size > 1:
+        return tp.rank == 0
+    return platform.rank() == 0
+
+
+def _sharded_meta(step, data_cursor, metadata, mesh) -> Dict[str, Any]:
+    return {"step": int(step), "data_cursor": dict(data_cursor or {}),
+            "metadata": dict(metadata or {}),
+            "format_version": FORMAT_VERSION, "layout": "sharded",
+            "mesh": mesh or None}
+
+
+def _collect_sharded(params, updater, tp, writer: bool
+                     ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """The sharded layout's pieces as host arrays and its index, on the
+    writer (empty elsewhere); with `tp` over more than one model rank, the
+    other ranks send their pieces of each split leaf to the writer."""
     import torch.distributed as dist
 
     state = {"params": params}
     if updater is not None:
         state["updater"] = updater
     multi = tp is not None and tp.size > 1
-    writer = (tp.rank == 0) if multi else platform.rank() == 0
-    if writer:
-        faults.fire("checkpoint.save", path=directory)
     if multi:
         from deeplearning4j_tpu_torch.parallel.tensor import pieces as bounds
 
@@ -532,13 +599,7 @@ def save_sharded(directory: str, params, updater=None, *,
             index[path] = {"shape": shape,
                            "dtype": str(pieces[entry[0]["key"]].dtype),
                            "pieces": entry}
-    if not writer:
-        return directory
-    meta = {"step": int(step), "data_cursor": dict(data_cursor or {}),
-            "metadata": dict(metadata or {}),
-            "format_version": FORMAT_VERSION, "layout": "sharded",
-            "mesh": mesh or None}
-    return _write_sharded(directory, pieces, {"leaves": index}, conf, meta)
+    return pieces, {"leaves": index}
 
 
 def _load_local(directory: str, meta: Dict[str, Any], like_params,

@@ -59,6 +59,12 @@ class CircuitBreaker:
             self._state = self.HALF_OPEN
         return self._state
 
+    @property
+    def state_code(self) -> int:
+        """`STATE_CODES[self.state]`: the breaker gauge's value in
+        /metrics."""
+        return self.STATE_CODES[self.state]
+
     def allow(self) -> bool:
         """May this call try the primary path?  CLOSED: always.
         OPEN: never (until the reset timeout).  HALF_OPEN: with
